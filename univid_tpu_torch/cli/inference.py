@@ -1,0 +1,237 @@
+"""Video generation CLI of the PyTorch/CUDA port (t2v on the Wan stack).
+
+    python -m univid_tpu_torch.cli.inference --mode t2v --no_bagel \
+        --mock_weights --model t2v-1.3B --video_size 832x480 \
+        --video_length 81 --steps 50
+
+Flag-compatible with univid_tpu/cli/inference.py for the t2v path:
+prompt -> UMT5 -> UniPC / DPM++ flow-matching denoise over the Wan DiT
+(batch-2 CFG, TMA text weights) -> causal VAE decode -> mp4 + a JSON
+sidecar. Runs on `cuda` unless `--device cpu`. Flags of later port slices
+(BAGEL fusion, i2v, animate, LoRA, checkpoints, int8, qk_int8,
+bf16_softmax, TaylorSeer, prompt extension) exit with an error naming the
+slice; they never fall back to another path.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+from datetime import datetime
+
+DEFAULT_PROMPT = (
+    "A cinematic shot of a corgi running through a sunlit meadow, shallow "
+    "depth of field, golden hour lighting, 24fps smooth motion."
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="High-Quality Video Generation with Dynamic Text "
+                    "Weight (PyTorch/CUDA port)")
+    p.add_argument("--mode", type=str,
+                   choices=["t2v", "i2v", "both", "animate"], default="t2v")
+    p.add_argument("--image", type=str, default=None)
+    p.add_argument("--output_dir", type=str, default="./outputs")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--steps", type=int, default=50)
+    p.add_argument("--guidance", type=float, default=5.0)
+    p.add_argument("--use_lora", action="store_true")
+    p.add_argument("--lora_path", type=str,
+                   default="./lora_checkpoints/best")
+    p.add_argument("--bagel_strength", type=float, default=1.0)
+    p.add_argument("--video_length", type=int, default=None)
+    p.add_argument("--video_size", type=str, default="hd",
+                   help="'training' (512x320), 'hd' (1280x704) or 'WxH'")
+    p.add_argument("--disable_dynamic_weight", action="store_true")
+    p.add_argument("--text_weight_max", type=float, default=1.3)
+    p.add_argument("--text_weight_min", type=float, default=1.0)
+    p.add_argument("--weight_schedule", type=str, default="cosine",
+                   choices=["linear", "cosine", "exponential"])
+    p.add_argument("--transition_ratio", type=float, default=0.4)
+    p.add_argument("--prompt", type=str, default=None)
+    p.add_argument("--shift", type=float, default=5.0)
+    p.add_argument("--taylorseer", type=int, default=0)
+    p.add_argument("--bf16_residual", action="store_true",
+                   help="run the DiT residual stream in bf16 (fp32 AdaLN/"
+                        "time-embed/softmax islands kept)")
+    p.add_argument("--bf16_softmax", action="store_true")
+    p.add_argument("--int8", action="store_true")
+    p.add_argument("--qk_int8", action="store_true")
+    p.add_argument("--bounded_softmax", default=True,
+                   action=argparse.BooleanOptionalAction,
+                   help="bounded-softmax flash kernel (default on): the "
+                        "qk-norm gains bound the raw scores by d * "
+                        "max|g_q| * max|g_k|, so the kernel pins the "
+                        "softmax reference point there instead of "
+                        "tracking a running max (exact)")
+    p.add_argument("--solver", type=str, default="unipc",
+                   choices=["unipc", "dpm++", "dpm++3"])
+    p.add_argument("--model", type=str, default="t2v-1.3B")
+    p.add_argument("--checkpoint_dir", type=str, default=None)
+    p.add_argument("--bagel_path", type=str, default=None)
+    p.add_argument("--training_state", type=str, default=None)
+    p.add_argument("--null_context", type=str, default="bagel",
+                   choices=["bagel", "t5", "zeros"])
+    p.add_argument("--mock_weights", action="store_true",
+                   help="random weights drawn on the device from fixed "
+                        "seeds (hermetic run; the code path is the one "
+                        "real weights take)")
+    p.add_argument("--no_bagel", action="store_true",
+                   help="skip BAGEL fusion; pure UMT5 context path")
+    p.add_argument("--use_prompt_extend", action="store_true")
+    p.add_argument("--prompt_extend_method", default="offline",
+                   choices=["dashscope", "local_qwen", "offline"])
+    p.add_argument("--prompt_extend_model", default=None)
+    p.add_argument("--prompt_extend_target_lang", default="en",
+                   choices=["zh", "en"])
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device (cuda by default; cpu runs the "
+                        "kernels' plain versions)")
+    return p
+
+
+# (is the flag set?, the later port slice that brings it: a ROADMAP.md item)
+_LATER = [
+    (lambda a: a.mode in ("i2v", "both"),
+     "i2v is a later slice (ROADMAP.md queue 1: i2v)"),
+    (lambda a: a.model == "ti2v-5B",
+     "--model ti2v-5B is a later slice: its VAE's d=1024 fp32 attention "
+     "has no kernel yet (ROADMAP.md queue 2 item 1)"),
+    (lambda a: a.mode == "animate",
+     "--mode animate is a later slice (ROADMAP.md queue 1: WanAnimate)"),
+    (lambda a: not a.no_bagel,
+     "BAGEL fusion is a later slice (ROADMAP.md queue 1: BAGEL LM, "
+     "Fusion); pass --no_bagel"),
+    (lambda a: a.use_lora,
+     "--use_lora is part of a later slice (ROADMAP.md queue 1: Training)"),
+    (lambda a: a.checkpoint_dir is not None,
+     "--checkpoint_dir is a later slice (ROADMAP.md queue 1: "
+     "Checkpoints); use --mock_weights"),
+    (lambda a: a.int8,
+     "--int8 is a later slice (ROADMAP.md queue 1: int8 quantization)"),
+    (lambda a: a.qk_int8 or a.bf16_softmax,
+     "--qk_int8 / --bf16_softmax are a later slice (ROADMAP.md queue 2: "
+     "opt-in knobs)"),
+    (lambda a: a.taylorseer > 0,
+     "--taylorseer is a later slice (ROADMAP.md queue 1: BAGEL LM, "
+     "ops/taylorseer.py)"),
+    (lambda a: a.use_prompt_extend,
+     "--use_prompt_extend is a later slice (ROADMAP.md queue 1: prompt "
+     "extension)"),
+]
+
+
+def _parse_size(s: str):
+    if s == "hd":
+        return (1280, 704)
+    if s == "training":
+        return (512, 320)
+    w, h = s.replace("*", "x").split("x")
+    return (int(w), int(h))
+
+
+def build_pipeline(args):
+    """(pipeline, spec, text_encoder) with random weights drawn on
+    args.device: DiT and VAE in bf16 (as the JAX CLI's mock weights), UMT5
+    in fp32."""
+    import torch
+
+    from ..core.config import WAN_CONFIGS
+    from ..core.dtypes import BF16_RESIDUAL_POLICY, DEFAULT_POLICY
+    from ..models.wan.dit import WanDiT
+    from ..models.wan.vae_api import WanVAE
+    from ..pipelines.encoders import WanTextEncoder
+    from ..pipelines.ti2v import WanT2VPipeline
+
+    if args.model not in WAN_CONFIGS:
+        raise SystemExit(f"--model {args.model}: the port has "
+                         f"{sorted(WAN_CONFIGS)}")
+    if not args.mock_weights:
+        raise SystemExit("pass --mock_weights (checkpoint loading is a "
+                         "later slice)")
+    spec = WAN_CONFIGS[args.model]
+    dev = torch.device(args.device)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    dit = WanDiT(spec.dit, dtype=torch.bfloat16, device=dev, gen=gen(0))
+    vae = WanVAE(spec.vae, dtype=torch.bfloat16, device=dev, gen=gen(1))
+    text_enc = WanTextEncoder.random_init(spec, device=dev, gen=gen(2))
+    policy = BF16_RESIDUAL_POLICY if args.bf16_residual else DEFAULT_POLICY
+    if args.bounded_softmax:
+        policy = dataclasses.replace(policy, bounded_softmax=True)
+    return WanT2VPipeline(spec, dit, vae, policy=policy), spec, text_enc
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    for is_set, why in _LATER:
+        if is_set(args):
+            raise SystemExit(f"not in this port yet: {why}")
+
+    import torch
+
+    from ..core.config import TMAConfig
+    from ..data.video_io import save_video
+    from ..utils.profiling import PhaseTimer
+
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device; pass --device cpu to run the "
+                         "plain versions on the CPU")
+    # fp32 products in full fp32, as the JAX package's fp32 parts compute
+    # (PyTorch would otherwise run fp32 convolutions in TF32 on the card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(args.output_dir, exist_ok=True)
+
+    timer = PhaseTimer()
+    pipe, spec, text_enc = timer.time_phase("init_weights", build_pipeline,
+                                            args)
+    prompt = args.prompt or DEFAULT_PROMPT
+    size = _parse_size(args.video_size)
+    frames = args.video_length or spec.generation.frame_num
+    tma = TMAConfig(
+        enabled=not args.disable_dynamic_weight,
+        weight_max=args.text_weight_max, weight_min=args.text_weight_min,
+        schedule=args.weight_schedule,
+        transition_ratio=args.transition_ratio,
+        text_prefix_len=spec.dit.text_len)
+
+    ctx_pair = timer.time_phase("text_encode", text_enc,
+                                [prompt, spec.sample_neg_prompt])
+    t0 = time.time()
+    video = pipe.generate(
+        ctx_pair[0], ctx_pair[1], size=size, frame_num=frames,
+        shift=args.shift, sample_solver=args.solver,
+        sampling_steps=args.steps, guide_scale=args.guidance,
+        seed=args.seed, tma=tma, timer=timer)
+    frames_u8 = ((video.clamp(-1.0, 1.0) + 1.0) * 127.5).round() \
+        .to(torch.uint8).cpu().numpy()
+    dt = time.time() - t0
+
+    stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+    out = os.path.join(args.output_dir, f"t2v_{stamp}.mp4")
+    path = timer.time_phase("save", save_video, frames_u8, out,
+                            fps=spec.generation.fps)
+    meta = {
+        "prompt": prompt, "mode": "t2v", "model": args.model,
+        "size": list(size), "frames": frames, "steps": args.steps,
+        "guidance": args.guidance, "seed": args.seed,
+        "solver": args.solver, "tma": dataclasses.asdict(tma),
+        "device": str(pipe.device), "generation_time_s": round(dt, 2),
+        "phase_times_s": timer.summary(), "context_path": "umt5",
+        "video_path": path,
+    }
+    with open(path + ".json", "w") as f:
+        json.dump(meta, f, indent=2)
+    print(json.dumps(meta), flush=True)
+    return [meta]
+
+
+if __name__ == "__main__":
+    main()

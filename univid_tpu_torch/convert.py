@@ -1,0 +1,98 @@
+"""Turn JAX parameter trees (numpy leaves) into the port's modules.
+
+The port's modules keep the JAX trees' parameter names, so a tree maps onto
+a state dict key by key. Layout rules, by leaf name and rank:
+  * `w` of rank 2, a linear [in, out]        -> [out, in];
+  * `w` of rank 5, a conv3d THWIO            -> [Cout, Cin, kt, kh, kw];
+  * `w` of rank 4, a 2D conv HWIO (resample) -> [Cout, Cin, 1, kh, kw];
+  * every other leaf as it is.
+The DiT's `blocks` leaves are stacked [num_layers, ...] in the JAX tree
+(one lax.scan); they are unstacked into the ModuleList here.
+Leaves may be numpy arrays or anything `np.asarray` accepts (bf16 leaves
+included); nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from .core.config import T5Config, WanDiTConfig, WanVAEConfig
+from .models.wan.dit import WanDiT
+from .models.wan.t5 import UMT5Encoder
+from .models.wan.vae_api import WanVAE
+
+
+def _to_torch(x) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":  # ml_dtypes: exact through fp32
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))  # a writable copy
+
+
+def _layout(name: str, t: torch.Tensor) -> torch.Tensor:
+    if name == "w" and t.ndim == 2:
+        return t.t()
+    if name == "w" and t.ndim == 5:
+        return t.permute(4, 3, 0, 1, 2)
+    if name == "w" and t.ndim == 4:
+        return t.permute(3, 2, 0, 1)[:, :, None]
+    return t
+
+
+def _flatten(tree, prefix="") -> Dict[str, object]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, key + "."))
+        else:
+            out[key] = v
+    return out
+
+
+def jax_tree_to_state_dict(tree, stacked: Optional[str] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """Flatten a JAX parameter tree into a state dict of the port's module;
+    `stacked` names a subtree whose leaves carry a leading layer axis."""
+    sd = {}
+    for key, leaf in _flatten(tree).items():
+        t = _to_torch(leaf)
+        name = key.rsplit(".", 1)[-1]
+        if stacked is not None and key.startswith(stacked + "."):
+            rest = key[len(stacked) + 1:]
+            for i in range(t.shape[0]):
+                sd[f"{stacked}.{i}.{rest}"] = _layout(name, t[i]).contiguous()
+        else:
+            sd[key] = _layout(name, t).contiguous()
+    return sd
+
+
+def _load(module, sd, dtype):
+    if dtype is not None:
+        sd = {k: v.to(dtype) for k, v in sd.items()}
+    module.load_state_dict(sd, strict=True)
+    return module
+
+
+def dit_from_jax(params, cfg: WanDiTConfig, *, device="cuda",
+                 dtype=None) -> WanDiT:
+    """univid_tpu init_wan_dit / checkpoint tree -> WanDiT on `device`
+    (leaf dtypes kept unless `dtype` is given)."""
+    model = WanDiT(cfg, dtype=dtype or torch.float32, device=device)
+    return _load(model, jax_tree_to_state_dict(params, stacked="blocks"),
+                 dtype)
+
+
+def vae_from_jax(params, cfg: WanVAEConfig, *, device="cuda",
+                 dtype=None) -> WanVAE:
+    model = WanVAE(cfg, dtype=dtype or torch.float32, device=device)
+    return _load(model, jax_tree_to_state_dict(params), dtype)
+
+
+def t5_from_jax(params, cfg: T5Config, *, device="cuda",
+                dtype=None) -> UMT5Encoder:
+    model = UMT5Encoder(cfg, dtype=dtype or torch.float32, device=device)
+    return _load(model, jax_tree_to_state_dict(params), dtype)

@@ -1,0 +1,101 @@
+"""Attention dispatcher: the hand-written kernels, or the plain reference.
+
+Counterpart of univid_tpu/kernels/attention.py::attention for the
+inference options of the t2v main path. Inputs are [B, L, N, D] and may be
+unpadded: the kernel route pads Lq and Lk to the kernels' tile multiple,
+masks padded keys through kv_len and slices the output back. Routes:
+
+  kernel     — kernels.flash_attention (CUDA kernels on the card, their
+               plain versions on the CPU), for head dims that are multiples
+               of 128
+  reference  — `mha_reference`, a masked softmax attention, for other head
+               dims (as on the TPU)
+
+Causal attention, q offsets, segment masks, softmax_bf16 and qk_int8 are
+later slices and raise here.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .flash_attention import (LOG2E, NEG_INF, TILE, flash_attention_padded,
+                              rotate)
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def mha_reference(q, k, v, *, kv_len=None, softmax_scale=None):
+    """Masked attention with an fp32 softmax (the JAX package's XLA path):
+    keys at or past kv_len[b] are masked, and rows with kv_len == 0 are
+    zero. p is rounded to v's dtype for p @ v; the output has q's dtype."""
+    d = q.shape[-1]
+    lk = k.shape[1]
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * softmax_scale
+    if kv_len is not None:
+        kv_len = kv_len.to(q.device)
+        valid = torch.arange(lk, device=q.device)[None, :] < kv_len[:, None]
+        s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    if kv_len is not None:
+        p = torch.where((kv_len > 0)[:, None, None, None], p, 0.0)
+    o = torch.einsum("bnqk,bknd->bqnd", p.to(v.dtype).float(), v.float())
+    return o.to(q.dtype)
+
+
+def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
+              score_bound=None, causal=False, q_segments=None,
+              softmax_bf16=False, qk_int8=False):
+    """Multi-head attention over [B, L, N, D] tensors (non-causal).
+
+    kv_len: int32 [B] valid keys per batch row. rope_tables:
+    build_fused_rope_tables output (fused rotation of q and k). score_bound:
+    a PROVEN upper bound on the RAW q.k scores (d * max|g_q| * max|g_k| for
+    qk-normed rows) -> bounded softmax in the kernel route; the reference
+    route ignores it (exact softmax either way)."""
+    if causal or q_segments is not None or softmax_bf16 or qk_int8:
+        raise NotImplementedError(
+            "causal / segment attention and the softmax_bf16 / qk_int8 "
+            "knobs are later port slices (ROADMAP.md queue 2)")
+    b, lq, n, d = q.shape
+    lk = k.shape[1]
+    if kv_len is not None:
+        kv_len = torch.as_tensor(kv_len, dtype=torch.int32).to(q.device)
+    if d % 128 != 0:
+        if rope_tables is not None:
+            # rotate with the UNSCALED (k) tables: mha_reference scales
+            _, _, ck, sk = rope_tables
+            q = rotate(q, ck[:lq], sk[:lq], q.dtype)
+            k = rotate(k, ck[:lk], sk[:lk], k.dtype)
+        return mha_reference(q, k, v, kv_len=kv_len,
+                             softmax_scale=softmax_scale)
+
+    lq_pad = _round_up(lq, TILE)
+    lk_pad = _round_up(lk, TILE)
+    if lk_pad != lk and kv_len is None:
+        kv_len = torch.full((b,), lk, dtype=torch.int32, device=q.device)
+    if lq_pad != lq:
+        q = F.pad(q, (0, 0, 0, 0, 0, lq_pad - lq))
+    if lk_pad != lk:
+        k = F.pad(k, (0, 0, 0, 0, 0, lk_pad - lk))
+        v = F.pad(v, (0, 0, 0, 0, 0, lk_pad - lk))
+
+    folded_bound = None
+    if score_bound is not None:
+        # kernel scores carry softmax_scale * log2(e): fold the raw bound
+        sc = softmax_scale if softmax_scale is not None \
+            else 1.0 / math.sqrt(d)
+        folded_bound = torch.as_tensor(score_bound, dtype=torch.float32) \
+            .to(q.device) * (sc * LOG2E)
+    o = flash_attention_padded(q, k, v, kv_len=kv_len,
+                               softmax_scale=softmax_scale,
+                               rope_tables=rope_tables,
+                               score_bound=folded_bound)
+    return o[:, :lq]

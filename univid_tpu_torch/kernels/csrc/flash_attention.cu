@@ -1,0 +1,395 @@
+// Flash attention forward for Hopper (sm_90a), bf16 inputs, fp32 softmax.
+//
+// Replaces two Pallas TPU kernels of univid_tpu/kernels/flash_attention.py:
+//   * _flash_kernel (:44) in its DiT self-attention mode: fused 3D-RoPE
+//     prologue, bounded softmax p = exp2(s - C) with no running max (or the
+//     running-max form when no bound is given), kv_len masking with dead
+//     kv tiles skipped, zero output rows when l == 0;
+//   * _cross_kernel (:355): single-kv-block attention (Lk <= 512) with a
+//     one-shot softmax by the row max or by the bound, optional kv_len.
+//
+// What bounds it: at the main-path shape (q, k, v [2, 32768, 12, 128])
+// the work is 4*L*L*d flops per head against 4*L*d bytes, ~16k flops per
+// byte: the tensor cores bound it. The cross shape (32768 q x 512 kv) is
+// also flop-bound, but only by ~2x, so its q/out traffic matters.
+//
+// Design (FA2-style, simple first): one block of 4 warps per (b*h, 64-row
+// q tile); each warp owns 16 q rows. The q tile is loaded once and kept as
+// mma.sync A fragments in registers; k and v tiles of 64 rows stream
+// through shared memory with cp.async (v_j loads while s = q k_j^T runs,
+// k_{j+1} loads while p v_j runs). bf16 mma.sync m16n8k16 with fp32
+// accumulators; the softmax runs on the accumulator fragments in the exp2
+// domain (softmax_scale*log2e is folded into q, or into the q rope tables,
+// before this kernel). Shared tiles use an XOR swizzle of 16-byte chunks so
+// ldmatrix reads are free of bank conflicts. The TPU kernel's rotated-k
+// VMEM cache has no counterpart: the rope_rotate kernel below rotates q and
+// k once, in a pre-pass, into bf16 scratch (rounding points as on the TPU:
+// rotated q in q's dtype, rotated k in v's dtype).
+// Not yet used: wgmma, TMA, warp specialisation (later work).
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BR = 64;      // q rows per block
+constexpr int BC = 64;      // kv rows per tile
+constexpr int NTHREADS = 128;
+constexpr float NEG_INF = -1e30f;
+
+enum Mode { BOUNDED = 0, RUNNING = 1, ONESHOT = 2 };
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm volatile("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
+  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
+  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Element offset of 16-byte chunk `c` of row `r` in a swizzled [rows, D]
+// bf16 tile (D/8 chunks per row, chunk index XOR-ed with r % 8).
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * D + ((c ^ (r & 7)) << 3);
+}
+
+// Copy a [64, D] bf16 tile (row stride `ld` elements) into swizzled smem.
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          long long ld, int tid) {
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int i = tid; i < 64 * CH; i += NTHREADS) {
+    int r = i / CH, c = i % CH;
+    cp_async16(dst + swz<D>(r, c), src + r * ld + c * 8);
+  }
+}
+
+template <int D, int MODE>
+__global__ void __launch_bounds__(NTHREADS)
+flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ o,
+                      const int* __restrict__ kv_len,
+                      const float* __restrict__ bound, int n_heads,
+                      int lk, long long q_sb, long long q_sl, long long q_sh,
+                      long long k_sb, long long k_sl, long long k_sh,
+                      long long v_sb, long long v_sl, long long v_sh,
+                      long long o_sb, long long o_sl, long long o_sh) {
+  constexpr int KS = D / 16;   // k-steps of the q k^T product
+  constexpr int NT = BC / 8;   // n-tiles of s per warp
+  constexpr int OT = D / 8;    // n-tiles of the output per warp
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + BR * D;
+  __nv_bfloat16* Vs = Ks + BC * D;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.y, b = bh / n_heads, h = bh % n_heads;
+  const int q0 = blockIdx.x * BR;
+
+  const __nv_bfloat16* qp = q + b * q_sb + h * q_sh + (long long)q0 * q_sl;
+  const __nv_bfloat16* kp = k + b * k_sb + h * k_sh;
+  const __nv_bfloat16* vp = v + b * v_sb + h * v_sh;
+
+  int kv_end = lk;
+  if (kv_len != nullptr) kv_end = min(max(kv_len[b], 0), lk);
+  const int n_tiles = (kv_end + BC - 1) / BC;
+  const float c_bound = (MODE == BOUNDED) ? *bound : 0.f;  // folded score bound
+
+  float acc[OT][4];
+#pragma unroll
+  for (int i = 0; i < OT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  // per-thread partial row sums (rows g and g+8), reduced over the quad at
+  // the end; m_r: running max (RUNNING) or reference point (ONESHOT)
+  float l_r[2] = {0.f, 0.f};
+  float m_r[2] = {NEG_INF, NEG_INF};
+
+  uint32_t qa[KS][4];
+
+  if (n_tiles > 0) {
+    load_tile<D>(Qs, qp, q_sl, tid);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      int r = warp * 16 + (lane & 15);
+      int c = kk * 2 + (lane >> 4);
+      ldmatrix_x4(qa[kk], Qs + swz<D>(r, c));
+    }
+  }
+
+  // s = q k^T for the k tile in smem -> fragments s[NT][4], masked beyond kv_end
+  auto qk = [&](float (*s)[4], int kv0) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[n][j] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bfr[4];
+        int mi = lane >> 3, rr = lane & 7;
+        int r = np * 16 + (mi >> 1) * 8 + rr;
+        int c = kk * 2 + (mi & 1);
+        ldmatrix_x4(bfr, Ks + swz<D>(r, c));
+        mma_bf16(s[2 * np], qa[kk], bfr[0], bfr[1]);
+        mma_bf16(s[2 * np + 1], qa[kk], bfr[2], bfr[3]);
+      }
+    }
+    if (kv0 + BC > kv_end) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          int col = kv0 + n * 8 + 2 * t + (j & 1);
+          if (col >= kv_end) s[n][j] = NEG_INF;
+        }
+    }
+  };
+
+  if (MODE == ONESHOT) {
+    // pass 1: the exact row max over every live key (the one-shot softmax
+    // of _cross_kernel), then pass 2 runs with it as a per-row reference
+    for (int j = 0; j < n_tiles; ++j) {
+      load_tile<D>(Ks, kp + (long long)j * BC * k_sl, k_sl, tid);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      float s[NT][4];
+      qk(s, j * BC);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        m_r[0] = fmaxf(m_r[0], fmaxf(s[n][0], s[n][1]));
+        m_r[1] = fmaxf(m_r[1], fmaxf(s[n][2], s[n][3]));
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m_r[i] = fmaxf(m_r[i], __shfl_xor_sync(0xffffffff, m_r[i], 1));
+      m_r[i] = fmaxf(m_r[i], __shfl_xor_sync(0xffffffff, m_r[i], 2));
+    }
+  }
+
+  if (n_tiles > 0) {
+    load_tile<D>(Ks, kp, k_sl, tid);
+    cp_async_commit();
+  }
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // k_j landed; every warp is done with v_{j-1}
+    load_tile<D>(Vs, vp + (long long)j * BC * v_sl, v_sl, tid);
+    cp_async_commit();
+
+    float s[NT][4];
+    qk(s, j * BC);
+
+    if (MODE == RUNNING) {
+      float mc[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        mc[0] = fmaxf(mc[0], fmaxf(s[n][0], s[n][1]));
+        mc[1] = fmaxf(mc[1], fmaxf(s[n][2], s[n][3]));
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffff, mc[i], 1));
+        mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffff, mc[i], 2));
+        float m_new = fmaxf(m_r[i], mc[i]);
+        float corr = fast_exp2(m_r[i] - m_new);
+        m_r[i] = m_new;
+        l_r[i] *= corr;
+#pragma unroll
+        for (int n = 0; n < OT; ++n) {
+          acc[n][2 * i] *= corr;
+          acc[n][2 * i + 1] *= corr;
+        }
+      }
+    }
+    const float ref0 = (MODE == BOUNDED) ? c_bound : m_r[0];
+    const float ref1 = (MODE == BOUNDED) ? c_bound : m_r[1];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      s[n][0] = fast_exp2(s[n][0] - ref0);
+      s[n][1] = fast_exp2(s[n][1] - ref0);
+      s[n][2] = fast_exp2(s[n][2] - ref1);
+      s[n][3] = fast_exp2(s[n][3] - ref1);
+      l_r[0] += s[n][0] + s[n][1];
+      l_r[1] += s[n][2] + s[n][3];
+    }
+
+    cp_async_wait_all();
+    __syncthreads();  // v_j landed; every warp is done with k_j
+    if (j + 1 < n_tiles) {
+      load_tile<D>(Ks, kp + (long long)(j + 1) * BC * k_sl, k_sl, tid);
+      cp_async_commit();
+    }
+
+    // acc += p v_j, p rounded to bf16 (v's dtype) as on the TPU
+#pragma unroll
+    for (int kk = 0; kk < BC / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bfr[4];
+        int mi = lane >> 3, rr = lane & 7;
+        int r = kk * 16 + (mi & 1) * 8 + rr;
+        int c = dp * 2 + (mi >> 1);
+        ldmatrix_x4_trans(bfr, Vs + swz<D>(r, c));
+        mma_bf16(acc[2 * dp], pa, bfr[0], bfr[1]);
+        mma_bf16(acc[2 * dp + 1], pa, bfr[2], bfr[3]);
+      }
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_r[i];
+    l += __shfl_xor_sync(0xffffffff, l, 1);
+    l += __shfl_xor_sync(0xffffffff, l, 2);
+    inv[i] = l > 0.f ? 1.f / l : 0.f;
+  }
+  __nv_bfloat16* op = o + b * o_sb + h * o_sh + (long long)(q0 + warp * 16) * o_sl;
+#pragma unroll
+  for (int n = 0; n < OT; ++n) {
+    int col = n * 8 + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(op + (long long)g * o_sl + col) =
+        __floats2bfloat162_rn(acc[n][0] * inv[0], acc[n][1] * inv[0]);
+    *reinterpret_cast<__nv_bfloat162*>(op + (long long)(g + 8) * o_sl + col) =
+        __floats2bfloat162_rn(acc[n][2] * inv[1], acc[n][3] * inv[1]);
+  }
+}
+
+// y = x * cosF + swap_pairs(x) * sinF in fp32 (swap_pairs(x)[i] = x[i ^ 1]),
+// rounded to bf16. x [B, L, N, D] strided, tables [L, D] fp32, y contiguous.
+__global__ void rope_rotate_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                                        const float* __restrict__ cf,
+                                        const float* __restrict__ sf,
+                                        __nv_bfloat16* __restrict__ y, int L, int N,
+                                        int D, long long x_sb, long long x_sl,
+                                        long long x_sh, long long total_pairs) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total_pairs) return;
+  int dp = (int)(i % (D / 2));
+  long long rest = i / (D / 2);
+  int h = (int)(rest % N);
+  rest /= N;
+  int l = (int)(rest % L);
+  int b = (int)(rest / L);
+  int d = 2 * dp;
+  __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(
+      x + b * x_sb + l * x_sl + h * x_sh + d);
+  float x0 = __bfloat162float(xv.x), x1 = __bfloat162float(xv.y);
+  const float* c = cf + (long long)l * D + d;
+  const float* s = sf + (long long)l * D + d;
+  float y0 = __fadd_rn(__fmul_rn(x0, c[0]), __fmul_rn(x1, s[0]));
+  float y1 = __fadd_rn(__fmul_rn(x1, c[1]), __fmul_rn(x0, s[1]));
+  *reinterpret_cast<__nv_bfloat162*>(y + 2 * i) = __floats2bfloat162_rn(y0, y1);
+}
+
+template <int D, int MODE>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* kv_len,
+                   const void* bound, int B, int N, int lq, int lk, const long long* st,
+                   cudaStream_t stream) {
+  auto kern = flash_fwd_bf16_kernel<D, MODE>;
+  const int smem = (BR + 2 * BC) * D * (int)sizeof(__nv_bfloat16);
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(lq / BR, B * N);
+  kern<<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<const int*>(kv_len), static_cast<const float*>(bound), N, lk, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, k, v, o: bf16 [B, L, N, D] with element strides st = (q_b, q_l, q_h,
+// k_b, k_l, k_h, v_b, v_l, v_h, o_b, o_l, o_h) and unit stride along D.
+// lq and lk are multiples of 64. kv_len: int32 [B] on the device, or null.
+// mode: 0 bounded (reference point *bound, an fp32 scalar on the device, the
+// folded score bound), 1 running max, 2 one-shot max (bound may be null).
+int univid_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                          const void* kv_len, const void* bound, int mode, int B, int N, int lq,
+                          int lk, int D, const long long* strides, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D != 128 || lq % BR != 0 || lk % BC != 0) return (int)cudaErrorInvalidValue;
+  switch (mode) {
+    case BOUNDED: return (int)launch<128, BOUNDED>(q, k, v, o, kv_len, bound, B, N, lq, lk, strides, s);
+    case RUNNING: return (int)launch<128, RUNNING>(q, k, v, o, kv_len, bound, B, N, lq, lk, strides, s);
+    case ONESHOT: return (int)launch<128, ONESHOT>(q, k, v, o, kv_len, bound, B, N, lq, lk, strides, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// y [B, L, N, D] contiguous bf16 = rope(x) with fp32 tables [L, D].
+int univid_rope_rotate_bf16(const void* x, const void* cf, const void* sf, void* y, int B,
+                            int L, int N, int D, long long x_sb, long long x_sl,
+                            long long x_sh, void* stream) {
+  if (D % 2 != 0) return (int)cudaErrorInvalidValue;
+  long long pairs = (long long)B * L * N * (D / 2);
+  int threads = 256;
+  long long blocks = (pairs + threads - 1) / threads;
+  rope_rotate_bf16_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(cf),
+      static_cast<const float*>(sf), static_cast<__nv_bfloat16*>(y), L, N, D, x_sb, x_sl,
+      x_sh, pairs);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

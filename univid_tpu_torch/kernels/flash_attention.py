@@ -1,0 +1,304 @@
+"""Flash attention forward: hand-written CUDA kernels and their plain versions.
+
+Counterpart of univid_tpu/kernels/flash_attention.py for the inference
+modes the t2v main path reaches:
+
+  * `flash_attention_padded` — `_flash_kernel`: non-causal attention in the
+    exp2 domain with the fused-rope prologue, the bounded softmax (or a
+    running max), `kv_len` masking and zero rows when l == 0. bf16 d=128
+    runs csrc/flash_attention.cu (DiT self-attention); fp32 d=384 runs
+    csrc/flash_attention_f32.cu (VAE mid-block attention).
+  * `cross_attention_padded` — `_cross_kernel`: single-kv-block attention
+    (Lk <= 512) with a one-shot softmax by the row max or by the bound.
+
+Inputs are [B, L, N, D] and already padded (Lq, Lk multiples of TILE);
+`kernels/attention.py` pads. Each wrapper takes its plain PyTorch version
+only for tensors on the CPU; on CUDA tensors it launches its kernel or
+raises. `LAUNCHES` counts kernel launches per wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import build
+
+NEG_INF = -1e30
+LOG2E = math.log2(math.e)
+TILE = 64           # padded-length multiple the kernels take
+CROSS_MAX_LK = 512  # single-kv-block route (the TPU's one kv block)
+
+# kernel launches per wrapper (reset by callers that count a run)
+LAUNCHES = {"flash_attention_bf16": 0, "cross_attention_bf16": 0,
+            "flash_attention_f32": 0, "rope_rotate_bf16": 0}
+
+_MODE_BOUNDED, _MODE_RUNNING, _MODE_ONESHOT = 0, 1, 2
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# rope tables (same convention as the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def build_fused_rope_tables(cos: torch.Tensor, sin: torch.Tensor, d: int,
+                            softmax_scale: Optional[float] = None):
+    """[L, d/2] rope tables -> (cos_q, sin_q, cos_k, sin_k), fp32 [L, d], in
+    the swap-multiply convention (cosF = repeat(cos, 2), sinF =
+    interleave(-sin, +sin)); the q pair folds in softmax_scale * log2(e)."""
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(d)
+    sc = softmax_scale * LOG2E
+    c32 = cos.float()
+    s32 = sin.float()
+    cf = torch.repeat_interleave(c32, 2, dim=-1)
+    sf = torch.stack([-s32, s32], dim=-1).reshape(s32.shape[0], -1)
+    return cf * sc, sf * sc, cf, sf
+
+
+def _pad_tables(tables, lq, lk, scale_const):
+    """Pad the 4 tables to the padded q/k lengths with the identity rotation
+    (cos = 1, scaled for q; sin = 0)."""
+    cq, sq, ck, sk = tables
+
+    def pad(t, length, fill):
+        if t.shape[0] >= length:
+            return t[:length]
+        extra = t.new_full((length - t.shape[0], t.shape[1]), fill)
+        return torch.cat([t, extra], dim=0)
+
+    return (pad(cq, lq, scale_const), pad(sq, lq, 0.0),
+            pad(ck, lk, 1.0), pad(sk, lk, 0.0))
+
+
+def rotate(x: torch.Tensor, cf: torch.Tensor, sf: torch.Tensor,
+           out_dtype) -> torch.Tensor:
+    """y = x * cosF + swap_pairs(x) * sinF in fp32 over [B, L, N, D] with
+    [L, D] tables; rounded to out_dtype."""
+    x32 = x.float()
+    sw = x32.reshape(*x.shape[:-1], x.shape[-1] // 2, 2).flip(-1)
+    sw = sw.reshape(x.shape)
+    return (x32 * cf[:, None, :] + sw * sf[:, None, :]).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU path; the reference the kernels are held against)
+# ---------------------------------------------------------------------------
+
+
+def attention_plain(q, k, v, *, kv_len=None, bound=None, rope_tables=None,
+                    q_chunk: int = 1024):
+    """The kernels' function in plain PyTorch, over padded [B, L, N, D].
+
+    Scores are in the folded (scale * log2 e) domain: q carries the fold,
+    or the q rope tables do. bound: folded score bound (fp32 scalar
+    tensor) -> p = exp2(s - bound); None -> p = exp2(s - rowmax(s)), the
+    one-shot form, equal in exact arithmetic to the running max. Keys at or
+    past kv_len[b] get s = -1e30 and p = 0; rows with l == 0 are zero. p is
+    rounded to v's dtype before p @ v; l and the accumulator stay fp32."""
+    if rope_tables is not None:
+        cq, sq, ck, sk = rope_tables
+        q = rotate(q, cq, sq, q.dtype)
+        k = rotate(k, ck, sk, v.dtype)
+    b, lq, n, _ = q.shape
+    lk = k.shape[1]
+    kf = k.float()
+    vf = v.float()
+    dead = None
+    if kv_len is not None:
+        cols = torch.arange(lk, device=q.device)
+        dead = (cols[None, :] >= kv_len.to(q.device)[:, None])[:, None, None, :]
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for i0 in range(0, lq, q_chunk):
+        s = torch.einsum("bqnd,bknd->bnqk", q[:, i0:i0 + q_chunk].float(), kf)
+        if dead is not None:
+            s = s.masked_fill(dead, NEG_INF)
+        ref = bound if bound is not None else s.amax(dim=-1, keepdim=True)
+        p = torch.exp2(s - ref)
+        if dead is not None:
+            p = p.masked_fill(dead, 0.0)
+        l = p.sum(dim=-1, keepdim=True)
+        inv = torch.where(l > 0, 1.0 / torch.where(l > 0, l, 1.0), 0.0)
+        acc = torch.einsum("bnqk,bknd->bqnd", p.to(v.dtype).float(), vf)
+        out[:, i0:i0 + q_chunk] = (acc * inv.permute(0, 2, 1, 3)).to(q.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
+_FNS = {}
+
+
+def _fn(lib_name: str, sym: str, argtypes):
+    key = (lib_name, sym)
+    fn = _FNS.get(key)
+    if fn is None:
+        fn = getattr(build.load(lib_name), sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[key] = fn
+    return fn
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _strides(*ts):
+    vals = []
+    for t in ts:
+        if t.stride(-1) != 1:
+            raise ValueError("attention kernels need unit stride along D")
+        vals += [t.stride(0), t.stride(1), t.stride(2)]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_cuda_inputs(q, k, v, kv_len, dtype, d_ok):
+    for t in (q, k, v):
+        if not t.is_cuda or t.dtype != dtype:
+            raise TypeError(f"kernel takes {dtype} CUDA tensors, got "
+                            f"{t.dtype} on {t.device}")
+    if q.shape[-1] not in d_ok:
+        raise ValueError(f"no {dtype} kernel for head dim {q.shape[-1]} "
+                         f"(built: {d_ok})")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("the attention backward kernels are not ported "
+                           "yet (training slice); call under no_grad")
+    if q.shape[1] % TILE or k.shape[1] % TILE:
+        raise ValueError("pad Lq and Lk to multiples of 64 (kernels/"
+                         "attention.py does)")
+    if kv_len is not None and (kv_len.dtype != torch.int32
+                               or kv_len.device != q.device):
+        raise TypeError("kv_len must be int32 on the kernel's device")
+
+
+def _launch_bf16(q, k, v, kv_len, bound, mode):
+    b, lq, n, d = q.shape
+    o = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
+    fn = _fn("flash_attention", "univid_flash_fwd_bf16",
+             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P])
+    strides = _strides(q, k, v, o)  # host array, read during the launch
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             kv_len.data_ptr() if kv_len is not None else None,
+             bound.data_ptr() if bound is not None else None, mode, b, n,
+             lq, k.shape[1], d, ctypes.addressof(strides), _stream(q))
+    build.check(err, "univid_flash_fwd_bf16")
+    return o
+
+
+def _rope_bf16(x, cf, sf):
+    b, l, n, d = x.shape
+    y = torch.empty((b, l, n, d), dtype=torch.bfloat16, device=x.device)
+    fn = _fn("flash_attention", "univid_rope_rotate_bf16",
+             [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong,
+              ctypes.c_longlong, ctypes.c_longlong, _P])
+    if x.stride(-1) != 1:
+        raise ValueError("rope kernel needs unit stride along D")
+    err = fn(x.data_ptr(), cf.data_ptr(), sf.data_ptr(), y.data_ptr(), b, l,
+             n, d, x.stride(0), x.stride(1), x.stride(2), _stream(x))
+    build.check(err, "univid_rope_rotate_bf16")
+    LAUNCHES["rope_rotate_bf16"] += 1
+    return y
+
+
+def _bound_tensor(bound, device):
+    if bound is None:
+        return None
+    return torch.as_tensor(bound, dtype=torch.float32).to(device).reshape(1)
+
+
+def _flash_cuda(q, k, v, kv_len, bound, rope_tables):
+    if q.dtype == torch.bfloat16:
+        _check_cuda_inputs(q, k, v, kv_len, torch.bfloat16, (128,))
+        if rope_tables is not None:
+            cq, sq, ck, sk = (t.float().contiguous() for t in rope_tables)
+            q = _rope_bf16(q, cq, sq)
+            k = _rope_bf16(k, ck, sk)
+        mode = _MODE_BOUNDED if bound is not None else _MODE_RUNNING
+        o = _launch_bf16(q, k, v, kv_len, _bound_tensor(bound, q.device),
+                         mode)
+        LAUNCHES["flash_attention_bf16"] += 1
+        return o
+    if q.dtype == torch.float32:
+        _check_cuda_inputs(q, k, v, kv_len, torch.float32, (384,))
+        if rope_tables is not None or bound is not None:
+            raise NotImplementedError(
+                "the fp32 kernel has the VAE's plain mode only (no fused "
+                "rope, no bound)")
+        b, lq, n, d = q.shape
+        o = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
+        fn = _fn("flash_attention_f32", "univid_flash_fwd_f32",
+                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P])
+        strides = _strides(q, k, v, o)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 kv_len.data_ptr() if kv_len is not None else None, b, n,
+                 lq, k.shape[1], d, ctypes.addressof(strides), _stream(q))
+        build.check(err, "univid_flash_fwd_f32")
+        LAUNCHES["flash_attention_f32"] += 1
+        return o
+    raise TypeError(f"no attention kernel for {q.dtype}")
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def cross_attention_padded(q, k, v, *, kv_len=None, score_bound=None):
+    """Single-kv-block attention (Lk <= 512). q is already scale * log2(e)
+    folded; score_bound is in the folded domain."""
+    if not q.is_cuda:
+        return attention_plain(q, k, v, kv_len=kv_len, bound=score_bound)
+    _check_cuda_inputs(q, k, v, kv_len, torch.bfloat16, (128,))
+    if k.shape[1] > CROSS_MAX_LK:
+        raise ValueError(f"cross kernel takes Lk <= {CROSS_MAX_LK}")
+    mode = _MODE_BOUNDED if score_bound is not None else _MODE_ONESHOT
+    o = _launch_bf16(q, k, v, kv_len, _bound_tensor(score_bound, q.device),
+                     mode)
+    LAUNCHES["cross_attention_bf16"] += 1
+    return o
+
+
+def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
+                           rope_tables=None, score_bound=None):
+    """Non-causal attention over padded [B, L, N, D] (forward, inference).
+
+    rope_tables: build_fused_rope_tables output -> q and k rotated first
+    (rotated q kept in q's dtype, rotated k in v's dtype). Without them q is
+    folded by softmax_scale * log2(e) in q's dtype. score_bound: proven
+    upper bound on the FOLDED scores -> bounded softmax. bf16 with Lk <= 512
+    and no rope takes the single-kv-block cross route."""
+    b, lq, n, d = q.shape
+    lk = k.shape[1]
+    if lq % TILE or lk % TILE:
+        raise ValueError(f"pad Lq, Lk ({lq}, {lk}) to multiples of {TILE}")
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(d)
+    if rope_tables is not None:
+        rope_tables = _pad_tables(rope_tables, lq, lk,
+                                  softmax_scale * LOG2E)
+    else:
+        q = q * torch.tensor(softmax_scale * LOG2E, dtype=q.dtype,
+                             device=q.device)
+        # the cross kernel is bf16; short fp32 sequences (the VAE on small
+        # frames) stay on the flash route, the same function
+        if lk <= CROSS_MAX_LK and q.dtype == torch.bfloat16:
+            return cross_attention_padded(q, k, v, kv_len=kv_len,
+                                          score_bound=score_bound)
+    if q.is_cuda:
+        return _flash_cuda(q, k, v, kv_len, score_bound, rope_tables)
+    return attention_plain(q, k, v, kv_len=kv_len, bound=score_bound,
+                           rope_tables=rope_tables)

@@ -1,0 +1,150 @@
+"""Wan text-to-video pipeline on one GPU.
+
+Counterpart of univid_tpu/pipelines/ti2v.py for t2v: the token axis padded
+once to a multiple of 2048 (above 2048 tokens; padded keys are masked in
+the DiT), UniPC or DPM++ coefficients and TMA text weights precomputed per
+step on the host, classifier-free guidance as one batch-2 DiT call per
+step, then a streaming VAE decode. `denoise_fn(...)` returns the inner
+`run(dit, noise, context, context_null, z0)` so that a caller can feed its
+own noise. i2v and TaylorSeer are later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.config import (GenerationConfig, TMAConfig, WanModelSpec,
+                           dit_seq_len, latent_shape)
+from ..core.dtypes import DEFAULT_POLICY, DTypePolicy
+from ..models.wan.dit import WanDiT, wan_dit_forward
+from ..models.wan.vae_api import WanVAE, vae_decode
+from ..ops.rope import build_rope_3d
+from ..ops.samplers import (dpm_step, flow_sigmas, get_sampling_sigmas,
+                            precompute_dpm_solver, precompute_unipc,
+                            unipc_init_state, unipc_step)
+from ..ops.tma import apply_text_weight, tma_schedule_weights
+
+
+def solver_for(gen: GenerationConfig):
+    """(sigmas, SolverCoeffs, step_fn) for gen.sample_solver."""
+    if gen.sample_solver == "unipc":
+        sigmas, timesteps = flow_sigmas(
+            gen.sampling_steps, shift=gen.shift,
+            num_train_timesteps=gen.num_train_timesteps)
+        return sigmas, precompute_unipc(sigmas, timesteps=timesteps), \
+            unipc_step
+    if gen.sample_solver in ("dpm++", "dpm", "dpm++3"):
+        order = 3 if gen.sample_solver == "dpm++3" else 2
+        sig = get_sampling_sigmas(gen.sampling_steps, gen.shift)
+        sigmas = np.concatenate([sig, [0.0]])
+        timesteps = np.floor(sig * gen.num_train_timesteps)
+        return sigmas, precompute_dpm_solver(sigmas, solver_order=order,
+                                             timesteps=timesteps), dpm_step
+    raise NotImplementedError(gen.sample_solver)
+
+
+def padded_seq_len(spec: WanModelSpec, size, frame_num: int) -> int:
+    """DiT token count, padded once to a multiple of 2048 above 2048
+    tokens (the 30 blocks then need no per-call padding)."""
+    seq_len = dit_seq_len(spec, size[0], size[1], frame_num)
+    if seq_len > 2048:
+        seq_len = -(-seq_len // 2048) * 2048
+    return seq_len
+
+
+class WanT2VPipeline:
+    """Tensor-in / tensor-out t2v pipeline. Text encoding happens upstream;
+    the pipeline takes context tensors [text_len, text_dim]."""
+
+    def __init__(self, spec: WanModelSpec, dit: WanDiT, vae: WanVAE,
+                 policy: DTypePolicy = DEFAULT_POLICY):
+        self.spec = spec
+        self.dit = dit
+        self.vae = vae
+        self.policy = policy
+
+    @property
+    def device(self):
+        return self.dit.patch_embed.w.device
+
+    def denoise_fn(self, latent_grid: Tuple[int, int, int], seq_len: int,
+                   steps: int, shift: float, guide_scale: float,
+                   solver: str, tma: Optional[TMAConfig]):
+        """The denoise loop for one shape: run(dit, noise, context,
+        context_null, z0) -> final latent [1, F, H, W, C] (fp32)."""
+        cfg = self.spec.dit
+        gen = GenerationConfig(sampling_steps=steps, shift=shift,
+                               guide_scale=guide_scale, sample_solver=solver)
+        _, coeffs, step_fn = solver_for(gen)
+        if tma is not None and tma.enabled:
+            tma_w = tma_schedule_weights(tma, steps)
+            tma_prefix = min(tma.text_prefix_len, cfg.text_len // 2)
+        else:
+            tma_w = np.ones(steps, np.float32)
+            tma_prefix = 0
+        f, h, w = latent_grid
+        pt, ph, pw = cfg.patch_size
+        grid = (f // pt, h // ph, w // pw)
+        policy = self.policy
+
+        @torch.no_grad()
+        def run(dit, noise, context, context_null, z0):
+            # noise / z0: [1, F, H, W, C]; context*: [1, text_len, text_dim]
+            rope_cos, rope_sin = build_rope_3d(cfg.head_dim, grid,
+                                               device=noise.device)
+            ctx_pair = torch.cat([context, context_null], dim=0)
+            state = unipc_init_state(noise, order=coeffs.order)
+            for i in range(steps):
+                c = coeffs.step(i)
+                ctx = ctx_pair
+                if tma_prefix > 0:
+                    ctx = apply_text_weight(ctx, float(tma_w[i]), tma_prefix)
+                x2 = state["sample"].float().expand(
+                    (2,) + tuple(state["sample"].shape[1:]))
+                t2 = torch.full((2,), c["timestep"], dtype=torch.float32,
+                                device=noise.device)
+                v = wan_dit_forward(dit, x2, t2, ctx, rope_cos, rope_sin,
+                                    seq_pad_to=seq_len, policy=policy,
+                                    fused_rope=True)
+                v_guided = v[1:2] + guide_scale * (v[0:1] - v[1:2])
+                state = step_fn(state, c, v_guided)
+            return state["sample"]
+
+        return run
+
+    @torch.no_grad()
+    def generate(self, context, context_null, *, size=(1280, 704),
+                 frame_num: int = 121, shift: float = 5.0,
+                 sample_solver: str = "unipc", sampling_steps: int = 50,
+                 guide_scale: float = 5.0, seed: int = 0,
+                 tma: Optional[TMAConfig] = None, decode: bool = True,
+                 timer=None):
+        """Video [T, H, W, 3] in [-1, 1] (or the latent with decode=False).
+        The noise is drawn on the pipeline's device from a torch.Generator
+        seeded with `seed`."""
+        spec = self.spec
+        c, f, h, w = latent_shape(spec, size[0], size[1], frame_num)
+        seq_len = padded_seq_len(spec, size, frame_num)
+        dev = self.device
+        g = torch.Generator(device=dev).manual_seed(seed)
+        noise = torch.randn((1, f, h, w, c), generator=g, device=dev,
+                            dtype=torch.float32)
+        z0 = torch.zeros_like(noise)
+        run = self.denoise_fn((f, h, w), seq_len, sampling_steps, shift,
+                              guide_scale, sample_solver, tma)
+        ctx, nctx = context[None].to(dev), context_null[None].to(dev)
+        if timer is not None:
+            x0 = timer.time_phase("denoise", run, self.dit, noise, ctx, nctx,
+                                  z0)
+        else:
+            x0 = run(self.dit, noise, ctx, nctx, z0)
+        if not decode:
+            return x0
+        if timer is not None:
+            video = timer.time_phase("vae_decode", vae_decode, self.vae, x0)
+        else:
+            video = vae_decode(self.vae, x0)
+        return video[0]
