@@ -1,21 +1,35 @@
 """GPU smoke run of the PyTorch/CUDA port (univid_tpu_torch) on one card.
 
-    python3 chip_smoke.py              # build, check kernels, drive t2v-1.3B
-    python3 chip_smoke.py --steps 2    # fewer denoise steps
+    python3 chip_smoke.py                  # build, check, serve and train
+    python3 chip_smoke.py --steps 2        # fewer denoise steps
+    python3 chip_smoke.py --train-steps 2  # fewer training steps
     python3 chip_smoke.py --kernels-only
 
 Phases:
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels (one nvcc per source, in parallel);
-  3. hold each kernel against its plain PyTorch version at the main path's
-     shapes, time both with CUDA events, and time one PyTorch library call
-     (scaled_dot_product_attention) on the same inputs as a yardstick;
-  4. hold the port's t2v pipeline on the card (kernels) against the same
-     pipeline on the CPU (plain versions) on a small d=128 model;
-  5. drive the main path through the port's CLI: t2v-1.3B at 832x480x81,
-     full depth and width, random weights from a seed, a few steps; check
-     the kernels' launch counts and the mp4.
-The last line is {"ok": true, "device": {...}}; any failure exits non-zero.
+  3. hold each kernel against its plain PyTorch version at its path's
+     shapes (serving: self- and cross-attention, rope, VAE; training: the
+     forward with lse and the dq and dk/dv backward kernels at the self and
+     cross shapes), time both with CUDA events, and time one PyTorch
+     library call (scaled_dot_product_attention, its backward for the
+     backward kernels) on the same inputs as a yardstick; hold
+     attention() under grad against autograd through an fp32 reference;
+  4. hold the port on the card (kernels) against the port on the CPU
+     (plain versions) on a small d=128 model: the t2v pipeline, then three
+     LoRA + projector diffusion train steps; run the training loop
+     (train_cross_attention_fusion) on the card and check its files;
+  5. drive the serving path through the port's CLI: t2v-1.3B at
+     832x480x81, full depth and width, random weights from a seed, a few
+     steps; check the kernels' launch counts and the mp4;
+  6. drive the training path: t2v-1.3B at 832x480x81, LoRA + projector,
+     remat 'attn', a few make_diffusion_train_step steps; check the launch
+     counts of every step, a finite loss, LoRA b off zero, the frozen base
+     unchanged; print seconds per step and peak memory; profile one more
+     step (device time by kernel family, idle share).
+Each path starts with every launch count at 0; the `kernels` line gives
+each kernel the launches of its own path. The last line is
+{"ok": true, "device": {...}}; any failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -23,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -84,6 +99,21 @@ def qk_normed(shape, gen, dtype):
     return x.to(dtype)
 
 
+def compare(name, got, want, atol, rtol, why):
+    """Elementwise |got - want| <= atol + rtol * |want|, got finite."""
+    import torch
+    err = (got.float() - want.float()).abs()
+    max_err = float(err.max())
+    lim = atol + rtol * want.float().abs()
+    ok = bool((err <= lim).all()) and bool(torch.isfinite(got).all())
+    log(json.dumps({"check": name, "max_abs_err": max_err,
+                    "max_abs_ref": float(want.float().abs().max()),
+                    "atol": atol, "rtol": rtol, "why": why, "ok": ok}))
+    if not ok:
+        fail(f"{name}: kernel disagrees with its plain version")
+    return max_err
+
+
 def check_kernels():
     """Phase 3: each kernel vs its plain version at the main path's shapes.
     Returns the per-kernel records of the `kernels` line."""
@@ -95,18 +125,6 @@ def check_kernels():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     records = {}
-
-    def compare(name, got, want, atol, rtol, why):
-        err = (got.float() - want.float()).abs()
-        max_err = float(err.max())
-        lim = atol + rtol * want.float().abs()
-        ok = bool((err <= lim).all()) and bool(torch.isfinite(got).all())
-        log(json.dumps({"check": name, "max_abs_err": max_err,
-                        "max_abs_ref": float(want.float().abs().max()),
-                        "atol": atol, "rtol": rtol, "why": why, "ok": ok}))
-        if not ok:
-            fail(f"{name}: kernel disagrees with its plain version")
-        return max_err
 
     # ---- DiT self-attention: t2v-1.3B at 832x480x81 ----------------------
     b, l, n, d = 2, 32768, 12, 128
@@ -269,6 +287,195 @@ def check_kernels():
     return records
 
 
+def rel_l2(a, b):
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def check_grad(name, got, want, rel_limit, why):
+    """Relative-L2 check of a gradient (or an output) against its reference,
+    with every value finite."""
+    import torch
+    got, want = got.detach(), want.detach()
+    err = rel_l2(got, want)
+    ok = err < rel_limit and bool(torch.isfinite(got).all())
+    log(json.dumps({"check": name, "rel_l2": err, "limit": rel_limit,
+                    "max_abs_err": float((got.float() - want.float()).abs()
+                                         .max()),
+                    "max_abs_ref": float(want.float().abs().max()),
+                    "why": why, "ok": ok}))
+    if not ok:
+        fail(f"{name}: disagrees with its reference")
+    return err
+
+
+def check_train_kernels():
+    """Phase 3b: the training kernels (forward with lse, the dq and dk/dv
+    backward kernels) against their plain versions at the training path's
+    self (q, k, v [1, 32768, 12, 128], kv_len 32760) and cross (k, v
+    [1, 512, 12, 128]) shapes, bounded softmax; padded keys hold 50.0.
+    Then the autograd Function against autograd through the fp32
+    mha_reference at L = 2048. Returns the per-kernel records (self shape;
+    the cross shape's numbers are logged on `kernel_at_cross_shape` lines)."""
+    import torch
+    import torch.nn.functional as F
+
+    from univid_tpu_torch.kernels import attention as att
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, l, n, d = 1, 32768, 12, 128
+    sc = 1.0 / math.sqrt(d)
+    bound = torch.tensor([1.01 * d * sc * fa.LOG2E], device="cuda")
+    fwd_tol = dict(atol=1e-3, rtol=2.0 ** -7,
+                   why="one bf16 ulp of the output plus 1e-3 for the fp32 "
+                       "summation order and the approximate exp2")
+    out = {}
+    for shape, lk, kv_real in (("self", l, 32760), ("cross", 512, None)):
+        q = qk_normed((b, l, n, d), gen, torch.bfloat16)
+        k = qk_normed((b, lk, n, d), gen, torch.bfloat16)
+        v = torch.randn((b, lk, n, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        do = torch.randn((b, l, n, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        kv_len = None
+        if kv_real is not None:
+            kv_len = torch.full((b,), kv_real, dtype=torch.int32,
+                                device="cuda")
+            k[:, kv_real:] = 50.0
+            v[:, kv_real:] = 50.0
+        kv_eff = kv_real or lk
+        qs = fa._fold(q, sc)
+        with torch.no_grad():
+            o, lse = fa.flash_attention_fwd_folded(qs, k, v, kv_len=kv_len,
+                                                   score_bound=bound)
+            o_p, lse_p = fa.attention_plain(qs, k, v, kv_len=kv_len,
+                                            bound=bound, save_residuals=True)
+            errs = {"lse_fwd": max(
+                compare(f"flash_attention_bf16_lse {shape} output", o, o_p,
+                        **fwd_tol),
+                compare(f"flash_attention_bf16_lse {shape} lse", lse, lse_p,
+                        atol=1e-3, rtol=0.0,
+                        why="fp32 log2 of an fp32 row sum; summation "
+                            "order and the approximate exp2"))}
+            # the backward alone: both sides take the plain residuals
+            dq, delta = fa._bwd_dq_cuda(qs, k, v, o_p, lse_p, do, kv_len, sc)
+            dk, dv = fa._bwd_dkv_cuda(qs, k, v, do, lse_p, delta, kv_len)
+            want = fa._bwd_plain_folded(qs, k, v, o_p, lse_p, do, kv_len, sc)
+            why = ("p and dS round to bf16 at the same points on both "
+                   "sides, but an fp32 difference of ~1e-6 (approximate "
+                   "exp2, summation order) flips some roundings by one "
+                   "bf16 step (2^-8 relative); the output rounds once")
+            for nm, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+                key = "bwd_dq" if nm == "dq" else "bwd_dkv"
+                e = compare(f"flash_attention_bwd {shape} {nm}", got, ref,
+                            atol=2.0 ** -8 * float(ref.float().abs().max()),
+                            rtol=2.0 ** -7, why=why)
+                check_grad(f"flash_attention_bwd {shape} {nm} rel_l2", got,
+                           ref, 1e-2, why)
+                errs[key] = max(errs.get(key, 0.0), e)
+            if kv_real is not None and (
+                    float(dk[:, kv_real:].abs().max()) != 0.0
+                    or float(dv[:, kv_real:].abs().max()) != 0.0):
+                fail("flash_attention_bwd: dk / dv past kv_len are not 0")
+            del want
+            ms = {
+                "lse_fwd": cuda_time(lambda: fa.flash_attention_fwd_folded(
+                    qs, k, v, kv_len=kv_len, score_bound=bound), 3),
+                "bwd_dq": cuda_time(lambda: fa._bwd_dq_cuda(
+                    qs, k, v, o_p, lse_p, do, kv_len, sc), 3),
+                "bwd_dkv": cuda_time(lambda: fa._bwd_dkv_cuda(
+                    qs, k, v, do, lse_p, delta, kv_len), 3),
+            }
+            plain_fwd = cuda_time(lambda: fa.attention_plain(
+                qs, k, v, kv_len=kv_len, bound=bound, save_residuals=True), 1,
+                warmup=0)
+            plain_bwd = cuda_time(lambda: fa._bwd_plain_folded(
+                qs, k, v, o_p, lse_p, do, kv_len, sc), 1, warmup=0)
+        # the library's counterpart: SDPA on the live keys, whose forward
+        # with inputs that need a gradient saves its logsumexp
+        qg, kg, vg = (x.transpose(1, 2)[:, :, :m].detach().requires_grad_(
+            True) for x, m in ((qs, l), (k, kv_eff), (v, kv_eff)))
+        dog = do.transpose(1, 2)
+        lib_fwd = cuda_time(lambda: F.scaled_dot_product_attention(
+            qg, kg, vg, scale=1.0 / fa.LOG2E), 3)
+        ref_out = F.scaled_dot_product_attention(qg, kg, vg,
+                                                 scale=1.0 / fa.LOG2E)
+        lib_bwd = cuda_time(lambda: torch.autograd.grad(
+            ref_out, (qg, kg, vg), dog, retain_graph=True), 3)
+        del ref_out, qg, kg, vg, dog
+
+        mm = 2.0 * b * n * l * kv_eff * d   # flops of one of the products
+        row = nbytes(qs)                    # one [B, Lq, N, D] bf16 tensor
+        kvb = nbytes(k, v)
+        bounds = {
+            # s = qs k^T, o = p v
+            "lse_fwd": bound_ms(2 * mm, 2 * row + kvb + nbytes(lse),
+                                H100_BF16_FLOPS),
+            # s, dp = dO v^T, dq = dS k; reads qs, o, dO, k, v, lse; writes
+            # dq, delta
+            "bwd_dq": bound_ms(3 * mm, 4 * row + kvb + 2 * nbytes(lse),
+                               H100_BF16_FLOPS),
+            # s^T, dp^T, dv = p^T dO, dk = dS^T qs; reads qs, dO, k, v, lse,
+            # delta; writes dk, dv
+            "bwd_dkv": bound_ms(4 * mm, 2 * row + 2 * kvb + 2 * nbytes(lse),
+                                H100_BF16_FLOPS),
+        }
+        pair = bound_ms(5 * mm, 4 * row + 2 * kvb + nbytes(lse),
+                        H100_BF16_FLOPS)
+        log(json.dumps({"check": f"backward pair {shape}",
+                        "pair_ms": ms["bwd_dq"] + ms["bwd_dkv"],
+                        "one_pass_bound_ms": pair[0],
+                        "one_pass_bound_by": pair[1],
+                        "why": "the one-pass work: 5 products (s, dp, dq, "
+                               "dk, dv) of 2 Lq Lk d flops per head"}))
+        meta = {
+            "lse_fwd": ("flash_attention_bf16_lse",
+                        "univid_tpu_torch/kernels/csrc/flash_attention.cu",
+                        "univid_tpu/kernels/flash_attention.py:343",
+                        plain_fwd, lib_fwd),
+            "bwd_dq": ("flash_attention_bwd_dq_bf16",
+                       "univid_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+                       "univid_tpu/kernels/flash_attention.py:831",
+                       plain_bwd, lib_bwd),
+            "bwd_dkv": ("flash_attention_bwd_dkv_bf16",
+                        "univid_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+                        "univid_tpu/kernels/flash_attention.py:940",
+                        plain_bwd, lib_bwd),
+        }
+        for key, (name, src, rep, plain_ms, lib_ms) in meta.items():
+            rec = dict(name=name, route="cuda", source=src, replaces=rep,
+                       max_abs_err=errs[key], ms=ms[key], plain_ms=plain_ms,
+                       bound_ms=bounds[key][0], bound_by=bounds[key][1],
+                       library_ms=lib_ms)
+            if shape == "self":
+                out[name] = rec
+                log(json.dumps({"kernel": rec}))
+            else:
+                log(json.dumps({"kernel_at_cross_shape": rec}))
+        del q, k, v, do, qs, o, lse, o_p, lse_p, dq, dk, dv, delta
+        torch.cuda.empty_cache()
+
+    # the autograd Function (attention() under grad) at L = 2048
+    q = qk_normed((1, 2048, n, d), gen, torch.bfloat16)
+    k = qk_normed((1, 2048, n, d), gen, torch.bfloat16)
+    v = torch.randn((1, 2048, n, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    g = torch.randn((1, 2048, n, d), generator=gen, device="cuda")
+    qt, kt, vt = (x.clone().requires_grad_(True) for x in (q, k, v))
+    o = att.attention(qt, kt, vt, score_bound=1.01 * d)
+    got = torch.autograd.grad((o.float() * g).sum(), (qt, kt, vt))
+    qr, kr, vr = (x.float().requires_grad_(True) for x in (q, k, v))
+    ref = att.mha_reference(qr, kr, vr)
+    want = torch.autograd.grad((ref * g).sum(), (qr, kr, vr))
+    why = ("bf16 kernels against an fp32 softmax on the same bf16 inputs: "
+           "p, dS and the outputs round to bf16 (2^-8 relative)")
+    check_grad("attention() under grad output, L=2048", o, ref, 2e-2, why)
+    for nm, a, w in zip(("dq", "dk", "dv"), got, want):
+        check_grad(f"attention() under grad {nm}, L=2048", a, w, 2e-2, why)
+    return out
+
+
 def small_parity():
     """Phase 4: the port's t2v pipeline on the card (kernels) against the
     same pipeline on the CPU (plain versions), same weights and noise, on a
@@ -325,7 +532,8 @@ def small_parity():
     x_gpu, v_gpu = run("cuda")
     used = dict(fa.LAUNCHES)
     x_cpu, v_cpu = run("cpu")
-    for name in used:
+    for name in ("flash_attention_bf16", "cross_attention_bf16",
+                 "flash_attention_f32", "rope_rotate_bf16"):
         if used[name] == 0:
             fail(f"small parity run did not launch {name}")
 
@@ -343,6 +551,290 @@ def small_parity():
     log(json.dumps(out))
     if not out["ok"]:
         fail("the port on the card disagrees with its CPU reference")
+
+
+def train_parity(output_dir):
+    """Phase 4b: three steps of the port's make_diffusion_train_step on the
+    card (kernels) against the same steps on the CPU (plain versions), from
+    one initial state, on a 2-layer d=128 DiT with LoRA and the projector
+    (remat 'attn', bf16 residual, bounded softmax); then
+    train_cross_attention_fusion for a few steps on the card over a
+    2-sample dataset, which must write latest/, best/ and lora_best/."""
+    import dataclasses
+    import os
+    import shutil
+
+    import torch
+
+    from univid_tpu_torch.core.config import (WAN_CONFIGS, FusionConfig,
+                                              WanDiTConfig, WanModelSpec)
+    from univid_tpu_torch.core.dtypes import BF16_RESIDUAL_POLICY
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.wan.dit import WanDiT
+    from univid_tpu_torch.models.wan.vae_api import WanVAE
+    from univid_tpu_torch.train import fusion_trainer as ft
+    from univid_tpu_torch.train.lora import LoRAConfig, trainable_sites
+
+    base = WAN_CONFIGS["t2v-1.3B"]
+    dit_cfg = WanDiTConfig(model_type="t2v", in_dim=16, out_dim=16, dim=256,
+                           ffn_dim=512, freq_dim=32, text_dim=64,
+                           num_heads=2, num_layers=2, text_len=32)
+    spec = WanModelSpec(name="smoke-train-d128", dit=dit_cfg, vae=base.vae,
+                        generation=base.generation)
+    fusion = FusionConfig(bagel_hidden_dim=64, wan_text_dim=64,
+                          wan_text_length=32, bagel_sequence_length=16)
+    train_cfg = ft.FusionTrainConfig(max_steps=3, learning_rate=1e-3)
+    lora_cfg = LoRAConfig(rank=4)   # cross q/k/v/o and self q/v, 2 layers
+    policy = dataclasses.replace(BF16_RESIDUAL_POLICY, bounded_softmax=True)
+
+    def make_dit(device):
+        gen = torch.Generator().manual_seed(0)
+        dit = WanDiT(dit_cfg, dtype=torch.bfloat16, device="cpu", gen=gen)
+        with torch.no_grad():   # the zero head blocks every gradient
+            dit.head.head.w.normal_(0.0, 0.02, generator=gen)
+            for blk in dit.blocks:
+                for a in (blk.self_attn, blk.cross_attn):
+                    a.norm_q.uniform_(0.5, 1.5, generator=gen)
+                    a.norm_k.uniform_(0.5, 1.5, generator=gen)
+        return dit.to(device)
+
+    cpu_gen = torch.Generator().manual_seed(3)
+    grid = (3, 8, 8)   # 48 tokens, padded to 64 (kv_len) in attention
+    batch = {
+        "latents": torch.randn((1, *grid, 16), generator=cpu_gen).to(
+            torch.bfloat16),
+        "bagel_tokens": torch.randn((1, 16, 64), generator=cpu_gen),
+        "noise": torch.randn((1, *grid, 16), generator=cpu_gen).to(
+            torch.bfloat16),
+        "t": torch.tensor([500.0]),
+    }
+
+    def run(device):
+        state, tx, tmpl = ft.init_fusion_train_state(
+            torch.Generator().manual_seed(1), fusion, train_cfg,
+            dit_cfg=dit_cfg, lora_cfg=lora_cfg, device="cpu")
+        tmpl = dict(tmpl, sites={
+            s: {k: t.detach().to(device) for k, t in p.items()}
+            for s, p in tmpl["sites"].items()})
+        trainable = {"projector": state["trainable"]["projector"].to(device),
+                     "lora": trainable_sites(tmpl)}
+        start = {n: t.detach().float().cpu().clone()
+                 for n, t in ft.named_leaves(trainable)}
+        state = ft.new_train_state(trainable, tx)
+        step, _ = ft.make_diffusion_train_step(
+            spec, fusion, train_cfg, tx, make_dit(device), None, grid,
+            lora_template=tmpl, remat_blocks="attn", policy=policy)
+        losses = []
+        for _ in range(3):
+            state, loss = step(state, {k: v.to(device)
+                                       for k, v in batch.items()})
+            losses.append(float(loss))
+        moved = {n: t.detach().float().cpu() - start[n]
+                 for n, t in ft.named_leaves(state["trainable"])}
+        return losses, moved
+
+    fa.reset_launches()
+    loss_gpu, moved_gpu = run("cuda")
+    used = {k: v for k, v in fa.LAUNCHES.items() if v}
+    loss_cpu, moved_cpu = run("cpu")
+    for name in ("flash_attention_bf16_lse", "flash_attention_bwd_dq_bf16",
+                 "flash_attention_bwd_dkv_bf16"):
+        if name not in used:
+            fail(f"train parity run did not launch {name}")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(loss_gpu, loss_cpu))
+    upd = {group: rel_l2(
+        torch.cat([moved_gpu[n].flatten() for n in moved_gpu
+                   if n.startswith(group)]),
+        torch.cat([moved_cpu[n].flatten() for n in moved_cpu
+                   if n.startswith(group)]))
+        for group in ("projector", "lora")}
+    out = {"check": "train_parity", "loss_gpu": loss_gpu,
+           "loss_cpu": loss_cpu, "loss_rel_err": loss_err,
+           "loss_limit": 2e-2, "update_rel_l2": upd, "update_limit": 0.1,
+           "why": "bf16 GEMMs and attention round at other points on the "
+                  "card and the CPU (2^-8 relative); the losses agree to "
+                  "that; the parameter updates (theta_3 - theta_0) of "
+                  "AdamW's first steps are about lr * sign(g), so a "
+                  "gradient element near 0 can take either sign",
+           "launches": used}
+    out["ok"] = (loss_err < 2e-2 and max(upd.values()) < 0.1
+                 and all(math.isfinite(x) for x in loss_gpu))
+    log(json.dumps(out))
+    if not out["ok"]:
+        fail("training on the card disagrees with training on the CPU")
+
+    # the loop on the card: checkpoints, best model and the adapter
+    run_dir = os.path.join(output_dir, "train_loop")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    vae = WanVAE(base.vae, dtype=torch.bfloat16, device="cuda",
+                 gen=torch.Generator(device="cuda").manual_seed(2))
+
+    def extract(caption):
+        g = torch.Generator(device="cuda").manual_seed(sum(map(ord,
+                                                               caption)))
+        return torch.randn((16, 64), generator=g, device="cuda")
+
+    vgen = torch.Generator(device="cuda").manual_seed(4)
+    data = [{"caption": f"sample {i}",
+             "video": torch.rand((5, 64, 64, 3), generator=vgen,
+                                 device="cuda") * 2 - 1} for i in range(2)]
+    res = ft.train_cross_attention_fusion(
+        data, extract, None, fusion,
+        dataclasses.replace(train_cfg, max_steps=4, save_interval=2),
+        run_dir, resume=False, dit_cfg=dit_cfg, lora_cfg=lora_cfg,
+        device="cuda",
+        diffusion={"spec": spec, "dit": make_dit("cuda"), "vae": vae,
+                   "latent_grid": (2, 8, 8), "remat_blocks": "attn",
+                   "policy": policy})
+    files = {sub: os.path.exists(os.path.join(run_dir, sub, fname))
+             for sub, fname in (("latest", "train_state.npz"),
+                                ("best", "train_state.npz"),
+                                ("lora_best", "lora_weights.npz"))}
+    out = {"check": "train_loop", "steps": res["steps"],
+           "losses": res["losses"], "files": files}
+    out["ok"] = (res["steps"] == 4 and all(files.values())
+                 and all(math.isfinite(x) for x in res["losses"]))
+    log(json.dumps(out))
+    if not out["ok"]:
+        fail("train_cross_attention_fusion on the card")
+
+
+def train_main_path(n_steps):
+    """Phase 6: the training path at full width: t2v-1.3B at 832x480x81
+    (latents [1, 21, 60, 104, 16], 32,760 tokens padded to 32,768), bf16
+    base DiT with random weights, LoRA rank 16 ('wan_cross_attention')
+    plus the default projector (BAGEL tokens [1, 256, 3584]), remat
+    'attn', bf16 residual, bounded softmax: `n_steps` steps of the port's
+    make_diffusion_train_step. Returns the kernels' launch counts."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from univid_tpu_torch.core.config import (WAN_CONFIGS, FusionConfig,
+                                              latent_shape)
+    from univid_tpu_torch.core.dtypes import BF16_RESIDUAL_POLICY
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.wan.dit import WanDiT
+    from univid_tpu_torch.train import fusion_trainer as ft
+    from univid_tpu_torch.train.lora import LoRAConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = WAN_CONFIGS["t2v-1.3B"]
+    fusion = FusionConfig(wan_text_dim=spec.dit.text_dim,
+                          wan_text_length=spec.dit.text_len)
+    train_cfg = ft.FusionTrainConfig(train_lora=True)
+    _, f, lh, lw = latent_shape(spec, 832, 480, 81)
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    dit = WanDiT(spec.dit, dtype=torch.bfloat16, device="cuda", gen=gen(0))
+    with torch.no_grad():   # the zero head blocks every gradient
+        dit.head.head.w.normal_(0.0, 0.02, generator=gen(5))
+    state, tx, tmpl = ft.init_fusion_train_state(
+        gen(1), fusion, train_cfg, dit_cfg=spec.dit, lora_cfg=LoRAConfig(),
+        device="cuda")
+    policy = dataclasses.replace(BF16_RESIDUAL_POLICY, bounded_softmax=True)
+    step, _ = ft.make_diffusion_train_step(
+        spec, fusion, train_cfg, tx, dit, None, (f, lh, lw),
+        lora_template=tmpl, remat_blocks="attn", policy=policy)
+    c = spec.vae.z_dim
+    batch = {
+        "latents": torch.randn((1, f, lh, lw, c), generator=gen(2),
+                               device="cuda").to(torch.bfloat16),
+        "bagel_tokens": torch.randn(
+            (1, fusion.bagel_sequence_length, fusion.bagel_hidden_dim),
+            generator=gen(3), device="cuda").to(torch.bfloat16),
+        "noise": torch.randn((1, f, lh, lw, c), generator=gen(4),
+                             device="cuda").to(torch.bfloat16),
+        "t": torch.tensor([500.0], device="cuda"),
+    }
+    snapshot = {k: v.clone() for k, v in dit.state_dict().items()}
+    # per step, remat 'attn': self-attention of layers 1-29 on the forward
+    # with lse (layer 0's q, k, v have no trainable upstream: the serving
+    # kernel, and no backward), cross-attention twice (forward and its
+    # recompute in the backward), one backward pair per differentiated call
+    per_step = {"flash_attention_bf16": 1, "cross_attention_bf16": 0,
+                "flash_attention_f32": 0, "rope_rotate_bf16": 0,
+                "flash_attention_bf16_lse": 29 + 2 * 30,
+                "flash_attention_bwd_dq_bf16": 29 + 30,
+                "flash_attention_bwd_dkv_bf16": 29 + 30}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    seconds, losses = [], []
+    for i in range(n_steps):
+        before = dict(fa.LAUNCHES)
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))   # waits for the step
+        seconds.append(time.perf_counter() - t0)
+        counts = {k: fa.LAUNCHES[k] - before[k] for k in before}
+        if counts != per_step:
+            fail(f"train step {i + 1} launches {counts} != {per_step}")
+        if i == 0:
+            b_max = max(float(p["b"].detach().abs().max())
+                        for p in state["trainable"]["lora"].values())
+            if not b_max > 0:
+                fail("LoRA b is still zero after the first step")
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    state, profiled = profile_step(step, state, batch)
+    base_same = all(torch.equal(v, snapshot[k])
+                    for k, v in dit.state_dict().items())
+    out = {"phase": "train_main_path", "model": "t2v-1.3B",
+           "resolution": "832x480x81", "tokens": f * (lh // 2) * (lw // 2),
+           "steps": n_steps, "step_seconds": seconds,
+           # the first step also allocates: the median of the others
+           "seconds_per_step": statistics.median(seconds[1:] or seconds),
+           "peak_memory_gb": peak, "losses": losses,
+           "launches": launches, "launches_per_step": per_step,
+           "base_unchanged": base_same, "profiled_step": profiled}
+    log(json.dumps(out))
+    if not all(math.isfinite(x) for x in losses):
+        fail("non-finite training loss")
+    if not base_same:
+        fail("the frozen base DiT changed during training")
+    del state, step, dit, snapshot, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_step(step, state, batch):
+    """One more train step under torch.profiler: the device time of its
+    kernels by family, and the share of the step's wall time in which no
+    kernel ran (the profiler's host overhead inflates the wall time, so
+    this share is an upper bound). Returns (state, summary)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        float(loss)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fam = {"attention_kernels_ms": 0.0, "gemm_ms": 0.0,
+           "other_kernels_ms": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        name = e.key.lower()
+        if "flash_" in name or "rope_rotate" in name:
+            fam["attention_kernels_ms"] += ms
+        elif "gemm" in name or "nvjet" in name or "xmma" in name:
+            fam["gemm_ms"] += ms
+        else:   # elementwise, reductions, copies, memsets
+            fam["other_kernels_ms"] += ms
+    busy = sum(fam.values())
+    return state, dict(fam, wall_ms=wall_ms, device_busy_ms=busy,
+                       idle_share_upper_bound=max(0.0, 1 - busy / wall_ms))
 
 
 def main_path(steps, output_dir):
@@ -366,7 +858,10 @@ def main_path(steps, output_dir):
     expected = {"flash_attention_bf16": 30 * steps,
                 "cross_attention_bf16": 30 * steps,
                 "flash_attention_f32": 21,
-                "rope_rotate_bf16": 60 * steps}   # q and k per self-attn
+                "rope_rotate_bf16": 60 * steps,   # q and k per self-attn
+                "flash_attention_bf16_lse": 0,    # serving differentiates
+                "flash_attention_bwd_dq_bf16": 0,  # nothing
+                "flash_attention_bwd_dkv_bf16": 0}
     frames = read_video_frames(meta["video_path"])
     log(json.dumps({
         "phase": "main_path", "seconds": wall,
@@ -385,6 +880,7 @@ def main_path(steps, output_dir):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--train-steps", type=int, default=3)
     ap.add_argument("--kernels-only", action="store_true")
     ap.add_argument("--output_dir", default="smoke_out")
     args = ap.parse_args()
@@ -413,16 +909,29 @@ def main():
 
     t0 = time.perf_counter()
     records = check_kernels()
+    serving = list(records)
+    records.update(check_train_kernels())
     log(json.dumps({"phase": "kernel_checks",
                     "seconds": time.perf_counter() - t0}))
 
     launches = {name: None for name in records}
     if not args.kernels_only:
+        for phase, fn in (("small_parity", small_parity),
+                          ("train_parity",
+                           lambda: train_parity(args.output_dir))):
+            t0 = time.perf_counter()
+            fn()
+            log(json.dumps({"phase": phase,
+                            "seconds": time.perf_counter() - t0}))
+        # each path is driven with every count at 0 just before it; a
+        # kernel's launches are those of its own path
+        served = main_path(args.steps, args.output_dir)
         t0 = time.perf_counter()
-        small_parity()
-        log(json.dumps({"phase": "small_parity",
+        trained = train_main_path(args.train_steps)
+        log(json.dumps({"phase": "train_main_path_total",
                         "seconds": time.perf_counter() - t0}))
-        launches = main_path(args.steps, args.output_dir)
+        launches = {nm: (served if nm in serving else trained)[nm]
+                    for nm in records}
     kernels = [dict(records[nm], launches=launches[nm]) for nm in records]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from univid_tpu_torch.kernels import attention as tatt
 from univid_tpu_torch.kernels import flash_attention as tfa
 from univid_tpu_torch.ops.rope import build_rope_3d as trope3d
 
@@ -72,3 +73,81 @@ def test_cuda_kernel_matches_plain(cuda_device, mode):
     tol = FP32 if dt == torch.float32 else BF16
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **tol)
+
+
+def _rel(a, b):
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bounded_kvlen", "running", "cross512"])
+def test_cuda_training_kernels_match_plain(cuda_device, mode):
+    """The forward with lse and the dq / dk-dv backward kernels against
+    their plain versions on the card (bf16; lse to 1e-3 absolute, the
+    approximate exp2 and the summation order; gradients to 2e-2 relative
+    L2 and elementwise, one bf16 rounding of p, dS and the output)."""
+    b, lq, n, d = 2, 512, 2, 128
+    lk = 512 if mode == "cross512" else lq
+    q = torch.as_tensor(_rand((b, lq, n, d), 3, True)).to(cuda_device,
+                                                          torch.bfloat16)
+    k, v = (torch.as_tensor(_rand((b, lk, n, d), s, True)).to(
+        cuda_device, torch.bfloat16) for s in (4, 5))
+    do = torch.as_tensor(_rand((b, lq, n, d), 6)).to(cuda_device,
+                                                     torch.bfloat16)
+    kv = (torch.tensor([lk - 77, 0], dtype=torch.int32, device=cuda_device)
+          if mode == "bounded_kvlen" else None)
+    if kv is not None:   # masked keys hold large values
+        k[0, lk - 77:] = 50.0
+        v[0, lk - 77:] = 50.0
+    bound = (None if mode == "running" else
+             torch.tensor([1.01 * d * LOG2E / math.sqrt(d)],
+                          device=cuda_device))
+    qs = tfa._fold(q, 1.0 / math.sqrt(d))
+    with torch.no_grad():
+        o, lse = tfa.flash_attention_fwd_folded(qs, k, v, kv_len=kv,
+                                                score_bound=bound)
+        o_p, lse_p = tfa.attention_plain(qs, k, v, kv_len=kv, bound=bound,
+                                         save_residuals=True)
+        grads = tfa.flash_attention_bwd_folded(
+            qs, k, v, o_p, lse_p, do, kv_len=kv, softmax_scale=d ** -0.5)
+        want = tfa._bwd_plain_folded(qs, k, v, o_p, lse_p, do, kv,
+                                     d ** -0.5)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               o_p.float().cpu().numpy(), **BF16)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(),
+                               rtol=0, atol=1e-3)
+    for got, ref, name in zip(grads, want, ("dq", "dk", "dv")):
+        assert _rel(got, ref) < 2e-2, name
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), err_msg=name,
+                                   **BF16)
+    if kv is not None:   # kv_len = 0: lse +1e30, zero dq / dk / dv
+        assert bool((lse[1] == 1e30).all())
+        for gr in grads:
+            assert float(gr[1].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_attention_function_grads(cuda_device):
+    """attention() under grad on the card (the autograd Function over the
+    kernels) against autograd through the fp32 mha_reference, relative L2
+    (bf16 inputs and roundings: 2e-2)."""
+    b, l, n, d = 1, 300, 2, 128
+    q, k, v, g = (torch.as_tensor(_rand((b, l, n, d), s, s < 5)).to(
+        cuda_device, torch.bfloat16) for s in (3, 4, 5, 6))
+    qt, kt, vt = (x.clone().requires_grad_(True) for x in (q, k, v))
+    tfa.reset_launches()
+    out = tatt.attention(qt, kt, vt, score_bound=1.01 * d)
+    got = torch.autograd.grad((out.float() * g.float()).sum(),
+                              (qt, kt, vt))
+    assert tfa.LAUNCHES["flash_attention_bf16_lse"] == 1
+    assert tfa.LAUNCHES["flash_attention_bwd_dq_bf16"] == 1
+    assert tfa.LAUNCHES["flash_attention_bwd_dkv_bf16"] == 1
+    qr, kr, vr = (x.float().requires_grad_(True) for x in (q, k, v))
+    ref = tatt.mha_reference(qr, kr, vr)
+    want = torch.autograd.grad((ref * g.float()).sum(), (qr, kr, vr))
+    assert _rel(out.float(), ref) < 2e-2
+    for a, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert _rel(a.float(), w) < 2e-2, name

@@ -7,7 +7,8 @@ a state dict key by key. Layout rules, by leaf name and rank:
   * `w` of rank 4, a 2D conv HWIO (resample) -> [Cout, Cin, 1, kh, kw];
   * every other leaf as it is.
 The DiT's `blocks` leaves are stacked [num_layers, ...] in the JAX tree
-(one lax.scan); they are unstacked into the ModuleList here.
+(one lax.scan); they are unstacked into the ModuleList here. LoRA trees
+keep the JAX layout as they are (stacked a [L, in, r], b [L, r, out]).
 Leaves may be numpy arrays or anything `np.asarray` accepts (bf16 leaves
 included); nothing here imports JAX.
 """
@@ -19,7 +20,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .core.config import T5Config, WanDiTConfig, WanVAEConfig
+from .core.config import FusionConfig, T5Config, WanDiTConfig, WanVAEConfig
+from .models.fusion.projector import ContextProjector
 from .models.wan.dit import WanDiT
 from .models.wan.t5 import UMT5Encoder
 from .models.wan.vae_api import WanVAE
@@ -96,3 +98,21 @@ def t5_from_jax(params, cfg: T5Config, *, device="cuda",
                 dtype=None) -> UMT5Encoder:
     model = UMT5Encoder(cfg, dtype=dtype or torch.float32, device=device)
     return _load(model, jax_tree_to_state_dict(params), dtype)
+
+
+def projector_from_jax(params, cfg: FusionConfig, *, device="cuda",
+                       dtype=None) -> ContextProjector:
+    """univid_tpu init_context_projector tree -> ContextProjector
+    (trainable) on `device`."""
+    model = ContextProjector(cfg, dtype=dtype or torch.float32,
+                             device=device)
+    return _load(model, jax_tree_to_state_dict(params), dtype)
+
+
+def lora_from_jax(lora, *, device="cuda"):
+    """univid_tpu init_lora / load_lora tree -> the port's LoRA tree on
+    `device` (same structure and layouts)."""
+    sites = {site: {leaf: _to_torch(x).to(device) for leaf, x in p.items()}
+             for site, p in lora["sites"].items()}
+    return {"sites": sites, "rank": int(lora["rank"]),
+            "alpha": float(lora["alpha"])}

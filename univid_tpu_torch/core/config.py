@@ -1,8 +1,8 @@
 """Typed configuration for the port (counterpart of univid_tpu/core/config.py).
 
-The dataclasses, their defaults and the `t2v-1.3B`, `ti2v-5B` and `tiny`
-entries of WAN_CONFIGS are copied from the JAX package, which the port does
-not import.
+The dataclasses (FusionConfig included), their defaults and the
+`t2v-1.3B`, `ti2v-5B` and `tiny` entries of WAN_CONFIGS are copied from the
+JAX package, which the port does not import.
 """
 
 from __future__ import annotations
@@ -91,6 +91,31 @@ class T5Config:
     shared_pos: bool = False  # umt5: per-layer relative position embeddings
     dropout: float = 0.0
     text_len: int = 512
+
+
+# ---------------------------------------------------------------------------
+# Fusion (BAGEL -> Wan context projector)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class FusionConfig:
+    """Cross-attention fusion: BAGEL hidden states -> Wan context.
+
+    Mirrors the knobs of reference CrossAttentionConfig
+    (model_pipeline.py:154-296) that affect computation.
+    """
+
+    bagel_hidden_dim: int = 3584
+    wan_text_dim: int = 4096
+    wan_text_length: int = 512
+    bagel_sequence_length: int = 256
+    fusion_mode: str = "context_replacement"
+    fusion_alpha: float = 1.0  # 1.0 = pure BAGEL context
+    projector_hidden_mult: int = 2  # hidden = wan_text_dim * mult
+    projector_dropout: float = 0.1
+    use_semantic_alignment: bool = True
+    use_cosine_similarity_loss: bool = True
 
 
 # ---------------------------------------------------------------------------

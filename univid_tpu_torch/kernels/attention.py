@@ -1,15 +1,18 @@
 """Attention dispatcher: the hand-written kernels, or the plain reference.
 
-Counterpart of univid_tpu/kernels/attention.py::attention for the
-inference options of the t2v main path. Inputs are [B, L, N, D] and may be
+Counterpart of univid_tpu/kernels/attention.py::attention for the t2v
+inference options and the training path. Inputs are [B, L, N, D] and may be
 unpadded: the kernel route pads Lq and Lk to the kernels' tile multiple,
 masks padded keys through kv_len and slices the output back. Routes:
 
   kernel     — kernels.flash_attention (CUDA kernels on the card, their
                plain versions on the CPU), for head dims that are multiples
-               of 128
+               of 128. A call that needs a gradient (grad enabled and q, k
+               or v requiring it) goes through `FlashAttention`, the
+               counterpart of the JAX package's `_flash` custom VJP: the
+               forward that saves the lse, then the backward kernels.
   reference  — `mha_reference`, a masked softmax attention, for other head
-               dims (as on the TPU)
+               dims (as on the TPU); differentiable by plain autograd.
 
 Causal attention, q offsets, segment masks, softmax_bf16 and qk_int8 are
 later slices and raise here.
@@ -22,8 +25,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .flash_attention import (LOG2E, NEG_INF, TILE, flash_attention_padded,
-                              rotate)
+from .flash_attention import (LOG2E, NEG_INF, TILE, _fold,
+                              flash_attention_bwd_folded,
+                              flash_attention_fwd_folded,
+                              flash_attention_padded, rotate)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -50,6 +55,35 @@ def mha_reference(q, k, v, *, kv_len=None, softmax_scale=None):
     return o.to(q.dtype)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention over PADDED inputs (JAX `_flash`).
+
+    Takes the raw q and folds it by softmax_scale * log2(e) inside, as JAX
+    does; the forward saves (qs, k, v, o, lse) and the backward runs the
+    backward kernels on them (their plain versions on the CPU). kv_len and
+    score_bound get no gradient: the bound only moves the softmax's
+    reference point, so d(out)/d(bound) = 0."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, score_bound, softmax_scale):
+        qs = _fold(q, softmax_scale)
+        o, lse = flash_attention_fwd_folded(qs, k, v, kv_len=kv_len,
+                                            score_bound=score_bound)
+        ctx.save_for_backward(qs, k, v, o, lse, kv_len)
+        ctx.softmax_scale = softmax_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qs, k, v, o, lse, kv_len = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd_folded(
+            qs, k, v, o, lse, do, kv_len=kv_len,
+            softmax_scale=ctx.softmax_scale)
+        return dq, dk, dv, None, None, None
+
+
 def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
               score_bound=None, causal=False, q_segments=None,
               softmax_bf16=False, qk_int8=False):
@@ -59,7 +93,14 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
     build_fused_rope_tables output (fused rotation of q and k). score_bound:
     a PROVEN upper bound on the RAW q.k scores (d * max|g_q| * max|g_k| for
     qk-normed rows) -> bounded softmax in the kernel route; the reference
-    route ignores it (exact softmax either way)."""
+    route ignores it (exact softmax either way).
+
+    Under grad (grad enabled and q, k or v requiring it) the kernel route
+    runs `FlashAttention`: rope_tables are refused (training rotates q and
+    k outside the kernel, as the JAX package does), the cross call takes
+    the generic kernel rather than the one-shot route, the bound is
+    detached, and fp32 tensors on the card are refused (the backward
+    kernels are bf16)."""
     if causal or q_segments is not None or softmax_bf16 or qk_int8:
         raise NotImplementedError(
             "causal / segment attention and the softmax_bf16 / qk_int8 "
@@ -77,6 +118,17 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
         return mha_reference(q, k, v, kv_len=kv_len,
                              softmax_scale=softmax_scale)
 
+    train = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if train and rope_tables is not None:
+        raise NotImplementedError(
+            "fused rope is inference-only: under grad, rotate q and k "
+            "before the call (the DiT does so when fused_rope=False)")
+    if train and q.is_cuda and q.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            "fp32 attention under grad on the card waits for the fp32 "
+            "backward kernels (a later slice, ROADMAP.md queue 2)")
+
     lq_pad = _round_up(lq, TILE)
     lk_pad = _round_up(lk, TILE)
     if lk_pad != lk and kv_len is None:
@@ -87,13 +139,15 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
         k = F.pad(k, (0, 0, 0, 0, 0, lk_pad - lk))
         v = F.pad(v, (0, 0, 0, 0, 0, lk_pad - lk))
 
+    sc = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     folded_bound = None
     if score_bound is not None:
         # kernel scores carry softmax_scale * log2(e): fold the raw bound
-        sc = softmax_scale if softmax_scale is not None \
-            else 1.0 / math.sqrt(d)
         folded_bound = torch.as_tensor(score_bound, dtype=torch.float32) \
-            .to(q.device) * (sc * LOG2E)
+            .to(q.device).detach() * (sc * LOG2E)
+    if train:
+        return FlashAttention.apply(q, k, v, kv_len, folded_bound,
+                                    sc)[:, :lq]
     o = flash_attention_padded(q, k, v, kv_len=kv_len,
                                softmax_scale=softmax_scale,
                                rope_tables=rope_tables,

@@ -25,6 +25,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 SOURCES = {
     "flash_attention": "flash_attention.cu",
     "flash_attention_f32": "flash_attention_f32.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -6,7 +6,13 @@
 //     running-max form when no bound is given), kv_len masking with dead
 //     kv tiles skipped, zero output rows when l == 0;
 //   * _cross_kernel (:355): single-kv-block attention (Lk <= 512) with a
-//     one-shot softmax by the row max or by the bound, optional kv_len.
+//     one-shot softmax by the row max or by the bound, optional kv_len;
+//   * _flash_kernel's save_residuals mode (:343-352), the training forward:
+//     with an lse pointer the kernel also writes the per-row exp2-domain
+//     log-sum-exp, C + log2 l under the bound, m + log2 l with the running
+//     max, +1e30 for rows with l == 0, as fp32 [B, N, Lq] (the TPU's
+//     128-lane broadcast of it is a layout device and is not copied). The
+//     backward kernels (flash_attention_bwd.cu) rebuild p from it.
 //
 // What bounds it: at the main-path shape (q, k, v [2, 32768, 12, 128])
 // the work is 4*L*L*d flops per head against 4*L*d bytes, ~16k flops per
@@ -109,7 +115,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ v,
                       __nv_bfloat16* __restrict__ o,
                       const int* __restrict__ kv_len,
-                      const float* __restrict__ bound, int n_heads,
+                      const float* __restrict__ bound,
+                      float* __restrict__ lse, int n_heads, int lq,
                       int lk, long long q_sb, long long q_sl, long long q_sh,
                       long long k_sb, long long k_sl, long long k_sh,
                       long long v_sb, long long v_sl, long long v_sh,
@@ -298,6 +305,14 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     l += __shfl_xor_sync(0xffffffff, l, 1);
     l += __shfl_xor_sync(0xffffffff, l, 2);
     inv[i] = l > 0.f ? 1.f / l : 0.f;
+    if (lse != nullptr && t == 0) {
+      // exp2-domain lse of row g + 8i: the reference point (the bound C, or
+      // the row max m) plus log2 l; empty rows get +1e30 so that the
+      // backward's exp2(s - lse) is exactly 0 there
+      const float ref = (MODE == BOUNDED) ? c_bound : m_r[i];
+      lse[(long long)bh * lq + q0 + warp * 16 + g + 8 * i] =
+          l > 0.f ? ref + log2f(l) : -NEG_INF;
+    }
   }
   __nv_bfloat16* op = o + b * o_sb + h * o_sh + (long long)(q0 + warp * 16) * o_sl;
 #pragma unroll
@@ -339,8 +354,8 @@ __global__ void rope_rotate_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 
 template <int D, int MODE>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* kv_len,
-                   const void* bound, int B, int N, int lq, int lk, const long long* st,
-                   cudaStream_t stream) {
+                   const void* bound, void* lse, int B, int N, int lq, int lk,
+                   const long long* st, cudaStream_t stream) {
   auto kern = flash_fwd_bf16_kernel<D, MODE>;
   const int smem = (BR + 2 * BC) * D * (int)sizeof(__nv_bfloat16);
   cudaError_t err =
@@ -350,7 +365,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
   kern<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<const int*>(kv_len), static_cast<const float*>(bound), N, lk, st[0], st[1], st[2], st[3], st[4],
+      static_cast<const int*>(kv_len), static_cast<const float*>(bound),
+      static_cast<float*>(lse), N, lq, lk, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return cudaGetLastError();
 }
@@ -364,15 +380,18 @@ extern "C" {
 // lq and lk are multiples of 64. kv_len: int32 [B] on the device, or null.
 // mode: 0 bounded (reference point *bound, an fp32 scalar on the device, the
 // folded score bound), 1 running max, 2 one-shot max (bound may be null).
+// lse: null, or fp32 [B, N, lq] contiguous that receives the exp2-domain
+// log-sum-exp of every row (the training forward).
 int univid_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                          const void* kv_len, const void* bound, int mode, int B, int N, int lq,
-                          int lk, int D, const long long* strides, void* stream) {
+                          const void* kv_len, const void* bound, void* lse, int mode, int B,
+                          int N, int lq, int lk, int D, const long long* strides,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D != 128 || lq % BR != 0 || lk % BC != 0) return (int)cudaErrorInvalidValue;
   switch (mode) {
-    case BOUNDED: return (int)launch<128, BOUNDED>(q, k, v, o, kv_len, bound, B, N, lq, lk, strides, s);
-    case RUNNING: return (int)launch<128, RUNNING>(q, k, v, o, kv_len, bound, B, N, lq, lk, strides, s);
-    case ONESHOT: return (int)launch<128, ONESHOT>(q, k, v, o, kv_len, bound, B, N, lq, lk, strides, s);
+    case BOUNDED: return (int)launch<128, BOUNDED>(q, k, v, o, kv_len, bound, lse, B, N, lq, lk, strides, s);
+    case RUNNING: return (int)launch<128, RUNNING>(q, k, v, o, kv_len, bound, lse, B, N, lq, lk, strides, s);
+    case ONESHOT: return (int)launch<128, ONESHOT>(q, k, v, o, kv_len, bound, lse, B, N, lq, lk, strides, s);
   }
   return (int)cudaErrorInvalidValue;
 }

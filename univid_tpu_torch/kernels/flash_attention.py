@@ -1,20 +1,27 @@
-"""Flash attention forward: hand-written CUDA kernels and their plain versions.
+"""Flash attention: hand-written CUDA kernels and their plain versions.
 
-Counterpart of univid_tpu/kernels/flash_attention.py for the inference
-modes the t2v main path reaches:
+Counterpart of univid_tpu/kernels/flash_attention.py for the modes the t2v
+and training paths reach:
 
   * `flash_attention_padded` — `_flash_kernel`: non-causal attention in the
     exp2 domain with the fused-rope prologue, the bounded softmax (or a
     running max), `kv_len` masking and zero rows when l == 0. bf16 d=128
     runs csrc/flash_attention.cu (DiT self-attention); fp32 d=384 runs
-    csrc/flash_attention_f32.cu (VAE mid-block attention).
+    csrc/flash_attention_f32.cu (VAE mid-block attention). With
+    `save_residuals=True` (the training forward) it also returns the
+    per-row exp2-domain lse, fp32 [B, N, Lq].
   * `cross_attention_padded` — `_cross_kernel`: single-kv-block attention
     (Lk <= 512) with a one-shot softmax by the row max or by the bound.
+  * `flash_attention_bwd_padded` — `_flash_bwd_fused_kernel` and the
+    two-pass `_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel`: dq, dk, dv
+    rebuilt from the lse, bf16 d=128 on csrc/flash_attention_bwd.cu (a dq
+    kernel and a dk/dv kernel).
 
 Inputs are [B, L, N, D] and already padded (Lq, Lk multiples of TILE);
-`kernels/attention.py` pads. Each wrapper takes its plain PyTorch version
-only for tensors on the CPU; on CUDA tensors it launches its kernel or
-raises. `LAUNCHES` counts kernel launches per wrapper.
+`kernels/attention.py` pads and wraps the training pair in an autograd
+Function. Each wrapper takes its plain PyTorch version only for tensors on
+the CPU; on CUDA tensors it launches its kernel or raises. `LAUNCHES`
+counts kernel launches per wrapper.
 """
 
 from __future__ import annotations
@@ -29,12 +36,15 @@ from . import build
 
 NEG_INF = -1e30
 LOG2E = math.log2(math.e)
+LN2 = math.log(2.0)
 TILE = 64           # padded-length multiple the kernels take
 CROSS_MAX_LK = 512  # single-kv-block route (the TPU's one kv block)
 
 # kernel launches per wrapper (reset by callers that count a run)
 LAUNCHES = {"flash_attention_bf16": 0, "cross_attention_bf16": 0,
-            "flash_attention_f32": 0, "rope_rotate_bf16": 0}
+            "flash_attention_f32": 0, "rope_rotate_bf16": 0,
+            "flash_attention_bf16_lse": 0, "flash_attention_bwd_dq_bf16": 0,
+            "flash_attention_bwd_dkv_bf16": 0}
 
 _MODE_BOUNDED, _MODE_RUNNING, _MODE_ONESHOT = 0, 1, 2
 
@@ -95,7 +105,7 @@ def rotate(x: torch.Tensor, cf: torch.Tensor, sf: torch.Tensor,
 
 
 def attention_plain(q, k, v, *, kv_len=None, bound=None, rope_tables=None,
-                    q_chunk: int = 1024):
+                    save_residuals: bool = False, q_chunk: int = 1024):
     """The kernels' function in plain PyTorch, over padded [B, L, N, D].
 
     Scores are in the folded (scale * log2 e) domain: q carries the fold,
@@ -103,7 +113,9 @@ def attention_plain(q, k, v, *, kv_len=None, bound=None, rope_tables=None,
     tensor) -> p = exp2(s - bound); None -> p = exp2(s - rowmax(s)), the
     one-shot form, equal in exact arithmetic to the running max. Keys at or
     past kv_len[b] get s = -1e30 and p = 0; rows with l == 0 are zero. p is
-    rounded to v's dtype before p @ v; l and the accumulator stay fp32."""
+    rounded to v's dtype before p @ v; l and the accumulator stay fp32.
+    save_residuals -> (out, lse): lse fp32 [B, N, Lq] = ref + log2 l, ref
+    the bound or the row max, +1e30 where l == 0."""
     if rope_tables is not None:
         cq, sq, ck, sk = rope_tables
         q = rotate(q, cq, sq, q.dtype)
@@ -117,6 +129,8 @@ def attention_plain(q, k, v, *, kv_len=None, bound=None, rope_tables=None,
         cols = torch.arange(lk, device=q.device)
         dead = (cols[None, :] >= kv_len.to(q.device)[:, None])[:, None, None, :]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, n, lq), dtype=torch.float32, device=q.device)
+           if save_residuals else None)
     for i0 in range(0, lq, q_chunk):
         s = torch.einsum("bqnd,bknd->bnqk", q[:, i0:i0 + q_chunk].float(), kf)
         if dead is not None:
@@ -129,7 +143,65 @@ def attention_plain(q, k, v, *, kv_len=None, bound=None, rope_tables=None,
         inv = torch.where(l > 0, 1.0 / torch.where(l > 0, l, 1.0), 0.0)
         acc = torch.einsum("bnqk,bknd->bqnd", p.to(v.dtype).float(), vf)
         out[:, i0:i0 + q_chunk] = (acc * inv.permute(0, 2, 1, 3)).to(q.dtype)
-    return out
+        if save_residuals:
+            lse[:, :, i0:i0 + q_chunk] = torch.where(
+                l > 0, ref + torch.log2(torch.where(l > 0, l, 1.0)),
+                -NEG_INF)[..., 0]
+    return (out, lse) if save_residuals else out
+
+
+def attention_bwd_plain(q, k, v, o, lse, do, *, kv_len=None,
+                        softmax_scale=None, q_chunk: int = 1024):
+    """The backward kernels' function in plain PyTorch: dq, dk, dv of
+    `flash_attention_padded` from its output o and lse, for RAW q (folded
+    here as on the TPU). Rounding points of the JAX kernels: qs = q * scale
+    * log2e in q's dtype; p = exp2(qs k^T - lse) in fp32 (masked keys
+    -1e30); delta = sum(do * o) in fp32; ds = p * (dp - delta);
+    dq = scale * sum ds(k dtype) k -> q's dtype; dk = ln2 * sum ds^T(q dtype)
+    qs, dv = sum p^T(do dtype) do, accumulated in fp32, cast once."""
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(q.shape[-1])
+    return _bwd_plain_folded(_fold(q, softmax_scale), k, v, o, lse, do,
+                             kv_len, softmax_scale, q_chunk)
+
+
+def _fold(q, softmax_scale):
+    """q * softmax_scale * log2(e), the constant rounded to q's dtype first
+    (the JAX wrappers' fold)."""
+    return q * torch.tensor(softmax_scale * LOG2E, dtype=q.dtype,
+                            device=q.device)
+
+
+def _bwd_plain_folded(qs, k, v, o, lse, do, kv_len, softmax_scale,
+                      q_chunk=1024):
+    b, lq, n, d = qs.shape
+    lk = k.shape[1]
+    kf = k.float()
+    vf = v.float()
+    dead = None
+    if kv_len is not None:
+        cols = torch.arange(lk, device=qs.device)
+        dead = (cols[None, :] >= kv_len.to(qs.device)[:, None])[:, None, None, :]
+    dq = torch.empty(qs.shape, dtype=qs.dtype, device=qs.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=qs.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=qs.device)
+    for i0 in range(0, lq, q_chunk):
+        sl = slice(i0, i0 + q_chunk)
+        qc, doc = qs[:, sl], do[:, sl]
+        t = torch.einsum("bqnd,bknd->bnqk", qc.float(), kf)
+        if dead is not None:
+            t = t.masked_fill(dead, NEG_INF)
+        p = torch.exp2(t - lse[:, :, sl, None])
+        dp = torch.einsum("bqnd,bknd->bnqk", doc.float(), vf)
+        delta = (doc.float() * o[:, sl].float()).sum(-1)       # [b, q, n]
+        ds = p * (dp - delta.permute(0, 2, 1)[..., None])
+        dq[:, sl] = (torch.einsum("bnqk,bknd->bqnd", ds.to(k.dtype).float(),
+                                  kf) * softmax_scale).to(qs.dtype)
+        dv += torch.einsum("bnqk,bqnd->bknd", p.to(do.dtype).float(),
+                           doc.float())
+        dk += torch.einsum("bnqk,bqnd->bknd", ds.to(qs.dtype).float(),
+                           qc.float())
+    return dq, (dk * LN2).to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -166,8 +238,8 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_cuda_inputs(q, k, v, kv_len, dtype, d_ok):
-    for t in (q, k, v):
+def _check_cuda_inputs(q, k, v, kv_len, dtype, d_ok, *more):
+    for t in (q, k, v, *more):
         if not t.is_cuda or t.dtype != dtype:
             raise TypeError(f"kernel takes {dtype} CUDA tensors, got "
                             f"{t.dtype} on {t.device}")
@@ -175,8 +247,9 @@ def _check_cuda_inputs(q, k, v, kv_len, dtype, d_ok):
         raise ValueError(f"no {dtype} kernel for head dim {q.shape[-1]} "
                          f"(built: {d_ok})")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("the attention backward kernels are not ported "
-                           "yet (training slice); call under no_grad")
+        raise RuntimeError("the kernel wrappers are not differentiable: "
+                           "kernels.attention.attention routes a call that "
+                           "needs a gradient through its autograd Function")
     if q.shape[1] % TILE or k.shape[1] % TILE:
         raise ValueError("pad Lq and Lk to multiples of 64 (kernels/"
                          "attention.py does)")
@@ -185,15 +258,16 @@ def _check_cuda_inputs(q, k, v, kv_len, dtype, d_ok):
         raise TypeError("kv_len must be int32 on the kernel's device")
 
 
-def _launch_bf16(q, k, v, kv_len, bound, mode):
+def _launch_bf16(q, k, v, kv_len, bound, mode, lse=None):
     b, lq, n, d = q.shape
     o = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
     fn = _fn("flash_attention", "univid_flash_fwd_bf16",
-             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P])
+             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P])
     strides = _strides(q, k, v, o)  # host array, read during the launch
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              kv_len.data_ptr() if kv_len is not None else None,
-             bound.data_ptr() if bound is not None else None, mode, b, n,
+             bound.data_ptr() if bound is not None else None,
+             lse.data_ptr() if lse is not None else None, mode, b, n,
              lq, k.shape[1], d, ctypes.addressof(strides), _stream(q))
     build.check(err, "univid_flash_fwd_bf16")
     return o
@@ -273,26 +347,36 @@ def cross_attention_padded(q, k, v, *, kv_len=None, score_bound=None):
 
 
 def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
-                           rope_tables=None, score_bound=None):
-    """Non-causal attention over padded [B, L, N, D] (forward, inference).
+                           rope_tables=None, score_bound=None,
+                           save_residuals: bool = False):
+    """Non-causal attention over padded [B, L, N, D].
 
     rope_tables: build_fused_rope_tables output -> q and k rotated first
     (rotated q kept in q's dtype, rotated k in v's dtype). Without them q is
     folded by softmax_scale * log2(e) in q's dtype. score_bound: proven
     upper bound on the FOLDED scores -> bounded softmax. bf16 with Lk <= 512
-    and no rope takes the single-kv-block cross route."""
+    and no rope takes the single-kv-block cross route, except with
+    save_residuals, which returns (o, lse) from the generic kernel (the
+    training forward; lse as in `attention_plain`)."""
     b, lq, n, d = q.shape
     lk = k.shape[1]
     if lq % TILE or lk % TILE:
         raise ValueError(f"pad Lq, Lk ({lq}, {lk}) to multiples of {TILE}")
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(d)
+    if save_residuals:
+        if rope_tables is not None:
+            raise NotImplementedError(
+                "the training forward takes rotated q and k (the JAX "
+                "package's training path applies rope outside the kernel)")
+        return flash_attention_fwd_folded(_fold(q, softmax_scale), k, v,
+                                          kv_len=kv_len,
+                                          score_bound=score_bound)
     if rope_tables is not None:
         rope_tables = _pad_tables(rope_tables, lq, lk,
                                   softmax_scale * LOG2E)
     else:
-        q = q * torch.tensor(softmax_scale * LOG2E, dtype=q.dtype,
-                             device=q.device)
+        q = _fold(q, softmax_scale)
         # the cross kernel is bf16; short fp32 sequences (the VAE on small
         # frames) stay on the flash route, the same function
         if lk <= CROSS_MAX_LK and q.dtype == torch.bfloat16:
@@ -302,3 +386,98 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
         return _flash_cuda(q, k, v, kv_len, score_bound, rope_tables)
     return attention_plain(q, k, v, kv_len=kv_len, bound=score_bound,
                            rope_tables=rope_tables)
+
+
+def flash_attention_fwd_folded(qs, k, v, *, kv_len=None, score_bound=None):
+    """The training forward on an already folded qs: (o, lse fp32
+    [B, N, Lq]), bounded or running max, any Lk that is a multiple of 64
+    (the generic kernel, also at the Lk = 512 cross shape)."""
+    if not qs.is_cuda:
+        return attention_plain(qs, k, v, kv_len=kv_len, bound=score_bound,
+                               save_residuals=True)
+    if qs.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            "the training kernels are bf16; fp32 attention under grad on "
+            "the card waits for the fp32 backward (ROADMAP.md queue 2)")
+    _check_cuda_inputs(qs, k, v, kv_len, torch.bfloat16, (128,))
+    b, lq, n, _ = qs.shape
+    lse = torch.empty((b, n, lq), dtype=torch.float32, device=qs.device)
+    mode = _MODE_BOUNDED if score_bound is not None else _MODE_RUNNING
+    o = _launch_bf16(qs, k, v, kv_len, _bound_tensor(score_bound, qs.device),
+                     mode, lse=lse)
+    LAUNCHES["flash_attention_bf16_lse"] += 1
+    return o, lse
+
+
+def flash_attention_bwd_padded(q, k, v, o, lse, do, *, kv_len=None,
+                               softmax_scale=None):
+    """dq, dk, dv of `flash_attention_padded` for RAW q (folded here as on
+    the TPU), from its output o, its lse and the output cotangent do, all
+    padded [B, L, N, D] (lse [B, N, Lq])."""
+    if softmax_scale is None:
+        softmax_scale = 1.0 / math.sqrt(q.shape[-1])
+    return flash_attention_bwd_folded(_fold(q, softmax_scale), k, v, o, lse,
+                                      do, kv_len=kv_len,
+                                      softmax_scale=softmax_scale)
+
+
+def flash_attention_bwd_folded(qs, k, v, o, lse, do, *, kv_len=None,
+                               softmax_scale):
+    """The backward on the folded qs of the forward: the plain version on
+    the CPU; on the card the dq kernel (which also writes delta) and then
+    the dk/dv kernel."""
+    if not qs.is_cuda:
+        return _bwd_plain_folded(qs, k, v, o, lse, do, kv_len, softmax_scale)
+    dq, delta = _bwd_dq_cuda(qs, k, v, o, lse, do, kv_len, softmax_scale)
+    dk, dv = _bwd_dkv_cuda(qs, k, v, do, lse, delta, kv_len)
+    return dq, dk, dv
+
+
+def _check_bwd_inputs(qs, k, v, do, lse, kv_len, *more):
+    _check_cuda_inputs(qs, k, v, kv_len, torch.bfloat16, (128,), do, *more)
+    b, lq, n, _ = qs.shape
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, n, lq)
+            or not lse.is_contiguous() or lse.device != qs.device):
+        raise ValueError("lse must be contiguous fp32 [B, N, Lq] on the "
+                         "kernel's device")
+
+
+def _bwd_dq_cuda(qs, k, v, o, lse, do, kv_len, softmax_scale):
+    """dq (q's dtype) and delta = rowsum(do * o), fp32 [B, N, Lq]."""
+    _check_bwd_inputs(qs, k, v, do, lse, kv_len, o)
+    b, lq, n, d = qs.shape
+    dq = torch.empty(qs.shape, dtype=qs.dtype, device=qs.device)
+    delta = torch.empty((b, n, lq), dtype=torch.float32, device=qs.device)
+    fn = _fn("flash_attention_bwd", "univid_flash_bwd_dq_bf16",
+             [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P, _P])
+    strides = _strides(qs, k, v, o, do, dq)
+    err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(),
+             kv_len.data_ptr() if kv_len is not None else None,
+             dq.data_ptr(), delta.data_ptr(), b, n, lq, k.shape[1], d,
+             softmax_scale, ctypes.addressof(strides), _stream(qs))
+    build.check(err, "univid_flash_bwd_dq_bf16")
+    LAUNCHES["flash_attention_bwd_dq_bf16"] += 1
+    return dq, delta
+
+
+def _bwd_dkv_cuda(qs, k, v, do, lse, delta, kv_len):
+    """dk, dv (k's and v's dtype) from the dq kernel's delta."""
+    _check_bwd_inputs(qs, k, v, do, lse, kv_len)
+    if delta.shape != lse.shape or not delta.is_contiguous():
+        raise ValueError("delta must be contiguous fp32 [B, N, Lq]")
+    b, lq, n, d = qs.shape
+    lk = k.shape[1]
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    fn = _fn("flash_attention_bwd", "univid_flash_bwd_dkv_bf16",
+             [_P] * 9 + [_I] * 5 + [_P, _P])
+    strides = _strides(qs, k, v, do, dk, dv)
+    err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(),
+             kv_len.data_ptr() if kv_len is not None else None,
+             dk.data_ptr(), dv.data_ptr(), b, n, lq, lk, d,
+             ctypes.addressof(strides), _stream(qs))
+    build.check(err, "univid_flash_bwd_dkv_bf16")
+    LAUNCHES["flash_attention_bwd_dkv_bf16"] += 1
+    return dk, dv

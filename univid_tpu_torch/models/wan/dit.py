@@ -7,17 +7,22 @@ form ({t, 0} embedded once, selected per token by t_zero_mask); fp32
 islands for the time embedding, AdaLN modulation, norms and the residual
 stream; the bounded-softmax score bound 1.01 * d * max|g_q| * max|g_k| for
 self- and cross-attention; and the fused-rope route into the flash kernel.
-The blocks are an nn.ModuleList. Sequence parallelism and remat are later
-slices.
+The blocks are an nn.ModuleList. `wan_dit_forward` is differentiable
+(serving runs it under the pipeline's no_grad): `remat_blocks` recomputes
+blocks in the backward with torch.utils.checkpoint, and `weights`
+substitutes named parameters (the LoRA-merged weights of
+train/lora.merge_lora) without touching the module. Sequence parallelism
+is a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...core import nn as unn
 from ...core.config import WanDiTConfig
@@ -187,37 +192,65 @@ def _pad_rope(rope_cos, rope_sin, l):
 def _qk_bound(p, dh):
     """1.01 * d * max|g_q| * max|g_k|: qk-norm bounds every row norm by
     max|gain| * sqrt(d) and rope preserves norms; 1% absorbs bf16 rounding
-    of the normalised rows."""
-    gq = p["norm_q"].float().abs().max()
-    gk = p["norm_k"].float().abs().max()
+    of the normalised rows. Recomputed from the current gains on every call
+    and detached: it only moves the softmax's reference point."""
+    gq = p["norm_q"].detach().float().abs().max()
+    gk = p["norm_k"].detach().float().abs().max()
     return 1.01 * dh * gq * gk
 
 
-def _block(bp: WanBlock, cfg, x32, e0, ctx, rope_cos, rope_sin, rope_tabs,
-           t_zero_mask, self_kv_len, policy):
+class _View:
+    """A block's module tree with some parameters replaced: `p.w`,
+    `p["q"]` and `"norm_q" in p` read the tensor of `weights` named by the
+    state-dict key, else the module's own."""
+
+    def __init__(self, mod, prefix: str, weights: Dict[str, torch.Tensor]):
+        self._mod, self._prefix, self._weights = mod, prefix, weights
+
+    def __getattr__(self, name):
+        child = getattr(self._mod, name)
+        key = self._prefix + name
+        if isinstance(child, nn.Module):
+            return _View(child, key + ".", self._weights)
+        return self._weights.get(key, child)
+
+    __getitem__ = __getattr__
+
+    def __contains__(self, name):
+        return name in self._mod
+
+
+def _self_attn_qkv(bp, cfg, x32, sel, rope_cos, rope_sin, rope_tabs, policy):
+    """AdaLN + q/k/v projections + qk-norm (+ rope unless fused)."""
+    cd = policy.compute_dtype
+    y = _modulated(x32, sel(0), sel(1), cfg.eps).to(cd)
+    q, k, v = _attn_qkv(bp.self_attn, y, cfg.num_heads, policy)
+    if rope_tabs is None:
+        q = apply_rope(q, rope_cos, rope_sin).to(cd)
+        k = apply_rope(k, rope_cos, rope_sin).to(cd)
+    return q, k, v
+
+
+def _self_attn(bp, cfg, q, k, v, rope_tabs, self_kv_len, policy):
+    bound = None
+    if policy.bounded_softmax and "norm_q" in bp.self_attn:
+        bound = _qk_bound(bp.self_attn, cfg.head_dim)
+    # the output in the compute dtype: what the o-projection reads, and
+    # what the 'attn' remat mode keeps
+    return attention(q, k, v, kv_len=self_kv_len, rope_tables=rope_tabs,
+                     softmax_bf16=policy.softmax_bf16,
+                     qk_int8=policy.qk_int8,
+                     score_bound=bound).to(policy.compute_dtype)
+
+
+def _block_rest(bp, cfg, x32, attn, sel, ctx, policy):
+    """o-projection + residual, cross-attention, FFN."""
     b, l, _ = x32.shape
     n = cfg.num_heads
     dh = cfg.head_dim
     cd = policy.compute_dtype
     rdt = policy.residual_dtype
-    mod = bp.modulation.float()[None, None] + e0        # [B, 2, 6, d]
-
-    def sel(i):
-        return _select_rows(mod[:, :, i], t_zero_mask)
-
-    # self-attention
-    y = _modulated(x32, sel(0), sel(1), cfg.eps).to(cd)
-    q, k, v = _attn_qkv(bp.self_attn, y, n, policy)
-    bound = None
-    if policy.bounded_softmax and "norm_q" in bp.self_attn:
-        bound = _qk_bound(bp.self_attn, dh)
-    if rope_tabs is None:
-        q = apply_rope(q, rope_cos, rope_sin).to(cd)
-        k = apply_rope(k, rope_cos, rope_sin).to(cd)
-    attn = attention(q, k, v, kv_len=self_kv_len, rope_tables=rope_tabs,
-                     softmax_bf16=policy.softmax_bf16,
-                     qk_int8=policy.qk_int8, score_bound=bound)
-    attn = attn.to(cd).reshape(b, l, cfg.dim)
+    attn = attn.reshape(b, l, cfg.dim)
     attn = unn.linear(bp.self_attn["o"], attn, compute_dtype=cd)
     x32 = x32 + (attn.float() * sel(2)).to(rdt)
 
@@ -256,19 +289,62 @@ def _block(bp: WanBlock, cfg, x32, e0, ctx, rope_cos, rope_sin, rope_tabs,
     return x32 + (y.float() * sel(5)).to(rdt)
 
 
-@torch.no_grad()
+def _block(bp, cfg, x32, e0, ctx, rope_cos, rope_sin, rope_tabs,
+           t_zero_mask, self_kv_len, policy, remat):
+    """One DiT block. remat: False keeps every activation for the backward;
+    True recomputes the whole block there (its attention calls included);
+    'attn' checkpoints the block in two segments around the self-attention
+    call, so the backward recomputes everything but that call, whose
+    autograd Function keeps the folded q, k, v, its output and lse (the JAX
+    package's save_only_these_names('attn_out') policy). The segments draw
+    no random numbers, so the RNG state is not stashed."""
+    mod = bp.modulation.float()[None, None] + e0        # [B, 2, 6, d]
+
+    def sel(i):
+        return _select_rows(mod[:, :, i], t_zero_mask)
+
+    def qkv(x):
+        return _self_attn_qkv(bp, cfg, x, sel, rope_cos, rope_sin,
+                              rope_tabs, policy)
+
+    def rest(x, a):
+        return _block_rest(bp, cfg, x, a, sel, ctx, policy)
+
+    def full(x):
+        q, k, v = qkv(x)
+        return rest(x, _self_attn(bp, cfg, q, k, v, rope_tabs, self_kv_len,
+                                  policy))
+
+    ck = dict(use_reentrant=False, preserve_rng_state=False)
+    if remat == "attn":
+        q, k, v = checkpoint(qkv, x32, **ck)
+        a = _self_attn(bp, cfg, q, k, v, rope_tabs, self_kv_len, policy)
+        return checkpoint(rest, x32, a, **ck)
+    if remat:
+        return checkpoint(full, x32, **ck)
+    return full(x32)
+
+
 def wan_dit_forward(model: WanDiT, x, t, context, rope_cos, rope_sin, *,
                     t_zero_mask: Optional[torch.Tensor] = None,
                     seq_pad_to: Optional[int] = None,
                     policy: DTypePolicy = DEFAULT_POLICY,
-                    fused_rope: bool = False) -> torch.Tensor:
+                    fused_rope: bool = False, remat_blocks=False,
+                    weights: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> torch.Tensor:
     """Velocity prediction [B, F, H, W, C_out] (fp32).
 
     x [B, F, H, W, C_in] latent; t [B] timesteps (0..1000); context
     [B, text_len, text_dim]; rope_cos/sin [L, head_dim // 2]; t_zero_mask
     [B, L] True where a token takes t = 0; seq_pad_to pads the token axis
     (padded keys are masked through kv_len); fused_rope rotates q and k in
-    the attention kernel instead of in the block."""
+    the attention kernel instead of in the block (inference only).
+    remat_blocks: False | True | 'attn' (see _block). weights: tensors that
+    replace the parameters of the same state-dict names inside the blocks
+    (merge_lora's output)."""
+    if remat_blocks not in (False, True, "attn"):
+        raise ValueError(f"remat_blocks must be False, True or 'attn', "
+                         f"got {remat_blocks!r}")
     cfg = model.cfg
     b = x.shape[0]
     h, grid, e, e0, ctx = _embed_inputs(model, x, t, context, policy)
@@ -285,9 +361,11 @@ def wan_dit_forward(model: WanDiT, x, t, context, rope_cos, rope_sin, *,
     x32 = h.to(policy.residual_dtype)
     rope_tabs = (build_fused_rope_tables(rope_cos, rope_sin, cfg.head_dim)
                  if fused_rope else None)
-    for bp in model.blocks:
+    for i, bp in enumerate(model.blocks):
+        if weights:
+            bp = _View(bp, f"blocks.{i}.", weights)
         x32 = _block(bp, cfg, x32, e0, ctx, rope_cos, rope_sin, rope_tabs,
-                     t_zero_mask, self_kv_len, policy)
+                     t_zero_mask, self_kv_len, policy, remat_blocks)
 
     hp = model.head
     head_mod = hp["modulation"].float()[None, None] + e[:, :, None, :]

@@ -367,3 +367,13 @@ def dpm_step(state, c, velocity: torch.Tensor):
     new_hist = torch.cat([m[None], state["hist"][:-1]], dim=0)
     new_sample = c["pred_a"] * x + _combine(c["pred_m"], new_hist)
     return {"sample": new_sample, "last_sample": x, "hist": new_hist}
+
+
+def add_flow_noise(x0: torch.Tensor, noise: torch.Tensor, sigma
+                   ) -> torch.Tensor:
+    """x_t = (1 - sigma) x0 + sigma * noise, sigma in x0's dtype and
+    broadcast from the left (univid_tpu/ops/samplers.py::add_flow_noise)."""
+    sigma = torch.as_tensor(sigma, device=x0.device).to(x0.dtype)
+    while sigma.ndim < x0.ndim:
+        sigma = sigma[..., None]
+    return (1.0 - sigma) * x0 + sigma * noise
