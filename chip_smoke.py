@@ -15,10 +15,17 @@ Phases:
      library call (scaled_dot_product_attention, its backward for the
      backward kernels) on the same inputs as a yardstick; hold
      attention() under grad against autograd through an fp32 reference;
+     the fp32 VAE kernel at d=1024 and d=640 (ti2v-5B, 3,520 tokens) and
+     d=384 (t2v-1.3B), and the serving kernels again at the ti2v-5B
+     shapes;
   4. hold the port on the card (kernels) against the port on the CPU
-     (plain versions) on a small d=128 model: the t2v pipeline, then three
+     (plain versions) on a small d=128 model: the t2v pipeline, the
+     FusionPipeline in t2v and i2v (with the ti2v-5B VAE), then three
      LoRA + projector diffusion train steps; run the training loop
-     (train_cross_attention_fusion) on the card and check its files;
+     (train_cross_attention_fusion) on the card and check its files; run
+     the full-width BAGEL extractor and projector once (bf16, 1280x704
+     image) and hold them against the CPU at a 224x224 and a 300x500
+     crop;
   5. drive the serving path through the port's CLI: t2v-1.3B at
      832x480x81, full depth and width, random weights from a seed, a few
      steps; check the kernels' launch counts and the mp4;
@@ -26,7 +33,12 @@ Phases:
      remat 'attn', a few make_diffusion_train_step steps; check the launch
      counts of every step, a finite loss, LoRA b off zero, the frozen base
      unchanged; print seconds per step and peak memory; profile one more
-     step (device time by kernel family, idle share).
+     step (device time by kernel family, idle share);
+  7. drive the CLI's default path: ti2v-5B with BAGEL fusion, --mode both
+     at 1280x704x121 (a seeded first-frame png), full depth and width, 2
+     steps; check both mp4s, the fusion context, the peak memory and each
+     mode's launches (the fp32 VAE kernel once per decoded chunk at
+     d=1024, once more at d=640 for the i2v encode, never at d=384).
 Each path starts with every launch count at 0; the `kernels` line gives
 each kernel the launches of its own path. The last line is
 {"ok": true, "device": {...}}; any failure exits non-zero.
@@ -47,8 +59,14 @@ H100_FP32_FLOPS = 67e12    # fp32 on the CUDA cores
 H100_BYTES = 3.35e12       # HBM3
 
 
+LOG_FILE = None   # --log: every line also goes there (the whole run)
+
+
 def log(msg):
     print(msg, flush=True)
+    if LOG_FILE is not None:
+        with open(LOG_FILE, "a") as f:
+            f.write(f"{msg}\n")
 
 
 def fail(msg):
@@ -114,22 +132,21 @@ def compare(name, got, want, atol, rtol, why):
     return max_err
 
 
-def check_kernels():
-    """Phase 3: each kernel vs its plain version at the main path's shapes.
-    Returns the per-kernel records of the `kernels` line."""
+def check_serving_kernels(gen, tag, n, grid, l):
+    """The serving kernels (self-attention with its rope pre-pass, cross-
+    attention) against their plain versions at one model's shapes: n heads
+    of d=128, batch-2 CFG, the latent grid's tokens padded to l, 512 text
+    tokens. Returns their records (timed beside SDPA)."""
     import torch
     import torch.nn.functional as F
 
     from univid_tpu_torch.kernels import flash_attention as fa
     from univid_tpu_torch.ops.rope import build_rope_3d
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
     records = {}
-
-    # ---- DiT self-attention: t2v-1.3B at 832x480x81 ----------------------
-    b, l, n, d = 2, 32768, 12, 128
-    grid = (21, 30, 52)   # latent 21 x 60 x 104, patch (1, 2, 2)
-    kv_real = grid[0] * grid[1] * grid[2]   # 32760
+    # ---- DiT self-attention ---------------------------------------------
+    b, d = 2, 128
+    kv_real = grid[0] * grid[1] * grid[2]
     q = qk_normed((b, l, n, d), gen, torch.bfloat16)
     k = qk_normed((b, l, n, d), gen, torch.bfloat16)
     v = torch.randn((b, l, n, d), generator=gen, device="cuda").to(
@@ -154,11 +171,13 @@ def check_kernels():
         qr = fa._rope_bf16(q, cq, sq)
         kr = fa._rope_bf16(k, ck, sk)
         rope_err = max(
-            compare("rope_rotate_bf16 q", qr, fa.rotate(q, cq, sq, q.dtype),
+            compare(f"rope_rotate_bf16 {tag} q", qr,
+                    fa.rotate(q, cq, sq, q.dtype),
                     atol=0.0, rtol=2.0 ** -7,
                     why="the same fp32 multiplies and add in the same "
                         "order; at most one bf16 ulp apart"),
-            compare("rope_rotate_bf16 k", kr, fa.rotate(k, ck, sk, v.dtype),
+            compare(f"rope_rotate_bf16 {tag} k", kr,
+                    fa.rotate(k, ck, sk, v.dtype),
                     atol=0.0, rtol=2.0 ** -7,
                     why="the same fp32 multiplies and add in the same "
                         "order; at most one bf16 ulp apart"))
@@ -168,11 +187,11 @@ def check_kernels():
         got = fa._flash_cuda(q, k, v, kv_len, bound, tabs)
         want = fa.attention_plain(q, k, v, kv_len=kv_len, bound=bound,
                                   rope_tables=tabs)
-        err = compare("flash_attention_bf16 bounded+rope+kv_len", got, want,
-                      **tol)
+        err = compare(f"flash_attention_bf16 {tag} bounded+rope+kv_len",
+                      got, want, **tol)
         got_r = fa._flash_cuda(q, k, v, kv_len, None, tabs)
-        compare("flash_attention_bf16 running max+rope+kv_len", got_r,
-                want, **tol)
+        compare(f"flash_attention_bf16 {tag} running max+rope+kv_len",
+                got_r, want, **tol)
         # the attention kernel alone, on the pre-rotated q and k
         ms = cuda_time(lambda: fa._flash_cuda(qr, kr, v, kv_len, bound,
                                               None), 3)
@@ -200,7 +219,7 @@ def check_kernels():
         bound_ms=bms, bound_by=by, library_ms=None)
     del q, k, v, got, got_r, want, qr, kr, qs, ks, vs
 
-    # ---- DiT cross-attention: 32768 video tokens x 512 text tokens -------
+    # ---- DiT cross-attention: the video tokens x 512 text tokens --------
     lk = 512
     q = (qk_normed((b, l, n, d), gen, torch.bfloat16)
          * torch.tensor(sc, dtype=torch.bfloat16, device="cuda"))
@@ -210,7 +229,8 @@ def check_kernels():
     with torch.no_grad():
         got = fa.cross_attention_padded(q, k, v, score_bound=bound)
         want = fa.attention_plain(q, k, v, bound=bound)
-        err = compare("cross_attention_bf16 bounded", got, want, **tol)
+        err = compare(f"cross_attention_bf16 {tag} bounded", got, want,
+                      **tol)
         kvl = torch.tensor([lk, 100], dtype=torch.int32, device="cuda")
         km, vm = k.clone(), v.clone()   # masked keys hold large values
         km[1, 100:] = 50.0
@@ -218,7 +238,7 @@ def check_kernels():
         # referenced to the row max, the largest p lie in [0.5, 1], where
         # one bf16 step is 2^-8; l >= 1, so one p that rounds the other way
         # (exp2.approx, summation order) moves an output by <= 2^-8 max|v|
-        compare("cross_attention_bf16 one-shot max+kv_len",
+        compare(f"cross_attention_bf16 {tag} one-shot max+kv_len",
                 fa.cross_attention_padded(q, km, vm, kv_len=kvl),
                 fa.attention_plain(q, km, vm, kv_len=kvl),
                 atol=2.0 ** -8 * float(v.float().abs().max()),
@@ -249,42 +269,94 @@ def check_kernels():
         bound_by=by, library_ms=lib_ms)
     del q, k, v, got, want, qs, ks, vs
 
-    # ---- VAE mid-block attention: 1 head, d=384, fp32, 60x104 tokens -----
-    lv, lv_pad, dv = 60 * 104, 6272, 384
-    q, k, v = (torch.randn((1, lv_pad, 1, dv), generator=gen,
-                           device="cuda") for _ in range(3))
-    q = q * (fa.LOG2E / math.sqrt(dv))     # the wrapper's fold, in fp32
-    k[:, lv:] = 50.0                       # padded keys: large values
-    v[:, lv:] = 50.0
-    kvl = torch.tensor([lv], dtype=torch.int32, device="cuda")
-    with torch.no_grad():
-        got = fa._flash_cuda(q, k, v, kvl, None, None)
-        want = fa.attention_plain(q, k, v, kv_len=kvl)
-        err = compare("flash_attention_f32 running max+kv_len", got, want,
-                      atol=1e-5, rtol=1e-4,
-                      why="fp32 throughout; summation order and the "
-                          "approximate exp2 (2^-22 relative)")
-        ms = cuda_time(lambda: fa._flash_cuda(q, k, v, kvl, None, None), 5)
-        plain_ms = cuda_time(lambda: fa.attention_plain(q, k, v,
-                                                        kv_len=kvl), 1)
-        qs, ks, vs = (x.transpose(1, 2)[:, :, :lv] for x in (q, k, v))
-        try:
-            lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, scale=1.0 / math.log2(math.e)), 5)
-        except RuntimeError as e:  # no SDPA backend for this shape
-            log(f"library_ms for flash_attention_f32: {e}")
-            lib_ms = None
-    flops = 4 * lv_pad * lv * dv
-    bms, by = bound_ms(flops, nbytes(q, k, v, got), H100_FP32_FLOPS)
-    records["flash_attention_f32"] = dict(
-        name="flash_attention_f32", route="cuda",
-        source="univid_tpu_torch/kernels/csrc/flash_attention_f32.cu",
-        replaces="univid_tpu/kernels/flash_attention.py:44",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=lib_ms)
+    return records
+
+
+def check_kernels():
+    """Phase 3: each kernel vs its plain version at the main path's shapes.
+    Returns the per-kernel records of the `kernels` line."""
+    import torch
+    import torch.nn.functional as F
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # t2v-1.3B at 832x480x81: latent 21 x 60 x 104, patch (1, 2, 2)
+    records = check_serving_kernels(gen, "t2v-1.3B", 12, (21, 30, 52), 32768)
+
+    # ---- VAE mid-block attention: 1 head, fp32 --------------------------
+    # ti2v-5B at 1280x704 (44x80 tokens): d=1024 in the decoder (31
+    # launches per 121-frame decode), d=640 in the encoder (the i2v
+    # first-frame encode); t2v-1.3B at 832x480 (60x104 tokens, padded to
+    # 6272): d=384 in the decoder (21 launches per video)
+    tol = dict(atol=1e-5, rtol=1e-4,
+               why="fp32 throughout; summation order and the approximate "
+                   "exp2 (2^-22 relative)")
+    for dv, lv, lv_pad in ((1024, 3520, 3520), (640, 3520, 3520),
+                           (384, 6240, 6272)):
+        q, k, v = (torch.randn((1, lv_pad, 1, dv), generator=gen,
+                               device="cuda") for _ in range(3))
+        q = q * (fa.LOG2E / math.sqrt(dv))  # the wrapper's fold, in fp32
+        k[:, lv:] = 50.0                    # padded keys: large values
+        v[:, lv:] = 50.0
+        kvl = (torch.tensor([lv], dtype=torch.int32, device="cuda")
+               if lv < lv_pad else None)
+        with torch.no_grad():
+            got = fa._flash_cuda(q, k, v, kvl, None, None)
+            err = compare(f"flash_attention_f32 d={dv} path shape", got,
+                          fa.attention_plain(q, k, v, kv_len=kvl), **tol)
+            # 40 padded keys (50.0) past kv_len in row 0; kv_len = 0 in row 1
+            km, vm, q2 = (x.repeat(2, 1, 1, 1) for x in (k, v, q))
+            km[0, lv - 40:] = 50.0
+            vm[0, lv - 40:] = 50.0
+            kv2 = torch.tensor([lv - 40, 0], dtype=torch.int32, device="cuda")
+            got_m = fa._flash_cuda(q2, km, vm, kv2, None, None)
+            err = max(err, compare(
+                f"flash_attention_f32 d={dv} kv_len", got_m,
+                fa.attention_plain(q2, km, vm, kv_len=kv2), **tol))
+            if float(got_m[1].abs().max()) != 0.0:
+                fail("flash_attention_f32: kv_len == 0 rows are not 0")
+            del km, vm, q2, got_m
+            ms = cuda_time(lambda: fa._flash_cuda(q, k, v, kvl, None, None),
+                           5)
+            plain_ms = cuda_time(lambda: fa.attention_plain(
+                q, k, v, kv_len=kvl), 1)
+            qs, ks, vs = (x.transpose(1, 2)[:, :, :lv] for x in (q, k, v))
+            try:
+                lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, scale=1.0 / math.log2(math.e)), 5)
+            except RuntimeError as e:  # no SDPA backend for this shape
+                log(f"library_ms for flash_attention_f32 d={dv}: {e}")
+                lib_ms = None
+        bms, by = bound_ms(4 * lv_pad * lv * dv, nbytes(q, k, v, got),
+                           H100_FP32_FLOPS)
+        rec = dict(name="flash_attention_f32", route="cuda",
+                   source="univid_tpu_torch/kernels/csrc/"
+                          "flash_attention_f32.cu",
+                   replaces="univid_tpu/kernels/flash_attention.py:44",
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by, library_ms=lib_ms)
+        if dv == 1024:   # the shape of this kernel's most launches
+            records["flash_attention_f32"] = rec
+        else:
+            log(json.dumps({f"kernel_at_d{dv}": rec}))
+        del q, k, v, got, qs, ks, vs
     for r in records.values():
         log(json.dumps({"kernel": r}))
     return records
+
+
+def retime_ti2v_kernels():
+    """The serving kernels at the ti2v-5B shapes (1280x704x121: 31 x 22 x
+    40 = 27,280 tokens padded to 28,672, 24 heads), logged on
+    `kernel_at_ti2v5b_shape` lines."""
+    import torch
+
+    recs = check_serving_kernels(torch.Generator(device="cuda").manual_seed(2),
+                                 "ti2v-5B", 24, (31, 22, 40), 28672)
+    for rec in recs.values():
+        log(json.dumps({"kernel_at_ti2v5b_shape": rec}))
+    torch.cuda.empty_cache()
 
 
 def rel_l2(a, b):
@@ -491,7 +563,7 @@ def small_parity():
     from univid_tpu_torch.kernels import flash_attention as fa
     from univid_tpu_torch.models.wan.dit import WanDiT
     from univid_tpu_torch.models.wan.vae_api import WanVAE, vae_decode
-    from univid_tpu_torch.pipelines.ti2v import WanT2VPipeline
+    from univid_tpu_torch.pipelines.ti2v import WanTI2VPipeline
     import dataclasses
 
     base = WAN_CONFIGS["t2v-1.3B"]
@@ -522,7 +594,7 @@ def small_parity():
 
     def run(device):
         d, v = copy.deepcopy(dit).to(device), copy.deepcopy(vae).to(device)
-        pipe = WanT2VPipeline(spec, d, v, policy=policy)
+        pipe = WanTI2VPipeline(spec, d, v, policy=policy)
         fn = pipe.denoise_fn((3, 8, 8), 48, 4, 5.0, 5.0, "unipc", None)
         x0 = fn(d, noise.to(device), ctx.to(device), nctx.to(device),
                 torch.zeros_like(noise).to(device))
@@ -551,6 +623,195 @@ def small_parity():
     log(json.dumps(out))
     if not out["ok"]:
         fail("the port on the card disagrees with its CPU reference")
+
+
+def small_fusion_parity():
+    """Phase 4a: FusionPipeline on the card against the CPU, t2v and i2v,
+    same weights, noise, prompt and image: a 2-layer d=128 DiT (48 latent
+    channels) with the full ti2v-5B VAE (the d=640 encoder and d=1024
+    decoder attention) and the CLI's mock BAGEL, at 64x64x9."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from univid_tpu_torch.cli.inference import build_fusion, build_parser
+    from univid_tpu_torch.core.config import (WAN_CONFIGS, WanDiTConfig,
+                                              WanModelSpec)
+    from univid_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.wan.dit import WanDiT
+    from univid_tpu_torch.models.wan.vae_api import WanVAE, vae_decode
+    from univid_tpu_torch.pipelines.ti2v import WanTI2VPipeline
+
+    base = WAN_CONFIGS["ti2v-5B"]
+    dit_cfg = WanDiTConfig(in_dim=48, out_dim=48, dim=256, ffn_dim=512,
+                           freq_dim=32, text_dim=64, num_heads=2,
+                           num_layers=2, text_len=32)
+    spec = WanModelSpec(name="smoke-ti2v-d128", dit=dit_cfg, vae=base.vae,
+                        generation=base.generation)
+    gen = torch.Generator().manual_seed(0)
+    dit = WanDiT(dit_cfg, dtype=torch.bfloat16, device="cpu", gen=gen)
+    with torch.no_grad():
+        dit.head.head.w.normal_(0.0, 0.05, generator=gen)
+        for blk in dit.blocks:
+            for a in (blk.self_attn, blk.cross_attn):
+                a.norm_q.uniform_(0.5, 1.5, generator=gen)
+                a.norm_k.uniform_(0.5, 1.5, generator=gen)
+    vae = WanVAE(base.vae, dtype=torch.bfloat16, device="cpu", gen=gen)
+    policy = dataclasses.replace(DEFAULT_POLICY, bounded_softmax=True)
+    args = build_parser().parse_args(["--mock_weights", "--device", "cpu"])
+    fusion_cpu = build_fusion(args, None, spec)
+    rng = np.random.default_rng(1)
+    # 64x64x9: latent 3 x 4 x 4 -> 12 tokens (padded to 64 in attention)
+    noise = torch.as_tensor(rng.standard_normal((1, 3, 4, 4, 48)),
+                            dtype=torch.float32)
+    image = torch.as_tensor(rng.uniform(-1, 1, (64, 64, 3)),
+                            dtype=torch.float32)
+    t5 = torch.as_tensor(rng.standard_normal((2, 32, 64)) * 0.5,
+                         dtype=torch.float32)
+
+    def run(device, img):
+        f = copy.deepcopy(fusion_cpu)
+        for m in (f.bagel_extractor.params, f.bagel_extractor.siglip,
+                  f.projector):
+            m.to(device)
+        d, v = copy.deepcopy(dit).to(device), copy.deepcopy(vae).to(device)
+        f.wan = WanTI2VPipeline(spec, d, v, policy=policy)
+        x0 = f.generate_video_with_bagel_context(
+            text="a red ball bouncing", image=None if img is None
+            else img.to(device), t5_context=t5[0].to(device),
+            t5_context_null=t5[1].to(device), size=(64, 64), frame_num=9,
+            sampling_steps=4, noise=noise, decode=False)
+        return x0.float().cpu(), vae_decode(v, x0).float().cpu()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-12))
+
+    for mode, img in (("t2v", None), ("i2v", image)):
+        fa.reset_launches()
+        x_gpu, v_gpu = run("cuda", img)
+        used = {k: n for k, n in fa.LAUNCHES.items() if n}
+        x_cpu, v_cpu = run("cpu", img)
+        need = ("flash_attention_bf16", "cross_attention_bf16",
+                "flash_attention_f32", "rope_rotate_bf16")
+        for name in need:
+            if name not in used:
+                fail(f"small fusion parity ({mode}) did not launch {name}")
+        out = {"check": f"small_fusion_parity {mode}",
+               "latent_rel_l2": rel(x_gpu, x_cpu),
+               "video_rel_l2": rel(v_gpu, v_cpu), "limit": 3e-2,
+               "why": "bf16 compute policy: cuBLAS and the CPU round each "
+                      "GEMM at other points (2^-8 relative), over 2 blocks "
+                      "x 4 steps; the extractor and projector run in fp32",
+               "launches": used,
+               "finite": bool(torch.isfinite(v_gpu).all())}
+        if mode == "i2v":   # the first latent frame is the image's latent
+            out["first_frame_rel_l2"] = rel(x_gpu[:, :1], x_cpu[:, :1])
+        out["ok"] = (out["finite"] and out["latent_rel_l2"] < 3e-2
+                     and out["video_rel_l2"] < 3e-2)
+        log(json.dumps(out))
+        if not out["ok"]:
+            fail(f"FusionPipeline {mode} on the card disagrees with the CPU")
+
+
+def full_width_extractor(output_dir):
+    """Phase 4b: the BAGEL semantic extractor at full width on the card in
+    bf16 (BagelConfig(): embed_tokens 152,064 x 3,584; SiglipConfig(): the
+    27-layer so400m tower) and the default projector (3,584 -> 8,192 ->
+    4,096, 256 -> 512 tokens): one extraction of a seeded 1280x704 image
+    plus the prompt (70 x 38 = 2,660 patches in the 4,096 bucket), then the
+    projector, timed, with the peak memory; the same modules held against
+    the CPU at a 224x224 crop and at a 300x500 crop (resized, a partly
+    filled bucket)."""
+    import copy
+    import gc
+
+    import torch
+
+    from univid_tpu_torch.cli.inference import DEFAULT_PROMPT
+    from univid_tpu_torch.core.config import FusionConfig
+    from univid_tpu_torch.models.bagel.bagel import BagelConfig, init_bagel
+    from univid_tpu_torch.models.bagel.siglip import (SiglipConfig,
+                                                      init_siglip)
+    from univid_tpu_torch.models.fusion.extractor import \
+        BagelSemanticExtractor
+    from univid_tpu_torch.models.fusion.projector import (
+        context_projector_forward, init_context_projector)
+    from univid_tpu_torch.utils.tokenizers import HashTokenizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bf = torch.bfloat16
+    cfg, scfg, fcfg = BagelConfig(), SiglipConfig(), FusionConfig()
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    t0 = time.perf_counter()
+    bagel = init_bagel(gen(20), cfg, dtype=bf, device="cuda")
+    sig = init_siglip(gen(21), scfg, dtype=bf, device="cuda")
+    proj = init_context_projector(gen(22), fcfg, dtype=bf, device="cuda")
+    ex = BagelSemanticExtractor(bagel, cfg, HashTokenizer(), siglip=sig,
+                                siglip_cfg=scfg,
+                                target_len=fcfg.bagel_sequence_length,
+                                compute_dtype=bf)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(23)
+    image = torch.rand((704, 1280, 3), generator=g, device="cuda") * 2 - 1
+
+    def extract(img):
+        return ex(DEFAULT_PROMPT, img)
+
+    def project(tok):
+        with torch.no_grad():
+            return context_projector_forward(proj, fcfg, tok[None],
+                                             compute_dtype=bf)[0]
+
+    tok = extract(image)               # warm-up (cuBLAS handles, caches)
+    ctx = project(tok)
+    extract_ms = cuda_time(lambda: extract(image), 3)
+    project_ms = cuda_time(lambda: project(tok), 3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the same modules on the CPU at two crops: 224x224 (256 patches, no
+    # resize, a full bucket) and 300x500 (resized to 294x504: 756 patches
+    # in the 1,024 bucket, 268 pad patches of segment -1)
+    ex_cpu = copy.copy(ex)
+    ex_cpu.params = copy.deepcopy(bagel).cpu()
+    ex_cpu.siglip = copy.deepcopy(sig).cpu()
+    proj_cpu = copy.deepcopy(proj).cpu()
+    vs_cpu = {}
+    for h, w in ((224, 224), (300, 500)):
+        crop = image[:h, :w]
+        tok_gpu = extract(crop)
+        ctx_gpu = project(tok_gpu)
+        tok_cpu = ex_cpu(DEFAULT_PROMPT, crop.cpu())
+        with torch.no_grad():
+            ctx_cpu = context_projector_forward(proj_cpu, fcfg, tok_cpu[None],
+                                                compute_dtype=bf)[0]
+        vs_cpu[f"{h}x{w}"] = {
+            "tokens_rel_l2": rel_l2(tok_gpu.cpu(), tok_cpu),
+            "context_rel_l2": rel_l2(ctx_gpu.cpu(), ctx_cpu)}
+    out = {"phase": "full_width_extractor", "init_s": init_s,
+           "extract_ms": extract_ms, "project_ms": project_ms,
+           "peak_memory_gb": peak, "tokens": list(tok.shape),
+           "context": list(ctx.shape), "vs_cpu": vs_cpu, "limit": 2e-2,
+           "why": "bf16 on both sides; cuBLAS and the CPU round each GEMM "
+                  "at other points (2^-8 relative) over 27 layers"}
+    out["ok"] = (list(tok.shape) == [256, 3584]
+                 and list(ctx.shape) == [512, 4096]
+                 and bool(torch.isfinite(ctx.float()).all())
+                 and all(e < 2e-2 for c in vs_cpu.values()
+                         for e in c.values()))
+    log(json.dumps(out))
+    if not out["ok"]:
+        fail("the full-width extractor disagrees with the CPU or is off")
+    del ex, ex_cpu, bagel, sig, proj, proj_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def train_parity(output_dir):
@@ -862,18 +1123,124 @@ def main_path(steps, output_dir):
                 "flash_attention_bf16_lse": 0,    # serving differentiates
                 "flash_attention_bwd_dq_bf16": 0,  # nothing
                 "flash_attention_bwd_dkv_bf16": 0}
+    f32_by_d = dict(fa.F32_LAUNCHES_BY_D)
+    f32_expected = {384: 21, 640: 0, 1024: 0}   # the 1.3B VAE's d=384
     frames = read_video_frames(meta["video_path"])
     log(json.dumps({
         "phase": "main_path", "seconds": wall,
         "phase_times_s": meta["phase_times_s"],
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "expected_launches": expected,
-        "frames": len(frames),
+        "f32_launches_by_d": f32_by_d, "frames": len(frames),
         "frame_shape": list(frames[0].shape) if frames else None}))
-    if launches != expected:
-        fail(f"launch counts {launches} != {expected}")
+    if launches != expected or f32_by_d != f32_expected:
+        fail(f"launch counts {launches} {f32_by_d} != {expected} "
+             f"{f32_expected}")
     if len(frames) != 81 or frames[0].shape != (480, 832, 3):
         fail("the mp4 is not 81 frames of 480x832")
+    return launches
+
+
+TI2V_FRAMES = 121   # the full request; the smoke run cuts only steps
+TI2V_STEPS = 2
+
+
+def ti2v_main_path(output_dir):
+    """Phase 7: the CLI's default path, ti2v-5B with BAGEL fusion, --mode
+    both at 1280x704x121 (full width and depth, random weights from a
+    seed, a seeded first-frame png), 2 steps; checks both mp4s, the fusion
+    context, the peak memory and the kernels' launches of each mode, the
+    fp32 VAE kernel's by head dim (read whenever the CLI saves a video).
+    Returns the launch counts of the whole run."""
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from univid_tpu_torch.cli import inference
+    from univid_tpu_torch.data import video_io
+    from univid_tpu_torch.data.video_io import read_video_frames
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.makedirs(output_dir, exist_ok=True)
+    png = os.path.join(output_dir, "first_frame.png")
+    rng = np.random.default_rng(0)
+    Image.fromarray(rng.integers(0, 256, (704, 1280, 3), dtype=np.uint8)) \
+        .save(png)
+    frames, steps = TI2V_FRAMES, TI2V_STEPS
+    per_mode = []
+    save_video = video_io.save_video
+
+    def counts():
+        return dict(fa.LAUNCHES, **{f"flash_attention_f32 d={d}": n for d, n
+                                    in fa.F32_LAUNCHES_BY_D.items()})
+
+    def counting_save(*a, **kw):   # the CLI saves once per mode
+        per_mode.append(counts())
+        return save_video(*a, **kw)
+
+    video_io.save_video = counting_save
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        metas = inference.main([
+            "--model", "ti2v-5B", "--mode", "both", "--image", png,
+            "--mock_weights", "--video_size", "1280x704", "--video_length",
+            str(frames), "--steps", str(steps), "--seed", "0",
+            "--output_dir", output_dir])
+    finally:
+        video_io.save_video = save_video
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_dec = (frames - 1) // 4 + 1   # 1 + 30 chunks of one latent frame
+    per_video = {"flash_attention_bf16": 30 * steps,
+                 "cross_attention_bf16": 30 * steps,
+                 "rope_rotate_bf16": 60 * steps,
+                 "flash_attention_f32": n_dec,
+                 "flash_attention_f32 d=384": 0,
+                 "flash_attention_f32 d=640": 0,
+                 "flash_attention_f32 d=1024": n_dec,   # per decoded chunk
+                 "flash_attention_bf16_lse": 0,
+                 "flash_attention_bwd_dq_bf16": 0,
+                 "flash_attention_bwd_dkv_bf16": 0}
+    # i2v adds the d=640 launch of its first-frame encode
+    expected = {"t2v": per_video,
+                "i2v": dict(per_video, **{"flash_attention_f32": n_dec + 1,
+                                          "flash_attention_f32 d=640": 1})}
+    got = {"t2v": per_mode[0] if per_mode else None,
+           "i2v": ({k: per_mode[1][k] - per_mode[0][k] for k in per_mode[1]}
+                   if len(per_mode) == 2 else None)}
+    videos = {}
+    for m in metas:
+        fr = read_video_frames(m["video_path"])
+        videos[m["mode"]] = {"frames": len(fr),
+                             "frame_shape": list(fr[0].shape) if fr else None,
+                             "context_path": m["context_path"]}
+    log(json.dumps({
+        "phase": "ti2v_main_path", "model": "ti2v-5B", "mode": "both",
+        "resolution": f"1280x704x{frames}", "steps": steps,
+        "seconds": wall, "phase_times_s": metas[-1]["phase_times_s"],
+        "generation_time_s": {m["mode"]: m["generation_time_s"]
+                              for m in metas},
+        "peak_memory_gb": peak, "launches_per_mode": got,
+        "expected_launches_per_mode": expected, "videos": videos}))
+    if got != expected:
+        fail(f"ti2v-5B launch counts {got} != {expected}")
+    for mode in ("t2v", "i2v"):
+        v = videos.get(mode)
+        if v is None or v["frames"] != frames \
+                or v["frame_shape"] != [704, 1280, 3] \
+                or v["context_path"] != "bagel_fusion":
+            fail(f"ti2v-5B {mode}: {v} is not {frames} frames of 704x1280 "
+                 "from the BAGEL fusion context")
+    if peak >= 80.0:
+        fail(f"ti2v-5B peak memory {peak:.1f} GB")
     return launches
 
 
@@ -883,7 +1250,11 @@ def main():
     ap.add_argument("--train-steps", type=int, default=3)
     ap.add_argument("--kernels-only", action="store_true")
     ap.add_argument("--output_dir", default="smoke_out")
+    ap.add_argument("--log", default=None,
+                    help="also append every line to this file")
     args = ap.parse_args()
+    global LOG_FILE
+    LOG_FILE = args.log
 
     import torch
     if not torch.cuda.is_available():
@@ -909,29 +1280,46 @@ def main():
 
     t0 = time.perf_counter()
     records = check_kernels()
-    serving = list(records)
+    retime_ti2v_kernels()
     records.update(check_train_kernels())
     log(json.dumps({"phase": "kernel_checks",
                     "seconds": time.perf_counter() - t0}))
 
-    launches = {name: None for name in records}
+    by_path = {}
     if not args.kernels_only:
         for phase, fn in (("small_parity", small_parity),
+                          ("small_fusion_parity", small_fusion_parity),
                           ("train_parity",
-                           lambda: train_parity(args.output_dir))):
+                           lambda: train_parity(args.output_dir)),
+                          ("full_width_extractor",
+                           lambda: full_width_extractor(args.output_dir))):
             t0 = time.perf_counter()
             fn()
             log(json.dumps({"phase": phase,
                             "seconds": time.perf_counter() - t0}))
         # each path is driven with every count at 0 just before it; a
-        # kernel's launches are those of its own path
-        served = main_path(args.steps, args.output_dir)
+        # kernel's launches are those of the path it serves (the t2v-1.3B
+        # CLI run for the serving kernels, the ti2v-5B run for the fp32 VAE
+        # kernel, timed at its d=1024 shape, the training run for the
+        # training kernels); `launches_by_path` gives all three
+        by_path["t2v-1.3B"] = main_path(args.steps, args.output_dir)
         t0 = time.perf_counter()
-        trained = train_main_path(args.train_steps)
+        by_path["train"] = train_main_path(args.train_steps)
         log(json.dumps({"phase": "train_main_path_total",
                         "seconds": time.perf_counter() - t0}))
-        launches = {nm: (served if nm in serving else trained)[nm]
-                    for nm in records}
+        t0 = time.perf_counter()
+        by_path["ti2v-5B"] = ti2v_main_path(args.output_dir)
+        log(json.dumps({"phase": "ti2v_main_path_total",
+                        "seconds": time.perf_counter() - t0}))
+    own = {"flash_attention_f32": "ti2v-5B",
+           "flash_attention_bf16_lse": "train",
+           "flash_attention_bwd_dq_bf16": "train",
+           "flash_attention_bwd_dkv_bf16": "train"}
+    launches = {nm: by_path[own.get(nm, "t2v-1.3B")][nm] if by_path
+                else None for nm in records}
+    for nm in records:
+        records[nm]["launches_by_path"] = {p: c[nm]
+                                           for p, c in by_path.items()}
     kernels = [dict(records[nm], launches=launches[nm]) for nm in records]
     log(json.dumps({"kernels": kernels}))
     log(card)

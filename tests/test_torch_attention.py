@@ -89,6 +89,60 @@ def test_flash_plain_kv_len_d384_fp32_matches_pallas():
     np.testing.assert_allclose(_np(got), _np(want), **FP32)
 
 
+@pytest.mark.parametrize("d", [640, 1024])
+def test_attention_f32_wide_matches_pallas(d):
+    """The ti2v-5B VAE's modes (encoder d=640, decoder d=1024): one head,
+    fp32, through both dispatchers, the JAX one on its Pallas kernel in
+    interpret mode. Lq = Lk = 200 is padded (to 64 here, to the Pallas
+    block there) and kv_len = 150 masks the rest: 1e-5 + 1e-4 |ref|, the
+    fp32 limit of the card's kernel against this plain version."""
+    q, k, v = (_rand((1, 200, 1, d), s) for s in (20, 21, 22))
+    kv = np.array([150], np.int32)
+    jbackend("pallas")
+    jfa.set_interpret_mode(True)
+    try:
+        want = jattention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          kv_len=jnp.asarray(kv))
+    finally:
+        jfa.set_interpret_mode(False)
+        jbackend(None)
+    got = tatt.attention(torch.as_tensor(q), torch.as_tensor(k),
+                         torch.as_tensor(v), kv_len=torch.as_tensor(kv))
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["siglip_pad", "kv_len", "empty_row"])
+def test_segment_reference_matches_jax(case):
+    """Segment masks on the reference route (d=72, SigLIP's head dim) ==
+    the JAX dispatcher's XLA path: 'siglip_pad' pads a 50-patch image to
+    64 with segment -1 on both sides (pad queries see pad keys);
+    'kv_len' adds a key mask; 'empty_row' gives queries a segment no key
+    has, whose rows are exactly zero. fp32, 2e-5."""
+    b, l, n, d = 2, 64, 2, 72
+    q, k, v = (_rand((b, l, n, d), s) for s in (30, 31, 32))
+    segs = np.zeros((b, l), np.int32)
+    segs[:, 50:] = -1
+    segs[1, 20:35] = 1
+    kv_segs, kv = segs.copy(), None
+    if case == "kv_len":
+        kv = np.array([64, 40], np.int32)
+    if case == "empty_row":
+        segs[0, 10:14] = 7
+    want = jattention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      q_segments=jnp.asarray(segs),
+                      kv_segments=jnp.asarray(kv_segs),
+                      kv_len=None if kv is None else jnp.asarray(kv))
+    got = tatt.attention(torch.as_tensor(q), torch.as_tensor(k),
+                         torch.as_tensor(v),
+                         q_segments=torch.as_tensor(segs),
+                         kv_segments=torch.as_tensor(kv_segs),
+                         kv_len=None if kv is None else torch.as_tensor(kv))
+    np.testing.assert_allclose(_np(got), np.asarray(want), **FP32)
+    if case == "empty_row":
+        assert np.all(_np(got)[0, 10:14] == 0.0)
+
+
 @pytest.mark.parametrize("use_kvlen", [False, True])
 @pytest.mark.parametrize("bound", [None, 16.0])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -168,14 +168,19 @@ def test_tma_matches():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of univid_tpu_torch imports without JAX or univid_tpu."""
+    """Every module of univid_tpu_torch (the fusion slice's included) and
+    chip_smoke.py import without JAX or univid_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import univid_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "assert len(mods) > 20, mods\n"
-        "for m in mods:\n"
+        "new = {'core.checkpoint', 'models.bagel.bagel', "
+        "'models.bagel.qwen2_mot', 'models.bagel.siglip', "
+        "'models.fusion.extractor', 'pipelines.fusion'}\n"
+        "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
+        "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'univid_tpu' or m.startswith('univid_tpu.')]\n"

@@ -6,8 +6,9 @@ JAX nor univid_tpu, so it also runs where only PyTorch is installed:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Small shapes; chip_smoke.py holds the kernels at the main path's shapes.
-Tolerances: fp32 2e-5 (rounding and the approximate exp2); bf16 2e-2
-relative (one bf16 rounding of p and of the output, 2^-8).
+Tolerances: fp32 2e-5 (rounding and the approximate exp2; the d=640 /
+d=1024 kernel at its stated 1e-5 + 1e-4 |ref|); bf16 2e-2 relative (one
+bf16 rounding of p and of the output, 2^-8).
 """
 
 import math
@@ -73,6 +74,40 @@ def test_cuda_kernel_matches_plain(cuda_device, mode):
     tol = FP32 if dt == torch.float32 else BF16
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [640, 1024])
+def test_cuda_f32_wide_kernel_matches_plain(cuda_device, d):
+    """The fp32 kernel at the ti2v-5B VAE's head dims against its plain
+    version: batch row 0 has 77 padded keys holding 50.0 (masked by
+    kv_len), row 1 has kv_len = 0 and must be exactly zero."""
+    lq = lk = 512
+    q, k, v = (torch.as_tensor(_rand((2, lq, 1, d), s)).to(cuda_device)
+               for s in (7, 8, 9))
+    q = q * (LOG2E / math.sqrt(d))
+    k[0, lk - 77:] = 50.0
+    v[0, lk - 77:] = 50.0
+    kv = torch.tensor([lk - 77, 0], dtype=torch.int32, device=cuda_device)
+    tfa.reset_launches()
+    with torch.no_grad():
+        got = tfa._flash_cuda(q, k, v, kv, None, None)
+        want = tfa.attention_plain(q, k, v, kv_len=kv)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention_f32"] == 1
+    assert tfa.F32_LAUNCHES_BY_D == {dd: int(dd == d) for dd in tfa.F32_DIMS}
+    assert float(got[1].abs().max()) == 0.0
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_head_dim_without_kernel_raises(cuda_device):
+    """An fp32 head dim with no kernel raises on the card; it never takes
+    the plain version there."""
+    x = torch.zeros((1, 64, 1, 256), device=cuda_device)
+    with pytest.raises(ValueError, match="no torch.float32 kernel"):
+        tfa.flash_attention_padded(x, x, x)
 
 
 def _rel(a, b):

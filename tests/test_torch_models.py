@@ -139,15 +139,17 @@ def test_dit_forward_matches_jax(model, policy):
         assert _rel(got.numpy(), want) < 2e-2
 
 
-@pytest.mark.parametrize("which", ["tiny", "t2v-1.3B"])
+@pytest.mark.parametrize("which", ["tiny", "t2v-1.3B", "ti2v-5B"])
 def test_vae_decode_matches_jax_and_streams(which):
     """vae_decode, streaming per latent frame, == JAX vae_decode and == the
     port's full-sequence decode, in fp32 (the latent enters the decoder in
-    fp32). The t2v-1.3B VAE's d=384 mid-block attention takes the kernel
-    route (JAX: its Pallas kernel in interpret mode)."""
+    fp32). The d=384 (t2v-1.3B) and d=1024 (ti2v-5B, the full Wan2.2 VAE
+    on a 2x2 latent) mid-block attention take the kernel route (JAX: its
+    Pallas kernel in interpret mode)."""
     jc, tc = JCONFIGS[which].vae, WAN_CONFIGS[which].vae
     params = np_params(init_wan_vae, jc, 3)
-    z = _rand((1, 3 if which == "tiny" else 2, 4, 4, jc.z_dim), 4)
+    hw = 2 if which == "ti2v-5B" else 4
+    z = _rand((1, 3 if which == "tiny" else 2, hw, hw, jc.z_dim), 4)
     jbackend("pallas" if which != "tiny" else None)
     jfa.set_interpret_mode(which != "tiny")
     try:
@@ -175,6 +177,29 @@ def test_vae_encode_matches_jax():
     got = t_vae_encode(convert.vae_from_jax(params, tc, device="cpu"),
                        torch.as_tensor(video)).numpy()
     assert got.shape == want.shape == (1, 3, 2, 2, jc.z_dim)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_vae_encode_ti2v5b_first_frame_matches_jax():
+    """The i2v encode at the full Wan2.2 VAE config: one 32x32 frame (the
+    non-streaming t == 1 branch, whose stride-2 time convs have no full
+    window), spatial patch 2, the encoder's d=640 mid-block attention on
+    the kernel route (JAX: its Pallas kernel in interpret mode); fp32,
+    1e-4."""
+    jc, tc = JCONFIGS["ti2v-5B"].vae, WAN_CONFIGS["ti2v-5B"].vae
+    params = np_params(init_wan_vae, jc, 10)
+    image = np.clip(_rand((1, 1, 32, 32, 3), 11, 0.5), -1, 1)
+    jbackend("pallas")
+    jfa.set_interpret_mode(True)
+    try:
+        want = np.asarray(jax.jit(lambda p, v: j_vae_encode(p, jc, v))(
+            params, jnp.asarray(image)))
+    finally:
+        jfa.set_interpret_mode(False)
+        jbackend(None)
+    got = t_vae_encode(convert.vae_from_jax(params, tc, device="cpu"),
+                       torch.as_tensor(image)).numpy()
+    assert got.shape == want.shape == (1, 1, 2, 2, 48)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 

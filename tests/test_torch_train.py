@@ -593,7 +593,7 @@ def test_t2v_serving_is_grad_free(monkeypatch):
     from univid_tpu_torch.core.config import WanModelSpec
     from univid_tpu_torch.models.wan.dit import WanDiT
     from univid_tpu_torch.models.wan.vae_api import WanVAE, vae_decode
-    from univid_tpu_torch.pipelines.ti2v import WanT2VPipeline
+    from univid_tpu_torch.pipelines.ti2v import WanTI2VPipeline
 
     base = WAN_CONFIGS["tiny"]
     dcfg = WanDiTConfig(model_type="t2v", in_dim=4, out_dim=4, dim=256,
@@ -607,7 +607,7 @@ def test_t2v_serving_is_grad_free(monkeypatch):
     entered = []
     monkeypatch.setattr(tatt.FlashAttention, "forward",
                         lambda *a, **k: entered.append(1))
-    pipe = WanT2VPipeline(spec, dit, vae, policy=DEFAULT_POLICY)
+    pipe = WanTI2VPipeline(spec, dit, vae, policy=DEFAULT_POLICY)
     fn = pipe.denoise_fn((3, 4, 4), 48, 2, 5.0, 5.0, "unipc", None)
     noise = torch.as_tensor(_rand((1, 3, 4, 4, 4), 1))
     ctx = torch.as_tensor(_rand((1, 16, 64), 2, 0.5))

@@ -1,14 +1,16 @@
-"""Video generation CLI of the PyTorch/CUDA port (t2v on the Wan stack).
+"""Video generation CLI of the PyTorch/CUDA port (T2V / I2V on the Wan
+stack, with BAGEL fusion and TMA).
 
-    python -m univid_tpu_torch.cli.inference --mode t2v --no_bagel \
-        --mock_weights --model t2v-1.3B --video_size 832x480 \
-        --video_length 81 --steps 50
+    python -m univid_tpu_torch.cli.inference --model ti2v-5B --mode both \
+        --image first_frame.png --mock_weights
 
-Flag-compatible with univid_tpu/cli/inference.py for the t2v path:
-prompt -> UMT5 -> UniPC / DPM++ flow-matching denoise over the Wan DiT
-(batch-2 CFG, TMA text weights) -> causal VAE decode -> mp4 + a JSON
-sidecar. Runs on `cuda` unless `--device cpu`. Flags of later port slices
-(BAGEL fusion, i2v, animate, LoRA, checkpoints, int8, qk_int8,
+Flag-compatible with univid_tpu/cli/inference.py: prompt -> UMT5, and
+unless --no_bagel, BAGEL semantic tokens of the prompt (and the image) ->
+ContextProjector, whose context replaces UMT5's -> UniPC / DPM++ flow-
+matching denoise over the Wan DiT (batch-2 CFG, TMA text weights; i2v
+clamps the first latent frame to the image's) -> causal VAE decode -> mp4
++ a JSON sidecar per mode. Runs on `cuda` unless `--device cpu`. Flags of
+later port slices (animate, Wan / BAGEL checkpoints, int8, qk_int8,
 bf16_softmax, TaylorSeer, prompt extension) exit with an error naming the
 slice; they never fall back to another path.
 """
@@ -70,7 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "tracking a running max (exact)")
     p.add_argument("--solver", type=str, default="unipc",
                    choices=["unipc", "dpm++", "dpm++3"])
-    p.add_argument("--model", type=str, default="t2v-1.3B")
+    p.add_argument("--model", type=str, default="ti2v-5B")
     p.add_argument("--checkpoint_dir", type=str, default=None)
     p.add_argument("--bagel_path", type=str, default=None)
     p.add_argument("--training_state", type=str, default=None)
@@ -96,21 +98,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 # (is the flag set?, the later port slice that brings it: a ROADMAP.md item)
 _LATER = [
-    (lambda a: a.mode in ("i2v", "both"),
-     "i2v is a later slice (ROADMAP.md queue 1: i2v)"),
-    (lambda a: a.model == "ti2v-5B",
-     "--model ti2v-5B is a later slice: its VAE's d=1024 fp32 attention "
-     "has no kernel yet (ROADMAP.md queue 2 item 1)"),
     (lambda a: a.mode == "animate",
      "--mode animate is a later slice (ROADMAP.md queue 1: WanAnimate)"),
-    (lambda a: not a.no_bagel,
-     "BAGEL fusion is a later slice (ROADMAP.md queue 1: BAGEL LM, "
-     "Fusion); pass --no_bagel"),
-    (lambda a: a.use_lora,
-     "--use_lora is part of a later slice (ROADMAP.md queue 1: Training)"),
     (lambda a: a.checkpoint_dir is not None,
      "--checkpoint_dir is a later slice (ROADMAP.md queue 1: "
      "Checkpoints); use --mock_weights"),
+    (lambda a: a.bagel_path is not None and not a.mock_weights,
+     "real BAGEL weights (--bagel_path) are a later slice (ROADMAP.md "
+     "queue 1: Checkpoints); use --mock_weights"),
     (lambda a: a.int8,
      "--int8 is a later slice (ROADMAP.md queue 1: int8 quantization)"),
     (lambda a: a.qk_int8 or a.bf16_softmax,
@@ -137,7 +132,7 @@ def _parse_size(s: str):
 def build_pipeline(args):
     """(pipeline, spec, text_encoder) with random weights drawn on
     args.device: DiT and VAE in bf16 (as the JAX CLI's mock weights), UMT5
-    in fp32."""
+    in fp32; with --use_lora, the LoRA of --lora_path merged into the DiT."""
     import torch
 
     from ..core.config import WAN_CONFIGS
@@ -145,7 +140,7 @@ def build_pipeline(args):
     from ..models.wan.dit import WanDiT
     from ..models.wan.vae_api import WanVAE
     from ..pipelines.encoders import WanTextEncoder
-    from ..pipelines.ti2v import WanT2VPipeline
+    from ..pipelines.ti2v import WanTI2VPipeline
 
     if args.model not in WAN_CONFIGS:
         raise SystemExit(f"--model {args.model}: the port has "
@@ -162,10 +157,83 @@ def build_pipeline(args):
     dit = WanDiT(spec.dit, dtype=torch.bfloat16, device=dev, gen=gen(0))
     vae = WanVAE(spec.vae, dtype=torch.bfloat16, device=dev, gen=gen(1))
     text_enc = WanTextEncoder.random_init(spec, device=dev, gen=gen(2))
+    if args.use_lora:
+        from ..train.lora import load_lora, merge_lora
+        lora, _ = load_lora(args.lora_path, device=dev)
+        merged = merge_lora(dit, lora)
+        with torch.no_grad():   # merged in place, as the JAX CLI merges
+            for name, p in dit.named_parameters():
+                if name in merged:
+                    p.copy_(merged[name])
     policy = BF16_RESIDUAL_POLICY if args.bf16_residual else DEFAULT_POLICY
     if args.bounded_softmax:
         policy = dataclasses.replace(policy, bounded_softmax=True)
-    return WanT2VPipeline(spec, dit, vae, policy=policy), spec, text_enc
+    return WanTI2VPipeline(spec, dit, vae, policy=policy), spec, text_enc
+
+
+def build_fusion(args, wan_pipe, spec):
+    """FusionPipeline (BAGEL extractor + ContextProjector + Wan) or None for
+    the UMT5 path (--no_bagel). The mock BAGEL is the JAX CLI's: a tiny
+    random LLM embedding (hidden 64) and SigLIP tower (hidden 32, 2
+    layers, 224 px), fp32, bagel_sequence_length min(64, text_len)."""
+    if args.no_bagel:
+        return None
+
+    import torch
+
+    from ..core.config import FusionConfig
+    from ..models.bagel.bagel import BagelConfig, init_bagel
+    from ..models.bagel.qwen2_mot import Qwen2MoTConfig
+    from ..models.bagel.siglip import SiglipConfig, init_siglip
+    from ..models.fusion.extractor import BagelSemanticExtractor
+    from ..models.fusion.projector import init_context_projector
+    from ..pipelines.fusion import FusionPipeline
+    from ..utils.tokenizers import HashTokenizer
+
+    dev = torch.device(args.device)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    llm = Qwen2MoTConfig(vocab_size=4096, hidden_size=64,
+                         intermediate_size=128, num_layers=2, num_heads=4,
+                         num_kv_heads=2)
+    cfg = BagelConfig(llm=llm, vit_hidden_size=32, vit_patch_size=14,
+                      start_of_image=4090, end_of_image=4091,
+                      bos_token_id=4092, eos_token_id=4093)
+    scfg = SiglipConfig(hidden_size=32, intermediate_size=64, num_layers=2,
+                        num_heads=2, patch_size=14, image_size=224)
+    fusion_cfg = FusionConfig(
+        bagel_hidden_dim=llm.hidden_size, wan_text_dim=spec.dit.text_dim,
+        wan_text_length=spec.dit.text_len,
+        bagel_sequence_length=min(64, spec.dit.text_len),
+        fusion_alpha=args.bagel_strength)
+    extractor = BagelSemanticExtractor(
+        init_bagel(gen(10), cfg, device=dev), cfg,
+        HashTokenizer(vocab_size=4090),
+        siglip=init_siglip(gen(11), scfg, device=dev), siglip_cfg=scfg,
+        target_len=fusion_cfg.bagel_sequence_length,
+        compute_dtype=torch.float32)
+    if args.training_state:
+        from ..core.checkpoint import load_projector_checkpoint
+        projector = load_projector_checkpoint(args.training_state,
+                                              fusion_cfg, device=dev)
+    else:
+        projector = init_context_projector(gen(12), fusion_cfg, device=dev)
+    return FusionPipeline(wan_pipe, projector, fusion_cfg,
+                          bagel_extractor=extractor)
+
+
+def load_image(path: str):
+    """[H, W, 3] fp32 in [-1, 1], as the JAX CLI reads it (no resize: the
+    image must already be at --video_size)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    pil = Image.open(path).convert("RGB")
+    return torch.as_tensor(np.array(pil), dtype=torch.float32) / 127.5 \
+        - 1.0
 
 
 def main(argv=None):
@@ -192,6 +260,8 @@ def main(argv=None):
     timer = PhaseTimer()
     pipe, spec, text_enc = timer.time_phase("init_weights", build_pipeline,
                                             args)
+    fusion = timer.time_phase("init_weights", build_fusion, args, pipe,
+                              spec)
     prompt = args.prompt or DEFAULT_PROMPT
     size = _parse_size(args.video_size)
     frames = args.video_length or spec.generation.frame_num
@@ -204,33 +274,61 @@ def main(argv=None):
 
     ctx_pair = timer.time_phase("text_encode", text_enc,
                                 [prompt, spec.sample_neg_prompt])
-    t0 = time.time()
-    video = pipe.generate(
-        ctx_pair[0], ctx_pair[1], size=size, frame_num=frames,
-        shift=args.shift, sample_solver=args.solver,
-        sampling_steps=args.steps, guide_scale=args.guidance,
-        seed=args.seed, tma=tma, timer=timer)
-    frames_u8 = ((video.clamp(-1.0, 1.0) + 1.0) * 127.5).round() \
-        .to(torch.uint8).cpu().numpy()
-    dt = time.time() - t0
+    ctx, nctx = ctx_pair[0], ctx_pair[1]
+    # UMT5-XXL (fp32, ~23 GB) is done: free it for the DiT's activations
+    # and the VAE decode, whose working set at 1280x704 is tens of GB
+    del text_enc
+    if ctx.is_cuda:
+        torch.cuda.empty_cache()
+    modes = ["t2v", "i2v"] if args.mode == "both" else [args.mode]
+    results = []
+    for mode in modes:
+        img = None
+        if mode == "i2v":
+            if not args.image:
+                print("skipping i2v: no --image", flush=True)
+                continue
+            img = load_image(args.image)
+            if tuple(img.shape[:2]) != (size[1], size[0]):
+                raise SystemExit(f"--image is {img.shape[1]}x{img.shape[0]}"
+                                 f"; it must be at --video_size {size[0]}x"
+                                 f"{size[1]}")
+        gen_kwargs = dict(size=size, frame_num=frames, shift=args.shift,
+                          sample_solver=args.solver,
+                          sampling_steps=args.steps,
+                          guide_scale=args.guidance, seed=args.seed,
+                          tma=tma, timer=timer)
+        t0 = time.time()
+        if fusion is not None:
+            video = fusion.generate_video_with_bagel_context(
+                text=prompt, image=img, t5_context=ctx, t5_context_null=nctx,
+                null_context=args.null_context, **gen_kwargs)
+        else:
+            video = pipe.generate(ctx, nctx, img=img, **gen_kwargs)
+        frames_u8 = ((video.clamp(-1.0, 1.0) + 1.0) * 127.5).round() \
+            .to(torch.uint8).cpu().numpy()
+        dt = time.time() - t0
 
-    stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
-    out = os.path.join(args.output_dir, f"t2v_{stamp}.mp4")
-    path = timer.time_phase("save", save_video, frames_u8, out,
-                            fps=spec.generation.fps)
-    meta = {
-        "prompt": prompt, "mode": "t2v", "model": args.model,
-        "size": list(size), "frames": frames, "steps": args.steps,
-        "guidance": args.guidance, "seed": args.seed,
-        "solver": args.solver, "tma": dataclasses.asdict(tma),
-        "device": str(pipe.device), "generation_time_s": round(dt, 2),
-        "phase_times_s": timer.summary(), "context_path": "umt5",
-        "video_path": path,
-    }
-    with open(path + ".json", "w") as f:
-        json.dump(meta, f, indent=2)
-    print(json.dumps(meta), flush=True)
-    return [meta]
+        stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+        out = os.path.join(args.output_dir, f"{mode}_{stamp}.mp4")
+        path = timer.time_phase("save", save_video, frames_u8, out,
+                                fps=spec.generation.fps)
+        meta = {
+            "prompt": prompt, "mode": mode, "model": args.model,
+            "size": list(size), "frames": frames, "steps": args.steps,
+            "guidance": args.guidance, "seed": args.seed,
+            "solver": args.solver, "tma": dataclasses.asdict(tma),
+            "device": str(pipe.device), "generation_time_s": round(dt, 2),
+            "phase_times_s": timer.summary(),
+            "context_path": "bagel_fusion" if fusion is not None
+            else "umt5",
+            "video_path": path,
+        }
+        with open(path + ".json", "w") as f:
+            json.dump(meta, f, indent=2)
+        print(json.dumps(meta), flush=True)
+        results.append(meta)
+    return results
 
 
 if __name__ == "__main__":

@@ -6,8 +6,10 @@ a state dict key by key. Layout rules, by leaf name and rank:
   * `w` of rank 5, a conv3d THWIO            -> [Cout, Cin, kt, kh, kw];
   * `w` of rank 4, a 2D conv HWIO (resample) -> [Cout, Cin, 1, kh, kw];
   * every other leaf as it is.
-The DiT's `blocks` leaves are stacked [num_layers, ...] in the JAX tree
-(one lax.scan); they are unstacked into the ModuleList here. LoRA trees
+The DiT's `blocks` and SigLIP's `layers` leaves are stacked
+[num_layers, ...] in the JAX tree (one lax.scan); they are unstacked into
+the ModuleList here. Of a BAGEL tree only what the fusion extractor reads
+is taken (llm.embed_tokens, connector, vit_pos_embed). LoRA trees
 keep the JAX layout as they are (stacked a [L, in, r], b [L, r, out]).
 Leaves may be numpy arrays or anything `np.asarray` accepts (bf16 leaves
 included); nothing here imports JAX.
@@ -21,6 +23,8 @@ import numpy as np
 import torch
 
 from .core.config import FusionConfig, T5Config, WanDiTConfig, WanVAEConfig
+from .models.bagel.bagel import Bagel, BagelConfig
+from .models.bagel.siglip import Siglip, SiglipConfig
 from .models.fusion.projector import ContextProjector
 from .models.wan.dit import WanDiT
 from .models.wan.t5 import UMT5Encoder
@@ -116,3 +120,22 @@ def lora_from_jax(lora, *, device="cuda"):
              for site, p in lora["sites"].items()}
     return {"sites": sites, "rank": int(lora["rank"]),
             "alpha": float(lora["alpha"])}
+
+
+def bagel_extractor_from_jax(params, cfg: BagelConfig, *, device="cuda",
+                             dtype=None) -> Bagel:
+    """univid_tpu init_bagel / checkpoint tree -> the port's Bagel (the
+    parameters the semantic extractor reads) on `device`."""
+    tree = {"llm": {"embed_tokens": params["llm"]["embed_tokens"]},
+            "connector": params["connector"],
+            "vit_pos_embed": params["vit_pos_embed"]}
+    model = Bagel(cfg, dtype=dtype or torch.float32, device=device)
+    return _load(model, jax_tree_to_state_dict(tree), dtype)
+
+
+def siglip_from_jax(params, cfg: SiglipConfig, *, device="cuda",
+                    dtype=None) -> Siglip:
+    """univid_tpu init_siglip tree -> Siglip on `device`."""
+    model = Siglip(cfg, dtype=dtype or torch.float32, device=device)
+    return _load(model, jax_tree_to_state_dict(params, stacked="layers"),
+                 dtype)

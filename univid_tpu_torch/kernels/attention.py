@@ -12,10 +12,11 @@ masks padded keys through kv_len and slices the output back. Routes:
                counterpart of the JAX package's `_flash` custom VJP: the
                forward that saves the lse, then the backward kernels.
   reference  — `mha_reference`, a masked softmax attention, for other head
-               dims (as on the TPU); differentiable by plain autograd.
+               dims (as on the TPU), segment masks included (SigLIP's
+               d=72); differentiable by plain autograd.
 
-Causal attention, q offsets, segment masks, softmax_bf16 and qk_int8 are
-later slices and raise here.
+Causal attention, q offsets, segment masks on the kernel route,
+softmax_bf16 and qk_int8 are later slices and raise here.
 """
 
 from __future__ import annotations
@@ -35,21 +36,35 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def mha_reference(q, k, v, *, kv_len=None, softmax_scale=None):
+def mha_reference(q, k, v, *, kv_len=None, q_segments=None,
+                  kv_segments=None, softmax_scale=None):
     """Masked attention with an fp32 softmax (the JAX package's XLA path):
-    keys at or past kv_len[b] are masked, and rows with kv_len == 0 are
-    zero. p is rounded to v's dtype for p @ v; the output has q's dtype."""
+    keys at or past kv_len[b] are masked, and so are keys whose segment id
+    differs from the query's (q_segments [B, Lq], kv_segments [B, Lk]).
+    A row with no valid key is zero: with segments, where no key passes
+    both masks; without, where kv_len == 0. p is rounded to v's dtype for
+    p @ v; the output has q's dtype."""
     d = q.shape[-1]
     lk = k.shape[1]
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(d)
     s = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * softmax_scale
+    kv_valid = None
     if kv_len is not None:
         kv_len = kv_len.to(q.device)
-        valid = torch.arange(lk, device=q.device)[None, :] < kv_len[:, None]
-        s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+        kv_valid = torch.arange(lk, device=q.device)[None, :] < kv_len[:, None]
+        s = s.masked_fill(~kv_valid[:, None, None, :], NEG_INF)
+    seg_mask = None
+    if q_segments is not None:
+        seg_mask = (q_segments.to(q.device)[:, :, None]
+                    == kv_segments.to(q.device)[:, None, :])[:, None]
+        s = s.masked_fill(~seg_mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    if kv_len is not None:
+    if seg_mask is not None:
+        valid = seg_mask if kv_valid is None \
+            else seg_mask & kv_valid[:, None, None, :]
+        p = torch.where(valid.any(dim=-1, keepdim=True), p, 0.0)
+    elif kv_len is not None:
         p = torch.where((kv_len > 0)[:, None, None, None], p, 0.0)
     o = torch.einsum("bnqk,bknd->bqnd", p.to(v.dtype).float(), v.float())
     return o.to(q.dtype)
@@ -86,10 +101,13 @@ class FlashAttention(torch.autograd.Function):
 
 def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
               score_bound=None, causal=False, q_segments=None,
-              softmax_bf16=False, qk_int8=False):
+              kv_segments=None, softmax_bf16=False, qk_int8=False):
     """Multi-head attention over [B, L, N, D] tensors (non-causal).
 
-    kv_len: int32 [B] valid keys per batch row. rope_tables:
+    kv_len: int32 [B] valid keys per batch row. q_segments [B, Lq] and
+    kv_segments [B, Lk]: a query sees only keys of its own segment id
+    (reference route only; the JAX dispatcher's -1/-2 pad ids belong to
+    its kernel route and are not applied here). rope_tables:
     build_fused_rope_tables output (fused rotation of q and k). score_bound:
     a PROVEN upper bound on the RAW q.k scores (d * max|g_q| * max|g_k| for
     qk-normed rows) -> bounded softmax in the kernel route; the reference
@@ -101,11 +119,15 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
     the generic kernel rather than the one-shot route, the bound is
     detached, and fp32 tensors on the card are refused (the backward
     kernels are bf16)."""
-    if causal or q_segments is not None or softmax_bf16 or qk_int8:
-        raise NotImplementedError(
-            "causal / segment attention and the softmax_bf16 / qk_int8 "
-            "knobs are later port slices (ROADMAP.md queue 2)")
     b, lq, n, d = q.shape
+    segs = q_segments is not None or kv_segments is not None
+    if causal or softmax_bf16 or qk_int8 or (segs and d % 128 == 0):
+        raise NotImplementedError(
+            "causal attention, segments at head dims of the kernel route "
+            "and the softmax_bf16 / qk_int8 knobs are later port slices "
+            "(ROADMAP.md queue 2)")
+    if segs and (q_segments is None or kv_segments is None):
+        raise ValueError("pass both q_segments and kv_segments")
     lk = k.shape[1]
     if kv_len is not None:
         kv_len = torch.as_tensor(kv_len, dtype=torch.int32).to(q.device)
@@ -115,7 +137,8 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
             _, _, ck, sk = rope_tables
             q = rotate(q, ck[:lq], sk[:lq], q.dtype)
             k = rotate(k, ck[:lk], sk[:lk], k.dtype)
-        return mha_reference(q, k, v, kv_len=kv_len,
+        return mha_reference(q, k, v, kv_len=kv_len, q_segments=q_segments,
+                             kv_segments=kv_segments,
                              softmax_scale=softmax_scale)
 
     train = torch.is_grad_enabled() and any(

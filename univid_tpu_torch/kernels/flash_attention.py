@@ -6,8 +6,9 @@ and training paths reach:
   * `flash_attention_padded` — `_flash_kernel`: non-causal attention in the
     exp2 domain with the fused-rope prologue, the bounded softmax (or a
     running max), `kv_len` masking and zero rows when l == 0. bf16 d=128
-    runs csrc/flash_attention.cu (DiT self-attention); fp32 d=384 runs
-    csrc/flash_attention_f32.cu (VAE mid-block attention). With
+    runs csrc/flash_attention.cu (DiT self-attention); fp32 d=384, 640 and
+    1024 run csrc/flash_attention_f32.cu (VAE mid-block attention of the
+    t2v-1.3B and the ti2v-5B VAEs). With
     `save_residuals=True` (the training forward) it also returns the
     per-row exp2-domain lse, fp32 [B, N, Lq].
   * `cross_attention_padded` — `_cross_kernel`: single-kv-block attention
@@ -39,12 +40,15 @@ LOG2E = math.log2(math.e)
 LN2 = math.log(2.0)
 TILE = 64           # padded-length multiple the kernels take
 CROSS_MAX_LK = 512  # single-kv-block route (the TPU's one kv block)
+F32_DIMS = (384, 640, 1024)  # fp32 head dims of flash_attention_f32.cu
 
 # kernel launches per wrapper (reset by callers that count a run)
 LAUNCHES = {"flash_attention_bf16": 0, "cross_attention_bf16": 0,
             "flash_attention_f32": 0, "rope_rotate_bf16": 0,
             "flash_attention_bf16_lse": 0, "flash_attention_bwd_dq_bf16": 0,
             "flash_attention_bwd_dkv_bf16": 0}
+# the flash_attention_f32 launches split by head dim
+F32_LAUNCHES_BY_D = {d: 0 for d in F32_DIMS}
 
 _MODE_BOUNDED, _MODE_RUNNING, _MODE_ONESHOT = 0, 1, 2
 
@@ -52,6 +56,8 @@ _MODE_BOUNDED, _MODE_RUNNING, _MODE_ONESHOT = 0, 1, 2
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for d in F32_LAUNCHES_BY_D:
+        F32_LAUNCHES_BY_D[d] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -307,7 +313,7 @@ def _flash_cuda(q, k, v, kv_len, bound, rope_tables):
         LAUNCHES["flash_attention_bf16"] += 1
         return o
     if q.dtype == torch.float32:
-        _check_cuda_inputs(q, k, v, kv_len, torch.float32, (384,))
+        _check_cuda_inputs(q, k, v, kv_len, torch.float32, F32_DIMS)
         if rope_tables is not None or bound is not None:
             raise NotImplementedError(
                 "the fp32 kernel has the VAE's plain mode only (no fused "
@@ -322,6 +328,7 @@ def _flash_cuda(q, k, v, kv_len, bound, rope_tables):
                  lq, k.shape[1], d, ctypes.addressof(strides), _stream(q))
         build.check(err, "univid_flash_fwd_f32")
         LAUNCHES["flash_attention_f32"] += 1
+        F32_LAUNCHES_BY_D[d] += 1
         return o
     raise TypeError(f"no attention kernel for {q.dtype}")
 

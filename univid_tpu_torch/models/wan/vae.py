@@ -41,7 +41,9 @@ class Stream:
         return v
 
     def push(self, v):
-        self.cache_out.append(v)
+        # a copy: a slice would keep the whole chunk's input alive (at
+        # 1280x704 that is GBs per causal conv of the decoder)
+        self.cache_out.append(v.clone())
 
     def done(self) -> Tuple:
         if self.cache_in is not None:
@@ -138,6 +140,10 @@ def time_down_conv(p, x, stream: Optional[Stream]):
     streaming cache = last frame."""
     w, b = p.w, p.b
     if stream is None:
+        if x.shape[1] < w.shape[2]:
+            # no full window (the single-frame i2v encode): the valid conv
+            # has no output frame, frame 0 passes alone
+            return x[:, :1]
         body = conv3d(x, w, b, stride=(2, 1, 1), padding="VALID")
         return torch.cat([x[:, :1], body], dim=1)
     if stream.first:

@@ -1,12 +1,14 @@
-"""Wan text-to-video pipeline on one GPU.
+"""Wan text/image-to-video pipeline on one GPU.
 
-Counterpart of univid_tpu/pipelines/ti2v.py for t2v: the token axis padded
-once to a multiple of 2048 (above 2048 tokens; padded keys are masked in
-the DiT), UniPC or DPM++ coefficients and TMA text weights precomputed per
-step on the host, classifier-free guidance as one batch-2 DiT call per
-step, then a streaming VAE decode. `denoise_fn(...)` returns the inner
-`run(dit, noise, context, context_null, z0)` so that a caller can feed its
-own noise. i2v and TaylorSeer are later slices.
+Counterpart of univid_tpu/pipelines/ti2v.py: the token axis padded once to
+a multiple of 2048 (above 2048 tokens; padded keys are masked in the DiT),
+UniPC or DPM++ coefficients and TMA text weights precomputed per step on
+the host, classifier-free guidance as one batch-2 DiT call per step, then a
+streaming VAE decode. i2v conditions on the first frame: its VAE latent z0
+replaces the first latent frame before the loop and after every solver
+step, and the first frame's tokens take t = 0. `denoise_fn(...)` returns
+the inner `run(dit, noise, context, context_null, z0)` so that a caller can
+feed its own noise. TaylorSeer is a later slice.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from ..core.config import (GenerationConfig, TMAConfig, WanModelSpec,
                            dit_seq_len, latent_shape)
 from ..core.dtypes import DEFAULT_POLICY, DTypePolicy
 from ..models.wan.dit import WanDiT, wan_dit_forward
-from ..models.wan.vae_api import WanVAE, vae_decode
+from ..models.wan.vae_api import WanVAE, vae_decode, vae_encode
 from ..ops.rope import build_rope_3d
 from ..ops.samplers import (dpm_step, flow_sigmas, get_sampling_sigmas,
                             precompute_dpm_solver, precompute_unipc,
@@ -55,9 +57,10 @@ def padded_seq_len(spec: WanModelSpec, size, frame_num: int) -> int:
     return seq_len
 
 
-class WanT2VPipeline:
-    """Tensor-in / tensor-out t2v pipeline. Text encoding happens upstream;
-    the pipeline takes context tensors [text_len, text_dim]."""
+class WanTI2VPipeline:
+    """Tensor-in / tensor-out t2v and i2v pipeline. Text encoding (UMT5 or
+    the fusion projector) happens upstream; the pipeline takes context
+    tensors [text_len, text_dim]."""
 
     def __init__(self, spec: WanModelSpec, dit: WanDiT, vae: WanVAE,
                  policy: DTypePolicy = DEFAULT_POLICY):
@@ -72,9 +75,11 @@ class WanT2VPipeline:
 
     def denoise_fn(self, latent_grid: Tuple[int, int, int], seq_len: int,
                    steps: int, shift: float, guide_scale: float,
-                   solver: str, tma: Optional[TMAConfig]):
+                   solver: str, tma: Optional[TMAConfig], i2v: bool = False):
         """The denoise loop for one shape: run(dit, noise, context,
-        context_null, z0) -> final latent [1, F, H, W, C] (fp32)."""
+        context_null, z0) -> final latent [1, F, H, W, C] (fp32). With i2v
+        the first latent frame is clamped to z0's (before the loop and
+        after every step) and its tokens take t = 0."""
         cfg = self.spec.dit
         gen = GenerationConfig(sampling_steps=steps, shift=shift,
                                guide_scale=guide_scale, sample_solver=solver)
@@ -93,10 +98,20 @@ class WanT2VPipeline:
         @torch.no_grad()
         def run(dit, noise, context, context_null, z0):
             # noise / z0: [1, F, H, W, C]; context*: [1, text_len, text_dim]
-            rope_cos, rope_sin = build_rope_3d(cfg.head_dim, grid,
-                                               device=noise.device)
+            dev = noise.device
+            rope_cos, rope_sin = build_rope_3d(cfg.head_dim, grid, device=dev)
             ctx_pair = torch.cat([context, context_null], dim=0)
-            state = unipc_init_state(noise, order=coeffs.order)
+            t_zero = None
+            latents = noise
+            if i2v:
+                per_frame = grid[1] * grid[2]
+                t_zero = torch.zeros((2, grid[0] * per_frame), dtype=torch.bool,
+                                     device=dev)
+                t_zero[:, :per_frame] = True
+                frame_mask = torch.zeros((1, f, h, w, 1), device=dev)
+                frame_mask[:, :1] = 1.0   # 1 where clamped to z0
+                latents = frame_mask * z0 + (1.0 - frame_mask) * noise
+            state = unipc_init_state(latents, order=coeffs.order)
             for i in range(steps):
                 c = coeffs.step(i)
                 ctx = ctx_pair
@@ -107,10 +122,13 @@ class WanT2VPipeline:
                 t2 = torch.full((2,), c["timestep"], dtype=torch.float32,
                                 device=noise.device)
                 v = wan_dit_forward(dit, x2, t2, ctx, rope_cos, rope_sin,
-                                    seq_pad_to=seq_len, policy=policy,
-                                    fused_rope=True)
+                                    t_zero_mask=t_zero, seq_pad_to=seq_len,
+                                    policy=policy, fused_rope=True)
                 v_guided = v[1:2] + guide_scale * (v[0:1] - v[1:2])
                 state = step_fn(state, c, v_guided)
+                if i2v:
+                    state = dict(state, sample=frame_mask * z0
+                                 + (1.0 - frame_mask) * state["sample"])
             return state["sample"]
 
         return run
@@ -120,21 +138,36 @@ class WanT2VPipeline:
                  frame_num: int = 121, shift: float = 5.0,
                  sample_solver: str = "unipc", sampling_steps: int = 50,
                  guide_scale: float = 5.0, seed: int = 0,
+                 img: Optional[torch.Tensor] = None,
                  tma: Optional[TMAConfig] = None, decode: bool = True,
-                 timer=None):
+                 noise: Optional[torch.Tensor] = None, timer=None):
         """Video [T, H, W, 3] in [-1, 1] (or the latent with decode=False).
-        The noise is drawn on the pipeline's device from a torch.Generator
-        seeded with `seed`."""
+        img [H, W, 3] in [-1, 1], at `size`, makes it i2v. noise [1, F, H,
+        W, C]: the initial latent; when None it is drawn on the pipeline's
+        device from a torch.Generator seeded with `seed`."""
         spec = self.spec
         c, f, h, w = latent_shape(spec, size[0], size[1], frame_num)
         seq_len = padded_seq_len(spec, size, frame_num)
         dev = self.device
-        g = torch.Generator(device=dev).manual_seed(seed)
-        noise = torch.randn((1, f, h, w, c), generator=g, device=dev,
-                            dtype=torch.float32)
-        z0 = torch.zeros_like(noise)
+        if noise is None:
+            g = torch.Generator(device=dev).manual_seed(seed)
+            noise = torch.randn((1, f, h, w, c), generator=g, device=dev,
+                                dtype=torch.float32)
+        noise = noise.to(dev, torch.float32)
+        i2v = img is not None
+        if i2v:
+            video = img[None, None].to(dev, torch.float32)
+            if timer is not None:
+                z0 = timer.time_phase("vae_encode", vae_encode, self.vae,
+                                      video)
+            else:
+                z0 = vae_encode(self.vae, video)
+            # z0: [1, 1, h, w, c] -> zero-padded over the latent frames
+            z0 = torch.nn.functional.pad(z0, (0, 0, 0, 0, 0, 0, 0, f - 1))
+        else:
+            z0 = torch.zeros_like(noise)
         run = self.denoise_fn((f, h, w), seq_len, sampling_steps, shift,
-                              guide_scale, sample_solver, tma)
+                              guide_scale, sample_solver, tma, i2v=i2v)
         ctx, nctx = context[None].to(dev), context_null[None].to(dev)
         if timer is not None:
             x0 = timer.time_phase("denoise", run, self.dit, noise, ctx, nctx,
