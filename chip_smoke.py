@@ -751,7 +751,8 @@ def full_width_extractor(output_dir):
         return torch.Generator(device="cuda").manual_seed(seed)
 
     t0 = time.perf_counter()
-    bagel = init_bagel(gen(20), cfg, dtype=bf, device="cuda")
+    bagel = init_bagel(gen(20), cfg, dtype=bf, device="cuda",
+                       llm_layers=False)
     sig = init_siglip(gen(21), scfg, dtype=bf, device="cuda")
     proj = init_context_projector(gen(22), fcfg, dtype=bf, device="cuda")
     ex = BagelSemanticExtractor(bagel, cfg, HashTokenizer(), siglip=sig,
@@ -1017,7 +1018,8 @@ def train_main_path(n_steps):
     # with lse (layer 0's q, k, v have no trainable upstream: the serving
     # kernel, and no backward), cross-attention twice (forward and its
     # recompute in the backward), one backward pair per differentiated call
-    per_step = {"flash_attention_bf16": 1, "cross_attention_bf16": 0,
+    per_step = {"flash_attention_bf16": 1, "flash_attention_bf16_causal": 0,
+                "cross_attention_bf16": 0,
                 "flash_attention_f32": 0, "rope_rotate_bf16": 0,
                 "flash_attention_bf16_lse": 29 + 2 * 30,
                 "flash_attention_bwd_dq_bf16": 29 + 30,
@@ -1064,11 +1066,12 @@ def train_main_path(n_steps):
     return launches
 
 
-def profile_step(step, state, batch):
-    """One more train step under torch.profiler: the device time of its
-    kernels by family, and the share of the step's wall time in which no
-    kernel ran (the profiler's host overhead inflates the wall time, so
-    this share is an upper bound). Returns (state, summary)."""
+def profile_call(fn):
+    """fn() under torch.profiler, to a synchronised end: the device time of
+    its kernels by family, their count, the five kernels that took the
+    most device time, and the share of the wall time in which no kernel
+    ran (the profiler's host overhead inflates the wall time, so this
+    share is an upper bound). Returns (fn(), summary)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1077,15 +1080,19 @@ def profile_step(step, state, batch):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, loss = step(state, batch)
-        float(loss)
+        out = fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     fam = {"attention_kernels_ms": 0.0, "gemm_ms": 0.0,
            "other_kernels_ms": 0.0}
+    n_kernels = 0
+    top = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
+        n_kernels += e.count
         ms = e.self_device_time_total / 1e3
+        top.append({"kernel": e.key[:90], "ms": ms, "count": e.count})
         name = e.key.lower()
         if "flash_" in name or "rope_rotate" in name:
             fam["attention_kernels_ms"] += ms
@@ -1094,8 +1101,17 @@ def profile_step(step, state, batch):
         else:   # elementwise, reductions, copies, memsets
             fam["other_kernels_ms"] += ms
     busy = sum(fam.values())
-    return state, dict(fam, wall_ms=wall_ms, device_busy_ms=busy,
-                       idle_share_upper_bound=max(0.0, 1 - busy / wall_ms))
+    top = sorted(top, key=lambda r: -r["ms"])[:5]
+    return out, dict(fam, wall_ms=wall_ms, device_busy_ms=busy,
+                     kernels=n_kernels, top_kernels=top,
+                     idle_share_upper_bound=max(0.0, 1 - busy / wall_ms))
+
+
+def profile_step(step, state, batch):
+    """One more train step under torch.profiler (`profile_call`).
+    Returns (state, summary)."""
+    (state, _), summary = profile_call(lambda: step(state, batch))
+    return state, summary
 
 
 def main_path(steps, output_dir):
@@ -1117,6 +1133,7 @@ def main_path(steps, output_dir):
     wall = time.perf_counter() - t0
     launches = dict(fa.LAUNCHES)
     expected = {"flash_attention_bf16": 30 * steps,
+                "flash_attention_bf16_causal": 0,
                 "cross_attention_bf16": 30 * steps,
                 "flash_attention_f32": 21,
                 "rope_rotate_bf16": 60 * steps,   # q and k per self-attn
@@ -1200,6 +1217,7 @@ def ti2v_main_path(output_dir):
     peak = torch.cuda.max_memory_allocated() / 1e9
     n_dec = (frames - 1) // 4 + 1   # 1 + 30 chunks of one latent frame
     per_video = {"flash_attention_bf16": 30 * steps,
+                 "flash_attention_bf16_causal": 0,
                  "cross_attention_bf16": 30 * steps,
                  "rope_rotate_bf16": 60 * steps,
                  "flash_attention_f32": n_dec,
@@ -1244,6 +1262,512 @@ def ti2v_main_path(output_dir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# BAGEL-7B-MoT video QA (Pyramid Reflection)
+# ---------------------------------------------------------------------------
+
+BAGEL_CAPACITY = 20480   # 16 frames x 1,198 rows + the question; the JAX
+                         # inferencer's default of 4,096 holds ~3 frames
+QA_QUESTION = ("Looking carefully at the whole video from its first frame to "
+               "its last frame, what is the main object that moves across "
+               "the scene, in which direction does it travel, what color is "
+               "it, and what happens to it near the end of the clip?")
+FRAME_ROWS = 1198        # a 644x364 frame: 46 x 26 patches + start and end
+
+
+def _causal_case(gen, b, lq, lk, n, nk, offsets, n_new, mark_new=True):
+    """Inputs of one prefill over a cache: q [b, lq, n, 128] (qk-normed,
+    folded as the wrapper folds it), a cache k, v [b, lk, nk, 128] in which
+    every slot at or past kv_len = offsets + n_new holds 50.0. With
+    mark_new, the appended rows offsets[r] .. kv_len[r] (past the diagonal
+    for the earlier queries) get k = 50 and v a ramp 50, 58, 66, ...: a
+    row that sees them averages the ramp, and a key let past its diagonal
+    moves that mean by 4."""
+    import torch
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    d = 128
+    q = fa._fold(qk_normed((b, lq, n, d), gen, torch.bfloat16), d ** -0.5)
+    k = qk_normed((b, lk, nk, d), gen, torch.bfloat16)
+    v = torch.randn((b, lk, nk, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    ramp = (50.0 + 8.0 * torch.arange(n_new, device="cuda")).to(
+        torch.bfloat16)[:, None, None]
+    for r, off in enumerate(offsets):
+        if mark_new:
+            k[r, off:off + n_new] = 50.0
+            v[r, off:off + n_new] = ramp
+        k[r, off + n_new:] = 50.0
+        v[r, off + n_new:] = 50.0
+    qo = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+    return q, k, v, qo, qo + n_new
+
+
+def _causal_work(lq, offsets, kv_len, n, d=128):
+    """Live (row, key) pairs of a causal prefill -> flops (q k^T and p v)."""
+    pairs = sum(min(i + off + 1, kl) for off, kl in zip(offsets, kv_len)
+                for i in range(lq))
+    return 4 * pairs * n * d
+
+
+def check_causal_kernels():
+    """The causal kernel mode against its plain version at the BAGEL path's
+    shapes: the 16-frame QA's question prefill (q [1, 64, 28, 128] over the
+    20,480-row cache, 4 kv heads, q_offsets 19,168), a batch of 16 rows at
+    different offsets over a 2,624-row cache (the batched captioning's
+    shape) and a square 2,048-token prefill at offset 0 (the largest text
+    bucket); then the running-max mode at the ViT append's shape ([1, 2112,
+    28, 128] over the cache, group 7). Each timed beside its bound, its
+    plain version and SDPA with the same boolean mask on the repeated kv
+    heads. Returns the flash_attention_bf16_causal record (question
+    shape)."""
+    import torch
+    import torch.nn.functional as F
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n, nk, d = 28, 4, 128
+    n_q = len(QA_QUESTION.split()) + 2   # bos + words + eos
+    tol = dict(atol=1e-3, rtol=2.0 ** -7,
+               why="one bf16 ulp of the output (at most 2^-7 relative) "
+                   "plus 1e-3 for the fp32 summation order and the "
+                   "approximate exp2 before p rounds to bf16")
+    cases = (("question_prefill", 1, 64, BAGEL_CAPACITY,
+              [16 * FRAME_ROWS], n_q, True),
+             ("batched_b16", 16, 64, 2624,
+              [FRAME_ROWS + 37 * r for r in range(16)], 40, True),
+             ("square_2048", 1, 2048, 2048, [0], 2000, False))
+    record = None
+    for tag, b, lq, lk, offs, n_new, mark in cases:
+        q, k, v, qo, kv = _causal_case(gen, b, lq, lk, n, nk, offs, n_new,
+                                       mark)
+        kv_host = [o + n_new for o in offs]
+
+        def run():
+            return fa._flash_cuda(q, k, v, kv, None, None, causal=True,
+                                  q_offsets=qo)
+
+        with torch.no_grad():
+            got = run()
+            want = fa.attention_plain(q, k, v, kv_len=kv, causal=True,
+                                      q_offsets=qo)
+            err = compare(f"flash_attention_bf16_causal {tag}", got, want,
+                          **tol)
+            ms = cuda_time(run, 10)
+            plain_ms = cuda_time(lambda: fa.attention_plain(
+                q, k, v, kv_len=kv, causal=True, q_offsets=qo), 1)
+            rows = fa.causal_rows(lq, 0, qo, q.device)
+            cols = torch.arange(lk, device="cuda")
+            mask = ((cols[None, None, :] <= rows[:, :, None])
+                    & (cols[None, None, :] < kv[:, None, None]))[:, None]
+            qs, ks, vs = (x.transpose(1, 2) for x in (
+                q, fa.repeat_kv(k, n), fa.repeat_kv(v, n)))
+            lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, scale=1.0 / fa.LOG2E), 3)
+        live_kv = sum(kv_host) * nk * d * 2 * 2   # k and v up to kv_len
+        bms, by = bound_ms(_causal_work(lq, offs, kv_host, n),
+                           nbytes(q, got) + live_kv, H100_BF16_FLOPS)
+        rec = dict(name="flash_attention_bf16_causal", route="cuda",
+                   source="univid_tpu_torch/kernels/csrc/flash_attention.cu",
+                   replaces="univid_tpu/kernels/flash_attention.py:44",
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by, library_ms=lib_ms,
+                   shape={"q": list(q.shape), "kv": list(k.shape),
+                          "q_offsets": offs[:2], "kv_len": kv_host[:2]})
+        if record is None:
+            record = {k_: v_ for k_, v_ in rec.items() if k_ != "shape"}
+            log(json.dumps({"kernel": record}))
+        else:
+            log(json.dumps({f"kernel_at_{tag}": rec}))
+        del q, k, v, got, want, qs, ks, vs, mask
+        torch.cuda.empty_cache()
+
+    # the ViT append of the 16th frame: 2,050 rows padded to 2,112 over
+    # the cache, non-causal, kv_len 19,168, 28 query heads over 4 kv heads
+    q, k, v, _, kv = _causal_case(gen, 1, 2112, BAGEL_CAPACITY, n, nk,
+                                  [15 * FRAME_ROWS], FRAME_ROWS, False)
+    with torch.no_grad():
+        got = fa._flash_cuda(q, k, v, kv, None, None)
+        want = fa.attention_plain(q, k, v, kv_len=kv)
+        err = compare("flash_attention_bf16 ViT append group 7", got, want,
+                      **tol)
+        ms = cuda_time(lambda: fa._flash_cuda(q, k, v, kv, None, None), 10)
+        plain_ms = cuda_time(lambda: fa.attention_plain(q, k, v, kv_len=kv),
+                             1)
+        kvl = 16 * FRAME_ROWS
+        qs, ks, vs = (x.transpose(1, 2) for x in (
+            q, fa.repeat_kv(k[:, :kvl], n), fa.repeat_kv(v[:, :kvl], n)))
+        lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, scale=1.0 / fa.LOG2E), 3)
+    bms, by = bound_ms(4 * 2112 * kvl * n * d,
+                       nbytes(q, got) + kvl * nk * d * 2 * 2, H100_BF16_FLOPS)
+    log(json.dumps({"kernel_at_bagel_vit_append": dict(
+        name="flash_attention_bf16", route="cuda",
+        source="univid_tpu_torch/kernels/csrc/flash_attention.cu",
+        replaces="univid_tpu/kernels/flash_attention.py:44", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=lib_ms, shape={"q": list(q.shape), "kv": list(k.shape),
+                                  "kv_len": kvl})}))
+    del q, k, v, got, want, qs, ks, vs
+    torch.cuda.empty_cache()
+    return {"flash_attention_bf16_causal": record}
+
+
+def small_bagel_parity():
+    """A small d=128 BAGEL (hidden 512, 4 heads over 2 kv heads, 2 layers)
+    and a tiny SigLIP in bf16: video_understanding's context (3 frames,
+    then the question) built on the card (kernels) and on the CPU (plain
+    versions), same weights; the KV caches compared, then the logits under
+    teacher forcing on the CPU's greedy tokens."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.bagel.bagel import (BagelConfig,
+                                                     generate_text,
+                                                     init_bagel)
+    from univid_tpu_torch.models.bagel.qwen2_mot import (Qwen2MoTConfig,
+                                                         lm_head_logits,
+                                                         qwen2_mot_forward)
+    from univid_tpu_torch.models.bagel.siglip import (SiglipConfig,
+                                                      init_siglip)
+    from univid_tpu_torch.pipelines.interleave import InterleaveInferencer
+    from univid_tpu_torch.utils.tokenizers import HashTokenizer
+
+    bf = torch.bfloat16
+    llm = Qwen2MoTConfig(vocab_size=4096, hidden_size=512,
+                         intermediate_size=1024, num_layers=2, num_heads=4,
+                         num_kv_heads=2)
+    cfg = BagelConfig(llm=llm, vit_hidden_size=64, start_of_image=4090,
+                      end_of_image=4091, bos_token_id=4092,
+                      eos_token_id=4093)
+    scfg = SiglipConfig(hidden_size=64, intermediate_size=128, num_layers=2,
+                        num_heads=2, patch_size=14, image_size=224)
+    gen = torch.Generator().manual_seed(30)
+    bagel = init_bagel(gen, cfg, dtype=bf, device="cpu")
+    sig = init_siglip(gen, scfg, dtype=bf, device="cpu")
+    with torch.no_grad():   # non-unit qk norms move the scores
+        for layer in bagel.llm.layers:
+            layer.attn.q_norm.uniform_(0.5, 1.5, generator=gen)
+            layer.attn.k_norm.uniform_(0.5, 1.5, generator=gen)
+    rng = np.random.default_rng(3)
+    frames = [rng.uniform(-1, 1, (112, 112 + 28 * i, 3)).astype(np.float32)
+              for i in range(3)]
+    n_tok = 8
+
+    def context(device):
+        inf = InterleaveInferencer(
+            copy.deepcopy(bagel).to(device), cfg, HashTokenizer(4090),
+            siglip=copy.deepcopy(sig).to(device), siglip_cfg=scfg,
+            capacity=1024, compute_dtype=bf)
+        ctx = inf.init_gen_context()
+        for f in frames:
+            ctx = inf.update_context_image(f, ctx)
+        return inf, inf.update_context_text(QA_QUESTION, ctx)
+
+    def forced_logits(inf, ctx, tokens):
+        """Decode steps fed [bos] + tokens[:-1] -> logits [n_tok, vocab]."""
+        out, cache, rope = [], ctx["cache"], ctx["rope"]
+        prev = [cfg.bos_token_id] + tokens[:-1]
+        with torch.no_grad():
+            for t in prev:
+                x = inf.params.llm.embed_tokens[
+                    torch.tensor([[t]], device=rope.device)].to(bf)
+                h, cache = qwen2_mot_forward(inf.params.llm, llm, x,
+                                             rope[:, None], cache,
+                                             compute_dtype=bf)
+                out.append(lm_head_logits(inf.params.llm, llm, h,
+                                          compute_dtype=bf)[0, 0].cpu())
+                rope = rope + 1
+        return torch.stack(out)
+
+    fa.reset_launches()
+    inf_g, ctx_g = context("cuda")
+    used = {k: v for k, v in fa.LAUNCHES.items() if v}
+    inf_c, ctx_c = context("cpu")
+    n_live = ctx_c["cache"]["len_host"][0]
+    cache_err = {kv: rel_l2(ctx_g["cache"][kv][:, :, :n_live].cpu(),
+                            ctx_c["cache"][kv][:, :, :n_live])
+                 for kv in ("k", "v")}
+    if ctx_g["cache"]["len_host"] != ctx_c["cache"]["len_host"]:
+        fail("small BAGEL parity: cache lengths differ")
+    with torch.no_grad():
+        toks, _ = generate_text(inf_c.params, cfg, copy.deepcopy(ctx_c),
+                                n_tok, compute_dtype=bf)
+    tokens = [int(t) for t in toks[0]]
+    logit_err = rel_l2(forced_logits(inf_g, ctx_g, tokens),
+                       forced_logits(inf_c, ctx_c, tokens))
+    out = {"check": "small_bagel_parity", "cache_rel_l2": cache_err,
+           "logits_rel_l2": logit_err, "limit": 3e-2, "rows": n_live,
+           "tokens": tokens,
+           "why": "bf16 on both sides: cuBLAS and the CPU round each GEMM "
+                  "at other points (2^-8 relative), over 2 layers",
+           "launches": used}
+    out["ok"] = (max(cache_err.values()) < 3e-2 and logit_err < 3e-2
+                 and used.get("flash_attention_bf16") == 3 * 2
+                 and used.get("flash_attention_bf16_causal") == 2
+                 and set(used) == {"flash_attention_bf16",
+                                   "flash_attention_bf16_causal"})
+    log(json.dumps(out))
+    if not out["ok"]:
+        fail("the BAGEL path on the card disagrees with the CPU, or went "
+             "through other kernels")
+
+
+def _qa_video(path, n_frames=64):
+    """A seeded 640x360 uint8 video with smooth content (blocky colour
+    fields drifting right), written with the port's save_video."""
+    import numpy as np
+
+    from univid_tpu_torch.data.video_io import save_video
+
+    rng = np.random.default_rng(11)
+    base = rng.integers(0, 256, (9, 24, 3), dtype=np.uint8)
+    field = np.kron(base, np.ones((40, 40, 1), np.uint8))   # 360 x 960
+    frames = np.stack([field[:, 5 * t:5 * t + 640] for t in range(n_frames)])
+    return save_video(frames, path, fps=8)
+
+
+def bagel_main_path(output_dir):
+    """The video-QA path at full width: BAGEL-7B-MoT (bf16, both experts,
+    random from seeds) with the SigLIP so400m tower, the default
+    Siglip2Scorer and the offline judge and reflector; reflexion_answer_one
+    with ReflexionConfig() on a 64-frame pool of 640x360 frames: 16 seed
+    captions as one batch, static rounds K = 4, 8, 16, the fallback; 512
+    greedy tokens per decode. The inferencer's cache holds 20,480 rows.
+    Checks the trace, the launches of each phase, and logs the seconds of
+    each phase and the peak memory; then profiles 16 decode steps. Returns
+    the reflexion run's launch counts."""
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.bagel.bagel import (BagelConfig,
+                                                     generate_text,
+                                                     init_bagel)
+    from univid_tpu_torch.models.bagel.siglip import (SiglipConfig,
+                                                      init_siglip)
+    from univid_tpu_torch.pipelines.interleave import InterleaveInferencer
+    from univid_tpu_torch.reflection.clients import make_reflection_clients
+    from univid_tpu_torch.reflection.reflexion import (ReflexionConfig,
+                                                       reflexion_answer_one)
+    from univid_tpu_torch.reflection.scorer import Siglip2Scorer
+    from univid_tpu_torch.utils.tokenizers import HashTokenizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.makedirs(output_dir, exist_ok=True)
+    video = _qa_video(os.path.join(output_dir, "qa", "video1.mp4"))
+    bf = torch.bfloat16
+    cfg, scfg = BagelConfig(), SiglipConfig()
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bagel = init_bagel(gen(40), cfg, dtype=bf, device="cuda")
+    sig = init_siglip(gen(41), scfg, dtype=bf, device="cuda")
+    tok = HashTokenizer()
+    scorer = Siglip2Scorer(tokenizer=tok, device="cuda")
+    n_params = sum(p.numel() for p in bagel.parameters())
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+
+    phases = []   # one record per timed call, in order
+
+    class Timed(InterleaveInferencer):
+        """Each context update, decode and captioning call timed to a
+        synchronised end, with the kernels' launches in it."""
+
+        def _timed(self, kind, fn, *a, **kw):
+            torch.cuda.synchronize()
+            before = dict(fa.LAUNCHES)
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            phases.append({"kind": kind, "s": time.perf_counter() - t,
+                           "launches": {k: fa.LAUNCHES[k] - before[k]
+                                        for k in before
+                                        if fa.LAUNCHES[k] - before[k]}})
+            return out
+
+        def vit_features(self, *a):
+            return self._timed("siglip", super().vit_features, *a)
+
+        def vit_append(self, *a):
+            return self._timed("vit_append", super().vit_append, *a)
+
+        def update_context_text(self, *a):
+            return self._timed("text_prefill", super().update_context_text,
+                               *a)
+
+        def gen_text(self, *a, **kw):
+            return self._timed("decode", super().gen_text, *a, **kw)
+
+        def caption_frames(self, *a, **kw):
+            phases.append({"kind": "captioning_start"})
+            return self._timed("captioning", super().caption_frames, *a,
+                               **kw)
+
+    inf = Timed(bagel, cfg, tok, siglip=sig, siglip_cfg=scfg,
+                capacity=BAGEL_CAPACITY, compute_dtype=bf)
+    refl, judge = make_reflection_clients("")
+    rcfg = ReflexionConfig()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    answer, trace = reflexion_answer_one(video, QA_QUESTION, inf, refl, judge,
+                                         scorer, rcfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # group the timed calls: the captioning call (its inner ViT appends
+    # are part of it), then one QA call per decode
+    caption = [p for p in phases if p["kind"] == "captioning"]
+    qa, cur = [], None
+    seen_caption = False
+    for p in phases:
+        if p["kind"] == "captioning_start":
+            seen_caption = True
+            continue
+        if p["kind"] == "captioning":
+            seen_caption = False
+            continue
+        if seen_caption:
+            continue
+        if cur is None:
+            cur = {"siglip_s": 0.0, "vit_append_s": 0.0,
+                   "text_prefill_s": 0.0, "decode_s": 0.0, "frames": 0,
+                   "launches": {}}
+        cur[f"{p['kind']}_s"] += p["s"]
+        cur["frames"] += p["kind"] == "vit_append"
+        for k, n in p["launches"].items():
+            cur["launches"][k] = cur["launches"].get(k, 0) + n
+        if p["kind"] == "decode":
+            cur["ms_per_token"] = p["s"] / rcfg.max_think_token_n * 1e3
+            qa.append(cur)
+            cur = None
+    n_layers = cfg.llm.num_layers
+    want_caption = {"flash_attention_bf16": n_layers}
+    rounds = [r["K"] for r in trace["rounds"]]
+    out = {"phase": "bagel_main_path", "model": "BAGEL-7B-MoT",
+           "params": n_params, "weights_gb": weights_gb, "init_s": init_s,
+           "capacity": BAGEL_CAPACITY, "question_tokens":
+           len(QA_QUESTION.split()) + 2, "seconds": wall,
+           "captioning": {"frames": rcfg.caption_seed_frames,
+                          "s": caption[0]["s"] if caption else None,
+                          "ms_per_step": (caption[0]["s"]
+                                          / rcfg.max_think_token_n * 1e3
+                                          if caption else None),
+                          "launches": caption[0]["launches"]
+                          if caption else None,
+                          "expected_launches": want_caption},
+           "qa_calls": qa, "rounds": rounds,
+           # the scorer (64 pool frames, 3 queries), video decode, host
+           "other_s": wall - sum(p["s"] for p in caption)
+           - sum(c[f"{k}_s"] for c in qa for k in (
+               "siglip", "vit_append", "text_prefill", "decode")),
+           "final_answer_chars": len(answer or ""),
+           "peak_memory_gb": peak, "launches": launches}
+    log(json.dumps(out))
+    if not caption or caption[0]["launches"] != want_caption:
+        fail(f"captioning launches {caption} != {want_caption} (the 21-row "
+             "prompt takes the decode-shaped einsums, as in JAX)")
+    if rounds != [4, 8, 16] or len(qa) != 3:
+        fail(f"reflexion rounds {rounds}, {len(qa)} QA calls")
+    for call, k in zip(qa, rounds):
+        want = {"flash_attention_bf16": n_layers * k,
+                "flash_attention_bf16_causal": n_layers}
+        if call["launches"] != want or call["frames"] != k:
+            fail(f"QA call on {k} frames: launches {call['launches']} != "
+                 f"{want}")
+    keys = {"video", "question", "qtype_init", "global_caption", "rounds",
+            "fallback", "qtype_final", "final_answer"}
+    if not keys <= set(trace) or not trace["final_answer"]:
+        fail(f"reflexion trace keys {sorted(trace)} or an empty answer")
+    if peak >= 80.0:
+        fail(f"BAGEL peak memory {peak:.1f} GB")
+
+    # 16 decode steps under the profiler over the largest QA call's cache
+    # (one frame's features appended K = 16 times, then the question): is
+    # a token bound by the card or by the host's launches?
+    base = InterleaveInferencer(bagel, cfg, tok, siglip=sig, siglip_cfg=scfg,
+                                capacity=BAGEL_CAPACITY, compute_dtype=bf)
+    n_tok = 16
+    with torch.no_grad():
+        patches, pos, segs, n = base._prep_image_bucketed(
+            np.zeros((360, 640, 3), np.float32))
+        feats = base.vit_features(patches, pos, segs)
+        ctx = base.init_gen_context()
+        for _ in range(rcfg.static_seq[-1]):
+            ctx = base.vit_append(ctx, feats[None], pos[None], n)
+        ctx = base.update_context_text(QA_QUESTION, ctx)
+        rows = ctx["cache"]["len_host"][0]
+        _, prof = profile_call(lambda: generate_text(
+            bagel, cfg, ctx, n_tok, compute_dtype=bf))
+    log(json.dumps({"check": "bagel_decode_profile", "tokens": n_tok,
+                    "cache_rows": rows,
+                    "per_token": {k: v / n_tok for k, v in prof.items()
+                                  if k not in ("idle_share_upper_bound",
+                                               "top_kernels")},
+                    "top_kernels_per_token": [
+                        dict(r, ms=r["ms"] / n_tok, count=r["count"] / n_tok)
+                        for r in prof["top_kernels"]],
+                    "idle_share_upper_bound":
+                    prof["idle_share_upper_bound"]}))
+    del inf, base, ctx, bagel, sig, scorer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def qa_cli_on_card(output_dir):
+    """The port's eval_understanding CLI once on the card with
+    --mock_weights on a small seeded video (its head-dim-16 BAGEL takes the
+    reference attention route)."""
+    import os
+
+    import numpy as np
+
+    from univid_tpu_torch.cli import eval_understanding
+    from univid_tpu_torch.data.video_io import save_video
+
+    vdir = os.path.join(output_dir, "qa_cli")
+    frames = np.random.default_rng(12).integers(0, 256, (16, 96, 128, 3),
+                                                dtype=np.uint8)
+    save_video(frames, os.path.join(vdir, "video1.mp4"), fps=8)
+    with open(os.path.join(vdir, "gt.json"), "w") as f:
+        json.dump([{"video_id": 1, "question": "what moves?",
+                    "answer": "a ball"}], f)
+    t0 = time.perf_counter()
+    summary = eval_understanding.main([
+        "--video_dir", vdir, "--gt_file", os.path.join(vdir, "gt.json"),
+        "--output_dir", os.path.join(vdir, "out"), "--output_name",
+        "batch1", "--id_from", "1", "--id_to", "1", "--mock_weights",
+        "--pool_frames", "16", "--max_think_token_n", "16",
+        "--save_frames_root", "", "--deepseek_api_key", ""])
+    with open(os.path.join(vdir, "out", "video1_reflexion.json")) as f:
+        trace = json.load(f)
+    out = {"check": "qa_cli_on_card", "seconds": time.perf_counter() - t0,
+           "num_samples": summary["num_samples"],
+           "rounds": [r["K"] for r in trace["rounds"]],
+           "final_answer": trace["final_answer"]}
+    out["ok"] = out["num_samples"] == 1 and out["rounds"] == [4, 8, 16]
+    log(json.dumps(out))
+    if not out["ok"]:
+        fail("the eval_understanding CLI on the card")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=4)
@@ -1282,6 +1806,7 @@ def main():
     records = check_kernels()
     retime_ti2v_kernels()
     records.update(check_train_kernels())
+    records.update(check_causal_kernels())
     log(json.dumps({"phase": "kernel_checks",
                     "seconds": time.perf_counter() - t0}))
 
@@ -1292,7 +1817,8 @@ def main():
                           ("train_parity",
                            lambda: train_parity(args.output_dir)),
                           ("full_width_extractor",
-                           lambda: full_width_extractor(args.output_dir))):
+                           lambda: full_width_extractor(args.output_dir)),
+                          ("small_bagel_parity", small_bagel_parity)):
             t0 = time.perf_counter()
             fn()
             log(json.dumps({"phase": phase,
@@ -1311,7 +1837,16 @@ def main():
         by_path["ti2v-5B"] = ti2v_main_path(args.output_dir)
         log(json.dumps({"phase": "ti2v_main_path_total",
                         "seconds": time.perf_counter() - t0}))
+        t0 = time.perf_counter()
+        by_path["bagel"] = bagel_main_path(args.output_dir)
+        log(json.dumps({"phase": "bagel_main_path_total",
+                        "seconds": time.perf_counter() - t0}))
+        t0 = time.perf_counter()
+        qa_cli_on_card(args.output_dir)
+        log(json.dumps({"phase": "qa_cli_on_card",
+                        "seconds": time.perf_counter() - t0}))
     own = {"flash_attention_f32": "ti2v-5B",
+           "flash_attention_bf16_causal": "bagel",
            "flash_attention_bf16_lse": "train",
            "flash_attention_bwd_dq_bf16": "train",
            "flash_attention_bwd_dkv_bf16": "train"}

@@ -228,8 +228,81 @@ def test_dispatcher_matches_jax(backend, case):
 
 
 def test_dispatcher_refuses_later_modes():
+    """softmax_bf16, qk_int8, segments on the kernel route and causal
+    attention under grad (the causal backward) are later slices."""
     x = torch.zeros((1, 64, 1, 128))
-    for kw in (dict(causal=True), dict(softmax_bf16=True),
-               dict(qk_int8=True), dict(q_segments=torch.zeros((1, 64)))):
+    for kw in (dict(softmax_bf16=True), dict(qk_int8=True),
+               dict(q_segments=torch.zeros((1, 64)))):
         with pytest.raises(NotImplementedError):
             tatt.attention(x, x, x, **kw)
+    xg = x.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="causal backward"):
+        tatt.attention(xg, x, x, causal=True)
+
+
+# causal cases: (lq, lk, static q_offset, per-batch q_offsets, kv_len) --
+# offsets that are not multiples of 64, a q tile straddling kv_len, the
+# padded query tail (rows past kv_len), B = 2 rows with different offsets
+CAUSAL = {
+    "square": (128, 128, 0, None, None),
+    "static_offset": (64, 192, 70, None, (150, 134)),
+    "q_offsets": (128, 320, 0, (37, 150), (101, 250)),
+    "both": (64, 256, 5, (100, 61), (133, 256)),
+}
+
+
+def _causal_inputs(case, n, nk, d, seed):
+    lq, lk, qoff, qoffs, kv = CAUSAL[case]
+    q = _rand((2, lq, n, d), seed, True)
+    k = _rand((2, lk, nk, d), seed + 1, True)
+    v = _rand((2, lk, nk, d), seed + 2)
+    return (q, k, v, qoff, None if qoffs is None else np.array(qoffs,
+                                                               np.int32),
+            None if kv is None else np.array(kv, np.int32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(CAUSAL))
+def test_causal_plain_matches_pallas(case, dtype):
+    """The causal mode's plain version (4 query heads over 2 kv heads,
+    d=128) == the Pallas kernel in interpret mode (64-row blocks, its
+    runtime dead-block skip and masked/clean split) on the kv heads
+    repeated as the JAX prefill repeats them: same rounding points."""
+    q, k, v, qoff, qoffs, kv = _causal_inputs(case, 4, 2, 128, 40)
+    qj, qt = _both(q, dtype)
+    kj, kt = _both(k, dtype)
+    vj, vt = _both(v, dtype)
+    want = jfa.flash_attention_padded(
+        qj, jnp.repeat(kj, 2, axis=2), jnp.repeat(vj, 2, axis=2),
+        causal=True, q_offset=qoff, block_q=64, block_k=64, interpret=True,
+        q_offsets=None if qoffs is None else jnp.asarray(qoffs),
+        kv_len=None if kv is None else jnp.asarray(kv))
+    got = tfa.flash_attention_padded(
+        qt, kt, vt, causal=True, q_offset=qoff,
+        q_offsets=None if qoffs is None else torch.as_tensor(qoffs),
+        kv_len=None if kv is None else torch.as_tensor(kv))
+    np.testing.assert_allclose(_np(got), _np(want),
+                               **(FP32 if dtype == "float32" else BF16))
+
+
+@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("case", ["q_offsets", "both"])
+def test_causal_dispatcher_matches_jax(case, d):
+    """Port `attention(causal=True, q_offset, q_offsets, kv_len)` on
+    unpadded lengths (Lq 100 or 64, Lk 300 or 256) with grouped kv heads
+    == the JAX
+    dispatcher's XLA path on repeated ones, fp32: d=128 through the
+    kernel route's plain version, d=64 through mha_reference."""
+    q, k, v, qoff, qoffs, kv = _causal_inputs(case, 4, 2, d, 50)
+    q, k, v = q[:, :100], k[:, :300], v[:, :300]
+    kv = np.minimum(kv, 300).astype(np.int32)
+    want = jattention(jnp.asarray(q), jnp.repeat(jnp.asarray(k), 2, axis=2),
+                      jnp.repeat(jnp.asarray(v), 2, axis=2), causal=True,
+                      q_offset=qoff, q_offsets=jnp.asarray(qoffs),
+                      kv_len=jnp.asarray(kv))
+    got = tatt.attention(torch.as_tensor(q), torch.as_tensor(k),
+                         torch.as_tensor(v), causal=True, q_offset=qoff,
+                         q_offsets=torch.as_tensor(qoffs),
+                         kv_len=torch.as_tensor(kv))
+    assert got.shape == q.shape
+    np.testing.assert_allclose(_np(got), np.asarray(want), **FP32)

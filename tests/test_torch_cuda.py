@@ -186,3 +186,69 @@ def test_cuda_attention_function_grads(cuda_device):
     assert _rel(out.float(), ref) < 2e-2
     for a, w, name in zip(got, want, ("dq", "dk", "dv")):
         assert _rel(a.float(), w) < 2e-2, name
+
+
+# causal cases (lq, lk, q_offset, q_offsets, kv_len, group): offsets that
+# are not multiples of 64, a q tile straddling kv_len, padded query rows
+# past kv_len, B = 3 rows with different offsets, group 1 and 7
+CAUSAL = {
+    "square_g1": (192, 192, 0, None, (192, 150, 64), 1),
+    "offsets_g7": (128, 512, 0, (37, 250, 384), (101, 300, 450), 7),
+    "static_plus_dynamic_g7": (64, 448, 13, (0, 129, 320), (64, 200, 390),
+                               7),
+    "decode_like_g7": (64, 1024, 0, (1000, 999, 3), (1003, 1024, 10), 7),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CAUSAL))
+def test_cuda_causal_kernel_matches_plain(cuda_device, case):
+    """The causal mode (running max, static q_offset + device q_offsets,
+    kv_len, grouped kv heads) against its plain version on the card, bf16
+    (2e-2: one bf16 rounding of p and of the output). Keys past kv_len and
+    past the diagonal hold 50.0: a key let through would be far off."""
+    lq, lk, qoff, qoffs, kvl, group = CAUSAL[case]
+    nk = 2
+    n = nk * group
+    q = torch.as_tensor(_rand((3, lq, n, 128), 30, True)).to(
+        cuda_device, torch.bfloat16)
+    k, v = (torch.as_tensor(_rand((3, lk, nk, 128), s, True)).to(
+        cuda_device, torch.bfloat16) for s in (31, 32))
+    qo = None if qoffs is None else torch.tensor(qoffs, dtype=torch.int32,
+                                                 device=cuda_device)
+    kv = torch.tensor(kvl, dtype=torch.int32, device=cuda_device)
+    for r in range(3):
+        k[r, kvl[r]:] = 50.0
+        v[r, kvl[r]:] = 50.0
+    tfa.reset_launches()
+    with torch.no_grad():
+        got = tfa.flash_attention_padded(q, k, v, kv_len=kv, causal=True,
+                                         q_offset=qoff, q_offsets=qo)
+        want = tfa.flash_attention_padded(q.cpu(), k.cpu(), v.cpu(),
+                                          kv_len=kv.cpu(), causal=True,
+                                          q_offset=qoff,
+                                          q_offsets=None if qo is None
+                                          else qo.cpu())
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention_bf16_causal"] == 1
+    assert tfa.LAUNCHES["flash_attention_bf16"] == 0
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), **BF16)
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_running_kernel_matches_plain(cuda_device):
+    """The non-causal running-max mode with 14 query heads over 2 kv heads
+    (BAGEL's ViT append, group 7) against its plain version."""
+    q = torch.as_tensor(_rand((1, 192, 14, 128), 40, True)).to(
+        cuda_device, torch.bfloat16)
+    k, v = (torch.as_tensor(_rand((1, 640, 2, 128), s, True)).to(
+        cuda_device, torch.bfloat16) for s in (41, 42))
+    kv = torch.tensor([555], dtype=torch.int32, device=cuda_device)
+    with torch.no_grad():
+        got = tfa.flash_attention_padded(q, k, v, kv_len=kv)
+        want = tfa.attention_plain(tfa._fold(q, 128 ** -0.5), k, v,
+                                   kv_len=kv)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **BF16)

@@ -89,7 +89,8 @@ def bagel():
     cfg = BagelConfig(llm=Qwen2MoTConfig(**LLM), **BAGEL)
     scfg = SiglipConfig(**SIGLIP)
     tex = BagelSemanticExtractor(
-        convert.bagel_extractor_from_jax(params, cfg, device="cpu"), cfg,
+        convert.bagel_from_jax(params, cfg, device="cpu", llm_layers=False),
+        cfg,
         HashTokenizer(4090),
         siglip=convert.siglip_from_jax(sig, scfg, device="cpu"),
         siglip_cfg=scfg, target_len=256, compute_dtype=torch.float32)

@@ -209,7 +209,7 @@ def build_fusion(args, wan_pipe, spec):
         bagel_sequence_length=min(64, spec.dit.text_len),
         fusion_alpha=args.bagel_strength)
     extractor = BagelSemanticExtractor(
-        init_bagel(gen(10), cfg, device=dev), cfg,
+        init_bagel(gen(10), cfg, device=dev, llm_layers=False), cfg,
         HashTokenizer(vocab_size=4090),
         siglip=init_siglip(gen(11), scfg, device=dev), siglip_cfg=scfg,
         target_len=fusion_cfg.bagel_sequence_length,

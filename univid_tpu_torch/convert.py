@@ -6,10 +6,9 @@ a state dict key by key. Layout rules, by leaf name and rank:
   * `w` of rank 5, a conv3d THWIO            -> [Cout, Cin, kt, kh, kw];
   * `w` of rank 4, a 2D conv HWIO (resample) -> [Cout, Cin, 1, kh, kw];
   * every other leaf as it is.
-The DiT's `blocks` and SigLIP's `layers` leaves are stacked
-[num_layers, ...] in the JAX tree (one lax.scan); they are unstacked into
-the ModuleList here. Of a BAGEL tree only what the fusion extractor reads
-is taken (llm.embed_tokens, connector, vit_pos_embed). LoRA trees
+The DiT's `blocks`, SigLIP's and the SigLIP text tower's `layers` and
+BAGEL's `llm.layers` leaves are stacked [num_layers, ...] in the JAX tree
+(one lax.scan); they are unstacked into the ModuleList here. LoRA trees
 keep the JAX layout as they are (stacked a [L, in, r], b [L, r, out]).
 Leaves may be numpy arrays or anything `np.asarray` accepts (bf16 leaves
 included); nothing here imports JAX.
@@ -25,6 +24,8 @@ import torch
 from .core.config import FusionConfig, T5Config, WanDiTConfig, WanVAEConfig
 from .models.bagel.bagel import Bagel, BagelConfig
 from .models.bagel.siglip import Siglip, SiglipConfig
+from .reflection.scorer import (SiglipMapHead, SiglipText,
+                                SiglipTextConfig)
 from .models.fusion.projector import ContextProjector
 from .models.wan.dit import WanDiT
 from .models.wan.t5 import UMT5Encoder
@@ -122,15 +123,19 @@ def lora_from_jax(lora, *, device="cuda"):
             "alpha": float(lora["alpha"])}
 
 
-def bagel_extractor_from_jax(params, cfg: BagelConfig, *, device="cuda",
-                             dtype=None) -> Bagel:
-    """univid_tpu init_bagel / checkpoint tree -> the port's Bagel (the
-    parameters the semantic extractor reads) on `device`."""
-    tree = {"llm": {"embed_tokens": params["llm"]["embed_tokens"]},
-            "connector": params["connector"],
-            "vit_pos_embed": params["vit_pos_embed"]}
-    model = Bagel(cfg, dtype=dtype or torch.float32, device=device)
-    return _load(model, jax_tree_to_state_dict(tree), dtype)
+def bagel_from_jax(params, cfg: BagelConfig, *, device="cuda", dtype=None,
+                   llm_layers: bool = True) -> Bagel:
+    """univid_tpu init_bagel / checkpoint tree -> the port's Bagel on
+    `device`: every parameter, the stacked llm.layers unstacked.
+    `llm_layers=False` takes the LLM's embed_tokens only (the module the
+    fusion extractor reads)."""
+    tree = dict(params)
+    if not llm_layers:
+        tree["llm"] = {"embed_tokens": params["llm"]["embed_tokens"]}
+    model = Bagel(cfg, dtype=dtype or torch.float32, device=device,
+                  llm_layers=llm_layers)
+    return _load(model, jax_tree_to_state_dict(tree, stacked="llm.layers"),
+                 dtype)
 
 
 def siglip_from_jax(params, cfg: SiglipConfig, *, device="cuda",
@@ -139,3 +144,21 @@ def siglip_from_jax(params, cfg: SiglipConfig, *, device="cuda",
     model = Siglip(cfg, dtype=dtype or torch.float32, device=device)
     return _load(model, jax_tree_to_state_dict(params, stacked="layers"),
                  dtype)
+
+
+def siglip_text_from_jax(params, cfg: SiglipTextConfig, *, device="cuda",
+                         dtype=None) -> SiglipText:
+    """univid_tpu init_siglip_text tree -> SiglipText on `device`."""
+    model = SiglipText(cfg, dtype=dtype or torch.float32, device=device)
+    return _load(model, jax_tree_to_state_dict(params, stacked="layers"),
+                 dtype)
+
+
+def siglip_map_head_from_jax(params, *, device="cuda",
+                             dtype=None) -> SiglipMapHead:
+    """univid_tpu convert_siglip_map_head tree -> SiglipMapHead."""
+    d = np.asarray(params["probe"]).shape[-1]
+    mlp = np.asarray(params["mlp"]["fc0"]["w"]).shape[-1]
+    model = SiglipMapHead(d, mlp, dtype=dtype or torch.float32,
+                          device=device)
+    return _load(model, jax_tree_to_state_dict(params), dtype)

@@ -1,6 +1,8 @@
-"""Host-side video IO (copy of save_video and read_video_frames from
+"""Host-side video IO (copy of read_video_frames,
+sample_video_frames_uniform, save_video and save_image from
 univid_tpu/data/video_io.py): decode with a decord -> imageio/pyav ->
-OpenCV fallback chain; save mp4 through imageio (h264) or OpenCV."""
+OpenCV fallback chain; save mp4 through imageio (h264) or OpenCV, images
+through PIL."""
 
 from __future__ import annotations
 
@@ -61,6 +63,11 @@ def read_video_frames(path: str, num_frames: Optional[int] = None
     raise RuntimeError(f"all video decoders failed for {path}: {errors}")
 
 
+def sample_video_frames_uniform(path: str, num_frames: int = 64
+                                ) -> List[np.ndarray]:
+    return read_video_frames(path, num_frames=num_frames)
+
+
 def save_video(frames: np.ndarray, path: str, fps: int = 24,
                quality: int = 8) -> str:
     """frames [T, H, W, 3] float in [-1,1] or uint8 -> mp4 (imageio h264,
@@ -94,3 +101,17 @@ def save_video(frames: np.ndarray, path: str, fps: int = 24,
     alt = path + ".npz"
     np.savez_compressed(alt, video=arr, fps=fps)
     return alt
+
+
+def save_image(image: np.ndarray, path: str) -> str:
+    arr = np.asarray(image)
+    if arr.dtype != np.uint8:
+        arr = (np.clip(arr, 0, 1) * 255).round().astype(np.uint8)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    try:
+        from PIL import Image  # type: ignore
+        Image.fromarray(arr).save(path)
+        return path
+    except Exception:  # noqa: BLE001
+        np.savez_compressed(path + ".npz", image=arr)
+        return path + ".npz"

@@ -1,9 +1,12 @@
 """Attention dispatcher: the hand-written kernels, or the plain reference.
 
 Counterpart of univid_tpu/kernels/attention.py::attention for the t2v
-inference options and the training path. Inputs are [B, L, N, D] and may be
-unpadded: the kernel route pads Lq and Lk to the kernels' tile multiple,
-masks padded keys through kv_len and slices the output back. Routes:
+inference options, the training path and BAGEL's causal KV-cache prefill.
+Inputs are [B, L, N, D] and may be unpadded: the kernel route pads Lq and
+Lk to the kernels' tile multiple, masks padded keys through kv_len and
+slices the output back. k and v may have fewer heads than q (grouped-query
+attention, N a multiple of their head count): the kernel reads each kv head
+for its group of query heads, the reference route repeats them. Routes:
 
   kernel     — kernels.flash_attention (CUDA kernels on the card, their
                plain versions on the CPU), for head dims that are multiples
@@ -15,8 +18,8 @@ masks padded keys through kv_len and slices the output back. Routes:
                dims (as on the TPU), segment masks included (SigLIP's
                d=72); differentiable by plain autograd.
 
-Causal attention, q offsets, segment masks on the kernel route,
-softmax_bf16 and qk_int8 are later slices and raise here.
+Segment masks on the kernel route (and packed_mode), softmax_bf16,
+qk_int8 and causal attention under grad are later slices and raise here.
 """
 
 from __future__ import annotations
@@ -26,10 +29,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .flash_attention import (LOG2E, NEG_INF, TILE, _fold,
+from .flash_attention import (LOG2E, NEG_INF, TILE, _fold, causal_rows,
                               flash_attention_bwd_folded,
                               flash_attention_fwd_folded,
-                              flash_attention_padded, rotate)
+                              flash_attention_padded, repeat_kv, rotate)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -37,18 +40,28 @@ def _round_up(x: int, m: int) -> int:
 
 
 def mha_reference(q, k, v, *, kv_len=None, q_segments=None,
-                  kv_segments=None, softmax_scale=None):
+                  kv_segments=None, softmax_scale=None, causal=False,
+                  q_offset=0, q_offsets=None):
     """Masked attention with an fp32 softmax (the JAX package's XLA path):
-    keys at or past kv_len[b] are masked, and so are keys whose segment id
-    differs from the query's (q_segments [B, Lq], kv_segments [B, Lk]).
-    A row with no valid key is zero: with segments, where no key passes
-    both masks; without, where kv_len == 0. p is rounded to v's dtype for
-    p @ v; the output has q's dtype."""
+    with `causal`, keys past the query's row arange(Lq) + q_offset (+
+    q_offsets[b]) are masked; so are keys at or past kv_len[b], and keys
+    whose segment id differs from the query's (q_segments [B, Lq],
+    kv_segments [B, Lk]). A row with no valid key is zero: with segments,
+    where no key passes both masks; without, where kv_len == 0 (a causal
+    row always sees key 0: offsets are >= 0). k and v with fewer heads are
+    repeated. p is rounded to v's dtype for p @ v; the output has q's
+    dtype."""
     d = q.shape[-1]
-    lk = k.shape[1]
+    lq, lk = q.shape[1], k.shape[1]
+    k, v = repeat_kv(k, q.shape[2]), repeat_kv(v, q.shape[2])
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(d)
     s = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * softmax_scale
+    if causal:
+        rows = causal_rows(lq, q_offset, q_offsets, q.device)
+        cols = torch.arange(lk, device=q.device)
+        s = s.masked_fill((cols[None, None, :] > rows[:, :, None])[:, None],
+                          NEG_INF)
     kv_valid = None
     if kv_len is not None:
         kv_len = kv_len.to(q.device)
@@ -100,11 +113,15 @@ class FlashAttention(torch.autograd.Function):
 
 
 def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
-              score_bound=None, causal=False, q_segments=None,
-              kv_segments=None, softmax_bf16=False, qk_int8=False):
-    """Multi-head attention over [B, L, N, D] tensors (non-causal).
+              score_bound=None, causal=False, q_offset=0, q_offsets=None,
+              q_segments=None, kv_segments=None, softmax_bf16=False,
+              qk_int8=False):
+    """Multi-head attention over [B, L, N, D] tensors (k, v [B, Lk, N /
+    group, D]).
 
-    kv_len: int32 [B] valid keys per batch row. q_segments [B, Lq] and
+    kv_len: int32 [B] valid keys per batch row. causal: query i of batch b
+    sits at row i + q_offset (+ q_offsets[b], int32 [B]) and sees the keys
+    at or before it (the kernel route reads q_offsets on the device). q_segments [B, Lq] and
     kv_segments [B, Lk]: a query sees only keys of its own segment id
     (reference route only; the JAX dispatcher's -1/-2 pad ids belong to
     its kernel route and are not applied here). rope_tables:
@@ -118,19 +135,34 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
     k outside the kernel, as the JAX package does), the cross call takes
     the generic kernel rather than the one-shot route, the bound is
     detached, and fp32 tensors on the card are refused (the backward
-    kernels are bf16)."""
+    kernels are bf16). Causal attention under grad is refused (the causal
+    backward kernels are a later slice)."""
     b, lq, n, d = q.shape
     segs = q_segments is not None or kv_segments is not None
-    if causal or softmax_bf16 or qk_int8 or (segs and d % 128 == 0):
+    if segs and d % 128 == 0:
         raise NotImplementedError(
-            "causal attention, segments at head dims of the kernel route "
-            "and the softmax_bf16 / qk_int8 knobs are later port slices "
-            "(ROADMAP.md queue 2)")
+            "segments (and packed_mode) on the kernel route are a later "
+            "port slice (ROADMAP.md queue 2, item 3)")
+    if softmax_bf16 or qk_int8:
+        raise NotImplementedError(
+            "the softmax_bf16 / qk_int8 knobs are a later port slice "
+            "(ROADMAP.md queue 2, item 5)")
     if segs and (q_segments is None or kv_segments is None):
         raise ValueError("pass both q_segments and kv_segments")
+    train = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if causal and train:
+        raise NotImplementedError(
+            "causal attention under grad needs the causal backward kernels, "
+            "a later port slice (ROADMAP.md queue 2)")
+    if n % k.shape[2] or k.shape[2] != v.shape[2]:
+        raise ValueError(f"{n} query heads over {k.shape[2]} kv heads")
     lk = k.shape[1]
     if kv_len is not None:
         kv_len = torch.as_tensor(kv_len, dtype=torch.int32).to(q.device)
+    if q_offsets is not None:
+        q_offsets = torch.as_tensor(q_offsets, dtype=torch.int32).to(
+            q.device)
     if d % 128 != 0:
         if rope_tables is not None:
             # rotate with the UNSCALED (k) tables: mha_reference scales
@@ -139,10 +171,12 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
             k = rotate(k, ck[:lk], sk[:lk], k.dtype)
         return mha_reference(q, k, v, kv_len=kv_len, q_segments=q_segments,
                              kv_segments=kv_segments,
-                             softmax_scale=softmax_scale)
-
-    train = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v))
+                             softmax_scale=softmax_scale, causal=causal,
+                             q_offset=q_offset, q_offsets=q_offsets)
+    if train and k.shape[2] != n:
+        raise NotImplementedError(
+            "grouped kv heads under grad: the backward kernels take as many "
+            "kv heads as query heads")
     if train and rope_tables is not None:
         raise NotImplementedError(
             "fused rope is inference-only: under grad, rotate q and k "
@@ -174,5 +208,6 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
     o = flash_attention_padded(q, k, v, kv_len=kv_len,
                                softmax_scale=softmax_scale,
                                rope_tables=rope_tables,
-                               score_bound=folded_bound)
+                               score_bound=folded_bound, causal=causal,
+                               q_offset=q_offset, q_offsets=q_offsets)
     return o[:, :lq]

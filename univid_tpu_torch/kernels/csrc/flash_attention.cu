@@ -12,12 +12,28 @@
 //     log-sum-exp, C + log2 l under the bound, m + log2 l with the running
 //     max, +1e30 for rows with l == 0, as fp32 [B, N, Lq] (the TPU's
 //     128-lane broadcast of it is a layout device and is not copied). The
-//     backward kernels (flash_attention_bwd.cu) rebuild p from it.
+//     backward kernels (flash_attention_bwd.cu) rebuild p from it;
+//   * _flash_kernel's causal mode with a static q_offset and the dynamic
+//     per-batch q_offsets (:161-188, :314-336), BAGEL's KV-cache prefill:
+//     query i of batch b sits at row r = i + q_offset + q_offsets[b] and
+//     sees key c iff c <= r and c < kv_len[b]. kv tiles that start past the
+//     q tile's last row, or at or past kv_len, are never loaded (the TPU's
+//     runtime skip); tiles wholly below the diagonal and kv_len run without
+//     mask ops; only diagonal and kv_len-tail tiles compare and select.
+//     q_offsets is read on the device (never copied to the host).
+//
+// Grouped-query attention: k and v may have N / group heads; query head h
+// reads kv head h / group (BAGEL's 28 query heads over 4 kv heads read the
+// un-repeated cache, where the JAX package repeats it 7x before its kernel).
 //
 // What bounds it: at the main-path shape (q, k, v [2, 32768, 12, 128])
 // the work is 4*L*L*d flops per head against 4*L*d bytes, ~16k flops per
 // byte: the tensor cores bound it. The cross shape (32768 q x 512 kv) is
-// also flop-bound, but only by ~2x, so its q/out traffic matters.
+// also flop-bound, but only by ~2x, so its q/out traffic matters. The
+// causal prefill of a short prompt over a long cache (64 q rows over
+// ~19k cached rows) reads the cache once per query head: the bytes bound
+// it, and one block per (head, 64 rows) leaves most SMs idle (a split-kv
+// pass is later work).
 //
 // Design (FA2-style, simple first): one block of 4 warps per (b*h, 64-row
 // q tile); each warp owns 16 q rows. The q tile is loaded once and kept as
@@ -108,7 +124,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-template <int D, int MODE>
+template <int D, int MODE, bool CAUSAL>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
@@ -116,7 +132,9 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       __nv_bfloat16* __restrict__ o,
                       const int* __restrict__ kv_len,
                       const float* __restrict__ bound,
-                      float* __restrict__ lse, int n_heads, int lq,
+                      float* __restrict__ lse,
+                      const int* __restrict__ q_offsets, int q_offset,
+                      int group, int n_heads, int lq,
                       int lk, long long q_sb, long long q_sl, long long q_sh,
                       long long k_sb, long long k_sl, long long k_sh,
                       long long v_sb, long long v_sl, long long v_sh,
@@ -135,13 +153,22 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int bh = blockIdx.y, b = bh / n_heads, h = bh % n_heads;
   const int q0 = blockIdx.x * BR;
 
+  const int hk = h / group;   // the kv head this query head reads
   const __nv_bfloat16* qp = q + b * q_sb + h * q_sh + (long long)q0 * q_sl;
-  const __nv_bfloat16* kp = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vp = v + b * v_sb + h * v_sh;
+  const __nv_bfloat16* kp = k + b * k_sb + hk * k_sh;
+  const __nv_bfloat16* vp = v + b * v_sb + hk * v_sh;
 
   int kv_end = lk;
   if (kv_len != nullptr) kv_end = min(max(kv_len[b], 0), lk);
-  const int n_tiles = (kv_end + BC - 1) / BC;
+  int n_tiles = (kv_end + BC - 1) / BC;
+  // causal: absolute row of the tile's first query; kv tiles that start past
+  // its last row (row0 + BR - 1) are dead for every row of the tile
+  int row0 = 0;
+  if (CAUSAL) {
+    row0 = q0 + q_offset + (q_offsets != nullptr ? q_offsets[b] : 0);
+    const int live_cols = max(row0 + BR, 0);
+    n_tiles = min(n_tiles, (live_cols + BC - 1) / BC);
+  }
   const float c_bound = (MODE == BOUNDED) ? *bound : 0.f;  // folded score bound
 
   float acc[OT][4];
@@ -169,7 +196,9 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  // s = q k^T for the k tile in smem -> fragments s[NT][4], masked beyond kv_end
+  // s = q k^T for the k tile in smem -> fragments s[NT][4]; only kv_len-tail
+  // and (causal) diagonal tiles pay the compare + select: a key is dead past
+  // kv_end or past its query's row
   auto qk = [&](float (*s)[4], int kv0) {
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -188,13 +217,17 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         mma_bf16(s[2 * np + 1], qa[kk], bfr[2], bfr[3]);
       }
     }
-    if (kv0 + BC > kv_end) {
+    const bool tail = kv0 + BC > kv_end;
+    const bool diag = CAUSAL && kv0 + BC - 1 > row0;
+    if (tail || diag) {
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           int col = kv0 + n * 8 + 2 * t + (j & 1);
-          if (col >= kv_end) s[n][j] = NEG_INF;
+          bool dead = col >= kv_end;
+          if (CAUSAL) dead = dead || col > row0 + warp * 16 + g + 8 * (j >> 1);
+          if (dead) s[n][j] = NEG_INF;
         }
     }
   };
@@ -258,8 +291,14 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
     }
-    const float ref0 = (MODE == BOUNDED) ? c_bound : m_r[0];
-    const float ref1 = (MODE == BOUNDED) ? c_bound : m_r[1];
+    float ref0 = (MODE == BOUNDED) ? c_bound : m_r[0];
+    float ref1 = (MODE == BOUNDED) ? c_bound : m_r[1];
+    if (CAUSAL) {
+      // a row with no live key yet (possible only with a negative offset):
+      // reference 0 makes every p = exp2(-1e30) = 0, so l stays 0
+      ref0 = ref0 == NEG_INF ? 0.f : ref0;
+      ref1 = ref1 == NEG_INF ? 0.f : ref1;
+    }
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       s[n][0] = fast_exp2(s[n][0] - ref0);
@@ -352,11 +391,12 @@ __global__ void rope_rotate_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   *reinterpret_cast<__nv_bfloat162*>(y + 2 * i) = __floats2bfloat162_rn(y0, y1);
 }
 
-template <int D, int MODE>
+template <int D, int MODE, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* kv_len,
-                   const void* bound, void* lse, int B, int N, int lq, int lk,
-                   const long long* st, cudaStream_t stream) {
-  auto kern = flash_fwd_bf16_kernel<D, MODE>;
+                   const void* bound, void* lse, const void* q_offsets, int q_offset,
+                   int group, int B, int N, int lq, int lk, const long long* st,
+                   cudaStream_t stream) {
+  auto kern = flash_fwd_bf16_kernel<D, MODE, CAUSAL>;
   const int smem = (BR + 2 * BC) * D * (int)sizeof(__nv_bfloat16);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -366,7 +406,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<const int*>(kv_len), static_cast<const float*>(bound),
-      static_cast<float*>(lse), N, lq, lk, st[0], st[1], st[2], st[3], st[4],
+      static_cast<float*>(lse), static_cast<const int*>(q_offsets), q_offset, group, N,
+      lq, lk, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return cudaGetLastError();
 }
@@ -375,23 +416,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
 
 extern "C" {
 
-// q, k, v, o: bf16 [B, L, N, D] with element strides st = (q_b, q_l, q_h,
-// k_b, k_l, k_h, v_b, v_l, v_h, o_b, o_l, o_h) and unit stride along D.
-// lq and lk are multiples of 64. kv_len: int32 [B] on the device, or null.
-// mode: 0 bounded (reference point *bound, an fp32 scalar on the device, the
-// folded score bound), 1 running max, 2 one-shot max (bound may be null).
-// lse: null, or fp32 [B, N, lq] contiguous that receives the exp2-domain
-// log-sum-exp of every row (the training forward).
+// q, o: bf16 [B, L, N, D]; k, v: bf16 [B, L, N / group, D]; element strides
+// st = (q_b, q_l, q_h, k_b, k_l, k_h, v_b, v_l, v_h, o_b, o_l, o_h) and unit
+// stride along D. lq and lk are multiples of 64. kv_len: int32 [B] on the
+// device, or null. mode: 0 bounded (reference point *bound, an fp32 scalar
+// on the device, the folded score bound), 1 running max, 2 one-shot max
+// (bound may be null). lse: null, or fp32 [B, N, lq] contiguous that
+// receives the exp2-domain log-sum-exp of every row (the training forward).
+// causal (running max only): query i of batch b is row i + q_offset +
+// q_offsets[b] (q_offsets: int32 [B] on the device, or null) and sees keys
+// at or before it.
 int univid_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                          const void* kv_len, const void* bound, void* lse, int mode, int B,
-                          int N, int lq, int lk, int D, const long long* strides,
-                          void* stream) {
+                          const void* kv_len, const void* bound, void* lse,
+                          const void* q_offsets, int mode, int causal, int q_offset,
+                          int group, int B, int N, int lq, int lk, int D,
+                          const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != 128 || lq % BR != 0 || lk % BC != 0) return (int)cudaErrorInvalidValue;
+  if (D != 128 || lq % BR != 0 || lk % BC != 0 || group < 1 || N % group != 0)
+    return (int)cudaErrorInvalidValue;
+  if (causal) {
+    if (mode != RUNNING) return (int)cudaErrorInvalidValue;
+    return (int)launch<128, RUNNING, true>(q, k, v, o, kv_len, bound, lse, q_offsets, q_offset,
+                                           group, B, N, lq, lk, strides, s);
+  }
   switch (mode) {
-    case BOUNDED: return (int)launch<128, BOUNDED>(q, k, v, o, kv_len, bound, lse, B, N, lq, lk, strides, s);
-    case RUNNING: return (int)launch<128, RUNNING>(q, k, v, o, kv_len, bound, lse, B, N, lq, lk, strides, s);
-    case ONESHOT: return (int)launch<128, ONESHOT>(q, k, v, o, kv_len, bound, lse, B, N, lq, lk, strides, s);
+    case BOUNDED: return (int)launch<128, BOUNDED, false>(q, k, v, o, kv_len, bound, lse, nullptr, 0, group, B, N, lq, lk, strides, s);
+    case RUNNING: return (int)launch<128, RUNNING, false>(q, k, v, o, kv_len, bound, lse, nullptr, 0, group, B, N, lq, lk, strides, s);
+    case ONESHOT: return (int)launch<128, ONESHOT, false>(q, k, v, o, kv_len, bound, lse, nullptr, 0, group, B, N, lq, lk, strides, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -10,7 +10,10 @@ and training paths reach:
     1024 run csrc/flash_attention_f32.cu (VAE mid-block attention of the
     t2v-1.3B and the ti2v-5B VAEs). With
     `save_residuals=True` (the training forward) it also returns the
-    per-row exp2-domain lse, fp32 [B, N, Lq].
+    per-row exp2-domain lse, fp32 [B, N, Lq]. `causal` with a static
+    `q_offset` and a device `q_offsets` int32 [B] is `_flash_kernel`'s
+    causal mode (BAGEL's KV-cache prefill), bf16 d=128 on the same CUDA
+    kernel, counted apart as `flash_attention_bf16_causal`.
   * `cross_attention_padded` — `_cross_kernel`: single-kv-block attention
     (Lk <= 512) with a one-shot softmax by the row max or by the bound.
   * `flash_attention_bwd_padded` — `_flash_bwd_fused_kernel` and the
@@ -18,7 +21,10 @@ and training paths reach:
     rebuilt from the lse, bf16 d=128 on csrc/flash_attention_bwd.cu (a dq
     kernel and a dk/dv kernel).
 
-Inputs are [B, L, N, D] and already padded (Lq, Lk multiples of TILE);
+Inputs are [B, L, N, D] and already padded (Lq, Lk multiples of TILE); k
+and v may have N / group heads (grouped-query attention: query head h reads
+kv head h // group; the plain version repeats them, as the JAX prefill
+does);
 `kernels/attention.py` pads and wraps the training pair in an autograd
 Function. Each wrapper takes its plain PyTorch version only for tensors on
 the CPU; on CUDA tensors it launches its kernel or raises. `LAUNCHES`
@@ -43,7 +49,8 @@ CROSS_MAX_LK = 512  # single-kv-block route (the TPU's one kv block)
 F32_DIMS = (384, 640, 1024)  # fp32 head dims of flash_attention_f32.cu
 
 # kernel launches per wrapper (reset by callers that count a run)
-LAUNCHES = {"flash_attention_bf16": 0, "cross_attention_bf16": 0,
+LAUNCHES = {"flash_attention_bf16": 0, "flash_attention_bf16_causal": 0,
+            "cross_attention_bf16": 0,
             "flash_attention_f32": 0, "rope_rotate_bf16": 0,
             "flash_attention_bf16_lse": 0, "flash_attention_bwd_dq_bf16": 0,
             "flash_attention_bwd_dkv_bf16": 0}
@@ -110,41 +117,69 @@ def rotate(x: torch.Tensor, cf: torch.Tensor, sf: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def repeat_kv(x: torch.Tensor, n: int) -> torch.Tensor:
+    """[B, L, N / group, D] -> [B, L, N, D], kv head j serving query heads
+    j * group .. (j + 1) * group - 1 (jnp.repeat along the head axis)."""
+    if x.shape[2] == n:
+        return x
+    if n % x.shape[2]:
+        raise ValueError(f"{n} query heads over {x.shape[2]} kv heads")
+    return torch.repeat_interleave(x, n // x.shape[2], dim=2)
+
+
+def causal_rows(lq, q_offset, q_offsets, device):
+    """Absolute row of each query: arange(lq) + q_offset (+ q_offsets[b]),
+    [1 or B, lq] int64."""
+    row = torch.arange(lq, device=device)[None, :] + q_offset
+    if q_offsets is not None:
+        row = row + q_offsets.to(device).long()[:, None]
+    return row
+
+
 def attention_plain(q, k, v, *, kv_len=None, bound=None, rope_tables=None,
-                    save_residuals: bool = False, q_chunk: int = 1024):
+                    save_residuals: bool = False, causal: bool = False,
+                    q_offset: int = 0, q_offsets=None, q_chunk: int = 1024):
     """The kernels' function in plain PyTorch, over padded [B, L, N, D].
 
     Scores are in the folded (scale * log2 e) domain: q carries the fold,
     or the q rope tables do. bound: folded score bound (fp32 scalar
     tensor) -> p = exp2(s - bound); None -> p = exp2(s - rowmax(s)), the
     one-shot form, equal in exact arithmetic to the running max. Keys at or
-    past kv_len[b] get s = -1e30 and p = 0; rows with l == 0 are zero. p is
-    rounded to v's dtype before p @ v; l and the accumulator stay fp32.
-    save_residuals -> (out, lse): lse fp32 [B, N, Lq] = ref + log2 l, ref
-    the bound or the row max, +1e30 where l == 0."""
+    past kv_len[b] get s = -1e30 and p = 0; so do keys past the query's row
+    when causal (`causal_rows`); rows with l == 0 are zero. k and v with
+    fewer heads than q are repeated (`repeat_kv`). p is rounded to v's
+    dtype before p @ v; l and the accumulator stay fp32. save_residuals ->
+    (out, lse): lse fp32 [B, N, Lq] = ref + log2 l, ref the bound or the
+    row max, +1e30 where l == 0."""
     if rope_tables is not None:
         cq, sq, ck, sk = rope_tables
         q = rotate(q, cq, sq, q.dtype)
         k = rotate(k, ck, sk, v.dtype)
     b, lq, n, _ = q.shape
     lk = k.shape[1]
-    kf = k.float()
-    vf = v.float()
+    kf = repeat_kv(k, n).float()
+    vf = repeat_kv(v, n).float()
+    cols = torch.arange(lk, device=q.device)
     dead = None
     if kv_len is not None:
-        cols = torch.arange(lk, device=q.device)
         dead = (cols[None, :] >= kv_len.to(q.device)[:, None])[:, None, None, :]
+    rows = causal_rows(lq, q_offset, q_offsets, q.device) if causal else None
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, n, lq), dtype=torch.float32, device=q.device)
            if save_residuals else None)
     for i0 in range(0, lq, q_chunk):
         s = torch.einsum("bqnd,bknd->bnqk", q[:, i0:i0 + q_chunk].float(), kf)
-        if dead is not None:
-            s = s.masked_fill(dead, NEG_INF)
+        mask = dead
+        if rows is not None:
+            late = (cols[None, None, :]
+                    > rows[:, i0:i0 + q_chunk, None])[:, None]
+            mask = late if mask is None else (mask | late)
+        if mask is not None:
+            s = s.masked_fill(mask, NEG_INF)
         ref = bound if bound is not None else s.amax(dim=-1, keepdim=True)
         p = torch.exp2(s - ref)
-        if dead is not None:
-            p = p.masked_fill(dead, 0.0)
+        if mask is not None:
+            p = p.masked_fill(mask, 0.0)
         l = p.sum(dim=-1, keepdim=True)
         inv = torch.where(l > 0, 1.0 / torch.where(l > 0, l, 1.0), 0.0)
         acc = torch.einsum("bnqk,bknd->bqnd", p.to(v.dtype).float(), vf)
@@ -244,7 +279,8 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_cuda_inputs(q, k, v, kv_len, dtype, d_ok, *more):
+def _check_cuda_inputs(q, k, v, kv_len, dtype, d_ok, *more,
+                       group_ok=False):
     for t in (q, k, v, *more):
         if not t.is_cuda or t.dtype != dtype:
             raise TypeError(f"kernel takes {dtype} CUDA tensors, got "
@@ -252,6 +288,11 @@ def _check_cuda_inputs(q, k, v, kv_len, dtype, d_ok, *more):
     if q.shape[-1] not in d_ok:
         raise ValueError(f"no {dtype} kernel for head dim {q.shape[-1]} "
                          f"(built: {d_ok})")
+    if k.shape[2] != q.shape[2] and not (
+            group_ok and k.shape[2] == v.shape[2]
+            and q.shape[2] % k.shape[2] == 0):
+        raise ValueError(f"{q.shape[2]} query heads over {k.shape[2]} kv "
+                         "heads: only the bf16 forward kernel groups them")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("the kernel wrappers are not differentiable: "
                            "kernels.attention.attention routes a call that "
@@ -264,17 +305,24 @@ def _check_cuda_inputs(q, k, v, kv_len, dtype, d_ok, *more):
         raise TypeError("kv_len must be int32 on the kernel's device")
 
 
-def _launch_bf16(q, k, v, kv_len, bound, mode, lse=None):
+def _launch_bf16(q, k, v, kv_len, bound, mode, lse=None, causal=False,
+                 q_offset=0, q_offsets=None):
     b, lq, n, d = q.shape
+    if q_offsets is not None and (q_offsets.dtype != torch.int32
+                                  or q_offsets.device != q.device
+                                  or tuple(q_offsets.shape) != (b,)):
+        raise TypeError("q_offsets must be int32 [B] on the kernel's device")
     o = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
     fn = _fn("flash_attention", "univid_flash_fwd_bf16",
-             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P])
+             [_P] * 8 + [_I] * 9 + [_P, _P])
     strides = _strides(q, k, v, o)  # host array, read during the launch
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              kv_len.data_ptr() if kv_len is not None else None,
              bound.data_ptr() if bound is not None else None,
-             lse.data_ptr() if lse is not None else None, mode, b, n,
-             lq, k.shape[1], d, ctypes.addressof(strides), _stream(q))
+             lse.data_ptr() if lse is not None else None,
+             q_offsets.data_ptr() if q_offsets is not None else None, mode,
+             int(causal), int(q_offset), n // k.shape[2], b, n, lq,
+             k.shape[1], d, ctypes.addressof(strides), _stream(q))
     build.check(err, "univid_flash_fwd_bf16")
     return o
 
@@ -300,13 +348,25 @@ def _bound_tensor(bound, device):
     return torch.as_tensor(bound, dtype=torch.float32).to(device).reshape(1)
 
 
-def _flash_cuda(q, k, v, kv_len, bound, rope_tables):
+def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
+                q_offset=0, q_offsets=None):
     if q.dtype == torch.bfloat16:
-        _check_cuda_inputs(q, k, v, kv_len, torch.bfloat16, (128,))
+        _check_cuda_inputs(q, k, v, kv_len, torch.bfloat16, (128,),
+                           group_ok=True)
         if rope_tables is not None:
             cq, sq, ck, sk = (t.float().contiguous() for t in rope_tables)
             q = _rope_bf16(q, cq, sq)
             k = _rope_bf16(k, ck, sk)
+        if causal:
+            if bound is not None:
+                raise NotImplementedError(
+                    "the causal kernel mode has the running max only (no "
+                    "caller bounds a causal softmax)")
+            o = _launch_bf16(q, k, v, kv_len, None, _MODE_RUNNING,
+                             causal=True, q_offset=q_offset,
+                             q_offsets=q_offsets)
+            LAUNCHES["flash_attention_bf16_causal"] += 1
+            return o
         mode = _MODE_BOUNDED if bound is not None else _MODE_RUNNING
         o = _launch_bf16(q, k, v, kv_len, _bound_tensor(bound, q.device),
                          mode)
@@ -314,10 +374,10 @@ def _flash_cuda(q, k, v, kv_len, bound, rope_tables):
         return o
     if q.dtype == torch.float32:
         _check_cuda_inputs(q, k, v, kv_len, torch.float32, F32_DIMS)
-        if rope_tables is not None or bound is not None:
+        if rope_tables is not None or bound is not None or causal:
             raise NotImplementedError(
                 "the fp32 kernel has the VAE's plain mode only (no fused "
-                "rope, no bound)")
+                "rope, no bound, not causal)")
         b, lq, n, d = q.shape
         o = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
         fn = _fn("flash_attention_f32", "univid_flash_fwd_f32",
@@ -343,7 +403,8 @@ def cross_attention_padded(q, k, v, *, kv_len=None, score_bound=None):
     folded; score_bound is in the folded domain."""
     if not q.is_cuda:
         return attention_plain(q, k, v, kv_len=kv_len, bound=score_bound)
-    _check_cuda_inputs(q, k, v, kv_len, torch.bfloat16, (128,))
+    _check_cuda_inputs(q, k, v, kv_len, torch.bfloat16, (128,),
+                       group_ok=True)
     if k.shape[1] > CROSS_MAX_LK:
         raise ValueError(f"cross kernel takes Lk <= {CROSS_MAX_LK}")
     mode = _MODE_BOUNDED if score_bound is not None else _MODE_ONESHOT
@@ -355,27 +416,35 @@ def cross_attention_padded(q, k, v, *, kv_len=None, score_bound=None):
 
 def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
                            rope_tables=None, score_bound=None,
-                           save_residuals: bool = False):
-    """Non-causal attention over padded [B, L, N, D].
+                           save_residuals: bool = False, causal: bool = False,
+                           q_offset: int = 0, q_offsets=None):
+    """Attention over padded [B, L, N, D] (k, v may have N / group heads).
 
     rope_tables: build_fused_rope_tables output -> q and k rotated first
     (rotated q kept in q's dtype, rotated k in v's dtype). Without them q is
     folded by softmax_scale * log2(e) in q's dtype. score_bound: proven
-    upper bound on the FOLDED scores -> bounded softmax. bf16 with Lk <= 512
-    and no rope takes the single-kv-block cross route, except with
-    save_residuals, which returns (o, lse) from the generic kernel (the
-    training forward; lse as in `attention_plain`)."""
+    upper bound on the FOLDED scores -> bounded softmax. causal: query i of
+    batch b is row i + q_offset + q_offsets[b] (q_offsets int32 [B] on q's
+    device, never read on the host) and sees keys at or before its row.
+    bf16 with Lk <= 512, no rope and not causal takes the single-kv-block
+    cross route, except with save_residuals, which returns (o, lse) from
+    the generic kernel (the training forward; lse as in
+    `attention_plain`)."""
     b, lq, n, d = q.shape
     lk = k.shape[1]
     if lq % TILE or lk % TILE:
         raise ValueError(f"pad Lq, Lk ({lq}, {lk}) to multiples of {TILE}")
+    if causal and q_offset < 0:
+        raise ValueError("a causal q_offset is a row index (>= 0)")
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(d)
     if save_residuals:
-        if rope_tables is not None:
+        if rope_tables is not None or causal:
             raise NotImplementedError(
                 "the training forward takes rotated q and k (the JAX "
-                "package's training path applies rope outside the kernel)")
+                "package's training path applies rope outside the kernel) "
+                "and is not causal (the causal backward is a later slice, "
+                "ROADMAP.md queue 2)")
         return flash_attention_fwd_folded(_fold(q, softmax_scale), k, v,
                                           kv_len=kv_len,
                                           score_bound=score_bound)
@@ -386,13 +455,16 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
         q = _fold(q, softmax_scale)
         # the cross kernel is bf16; short fp32 sequences (the VAE on small
         # frames) stay on the flash route, the same function
-        if lk <= CROSS_MAX_LK and q.dtype == torch.bfloat16:
+        if lk <= CROSS_MAX_LK and q.dtype == torch.bfloat16 and not causal:
             return cross_attention_padded(q, k, v, kv_len=kv_len,
                                           score_bound=score_bound)
     if q.is_cuda:
-        return _flash_cuda(q, k, v, kv_len, score_bound, rope_tables)
+        return _flash_cuda(q, k, v, kv_len, score_bound, rope_tables,
+                           causal=causal, q_offset=q_offset,
+                           q_offsets=q_offsets)
     return attention_plain(q, k, v, kv_len=kv_len, bound=score_bound,
-                           rope_tables=rope_tables)
+                           rope_tables=rope_tables, causal=causal,
+                           q_offset=q_offset, q_offsets=q_offsets)
 
 
 def flash_attention_fwd_folded(qs, k, v, *, kv_len=None, score_bound=None):
