@@ -9,23 +9,29 @@ Phases:
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels (one nvcc per source, in parallel);
   3. hold each kernel against its plain PyTorch version at its path's
-     shapes (serving: self- and cross-attention, rope, VAE; training: the
-     forward with lse and the dq and dk/dv backward kernels at the self and
-     cross shapes), time both with CUDA events, and time one PyTorch
-     library call (scaled_dot_product_attention, its backward for the
-     backward kernels) on the same inputs as a yardstick; hold
+     shapes, time both with CUDA events, and time one PyTorch library call
+     (scaled_dot_product_attention, with the boolean mask for masked
+     modes; its backward for the backward kernels) on the same inputs as a
+     yardstick: serving self- and cross-attention, rope and the fp32 VAE
+     kernel (d=1024, 640 at ti2v-5B's 3,520 tokens, d=384), the serving
+     kernels again at the ti2v-5B shapes; the training forward with lse
+     and the dq and dk/dv kernels at the self and cross shapes, and
      attention() under grad against autograd through an fp32 reference;
-     the fp32 VAE kernel at d=1024 and d=640 (ti2v-5B, 3,520 tokens) and
-     d=384 (t2v-1.3B), and the serving kernels again at the ti2v-5B
-     shapes;
+     the causal mode at the BAGEL QA shapes (question prefill over the
+     20,480-row cache, a 16-row batch, a square 2,048 prefill) and the
+     grouped ViT append; the packed mode (forward with and without lse,
+     dq, dk/dv) on the BAGEL training pack's own codes, [1, 4096, 28, 128],
+     and padded 4,000 -> 4,032 (pad rows exactly 0, lse +1e30); the
+     segment mode at [2, 2048, 12, 128]; the causal backward at the
+     square prefill's shape, offset 0 and q_offsets [0, 37];
   4. hold the port on the card (kernels) against the port on the CPU
-     (plain versions) on a small d=128 model: the t2v pipeline, the
-     FusionPipeline in t2v and i2v (with the ti2v-5B VAE), then three
-     LoRA + projector diffusion train steps; run the training loop
-     (train_cross_attention_fusion) on the card and check its files; run
-     the full-width BAGEL extractor and projector once (bf16, 1280x704
-     image) and hold them against the CPU at a 224x224 and a 300x500
-     crop;
+     (plain versions) on small d=128 models: the t2v pipeline, the
+     FusionPipeline in t2v and i2v (with the ti2v-5B VAE), three LoRA +
+     projector diffusion train steps and the training loop; the
+     full-width BAGEL extractor and projector (bf16, 1280x704 image)
+     against the CPU at a 224x224 and a 300x500 crop; a small BAGEL's
+     video-QA context and teacher-forced logits; a small BAGEL's packed
+     training loss and every gradient leaf, freeze_und off and on;
   5. drive the serving path through the port's CLI: t2v-1.3B at
      832x480x81, full depth and width, random weights from a seed, a few
      steps; check the kernels' launch counts and the mp4;
@@ -38,9 +44,19 @@ Phases:
      at 1280x704x121 (a seeded first-frame png), full depth and width, 2
      steps; check both mp4s, the fusion context, the peak memory and each
      mode's launches (the fp32 VAE kernel once per decoded chunk at
-     d=1024, once more at d=640 for the i2v encode, never at d=384).
+     d=1024, once more at d=640 for the i2v encode, never at d=384);
+  8. drive the video-QA path: one full-width BAGEL-7B-MoT reflexion
+     request (16 seed captions, K = 4, 8, 16, 512-token greedy decodes)
+     with the launches of each phase checked; profile 16 decode steps;
+  9. drive the BAGEL packed-training path: BAGEL-7B-MoT at full width on
+     one 4,096-token pack of the four sample kinds, freeze_und; an
+     evaluation forward (28 packed forwards) and a training pass (28
+     packed forwards with lse, 28 dq, 28 dk/dv); finite loss, gradients
+     in every trainable leaf, seconds, peak memory; profile one more pass;
+ 10. run the port's QA CLI with --mock_weights.
 Each path starts with every launch count at 0; the `kernels` line gives
-each kernel the launches of its own path. The last line is
+each kernel the launches of its own path (the segment modes and the causal
+backward serve no path of the JAX package at d=128: 0). The last line is
 {"ok": true, "device": {...}}; any failure exits non-zero.
 """
 
@@ -1042,7 +1058,7 @@ def train_main_path(n_steps):
                         for p in state["trainable"]["lora"].values())
             if not b_max > 0:
                 fail("LoRA b is still zero after the first step")
-    launches = dict(fa.LAUNCHES)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     state, profiled = profile_step(step, state, batch)
     base_same = all(torch.equal(v, snapshot[k])
@@ -1131,7 +1147,7 @@ def main_path(steps, output_dir):
         "t2v-1.3B", "--video_size", "832x480", "--video_length", "81",
         "--steps", str(steps), "--seed", "0", "--output_dir", output_dir])[0]
     wall = time.perf_counter() - t0
-    launches = dict(fa.LAUNCHES)
+    launches = launch_counts()
     expected = {"flash_attention_bf16": 30 * steps,
                 "flash_attention_bf16_causal": 0,
                 "cross_attention_bf16": 30 * steps,
@@ -1140,6 +1156,7 @@ def main_path(steps, output_dir):
                 "flash_attention_bf16_lse": 0,    # serving differentiates
                 "flash_attention_bwd_dq_bf16": 0,  # nothing
                 "flash_attention_bwd_dkv_bf16": 0}
+    expected = dict(dict.fromkeys(launches, 0), **expected)   # no mask mode
     f32_by_d = dict(fa.F32_LAUNCHES_BY_D)
     f32_expected = {384: 21, 640: 0, 1024: 0}   # the 1.3B VAE's d=384
     frames = read_video_frames(meta["video_path"])
@@ -1213,7 +1230,7 @@ def ti2v_main_path(output_dir):
     finally:
         video_io.save_video = save_video
     wall = time.perf_counter() - t0
-    launches = dict(fa.LAUNCHES)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     n_dec = (frames - 1) // 4 + 1   # 1 + 30 chunks of one latent frame
     per_video = {"flash_attention_bf16": 30 * steps,
@@ -1628,7 +1645,7 @@ def bagel_main_path(output_dir):
                                          scorer, rcfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(fa.LAUNCHES)
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
 
     # group the timed calls: the captioning call (its inner ViT appends
@@ -1768,6 +1785,684 @@ def qa_cli_on_card(output_dir):
         fail("the eval_understanding CLI on the card")
 
 
+# ---------------------------------------------------------------------------
+# BAGEL packed training (the fifth slice)
+# ---------------------------------------------------------------------------
+
+PACK_TOKENS = 4096   # the full-width pack; the reference packs 36,864
+# sample sizes of the pack's four kinds (VLM, T2I, edit, text-only): ViT
+# image sides, text lengths, VAE latent sides (tokens per side)
+TRAIN_SIZES = dict(vit_a=448, question_a=40, answer_a=160, prompt_b=64,
+                   latent_b=32, instruction_c=48, vit_c=224, latent_c=16,
+                   text_d=900)
+SMALL_TRAIN_SIZES = dict(vit_a=56, question_a=8, answer_a=16, prompt_b=8,
+                         latent_b=8, instruction_c=6, vit_c=28, latent_c=4,
+                         text_d=64)
+
+
+def bagel_train_batch(cfg, sizes, seed, max_tokens):
+    """One pack of the four sample kinds of BAGEL's training data, built by
+    the port's PackedDataset.pack_sequence / to_batch from seeded arrays:
+    A, VLM: a ViT image (full), a question and a CE-loss answer; B, T2I: a
+    prompt and a noised VAE latent (noise, MSE); C, edit: an instruction, a
+    ViT image, a clean VAE condition (timestep -inf, full) and a noised VAE
+    target; D, text-only: a causal text with CE loss. Images in [-1, 1],
+    latents [side, side, patch_latent_dim] normal, token ids uniform below
+    the special ids; the flow timesteps from np.random.seed(seed), as the
+    packer draws them. Returns (batch, kinds' token counts)."""
+    import numpy as np
+
+    from univid_tpu_torch.data.packed_dataset import (PackedDataConfig,
+                                                      PackedDataset)
+
+    rng = np.random.default_rng(seed)
+    np.random.seed(seed)
+
+    def ids(n):
+        return rng.integers(0, cfg.start_of_image - 4, n).tolist()
+
+    def image(side):
+        return rng.uniform(-1, 1, (side, side, 3)).astype(np.float32)
+
+    def latent(side):
+        return rng.standard_normal(
+            (side, side, cfg.patch_latent_dim)).astype(np.float32)
+
+    def item(kind, loss):
+        return {"type": kind, "enable_cfg": 0, "loss": loss,
+                "special_token_loss": 0}
+
+    z = sizes
+    samples = [
+        {"sequence_plan": [item("vit_image", 0), item("text", 0),
+                           item("text", 1)],
+         "text_ids_list": [ids(z["question_a"]), ids(z["answer_a"])],
+         "image_list": [image(z["vit_a"])]},
+        {"sequence_plan": [item("text", 0), item("vae_image", 1)],
+         "text_ids_list": [ids(z["prompt_b"])],
+         "image_list": [latent(z["latent_b"])]},
+        {"sequence_plan": [item("text", 0), item("vit_image", 0),
+                           item("vae_image", 0), item("vae_image", 1)],
+         "text_ids_list": [ids(z["instruction_c"])],
+         "image_list": [image(z["vit_c"]), latent(z["latent_c"]),
+                        latent(z["latent_c"])]},
+        {"sequence_plan": [item("text", 1)],
+         "text_ids_list": [ids(z["text_d"])], "image_list": []},
+    ]
+    ds = PackedDataset([(lambda: iter([]), 1.0)], data_config=PackedDataConfig(
+        vit_patch_size=cfg.vit_patch_size,
+        max_num_patch_per_side=cfg.vit_max_num_patch_per_side,
+        max_latent_size=cfg.max_latent_size,
+        latent_channel=cfg.latent_channel, bos_token_id=cfg.bos_token_id,
+        eos_token_id=cfg.eos_token_id, start_of_image=cfg.start_of_image,
+        end_of_image=cfg.end_of_image), max_num_tokens=max_tokens)
+    st = ds._fresh_status()
+    kinds = []
+    for sample in samples:
+        before = st["curr"]
+        st = ds.pack_sequence(sample, st)
+        kinds.append(st["curr"] - before)
+    if st["curr"] > max_tokens:
+        fail(f"the pack holds {st['curr']} tokens > {max_tokens}")
+    return ds.to_batch(st, []), kinds
+
+
+def _train_loss(out):
+    """sum of the MSE terms (zero outside mse_mask) + the weighted CE."""
+    return out["mse"].sum() + (out["ce"] * out["ce_weights"]).sum()
+
+
+def _sdpa_masked_ms(qs, k, v, allowed, do=None):
+    """SDPA with the materialized boolean mask (True = attend) on the same
+    folded inputs, [B, L, N, D] -> its forward ms, or with `do` its
+    backward's (a yardstick: rows with no live key come out NaN there)."""
+    import torch
+    import torch.nn.functional as F
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (qs, k, v))
+    if do is None:
+        with torch.no_grad():
+            return cuda_time(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=allowed, scale=1.0 / fa.LOG2E), 3)
+    qg, kg, vg = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+    with torch.enable_grad():   # the callers hold no_grad
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=allowed,
+                                             scale=1.0 / fa.LOG2E)
+    dog = do.transpose(1, 2)
+    ms = cuda_time(lambda: torch.autograd.grad(out, (qg, kg, vg), dog,
+                                               retain_graph=True), 3)
+    del out, qg, kg, vg
+    return ms
+
+
+
+def _masked_forward_check(tag, got, want, v_max, allowed):
+    """The masked forward's output against its plain version: elementwise
+    |got - want| <= 1e-3 + 2^-8 max|v| + 2^-7 |want| and rel. L2 < 1e-2.
+    The kernel rounds each p to bf16 against its running max, the plain
+    version against the row's final max: the two roundings of a p differ
+    by up to 2^-8 relative, which moves the output by up to 2^-8 max|v|
+    (max over the live keys' values) and does not average out in a row
+    with few live keys. Logs how many elements the narrower bound 1e-3 +
+    2^-7 |want| would reject, and the live keys of the worst one's row."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    narrow = err > 1e-3 + 2.0 ** -7 * want.float().abs()
+    worst = torch.nonzero(err == err.max())[0].tolist()   # [b, row, head, d]
+    log(json.dumps({
+        "check": f"{tag}, rounding", "narrow_bound_violations":
+        int(narrow.sum()), "elements": err.numel(),
+        "worst_row_live_keys": int(allowed[worst[0], 0, worst[1]].sum()),
+        "max_abs_err": float(err.max())}))
+    e = compare(tag, got, want, atol=1e-3 + 2.0 ** -8 * v_max,
+                rtol=2.0 ** -7,
+                why="1e-3 for the fp32 summation order and the approximate "
+                    "exp2; 2^-8 max|v|: p rounds to bf16 against the running "
+                    "max in the kernel and against the row max in the plain "
+                    "version; one bf16 ulp of the output")
+    check_grad(f"{tag} rel_l2", got, want, 1e-2,
+               "bf16 roundings of p and of the output")
+    return e
+
+
+def _mask_case(tag, q, k, v, do, kv_len, masks, live_pairs, allowed,
+               no_lse=True, pad_rows=None, live_keys=None):
+    """Hold the masked kernels against their plain versions on one case:
+    the forward without lse (segments / packed), with lse, the dq and the
+    dk/dv kernel (from the plain residuals); time each with CUDA events
+    beside its plain version, SDPA with the materialized mask and the
+    bound of the case's live (row, key) pairs. pad_rows: rows with no live
+    key (bool [B, Lq]), which must come out exactly 0 with lse +1e30;
+    live_keys: the keys that some real row sees (bool [B, Lk]; default
+    all), whose values bound the forward's rounding difference.
+    Returns {kind: record fields}."""
+    import torch
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    d = q.shape[-1]
+    sc = d ** -0.5
+    qs = fa._fold(q, sc)
+    v_live = v if live_keys is None else v[live_keys]
+    v_max = float(v_live.float().abs().max())
+    bwd_why = ("p and dS round to bf16 at the same points on both sides; an "
+               "fp32 difference of ~1e-6 flips some roundings by one bf16 "
+               "step (2^-8 relative); the output rounds once")
+    out = {}
+    n_rows = nbytes(qs)
+    kvb = nbytes(k, v)
+    codes_b = sum(nbytes(t) for t in (masks.get("q_segments"),
+                                      masks.get("kv_segments"))
+                  if t is not None)
+    flops = 2.0 * live_pairs * q.shape[2] * d   # one product, live pairs
+    with torch.no_grad():
+        if no_lse:
+            got = fa._flash_cuda(qs, k, v, kv_len, None, None, **masks)
+            want = fa.attention_plain(qs, k, v, kv_len=kv_len, **masks)
+            err = _masked_forward_check(f"{tag} forward", got, want, v_max,
+                                        allowed)
+            if pad_rows is not None and float(got[pad_rows].abs().max()) != 0:
+                fail(f"{tag}: pad rows of the forward are not 0")
+            out["fwd"] = dict(
+                max_abs_err=err,
+                ms=cuda_time(lambda: fa._flash_cuda(qs, k, v, kv_len, None,
+                                                    None, **masks), 10),
+                plain_ms=cuda_time(lambda: fa.attention_plain(
+                    qs, k, v, kv_len=kv_len, **masks), 1),
+                library_ms=_sdpa_masked_ms(qs, k, v, allowed),
+                bound=bound_ms(2 * flops, 2 * n_rows + kvb + codes_b,
+                               H100_BF16_FLOPS))
+            del got, want
+        o, lse = fa.flash_attention_fwd_folded(qs, k, v, kv_len=kv_len,
+                                               **masks)
+        o_p, lse_p = fa.attention_plain(qs, k, v, kv_len=kv_len,
+                                        save_residuals=True, **masks)
+        err = max(_masked_forward_check(f"{tag} forward with lse, output",
+                                        o, o_p, v_max, allowed),
+                  compare(f"{tag} forward with lse, lse", lse, lse_p,
+                          atol=1e-3, rtol=0.0,
+                          why="fp32 log2 of an fp32 row sum; summation "
+                              "order and the approximate exp2"))
+        if pad_rows is not None:
+            lse_pad = lse.transpose(1, 2)[pad_rows]
+            if (float(o[pad_rows].abs().max()) != 0.0
+                    or not bool((lse_pad == 1e30).all())):
+                fail(f"{tag}: pad rows are not 0 with lse +1e30")
+        out["lse_fwd"] = dict(
+            max_abs_err=err,
+            ms=cuda_time(lambda: fa.flash_attention_fwd_folded(
+                qs, k, v, kv_len=kv_len, **masks), 10),
+            plain_ms=cuda_time(lambda: fa.attention_plain(
+                qs, k, v, kv_len=kv_len, save_residuals=True, **masks), 1),
+            library_ms=_sdpa_masked_ms(qs, k, v, allowed),
+            bound=bound_ms(2 * flops, 2 * n_rows + kvb + nbytes(lse)
+                           + codes_b, H100_BF16_FLOPS))
+        dq, delta = fa._bwd_dq_cuda(qs, k, v, o_p, lse_p, do, kv_len, sc,
+                                    **masks)
+        dk, dv = fa._bwd_dkv_cuda(qs, k, v, do, lse_p, delta, kv_len,
+                                  **masks)
+        want = fa._bwd_plain_folded(qs, k, v, o_p, lse_p, do, kv_len, sc,
+                                    **masks)
+        errs = {}
+        for nm, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            e = compare(f"{tag} backward {nm}", got, ref,
+                        atol=2.0 ** -8 * float(ref.float().abs().max()),
+                        rtol=2.0 ** -7, why=bwd_why)
+            check_grad(f"{tag} backward {nm} rel_l2", got, ref, 1e-2,
+                       bwd_why)
+            key = "bwd_dq" if nm == "dq" else "bwd_dkv"
+            errs[key] = max(errs.get(key, 0.0), e)
+        del want
+        plain_bwd = cuda_time(lambda: fa._bwd_plain_folded(
+            qs, k, v, o_p, lse_p, do, kv_len, sc, **masks), 1, warmup=0)
+        lib_bwd = _sdpa_masked_ms(qs, k, v, allowed, do)
+        lse_b = nbytes(lse_p)
+        out["bwd_dq"] = dict(
+            max_abs_err=errs["bwd_dq"],
+            ms=cuda_time(lambda: fa._bwd_dq_cuda(
+                qs, k, v, o_p, lse_p, do, kv_len, sc, **masks), 10),
+            plain_ms=plain_bwd, library_ms=lib_bwd,
+            bound=bound_ms(3 * flops, 4 * n_rows + kvb + 2 * lse_b + codes_b,
+                           H100_BF16_FLOPS))
+        out["bwd_dkv"] = dict(
+            max_abs_err=errs["bwd_dkv"],
+            ms=cuda_time(lambda: fa._bwd_dkv_cuda(
+                qs, k, v, do, lse_p, delta, kv_len, **masks), 10),
+            plain_ms=plain_bwd, library_ms=lib_bwd,
+            bound=bound_ms(4 * flops, 2 * n_rows + 2 * kvb + 2 * lse_b
+                           + codes_b, H100_BF16_FLOPS))
+    del qs, o, lse, o_p, lse_p, dq, dk, dv, delta
+    torch.cuda.empty_cache()
+    return out
+
+
+# the kernels line's records of the masked modes: (kind, mode) -> (name,
+# TPU kernel it replaces)
+_MASK_RECORDS = {
+    "fwd": ("flash_attention_bf16_{}", {
+        "segments": "univid_tpu/kernels/flash_attention.py:191",
+        "packed": "univid_tpu/kernels/flash_attention.py:198"}),
+    "lse_fwd": ("flash_attention_bf16_lse_{}", {
+        "segments": "univid_tpu/kernels/flash_attention.py:191",
+        "packed": "univid_tpu/kernels/flash_attention.py:198",
+        "causal": "univid_tpu/kernels/flash_attention.py:165"}),
+    "bwd_dq": ("flash_attention_bwd_dq_bf16_{}", {
+        m: "univid_tpu/kernels/flash_attention.py:831"
+        for m in ("segments", "packed", "causal")}),
+    "bwd_dkv": ("flash_attention_bwd_dkv_bf16_{}", {
+        m: "univid_tpu/kernels/flash_attention.py:940"
+        for m in ("segments", "packed", "causal")}),
+}
+
+
+def _records(mode, case):
+    out = {}
+    for kind, vals in case.items():
+        name, reps = _MASK_RECORDS[kind]
+        src = ("univid_tpu_torch/kernels/csrc/flash_attention.cu"
+               if "fwd" in kind else
+               "univid_tpu_torch/kernels/csrc/flash_attention_bwd.cu")
+        out[name.format(mode)] = dict(
+            name=name.format(mode), route="cuda", source=src,
+            replaces=reps[mode], max_abs_err=vals["max_abs_err"],
+            ms=vals["ms"], plain_ms=vals["plain_ms"],
+            bound_ms=vals["bound"][0], bound_by=vals["bound"][1],
+            library_ms=vals["library_ms"])
+    return out
+
+
+def check_mask_kernels():
+    """The packed, segment and causal-backward kernel modes against their
+    plain versions on the card, with CUDA-event times, bounds over the live
+    (row, key) pairs and SDPA with the materialized mask:
+      * packed, at the BAGEL training path's shape: q, k, v [1, 4096, 28,
+        128] with the full-width pack's own codes (document-0 pad tokens'
+        keys hold 50.0); then Lq = 4,000 padded to 4,032 with the
+        dispatcher's pad ids (q -1, kv -2; those keys 50.0), whose pad rows
+        must come out exactly 0 with lse +1e30;
+      * segments: [2, 2048, 12, 128], 3 segments a row (rows meet up to 21
+        wholly masked tiles before their first live key);
+      * the causal backward (and its forward with lse) at the BAGEL square
+        prefill's shape with the kv heads repeated, [1, 2048, 28, 128],
+        offset 0, kv_len 2,000; then B = 2 at q_offsets [0, 37], kv_len
+        [2000, 2048]; keys past kv_len hold 50.0.
+    Returns the records of the kernels line (path shapes)."""
+    import torch
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.bagel.bagel import BagelConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    n, d = 28, 128
+    batch, _ = bagel_train_batch(BagelConfig(), TRAIN_SIZES, 5, PACK_TOKENS)
+    codes_np = batch["mask_codes"]
+    records = {}
+
+    def inputs(b, l, heads):
+        q = qk_normed((b, l, heads, d), gen, torch.bfloat16)
+        k = qk_normed((b, l, heads, d), gen, torch.bfloat16)
+        v = torch.randn((b, l, heads, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        do = torch.randn((b, l, heads, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        return q, k, v, do
+
+    def allowed_packed(qc, kc):
+        rows = torch.arange(qc.shape[1], device="cuda")[None, :, None]
+        cols = torch.arange(kc.shape[1], device="cuda")[None, None, :]
+        return fa.packed_mask_allowed(qc[:, :, None], kc[:, None, :], rows,
+                                      cols)[:, None]
+
+    # packed, the path's pack
+    real = int((codes_np >> 16 > 0).sum())
+    codes = torch.tensor(codes_np, dtype=torch.int32, device="cuda")[None]
+    q, k, v, do = inputs(1, PACK_TOKENS, n)
+    k[:, real:] = 50.0   # the pack's document-0 pad tokens
+    v[:, real:] = 50.0
+    allowed = allowed_packed(codes, codes)
+    live = int(allowed.sum())
+    masks = dict(q_segments=codes, kv_segments=codes, packed_mode=True)
+    real_keys = torch.zeros((1, PACK_TOKENS), dtype=torch.bool, device="cuda")
+    real_keys[:, :real] = True
+    case = _mask_case("packed [1, 4096, 28, 128]", q, k, v, do, None, masks,
+                      live, allowed, live_keys=real_keys)
+    records.update(_records("packed", case))
+    log(json.dumps({"check": "packed pack", "tokens": PACK_TOKENS,
+                    "real_tokens": real, "live_pairs": live,
+                    "live_share": live / PACK_TOKENS ** 2}))
+    # packed with the dispatcher's pad ids: Lq = Lk = 4,000 -> 4,032
+    lp, lr = 4032, 4000
+    qc = codes.clone()[:, :lp]
+    kc = qc.clone()
+    qc[:, lr:] = -1
+    kc[:, lr:] = -2
+    k[:, lr:lp] = 50.0
+    v[:, lr:lp] = 50.0
+    pad_rows = torch.zeros((1, lp), dtype=torch.bool, device="cuda")
+    pad_rows[:, lr:] = True
+    allowed = allowed_packed(qc, kc)
+    masks = dict(q_segments=qc.contiguous(), kv_segments=kc.contiguous(),
+                 packed_mode=True)
+    case = _mask_case("packed padded 4000->4032",
+                      *(x[:, :lp].contiguous() for x in (q, k, v, do)), None,
+                      masks, int(allowed.sum()), allowed, pad_rows=pad_rows,
+                      live_keys=~pad_rows)
+    for key, rec in _records("packed", case).items():
+        log(json.dumps({"kernel_at_padded_pack": rec}))
+    del q, k, v, do, allowed
+    torch.cuda.empty_cache()
+
+    # segments: 3 a row
+    b, l, ns = 2, 2048, 12
+    segs = torch.zeros((b, l), dtype=torch.int32, device="cuda")
+    for r, (c1, c2) in enumerate(((700, 1400), (300, 1650))):
+        segs[r, c1:c2] = 1
+        segs[r, c2:] = 2
+    q, k, v, do = inputs(b, l, ns)
+    allowed = (segs[:, :, None] == segs[:, None, :])[:, None]
+    masks = dict(q_segments=segs, kv_segments=segs)
+    case = _mask_case("segments [2, 2048, 12, 128]", q, k, v, do, None,
+                      masks, int(allowed.sum()), allowed)
+    records.update(_records("segments", case))
+    del q, k, v, do, allowed
+    torch.cuda.empty_cache()
+
+    # the causal backward at the square prefill's shape, heads repeated
+    for tag, b, offs, kvl in (("causal [1, 2048, 28, 128]", 1, None, [2000]),
+                              ("causal B=2 q_offsets [0, 37]", 2, [0, 37],
+                               [2000, 2048])):
+        q, k, v, do = inputs(b, 2048, n)
+        kv = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+        for r, kl in enumerate(kvl):
+            k[r, kl:] = 50.0
+            v[r, kl:] = 50.0
+        qo = (torch.tensor(offs, dtype=torch.int32, device="cuda")
+              if offs is not None else None)
+        rows = fa.causal_rows(2048, 0, qo, "cuda")
+        cols = torch.arange(2048, device="cuda")
+        allowed = ((cols[None, None, :] <= rows[:, :, None])
+                   & (cols[None, None, :] < kv[:, None, None]))[:, None]
+        masks = dict(causal=True, q_offsets=qo)
+        case = _mask_case(tag, q, k, v, do, kv, masks, int(allowed.sum()),
+                          allowed, no_lse=False,
+                          live_keys=cols[None, :] < kv[:, None])
+        recs = _records("causal", case)
+        if offs is None:
+            records.update(recs)
+        else:
+            for rec in recs.values():
+                log(json.dumps({"kernel_at_q_offsets": rec}))
+        del q, k, v, do, allowed
+        torch.cuda.empty_cache()
+    for rec in records.values():
+        log(json.dumps({"kernel": rec}))
+    return records
+
+
+def _small_train_models():
+    """A small d=128 BAGEL (hidden 512, 4 heads over 2 kv heads, 2 layers;
+    non-unit qk norms, llm2vae redrawn off its zero init) and a tiny
+    SigLIP, bf16 on the CPU, seeded."""
+    import torch
+
+    from univid_tpu_torch.models.bagel.bagel import BagelConfig, init_bagel
+    from univid_tpu_torch.models.bagel.qwen2_mot import Qwen2MoTConfig
+    from univid_tpu_torch.models.bagel.siglip import (SiglipConfig,
+                                                      init_siglip)
+
+    bf = torch.bfloat16
+    llm = Qwen2MoTConfig(vocab_size=4096, hidden_size=512,
+                         intermediate_size=1024, num_layers=2, num_heads=4,
+                         num_kv_heads=2)
+    cfg = BagelConfig(llm=llm, vit_hidden_size=64, start_of_image=4090,
+                      end_of_image=4091, bos_token_id=4092,
+                      eos_token_id=4093)
+    scfg = SiglipConfig(hidden_size=64, intermediate_size=128, num_layers=2,
+                        num_heads=2, patch_size=14, image_size=224)
+    gen = torch.Generator().manual_seed(31)
+    bagel = init_bagel(gen, cfg, dtype=bf, device="cpu")
+    sig = init_siglip(gen, scfg, dtype=bf, device="cpu")
+    with torch.no_grad():
+        for layer in bagel.llm.layers:
+            for a in (layer.attn, layer.attn_gen):
+                a.q_norm.uniform_(0.5, 1.5, generator=gen)
+                a.k_norm.uniform_(0.5, 1.5, generator=gen)
+        bagel.llm2vae.w.normal_(0.0, 0.02, generator=gen)
+    return cfg, scfg, bagel, sig
+
+
+def small_bagel_train_parity():
+    """The packed training forward + backward of a small d=128 BAGEL on the
+    card (kernels) and on the CPU (plain versions), same bf16 weights, the
+    same 4-kind pack scaled down (250 tokens: the dispatcher pads to 256
+    with the pad ids) and the same noise; every parameter trainable, with
+    freeze_und False and True. Loss rel. error < 2e-2, each gradient
+    leaf's rel. L2 < 3e-2; on the card 2 packed forwards with lse, 2 dq
+    and 2 dk/dv launches a pass and no other kernel."""
+    import copy
+
+    import torch
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.bagel.packed import bagel_packed_forward
+
+    cfg, scfg, bagel, sig = _small_train_models()
+    batch, kinds = bagel_train_batch(cfg, SMALL_TRAIN_SIZES, 6, 250)
+    noise = torch.randn(batch["packed_latent_clean"].shape,
+                        generator=torch.Generator().manual_seed(8))
+    want_launches = {"flash_attention_bf16_lse": 2,
+                     "flash_attention_bwd_dq_bf16": 2,
+                     "flash_attention_bwd_dkv_bf16": 2,
+                     "flash_attention_bf16_lse_packed": 2,
+                     "flash_attention_bwd_dq_bf16_packed": 2,
+                     "flash_attention_bwd_dkv_bf16_packed": 2}
+
+    def run(device, freeze):
+        model = copy.deepcopy(bagel).to(device)
+        for p in model.parameters():
+            p.requires_grad_(True)
+        fa.reset_launches()
+        out = bagel_packed_forward(model, cfg, batch, noise=noise,
+                                   siglip_params=copy.deepcopy(sig).to(device),
+                                   siglip_cfg=scfg,
+                                   compute_dtype=torch.bfloat16,
+                                   freeze_und=freeze)
+        loss = _train_loss(out)
+        loss.backward()
+        used = {k_: v_ for k_, v_ in launch_counts().items() if v_}
+        grads = {nm: p.grad.detach().float().cpu()
+                 for nm, p in model.named_parameters() if p.grad is not None}
+        return float(loss), grads, used
+
+    for freeze in (False, True):
+        loss_g, grads_g, used = run("cuda", freeze)
+        loss_c, grads_c, _ = run("cpu", freeze)
+        leaf_err = {nm: rel_l2(grads_g[nm], g) for nm, g in grads_c.items()
+                    if nm in grads_g}
+        worst = sorted(leaf_err.items(), key=lambda kv: -kv[1])[:5]
+        loss_err = abs(loss_g - loss_c) / max(abs(loss_c), 1e-30)
+        out = {"check": "small_bagel_train_parity", "freeze_und": freeze,
+               "tokens": kinds, "loss_card": loss_g, "loss_cpu": loss_c,
+               "loss_rel_err": loss_err, "leaves": len(leaf_err),
+               "worst_leaf_rel_l2": worst, "limits": [2e-2, 3e-2],
+               "why": "bf16 on both sides: cuBLAS and the CPU round each "
+                      "GEMM at other points (2^-8 relative), over 2 layers "
+                      "and their backward",
+               "launches": used}
+        out["ok"] = (loss_err < 2e-2 and set(grads_g) == set(grads_c)
+                     and max(leaf_err.values()) < 3e-2
+                     and used == want_launches
+                     and math.isfinite(loss_g))
+        log(json.dumps(out))
+        if not out["ok"]:
+            fail("the packed training path on the card disagrees with the "
+                 "CPU, or went through other kernels")
+
+
+def bagel_train_main_path():
+    """The BAGEL packed-training path at full width: BAGEL-7B-MoT (bf16,
+    both experts, random from seeds; llm2vae redrawn off its zero init,
+    which would block every gradient) with SigLIP so400m, on one 4,096-token
+    pack of the four sample kinds (`bagel_train_batch`), freeze_und=True
+    (the reference's flag): the gen experts, vae2llm, llm2vae and
+    time_embedder train; the und experts, embeddings, lm_head, connector
+    and SigLIP are frozen. One evaluation forward (no grad), then one
+    training pass (forward, then backward of the sum of the MSE terms and
+    the weighted CE); launches asserted per pass; seconds, peak memory, the
+    loss and the gradients' reach logged; one more training pass profiled.
+    Returns the counts of the two passes."""
+    import gc
+
+    import torch
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.bagel.bagel import BagelConfig, init_bagel
+    from univid_tpu_torch.models.bagel.packed import bagel_packed_forward
+    from univid_tpu_torch.models.bagel.siglip import (SiglipConfig,
+                                                      init_siglip)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf = torch.bfloat16
+    cfg, scfg = BagelConfig(), SiglipConfig()
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    t0 = time.perf_counter()
+    bagel = init_bagel(gen(50), cfg, dtype=bf, device="cuda")
+    sig = init_siglip(gen(51), scfg, dtype=bf, device="cuda")
+    with torch.no_grad():
+        bagel.llm2vae.w.normal_(0.0, 0.02, generator=gen(52))
+    trainable = [p for nm, p in bagel.named_parameters()
+                 if "_gen" in nm or nm.split(".")[0] in (
+                     "vae2llm", "llm2vae", "time_embedder")]
+    for p in trainable:
+        p.requires_grad_(True)
+    batch, kinds = bagel_train_batch(cfg, TRAIN_SIZES, 5, PACK_TOKENS)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    rng = gen(53)
+    n_layers = cfg.llm.num_layers
+
+    def forward():
+        return bagel_packed_forward(bagel, cfg, batch, rng=rng,
+                                    siglip_params=sig, siglip_cfg=scfg,
+                                    compute_dtype=bf, freeze_und=True)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def train_pass():
+        bagel.zero_grad(set_to_none=True)
+        out, fwd_s = timed(forward)
+        loss = _train_loss(out)
+        _, bwd_s = timed(loss.backward)
+        return out, loss, fwd_s, bwd_s
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    with torch.no_grad():
+        ev, eval_s = timed(forward)
+    eval_counts = {k_: v_ for k_, v_ in launch_counts().items() if v_}
+    eval_loss = float(_train_loss(ev))
+    del ev
+    fa.reset_launches()
+    out, loss, fwd_s, bwd_s = train_pass()
+    train_counts = {k_: v_ for k_, v_ in launch_counts().items() if v_}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k_: eval_counts.get(k_, 0) + train_counts.get(k_, 0)
+                for k_ in launch_counts()}
+    mse_terms = float(out["mse"].sum())
+    ce_terms = float((out["ce"] * out["ce_weights"]).sum())
+    gen_grads = {nm: float(p.grad.abs().max()) if p.grad is not None
+                 else 0.0 for nm, p in bagel.named_parameters()
+                 if p.requires_grad}
+    und_with_grad = [nm for nm, p in bagel.named_parameters()
+                     if not p.requires_grad and p.grad is not None]
+    zero_gen = [nm for nm, g in gen_grads.items() if not g > 0.0]
+    want_eval = {"flash_attention_bf16": n_layers,
+                 "flash_attention_bf16_packed": n_layers}
+    want_train = {nm: n_layers for nm in (
+        "flash_attention_bf16_lse", "flash_attention_bwd_dq_bf16",
+        "flash_attention_bwd_dkv_bf16", "flash_attention_bf16_lse_packed",
+        "flash_attention_bwd_dq_bf16_packed",
+        "flash_attention_bwd_dkv_bf16_packed")}
+    del out
+    _, profiled = profile_call(lambda: train_pass()[1])
+    rec = {"phase": "bagel_train_main_path", "model": "BAGEL-7B-MoT",
+           "params": sum(p.numel() for p in bagel.parameters()),
+           "trainable": sum(p.numel() for p in trainable),
+           "weights_gb": weights_gb, "init_s": init_s,
+           "pack_tokens": PACK_TOKENS, "kind_tokens": dict(zip(
+               ("vlm", "t2i", "edit", "text"), kinds)),
+           "vit_patches": int(batch["packed_vit_patches"].shape[0]),
+           "vae_tokens": int(batch["packed_latent_clean"].shape[0]),
+           "ce_tokens": int(batch["ce_loss_indexes"].shape[0]),
+           "eval_forward_s": eval_s, "train_forward_s": fwd_s,
+           "backward_s": bwd_s, "peak_memory_gb": peak,
+           "loss": float(loss), "mse_sum": mse_terms, "ce_weighted": ce_terms,
+           "eval_loss": eval_loss, "gen_leaves_with_grad":
+           len(gen_grads) - len(zero_gen), "gen_leaves_zero": zero_gen[:5],
+           "frozen_leaves_with_grad": und_with_grad[:5],
+           "eval_launches": eval_counts, "train_launches": train_counts,
+           "profiled_train_pass": profiled}
+    log(json.dumps(rec))
+    if eval_counts != want_eval or train_counts != want_train:
+        fail(f"BAGEL training launches: eval {eval_counts} != {want_eval} or "
+             f"train {train_counts} != {want_train}")
+    if not (math.isfinite(rec["loss"]) and math.isfinite(mse_terms)
+            and math.isfinite(ce_terms)):
+        fail("non-finite BAGEL training loss")
+    if zero_gen or und_with_grad:
+        fail(f"gen leaves without a gradient {zero_gen[:5]} or frozen leaves "
+             f"with one {und_with_grad[:5]}")
+    del bagel, sig, loss, trainable
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def kernels_line(records, by_path, mask_records):
+    """The `kernels` line: each kernel's record with the launches of the
+    path it serves (None with --kernels-only) and `launches_by_path`."""
+    own = {"flash_attention_f32": "ti2v-5B",
+           "flash_attention_bf16_causal": "bagel",
+           "flash_attention_bf16_lse": "train",
+           "flash_attention_bwd_dq_bf16": "train",
+           "flash_attention_bwd_dkv_bf16": "train"}
+    # the packed modes serve BAGEL packed training; no path of the JAX
+    # package reaches the segment modes at d=128 (SigLIP's segments are
+    # d=72, the reference route) or the causal backward (no causal training
+    # caller): their launches on the paths are 0
+    for nm in mask_records:
+        own[nm] = "bagel_train" if nm.endswith("_packed") else None
+    kernels = []
+    for nm, rec in records.items():
+        owner = own.get(nm, "t2v-1.3B")
+        launches = None
+        if by_path:
+            launches = by_path[owner][nm] if owner else 0
+        kernels.append(dict(rec, launches=launches, launches_by_path={
+            p: c[nm] for p, c in by_path.items()}))
+    return kernels
+
+
+def launch_counts():
+    """Every launch counter: LAUNCHES and the masked modes'
+    LAUNCHES_BY_MODE."""
+    from univid_tpu_torch.kernels import flash_attention as fa
+    return {**fa.LAUNCHES, **fa.LAUNCHES_BY_MODE}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=4)
@@ -1807,6 +2502,8 @@ def main():
     retime_ti2v_kernels()
     records.update(check_train_kernels())
     records.update(check_causal_kernels())
+    mask_records = check_mask_kernels()
+    records.update(mask_records)
     log(json.dumps({"phase": "kernel_checks",
                     "seconds": time.perf_counter() - t0}))
 
@@ -1818,7 +2515,9 @@ def main():
                            lambda: train_parity(args.output_dir)),
                           ("full_width_extractor",
                            lambda: full_width_extractor(args.output_dir)),
-                          ("small_bagel_parity", small_bagel_parity)):
+                          ("small_bagel_parity", small_bagel_parity),
+                          ("small_bagel_train_parity",
+                           small_bagel_train_parity)):
             t0 = time.perf_counter()
             fn()
             log(json.dumps({"phase": phase,
@@ -1827,7 +2526,9 @@ def main():
         # kernel's launches are those of the path it serves (the t2v-1.3B
         # CLI run for the serving kernels, the ti2v-5B run for the fp32 VAE
         # kernel, timed at its d=1024 shape, the training run for the
-        # training kernels); `launches_by_path` gives all three
+        # training kernels, the QA request for the causal mode, the BAGEL
+        # training passes for the packed modes); `launches_by_path` gives
+        # every path's
         by_path["t2v-1.3B"] = main_path(args.steps, args.output_dir)
         t0 = time.perf_counter()
         by_path["train"] = train_main_path(args.train_steps)
@@ -1842,21 +2543,15 @@ def main():
         log(json.dumps({"phase": "bagel_main_path_total",
                         "seconds": time.perf_counter() - t0}))
         t0 = time.perf_counter()
+        by_path["bagel_train"] = bagel_train_main_path()
+        log(json.dumps({"phase": "bagel_train_main_path_total",
+                        "seconds": time.perf_counter() - t0}))
+        t0 = time.perf_counter()
         qa_cli_on_card(args.output_dir)
         log(json.dumps({"phase": "qa_cli_on_card",
                         "seconds": time.perf_counter() - t0}))
-    own = {"flash_attention_f32": "ti2v-5B",
-           "flash_attention_bf16_causal": "bagel",
-           "flash_attention_bf16_lse": "train",
-           "flash_attention_bwd_dq_bf16": "train",
-           "flash_attention_bwd_dkv_bf16": "train"}
-    launches = {nm: by_path[own.get(nm, "t2v-1.3B")][nm] if by_path
-                else None for nm in records}
-    for nm in records:
-        records[nm]["launches_by_path"] = {p: c[nm]
-                                           for p, c in by_path.items()}
-    kernels = [dict(records[nm], launches=launches[nm]) for nm in records]
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels_line(records, by_path,
+                                            mask_records)}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

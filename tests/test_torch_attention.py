@@ -228,16 +228,28 @@ def test_dispatcher_matches_jax(backend, case):
 
 
 def test_dispatcher_refuses_later_modes():
-    """softmax_bf16, qk_int8, segments on the kernel route and causal
-    attention under grad (the causal backward) are later slices."""
+    """softmax_bf16 and qk_int8 are a later slice; grouped kv heads under
+    grad are refused (callers repeat them, as JAX does); segments need
+    both id arrays, and packed_mode takes no q offsets (as in JAX). Causal
+    attention and segment ids under grad now take the kernel route."""
     x = torch.zeros((1, 64, 1, 128))
-    for kw in (dict(softmax_bf16=True), dict(qk_int8=True),
-               dict(q_segments=torch.zeros((1, 64)))):
+    for kw in (dict(softmax_bf16=True), dict(qk_int8=True)):
         with pytest.raises(NotImplementedError):
             tatt.attention(x, x, x, **kw)
+    with pytest.raises(ValueError, match="both"):
+        tatt.attention(x, x, x, q_segments=torch.zeros((1, 64)))
+    codes = torch.zeros((1, 64), dtype=torch.int32)
+    with pytest.raises(AssertionError, match="q offsets"):
+        tatt.attention(x, x, x, q_segments=codes, kv_segments=codes,
+                       packed_mode=True, q_offset=3)
+    qg = torch.zeros((1, 64, 2, 128), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="grouped"):
+        tatt.attention(qg, x, x)
     xg = x.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="causal backward"):
-        tatt.attention(xg, x, x, causal=True)
+    for kw in (dict(causal=True), dict(q_segments=codes, kv_segments=codes,
+                                       packed_mode=True)):
+        out = tatt.attention(xg, xg, xg, **kw)
+        assert out.shape == x.shape and out.requires_grad
 
 
 # causal cases: (lq, lk, static q_offset, per-batch q_offsets, kv_len) --

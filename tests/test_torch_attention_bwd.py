@@ -196,3 +196,122 @@ def test_attention_under_grad_refuses_fused_rope():
         tatt.attention(x, x, x, rope_tables=tabs)
     with torch.no_grad():   # inference keeps the fused route
         assert tatt.attention(x, x, x, rope_tables=tabs).shape == x.shape
+
+
+def _masked_case(mode, b=2, l=256, n=2, d=128):
+    """Inputs of one masked mode (fp32, d=128) with its mask keywords, JAX
+    and port: 'causal' (q_offsets 5 and 70), 'causal_kv_len' (kv_len 130,
+    256), 'segments' (3 ids a row; the last 20 queries -1 and keys -2, the
+    dispatcher's pad ids), 'packed' (two documents with a full split and a
+    noise split, then the pad ids). Also the rows that see some key."""
+    q = _rand((b, l, n, d), 60, True)
+    k = _rand((b, l, n, d), 61, True)
+    v = _rand((b, l, n, d), 62)
+    kw = {}
+    if mode.startswith("causal"):
+        kw = dict(causal=True, q_offsets=np.array([5, 70], np.int32))
+        if mode == "causal_kv_len":
+            kw = dict(causal=True, kv_len=np.array([130, 256], np.int32))
+    else:
+        if mode == "segments":
+            qs = np.zeros((b, l), np.int32)
+            qs[:, 90:] = 1
+            qs[1, 170:] = 2
+            ks = qs.copy()
+        else:
+            doc = np.ones((b, l), np.int32)
+            doc[:, 120:] = 2
+            fn = np.full((b, l), -1, np.int32)
+            fn[:, 130:170] = 0
+            fn[1, 20:60] = 0
+            nz = np.full((b, l), -1, np.int32)
+            nz[:, 190:236] = 0
+            qs = ks = tatt.pack_mask_codes(doc, fn, nz)
+            qs, ks = qs.copy(), ks.copy()
+            kw["packed_mode"] = True
+        qs[:, -20:] = -1
+        ks[:, -20:] = -2
+        kw.update(q_segments=qs, kv_segments=ks)
+    live = np.ones((b, l), bool)
+    if "q_segments" in kw:
+        live[:, -20:] = False
+    return q, k, v, kw, live
+
+
+def _as(kw, conv):
+    return {key: conv(x) if isinstance(x, np.ndarray) else x
+            for key, x in kw.items()}
+
+
+@pytest.mark.parametrize("mode", ["causal", "causal_kv_len", "segments",
+                                  "packed"])
+def test_masked_forward_and_backward_match_pallas(mode):
+    """The plain forward with lse and the plain backward in the causal,
+    segment and packed modes == the Pallas forward (save_residuals) and
+    the two-pass backward kernels in interpret mode, fp32, d=128. Rows
+    with no live key (the pad ids) are compared only where the JAX kernel
+    is defined by design: the port gives them 0 and lse +1e30; their
+    cotangent is 0, as the dispatcher's slice makes it."""
+    q, k, v, kw, live = _masked_case(mode)
+    b, l, n, d = q.shape
+    g = _rand((b, l, n, d), 63) * live[:, :, None, None]
+    jkw = _as(kw, jnp.asarray)
+    tkw = _as(kw, torch.as_tensor)
+    jo, jl = jfa.flash_attention_padded(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=128,
+        block_k=128, interpret=True, save_residuals=True, **jkw)
+    to, tl = tfa.flash_attention_padded(
+        torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+        save_residuals=True, **tkw)
+    np.testing.assert_allclose(_np(to)[live], _np(jo)[live], **FP32)
+    lse_live = live[:, None, :].repeat(n, axis=1)
+    np.testing.assert_allclose(tl.numpy()[lse_live],
+                               _jlse(jl, b, n)[lse_live], **FP32)
+    assert np.all(_np(to)[~live] == 0.0)
+    assert np.all(tl.numpy()[~lse_live] == 1e30)
+    want = jfa.flash_attention_bwd_padded(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jo, jl,
+        jnp.asarray(g), block_q=128, block_k=128, interpret=True,
+        fused=False, **jkw)
+    got = tfa.flash_attention_bwd_padded(
+        torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v), to, tl,
+        torch.as_tensor(g), **tkw)
+    for g_, w_, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(_np(g_), _np(w_), err_msg=name, **FP32)
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("mode", ["packed", "causal"])
+def test_masked_attention_grads_match_jax(backend, mode):
+    """Port `attention` under grad on L = 200 (padded to 256 inside, pad
+    ids -1 / -2 for the codes) == jax.grad of JAX `attention` on the Pallas
+    custom VJP (interpret) and on XLA, fp32: the packed mode of BAGEL
+    packed training, and causal with per-row q_offsets."""
+    q, k, v, kw, _ = _masked_case(mode)
+    lq = 200
+    q, k, v = q[:, :lq], k[:, :lq], v[:, :lq]
+    kw = {key: (x[:, :lq] if key.endswith("segments") else x)
+          for key, x in kw.items()}
+    if mode == "packed":   # no pad ids here: the dispatchers add them
+        kw["q_segments"] = kw["kv_segments"] = np.ascontiguousarray(
+            np.maximum(kw["q_segments"], 0))
+    g = _rand(q.shape, 64)
+    jbackend(backend)
+    jfa.set_interpret_mode(backend == "pallas")
+    try:
+        jkw = _as(kw, jnp.asarray)
+
+        def f(q_, k_, v_):
+            return jnp.sum(jattention(q_, k_, v_, **jkw) * g)
+        want = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                              jnp.asarray(v))
+    finally:
+        jfa.set_interpret_mode(False)
+        jbackend(None)
+    qt, kt, vt = (torch.as_tensor(x).requires_grad_(True) for x in (q, k, v))
+    out = tatt.attention(qt, kt, vt, **_as(kw, torch.as_tensor))
+    assert out.shape == q.shape
+    got = torch.autograd.grad((out * torch.as_tensor(g)).sum(), (qt, kt, vt))
+    for g_, w_, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(_np(g_), np.asarray(w_), err_msg=name,
+                                   **FP32)

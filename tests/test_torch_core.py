@@ -168,8 +168,8 @@ def test_tma_matches():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of univid_tpu_torch (the fusion slice's included) and
-    chip_smoke.py import without JAX or univid_tpu."""
+    """Every module of univid_tpu_torch (the fusion and packed-training
+    slices' included) and chip_smoke.py import without JAX or univid_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import univid_tpu_torch as p\n"
@@ -178,6 +178,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert len(mods) > 20, mods\n"
         "new = {'core.checkpoint', 'models.bagel.bagel', "
         "'models.bagel.qwen2_mot', 'models.bagel.siglip', "
+        "'models.bagel.packed', 'data.packed_dataset', "
         "'models.fusion.extractor', 'pipelines.fusion'}\n"
         "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
         "for m in mods + ['chip_smoke']:\n"

@@ -252,3 +252,141 @@ def test_cuda_grouped_running_kernel_matches_plain(cuda_device):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **BF16)
+
+
+def _masked_inputs(cuda_device, mode, b=2, l=448, n=4, nk=2):
+    """bf16 q [b, l, n, 128] over k, v [b, l, nk, 128] with segment ids or
+    packed codes: row 1's second segment (document) starts at key 150, so
+    its queries in the third tile meet two wholly masked tiles before
+    their first live key; the last 30 queries carry the pad id -1 and the
+    last 30 keys -2 (k = v = 50.0 there), so those rows see no key."""
+    q = torch.as_tensor(_rand((b, l, n, 128), 50, True)).to(
+        cuda_device, torch.bfloat16)
+    k, v = (torch.as_tensor(_rand((b, l, nk, 128), s, True)).to(
+        cuda_device, torch.bfloat16) for s in (51, 52))
+    doc = np.ones((b, l), np.int32)
+    doc[0, 200:] = 2
+    doc[1, 150:] = 2
+    if mode == "segments":
+        qs = doc.copy()
+    else:
+        fn = np.full((b, l), -1, np.int32)
+        fn[:, 160:230] = 0          # a full split (ViT-like)
+        fn[:, 300:380] = 1          # a noised VAE split
+        nz = np.full((b, l), -1, np.int32)
+        nz[:, 300:380] = 0
+        qs = tatt.pack_mask_codes(doc, fn, nz)
+    ks = qs.copy()
+    qs[:, -30:] = -1
+    ks[:, -30:] = -2
+    k[:, -30:] = 50.0
+    v[:, -30:] = 50.0
+    to = dict(dtype=torch.int32, device=cuda_device)
+    return q, k, v, torch.tensor(qs, **to), torch.tensor(ks, **to)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["segments", "packed"])
+def test_cuda_masked_forward_matches_plain(cuda_device, mode):
+    """The segment and packed modes of the forward (without and with the
+    lse; 4 query heads over 2 kv heads without it) against their plain
+    version on the card: bf16 outputs to 2e-2, lse to 1e-3; the pad rows
+    exactly 0 with lse +1e30; the launches counted by mode."""
+    q, k, v, qs, ks = _masked_inputs(cuda_device, mode)
+    packed = mode == "packed"
+    qf = tfa._fold(q, 128 ** -0.5)
+    tfa.reset_launches()
+    with torch.no_grad():
+        got = tfa.flash_attention_padded(q, k, v, q_segments=qs,
+                                         kv_segments=ks, packed_mode=packed)
+        want = tfa.attention_plain(qf, k, v, q_segments=qs, kv_segments=ks,
+                                   packed_mode=packed)
+        kr, vr = tfa.repeat_kv(k, 4), tfa.repeat_kv(v, 4)
+        o, lse = tfa.flash_attention_fwd_folded(
+            qf, kr, vr, q_segments=qs, kv_segments=ks, packed_mode=packed)
+        o_p, lse_p = tfa.attention_plain(qf, kr, vr, q_segments=qs,
+                                         kv_segments=ks, packed_mode=packed,
+                                         save_residuals=True)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention_bf16"] == 1
+    assert tfa.LAUNCHES_BY_MODE[f"flash_attention_bf16_{mode}"] == 1
+    assert tfa.LAUNCHES_BY_MODE[f"flash_attention_bf16_lse_{mode}"] == 1
+    for a, w in ((got, want), (o, o_p)):
+        np.testing.assert_allclose(a.float().cpu().numpy(),
+                                   w.float().cpu().numpy(), **BF16)
+        assert float(a[:, -30:].abs().max()) == 0.0
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(),
+                               rtol=0, atol=1e-3)
+    assert bool((lse[:, :, -30:] == 1e30).all())
+    assert bool((lse[:, :, :-30] < 1e29).all())
+
+
+# backward cases (lq, lk, q_offset, q_offsets, kv_len): causal offsets that
+# are not multiples of 64, a dk/dv tile that no q tile reaches, segment ids
+# and packed codes with pad rows
+MASKED_BWD = {
+    "causal_square": (256, 256, 0, None, None),
+    "causal_offsets": (192, 448, 13, (37, 190), (250, 448)),
+    "segments": (448, 448, 0, None, None),
+    "packed": (448, 448, 0, None, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(MASKED_BWD))
+def test_cuda_masked_backward_matches_plain(cuda_device, case):
+    """The dq and dk/dv kernels in the causal (static + device offsets,
+    kv_len), segment and packed modes against their plain version on the
+    card, from the plain residuals (bf16: 2e-2 relative L2 and
+    elementwise); rows that see no key give dq = 0."""
+    lq, lk, qoff, qoffs, kvl = MASKED_BWD[case]
+    kw = {}
+    if case.startswith("causal"):
+        q = torch.as_tensor(_rand((2, lq, 4, 128), 53, True)).to(
+            cuda_device, torch.bfloat16)
+        k, v = (torch.as_tensor(_rand((2, lk, 4, 128), s, True)).to(
+            cuda_device, torch.bfloat16) for s in (54, 55))
+        kw = dict(causal=True, q_offset=qoff)
+        if qoffs is not None:
+            kw["q_offsets"] = torch.tensor(qoffs, dtype=torch.int32,
+                                           device=cuda_device)
+        mode = "causal"
+    else:
+        q, k, v, qs, ks = _masked_inputs(cuda_device, case, nk=4)
+        kw = dict(q_segments=qs, kv_segments=ks, packed_mode=case == "packed")
+        mode = case
+    kv = None
+    if kvl is not None:
+        kv = torch.tensor(kvl, dtype=torch.int32, device=cuda_device)
+        for r in range(2):
+            k[r, kvl[r]:] = 50.0
+            v[r, kvl[r]:] = 50.0
+    do = torch.as_tensor(_rand(tuple(q.shape), 56)).to(cuda_device,
+                                                       torch.bfloat16)
+    qs_ = tfa._fold(q, 128 ** -0.5)
+    tfa.reset_launches()
+    with torch.no_grad():
+        o_p, lse_p = tfa.attention_plain(qs_, k, v, kv_len=kv,
+                                         save_residuals=True, **kw)
+        o, lse = tfa.flash_attention_fwd_folded(qs_, k, v, kv_len=kv, **kw)
+        grads = tfa.flash_attention_bwd_folded(
+            qs_, k, v, o_p, lse_p, do, kv_len=kv, softmax_scale=128 ** -0.5,
+            **kw)
+        want = tfa._bwd_plain_folded(qs_, k, v, o_p, lse_p, do, kv,
+                                     128 ** -0.5, **kw)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_bf16_lse", "flash_attention_bwd_dq_bf16",
+                 "flash_attention_bwd_dkv_bf16"):
+        assert tfa.LAUNCHES_BY_MODE[f"{name}_{mode}"] == 1, name
+    np.testing.assert_allclose(o.float().cpu().numpy(),
+                               o_p.float().cpu().numpy(), **BF16)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(),
+                               rtol=0, atol=1e-3)
+    for got, ref, name in zip(grads, want, ("dq", "dk", "dv")):
+        assert _rel(got, ref) < 2e-2, name
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(), err_msg=name,
+                                   **BF16)
+    if "q_segments" in kw:
+        assert float(grads[0][:, -30:].abs().max()) == 0.0
+        assert float(grads[1][:, -30:].abs().max()) == 0.0

@@ -1,9 +1,11 @@
 """Attention dispatcher: the hand-written kernels, or the plain reference.
 
 Counterpart of univid_tpu/kernels/attention.py::attention for the t2v
-inference options, the training path and BAGEL's causal KV-cache prefill.
-Inputs are [B, L, N, D] and may be unpadded: the kernel route pads Lq and
-Lk to the kernels' tile multiple, masks padded keys through kv_len and
+inference options, the training paths, BAGEL's causal KV-cache prefill and
+BAGEL packed training (`pack_mask_codes`, `packed_mode`). Inputs are
+[B, L, N, D] and may be unpadded: the kernel route pads Lq and Lk to the
+kernels' tile multiple, masks padded keys through kv_len (and pads segment
+ids with JAX's -1 for queries, -2 for keys, which match nothing) and
 slices the output back. k and v may have fewer heads than q (grouped-query
 attention, N a multiple of their head count): the kernel reads each kv head
 for its group of query heads, the reference route repeats them. Routes:
@@ -13,44 +15,61 @@ for its group of query heads, the reference route repeats them. Routes:
                of 128. A call that needs a gradient (grad enabled and q, k
                or v requiring it) goes through `FlashAttention`, the
                counterpart of the JAX package's `_flash` custom VJP: the
-               forward that saves the lse, then the backward kernels.
+               forward that saves the lse, then the backward kernels, with
+               every mask (kv_len, causal, segments, packed codes).
   reference  — `mha_reference`, a masked softmax attention, for other head
                dims (as on the TPU), segment masks included (SigLIP's
                d=72); differentiable by plain autograd.
 
-Segment masks on the kernel route (and packed_mode), softmax_bf16,
-qk_int8 and causal attention under grad are later slices and raise here.
+softmax_bf16 and qk_int8 are a later slice and raise here.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .flash_attention import (LOG2E, NEG_INF, TILE, _fold, causal_rows,
                               flash_attention_bwd_folded,
                               flash_attention_fwd_folded,
-                              flash_attention_padded, repeat_kv, rotate)
+                              flash_attention_padded, packed_mask_allowed,
+                              repeat_kv, rotate)
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def pack_mask_codes(doc_id, fn_id, noise_id):
+    """Pack BAGEL packed training's three mask id arrays into one int32 per
+    token: doc in bits 16+, full/noise split id + 1 (0 = none) in bits
+    8-15, noise split id + 1 in bits 0-7 (data_utils.py create_sparse_mask
+    ids). numpy arrays in, numpy out; torch tensors in, torch out."""
+    if isinstance(doc_id, torch.Tensor):
+        doc, fn, nz = (torch.as_tensor(x, dtype=torch.int32)
+                       for x in (doc_id, fn_id, noise_id))
+    else:
+        doc, fn, nz = (np.asarray(x, np.int32)
+                       for x in (doc_id, fn_id, noise_id))
+    return (doc << 16) | ((fn + 1) << 8) | (nz + 1)
+
+
 def mha_reference(q, k, v, *, kv_len=None, q_segments=None,
                   kv_segments=None, softmax_scale=None, causal=False,
-                  q_offset=0, q_offsets=None):
+                  q_offset=0, q_offsets=None, packed_mode=False):
     """Masked attention with an fp32 softmax (the JAX package's XLA path):
     with `causal`, keys past the query's row arange(Lq) + q_offset (+
     q_offsets[b]) are masked; so are keys at or past kv_len[b], and keys
     whose segment id differs from the query's (q_segments [B, Lq],
-    kv_segments [B, Lk]). A row with no valid key is zero: with segments,
-    where no key passes both masks; without, where kv_len == 0 (a causal
-    row always sees key 0: offsets are >= 0). k and v with fewer heads are
-    repeated. p is rounded to v's dtype for p @ v; the output has q's
-    dtype."""
+    kv_segments [B, Lk]); with packed_mode the ids are pack_mask_codes
+    codes and `packed_mask_allowed` decides (query rows arange(Lq) +
+    q_offset). A row with no valid key is zero: with segments, where no key
+    passes both masks; without, where kv_len == 0 (a causal row always sees
+    key 0: offsets are >= 0). k and v with fewer heads are repeated. p is
+    rounded to v's dtype for p @ v; the output has q's dtype."""
     d = q.shape[-1]
     lq, lk = q.shape[1], k.shape[1]
     k, v = repeat_kv(k, q.shape[2]), repeat_kv(v, q.shape[2])
@@ -69,8 +88,14 @@ def mha_reference(q, k, v, *, kv_len=None, q_segments=None,
         s = s.masked_fill(~kv_valid[:, None, None, :], NEG_INF)
     seg_mask = None
     if q_segments is not None:
-        seg_mask = (q_segments.to(q.device)[:, :, None]
-                    == kv_segments.to(q.device)[:, None, :])[:, None]
+        qs = q_segments.to(q.device)[:, :, None]
+        ks = kv_segments.to(q.device)[:, None, :]
+        if packed_mode:
+            rows = torch.arange(lq, device=q.device)[None, :, None] + q_offset
+            cols = torch.arange(lk, device=q.device)[None, None, :]
+            seg_mask = packed_mask_allowed(qs, ks, rows, cols)[:, None]
+        else:
+            seg_mask = (qs == ks)[:, None]
         s = s.masked_fill(~seg_mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     if seg_mask is not None:
@@ -88,43 +113,57 @@ class FlashAttention(torch.autograd.Function):
 
     Takes the raw q and folds it by softmax_scale * log2(e) inside, as JAX
     does; the forward saves (qs, k, v, o, lse) and the backward runs the
-    backward kernels on them (their plain versions on the CPU). kv_len and
-    score_bound get no gradient: the bound only moves the softmax's
-    reference point, so d(out)/d(bound) = 0."""
+    backward kernels on them (their plain versions on the CPU), under the
+    forward's masks. kv_len, the masks and score_bound get no gradient:
+    the bound only moves the softmax's reference point, so d(out)/d(bound)
+    = 0."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_len, score_bound, softmax_scale):
+    def forward(ctx, q, k, v, kv_len, score_bound, softmax_scale, causal,
+                q_offset, q_offsets, q_segments, kv_segments, packed_mode):
         qs = _fold(q, softmax_scale)
+        masks = dict(causal=causal, q_offset=q_offset, q_offsets=q_offsets,
+                     q_segments=q_segments, kv_segments=kv_segments,
+                     packed_mode=packed_mode)
         o, lse = flash_attention_fwd_folded(qs, k, v, kv_len=kv_len,
-                                            score_bound=score_bound)
-        ctx.save_for_backward(qs, k, v, o, lse, kv_len)
+                                            score_bound=score_bound, **masks)
+        ctx.save_for_backward(qs, k, v, o, lse, kv_len, q_offsets,
+                              q_segments, kv_segments)
         ctx.softmax_scale = softmax_scale
+        ctx.flags = (causal, q_offset, packed_mode)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        qs, k, v, o, lse, kv_len = ctx.saved_tensors
+        (qs, k, v, o, lse, kv_len, q_offsets, q_segments,
+         kv_segments) = ctx.saved_tensors
+        causal, q_offset, packed_mode = ctx.flags
         if do.stride(-1) != 1:
             do = do.contiguous()
         dq, dk, dv = flash_attention_bwd_folded(
             qs, k, v, o, lse, do, kv_len=kv_len,
-            softmax_scale=ctx.softmax_scale)
-        return dq, dk, dv, None, None, None
+            softmax_scale=ctx.softmax_scale, causal=causal,
+            q_offset=q_offset, q_offsets=q_offsets, q_segments=q_segments,
+            kv_segments=kv_segments, packed_mode=packed_mode)
+        return (dq, dk, dv) + (None,) * 9
 
 
 def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
               score_bound=None, causal=False, q_offset=0, q_offsets=None,
-              q_segments=None, kv_segments=None, softmax_bf16=False,
-              qk_int8=False):
+              q_segments=None, kv_segments=None, packed_mode=False,
+              softmax_bf16=False, qk_int8=False):
     """Multi-head attention over [B, L, N, D] tensors (k, v [B, Lk, N /
     group, D]).
 
     kv_len: int32 [B] valid keys per batch row. causal: query i of batch b
     sits at row i + q_offset (+ q_offsets[b], int32 [B]) and sees the keys
-    at or before it (the kernel route reads q_offsets on the device). q_segments [B, Lq] and
-    kv_segments [B, Lk]: a query sees only keys of its own segment id
-    (reference route only; the JAX dispatcher's -1/-2 pad ids belong to
-    its kernel route and are not applied here). rope_tables:
+    at or before it (the kernel route reads q_offsets on the device).
+    q_segments [B, Lq] and kv_segments [B, Lk] (int32): a query sees only
+    keys of its own segment id; with packed_mode they are pack_mask_codes
+    codes and BAGEL's packed-training predicate applies (no q offsets). The
+    kernel route pads them with -1 (queries) and -2 (keys), as the JAX
+    dispatcher does; padded query rows see no key and come out zero (the
+    JAX kernel gives them other values; they are sliced off). rope_tables:
     build_fused_rope_tables output (fused rotation of q and k). score_bound:
     a PROVEN upper bound on the RAW q.k scores (d * max|g_q| * max|g_k| for
     qk-normed rows) -> bounded softmax in the kernel route; the reference
@@ -135,26 +174,24 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
     k outside the kernel, as the JAX package does), the cross call takes
     the generic kernel rather than the one-shot route, the bound is
     detached, and fp32 tensors on the card are refused (the backward
-    kernels are bf16). Causal attention under grad is refused (the causal
-    backward kernels are a later slice)."""
+    kernels are bf16). Grouped kv heads under grad are refused: repeat
+    them first, as the JAX callers do (autograd sums the repeat)."""
     b, lq, n, d = q.shape
     segs = q_segments is not None or kv_segments is not None
-    if segs and d % 128 == 0:
-        raise NotImplementedError(
-            "segments (and packed_mode) on the kernel route are a later "
-            "port slice (ROADMAP.md queue 2, item 3)")
     if softmax_bf16 or qk_int8:
         raise NotImplementedError(
             "the softmax_bf16 / qk_int8 knobs are a later port slice "
             "(ROADMAP.md queue 2, item 5)")
     if segs and (q_segments is None or kv_segments is None):
         raise ValueError("pass both q_segments and kv_segments")
+    if packed_mode and not segs:
+        raise ValueError("packed_mode takes the codes as q_segments and "
+                         "kv_segments")
+    # the packed mode's causal term reads the pack's own row indices
+    assert not (packed_mode and (q_offset != 0 or q_offsets is not None)), \
+        "packed_mode does not support q offsets"
     train = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
-    if causal and train:
-        raise NotImplementedError(
-            "causal attention under grad needs the causal backward kernels, "
-            "a later port slice (ROADMAP.md queue 2)")
     if n % k.shape[2] or k.shape[2] != v.shape[2]:
         raise ValueError(f"{n} query heads over {k.shape[2]} kv heads")
     lk = k.shape[1]
@@ -172,7 +209,8 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
         return mha_reference(q, k, v, kv_len=kv_len, q_segments=q_segments,
                              kv_segments=kv_segments,
                              softmax_scale=softmax_scale, causal=causal,
-                             q_offset=q_offset, q_offsets=q_offsets)
+                             q_offset=q_offset, q_offsets=q_offsets,
+                             packed_mode=packed_mode)
     if train and k.shape[2] != n:
         raise NotImplementedError(
             "grouped kv heads under grad: the backward kernels take as many "
@@ -190,11 +228,23 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
     lk_pad = _round_up(lk, TILE)
     if lk_pad != lk and kv_len is None:
         kv_len = torch.full((b,), lk, dtype=torch.int32, device=q.device)
+    if segs:   # the kernels read contiguous int32 [B, L] ids
+        q_segments = torch.as_tensor(q_segments, dtype=torch.int32).to(
+            q.device).contiguous()
+        kv_segments = torch.as_tensor(kv_segments, dtype=torch.int32).to(
+            q.device).contiguous()
     if lq_pad != lq:
         q = F.pad(q, (0, 0, 0, 0, 0, lq_pad - lq))
+        if segs:
+            q_segments = F.pad(q_segments, (0, lq_pad - lq), value=-1)
     if lk_pad != lk:
         k = F.pad(k, (0, 0, 0, 0, 0, lk_pad - lk))
         v = F.pad(v, (0, 0, 0, 0, 0, lk_pad - lk))
+        if segs:
+            kv_segments = F.pad(kv_segments, (0, lk_pad - lk), value=-2)
+    masks = dict(causal=causal, q_offset=q_offset, q_offsets=q_offsets,
+                 q_segments=q_segments, kv_segments=kv_segments,
+                 packed_mode=packed_mode)
 
     sc = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     folded_bound = None
@@ -203,11 +253,11 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
         folded_bound = torch.as_tensor(score_bound, dtype=torch.float32) \
             .to(q.device).detach() * (sc * LOG2E)
     if train:
-        return FlashAttention.apply(q, k, v, kv_len, folded_bound,
-                                    sc)[:, :lq]
+        return FlashAttention.apply(q, k, v, kv_len, folded_bound, sc,
+                                    causal, q_offset, q_offsets, q_segments,
+                                    kv_segments, packed_mode)[:, :lq]
     o = flash_attention_padded(q, k, v, kv_len=kv_len,
                                softmax_scale=softmax_scale,
                                rope_tables=rope_tables,
-                               score_bound=folded_bound, causal=causal,
-                               q_offset=q_offset, q_offsets=q_offsets)
+                               score_bound=folded_bound, **masks)
     return o[:, :lq]

@@ -21,6 +21,22 @@
 //     runtime skip); tiles wholly below the diagonal and kv_len run without
 //     mask ops; only diagonal and kv_len-tail tiles compare and select.
 //     q_offsets is read on the device (never copied to the host).
+//   * _flash_kernel's segment and packed modes (:191-210), BAGEL packed
+//     training: int32 codes per token, q_seg [B, Lq] and kv_seg [B, Lk]. In
+//     the segment mode a query sees the keys of its own id; in the packed
+//     mode the codes are pack_mask_codes' (doc << 16 | fn << 8 | nz) and a
+//     query at pack index `row` sees the key at `col` iff
+//       (row >= col || (fn_q == fn_k && fn_q > 0))
+//       && !(nz_k > 0 && nz_q != nz_k) && doc_q == doc_k,
+//     the create_sparse_mask predicate (causal text, full ViT / clean VAE
+//     splits, noised VAE splits that no other split may read). Every kv tile
+//     below kv_len is visited, as on the TPU (a block-sparse tile skip is
+//     later work); each block reads its 64 q codes once and each tile's 64
+//     kv codes with the k tile. These modes, like the causal one, meet
+//     wholly masked tiles before a row's first live key, so a row whose
+//     running max is still -1e30 takes the reference point 0 (p = 0, not
+//     exp2(0) = 1): rows with no live key at all (the dispatcher's pad ids,
+//     q -1 against kv -2) end with l = 0, a zero output and lse +1e30.
 //
 // Grouped-query attention: k and v may have N / group heads; query head h
 // reads kv head h / group (BAGEL's 28 query heads over 4 kv heads read the
@@ -33,7 +49,10 @@
 // causal prefill of a short prompt over a long cache (64 q rows over
 // ~19k cached rows) reads the cache once per query head: the bytes bound
 // it, and one block per (head, 64 rows) leaves most SMs idle (a split-kv
-// pass is later work).
+// pass is later work). The packed-training pack ([1, 4096, 28, 128]) has
+// 19% live (row, key) pairs in 22% of its tiles: the bound counts the live
+// pairs (operations), but the kernel computes every tile below kv_len and
+// masks, so it does ~5x the bound's work.
 //
 // Design (FA2-style, simple first): one block of 4 warps per (b*h, 64-row
 // q tile); each warp owns 16 q rows. The q tile is loaded once and kept as
@@ -61,6 +80,16 @@ constexpr int NTHREADS = 128;
 constexpr float NEG_INF = -1e30f;
 
 enum Mode { BOUNDED = 0, RUNNING = 1, ONESHOT = 2 };
+enum Seg { NO_SEG = 0, SEGMENTS = 1, PACKED = 2 };
+
+// BAGEL's packed-training predicate on pack_mask_codes codes (arithmetic
+// shifts: pad ids -1 / -2 give doc -1 and fn 255 and never pass it)
+__device__ __forceinline__ bool packed_allowed(int qc, int kc, int row, int col) {
+  const int fn_q = (qc >> 8) & 0xFF, fn_k = (kc >> 8) & 0xFF;
+  const int nz_q = qc & 0xFF, nz_k = kc & 0xFF;
+  return (row >= col || (fn_q == fn_k && fn_q > 0)) && !(nz_k > 0 && nz_q != nz_k) &&
+         (qc >> 16) == (kc >> 16);
+}
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -124,7 +153,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-template <int D, int MODE, bool CAUSAL>
+template <int D, int MODE, bool CAUSAL, int SEG>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
@@ -134,6 +163,8 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const float* __restrict__ bound,
                       float* __restrict__ lse,
                       const int* __restrict__ q_offsets, int q_offset,
+                      const int* __restrict__ q_seg,
+                      const int* __restrict__ kv_seg,
                       int group, int n_heads, int lq,
                       int lk, long long q_sb, long long q_sl, long long q_sh,
                       long long k_sb, long long k_sl, long long k_sh,
@@ -147,16 +178,30 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* Ks = Qs + BR * D;
   __nv_bfloat16* Vs = Ks + BC * D;
+  int* Kc = reinterpret_cast<int*>(Vs + BC * D);   // the k tile's 64 kv codes
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.y, b = bh / n_heads, h = bh % n_heads;
   const int q0 = blockIdx.x * BR;
-
+  // the codes of this thread's query rows g and g + 8
+  int qc[2] = {0, 0};
+  if (SEG != NO_SEG) {
+    const int* qsp = q_seg + (long long)b * lq + q0 + warp * 16 + g;
+    qc[0] = qsp[0];
+    qc[1] = qsp[8];
+  }
   const int hk = h / group;   // the kv head this query head reads
   const __nv_bfloat16* qp = q + b * q_sb + h * q_sh + (long long)q0 * q_sl;
   const __nv_bfloat16* kp = k + b * k_sb + hk * k_sh;
   const __nv_bfloat16* vp = v + b * v_sb + hk * v_sh;
+
+  const int* ksp = SEG != NO_SEG ? kv_seg + (long long)b * lk : nullptr;
+  // the k tile at kv row kv0, with its codes
+  auto load_k = [&](int kv0) {
+    load_tile<D>(Ks, kp + (long long)kv0 * k_sl, k_sl, tid);
+    if (SEG != NO_SEG && tid < BC / 4) cp_async16(Kc + tid * 4, ksp + kv0 + tid * 4);
+  };
 
   int kv_end = lk;
   if (kv_len != nullptr) kv_end = min(max(kv_len[b], 0), lk);
@@ -196,9 +241,9 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  // s = q k^T for the k tile in smem -> fragments s[NT][4]; only kv_len-tail
-  // and (causal) diagonal tiles pay the compare + select: a key is dead past
-  // kv_end or past its query's row
+  // s = q k^T for the k tile in smem -> fragments s[NT][4]; only kv_len-tail,
+  // (causal) diagonal and segment / packed tiles pay the compare + select: a
+  // key is dead past kv_end, past its query's row, or by its code
   auto qk = [&](float (*s)[4], int kv0) {
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -219,14 +264,17 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
     const bool tail = kv0 + BC > kv_end;
     const bool diag = CAUSAL && kv0 + BC - 1 > row0;
-    if (tail || diag) {
+    if (tail || diag || SEG != NO_SEG) {
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          int col = kv0 + n * 8 + 2 * t + (j & 1);
+          const int c = n * 8 + 2 * t + (j & 1), col = kv0 + c;
+          const int r = warp * 16 + g + 8 * (j >> 1);
           bool dead = col >= kv_end;
-          if (CAUSAL) dead = dead || col > row0 + warp * 16 + g + 8 * (j >> 1);
+          if (CAUSAL) dead = dead || col > row0 + r;
+          if (SEG == SEGMENTS) dead = dead || qc[j >> 1] != Kc[c];
+          if (SEG == PACKED) dead = dead || !packed_allowed(qc[j >> 1], Kc[c], q0 + r, col);
           if (dead) s[n][j] = NEG_INF;
         }
     }
@@ -257,7 +305,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   if (n_tiles > 0) {
-    load_tile<D>(Ks, kp, k_sl, tid);
+    load_k(0);
     cp_async_commit();
   }
   for (int j = 0; j < n_tiles; ++j) {
@@ -293,9 +341,10 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
     float ref0 = (MODE == BOUNDED) ? c_bound : m_r[0];
     float ref1 = (MODE == BOUNDED) ? c_bound : m_r[1];
-    if (CAUSAL) {
-      // a row with no live key yet (possible only with a negative offset):
-      // reference 0 makes every p = exp2(-1e30) = 0, so l stays 0
+    if (CAUSAL || SEG != NO_SEG) {
+      // a row with no live key yet (segments, packed codes, a pad row; a
+      // causal row only with a negative offset): reference 0 makes every
+      // p = exp2(-1e30) = 0, so l stays 0 (exp2(m - m) would give 1)
       ref0 = ref0 == NEG_INF ? 0.f : ref0;
       ref1 = ref1 == NEG_INF ? 0.f : ref1;
     }
@@ -312,7 +361,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_wait_all();
     __syncthreads();  // v_j landed; every warp is done with k_j
     if (j + 1 < n_tiles) {
-      load_tile<D>(Ks, kp + (long long)(j + 1) * BC * k_sl, k_sl, tid);
+      load_k((j + 1) * BC);
       cp_async_commit();
     }
 
@@ -391,13 +440,13 @@ __global__ void rope_rotate_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   *reinterpret_cast<__nv_bfloat162*>(y + 2 * i) = __floats2bfloat162_rn(y0, y1);
 }
 
-template <int D, int MODE, bool CAUSAL>
+template <int D, int MODE, bool CAUSAL, int SEG>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* kv_len,
                    const void* bound, void* lse, const void* q_offsets, int q_offset,
-                   int group, int B, int N, int lq, int lk, const long long* st,
-                   cudaStream_t stream) {
-  auto kern = flash_fwd_bf16_kernel<D, MODE, CAUSAL>;
-  const int smem = (BR + 2 * BC) * D * (int)sizeof(__nv_bfloat16);
+                   const void* q_seg, const void* kv_seg, int group, int B, int N, int lq,
+                   int lk, const long long* st, cudaStream_t stream) {
+  auto kern = flash_fwd_bf16_kernel<D, MODE, CAUSAL, SEG>;
+  const int smem = (BR + 2 * BC) * D * (int)sizeof(__nv_bfloat16) + BC * (int)sizeof(int);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -406,8 +455,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const v
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<const int*>(kv_len), static_cast<const float*>(bound),
-      static_cast<float*>(lse), static_cast<const int*>(q_offsets), q_offset, group, N,
-      lq, lk, st[0], st[1], st[2], st[3], st[4],
+      static_cast<float*>(lse), static_cast<const int*>(q_offsets), q_offset,
+      static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg), group, N, lq, lk, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return cudaGetLastError();
 }
@@ -425,24 +474,39 @@ extern "C" {
 // receives the exp2-domain log-sum-exp of every row (the training forward).
 // causal (running max only): query i of batch b is row i + q_offset +
 // q_offsets[b] (q_offsets: int32 [B] on the device, or null) and sees keys
-// at or before it.
+// at or before it. seg_mode (running max only, not causal): 1 segments, 2
+// packed codes; q_seg int32 [B, lq] and kv_seg int32 [B, lk], contiguous.
 int univid_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                           const void* kv_len, const void* bound, void* lse,
-                          const void* q_offsets, int mode, int causal, int q_offset,
-                          int group, int B, int N, int lq, int lk, int D,
-                          const long long* strides, void* stream) {
+                          const void* q_offsets, const void* q_seg, const void* kv_seg,
+                          int mode, int causal, int seg_mode, int q_offset, int group, int B,
+                          int N, int lq, int lk, int D, const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D != 128 || lq % BR != 0 || lk % BC != 0 || group < 1 || N % group != 0)
     return (int)cudaErrorInvalidValue;
   if (causal) {
-    if (mode != RUNNING) return (int)cudaErrorInvalidValue;
-    return (int)launch<128, RUNNING, true>(q, k, v, o, kv_len, bound, lse, q_offsets, q_offset,
-                                           group, B, N, lq, lk, strides, s);
+    if (mode != RUNNING || seg_mode != NO_SEG) return (int)cudaErrorInvalidValue;
+    return (int)launch<128, RUNNING, true, NO_SEG>(q, k, v, o, kv_len, bound, lse, q_offsets,
+                                                   q_offset, nullptr, nullptr, group, B, N, lq,
+                                                   lk, strides, s);
+  }
+  if (seg_mode != NO_SEG) {
+    if (mode != RUNNING || q_seg == nullptr || kv_seg == nullptr)
+      return (int)cudaErrorInvalidValue;
+    if (seg_mode == SEGMENTS)
+      return (int)launch<128, RUNNING, false, SEGMENTS>(q, k, v, o, kv_len, bound, lse, nullptr,
+                                                        0, q_seg, kv_seg, group, B, N, lq, lk,
+                                                        strides, s);
+    if (seg_mode == PACKED)
+      return (int)launch<128, RUNNING, false, PACKED>(q, k, v, o, kv_len, bound, lse, nullptr, 0,
+                                                      q_seg, kv_seg, group, B, N, lq, lk,
+                                                      strides, s);
+    return (int)cudaErrorInvalidValue;
   }
   switch (mode) {
-    case BOUNDED: return (int)launch<128, BOUNDED, false>(q, k, v, o, kv_len, bound, lse, nullptr, 0, group, B, N, lq, lk, strides, s);
-    case RUNNING: return (int)launch<128, RUNNING, false>(q, k, v, o, kv_len, bound, lse, nullptr, 0, group, B, N, lq, lk, strides, s);
-    case ONESHOT: return (int)launch<128, ONESHOT, false>(q, k, v, o, kv_len, bound, lse, nullptr, 0, group, B, N, lq, lk, strides, s);
+    case BOUNDED: return (int)launch<128, BOUNDED, false, NO_SEG>(q, k, v, o, kv_len, bound, lse, nullptr, 0, nullptr, nullptr, group, B, N, lq, lk, strides, s);
+    case RUNNING: return (int)launch<128, RUNNING, false, NO_SEG>(q, k, v, o, kv_len, bound, lse, nullptr, 0, nullptr, nullptr, group, B, N, lq, lk, strides, s);
+    case ONESHOT: return (int)launch<128, ONESHOT, false, NO_SEG>(q, k, v, o, kv_len, bound, lse, nullptr, 0, nullptr, nullptr, group, B, N, lq, lk, strides, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -13,13 +13,20 @@ and training paths reach:
     per-row exp2-domain lse, fp32 [B, N, Lq]. `causal` with a static
     `q_offset` and a device `q_offsets` int32 [B] is `_flash_kernel`'s
     causal mode (BAGEL's KV-cache prefill), bf16 d=128 on the same CUDA
-    kernel, counted apart as `flash_attention_bf16_causal`.
+    kernel, counted apart as `flash_attention_bf16_causal`. `q_segments`
+    [B, Lq] / `kv_segments` [B, Lk] int32 are its segment mode, and with
+    `packed_mode` the same ids are pack_mask_codes codes (BAGEL packed
+    training's mask): running max, with and without the lse.
   * `cross_attention_padded` — `_cross_kernel`: single-kv-block attention
     (Lk <= 512) with a one-shot softmax by the row max or by the bound.
   * `flash_attention_bwd_padded` — `_flash_bwd_fused_kernel` and the
     two-pass `_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel`: dq, dk, dv
     rebuilt from the lse, bf16 d=128 on csrc/flash_attention_bwd.cu (a dq
-    kernel and a dk/dv kernel).
+    kernel and a dk/dv kernel), with kv_len, causal (static and device
+    offsets), segment and packed masks.
+
+Every mask goes through `_dead`, the counterpart of the JAX package's
+`_mask_scores`, which the plain forward and backward share.
 
 Inputs are [B, L, N, D] and already padded (Lq, Lk multiples of TILE); k
 and v may have N / group heads (grouped-query attention: query head h reads
@@ -28,7 +35,8 @@ does);
 `kernels/attention.py` pads and wraps the training pair in an autograd
 Function. Each wrapper takes its plain PyTorch version only for tensors on
 the CPU; on CUDA tensors it launches its kernel or raises. `LAUNCHES`
-counts kernel launches per wrapper.
+counts kernel launches per wrapper; `LAUNCHES_BY_MODE` splits those of the
+forward, the forward with lse and the two backward kernels by mask mode.
 """
 
 from __future__ import annotations
@@ -56,6 +64,17 @@ LAUNCHES = {"flash_attention_bf16": 0, "flash_attention_bf16_causal": 0,
             "flash_attention_bwd_dkv_bf16": 0}
 # the flash_attention_f32 launches split by head dim
 F32_LAUNCHES_BY_D = {d: 0 for d in F32_DIMS}
+# launches of the masked modes: each is also counted under its kernel's name
+# in LAUNCHES (the causal forward without lse under
+# flash_attention_bf16_causal)
+MASK_MODES = ("causal", "segments", "packed")
+LAUNCHES_BY_MODE = {
+    f"{name}_{mode}": 0
+    for name in ("flash_attention_bf16", "flash_attention_bf16_lse",
+                 "flash_attention_bwd_dq_bf16", "flash_attention_bwd_dkv_bf16")
+    for mode in MASK_MODES
+    if (name, mode) != ("flash_attention_bf16", "causal")}
+_SEG_MODE = {None: 0, "segments": 1, "packed": 2}
 
 _MODE_BOUNDED, _MODE_RUNNING, _MODE_ONESHOT = 0, 1, 2
 
@@ -65,6 +84,14 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
     for d in F32_LAUNCHES_BY_D:
         F32_LAUNCHES_BY_D[d] = 0
+    for name in LAUNCHES_BY_MODE:
+        LAUNCHES_BY_MODE[name] = 0
+
+
+def _count(name, mode=None):
+    LAUNCHES[name] += 1
+    if mode is not None:
+        LAUNCHES_BY_MODE[f"{name}_{mode}"] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -136,17 +163,69 @@ def causal_rows(lq, q_offset, q_offsets, device):
     return row
 
 
+def packed_mask_allowed(qc, kc, row, col):
+    """BAGEL's packed-training predicate on pack_mask_codes codes (doc in
+    bits 16+, full/noise split id + 1 in bits 8-15, noise split id + 1 in
+    bits 0-7; data_utils.py create_sparse_mask): (causal or same full /
+    noise split) and not a foreign noise split and same document. row and
+    col are the pack's own indices. Arithmetic shifts, so the pad ids -1
+    and -2 give doc -1 and pass nothing. Works on torch tensors and numpy
+    arrays alike (int32, broadcasting)."""
+    doc_q, doc_k = qc >> 16, kc >> 16
+    fn_q, fn_k = (qc >> 8) & 0xFF, (kc >> 8) & 0xFF
+    nz_q, nz_k = qc & 0xFF, kc & 0xFF
+    causal = row >= col
+    full_noise = (fn_q == fn_k) & (fn_q > 0)
+    remove_noise = ~((nz_k > 0) & (nz_q != nz_k))
+    return (causal | full_noise) & remove_noise & (doc_q == doc_k)
+
+
+def _dead(i0, i1, lk, device, *, kv_len=None, causal=False, q_offset=0,
+          q_offsets=None, q_segments=None, kv_segments=None,
+          packed_mode=False):
+    """The masked (query, key) pairs of query rows i0 .. i1 - 1 over lk
+    keys, bool [B or 1, 1, i1 - i0, lk], or None when nothing is masked:
+    keys at or past kv_len[b]; with `causal`, keys past the query's row
+    (`causal_rows`); with segments, keys whose id differs from the query's;
+    with packed_mode, the pairs `packed_mask_allowed` refuses (rows and
+    columns the pack's own indices). The kernels' shared predicate (the
+    JAX package's `_mask_scores`)."""
+    cols = torch.arange(lk, device=device)
+    dead = None
+
+    def add(m):
+        nonlocal dead
+        dead = m if dead is None else dead | m
+
+    if kv_len is not None:
+        add((cols[None, :] >= kv_len.to(device)[:, None])[:, None, None, :])
+    if causal:
+        rows = causal_rows(i1 - i0, q_offset + i0, q_offsets, device)
+        add((cols[None, None, :] > rows[:, :, None])[:, None])
+    if q_segments is not None:
+        qs = q_segments.to(device)[:, i0:i1, None]
+        ks = kv_segments.to(device)[:, None, :]
+        if packed_mode:
+            rows = torch.arange(i0, i1, device=device)[None, :, None]
+            add(~packed_mask_allowed(qs, ks, rows, cols[None, None, :])[:, None])
+        else:
+            add((qs != ks)[:, None])
+    return dead
+
+
 def attention_plain(q, k, v, *, kv_len=None, bound=None, rope_tables=None,
                     save_residuals: bool = False, causal: bool = False,
-                    q_offset: int = 0, q_offsets=None, q_chunk: int = 1024):
+                    q_offset: int = 0, q_offsets=None, q_segments=None,
+                    kv_segments=None, packed_mode: bool = False,
+                    q_chunk: int = 1024):
     """The kernels' function in plain PyTorch, over padded [B, L, N, D].
 
     Scores are in the folded (scale * log2 e) domain: q carries the fold,
     or the q rope tables do. bound: folded score bound (fp32 scalar
     tensor) -> p = exp2(s - bound); None -> p = exp2(s - rowmax(s)), the
-    one-shot form, equal in exact arithmetic to the running max. Keys at or
-    past kv_len[b] get s = -1e30 and p = 0; so do keys past the query's row
-    when causal (`causal_rows`); rows with l == 0 are zero. k and v with
+    one-shot form, equal in exact arithmetic to the running max. Masked
+    keys (`_dead`: kv_len, causal, segments, packed codes) get s = -1e30
+    and p = 0; rows with l == 0 are zero. k and v with
     fewer heads than q are repeated (`repeat_kv`). p is rounded to v's
     dtype before p @ v; l and the accumulator stay fp32. save_residuals ->
     (out, lse): lse fp32 [B, N, Lq] = ref + log2 l, ref the bound or the
@@ -159,21 +238,15 @@ def attention_plain(q, k, v, *, kv_len=None, bound=None, rope_tables=None,
     lk = k.shape[1]
     kf = repeat_kv(k, n).float()
     vf = repeat_kv(v, n).float()
-    cols = torch.arange(lk, device=q.device)
-    dead = None
-    if kv_len is not None:
-        dead = (cols[None, :] >= kv_len.to(q.device)[:, None])[:, None, None, :]
-    rows = causal_rows(lq, q_offset, q_offsets, q.device) if causal else None
+    masks = dict(kv_len=kv_len, causal=causal, q_offset=q_offset,
+                 q_offsets=q_offsets, q_segments=q_segments,
+                 kv_segments=kv_segments, packed_mode=packed_mode)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, n, lq), dtype=torch.float32, device=q.device)
            if save_residuals else None)
     for i0 in range(0, lq, q_chunk):
         s = torch.einsum("bqnd,bknd->bnqk", q[:, i0:i0 + q_chunk].float(), kf)
-        mask = dead
-        if rows is not None:
-            late = (cols[None, None, :]
-                    > rows[:, i0:i0 + q_chunk, None])[:, None]
-            mask = late if mask is None else (mask | late)
+        mask = _dead(i0, min(i0 + q_chunk, lq), lk, q.device, **masks)
         if mask is not None:
             s = s.masked_fill(mask, NEG_INF)
         ref = bound if bound is not None else s.amax(dim=-1, keepdim=True)
@@ -192,18 +265,20 @@ def attention_plain(q, k, v, *, kv_len=None, bound=None, rope_tables=None,
 
 
 def attention_bwd_plain(q, k, v, o, lse, do, *, kv_len=None,
-                        softmax_scale=None, q_chunk: int = 1024):
+                        softmax_scale=None, q_chunk: int = 1024, **masks):
     """The backward kernels' function in plain PyTorch: dq, dk, dv of
     `flash_attention_padded` from its output o and lse, for RAW q (folded
     here as on the TPU). Rounding points of the JAX kernels: qs = q * scale
     * log2e in q's dtype; p = exp2(qs k^T - lse) in fp32 (masked keys
-    -1e30); delta = sum(do * o) in fp32; ds = p * (dp - delta);
-    dq = scale * sum ds(k dtype) k -> q's dtype; dk = ln2 * sum ds^T(q dtype)
-    qs, dv = sum p^T(do dtype) do, accumulated in fp32, cast once."""
+    -1e30, `_dead`; masks: causal, q_offset, q_offsets, q_segments,
+    kv_segments, packed_mode); delta = sum(do * o) in fp32; ds = p * (dp -
+    delta); dq = scale * sum ds(k dtype) k -> q's dtype; dk = ln2 * sum
+    ds^T(q dtype) qs, dv = sum p^T(do dtype) do, accumulated in fp32, cast
+    once."""
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])
     return _bwd_plain_folded(_fold(q, softmax_scale), k, v, o, lse, do,
-                             kv_len, softmax_scale, q_chunk)
+                             kv_len, softmax_scale, q_chunk, **masks)
 
 
 def _fold(q, softmax_scale):
@@ -214,15 +289,11 @@ def _fold(q, softmax_scale):
 
 
 def _bwd_plain_folded(qs, k, v, o, lse, do, kv_len, softmax_scale,
-                      q_chunk=1024):
+                      q_chunk=1024, **masks):
     b, lq, n, d = qs.shape
     lk = k.shape[1]
     kf = k.float()
     vf = v.float()
-    dead = None
-    if kv_len is not None:
-        cols = torch.arange(lk, device=qs.device)
-        dead = (cols[None, :] >= kv_len.to(qs.device)[:, None])[:, None, None, :]
     dq = torch.empty(qs.shape, dtype=qs.dtype, device=qs.device)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=qs.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=qs.device)
@@ -230,6 +301,8 @@ def _bwd_plain_folded(qs, k, v, o, lse, do, kv_len, softmax_scale,
         sl = slice(i0, i0 + q_chunk)
         qc, doc = qs[:, sl], do[:, sl]
         t = torch.einsum("bqnd,bknd->bnqk", qc.float(), kf)
+        dead = _dead(i0, min(i0 + q_chunk, lq), lk, qs.device, kv_len=kv_len,
+                     **masks)
         if dead is not None:
             t = t.masked_fill(dead, NEG_INF)
         p = torch.exp2(t - lse[:, :, sl, None])
@@ -305,23 +378,49 @@ def _check_cuda_inputs(q, k, v, kv_len, dtype, d_ok, *more,
         raise TypeError("kv_len must be int32 on the kernel's device")
 
 
-def _launch_bf16(q, k, v, kv_len, bound, mode, lse=None, causal=False,
-                 q_offset=0, q_offsets=None):
-    b, lq, n, d = q.shape
+def _check_masks(q, lk, q_offsets, q_segments, kv_segments, packed_mode,
+                 causal):
+    """The mask operands a kernel takes: q_offsets int32 [B], segment ids
+    int32 [B, Lq] / [B, Lk], contiguous, on the kernel's device. Returns
+    the segment mode (None, 'segments' or 'packed')."""
+    b, lq = q.shape[:2]
     if q_offsets is not None and (q_offsets.dtype != torch.int32
                                   or q_offsets.device != q.device
                                   or tuple(q_offsets.shape) != (b,)):
         raise TypeError("q_offsets must be int32 [B] on the kernel's device")
+    if q_segments is None and kv_segments is None:
+        if packed_mode:
+            raise ValueError("packed_mode takes the codes as q_segments and "
+                             "kv_segments")
+        return None
+    for t, length in ((q_segments, lq), (kv_segments, lk)):
+        if (t is None or t.dtype != torch.int32 or t.device != q.device
+                or tuple(t.shape) != (b, length) or not t.is_contiguous()):
+            raise TypeError("segment ids must be contiguous int32 [B, L] on "
+                            "the kernel's device, for q and kv both")
+    if causal:
+        raise NotImplementedError(
+            "causal attention with segment ids has no caller and no kernel "
+            "mode (packed_mode carries its own causal term)")
+    return "packed" if packed_mode else "segments"
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _launch_bf16(q, k, v, kv_len, bound, mode, lse=None, causal=False,
+                 q_offset=0, q_offsets=None, q_segments=None,
+                 kv_segments=None, seg=None):
+    b, lq, n, d = q.shape
     o = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
     fn = _fn("flash_attention", "univid_flash_fwd_bf16",
-             [_P] * 8 + [_I] * 9 + [_P, _P])
+             [_P] * 10 + [_I] * 10 + [_P, _P])
     strides = _strides(q, k, v, o)  # host array, read during the launch
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             kv_len.data_ptr() if kv_len is not None else None,
-             bound.data_ptr() if bound is not None else None,
-             lse.data_ptr() if lse is not None else None,
-             q_offsets.data_ptr() if q_offsets is not None else None, mode,
-             int(causal), int(q_offset), n // k.shape[2], b, n, lq,
+             _ptr(kv_len), _ptr(bound), _ptr(lse), _ptr(q_offsets),
+             _ptr(q_segments), _ptr(kv_segments), mode, int(causal),
+             _SEG_MODE[seg], int(q_offset), n // k.shape[2], b, n, lq,
              k.shape[1], d, ctypes.addressof(strides), _stream(q))
     build.check(err, "univid_flash_fwd_bf16")
     return o
@@ -338,7 +437,7 @@ def _rope_bf16(x, cf, sf):
     err = fn(x.data_ptr(), cf.data_ptr(), sf.data_ptr(), y.data_ptr(), b, l,
              n, d, x.stride(0), x.stride(1), x.stride(2), _stream(x))
     build.check(err, "univid_rope_rotate_bf16")
-    LAUNCHES["rope_rotate_bf16"] += 1
+    _count("rope_rotate_bf16")
     return y
 
 
@@ -349,35 +448,47 @@ def _bound_tensor(bound, device):
 
 
 def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
-                q_offset=0, q_offsets=None):
+                q_offset=0, q_offsets=None, q_segments=None, kv_segments=None,
+                packed_mode=False):
     if q.dtype == torch.bfloat16:
         _check_cuda_inputs(q, k, v, kv_len, torch.bfloat16, (128,),
                            group_ok=True)
+        seg = _check_masks(q, k.shape[1], q_offsets, q_segments, kv_segments,
+                           packed_mode, causal)
         if rope_tables is not None:
+            if seg is not None:
+                raise NotImplementedError(
+                    "fused rope does not compose with segment masks (as in "
+                    "the JAX kernel)")
             cq, sq, ck, sk = (t.float().contiguous() for t in rope_tables)
             q = _rope_bf16(q, cq, sq)
             k = _rope_bf16(k, ck, sk)
-        if causal:
+        if causal or seg is not None:
             if bound is not None:
                 raise NotImplementedError(
-                    "the causal kernel mode has the running max only (no "
-                    "caller bounds a causal softmax)")
+                    "the causal, segment and packed kernel modes have the "
+                    "running max only (no caller bounds a masked softmax)")
             o = _launch_bf16(q, k, v, kv_len, None, _MODE_RUNNING,
-                             causal=True, q_offset=q_offset,
-                             q_offsets=q_offsets)
-            LAUNCHES["flash_attention_bf16_causal"] += 1
+                             causal=causal, q_offset=q_offset,
+                             q_offsets=q_offsets, q_segments=q_segments,
+                             kv_segments=kv_segments, seg=seg)
+            if causal:
+                _count("flash_attention_bf16_causal")
+            else:
+                _count("flash_attention_bf16", seg)
             return o
         mode = _MODE_BOUNDED if bound is not None else _MODE_RUNNING
         o = _launch_bf16(q, k, v, kv_len, _bound_tensor(bound, q.device),
                          mode)
-        LAUNCHES["flash_attention_bf16"] += 1
+        _count("flash_attention_bf16")
         return o
     if q.dtype == torch.float32:
         _check_cuda_inputs(q, k, v, kv_len, torch.float32, F32_DIMS)
-        if rope_tables is not None or bound is not None or causal:
+        if (rope_tables is not None or bound is not None or causal
+                or q_segments is not None):
             raise NotImplementedError(
                 "the fp32 kernel has the VAE's plain mode only (no fused "
-                "rope, no bound, not causal)")
+                "rope, no bound, not causal, no segments)")
         b, lq, n, d = q.shape
         o = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
         fn = _fn("flash_attention_f32", "univid_flash_fwd_f32",
@@ -387,7 +498,7 @@ def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
                  kv_len.data_ptr() if kv_len is not None else None, b, n,
                  lq, k.shape[1], d, ctypes.addressof(strides), _stream(q))
         build.check(err, "univid_flash_fwd_f32")
-        LAUNCHES["flash_attention_f32"] += 1
+        _count("flash_attention_f32")
         F32_LAUNCHES_BY_D[d] += 1
         return o
     raise TypeError(f"no attention kernel for {q.dtype}")
@@ -410,14 +521,15 @@ def cross_attention_padded(q, k, v, *, kv_len=None, score_bound=None):
     mode = _MODE_BOUNDED if score_bound is not None else _MODE_ONESHOT
     o = _launch_bf16(q, k, v, kv_len, _bound_tensor(score_bound, q.device),
                      mode)
-    LAUNCHES["cross_attention_bf16"] += 1
+    _count("cross_attention_bf16")
     return o
 
 
 def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
                            rope_tables=None, score_bound=None,
                            save_residuals: bool = False, causal: bool = False,
-                           q_offset: int = 0, q_offsets=None):
+                           q_offset: int = 0, q_offsets=None, q_segments=None,
+                           kv_segments=None, packed_mode: bool = False):
     """Attention over padded [B, L, N, D] (k, v may have N / group heads).
 
     rope_tables: build_fused_rope_tables output -> q and k rotated first
@@ -426,9 +538,12 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
     upper bound on the FOLDED scores -> bounded softmax. causal: query i of
     batch b is row i + q_offset + q_offsets[b] (q_offsets int32 [B] on q's
     device, never read on the host) and sees keys at or before its row.
-    bf16 with Lk <= 512, no rope and not causal takes the single-kv-block
-    cross route, except with save_residuals, which returns (o, lse) from
-    the generic kernel (the training forward; lse as in
+    q_segments [B, Lq], kv_segments [B, Lk] (int32): a query sees only keys
+    of its own id; with packed_mode they are pack_mask_codes codes and the
+    BAGEL packed-training predicate applies (`packed_mask_allowed`; no q
+    offsets). bf16 with Lk <= 512, no rope, no mask but kv_len takes the
+    single-kv-block cross route, except with save_residuals, which returns
+    (o, lse) from the generic kernel (the training forward; lse as in
     `attention_plain`)."""
     b, lq, n, d = q.shape
     lk = k.shape[1]
@@ -436,18 +551,22 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
         raise ValueError(f"pad Lq, Lk ({lq}, {lk}) to multiples of {TILE}")
     if causal and q_offset < 0:
         raise ValueError("a causal q_offset is a row index (>= 0)")
+    # the packed mode's causal term reads the pack's own row indices
+    assert not (packed_mode and (q_offset != 0 or q_offsets is not None)), \
+        "packed_mode does not support q offsets"
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(d)
+    masks = dict(causal=causal, q_offset=q_offset, q_offsets=q_offsets,
+                 q_segments=q_segments, kv_segments=kv_segments,
+                 packed_mode=packed_mode)
     if save_residuals:
-        if rope_tables is not None or causal:
+        if rope_tables is not None:
             raise NotImplementedError(
                 "the training forward takes rotated q and k (the JAX "
-                "package's training path applies rope outside the kernel) "
-                "and is not causal (the causal backward is a later slice, "
-                "ROADMAP.md queue 2)")
+                "package's training path applies rope outside the kernel)")
         return flash_attention_fwd_folded(_fold(q, softmax_scale), k, v,
                                           kv_len=kv_len,
-                                          score_bound=score_bound)
+                                          score_bound=score_bound, **masks)
     if rope_tables is not None:
         rope_tables = _pad_tables(rope_tables, lq, lk,
                                   softmax_scale * LOG2E)
@@ -455,60 +574,84 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
         q = _fold(q, softmax_scale)
         # the cross kernel is bf16; short fp32 sequences (the VAE on small
         # frames) stay on the flash route, the same function
-        if lk <= CROSS_MAX_LK and q.dtype == torch.bfloat16 and not causal:
+        if (lk <= CROSS_MAX_LK and q.dtype == torch.bfloat16 and not causal
+                and q_segments is None):
             return cross_attention_padded(q, k, v, kv_len=kv_len,
                                           score_bound=score_bound)
     if q.is_cuda:
         return _flash_cuda(q, k, v, kv_len, score_bound, rope_tables,
-                           causal=causal, q_offset=q_offset,
-                           q_offsets=q_offsets)
+                           **masks)
     return attention_plain(q, k, v, kv_len=kv_len, bound=score_bound,
-                           rope_tables=rope_tables, causal=causal,
-                           q_offset=q_offset, q_offsets=q_offsets)
+                           rope_tables=rope_tables, **masks)
 
 
-def flash_attention_fwd_folded(qs, k, v, *, kv_len=None, score_bound=None):
+def flash_attention_fwd_folded(qs, k, v, *, kv_len=None, score_bound=None,
+                               causal=False, q_offset=0, q_offsets=None,
+                               q_segments=None, kv_segments=None,
+                               packed_mode=False):
     """The training forward on an already folded qs: (o, lse fp32
     [B, N, Lq]), bounded or running max, any Lk that is a multiple of 64
-    (the generic kernel, also at the Lk = 512 cross shape)."""
+    (the generic kernel, also at the Lk = 512 cross shape); the masks of
+    `flash_attention_padded` (running max only)."""
+    masks = dict(causal=causal, q_offset=q_offset, q_offsets=q_offsets,
+                 q_segments=q_segments, kv_segments=kv_segments,
+                 packed_mode=packed_mode)
     if not qs.is_cuda:
         return attention_plain(qs, k, v, kv_len=kv_len, bound=score_bound,
-                               save_residuals=True)
+                               save_residuals=True, **masks)
     if qs.dtype != torch.bfloat16:
         raise NotImplementedError(
             "the training kernels are bf16; fp32 attention under grad on "
             "the card waits for the fp32 backward (ROADMAP.md queue 2)")
     _check_cuda_inputs(qs, k, v, kv_len, torch.bfloat16, (128,))
+    seg = _check_masks(qs, k.shape[1], q_offsets, q_segments, kv_segments,
+                       packed_mode, causal)
     b, lq, n, _ = qs.shape
     lse = torch.empty((b, n, lq), dtype=torch.float32, device=qs.device)
+    masked = causal or seg is not None
+    if masked and score_bound is not None:
+        raise NotImplementedError(
+            "the causal, segment and packed kernel modes have the running "
+            "max only")
     mode = _MODE_BOUNDED if score_bound is not None else _MODE_RUNNING
     o = _launch_bf16(qs, k, v, kv_len, _bound_tensor(score_bound, qs.device),
-                     mode, lse=lse)
-    LAUNCHES["flash_attention_bf16_lse"] += 1
+                     mode, lse=lse, causal=causal, q_offset=q_offset,
+                     q_offsets=q_offsets, q_segments=q_segments,
+                     kv_segments=kv_segments, seg=seg)
+    _count("flash_attention_bf16_lse", "causal" if causal else seg)
     return o, lse
 
 
 def flash_attention_bwd_padded(q, k, v, o, lse, do, *, kv_len=None,
-                               softmax_scale=None):
+                               softmax_scale=None, causal=False, q_offset=0,
+                               q_offsets=None, q_segments=None,
+                               kv_segments=None, packed_mode=False):
     """dq, dk, dv of `flash_attention_padded` for RAW q (folded here as on
     the TPU), from its output o, its lse and the output cotangent do, all
-    padded [B, L, N, D] (lse [B, N, Lq])."""
+    padded [B, L, N, D] (lse [B, N, Lq]), under the forward's masks."""
     if softmax_scale is None:
         softmax_scale = 1.0 / math.sqrt(q.shape[-1])
-    return flash_attention_bwd_folded(_fold(q, softmax_scale), k, v, o, lse,
-                                      do, kv_len=kv_len,
-                                      softmax_scale=softmax_scale)
+    assert not (packed_mode and (q_offset != 0 or q_offsets is not None)), \
+        "packed_mode does not support q offsets"
+    return flash_attention_bwd_folded(
+        _fold(q, softmax_scale), k, v, o, lse, do, kv_len=kv_len,
+        softmax_scale=softmax_scale, causal=causal, q_offset=q_offset,
+        q_offsets=q_offsets, q_segments=q_segments, kv_segments=kv_segments,
+        packed_mode=packed_mode)
 
 
 def flash_attention_bwd_folded(qs, k, v, o, lse, do, *, kv_len=None,
-                               softmax_scale):
+                               softmax_scale, **masks):
     """The backward on the folded qs of the forward: the plain version on
     the CPU; on the card the dq kernel (which also writes delta) and then
-    the dk/dv kernel."""
+    the dk/dv kernel. masks: causal, q_offset, q_offsets, q_segments,
+    kv_segments, packed_mode."""
     if not qs.is_cuda:
-        return _bwd_plain_folded(qs, k, v, o, lse, do, kv_len, softmax_scale)
-    dq, delta = _bwd_dq_cuda(qs, k, v, o, lse, do, kv_len, softmax_scale)
-    dk, dv = _bwd_dkv_cuda(qs, k, v, do, lse, delta, kv_len)
+        return _bwd_plain_folded(qs, k, v, o, lse, do, kv_len, softmax_scale,
+                                 **masks)
+    dq, delta = _bwd_dq_cuda(qs, k, v, o, lse, do, kv_len, softmax_scale,
+                             **masks)
+    dk, dv = _bwd_dkv_cuda(qs, k, v, do, lse, delta, kv_len, **masks)
     return dq, dk, dv
 
 
@@ -521,42 +664,59 @@ def _check_bwd_inputs(qs, k, v, do, lse, kv_len, *more):
                          "kernel's device")
 
 
-def _bwd_dq_cuda(qs, k, v, o, lse, do, kv_len, softmax_scale):
+def _bwd_mask_args(qs, k, causal, q_offset, q_offsets, q_segments,
+                   kv_segments, packed_mode):
+    """The mask operands of the two backward kernels and the counter's
+    mode."""
+    seg = _check_masks(qs, k.shape[1], q_offsets, q_segments, kv_segments,
+                       packed_mode, causal)
+    args = (_ptr(q_offsets), _ptr(q_segments), _ptr(kv_segments))
+    flags = (int(causal), int(q_offset), _SEG_MODE[seg])
+    return args, flags, "causal" if causal else seg
+
+
+def _bwd_dq_cuda(qs, k, v, o, lse, do, kv_len, softmax_scale, *,
+                 causal=False, q_offset=0, q_offsets=None, q_segments=None,
+                 kv_segments=None, packed_mode=False):
     """dq (q's dtype) and delta = rowsum(do * o), fp32 [B, N, Lq]."""
     _check_bwd_inputs(qs, k, v, do, lse, kv_len, o)
+    args, flags, mode = _bwd_mask_args(qs, k, causal, q_offset, q_offsets,
+                                       q_segments, kv_segments, packed_mode)
     b, lq, n, d = qs.shape
     dq = torch.empty(qs.shape, dtype=qs.dtype, device=qs.device)
     delta = torch.empty((b, n, lq), dtype=torch.float32, device=qs.device)
     fn = _fn("flash_attention_bwd", "univid_flash_bwd_dq_bf16",
-             [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P, _P])
+             [_P] * 12 + [_I] * 8 + [ctypes.c_float, _P, _P])
     strides = _strides(qs, k, v, o, do, dq)
     err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             do.data_ptr(), lse.data_ptr(),
-             kv_len.data_ptr() if kv_len is not None else None,
-             dq.data_ptr(), delta.data_ptr(), b, n, lq, k.shape[1], d,
+             do.data_ptr(), lse.data_ptr(), _ptr(kv_len), *args,
+             dq.data_ptr(), delta.data_ptr(), b, n, lq, k.shape[1], d, *flags,
              softmax_scale, ctypes.addressof(strides), _stream(qs))
     build.check(err, "univid_flash_bwd_dq_bf16")
-    LAUNCHES["flash_attention_bwd_dq_bf16"] += 1
+    _count("flash_attention_bwd_dq_bf16", mode)
     return dq, delta
 
 
-def _bwd_dkv_cuda(qs, k, v, do, lse, delta, kv_len):
+def _bwd_dkv_cuda(qs, k, v, do, lse, delta, kv_len, *, causal=False,
+                  q_offset=0, q_offsets=None, q_segments=None,
+                  kv_segments=None, packed_mode=False):
     """dk, dv (k's and v's dtype) from the dq kernel's delta."""
     _check_bwd_inputs(qs, k, v, do, lse, kv_len)
     if delta.shape != lse.shape or not delta.is_contiguous():
         raise ValueError("delta must be contiguous fp32 [B, N, Lq]")
+    args, flags, mode = _bwd_mask_args(qs, k, causal, q_offset, q_offsets,
+                                       q_segments, kv_segments, packed_mode)
     b, lq, n, d = qs.shape
     lk = k.shape[1]
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     fn = _fn("flash_attention_bwd", "univid_flash_bwd_dkv_bf16",
-             [_P] * 9 + [_I] * 5 + [_P, _P])
+             [_P] * 12 + [_I] * 8 + [_P, _P])
     strides = _strides(qs, k, v, do, dk, dv)
     err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(),
-             kv_len.data_ptr() if kv_len is not None else None,
-             dk.data_ptr(), dv.data_ptr(), b, n, lq, lk, d,
+             lse.data_ptr(), delta.data_ptr(), _ptr(kv_len), *args,
+             dk.data_ptr(), dv.data_ptr(), b, n, lq, lk, d, *flags,
              ctypes.addressof(strides), _stream(qs))
     build.check(err, "univid_flash_bwd_dkv_bf16")
-    LAUNCHES["flash_attention_bwd_dkv_bf16"] += 1
+    _count("flash_attention_bwd_dkv_bf16", mode)
     return dk, dv
