@@ -23,7 +23,10 @@ Phases:
      dq, dk/dv) on the BAGEL training pack's own codes, [1, 4096, 28, 128],
      and padded 4,000 -> 4,032 (pad rows exactly 0, lse +1e30); the
      segment mode at [2, 2048, 12, 128]; the causal backward at the
-     square prefill's shape, offset 0 and q_offsets [0, 37];
+     square prefill's shape, offset 0 and q_offsets [0, 37]; the fp32 d=128
+     kernels (the forward running, bounded and with the lse, the rope
+     pre-pass, dq and dk/dv) at the fp32 fine-tune's self [1, 32768, 12,
+     128] and cross (512 keys) shapes, SDPA on fp32 inputs as yardstick;
   4. hold the port on the card (kernels) against the port on the CPU
      (plain versions) on small d=128 models: the t2v pipeline, the
      FusionPipeline in t2v and i2v (with the ti2v-5B VAE), three LoRA +
@@ -31,7 +34,9 @@ Phases:
      full-width BAGEL extractor and projector (bf16, 1280x704 image)
      against the CPU at a 224x224 and a 300x500 crop; a small BAGEL's
      video-QA context and teacher-forced logits; a small BAGEL's packed
-     training loss and every gradient leaf, freeze_und off and on;
+     training loss and every gradient leaf, freeze_und off and on; two
+     fp32 make_dit_train_step steps and the fp32 t2v pipeline (fused rope)
+     on a small d=128 DiT;
   5. drive the serving path through the port's CLI: t2v-1.3B at
      832x480x81, full depth and width, random weights from a seed, a few
      steps; check the kernels' launch counts and the mp4;
@@ -53,10 +58,17 @@ Phases:
      evaluation forward (28 packed forwards) and a training pass (28
      packed forwards with lse, 28 dq, 28 dk/dv); finite loss, gradients
      in every trainable leaf, seconds, peak memory; profile one more pass;
- 10. run the port's QA CLI with --mock_weights.
+ 10. drive the full DiT fine-tune at its default fp32 policy:
+     make_dit_train_step on t2v-1.3B at 832x480x81, full depth and width,
+     remat 'attn', 2 steps (90 forwards with lse, 60 dq, 60 dk/dv a step);
+     finite losses, every block's weights moved, seconds, peak memory;
+     profile one more step;
+ 11. run the port's QA CLI with --mock_weights.
 Each path starts with every launch count at 0; the `kernels` line gives
 each kernel the launches of its own path (the segment modes and the causal
-backward serve no path of the JAX package at d=128: 0). The last line is
+backward serve no path of the JAX package at d=128: 0; the fp32 d=128
+serving forward and rope pre-pass count the fp32 t2v pipeline run of
+phase 4). The last line is
 {"ok": true, "device": {...}}; any failure exits non-zero.
 """
 
@@ -1034,12 +1046,11 @@ def train_main_path(n_steps):
     # with lse (layer 0's q, k, v have no trainable upstream: the serving
     # kernel, and no backward), cross-attention twice (forward and its
     # recompute in the backward), one backward pair per differentiated call
-    per_step = {"flash_attention_bf16": 1, "flash_attention_bf16_causal": 0,
-                "cross_attention_bf16": 0,
-                "flash_attention_f32": 0, "rope_rotate_bf16": 0,
-                "flash_attention_bf16_lse": 29 + 2 * 30,
-                "flash_attention_bwd_dq_bf16": 29 + 30,
-                "flash_attention_bwd_dkv_bf16": 29 + 30}
+    per_step = dict(dict.fromkeys(fa.LAUNCHES, 0),
+                    flash_attention_bf16=1,
+                    flash_attention_bf16_lse=29 + 2 * 30,
+                    flash_attention_bwd_dq_bf16=29 + 30,
+                    flash_attention_bwd_dkv_bf16=29 + 30)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
@@ -1233,17 +1244,14 @@ def ti2v_main_path(output_dir):
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     n_dec = (frames - 1) // 4 + 1   # 1 + 30 chunks of one latent frame
-    per_video = {"flash_attention_bf16": 30 * steps,
-                 "flash_attention_bf16_causal": 0,
-                 "cross_attention_bf16": 30 * steps,
-                 "rope_rotate_bf16": 60 * steps,
-                 "flash_attention_f32": n_dec,
-                 "flash_attention_f32 d=384": 0,
-                 "flash_attention_f32 d=640": 0,
-                 "flash_attention_f32 d=1024": n_dec,   # per decoded chunk
-                 "flash_attention_bf16_lse": 0,
-                 "flash_attention_bwd_dq_bf16": 0,
-                 "flash_attention_bwd_dkv_bf16": 0}
+    per_video = dict(dict.fromkeys(fa.LAUNCHES, 0), **{
+        "flash_attention_bf16": 30 * steps,
+        "cross_attention_bf16": 30 * steps,
+        "rope_rotate_bf16": 60 * steps,
+        "flash_attention_f32": n_dec,
+        "flash_attention_f32 d=384": 0,
+        "flash_attention_f32 d=640": 0,
+        "flash_attention_f32 d=1024": n_dec})   # per decoded chunk
     # i2v adds the d=640 launch of its first-frame encode
     expected = {"t2v": per_video,
                 "i2v": dict(per_video, **{"flash_attention_f32": n_dec + 1,
@@ -2431,6 +2439,489 @@ def bagel_train_main_path():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the full DiT fine-tune at its default fp32 policy
+# ---------------------------------------------------------------------------
+
+FP32_TRAIN_FRAMES = 81   # 832x480x81: 32,760 tokens padded to 32,768
+FP32_TRAIN_STEPS = 2
+
+
+def _bwd_check(name, got, ref):
+    """dq / dk / dv of an fp32 backward kernel: 1e-4 max|ref| + 1e-4 |ref|
+    elementwise and rel. L2 < 1e-4."""
+    why = ("fp32 throughout; summation order over the keys (or queries) "
+           "and the approximate exp2 (2^-22 relative)")
+    err = compare(name, got, ref, atol=1e-4 * float(ref.abs().max()),
+                  rtol=1e-4, why=why)
+    check_grad(f"{name} rel_l2", got, ref, 1e-4, why)
+    return err
+
+
+def check_f32_d128_kernels():
+    """The fp32 d=128 kernels against their plain versions at the fp32
+    fine-tune's shapes: the forward (running max, bounded, and with the
+    lse) at self-attention q, k, v [1, 32768, 12, 128], kv_len 32,760, keys
+    past it 50.0; the cross shape q [1, 32768, 12, 128] over k, v [1, 512,
+    12, 128] (running max, with and without the lse); the rope pre-pass at
+    [1, 32768, 12, 128]; the dq and dk/dv kernels at the self and cross
+    shapes from the plain residuals; kv_len = 0 rows at [2, 4096, 12, 128]
+    (exactly 0, lse +1e30, zero gradients). Each timed with CUDA events
+    beside its plain version and the library's call (SDPA on fp32 inputs,
+    TF32 off; its backward alone). Returns the records of the kernels line
+    (self shape; the cross shape on `kernel_at_cross_shape` lines)."""
+    import torch
+    import torch.nn.functional as F
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.ops.rope import build_rope_3d
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, l, n, d = 1, 32768, 12, 128
+    sc = 1.0 / math.sqrt(d)
+    bound = torch.tensor([1.01 * d * sc * fa.LOG2E], device="cuda")
+    fwd_tol = dict(atol=1e-5, rtol=1e-4,
+                   why="fp32 throughout; summation order and the "
+                       "approximate exp2 (2^-22 relative)")
+    lse_tol = dict(atol=1e-4, rtol=0.0,
+                   why="fp32 log2 of an fp32 row sum; summation order and "
+                       "the approximate exp2")
+    out = {}
+
+    # ---- rope pre-pass (fp32 serving with fused rope) --------------------
+    x = qk_normed((b, l, n, d), gen, torch.float32)
+    cos, sin = build_rope_3d(d, (21, 30, 52), device="cuda")
+    cq, sq, _, _ = fa._pad_tables(fa.build_fused_rope_tables(cos, sin, d), l,
+                                  l, fa.LOG2E / math.sqrt(d))
+    with torch.no_grad():
+        err = compare("rope_rotate_f32", fa._rope_f32(x, cq, sq),
+                      fa.rotate(x, cq, sq, torch.float32), atol=0.0,
+                      rtol=0.0, why="the same two fp32 products and sum, "
+                                    "each rounded once")
+        ms = cuda_time(lambda: fa._rope_f32(x, cq, sq), 5)
+        plain_ms = cuda_time(lambda: fa.rotate(x, cq, sq, torch.float32), 3)
+    bms, by = bound_ms(3 * x.numel(), 2 * nbytes(x) + nbytes(cq, sq),
+                       H100_FP32_FLOPS)
+    out["rope_rotate_f32"] = dict(
+        name="rope_rotate_f32", route="cuda",
+        source="univid_tpu_torch/kernels/csrc/flash_attention_f32_d128.cu",
+        replaces="univid_tpu/kernels/flash_attention.py:157",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=None)
+    del x, cos, sin, cq, sq
+
+    # ---- kv_len = 0 rows: exact zeros, lse +1e30, zero gradients --------
+    qz, kz, vz, dz = (qk_normed((2, 4096, n, d), gen, torch.float32)
+                      for _ in range(4))
+    kz[0, 4000:] = 50.0
+    vz[0, 4000:] = 50.0
+    kvz = torch.tensor([4000, 0], dtype=torch.int32, device="cuda")
+    qz = fa._fold(qz, sc)
+    with torch.no_grad():
+        oz, lz = fa.flash_attention_fwd_folded(qz, kz, vz, kv_len=kvz)
+        op, lp = fa.attention_plain(qz, kz, vz, kv_len=kvz,
+                                    save_residuals=True)
+        compare("flash_attention_f32_lse kv_len [4000, 0] output", oz, op,
+                **fwd_tol)
+        compare("flash_attention_f32_lse kv_len [4000, 0] lse", lz, lp,
+                **lse_tol)
+        gz = fa.flash_attention_bwd_folded(qz, kz, vz, op, lp, dz,
+                                           kv_len=kvz, softmax_scale=sc)
+        for nm, gr, ref in zip(("dq", "dk", "dv"), gz, fa._bwd_plain_folded(
+                qz, kz, vz, op, lp, dz, kvz, sc)):
+            _bwd_check(f"flash_attention_bwd_f32 kv_len [4000, 0] {nm}", gr,
+                       ref)
+        if (float(oz[1].abs().max()) != 0.0 or not bool((lz[1] == 1e30).all())
+                or any(float(gr[1].abs().max()) != 0.0 for gr in gz)
+                or float(gz[1][0, 4000:].abs().max()) != 0.0
+                or float(gz[2][0, 4000:].abs().max()) != 0.0):
+            fail("fp32 d=128: kv_len = 0 rows are not 0 (lse +1e30), or "
+                 "dk / dv past kv_len are not 0")
+    del qz, kz, vz, dz, oz, lz, op, lp, gz
+
+    for shape, lk, kv_real in (("self", l, 32760), ("cross", 512, None)):
+        q = qk_normed((b, l, n, d), gen, torch.float32)
+        k = qk_normed((b, lk, n, d), gen, torch.float32)
+        v = torch.randn((b, lk, n, d), generator=gen, device="cuda")
+        do = torch.randn((b, l, n, d), generator=gen, device="cuda")
+        kv_len = None
+        if kv_real is not None:
+            kv_len = torch.full((b,), kv_real, dtype=torch.int32,
+                                device="cuda")
+            k[:, kv_real:] = 50.0
+            v[:, kv_real:] = 50.0
+        kv_eff = kv_real or lk
+        qs = fa._fold(q, sc)
+        errs = {}
+        with torch.no_grad():
+            # serving forward: running max (the fp32 policy's), and bounded
+            want = fa.attention_plain(qs, k, v, kv_len=kv_len)
+            errs["fwd"] = compare(
+                f"flash_attention_f32_d128 {shape} running max",
+                fa._flash_cuda(qs, k, v, kv_len, None, None), want,
+                **fwd_tol)
+            errs["fwd"] = max(errs["fwd"], compare(
+                f"flash_attention_f32_d128 {shape} bounded",
+                fa._flash_cuda(qs, k, v, kv_len, bound, None),
+                fa.attention_plain(qs, k, v, kv_len=kv_len, bound=bound),
+                **fwd_tol))
+            del want
+            # training forward with the lse, running max and bounded
+            o_p, lse_p = fa.attention_plain(qs, k, v, kv_len=kv_len,
+                                            save_residuals=True)
+            o, lse = fa.flash_attention_fwd_folded(qs, k, v, kv_len=kv_len)
+            errs["lse_fwd"] = max(
+                compare(f"flash_attention_f32_lse {shape} output", o, o_p,
+                        **fwd_tol),
+                compare(f"flash_attention_f32_lse {shape} lse", lse, lse_p,
+                        **lse_tol))
+            ob, lb = fa.flash_attention_fwd_folded(qs, k, v, kv_len=kv_len,
+                                                   score_bound=bound)
+            ob_p, lb_p = fa.attention_plain(qs, k, v, kv_len=kv_len,
+                                            bound=bound, save_residuals=True)
+            errs["lse_fwd"] = max(
+                errs["lse_fwd"],
+                compare(f"flash_attention_f32_lse {shape} bounded output",
+                        ob, ob_p, **fwd_tol),
+                compare(f"flash_attention_f32_lse {shape} bounded lse", lb,
+                        lb_p, **lse_tol))
+            del o, lse, ob, lb, ob_p, lb_p
+            # the backward alone, from the plain residuals
+            dq, delta = fa._bwd_dq_f32(qs, k, v, o_p, lse_p, do, kv_len, sc)
+            dk, dv = fa._bwd_dkv_f32(qs, k, v, do, lse_p, delta, kv_len)
+            want = fa._bwd_plain_folded(qs, k, v, o_p, lse_p, do, kv_len, sc)
+            for nm, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+                key = "bwd_dq" if nm == "dq" else "bwd_dkv"
+                errs[key] = max(errs.get(key, 0.0), _bwd_check(
+                    f"flash_attention_bwd_f32 {shape} {nm}", got, ref))
+            if kv_real is not None and (
+                    float(dk[:, kv_real:].abs().max()) != 0.0
+                    or float(dv[:, kv_real:].abs().max()) != 0.0):
+                fail("flash_attention_bwd_f32: dk / dv past kv_len are not 0")
+            del want
+            ms = {
+                "fwd": cuda_time(lambda: fa._flash_cuda(
+                    qs, k, v, kv_len, None, None), 3),
+                "lse_fwd": cuda_time(lambda: fa.flash_attention_fwd_folded(
+                    qs, k, v, kv_len=kv_len), 3),
+                "bwd_dq": cuda_time(lambda: fa._bwd_dq_f32(
+                    qs, k, v, o_p, lse_p, do, kv_len, sc), 2),
+                "bwd_dkv": cuda_time(lambda: fa._bwd_dkv_f32(
+                    qs, k, v, do, lse_p, delta, kv_len), 2),
+            }
+            plain_fwd = cuda_time(lambda: fa.attention_plain(
+                qs, k, v, kv_len=kv_len), 1, warmup=0)
+            plain_lse = cuda_time(lambda: fa.attention_plain(
+                qs, k, v, kv_len=kv_len, save_residuals=True), 1, warmup=0)
+            plain_bwd = cuda_time(lambda: fa._bwd_plain_folded(
+                qs, k, v, o_p, lse_p, do, kv_len, sc), 1, warmup=0)
+            qg, kg, vg = (x.transpose(1, 2)[:, :, :m] for x, m in
+                          ((qs, l), (k, kv_eff), (v, kv_eff)))
+            lib_fwd = cuda_time(lambda: F.scaled_dot_product_attention(
+                qg, kg, vg, scale=1.0 / fa.LOG2E), 3)
+        # SDPA's backward on the live keys, from a forward that saved its
+        # logsumexp (inputs that need a gradient)
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (qg, kg, vg))
+        dog = do.transpose(1, 2)
+        ref_out = F.scaled_dot_product_attention(qg, kg, vg,
+                                                 scale=1.0 / fa.LOG2E)
+        lib_bwd = cuda_time(lambda: torch.autograd.grad(
+            ref_out, (qg, kg, vg), dog, retain_graph=True), 2)
+        del ref_out, qg, kg, vg, dog
+
+        mm = 2.0 * b * n * l * kv_eff * d   # flops of one product
+        row = nbytes(qs)                    # one [B, Lq, N, D] fp32 tensor
+        kvb = nbytes(k, v)
+        lseb = b * n * l * 4
+        bounds = {
+            "fwd": bound_ms(2 * mm, 2 * row + kvb, H100_FP32_FLOPS),
+            "lse_fwd": bound_ms(2 * mm, 2 * row + kvb + lseb,
+                                H100_FP32_FLOPS),
+            # s, dp, dq = dS k; reads qs, o, dO, k, v, lse; writes dq, delta
+            "bwd_dq": bound_ms(3 * mm, 4 * row + kvb + 2 * lseb,
+                               H100_FP32_FLOPS),
+            # s^T, dp^T, dv, dk; reads qs, dO, k, v, lse, delta; writes dk, dv
+            "bwd_dkv": bound_ms(4 * mm, 2 * row + 2 * kvb + 2 * lseb,
+                                H100_FP32_FLOPS),
+        }
+        fwd_src = "univid_tpu_torch/kernels/csrc/flash_attention_f32_d128.cu"
+        bwd_src = "univid_tpu_torch/kernels/csrc/flash_attention_bwd_f32.cu"
+        meta = {
+            "fwd": ("flash_attention_f32_d128", fwd_src,
+                    "univid_tpu/kernels/flash_attention.py:"
+                    + ("44" if shape == "self" else "355"),
+                    plain_fwd, lib_fwd),
+            "lse_fwd": ("flash_attention_f32_lse", fwd_src,
+                        "univid_tpu/kernels/flash_attention.py:343",
+                        plain_lse, lib_fwd),
+            "bwd_dq": ("flash_attention_bwd_dq_f32", bwd_src,
+                       "univid_tpu/kernels/flash_attention.py:831",
+                       plain_bwd, lib_bwd),
+            "bwd_dkv": ("flash_attention_bwd_dkv_f32", bwd_src,
+                        "univid_tpu/kernels/flash_attention.py:940",
+                        plain_bwd, lib_bwd),
+        }
+        for key, (name, src, rep, plain_ms, lib_ms) in meta.items():
+            rec = dict(name=name, route="cuda", source=src, replaces=rep,
+                       max_abs_err=errs[key], ms=ms[key], plain_ms=plain_ms,
+                       bound_ms=bounds[key][0], bound_by=bounds[key][1],
+                       library_ms=lib_ms)
+            if shape == "self":
+                out[name] = rec
+            else:
+                log(json.dumps({"kernel_at_cross_shape": rec}))
+        del q, k, v, do, qs, o_p, lse_p, dq, dk, dv, delta
+        torch.cuda.empty_cache()
+    for rec in out.values():
+        log(json.dumps({"kernel": rec}))
+    return out
+
+
+def _small_fp32_dit(cfg):
+    """A seeded fp32 WanDiT on the CPU with the zero head redrawn (it would
+    block every gradient) and non-unit qk gains (they move the bounds)."""
+    import torch
+
+    from univid_tpu_torch.models.wan.dit import WanDiT
+
+    gen = torch.Generator().manual_seed(0)
+    dit = WanDiT(cfg, dtype=torch.float32, device="cpu", gen=gen)
+    with torch.no_grad():
+        dit.head.head.w.normal_(0.0, 0.02, generator=gen)
+        for blk in dit.blocks:
+            for a in (blk.self_attn, blk.cross_attn):
+                a.norm_q.uniform_(0.5, 1.5, generator=gen)
+                a.norm_k.uniform_(0.5, 1.5, generator=gen)
+    return dit
+
+
+def fp32_train_parity():
+    """The fp32 policy on the card (kernels) against the CPU (plain
+    versions), same weights and inputs, on a 2-layer d=128 DiT (dim 256):
+    two make_dit_train_step steps at FP32_POLICY (remat 'attn', 240 tokens
+    padded to 256), held as tests/test_torch_fp32_train.py holds the port
+    against JAX (losses 1e-5 relative, each parameter 1e-5 relative + 1e-4
+    absolute, each tensor's change 5e-4 relative L2); then the fp32 t2v
+    pipeline (WanTI2VPipeline at FP32_POLICY, fused rope, batch-2 CFG, 4
+    steps, the t2v-1.3B VAE in fp32) at 64x64x9, latents and video rel. L2
+    < 1e-4. Returns the pipeline's launches on the card (the fp32 d=128
+    serving forward and rope pre-pass)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from univid_tpu_torch.core.config import (WAN_CONFIGS, WanDiTConfig,
+                                              WanModelSpec)
+    from univid_tpu_torch.core.dtypes import FP32_POLICY
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.wan.vae_api import WanVAE, vae_decode
+    from univid_tpu_torch.ops.rope import build_rope_3d
+    from univid_tpu_torch.pipelines.ti2v import WanTI2VPipeline
+    from univid_tpu_torch.train import trainer
+
+    cfg = WanDiTConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2,
+                       in_dim=16, out_dim=16, text_dim=32, freq_dim=32,
+                       text_len=8, patch_size=(1, 2, 2))
+    dit = _small_fp32_dit(cfg)
+    rng = np.random.default_rng(12)
+    grid = (4, 6, 10)   # 240 tokens
+    batch = {"latents": rng.standard_normal((1, 4, 12, 20, 16)),
+             "noise": rng.standard_normal((1, 4, 12, 20, 16)),
+             "t": np.array([500.0]),
+             "context": rng.standard_normal((1, 8, 32)) * 0.5}
+
+    def train(device):
+        model = copy.deepcopy(dit).to(device)
+        state, tx = trainer.init_train_state(model,
+                                             trainer.make_optimizer(1e-3))
+        step = trainer.make_dit_train_step(
+            cfg, tx, rope=build_rope_3d(128, grid, device=device),
+            remat_blocks="attn", seq_pad_to=256)
+        losses = []
+        for _ in range(2):
+            state, loss = step(state, {
+                k: torch.as_tensor(v, dtype=torch.float32).to(device)
+                for k, v in batch.items()})
+            losses.append(float(loss))
+        return losses, {nm: p.detach().cpu()
+                        for nm, p in model.named_parameters()}
+
+    fa.reset_launches()
+    loss_gpu, par_gpu = train("cuda")
+    used = {k: c for k, c in launch_counts().items() if c}
+    loss_cpu, par_cpu = train("cpu")
+    start = {nm: p.detach() for nm, p in dit.named_parameters()}
+    param_excess = max(float(((par_gpu[nm] - w).abs()
+                              - (1e-4 + 1e-5 * w.abs())).max())
+                       for nm, w in par_cpu.items())
+    moved = {nm: rel_l2(par_gpu[nm] - start[nm], w - start[nm])
+             for nm, w in par_cpu.items()}
+    worst = sorted(moved.items(), key=lambda kv: -kv[1])[:3]
+    loss_err = max(abs(a - c) / abs(c) for a, c in zip(loss_gpu, loss_cpu))
+    want = {"flash_attention_f32_lse": 12, "flash_attention_bwd_dq_f32": 8,
+            "flash_attention_bwd_dkv_f32": 8}
+    out = {"check": "fp32_train_parity", "loss_card": loss_gpu,
+           "loss_cpu": loss_cpu, "loss_rel_err": loss_err,
+           "param_excess_over_1e-4+1e-5|ref|": param_excess,
+           "worst_change_rel_l2": worst, "limits": [1e-5, 5e-4],
+           "why": "fp32 on both sides: summation orders of cuBLAS, the CPU "
+                  "and the kernels; AdamW moves an element whose gradient "
+                  "is at fp32 noise by a rounding-dependent part of lr",
+           "launches": used, "expected_launches": want}
+    out["ok"] = (loss_err < 1e-5 and param_excess <= 0.0
+                 and worst[0][1] < 5e-4 and used == want
+                 and all(math.isfinite(x) for x in loss_gpu))
+    log(json.dumps(out))
+    if not out["ok"]:
+        fail("the fp32 fine-tune step on the card disagrees with the CPU, "
+             "or went through other kernels")
+
+    # fp32 serving: the t2v pipeline with fused rope
+    base = WAN_CONFIGS["t2v-1.3B"]
+    spec = WanModelSpec(name="smoke-fp32-d128", dit=cfg, vae=base.vae,
+                        generation=base.generation)
+    vae = WanVAE(base.vae, dtype=torch.float32, device="cpu",
+                 gen=torch.Generator().manual_seed(1))
+    noise = torch.as_tensor(rng.standard_normal((1, 3, 8, 8, 16)),
+                            dtype=torch.float32)
+    ctx, nctx = (torch.as_tensor(rng.standard_normal((1, 8, 32)) * 0.5,
+                                 dtype=torch.float32) for _ in range(2))
+
+    def serve(device):
+        d, v = copy.deepcopy(dit).to(device), copy.deepcopy(vae).to(device)
+        pipe = WanTI2VPipeline(spec, d, v, policy=FP32_POLICY)
+        fn = pipe.denoise_fn((3, 8, 8), 48, 4, 5.0, 5.0, "unipc", None)
+        with torch.no_grad():
+            x0 = fn(d, noise.to(device), ctx.to(device), nctx.to(device),
+                    torch.zeros_like(noise).to(device))
+            return x0.float().cpu(), vae_decode(v, x0).float().cpu()
+
+    fa.reset_launches()
+    x_gpu, v_gpu = serve("cuda")
+    serving = launch_counts()
+    x_cpu, v_cpu = serve("cpu")
+    out = {"check": "fp32_serve_parity", "latent_rel_l2": rel_l2(x_gpu, x_cpu),
+           "video_rel_l2": rel_l2(v_gpu, v_cpu), "limit": 1e-4,
+           "why": "fp32 policy on both sides: summation orders only, over 2 "
+                  "blocks x 4 UniPC steps and the decode",
+           "launches": {k: c for k, c in serving.items() if c},
+           "finite": bool(torch.isfinite(v_gpu).all())}
+    out["ok"] = (out["finite"] and out["latent_rel_l2"] < 1e-4
+                 and out["video_rel_l2"] < 1e-4
+                 and serving["flash_attention_f32_d128"] > 0
+                 and serving["rope_rotate_f32"] > 0)
+    log(json.dumps(out))
+    if not out["ok"]:
+        fail("the fp32 t2v pipeline on the card disagrees with the CPU, or "
+             "did not run the fp32 d=128 kernels")
+    return serving
+
+
+def fp32_train_main_path(n_steps):
+    """The full DiT fine-tune at its default policy: make_dit_train_step
+    (FP32_POLICY) on t2v-1.3B at full width and depth (dim 1536, 30 layers,
+    12 heads of d=128; fp32 weights drawn on the card from seeds, the zero
+    head redrawn so that gradients reach every block), latents [1, 21, 60,
+    104, 16] (832x480x81: 32,760 tokens padded to 32,768), a [1, 512,
+    4096] context, t = 500, remat 'attn', AdamW from make_optimizer(1e-4);
+    `n_steps` steps with their launches asserted, seconds, peak memory,
+    finite losses, every block's weights moved; one more step profiled.
+    Returns the launch counts of the timed steps."""
+    import gc
+
+    import torch
+
+    from univid_tpu_torch.core.config import WAN_CONFIGS, latent_shape
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.wan.dit import WanDiT
+    from univid_tpu_torch.ops.rope import build_rope_3d
+    from univid_tpu_torch.train import trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = WAN_CONFIGS["t2v-1.3B"]
+    cfg = spec.dit
+    _, f, lh, lw = latent_shape(spec, 832, 480, FP32_TRAIN_FRAMES)
+    grid = (f, lh // 2, lw // 2)
+    tokens = grid[0] * grid[1] * grid[2]
+    pad_to = -(-tokens // 64) * 64
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    t0 = time.perf_counter()
+    dit = WanDiT(cfg, dtype=torch.float32, device="cuda", gen=gen(60))
+    with torch.no_grad():   # the zero head blocks every gradient
+        dit.head.head.w.normal_(0.0, 0.02, generator=gen(61))
+    state, tx = trainer.init_train_state(dit, trainer.make_optimizer(1e-4))
+    step = trainer.make_dit_train_step(
+        cfg, tx, rope=build_rope_3d(cfg.head_dim, grid, device="cuda"),
+        remat_blocks="attn", seq_pad_to=pad_to)
+    c = spec.vae.z_dim
+    batch = {"latents": torch.randn((1, f, lh, lw, c), generator=gen(62),
+                                    device="cuda"),
+             "noise": torch.randn((1, f, lh, lw, c), generator=gen(63),
+                                  device="cuda"),
+             "context": torch.randn((1, cfg.text_len, cfg.text_dim),
+                                    generator=gen(64), device="cuda"),
+             "t": torch.tensor([500.0], device="cuda")}
+    blocks = {nm: p.detach().cpu() for nm, p in dit.named_parameters()
+              if nm.startswith("blocks.")}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # per step, remat 'attn': 30 self-attention forwards with lse (every
+    # layer trains), 30 cross forwards and their 30 recomputes in the
+    # backward, one backward pair per differentiated call
+    per_step = dict(dict.fromkeys(launch_counts(), 0),
+                    flash_attention_f32_lse=3 * cfg.num_layers,
+                    flash_attention_bwd_dq_f32=2 * cfg.num_layers,
+                    flash_attention_bwd_dkv_f32=2 * cfg.num_layers)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    seconds, losses = [], []
+    for i in range(n_steps):
+        before = launch_counts()
+        t1 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))   # waits for the step
+        seconds.append(time.perf_counter() - t1)
+        counts = {k: v - before[k] for k, v in launch_counts().items()}
+        if counts != per_step:
+            fail(f"fp32 train step {i + 1} launches "
+                 f"{ {k: v for k, v in counts.items() if v} } != "
+                 f"{ {k: v for k, v in per_step.items() if v} }")
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    still = [nm for nm, p in dit.named_parameters()
+             if nm in blocks and torch.equal(p.detach().cpu(), blocks[nm])]
+    del blocks
+    state, profiled = profile_step(step, state, batch)
+    out = {"phase": "fp32_train_main_path", "model": "t2v-1.3B",
+           "policy": "FP32_POLICY", "resolution": f"832x480x{FP32_TRAIN_FRAMES}",
+           "tokens": tokens, "padded_to": pad_to, "remat_blocks": "attn",
+           "params": sum(p.numel() for p in dit.parameters()),
+           "init_s": init_s, "steps": n_steps, "step_seconds": seconds,
+           # the first step also allocates: the median of the others
+           "seconds_per_step": statistics.median(seconds[1:] or seconds),
+           "peak_memory_gb": peak, "losses": losses,
+           "block_tensors_unmoved": still[:5],
+           "launches": {k: v for k, v in launches.items() if v},
+           "launches_per_step": {k: v for k, v in per_step.items() if v},
+           "profiled_step": profiled}
+    log(json.dumps(out))
+    if not all(math.isfinite(x) for x in losses):
+        fail("non-finite fp32 training loss")
+    if still:
+        fail(f"block weights that did not move: {still[:5]}")
+    if peak >= 80.0:
+        fail(f"fp32 fine-tune peak memory {peak:.1f} GB")
+    del state, step, dit, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def kernels_line(records, by_path, mask_records):
     """The `kernels` line: each kernel's record with the launches of the
     path it serves (None with --kernels-only) and `launches_by_path`."""
@@ -2438,7 +2929,13 @@ def kernels_line(records, by_path, mask_records):
            "flash_attention_bf16_causal": "bagel",
            "flash_attention_bf16_lse": "train",
            "flash_attention_bwd_dq_bf16": "train",
-           "flash_attention_bwd_dkv_bf16": "train"}
+           "flash_attention_bwd_dkv_bf16": "train",
+           # fp32 serving: the fp32 t2v pipeline run of fp32_train_parity
+           "flash_attention_f32_d128": "fp32_serve",
+           "rope_rotate_f32": "fp32_serve",
+           "flash_attention_f32_lse": "fp32_train",
+           "flash_attention_bwd_dq_f32": "fp32_train",
+           "flash_attention_bwd_dkv_f32": "fp32_train"}
     # the packed modes serve BAGEL packed training; no path of the JAX
     # package reaches the segment modes at d=128 (SigLIP's segments are
     # d=72, the reference route) or the causal backward (no causal training
@@ -2504,6 +3001,7 @@ def main():
     records.update(check_causal_kernels())
     mask_records = check_mask_kernels()
     records.update(mask_records)
+    records.update(check_f32_d128_kernels())
     log(json.dumps({"phase": "kernel_checks",
                     "seconds": time.perf_counter() - t0}))
 
@@ -2517,11 +3015,14 @@ def main():
                            lambda: full_width_extractor(args.output_dir)),
                           ("small_bagel_parity", small_bagel_parity),
                           ("small_bagel_train_parity",
-                           small_bagel_train_parity)):
+                           small_bagel_train_parity),
+                          ("fp32_train_parity", fp32_train_parity)):
             t0 = time.perf_counter()
-            fn()
+            res = fn()
             log(json.dumps({"phase": phase,
                             "seconds": time.perf_counter() - t0}))
+            if phase == "fp32_train_parity":
+                by_path["fp32_serve"] = res
         # each path is driven with every count at 0 just before it; a
         # kernel's launches are those of the path it serves (the t2v-1.3B
         # CLI run for the serving kernels, the ti2v-5B run for the fp32 VAE
@@ -2545,6 +3046,10 @@ def main():
         t0 = time.perf_counter()
         by_path["bagel_train"] = bagel_train_main_path()
         log(json.dumps({"phase": "bagel_train_main_path_total",
+                        "seconds": time.perf_counter() - t0}))
+        t0 = time.perf_counter()
+        by_path["fp32_train"] = fp32_train_main_path(FP32_TRAIN_STEPS)
+        log(json.dumps({"phase": "fp32_train_main_path_total",
                         "seconds": time.perf_counter() - t0}))
         t0 = time.perf_counter()
         qa_cli_on_card(args.output_dir)

@@ -7,8 +7,11 @@ JAX nor univid_tpu, so it also runs where only PyTorch is installed:
 
 Small shapes; chip_smoke.py holds the kernels at the main path's shapes.
 Tolerances: fp32 2e-5 (rounding and the approximate exp2; the d=640 /
-d=1024 kernel at its stated 1e-5 + 1e-4 |ref|); bf16 2e-2 relative (one
-bf16 rounding of p and of the output, 2^-8).
+d=1024 kernel and the fp32 d=128 forward at their stated 1e-5 + 1e-4 |ref|,
+lse 1e-4; the fp32 d=128 backward 1e-4 max|ref| + 1e-4 |ref| and rel. L2
+< 1e-4); bf16 2e-2 relative (one bf16 rounding of p and of the output,
+2^-8). The fp32 fine-tune step on the card is held against the CPU as
+tests/test_torch_fp32_train.py holds it against JAX.
 """
 
 import math
@@ -390,3 +393,208 @@ def test_cuda_masked_backward_matches_plain(cuda_device, case):
     if "q_segments" in kw:
         assert float(grads[0][:, -30:].abs().max()) == 0.0
         assert float(grads[1][:, -30:].abs().max()) == 0.0
+
+
+# fp32 d=128 (the DiT at its default fp32 policy): forward modes (lq, lk,
+# bounded, lse), kv_len (200, 0) where lk == lq; [2, 256, 2, 128] and the
+# cross shape q [2, 256, 2, 128] over k, v [2, 512, 2, 128]; lq = 192 ends
+# in half of the kernel's 128-row q tile
+F32_D128_FWD = {"running": (256, 256, False, False),
+                "running_lse": (256, 256, False, True),
+                "bounded": (256, 256, True, False),
+                "bounded_lse": (256, 256, True, True),
+                "cross512": (256, 512, False, False),
+                "cross512_lse": (256, 512, False, True),
+                "lq192_lse": (192, 192, False, True)}
+
+
+def _f32_d128_inputs(cuda_device, lk, masked, seed=60, lq=256):
+    q = torch.as_tensor(_rand((2, lq, 2, 128), seed, True)).to(cuda_device)
+    k, v = (torch.as_tensor(_rand((2, lk, 2, 128), s, True)).to(cuda_device)
+            for s in (seed + 1, seed + 2))
+    kv = None
+    if masked:   # keys past kv_len hold large values
+        kv = torch.tensor([200, 0], dtype=torch.int32, device=cuda_device)
+        k[0, 200:] = 50.0
+        v[0, 200:] = 50.0
+    return tfa._fold(q, 128 ** -0.5), k, v, kv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(F32_D128_FWD))
+def test_cuda_f32_d128_forward_matches_plain(cuda_device, mode):
+    """The fp32 d=128 forward (running max or bounded, with and without the
+    lse, kv_len, a half q tile) against its plain version on the card: 1e-5
+    + 1e-4 |ref| (summation order and the approximate exp2), lse 1e-4
+    absolute; kv_len = 0 rows exactly 0 with lse +1e30."""
+    lq, lk, bounded, lse = F32_D128_FWD[mode]
+    qs, k, v, kv = _f32_d128_inputs(cuda_device, lk, lk == lq, lq=lq)
+    bound = (torch.tensor([1.01 * 128 * LOG2E / math.sqrt(128)],
+                          device=cuda_device) if bounded else None)
+    tfa.reset_launches()
+    with torch.no_grad():
+        if lse:
+            got, got_lse = tfa.flash_attention_fwd_folded(
+                qs, k, v, kv_len=kv, score_bound=bound)
+            want, want_lse = tfa.attention_plain(qs, k, v, kv_len=kv,
+                                                 bound=bound,
+                                                 save_residuals=True)
+        else:
+            got = tfa._flash_cuda(qs, k, v, kv, bound, None)
+            want = tfa.attention_plain(qs, k, v, kv_len=kv, bound=bound)
+    torch.cuda.synchronize()
+    name = "flash_attention_f32_lse" if lse else "flash_attention_f32_d128"
+    assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {name: 1}
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    if lse:
+        np.testing.assert_allclose(got_lse.cpu().numpy(),
+                                   want_lse.cpu().numpy(), rtol=0, atol=1e-4)
+    if kv is not None:
+        assert float(got[1].abs().max()) == 0.0
+        if lse:
+            assert bool((got_lse[1] == 1e30).all())
+
+
+@pytest.mark.cuda
+def test_cuda_f32_rope_and_fused_forward_match_plain(cuda_device):
+    """The fp32 rope pre-pass equals its plain version exactly (the same
+    two fp32 products and sum, each rounded once), and the fp32 serving
+    forward with fused rope, bounded, kv_len, matches the plain version."""
+    d = 128
+    q, k, v, _ = _f32_d128_inputs(cuda_device, 512, False, seed=70)
+    tabs = tfa._pad_tables(tfa.build_fused_rope_tables(
+        *trope3d(d, (8, 8, 8), device=cuda_device), d), 256, 512,
+        LOG2E / math.sqrt(d))
+    cq, sq, ck, sk = tabs
+    kv = torch.tensor([400, 512], dtype=torch.int32, device=cuda_device)
+    bound = torch.tensor([1.01 * d * LOG2E / math.sqrt(d)], device=cuda_device)
+    tfa.reset_launches()
+    with torch.no_grad():
+        qr = tfa._rope_f32(q, cq, sq)
+        assert torch.equal(qr, tfa.rotate(q, cq, sq, torch.float32))
+        got = tfa.flash_attention_padded(q, k, v, kv_len=kv,
+                                         rope_tables=tabs, score_bound=bound)
+        want = tfa.attention_plain(q, k, v, kv_len=kv, bound=bound,
+                                   rope_tables=tabs)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
+        "rope_rotate_f32": 3, "flash_attention_f32_d128": 1}
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+
+
+def _bwd_close(got, ref, name):
+    """dq / dk / dv within 1e-4 max|ref| + 1e-4 |ref|, rel. L2 < 1e-4."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    lim = 1e-4 * ref.abs().max() + 1e-4 * ref.abs()
+    assert bool(((got - ref).abs() <= lim).all()), name
+    assert _rel(got, ref) < 1e-4, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["running", "bounded", "cross512"])
+def test_cuda_f32_d128_backward_matches_plain(cuda_device, mode):
+    """The fp32 dq and dk/dv kernels against their plain version on the
+    card, from the plain residuals (1e-4 max|ref| + 1e-4 |ref| and rel. L2
+    < 1e-4: summation order and the approximate exp2); kv_len = 0 gives
+    zero gradients, and dk, dv past kv_len are zero."""
+    lk = 512 if mode == "cross512" else 256
+    qs, k, v, kv = _f32_d128_inputs(cuda_device, lk, lk == 256, seed=80)
+    bound = (torch.tensor([1.01 * 128 * LOG2E / math.sqrt(128)],
+                          device=cuda_device) if mode == "bounded" else None)
+    do = torch.as_tensor(_rand((2, 256, 2, 128), 83)).to(cuda_device)
+    with torch.no_grad():
+        o_p, lse_p = tfa.attention_plain(qs, k, v, kv_len=kv, bound=bound,
+                                         save_residuals=True)
+        tfa.reset_launches()
+        grads = tfa.flash_attention_bwd_folded(qs, k, v, o_p, lse_p, do,
+                                               kv_len=kv,
+                                               softmax_scale=128 ** -0.5)
+        want = tfa._bwd_plain_folded(qs, k, v, o_p, lse_p, do, kv,
+                                     128 ** -0.5)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
+        "flash_attention_bwd_dq_f32": 1, "flash_attention_bwd_dkv_f32": 1}
+    for got, ref, name in zip(grads, want, ("dq", "dk", "dv")):
+        assert got.dtype == torch.float32
+        _bwd_close(got, ref, name)
+    if kv is not None:
+        for gr in grads:
+            assert float(gr[1].abs().max()) == 0.0
+        assert float(grads[1][0, 200:].abs().max()) == 0.0
+        assert float(grads[2][0, 200:].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_f32_masked_modes_raise(cuda_device):
+    """fp32 d=128 has no causal, segment or packed kernel mode: on the card
+    they raise (the plain version serves CPU tensors only)."""
+    x = torch.zeros((1, 64, 1, 128), device=cuda_device)
+    codes = torch.zeros((1, 64), dtype=torch.int32, device=cuda_device)
+    for kw in (dict(causal=True),
+               dict(q_segments=codes, kv_segments=codes)):
+        with pytest.raises(NotImplementedError, match="fp32"):
+            tfa.flash_attention_padded(x, x, x, **kw)
+        with pytest.raises(NotImplementedError, match="fp32"):
+            tfa.flash_attention_fwd_folded(x, x, x, **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_fp32_dit_train_step_matches_cpu(cuda_device):
+    """Two make_dit_train_step steps at the default policy (FP32_POLICY) on
+    a 2-layer d=128 DiT, remat 'attn', 240 tokens padded to 256 (kv_len), on
+    the card (the fp32 d=128 kernels) against the same steps on the CPU
+    (their plain versions), from one initial state: losses 1e-5 relative,
+    each parameter 1e-5 relative + 1e-4 absolute, each tensor's change 5e-4
+    relative L2 (tests/test_torch_fp32_train.py says why)."""
+    import copy
+
+    from univid_tpu_torch.core.config import WanDiTConfig
+    from univid_tpu_torch.models.wan.dit import WanDiT
+    from univid_tpu_torch.train import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = WanDiTConfig(dim=256, ffn_dim=512, num_heads=2, num_layers=2,
+                       in_dim=16, out_dim=16, text_dim=32, freq_dim=32,
+                       text_len=8, patch_size=(1, 2, 2))
+    gen = torch.Generator().manual_seed(0)
+    dit = WanDiT(cfg, device="cpu", gen=gen)
+    with torch.no_grad():   # the zero head would block every gradient
+        dit.head.head.w.normal_(0.0, 0.02, generator=gen)
+    grid = (4, 6, 10)   # 240 tokens
+    batch = {"latents": _rand((1, 4, 12, 20, 16), 90),
+             "noise": _rand((1, 4, 12, 20, 16), 91),
+             "t": np.array([500.0], np.float32),
+             "context": _rand((1, 8, 32), 92) * 0.5}
+
+    def run(device):
+        model = copy.deepcopy(dit).to(device)
+        state, tx = trainer.init_train_state(model, trainer.make_optimizer(
+            1e-3))
+        step = trainer.make_dit_train_step(
+            cfg, tx, rope=trope3d(128, grid, device=device),
+            remat_blocks="attn", seq_pad_to=256)
+        losses = []
+        for _ in range(2):
+            state, loss = step(state, {k: torch.as_tensor(v).to(device)
+                                       for k, v in batch.items()})
+            losses.append(float(loss))
+        return losses, {n: p.detach().cpu() for n, p in model.named_parameters()}
+
+    tfa.reset_launches()
+    loss_gpu, par_gpu = run(cuda_device)
+    used = {n: c for n, c in tfa.LAUNCHES.items() if c}
+    loss_cpu, par_cpu = run("cpu")
+    # per step: 2 self + 2 x 2 cross forwards with lse, 4 backward pairs
+    assert used == {"flash_attention_f32_lse": 12,
+                    "flash_attention_bwd_dq_f32": 8,
+                    "flash_attention_bwd_dkv_f32": 8}
+    np.testing.assert_allclose(loss_gpu, loss_cpu, rtol=1e-5)
+    start = dict(dit.named_parameters())
+    for name, w in par_cpu.items():
+        np.testing.assert_allclose(par_gpu[name].numpy(), w.numpy(),
+                                   rtol=1e-5, atol=1e-4, err_msg=name)
+        moved = (w - start[name].detach()).norm()
+        assert float((par_gpu[name] - w).norm()) <= 5e-4 * float(moved), name

@@ -16,7 +16,9 @@ for its group of query heads, the reference route repeats them. Routes:
                or v requiring it) goes through `FlashAttention`, the
                counterpart of the JAX package's `_flash` custom VJP: the
                forward that saves the lse, then the backward kernels, with
-               every mask (kv_len, causal, segments, packed codes).
+               every mask (kv_len, causal, segments, packed codes) in bf16,
+               and with kv_len in fp32 (the DiT at its default fp32
+               policy; fp32 masked modes raise on the card).
   reference  — `mha_reference`, a masked softmax attention, for other head
                dims (as on the TPU), segment masks included (SigLIP's
                d=72); differentiable by plain autograd.
@@ -138,8 +140,9 @@ class FlashAttention(torch.autograd.Function):
         (qs, k, v, o, lse, kv_len, q_offsets, q_segments,
          kv_segments) = ctx.saved_tensors
         causal, q_offset, packed_mode = ctx.flags
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        if do.stride(-1) != 1 or (do.dtype == torch.float32 and (
+                do.data_ptr() % 16 or any(s % 4 for s in do.stride()[:-1]))):
+            do = do.contiguous()   # the fp32 kernels read aligned rows
         dq, dk, dv = flash_attention_bwd_folded(
             qs, k, v, o, lse, do, kv_len=kv_len,
             softmax_scale=ctx.softmax_scale, causal=causal,
@@ -173,15 +176,15 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
     runs `FlashAttention`: rope_tables are refused (training rotates q and
     k outside the kernel, as the JAX package does), the cross call takes
     the generic kernel rather than the one-shot route, the bound is
-    detached, and fp32 tensors on the card are refused (the backward
-    kernels are bf16). Grouped kv heads under grad are refused: repeat
-    them first, as the JAX callers do (autograd sums the repeat)."""
+    detached; bf16 takes every mask, fp32 (d=128 kernels) kv_len only.
+    Grouped kv heads under grad are refused: repeat them first, as the
+    JAX callers do (autograd sums the repeat)."""
     b, lq, n, d = q.shape
     segs = q_segments is not None or kv_segments is not None
     if softmax_bf16 or qk_int8:
         raise NotImplementedError(
             "the softmax_bf16 / qk_int8 knobs are a later port slice "
-            "(ROADMAP.md queue 2, item 5)")
+            "(ROADMAP.md queue 1, item 1)")
     if segs and (q_segments is None or kv_segments is None):
         raise ValueError("pass both q_segments and kv_segments")
     if packed_mode and not segs:
@@ -219,10 +222,6 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
         raise NotImplementedError(
             "fused rope is inference-only: under grad, rotate q and k "
             "before the call (the DiT does so when fused_rope=False)")
-    if train and q.is_cuda and q.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            "fp32 attention under grad on the card waits for the fp32 "
-            "backward kernels (a later slice, ROADMAP.md queue 2)")
 
     lq_pad = _round_up(lq, TILE)
     lk_pad = _round_up(lk, TILE)

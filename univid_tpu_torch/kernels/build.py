@@ -3,8 +3,9 @@
 Each source is compiled on first use into its own shared library with a
 plain C interface (`nvcc -gencode arch=compute_90a,code=sm_90a -shared`);
 the libraries land in `kernels/build/` (git-ignored), named by a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is reused. `build_all()` starts one nvcc per source, all at once.
+the source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
+source or header is rebuilt and an unchanged one is reused. `build_all()`
+starts one nvcc per source, all at once.
 Nothing here runs at import time: CPU-only machines import the package
 without a CUDA toolkit.
 """
@@ -26,6 +27,8 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "flash_attention_f32": "flash_attention_f32.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "flash_attention_f32_d128": "flash_attention_f32_d128.cu",
+    "flash_attention_bwd_f32": "flash_attention_bwd_f32.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -44,9 +47,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in (SOURCES[name], *headers):
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -6,8 +6,11 @@ and training paths reach:
   * `flash_attention_padded` — `_flash_kernel`: non-causal attention in the
     exp2 domain with the fused-rope prologue, the bounded softmax (or a
     running max), `kv_len` masking and zero rows when l == 0. bf16 d=128
-    runs csrc/flash_attention.cu (DiT self-attention); fp32 d=384, 640 and
-    1024 run csrc/flash_attention_f32.cu (VAE mid-block attention of the
+    runs csrc/flash_attention.cu (DiT self-attention); fp32 d=128 runs
+    csrc/flash_attention_f32_d128.cu (the DiT at the fp32 policy, serving
+    and training, its rope pre-pass `rope_rotate_f32` included; the fp32
+    cross-attention at Lk = 512 takes it too); fp32 d=384, 640 and 1024
+    run csrc/flash_attention_f32.cu (VAE mid-block attention of the
     t2v-1.3B and the ti2v-5B VAEs). With
     `save_residuals=True` (the training forward) it also returns the
     per-row exp2-domain lse, fp32 [B, N, Lq]. `causal` with a static
@@ -23,7 +26,10 @@ and training paths reach:
     two-pass `_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel`: dq, dk, dv
     rebuilt from the lse, bf16 d=128 on csrc/flash_attention_bwd.cu (a dq
     kernel and a dk/dv kernel), with kv_len, causal (static and device
-    offsets), segment and packed masks.
+    offsets), segment and packed masks; fp32 d=128 with kv_len on
+    csrc/flash_attention_bwd_f32.cu (the same pair in fp32). The masked
+    modes at fp32 (causal, segments, packed, grouped kv heads) have no fp32
+    caller and raise on the card (`F32_MASKS_LATER`).
 
 Every mask goes through `_dead`, the counterpart of the JAX package's
 `_mask_scores`, which the plain forward and backward share.
@@ -55,13 +61,21 @@ LN2 = math.log(2.0)
 TILE = 64           # padded-length multiple the kernels take
 CROSS_MAX_LK = 512  # single-kv-block route (the TPU's one kv block)
 F32_DIMS = (384, 640, 1024)  # fp32 head dims of flash_attention_f32.cu
+D128 = 128          # head dim of the DiT kernels (bf16, and fp32 d=128)
+F32_MASKS_LATER = (
+    "fp32 attention at d=128 has no causal, segment, packed or grouped-kv "
+    "kernel mode: no fp32 caller reaches them yet (ROADMAP.md queue 2, item "
+    "2)")
 
 # kernel launches per wrapper (reset by callers that count a run)
 LAUNCHES = {"flash_attention_bf16": 0, "flash_attention_bf16_causal": 0,
             "cross_attention_bf16": 0,
             "flash_attention_f32": 0, "rope_rotate_bf16": 0,
             "flash_attention_bf16_lse": 0, "flash_attention_bwd_dq_bf16": 0,
-            "flash_attention_bwd_dkv_bf16": 0}
+            "flash_attention_bwd_dkv_bf16": 0,
+            "flash_attention_f32_d128": 0, "flash_attention_f32_lse": 0,
+            "rope_rotate_f32": 0, "flash_attention_bwd_dq_f32": 0,
+            "flash_attention_bwd_dkv_f32": 0}
 # the flash_attention_f32 launches split by head dim
 F32_LAUNCHES_BY_D = {d: 0 for d in F32_DIMS}
 # launches of the masked modes: each is also counted under its kernel's name
@@ -409,6 +423,56 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
+def _check_aligned(*ts):
+    """The fp32 d=128 kernels read rows as float4: 16-byte aligned data and
+    strides that are multiples of 4 elements."""
+    for t in ts:
+        if t.data_ptr() % 16 or any(s % 4 for s in t.stride()[:-1]):
+            raise ValueError("the fp32 d=128 kernels need 16-byte aligned "
+                             "rows (strides multiples of 4)")
+
+
+def _no_masks(causal=False, q_segments=None, kv_segments=None,
+              packed_mode=False, **_):
+    if causal or q_segments is not None or kv_segments is not None \
+            or packed_mode:
+        raise NotImplementedError(F32_MASKS_LATER)
+
+
+def _launch_f32_d128(q, k, v, kv_len, bound, save_lse):
+    """The fp32 d=128 forward (running max, or bounded with `bound`):
+    (o, lse fp32 [B, N, Lq] or None)."""
+    b, lq, n, d = q.shape
+    _check_aligned(q, k, v)
+    o = torch.empty((b, lq, n, d), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((b, n, lq), dtype=torch.float32, device=q.device)
+           if save_lse else None)
+    fn = _fn("flash_attention_f32_d128", "univid_flash_fwd_f32_d128",
+             [_P] * 7 + [_I] * 4 + [_P, _P])
+    strides = _strides(q, k, v, o)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             _ptr(kv_len), _ptr(bound), _ptr(lse), b, n, lq, k.shape[1],
+             ctypes.addressof(strides), _stream(q))
+    build.check(err, "univid_flash_fwd_f32_d128")
+    return o, lse
+
+
+def _rope_f32(x, cf, sf):
+    b, l, n, d = x.shape
+    if x.stride(-1) != 1 or x.data_ptr() % 8 or any(s % 2 for s in
+                                                     x.stride()[:-1]):
+        raise ValueError("the fp32 rope kernel reads aligned pairs along D")
+    y = torch.empty((b, l, n, d), dtype=torch.float32, device=x.device)
+    fn = _fn("flash_attention_f32_d128", "univid_rope_rotate_f32",
+             [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_longlong,
+              ctypes.c_longlong, ctypes.c_longlong, _P])
+    err = fn(x.data_ptr(), cf.data_ptr(), sf.data_ptr(), y.data_ptr(), b, l,
+             n, d, x.stride(0), x.stride(1), x.stride(2), _stream(x))
+    build.check(err, "univid_rope_rotate_f32")
+    _count("rope_rotate_f32")
+    return y
+
+
 def _launch_bf16(q, k, v, kv_len, bound, mode, lse=None, causal=False,
                  q_offset=0, q_offsets=None, q_segments=None,
                  kv_segments=None, seg=None):
@@ -482,8 +546,20 @@ def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
                          mode)
         _count("flash_attention_bf16")
         return o
+    if q.dtype == torch.float32 and q.shape[-1] == D128:
+        _check_cuda_inputs(q, k, v, kv_len, torch.float32, (D128,))
+        _no_masks(causal, q_segments, kv_segments, packed_mode)
+        if rope_tables is not None:
+            cq, sq, ck, sk = (t.float().contiguous() for t in rope_tables)
+            q = _rope_f32(q, cq, sq)
+            k = _rope_f32(k, ck, sk)
+        o, _ = _launch_f32_d128(q, k, v, kv_len,
+                                _bound_tensor(bound, q.device), False)
+        _count("flash_attention_f32_d128")
+        return o
     if q.dtype == torch.float32:
-        _check_cuda_inputs(q, k, v, kv_len, torch.float32, F32_DIMS)
+        _check_cuda_inputs(q, k, v, kv_len, torch.float32,
+                           F32_DIMS + (D128,))
         if (rope_tables is not None or bound is not None or causal
                 or q_segments is not None):
             raise NotImplementedError(
@@ -572,8 +648,9 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
                                   softmax_scale * LOG2E)
     else:
         q = _fold(q, softmax_scale)
-        # the cross kernel is bf16; short fp32 sequences (the VAE on small
-        # frames) stay on the flash route, the same function
+        # the cross kernel is bf16; fp32 calls (the fp32 DiT's cross-
+        # attention, the VAE on small frames) stay on the flash route, the
+        # same function
         if (lk <= CROSS_MAX_LK and q.dtype == torch.bfloat16 and not causal
                 and q_segments is None):
             return cross_attention_padded(q, k, v, kv_len=kv_len,
@@ -599,11 +676,14 @@ def flash_attention_fwd_folded(qs, k, v, *, kv_len=None, score_bound=None,
     if not qs.is_cuda:
         return attention_plain(qs, k, v, kv_len=kv_len, bound=score_bound,
                                save_residuals=True, **masks)
-    if qs.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            "the training kernels are bf16; fp32 attention under grad on "
-            "the card waits for the fp32 backward (ROADMAP.md queue 2)")
-    _check_cuda_inputs(qs, k, v, kv_len, torch.bfloat16, (128,))
+    if qs.dtype == torch.float32:
+        _check_cuda_inputs(qs, k, v, kv_len, torch.float32, (D128,))
+        _no_masks(**masks)
+        o, lse = _launch_f32_d128(qs, k, v, kv_len,
+                                  _bound_tensor(score_bound, qs.device), True)
+        _count("flash_attention_f32_lse")
+        return o, lse
+    _check_cuda_inputs(qs, k, v, kv_len, torch.bfloat16, (D128,))
     seg = _check_masks(qs, k.shape[1], q_offsets, q_segments, kv_segments,
                        packed_mode, causal)
     b, lq, n, _ = qs.shape
@@ -644,19 +724,25 @@ def flash_attention_bwd_folded(qs, k, v, o, lse, do, *, kv_len=None,
                                softmax_scale, **masks):
     """The backward on the folded qs of the forward: the plain version on
     the CPU; on the card the dq kernel (which also writes delta) and then
-    the dk/dv kernel. masks: causal, q_offset, q_offsets, q_segments,
-    kv_segments, packed_mode."""
+    the dk/dv kernel, bf16 or fp32. masks: causal, q_offset, q_offsets,
+    q_segments, kv_segments, packed_mode (bf16 only)."""
     if not qs.is_cuda:
         return _bwd_plain_folded(qs, k, v, o, lse, do, kv_len, softmax_scale,
                                  **masks)
+    if qs.dtype == torch.float32:
+        _no_masks(**masks)
+        dq, delta = _bwd_dq_f32(qs, k, v, o, lse, do, kv_len, softmax_scale)
+        dk, dv = _bwd_dkv_f32(qs, k, v, do, lse, delta, kv_len)
+        return dq, dk, dv
     dq, delta = _bwd_dq_cuda(qs, k, v, o, lse, do, kv_len, softmax_scale,
                              **masks)
     dk, dv = _bwd_dkv_cuda(qs, k, v, do, lse, delta, kv_len, **masks)
     return dq, dk, dv
 
 
-def _check_bwd_inputs(qs, k, v, do, lse, kv_len, *more):
-    _check_cuda_inputs(qs, k, v, kv_len, torch.bfloat16, (128,), do, *more)
+def _check_bwd_inputs(qs, k, v, do, lse, kv_len, *more,
+                      dtype=torch.bfloat16):
+    _check_cuda_inputs(qs, k, v, kv_len, dtype, (D128,), do, *more)
     b, lq, n, _ = qs.shape
     if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, n, lq)
             or not lse.is_contiguous() or lse.device != qs.device):
@@ -719,4 +805,45 @@ def _bwd_dkv_cuda(qs, k, v, do, lse, delta, kv_len, *, causal=False,
              ctypes.addressof(strides), _stream(qs))
     build.check(err, "univid_flash_bwd_dkv_bf16")
     _count("flash_attention_bwd_dkv_bf16", mode)
+    return dk, dv
+
+
+def _bwd_dq_f32(qs, k, v, o, lse, do, kv_len, softmax_scale):
+    """dq and delta = rowsum(do * o), fp32 [B, N, Lq], of the fp32 d=128
+    forward."""
+    _check_bwd_inputs(qs, k, v, do, lse, kv_len, o, dtype=torch.float32)
+    _check_aligned(qs, k, v, o, do)
+    b, lq, n, d = qs.shape
+    dq = torch.empty(qs.shape, dtype=torch.float32, device=qs.device)
+    delta = torch.empty((b, n, lq), dtype=torch.float32, device=qs.device)
+    fn = _fn("flash_attention_bwd_f32", "univid_flash_bwd_dq_f32",
+             [_P] * 9 + [_I] * 4 + [ctypes.c_float, _P, _P])
+    strides = _strides(qs, k, v, o, do, dq)
+    err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), _ptr(kv_len), dq.data_ptr(),
+             delta.data_ptr(), b, n, lq, k.shape[1], softmax_scale,
+             ctypes.addressof(strides), _stream(qs))
+    build.check(err, "univid_flash_bwd_dq_f32")
+    _count("flash_attention_bwd_dq_f32")
+    return dq, delta
+
+
+def _bwd_dkv_f32(qs, k, v, do, lse, delta, kv_len):
+    """dk, dv of the fp32 d=128 forward, from the dq kernel's delta."""
+    _check_bwd_inputs(qs, k, v, do, lse, kv_len, dtype=torch.float32)
+    _check_aligned(qs, k, v, do)
+    if delta.shape != lse.shape or not delta.is_contiguous():
+        raise ValueError("delta must be contiguous fp32 [B, N, Lq]")
+    b, lq, n, d = qs.shape
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    fn = _fn("flash_attention_bwd_f32", "univid_flash_bwd_dkv_f32",
+             [_P] * 9 + [_I] * 4 + [_P, _P])
+    strides = _strides(qs, k, v, do, dk, dv)
+    err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), _ptr(kv_len), dk.data_ptr(),
+             dv.data_ptr(), b, n, lq, k.shape[1],
+             ctypes.addressof(strides), _stream(qs))
+    build.check(err, "univid_flash_bwd_dkv_f32")
+    _count("flash_attention_bwd_dkv_f32")
     return dk, dv
