@@ -228,14 +228,11 @@ def test_dispatcher_matches_jax(backend, case):
 
 
 def test_dispatcher_refuses_later_modes():
-    """softmax_bf16 and qk_int8 are a later slice; grouped kv heads under
-    grad are refused (callers repeat them, as JAX does); segments need
-    both id arrays, and packed_mode takes no q offsets (as in JAX). Causal
-    attention and segment ids under grad now take the kernel route."""
+    """Grouped kv heads under grad are refused (callers repeat them, as JAX
+    does); segments need both id arrays, and packed_mode takes no q
+    offsets (as in JAX). Causal attention and segment ids under grad take
+    the kernel route; the serving knobs are held in test_torch_knobs.py."""
     x = torch.zeros((1, 64, 1, 128))
-    for kw in (dict(softmax_bf16=True), dict(qk_int8=True)):
-        with pytest.raises(NotImplementedError):
-            tatt.attention(x, x, x, **kw)
     with pytest.raises(ValueError, match="both"):
         tatt.attention(x, x, x, q_segments=torch.zeros((1, 64)))
     codes = torch.zeros((1, 64), dtype=torch.int32)

@@ -598,3 +598,123 @@ def test_cuda_fp32_dit_train_step_matches_cpu(cuda_device):
                                    rtol=1e-5, atol=1e-4, err_msg=name)
         moved = (w - start[name].detach()).norm()
         assert float((par_gpu[name] - w).norm()) <= 5e-4 * float(moved), name
+
+
+# --- the serving knobs: softmax_bf16 and qk_int8 ---------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bounded", "running", "cross_bounded",
+                                  "cross_one_shot"])
+def test_cuda_softmax_bf16_kernel_matches_plain(cuda_device, mode):
+    """The bf16 softmax chain of the bf16 forward (self: bounded, running
+    max with fused rope; cross: bounded, one-shot max) against its plain
+    version, kv_len [lk, lk - 77] with the masked keys at 50.0, bf16
+    tolerance (one p rounding apart, 2^-8; the running max rounds p against
+    a reference the plain one-shot form reaches at once)."""
+    d, lq = 128, 512
+    lk = 256 if mode.startswith("cross") else 512
+    q, k, v = (torch.as_tensor(_rand((2, x, 2, d), s, True)).to(
+        cuda_device, torch.bfloat16) for s, x in ((20, lq), (21, lk),
+                                                  (22, lk)))
+    k[1, lk - 77:] = 50.0
+    v[1, lk - 77:] = 50.0
+    kv = torch.tensor([lk, lk - 77], dtype=torch.int32, device=cuda_device)
+    bound = (torch.tensor([1.01 * d * LOG2E / math.sqrt(d)],
+                          device=cuda_device) if "bounded" in mode else None)
+    tfa.reset_launches()
+    with torch.no_grad():
+        if mode.startswith("cross"):
+            qs = q * torch.tensor(LOG2E / math.sqrt(d), dtype=q.dtype,
+                                  device=cuda_device)
+            got = tfa.cross_attention_padded(qs, k, v, kv_len=kv,
+                                             score_bound=bound,
+                                             softmax_bf16=True)
+            want = tfa.attention_plain(qs, k, v, kv_len=kv, bound=bound,
+                                       softmax_bf16=True)
+            name = "cross_attention_bf16_sbf16"
+        else:
+            tabs = tfa._pad_tables(tfa.build_fused_rope_tables(
+                *trope3d(d, (8, 8, 8), device=cuda_device), d), lq, lk,
+                LOG2E / math.sqrt(d))
+            got = tfa._flash_cuda(q, k, v, kv, bound, tabs,
+                                  softmax_bf16=True)
+            want = tfa.attention_plain(q, k, v, kv_len=kv, bound=bound,
+                                       rope_tables=tabs, softmax_bf16=True)
+            name = "flash_attention_bf16_sbf16"
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES[name] == 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rope", [True, False])
+def test_cuda_int8_prepass_matches_plain(cuda_device, rope):
+    """The rope + int8 quantize pre-pass against its plain version: the
+    same fp32 rotation (no fused multiply-add), reciprocal, product and
+    round-half-to-even give equal codes and scales, bit for bit; k scales
+    over blocks of 192 keys (not the 64-key tile; the last block short)."""
+    d, l = 128, 448
+    q, k = (torch.as_tensor(_rand((2, l, 3, d), s, True)).to(
+        cuda_device, torch.bfloat16) for s in (23, 24))
+    k[:, 400:] = 20.0   # rows past a kv_len of 400 set the last scale
+    tabs = (tfa._pad_tables(tfa.build_fused_rope_tables(
+        *trope3d(d, (7, 8, 8), device=cuda_device), d), l, l,
+        LOG2E / math.sqrt(d)) if rope else None)
+    tfa.reset_launches()
+    got = tfa.quantize_qk_int8(q, k, tabs, 192)
+    want = tfa.quantize_qk_int8_plain(q, k, tabs, 192)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["quantize_qk_int8"] == 2
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bounded", "running", "bounded_sbf16"])
+def test_cuda_int8_attention_matches_plain(cuda_device, mode):
+    """The int8 QK^T kernel against its plain version on the same codes
+    (blocks of 128 keys, kv_len [512, 435], masked keys' v at 50.0): the
+    scores are equal (exact integer products, the same fp32 rescale), so
+    only the softmax's exp2, summation order and p rounding differ: bf16
+    tolerance."""
+    d, l = 128, 512
+    q, k, v = (torch.as_tensor(_rand((2, l, 2, d), s, True)).to(
+        cuda_device, torch.bfloat16) for s in (25, 26, 27))
+    v[1, 435:] = 50.0
+    kv = torch.tensor([l, 435], dtype=torch.int32, device=cuda_device)
+    bound = (torch.tensor([1.01 * d * LOG2E / math.sqrt(d)],
+                          device=cuda_device) if "bounded" in mode else None)
+    sbf = mode.endswith("sbf16")
+    qs = q * torch.tensor(LOG2E / math.sqrt(d), dtype=q.dtype,
+                          device=cuda_device)
+    codes = tfa.quantize_qk_int8(qs, k, None, 128)
+    tfa.reset_launches()
+    got = tfa.flash_attention_int8(*codes, v, kv_len=kv, score_bound=bound,
+                                   softmax_bf16=sbf, block_k=128)
+    want = tfa.attention_int8_plain(*codes, v, kv_len=kv, bound=bound,
+                                    softmax_bf16=sbf, block_k=128)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention_int8_sbf16" if sbf
+                        else "flash_attention_int8"] == 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **BF16)
+
+
+@pytest.mark.cuda
+def test_cuda_knobs_without_a_kernel_raise(cuda_device):
+    """No fallback on the card: fp32 inputs with a knob, a knob with a
+    causal mask, and grouped kv heads under qk_int8 raise."""
+    x = torch.zeros((1, 64, 2, 128), device=cuda_device)
+    for kw in (dict(softmax_bf16=True), dict(qk_int8=True)):
+        with pytest.raises(NotImplementedError, match="queue 2"):
+            tfa.flash_attention_padded(x, x, x, **kw)
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="no caller"):
+        tfa.flash_attention_padded(xb, xb, xb, causal=True,
+                                   softmax_bf16=True)
+    with pytest.raises(ValueError, match="kv heads"):
+        tfa.flash_attention_padded(xb, xb[:, :, :1], xb[:, :, :1],
+                                   qk_int8=True)

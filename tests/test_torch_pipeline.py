@@ -224,11 +224,7 @@ def test_cli_merges_lora_and_loads_projector(tmp_path, flag):
 @pytest.mark.parametrize("flags", [
     ["--checkpoint_dir", "/nonexistent", "--mock_weights"],
     ["--mode", "animate", "--mock_weights"],
-    ["--int8", "--mock_weights"],
-    ["--qk_int8", "--mock_weights"],
-    ["--taylorseer", "2", "--mock_weights"],
     ["--bagel_path", "/nonexistent"],   # real BAGEL weights
-    ["--bf16_softmax", "--mock_weights"],
     ["--use_prompt_extend", "--mock_weights"],
 ])
 def test_cli_refuses_later_slices(flags):
@@ -237,3 +233,34 @@ def test_cli_refuses_later_slices(flags):
     from univid_tpu_torch.cli import inference
     with pytest.raises(SystemExit, match="later slice"):
         inference.main(["--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flag", ["--int8", "--qk_int8", "--taylorseer",
+                                  "--bf16_softmax"])
+def test_cli_serving_knobs(flag, tmp_path):
+    """Each serving knob through the port's CLI on the CPU (tiny, mock
+    weights, 64x64x9, fusion on): an mp4 and its sidecar naming the knob.
+    The tiny DiT's head dim of 16 takes the reference attention route,
+    which ignores --qk_int8 and --bf16_softmax as the JAX package's does
+    (their kernels are held in tests/test_torch_knobs.py); --int8 runs
+    every block GEMM as W8A8 (10 a block and DiT call); --taylorseer 2
+    over 8 steps runs 6 DiT steps and 2 Taylor steps."""
+    from univid_tpu_torch.cli import inference
+    from univid_tpu_torch.core import quant
+    from univid_tpu_torch.data.video_io import read_video_frames
+
+    steps = 8 if flag == "--taylorseer" else 2
+    extra = [flag, "2"] if flag == "--taylorseer" else [flag]
+    quant.W8A8_LAUNCHES["w8a8_linear"] = 0
+    meta = inference.main([
+        "--model", "tiny", "--mock_weights", "--device", "cpu",
+        "--video_size", "64x64", "--video_length", "9", "--steps",
+        str(steps), "--output_dir", str(tmp_path)] + extra)[0]
+    assert len(read_video_frames(meta["video_path"])) == 9
+    knob = flag[2:]
+    assert meta["knobs"][knob] == (2 if knob == "taylorseer" else True)
+    blocks = WAN_CONFIGS["tiny"].dit.num_layers
+    assert quant.W8A8_LAUNCHES["w8a8_linear"] == (
+        10 * blocks * steps if knob == "int8" else 0)
+    phases = meta["phase_times_s"]
+    assert ("taylor_step" in phases) == (knob == "taylorseer")

@@ -9,10 +9,13 @@ unless --no_bagel, BAGEL semantic tokens of the prompt (and the image) ->
 ContextProjector, whose context replaces UMT5's -> UniPC / DPM++ flow-
 matching denoise over the Wan DiT (batch-2 CFG, TMA text weights; i2v
 clamps the first latent frame to the image's) -> causal VAE decode -> mp4
-+ a JSON sidecar per mode. Runs on `cuda` unless `--device cpu`. Flags of
-later port slices (animate, Wan / BAGEL checkpoints, int8, qk_int8,
-bf16_softmax, TaylorSeer, prompt extension) exit with an error naming the
-slice; they never fall back to another path.
++ a JSON sidecar per mode. Runs on `cuda` unless `--device cpu`. The
+serving knobs: --bf16_softmax (the attention kernels' softmax chain in
+bf16), --qk_int8 (int8 QK^T in self-attention), --int8 (W8A8 DiT GEMMs,
+quantized after --use_lora's merge) and --taylorseer N (TaylorSeer step
+caching of the CFG velocity, fresh threshold N). Flags of later port
+slices (animate, Wan / BAGEL checkpoints, prompt extension) exit with an
+error naming the slice; they never fall back to another path.
 """
 
 from __future__ import annotations
@@ -106,14 +109,6 @@ _LATER = [
     (lambda a: a.bagel_path is not None and not a.mock_weights,
      "real BAGEL weights (--bagel_path) are a later slice (ROADMAP.md "
      "queue 1: Checkpoints); use --mock_weights"),
-    (lambda a: a.int8,
-     "--int8 is a later slice (ROADMAP.md queue 1: int8 quantization)"),
-    (lambda a: a.qk_int8 or a.bf16_softmax,
-     "--qk_int8 / --bf16_softmax are a later slice (ROADMAP.md queue 2: "
-     "opt-in knobs)"),
-    (lambda a: a.taylorseer > 0,
-     "--taylorseer is a later slice (ROADMAP.md queue 1: BAGEL LM, "
-     "ops/taylorseer.py)"),
     (lambda a: a.use_prompt_extend,
      "--use_prompt_extend is a later slice (ROADMAP.md queue 1: prompt "
      "extension)"),
@@ -132,7 +127,9 @@ def _parse_size(s: str):
 def build_pipeline(args):
     """(pipeline, spec, text_encoder) with random weights drawn on
     args.device: DiT and VAE in bf16 (as the JAX CLI's mock weights), UMT5
-    in fp32; with --use_lora, the LoRA of --lora_path merged into the DiT."""
+    in fp32; with --use_lora, the LoRA of --lora_path merged into the DiT;
+    with --int8, the DiT's block GEMMs then quantized to W8A8; the policy
+    takes --bf16_residual, --bf16_softmax, --qk_int8, --bounded_softmax."""
     import torch
 
     from ..core.config import WAN_CONFIGS
@@ -165,9 +162,14 @@ def build_pipeline(args):
             for name, p in dit.named_parameters():
                 if name in merged:
                     p.copy_(merged[name])
+    if args.int8:
+        # W8A8 after any LoRA merge: quantize the weights the model runs
+        from ..core.quant import quantize_dit_w8a8
+        quantize_dit_w8a8(dit)
     policy = BF16_RESIDUAL_POLICY if args.bf16_residual else DEFAULT_POLICY
-    if args.bounded_softmax:
-        policy = dataclasses.replace(policy, bounded_softmax=True)
+    policy = dataclasses.replace(policy, softmax_bf16=args.bf16_softmax,
+                                 qk_int8=args.qk_int8,
+                                 bounded_softmax=args.bounded_softmax)
     return WanTI2VPipeline(spec, dit, vae, policy=policy), spec, text_enc
 
 
@@ -297,7 +299,8 @@ def main(argv=None):
                           sample_solver=args.solver,
                           sampling_steps=args.steps,
                           guide_scale=args.guidance, seed=args.seed,
-                          tma=tma, timer=timer)
+                          tma=tma, timer=timer,
+                          taylorseer_threshold=args.taylorseer)
         t0 = time.time()
         if fusion is not None:
             video = fusion.generate_video_with_bagel_context(
@@ -318,6 +321,9 @@ def main(argv=None):
             "size": list(size), "frames": frames, "steps": args.steps,
             "guidance": args.guidance, "seed": args.seed,
             "solver": args.solver, "tma": dataclasses.asdict(tma),
+            "knobs": {"bf16_softmax": args.bf16_softmax,
+                      "qk_int8": args.qk_int8, "int8": args.int8,
+                      "taylorseer": args.taylorseer},
             "device": str(pipe.device), "generation_time_s": round(dt, 2),
             "phase_times_s": timer.summary(),
             "context_path": "bagel_fusion" if fusion is not None

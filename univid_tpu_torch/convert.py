@@ -3,6 +3,10 @@
 The port's modules keep the JAX trees' parameter names, so a tree maps onto
 a state dict key by key. Layout rules, by leaf name and rank:
   * `w` of rank 2, a linear [in, out]        -> [out, in];
+  * `qw8` / `qw` of rank 2, the int8 codes of a quantized linear
+    (univid_tpu/core/quant.py) [in, out]    -> [out, in]; the module's
+    Linear becomes a `core.quant.QuantLinear`, so both packages can run
+    the same int8 codes;
   * `w` of rank 5, a conv3d THWIO            -> [Cout, Cin, kt, kh, kw];
   * `w` of rank 4, a 2D conv HWIO (resample) -> [Cout, Cin, 1, kh, kw];
   * every other leaf as it is.
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from .core.config import FusionConfig, T5Config, WanDiTConfig, WanVAEConfig
+from .core.quant import QuantLinear
 from .models.bagel.bagel import Bagel, BagelConfig
 from .models.bagel.siglip import Siglip, SiglipConfig
 from .reflection.scorer import (SiglipMapHead, SiglipText,
@@ -40,7 +45,7 @@ def _to_torch(x) -> torch.Tensor:
 
 
 def _layout(name: str, t: torch.Tensor) -> torch.Tensor:
-    if name == "w" and t.ndim == 2:
+    if name in ("w", "qw8", "qw") and t.ndim == 2:
         return t.t()
     if name == "w" and t.ndim == 5:
         return t.permute(4, 3, 0, 1, 2)
@@ -77,9 +82,31 @@ def jax_tree_to_state_dict(tree, stacked: Optional[str] = None
     return sd
 
 
+def _quantized_layers(module, sd):
+    """Swap each Linear whose state-dict entries are int8 codes (`qw8` or
+    `qw`) for an empty QuantLinear of the same shape."""
+    for key, t in sd.items():
+        path, _, name = key.rpartition(".")
+        if name in ("qw8", "qw"):
+            bias = sd.get(f"{path}.b")
+            new = QuantLinear.empty(
+                t.shape[0], t.shape[1], bias=bias is not None,
+                w8a8=name == "qw8",
+                bias_dtype=bias.dtype if bias is not None else None,
+                device=module.get_submodule(path).w.device)
+            parent, _, attr = path.rpartition(".")
+            setattr(module.get_submodule(parent), attr, new)
+
+
 def _load(module, sd, dtype):
+    """Load sd into module (Linear layers with int8 codes in sd become
+    QuantLinear first); `dtype` casts the floating leaves, never the codes
+    or their fp32 scales."""
+    _quantized_layers(module, sd)
     if dtype is not None:
-        sd = {k: v.to(dtype) for k, v in sd.items()}
+        quant = {k for k in sd if k.rpartition(".")[2] in ("qw8", "qw")}
+        quant |= {k.rpartition(".")[0] + ".scale" for k in quant}
+        sd = {k: v if k in quant else v.to(dtype) for k, v in sd.items()}
     module.load_state_dict(sd, strict=True)
     return module
 

@@ -4,8 +4,12 @@ univid_tpu/core/dtypes.py, with the same flags).
 Parameters and activations in bfloat16; fp32 for normalisation statistics,
 rotary tables, modulation, time embeddings and solver state. The residual
 stream accumulates in fp32 unless BF16_RESIDUAL_POLICY is chosen.
-`softmax_bf16` and `qk_int8` are kept for flag parity; their kernel modes
-are a later slice and the attention dispatcher refuses them.
+`softmax_bf16` (--bf16_softmax: the flash kernels' softmax chain in bf16)
+and `qk_int8` (--qk_int8: int8 QK^T in the self-attention kernel) are
+inference knobs of the DiT's attention: self-attention takes both,
+cross-attention `softmax_bf16` only; the training forward ignores them, as
+the JAX package's does. No gain is claimed for either: the JAX package
+measured both slower on its TPU.
 `bounded_softmax` pins the flash kernel's softmax reference point at the
 qk-norm score bound d * max|g_q| * max|g_k| (exact; no running max).
 """

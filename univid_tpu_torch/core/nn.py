@@ -92,7 +92,19 @@ def linear(p, x, *, compute_dtype=None):
     """y = x @ w^T + b with fp32 accumulation, one rounding to the output
     dtype (compute_dtype, else x's dtype). Without compute_dtype the
     operands are promoted as JAX promotes them (fp32 x with bf16 weights
-    computes in fp32)."""
+    computes in fp32).
+
+    Also takes the int8 layers of core/quant.py: `qw8` (dynamic W8A8, an
+    int8 x int8 -> int32 product, `quant.w8a8_linear`) and `qw`
+    (weight-only: the codes times the fp32 scale, cast once to the compute
+    dtype, then the dense product)."""
+    if getattr(p, "qw8", None) is not None:
+        from .quant import w8a8_linear
+        return w8a8_linear(p, x, compute_dtype=compute_dtype)
+    if getattr(p, "qw", None) is not None:
+        dt = compute_dtype or x.dtype
+        w = (p.qw.float() * p.scale.float()[:, None]).to(dt)
+        return _dense(x.to(dt), w, p.b, dt)
     w, b = p.w, getattr(p, "b", None)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
@@ -102,6 +114,10 @@ def linear(p, x, *, compute_dtype=None):
         out_dtype = x.dtype
         ct = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(ct), w.to(ct)
+    return _dense(x, w, b, out_dtype)
+
+
+def _dense(x, w, b, out_dtype):
     if x.is_cuda and x.dtype != torch.float32:
         # cuBLAS accumulates in fp32 and rounds once, bias included
         y = F.linear(x, w, None if b is None else b.to(x.dtype))

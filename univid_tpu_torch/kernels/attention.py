@@ -23,7 +23,13 @@ for its group of query heads, the reference route repeats them. Routes:
                dims (as on the TPU), segment masks included (SigLIP's
                d=72); differentiable by plain autograd.
 
-softmax_bf16 and qk_int8 are a later slice and raise here.
+The Wan serving knobs, JAX's semantics: `softmax_bf16` (the bf16 softmax
+chain) and `qk_int8` (int8 QK^T with per-row q and per-kv-block k scales,
+the block width JAX's dispatcher picks, `jax_block_k`) take the kernel
+route's bf16 kernels with kv_len and the bound; the reference route and a
+call under grad ignore them, as the JAX package's XLA fallback and its
+training forward (`_flash_fwd`) do. With causal, segment or packed masks,
+and on the card with fp32 inputs, they raise (no caller, no kernel mode).
 """
 
 from __future__ import annotations
@@ -43,6 +49,18 @@ from .flash_attention import (LOG2E, NEG_INF, TILE, _fold, causal_rows,
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def jax_block_k(lk: int) -> int:
+    """The kv block width the JAX dispatcher picks for Lk keys
+    (univid_tpu/kernels/attention.py): 2048 from 4,096 keys when that adds
+    no padding over 1024, else 1024; 512 below; at most round_up(Lk, 128).
+    qk_int8 takes one k scale per block of this width."""
+    if lk >= 4096:
+        bk = 2048 if _round_up(lk, 2048) == _round_up(lk, 1024) else 1024
+    else:
+        bk = 512
+    return min(bk, _round_up(lk, 128))
 
 
 def pack_mask_codes(doc_id, fn_id, noise_id):
@@ -178,13 +196,14 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
     the generic kernel rather than the one-shot route, the bound is
     detached; bf16 takes every mask, fp32 (d=128 kernels) kv_len only.
     Grouped kv heads under grad are refused: repeat them first, as the
-    JAX callers do (autograd sums the repeat)."""
+    JAX callers do (autograd sums the repeat).
+
+    softmax_bf16 / qk_int8: inference knobs of the kernel route (see the
+    module docstring); under grad and on the reference route they are
+    ignored, as in the JAX package. qk_int8's k scales span `jax_block_k`
+    (Lk) keys."""
     b, lq, n, d = q.shape
     segs = q_segments is not None or kv_segments is not None
-    if softmax_bf16 or qk_int8:
-        raise NotImplementedError(
-            "the softmax_bf16 / qk_int8 knobs are a later port slice "
-            "(ROADMAP.md queue 1, item 1)")
     if segs and (q_segments is None or kv_segments is None):
         raise ValueError("pass both q_segments and kv_segments")
     if packed_mode and not segs:
@@ -258,5 +277,7 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
     o = flash_attention_padded(q, k, v, kv_len=kv_len,
                                softmax_scale=softmax_scale,
                                rope_tables=rope_tables,
-                               score_bound=folded_bound, **masks)
+                               score_bound=folded_bound,
+                               softmax_bf16=softmax_bf16, qk_int8=qk_int8,
+                               block_k=jax_block_k(lk), **masks)
     return o[:, :lq]

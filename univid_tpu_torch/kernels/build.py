@@ -29,6 +29,7 @@ SOURCES = {
     "flash_attention_bwd": "flash_attention_bwd.cu",
     "flash_attention_f32_d128": "flash_attention_f32_d128.cu",
     "flash_attention_bwd_f32": "flash_attention_bwd_f32.cu",
+    "flash_attention_int8": "flash_attention_int8.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), bf16 inputs, fp32 softmax.
+// Flash attention forward for Hopper (sm_90a), bf16 inputs, fp32 softmax (or
+// the bf16 chain of the softmax_bf16 mode).
 //
 // Replaces two Pallas TPU kernels of univid_tpu/kernels/flash_attention.py:
 //   * _flash_kernel (:44) in its DiT self-attention mode: fused 3D-RoPE
@@ -38,6 +39,16 @@
 //     exp2(0) = 1): rows with no live key at all (the dispatcher's pad ids,
 //     q -1 against kv -2) end with l = 0, a zero output and lse +1e30.
 //
+//   * the softmax_bf16 mode of _flash_kernel (:259-265) and _cross_kernel
+//     (:402-403), the Wan serving knob --bf16_softmax, in the bounded,
+//     running-max and one-shot modes (not causal, no segments, no lse): the
+//     fp32 score tile rounds to bf16, the reference point too, s - ref is a
+//     bf16 difference and exp2 gives a bf16 p, which the row sum adds in
+//     fp32 (softmax_tile in bf16_tiles.cuh). The exp2 is a true exp2
+//     (ex2.approx, then one rounding): the JAX package's CPU lowering of
+//     exp2 on bf16, exp(bf16(0.69140625 * x)), is a reference-side caveat
+//     and is not copied.
+//
 // Grouped-query attention: k and v may have N / group heads; query head h
 // reads kv head h / group (BAGEL's 28 query heads over 4 kv heads read the
 // un-repeated cache, where the JAX package repeats it 7x before its kernel).
@@ -68,18 +79,10 @@
 // rotated q in q's dtype, rotated k in v's dtype).
 // Not yet used: wgmma, TMA, warp specialisation (later work).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "bf16_tiles.cuh"
 
 namespace {
 
-constexpr int BR = 64;      // q rows per block
-constexpr int BC = 64;      // kv rows per tile
-constexpr int NTHREADS = 128;
-constexpr float NEG_INF = -1e30f;
-
-enum Mode { BOUNDED = 0, RUNNING = 1, ONESHOT = 2 };
 enum Seg { NO_SEG = 0, SEGMENTS = 1, PACKED = 2 };
 
 // BAGEL's packed-training predicate on pack_mask_codes codes (arithmetic
@@ -91,69 +94,7 @@ __device__ __forceinline__ bool packed_allowed(int qc, int kc, int row, int col)
          (qc >> 16) == (kc >> 16);
 }
 
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm volatile("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// Element offset of 16-byte chunk `c` of row `r` in a swizzled [rows, D]
-// bf16 tile (D/8 chunks per row, chunk index XOR-ed with r % 8).
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * D + ((c ^ (r & 7)) << 3);
-}
-
-// Copy a [64, D] bf16 tile (row stride `ld` elements) into swizzled smem.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long ld, int tid) {
-  constexpr int CH = D / 8;
-#pragma unroll
-  for (int i = tid; i < 64 * CH; i += NTHREADS) {
-    int r = i / CH, c = i % CH;
-    cp_async16(dst + swz<D>(r, c), src + r * ld + c * 8);
-  }
-}
-
-template <int D, int MODE, bool CAUSAL, int SEG>
+template <int D, int MODE, bool CAUSAL, int SEG, bool SBF16>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
@@ -317,46 +258,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     float s[NT][4];
     qk(s, j * BC);
 
-    if (MODE == RUNNING) {
-      float mc[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        mc[0] = fmaxf(mc[0], fmaxf(s[n][0], s[n][1]));
-        mc[1] = fmaxf(mc[1], fmaxf(s[n][2], s[n][3]));
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffff, mc[i], 1));
-        mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffff, mc[i], 2));
-        float m_new = fmaxf(m_r[i], mc[i]);
-        float corr = fast_exp2(m_r[i] - m_new);
-        m_r[i] = m_new;
-        l_r[i] *= corr;
-#pragma unroll
-        for (int n = 0; n < OT; ++n) {
-          acc[n][2 * i] *= corr;
-          acc[n][2 * i + 1] *= corr;
-        }
-      }
-    }
-    float ref0 = (MODE == BOUNDED) ? c_bound : m_r[0];
-    float ref1 = (MODE == BOUNDED) ? c_bound : m_r[1];
-    if (CAUSAL || SEG != NO_SEG) {
-      // a row with no live key yet (segments, packed codes, a pad row; a
-      // causal row only with a negative offset): reference 0 makes every
-      // p = exp2(-1e30) = 0, so l stays 0 (exp2(m - m) would give 1)
-      ref0 = ref0 == NEG_INF ? 0.f : ref0;
-      ref1 = ref1 == NEG_INF ? 0.f : ref1;
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      s[n][0] = fast_exp2(s[n][0] - ref0);
-      s[n][1] = fast_exp2(s[n][1] - ref0);
-      s[n][2] = fast_exp2(s[n][2] - ref1);
-      s[n][3] = fast_exp2(s[n][3] - ref1);
-      l_r[0] += s[n][0] + s[n][1];
-      l_r[1] += s[n][2] + s[n][3];
-    }
+    softmax_tile<MODE, SBF16, CAUSAL || SEG != NO_SEG, NT, OT>(s, m_r, l_r, acc, c_bound);
 
     cp_async_wait_all();
     __syncthreads();  // v_j landed; every warp is done with k_j
@@ -364,53 +266,15 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       load_k((j + 1) * BC);
       cp_async_commit();
     }
-
     // acc += p v_j, p rounded to bf16 (v's dtype) as on the TPU
-#pragma unroll
-    for (int kk = 0; kk < BC / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t bfr[4];
-        int mi = lane >> 3, rr = lane & 7;
-        int r = kk * 16 + (mi & 1) * 8 + rr;
-        int c = dp * 2 + (mi >> 1);
-        ldmatrix_x4_trans(bfr, Vs + swz<D>(r, c));
-        mma_bf16(acc[2 * dp], pa, bfr[0], bfr[1]);
-        mma_bf16(acc[2 * dp + 1], pa, bfr[2], bfr[3]);
-      }
-    }
+    pv_tile<D>(acc, s, Vs, lane);
   }
 
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = l_r[i];
-    l += __shfl_xor_sync(0xffffffff, l, 1);
-    l += __shfl_xor_sync(0xffffffff, l, 2);
-    inv[i] = l > 0.f ? 1.f / l : 0.f;
-    if (lse != nullptr && t == 0) {
-      // exp2-domain lse of row g + 8i: the reference point (the bound C, or
-      // the row max m) plus log2 l; empty rows get +1e30 so that the
-      // backward's exp2(s - lse) is exactly 0 there
-      const float ref = (MODE == BOUNDED) ? c_bound : m_r[i];
-      lse[(long long)bh * lq + q0 + warp * 16 + g + 8 * i] =
-          l > 0.f ? ref + log2f(l) : -NEG_INF;
-    }
-  }
-  __nv_bfloat16* op = o + b * o_sb + h * o_sh + (long long)(q0 + warp * 16) * o_sl;
-#pragma unroll
-  for (int n = 0; n < OT; ++n) {
-    int col = n * 8 + 2 * t;
-    *reinterpret_cast<__nv_bfloat162*>(op + (long long)g * o_sl + col) =
-        __floats2bfloat162_rn(acc[n][0] * inv[0], acc[n][1] * inv[0]);
-    *reinterpret_cast<__nv_bfloat162*>(op + (long long)(g + 8) * o_sl + col) =
-        __floats2bfloat162_rn(acc[n][2] * inv[1], acc[n][3] * inv[1]);
-  }
+  // with lse: C + log2 l (bounded) or m + log2 l, +1e30 for empty rows, so
+  // that the backward's exp2(s - lse) is exactly 0 there
+  store_rows<MODE, OT>(acc, l_r, m_r, c_bound,
+                       lse != nullptr ? lse + (long long)bh * lq + q0 + warp * 16 + g : nullptr,
+                       o + b * o_sb + h * o_sh + (long long)(q0 + warp * 16) * o_sl, o_sl, g, t);
 }
 
 // y = x * cosF + swap_pairs(x) * sinF in fp32 (swap_pairs(x)[i] = x[i ^ 1]),
@@ -440,12 +304,12 @@ __global__ void rope_rotate_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   *reinterpret_cast<__nv_bfloat162*>(y + 2 * i) = __floats2bfloat162_rn(y0, y1);
 }
 
-template <int D, int MODE, bool CAUSAL, int SEG>
+template <int D, int MODE, bool CAUSAL, int SEG, bool SBF16 = false>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const void* kv_len,
                    const void* bound, void* lse, const void* q_offsets, int q_offset,
                    const void* q_seg, const void* kv_seg, int group, int B, int N, int lq,
                    int lk, const long long* st, cudaStream_t stream) {
-  auto kern = flash_fwd_bf16_kernel<D, MODE, CAUSAL, SEG>;
+  auto kern = flash_fwd_bf16_kernel<D, MODE, CAUSAL, SEG, SBF16>;
   const int smem = (BR + 2 * BC) * D * (int)sizeof(__nv_bfloat16) + BC * (int)sizeof(int);
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -476,14 +340,26 @@ extern "C" {
 // q_offsets[b] (q_offsets: int32 [B] on the device, or null) and sees keys
 // at or before it. seg_mode (running max only, not causal): 1 segments, 2
 // packed codes; q_seg int32 [B, lq] and kv_seg int32 [B, lk], contiguous.
+// softmax_bf16 (not causal, no segments, no lse): the softmax chain in bf16
+// (bf16_tiles.cuh softmax_tile), in any of the three modes.
 int univid_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                           const void* kv_len, const void* bound, void* lse,
                           const void* q_offsets, const void* q_seg, const void* kv_seg,
-                          int mode, int causal, int seg_mode, int q_offset, int group, int B,
-                          int N, int lq, int lk, int D, const long long* strides, void* stream) {
+                          int mode, int causal, int seg_mode, int softmax_bf16, int q_offset,
+                          int group, int B, int N, int lq, int lk, int D,
+                          const long long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D != 128 || lq % BR != 0 || lk % BC != 0 || group < 1 || N % group != 0)
     return (int)cudaErrorInvalidValue;
+  if (softmax_bf16) {
+    if (causal || seg_mode != NO_SEG || lse != nullptr) return (int)cudaErrorInvalidValue;
+    switch (mode) {
+      case BOUNDED: return (int)launch<128, BOUNDED, false, NO_SEG, true>(q, k, v, o, kv_len, bound, nullptr, nullptr, 0, nullptr, nullptr, group, B, N, lq, lk, strides, s);
+      case RUNNING: return (int)launch<128, RUNNING, false, NO_SEG, true>(q, k, v, o, kv_len, bound, nullptr, nullptr, 0, nullptr, nullptr, group, B, N, lq, lk, strides, s);
+      case ONESHOT: return (int)launch<128, ONESHOT, false, NO_SEG, true>(q, k, v, o, kv_len, bound, nullptr, nullptr, 0, nullptr, nullptr, group, B, N, lq, lk, strides, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (causal) {
     if (mode != RUNNING || seg_mode != NO_SEG) return (int)cudaErrorInvalidValue;
     return (int)launch<128, RUNNING, true, NO_SEG>(q, k, v, o, kv_len, bound, lse, q_offsets,

@@ -22,6 +22,17 @@ and training paths reach:
     training's mask): running max, with and without the lse.
   * `cross_attention_padded` — `_cross_kernel`: single-kv-block attention
     (Lk <= 512) with a one-shot softmax by the row max or by the bound.
+  * `softmax_bf16` (the Wan serving knob --bf16_softmax) on both: the
+    softmax chain in bf16 (bf16 scores and reference point, a bf16 s - ref
+    and exp2, the row sum of the rounded p in fp32), bf16 d=128, non-causal
+    and unsegmented, on csrc/flash_attention.cu; counted apart as
+    `flash_attention_bf16_sbf16` and `cross_attention_bf16_sbf16`.
+  * `qk_int8` (--qk_int8) — `_flash_kernel`'s int8 QK^T mode: the pre-pass
+    `quantize_qk_int8` (fused rope in fp32, per-row q scales, one k scale per
+    JAX kv block of `block_k` keys) and `flash_attention_int8` (int8 x int8
+    -> int32 scores rescaled in fp32, the fp32 or the bf16 softmax chain,
+    p v in bf16), bf16 d=128 with kv_len and the bound, on
+    csrc/flash_attention_int8.cu.
   * `flash_attention_bwd_padded` — `_flash_bwd_fused_kernel` and the
     two-pass `_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel`: dq, dk, dv
     rebuilt from the lse, bf16 d=128 on csrc/flash_attention_bwd.cu (a dq
@@ -66,6 +77,12 @@ F32_MASKS_LATER = (
     "fp32 attention at d=128 has no causal, segment, packed or grouped-kv "
     "kernel mode: no fp32 caller reaches them yet (ROADMAP.md queue 2, item "
     "2)")
+KNOBS_MASKED = (
+    "softmax_bf16 / qk_int8 with causal, segment or packed masks: no caller "
+    "and no kernel mode (the JAX package's knobs serve the Wan DiT)")
+KNOBS_F32_LATER = (
+    "softmax_bf16 / qk_int8 have bf16 kernels only: no fp32 caller reaches "
+    "them (ROADMAP.md queue 2, item 2)")
 
 # kernel launches per wrapper (reset by callers that count a run)
 LAUNCHES = {"flash_attention_bf16": 0, "flash_attention_bf16_causal": 0,
@@ -75,7 +92,10 @@ LAUNCHES = {"flash_attention_bf16": 0, "flash_attention_bf16_causal": 0,
             "flash_attention_bwd_dkv_bf16": 0,
             "flash_attention_f32_d128": 0, "flash_attention_f32_lse": 0,
             "rope_rotate_f32": 0, "flash_attention_bwd_dq_f32": 0,
-            "flash_attention_bwd_dkv_f32": 0}
+            "flash_attention_bwd_dkv_f32": 0,
+            "flash_attention_bf16_sbf16": 0, "cross_attention_bf16_sbf16": 0,
+            "quantize_qk_int8": 0, "flash_attention_int8": 0,
+            "flash_attention_int8_sbf16": 0}
 # the flash_attention_f32 launches split by head dim
 F32_LAUNCHES_BY_D = {d: 0 for d in F32_DIMS}
 # launches of the masked modes: each is also counted under its kernel's name
@@ -227,11 +247,39 @@ def _dead(i0, i1, lk, device, *, kv_len=None, causal=False, q_offset=0,
     return dead
 
 
+def _softmax_pv(s, mask, bound, softmax_bf16, vf, v_dtype):
+    """One query chunk's softmax and p @ v on folded fp32 scores s
+    [B, N, q, Lk] (`mask`: the dead pairs or None): (acc [B, q, N, D] fp32,
+    l [B, N, q, 1], ref). The reference point is the bound or the row max
+    (the one-shot form, equal in exact arithmetic to a running max). With
+    softmax_bf16 the chain is the kernels' bf16 one: s and the reference
+    round to bf16, s - ref is a bf16 difference, exp2 gives a bf16 p, and l
+    sums those p in fp32."""
+    if mask is not None:
+        s = s.masked_fill(mask, NEG_INF)
+    ref = bound if bound is not None else s.amax(dim=-1, keepdim=True)
+    if softmax_bf16:
+        ref_b = torch.as_tensor(ref, device=s.device).to(torch.bfloat16)
+        p = torch.exp2(s.to(torch.bfloat16) - ref_b).float()
+    else:
+        p = torch.exp2(s - ref)
+    if mask is not None:
+        p = p.masked_fill(mask, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bnqk,bknd->bqnd", p.to(v_dtype).float(), vf)
+    return acc, l, ref
+
+
+def _normalise(acc, l, out_dtype):
+    inv = torch.where(l > 0, 1.0 / torch.where(l > 0, l, 1.0), 0.0)
+    return (acc * inv.permute(0, 2, 1, 3)).to(out_dtype)
+
+
 def attention_plain(q, k, v, *, kv_len=None, bound=None, rope_tables=None,
                     save_residuals: bool = False, causal: bool = False,
                     q_offset: int = 0, q_offsets=None, q_segments=None,
                     kv_segments=None, packed_mode: bool = False,
-                    q_chunk: int = 1024):
+                    softmax_bf16: bool = False, q_chunk: int = 1024):
     """The kernels' function in plain PyTorch, over padded [B, L, N, D].
 
     Scores are in the folded (scale * log2 e) domain: q carries the fold,
@@ -241,7 +289,8 @@ def attention_plain(q, k, v, *, kv_len=None, bound=None, rope_tables=None,
     keys (`_dead`: kv_len, causal, segments, packed codes) get s = -1e30
     and p = 0; rows with l == 0 are zero. k and v with
     fewer heads than q are repeated (`repeat_kv`). p is rounded to v's
-    dtype before p @ v; l and the accumulator stay fp32. save_residuals ->
+    dtype before p @ v; l and the accumulator stay fp32. softmax_bf16: the
+    bf16 softmax chain (`_softmax_pv`). save_residuals ->
     (out, lse): lse fp32 [B, N, Lq] = ref + log2 l, ref the bound or the
     row max, +1e30 where l == 0."""
     if rope_tables is not None:
@@ -261,21 +310,70 @@ def attention_plain(q, k, v, *, kv_len=None, bound=None, rope_tables=None,
     for i0 in range(0, lq, q_chunk):
         s = torch.einsum("bqnd,bknd->bnqk", q[:, i0:i0 + q_chunk].float(), kf)
         mask = _dead(i0, min(i0 + q_chunk, lq), lk, q.device, **masks)
-        if mask is not None:
-            s = s.masked_fill(mask, NEG_INF)
-        ref = bound if bound is not None else s.amax(dim=-1, keepdim=True)
-        p = torch.exp2(s - ref)
-        if mask is not None:
-            p = p.masked_fill(mask, 0.0)
-        l = p.sum(dim=-1, keepdim=True)
-        inv = torch.where(l > 0, 1.0 / torch.where(l > 0, l, 1.0), 0.0)
-        acc = torch.einsum("bnqk,bknd->bqnd", p.to(v.dtype).float(), vf)
-        out[:, i0:i0 + q_chunk] = (acc * inv.permute(0, 2, 1, 3)).to(q.dtype)
+        acc, l, ref = _softmax_pv(s, mask, bound, softmax_bf16, vf, v.dtype)
+        out[:, i0:i0 + q_chunk] = _normalise(acc, l, q.dtype)
         if save_residuals:
             lse[:, :, i0:i0 + q_chunk] = torch.where(
                 l > 0, ref + torch.log2(torch.where(l > 0, l, 1.0)),
                 -NEG_INF)[..., 0]
     return (out, lse) if save_residuals else out
+
+
+def quantize_qk_int8_plain(q, k, rope_tables=None, block_k: int = 512):
+    """The int8 pre-pass in plain PyTorch (`quantize_qk_int8`): q, k padded
+    [B, L, N, D]; rope_tables the padded fused-rope tables or None (q then
+    already folded). Rotation in fp32; q per row: aq = max(max|q32|, 1e-30),
+    codes round(q32 * (127 / aq)), sq = aq * (1 / 127); k per (b, h, block
+    of block_k rows, the last one short): ak = max(max|k32|, 1e-30) over
+    the block, codes round(k32 * (127 / ak)), akq = ak * (1 / 127). Returns
+    (qi int8 [B, N, Lq, D], sq fp32 [B, N, Lq], ki int8 [B, N, Lk, D],
+    akq fp32 [B, N, ceil(Lk / block_k)])."""
+    if rope_tables is not None:
+        cq, sq_t, ck, sk_t = rope_tables
+        q32, k32 = rotate(q, cq, sq_t, torch.float32), \
+            rotate(k, ck, sk_t, torch.float32)
+    else:
+        q32, k32 = q.float(), k.float()
+    q32, k32 = q32.transpose(1, 2), k32.transpose(1, 2)   # [B, N, L, D]
+    c127 = torch.tensor(127.0, device=q.device)
+
+    def codes(x, a):   # the division 127 / a first, then the product
+        return torch.round(x * c127.div(a)).to(torch.int8)
+
+    aq = q32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    b, n, lk, d = k32.shape
+    nblk = -(-lk // block_k)
+    blocks = torch.nn.functional.pad(k32, (0, 0, 0, nblk * block_k - lk))
+    ak = blocks.reshape(b, n, nblk, block_k * d).abs().amax(dim=-1) \
+        .clamp_min(1e-30)
+    ak_rows = ak.repeat_interleave(block_k, dim=-1)[..., :lk, None]
+    return (codes(q32, aq).contiguous(), (aq * (1.0 / 127.0))[..., 0],
+            codes(k32, ak_rows).contiguous(), ak * (1.0 / 127.0))
+
+
+def attention_int8_plain(qi, sq, ki, akq, v, *, kv_len=None, bound=None,
+                         softmax_bf16: bool = False, block_k: int = 512,
+                         q_chunk: int = 1024):
+    """The int8 QK^T kernel's function in plain PyTorch, on the pre-pass's
+    codes and scales (`quantize_qk_int8_plain`) and bf16 v [B, Lk, N, D]:
+    s = float(qi ki^T) * (sq_row * akq_block) (the integer products are
+    exact in fp32: |s32| <= 127^2 * D < 2^24), keys at or past kv_len
+    masked on the fp32 s, then `_softmax_pv` (bounded or one-shot max, fp32
+    or bf16 chain)."""
+    b, n, lq, d = qi.shape
+    lk = ki.shape[2]
+    kf = ki.float()
+    vf = v.float()
+    ak_cols = akq.repeat_interleave(block_k, dim=-1)[..., None, :lk]
+    out = torch.empty((b, lq, n, d), dtype=v.dtype, device=v.device)
+    for i0 in range(0, lq, q_chunk):
+        sl = slice(i0, i0 + q_chunk)
+        s32 = torch.einsum("bnqd,bnkd->bnqk", qi[:, :, sl].float(), kf)
+        s = s32 * (sq[:, :, sl, None] * ak_cols)
+        mask = _dead(i0, min(i0 + q_chunk, lq), lk, v.device, kv_len=kv_len)
+        acc, l, _ = _softmax_pv(s, mask, bound, softmax_bf16, vf, v.dtype)
+        out[:, sl] = _normalise(acc, l, v.dtype)
+    return out
 
 
 def attention_bwd_plain(q, k, v, o, lse, do, *, kv_len=None,
@@ -475,17 +573,18 @@ def _rope_f32(x, cf, sf):
 
 def _launch_bf16(q, k, v, kv_len, bound, mode, lse=None, causal=False,
                  q_offset=0, q_offsets=None, q_segments=None,
-                 kv_segments=None, seg=None):
+                 kv_segments=None, seg=None, softmax_bf16=False):
     b, lq, n, d = q.shape
     o = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
     fn = _fn("flash_attention", "univid_flash_fwd_bf16",
-             [_P] * 10 + [_I] * 10 + [_P, _P])
+             [_P] * 10 + [_I] * 11 + [_P, _P])
     strides = _strides(q, k, v, o)  # host array, read during the launch
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              _ptr(kv_len), _ptr(bound), _ptr(lse), _ptr(q_offsets),
              _ptr(q_segments), _ptr(kv_segments), mode, int(causal),
-             _SEG_MODE[seg], int(q_offset), n // k.shape[2], b, n, lq,
-             k.shape[1], d, ctypes.addressof(strides), _stream(q))
+             _SEG_MODE[seg], int(softmax_bf16), int(q_offset),
+             n // k.shape[2], b, n, lq, k.shape[1], d,
+             ctypes.addressof(strides), _stream(q))
     build.check(err, "univid_flash_fwd_bf16")
     return o
 
@@ -513,7 +612,7 @@ def _bound_tensor(bound, device):
 
 def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
                 q_offset=0, q_offsets=None, q_segments=None, kv_segments=None,
-                packed_mode=False):
+                packed_mode=False, softmax_bf16=False):
     if q.dtype == torch.bfloat16:
         _check_cuda_inputs(q, k, v, kv_len, torch.bfloat16, (128,),
                            group_ok=True)
@@ -543,8 +642,9 @@ def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
             return o
         mode = _MODE_BOUNDED if bound is not None else _MODE_RUNNING
         o = _launch_bf16(q, k, v, kv_len, _bound_tensor(bound, q.device),
-                         mode)
-        _count("flash_attention_bf16")
+                         mode, softmax_bf16=softmax_bf16)
+        _count("flash_attention_bf16_sbf16" if softmax_bf16
+               else "flash_attention_bf16")
         return o
     if q.dtype == torch.float32 and q.shape[-1] == D128:
         _check_cuda_inputs(q, k, v, kv_len, torch.float32, (D128,))
@@ -585,19 +685,119 @@ def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
 # ---------------------------------------------------------------------------
 
 
-def cross_attention_padded(q, k, v, *, kv_len=None, score_bound=None):
+def cross_attention_padded(q, k, v, *, kv_len=None, score_bound=None,
+                           softmax_bf16: bool = False):
     """Single-kv-block attention (Lk <= 512). q is already scale * log2(e)
-    folded; score_bound is in the folded domain."""
+    folded; score_bound is in the folded domain; softmax_bf16: the bf16
+    softmax chain."""
     if not q.is_cuda:
-        return attention_plain(q, k, v, kv_len=kv_len, bound=score_bound)
+        return attention_plain(q, k, v, kv_len=kv_len, bound=score_bound,
+                               softmax_bf16=softmax_bf16)
     _check_cuda_inputs(q, k, v, kv_len, torch.bfloat16, (128,),
                        group_ok=True)
     if k.shape[1] > CROSS_MAX_LK:
         raise ValueError(f"cross kernel takes Lk <= {CROSS_MAX_LK}")
     mode = _MODE_BOUNDED if score_bound is not None else _MODE_ONESHOT
     o = _launch_bf16(q, k, v, kv_len, _bound_tensor(score_bound, q.device),
-                     mode)
-    _count("cross_attention_bf16")
+                     mode, softmax_bf16=softmax_bf16)
+    _count("cross_attention_bf16_sbf16" if softmax_bf16
+           else "cross_attention_bf16")
+    return o
+
+
+def _check_int8_inputs(*ts):
+    for t in ts:
+        if not t.is_cuda or t.dtype != torch.bfloat16 or t.shape[-1] != D128:
+            raise TypeError("the int8 kernels take bf16 CUDA tensors of "
+                            f"head dim {D128}, got {t.dtype} {tuple(t.shape)} "
+                            f"on {t.device}")
+        if t.data_ptr() % 4 or any(st % 2 for st in t.stride()[:-1]) \
+                or t.stride(-1) != 1:
+            raise ValueError("the int8 pre-pass reads aligned bf16 pairs")
+
+
+def quantize_qk_int8(q, k, rope_tables=None, block_k: int = 512):
+    """The qk_int8 pre-pass: (qi, sq, ki, akq) of `quantize_qk_int8_plain`,
+    from padded q, k [B, L, N, 128] (rope_tables padded, or None with q
+    already folded); the k scale's block of block_k keys (a multiple of 64:
+    every 64-key tile of the kernel lies in one block). Two launches on the
+    card (q, then k); the plain version on the CPU."""
+    if block_k <= 0 or block_k % TILE:
+        raise ValueError(f"block_k {block_k} is not a multiple of {TILE}")
+    if not q.is_cuda:
+        return quantize_qk_int8_plain(q, k, rope_tables, block_k)
+    _check_int8_inputs(q, k)
+    if k.shape[2] != q.shape[2]:
+        raise ValueError("the int8 kernel takes as many kv heads as q heads")
+    tabs = ((None,) * 4 if rope_tables is None else
+            tuple(t.float().contiguous() for t in rope_tables))
+    b, lq, n, d = q.shape
+    lk = k.shape[1]
+    qi = torch.empty((b, n, lq, d), dtype=torch.int8, device=q.device)
+    sq = torch.empty((b, n, lq), dtype=torch.float32, device=q.device)
+    ki = torch.empty((b, n, lk, d), dtype=torch.int8, device=q.device)
+    akq = torch.empty((b, n, -(-lk // block_k)), dtype=torch.float32,
+                      device=q.device)
+    ll = ctypes.c_longlong
+    fq = _fn("flash_attention_int8", "univid_quant_q_int8",
+             [_P] * 5 + [_I] * 4 + [ll] * 3 + [_P])
+    err = fq(q.data_ptr(), _ptr(tabs[0]), _ptr(tabs[1]), qi.data_ptr(),
+             sq.data_ptr(), b, lq, n, d, *q.stride()[:3], _stream(q))
+    build.check(err, "univid_quant_q_int8")
+    _count("quantize_qk_int8")
+    fk = _fn("flash_attention_int8", "univid_quant_k_int8",
+             [_P] * 5 + [_I] * 5 + [ll] * 3 + [_P])
+    err = fk(k.data_ptr(), _ptr(tabs[2]), _ptr(tabs[3]), ki.data_ptr(),
+             akq.data_ptr(), b, lk, n, d, block_k, *k.stride()[:3],
+             _stream(k))
+    build.check(err, "univid_quant_k_int8")
+    _count("quantize_qk_int8")
+    return qi, sq, ki, akq
+
+
+def flash_attention_int8(qi, sq, ki, akq, v, *, kv_len=None, score_bound=None,
+                         softmax_bf16: bool = False, block_k: int = 512):
+    """The int8 QK^T attention on the pre-pass's codes and scales, bf16 v
+    [B, Lk, N, 128] -> bf16 [B, Lq, N, 128]: bounded (score_bound, folded)
+    or running max, kv_len, the fp32 or the bf16 softmax chain."""
+    if not v.is_cuda:
+        return attention_int8_plain(qi, sq, ki, akq, v, kv_len=kv_len,
+                                    bound=score_bound,
+                                    softmax_bf16=softmax_bf16,
+                                    block_k=block_k)
+    b, n, lq, d = qi.shape
+    lk = ki.shape[2]
+    for t, dt, shape in ((qi, torch.int8, (b, n, lq, d)),
+                         (ki, torch.int8, (b, n, lk, d)),
+                         (sq, torch.float32, (b, n, lq)),
+                         (akq, torch.float32, (b, n, -(-lk // block_k)))):
+        if (t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.device != v.device):
+            raise TypeError("qi, sq, ki, akq must be the pre-pass's outputs "
+                            f"for block_k {block_k}")
+    if v.dtype != torch.bfloat16 or tuple(v.shape) != (b, lk, n, d):
+        raise TypeError("v must be bf16 [B, Lk, N, D]")
+    if lq % TILE or lk % TILE or block_k % TILE:
+        raise ValueError(f"Lq, Lk and block_k must be multiples of {TILE}")
+    if kv_len is not None and (kv_len.dtype != torch.int32
+                               or kv_len.device != v.device):
+        raise TypeError("kv_len must be int32 on the kernel's device")
+    o = torch.empty((b, lq, n, d), dtype=v.dtype, device=v.device)
+    mode = _MODE_BOUNDED if score_bound is not None else _MODE_RUNNING
+    bound = _bound_tensor(score_bound, v.device)
+    fn = _fn("flash_attention_int8", "univid_flash_fwd_int8",
+             [_P] * 8 + [_I] * 7 + [_P, _P])
+    st = v.stride()[:3] + o.stride()[:3]
+    strides = (ctypes.c_longlong * 6)(*st)
+    if v.stride(-1) != 1:
+        raise ValueError("attention kernels need unit stride along D")
+    err = fn(qi.data_ptr(), sq.data_ptr(), ki.data_ptr(), akq.data_ptr(),
+             v.data_ptr(), o.data_ptr(), _ptr(kv_len), _ptr(bound), mode,
+             int(softmax_bf16), b, n, lq, lk, block_k,
+             ctypes.addressof(strides), _stream(v))
+    build.check(err, "univid_flash_fwd_int8")
+    _count("flash_attention_int8_sbf16" if softmax_bf16
+           else "flash_attention_int8")
     return o
 
 
@@ -605,7 +805,9 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
                            rope_tables=None, score_bound=None,
                            save_residuals: bool = False, causal: bool = False,
                            q_offset: int = 0, q_offsets=None, q_segments=None,
-                           kv_segments=None, packed_mode: bool = False):
+                           kv_segments=None, packed_mode: bool = False,
+                           softmax_bf16: bool = False, qk_int8: bool = False,
+                           block_k: int = 512):
     """Attention over padded [B, L, N, D] (k, v may have N / group heads).
 
     rope_tables: build_fused_rope_tables output -> q and k rotated first
@@ -620,7 +822,12 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
     offsets). bf16 with Lk <= 512, no rope, no mask but kv_len takes the
     single-kv-block cross route, except with save_residuals, which returns
     (o, lse) from the generic kernel (the training forward; lse as in
-    `attention_plain`)."""
+    `attention_plain`). softmax_bf16: the bf16 softmax chain. qk_int8: the
+    int8 QK^T route (`quantize_qk_int8`, whose k scales span blocks of
+    min(block_k, Lk) keys, the JAX kernel's kv block, then
+    `flash_attention_int8`); it takes every Lk, as the JAX kernel's
+    generic grid does. The knobs take kv_len and the bound, no other mask,
+    and no lse."""
     b, lq, n, d = q.shape
     lk = k.shape[1]
     if lq % TILE or lk % TILE:
@@ -635,6 +842,13 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
     masks = dict(causal=causal, q_offset=q_offset, q_offsets=q_offsets,
                  q_segments=q_segments, kv_segments=kv_segments,
                  packed_mode=packed_mode)
+    knobs = softmax_bf16 or qk_int8
+    if knobs and (causal or q_segments is not None or kv_segments is not None
+                  or save_residuals):
+        raise NotImplementedError(KNOBS_MASKED + "; the training forward "
+                                  "takes no knob")
+    if knobs and q.is_cuda and q.dtype != torch.bfloat16:
+        raise NotImplementedError(KNOBS_F32_LATER)
     if save_residuals:
         if rope_tables is not None:
             raise NotImplementedError(
@@ -648,18 +862,26 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
                                   softmax_scale * LOG2E)
     else:
         q = _fold(q, softmax_scale)
-        # the cross kernel is bf16; fp32 calls (the fp32 DiT's cross-
-        # attention, the VAE on small frames) stay on the flash route, the
-        # same function
-        if (lk <= CROSS_MAX_LK and q.dtype == torch.bfloat16 and not causal
-                and q_segments is None):
-            return cross_attention_padded(q, k, v, kv_len=kv_len,
-                                          score_bound=score_bound)
+    if qk_int8:
+        bw = min(block_k, lk)
+        qi, sq, ki, akq = quantize_qk_int8(q, k, rope_tables, bw)
+        return flash_attention_int8(qi, sq, ki, akq, v, kv_len=kv_len,
+                                    score_bound=score_bound,
+                                    softmax_bf16=softmax_bf16, block_k=bw)
+    # the cross kernel is bf16; fp32 calls (the fp32 DiT's cross-attention,
+    # the VAE on small frames) stay on the flash route, the same function
+    if (rope_tables is None and lk <= CROSS_MAX_LK
+            and q.dtype == torch.bfloat16 and not causal
+            and q_segments is None):
+        return cross_attention_padded(q, k, v, kv_len=kv_len,
+                                      score_bound=score_bound,
+                                      softmax_bf16=softmax_bf16)
     if q.is_cuda:
         return _flash_cuda(q, k, v, kv_len, score_bound, rope_tables,
-                           **masks)
+                           softmax_bf16=softmax_bf16, **masks)
     return attention_plain(q, k, v, kv_len=kv_len, bound=score_bound,
-                           rope_tables=rope_tables, **masks)
+                           rope_tables=rope_tables, softmax_bf16=softmax_bf16,
+                           **masks)
 
 
 def flash_attention_fwd_folded(qs, k, v, *, kv_len=None, score_bound=None,

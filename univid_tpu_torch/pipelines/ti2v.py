@@ -8,11 +8,16 @@ streaming VAE decode. i2v conditions on the first frame: its VAE latent z0
 replaces the first latent frame before the loop and after every solver
 step, and the first frame's tokens take t = 0. `denoise_fn(...)` returns
 the inner `run(dit, noise, context, context_null, z0)` so that a caller can
-feed its own noise. TaylorSeer is a later slice.
+feed its own noise. `taylorseer_threshold` > 0 turns on TaylorSeer step
+caching of the batch-2 CFG velocity (ops/taylorseer.py): full steps run
+the DiT and refresh the factor stack [7, 2, F, H, W, C] (fp32); Taylor
+steps extrapolate the velocity and skip the DiT. Threshold 1 makes every
+step full (the result equals the loop without it).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -27,6 +32,9 @@ from ..ops.rope import build_rope_3d
 from ..ops.samplers import (dpm_step, flow_sigmas, get_sampling_sigmas,
                             precompute_dpm_solver, precompute_unipc,
                             unipc_init_state, unipc_step)
+from ..ops.taylorseer import (TaylorSeerConfig, init_taylor_cache,
+                              taylor_predict, taylor_update,
+                              taylorseer_schedule)
 from ..ops.tma import apply_text_weight, tma_schedule_weights
 
 
@@ -75,11 +83,15 @@ class WanTI2VPipeline:
 
     def denoise_fn(self, latent_grid: Tuple[int, int, int], seq_len: int,
                    steps: int, shift: float, guide_scale: float,
-                   solver: str, tma: Optional[TMAConfig], i2v: bool = False):
+                   solver: str, tma: Optional[TMAConfig], i2v: bool = False,
+                   taylorseer_threshold: int = 0, timer=None):
         """The denoise loop for one shape: run(dit, noise, context,
         context_null, z0) -> final latent [1, F, H, W, C] (fp32). With i2v
         the first latent frame is clamped to z0's (before the loop and
-        after every step) and its tokens take t = 0."""
+        after every step) and its tokens take t = 0. taylorseer_threshold >
+        0: TaylorSeer with that fresh_threshold (0: off). timer: a
+        PhaseTimer that also times each step, as dit_step or, with
+        TaylorSeer, taylor_step."""
         cfg = self.spec.dit
         gen = GenerationConfig(sampling_steps=steps, shift=shift,
                                guide_scale=guide_scale, sample_solver=solver)
@@ -94,6 +106,13 @@ class WanTI2VPipeline:
         pt, ph, pw = cfg.patch_size
         grid = (f // pt, h // ph, w // pw)
         policy = self.policy
+        sched = (taylorseer_schedule(steps, TaylorSeerConfig(
+            fresh_threshold=taylorseer_threshold))
+            if taylorseer_threshold > 0 else None)
+
+        def step_phase(name):
+            return timer.phase(name) if timer is not None \
+                else contextlib.nullcontext()
 
         @torch.no_grad()
         def run(dit, noise, context, context_null, z0):
@@ -112,23 +131,38 @@ class WanTI2VPipeline:
                 frame_mask[:, :1] = 1.0   # 1 where clamped to z0
                 latents = frame_mask * z0 + (1.0 - frame_mask) * noise
             state = unipc_init_state(latents, order=coeffs.order)
+            factors = (init_taylor_cache((2,) + tuple(latents.shape[1:]),
+                                         device=dev)
+                       if sched is not None else None)
             for i in range(steps):
-                c = coeffs.step(i)
-                ctx = ctx_pair
-                if tma_prefix > 0:
-                    ctx = apply_text_weight(ctx, float(tma_w[i]), tma_prefix)
-                x2 = state["sample"].float().expand(
-                    (2,) + tuple(state["sample"].shape[1:]))
-                t2 = torch.full((2,), c["timestep"], dtype=torch.float32,
-                                device=noise.device)
-                v = wan_dit_forward(dit, x2, t2, ctx, rope_cos, rope_sin,
-                                    t_zero_mask=t_zero, seq_pad_to=seq_len,
-                                    policy=policy, fused_rope=True)
-                v_guided = v[1:2] + guide_scale * (v[0:1] - v[1:2])
-                state = step_fn(state, c, v_guided)
-                if i2v:
-                    state = dict(state, sample=frame_mask * z0
-                                 + (1.0 - frame_mask) * state["sample"])
+                full = sched is None or sched["is_full"][i] > 0
+                with step_phase("dit_step" if full else "taylor_step"):
+                    c = coeffs.step(i)
+                    if full:
+                        ctx = ctx_pair
+                        if tma_prefix > 0:
+                            ctx = apply_text_weight(ctx, float(tma_w[i]),
+                                                    tma_prefix)
+                        x2 = state["sample"].float().expand(
+                            (2,) + tuple(state["sample"].shape[1:]))
+                        t2 = torch.full((2,), c["timestep"],
+                                        dtype=torch.float32, device=dev)
+                        v = wan_dit_forward(
+                            dit, x2, t2, ctx, rope_cos, rope_sin,
+                            t_zero_mask=t_zero, seq_pad_to=seq_len,
+                            policy=policy, fused_rope=True)
+                        if sched is not None:
+                            factors = taylor_update(factors, v,
+                                                    sched["dd"][i],
+                                                    sched["n_upd"][i])
+                    else:
+                        v = taylor_predict(factors, sched["x"][i],
+                                           sched["n_stored"][i]).float()
+                    v_guided = v[1:2] + guide_scale * (v[0:1] - v[1:2])
+                    state = step_fn(state, c, v_guided)
+                    if i2v:
+                        state = dict(state, sample=frame_mask * z0
+                                     + (1.0 - frame_mask) * state["sample"])
             return state["sample"]
 
         return run
@@ -140,11 +174,13 @@ class WanTI2VPipeline:
                  guide_scale: float = 5.0, seed: int = 0,
                  img: Optional[torch.Tensor] = None,
                  tma: Optional[TMAConfig] = None, decode: bool = True,
-                 noise: Optional[torch.Tensor] = None, timer=None):
+                 noise: Optional[torch.Tensor] = None, timer=None,
+                 taylorseer_threshold: int = 0):
         """Video [T, H, W, 3] in [-1, 1] (or the latent with decode=False).
         img [H, W, 3] in [-1, 1], at `size`, makes it i2v. noise [1, F, H,
         W, C]: the initial latent; when None it is drawn on the pipeline's
-        device from a torch.Generator seeded with `seed`."""
+        device from a torch.Generator seeded with `seed`.
+        taylorseer_threshold: TaylorSeer's fresh_threshold (0: off)."""
         spec = self.spec
         c, f, h, w = latent_shape(spec, size[0], size[1], frame_num)
         seq_len = padded_seq_len(spec, size, frame_num)
@@ -167,7 +203,9 @@ class WanTI2VPipeline:
         else:
             z0 = torch.zeros_like(noise)
         run = self.denoise_fn((f, h, w), seq_len, sampling_steps, shift,
-                              guide_scale, sample_solver, tma, i2v=i2v)
+                              guide_scale, sample_solver, tma, i2v=i2v,
+                              taylorseer_threshold=taylorseer_threshold,
+                              timer=timer)
         ctx, nctx = context[None].to(dev), context_null[None].to(dev)
         if timer is not None:
             x0 = timer.time_phase("denoise", run, self.dit, noise, ctx, nctx,
