@@ -26,7 +26,15 @@ Phases:
      square prefill's shape, offset 0 and q_offsets [0, 37]; the fp32 d=128
      kernels (the forward running, bounded and with the lse, the rope
      pre-pass, dq and dk/dv) at the fp32 fine-tune's self [1, 32768, 12,
-     128] and cross (512 keys) shapes, SDPA on fp32 inputs as yardstick;
+     128] and cross (512 keys) shapes, SDPA on fp32 inputs as yardstick.
+     The bf16 forward's unmasked modes run on the Hopper kernel
+     (flash_attention_sm90.cu): at every shape above where they appear
+     (self-attention bounded, cross-attention bounded and one-shot, the
+     training forward with lse at the self and cross shapes, the ViT
+     append, softmax_bf16 self- and cross-attention, at the t2v-1.3B and
+     ti2v-5B shapes) it is timed in turns with the mma.sync kernel it
+     replaces (old, new, new, old; `sm90_vs_mma_sync` lines, the records'
+     `mma_sync_ms`);
   4. hold the port on the card (kernels) against the port on the CPU
      (plain versions) on small d=128 models: the t2v pipeline, the
      FusionPipeline in t2v and i2v (with the ti2v-5B VAE), three LoRA +
@@ -77,7 +85,10 @@ int8 pre-pass, the int8 QK^T kernel alone and with softmax_bf16) are held
 against their plain versions at the ti2v-5B and t2v-1.3B shapes in phase
 3, and each knob alone and all four card against CPU on a small d=128 DiT
 in phase 4.
-Each path starts with every launch count at 0; the `kernels` line gives
+Each path starts with every launch count at 0; the paths of phases 5-9
+and 12 also check their bf16 forward launches by kernel (every unmasked
+forward on the sm90 kernel, only causal, segment and packed calls on the
+mma.sync kernel; `check_impl`). The `kernels` line gives
 each kernel the launches of its own path (the segment modes and the causal
 backward serve no path of the JAX package at d=128: 0; the fp32 d=128
 serving forward and rope pre-pass count the fp32 t2v pipeline run of
@@ -92,6 +103,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -139,6 +151,36 @@ def cuda_time(fn, iters, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ab_time(new, old, iters):
+    """The sm90 kernel (`new`) and the mma.sync kernel it replaces (`old`)
+    timed in turns in one call, old, new, new, old, with CUDA events:
+    (new ms, old ms), each the mean of its two runs."""
+    o1 = cuda_time(old, iters)
+    n1 = cuda_time(new, iters)
+    n2 = cuda_time(new, iters)
+    o2 = cuda_time(old, iters)
+    return (n1 + n2) / 2, (o1 + o2) / 2
+
+
+def log_ab(call, new_ms, old_ms):
+    log(json.dumps({"sm90_vs_mma_sync": call, "sm90_ms": new_ms,
+                    "mma_sync_ms": old_ms, "speedup": old_ms / new_ms}))
+
+
+def check_impl(tag, sm90, mma_sync=0):
+    """A path's bf16 forward launches by kernel (LAUNCHES_BY_IMPL since the
+    path's counts were reset): every unmasked forward on the sm90 kernel,
+    the mma.sync kernel only for causal, segment and packed calls."""
+    from univid_tpu_torch.kernels import flash_attention as fa
+    want = {"sm90": sm90, "mma_sync": mma_sync}
+    got = dict(fa.LAUNCHES_BY_IMPL)
+    log(json.dumps({"check": f"{tag}: bf16 forward launches by kernel",
+                    "launches_by_impl": got, "expected": want,
+                    "ok": got == want}))
+    if got != want:
+        fail(f"{tag}: bf16 forward launches by kernel {got} != {want}")
 
 
 def bound_ms(flops, nbytes, peak_flops):
@@ -235,9 +277,13 @@ def check_serving_kernels(gen, tag, n, grid, l):
         got_r = fa._flash_cuda(q, k, v, kv_len, None, tabs)
         compare(f"flash_attention_bf16 {tag} running max+rope+kv_len",
                 got_r, want, **tol)
-        # the attention kernel alone, on the pre-rotated q and k
-        ms = cuda_time(lambda: fa._flash_cuda(qr, kr, v, kv_len, bound,
-                                              None), 3)
+        # the attention kernel alone, on the pre-rotated q and k, beside
+        # the mma.sync kernel it replaces
+        ms, old_ms = ab_time(
+            lambda: fa._flash_cuda(qr, kr, v, kv_len, bound, None),
+            lambda: fa._launch_bf16(qr, kr, v, kv_len, bound,
+                                    fa._MODE_BOUNDED), 3)
+        log_ab(f"self-attention {tag} bounded", ms, old_ms)
         plain_ms = cuda_time(lambda: fa.attention_plain(
             qr, kr, v, kv_len=kv_len, bound=bound), 1)
         qs, ks, vs = (x.transpose(1, 2) for x in (qr, kr, v))
@@ -248,10 +294,10 @@ def check_serving_kernels(gen, tag, n, grid, l):
     bms, by = bound_ms(flops, nbytes(qr, kr, v, got), H100_BF16_FLOPS)
     records["flash_attention_bf16"] = dict(
         name="flash_attention_bf16", route="cuda",
-        source="univid_tpu_torch/kernels/csrc/flash_attention.cu",
+        source="univid_tpu_torch/kernels/csrc/flash_attention_sm90.cu",
         replaces="univid_tpu/kernels/flash_attention.py:44",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=lib_ms)
+        bound_by=by, library_ms=lib_ms, mma_sync_ms=old_ms)
     # 2 multiplies and an add per element, fp32
     bms, by = bound_ms(3 * q.numel(), nbytes(q, cq, sq, qr), H100_FP32_FLOPS)
     records["rope_rotate_bf16"] = dict(
@@ -295,8 +341,15 @@ def check_serving_kernels(gen, tag, n, grid, l):
                                          device="cuda"))
         if float(zero[0].abs().max()) != 0.0:
             fail("cross_attention_bf16: kv_len == 0 rows are not zero")
-        ms = cuda_time(lambda: fa.cross_attention_padded(
-            q, k, v, score_bound=bound), 5)
+        ms, old_ms = ab_time(
+            lambda: fa.cross_attention_padded(q, k, v, score_bound=bound),
+            lambda: fa._launch_bf16(q, k, v, None, bound, fa._MODE_BOUNDED),
+            5)
+        log_ab(f"cross-attention {tag} bounded", ms, old_ms)
+        log_ab(f"cross-attention {tag} one-shot", *ab_time(
+            lambda: fa.cross_attention_padded(q, k, v),
+            lambda: fa._launch_bf16(q, k, v, None, None, fa._MODE_ONESHOT),
+            5))
         plain_ms = cuda_time(lambda: fa.attention_plain(q, k, v,
                                                         bound=bound), 1)
         qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
@@ -306,10 +359,10 @@ def check_serving_kernels(gen, tag, n, grid, l):
     bms, by = bound_ms(flops, nbytes(q, k, v, got), H100_BF16_FLOPS)
     records["cross_attention_bf16"] = dict(
         name="cross_attention_bf16", route="cuda",
-        source="univid_tpu_torch/kernels/csrc/flash_attention.cu",
+        source="univid_tpu_torch/kernels/csrc/flash_attention_sm90.cu",
         replaces="univid_tpu/kernels/flash_attention.py:355",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=lib_ms)
+        bound_by=by, library_ms=lib_ms, mma_sync_ms=old_ms)
     del q, k, v, got, want, qs, ks, vs
 
     return records
@@ -494,9 +547,16 @@ def check_train_kernels():
                     or float(dv[:, kv_real:].abs().max()) != 0.0):
                 fail("flash_attention_bwd: dk / dv past kv_len are not 0")
             del want
+            lse_old = torch.empty_like(lse)
+            lse_ms, lse_old_ms = ab_time(
+                lambda: fa.flash_attention_fwd_folded(
+                    qs, k, v, kv_len=kv_len, score_bound=bound),
+                lambda: fa._launch_bf16(qs, k, v, kv_len, bound,
+                                        fa._MODE_BOUNDED, lse=lse_old), 3)
+            log_ab(f"training forward with lse, {shape}", lse_ms,
+                   lse_old_ms)
             ms = {
-                "lse_fwd": cuda_time(lambda: fa.flash_attention_fwd_folded(
-                    qs, k, v, kv_len=kv_len, score_bound=bound), 3),
+                "lse_fwd": lse_ms,
                 "bwd_dq": cuda_time(lambda: fa._bwd_dq_cuda(
                     qs, k, v, o_p, lse_p, do, kv_len, sc), 3),
                 "bwd_dkv": cuda_time(lambda: fa._bwd_dkv_cuda(
@@ -546,7 +606,8 @@ def check_train_kernels():
                                "dk, dv) of 2 Lq Lk d flops per head"}))
         meta = {
             "lse_fwd": ("flash_attention_bf16_lse",
-                        "univid_tpu_torch/kernels/csrc/flash_attention.cu",
+                        "univid_tpu_torch/kernels/csrc/"
+                        "flash_attention_sm90.cu",
                         "univid_tpu/kernels/flash_attention.py:343",
                         plain_fwd, lib_fwd),
             "bwd_dq": ("flash_attention_bwd_dq_bf16",
@@ -563,12 +624,14 @@ def check_train_kernels():
                        max_abs_err=errs[key], ms=ms[key], plain_ms=plain_ms,
                        bound_ms=bounds[key][0], bound_by=bounds[key][1],
                        library_ms=lib_ms)
+            if key == "lse_fwd":
+                rec["mma_sync_ms"] = lse_old_ms
             if shape == "self":
                 out[name] = rec
                 log(json.dumps({"kernel": rec}))
             else:
                 log(json.dumps({"kernel_at_cross_shape": rec}))
-        del q, k, v, do, qs, o, lse, o_p, lse_p, dq, dk, dv, delta
+        del q, k, v, do, qs, o, lse, o_p, lse_p, dq, dk, dv, delta, lse_old
         torch.cuda.empty_cache()
 
     # the autograd Function (attention() under grad) at L = 2048
@@ -1085,6 +1148,8 @@ def train_main_path(n_steps):
             if not b_max > 0:
                 fail("LoRA b is still zero after the first step")
     launches = launch_counts()
+    # the serving self-attention of layer 0 and the 89 forwards with lse
+    check_impl("LoRA training", (1 + 89) * n_steps)
     peak = torch.cuda.max_memory_allocated() / 1e9
     state, profiled = profile_step(step, state, batch)
     base_same = all(torch.equal(v, snapshot[k])
@@ -1196,6 +1261,7 @@ def main_path(steps, output_dir):
     if launches != expected or f32_by_d != f32_expected:
         fail(f"launch counts {launches} {f32_by_d} != {expected} "
              f"{f32_expected}")
+    check_impl("t2v-1.3B serving", 60 * steps)   # self + cross a block
     if len(frames) != 81 or frames[0].shape != (480, 832, 3):
         fail("the mp4 is not 81 frames of 480x832")
     return launches
@@ -1237,7 +1303,9 @@ def ti2v_main_path(output_dir):
 
     def counts():
         return dict(fa.LAUNCHES, **{f"flash_attention_f32 d={d}": n for d, n
-                                    in fa.F32_LAUNCHES_BY_D.items()})
+                                    in fa.F32_LAUNCHES_BY_D.items()},
+                    **{f"bf16 forward on {k}": n for k, n
+                       in fa.LAUNCHES_BY_IMPL.items()})
 
     def counting_save(*a, **kw):   # the CLI saves once per mode
         per_mode.append(counts())
@@ -1266,7 +1334,9 @@ def ti2v_main_path(output_dir):
         "flash_attention_f32": n_dec,
         "flash_attention_f32 d=384": 0,
         "flash_attention_f32 d=640": 0,
-        "flash_attention_f32 d=1024": n_dec})   # per decoded chunk
+        "flash_attention_f32 d=1024": n_dec,    # per decoded chunk
+        "bf16 forward on sm90": 60 * steps,     # self + cross a block
+        "bf16 forward on mma_sync": 0})
     # i2v adds the d=640 launch of its first-frame encode
     expected = {"t2v": per_video,
                 "i2v": dict(per_video, **{"flash_attention_f32": n_dec + 1,
@@ -1433,7 +1503,10 @@ def check_causal_kernels():
         want = fa.attention_plain(q, k, v, kv_len=kv)
         err = compare("flash_attention_bf16 ViT append group 7", got, want,
                       **tol)
-        ms = cuda_time(lambda: fa._flash_cuda(q, k, v, kv, None, None), 10)
+        ms, old_ms = ab_time(
+            lambda: fa._flash_cuda(q, k, v, kv, None, None),
+            lambda: fa._launch_bf16(q, k, v, kv, None, fa._MODE_RUNNING), 10)
+        log_ab("ViT append group 7", ms, old_ms)
         plain_ms = cuda_time(lambda: fa.attention_plain(q, k, v, kv_len=kv),
                              1)
         kvl = 16 * FRAME_ROWS
@@ -1445,10 +1518,10 @@ def check_causal_kernels():
                        nbytes(q, got) + kvl * nk * d * 2 * 2, H100_BF16_FLOPS)
     log(json.dumps({"kernel_at_bagel_vit_append": dict(
         name="flash_attention_bf16", route="cuda",
-        source="univid_tpu_torch/kernels/csrc/flash_attention.cu",
+        source="univid_tpu_torch/kernels/csrc/flash_attention_sm90.cu",
         replaces="univid_tpu/kernels/flash_attention.py:44", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-        library_ms=lib_ms, shape={"q": list(q.shape), "kv": list(k.shape),
+        library_ms=lib_ms, mma_sync_ms=old_ms, shape={"q": list(q.shape), "kv": list(k.shape),
                                   "kv_len": kvl})}))
     del q, k, v, got, want, qs, ks, vs
     torch.cuda.empty_cache()
@@ -1731,6 +1804,10 @@ def bagel_main_path(output_dir):
         if call["launches"] != want or call["frames"] != k:
             fail(f"QA call on {k} frames: launches {call['launches']} != "
                  f"{want}")
+    # the ViT appends (captioning and QA) on the sm90 kernel, the causal
+    # question prefills on the mma.sync kernel
+    check_impl("BAGEL QA request", n_layers * (1 + sum(rounds)),
+               n_layers * len(qa))
     keys = {"video", "question", "qtype_init", "global_caption", "rounds",
             "fallback", "qtype_final", "final_answer"}
     if not keys <= set(trace) or not trace["final_answer"]:
@@ -2396,11 +2473,14 @@ def bagel_train_main_path():
     with torch.no_grad():
         ev, eval_s = timed(forward)
     eval_counts = {k_: v_ for k_, v_ in launch_counts().items() if v_}
+    # the packed forwards stay on the mma.sync kernel
+    check_impl("BAGEL packed evaluation forward", 0, n_layers)
     eval_loss = float(_train_loss(ev))
     del ev
     fa.reset_launches()
     out, loss, fwd_s, bwd_s = train_pass()
     train_counts = {k_: v_ for k_, v_ in launch_counts().items() if v_}
+    check_impl("BAGEL packed training pass", 0, n_layers)
     peak = torch.cuda.max_memory_allocated() / 1e9
     launches = {k_: eval_counts.get(k_, 0) + train_counts.get(k_, 0)
                 for k_ in launch_counts()}
@@ -3071,18 +3151,23 @@ def check_knob_kernels(tag, n, grid, l, seed, running):
         del got, want
         ms_free = cuda_time(lambda: fa._flash_cuda(qr, kr, v, kv_len, bound,
                                                    None), 3)
-        ms = cuda_time(lambda: fa._flash_cuda(qr, kr, v, kv_len, bound, None,
-                                              softmax_bf16=True), 3)
+        ms, old_ms = ab_time(
+            lambda: fa._flash_cuda(qr, kr, v, kv_len, bound, None,
+                                   softmax_bf16=True),
+            lambda: fa._launch_bf16(qr, kr, v, kv_len, bound,
+                                    fa._MODE_BOUNDED, softmax_bf16=True), 3)
+        log_ab(f"softmax_bf16 self-attention {tag} bounded", ms, old_ms)
         plain_ms = cuda_time(lambda: fa.attention_plain(
             qr, kr, v, kv_len=kv_len, bound=bound, softmax_bf16=True), 1)
         lib_ms = _sdpa_ms(qr, kr, v, kv_real)
         bms, by = bound_ms(flops, nbytes(qr, kr, v, qr), H100_BF16_FLOPS)
         recs["flash_attention_bf16_sbf16"] = dict(
             name="flash_attention_bf16_sbf16", route="cuda",
-            source="univid_tpu_torch/kernels/csrc/flash_attention.cu",
+            source="univid_tpu_torch/kernels/csrc/flash_attention_sm90.cu",
             replaces="univid_tpu/kernels/flash_attention.py:44",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=by, library_ms=lib_ms, knob_free_ms=ms_free)
+            bound_by=by, library_ms=lib_ms, knob_free_ms=ms_free,
+            mma_sync_ms=old_ms)
 
         # ---- K2: the rope + int8 quantize pre-pass ----------------------
         codes = fa.quantize_qk_int8(q, k, tabs, bw)
@@ -3176,8 +3261,12 @@ def check_knob_kernels(tag, n, grid, l, seed, running):
         del km, vm
         ms_free = cuda_time(lambda: fa.cross_attention_padded(
             q, k, v, score_bound=bound), 5)
-        ms = cuda_time(lambda: fa.cross_attention_padded(
-            q, k, v, score_bound=bound, softmax_bf16=True), 5)
+        ms, old_ms = ab_time(
+            lambda: fa.cross_attention_padded(q, k, v, score_bound=bound,
+                                              softmax_bf16=True),
+            lambda: fa._launch_bf16(q, k, v, None, bound, fa._MODE_BOUNDED,
+                                    softmax_bf16=True), 5)
+        log_ab(f"softmax_bf16 cross-attention {tag} bounded", ms, old_ms)
         plain_ms = cuda_time(lambda: fa.attention_plain(
             q, k, v, bound=bound, softmax_bf16=True), 1)
         lib_ms = _sdpa_ms(q, k, v, lk)
@@ -3185,10 +3274,11 @@ def check_knob_kernels(tag, n, grid, l, seed, running):
                            H100_BF16_FLOPS)
         recs["cross_attention_bf16_sbf16"] = dict(
             name="cross_attention_bf16_sbf16", route="cuda",
-            source="univid_tpu_torch/kernels/csrc/flash_attention.cu",
+            source="univid_tpu_torch/kernels/csrc/flash_attention_sm90.cu",
             replaces="univid_tpu/kernels/flash_attention.py:355",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-            bound_by=by, library_ms=lib_ms, knob_free_ms=ms_free)
+            bound_by=by, library_ms=lib_ms, knob_free_ms=ms_free,
+            mma_sync_ms=old_ms)
         del q, k, v, got
     torch.cuda.empty_cache()
     return recs
@@ -3383,6 +3473,9 @@ def _knob_forward_times(spec, forwards):
         if launches[knob] != want or not bool(torch.isfinite(out).all()):
             fail(f"ti2v-5B DiT forward with {knob}: launches "
                  f"{launches[knob]} != {want} or a non-finite output")
+        # cross-attention, and self-attention unless int8 QK^T takes it
+        check_impl(f"ti2v-5B DiT forward with {knob}",
+                   cfg.num_layers * (1 + (not kn.get("qk_int8"))))
         del out
         times[knob] = []
         for _ in range(forwards):
@@ -3454,6 +3547,8 @@ def knob_main_path(output_dir):
         "frames": len(frames), "context_path": meta["context_path"]}))
     if launches != expected or f32_by_d != {384: 0, 640: 0, 1024: n_dec}:
         fail(f"knob path launch counts {launches} != {expected}")
+    # the bf16-softmax cross-attention (self-attention takes int8 QK^T)
+    check_impl("knob path", KNOB_FORWARDS * 30)
     if len(frames) != TI2V_FRAMES or frames[0].shape != (704, 1280, 3) \
             or meta["context_path"] != "bagel_fusion":
         fail("the knob path's mp4 is not 121 frames of 704x1280 from the "
@@ -3548,8 +3643,16 @@ def main():
                     "per_source_s": times}))
     for name, text in build.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line \
+                    or "Performance Loss" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    # the Hopper forward: no spills, no serialised wgmma, in any
+    # instantiation
+    sm90_log = build.BUILD_LOG.get("flash_attention_sm90", "")
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        sm90_log)
+    if any(a != "0" or b != "0" for a, b in spills) or "C7514" in sm90_log:
+        fail("flash_attention_sm90.cu spills or serialises its wgmma")
 
     t0 = time.perf_counter()
     records = check_kernels()

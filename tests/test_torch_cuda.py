@@ -718,3 +718,187 @@ def test_cuda_knobs_without_a_kernel_raise(cuda_device):
     with pytest.raises(ValueError, match="kv heads"):
         tfa.flash_attention_padded(xb, xb[:, :, :1], xb[:, :, :1],
                                    qk_int8=True)
+
+
+# --- the Hopper bf16 forward (flash_attention_sm90.cu) ----------------------
+
+
+def _check_fwd(got, want, v, running=False, sbf16=False):
+    """PERF.md s2's bounds for the bf16 forward against its plain version:
+    1e-3 + 2^-7 |ref| (one bf16 ulp of the output, the summation order and
+    the approximate exp2), + 2^-8 max|v| where p rounds against a running
+    or one-shot row max (one p in [0.5, 1] on the other bf16 neighbour);
+    the softmax_bf16 chain: rel. L2 < 1e-2, at most 1e-3 of the outputs
+    beyond that bound and none beyond 0.2 max|v| (a bf16 score rounding
+    that flips with the summation order moves its p by up to 9%)."""
+    g, w = got.float().cpu(), want.float().cpu()
+    assert bool(torch.isfinite(g).all())
+    err = (g - w).abs()
+    v_max = float(v.float().abs().max())
+    lim = 1e-3 + 2.0 ** -7 * w.abs() + (2.0 ** -8 * v_max if running else 0)
+    if not sbf16:
+        assert bool((err <= lim).all()), float(err.max())
+        return
+    assert _rel(g, w) < 1e-2
+    assert float((err > lim).float().mean()) <= 1e-3
+    assert float(err.max()) <= 0.2 * v_max
+
+
+def _bf16(shape, seed, dev, normed=True):
+    return torch.as_tensor(_rand(shape, seed, normed)).to(dev, torch.bfloat16)
+
+
+def _bound(d, dev):
+    return torch.tensor([1.01 * d * LOG2E / math.sqrt(d)], device=dev)
+
+
+# cases: (lq, lk, heads, kv heads, kv_len); lq 320 and 2112 end in a half
+# q tile of the kernel's 128 rows, lk 448 in a half kv tile
+SM90 = {
+    "bounded_rope_kvlen": (320, 320, 2, 2, (320, 243)),
+    "append_group7": (2112, 2560, 14, 2, (2200,)),
+    "cross_bounded": (320, 512, 2, 2, None),
+    "cross_one_shot_kvlen": (320, 512, 2, 2, (512, 100)),
+    "sbf16_bounded": (320, 320, 2, 2, (320, 243)),
+    "sbf16_running": (320, 448, 2, 2, (448, 301)),
+    "sbf16_cross_one_shot": (320, 512, 2, 2, (512, 100)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SM90))
+def test_cuda_sm90_forward_matches_plain(cuda_device, case):
+    """Each mode of the Hopper bf16 forward against its plain version on
+    the card: bounded with fused rope and a kv_len tail; BAGEL's ViT
+    append (2,112 rows, 14 query heads over 2 kv heads, running max); the
+    cross route at 512 keys, bounded and one-shot with kv_len; the
+    softmax_bf16 chain in the bounded, running and one-shot modes. Keys
+    past kv_len hold 50.0; every launch is the sm90 kernel's."""
+    lq, lk, n, nk, kvl = SM90[case]
+    d = 128
+    q = _bf16((len(kvl or (0, 0)), lq, n, d), 60, cuda_device)
+    b = q.shape[0]
+    k, v = (_bf16((b, lk, nk, d), s, cuda_device) for s in (61, 62))
+    kv = None
+    if kvl is not None:
+        kv = torch.tensor(kvl, dtype=torch.int32, device=cuda_device)
+        for r, x in enumerate(kvl):
+            k[r, x:] = 50.0
+            v[r, x:] = 50.0
+    sbf = case.startswith("sbf16")
+    bound = _bound(d, cuda_device) if "bounded" in case else None
+    qs = tfa._fold(q, d ** -0.5)
+    tfa.reset_launches()
+    with torch.no_grad():
+        if "cross" in case:
+            got = tfa.cross_attention_padded(qs, k, v, kv_len=kv,
+                                             score_bound=bound,
+                                             softmax_bf16=sbf)
+            want = tfa.attention_plain(qs, k, v, kv_len=kv, bound=bound,
+                                       softmax_bf16=sbf)
+        elif "rope" in case or sbf:
+            grid = (lq // 64, 8, 8)
+            tabs = tfa._pad_tables(tfa.build_fused_rope_tables(
+                *trope3d(d, grid, device=cuda_device), d), lq, lk,
+                LOG2E / math.sqrt(d))
+            got = tfa._flash_cuda(q, k, v, kv, bound, tabs,
+                                  softmax_bf16=sbf)
+            want = tfa.attention_plain(q, k, v, kv_len=kv, bound=bound,
+                                       rope_tables=tabs, softmax_bf16=sbf)
+        else:
+            got = tfa.flash_attention_padded(q, k, v, kv_len=kv)
+            want = tfa.attention_plain(qs, k, v, kv_len=kv)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES_BY_IMPL == {"sm90": 1, "mma_sync": 0}
+    _check_fwd(got, want, v, running=bound is None, sbf16=sbf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounded", [True, False])
+def test_cuda_sm90_lse_and_empty_rows(cuda_device, bounded):
+    """The training forward with lse on the sm90 kernel (bounded and
+    running max, 320 rows over 448 keys): outputs as above, lse to 1e-3;
+    the batch row with kv_len = 0 is exactly 0 with lse +1e30."""
+    d = 128
+    q = _bf16((2, 320, 2, d), 63, cuda_device)
+    k, v = (_bf16((2, 448, 2, d), s, cuda_device) for s in (64, 65))
+    k[1, 301:] = 50.0
+    v[1, 301:] = 50.0
+    kv = torch.tensor([0, 301], dtype=torch.int32, device=cuda_device)
+    bound = _bound(d, cuda_device) if bounded else None
+    qs = tfa._fold(q, d ** -0.5)
+    tfa.reset_launches()
+    with torch.no_grad():
+        o, lse = tfa.flash_attention_fwd_folded(qs, k, v, kv_len=kv,
+                                                score_bound=bound)
+        o_p, lse_p = tfa.attention_plain(qs, k, v, kv_len=kv, bound=bound,
+                                         save_residuals=True)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention_bf16_lse"] == 1
+    assert tfa.LAUNCHES_BY_IMPL == {"sm90": 1, "mma_sync": 0}
+    _check_fwd(o, o_p, v, running=not bounded)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(),
+                               rtol=0, atol=1e-3)
+    assert float(o[0].abs().max()) == 0.0
+    assert bool((lse[0] == 1e30).all())
+
+
+@pytest.mark.cuda
+def test_cuda_sm90_strided_views(cuda_device):
+    """Strided inputs read in place through the tensor maps: q, k and v
+    sliced from one fused [B, L, 3 N D] projection, and k, v as the first
+    448 rows of a 1,024-row KV cache whose later rows hold 50.0; a view
+    that breaks TMA's rules (a base 8 bytes off) raises."""
+    d, n, l = 128, 2, 448
+    qkv = _bf16((1, l, 3 * n * d), 66, cuda_device)
+    q, k, v = (qkv[..., i * n * d:(i + 1) * n * d].view(1, l, n, d)
+               for i in range(3))
+    cache = _bf16((2, 1024, 1, d), 67, cuda_device)
+    cache[:, l:] = 50.0
+    ck, cv = cache[:1, :l], cache[1:, :l]
+    kv = torch.tensor([400], dtype=torch.int32, device=cuda_device)
+    bound = _bound(d, cuda_device)
+    tfa.reset_launches()
+    with torch.no_grad():
+        for kk, vv in ((k, v), (ck, cv)):
+            got = tfa.flash_attention_padded(q, kk, vv, kv_len=kv,
+                                             score_bound=bound)
+            want = tfa.attention_plain(tfa._fold(q, d ** -0.5),
+                                       kk.contiguous(), vv.contiguous(),
+                                       kv_len=kv, bound=bound)
+            _check_fwd(got, want, vv)
+        bad = qkv.view(-1)[4:4 + l * n * d].view(1, l, n, d)
+        with pytest.raises(ValueError, match="16-byte"):
+            tfa.flash_attention_padded(q, bad, v, kv_len=kv)
+    assert tfa.LAUNCHES_BY_IMPL == {"sm90": 2, "mma_sync": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bounded", "running", "oneshot"])
+def test_cuda_sm90_matches_mma_sync_kernel(cuda_device, mode):
+    """The new kernel against the mma.sync kernel it replaces in these
+    modes (still compiled, reached through its C entry point), same inputs
+    in one process: the same arithmetic in another summation order, so
+    the kernel-vs-plain bound holds between them."""
+    d = 128
+    q = tfa._fold(_bf16((2, 512, 4, d), 68, cuda_device), d ** -0.5)
+    lk = 512
+    k, v = (_bf16((2, lk, 2, d), s, cuda_device) for s in (69, 70))
+    kv = torch.tensor([lk, 390], dtype=torch.int32, device=cuda_device)
+    bound = _bound(d, cuda_device) if mode == "bounded" else None
+    with torch.no_grad():
+        new = tfa._launch_sm90(q, k, v, kv, bound, mode)
+        old = tfa._launch_bf16(q, k, v, kv, bound, tfa._MODES[mode])
+    torch.cuda.synchronize()
+    _check_fwd(new, old, v, running=mode != "bounded")
+
+
+@pytest.mark.cuda
+def test_cuda_masked_forward_stays_on_mma_sync(cuda_device):
+    """The segment mode keeps the mma.sync kernel (LAUNCHES_BY_IMPL)."""
+    q, k, v, qs, ks = _masked_inputs(cuda_device, "segments")
+    tfa.reset_launches()
+    with torch.no_grad():
+        tfa.flash_attention_padded(q, k, v, q_segments=qs, kv_segments=ks)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES_BY_IMPL == {"sm90": 0, "mma_sync": 1}

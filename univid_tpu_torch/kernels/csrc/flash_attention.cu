@@ -1,5 +1,13 @@
 // Flash attention forward for Hopper (sm_90a), bf16 inputs, fp32 softmax (or
-// the bf16 chain of the softmax_bf16 mode).
+// the bf16 chain of the softmax_bf16 mode), on Ampere's mma.sync.
+//
+// What it serves on the paths: the causal, segment and packed modes below
+// (BAGEL's question prefill and packed training), and the bf16 rope
+// pre-pass univid_rope_rotate_bf16. The unmasked modes (bounded, running
+// and one-shot, with kv_len, the lse and softmax_bf16) moved to
+// flash_attention_sm90.cu (wgmma, TMA, warp specialisation); their
+// instantiations here stay compiled, reached only through the C entry
+// point, as the same-call baseline of chip_smoke.py and the card tests.
 //
 // Replaces two Pallas TPU kernels of univid_tpu/kernels/flash_attention.py:
 //   * _flash_kernel (:44) in its DiT self-attention mode: fused 3D-RoPE
@@ -77,7 +85,8 @@
 // VMEM cache has no counterpart: the rope_rotate kernel below rotates q and
 // k once, in a pre-pass, into bf16 scratch (rounding points as on the TPU:
 // rotated q in q's dtype, rotated k in v's dtype).
-// Not yet used: wgmma, TMA, warp specialisation (later work).
+// Not used here: wgmma, TMA, warp specialisation (flash_attention_sm90.cu
+// has them; moving the masked modes onto it is later work).
 
 #include "bf16_tiles.cuh"
 

@@ -6,7 +6,10 @@ and training paths reach:
   * `flash_attention_padded` — `_flash_kernel`: non-causal attention in the
     exp2 domain with the fused-rope prologue, the bounded softmax (or a
     running max), `kv_len` masking and zero rows when l == 0. bf16 d=128
-    runs csrc/flash_attention.cu (DiT self-attention); fp32 d=128 runs
+    runs csrc/flash_attention_sm90.cu (wgmma, TMA, warp specialisation) in
+    its unmasked modes (DiT self-attention, the training forward, BAGEL's
+    ViT append) and csrc/flash_attention.cu (mma.sync) in the causal,
+    segment and packed ones (`bf16_forward_route`); fp32 d=128 runs
     csrc/flash_attention_f32_d128.cu (the DiT at the fp32 policy, serving
     and training, its rope pre-pass `rope_rotate_f32` included; the fp32
     cross-attention at Lk = 512 takes it too); fp32 d=384, 640 and 1024
@@ -15,17 +18,18 @@ and training paths reach:
     `save_residuals=True` (the training forward) it also returns the
     per-row exp2-domain lse, fp32 [B, N, Lq]. `causal` with a static
     `q_offset` and a device `q_offsets` int32 [B] is `_flash_kernel`'s
-    causal mode (BAGEL's KV-cache prefill), bf16 d=128 on the same CUDA
+    causal mode (BAGEL's KV-cache prefill), bf16 d=128 on the mma.sync
     kernel, counted apart as `flash_attention_bf16_causal`. `q_segments`
     [B, Lq] / `kv_segments` [B, Lk] int32 are its segment mode, and with
     `packed_mode` the same ids are pack_mask_codes codes (BAGEL packed
     training's mask): running max, with and without the lse.
   * `cross_attention_padded` — `_cross_kernel`: single-kv-block attention
-    (Lk <= 512) with a one-shot softmax by the row max or by the bound.
+    (Lk <= 512) with a one-shot softmax by the row max or by the bound, on
+    csrc/flash_attention_sm90.cu.
   * `softmax_bf16` (the Wan serving knob --bf16_softmax) on both: the
     softmax chain in bf16 (bf16 scores and reference point, a bf16 s - ref
     and exp2, the row sum of the rounded p in fp32), bf16 d=128, non-causal
-    and unsegmented, on csrc/flash_attention.cu; counted apart as
+    and unsegmented, on csrc/flash_attention_sm90.cu; counted apart as
     `flash_attention_bf16_sbf16` and `cross_attention_bf16_sbf16`.
   * `qk_int8` (--qk_int8) — `_flash_kernel`'s int8 QK^T mode: the pre-pass
     `quantize_qk_int8` (fused rope in fp32, per-row q scales, one k scale per
@@ -53,7 +57,9 @@ does);
 Function. Each wrapper takes its plain PyTorch version only for tensors on
 the CPU; on CUDA tensors it launches its kernel or raises. `LAUNCHES`
 counts kernel launches per wrapper; `LAUNCHES_BY_MODE` splits those of the
-forward, the forward with lse and the two backward kernels by mask mode.
+forward, the forward with lse and the two backward kernels by mask mode;
+`LAUNCHES_BY_IMPL` splits every bf16 forward launch (self, cross, lse,
+knob and masked modes) by the kernel that ran it.
 """
 
 from __future__ import annotations
@@ -73,6 +79,7 @@ TILE = 64           # padded-length multiple the kernels take
 CROSS_MAX_LK = 512  # single-kv-block route (the TPU's one kv block)
 F32_DIMS = (384, 640, 1024)  # fp32 head dims of flash_attention_f32.cu
 D128 = 128          # head dim of the DiT kernels (bf16, and fp32 d=128)
+SM90_BLOCK_Q = 128  # q rows per block of flash_attention_sm90.cu
 F32_MASKS_LATER = (
     "fp32 attention at d=128 has no causal, segment, packed or grouped-kv "
     "kernel mode: no fp32 caller reaches them yet (ROADMAP.md queue 2, item "
@@ -108,9 +115,15 @@ LAUNCHES_BY_MODE = {
                  "flash_attention_bwd_dq_bf16", "flash_attention_bwd_dkv_bf16")
     for mode in MASK_MODES
     if (name, mode) != ("flash_attention_bf16", "causal")}
+# every bf16 forward launch by its kernel: "sm90" flash_attention_sm90.cu
+# (the unmasked modes), "mma_sync" flash_attention.cu (causal, segments,
+# packed)
+LAUNCHES_BY_IMPL = {"sm90": 0, "mma_sync": 0}
 _SEG_MODE = {None: 0, "segments": 1, "packed": 2}
 
 _MODE_BOUNDED, _MODE_RUNNING, _MODE_ONESHOT = 0, 1, 2
+_MODES = {"bounded": _MODE_BOUNDED, "running": _MODE_RUNNING,
+          "oneshot": _MODE_ONESHOT}
 
 
 def reset_launches() -> None:
@@ -120,12 +133,16 @@ def reset_launches() -> None:
         F32_LAUNCHES_BY_D[d] = 0
     for name in LAUNCHES_BY_MODE:
         LAUNCHES_BY_MODE[name] = 0
+    for name in LAUNCHES_BY_IMPL:
+        LAUNCHES_BY_IMPL[name] = 0
 
 
-def _count(name, mode=None):
+def _count(name, mode=None, impl=None):
     LAUNCHES[name] += 1
     if mode is not None:
         LAUNCHES_BY_MODE[f"{name}_{mode}"] += 1
+    if impl is not None:
+        LAUNCHES_BY_IMPL[impl] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -589,6 +606,96 @@ def _launch_bf16(q, k, v, kv_len, bound, mode, lse=None, causal=False,
     return o
 
 
+def bf16_forward_route(q, k, v, *, mode, lse=False, softmax_bf16=False,
+                       causal=False, seg=None):
+    """The kernel that takes a bf16 attention forward on the card: "sm90"
+    (csrc/flash_attention_sm90.cu) for every unmasked mode, "mma_sync"
+    (csrc/flash_attention.cu) for the causal, segment and packed ones.
+    mode: "bounded", "running" or "oneshot"; seg: None, "segments" or
+    "packed". Both kernels read grouped kv heads (k and v with N / group
+    heads). Raises for a call no kernel takes; never falls back."""
+    for t in (q, k, v):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the bf16 forward takes bf16 tensors, got "
+                            f"{t.dtype}")
+        if t.dim() != 4 or t.shape[-1] != D128:
+            raise ValueError(f"no bf16 forward kernel for shape "
+                             f"{tuple(t.shape)} (head dim {D128})")
+    if k.shape[2] != v.shape[2] or q.shape[2] % k.shape[2]:
+        raise ValueError(f"{q.shape[2]} query heads over {k.shape[2]} / "
+                         f"{v.shape[2]} kv heads")
+    if mode not in _MODES:
+        raise ValueError(f"unknown softmax mode {mode!r}")
+    masked = causal or seg is not None
+    if softmax_bf16 and (masked or lse):
+        raise NotImplementedError(KNOBS_MASKED + "; the training forward "
+                                  "takes no knob")
+    if not masked:
+        return "sm90"
+    if causal and seg is not None:
+        raise NotImplementedError(
+            "causal attention with segment ids has no caller and no kernel "
+            "mode (packed_mode carries its own causal term)")
+    if mode != "running":
+        raise NotImplementedError(
+            "the causal, segment and packed kernel modes have the running "
+            "max only (no caller bounds a masked softmax)")
+    return "mma_sync"
+
+
+def sm90_q_tiles(lq):
+    """Blocks along q of flash_attention_sm90.cu: 128-row q tiles, the last
+    one ragged when Lq % 128 == 64 (its rows past Lq read as zeros and are
+    never stored)."""
+    return -(-lq // SM90_BLOCK_Q)
+
+
+def tma_strides(t):
+    """The (b, l, h) element strides of a bf16 [B, L, N, D] operand as the
+    sm90 kernel's tensor maps take them. TMA's rules: a 16-byte aligned
+    base, unit stride along D, strides that are multiples of 16 bytes (8
+    elements). A dimension of size 1 is never stepped along: it takes the
+    stride a contiguous tensor would have. Raises ValueError when a rule
+    fails (a view that TMA cannot read in place)."""
+    if t.dim() != 4 or t.stride(-1) != 1:
+        raise ValueError("the sm90 kernel's tensor maps need unit stride "
+                         "along D")
+    if t.data_ptr() % 16:
+        raise ValueError("the sm90 kernel's tensor maps need a 16-byte "
+                         "aligned base")
+    st = list(t.stride()[:3])
+    inner = t.shape[3]   # one step of the next inner dimension, in elements
+    for i in (2, 1, 0):
+        if t.shape[i] == 1:
+            st[i] = inner
+        if st[i] <= 0 or st[i] % 8:
+            raise ValueError(f"the sm90 kernel's tensor maps need strides "
+                             f"that are multiples of 16 bytes, got "
+                             f"{tuple(t.stride())}")
+        inner = st[i] * t.shape[i]
+    return st
+
+
+def _launch_sm90(q, k, v, kv_len, bound, mode, lse=None, softmax_bf16=False):
+    """flash_attention_sm90.cu on padded bf16 [B, L, N, 128] (k, v with N /
+    group heads): mode "bounded" (`bound` the folded score bound, an fp32
+    [1] on the device), "running" or "oneshot"; lse fp32 [B, N, Lq] or
+    None."""
+    b, lq, n, d = q.shape
+    o = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
+    st = tma_strides(q) + tma_strides(k) + tma_strides(v) + list(
+        o.stride()[:3])
+    strides = (ctypes.c_longlong * 12)(*st)  # host array, read at launch
+    fn = _fn("flash_attention_sm90", "univid_flash_fwd_sm90",
+             [_P] * 7 + [_I] * 8 + [_P, _P])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             _ptr(kv_len), _ptr(bound), _ptr(lse), _MODES[mode],
+             int(softmax_bf16), n // k.shape[2], b, n, lq, k.shape[1],
+             sm90_q_tiles(lq), ctypes.addressof(strides), _stream(q))
+    build.check(err, "univid_flash_fwd_sm90")
+    return o
+
+
 def _rope_bf16(x, cf, sf):
     b, l, n, d = x.shape
     y = torch.empty((b, l, n, d), dtype=torch.bfloat16, device=x.device)
@@ -618,6 +725,10 @@ def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
                            group_ok=True)
         seg = _check_masks(q, k.shape[1], q_offsets, q_segments, kv_segments,
                            packed_mode, causal)
+        mode = "bounded" if bound is not None else "running"
+        impl = bf16_forward_route(q, k, v, mode=mode,
+                                  softmax_bf16=softmax_bf16, causal=causal,
+                                  seg=seg)
         if rope_tables is not None:
             if seg is not None:
                 raise NotImplementedError(
@@ -626,25 +737,20 @@ def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
             cq, sq, ck, sk = (t.float().contiguous() for t in rope_tables)
             q = _rope_bf16(q, cq, sq)
             k = _rope_bf16(k, ck, sk)
-        if causal or seg is not None:
-            if bound is not None:
-                raise NotImplementedError(
-                    "the causal, segment and packed kernel modes have the "
-                    "running max only (no caller bounds a masked softmax)")
+        if impl == "mma_sync":
             o = _launch_bf16(q, k, v, kv_len, None, _MODE_RUNNING,
                              causal=causal, q_offset=q_offset,
                              q_offsets=q_offsets, q_segments=q_segments,
                              kv_segments=kv_segments, seg=seg)
             if causal:
-                _count("flash_attention_bf16_causal")
+                _count("flash_attention_bf16_causal", impl=impl)
             else:
-                _count("flash_attention_bf16", seg)
+                _count("flash_attention_bf16", seg, impl=impl)
             return o
-        mode = _MODE_BOUNDED if bound is not None else _MODE_RUNNING
-        o = _launch_bf16(q, k, v, kv_len, _bound_tensor(bound, q.device),
+        o = _launch_sm90(q, k, v, kv_len, _bound_tensor(bound, q.device),
                          mode, softmax_bf16=softmax_bf16)
         _count("flash_attention_bf16_sbf16" if softmax_bf16
-               else "flash_attention_bf16")
+               else "flash_attention_bf16", impl=impl)
         return o
     if q.dtype == torch.float32 and q.shape[-1] == D128:
         _check_cuda_inputs(q, k, v, kv_len, torch.float32, (D128,))
@@ -697,11 +803,12 @@ def cross_attention_padded(q, k, v, *, kv_len=None, score_bound=None,
                        group_ok=True)
     if k.shape[1] > CROSS_MAX_LK:
         raise ValueError(f"cross kernel takes Lk <= {CROSS_MAX_LK}")
-    mode = _MODE_BOUNDED if score_bound is not None else _MODE_ONESHOT
-    o = _launch_bf16(q, k, v, kv_len, _bound_tensor(score_bound, q.device),
+    mode = "bounded" if score_bound is not None else "oneshot"
+    impl = bf16_forward_route(q, k, v, mode=mode, softmax_bf16=softmax_bf16)
+    o = _launch_sm90(q, k, v, kv_len, _bound_tensor(score_bound, q.device),
                      mode, softmax_bf16=softmax_bf16)
     _count("cross_attention_bf16_sbf16" if softmax_bf16
-           else "cross_attention_bf16")
+           else "cross_attention_bf16", impl=impl)
     return o
 
 
@@ -910,17 +1017,19 @@ def flash_attention_fwd_folded(qs, k, v, *, kv_len=None, score_bound=None,
                        packed_mode, causal)
     b, lq, n, _ = qs.shape
     lse = torch.empty((b, n, lq), dtype=torch.float32, device=qs.device)
-    masked = causal or seg is not None
-    if masked and score_bound is not None:
-        raise NotImplementedError(
-            "the causal, segment and packed kernel modes have the running "
-            "max only")
-    mode = _MODE_BOUNDED if score_bound is not None else _MODE_RUNNING
-    o = _launch_bf16(qs, k, v, kv_len, _bound_tensor(score_bound, qs.device),
-                     mode, lse=lse, causal=causal, q_offset=q_offset,
-                     q_offsets=q_offsets, q_segments=q_segments,
-                     kv_segments=kv_segments, seg=seg)
-    _count("flash_attention_bf16_lse", "causal" if causal else seg)
+    mode = "bounded" if score_bound is not None else "running"
+    impl = bf16_forward_route(qs, k, v, mode=mode, lse=True, causal=causal,
+                              seg=seg)
+    bound = _bound_tensor(score_bound, qs.device)
+    if impl == "sm90":
+        o = _launch_sm90(qs, k, v, kv_len, bound, mode, lse=lse)
+    else:
+        o = _launch_bf16(qs, k, v, kv_len, bound, _MODES[mode], lse=lse,
+                         causal=causal, q_offset=q_offset,
+                         q_offsets=q_offsets, q_segments=q_segments,
+                         kv_segments=kv_segments, seg=seg)
+    _count("flash_attention_bf16_lse", "causal" if causal else seg,
+           impl=impl)
     return o, lse
 
 
