@@ -13,8 +13,10 @@ Phases:
      (scaled_dot_product_attention, with the boolean mask for masked
      modes; its backward for the backward kernels) on the same inputs as a
      yardstick: serving self- and cross-attention, rope and the fp32 VAE
-     kernel (d=1024, 640 at ti2v-5B's 3,520 tokens, d=384), the serving
-     kernels again at the ti2v-5B shapes; the training forward with lse
+     kernel (d=1024, 640 at ti2v-5B's 3,520 tokens, d=384; 3xTF32 on the
+     tensor cores, timed in turns with the CUDA-core kernel it replaced,
+     `tc_vs_simt` lines, and the name of the kernel SDPA's fp32 call runs),
+     the serving kernels again at the ti2v-5B shapes; the training forward with lse
      and the dq and dk/dv kernels at the self and cross shapes, and
      attention() under grad against autograd through an fp32 reference;
      the causal mode at the BAGEL QA shapes (question prefill over the
@@ -22,7 +24,10 @@ Phases:
      grouped ViT append; the packed mode (forward with and without lse,
      dq, dk/dv) on the BAGEL training pack's own codes, [1, 4096, 28, 128],
      and padded 4,000 -> 4,032 (pad rows exactly 0, lse +1e30); the
-     segment mode at [2, 2048, 12, 128]; the causal backward at the
+     segment mode at [2, 2048, 12, 128]; their forwards run on the sm90
+     kernel after the tile-list pre-pass (its list equal to the plain
+     list, the live-tile share logged) and are timed in turns with the
+     mma.sync kernel they replaced; the causal backward at the
      square prefill's shape, offset 0 and q_offsets [0, 37]; the fp32 d=128
      kernels (the forward running, bounded and with the lse, the rope
      pre-pass, dq and dk/dv) at the fp32 fine-tune's self [1, 32768, 12,
@@ -62,10 +67,13 @@ Phases:
      request (16 seed captions, K = 4, 8, 16, 512-token greedy decodes)
      with the launches of each phase checked; profile 16 decode steps;
   9. drive the BAGEL packed-training path: BAGEL-7B-MoT at full width on
-     one 4,096-token pack of the four sample kinds, freeze_und; an
-     evaluation forward (28 packed forwards) and a training pass (28
-     packed forwards with lse, 28 dq, 28 dk/dv); finite loss, gradients
-     in every trainable leaf, seconds, peak memory; profile one more pass;
+     one 4,096-token pack of the four sample kinds, freeze_und; one
+     untimed training pass to warm up (its seconds and allocator growth
+     logged), then 3 evaluation forwards (28 packed forwards and 28
+     pre-passes each) and 3 training passes (28 packed forwards with lse,
+     28 pre-passes, 28 dq, 28 dk/dv), medians and spreads; finite loss,
+     gradients in every trainable leaf, peak memory; profile one more
+     pass;
  10. drive the full DiT fine-tune at its default fp32 policy:
      make_dit_train_step on t2v-1.3B at 832x480x81, full depth and width,
      remat 'attn', 2 steps (90 forwards with lse, 60 dq, 60 dk/dv a step);
@@ -86,11 +94,13 @@ against their plain versions at the ti2v-5B and t2v-1.3B shapes in phase
 3, and each knob alone and all four card against CPU on a small d=128 DiT
 in phase 4.
 Each path starts with every launch count at 0; the paths of phases 5-9
-and 12 also check their bf16 forward launches by kernel (every unmasked
-forward on the sm90 kernel, only causal, segment and packed calls on the
+and 12 also check their bf16 forward launches by kernel (every unmasked,
+segment and packed forward on the sm90 kernel, only causal calls on the
 mma.sync kernel; `check_impl`). The `kernels` line gives
-each kernel the launches of its own path (the segment modes and the causal
-backward serve no path of the JAX package at d=128: 0; the fp32 d=128
+each kernel the launches of its own path (the packed modes and the
+tile-list pre-pass: the six timed BAGEL packed-training passes; the
+segment modes and the causal backward serve no path of the JAX package at
+d=128: 0; the fp32 d=128
 serving forward and rope pre-pass count the fp32 t2v pipeline run of
 phase 4; the knob kernels count the knob path, the bf16-softmax self-
 attention and the fp32-chain int8 kernel the ti2v-5B DiT forward with
@@ -110,6 +120,7 @@ import sys
 import time
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core bf16 (SXM data sheet)
+H100_TF32_FLOPS = 495e12   # dense tensor-core TF32
 H100_FP32_FLOPS = 67e12    # fp32 on the CUDA cores
 H100_BYTES = 3.35e12       # HBM3
 
@@ -154,9 +165,9 @@ def cuda_time(fn, iters, warmup=1):
 
 
 def ab_time(new, old, iters):
-    """The sm90 kernel (`new`) and the mma.sync kernel it replaces (`old`)
-    timed in turns in one call, old, new, new, old, with CUDA events:
-    (new ms, old ms), each the mean of its two runs."""
+    """A kernel (`new`) and the kernel it replaces (`old`) timed in turns
+    in one call, old, new, new, old, with CUDA events: (new ms, old ms),
+    each the mean of its two runs."""
     o1 = cuda_time(old, iters)
     n1 = cuda_time(new, iters)
     n2 = cuda_time(new, iters)
@@ -171,8 +182,8 @@ def log_ab(call, new_ms, old_ms):
 
 def check_impl(tag, sm90, mma_sync=0):
     """A path's bf16 forward launches by kernel (LAUNCHES_BY_IMPL since the
-    path's counts were reset): every unmasked forward on the sm90 kernel,
-    the mma.sync kernel only for causal, segment and packed calls."""
+    path's counts were reset): every unmasked, segment and packed forward
+    on the sm90 kernel, the mma.sync kernel only for causal calls."""
     from univid_tpu_torch.kernels import flash_attention as fa
     want = {"sm90": sm90, "mma_sync": mma_sync}
     got = dict(fa.LAUNCHES_BY_IMPL)
@@ -386,8 +397,9 @@ def check_kernels():
     # first-frame encode); t2v-1.3B at 832x480 (60x104 tokens, padded to
     # 6272): d=384 in the decoder (21 launches per video)
     tol = dict(atol=1e-5, rtol=1e-4,
-               why="fp32 throughout; summation order and the approximate "
-                   "exp2 (2^-22 relative)")
+               why="fp32 accuracy: 3xTF32 products (each operand split into "
+                   "two TF32 parts, ~2^-22 relative), summation order and "
+                   "the approximate exp2 (2^-22 relative)")
     for dv, lv, lv_pad in ((1024, 3520, 3520), (640, 3520, 3520),
                            (384, 6240, 6272)):
         q, k, v = (torch.randn((1, lv_pad, 1, dv), generator=gen,
@@ -413,8 +425,18 @@ def check_kernels():
             if float(got_m[1].abs().max()) != 0.0:
                 fail("flash_attention_f32: kv_len == 0 rows are not 0")
             del km, vm, q2, got_m
-            ms = cuda_time(lambda: fa._flash_cuda(q, k, v, kvl, None, None),
-                           5)
+            # beside the CUDA-core kernel it replaced, in turns
+            ms, simt_ms = ab_time(
+                lambda: fa._flash_cuda(q, k, v, kvl, None, None),
+                lambda: fa._launch_f32_simt(q, k, v, kvl), 5)
+            log(json.dumps({"tc_vs_simt": f"VAE attention d={dv}",
+                            "tc_ms": ms, "simt_ms": simt_ms,
+                            "speedup": simt_ms / ms}))
+            # device time of its three launches (scores, softmax, p v)
+            _, prof = profile_call(lambda: fa._flash_cuda(q, k, v, kvl, None,
+                                                          None))
+            log(json.dumps({f"vae_attention_d{dv}_kernels": [
+                (t["kernel"], t["ms"]) for t in prof["top_kernels"]]}))
             plain_ms = cuda_time(lambda: fa.attention_plain(
                 q, k, v, kv_len=kvl), 1)
             qs, ks, vs = (x.transpose(1, 2)[:, :, :lv] for x in (q, k, v))
@@ -424,14 +446,20 @@ def check_kernels():
             except RuntimeError as e:  # no SDPA backend for this shape
                 log(f"library_ms for flash_attention_f32 d={dv}: {e}")
                 lib_ms = None
-        bms, by = bound_ms(4 * lv_pad * lv * dv, nbytes(q, k, v, got),
-                           H100_FP32_FLOPS)
+            if dv == 1024 and lib_ms is not None:   # which kernel SDPA runs
+                _, prof = profile_call(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, scale=1.0 / math.log2(math.e)))
+                log(json.dumps({"sdpa_fp32_kernels": [
+                    t["kernel"] for t in prof["top_kernels"]]}))
+        # 3xTF32: three TF32 products for each of the 4 Lq kv d flops
+        bms, by = bound_ms(3 * 4 * lv_pad * lv * dv, nbytes(q, k, v, got),
+                           H100_TF32_FLOPS)
         rec = dict(name="flash_attention_f32", route="cuda",
                    source="univid_tpu_torch/kernels/csrc/"
-                          "flash_attention_f32.cu",
+                          "flash_attention_f32_tc.cu",
                    replaces="univid_tpu/kernels/flash_attention.py:44",
                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                   bound_by=by, library_ms=lib_ms)
+                   bound_by=by, library_ms=lib_ms, simt_ms=simt_ms)
         if dv == 1024:   # the shape of this kernel's most launches
             records["flash_attention_f32"] = rec
         else:
@@ -1201,7 +1229,7 @@ def profile_call(fn):
         ms = e.self_device_time_total / 1e3
         top.append({"kernel": e.key[:90], "ms": ms, "count": e.count})
         name = e.key.lower()
-        if "flash_" in name or "rope_rotate" in name:
+        if "flash_" in name or "rope_rotate" in name or "mask_tiles" in name:
             fam["attention_kernels_ms"] += ms
         elif "gemm" in name or "nvjet" in name or "xmma" in name:
             fam["gemm_ms"] += ms
@@ -2058,6 +2086,25 @@ def _mask_case(tag, q, k, v, do, kv_len, masks, live_pairs, allowed,
                                       masks.get("kv_segments"))
                   if t is not None)
     flops = 2.0 * live_pairs * q.shape[2] * d   # one product, live pairs
+    seg = ("packed" if masks.get("packed_mode") else "segments") \
+        if "q_segments" in masks else None
+    lse_buf = torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                          device=q.device)
+
+    def timed(new, lse):
+        """The call's ms; a segment / packed forward in turns with the
+        mma.sync kernel it replaced (`sm90_vs_mma_sync` line): (ms, its
+        ms or None)."""
+        if seg is None:
+            return cuda_time(new, 10), None
+        ms, old_ms = ab_time(new, lambda: fa._launch_bf16(
+            qs, k, v, kv_len, None, fa._MODE_RUNNING, lse=lse,
+            q_segments=masks["q_segments"],
+            kv_segments=masks["kv_segments"], seg=seg), 10)
+        log_ab(f"{tag} {'forward with lse' if lse is not None else 'forward'}",
+               ms, old_ms)
+        return ms, old_ms
+
     with torch.no_grad():
         if no_lse:
             got = fa._flash_cuda(qs, k, v, kv_len, None, None, **masks)
@@ -2066,10 +2113,10 @@ def _mask_case(tag, q, k, v, do, kv_len, masks, live_pairs, allowed,
                                         allowed)
             if pad_rows is not None and float(got[pad_rows].abs().max()) != 0:
                 fail(f"{tag}: pad rows of the forward are not 0")
+            ms, old_ms = timed(lambda: fa._flash_cuda(
+                qs, k, v, kv_len, None, None, **masks), None)
             out["fwd"] = dict(
-                max_abs_err=err,
-                ms=cuda_time(lambda: fa._flash_cuda(qs, k, v, kv_len, None,
-                                                    None, **masks), 10),
+                max_abs_err=err, ms=ms, mma_sync_ms=old_ms,
                 plain_ms=cuda_time(lambda: fa.attention_plain(
                     qs, k, v, kv_len=kv_len, **masks), 1),
                 library_ms=_sdpa_masked_ms(qs, k, v, allowed),
@@ -2091,10 +2138,10 @@ def _mask_case(tag, q, k, v, do, kv_len, masks, live_pairs, allowed,
             if (float(o[pad_rows].abs().max()) != 0.0
                     or not bool((lse_pad == 1e30).all())):
                 fail(f"{tag}: pad rows are not 0 with lse +1e30")
+        ms, old_ms = timed(lambda: fa.flash_attention_fwd_folded(
+            qs, k, v, kv_len=kv_len, **masks), lse_buf)
         out["lse_fwd"] = dict(
-            max_abs_err=err,
-            ms=cuda_time(lambda: fa.flash_attention_fwd_folded(
-                qs, k, v, kv_len=kv_len, **masks), 10),
+            max_abs_err=err, ms=ms, mma_sync_ms=old_ms,
             plain_ms=cuda_time(lambda: fa.attention_plain(
                 qs, k, v, kv_len=kv_len, save_residuals=True, **masks), 1),
             library_ms=_sdpa_masked_ms(qs, k, v, allowed),
@@ -2134,7 +2181,7 @@ def _mask_case(tag, q, k, v, do, kv_len, masks, live_pairs, allowed,
             plain_ms=plain_bwd, library_ms=lib_bwd,
             bound=bound_ms(4 * flops, 2 * n_rows + 2 * kvb + 2 * lse_b
                            + codes_b, H100_BF16_FLOPS))
-    del qs, o, lse, o_p, lse_p, dq, dk, dv, delta
+    del qs, o, lse, o_p, lse_p, dq, dk, dv, delta, lse_buf
     torch.cuda.empty_cache()
     return out
 
@@ -2162,22 +2209,56 @@ def _records(mode, case):
     out = {}
     for kind, vals in case.items():
         name, reps = _MASK_RECORDS[kind]
-        src = ("univid_tpu_torch/kernels/csrc/flash_attention.cu"
-               if "fwd" in kind else
-               "univid_tpu_torch/kernels/csrc/flash_attention_bwd.cu")
+        src = "univid_tpu_torch/kernels/csrc/" + (
+            "flash_attention_bwd.cu" if "bwd" in kind else
+            "flash_attention.cu" if mode == "causal" else
+            "flash_attention_sm90.cu")
         out[name.format(mode)] = dict(
             name=name.format(mode), route="cuda", source=src,
             replaces=reps[mode], max_abs_err=vals["max_abs_err"],
             ms=vals["ms"], plain_ms=vals["plain_ms"],
             bound_ms=vals["bound"][0], bound_by=vals["bound"][1],
             library_ms=vals["library_ms"])
+        if vals.get("mma_sync_ms") is not None:
+            out[name.format(mode)]["mma_sync_ms"] = vals["mma_sync_ms"]
     return out
+
+
+def _tile_list_check(tag, qc, kc, kv_len, packed):
+    """The pre-pass's list and count against `mask_tile_list_plain` on the
+    same card tensors, exactly; logs the live share of the 128 x 128 tiles
+    and of them the full ones. Returns the pre-pass's record fields."""
+    import torch
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    lists, count = fa.mask_tile_list(qc, kc, kv_len, packed)
+    want, want_n = fa.mask_tile_list_plain(qc, kc, kv_len, packed)
+    ok = torch.equal(lists, want) and torch.equal(count, want_n)
+    n_tiles = lists.shape[0] * lists.shape[1] * lists.shape[2]
+    live = int(count.sum())
+    full = int(((lists >= 0) & (lists % 2 == 1)).sum())
+    log(json.dumps({"check": f"{tag}: tile list equals the plain list",
+                    "q_tiles": lists.shape[1], "kv_tiles": lists.shape[2],
+                    "live_tiles": live, "full_tiles": full,
+                    "live_tile_share": live / n_tiles, "ok": ok}))
+    if not ok:
+        fail(f"{tag}: the pre-pass's tile list differs from the plain list")
+    ms = cuda_time(lambda: fa.mask_tile_list(qc, kc, kv_len, packed), 20)
+    plain_ms = cuda_time(lambda: fa.mask_tile_list_plain(
+        qc, kc, kv_len, packed), 3)
+    # bytes: the codes read once, the list and count written once
+    bms, by = bound_ms(0, nbytes(qc, kc, lists, count), H100_BF16_FLOPS)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
 
 
 def check_mask_kernels():
     """The packed, segment and causal-backward kernel modes against their
     plain versions on the card, with CUDA-event times, bounds over the live
-    (row, key) pairs and SDPA with the materialized mask:
+    (row, key) pairs and SDPA with the materialized mask; the segment and
+    packed forwards (sm90 kernel) also in turns with the mma.sync kernel
+    they replaced, and the tile-list pre-pass against its plain version:
       * packed, at the BAGEL training path's shape: q, k, v [1, 4096, 28,
         128] with the full-width pack's own codes (document-0 pad tokens'
         keys hold 50.0); then Lq = 4,000 padded to 4,032 with the
@@ -2225,6 +2306,16 @@ def check_mask_kernels():
     allowed = allowed_packed(codes, codes)
     live = int(allowed.sum())
     masks = dict(q_segments=codes, kv_segments=codes, packed_mode=True)
+    rec = _tile_list_check("packed [1, 4096]", codes, codes, None, True)
+    with torch.no_grad():   # device time of the pre-pass and the forward
+        _, prof = profile_call(lambda: fa._flash_cuda(
+            fa._fold(q, d ** -0.5), k, v, None, None, None, **masks))
+    log(json.dumps({"packed_forward_kernels": [
+        (t["kernel"], t["ms"]) for t in prof["top_kernels"]]}))
+    records["mask_tile_list"] = dict(
+        name="mask_tile_list", route="cuda",
+        source="univid_tpu_torch/kernels/csrc/flash_attention_sm90.cu",
+        replaces="univid_tpu/kernels/flash_attention.py:309", **rec)
     real_keys = torch.zeros((1, PACK_TOKENS), dtype=torch.bool, device="cuda")
     real_keys[:, :real] = True
     case = _mask_case("packed [1, 4096, 28, 128]", q, k, v, do, None, masks,
@@ -2246,6 +2337,8 @@ def check_mask_kernels():
     allowed = allowed_packed(qc, kc)
     masks = dict(q_segments=qc.contiguous(), kv_segments=kc.contiguous(),
                  packed_mode=True)
+    _tile_list_check("packed padded 4000->4032", masks["q_segments"],
+                     masks["kv_segments"], None, True)
     case = _mask_case("packed padded 4000->4032",
                       *(x[:, :lp].contiguous() for x in (q, k, v, do)), None,
                       masks, int(allowed.sum()), allowed, pad_rows=pad_rows,
@@ -2264,6 +2357,7 @@ def check_mask_kernels():
     q, k, v, do = inputs(b, l, ns)
     allowed = (segs[:, :, None] == segs[:, None, :])[:, None]
     masks = dict(q_segments=segs, kv_segments=segs)
+    _tile_list_check("segments [2, 2048]", segs, segs, None, False)
     case = _mask_case("segments [2, 2048, 12, 128]", q, k, v, do, None,
                       masks, int(allowed.sum()), allowed)
     records.update(_records("segments", case))
@@ -2340,8 +2434,9 @@ def small_bagel_train_parity():
     same 4-kind pack scaled down (250 tokens: the dispatcher pads to 256
     with the pad ids) and the same noise; every parameter trainable, with
     freeze_und False and True. Loss rel. error < 2e-2, each gradient
-    leaf's rel. L2 < 3e-2; on the card 2 packed forwards with lse, 2 dq
-    and 2 dk/dv launches a pass and no other kernel."""
+    leaf's rel. L2 < 3e-2; on the card 2 packed forwards with lse (and
+    their 2 tile-list pre-passes), 2 dq and 2 dk/dv launches a pass and no
+    other kernel."""
     import copy
 
     import torch
@@ -2358,7 +2453,8 @@ def small_bagel_train_parity():
                      "flash_attention_bwd_dkv_bf16": 2,
                      "flash_attention_bf16_lse_packed": 2,
                      "flash_attention_bwd_dq_bf16_packed": 2,
-                     "flash_attention_bwd_dkv_bf16_packed": 2}
+                     "flash_attention_bwd_dkv_bf16_packed": 2,
+                     "mask_tile_list": 2}
 
     def run(device, freeze):
         model = copy.deepcopy(bagel).to(device)
@@ -2409,11 +2505,15 @@ def bagel_train_main_path():
     pack of the four sample kinds (`bagel_train_batch`), freeze_und=True
     (the reference's flag): the gen experts, vae2llm, llm2vae and
     time_embedder train; the und experts, embeddings, lm_head, connector
-    and SigLIP are frozen. One evaluation forward (no grad), then one
-    training pass (forward, then backward of the sum of the MSE terms and
-    the weighted CE); launches asserted per pass; seconds, peak memory, the
-    loss and the gradients' reach logged; one more training pass profiled.
-    Returns the counts of the two passes."""
+    and SigLIP are frozen. A training pass is the forward, then the
+    backward of the sum of the MSE terms and the weighted CE. One untimed
+    training pass first (its seconds and the allocator's growth during it
+    logged: the first pass with grad grows the caching allocator by its
+    activations, in new cudaMalloc calls), then 3 evaluation forwards (no
+    grad) and 3 training passes: medians and spreads, launches asserted
+    per pass (the counts reset after the warm-up); peak memory, the loss
+    and the gradients' reach logged; one more training pass profiled.
+    Returns the counts of the six passes."""
     import gc
 
     import torch
@@ -2468,22 +2568,67 @@ def bagel_train_main_path():
         _, bwd_s = timed(loss.backward)
         return out, loss, fwd_s, bwd_s
 
+    def allocator():
+        st = torch.cuda.memory_stats()
+        return {"device_allocs": st.get("num_device_alloc", 0),
+                "alloc_retries": st.get("num_alloc_retries", 0),
+                "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+
+    def spread(xs):
+        return {"median": statistics.median(xs), "min": min(xs),
+                "max": max(xs), "runs": xs}
+
+    want_eval = {"flash_attention_bf16": n_layers,
+                 "flash_attention_bf16_packed": n_layers,
+                 "mask_tile_list": n_layers}
+    want_train = {nm: n_layers for nm in (
+        "flash_attention_bf16_lse", "flash_attention_bwd_dq_bf16",
+        "flash_attention_bwd_dkv_bf16", "flash_attention_bf16_lse_packed",
+        "flash_attention_bwd_dq_bf16_packed",
+        "flash_attention_bwd_dkv_bf16_packed", "mask_tile_list")}
     torch.cuda.reset_peak_memory_stats()
+    # warm-up: the first training pass, outside the medians
+    alloc_before = allocator()
+    _, loss, warm_fwd_s, warm_bwd_s = train_pass()
+    warm = {"train_forward_s": warm_fwd_s, "backward_s": warm_bwd_s,
+            "allocator_before": alloc_before, "allocator_after": allocator()}
+    del loss, _
     fa.reset_launches()
-    with torch.no_grad():
-        ev, eval_s = timed(forward)
-    eval_counts = {k_: v_ for k_, v_ in launch_counts().items() if v_}
-    # the packed forwards stay on the mma.sync kernel
-    check_impl("BAGEL packed evaluation forward", 0, n_layers)
-    eval_loss = float(_train_loss(ev))
-    del ev
-    fa.reset_launches()
-    out, loss, fwd_s, bwd_s = train_pass()
-    train_counts = {k_: v_ for k_, v_ in launch_counts().items() if v_}
-    check_impl("BAGEL packed training pass", 0, n_layers)
+    launches = dict.fromkeys(launch_counts(), 0)
+
+    def counted(tag, fn, want):
+        """fn() with this pass's launches checked (every packed forward on
+        the sm90 kernel), then added to the path's."""
+        before = launch_counts()
+        impl_before = dict(fa.LAUNCHES_BY_IMPL)
+        out = fn()
+        got = {k_: v_ - before[k_] for k_, v_ in launch_counts().items()
+               if v_ != before[k_]}
+        impl = {k_: v_ - impl_before[k_]
+                for k_, v_ in fa.LAUNCHES_BY_IMPL.items()}
+        if got != want or impl != {"sm90": n_layers, "mma_sync": 0}:
+            fail(f"{tag}: launches {got} != {want} or by kernel {impl}")
+        for k_, v_ in got.items():
+            launches[k_] += v_
+        return out
+
+    eval_s, fwd_s, bwd_s = [], [], []
+    for _ in range(3):
+        with torch.no_grad():
+            ev, t = counted("BAGEL packed evaluation forward",
+                            lambda: timed(forward), want_eval)
+        eval_s.append(t)
+        eval_loss = float(_train_loss(ev))
+        del ev
+    for _ in range(3):
+        out, loss, f_s, b_s = counted("BAGEL packed training pass",
+                                      train_pass, want_train)
+        fwd_s.append(f_s)
+        bwd_s.append(b_s)
+    # 28 / 0 a pass over the six passes
+    check_impl("BAGEL packed training path (3 evaluation forwards, 3 "
+               "training passes)", 6 * n_layers, 0)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    launches = {k_: eval_counts.get(k_, 0) + train_counts.get(k_, 0)
-                for k_ in launch_counts()}
     mse_terms = float(out["mse"].sum())
     ce_terms = float((out["ce"] * out["ce_weights"]).sum())
     gen_grads = {nm: float(p.grad.abs().max()) if p.grad is not None
@@ -2492,13 +2637,6 @@ def bagel_train_main_path():
     und_with_grad = [nm for nm, p in bagel.named_parameters()
                      if not p.requires_grad and p.grad is not None]
     zero_gen = [nm for nm, g in gen_grads.items() if not g > 0.0]
-    want_eval = {"flash_attention_bf16": n_layers,
-                 "flash_attention_bf16_packed": n_layers}
-    want_train = {nm: n_layers for nm in (
-        "flash_attention_bf16_lse", "flash_attention_bwd_dq_bf16",
-        "flash_attention_bwd_dkv_bf16", "flash_attention_bf16_lse_packed",
-        "flash_attention_bwd_dq_bf16_packed",
-        "flash_attention_bwd_dkv_bf16_packed")}
     del out
     _, profiled = profile_call(lambda: train_pass()[1])
     rec = {"phase": "bagel_train_main_path", "model": "BAGEL-7B-MoT",
@@ -2510,18 +2648,16 @@ def bagel_train_main_path():
            "vit_patches": int(batch["packed_vit_patches"].shape[0]),
            "vae_tokens": int(batch["packed_latent_clean"].shape[0]),
            "ce_tokens": int(batch["ce_loss_indexes"].shape[0]),
-           "eval_forward_s": eval_s, "train_forward_s": fwd_s,
-           "backward_s": bwd_s, "peak_memory_gb": peak,
+           "warm_up_pass": warm, "eval_forward_s": spread(eval_s),
+           "train_forward_s": spread(fwd_s), "backward_s": spread(bwd_s),
+           "peak_memory_gb": peak,
            "loss": float(loss), "mse_sum": mse_terms, "ce_weighted": ce_terms,
            "eval_loss": eval_loss, "gen_leaves_with_grad":
            len(gen_grads) - len(zero_gen), "gen_leaves_zero": zero_gen[:5],
            "frozen_leaves_with_grad": und_with_grad[:5],
-           "eval_launches": eval_counts, "train_launches": train_counts,
+           "eval_launches": want_eval, "train_launches": want_train,
            "profiled_train_pass": profiled}
     log(json.dumps(rec))
-    if eval_counts != want_eval or train_counts != want_train:
-        fail(f"BAGEL training launches: eval {eval_counts} != {want_eval} or "
-             f"train {train_counts} != {want_train}")
     if not (math.isfinite(rec["loss"]) and math.isfinite(mse_terms)
             and math.isfinite(ce_terms)):
         fail("non-finite BAGEL training loss")
@@ -3587,12 +3723,14 @@ def kernels_line(records, by_path, mask_records):
            "flash_attention_f32_lse": "fp32_train",
            "flash_attention_bwd_dq_f32": "fp32_train",
            "flash_attention_bwd_dkv_f32": "fp32_train"}
-    # the packed modes serve BAGEL packed training; no path of the JAX
-    # package reaches the segment modes at d=128 (SigLIP's segments are
-    # d=72, the reference route) or the causal backward (no causal training
-    # caller): their launches on the paths are 0
+    # the packed modes and the tile-list pre-pass serve BAGEL packed
+    # training; no path of the JAX package reaches the segment modes at
+    # d=128 (SigLIP's segments are d=72, the reference route) or the causal
+    # backward (no causal training caller): their launches on the paths
+    # are 0
     for nm in mask_records:
-        own[nm] = "bagel_train" if nm.endswith("_packed") else None
+        own[nm] = ("bagel_train" if nm.endswith("_packed")
+                   or nm == "mask_tile_list" else None)
     own.update(KNOB_OWNERS)
     kernels = []
     for nm, rec in records.items():

@@ -6,7 +6,9 @@ JAX nor univid_tpu, so it also runs where only PyTorch is installed:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Small shapes; chip_smoke.py holds the kernels at the main path's shapes.
-Tolerances: fp32 2e-5 (rounding and the approximate exp2; the d=640 /
+Tolerances: fp32 2e-5 (rounding and the approximate exp2; the d=384
+kernel on unfolded rows of norm sqrt(d) against the function in fp64,
+since fp32 arithmetic itself misses that bound there; the d=640 /
 d=1024 kernel and the fp32 d=128 forward at their stated 1e-5 + 1e-4 |ref|,
 lse 1e-4; the fp32 d=128 backward 1e-4 max|ref| + 1e-4 |ref| and rel. L2
 < 1e-4); bf16 2e-2 relative (one bf16 rounding of p and of the output,
@@ -69,6 +71,12 @@ def test_cuda_kernel_matches_plain(cuda_device, mode):
             kvl = kv if mode == "cross_kvlen" else None
             got = tfa.cross_attention_padded(q, k, v, kv_len=kvl)
             want = tfa.attention_plain(q, k, v, kv_len=kvl)
+        elif dt == torch.float32:
+            # the same function in fp64: these unfolded rows of norm
+            # sqrt(d) give scores ~ N(0, d), on which fp32 arithmetic
+            # itself misses this test's bound (tests/test_torch_f32_tc.py)
+            got = tfa._flash_cuda(q, k, v, kv, bound, tabs)
+            want = _attention_f64(q, k, v, kv)
         else:
             got = tfa._flash_cuda(q, k, v, kv, bound, tabs)
             want = tfa.attention_plain(q, k, v, kv_len=kv, bound=bound,
@@ -77,6 +85,18 @@ def test_cuda_kernel_matches_plain(cuda_device, mode):
     tol = FP32 if dt == torch.float32 else BF16
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **tol)
+
+
+def _attention_f64(q, k, v, kv_len):
+    """attention_plain's function (running-max mode, kv_len) in fp64 on
+    the CPU: [B, L, N, D] with q folded."""
+    s = torch.einsum("bqnd,bknd->bnqk", q.double().cpu(), k.double().cpu())
+    dead = (torch.arange(k.shape[1])[None, :]
+            >= kv_len.cpu()[:, None])[:, None, None, :]
+    s = s.masked_fill(dead, -math.inf)
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bnqk,bknd->bqnd", p, v.double().cpu())
+    return o / p.sum(-1).permute(0, 2, 1)[..., None]
 
 
 @pytest.mark.cuda
@@ -895,10 +915,94 @@ def test_cuda_sm90_matches_mma_sync_kernel(cuda_device, mode):
 
 @pytest.mark.cuda
 def test_cuda_masked_forward_stays_on_mma_sync(cuda_device):
-    """The segment mode keeps the mma.sync kernel (LAUNCHES_BY_IMPL)."""
-    q, k, v, qs, ks = _masked_inputs(cuda_device, "segments")
+    """The split of the masked modes (LAUNCHES_BY_IMPL): the segment and
+    packed forwards run on the sm90 kernel, one tile-list pre-pass each;
+    only the causal mode stays on the mma.sync kernel."""
     tfa.reset_launches()
     with torch.no_grad():
-        tfa.flash_attention_padded(q, k, v, q_segments=qs, kv_segments=ks)
+        for mode in ("segments", "packed"):
+            q, k, v, qs, ks = _masked_inputs(cuda_device, mode)
+            tfa.flash_attention_padded(q, k, v, q_segments=qs, kv_segments=ks,
+                                       packed_mode=mode == "packed")
+        tfa.flash_attention_padded(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert tfa.LAUNCHES_BY_IMPL == {"sm90": 0, "mma_sync": 1}
+    assert tfa.LAUNCHES_BY_IMPL == {"sm90": 2, "mma_sync": 1}
+    assert tfa.LAUNCHES["mask_tile_list"] == 2
+
+
+# tile-list cases: (mode, kv_len of the two rows or None)
+TILE_LISTS = {"segments": ("segments", None), "packed": ("packed", None),
+              "segments_kv_len": ("segments", (448, 190)),
+              "packed_kv_len": ("packed", (300, 0)),
+              "segments_lq_704_lk_448": ("segments", None)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(TILE_LISTS))
+def test_cuda_mask_tile_list_matches_plain(cuda_device, case):
+    """The pre-pass's list and count equal the plain version's exactly
+    (ragged q tiles, pad ids, kv_len inside a tile and 0, Lq != Lk)."""
+    mode, kvl = TILE_LISTS[case]
+    _, _, _, qs, ks = _masked_inputs(cuda_device, mode)
+    if case == "segments_lq_704_lk_448":
+        qs = torch.cat([qs, qs[:, :256] + 1], dim=1).contiguous()
+    kv = (torch.tensor(kvl, dtype=torch.int32, device=cuda_device)
+          if kvl is not None else None)
+    lists, count = tfa.mask_tile_list(qs, ks, kv, mode == "packed")
+    torch.cuda.synchronize()
+    want = tfa.mask_tile_list_plain(qs.cpu(), ks.cpu(),
+                                    kv.cpu() if kv is not None else None,
+                                    mode == "packed")
+    assert torch.equal(lists.cpu(), want[0])
+    assert torch.equal(count.cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["segments", "packed"])
+def test_cuda_sm90_masked_matches_mma_sync_kernel(cuda_device, mode):
+    """The sm90 segment / packed forward (with the lse, kv_len inside a
+    tile) against the mma.sync kernel it replaces (still compiled), same
+    inputs: outputs within the running-max bound, lse 1e-3, pad rows 0
+    with lse +1e30 in both."""
+    q, k, v, qs, ks = _masked_inputs(cuda_device, mode)
+    qf = tfa._fold(q, 128 ** -0.5)
+    kv = torch.tensor([448, 300], dtype=torch.int32, device=cuda_device)
+    b, l, n, _ = q.shape
+    lse_new, lse_old = (torch.empty((b, n, l), device=cuda_device)
+                        for _ in range(2))
+    with torch.no_grad():
+        new = tfa._launch_sm90(qf, k, v, kv, None, "running", lse=lse_new,
+                               q_segments=qs, kv_segments=ks, seg=mode)
+        old = tfa._launch_bf16(qf, k, v, kv, None, tfa._MODE_RUNNING,
+                               lse=lse_old, q_segments=qs, kv_segments=ks,
+                               seg=mode)
+    torch.cuda.synchronize()
+    _check_fwd(new, old, v, running=True)
+    np.testing.assert_allclose(lse_new.cpu().numpy(), lse_old.cpu().numpy(),
+                               rtol=0, atol=1e-3)
+    assert float(new[:, -30:].abs().max()) == 0.0
+    assert bool((lse_new[:, :, -30:] == 1e30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [384, 640, 1024])
+def test_cuda_f32_tc_matches_simt_kernel(cuda_device, d):
+    """The 3xTF32 VAE kernel against the CUDA-core kernel it replaces
+    (still compiled) and the plain version: batch row 0 with 70 keys past
+    kv_len holding 50.0, row 1 with kv_len = 0 (exactly 0); Lq = 384 (a
+    ragged 128-row score tile) over Lk = 448."""
+    q, k, v = (torch.as_tensor(_rand((2, lx, 1, d), s)).to(cuda_device)
+               for s, lx in ((11, 384), (12, 448), (13, 448)))
+    q = q * (LOG2E / math.sqrt(d))
+    k[0, 378:] = 50.0
+    v[0, 378:] = 50.0
+    kv = torch.tensor([378, 0], dtype=torch.int32, device=cuda_device)
+    with torch.no_grad():
+        new = tfa._launch_f32_tc(q, k, v, kv)
+        old = tfa._launch_f32_simt(q, k, v, kv)
+        want = tfa.attention_plain(q, k, v, kv_len=kv)
+    torch.cuda.synchronize()
+    assert float(new[1].abs().max()) == 0.0
+    for got in (new, old):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-5)

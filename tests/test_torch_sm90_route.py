@@ -48,11 +48,10 @@ ROUTES = {
     "sbf16_oneshot": ("oneshot", dict(softmax_bf16=True), KV_G7, "sm90"),
     "causal": ("running", dict(causal=True), KV_G7, "mma_sync"),
     "causal_lse": ("running", dict(causal=True, lse=True), KV, "mma_sync"),
-    "segments": ("running", dict(seg="segments"), KV_G7, "mma_sync"),
-    "segments_lse": ("running", dict(seg="segments", lse=True), KV,
-                     "mma_sync"),
-    "packed": ("running", dict(seg="packed"), KV, "mma_sync"),
-    "packed_lse": ("running", dict(seg="packed", lse=True), KV, "mma_sync"),
+    "segments": ("running", dict(seg="segments"), KV_G7, "sm90"),
+    "segments_lse": ("running", dict(seg="segments", lse=True), KV, "sm90"),
+    "packed": ("running", dict(seg="packed"), KV, "sm90"),
+    "packed_lse": ("running", dict(seg="packed", lse=True), KV, "sm90"),
     "causal_bounded": ("bounded", dict(causal=True), KV,
                        NotImplementedError),
     "packed_oneshot": ("oneshot", dict(seg="packed"), KV,
@@ -72,9 +71,9 @@ ROUTES = {
 @pytest.mark.parametrize("case", list(ROUTES))
 def test_bf16_forward_route(case):
     """Every unmasked bf16 forward (bounded, running, one-shot; with the
-    lse; grouped kv heads; the softmax_bf16 chain) reaches the sm90 kernel,
-    the causal, segment and packed modes the mma.sync kernel; a call that
-    no kernel takes raises."""
+    lse; grouped kv heads; the softmax_bf16 chain) and the segment and
+    packed modes (with and without the lse) reach the sm90 kernel, the
+    causal mode the mma.sync kernel; a call that no kernel takes raises."""
     mode, kw, kv, want = ROUTES[case]
     if isinstance(want, str):
         assert tfa.bf16_forward_route(Q, kv, kv, mode=mode, **kw) == want

@@ -1,5 +1,6 @@
 // Building blocks of the tensor-core attention forwards (flash_attention.cu,
-// flash_attention_int8.cu): cp.async tile copies into XOR-swizzled shared
+// flash_attention_int8.cu, flash_attention_sm90.cu): the segment and packed
+// mask predicates, cp.async tile copies into XOR-swizzled shared
 // memory, ldmatrix fragment loads, the bf16 mma.sync product, and the
 // per-tile softmax update in the exp2 domain with its two chains, fp32 and
 // bf16 (_flash_kernel's and _cross_kernel's softmax_bf16 mode,
@@ -23,6 +24,23 @@ constexpr int NTHREADS = 128;
 constexpr float NEG_INF = -1e30f;
 
 enum Mode { BOUNDED = 0, RUNNING = 1, ONESHOT = 2 };
+enum Seg { NO_SEG = 0, SEGMENTS = 1, PACKED = 2 };
+
+// BAGEL's packed-training predicate on pack_mask_codes codes (arithmetic
+// shifts: pad ids -1 / -2 give doc -1 and fn 255 and never pass it)
+__device__ __forceinline__ bool packed_allowed(int qc, int kc, int row, int col) {
+  const int fn_q = (qc >> 8) & 0xFF, fn_k = (kc >> 8) & 0xFF;
+  const int nz_q = qc & 0xFF, nz_k = kc & 0xFF;
+  return (row >= col || (fn_q == fn_k && fn_q > 0)) && !(nz_k > 0 && nz_q != nz_k) &&
+         (qc >> 16) == (kc >> 16);
+}
+
+// a query with code qc at pack row `row` may see the key kc at `col`
+// (SEGMENTS: equal ids; PACKED: packed_allowed)
+template <int SEG>
+__device__ __forceinline__ bool seg_allowed(int qc, int kc, int row, int col) {
+  return SEG == PACKED ? packed_allowed(qc, kc, row, col) : qc == kc;
+}
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;

@@ -1,13 +1,14 @@
 // Flash attention forward for Hopper (sm_90a), bf16 inputs, fp32 softmax (or
 // the bf16 chain of the softmax_bf16 mode), on Ampere's mma.sync.
 //
-// What it serves on the paths: the causal, segment and packed modes below
-// (BAGEL's question prefill and packed training), and the bf16 rope
-// pre-pass univid_rope_rotate_bf16. The unmasked modes (bounded, running
-// and one-shot, with kv_len, the lse and softmax_bf16) moved to
-// flash_attention_sm90.cu (wgmma, TMA, warp specialisation); their
-// instantiations here stay compiled, reached only through the C entry
-// point, as the same-call baseline of chip_smoke.py and the card tests.
+// What it serves on the paths: the causal mode below (BAGEL's question
+// prefill) and the bf16 rope pre-pass univid_rope_rotate_bf16. The
+// unmasked modes (bounded, running and one-shot, with kv_len, the lse and
+// softmax_bf16) and the segment and packed modes moved to
+// flash_attention_sm90.cu (wgmma, TMA, warp specialisation; the masked
+// ones with a block-sparse tile skip); their instantiations here stay
+// compiled, reached only through the C entry point, as the same-call
+// baseline of chip_smoke.py and the card tests.
 //
 // Replaces two Pallas TPU kernels of univid_tpu/kernels/flash_attention.py:
 //   * _flash_kernel (:44) in its DiT self-attention mode: fused 3D-RoPE
@@ -39,9 +40,9 @@
 //       && !(nz_k > 0 && nz_q != nz_k) && doc_q == doc_k,
 //     the create_sparse_mask predicate (causal text, full ViT / clean VAE
 //     splits, noised VAE splits that no other split may read). Every kv tile
-//     below kv_len is visited, as on the TPU (a block-sparse tile skip is
-//     later work); each block reads its 64 q codes once and each tile's 64
-//     kv codes with the k tile. These modes, like the causal one, meet
+//     below kv_len is visited (flash_attention_sm90.cu skips the dead
+//     ones); each block reads its 64 q codes once and each tile's 64 kv
+//     codes with the k tile. These modes, like the causal one, meet
 //     wholly masked tiles before a row's first live key, so a row whose
 //     running max is still -1e30 takes the reference point 0 (p = 0, not
 //     exp2(0) = 1): rows with no live key at all (the dispatcher's pad ids,
@@ -86,22 +87,11 @@
 // k once, in a pre-pass, into bf16 scratch (rounding points as on the TPU:
 // rotated q in q's dtype, rotated k in v's dtype).
 // Not used here: wgmma, TMA, warp specialisation (flash_attention_sm90.cu
-// has them; moving the masked modes onto it is later work).
+// has them; moving the causal mode onto it is later work).
 
 #include "bf16_tiles.cuh"
 
 namespace {
-
-enum Seg { NO_SEG = 0, SEGMENTS = 1, PACKED = 2 };
-
-// BAGEL's packed-training predicate on pack_mask_codes codes (arithmetic
-// shifts: pad ids -1 / -2 give doc -1 and fn 255 and never pass it)
-__device__ __forceinline__ bool packed_allowed(int qc, int kc, int row, int col) {
-  const int fn_q = (qc >> 8) & 0xFF, fn_k = (kc >> 8) & 0xFF;
-  const int nz_q = qc & 0xFF, nz_k = kc & 0xFF;
-  return (row >= col || (fn_q == fn_k && fn_q > 0)) && !(nz_k > 0 && nz_q != nz_k) &&
-         (qc >> 16) == (kc >> 16);
-}
 
 template <int D, int MODE, bool CAUSAL, int SEG, bool SBF16>
 __global__ void __launch_bounds__(NTHREADS)

@@ -1,5 +1,8 @@
 // Flash attention forward for Hopper (sm_90a), fp32, on CUDA cores: the
-// single-head VAE mid-block attention at d = 384, 640 and 1024.
+// single-head VAE mid-block attention at d = 384, 640 and 1024. The paths
+// run flash_attention_f32_tc.cu (3xTF32 on the tensor cores) in its
+// place; this kernel stays compiled, reached only through its C entry
+// point, as the same-call baseline of chip_smoke.py and the card tests.
 //
 // Replaces the plain mode of univid_tpu/kernels/flash_attention.py::
 // _flash_kernel (:44) as the Wan VAEs reach it (models/wan/vae.py:282-289):

@@ -8,13 +8,16 @@ and training paths reach:
     running max), `kv_len` masking and zero rows when l == 0. bf16 d=128
     runs csrc/flash_attention_sm90.cu (wgmma, TMA, warp specialisation) in
     its unmasked modes (DiT self-attention, the training forward, BAGEL's
-    ViT append) and csrc/flash_attention.cu (mma.sync) in the causal,
-    segment and packed ones (`bf16_forward_route`); fp32 d=128 runs
+    ViT append) and its segment and packed ones (BAGEL packed training,
+    with the pre-pass `mask_tile_list`: the live kv tiles of each q tile),
+    and csrc/flash_attention.cu (mma.sync) in the causal one
+    (`bf16_forward_route`); fp32 d=128 runs
     csrc/flash_attention_f32_d128.cu (the DiT at the fp32 policy, serving
     and training, its rope pre-pass `rope_rotate_f32` included; the fp32
     cross-attention at Lk = 512 takes it too); fp32 d=384, 640 and 1024
-    run csrc/flash_attention_f32.cu (VAE mid-block attention of the
-    t2v-1.3B and the ti2v-5B VAEs). With
+    run csrc/flash_attention_f32_tc.cu (VAE mid-block attention of the
+    t2v-1.3B and the ti2v-5B VAEs: 3xTF32 tensor-core products over a
+    materialised score matrix). With
     `save_residuals=True` (the training forward) it also returns the
     per-row exp2-domain lse, fp32 [B, N, Lq]. `causal` with a static
     `q_offset` and a device `q_offsets` int32 [B] is `_flash_kernel`'s
@@ -59,7 +62,10 @@ the CPU; on CUDA tensors it launches its kernel or raises. `LAUNCHES`
 counts kernel launches per wrapper; `LAUNCHES_BY_MODE` splits those of the
 forward, the forward with lse and the two backward kernels by mask mode;
 `LAUNCHES_BY_IMPL` splits every bf16 forward launch (self, cross, lse,
-knob and masked modes) by the kernel that ran it.
+knob and masked modes) by the kernel that ran it. The kernels each new one
+replaced stay compiled and reachable (`_launch_bf16` for the segment and
+packed modes, `_launch_f32_simt` for the fp32 VAE mode) as the same-call
+baselines of chip_smoke.py and the card tests.
 """
 
 from __future__ import annotations
@@ -77,9 +83,10 @@ LOG2E = math.log2(math.e)
 LN2 = math.log(2.0)
 TILE = 64           # padded-length multiple the kernels take
 CROSS_MAX_LK = 512  # single-kv-block route (the TPU's one kv block)
-F32_DIMS = (384, 640, 1024)  # fp32 head dims of flash_attention_f32.cu
+F32_DIMS = (384, 640, 1024)  # fp32 head dims of the VAE kernels
 D128 = 128          # head dim of the DiT kernels (bf16, and fp32 d=128)
 SM90_BLOCK_Q = 128  # q rows per block of flash_attention_sm90.cu
+SM90_BLOCK_K = 128  # kv rows per tile of flash_attention_sm90.cu
 F32_MASKS_LATER = (
     "fp32 attention at d=128 has no causal, segment, packed or grouped-kv "
     "kernel mode: no fp32 caller reaches them yet (ROADMAP.md queue 2, item "
@@ -102,7 +109,7 @@ LAUNCHES = {"flash_attention_bf16": 0, "flash_attention_bf16_causal": 0,
             "flash_attention_bwd_dkv_f32": 0,
             "flash_attention_bf16_sbf16": 0, "cross_attention_bf16_sbf16": 0,
             "quantize_qk_int8": 0, "flash_attention_int8": 0,
-            "flash_attention_int8_sbf16": 0}
+            "flash_attention_int8_sbf16": 0, "mask_tile_list": 0}
 # the flash_attention_f32 launches split by head dim
 F32_LAUNCHES_BY_D = {d: 0 for d in F32_DIMS}
 # launches of the masked modes: each is also counted under its kernel's name
@@ -116,8 +123,8 @@ LAUNCHES_BY_MODE = {
     for mode in MASK_MODES
     if (name, mode) != ("flash_attention_bf16", "causal")}
 # every bf16 forward launch by its kernel: "sm90" flash_attention_sm90.cu
-# (the unmasked modes), "mma_sync" flash_attention.cu (causal, segments,
-# packed)
+# (the unmasked, segment and packed modes), "mma_sync" flash_attention.cu
+# (causal)
 LAUNCHES_BY_IMPL = {"sm90": 0, "mma_sync": 0}
 _SEG_MODE = {None: 0, "segments": 1, "packed": 2}
 
@@ -262,6 +269,37 @@ def _dead(i0, i1, lk, device, *, kv_len=None, causal=False, q_offset=0,
         else:
             add((qs != ks)[:, None])
     return dead
+
+
+def mask_tile_list_plain(q_segments, kv_segments, kv_len=None,
+                         packed_mode=False):
+    """The masked modes' tile list in plain PyTorch (the pre-pass
+    `mask_tile_list`): for each (b, 128-row q tile) the kv tiles of 128
+    keys that hold at least one pair `_dead` allows, ascending, as
+    (tile << 1) | full, full when every pair of the tile's 128 keys (rows
+    below Lq; keys past Lk count as dead) is allowed; -1 past the count.
+    Returns (list int32 [B, q_tiles, kv_tiles], count int32 [B, q_tiles])."""
+    block_q, block_k = SM90_BLOCK_Q, SM90_BLOCK_K
+    b, lq = q_segments.shape
+    lk = kv_segments.shape[1]
+    qt, kt = -(-lq // block_q), -(-lk // block_k)
+    dead = _dead(0, lq, lk, q_segments.device, kv_len=kv_len,
+                 q_segments=q_segments, kv_segments=kv_segments,
+                 packed_mode=packed_mode)[:, 0]
+    alive = torch.zeros((b, qt * block_q, kt * block_k), dtype=torch.bool,
+                        device=dead.device)
+    alive[:, :lq, :lk] = ~dead
+    tiles = alive.reshape(b, qt, block_q, kt, block_k)
+    live = tiles.any(dim=4).any(dim=2)                       # [B, qt, kt]
+    # rows past Lq do not exist: they never make a tile less than full
+    alive[:, lq:, :lk] = True
+    full = alive.reshape(b, qt, block_q, kt, block_k).all(dim=4).all(dim=2)
+    count = live.sum(dim=-1).to(torch.int32)
+    codes = torch.arange(kt, device=dead.device) * 2 + full.long()
+    # live tiles first, in ascending order (a stable sort of the dead flag)
+    order = torch.sort((~live).to(torch.int8), dim=-1, stable=True).indices
+    lists = torch.gather(torch.where(live, codes, -1), -1, order)
+    return lists.to(torch.int32), count
 
 
 def _softmax_pv(s, mask, bound, softmax_bf16, vf, v_dtype):
@@ -539,12 +577,12 @@ def _ptr(t):
 
 
 def _check_aligned(*ts):
-    """The fp32 d=128 kernels read rows as float4: 16-byte aligned data and
-    strides that are multiples of 4 elements."""
+    """The fp32 kernels read rows in 16-byte pieces: 16-byte aligned data
+    and strides that are multiples of 4 elements."""
     for t in ts:
         if t.data_ptr() % 16 or any(s % 4 for s in t.stride()[:-1]):
-            raise ValueError("the fp32 d=128 kernels need 16-byte aligned "
-                             "rows (strides multiples of 4)")
+            raise ValueError("the fp32 kernels need 16-byte aligned rows "
+                             "(strides multiples of 4)")
 
 
 def _no_masks(causal=False, q_segments=None, kv_segments=None,
@@ -570,6 +608,47 @@ def _launch_f32_d128(q, k, v, kv_len, bound, save_lse):
              ctypes.addressof(strides), _stream(q))
     build.check(err, "univid_flash_fwd_f32_d128")
     return o, lse
+
+
+def _launch_f32_tc(q, k, v, kv_len):
+    """csrc/flash_attention_f32_tc.cu on padded fp32 [B, L, N, D], D in
+    F32_DIMS, q folded: 3xTF32 scores into an fp32 [B * N, Lq, Lk] scratch
+    (with each row's max over each 128-key tile), the row max, p and 1 / l
+    in place, then 3xTF32 p v (three launches, one call)."""
+    b, lq, n, d = q.shape
+    lk = k.shape[1]
+    _check_aligned(q, k, v)
+    o = torch.empty((b, lq, n, d), dtype=torch.float32, device=q.device)
+    scores = torch.empty((b * n, lq, lk), dtype=torch.float32,
+                         device=q.device)
+    tile_max = torch.empty((b * n, lq, -(-lk // 128)), dtype=torch.float32,
+                           device=q.device)
+    inv_l = torch.empty((b * n, lq), dtype=torch.float32, device=q.device)
+    fn = _fn("flash_attention_f32_tc", "univid_flash_fwd_f32_tc",
+             [_P] * 8 + [_I] * 5 + [_P, _P])
+    strides = _strides(q, k, v, o)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             _ptr(kv_len), scores.data_ptr(), tile_max.data_ptr(),
+             inv_l.data_ptr(), b, n, lq, lk, d, ctypes.addressof(strides),
+             _stream(q))
+    build.check(err, "univid_flash_fwd_f32_tc")
+    return o
+
+
+def _launch_f32_simt(q, k, v, kv_len):
+    """csrc/flash_attention_f32.cu, the CUDA-core kernel that
+    `_launch_f32_tc` replaced (the same function; a baseline reached only
+    by chip_smoke.py and the card tests)."""
+    b, lq, n, d = q.shape
+    o = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
+    fn = _fn("flash_attention_f32", "univid_flash_fwd_f32",
+             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P])
+    strides = _strides(q, k, v, o)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             _ptr(kv_len), b, n, lq, k.shape[1], d, ctypes.addressof(strides),
+             _stream(q))
+    build.check(err, "univid_flash_fwd_f32")
+    return o
 
 
 def _rope_f32(x, cf, sf):
@@ -609,8 +688,9 @@ def _launch_bf16(q, k, v, kv_len, bound, mode, lse=None, causal=False,
 def bf16_forward_route(q, k, v, *, mode, lse=False, softmax_bf16=False,
                        causal=False, seg=None):
     """The kernel that takes a bf16 attention forward on the card: "sm90"
-    (csrc/flash_attention_sm90.cu) for every unmasked mode, "mma_sync"
-    (csrc/flash_attention.cu) for the causal, segment and packed ones.
+    (csrc/flash_attention_sm90.cu) for every unmasked mode and for the
+    segment and packed ones, "mma_sync" (csrc/flash_attention.cu) for the
+    causal one.
     mode: "bounded", "running" or "oneshot"; seg: None, "segments" or
     "packed". Both kernels read grouped kv heads (k and v with N / group
     heads). Raises for a call no kernel takes; never falls back."""
@@ -640,7 +720,7 @@ def bf16_forward_route(q, k, v, *, mode, lse=False, softmax_bf16=False,
         raise NotImplementedError(
             "the causal, segment and packed kernel modes have the running "
             "max only (no caller bounds a masked softmax)")
-    return "mma_sync"
+    return "mma_sync" if causal else "sm90"
 
 
 def sm90_q_tiles(lq):
@@ -676,23 +756,69 @@ def tma_strides(t):
     return st
 
 
-def _launch_sm90(q, k, v, kv_len, bound, mode, lse=None, softmax_bf16=False):
+def mask_tile_list(q_segments, kv_segments, kv_len=None, packed_mode=False):
+    """The masked modes' pre-pass: (list, count) of `mask_tile_list_plain`
+    at the sm90 kernel's 128 x 128 tiles. One launch on the card
+    (mask_tiles_kernel of csrc/flash_attention_sm90.cu); the plain version
+    on the CPU."""
+    if not q_segments.is_cuda:
+        return mask_tile_list_plain(q_segments, kv_segments, kv_len,
+                                    packed_mode)
+    b, lq = q_segments.shape
+    lk = kv_segments.shape[1]
+    qt, kt = sm90_q_tiles(lq), -(-lk // SM90_BLOCK_K)
+    lists = torch.empty((b, qt, kt), dtype=torch.int32,
+                        device=q_segments.device)
+    count = torch.empty((b, qt), dtype=torch.int32, device=q_segments.device)
+    fn = _fn("flash_attention_sm90", "univid_mask_tile_list",
+             [_P] * 5 + [_I] * 6 + [_P])
+    err = fn(q_segments.data_ptr(), kv_segments.data_ptr(), _ptr(kv_len),
+             lists.data_ptr(), count.data_ptr(),
+             _SEG_MODE["packed" if packed_mode else "segments"], b, lq, lk,
+             qt, kt, _stream(q_segments))
+    build.check(err, "univid_mask_tile_list")
+    _count("mask_tile_list")
+    return lists, count
+
+
+def _launch_sm90(q, k, v, kv_len, bound, mode, lse=None, softmax_bf16=False,
+                 q_segments=None, kv_segments=None, seg=None):
     """flash_attention_sm90.cu on padded bf16 [B, L, N, 128] (k, v with N /
     group heads): mode "bounded" (`bound` the folded score bound, an fp32
     [1] on the device), "running" or "oneshot"; lse fp32 [B, N, Lq] or
-    None."""
+    None. seg "segments" or "packed" (running max): the codes q_segments
+    [B, Lq] / kv_segments [B, Lk], the pre-pass `mask_tile_list` first."""
     b, lq, n, d = q.shape
     o = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
     st = tma_strides(q) + tma_strides(k) + tma_strides(v) + list(
         o.stride()[:3])
     strides = (ctypes.c_longlong * 12)(*st)  # host array, read at launch
-    fn = _fn("flash_attention_sm90", "univid_flash_fwd_sm90",
-             [_P] * 7 + [_I] * 8 + [_P, _P])
+    if seg is None:
+        fn = _fn("flash_attention_sm90", "univid_flash_fwd_sm90",
+                 [_P] * 7 + [_I] * 8 + [_P, _P])
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 _ptr(kv_len), _ptr(bound), _ptr(lse), _MODES[mode],
+                 int(softmax_bf16), n // k.shape[2], b, n, lq, k.shape[1],
+                 sm90_q_tiles(lq), ctypes.addressof(strides), _stream(q))
+        build.check(err, "univid_flash_fwd_sm90")
+        return o
+    if mode != "running" or softmax_bf16 or bound is not None:
+        raise NotImplementedError("the segment and packed modes take the "
+                                  "running max and the fp32 chain only")
+    if kv_segments.data_ptr() % 16:
+        raise ValueError("the sm90 kernel copies kv codes in bulk: a "
+                         "16-byte aligned kv_segments")
+    lists, count = mask_tile_list(q_segments, kv_segments, kv_len,
+                                  seg == "packed")
+    fn = _fn("flash_attention_sm90", "univid_flash_fwd_sm90_masked",
+             [_P] * 10 + [_I] * 8 + [_P, _P])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             _ptr(kv_len), _ptr(bound), _ptr(lse), _MODES[mode],
-             int(softmax_bf16), n // k.shape[2], b, n, lq, k.shape[1],
-             sm90_q_tiles(lq), ctypes.addressof(strides), _stream(q))
-    build.check(err, "univid_flash_fwd_sm90")
+             _ptr(kv_len), _ptr(lse), q_segments.data_ptr(),
+             kv_segments.data_ptr(), lists.data_ptr(), count.data_ptr(),
+             _SEG_MODE[seg], n // k.shape[2], b, n, lq, k.shape[1],
+             sm90_q_tiles(lq), lists.shape[2], ctypes.addressof(strides),
+             _stream(q))
+    build.check(err, "univid_flash_fwd_sm90_masked")
     return o
 
 
@@ -737,20 +863,18 @@ def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
             cq, sq, ck, sk = (t.float().contiguous() for t in rope_tables)
             q = _rope_bf16(q, cq, sq)
             k = _rope_bf16(k, ck, sk)
-        if impl == "mma_sync":
+        if causal:
             o = _launch_bf16(q, k, v, kv_len, None, _MODE_RUNNING,
                              causal=causal, q_offset=q_offset,
-                             q_offsets=q_offsets, q_segments=q_segments,
-                             kv_segments=kv_segments, seg=seg)
-            if causal:
-                _count("flash_attention_bf16_causal", impl=impl)
-            else:
-                _count("flash_attention_bf16", seg, impl=impl)
+                             q_offsets=q_offsets)
+            _count("flash_attention_bf16_causal", impl=impl)
             return o
         o = _launch_sm90(q, k, v, kv_len, _bound_tensor(bound, q.device),
-                         mode, softmax_bf16=softmax_bf16)
+                         mode, softmax_bf16=softmax_bf16,
+                         q_segments=q_segments, kv_segments=kv_segments,
+                         seg=seg)
         _count("flash_attention_bf16_sbf16" if softmax_bf16
-               else "flash_attention_bf16", impl=impl)
+               else "flash_attention_bf16", seg, impl=impl)
         return o
     if q.dtype == torch.float32 and q.shape[-1] == D128:
         _check_cuda_inputs(q, k, v, kv_len, torch.float32, (D128,))
@@ -771,17 +895,9 @@ def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
             raise NotImplementedError(
                 "the fp32 kernel has the VAE's plain mode only (no fused "
                 "rope, no bound, not causal, no segments)")
-        b, lq, n, d = q.shape
-        o = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
-        fn = _fn("flash_attention_f32", "univid_flash_fwd_f32",
-                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P])
-        strides = _strides(q, k, v, o)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 kv_len.data_ptr() if kv_len is not None else None, b, n,
-                 lq, k.shape[1], d, ctypes.addressof(strides), _stream(q))
-        build.check(err, "univid_flash_fwd_f32")
+        o = _launch_f32_tc(q, k, v, kv_len)
         _count("flash_attention_f32")
-        F32_LAUNCHES_BY_D[d] += 1
+        F32_LAUNCHES_BY_D[q.shape[-1]] += 1
         return o
     raise TypeError(f"no attention kernel for {q.dtype}")
 
@@ -1022,12 +1138,13 @@ def flash_attention_fwd_folded(qs, k, v, *, kv_len=None, score_bound=None,
                               seg=seg)
     bound = _bound_tensor(score_bound, qs.device)
     if impl == "sm90":
-        o = _launch_sm90(qs, k, v, kv_len, bound, mode, lse=lse)
+        o = _launch_sm90(qs, k, v, kv_len, bound, mode, lse=lse,
+                         q_segments=q_segments, kv_segments=kv_segments,
+                         seg=seg)
     else:
         o = _launch_bf16(qs, k, v, kv_len, bound, _MODES[mode], lse=lse,
                          causal=causal, q_offset=q_offset,
-                         q_offsets=q_offsets, q_segments=q_segments,
-                         kv_segments=kv_segments, seg=seg)
+                         q_offsets=q_offsets)
     _count("flash_attention_bf16_lse", "causal" if causal else seg,
            impl=impl)
     return o, lse
