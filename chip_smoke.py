@@ -19,6 +19,11 @@ Phases:
      the serving kernels again at the ti2v-5B shapes; the training forward with lse
      and the dq and dk/dv kernels at the self and cross shapes, and
      attention() under grad against autograd through an fp32 reference;
+     the one-pass sm90 backward (flash_attention_bwd_sm90.cu) at the same
+     two shapes, timed in turns with the mma.sync pair it replaced in the
+     unmasked modes (`bwd_sm90_vs_mma_sync` lines; its three launches'
+     device times on `bwd_sm90_kernels_*` lines), a kv_len = 0 row exactly
+     zero;
      the causal mode at the BAGEL QA shapes (question prefill over the
      20,480-row cache, a 16-row batch, a square 2,048 prefill) and the
      grouped ViT append; the packed mode (forward with and without lse,
@@ -55,7 +60,8 @@ Phases:
      steps; check the kernels' launch counts and the mp4;
   6. drive the training path: t2v-1.3B at 832x480x81, LoRA + projector,
      remat 'attn', a few make_diffusion_train_step steps; check the launch
-     counts of every step, a finite loss, LoRA b off zero, the frozen base
+     counts of every step (59 one-pass sm90 backward calls, none on the
+     mma.sync pair), a finite loss, LoRA b off zero, the frozen base
      unchanged; print seconds per step and peak memory; profile one more
      step (device time by kernel family, idle share);
   7. drive the CLI's default path: ti2v-5B with BAGEL fusion, --mode both
@@ -75,8 +81,9 @@ Phases:
      gradients in every trainable leaf, peak memory; profile one more
      pass;
  10. drive the full DiT fine-tune at its default fp32 policy:
-     make_dit_train_step on t2v-1.3B at 832x480x81, full depth and width,
-     remat 'attn', 2 steps (90 forwards with lse, 60 dq, 60 dk/dv a step);
+     make_dit_train_step on t2v-1.3B at 832x480x81, full width, 10 of its
+     30 blocks (the time limit), remat 'attn', 2 steps (30 forwards with
+     lse, 20 dq, 20 dk/dv a step);
      finite losses, every block's weights moved, seconds, peak memory;
      profile one more step;
  11. run the port's QA CLI with --mock_weights;
@@ -178,6 +185,20 @@ def ab_time(new, old, iters):
 def log_ab(call, new_ms, old_ms):
     log(json.dumps({"sm90_vs_mma_sync": call, "sm90_ms": new_ms,
                     "mma_sync_ms": old_ms, "speedup": old_ms / new_ms}))
+
+
+def check_bwd_impl(tag, sm90, mma_sync=0):
+    """A path's bf16 backward calls by kernel (BWD_LAUNCHES_BY_IMPL since
+    the path's counts were reset): the unmasked modes on the one-pass sm90
+    kernel, the causal, segment and packed ones on the mma.sync pair."""
+    from univid_tpu_torch.kernels import flash_attention as fa
+    want = {"sm90": sm90, "mma_sync": mma_sync}
+    got = dict(fa.BWD_LAUNCHES_BY_IMPL)
+    log(json.dumps({"check": f"{tag}: bf16 backward calls by kernel",
+                    "bwd_launches_by_impl": got, "expected": want,
+                    "ok": got == want}))
+    if got != want:
+        fail(f"{tag}: bf16 backward calls by kernel {got} != {want}")
 
 
 def check_impl(tag, sm90, mma_sync=0):
@@ -505,11 +526,21 @@ def check_grad(name, got, want, rel_limit, why):
     return err
 
 
+BWD_WHY = ("p and dS round to bf16 at the same points on both sides, but "
+           "an fp32 difference of ~1e-6 (approximate exp2, summation order) "
+           "flips some roundings by one bf16 step (2^-8 relative); the "
+           "output rounds once")
+
+
 def check_train_kernels():
-    """Phase 3b: the training kernels (forward with lse, the dq and dk/dv
-    backward kernels) against their plain versions at the training path's
+    """Phase 3b: the training kernels (forward with lse; the one-pass sm90
+    backward, the path's, and the dq and dk/dv mma.sync pair it replaced
+    in these modes) against their plain versions at the training path's
     self (q, k, v [1, 32768, 12, 128], kv_len 32760) and cross (k, v
-    [1, 512, 12, 128]) shapes, bounded softmax; padded keys hold 50.0.
+    [1, 512, 12, 128]) shapes, bounded softmax; padded keys hold 50.0. The
+    sm90 backward is timed in turns with the pair (`bwd_sm90_vs_mma_sync`
+    lines) and its three launches' device times logged
+    (`bwd_sm90_kernels_*`); a kv_len = 0 row must come out exactly zero.
     Then the autograd Function against autograd through the fp32
     mha_reference at L = 2048. Returns the per-kernel records (self shape;
     the cross shape's numbers are logged on `kernel_at_cross_shape` lines)."""
@@ -554,27 +585,53 @@ def check_train_kernels():
                         atol=1e-3, rtol=0.0,
                         why="fp32 log2 of an fp32 row sum; summation "
                             "order and the approximate exp2"))}
-            # the backward alone: both sides take the plain residuals
+            # the backward alone: both sides take the plain residuals; the
+            # one-pass sm90 kernel (the path's) and the mma.sync pair it
+            # replaced in these modes
+            got_sm90 = fa._launch_bwd_sm90(qs, k, v, o_p, lse_p, do, kv_len,
+                                           sc)
             dq, delta = fa._bwd_dq_cuda(qs, k, v, o_p, lse_p, do, kv_len, sc)
             dk, dv = fa._bwd_dkv_cuda(qs, k, v, do, lse_p, delta, kv_len)
             want = fa._bwd_plain_folded(qs, k, v, o_p, lse_p, do, kv_len, sc)
-            why = ("p and dS round to bf16 at the same points on both "
-                   "sides, but an fp32 difference of ~1e-6 (approximate "
-                   "exp2, summation order) flips some roundings by one "
-                   "bf16 step (2^-8 relative); the output rounds once")
-            for nm, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
-                key = "bwd_dq" if nm == "dq" else "bwd_dkv"
-                e = compare(f"flash_attention_bwd {shape} {nm}", got, ref,
-                            atol=2.0 ** -8 * float(ref.float().abs().max()),
-                            rtol=2.0 ** -7, why=why)
-                check_grad(f"flash_attention_bwd {shape} {nm} rel_l2", got,
-                           ref, 1e-2, why)
-                errs[key] = max(errs.get(key, 0.0), e)
-            if kv_real is not None and (
-                    float(dk[:, kv_real:].abs().max()) != 0.0
-                    or float(dv[:, kv_real:].abs().max()) != 0.0):
+            for nm, got, pair_got, ref in zip(("dq", "dk", "dv"), got_sm90,
+                                              (dq, dk, dv), want):
+                for key, tag, g in (
+                        ("bwd_sm90", "flash_attention_bwd_sm90", got),
+                        ("bwd_dq" if nm == "dq" else "bwd_dkv",
+                         "flash_attention_bwd", pair_got)):
+                    e = compare(f"{tag} {shape} {nm}", g, ref,
+                                atol=2.0 ** -8 * float(ref.float().abs()
+                                                       .max()),
+                                rtol=2.0 ** -7, why=BWD_WHY)
+                    check_grad(f"{tag} {shape} {nm} rel_l2", g, ref, 1e-2,
+                               BWD_WHY)
+                    errs[key] = max(errs.get(key, 0.0), e)
+            if kv_real is not None and any(
+                    bool(x[:, kv_real:].any())
+                    for x in (dk, dv, got_sm90[1], got_sm90[2])):
                 fail("flash_attention_bwd: dk / dv past kv_len are not 0")
-            del want
+            del want, got_sm90
+
+            def pair():
+                dq_, delta_ = fa._bwd_dq_cuda(qs, k, v, o_p, lse_p, do,
+                                              kv_len, sc)
+                return dq_, fa._bwd_dkv_cuda(qs, k, v, do, lse_p, delta_,
+                                             kv_len)
+
+            def sm90():
+                return fa._launch_bwd_sm90(qs, k, v, o_p, lse_p, do, kv_len,
+                                           sc)
+
+            bwd_ms, pair_ms = ab_time(sm90, pair, 3)
+            log(json.dumps({"bwd_sm90_vs_mma_sync": f"backward, {shape}",
+                            "sm90_ms": bwd_ms, "mma_sync_pair_ms": pair_ms,
+                            "speedup": pair_ms / bwd_ms}))
+            # two calls: the device time of each of the three launches a
+            # call (the mean of two)
+            _, prof = profile_call(lambda: (sm90(), sm90()))
+            log(json.dumps({f"bwd_sm90_kernels_{shape}": [
+                (t_["kernel"], t_["ms"] / t_["count"], t_["count"])
+                for t_ in prof["top_kernels"]]}))
             lse_old = torch.empty_like(lse)
             lse_ms, lse_old_ms = ab_time(
                 lambda: fa.flash_attention_fwd_folded(
@@ -585,6 +642,7 @@ def check_train_kernels():
                    lse_old_ms)
             ms = {
                 "lse_fwd": lse_ms,
+                "bwd_sm90": bwd_ms,
                 "bwd_dq": cuda_time(lambda: fa._bwd_dq_cuda(
                     qs, k, v, o_p, lse_p, do, kv_len, sc), 3),
                 "bwd_dkv": cuda_time(lambda: fa._bwd_dkv_cuda(
@@ -624,12 +682,16 @@ def check_train_kernels():
             "bwd_dkv": bound_ms(4 * mm, 2 * row + 2 * kvb + 2 * nbytes(lse),
                                 H100_BF16_FLOPS),
         }
-        pair = bound_ms(5 * mm, 4 * row + 2 * kvb + nbytes(lse),
-                        H100_BF16_FLOPS)
+        # the one-pass work: 5 products (s, dp, dq, dk, dv); reads qs, o,
+        # dO, k, v, lse; writes dq, dk, dv
+        bounds["bwd_sm90"] = bound_ms(5 * mm, 4 * row + 2 * kvb
+                                      + nbytes(lse), H100_BF16_FLOPS)
         log(json.dumps({"check": f"backward pair {shape}",
                         "pair_ms": ms["bwd_dq"] + ms["bwd_dkv"],
-                        "one_pass_bound_ms": pair[0],
-                        "one_pass_bound_by": pair[1],
+                        "pair_ms_in_turns": pair_ms,
+                        "sm90_ms": ms["bwd_sm90"],
+                        "one_pass_bound_ms": bounds["bwd_sm90"][0],
+                        "one_pass_bound_by": bounds["bwd_sm90"][1],
                         "why": "the one-pass work: 5 products (s, dp, dq, "
                                "dk, dv) of 2 Lq Lk d flops per head"}))
         meta = {
@@ -646,6 +708,11 @@ def check_train_kernels():
                         "univid_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
                         "univid_tpu/kernels/flash_attention.py:940",
                         plain_bwd, lib_bwd),
+            "bwd_sm90": ("flash_attention_bwd_bf16_sm90",
+                         "univid_tpu_torch/kernels/csrc/"
+                         "flash_attention_bwd_sm90.cu",
+                         "univid_tpu/kernels/flash_attention.py:1057",
+                         plain_bwd, lib_bwd),
         }
         for key, (name, src, rep, plain_ms, lib_ms) in meta.items():
             rec = dict(name=name, route="cuda", source=src, replaces=rep,
@@ -654,6 +721,8 @@ def check_train_kernels():
                        library_ms=lib_ms)
             if key == "lse_fwd":
                 rec["mma_sync_ms"] = lse_old_ms
+            if key == "bwd_sm90":
+                rec["mma_sync_ms"] = pair_ms   # the pair, in turns
             if shape == "self":
                 out[name] = rec
                 log(json.dumps({"kernel": rec}))
@@ -661,6 +730,31 @@ def check_train_kernels():
                 log(json.dumps({"kernel_at_cross_shape": rec}))
         del q, k, v, do, qs, o, lse, o_p, lse_p, dq, dk, dv, delta, lse_old
         torch.cuda.empty_cache()
+
+    # a kv_len = 0 row: exactly zero dq, dk and dv from the sm90 kernel
+    q = qk_normed((2, 2048, n, d), gen, torch.bfloat16)
+    k = qk_normed((2, 2048, n, d), gen, torch.bfloat16)
+    v = torch.randn((2, 2048, n, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    do = torch.randn((2, 2048, n, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kv_len = torch.tensor([2000, 0], dtype=torch.int32, device="cuda")
+    qs = fa._fold(q, sc)
+    with torch.no_grad():
+        o_p, lse_p = fa.attention_plain(qs, k, v, kv_len=kv_len, bound=bound,
+                                        save_residuals=True)
+        got = fa._launch_bwd_sm90(qs, k, v, o_p, lse_p, do, kv_len, sc)
+        want = fa._bwd_plain_folded(qs, k, v, o_p, lse_p, do, kv_len, sc)
+    for nm, g, ref in zip(("dq", "dk", "dv"), got, want):
+        compare(f"flash_attention_bwd_sm90 kv_len [2000, 0] {nm}", g, ref,
+                atol=2.0 ** -8 * float(ref.float().abs().max()),
+                rtol=2.0 ** -7, why=BWD_WHY)
+    zero_row = all(not bool(g[1].any()) for g in got)
+    log(json.dumps({"check": "flash_attention_bwd_sm90 kv_len = 0 row "
+                             "exactly zero (dq, dk, dv)", "ok": zero_row}))
+    if not zero_row:
+        fail("flash_attention_bwd_sm90: a kv_len = 0 row is not exactly 0")
+    del q, k, v, do, qs, o_p, lse_p, got, want
 
     # the autograd Function (attention() under grad) at L = 2048
     q = qk_normed((1, 2048, n, d), gen, torch.bfloat16)
@@ -1033,8 +1127,7 @@ def train_parity(output_dir):
     loss_gpu, moved_gpu = run("cuda")
     used = {k: v for k, v in fa.LAUNCHES.items() if v}
     loss_cpu, moved_cpu = run("cpu")
-    for name in ("flash_attention_bf16_lse", "flash_attention_bwd_dq_bf16",
-                 "flash_attention_bwd_dkv_bf16"):
+    for name in ("flash_attention_bf16_lse", "flash_attention_bwd_bf16_sm90"):
         if name not in used:
             fail(f"train parity run did not launch {name}")
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(loss_gpu, loss_cpu))
@@ -1151,12 +1244,12 @@ def train_main_path(n_steps):
     # per step, remat 'attn': self-attention of layers 1-29 on the forward
     # with lse (layer 0's q, k, v have no trainable upstream: the serving
     # kernel, and no backward), cross-attention twice (forward and its
-    # recompute in the backward), one backward pair per differentiated call
+    # recompute in the backward), one one-pass sm90 backward per
+    # differentiated call (none on the mma.sync pair)
     per_step = dict(dict.fromkeys(fa.LAUNCHES, 0),
                     flash_attention_bf16=1,
                     flash_attention_bf16_lse=29 + 2 * 30,
-                    flash_attention_bwd_dq_bf16=29 + 30,
-                    flash_attention_bwd_dkv_bf16=29 + 30)
+                    flash_attention_bwd_bf16_sm90=29 + 30)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
@@ -1178,6 +1271,7 @@ def train_main_path(n_steps):
     launches = launch_counts()
     # the serving self-attention of layer 0 and the 89 forwards with lse
     check_impl("LoRA training", (1 + 89) * n_steps)
+    check_bwd_impl("LoRA training", 59 * n_steps)
     peak = torch.cuda.max_memory_allocated() / 1e9
     state, profiled = profile_step(step, state, batch)
     base_same = all(torch.equal(v, snapshot[k])
@@ -1229,7 +1323,8 @@ def profile_call(fn):
         ms = e.self_device_time_total / 1e3
         top.append({"kernel": e.key[:90], "ms": ms, "count": e.count})
         name = e.key.lower()
-        if "flash_" in name or "rope_rotate" in name or "mask_tiles" in name:
+        if ("flash_" in name or "rope_rotate" in name or "mask_tiles" in name
+                or "bwd_pre" in name or "bwd_post" in name):
             fam["attention_kernels_ms"] += ms
         elif "gemm" in name or "nvjet" in name or "xmma" in name:
             fam["gemm_ms"] += ms
@@ -2596,18 +2691,24 @@ def bagel_train_main_path():
     fa.reset_launches()
     launches = dict.fromkeys(launch_counts(), 0)
 
-    def counted(tag, fn, want):
+    def counted(tag, fn, want, bwd_pair=0):
         """fn() with this pass's launches checked (every packed forward on
-        the sm90 kernel), then added to the path's."""
+        the sm90 kernel; `bwd_pair` packed backward calls, all on the
+        mma.sync pair), then added to the path's."""
         before = launch_counts()
         impl_before = dict(fa.LAUNCHES_BY_IMPL)
+        bwd_before = dict(fa.BWD_LAUNCHES_BY_IMPL)
         out = fn()
         got = {k_: v_ - before[k_] for k_, v_ in launch_counts().items()
                if v_ != before[k_]}
         impl = {k_: v_ - impl_before[k_]
                 for k_, v_ in fa.LAUNCHES_BY_IMPL.items()}
-        if got != want or impl != {"sm90": n_layers, "mma_sync": 0}:
-            fail(f"{tag}: launches {got} != {want} or by kernel {impl}")
+        bwd = {k_: v_ - bwd_before[k_]
+               for k_, v_ in fa.BWD_LAUNCHES_BY_IMPL.items()}
+        if (got != want or impl != {"sm90": n_layers, "mma_sync": 0}
+                or bwd != {"sm90": 0, "mma_sync": bwd_pair}):
+            fail(f"{tag}: launches {got} != {want} or by kernel {impl}, "
+                 f"backward {bwd}")
         for k_, v_ in got.items():
             launches[k_] += v_
         return out
@@ -2622,12 +2723,14 @@ def bagel_train_main_path():
         del ev
     for _ in range(3):
         out, loss, f_s, b_s = counted("BAGEL packed training pass",
-                                      train_pass, want_train)
+                                      train_pass, want_train, n_layers)
         fwd_s.append(f_s)
         bwd_s.append(b_s)
     # 28 / 0 a pass over the six passes
     check_impl("BAGEL packed training path (3 evaluation forwards, 3 "
                "training passes)", 6 * n_layers, 0)
+    # the packed backward stays on the mma.sync pair
+    check_bwd_impl("BAGEL packed training path", 0, 3 * n_layers)
     peak = torch.cuda.max_memory_allocated() / 1e9
     mse_terms = float(out["mse"].sum())
     ce_terms = float((out["ce"] * out["ce_weights"]).sum())
@@ -2676,6 +2779,10 @@ def bagel_train_main_path():
 
 FP32_TRAIN_FRAMES = 81   # 832x480x81: 32,760 tokens padded to 32,768
 FP32_TRAIN_STEPS = 2
+# depth cut for chip_smoke.py's time limit: 10 of t2v-1.3B's 30 blocks at
+# full width (~33 s a step at 30); the fp32 d=128 kernels keep their
+# full-width rows in check_f32_d128_kernels
+FP32_TRAIN_BLOCKS = 10
 
 
 def _bwd_check(name, got, ref):
@@ -3051,14 +3158,16 @@ def fp32_train_parity():
 
 def fp32_train_main_path(n_steps):
     """The full DiT fine-tune at its default policy: make_dit_train_step
-    (FP32_POLICY) on t2v-1.3B at full width and depth (dim 1536, 30 layers,
-    12 heads of d=128; fp32 weights drawn on the card from seeds, the zero
-    head redrawn so that gradients reach every block), latents [1, 21, 60,
+    (FP32_POLICY) on t2v-1.3B at full width (dim 1536, 12 heads of d=128),
+    depth cut to FP32_TRAIN_BLOCKS of its 30 layers (fp32 weights drawn on
+    the card from seeds, the zero head redrawn so that gradients reach
+    every block), latents [1, 21, 60,
     104, 16] (832x480x81: 32,760 tokens padded to 32,768), a [1, 512,
     4096] context, t = 500, remat 'attn', AdamW from make_optimizer(1e-4);
     `n_steps` steps with their launches asserted, seconds, peak memory,
     finite losses, every block's weights moved; one more step profiled.
     Returns the launch counts of the timed steps."""
+    import dataclasses
     import gc
 
     import torch
@@ -3072,7 +3181,7 @@ def fp32_train_main_path(n_steps):
     gc.collect()
     torch.cuda.empty_cache()
     spec = WAN_CONFIGS["t2v-1.3B"]
-    cfg = spec.dit
+    cfg = dataclasses.replace(spec.dit, num_layers=FP32_TRAIN_BLOCKS)
     _, f, lh, lw = latent_shape(spec, 832, 480, FP32_TRAIN_FRAMES)
     grid = (f, lh // 2, lw // 2)
     tokens = grid[0] * grid[1] * grid[2]
@@ -3129,6 +3238,7 @@ def fp32_train_main_path(n_steps):
     del blocks
     state, profiled = profile_step(step, state, batch)
     out = {"phase": "fp32_train_main_path", "model": "t2v-1.3B",
+           "blocks": f"{cfg.num_layers} of {spec.dit.num_layers}",
            "policy": "FP32_POLICY", "resolution": f"832x480x{FP32_TRAIN_FRAMES}",
            "tokens": tokens, "padded_to": pad_to, "remat_blocks": "attn",
            "params": sum(p.numel() for p in dit.parameters()),
@@ -3715,8 +3825,11 @@ def kernels_line(records, by_path, mask_records):
     own = {"flash_attention_f32": "ti2v-5B",
            "flash_attention_bf16_causal": "bagel",
            "flash_attention_bf16_lse": "train",
-           "flash_attention_bwd_dq_bf16": "train",
-           "flash_attention_bwd_dkv_bf16": "train",
+           "flash_attention_bwd_bf16_sm90": "train",
+           # the pair's unmasked modes left the train path for the sm90
+           # backward; its counters count BAGEL packed training's backward
+           "flash_attention_bwd_dq_bf16": "bagel_train",
+           "flash_attention_bwd_dkv_bf16": "bagel_train",
            # fp32 serving: the fp32 t2v pipeline run of fp32_train_parity
            "flash_attention_f32_d128": "fp32_serve",
            "rope_rotate_f32": "fp32_serve",
@@ -3784,13 +3897,15 @@ def main():
             if "registers" in line or "spill" in line \
                     or "Performance Loss" in line:
                 log(f"ptxas {name}: {line.strip()}")
-    # the Hopper forward: no spills, no serialised wgmma, in any
-    # instantiation
-    sm90_log = build.BUILD_LOG.get("flash_attention_sm90", "")
-    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                        sm90_log)
-    if any(a != "0" or b != "0" for a, b in spills) or "C7514" in sm90_log:
-        fail("flash_attention_sm90.cu spills or serialises its wgmma")
+    # the Hopper forward and backward: no spills, no serialised wgmma, in
+    # any instantiation
+    for name in ("flash_attention_sm90", "flash_attention_bwd_sm90"):
+        sm90_log = build.BUILD_LOG.get(name, "")
+        spills = re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", sm90_log)
+        if (any(a != "0" or b != "0" for a, b in spills)
+                or "C7514" in sm90_log):
+            fail(f"{name}.cu spills or serialises its wgmma")
 
     t0 = time.perf_counter()
     records = check_kernels()

@@ -141,8 +141,9 @@ def _rel(a, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["bounded_kvlen", "running", "cross512"])
 def test_cuda_training_kernels_match_plain(cuda_device, mode):
-    """The forward with lse and the dq / dk-dv backward kernels against
-    their plain versions on the card (bf16; lse to 1e-3 absolute, the
+    """The forward with lse and the backward (the one-pass sm90 kernel in
+    these unmasked modes) against their plain versions on the card (bf16;
+    lse to 1e-3 absolute, the
     approximate exp2 and the summation order; gradients to 2e-2 relative
     L2 and elementwise, one bf16 rounding of p, dS and the output)."""
     b, lq, n, d = 2, 512, 2, 128
@@ -190,8 +191,9 @@ def test_cuda_training_kernels_match_plain(cuda_device, mode):
 @pytest.mark.cuda
 def test_cuda_attention_function_grads(cuda_device):
     """attention() under grad on the card (the autograd Function over the
-    kernels) against autograd through the fp32 mha_reference, relative L2
-    (bf16 inputs and roundings: 2e-2)."""
+    kernels: the forward with lse, the one-pass sm90 backward) against
+    autograd through the fp32 mha_reference, relative L2 (bf16 inputs and
+    roundings: 2e-2)."""
     b, l, n, d = 1, 300, 2, 128
     q, k, v, g = (torch.as_tensor(_rand((b, l, n, d), s, s < 5)).to(
         cuda_device, torch.bfloat16) for s in (3, 4, 5, 6))
@@ -201,8 +203,10 @@ def test_cuda_attention_function_grads(cuda_device):
     got = torch.autograd.grad((out.float() * g.float()).sum(),
                               (qt, kt, vt))
     assert tfa.LAUNCHES["flash_attention_bf16_lse"] == 1
-    assert tfa.LAUNCHES["flash_attention_bwd_dq_bf16"] == 1
-    assert tfa.LAUNCHES["flash_attention_bwd_dkv_bf16"] == 1
+    assert tfa.LAUNCHES["flash_attention_bwd_bf16_sm90"] == 1
+    assert tfa.LAUNCHES["flash_attention_bwd_dq_bf16"] == 0
+    assert tfa.LAUNCHES["flash_attention_bwd_dkv_bf16"] == 0
+    assert tfa.BWD_LAUNCHES_BY_IMPL == {"sm90": 1, "mma_sync": 0}
     qr, kr, vr = (x.float().requires_grad_(True) for x in (q, k, v))
     ref = tatt.mha_reference(qr, kr, vr)
     want = torch.autograd.grad((ref * g.float()).sum(), (qr, kr, vr))
@@ -1006,3 +1010,129 @@ def test_cuda_f32_tc_matches_simt_kernel(cuda_device, d):
     for got in (new, old):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=1e-4, atol=1e-5)
+
+
+# --- the one-pass Hopper bf16 backward (flash_attention_bwd_sm90.cu) -------
+
+
+def _check_bwd(got, ref, name):
+    """PERF.md s2's backward bound: 2^-8 max|ref| + 2^-7 |ref| elementwise
+    and relative L2 < 1e-2 (p and dS round to bf16 at the same points on
+    both sides; an fp32 difference of ~1e-6 flips some roundings by one
+    bf16 step)."""
+    g, w = got.float().cpu(), ref.float().cpu()
+    assert bool(torch.isfinite(g).all()), name
+    lim = 2.0 ** -8 * float(w.abs().max()) + 2.0 ** -7 * w.abs()
+    assert bool(((g - w).abs() <= lim).all()), (name, float((g - w).abs()
+                                                              .max()))
+    assert _rel(g, w) < 1e-2, name
+
+
+# cases: (lq, lk, kv_len or None, bounded, q_splits or None for the
+# wrapper's choice, 8 at these shapes): the split path (dk, dv through the
+# fp32 accumulators) and the direct one (q_splits 1); lq 448 ends in half a
+# 128-row pair of q tiles, lk 320 in a 64-row kv tile
+BWD_SM90 = {
+    "bounded_kvlen": (512, 512, (435, 0), True, None),
+    "bounded_kvlen_direct": (512, 512, (435, 0), True, 1),
+    "running": (512, 512, None, False, None),
+    "cross512": (512, 512, None, True, None),
+    "ragged_lk320": (448, 320, (320, 190), True, 1),
+    "ragged_lk320_split3": (448, 320, (320, 190), False, 3),
+}
+
+
+def _bwd_sm90_inputs(cuda_device, case):
+    lq, lk, kvl, bounded, splits = BWD_SM90[case]
+    b, n, d = 2, 2, 128
+    q = _bf16((b, lq, n, d), 80, cuda_device)
+    k, v = (_bf16((b, lk, n, d), s, cuda_device) for s in (81, 82))
+    do = _bf16((b, lq, n, d), 83, cuda_device, normed=False)
+    kv = None
+    if kvl is not None:   # keys past kv_len hold large values
+        kv = torch.tensor(kvl, dtype=torch.int32, device=cuda_device)
+        for r, x in enumerate(kvl):
+            k[r, x:] = 50.0
+            v[r, x:] = 50.0
+    qs = tfa._fold(q, d ** -0.5)
+    bound = _bound(d, cuda_device) if bounded else None
+    with torch.no_grad():
+        o, lse = tfa.attention_plain(qs, k, v, kv_len=kv, bound=bound,
+                                     save_residuals=True)
+    return qs, k, v, o, lse, do, kv, splits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BWD_SM90))
+def test_cuda_bwd_sm90_matches_plain_and_pair(cuda_device, case):
+    """The one-pass sm90 backward against its plain version and against
+    the mma.sync pair it replaces in these modes (still compiled, same
+    inputs, one process), from the plain residuals: PERF.md s2's backward
+    bound for both; keys past kv_len get exactly zero dk and dv, and a
+    kv_len = 0 row exactly zero dq, dk and dv."""
+    qs, k, v, o, lse, do, kv, splits = _bwd_sm90_inputs(cuda_device, case)
+    sc = 128 ** -0.5
+    tfa.reset_launches()
+    with torch.no_grad():
+        got = tfa._launch_bwd_sm90(qs, k, v, o, lse, do, kv, sc,
+                                   q_splits=splits)
+        want = tfa._bwd_plain_folded(qs, k, v, o, lse, do, kv, sc)
+        dq, delta = tfa._bwd_dq_cuda(qs, k, v, o, lse, do, kv, sc)
+        pair = (dq,) + tfa._bwd_dkv_cuda(qs, k, v, do, lse, delta, kv)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention_bwd_bf16_sm90"] == 1
+    for g, w, p, name in zip(got, want, pair, ("dq", "dk", "dv")):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        _check_bwd(g, w, name)
+        _check_bwd(g, p, f"{name} vs the mma.sync pair")
+    if kv is not None:
+        for r, x in enumerate(kv.tolist()):
+            assert not bool(got[1][r, x:].any()) and not bool(
+                got[2][r, x:].any())
+            if x == 0:
+                assert not bool(got[0][r].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 1])
+def test_cuda_bwd_sm90_repeat_within_tolerance(cuda_device, splits):
+    """The kernel sums dq (and, split, dk and dv) by atomic reductions in
+    an order that changes from run to run: two calls on the same inputs
+    agree within the backward bound, not bitwise."""
+    qs, k, v, o, lse, do, kv, _ = _bwd_sm90_inputs(cuda_device,
+                                                   "bounded_kvlen")
+    with torch.no_grad():
+        a = tfa._launch_bwd_sm90(qs, k, v, o, lse, do, kv, 128 ** -0.5,
+                                 q_splits=splits)
+        b = tfa._launch_bwd_sm90(qs, k, v, o, lse, do, kv, 128 ** -0.5,
+                                 q_splits=splits)
+    torch.cuda.synchronize()
+    for x, y, name in zip(a, b, ("dq", "dk", "dv")):
+        _check_bwd(x, y, name)
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_route_counts(cuda_device):
+    """flash_attention_bwd_folded follows bf16_backward_route: the
+    unmasked call on the sm90 kernel, the segment call on the mma.sync
+    pair (BWD_LAUNCHES_BY_IMPL); a strided do that TMA cannot read raises
+    in the sm90 wrapper (the autograd Function copies such a do)."""
+    qs, k, v, o, lse, do, kv, _ = _bwd_sm90_inputs(cuda_device, "running")
+    seg = torch.zeros((2, 512), dtype=torch.int32, device=cuda_device)
+    tfa.reset_launches()
+    with torch.no_grad():
+        tfa.flash_attention_bwd_folded(qs, k, v, o, lse, do, kv_len=kv,
+                                       softmax_scale=128 ** -0.5)
+        tfa.flash_attention_bwd_folded(qs, k, v, o, lse, do, kv_len=kv,
+                                       softmax_scale=128 ** -0.5,
+                                       q_segments=seg, kv_segments=seg)
+        wide = torch.zeros((2, 512, 2, 132), dtype=torch.bfloat16,
+                           device=cuda_device)
+        wide[..., :128] = do
+        with pytest.raises(ValueError, match="16 bytes"):
+            tfa._launch_bwd_sm90(qs, k, v, o, lse, wide[..., :128], kv,
+                                 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert tfa.BWD_LAUNCHES_BY_IMPL == {"sm90": 1, "mma_sync": 1}
+    assert tfa.LAUNCHES["flash_attention_bwd_bf16_sm90"] == 1
+    assert tfa.LAUNCHES_BY_MODE["flash_attention_bwd_dq_bf16_segments"] == 1

@@ -16,7 +16,8 @@ for its group of query heads, the reference route repeats them. Routes:
                or v requiring it) goes through `FlashAttention`, the
                counterpart of the JAX package's `_flash` custom VJP: the
                forward that saves the lse, then the backward kernels, with
-               every mask (kv_len, causal, segments, packed codes) in bf16,
+               every mask (kv_len, causal, segments, packed codes) in bf16
+               (the unmasked modes on the one-pass sm90 backward),
                and with kv_len in fp32 (the DiT at its default fp32
                policy; fp32 masked modes raise on the card).
   reference  — `mha_reference`, a masked softmax attention, for other head
@@ -44,7 +45,7 @@ from .flash_attention import (LOG2E, NEG_INF, TILE, _fold, causal_rows,
                               flash_attention_bwd_folded,
                               flash_attention_fwd_folded,
                               flash_attention_padded, packed_mask_allowed,
-                              repeat_kv, rotate)
+                              repeat_kv, rotate, tma_readable)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -161,6 +162,9 @@ class FlashAttention(torch.autograd.Function):
         if do.stride(-1) != 1 or (do.dtype == torch.float32 and (
                 do.data_ptr() % 16 or any(s % 4 for s in do.stride()[:-1]))):
             do = do.contiguous()   # the fp32 kernels read aligned rows
+        elif do.is_cuda and do.dtype == torch.bfloat16 and not tma_readable(
+                do):
+            do = do.contiguous()   # the sm90 backward reads it through TMA
         dq, dk, dv = flash_attention_bwd_folded(
             qs, k, v, o, lse, do, kv_len=kv_len,
             softmax_scale=ctx.softmax_scale, causal=causal,

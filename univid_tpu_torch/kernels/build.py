@@ -32,6 +32,7 @@ SOURCES = {
     "flash_attention_int8": "flash_attention_int8.cu",
     "flash_attention_sm90": "flash_attention_sm90.cu",
     "flash_attention_f32_tc": "flash_attention_f32_tc.cu",
+    "flash_attention_bwd_sm90": "flash_attention_bwd_sm90.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -42,12 +42,17 @@ and training paths reach:
     csrc/flash_attention_int8.cu.
   * `flash_attention_bwd_padded` — `_flash_bwd_fused_kernel` and the
     two-pass `_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel`: dq, dk, dv
-    rebuilt from the lse, bf16 d=128 on csrc/flash_attention_bwd.cu (a dq
-    kernel and a dk/dv kernel), with kv_len, causal (static and device
-    offsets), segment and packed masks; fp32 d=128 with kv_len on
-    csrc/flash_attention_bwd_f32.cu (the same pair in fp32). The masked
-    modes at fp32 (causal, segments, packed, grouped kv heads) have no fp32
-    caller and raise on the card (`F32_MASKS_LATER`).
+    rebuilt from the lse. bf16 d=128 (`bf16_backward_route`): the unmasked
+    modes (with or without kv_len, any Lk) on
+    csrc/flash_attention_bwd_sm90.cu, the one-pass form on wgmma / TMA
+    (three launches: delta and the zeroed fp32 accumulators, the main
+    kernel, the accumulators to bf16; not deterministic: dq sums by atomic
+    reductions); causal (static and device offsets), segment and packed
+    masks on csrc/flash_attention_bwd.cu (a dq kernel and a dk/dv kernel,
+    mma.sync). fp32 d=128 with kv_len on csrc/flash_attention_bwd_f32.cu
+    (the same pair in fp32). The masked modes at fp32 (causal, segments,
+    packed, grouped kv heads) have no fp32 caller and raise on the card
+    (`F32_MASKS_LATER`).
 
 Every mask goes through `_dead`, the counterpart of the JAX package's
 `_mask_scores`, which the plain forward and backward share.
@@ -62,10 +67,12 @@ the CPU; on CUDA tensors it launches its kernel or raises. `LAUNCHES`
 counts kernel launches per wrapper; `LAUNCHES_BY_MODE` splits those of the
 forward, the forward with lse and the two backward kernels by mask mode;
 `LAUNCHES_BY_IMPL` splits every bf16 forward launch (self, cross, lse,
-knob and masked modes) by the kernel that ran it. The kernels each new one
-replaced stay compiled and reachable (`_launch_bf16` for the segment and
-packed modes, `_launch_f32_simt` for the fp32 VAE mode) as the same-call
-baselines of chip_smoke.py and the card tests.
+knob and masked modes) by the kernel that ran it, `BWD_LAUNCHES_BY_IMPL`
+every bf16 backward call. The kernels each new one replaced stay compiled
+and reachable (`_launch_bf16` for the segment and packed modes,
+`_launch_f32_simt` for the fp32 VAE mode, `_bwd_dq_cuda` /
+`_bwd_dkv_cuda` for the unmasked backward) as the same-call baselines of
+chip_smoke.py and the card tests.
 """
 
 from __future__ import annotations
@@ -87,6 +94,9 @@ F32_DIMS = (384, 640, 1024)  # fp32 head dims of the VAE kernels
 D128 = 128          # head dim of the DiT kernels (bf16, and fp32 d=128)
 SM90_BLOCK_Q = 128  # q rows per block of flash_attention_sm90.cu
 SM90_BLOCK_K = 128  # kv rows per tile of flash_attention_sm90.cu
+BWD_BLOCK_Q = 64    # q rows per tile of flash_attention_bwd_sm90.cu
+BWD_BLOCK_K = 128   # kv rows per block of flash_attention_bwd_sm90.cu
+H100_SMS = 132      # the card's SMs: q splits fill them at small grids
 F32_MASKS_LATER = (
     "fp32 attention at d=128 has no causal, segment, packed or grouped-kv "
     "kernel mode: no fp32 caller reaches them yet (ROADMAP.md queue 2, item "
@@ -109,7 +119,8 @@ LAUNCHES = {"flash_attention_bf16": 0, "flash_attention_bf16_causal": 0,
             "flash_attention_bwd_dkv_f32": 0,
             "flash_attention_bf16_sbf16": 0, "cross_attention_bf16_sbf16": 0,
             "quantize_qk_int8": 0, "flash_attention_int8": 0,
-            "flash_attention_int8_sbf16": 0, "mask_tile_list": 0}
+            "flash_attention_int8_sbf16": 0, "mask_tile_list": 0,
+            "flash_attention_bwd_bf16_sm90": 0}
 # the flash_attention_f32 launches split by head dim
 F32_LAUNCHES_BY_D = {d: 0 for d in F32_DIMS}
 # launches of the masked modes: each is also counted under its kernel's name
@@ -126,6 +137,10 @@ LAUNCHES_BY_MODE = {
 # (the unmasked, segment and packed modes), "mma_sync" flash_attention.cu
 # (causal)
 LAUNCHES_BY_IMPL = {"sm90": 0, "mma_sync": 0}
+# every bf16 backward call by its kernel: "sm90" flash_attention_bwd_sm90.cu
+# (the unmasked modes), "mma_sync" the dq and dk/dv pair of
+# flash_attention_bwd.cu (causal, segments, packed)
+BWD_LAUNCHES_BY_IMPL = {"sm90": 0, "mma_sync": 0}
 _SEG_MODE = {None: 0, "segments": 1, "packed": 2}
 
 _MODE_BOUNDED, _MODE_RUNNING, _MODE_ONESHOT = 0, 1, 2
@@ -142,6 +157,8 @@ def reset_launches() -> None:
         LAUNCHES_BY_MODE[name] = 0
     for name in LAUNCHES_BY_IMPL:
         LAUNCHES_BY_IMPL[name] = 0
+    for name in BWD_LAUNCHES_BY_IMPL:
+        BWD_LAUNCHES_BY_IMPL[name] = 0
 
 
 def _count(name, mode=None, impl=None):
@@ -756,6 +773,16 @@ def tma_strides(t):
     return st
 
 
+def tma_readable(t):
+    """Whether the sm90 kernels' tensor maps read `t` in place
+    (`tma_strides` does not raise)."""
+    try:
+        tma_strides(t)
+    except ValueError:
+        return False
+    return True
+
+
 def mask_tile_list(q_segments, kv_segments, kv_len=None, packed_mode=False):
     """The masked modes' pre-pass: (list, count) of `mask_tile_list_plain`
     at the sm90 kernel's 128 x 128 tiles. One launch on the card
@@ -1171,9 +1198,10 @@ def flash_attention_bwd_padded(q, k, v, o, lse, do, *, kv_len=None,
 def flash_attention_bwd_folded(qs, k, v, o, lse, do, *, kv_len=None,
                                softmax_scale, **masks):
     """The backward on the folded qs of the forward: the plain version on
-    the CPU; on the card the dq kernel (which also writes delta) and then
-    the dk/dv kernel, bf16 or fp32. masks: causal, q_offset, q_offsets,
-    q_segments, kv_segments, packed_mode (bf16 only)."""
+    the CPU; on the card, bf16: the kernel `bf16_backward_route` names (the
+    one-pass sm90 kernel, or the dq kernel, which also writes delta, and
+    then the dk/dv kernel); fp32: the fp32 pair. masks: causal, q_offset,
+    q_offsets, q_segments, kv_segments, packed_mode (bf16 only)."""
     if not qs.is_cuda:
         return _bwd_plain_folded(qs, k, v, o, lse, do, kv_len, softmax_scale,
                                  **masks)
@@ -1182,9 +1210,102 @@ def flash_attention_bwd_folded(qs, k, v, o, lse, do, *, kv_len=None,
         dq, delta = _bwd_dq_f32(qs, k, v, o, lse, do, kv_len, softmax_scale)
         dk, dv = _bwd_dkv_f32(qs, k, v, do, lse, delta, kv_len)
         return dq, dk, dv
-    dq, delta = _bwd_dq_cuda(qs, k, v, o, lse, do, kv_len, softmax_scale,
-                             **masks)
-    dk, dv = _bwd_dkv_cuda(qs, k, v, do, lse, delta, kv_len, **masks)
+    seg = _check_masks(qs, k.shape[1], masks.get("q_offsets"),
+                       masks.get("q_segments"), masks.get("kv_segments"),
+                       masks.get("packed_mode", False),
+                       masks.get("causal", False))
+    impl = bf16_backward_route(qs, k, v, causal=masks.get("causal", False),
+                               seg=seg)
+    if impl == "sm90":
+        out = _launch_bwd_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale)
+    else:
+        dq, delta = _bwd_dq_cuda(qs, k, v, o, lse, do, kv_len, softmax_scale,
+                                 **masks)
+        dk, dv = _bwd_dkv_cuda(qs, k, v, do, lse, delta, kv_len, **masks)
+        out = dq, dk, dv
+    BWD_LAUNCHES_BY_IMPL[impl] += 1
+    return out
+
+
+def bf16_backward_route(q, k, v, *, causal=False, seg=None):
+    """The kernel that takes a bf16 attention backward on the card: "sm90"
+    (csrc/flash_attention_bwd_sm90.cu, the one-pass form) for every
+    unmasked call, whatever the forward's softmax (the backward reads only
+    its lse), with or without kv_len, at any Lk (the cross shape too);
+    "mma_sync" (the dq and dk/dv pair of csrc/flash_attention_bwd.cu) for
+    the causal, segment and packed ones. seg: None, "segments" or
+    "packed". Raises for a call no kernel takes (not bf16, head dim other
+    than 128, grouped kv heads, causal with segments); never falls back."""
+    for t in (q, k, v):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the bf16 backward takes bf16 tensors, got "
+                            f"{t.dtype}")
+        if t.dim() != 4 or t.shape[-1] != D128:
+            raise ValueError(f"no bf16 backward kernel for shape "
+                             f"{tuple(t.shape)} (head dim {D128})")
+    if k.shape[2] != q.shape[2] or v.shape[2] != q.shape[2]:
+        raise ValueError(f"{q.shape[2]} query heads over {k.shape[2]} kv "
+                         "heads: the backward kernels take as many kv heads "
+                         "as query heads (repeat them first)")
+    if causal and seg is not None:
+        raise NotImplementedError(
+            "causal attention with segment ids has no caller and no kernel "
+            "mode (packed_mode carries its own causal term)")
+    if seg not in (None, "segments", "packed"):
+        raise ValueError(f"unknown segment mode {seg!r}")
+    return "mma_sync" if causal or seg is not None else "sm90"
+
+
+def bwd_sm90_q_splits(bn, lq, lk, sms=H100_SMS):
+    """Blocks a kv tile along q of flash_attention_bwd_sm90.cu: 1 when the
+    B * N * ceil(Lk / 128) kv-tile blocks fill the card's `sms` SMs (the
+    self shape); else enough splits for about four blocks an SM (the cross
+    shape, 512 keys: 48 blocks -> 11 splits), at most Lq / 64."""
+    base = bn * -(-lk // BWD_BLOCK_K)
+    if base >= sms:
+        return 1
+    return max(1, min(lq // BWD_BLOCK_Q, 4 * sms // base))
+
+
+def _launch_bwd_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale,
+                     q_splits=None):
+    """csrc/flash_attention_bwd_sm90.cu on padded bf16 [B, L, N, 128]:
+    (dq, dk, dv) from qs (folded), k, v, o, lse and do, kv_len or None.
+    q_splits: blocks a kv tile along q (`bwd_sm90_q_splits` of the card's
+    SMs by default; > 1 sums dk and dv through fp32 accumulators)."""
+    _check_bwd_inputs(qs, k, v, do, lse, kv_len, o)
+    b, lq, n, d = qs.shape
+    lk = k.shape[1]
+    if lse.data_ptr() % 16:
+        raise ValueError("the sm90 backward copies lse rows in bulk: a "
+                         "16-byte aligned lse")
+    if q_splits is None:
+        q_splits = bwd_sm90_q_splits(
+            b * n, lq, lk,
+            torch.cuda.get_device_properties(qs.device).multi_processor_count)
+    if not 1 <= q_splits <= lq // BWD_BLOCK_Q:
+        raise ValueError(f"q_splits {q_splits} outside "
+                         f"[1, {lq // BWD_BLOCK_Q}]")
+    dq = torch.empty(qs.shape, dtype=qs.dtype, device=qs.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    delta = torch.empty((b, n, lq), dtype=torch.float32, device=qs.device)
+    kv_floats = b * n * -(-lk // BWD_BLOCK_K) * BWD_BLOCK_K * d
+    acc = torch.empty(b * n * lq * d + (2 * kv_floats if q_splits > 1 else 0),
+                      dtype=torch.float32, device=qs.device)
+    st = (tma_strides(qs) + tma_strides(k) + tma_strides(v) + tma_strides(o)
+          + tma_strides(do) + list(dq.stride()[:3]) + list(dk.stride()[:3])
+          + list(dv.stride()[:3]))
+    strides = (ctypes.c_longlong * 24)(*st)  # host array, read at launch
+    fn = _fn("flash_attention_bwd_sm90", "univid_flash_bwd_sm90",
+             [_P] * 12 + [_I] * 5 + [ctypes.c_float, _P, _P])
+    err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), _ptr(kv_len), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), acc.data_ptr(),
+             b, n, lq, lk, q_splits, softmax_scale, ctypes.addressof(strides),
+             _stream(qs))
+    build.check(err, "univid_flash_bwd_sm90")
+    _count("flash_attention_bwd_bf16_sm90")
     return dq, dk, dv
 
 
