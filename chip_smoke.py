@@ -27,13 +27,20 @@ Phases:
      the causal mode at the BAGEL QA shapes (question prefill over the
      20,480-row cache, a 16-row batch, a square 2,048 prefill) and the
      grouped ViT append; the packed mode (forward with and without lse,
-     dq, dk/dv) on the BAGEL training pack's own codes, [1, 4096, 28, 128],
+     backward) on the BAGEL training pack's own codes, [1, 4096, 28, 128],
      and padded 4,000 -> 4,032 (pad rows exactly 0, lse +1e30); the
      segment mode at [2, 2048, 12, 128]; their forwards run on the sm90
      kernel after the tile-list pre-pass (its list equal to the plain
      list, the live-tile share logged) and are timed in turns with the
      mma.sync kernel they replaced; the causal backward at the
-     square prefill's shape, offset 0 and q_offsets [0, 37]; the fp32 d=128
+     square prefill's shape, offset 0 and q_offsets [0, 37]; every masked
+     backward on the one-pass sm90 kernel after its kv-major tile-list
+     pre-pass (the list equal to the plain list, its live share at 64 x
+     128 logged; pad rows and keys no row sees exactly 0), timed in turns
+     with the mma.sync dq and dk/dv pair it replaced
+     (`bwd_sm90_vs_mma_sync` lines, with the kv tiles in descending and
+     in ascending order of list length), each launch's device time logged
+     (`bwd_sm90_kernels` lines); the fp32 d=128
      kernels (the forward running, bounded and with the lse, the rope
      pre-pass, dq and dk/dv) at the fp32 fine-tune's self [1, 32768, 12,
      128] and cross (512 keys) shapes, SDPA on fp32 inputs as yardstick.
@@ -77,7 +84,9 @@ Phases:
      untimed training pass to warm up (its seconds and allocator growth
      logged), then 3 evaluation forwards (28 packed forwards and 28
      pre-passes each) and 3 training passes (28 packed forwards with lse,
-     28 pre-passes, 28 dq, 28 dk/dv), medians and spreads; finite loss,
+     28 pre-passes, 28 one-pass sm90 backward calls with their 28
+     backward pre-passes, none on the mma.sync pair), medians and
+     spreads; finite loss,
      gradients in every trainable leaf, peak memory; profile one more
      pass;
  10. drive the full DiT fine-tune at its default fp32 policy:
@@ -105,9 +114,9 @@ and 12 also check their bf16 forward launches by kernel (every unmasked,
 segment and packed forward on the sm90 kernel, only causal calls on the
 mma.sync kernel; `check_impl`). The `kernels` line gives
 each kernel the launches of its own path (the packed modes and the
-tile-list pre-pass: the six timed BAGEL packed-training passes; the
+tile-list pre-passes: the six timed BAGEL packed-training passes; the
 segment modes and the causal backward serve no path of the JAX package at
-d=128: 0; the fp32 d=128
+d=128, and the mma.sync backward pair is a baseline only: 0; the fp32 d=128
 serving forward and rope pre-pass count the fp32 t2v pipeline run of
 phase 4; the knob kernels count the knob path, the bf16-softmax self-
 attention and the fp32-chain int8 kernel the ti2v-5B DiT forward with
@@ -189,8 +198,8 @@ def log_ab(call, new_ms, old_ms):
 
 def check_bwd_impl(tag, sm90, mma_sync=0):
     """A path's bf16 backward calls by kernel (BWD_LAUNCHES_BY_IMPL since
-    the path's counts were reset): the unmasked modes on the one-pass sm90
-    kernel, the causal, segment and packed ones on the mma.sync pair."""
+    the path's counts were reset): every mode on the one-pass sm90 kernel,
+    none on the mma.sync pair."""
     from univid_tpu_torch.kernels import flash_attention as fa
     want = {"sm90": sm90, "mma_sync": mma_sync}
     got = dict(fa.BWD_LAUNCHES_BY_IMPL)
@@ -1324,7 +1333,8 @@ def profile_call(fn):
         top.append({"kernel": e.key[:90], "ms": ms, "count": e.count})
         name = e.key.lower()
         if ("flash_" in name or "rope_rotate" in name or "mask_tiles" in name
-                or "bwd_pre" in name or "bwd_post" in name):
+                or "bwd_pre" in name or "bwd_post" in name
+                or "bwd_tiles" in name):
             fam["attention_kernels_ms"] += ms
         elif "gemm" in name or "nvjet" in name or "xmma" in name:
             fam["gemm_ms"] += ms
@@ -2242,6 +2252,11 @@ def _mask_case(tag, q, k, v, do, kv_len, masks, live_pairs, allowed,
             library_ms=_sdpa_masked_ms(qs, k, v, allowed),
             bound=bound_ms(2 * flops, 2 * n_rows + kvb + nbytes(lse)
                            + codes_b, H100_BF16_FLOPS))
+        # the backward from the plain residuals: the one-pass sm90 kernel
+        # (the path's: the tile-list pre-pass, then its walk) and the
+        # mma.sync pair it replaced, against the plain version
+        got = fa._launch_bwd_sm90(qs, k, v, o_p, lse_p, do, kv_len, sc,
+                                  **masks)
         dq, delta = fa._bwd_dq_cuda(qs, k, v, o_p, lse_p, do, kv_len, sc,
                                     **masks)
         dk, dv = fa._bwd_dkv_cuda(qs, k, v, do, lse_p, delta, kv_len,
@@ -2249,36 +2264,100 @@ def _mask_case(tag, q, k, v, do, kv_len, masks, live_pairs, allowed,
         want = fa._bwd_plain_folded(qs, k, v, o_p, lse_p, do, kv_len, sc,
                                     **masks)
         errs = {}
-        for nm, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
-            e = compare(f"{tag} backward {nm}", got, ref,
-                        atol=2.0 ** -8 * float(ref.float().abs().max()),
-                        rtol=2.0 ** -7, why=bwd_why)
-            check_grad(f"{tag} backward {nm} rel_l2", got, ref, 1e-2,
-                       bwd_why)
-            key = "bwd_dq" if nm == "dq" else "bwd_dkv"
-            errs[key] = max(errs.get(key, 0.0), e)
-        del want
+        for nm, g_new, g_pair, ref in zip(("dq", "dk", "dv"), got,
+                                          (dq, dk, dv), want):
+            for key, kind, g in (("bwd_sm90", "sm90", g_new),
+                                 ("bwd_dq" if nm == "dq" else "bwd_dkv",
+                                  "mma.sync pair", g_pair)):
+                e = compare(f"{tag} backward {kind} {nm}", g, ref,
+                            atol=2.0 ** -8 * float(ref.float().abs().max()),
+                            rtol=2.0 ** -7, why=bwd_why)
+                check_grad(f"{tag} backward {kind} {nm} rel_l2", g, ref,
+                           1e-2, bwd_why)
+                errs[key] = max(errs.get(key, 0.0), e)
+        # rows that see no key: dq exactly 0; keys no row sees: dk, dv 0
+        no_row = ~allowed.any(dim=2)[:, 0]          # [B, Lk]
+        zeros = {"dead_keys": int(no_row.sum()),
+                 "dk_dv_exact_zero": not any(bool(g[no_row].any())
+                                             for g in got[1:])}
+        if pad_rows is not None:
+            zeros["pad_rows"] = int(pad_rows.sum())
+            zeros["dq_exact_zero"] = not bool(got[0][pad_rows].any())
+        log(json.dumps({"check": f"{tag} backward sm90: exact zeros",
+                        **zeros, "ok": all(v_ for k_, v_ in zeros.items()
+                                           if k_.endswith("zero"))}))
+        if not all(v_ for k_, v_ in zeros.items() if k_.endswith("zero")):
+            fail(f"{tag}: the sm90 backward's pad rows or dead keys are "
+                 "not exactly 0")
+        del want, got
+        tl_rec = _bwd_tile_list_check(tag, qs, k.shape[1], kv_len, masks)
+
+        def sm90():
+            return fa._launch_bwd_sm90(qs, k, v, o_p, lse_p, do, kv_len, sc,
+                                       **masks)
+
+        pair = (lambda: fa._bwd_dq_cuda(qs, k, v, o_p, lse_p, do, kv_len, sc,
+                                        **masks),
+                lambda: fa._bwd_dkv_cuda(qs, k, v, do, lse_p, delta, kv_len,
+                                         **masks))
+        # in turns with the pair it replaced (dq, then dk/dv on the plain
+        # residuals' delta), old, new, new, old: each kernel's own ms
+        old1 = [cuda_time(f, 10) for f in pair]
+        bwd_ms = (cuda_time(sm90, 10) + cuda_time(sm90, 10)) / 2
+        dq_ms, dkv_ms = [(t_ + cuda_time(f, 10)) / 2
+                         for t_, f in zip(old1, pair)]
+        pair_ms = dq_ms + dkv_ms
+        flops5 = 5 * flops   # 5 products over the live pairs
+        sm90_bound = bound_ms(flops5, 4 * n_rows + 2 * kvb + nbytes(lse_p)
+                              + codes_b, H100_BF16_FLOPS)
+        log(json.dumps({"bwd_sm90_vs_mma_sync": f"{tag} backward",
+                        "sm90_ms": bwd_ms, "mma_sync_pair_ms": pair_ms,
+                        "speedup": pair_ms / bwd_ms,
+                        "bound_ms": sm90_bound[0],
+                        "share_of_bound": sm90_bound[0] / bwd_ms}))
+        # two calls: each launch's device time (pre-pass, delta, main,
+        # post-pass), the mean of two
+        _, prof = profile_call(lambda: (sm90(), sm90()))
+        kern_ms = [(t_["kernel"], t_["ms"] / t_["count"], t_["count"])
+                   for t_ in prof["top_kernels"]]
+        log(json.dumps({f"bwd_sm90_kernels {tag}": kern_ms}))
+        tl_rec["device_ms"] = next((m for nm_, m, _ in kern_ms
+                                    if "bwd_tiles" in nm_), None)
         plain_bwd = cuda_time(lambda: fa._bwd_plain_folded(
             qs, k, v, o_p, lse_p, do, kv_len, sc, **masks), 1, warmup=0)
         lib_bwd = _sdpa_masked_ms(qs, k, v, allowed, do)
         lse_b = nbytes(lse_p)
+        out["bwd_sm90"] = dict(
+            max_abs_err=errs["bwd_sm90"], ms=bwd_ms, mma_sync_ms=pair_ms,
+            plain_ms=plain_bwd, library_ms=lib_bwd, bound=sm90_bound)
+        out["bwd_tile_list"] = tl_rec
         out["bwd_dq"] = dict(
-            max_abs_err=errs["bwd_dq"],
-            ms=cuda_time(lambda: fa._bwd_dq_cuda(
-                qs, k, v, o_p, lse_p, do, kv_len, sc, **masks), 10),
-            plain_ms=plain_bwd, library_ms=lib_bwd,
+            max_abs_err=errs["bwd_dq"], ms=dq_ms, plain_ms=plain_bwd,
+            library_ms=lib_bwd,
             bound=bound_ms(3 * flops, 4 * n_rows + kvb + 2 * lse_b + codes_b,
                            H100_BF16_FLOPS))
         out["bwd_dkv"] = dict(
-            max_abs_err=errs["bwd_dkv"],
-            ms=cuda_time(lambda: fa._bwd_dkv_cuda(
-                qs, k, v, do, lse_p, delta, kv_len, **masks), 10),
-            plain_ms=plain_bwd, library_ms=lib_bwd,
+            max_abs_err=errs["bwd_dkv"], ms=dkv_ms, plain_ms=plain_bwd,
+            library_ms=lib_bwd,
             bound=bound_ms(4 * flops, 2 * n_rows + 2 * kvb + 2 * lse_b
                            + codes_b, H100_BF16_FLOPS))
     del qs, o, lse, o_p, lse_p, dq, dk, dv, delta, lse_buf
     torch.cuda.empty_cache()
     return out
+
+
+def _bwd_tile_list_check(tag, qs, lk, kv_len, masks):
+    """The backward's pre-pass (`bwd_tile_list`, 64 x 128 tiles, for each
+    kv tile its q tiles)."""
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    b, lq = qs.shape[:2]
+    return _tile_list_check(
+        f"{tag} backward", lambda: fa.bwd_tile_list(qs, lk, kv_len, **masks),
+        lambda: fa.bwd_tile_list_plain(b, lq, lk, qs.device, kv_len=kv_len,
+                                       **masks),
+        [masks[nm] for nm in ("q_segments", "kv_segments", "q_offsets")
+         if masks.get(nm) is not None], "64 x 128")
 
 
 # the kernels line's records of the masked modes: (kind, mode) -> (name,
@@ -2297,14 +2376,20 @@ _MASK_RECORDS = {
     "bwd_dkv": ("flash_attention_bwd_dkv_bf16_{}", {
         m: "univid_tpu/kernels/flash_attention.py:940"
         for m in ("segments", "packed", "causal")}),
+    "bwd_sm90": ("flash_attention_bwd_bf16_sm90_{}", {
+        m: "univid_tpu/kernels/flash_attention.py:1057"
+        for m in ("segments", "packed", "causal")}),
 }
 
 
 def _records(mode, case):
     out = {}
     for kind, vals in case.items():
+        if kind == "bwd_tile_list":   # the pre-pass: the caller's record
+            continue
         name, reps = _MASK_RECORDS[kind]
         src = "univid_tpu_torch/kernels/csrc/" + (
+            "flash_attention_bwd_sm90.cu" if kind == "bwd_sm90" else
             "flash_attention_bwd.cu" if "bwd" in kind else
             "flash_attention.cu" if mode == "causal" else
             "flash_attention_sm90.cu")
@@ -2319,33 +2404,41 @@ def _records(mode, case):
     return out
 
 
-def _tile_list_check(tag, qc, kc, kv_len, packed):
-    """The pre-pass's list and count against `mask_tile_list_plain` on the
-    same card tensors, exactly; logs the live share of the 128 x 128 tiles
-    and of them the full ones. Returns the pre-pass's record fields."""
+def _tile_list_check(tag, run, plain, operands, tiles):
+    """A tile-list pre-pass (`run()` -> (list, count)) against its plain
+    version (`plain()`) on the same card tensors, exactly; logs the live
+    share of the `tiles` tiles and of them the full ones. Returns its
+    record fields (the bound: `operands` read once, the list and count
+    written once)."""
     import torch
 
-    from univid_tpu_torch.kernels import flash_attention as fa
-
-    lists, count = fa.mask_tile_list(qc, kc, kv_len, packed)
-    want, want_n = fa.mask_tile_list_plain(qc, kc, kv_len, packed)
+    lists, count = run()
+    want, want_n = plain()
     ok = torch.equal(lists, want) and torch.equal(count, want_n)
     n_tiles = lists.shape[0] * lists.shape[1] * lists.shape[2]
     live = int(count.sum())
     full = int(((lists >= 0) & (lists % 2 == 1)).sum())
     log(json.dumps({"check": f"{tag}: tile list equals the plain list",
-                    "q_tiles": lists.shape[1], "kv_tiles": lists.shape[2],
+                    "tiles": tiles, "list_shape": list(lists.shape),
                     "live_tiles": live, "full_tiles": full,
                     "live_tile_share": live / n_tiles, "ok": ok}))
     if not ok:
         fail(f"{tag}: the pre-pass's tile list differs from the plain list")
-    ms = cuda_time(lambda: fa.mask_tile_list(qc, kc, kv_len, packed), 20)
-    plain_ms = cuda_time(lambda: fa.mask_tile_list_plain(
-        qc, kc, kv_len, packed), 3)
-    # bytes: the codes read once, the list and count written once
-    bms, by = bound_ms(0, nbytes(qc, kc, lists, count), H100_BF16_FLOPS)
+    ms = cuda_time(run, 20)
+    plain_ms = cuda_time(plain, 3)
+    bms, by = bound_ms(0, nbytes(*operands, lists, count), H100_BF16_FLOPS)
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=None)
+
+
+def _fwd_tile_list_check(tag, qc, kc, kv_len, packed):
+    """The forward's pre-pass (`mask_tile_list`, 128 x 128 tiles)."""
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    return _tile_list_check(
+        tag, lambda: fa.mask_tile_list(qc, kc, kv_len, packed),
+        lambda: fa.mask_tile_list_plain(qc, kc, kv_len, packed),
+        (qc, kc), "128 x 128")
 
 
 def check_mask_kernels():
@@ -2401,7 +2494,8 @@ def check_mask_kernels():
     allowed = allowed_packed(codes, codes)
     live = int(allowed.sum())
     masks = dict(q_segments=codes, kv_segments=codes, packed_mode=True)
-    rec = _tile_list_check("packed [1, 4096]", codes, codes, None, True)
+    rec = _fwd_tile_list_check("packed [1, 4096]", codes, codes, None,
+                               True)
     with torch.no_grad():   # device time of the pre-pass and the forward
         _, prof = profile_call(lambda: fa._flash_cuda(
             fa._fold(q, d ** -0.5), k, v, None, None, None, **masks))
@@ -2416,6 +2510,14 @@ def check_mask_kernels():
     case = _mask_case("packed [1, 4096, 28, 128]", q, k, v, do, None, masks,
                       live, allowed, live_keys=real_keys)
     records.update(_records("packed", case))
+    records["bwd_tile_list"] = dict(
+        name="bwd_tile_list", route="cuda",
+        source="univid_tpu_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+        replaces="univid_tpu/kernels/flash_attention.py:1113",
+        **{k_: v_ for k_, v_ in case["bwd_tile_list"].items()
+           if k_ != "device_ms"})
+    log(json.dumps({"bwd_tile_list_device_ms_packed":
+                    case["bwd_tile_list"]["device_ms"]}))
     log(json.dumps({"check": "packed pack", "tokens": PACK_TOKENS,
                     "real_tokens": real, "live_pairs": live,
                     "live_share": live / PACK_TOKENS ** 2}))
@@ -2432,8 +2534,8 @@ def check_mask_kernels():
     allowed = allowed_packed(qc, kc)
     masks = dict(q_segments=qc.contiguous(), kv_segments=kc.contiguous(),
                  packed_mode=True)
-    _tile_list_check("packed padded 4000->4032", masks["q_segments"],
-                     masks["kv_segments"], None, True)
+    _fwd_tile_list_check("packed padded 4000->4032", masks["q_segments"],
+                         masks["kv_segments"], None, True)
     case = _mask_case("packed padded 4000->4032",
                       *(x[:, :lp].contiguous() for x in (q, k, v, do)), None,
                       masks, int(allowed.sum()), allowed, pad_rows=pad_rows,
@@ -2452,7 +2554,7 @@ def check_mask_kernels():
     q, k, v, do = inputs(b, l, ns)
     allowed = (segs[:, :, None] == segs[:, None, :])[:, None]
     masks = dict(q_segments=segs, kv_segments=segs)
-    _tile_list_check("segments [2, 2048]", segs, segs, None, False)
+    _fwd_tile_list_check("segments [2, 2048]", segs, segs, None, False)
     case = _mask_case("segments [2, 2048, 12, 128]", q, k, v, do, None,
                       masks, int(allowed.sum()), allowed)
     records.update(_records("segments", case))
@@ -2530,8 +2632,8 @@ def small_bagel_train_parity():
     with the pad ids) and the same noise; every parameter trainable, with
     freeze_und False and True. Loss rel. error < 2e-2, each gradient
     leaf's rel. L2 < 3e-2; on the card 2 packed forwards with lse (and
-    their 2 tile-list pre-passes), 2 dq and 2 dk/dv launches a pass and no
-    other kernel."""
+    their 2 tile-list pre-passes), 2 one-pass sm90 backward calls (and
+    their 2 backward tile-list pre-passes) a pass and no other kernel."""
     import copy
 
     import torch
@@ -2544,12 +2646,10 @@ def small_bagel_train_parity():
     noise = torch.randn(batch["packed_latent_clean"].shape,
                         generator=torch.Generator().manual_seed(8))
     want_launches = {"flash_attention_bf16_lse": 2,
-                     "flash_attention_bwd_dq_bf16": 2,
-                     "flash_attention_bwd_dkv_bf16": 2,
+                     "flash_attention_bwd_bf16_sm90": 2,
                      "flash_attention_bf16_lse_packed": 2,
-                     "flash_attention_bwd_dq_bf16_packed": 2,
-                     "flash_attention_bwd_dkv_bf16_packed": 2,
-                     "mask_tile_list": 2}
+                     "flash_attention_bwd_bf16_sm90_packed": 2,
+                     "mask_tile_list": 2, "bwd_tile_list": 2}
 
     def run(device, freeze):
         model = copy.deepcopy(bagel).to(device)
@@ -2677,10 +2777,10 @@ def bagel_train_main_path():
                  "flash_attention_bf16_packed": n_layers,
                  "mask_tile_list": n_layers}
     want_train = {nm: n_layers for nm in (
-        "flash_attention_bf16_lse", "flash_attention_bwd_dq_bf16",
-        "flash_attention_bwd_dkv_bf16", "flash_attention_bf16_lse_packed",
-        "flash_attention_bwd_dq_bf16_packed",
-        "flash_attention_bwd_dkv_bf16_packed", "mask_tile_list")}
+        "flash_attention_bf16_lse", "flash_attention_bwd_bf16_sm90",
+        "flash_attention_bf16_lse_packed",
+        "flash_attention_bwd_bf16_sm90_packed", "mask_tile_list",
+        "bwd_tile_list")}
     torch.cuda.reset_peak_memory_stats()
     # warm-up: the first training pass, outside the medians
     alloc_before = allocator()
@@ -2691,10 +2791,11 @@ def bagel_train_main_path():
     fa.reset_launches()
     launches = dict.fromkeys(launch_counts(), 0)
 
-    def counted(tag, fn, want, bwd_pair=0):
+    def counted(tag, fn, want, bwd_calls=0):
         """fn() with this pass's launches checked (every packed forward on
-        the sm90 kernel; `bwd_pair` packed backward calls, all on the
-        mma.sync pair), then added to the path's."""
+        the sm90 kernel; `bwd_calls` packed backward calls, all on the
+        one-pass sm90 kernel, none on the mma.sync pair), then added to
+        the path's."""
         before = launch_counts()
         impl_before = dict(fa.LAUNCHES_BY_IMPL)
         bwd_before = dict(fa.BWD_LAUNCHES_BY_IMPL)
@@ -2706,7 +2807,7 @@ def bagel_train_main_path():
         bwd = {k_: v_ - bwd_before[k_]
                for k_, v_ in fa.BWD_LAUNCHES_BY_IMPL.items()}
         if (got != want or impl != {"sm90": n_layers, "mma_sync": 0}
-                or bwd != {"sm90": 0, "mma_sync": bwd_pair}):
+                or bwd != {"sm90": bwd_calls, "mma_sync": 0}):
             fail(f"{tag}: launches {got} != {want} or by kernel {impl}, "
                  f"backward {bwd}")
         for k_, v_ in got.items():
@@ -2729,8 +2830,8 @@ def bagel_train_main_path():
     # 28 / 0 a pass over the six passes
     check_impl("BAGEL packed training path (3 evaluation forwards, 3 "
                "training passes)", 6 * n_layers, 0)
-    # the packed backward stays on the mma.sync pair
-    check_bwd_impl("BAGEL packed training path", 0, 3 * n_layers)
+    # the packed backward on the one-pass sm90 kernel, 28 a pass
+    check_bwd_impl("BAGEL packed training path", 3 * n_layers, 0)
     peak = torch.cuda.max_memory_allocated() / 1e9
     mse_terms = float(out["mse"].sum())
     ce_terms = float((out["ce"] * out["ce_weights"]).sum())
@@ -3826,24 +3927,26 @@ def kernels_line(records, by_path, mask_records):
            "flash_attention_bf16_causal": "bagel",
            "flash_attention_bf16_lse": "train",
            "flash_attention_bwd_bf16_sm90": "train",
-           # the pair's unmasked modes left the train path for the sm90
-           # backward; its counters count BAGEL packed training's backward
-           "flash_attention_bwd_dq_bf16": "bagel_train",
-           "flash_attention_bwd_dkv_bf16": "bagel_train",
+           # the mma.sync pair is no path's kernel since the sm90 backward
+           # took its masked modes too: the same-call baseline, 0 launches
+           "flash_attention_bwd_dq_bf16": None,
+           "flash_attention_bwd_dkv_bf16": None,
+           "bwd_tile_list": "bagel_train",
            # fp32 serving: the fp32 t2v pipeline run of fp32_train_parity
            "flash_attention_f32_d128": "fp32_serve",
            "rope_rotate_f32": "fp32_serve",
            "flash_attention_f32_lse": "fp32_train",
            "flash_attention_bwd_dq_f32": "fp32_train",
            "flash_attention_bwd_dkv_f32": "fp32_train"}
-    # the packed modes and the tile-list pre-pass serve BAGEL packed
+    # the packed modes and the tile-list pre-passes serve BAGEL packed
     # training; no path of the JAX package reaches the segment modes at
     # d=128 (SigLIP's segments are d=72, the reference route) or the causal
-    # backward (no causal training caller): their launches on the paths
-    # are 0
+    # backward (no causal training caller), and the mma.sync pair's masked
+    # modes are baselines: their launches on the paths are 0
     for nm in mask_records:
-        own[nm] = ("bagel_train" if nm.endswith("_packed")
-                   or nm == "mask_tile_list" else None)
+        own[nm] = ("bagel_train" if (nm.endswith("_packed")
+                                     and "_bwd_d" not in nm)
+                   or nm in ("mask_tile_list", "bwd_tile_list") else None)
     own.update(KNOB_OWNERS)
     kernels = []
     for nm, rec in records.items():

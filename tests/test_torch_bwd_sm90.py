@@ -4,7 +4,9 @@ on the CPU: which kernel each bf16 backward call reaches on the card
 and the kernel's walk in plain PyTorch — kv-tile-major, 128-row kv tiles,
 64-row q tiles, its rounding points, dq summed in fp32 across kv tiles,
 the cross shape's q split — against the plain backward and against
-univid_tpu's fused Pallas backward in interpret mode.
+univid_tpu's fused Pallas backward in interpret mode. The masked modes'
+walk of the kv-major tile list is `_walk` with a mask, tested in
+tests/test_torch_bwd_masked.py.
 
 The CUDA kernel itself runs only on a card: tests/test_torch_cuda.py and
 chip_smoke.py hold it against its plain version and the mma.sync pair.
@@ -47,9 +49,9 @@ ROUTES = {
     "running": (Q, KV, {}, "sm90"),
     "kv_len": (Q, _t((1, 320, 12, 128)), {}, "sm90"),
     "cross512": (_t((1, 448, 12, 128)), _t((1, 512, 12, 128)), {}, "sm90"),
-    "causal": (Q, KV, dict(causal=True), "mma_sync"),
-    "segments": (Q, KV, dict(seg="segments"), "mma_sync"),
-    "packed": (Q, KV, dict(seg="packed"), "mma_sync"),
+    "causal": (Q, KV, dict(causal=True), "sm90"),
+    "segments": (Q, KV, dict(seg="segments"), "sm90"),
+    "packed": (Q, KV, dict(seg="packed"), "sm90"),
     "grouped_kv": (Q, _t((1, 256, 2, 128)), {}, ValueError),
     "fp32": (_t((1, 128, 12, 128), torch.float32),
              _t((1, 256, 12, 128), torch.float32), {}, TypeError),
@@ -61,9 +63,10 @@ ROUTES = {
 
 @pytest.mark.parametrize("case", list(ROUTES))
 def test_bf16_backward_route(case):
-    """The unmasked bf16 d=128 backward runs the sm90 kernel, the causal,
-    segment and packed ones the mma.sync pair; grouped kv heads, fp32 and
-    d != 128 raise (no kernel takes them; nothing falls back)."""
+    """Every bf16 d=128 backward runs the sm90 kernel, unmasked or causal,
+    segment and packed (the mma.sync pair is no route's kernel); grouped
+    kv heads, fp32, d != 128 and causal with segments raise (no kernel
+    takes them; nothing falls back)."""
     q, k, kw, want = ROUTES[case]
     if isinstance(want, str):
         assert tfa.bf16_backward_route(q, k, k, **kw) == want
@@ -96,18 +99,30 @@ def test_tma_readable():
                                 .view(1, 64, 2, 128))
 
 
-def _walk(qs, k, v, o, lse, do, kv_len, scale, q_splits=1):
+def _walk(qs, k, v, o, lse, do, kv_len, scale, q_splits=1, **masks):
     """flash_attention_bwd_sm90.cu's walk in plain PyTorch: for each
     (b, 128-row kv tile [, q split]) the 64-row q tiles from (kv tile) mod
     (count), S^T = k qs^T, p = exp2(s - lse) (kv rows at or past kv_len
     -1e30), dS = p (dO v^T - delta), dV += r(p)^T dO, dK += r(dS)^T qs,
     dQ += r(dS) k into an fp32 accumulator, r the rounding to the inputs'
     dtype (bf16 on the card); dk and dv summed over the splits; each
-    output rounded once to that dtype (dq * scale, dk * ln 2)."""
+    output rounded once to that dtype (dq * scale, dk * ln 2). Under a
+    mask (`masks`: causal, q_offset, q_offsets, q_segments, kv_segments,
+    packed_mode) each kv tile walks its list of `bwd_tile_list_plain` in
+    one block, from (kv tile) mod (count), and the tiles not flagged full
+    set s = -1e30 on every pair `_dead` refuses (kv_len included)."""
     b, lq, n, d = qs.shape
     lk = k.shape[1]
     bq, bk = tfa.BWD_BLOCK_Q, tfa.BWD_BLOCK_K
     n_q, kt = lq // bq, -(-lk // bk)
+    masked = bool(masks.get("causal")) or masks.get("q_segments") is not None
+    if masked:
+        kv_t = (None if kv_len is None
+                else torch.tensor(kv_len, dtype=torch.int32))
+        lists, counts = tfa.bwd_tile_list_plain(b, lq, lk, kv_len=kv_t,
+                                                **masks)
+        refused = tfa._dead(0, lq, lk, "cpu", kv_len=kv_t, **masks)[:, 0] \
+            .expand(b, lq, lk)
     qf, kf, vf, of, dof = (x.float().permute(0, 2, 1, 3)
                            for x in (qs, k, v, o, do))     # [B, N, L, D]
     delta = (dof * of).sum(-1)                             # [B, N, Lq]
@@ -126,16 +141,25 @@ def _walk(qs, k, v, o, lse, do, kv_len, scale, q_splits=1):
             kj, vj = kf[bi, :, rows], vf[bi, :, rows]       # [N, r, D]
             dead = torch.arange(kv0, rows.stop) >= ends[bi]
             for sp in range(q_splits):
-                begin = sp * per
-                count = max(0, min(n_q, begin + per) - begin)
+                if masked:   # the list's entries, (q tile << 1) | full
+                    count = int(counts[bi, j])
+                    entries = lists[bi, j, :count].tolist()
+                else:
+                    begin = sp * per
+                    count = max(0, min(n_q, begin + per) - begin)
+                    entries = [(begin + x) << 1 for x in range(count)]
                 dk_part = torch.zeros_like(kj)
                 dv_part = torch.zeros_like(vj)
                 for it in range(count):
-                    i = begin + (it + j % count) % count
+                    e = entries[(it + j % count) % count]
+                    i = e >> 1
                     qr = slice(i * bq, (i + 1) * bq)
                     qi, di = qf[bi, :, qr], dof[bi, :, qr]   # [N, 64, D]
                     s = kj @ qi.transpose(1, 2)              # S^T [N, r, 64]
-                    s[:, dead] = tfa.NEG_INF
+                    if not masked:
+                        s[:, dead] = tfa.NEG_INF
+                    elif not e & 1:
+                        s = s.masked_fill(refused[bi, qr, rows].T, tfa.NEG_INF)
                     p = torch.exp2(s - lse[bi, :, None, qr])
                     ds = p * (vj @ di.transpose(1, 2)
                               - delta[bi, :, None, qr])

@@ -362,10 +362,13 @@ MASKED_BWD = {
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(MASKED_BWD))
 def test_cuda_masked_backward_matches_plain(cuda_device, case):
-    """The dq and dk/dv kernels in the causal (static + device offsets,
-    kv_len), segment and packed modes against their plain version on the
-    card, from the plain residuals (bf16: 2e-2 relative L2 and
-    elementwise); rows that see no key give dq = 0."""
+    """The bf16 backward in the causal (static + device offsets, kv_len),
+    segment and packed modes (the one-pass sm90 kernel's list walk since
+    it took them) against its plain version on the card, from the plain
+    residuals (bf16: 2e-2 relative L2 and elementwise), and against the
+    dq and dk/dv mma.sync pair it replaced (PERF.md s2's backward bound);
+    rows that see no key give dq = 0 exactly, keys that no row sees dk and
+    dv = 0 exactly."""
     lq, lk, qoff, qoffs, kvl = MASKED_BWD[case]
     kw = {}
     if case.startswith("causal"):
@@ -401,10 +404,19 @@ def test_cuda_masked_backward_matches_plain(cuda_device, case):
             **kw)
         want = tfa._bwd_plain_folded(qs_, k, v, o_p, lse_p, do, kv,
                                      128 ** -0.5, **kw)
+        dq, delta = tfa._bwd_dq_cuda(qs_, k, v, o_p, lse_p, do, kv,
+                                     128 ** -0.5, **kw)
+        pair = (dq,) + tfa._bwd_dkv_cuda(qs_, k, v, do, lse_p, delta, kv,
+                                         **kw)
     torch.cuda.synchronize()
-    for name in ("flash_attention_bf16_lse", "flash_attention_bwd_dq_bf16",
+    for name in ("flash_attention_bf16_lse", "flash_attention_bwd_bf16_sm90",
+                 "flash_attention_bwd_dq_bf16",
                  "flash_attention_bwd_dkv_bf16"):
         assert tfa.LAUNCHES_BY_MODE[f"{name}_{mode}"] == 1, name
+    assert tfa.BWD_LAUNCHES_BY_IMPL == {"sm90": 1, "mma_sync": 0}
+    assert tfa.LAUNCHES["bwd_tile_list"] == 1
+    for got, p, name in zip(grads, pair, ("dq", "dk", "dv")):
+        _check_bwd(got, p, f"{name} vs the mma.sync pair")
     np.testing.assert_allclose(o.float().cpu().numpy(),
                                o_p.float().cpu().numpy(), **BF16)
     np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(),
@@ -416,7 +428,51 @@ def test_cuda_masked_backward_matches_plain(cuda_device, case):
                                    **BF16)
     if "q_segments" in kw:
         assert float(grads[0][:, -30:].abs().max()) == 0.0
-        assert float(grads[1][:, -30:].abs().max()) == 0.0
+        for g in grads[1:]:
+            assert float(g[:, -30:].abs().max()) == 0.0
+    if kv is not None:   # keys past kv_len: exactly zero dk and dv
+        for r in range(2):
+            assert not bool(grads[1][r, kvl[r]:].any())
+            assert not bool(grads[2][r, kvl[r]:].any())
+
+
+# the backward's tile-list cases: (mode, kv_len or None, q_offset,
+# q_offsets or None): pad ids, kv_len inside a tile and 0, causal offsets
+# that are not multiples of 64 and a negative one
+BWD_TILE_LISTS = {
+    "segments": ("segments", None, 0, None),
+    "packed": ("packed", None, 0, None),
+    "packed_kv_len": ("packed", (300, 0), 0, None),
+    "causal": ("causal", None, 0, None),
+    "causal_offsets_kv_len": ("causal", (250, 448), 13, (37, -100)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BWD_TILE_LISTS))
+def test_cuda_bwd_tile_list_matches_plain(cuda_device, case):
+    """The backward's pre-pass (one launch) gives the plain version's list
+    and count exactly, in the segment, packed and causal modes."""
+    mode, kvl, qoff, qoffs = BWD_TILE_LISTS[case]
+    q, _, _, qs, ks = _masked_inputs(cuda_device, "packed" if mode == "causal"
+                                     else mode)
+    kw = dict(q_segments=qs, kv_segments=ks, packed_mode=mode == "packed")
+    if mode == "causal":
+        kw = dict(causal=True, q_offset=qoff, q_offsets=None if qoffs is None
+                  else torch.tensor(qoffs, dtype=torch.int32,
+                                    device=cuda_device))
+    kv = (torch.tensor(kvl, dtype=torch.int32, device=cuda_device)
+          if kvl is not None else None)
+    tfa.reset_launches()
+    lists, count = tfa.bwd_tile_list(q, q.shape[1], kv, **kw)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["bwd_tile_list"] == 1
+    want = tfa.bwd_tile_list_plain(
+        q.shape[0], q.shape[1], q.shape[1], kv_len=None if kv is None
+        else kv.cpu(), **{k_: (v_.cpu() if torch.is_tensor(v_) else v_)
+                          for k_, v_ in kw.items()})
+    assert torch.equal(lists.cpu(), want[0])
+    assert torch.equal(count.cpu(), want[1])
 
 
 # fp32 d=128 (the DiT at its default fp32 policy): forward modes (lq, lk,
@@ -1114,9 +1170,10 @@ def test_cuda_bwd_sm90_repeat_within_tolerance(cuda_device, splits):
 @pytest.mark.cuda
 def test_cuda_bwd_route_counts(cuda_device):
     """flash_attention_bwd_folded follows bf16_backward_route: the
-    unmasked call on the sm90 kernel, the segment call on the mma.sync
-    pair (BWD_LAUNCHES_BY_IMPL); a strided do that TMA cannot read raises
-    in the sm90 wrapper (the autograd Function copies such a do)."""
+    unmasked and the segment call both on the sm90 kernel, none on the
+    mma.sync pair (BWD_LAUNCHES_BY_IMPL); a strided do that TMA cannot
+    read raises in the sm90 wrapper (the autograd Function copies such a
+    do)."""
     qs, k, v, o, lse, do, kv, _ = _bwd_sm90_inputs(cuda_device, "running")
     seg = torch.zeros((2, 512), dtype=torch.int32, device=cuda_device)
     tfa.reset_launches()
@@ -1133,6 +1190,54 @@ def test_cuda_bwd_route_counts(cuda_device):
             tfa._launch_bwd_sm90(qs, k, v, o, lse, wide[..., :128], kv,
                                  128 ** -0.5)
     torch.cuda.synchronize()
-    assert tfa.BWD_LAUNCHES_BY_IMPL == {"sm90": 1, "mma_sync": 1}
-    assert tfa.LAUNCHES["flash_attention_bwd_bf16_sm90"] == 1
-    assert tfa.LAUNCHES_BY_MODE["flash_attention_bwd_dq_bf16_segments"] == 1
+    assert tfa.BWD_LAUNCHES_BY_IMPL == {"sm90": 2, "mma_sync": 0}
+    assert tfa.LAUNCHES["flash_attention_bwd_bf16_sm90"] == 2
+    assert tfa.LAUNCHES_BY_MODE[
+        "flash_attention_bwd_bf16_sm90_segments"] == 1
+    assert tfa.LAUNCHES["flash_attention_bwd_dq_bf16"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_small_bagel_packed_train_matches_cpu(cuda_device):
+    """BAGEL packed training, forward and backward, on a small d=128 BAGEL
+    (chip_smoke.py's `_small_train_models`: hidden 512, 2 layers; 250
+    tokens of the four sample kinds, freeze_und) on the card against the
+    CPU (plain versions), same bf16 weights and noise: loss rel. error
+    < 2e-2 and every gradient leaf's rel. L2 < 3e-2 (PERF.md s2: cuBLAS
+    and the CPU round each GEMM at other points); the 2 packed backward
+    calls on the sm90 kernel, none on the mma.sync pair."""
+    import copy
+
+    import chip_smoke as cs
+    from univid_tpu_torch.models.bagel.packed import bagel_packed_forward
+
+    cfg, scfg, bagel, sig = cs._small_train_models()
+    batch, _ = cs.bagel_train_batch(cfg, cs.SMALL_TRAIN_SIZES, 6, 250)
+    noise = torch.randn(batch["packed_latent_clean"].shape,
+                        generator=torch.Generator().manual_seed(8))
+
+    def run(device):
+        model = copy.deepcopy(bagel).to(device)
+        for p in model.parameters():
+            p.requires_grad_(True)
+        out = bagel_packed_forward(model, cfg, batch, noise=noise,
+                                   siglip_params=copy.deepcopy(sig).to(device),
+                                   siglip_cfg=scfg,
+                                   compute_dtype=torch.bfloat16,
+                                   freeze_und=True)
+        loss = cs._train_loss(out)
+        loss.backward()
+        return float(loss.detach()), {nm: p.grad.detach().float().cpu()
+                             for nm, p in model.named_parameters()
+                             if p.grad is not None}
+
+    tfa.reset_launches()
+    loss_g, grads_g = run(cuda_device)
+    assert tfa.BWD_LAUNCHES_BY_IMPL == {"sm90": 2, "mma_sync": 0}
+    assert tfa.LAUNCHES_BY_MODE["flash_attention_bwd_bf16_sm90_packed"] == 2
+    loss_c, grads_c = run("cpu")
+    assert math.isfinite(loss_g)
+    assert abs(loss_g - loss_c) / abs(loss_c) < 2e-2
+    assert set(grads_g) == set(grads_c)
+    for nm, g in grads_c.items():
+        assert _rel(grads_g[nm], g) < 3e-2, nm

@@ -27,7 +27,7 @@ import sys
 from pathlib import Path
 
 _CHECKPOINT_SLICE = ("loading BAGEL, SigLIP2 and tokenizer checkpoints is a "
-                     "later port slice (ROADMAP.md queue 1, item 4)")
+                     "later port slice (ROADMAP.md queue 1: Checkpoints)")
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -42,17 +42,17 @@ and training paths reach:
     csrc/flash_attention_int8.cu.
   * `flash_attention_bwd_padded` — `_flash_bwd_fused_kernel` and the
     two-pass `_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel`: dq, dk, dv
-    rebuilt from the lse. bf16 d=128 (`bf16_backward_route`): the unmasked
-    modes (with or without kv_len, any Lk) on
-    csrc/flash_attention_bwd_sm90.cu, the one-pass form on wgmma / TMA
+    rebuilt from the lse. bf16 d=128 (`bf16_backward_route`): every mode
+    on csrc/flash_attention_bwd_sm90.cu, the one-pass form on wgmma / TMA
     (three launches: delta and the zeroed fp32 accumulators, the main
     kernel, the accumulators to bf16; not deterministic: dq sums by atomic
-    reductions); causal (static and device offsets), segment and packed
-    masks on csrc/flash_attention_bwd.cu (a dq kernel and a dk/dv kernel,
-    mma.sync). fp32 d=128 with kv_len on csrc/flash_attention_bwd_f32.cu
-    (the same pair in fp32). The masked modes at fp32 (causal, segments,
-    packed, grouped kv heads) have no fp32 caller and raise on the card
-    (`F32_MASKS_LATER`).
+    reductions): the unmasked ones with or without kv_len at any Lk, and
+    causal (static and device offsets), segment and packed masks, which
+    walk a kv-major tile list that the pre-pass `bwd_tile_list` builds
+    first (for each kv tile the q tiles with a live pair). fp32 d=128 with
+    kv_len on csrc/flash_attention_bwd_f32.cu (a dq and a dk/dv kernel).
+    The masked modes at fp32 (causal, segments, packed, grouped kv heads)
+    have no fp32 caller and raise on the card (`F32_MASKS_LATER`).
 
 Every mask goes through `_dead`, the counterpart of the JAX package's
 `_mask_scores`, which the plain forward and backward share.
@@ -71,8 +71,9 @@ knob and masked modes) by the kernel that ran it, `BWD_LAUNCHES_BY_IMPL`
 every bf16 backward call. The kernels each new one replaced stay compiled
 and reachable (`_launch_bf16` for the segment and packed modes,
 `_launch_f32_simt` for the fp32 VAE mode, `_bwd_dq_cuda` /
-`_bwd_dkv_cuda` for the unmasked backward) as the same-call baselines of
-chip_smoke.py and the card tests.
+`_bwd_dkv_cuda`, the mma.sync pair, for every bf16 backward) as the
+same-call baselines of chip_smoke.py and the card tests; no route reaches
+them.
 """
 
 from __future__ import annotations
@@ -120,7 +121,7 @@ LAUNCHES = {"flash_attention_bf16": 0, "flash_attention_bf16_causal": 0,
             "flash_attention_bf16_sbf16": 0, "cross_attention_bf16_sbf16": 0,
             "quantize_qk_int8": 0, "flash_attention_int8": 0,
             "flash_attention_int8_sbf16": 0, "mask_tile_list": 0,
-            "flash_attention_bwd_bf16_sm90": 0}
+            "flash_attention_bwd_bf16_sm90": 0, "bwd_tile_list": 0}
 # the flash_attention_f32 launches split by head dim
 F32_LAUNCHES_BY_D = {d: 0 for d in F32_DIMS}
 # launches of the masked modes: each is also counted under its kernel's name
@@ -130,7 +131,8 @@ MASK_MODES = ("causal", "segments", "packed")
 LAUNCHES_BY_MODE = {
     f"{name}_{mode}": 0
     for name in ("flash_attention_bf16", "flash_attention_bf16_lse",
-                 "flash_attention_bwd_dq_bf16", "flash_attention_bwd_dkv_bf16")
+                 "flash_attention_bwd_dq_bf16", "flash_attention_bwd_dkv_bf16",
+                 "flash_attention_bwd_bf16_sm90")
     for mode in MASK_MODES
     if (name, mode) != ("flash_attention_bf16", "causal")}
 # every bf16 forward launch by its kernel: "sm90" flash_attention_sm90.cu
@@ -138,10 +140,11 @@ LAUNCHES_BY_MODE = {
 # (causal)
 LAUNCHES_BY_IMPL = {"sm90": 0, "mma_sync": 0}
 # every bf16 backward call by its kernel: "sm90" flash_attention_bwd_sm90.cu
-# (the unmasked modes), "mma_sync" the dq and dk/dv pair of
-# flash_attention_bwd.cu (causal, segments, packed)
+# (every mode), "mma_sync" the dq and dk/dv pair of flash_attention_bwd.cu
+# (no route reaches it: it stays at 0)
 BWD_LAUNCHES_BY_IMPL = {"sm90": 0, "mma_sync": 0}
 _SEG_MODE = {None: 0, "segments": 1, "packed": 2}
+_BWD_MASK_MODE = {None: 0, "segments": 1, "packed": 2, "causal": 3}
 
 _MODE_BOUNDED, _MODE_RUNNING, _MODE_ONESHOT = 0, 1, 2
 _MODES = {"bounded": _MODE_BOUNDED, "running": _MODE_RUNNING,
@@ -312,11 +315,39 @@ def mask_tile_list_plain(q_segments, kv_segments, kv_len=None,
     alive[:, lq:, :lk] = True
     full = alive.reshape(b, qt, block_q, kt, block_k).all(dim=4).all(dim=2)
     count = live.sum(dim=-1).to(torch.int32)
-    codes = torch.arange(kt, device=dead.device) * 2 + full.long()
-    # live tiles first, in ascending order (a stable sort of the dead flag)
+    return _compact(live, full, count)
+
+
+def _compact(live, full, count):
+    """Live tiles first, in ascending order (a stable sort of the dead
+    flag), as (tile << 1) | full; -1 past the count."""
+    codes = torch.arange(live.shape[-1], device=live.device) * 2 + full.long()
     order = torch.sort((~live).to(torch.int8), dim=-1, stable=True).indices
     lists = torch.gather(torch.where(live, codes, -1), -1, order)
     return lists.to(torch.int32), count
+
+
+def bwd_tile_list_plain(b, lq, lk, device="cpu", *, kv_len=None,
+                        causal=False, q_offset=0, q_offsets=None,
+                        q_segments=None, kv_segments=None, packed_mode=False):
+    """The one-pass backward's tile list in plain PyTorch (the pre-pass
+    `bwd_tile_list`): for each (b, kv tile of 128 keys) the 64-row q tiles
+    that hold at least one pair `_dead` allows (any of its masks), ascending,
+    as (tile << 1) | full, full when every pair of the tile's 64 rows and
+    128 keys is allowed (keys past Lk count as dead); -1 past the count. Lq
+    is a multiple of 64. Returns (list int32 [B, kv_tiles, Lq / 64], count
+    int32 [B, kv_tiles])."""
+    bq, bk = BWD_BLOCK_Q, BWD_BLOCK_K
+    nq, kt = lq // bq, -(-lk // bk)
+    dead = _dead(0, lq, lk, device, kv_len=kv_len, causal=causal,
+                 q_offset=q_offset, q_offsets=q_offsets, q_segments=q_segments,
+                 kv_segments=kv_segments, packed_mode=packed_mode)
+    alive = torch.zeros((b, lq, kt * bk), dtype=torch.bool, device=device)
+    alive[:, :, :lk] = True if dead is None else ~dead[:, 0]
+    tiles = alive.reshape(b, nq, bq, kt, bk)
+    live = tiles.any(dim=4).any(dim=2).transpose(1, 2)       # [B, kt, nq]
+    full = tiles.all(dim=4).all(dim=2).transpose(1, 2)
+    return _compact(live, full, live.sum(dim=-1).to(torch.int32))
 
 
 def _softmax_pv(s, mask, bound, softmax_bf16, vf, v_dtype):
@@ -1199,9 +1230,9 @@ def flash_attention_bwd_folded(qs, k, v, o, lse, do, *, kv_len=None,
                                softmax_scale, **masks):
     """The backward on the folded qs of the forward: the plain version on
     the CPU; on the card, bf16: the kernel `bf16_backward_route` names (the
-    one-pass sm90 kernel, or the dq kernel, which also writes delta, and
-    then the dk/dv kernel); fp32: the fp32 pair. masks: causal, q_offset,
-    q_offsets, q_segments, kv_segments, packed_mode (bf16 only)."""
+    one-pass sm90 kernel, under every mask); fp32: the fp32 pair (dq and
+    delta, then dk/dv). masks: causal, q_offset, q_offsets, q_segments,
+    kv_segments, packed_mode (bf16 only)."""
     if not qs.is_cuda:
         return _bwd_plain_folded(qs, k, v, o, lse, do, kv_len, softmax_scale,
                                  **masks)
@@ -1210,32 +1241,24 @@ def flash_attention_bwd_folded(qs, k, v, o, lse, do, *, kv_len=None,
         dq, delta = _bwd_dq_f32(qs, k, v, o, lse, do, kv_len, softmax_scale)
         dk, dv = _bwd_dkv_f32(qs, k, v, do, lse, delta, kv_len)
         return dq, dk, dv
-    seg = _check_masks(qs, k.shape[1], masks.get("q_offsets"),
-                       masks.get("q_segments"), masks.get("kv_segments"),
-                       masks.get("packed_mode", False),
-                       masks.get("causal", False))
-    impl = bf16_backward_route(qs, k, v, causal=masks.get("causal", False),
-                               seg=seg)
-    if impl == "sm90":
-        out = _launch_bwd_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale)
-    else:
-        dq, delta = _bwd_dq_cuda(qs, k, v, o, lse, do, kv_len, softmax_scale,
-                                 **masks)
-        dk, dv = _bwd_dkv_cuda(qs, k, v, do, lse, delta, kv_len, **masks)
-        out = dq, dk, dv
+    impl = bf16_backward_route(qs, k, v)  # the launch checks the masks
+    out = _launch_bwd_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale,
+                           **masks)
     BWD_LAUNCHES_BY_IMPL[impl] += 1
     return out
 
 
 def bf16_backward_route(q, k, v, *, causal=False, seg=None):
     """The kernel that takes a bf16 attention backward on the card: "sm90"
-    (csrc/flash_attention_bwd_sm90.cu, the one-pass form) for every
-    unmasked call, whatever the forward's softmax (the backward reads only
-    its lse), with or without kv_len, at any Lk (the cross shape too);
-    "mma_sync" (the dq and dk/dv pair of csrc/flash_attention_bwd.cu) for
-    the causal, segment and packed ones. seg: None, "segments" or
-    "packed". Raises for a call no kernel takes (not bf16, head dim other
-    than 128, grouped kv heads, causal with segments); never falls back."""
+    (csrc/flash_attention_bwd_sm90.cu, the one-pass form) for every call,
+    whatever the forward's softmax (the backward reads only its lse), with
+    or without kv_len, at any Lk (the cross shape too), unmasked or under
+    a causal (static and device offsets), segment or packed mask. The
+    mma.sync pair of csrc/flash_attention_bwd.cu ("mma_sync") is no
+    route's kernel: it stays built as the same-call baseline. seg: None,
+    "segments" or "packed". Raises for a call no kernel takes (not bf16,
+    head dim other than 128, grouped kv heads, causal with segments);
+    never falls back."""
     for t in (q, k, v):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"the bf16 backward takes bf16 tensors, got "
@@ -1253,7 +1276,7 @@ def bf16_backward_route(q, k, v, *, causal=False, seg=None):
             "mode (packed_mode carries its own causal term)")
     if seg not in (None, "segments", "packed"):
         raise ValueError(f"unknown segment mode {seg!r}")
-    return "mma_sync" if causal or seg is not None else "sm90"
+    return "sm90"
 
 
 def bwd_sm90_q_splits(bn, lq, lk, sms=H100_SMS):
@@ -1267,18 +1290,76 @@ def bwd_sm90_q_splits(bn, lq, lk, sms=H100_SMS):
     return max(1, min(lq // BWD_BLOCK_Q, 4 * sms // base))
 
 
+def bwd_tile_list(qs, lk, kv_len=None, *, causal=False, q_offset=0,
+                  q_offsets=None, q_segments=None, kv_segments=None,
+                  packed_mode=False):
+    """The masked backward's pre-pass: (list, count) of
+    `bwd_tile_list_plain` for the folded q `qs` [B, Lq, N, D] over lk keys
+    under one mask (causal, segments or packed). One launch on the card
+    (bwd_tiles_kernel of csrc/flash_attention_bwd_sm90.cu); the plain
+    version on the CPU."""
+    b, lq = qs.shape[:2]
+    masks = dict(causal=causal, q_offset=q_offset, q_offsets=q_offsets,
+                 q_segments=q_segments, kv_segments=kv_segments,
+                 packed_mode=packed_mode)
+    if not qs.is_cuda:
+        return bwd_tile_list_plain(b, lq, lk, qs.device, kv_len=kv_len,
+                                   **masks)
+    seg = _check_masks(qs, lk, q_offsets, q_segments, kv_segments,
+                       packed_mode, causal)
+    mode = "causal" if causal else seg
+    if mode is None:
+        raise ValueError("the tile list serves the causal, segment and "
+                         "packed modes")
+    if kv_len is not None and (kv_len.dtype != torch.int32
+                               or kv_len.device != qs.device):
+        raise TypeError("kv_len must be int32 on the kernel's device")
+    return _bwd_tile_list_launch(qs, lk, kv_len, mode, **masks)
+
+
+def _bwd_tile_list_launch(qs, lk, kv_len, mode, *, q_offset, q_offsets,
+                          q_segments, kv_segments, **_):
+    """The launch of `bwd_tile_list` on operands already checked."""
+    b, lq = qs.shape[:2]
+    kt = -(-lk // BWD_BLOCK_K)
+    lists = torch.empty((b, kt, lq // BWD_BLOCK_Q), dtype=torch.int32,
+                        device=qs.device)
+    count = torch.empty((b, kt), dtype=torch.int32, device=qs.device)
+    fn = _fn("flash_attention_bwd_sm90", "univid_bwd_tile_list",
+             [_P] * 6 + [_I] * 5 + [_P])
+    err = fn(_ptr(q_segments), _ptr(kv_segments), _ptr(kv_len),
+             _ptr(q_offsets), lists.data_ptr(), count.data_ptr(),
+             _BWD_MASK_MODE[mode], int(q_offset), b, lq, lk, _stream(qs))
+    build.check(err, "univid_bwd_tile_list")
+    _count("bwd_tile_list")
+    return lists, count
+
+
 def _launch_bwd_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale,
-                     q_splits=None):
+                     q_splits=None, *, causal=False, q_offset=0,
+                     q_offsets=None, q_segments=None, kv_segments=None,
+                     packed_mode=False):
     """csrc/flash_attention_bwd_sm90.cu on padded bf16 [B, L, N, 128]:
     (dq, dk, dv) from qs (folded), k, v, o, lse and do, kv_len or None.
     q_splits: blocks a kv tile along q (`bwd_sm90_q_splits` of the card's
-    SMs by default; > 1 sums dk and dv through fp32 accumulators)."""
+    SMs by default; > 1 sums dk and dv through fp32 accumulators). Under a
+    causal, segment or packed mask the pre-pass `bwd_tile_list` runs first
+    and each kv tile walks its list in one block (q_splits 1)."""
     _check_bwd_inputs(qs, k, v, do, lse, kv_len, o)
     b, lq, n, d = qs.shape
     lk = k.shape[1]
     if lse.data_ptr() % 16:
         raise ValueError("the sm90 backward copies lse rows in bulk: a "
                          "16-byte aligned lse")
+    seg = _check_masks(qs, lk, q_offsets, q_segments, kv_segments,
+                       packed_mode, causal)
+    mode = "causal" if causal else seg
+    if mode is not None:
+        return _launch_bwd_sm90_masked(
+            qs, k, v, o, lse, do, kv_len, softmax_scale, q_splits, mode,
+            causal=causal, q_offset=q_offset, q_offsets=q_offsets,
+            q_segments=q_segments, kv_segments=kv_segments,
+            packed_mode=packed_mode)
     if q_splits is None:
         q_splits = bwd_sm90_q_splits(
             b * n, lq, lk,
@@ -1293,10 +1374,7 @@ def _launch_bwd_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale,
     kv_floats = b * n * -(-lk // BWD_BLOCK_K) * BWD_BLOCK_K * d
     acc = torch.empty(b * n * lq * d + (2 * kv_floats if q_splits > 1 else 0),
                       dtype=torch.float32, device=qs.device)
-    st = (tma_strides(qs) + tma_strides(k) + tma_strides(v) + tma_strides(o)
-          + tma_strides(do) + list(dq.stride()[:3]) + list(dk.stride()[:3])
-          + list(dv.stride()[:3]))
-    strides = (ctypes.c_longlong * 24)(*st)  # host array, read at launch
+    strides = _bwd_sm90_strides(qs, k, v, o, do, dq, dk, dv)
     fn = _fn("flash_attention_bwd_sm90", "univid_flash_bwd_sm90",
              [_P] * 12 + [_I] * 5 + [ctypes.c_float, _P, _P])
     err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -1306,6 +1384,48 @@ def _launch_bwd_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale,
              _stream(qs))
     build.check(err, "univid_flash_bwd_sm90")
     _count("flash_attention_bwd_bf16_sm90")
+    return dq, dk, dv
+
+
+def _bwd_sm90_strides(qs, k, v, o, do, dq, dk, dv):
+    st = (tma_strides(qs) + tma_strides(k) + tma_strides(v) + tma_strides(o)
+          + tma_strides(do) + list(dq.stride()[:3]) + list(dk.stride()[:3])
+          + list(dv.stride()[:3]))
+    return (ctypes.c_longlong * 24)(*st)  # host array, read at launch
+
+
+def _launch_bwd_sm90_masked(qs, k, v, o, lse, do, kv_len, softmax_scale,
+                            q_splits, mode, **masks):
+    """The masked modes of `_launch_bwd_sm90` (mode "causal", "segments"
+    or "packed"): the tile list, then delta, the main kernel's walk of it
+    and the accumulators to bf16."""
+    b, lq, n, d = qs.shape
+    lk = k.shape[1]
+    if q_splits not in (None, 1):
+        raise ValueError("the masked modes walk each kv tile's list in one "
+                         "block: q_splits 1")
+    codes = (masks["q_segments"], masks["kv_segments"])
+    if mode != "causal" and any(t.data_ptr() % 16 for t in codes):
+        raise ValueError("the sm90 backward copies codes in bulk: 16-byte "
+                         "aligned q_segments and kv_segments")
+    lists, count = _bwd_tile_list_launch(qs, lk, kv_len, mode, **masks)
+    dq = torch.empty(qs.shape, dtype=qs.dtype, device=qs.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    delta = torch.empty((b, n, lq), dtype=torch.float32, device=qs.device)
+    acc = torch.empty(b * n * lq * d, dtype=torch.float32, device=qs.device)
+    strides = _bwd_sm90_strides(qs, k, v, o, do, dq, dk, dv)
+    fn = _fn("flash_attention_bwd_sm90", "univid_flash_bwd_sm90_masked",
+             [_P] * 17 + [_I] * 6 + [ctypes.c_float, _P, _P])
+    err = fn(qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), _ptr(kv_len),
+             _ptr(masks["q_offsets"]), _ptr(codes[0]), _ptr(codes[1]),
+             lists.data_ptr(), count.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), acc.data_ptr(),
+             _BWD_MASK_MODE[mode], int(masks["q_offset"]), b, n, lq, lk,
+             softmax_scale, ctypes.addressof(strides), _stream(qs))
+    build.check(err, "univid_flash_bwd_sm90_masked")
+    _count("flash_attention_bwd_bf16_sm90", mode)
     return dq, dk, dv
 
 

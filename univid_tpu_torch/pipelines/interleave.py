@@ -43,7 +43,7 @@ GEN_THINK_SYSTEM_PROMPT = (
 
 _IMAGE_GEN = ("image generation (the FLUX image VAE, update_context_vae, "
               "generate_image_latent) is a later port slice (ROADMAP.md "
-              "queue 1, item 10)")
+              "queue 1: BAGEL image generation)")
 
 
 class InterleaveInferencer:

@@ -52,7 +52,7 @@ def make_dit_train_step(cfg: WanDiTConfig, tx, mesh=None,
     if mesh is not None:
         raise NotImplementedError(
             "the mesh (sharded training) is part of the multi-GPU slice "
-            "(ROADMAP.md queue 1, item 9)")
+            "(ROADMAP.md queue 1: Multi-GPU)")
     rope_cos, rope_sin = rope
 
     def train_step(state, batch):
