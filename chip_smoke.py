@@ -43,7 +43,12 @@ Phases:
      (`bwd_sm90_kernels` lines); the fp32 d=128
      kernels (the forward running, bounded and with the lse, the rope
      pre-pass, dq and dk/dv) at the fp32 fine-tune's self [1, 32768, 12,
-     128] and cross (512 keys) shapes, SDPA on fp32 inputs as yardstick.
+     128] and cross (512 keys) shapes, SDPA on fp32 inputs as yardstick:
+     the route's flash_attention_f32_sm90.cu (wgmma on three bf16 parts of
+     each operand, after the split pre-pass, its parts equal to the plain
+     split) and the CUDA-core kernels it replaced, both against the plain
+     version, timed in turns, whole calls and kernels alone
+     (`f32_sm90_vs_cuda_cores` lines); two sm90 backward calls equal bits.
      The bf16 forward's unmasked modes run on the Hopper kernel
      (flash_attention_sm90.cu): at every shape above where they appear
      (self-attention bounded, cross-attention bounded and one-shot, the
@@ -91,10 +96,12 @@ Phases:
      pass;
  10. drive the full DiT fine-tune at its default fp32 policy:
      make_dit_train_step on t2v-1.3B at 832x480x81, full width, 10 of its
-     30 blocks (the time limit), remat 'attn', 2 steps (30 forwards with
-     lse, 20 dq, 20 dk/dv a step);
+     30 blocks (the time limit), remat 'attn', 2 steps (on the sm90
+     kernels: 30 forwards with lse, 20 dq, 20 dk/dv and 170 split
+     pre-passes a step, none on the CUDA-core kernels);
      finite losses, every block's weights moved, seconds, peak memory;
-     profile one more step;
+     profile one more step (kernel families, attention's share, idle
+     share), and derive the 30-block step from it;
  11. run the port's QA CLI with --mock_weights;
  12. drive the Wan serving knobs: ti2v-5B with fusion, --mode t2v at
      1280x704x121, full depth and width, with --bf16_softmax --qk_int8
@@ -116,9 +123,10 @@ mma.sync kernel; `check_impl`). The `kernels` line gives
 each kernel the launches of its own path (the packed modes and the
 tile-list pre-passes: the six timed BAGEL packed-training passes; the
 segment modes and the causal backward serve no path of the JAX package at
-d=128, and the mma.sync backward pair is a baseline only: 0; the fp32 d=128
-serving forward and rope pre-pass count the fp32 t2v pipeline run of
-phase 4; the knob kernels count the knob path, the bf16-softmax self-
+d=128, and the mma.sync backward pair and the CUDA-core fp32 d=128
+kernels are baselines only: 0; the fp32 d=128 serving forward and rope
+pre-pass count the fp32 t2v pipeline run of phase 4, the split pre-pass
+the fp32 fine-tune; the knob kernels count the knob path, the bf16-softmax self-
 attention and the fp32-chain int8 kernel the ti2v-5B DiT forward with
 their knob alone). The last line is
 {"ok": true, "device": {...}}; any failure exits non-zero.
@@ -1334,7 +1342,7 @@ def profile_call(fn):
         name = e.key.lower()
         if ("flash_" in name or "rope_rotate" in name or "mask_tiles" in name
                 or "bwd_pre" in name or "bwd_post" in name
-                or "bwd_tiles" in name):
+                or "bwd_tiles" in name or "split_bf16x3" in name):
             fam["attention_kernels_ms"] += ms
         elif "gemm" in name or "nvjet" in name or "xmma" in name:
             fam["gemm_ms"] += ms
@@ -2897,6 +2905,15 @@ def _bwd_check(name, got, ref):
     return err
 
 
+F32_SM90_SRC = "univid_tpu_torch/kernels/csrc/flash_attention_f32_sm90.cu"
+F32_SPLIT = 6   # bf16 products a split fp32 product (three parts a side)
+
+
+def _log_f32_ab(call, new_ms, old_ms):
+    log(json.dumps({"f32_sm90_vs_cuda_cores": call, "sm90_ms": new_ms,
+                    "cuda_cores_ms": old_ms, "speedup": old_ms / new_ms}))
+
+
 def check_f32_d128_kernels():
     """The fp32 d=128 kernels against their plain versions at the fp32
     fine-tune's shapes: the forward (running max, bounded, and with the
@@ -2905,10 +2922,18 @@ def check_f32_d128_kernels():
     12, 128] (running max, with and without the lse); the rope pre-pass at
     [1, 32768, 12, 128]; the dq and dk/dv kernels at the self and cross
     shapes from the plain residuals; kv_len = 0 rows at [2, 4096, 12, 128]
-    (exactly 0, lse +1e30, zero gradients). Each timed with CUDA events
-    beside its plain version and the library's call (SDPA on fp32 inputs,
-    TF32 off; its backward alone). Returns the records of the kernels line
-    (self shape; the cross shape on `kernel_at_cross_shape` lines)."""
+    (exactly 0, lse +1e30, zero gradients). The route's kernels are those
+    of flash_attention_f32_sm90.cu (wgmma on three bf16 parts, after the
+    split pre-pass); the CUDA-core kernels they replaced are held against
+    the plain version too and timed in turns with them, whole calls and
+    kernel against kernel (`f32_sm90_vs_cuda_cores` lines); two backward
+    calls give equal bits. Each kernel timed with CUDA events beside its
+    plain version and the library's call (SDPA on fp32 inputs, TF32 off;
+    its backward alone). Bounds of the sm90 kernels: the split's six bf16
+    products a product at the bf16 tensor-core rate (the 1x fp32 work on
+    the CUDA cores beside it, `bound_fp32_cuda_cores_ms`). Returns the
+    records of the kernels line (self shape; the cross shape on
+    `kernel_at_cross_shape` lines)."""
     import torch
     import torch.nn.functional as F
 
@@ -2920,7 +2945,8 @@ def check_f32_d128_kernels():
     sc = 1.0 / math.sqrt(d)
     bound = torch.tensor([1.01 * d * sc * fa.LOG2E], device="cuda")
     fwd_tol = dict(atol=1e-5, rtol=1e-4,
-                   why="fp32 throughout; summation order and the "
+                   why="fp32 accuracy on both sides: three bf16 parts a "
+                       "side (~2^-24 a product), summation order and the "
                        "approximate exp2 (2^-22 relative)")
     lse_tol = dict(atol=1e-4, rtol=0.0,
                    why="fp32 log2 of an fp32 row sum; summation order and "
@@ -2939,6 +2965,15 @@ def check_f32_d128_kernels():
                                     "each rounded once")
         ms = cuda_time(lambda: fa._rope_f32(x, cq, sq), 5)
         plain_ms = cuda_time(lambda: fa.rotate(x, cq, sq, torch.float32), 3)
+        # the split pre-pass: three bf16 parts that sum to x within 2^-24
+        parts = fa.split_bf16x3(x)
+        err_split = compare("split_bf16x3", parts,
+                            fa.split_bf16x3_plain(x), atol=0.0, rtol=0.0,
+                            why="the same two fp32 differences and three "
+                                "round-to-nearest-even conversions")
+        split_ms = cuda_time(lambda: fa.split_bf16x3(x), 5)
+        split_plain_ms = cuda_time(lambda: fa.split_bf16x3_plain(x), 3)
+        del parts
     bms, by = bound_ms(3 * x.numel(), 2 * nbytes(x) + nbytes(cq, sq),
                        H100_FP32_FLOPS)
     out["rope_rotate_f32"] = dict(
@@ -2947,6 +2982,14 @@ def check_f32_d128_kernels():
         replaces="univid_tpu/kernels/flash_attention.py:157",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=None)
+    # reads 4 bytes an element, writes 3 x 2 (no arithmetic worth a bound)
+    bms, by = bound_ms(0, 10 * x.numel(), H100_FP32_FLOPS)
+    out["split_bf16x3"] = dict(
+        name="split_bf16x3", route="cuda", source=F32_SM90_SRC,
+        replaces="univid_tpu/kernels/flash_attention.py:44 (operand "
+                 "encoding of the fp32 kernels)",
+        max_abs_err=err_split, ms=split_ms, plain_ms=split_plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=None)
     del x, cos, sin, cq, sq
 
     # ---- kv_len = 0 rows: exact zeros, lse +1e30, zero gradients --------
@@ -2960,16 +3003,16 @@ def check_f32_d128_kernels():
         oz, lz = fa.flash_attention_fwd_folded(qz, kz, vz, kv_len=kvz)
         op, lp = fa.attention_plain(qz, kz, vz, kv_len=kvz,
                                     save_residuals=True)
-        compare("flash_attention_f32_lse kv_len [4000, 0] output", oz, op,
-                **fwd_tol)
-        compare("flash_attention_f32_lse kv_len [4000, 0] lse", lz, lp,
+        compare("flash_attention_f32_sm90_lse kv_len [4000, 0] output", oz,
+                op, **fwd_tol)
+        compare("flash_attention_f32_sm90_lse kv_len [4000, 0] lse", lz, lp,
                 **lse_tol)
         gz = fa.flash_attention_bwd_folded(qz, kz, vz, op, lp, dz,
                                            kv_len=kvz, softmax_scale=sc)
         for nm, gr, ref in zip(("dq", "dk", "dv"), gz, fa._bwd_plain_folded(
                 qz, kz, vz, op, lp, dz, kvz, sc)):
-            _bwd_check(f"flash_attention_bwd_f32 kv_len [4000, 0] {nm}", gr,
-                       ref)
+            _bwd_check(f"flash_attention_bwd_f32_sm90 kv_len [4000, 0] {nm}",
+                       gr, ref)
         if (float(oz[1].abs().max()) != 0.0 or not bool((lz[1] == 1e30).all())
                 or any(float(gr[1].abs().max()) != 0.0 for gr in gz)
                 or float(gz[1][0, 4000:].abs().max()) != 0.0
@@ -2993,61 +3036,119 @@ def check_f32_d128_kernels():
         qs = fa._fold(q, sc)
         errs = {}
         with torch.no_grad():
-            # serving forward: running max (the fp32 policy's), and bounded
+            # serving forward: running max (the fp32 policy's), and bounded;
+            # the route (sm90) and the CUDA-core baseline
             want = fa.attention_plain(qs, k, v, kv_len=kv_len)
-            errs["fwd"] = compare(
-                f"flash_attention_f32_d128 {shape} running max",
-                fa._flash_cuda(qs, k, v, kv_len, None, None), want,
-                **fwd_tol)
-            errs["fwd"] = max(errs["fwd"], compare(
-                f"flash_attention_f32_d128 {shape} bounded",
-                fa._flash_cuda(qs, k, v, kv_len, bound, None),
-                fa.attention_plain(qs, k, v, kv_len=kv_len, bound=bound),
-                **fwd_tol))
-            del want
+            want_b = fa.attention_plain(qs, k, v, kv_len=kv_len, bound=bound)
+            for key, tag, run in (
+                    ("fwd", "flash_attention_f32_sm90",
+                     lambda bd: fa._flash_cuda(qs, k, v, kv_len, bd, None)),
+                    ("fwd_old", "flash_attention_f32_d128",
+                     lambda bd: fa._launch_f32_d128(qs, k, v, kv_len, bd,
+                                                    False)[0])):
+                errs[key] = max(
+                    compare(f"{tag} {shape} running max", run(None), want,
+                            **fwd_tol),
+                    compare(f"{tag} {shape} bounded", run(bound), want_b,
+                            **fwd_tol))
+            del want, want_b
             # training forward with the lse, running max and bounded
             o_p, lse_p = fa.attention_plain(qs, k, v, kv_len=kv_len,
                                             save_residuals=True)
-            o, lse = fa.flash_attention_fwd_folded(qs, k, v, kv_len=kv_len)
-            errs["lse_fwd"] = max(
-                compare(f"flash_attention_f32_lse {shape} output", o, o_p,
-                        **fwd_tol),
-                compare(f"flash_attention_f32_lse {shape} lse", lse, lse_p,
-                        **lse_tol))
-            ob, lb = fa.flash_attention_fwd_folded(qs, k, v, kv_len=kv_len,
-                                                   score_bound=bound)
             ob_p, lb_p = fa.attention_plain(qs, k, v, kv_len=kv_len,
                                             bound=bound, save_residuals=True)
-            errs["lse_fwd"] = max(
-                errs["lse_fwd"],
-                compare(f"flash_attention_f32_lse {shape} bounded output",
-                        ob, ob_p, **fwd_tol),
-                compare(f"flash_attention_f32_lse {shape} bounded lse", lb,
-                        lb_p, **lse_tol))
+            for key, tag, run in (
+                    ("lse_fwd", "flash_attention_f32_sm90_lse",
+                     lambda bd: fa.flash_attention_fwd_folded(
+                         qs, k, v, kv_len=kv_len, score_bound=bd)),
+                    ("lse_fwd_old", "flash_attention_f32_lse",
+                     lambda bd: fa._launch_f32_d128(qs, k, v, kv_len, bd,
+                                                    True))):
+                o, lse = run(None)
+                ob, lb = run(bound)
+                errs[key] = max(
+                    compare(f"{tag} {shape} output", o, o_p, **fwd_tol),
+                    compare(f"{tag} {shape} lse", lse, lse_p, **lse_tol),
+                    compare(f"{tag} {shape} bounded output", ob, ob_p,
+                            **fwd_tol),
+                    compare(f"{tag} {shape} bounded lse", lb, lb_p,
+                            **lse_tol))
             del o, lse, ob, lb, ob_p, lb_p
-            # the backward alone, from the plain residuals
-            dq, delta = fa._bwd_dq_f32(qs, k, v, o_p, lse_p, do, kv_len, sc)
-            dk, dv = fa._bwd_dkv_f32(qs, k, v, do, lse_p, delta, kv_len)
+            # the backward alone, from the plain residuals: the route's
+            # pair (its four split pre-passes, dq, dk/dv) twice, equal bits,
+            # and the CUDA-core pair
             want = fa._bwd_plain_folded(qs, k, v, o_p, lse_p, do, kv_len, sc)
-            for nm, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
-                key = "bwd_dq" if nm == "dq" else "bwd_dkv"
-                errs[key] = max(errs.get(key, 0.0), _bwd_check(
-                    f"flash_attention_bwd_f32 {shape} {nm}", got, ref))
-            if kv_real is not None and (
-                    float(dk[:, kv_real:].abs().max()) != 0.0
-                    or float(dv[:, kv_real:].abs().max()) != 0.0):
-                fail("flash_attention_bwd_f32: dk / dv past kv_len are not 0")
-            del want
-            ms = {
-                "fwd": cuda_time(lambda: fa._flash_cuda(
-                    qs, k, v, kv_len, None, None), 3),
-                "lse_fwd": cuda_time(lambda: fa.flash_attention_fwd_folded(
-                    qs, k, v, kv_len=kv_len), 3),
-                "bwd_dq": cuda_time(lambda: fa._bwd_dq_f32(
-                    qs, k, v, o_p, lse_p, do, kv_len, sc), 2),
-                "bwd_dkv": cuda_time(lambda: fa._bwd_dkv_f32(
-                    qs, k, v, do, lse_p, delta, kv_len), 2),
-            }
+            grads = fa.flash_attention_bwd_folded(qs, k, v, o_p, lse_p, do,
+                                                  kv_len=kv_len,
+                                                  softmax_scale=sc)
+            again = fa.flash_attention_bwd_folded(qs, k, v, o_p, lse_p, do,
+                                                  kv_len=kv_len,
+                                                  softmax_scale=sc)
+            same = all(torch.equal(x, y) for x, y in zip(grads, again))
+            log(json.dumps({"check": f"flash_attention_bwd_f32_sm90 {shape}:"
+                            " two calls give equal dq, dk, dv bits",
+                            "ok": same}))
+            if not same:
+                fail("the fp32 sm90 backward is not deterministic")
+            del again
+            dq_o, delta = fa._bwd_dq_f32(qs, k, v, o_p, lse_p, do, kv_len, sc)
+            old = (dq_o,) + fa._bwd_dkv_f32(qs, k, v, do, lse_p, delta,
+                                            kv_len)
+            for impl, got3 in (("sm90", grads), ("cuda_cores", old)):
+                sfx = "" if impl == "sm90" else "_old"
+                tag = "_sm90" if impl == "sm90" else ""
+                for nm, got, ref in zip(("dq", "dk", "dv"), got3, want):
+                    key = ("bwd_dq" if nm == "dq" else "bwd_dkv") + sfx
+                    errs[key] = max(errs.get(key, 0.0), _bwd_check(
+                        f"flash_attention_bwd_f32{tag} {shape} {nm}", got,
+                        ref))
+                if kv_real is not None and (
+                        float(got3[1][:, kv_real:].abs().max()) != 0.0
+                        or float(got3[2][:, kv_real:].abs().max()) != 0.0):
+                    fail(f"fp32 backward ({impl}): dk / dv past kv_len are "
+                         "not 0")
+            del want, grads, old
+            # times: whole calls and kernels alone, each sm90 one in turns
+            # with the CUDA-core one it replaced (old, new, new, old)
+            parts = [fa.split_bf16x3(x) for x in (qs, k, v, do)]
+            ms, old_ms = {}, {}
+            ms["fwd_call"], old_ms["fwd"] = ab_time(
+                lambda: fa._flash_cuda(qs, k, v, kv_len, None, None),
+                lambda: fa._launch_f32_d128(qs, k, v, kv_len, None, False),
+                2)
+            ms["lse_fwd_call"], old_ms["lse_fwd"] = ab_time(
+                lambda: fa.flash_attention_fwd_folded(qs, k, v,
+                                                      kv_len=kv_len),
+                lambda: fa._launch_f32_d128(qs, k, v, kv_len, None, True), 2)
+            ms["bwd_call"], old_ms["bwd"] = ab_time(
+                lambda: fa.flash_attention_bwd_folded(
+                    qs, k, v, o_p, lse_p, do, kv_len=kv_len,
+                    softmax_scale=sc),
+                lambda: (fa._bwd_dq_f32(qs, k, v, o_p, lse_p, do, kv_len, sc),
+                         fa._bwd_dkv_f32(qs, k, v, do, lse_p, delta, kv_len)),
+                1)
+            ms["fwd"] = cuda_time(lambda: fa._fwd_f32_sm90_parts(
+                *parts[:3], kv_len, None, False), 2)
+            ms["lse_fwd"] = cuda_time(lambda: fa._fwd_f32_sm90_parts(
+                *parts[:3], kv_len, None, True), 2)
+            ms["bwd_dq"], old_ms["bwd_dq"] = ab_time(
+                lambda: fa._bwd_dq_f32_sm90_parts(*parts, o_p, do, lse_p,
+                                                  kv_len, sc),
+                lambda: fa._bwd_dq_f32(qs, k, v, o_p, lse_p, do, kv_len, sc),
+                1)
+            ms["bwd_dkv"], old_ms["bwd_dkv"] = ab_time(
+                lambda: fa._bwd_dkv_f32_sm90_parts(*parts, lse_p, delta,
+                                                   kv_len),
+                lambda: fa._bwd_dkv_f32(qs, k, v, do, lse_p, delta, kv_len),
+                1)
+            del parts
+            for call, key in (("forward", "fwd"), ("forward with lse",
+                                                  "lse_fwd"),
+                              ("backward pair", "bwd")):
+                _log_f32_ab(f"{shape} {call} (whole call)",
+                            ms[f"{key}_call"], old_ms[key])
+            for key in ("bwd_dq", "bwd_dkv"):
+                _log_f32_ab(f"{shape} {key} kernel", ms[key], old_ms[key])
             plain_fwd = cuda_time(lambda: fa.attention_plain(
                 qs, k, v, kv_len=kv_len), 1, warmup=0)
             plain_lse = cuda_time(lambda: fa.attention_plain(
@@ -3072,44 +3173,65 @@ def check_f32_d128_kernels():
         row = nbytes(qs)                    # one [B, Lq, N, D] fp32 tensor
         kvb = nbytes(k, v)
         lseb = b * n * l * 4
-        bounds = {
-            "fwd": bound_ms(2 * mm, 2 * row + kvb, H100_FP32_FLOPS),
-            "lse_fwd": bound_ms(2 * mm, 2 * row + kvb + lseb,
-                                H100_FP32_FLOPS),
+        # (products, bytes): the function's, whichever kernel computes it
+        work = {
+            "fwd": (2, 2 * row + kvb),
+            "lse_fwd": (2, 2 * row + kvb + lseb),
             # s, dp, dq = dS k; reads qs, o, dO, k, v, lse; writes dq, delta
-            "bwd_dq": bound_ms(3 * mm, 4 * row + kvb + 2 * lseb,
-                               H100_FP32_FLOPS),
+            "bwd_dq": (3, 4 * row + kvb + 2 * lseb),
             # s^T, dp^T, dv, dk; reads qs, dO, k, v, lse, delta; writes dk, dv
-            "bwd_dkv": bound_ms(4 * mm, 2 * row + 2 * kvb + 2 * lseb,
-                                H100_FP32_FLOPS),
+            "bwd_dkv": (4, 2 * row + 2 * kvb + 2 * lseb),
         }
-        fwd_src = "univid_tpu_torch/kernels/csrc/flash_attention_f32_d128.cu"
-        bwd_src = "univid_tpu_torch/kernels/csrc/flash_attention_bwd_f32.cu"
+        old_src = {
+            "fwd": "univid_tpu_torch/kernels/csrc/flash_attention_f32_d128.cu",
+            "bwd": "univid_tpu_torch/kernels/csrc/flash_attention_bwd_f32.cu"}
         meta = {
-            "fwd": ("flash_attention_f32_d128", fwd_src,
+            "fwd": ("flash_attention_f32_sm90", "flash_attention_f32_d128",
                     "univid_tpu/kernels/flash_attention.py:"
                     + ("44" if shape == "self" else "355"),
                     plain_fwd, lib_fwd),
-            "lse_fwd": ("flash_attention_f32_lse", fwd_src,
+            "lse_fwd": ("flash_attention_f32_sm90_lse",
+                        "flash_attention_f32_lse",
                         "univid_tpu/kernels/flash_attention.py:343",
                         plain_lse, lib_fwd),
-            "bwd_dq": ("flash_attention_bwd_dq_f32", bwd_src,
+            "bwd_dq": ("flash_attention_bwd_dq_f32_sm90",
+                       "flash_attention_bwd_dq_f32",
                        "univid_tpu/kernels/flash_attention.py:831",
                        plain_bwd, lib_bwd),
-            "bwd_dkv": ("flash_attention_bwd_dkv_f32", bwd_src,
+            "bwd_dkv": ("flash_attention_bwd_dkv_f32_sm90",
+                        "flash_attention_bwd_dkv_f32",
                         "univid_tpu/kernels/flash_attention.py:940",
                         plain_bwd, lib_bwd),
         }
-        for key, (name, src, rep, plain_ms, lib_ms) in meta.items():
-            rec = dict(name=name, route="cuda", source=src, replaces=rep,
-                       max_abs_err=errs[key], ms=ms[key], plain_ms=plain_ms,
-                       bound_ms=bounds[key][0], bound_by=bounds[key][1],
-                       library_ms=lib_ms)
-            if shape == "self":
-                out[name] = rec
+        for key, (name, old_name, rep, plain_ms, lib_ms) in meta.items():
+            products, nb = work[key]
+            split_b = bound_ms(F32_SPLIT * products * mm, nb,
+                               H100_BF16_FLOPS)
+            fp32_b = bound_ms(products * mm, nb, H100_FP32_FLOPS)
+            new = dict(name=name, route="cuda", source=F32_SM90_SRC,
+                       replaces=rep, max_abs_err=errs[key], ms=ms[key],
+                       plain_ms=plain_ms, bound_ms=split_b[0],
+                       bound_by=split_b[1], library_ms=lib_ms,
+                       bound_fp32_cuda_cores_ms=fp32_b[0],
+                       replaced_ms=old_ms[key])
+            if key.startswith("bwd"):
+                new["pair_call_ms"] = ms["bwd_call"]
+                new["replaced_pair_ms"] = old_ms["bwd"]
             else:
-                log(json.dumps({"kernel_at_cross_shape": rec}))
-        del q, k, v, do, qs, o_p, lse_p, dq, dk, dv, delta
+                new["call_ms"] = ms[f"{key}_call"]
+            base = dict(name=old_name, route="cuda",
+                        source=old_src["bwd" if key.startswith("bwd")
+                                       else "fwd"],
+                        replaces=rep, max_abs_err=errs[f"{key}_old"],
+                        ms=old_ms[key], plain_ms=plain_ms,
+                        bound_ms=fp32_b[0], bound_by=fp32_b[1],
+                        library_ms=lib_ms)
+            for rec in (new, base):
+                if shape == "self":
+                    out[rec["name"]] = rec
+                else:
+                    log(json.dumps({"kernel_at_cross_shape": rec}))
+        del q, k, v, do, qs, o_p, lse_p, delta, dq_o
         torch.cuda.empty_cache()
     for rec in out.values():
         log(json.dumps({"kernel": rec}))
@@ -3198,8 +3320,12 @@ def fp32_train_parity():
              for nm, w in par_cpu.items()}
     worst = sorted(moved.items(), key=lambda kv: -kv[1])[:3]
     loss_err = max(abs(a - c) / abs(c) for a, c in zip(loss_gpu, loss_cpu))
-    want = {"flash_attention_f32_lse": 12, "flash_attention_bwd_dq_f32": 8,
-            "flash_attention_bwd_dkv_f32": 8}
+    # on the sm90 kernels: 12 forwards with lse (3 split pre-passes each),
+    # 8 backward pairs (4 each)
+    want = {"flash_attention_f32_sm90_lse": 12,
+            "flash_attention_bwd_dq_f32_sm90": 8,
+            "flash_attention_bwd_dkv_f32_sm90": 8,
+            "split_bf16x3": 12 * 3 + 8 * 4}
     out = {"check": "fp32_train_parity", "loss_card": loss_gpu,
            "loss_cpu": loss_cpu, "loss_rel_err": loss_err,
            "param_excess_over_1e-4+1e-5|ref|": param_excess,
@@ -3248,12 +3374,13 @@ def fp32_train_parity():
            "finite": bool(torch.isfinite(v_gpu).all())}
     out["ok"] = (out["finite"] and out["latent_rel_l2"] < 1e-4
                  and out["video_rel_l2"] < 1e-4
-                 and serving["flash_attention_f32_d128"] > 0
-                 and serving["rope_rotate_f32"] > 0)
+                 and serving["flash_attention_f32_sm90"] > 0
+                 and serving["rope_rotate_f32"] > 0
+                 and serving["flash_attention_f32_d128"] == 0)
     log(json.dumps(out))
     if not out["ok"]:
         fail("the fp32 t2v pipeline on the card disagrees with the CPU, or "
-             "did not run the fp32 d=128 kernels")
+             "did not run the fp32 d=128 sm90 kernel")
     return serving
 
 
@@ -3311,13 +3438,15 @@ def fp32_train_main_path(n_steps):
               if nm.startswith("blocks.")}
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    # per step, remat 'attn': 30 self-attention forwards with lse (every
-    # layer trains), 30 cross forwards and their 30 recomputes in the
-    # backward, one backward pair per differentiated call
+    # per step, remat 'attn': a self-attention forward with lse in every
+    # layer, a cross forward and its recompute in the backward, one backward
+    # pair per differentiated call, all on the sm90 kernels (3 split
+    # pre-passes a forward, 4 a backward); none on the CUDA-core kernels
     per_step = dict(dict.fromkeys(launch_counts(), 0),
-                    flash_attention_f32_lse=3 * cfg.num_layers,
-                    flash_attention_bwd_dq_f32=2 * cfg.num_layers,
-                    flash_attention_bwd_dkv_f32=2 * cfg.num_layers)
+                    flash_attention_f32_sm90_lse=3 * cfg.num_layers,
+                    flash_attention_bwd_dq_f32_sm90=2 * cfg.num_layers,
+                    flash_attention_bwd_dkv_f32_sm90=2 * cfg.num_layers,
+                    split_bf16x3=(9 + 8) * cfg.num_layers)
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     seconds, losses = [], []
@@ -3338,6 +3467,13 @@ def fp32_train_main_path(n_steps):
              if nm in blocks and torch.equal(p.detach().cpu(), blocks[nm])]
     del blocks
     state, profiled = profile_step(step, state, batch)
+    step_s = statistics.median(seconds[1:] or seconds)
+    busy_s = profiled["device_busy_ms"] / 1e3
+    # derived, not measured: the 30-block step as this step plus 20 more
+    # blocks at this step's device time a block (the embeddings, head and
+    # optimizer counted in the per-block share, an upper bound)
+    derived_30 = step_s + (spec.dit.num_layers - cfg.num_layers) * (
+        busy_s / cfg.num_layers)
     out = {"phase": "fp32_train_main_path", "model": "t2v-1.3B",
            "blocks": f"{cfg.num_layers} of {spec.dit.num_layers}",
            "policy": "FP32_POLICY", "resolution": f"832x480x{FP32_TRAIN_FRAMES}",
@@ -3345,7 +3481,10 @@ def fp32_train_main_path(n_steps):
            "params": sum(p.numel() for p in dit.parameters()),
            "init_s": init_s, "steps": n_steps, "step_seconds": seconds,
            # the first step also allocates: the median of the others
-           "seconds_per_step": statistics.median(seconds[1:] or seconds),
+           "seconds_per_step": step_s,
+           "attention_share_of_busy": (profiled["attention_kernels_ms"]
+                                       / profiled["device_busy_ms"]),
+           "derived_30_block_step_s": derived_30,
            "peak_memory_gb": peak, "losses": losses,
            "block_tensors_unmoved": still[:5],
            "launches": {k: v for k, v in launches.items() if v},
@@ -3933,11 +4072,18 @@ def kernels_line(records, by_path, mask_records):
            "flash_attention_bwd_dkv_bf16": None,
            "bwd_tile_list": "bagel_train",
            # fp32 serving: the fp32 t2v pipeline run of fp32_train_parity
-           "flash_attention_f32_d128": "fp32_serve",
+           "flash_attention_f32_sm90": "fp32_serve",
            "rope_rotate_f32": "fp32_serve",
-           "flash_attention_f32_lse": "fp32_train",
-           "flash_attention_bwd_dq_f32": "fp32_train",
-           "flash_attention_bwd_dkv_f32": "fp32_train"}
+           "flash_attention_f32_sm90_lse": "fp32_train",
+           "flash_attention_bwd_dq_f32_sm90": "fp32_train",
+           "flash_attention_bwd_dkv_f32_sm90": "fp32_train",
+           "split_bf16x3": "fp32_train",
+           # the CUDA-core fp32 d=128 kernels are no path's kernels since
+           # the sm90 ones took every fp32 d=128 call: same-call baselines
+           "flash_attention_f32_d128": None,
+           "flash_attention_f32_lse": None,
+           "flash_attention_bwd_dq_f32": None,
+           "flash_attention_bwd_dkv_f32": None}
     # the packed modes and the tile-list pre-passes serve BAGEL packed
     # training; no path of the JAX package reaches the segment modes at
     # d=128 (SigLIP's segments are d=72, the reference route) or the causal
@@ -4002,7 +4148,8 @@ def main():
                 log(f"ptxas {name}: {line.strip()}")
     # the Hopper forward and backward: no spills, no serialised wgmma, in
     # any instantiation
-    for name in ("flash_attention_sm90", "flash_attention_bwd_sm90"):
+    for name in ("flash_attention_sm90", "flash_attention_bwd_sm90",
+                 "flash_attention_f32_sm90"):
         sm90_log = build.BUILD_LOG.get(name, "")
         spills = re.findall(
             r"(\d+) bytes spill stores, (\d+) bytes spill loads", sm90_log)

@@ -501,30 +501,42 @@ def _f32_d128_inputs(cuda_device, lk, masked, seed=60, lq=256):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["sm90", "cuda_cores"])
 @pytest.mark.parametrize("mode", list(F32_D128_FWD))
-def test_cuda_f32_d128_forward_matches_plain(cuda_device, mode):
+def test_cuda_f32_d128_forward_matches_plain(cuda_device, mode, impl):
     """The fp32 d=128 forward (running max or bounded, with and without the
-    lse, kv_len, a half q tile) against its plain version on the card: 1e-5
-    + 1e-4 |ref| (summation order and the approximate exp2), lse 1e-4
-    absolute; kv_len = 0 rows exactly 0 with lse +1e30."""
+    lse, kv_len, a half q tile) against its plain version on the card: the
+    route's kernel ("sm90": flash_attention_f32_sm90.cu after its three
+    split pre-passes) and the CUDA-core baseline it replaced
+    (flash_attention_f32_d128.cu, reached by no route); 1e-5 + 1e-4 |ref|
+    (summation order and the approximate exp2), lse 1e-4 absolute; kv_len
+    = 0 rows exactly 0 with lse +1e30."""
     lq, lk, bounded, lse = F32_D128_FWD[mode]
     qs, k, v, kv = _f32_d128_inputs(cuda_device, lk, lk == lq, lq=lq)
     bound = (torch.tensor([1.01 * 128 * LOG2E / math.sqrt(128)],
                           device=cuda_device) if bounded else None)
     tfa.reset_launches()
     with torch.no_grad():
-        if lse:
+        if impl == "cuda_cores":
+            got, got_lse = tfa._launch_f32_d128(qs, k, v, kv, bound, lse)
+        elif lse:
             got, got_lse = tfa.flash_attention_fwd_folded(
                 qs, k, v, kv_len=kv, score_bound=bound)
-            want, want_lse = tfa.attention_plain(qs, k, v, kv_len=kv,
-                                                 bound=bound,
-                                                 save_residuals=True)
         else:
             got = tfa._flash_cuda(qs, k, v, kv, bound, None)
-            want = tfa.attention_plain(qs, k, v, kv_len=kv, bound=bound)
+        want = tfa.attention_plain(qs, k, v, kv_len=kv, bound=bound,
+                                   save_residuals=lse)
+        if lse:
+            want, want_lse = want
     torch.cuda.synchronize()
-    name = "flash_attention_f32_lse" if lse else "flash_attention_f32_d128"
-    assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {name: 1}
+    if impl == "cuda_cores":
+        name = "flash_attention_f32_lse" if lse else "flash_attention_f32_d128"
+        assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {name: 1}
+    else:
+        name = ("flash_attention_f32_sm90_lse" if lse
+                else "flash_attention_f32_sm90")
+        assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
+            name: 1, "split_bf16x3": 3}
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-4, atol=1e-5)
     if lse:
@@ -559,7 +571,8 @@ def test_cuda_f32_rope_and_fused_forward_match_plain(cuda_device):
                                    rope_tables=tabs)
     torch.cuda.synchronize()
     assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
-        "rope_rotate_f32": 3, "flash_attention_f32_d128": 1}
+        "rope_rotate_f32": 3, "split_bf16x3": 3,
+        "flash_attention_f32_sm90": 1}
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-4, atol=1e-5)
 
@@ -572,13 +585,7 @@ def _bwd_close(got, ref, name):
     assert _rel(got, ref) < 1e-4, name
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["running", "bounded", "cross512"])
-def test_cuda_f32_d128_backward_matches_plain(cuda_device, mode):
-    """The fp32 dq and dk/dv kernels against their plain version on the
-    card, from the plain residuals (1e-4 max|ref| + 1e-4 |ref| and rel. L2
-    < 1e-4: summation order and the approximate exp2); kv_len = 0 gives
-    zero gradients, and dk, dv past kv_len are zero."""
+def _f32_bwd_case(cuda_device, mode):
     lk = 512 if mode == "cross512" else 256
     qs, k, v, kv = _f32_d128_inputs(cuda_device, lk, lk == 256, seed=80)
     bound = (torch.tensor([1.01 * 128 * LOG2E / math.sqrt(128)],
@@ -587,15 +594,39 @@ def test_cuda_f32_d128_backward_matches_plain(cuda_device, mode):
     with torch.no_grad():
         o_p, lse_p = tfa.attention_plain(qs, k, v, kv_len=kv, bound=bound,
                                          save_residuals=True)
+    return qs, k, v, o_p, lse_p, do, kv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["sm90", "cuda_cores"])
+@pytest.mark.parametrize("mode", ["running", "bounded", "cross512"])
+def test_cuda_f32_d128_backward_matches_plain(cuda_device, mode, impl):
+    """The fp32 dq and dk/dv kernels against their plain version on the
+    card, from the plain residuals: the route's pair ("sm90":
+    flash_attention_f32_sm90.cu after its four split pre-passes) and the
+    CUDA-core baseline it replaced (flash_attention_bwd_f32.cu, reached by
+    no route); 1e-4 max|ref| + 1e-4 |ref| and rel. L2 < 1e-4 (summation
+    order and the approximate exp2); kv_len = 0 gives zero gradients, and
+    dk, dv past kv_len are zero."""
+    qs, k, v, o_p, lse_p, do, kv = _f32_bwd_case(cuda_device, mode)
+    with torch.no_grad():
         tfa.reset_launches()
-        grads = tfa.flash_attention_bwd_folded(qs, k, v, o_p, lse_p, do,
-                                               kv_len=kv,
-                                               softmax_scale=128 ** -0.5)
+        if impl == "cuda_cores":
+            dq, delta = tfa._bwd_dq_f32(qs, k, v, o_p, lse_p, do, kv,
+                                        128 ** -0.5)
+            grads = (dq,) + tfa._bwd_dkv_f32(qs, k, v, do, lse_p, delta, kv)
+        else:
+            grads = tfa.flash_attention_bwd_folded(qs, k, v, o_p, lse_p, do,
+                                                   kv_len=kv,
+                                                   softmax_scale=128 ** -0.5)
         want = tfa._bwd_plain_folded(qs, k, v, o_p, lse_p, do, kv,
                                      128 ** -0.5)
     torch.cuda.synchronize()
-    assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
-        "flash_attention_bwd_dq_f32": 1, "flash_attention_bwd_dkv_f32": 1}
+    assert {n: c for n, c in tfa.LAUNCHES.items() if c} == (
+        {"flash_attention_bwd_dq_f32": 1, "flash_attention_bwd_dkv_f32": 1}
+        if impl == "cuda_cores" else
+        {"split_bf16x3": 4, "flash_attention_bwd_dq_f32_sm90": 1,
+         "flash_attention_bwd_dkv_f32_sm90": 1})
     for got, ref, name in zip(grads, want, ("dq", "dk", "dv")):
         assert got.dtype == torch.float32
         _bwd_close(got, ref, name)
@@ -604,6 +635,58 @@ def test_cuda_f32_d128_backward_matches_plain(cuda_device, mode):
             assert float(gr[1].abs().max()) == 0.0
         assert float(grads[1][0, 200:].abs().max()) == 0.0
         assert float(grads[2][0, 200:].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["running", "cross512"])
+def test_cuda_f32_d128_backward_is_deterministic(cuda_device, mode):
+    """The fp32 backward sums every output element in a fixed order (no
+    atomics): two runs on the same inputs give bitwise-equal dq, dk, dv."""
+    qs, k, v, o_p, lse_p, do, kv = _f32_bwd_case(cuda_device, mode)
+    with torch.no_grad():
+        runs = [tfa.flash_attention_bwd_folded(qs, k, v, o_p, lse_p, do,
+                                               kv_len=kv,
+                                               softmax_scale=128 ** -0.5)
+                for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b, name in zip(*runs, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_cuda_f32_d128_failures_raise(cuda_device, monkeypatch):
+    """No silent fallback: when the fp32 d=128 kernels' library fails to
+    build, or a launch returns an error, the fp32 forward and backward
+    raise, and no CUDA-core baseline runs in their place."""
+    from univid_tpu_torch.kernels import build
+
+    qs, k, v, o_p, lse_p, do, kv = _f32_bwd_case(cuda_device, "running")
+
+    def calls():
+        yield lambda: tfa.flash_attention_fwd_folded(qs, k, v, kv_len=kv)
+        yield lambda: tfa._flash_cuda(qs, k, v, kv, None, None)
+        yield lambda: tfa.flash_attention_bwd_folded(
+            qs, k, v, o_p, lse_p, do, kv_len=kv, softmax_scale=128 ** -0.5)
+
+    def no_build(name):
+        raise RuntimeError(f"CUDA kernel build failed: {name}")
+
+    def refused(*args):
+        return 1   # cudaErrorInvalidValue
+
+    for patch in ({"load": no_build}, {"_fn": lambda *a: refused}):
+        with monkeypatch.context() as m:
+            m.setattr(tfa, "_FNS", {})
+            for attr, fn in patch.items():
+                m.setattr(build if attr == "load" else tfa, attr, fn)
+            tfa.reset_launches()
+            with torch.no_grad():
+                for call in calls():
+                    with pytest.raises(RuntimeError):
+                        call()
+            assert not any(tfa.LAUNCHES[n] for n in (
+                "flash_attention_f32_d128", "flash_attention_f32_lse",
+                "flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32"))
 
 
 @pytest.mark.cuda
@@ -667,10 +750,12 @@ def test_cuda_fp32_dit_train_step_matches_cpu(cuda_device):
     loss_gpu, par_gpu = run(cuda_device)
     used = {n: c for n, c in tfa.LAUNCHES.items() if c}
     loss_cpu, par_cpu = run("cpu")
-    # per step: 2 self + 2 x 2 cross forwards with lse, 4 backward pairs
-    assert used == {"flash_attention_f32_lse": 12,
-                    "flash_attention_bwd_dq_f32": 8,
-                    "flash_attention_bwd_dkv_f32": 8}
+    # per step: 2 self + 2 x 2 cross forwards with lse (3 split pre-passes
+    # each), 4 backward pairs (4 split pre-passes each), on the sm90 kernels
+    assert used == {"flash_attention_f32_sm90_lse": 12,
+                    "flash_attention_bwd_dq_f32_sm90": 8,
+                    "flash_attention_bwd_dkv_f32_sm90": 8,
+                    "split_bf16x3": 12 * 3 + 8 * 4}
     np.testing.assert_allclose(loss_gpu, loss_cpu, rtol=1e-5)
     start = dict(dit.named_parameters())
     for name, w in par_cpu.items():

@@ -1,7 +1,13 @@
 // Flash attention backward for Hopper (sm_90a), fp32 at d=128, on CUDA
-// cores: the backward of the full DiT fine-tune at its default fp32 policy.
+// cores: the SAME-CALL BASELINE of flash_attention_f32_sm90.cu's dq and
+// dk/dv kernels, which took every fp32 d=128 backward (the full DiT
+// fine-tune at its default fp32 policy) onto the tensor cores at fp32
+// accuracy. No route reaches these kernels: chip_smoke.py and the card
+// tests time and check them beside the new ones (flash_attention.py's
+// `_bwd_dq_f32` / `_bwd_dkv_f32`, counters flash_attention_bwd_dq_f32 /
+// flash_attention_bwd_dkv_f32).
 //
-// Replaces, at fp32 and d=128 with kv_len masking, the Pallas backward
+// They compute, at fp32 and d=128 with kv_len masking, the Pallas backward
 // kernels of univid_tpu/kernels/flash_attention.py, which rebuild p from
 // the forward's exp2-domain lse (p = exp2(qs k^T - lse), qs = q * scale *
 // log2e) and compute, with delta = rowsum(dO * O) and dS = p * (dO v^T -

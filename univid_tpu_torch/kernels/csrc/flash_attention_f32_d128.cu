@@ -1,7 +1,15 @@
 // Flash attention forward for Hopper (sm_90a), fp32 at d=128, on CUDA cores:
-// the full DiT fine-tune at its default fp32 policy, and fp32 DiT serving.
+// the SAME-CALL BASELINE of flash_attention_f32_sm90.cu, which took every
+// fp32 d=128 forward call (the full DiT fine-tune at its default fp32
+// policy, fp32 DiT serving, the fp32 cross-attention at 512 keys) onto the
+// tensor cores at fp32 accuracy. No route reaches this kernel: chip_smoke.py
+// and the card tests time and check it beside the new one
+// (flash_attention.py's `_launch_f32_d128`, counters
+// flash_attention_f32_d128 / flash_attention_f32_lse). The rope pre-pass
+// below (univid_rope_rotate_f32) is still the route's: fp32 serving with
+// fused rope rotates q and k here first.
 //
-// Replaces, at fp32 and d=128, univid_tpu/kernels/flash_attention.py::
+// It computes, at fp32 and d=128, univid_tpu/kernels/flash_attention.py::
 // _flash_kernel (:44) in the modes the DiT reaches:
 //   * the running max, or the bounded softmax p = exp2(s - C) at the
 //     folded score bound C (:266-275);

@@ -12,9 +12,11 @@ and training paths reach:
     with the pre-pass `mask_tile_list`: the live kv tiles of each q tile),
     and csrc/flash_attention.cu (mma.sync) in the causal one
     (`bf16_forward_route`); fp32 d=128 runs
-    csrc/flash_attention_f32_d128.cu (the DiT at the fp32 policy, serving
-    and training, its rope pre-pass `rope_rotate_f32` included; the fp32
-    cross-attention at Lk = 512 takes it too); fp32 d=384, 640 and 1024
+    csrc/flash_attention_f32_sm90.cu (the DiT at the fp32 policy, serving
+    and training: wgmma on three bf16 parts of each operand, split by the
+    pre-pass `split_bf16x3`, at fp32 accuracy; the fp32 cross-attention at
+    Lk = 512 takes it too; the rope pre-pass `rope_rotate_f32` of
+    csrc/flash_attention_f32_d128.cu rotates first); fp32 d=384, 640 and 1024
     run csrc/flash_attention_f32_tc.cu (VAE mid-block attention of the
     t2v-1.3B and the ti2v-5B VAEs: 3xTF32 tensor-core products over a
     materialised score matrix). With
@@ -50,7 +52,9 @@ and training paths reach:
     causal (static and device offsets), segment and packed masks, which
     walk a kv-major tile list that the pre-pass `bwd_tile_list` builds
     first (for each kv tile the q tiles with a live pair). fp32 d=128 with
-    kv_len on csrc/flash_attention_bwd_f32.cu (a dq and a dk/dv kernel).
+    kv_len on csrc/flash_attention_f32_sm90.cu (a dq kernel, which also
+    writes delta, and a dk/dv kernel, on the split operands; deterministic:
+    no atomics).
     The masked modes at fp32 (causal, segments, packed, grouped kv heads)
     have no fp32 caller and raise on the card (`F32_MASKS_LATER`).
 
@@ -71,9 +75,13 @@ knob and masked modes) by the kernel that ran it, `BWD_LAUNCHES_BY_IMPL`
 every bf16 backward call. The kernels each new one replaced stay compiled
 and reachable (`_launch_bf16` for the segment and packed modes,
 `_launch_f32_simt` for the fp32 VAE mode, `_bwd_dq_cuda` /
-`_bwd_dkv_cuda`, the mma.sync pair, for every bf16 backward) as the
-same-call baselines of chip_smoke.py and the card tests; no route reaches
-them.
+`_bwd_dkv_cuda`, the mma.sync pair, for every bf16 backward,
+`_launch_f32_d128` and `_bwd_dq_f32` / `_bwd_dkv_f32`, the fp32 d=128
+CUDA-core kernels) as the same-call baselines of chip_smoke.py and the
+card tests; no route reaches them, and they keep their launch counters'
+names (`flash_attention_f32_d128`, `flash_attention_f32_lse`,
+`flash_attention_bwd_dq_f32`, `flash_attention_bwd_dkv_f32`) beside the
+new kernels' (`..._f32_sm90`).
 """
 
 from __future__ import annotations
@@ -121,7 +129,11 @@ LAUNCHES = {"flash_attention_bf16": 0, "flash_attention_bf16_causal": 0,
             "flash_attention_bf16_sbf16": 0, "cross_attention_bf16_sbf16": 0,
             "quantize_qk_int8": 0, "flash_attention_int8": 0,
             "flash_attention_int8_sbf16": 0, "mask_tile_list": 0,
-            "flash_attention_bwd_bf16_sm90": 0, "bwd_tile_list": 0}
+            "flash_attention_bwd_bf16_sm90": 0, "bwd_tile_list": 0,
+            "split_bf16x3": 0, "flash_attention_f32_sm90": 0,
+            "flash_attention_f32_sm90_lse": 0,
+            "flash_attention_bwd_dq_f32_sm90": 0,
+            "flash_attention_bwd_dkv_f32_sm90": 0}
 # the flash_attention_f32 launches split by head dim
 F32_LAUNCHES_BY_D = {d: 0 for d in F32_DIMS}
 # launches of the masked modes: each is also counted under its kernel's name
@@ -641,8 +653,10 @@ def _no_masks(causal=False, q_segments=None, kv_segments=None,
 
 
 def _launch_f32_d128(q, k, v, kv_len, bound, save_lse):
-    """The fp32 d=128 forward (running max, or bounded with `bound`):
-    (o, lse fp32 [B, N, Lq] or None)."""
+    """csrc/flash_attention_f32_d128.cu, the CUDA-core fp32 d=128 forward
+    that `_launch_f32_sm90` replaced (running max, or bounded with
+    `bound`): (o, lse fp32 [B, N, Lq] or None). A baseline reached only by
+    chip_smoke.py and the card tests."""
     b, lq, n, d = q.shape
     _check_aligned(q, k, v)
     o = torch.empty((b, lq, n, d), dtype=torch.float32, device=q.device)
@@ -655,6 +669,70 @@ def _launch_f32_d128(q, k, v, kv_len, bound, save_lse):
              _ptr(kv_len), _ptr(bound), _ptr(lse), b, n, lq, k.shape[1],
              ctypes.addressof(strides), _stream(q))
     build.check(err, "univid_flash_fwd_f32_d128")
+    _count("flash_attention_f32_lse" if save_lse
+           else "flash_attention_f32_d128")
+    return o, lse
+
+
+def split_bf16x3_plain(x):
+    """fp32 x -> bf16 [3, *x.shape], the three parts of
+    csrc/flash_attention_f32_sm90.cu's operands: b0 = bf16(x), b1 =
+    bf16(x - b0), b2 = bf16(x - b0 - b1), each rounded to nearest even
+    (both differences are exact in fp32), so x = b0 + b1 + b2 + O(2^-27
+    |x|)."""
+    b0 = x.to(torch.bfloat16)
+    r = x - b0.float()
+    b1 = r.to(torch.bfloat16)
+    return torch.stack((b0, b1, (r - b1.float()).to(torch.bfloat16)))
+
+
+def split_bf16x3(x):
+    """The split pre-pass (`split_bf16x3_kernel`, one launch): fp32 [B, L,
+    N, 128] -> bf16 parts [3, B, L, N, 128], contiguous. The plain version
+    on CPU tensors."""
+    if not x.is_cuda:
+        return split_bf16x3_plain(x)
+    if x.dtype != torch.float32 or x.dim() != 4 or x.shape[-1] != D128:
+        raise TypeError("the split pre-pass takes fp32 [B, L, N, 128] "
+                        "CUDA tensors")
+    _check_aligned(x)
+    b, l, n, d = x.shape
+    out = torch.empty((3, b, l, n, d), dtype=torch.bfloat16, device=x.device)
+    fn = _fn("flash_attention_f32_sm90", "univid_split_bf16x3",
+             [_P, _P, _I, _I, _I, ctypes.c_longlong, ctypes.c_longlong,
+              ctypes.c_longlong, _P])
+    err = fn(x.data_ptr(), out.data_ptr(), b, l, n, x.stride(0),
+             x.stride(1), x.stride(2), _stream(x))
+    build.check(err, "univid_split_bf16x3")
+    _count("split_bf16x3")
+    return out
+
+
+def _launch_f32_sm90(q, k, v, kv_len, bound, save_lse):
+    """The fp32 d=128 forward on csrc/flash_attention_f32_sm90.cu (running
+    max, or bounded with `bound`) on folded q: the split pre-pass of q, k
+    and v, then the kernel (four launches). (o, lse fp32 [B, N, Lq] or
+    None)."""
+    return _fwd_f32_sm90_parts(*(split_bf16x3(t) for t in (q, k, v)),
+                               kv_len, bound, save_lse)
+
+
+def _fwd_f32_sm90_parts(qp, kp, vp, kv_len, bound, save_lse):
+    """The forward kernel alone on split parts (`split_bf16x3`) of folded
+    q [B, Lq, N, 128] and of k, v: (o, lse or None)."""
+    _, b, lq, n, d = qp.shape
+    o = torch.empty((b, lq, n, d), dtype=torch.float32, device=qp.device)
+    lse = (torch.empty((b, n, lq), dtype=torch.float32, device=qp.device)
+           if save_lse else None)
+    fn = _fn("flash_attention_f32_sm90", "univid_flash_fwd_f32_sm90",
+             [_P] * 7 + [_I] * 4 + [_P, _P])
+    strides = (ctypes.c_longlong * 3)(*o.stride()[:3])
+    err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
+             _ptr(kv_len), _ptr(bound), _ptr(lse), b, n, lq, kp.shape[2],
+             ctypes.addressof(strides), _stream(qp))
+    build.check(err, "univid_flash_fwd_f32_sm90")
+    _count("flash_attention_f32_sm90_lse" if save_lse
+           else "flash_attention_f32_sm90")
     return o, lse
 
 
@@ -941,9 +1019,8 @@ def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
             cq, sq, ck, sk = (t.float().contiguous() for t in rope_tables)
             q = _rope_f32(q, cq, sq)
             k = _rope_f32(k, ck, sk)
-        o, _ = _launch_f32_d128(q, k, v, kv_len,
+        o, _ = _launch_f32_sm90(q, k, v, kv_len,
                                 _bound_tensor(bound, q.device), False)
-        _count("flash_attention_f32_d128")
         return o
     if q.dtype == torch.float32:
         _check_cuda_inputs(q, k, v, kv_len, torch.float32,
@@ -1182,10 +1259,8 @@ def flash_attention_fwd_folded(qs, k, v, *, kv_len=None, score_bound=None,
     if qs.dtype == torch.float32:
         _check_cuda_inputs(qs, k, v, kv_len, torch.float32, (D128,))
         _no_masks(**masks)
-        o, lse = _launch_f32_d128(qs, k, v, kv_len,
-                                  _bound_tensor(score_bound, qs.device), True)
-        _count("flash_attention_f32_lse")
-        return o, lse
+        return _launch_f32_sm90(qs, k, v, kv_len,
+                                _bound_tensor(score_bound, qs.device), True)
     _check_cuda_inputs(qs, k, v, kv_len, torch.bfloat16, (D128,))
     seg = _check_masks(qs, k.shape[1], q_offsets, q_segments, kv_segments,
                        packed_mode, causal)
@@ -1230,17 +1305,16 @@ def flash_attention_bwd_folded(qs, k, v, o, lse, do, *, kv_len=None,
                                softmax_scale, **masks):
     """The backward on the folded qs of the forward: the plain version on
     the CPU; on the card, bf16: the kernel `bf16_backward_route` names (the
-    one-pass sm90 kernel, under every mask); fp32: the fp32 pair (dq and
-    delta, then dk/dv). masks: causal, q_offset, q_offsets, q_segments,
+    one-pass sm90 kernel, under every mask); fp32: the fp32 pair of
+    csrc/flash_attention_f32_sm90.cu (the split pre-passes, dq and delta,
+    then dk/dv). masks: causal, q_offset, q_offsets, q_segments,
     kv_segments, packed_mode (bf16 only)."""
     if not qs.is_cuda:
         return _bwd_plain_folded(qs, k, v, o, lse, do, kv_len, softmax_scale,
                                  **masks)
     if qs.dtype == torch.float32:
         _no_masks(**masks)
-        dq, delta = _bwd_dq_f32(qs, k, v, o, lse, do, kv_len, softmax_scale)
-        dk, dv = _bwd_dkv_f32(qs, k, v, do, lse, delta, kv_len)
-        return dq, dk, dv
+        return _bwd_f32_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale)
     impl = bf16_backward_route(qs, k, v)  # the launch checks the masks
     out = _launch_bwd_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale,
                            **masks)
@@ -1497,9 +1571,66 @@ def _bwd_dkv_cuda(qs, k, v, do, lse, delta, kv_len, *, causal=False,
     return dk, dv
 
 
+def _bwd_f32_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale):
+    """dq, dk, dv of the fp32 d=128 forward on csrc/flash_attention_f32_sm90.cu:
+    the split pre-passes of qs, k, v and do, the dq kernel (dq and delta =
+    rowsum(do * o), fp32 [B, N, Lq]), then the dk/dv kernel (six launches).
+    Deterministic: no output element is summed by atomics."""
+    _check_bwd_inputs(qs, k, v, do, lse, kv_len, o, dtype=torch.float32)
+    _check_aligned(qs, k, v, o, do)
+    if lse.data_ptr() % 16:
+        raise ValueError("the fp32 backward copies lse rows in bulk: a "
+                         "16-byte aligned lse")
+    parts = [split_bf16x3(t) for t in (qs, k, v, do)]
+    dq, delta = _bwd_dq_f32_sm90_parts(*parts, o, do, lse, kv_len,
+                                       softmax_scale)
+    return (dq,) + _bwd_dkv_f32_sm90_parts(*parts, lse, delta, kv_len)
+
+
+def _bwd_dq_f32_sm90_parts(qp, kp, vp, dop, o, do, lse, kv_len,
+                           softmax_scale):
+    """The dq kernel alone on split parts of qs, k, v, do (fp32 o and do
+    for delta): (dq, delta fp32 [B, N, Lq])."""
+    _, b, lq, n, d = qp.shape
+    lk = kp.shape[2]
+    dq = torch.empty((b, lq, n, d), dtype=torch.float32, device=o.device)
+    delta = torch.empty((b, n, lq), dtype=torch.float32, device=o.device)
+    fn = _fn("flash_attention_f32_sm90", "univid_flash_bwd_dq_f32_sm90",
+             [_P] * 10 + [_I] * 4 + [ctypes.c_float, _P, _P])
+    st = (ctypes.c_longlong * 9)(*o.stride()[:3], *do.stride()[:3],
+                                 *dq.stride()[:3])
+    err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(),
+             o.data_ptr(), do.data_ptr(), lse.data_ptr(), _ptr(kv_len),
+             dq.data_ptr(), delta.data_ptr(), b, n, lq, lk, softmax_scale,
+             ctypes.addressof(st), _stream(o))
+    build.check(err, "univid_flash_bwd_dq_f32_sm90")
+    _count("flash_attention_bwd_dq_f32_sm90")
+    return dq, delta
+
+
+def _bwd_dkv_f32_sm90_parts(qp, kp, vp, dop, lse, delta, kv_len):
+    """The dk/dv kernel alone on split parts of qs, k, v, do and the dq
+    kernel's delta: (dk, dv)."""
+    _, b, lq, n, d = qp.shape
+    lk = kp.shape[2]
+    dk = torch.empty((b, lk, n, d), dtype=torch.float32, device=lse.device)
+    dv = torch.empty((b, lk, n, d), dtype=torch.float32, device=lse.device)
+    fn = _fn("flash_attention_f32_sm90", "univid_flash_bwd_dkv_f32_sm90",
+             [_P] * 9 + [_I] * 4 + [_P, _P])
+    st = (ctypes.c_longlong * 6)(*dk.stride()[:3], *dv.stride()[:3])
+    err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), _ptr(kv_len), dk.data_ptr(),
+             dv.data_ptr(), b, n, lq, lk, ctypes.addressof(st), _stream(lse))
+    build.check(err, "univid_flash_bwd_dkv_f32_sm90")
+    _count("flash_attention_bwd_dkv_f32_sm90")
+    return dk, dv
+
+
 def _bwd_dq_f32(qs, k, v, o, lse, do, kv_len, softmax_scale):
-    """dq and delta = rowsum(do * o), fp32 [B, N, Lq], of the fp32 d=128
-    forward."""
+    """csrc/flash_attention_bwd_f32.cu's dq kernel, the CUDA-core
+    baseline of `_bwd_f32_sm90` (reached only by chip_smoke.py and the card
+    tests): dq and delta = rowsum(do * o), fp32 [B, N, Lq], of the fp32
+    d=128 forward."""
     _check_bwd_inputs(qs, k, v, do, lse, kv_len, o, dtype=torch.float32)
     _check_aligned(qs, k, v, o, do)
     b, lq, n, d = qs.shape
@@ -1518,7 +1649,8 @@ def _bwd_dq_f32(qs, k, v, o, lse, do, kv_len, softmax_scale):
 
 
 def _bwd_dkv_f32(qs, k, v, do, lse, delta, kv_len):
-    """dk, dv of the fp32 d=128 forward, from the dq kernel's delta."""
+    """The CUDA-core baseline's dk/dv kernel: dk, dv of the fp32 d=128
+    forward, from the dq kernel's delta."""
     _check_bwd_inputs(qs, k, v, do, lse, kv_len, dtype=torch.float32)
     _check_aligned(qs, k, v, do)
     if delta.shape != lse.shape or not delta.is_contiguous():
