@@ -108,14 +108,19 @@ Phases:
      --int8 --taylorseer 2, 8 steps (6 DiT calls); check the mp4 and the
      launches (per DiT call 30 int8 bf16-softmax self-attention, 30
      bf16-softmax cross-attention, 60 pre-pass, 300 W8A8 GEMMs; no
-     knob-free attention); print seconds per DiT and per Taylor step, for
-     the video, peak memory; time the ti2v-5B DiT forward with each knob
-     alone and all four (two forwards each, the launches of one checked).
+     knob-free attention, none on the mma.sync int8 kernel); print seconds
+     per DiT and per Taylor step, for the video, peak memory; time the
+     ti2v-5B DiT forward with each knob alone and all four (two forwards
+     each, the launches of one checked), and profile one with qk_int8
+     alone (device time by kernel family).
 The knob kernels (softmax_bf16 on self- and cross-attention, the rope +
-int8 pre-pass, the int8 QK^T kernel alone and with softmax_bf16) are held
-against their plain versions at the ti2v-5B and t2v-1.3B shapes in phase
-3, and each knob alone and all four card against CPU on a small d=128 DiT
-in phase 4.
+int8 pre-pass, the int8 QK^T kernel alone and with softmax_bf16: the
+route's flash_attention_int8_sm90.cu, s8 wgmma / TMA multicast / warp
+specialisation, bounded and running, and the mma.sync kernel it replaced,
+timed in turns, `int8_sm90_vs_mma_sync` lines, a kv_len = 0 row exactly 0)
+are held against their plain versions at the ti2v-5B and t2v-1.3B shapes
+in phase 3, and each knob alone and all four card against CPU on a small
+d=128 DiT in phase 4.
 Each path starts with every launch count at 0; the paths of phases 5-9
 and 12 also check their bf16 forward launches by kernel (every unmasked,
 segment and packed forward on the sm90 kernel, only causal calls on the
@@ -128,7 +133,8 @@ kernels are baselines only: 0; the fp32 d=128 serving forward and rope
 pre-pass count the fp32 t2v pipeline run of phase 4, the split pre-pass
 the fp32 fine-tune; the knob kernels count the knob path, the bf16-softmax self-
 attention and the fp32-chain int8 kernel the ti2v-5B DiT forward with
-their knob alone). The last line is
+their knob alone; the mma.sync int8 kernel is a baseline only: 0). The
+last line is
 {"ok": true, "device": {...}}; any failure exits non-zero.
 """
 
@@ -1312,12 +1318,14 @@ def train_main_path(n_steps):
     return launches
 
 
-def profile_call(fn):
+def profile_call(fn, families=None):
     """fn() under torch.profiler, to a synchronised end: the device time of
     its kernels by family, their count, the five kernels that took the
     most device time, and the share of the wall time in which no kernel
     ran (the profiler's host overhead inflates the wall time, so this
-    share is an upper bound). Returns (fn(), summary)."""
+    share is an upper bound). `families` ({name: kernel-name substrings})
+    splits out families of its own, matched before the default ones.
+    Returns (fn(), summary)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1329,8 +1337,10 @@ def profile_call(fn):
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    fam = {"attention_kernels_ms": 0.0, "gemm_ms": 0.0,
-           "other_kernels_ms": 0.0}
+    families = families or {}
+    fam = dict.fromkeys(families, 0.0)
+    fam.update({"attention_kernels_ms": 0.0, "gemm_ms": 0.0,
+                "other_kernels_ms": 0.0})
     n_kernels = 0
     top = []
     for e in prof.key_averages():
@@ -1340,7 +1350,11 @@ def profile_call(fn):
         ms = e.self_device_time_total / 1e3
         top.append({"kernel": e.key[:90], "ms": ms, "count": e.count})
         name = e.key.lower()
-        if ("flash_" in name or "rope_rotate" in name or "mask_tiles" in name
+        own = [f for f, keys in families.items()
+               if any(k in name for k in keys)]
+        if own:
+            fam[own[0]] += ms
+        elif ("flash_" in name or "rope_rotate" in name or "mask_tiles" in name
                 or "bwd_pre" in name or "bwd_post" in name
                 or "bwd_tiles" in name or "split_bf16x3" in name):
             fam["attention_kernels_ms"] += ms
@@ -3683,7 +3697,11 @@ def check_knob_kernels(tag, n, grid, l, seed, running):
             bound_by=by, library_ms=None)
 
         # ---- K3 (+ K1): int8 QK^T attention -----------------------------
-        # QK^T at the int8 rate, p v at the bf16 rate
+        # the route's sm90 kernel (flash_attention_int8_sm90.cu) and the
+        # mma.sync kernel it replaced, both against the plain version, then
+        # timed in turns (old, new, new, old) beside the plain version, bf16
+        # SDPA and the knob-free sm90 kernel. QK^T at the int8 rate, p v at
+        # the bf16 rate
         t_ops = (flops / 2 / H100_INT8_OPS + flops / 2 / H100_BF16_FLOPS) \
             * 1e3
         t_bytes = nbytes(qi, ki, sqs, akq, v, v) / H100_BYTES * 1e3
@@ -3691,32 +3709,64 @@ def check_knob_kernels(tag, n, grid, l, seed, running):
                    else (t_bytes, "bytes"))
         for sbf, name in ((False, "flash_attention_int8"),
                           (True, "flash_attention_int8_sbf16")):
-            got = fa.flash_attention_int8(*codes, v, kv_len=kv_len,
-                                          score_bound=bound,
-                                          softmax_bf16=sbf, block_k=bw)
+            kw = dict(kv_len=kv_len, score_bound=bound, softmax_bf16=sbf,
+                      block_k=bw)
             want = fa.attention_int8_plain(*codes, v, kv_len=kv_len,
                                            bound=bound, softmax_bf16=sbf,
                                            block_k=bw)
-            err = compare(f"{name} {tag} bounded+kv_len", got, want, **tol)
-            if running and not sbf:
-                compare(f"{name} {tag} running max+kv_len",
-                        fa.flash_attention_int8(*codes, v, kv_len=kv_len,
-                                                block_k=bw),
-                        fa.attention_int8_plain(*codes, v, kv_len=kv_len,
-                                                block_k=bw), **tol_run)
+            errs = {}
+            for impl, run in (("sm90", fa.flash_attention_int8),
+                              ("mma_sync", fa._launch_int8_mma_sync)):
+                got = run(*codes, v, **kw)
+                check = f"{name} {tag} bounded+kv_len ({impl})"
+                errs[impl] = (compare_bf16_chain(check, got, want, v_max)
+                              if sbf else compare(check, got, want, **tol))
             del got, want
-            ms = cuda_time(lambda: fa.flash_attention_int8(
-                *codes, v, kv_len=kv_len, score_bound=bound,
-                softmax_bf16=sbf, block_k=bw), 3)
+            if running:
+                kr_ = dict(kv_len=kv_len, softmax_bf16=sbf, block_k=bw)
+                got = fa.flash_attention_int8(*codes, v, **kr_)
+                want = fa.attention_int8_plain(*codes, v, kv_len=kv_len,
+                                               softmax_bf16=sbf, block_k=bw)
+                check = f"{name} {tag} running max+kv_len (sm90)"
+                if sbf:
+                    compare_bf16_chain(check, got, want, v_max)
+                else:
+                    compare(check, got, want, **tol_run)
+                del got, want
+            # a batch row with kv_len = 0: no tile loaded, exact zeros
+            got = fa.flash_attention_int8(
+                *codes, v, kv_len=torch.tensor([0, kv_real], dtype=torch.int32,
+                                               device="cuda"),
+                score_bound=bound, softmax_bf16=sbf, block_k=bw)
+            zero = bool((got[0] == 0).all())
+            log(json.dumps({"check": f"{name} {tag} kv_len = 0 row",
+                            "exactly_zero": zero, "ok": zero}))
+            if not zero:
+                fail(f"{name}: a kv_len = 0 row is not exactly 0")
+            del got
+            ms, old_ms = ab_time(lambda: fa.flash_attention_int8(*codes, v,
+                                                                 **kw),
+                                 lambda: fa._launch_int8_mma_sync(*codes, v,
+                                                                  **kw), 3)
             plain_ms = cuda_time(lambda: fa.attention_int8_plain(
                 *codes, v, kv_len=kv_len, bound=bound, softmax_bf16=sbf,
                 block_k=bw), 1)
+            log(json.dumps({"int8_sm90_vs_mma_sync": f"{name} {tag}",
+                            "sm90_ms": ms, "mma_sync_ms": old_ms,
+                            "speedup": old_ms / ms, "knob_free_sm90_ms": ms_free,
+                            "sdpa_ms": lib_ms, "bound_ms": bms}))
+            common = dict(route="cuda",
+                          replaces="univid_tpu/kernels/flash_attention.py:44",
+                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                          library_ms=lib_ms, knob_free_ms=ms_free)
             recs[name] = dict(
-                name=name, route="cuda",
-                source="univid_tpu_torch/kernels/csrc/flash_attention_int8.cu",
-                replaces="univid_tpu/kernels/flash_attention.py:44",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=lib_ms, knob_free_ms=ms_free)
+                common, name=name, max_abs_err=errs["sm90"], ms=ms,
+                source="univid_tpu_torch/kernels/csrc/"
+                       "flash_attention_int8_sm90.cu", mma_sync_ms=old_ms)
+            recs[f"{name}_mma_sync"] = dict(
+                common, name=f"{name}_mma_sync",
+                max_abs_err=errs["mma_sync"], ms=old_ms,
+                source="univid_tpu_torch/kernels/csrc/flash_attention_int8.cu")
         del q, k, v, qr, kr, codes, qi, ki
 
         # ---- K1 on cross-attention: 512 text keys -----------------------
@@ -3969,6 +4019,16 @@ def _knob_forward_times(spec, forwards):
             fwd()
             torch.cuda.synchronize()
             times[knob].append(time.perf_counter() - t0)
+        if knob == "qk_int8":
+            # where a DiT call's time goes with int8 QK^T: its 30 int8
+            # attention calls, their 60 pre-passes, the 30 cross-attention
+            # calls, the GEMMs, the rest
+            _, prof = profile_call(fwd, families={
+                "int8_attention_ms": ("flash_fwd_int8_sm90",),
+                "int8_prepass_ms": ("quant_q_kernel", "quant_k_kernel"),
+                "cross_attention_ms": ("flash_fwd_sm90",)})
+            log(json.dumps({"profile": "ti2v-5B DiT forward, qk_int8 alone",
+                            **prof}))
     del dit
     gc.collect()
     torch.cuda.empty_cache()
@@ -4083,7 +4143,11 @@ def kernels_line(records, by_path, mask_records):
            "flash_attention_f32_d128": None,
            "flash_attention_f32_lse": None,
            "flash_attention_bwd_dq_f32": None,
-           "flash_attention_bwd_dkv_f32": None}
+           "flash_attention_bwd_dkv_f32": None,
+           # the mma.sync int8 QK^T kernel is no path's kernel since the sm90
+           # one took every int8 call: the same-call baseline
+           "flash_attention_int8_mma_sync": None,
+           "flash_attention_int8_sbf16_mma_sync": None}
     # the packed modes and the tile-list pre-passes serve BAGEL packed
     # training; no path of the JAX package reaches the segment modes at
     # d=128 (SigLIP's segments are d=72, the reference route) or the causal
@@ -4103,6 +4167,25 @@ def kernels_line(records, by_path, mask_records):
         kernels.append(dict(rec, launches=launches, launches_by_path={
             p: c[nm] for p, c in by_path.items()}))
     return kernels
+
+
+def ptxas_by_function(text):
+    """nvcc -Xptxas -v output by kernel function (its mangled name):
+    registers, spill bytes (stores + loads) and whether ptxas serialised a
+    wgmma (C7513 / C7514) there."""
+    out = {}
+    for chunk in text.split("Compiling entry function '")[1:]:
+        fn = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spills = re.search(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        out[fn] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "spill_bytes": (int(spills.group(1)) + int(spills.group(2))
+                            if spills else None),
+            "serialised_wgmma": bool(re.search(
+                r"C751[34].*" + re.escape(fn), text))}
+    return out
 
 
 def launch_counts():
@@ -4146,16 +4229,19 @@ def main():
             if "registers" in line or "spill" in line \
                     or "Performance Loss" in line:
                 log(f"ptxas {name}: {line.strip()}")
-    # the Hopper forward and backward: no spills, no serialised wgmma, in
-    # any instantiation
+    # the Hopper kernels: no spills, no serialised wgmma (ptxas warnings
+    # C7513 / C7514), in any instantiation
     for name in ("flash_attention_sm90", "flash_attention_bwd_sm90",
-                 "flash_attention_f32_sm90"):
+                 "flash_attention_f32_sm90", "flash_attention_int8_sm90"):
         sm90_log = build.BUILD_LOG.get(name, "")
         spills = re.findall(
             r"(\d+) bytes spill stores, (\d+) bytes spill loads", sm90_log)
         if (any(a != "0" or b != "0" for a, b in spills)
-                or "C7514" in sm90_log):
+                or re.search(r"C751[34]", sm90_log)):
             fail(f"{name}.cu spills or serialises its wgmma")
+    log(json.dumps({"check": "flash_attention_int8_sm90.cu instantiations",
+                    "ptxas": ptxas_by_function(
+                        build.BUILD_LOG.get("flash_attention_int8_sm90", ""))}))
 
     t0 = time.perf_counter()
     records = check_kernels()

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from univid_tpu_torch.kernels import attention as tatt
+from univid_tpu_torch.kernels import build
 from univid_tpu_torch.kernels import flash_attention as tfa
 from univid_tpu_torch.ops.rope import build_rope_3d as trope3d
 
@@ -837,14 +838,25 @@ def test_cuda_int8_prepass_matches_plain(cuda_device, rope):
         assert torch.equal(g, w)
 
 
+INT8_IMPLS = {"sm90": tfa.flash_attention_int8,
+               "mma_sync": tfa._launch_int8_mma_sync}
+
+
+def _int8_counter(sbf, impl):
+    return (("flash_attention_int8_sbf16" if sbf else "flash_attention_int8")
+            + ("" if impl == "sm90" else "_mma_sync"))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("impl", list(INT8_IMPLS))
 @pytest.mark.parametrize("mode", ["bounded", "running", "bounded_sbf16"])
-def test_cuda_int8_attention_matches_plain(cuda_device, mode):
-    """The int8 QK^T kernel against its plain version on the same codes
-    (blocks of 128 keys, kv_len [512, 435], masked keys' v at 50.0): the
-    scores are equal (exact integer products, the same fp32 rescale), so
-    only the softmax's exp2, summation order and p rounding differ: bf16
-    tolerance."""
+def test_cuda_int8_attention_matches_plain(cuda_device, mode, impl):
+    """The int8 QK^T kernel (the route's sm90 kernel, and the mma.sync
+    kernel it replaced, the same-call baseline) against its plain version
+    on the same codes (blocks of 128 keys, kv_len [512, 435], masked keys'
+    v at 50.0): the scores are equal (exact integer products, the same fp32
+    rescale), so only the softmax's exp2, summation order and p rounding
+    differ: bf16 tolerance. The launch counter shows the kernel that ran."""
     d, l = 128, 512
     q, k, v = (torch.as_tensor(_rand((2, l, 2, d), s, True)).to(
         cuda_device, torch.bfloat16) for s in (25, 26, 27))
@@ -857,15 +869,95 @@ def test_cuda_int8_attention_matches_plain(cuda_device, mode):
                           device=cuda_device)
     codes = tfa.quantize_qk_int8(qs, k, None, 128)
     tfa.reset_launches()
-    got = tfa.flash_attention_int8(*codes, v, kv_len=kv, score_bound=bound,
-                                   softmax_bf16=sbf, block_k=128)
+    got = INT8_IMPLS[impl](*codes, v, kv_len=kv, score_bound=bound,
+                           softmax_bf16=sbf, block_k=128)
     want = tfa.attention_int8_plain(*codes, v, kv_len=kv, bound=bound,
                                     softmax_bf16=sbf, block_k=128)
     torch.cuda.synchronize()
-    assert tfa.LAUNCHES["flash_attention_int8_sbf16" if sbf
-                        else "flash_attention_int8"] == 1
+    assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
+        _int8_counter(sbf, impl): 1}
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **BF16)
+
+
+# (bw, Lq, Lk, kv_len): bw = 192, tile 1 (keys 128-255) straddling two k
+# scales with kv_len 200 in it; Lq = 448 (the last 128-row q tile has one
+# live consumer) with bw = Lk = 448, the last kv tile half past Lk; Lq =
+# 320, three q tiles: the second cluster's block past Lq loads nothing and
+# its peer loads alone; a kv_len = 0 batch row
+INT8_EDGES = {"bw192_straddle": (192, 512, 512, [512, 200]),
+              "lq448": (448, 448, 448, [448, 400]),
+              "lq320_odd_tiles": (128, 320, 384, [384, 250]),
+              "kv_len0": (128, 256, 512, [0, 320])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bounded", "running", "bounded_sbf16",
+                                  "running_sbf16"])
+@pytest.mark.parametrize("case", list(INT8_EDGES))
+def test_cuda_int8_sm90_edges(cuda_device, case, mode):
+    """The sm90 int8 kernel at its edges against the plain version within
+    PERF.md s2's int8 bounds (`_check_fwd`: + 2^-8 max|v| under the running
+    max; the bf16 chain's share bound), keys past kv_len at 50.0 in k and
+    v; a kv_len = 0 row exactly 0; one launch on the sm90 kernel."""
+    bw, lq, lk, kv_list = INT8_EDGES[case]
+    d = 128
+    q = torch.as_tensor(_rand((2, lq, 3, d), 31, True)).to(cuda_device,
+                                                          torch.bfloat16)
+    k, v = (torch.as_tensor(_rand((2, lk, 3, d), s, True)).to(
+        cuda_device, torch.bfloat16) for s in (32, 33))
+    for bi, end in enumerate(kv_list):
+        k[bi, end:] = 50.0
+        v[bi, end:] = 50.0
+    kv = torch.tensor(kv_list, dtype=torch.int32, device=cuda_device)
+    bound = (torch.tensor([1.01 * d * LOG2E / math.sqrt(d)],
+                          device=cuda_device) if "bounded" in mode else None)
+    sbf = mode.endswith("sbf16")
+    qs = q * torch.tensor(LOG2E / math.sqrt(d), dtype=q.dtype,
+                          device=cuda_device)
+    codes = tfa.quantize_qk_int8(qs, k, None, bw)
+    tfa.reset_launches()
+    got = tfa.flash_attention_int8(*codes, v, kv_len=kv, score_bound=bound,
+                                   softmax_bf16=sbf, block_k=bw)
+    want = tfa.attention_int8_plain(*codes, v, kv_len=kv, bound=bound,
+                                    softmax_bf16=sbf, block_k=bw)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in tfa.LAUNCHES.items() if c} == {
+        _int8_counter(sbf, "sm90"): 1}
+    live = [bi for bi, end in enumerate(kv_list) if end > 0]
+    for bi, end in enumerate(kv_list):
+        if end == 0:
+            assert bool((got[bi] == 0).all())
+    live_v = torch.cat([v[bi, :kv_list[bi]] for bi in live])
+    _check_fwd(got[live], want[live], live_v, running=bound is None,
+               sbf16=sbf)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_sm90_failures_raise(cuda_device, monkeypatch, tmp_path):
+    """No fallback: a launch the kernel refuses (a k-scale block that is
+    not a multiple of 64, past the wrapper's checks), hand-made codes of
+    head dim 64 and a source that does not build all raise, and nothing is
+    counted."""
+    d, l = 128, 256
+    x = torch.as_tensor(_rand((1, l, 2, d), 34, True)).to(cuda_device,
+                                                         torch.bfloat16)
+    codes = tfa.quantize_qk_int8(x, x, None, 128)
+    tfa.reset_launches()
+    with pytest.raises(RuntimeError, match="univid_flash_fwd_int8_sm90"):
+        tfa._launch_int8_sm90(*codes, x, None, None, False, 96)
+    qi, sq, ki, akq = codes
+    with pytest.raises(ValueError, match="head dim 128"):
+        tfa.flash_attention_int8(qi[..., :64].contiguous(), sq,
+                                 ki[..., :64].contiguous(), akq,
+                                 x[..., :64].contiguous(), block_k=128)
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "_nvcc", lambda: "false")
+    monkeypatch.setattr(tfa, "_FNS", {})
+    with pytest.raises(RuntimeError, match="build failed"):
+        tfa.flash_attention_int8(*codes, x, block_k=128)
+    assert not any(tfa.LAUNCHES.values())
 
 
 @pytest.mark.cuda

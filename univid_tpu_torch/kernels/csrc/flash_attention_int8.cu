@@ -1,6 +1,12 @@
 // int8 QK^T flash attention forward for Hopper (sm_90a): the qk_int8 mode of
 // univid_tpu/kernels/flash_attention.py::_flash_kernel (:44; :104-105,
-// :137-156, :213-233), the Wan serving knob --qk_int8. Two parts:
+// :137-156, :213-233), the Wan serving knob --qk_int8. Two parts: the
+// pre-pass, which is the route's (every card call of quantize_qk_int8
+// runs it), and the attention kernel flash_fwd_int8_kernel, which no route
+// reaches any more: flash_attention_int8_sm90.cu (s8 wgmma, TMA multicast,
+// warp specialisation) replaced it, and it stays built as that kernel's
+// same-call baseline (_launch_int8_mma_sync, counted as
+// flash_attention_int8[_sbf16]_mma_sync).
 //
 //   * the pre-pass (quant_q_kernel, quant_k_kernel) rotates q and k in fp32
 //     with the fused-rope tables (q's fold softmax_scale * log2 e; without
@@ -15,8 +21,9 @@
 //     Rounding the rotation to bf16 first (the serving rope pre-pass) would
 //     flip codes, so the rotation stays fp32 here, products and sum each
 //     rounded once (no fused multiply-add), as on the TPU.
-//   * flash_fwd_int8_kernel: s32 = q_codes k_codes^T on the int8 tensor cores
-//     (mma.sync m16n8k32 s8 x s8 -> s32, exact), s = float(s32) * (sq_row *
+//   * flash_fwd_int8_kernel (the baseline): s32 = q_codes k_codes^T on the
+//     int8 tensor cores (mma.sync m16n8k32 s8 x s8 -> s32, exact),
+//     s = float(s32) * (sq_row *
 //     akq_block) in that order, the kv_len mask on the fp32 s, then the
 //     bounded or running-max softmax, fp32 or bf16 chain (the softmax_bf16
 //     knob composed, bf16_tiles.cuh softmax_tile), and p v as the bf16 mma
@@ -34,7 +41,8 @@
 // XOR-swizzled shared memory with cp.async (v_j under q k_j^T, k_{j+1} under
 // p v_j). An int8 row of 128 codes is 8 chunks of 16 bytes; ldmatrix reads
 // 8 x 16-byte matrices whatever their element type, so the same fragment
-// addressing serves both products. Not yet used: wgmma, TMA.
+// addressing serves both products. It reaches ~30% of its bound at the
+// 5B shape; the sm90 kernel that replaced it is on wgmma and TMA.
 
 #include "bf16_tiles.cuh"
 

@@ -40,8 +40,11 @@ and training paths reach:
     `quantize_qk_int8` (fused rope in fp32, per-row q scales, one k scale per
     JAX kv block of `block_k` keys) and `flash_attention_int8` (int8 x int8
     -> int32 scores rescaled in fp32, the fp32 or the bf16 softmax chain,
-    p v in bf16), bf16 d=128 with kv_len and the bound, on
-    csrc/flash_attention_int8.cu.
+    p v in bf16), bf16 d=128 with kv_len and the bound: the pre-pass on
+    csrc/flash_attention_int8.cu, the attention on
+    csrc/flash_attention_int8_sm90.cu (s8 wgmma, TMA, warp
+    specialisation); counted as `flash_attention_int8` and
+    `flash_attention_int8_sbf16`.
   * `flash_attention_bwd_padded` — `_flash_bwd_fused_kernel` and the
     two-pass `_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel`: dq, dk, dv
     rebuilt from the lse. bf16 d=128 (`bf16_backward_route`): every mode
@@ -77,11 +80,13 @@ and reachable (`_launch_bf16` for the segment and packed modes,
 `_launch_f32_simt` for the fp32 VAE mode, `_bwd_dq_cuda` /
 `_bwd_dkv_cuda`, the mma.sync pair, for every bf16 backward,
 `_launch_f32_d128` and `_bwd_dq_f32` / `_bwd_dkv_f32`, the fp32 d=128
-CUDA-core kernels) as the same-call baselines of chip_smoke.py and the
-card tests; no route reaches them, and they keep their launch counters'
-names (`flash_attention_f32_d128`, `flash_attention_f32_lse`,
+CUDA-core kernels; `_launch_int8_mma_sync`, the mma.sync int8 QK^T
+kernel) as the same-call baselines of chip_smoke.py and the card tests;
+no route reaches them, and they keep their launch counters' names
+(`flash_attention_f32_d128`, `flash_attention_f32_lse`,
 `flash_attention_bwd_dq_f32`, `flash_attention_bwd_dkv_f32`) beside the
-new kernels' (`..._f32_sm90`).
+new kernels' (`..._f32_sm90`); the int8 baseline counts as
+`flash_attention_int8_mma_sync` and `flash_attention_int8_sbf16_mma_sync`.
 """
 
 from __future__ import annotations
@@ -105,6 +110,8 @@ SM90_BLOCK_Q = 128  # q rows per block of flash_attention_sm90.cu
 SM90_BLOCK_K = 128  # kv rows per tile of flash_attention_sm90.cu
 BWD_BLOCK_Q = 64    # q rows per tile of flash_attention_bwd_sm90.cu
 BWD_BLOCK_K = 128   # kv rows per block of flash_attention_bwd_sm90.cu
+INT8_SM90_BLOCK_Q = 128  # q rows per block of flash_attention_int8_sm90.cu
+INT8_SM90_BLOCK_K = 128  # kv rows per tile of flash_attention_int8_sm90.cu
 H100_SMS = 132      # the card's SMs: q splits fill them at small grids
 F32_MASKS_LATER = (
     "fp32 attention at d=128 has no causal, segment, packed or grouped-kv "
@@ -128,7 +135,9 @@ LAUNCHES = {"flash_attention_bf16": 0, "flash_attention_bf16_causal": 0,
             "flash_attention_bwd_dkv_f32": 0,
             "flash_attention_bf16_sbf16": 0, "cross_attention_bf16_sbf16": 0,
             "quantize_qk_int8": 0, "flash_attention_int8": 0,
-            "flash_attention_int8_sbf16": 0, "mask_tile_list": 0,
+            "flash_attention_int8_sbf16": 0,
+            "flash_attention_int8_mma_sync": 0,
+            "flash_attention_int8_sbf16_mma_sync": 0, "mask_tile_list": 0,
             "flash_attention_bwd_bf16_sm90": 0, "bwd_tile_list": 0,
             "split_bf16x3": 0, "flash_attention_f32_sm90": 0,
             "flash_attention_f32_sm90_lse": 0,
@@ -466,15 +475,29 @@ def quantize_qk_int8_plain(q, k, rope_tables=None, block_k: int = 512):
             codes(k32, ak_rows).contiguous(), ak * (1.0 / 127.0))
 
 
+def _int8_scores(qi, sq, kf, ak_cols):
+    s32 = torch.einsum("bnqd,bnkd->bnqk", qi.float(), kf)
+    return s32 * (sq[..., None] * ak_cols)
+
+
+def int8_scores_plain(qi, sq, ki, akq, block_k: int = 512):
+    """The int8 QK^T kernels' scores before the mask, fp32 [B, N, Lq, Lk]:
+    s = float(qi ki^T) * (sq_row * akq_block), the two products rounded in
+    that order (the integer products and their sums are exact in fp32:
+    |s32| <= 127^2 * D < 2^24); key j takes akq[..., j // block_k]."""
+    lk = ki.shape[2]
+    ak_cols = akq.repeat_interleave(block_k, dim=-1)[..., None, :lk]
+    return _int8_scores(qi, sq, ki.float(), ak_cols)
+
+
 def attention_int8_plain(qi, sq, ki, akq, v, *, kv_len=None, bound=None,
                          softmax_bf16: bool = False, block_k: int = 512,
                          q_chunk: int = 1024):
     """The int8 QK^T kernel's function in plain PyTorch, on the pre-pass's
     codes and scales (`quantize_qk_int8_plain`) and bf16 v [B, Lk, N, D]:
-    s = float(qi ki^T) * (sq_row * akq_block) (the integer products are
-    exact in fp32: |s32| <= 127^2 * D < 2^24), keys at or past kv_len
-    masked on the fp32 s, then `_softmax_pv` (bounded or one-shot max, fp32
-    or bf16 chain)."""
+    the scores of `int8_scores_plain`, keys at or past kv_len masked on the
+    fp32 s, then `_softmax_pv` (bounded or one-shot max, fp32 or bf16
+    chain)."""
     b, n, lq, d = qi.shape
     lk = ki.shape[2]
     kf = ki.float()
@@ -483,8 +506,7 @@ def attention_int8_plain(qi, sq, ki, akq, v, *, kv_len=None, bound=None,
     out = torch.empty((b, lq, n, d), dtype=v.dtype, device=v.device)
     for i0 in range(0, lq, q_chunk):
         sl = slice(i0, i0 + q_chunk)
-        s32 = torch.einsum("bnqd,bnkd->bnqk", qi[:, :, sl].float(), kf)
-        s = s32 * (sq[:, :, sl, None] * ak_cols)
+        s = _int8_scores(qi[:, :, sl], sq[:, :, sl], kf, ak_cols)
         mask = _dead(i0, min(i0 + q_chunk, lq), lk, v.device, kv_len=kv_len)
         acc, l, _ = _softmax_pv(s, mask, bound, softmax_bf16, vf, v.dtype)
         out[:, sl] = _normalise(acc, l, v.dtype)
@@ -1113,16 +1135,7 @@ def quantize_qk_int8(q, k, rope_tables=None, block_k: int = 512):
     return qi, sq, ki, akq
 
 
-def flash_attention_int8(qi, sq, ki, akq, v, *, kv_len=None, score_bound=None,
-                         softmax_bf16: bool = False, block_k: int = 512):
-    """The int8 QK^T attention on the pre-pass's codes and scales, bf16 v
-    [B, Lk, N, 128] -> bf16 [B, Lq, N, 128]: bounded (score_bound, folded)
-    or running max, kv_len, the fp32 or the bf16 softmax chain."""
-    if not v.is_cuda:
-        return attention_int8_plain(qi, sq, ki, akq, v, kv_len=kv_len,
-                                    bound=score_bound,
-                                    softmax_bf16=softmax_bf16,
-                                    block_k=block_k)
+def _check_int8_attention(qi, sq, ki, akq, v, kv_len, block_k):
     b, n, lq, d = qi.shape
     lk = ki.shape[2]
     for t, dt, shape in ((qi, torch.int8, (b, n, lq, d)),
@@ -1135,27 +1148,85 @@ def flash_attention_int8(qi, sq, ki, akq, v, *, kv_len=None, score_bound=None,
                             f"for block_k {block_k}")
     if v.dtype != torch.bfloat16 or tuple(v.shape) != (b, lk, n, d):
         raise TypeError("v must be bf16 [B, Lk, N, D]")
+    if d != D128:
+        raise ValueError(f"the int8 attention kernels take head dim {D128}, "
+                         f"not {d}")
     if lq % TILE or lk % TILE or block_k % TILE:
         raise ValueError(f"Lq, Lk and block_k must be multiples of {TILE}")
     if kv_len is not None and (kv_len.dtype != torch.int32
                                or kv_len.device != v.device):
         raise TypeError("kv_len must be int32 on the kernel's device")
+    if v.stride(-1) != 1:
+        raise ValueError("attention kernels need unit stride along D")
+
+
+def _launch_int8_sm90(qi, sq, ki, akq, v, kv_len, bound, softmax_bf16,
+                      block_k):
+    """csrc/flash_attention_int8_sm90.cu on checked operands (bound the
+    folded score bound, an fp32 [1] on the device, or None: running max).
+    v is read through a TMA map: a view TMA cannot read is copied first."""
+    b, n, lq, d = qi.shape
+    if not tma_readable(v):
+        v = v.contiguous()
     o = torch.empty((b, lq, n, d), dtype=v.dtype, device=v.device)
-    mode = _MODE_BOUNDED if score_bound is not None else _MODE_RUNNING
+    st = tma_strides(v) + list(o.stride()[:3])
+    strides = (ctypes.c_longlong * 6)(*st)  # host array, read at launch
+    fn = _fn("flash_attention_int8_sm90", "univid_flash_fwd_int8_sm90",
+             [_P] * 8 + [_I] * 8 + [_P, _P])
+    err = fn(qi.data_ptr(), sq.data_ptr(), ki.data_ptr(), akq.data_ptr(),
+             v.data_ptr(), o.data_ptr(), _ptr(kv_len), _ptr(bound),
+             _MODE_BOUNDED if bound is not None else _MODE_RUNNING,
+             int(softmax_bf16), b, n, lq, ki.shape[2], block_k,
+             -(-lq // INT8_SM90_BLOCK_Q), ctypes.addressof(strides),
+             _stream(v))
+    build.check(err, "univid_flash_fwd_int8_sm90")
+    return o
+
+
+def flash_attention_int8(qi, sq, ki, akq, v, *, kv_len=None, score_bound=None,
+                         softmax_bf16: bool = False, block_k: int = 512):
+    """The int8 QK^T attention on the pre-pass's codes and scales, bf16 v
+    [B, Lk, N, 128] -> bf16 [B, Lq, N, 128]: bounded (score_bound, folded)
+    or running max, kv_len, the fp32 or the bf16 softmax chain. On the
+    card: csrc/flash_attention_int8_sm90.cu, one launch."""
+    if not v.is_cuda:
+        return attention_int8_plain(qi, sq, ki, akq, v, kv_len=kv_len,
+                                    bound=score_bound,
+                                    softmax_bf16=softmax_bf16,
+                                    block_k=block_k)
+    _check_int8_attention(qi, sq, ki, akq, v, kv_len, block_k)
+    o = _launch_int8_sm90(qi, sq, ki, akq, v, kv_len,
+                          _bound_tensor(score_bound, v.device), softmax_bf16,
+                          block_k)
+    _count("flash_attention_int8_sbf16" if softmax_bf16
+           else "flash_attention_int8")
+    return o
+
+
+def _launch_int8_mma_sync(qi, sq, ki, akq, v, *, kv_len=None,
+                          score_bound=None, softmax_bf16: bool = False,
+                          block_k: int = 512):
+    """`flash_attention_int8` on flash_fwd_int8_kernel of
+    csrc/flash_attention_int8.cu (mma.sync m16n8k32 over 64 x 64 tiles,
+    cp.async), the kernel the sm90 one replaced: a baseline reached only by
+    chip_smoke.py and the card tests, counted as
+    `flash_attention_int8[_sbf16]_mma_sync`."""
+    _check_int8_attention(qi, sq, ki, akq, v, kv_len, block_k)
+    b, n, lq, d = qi.shape
+    o = torch.empty((b, lq, n, d), dtype=v.dtype, device=v.device)
     bound = _bound_tensor(score_bound, v.device)
     fn = _fn("flash_attention_int8", "univid_flash_fwd_int8",
              [_P] * 8 + [_I] * 7 + [_P, _P])
     st = v.stride()[:3] + o.stride()[:3]
     strides = (ctypes.c_longlong * 6)(*st)
-    if v.stride(-1) != 1:
-        raise ValueError("attention kernels need unit stride along D")
     err = fn(qi.data_ptr(), sq.data_ptr(), ki.data_ptr(), akq.data_ptr(),
-             v.data_ptr(), o.data_ptr(), _ptr(kv_len), _ptr(bound), mode,
-             int(softmax_bf16), b, n, lq, lk, block_k,
+             v.data_ptr(), o.data_ptr(), _ptr(kv_len), _ptr(bound),
+             _MODE_BOUNDED if bound is not None else _MODE_RUNNING,
+             int(softmax_bf16), b, n, lq, ki.shape[2], block_k,
              ctypes.addressof(strides), _stream(v))
     build.check(err, "univid_flash_fwd_int8")
-    _count("flash_attention_int8_sbf16" if softmax_bf16
-           else "flash_attention_int8")
+    _count("flash_attention_int8_sbf16_mma_sync" if softmax_bf16
+           else "flash_attention_int8_mma_sync")
     return o
 
 
