@@ -12,7 +12,11 @@ Phases:
      shapes, time both with CUDA events, and time one PyTorch library call
      (scaled_dot_product_attention, with the boolean mask for masked
      modes; its backward for the backward kernels) on the same inputs as a
-     yardstick: serving self- and cross-attention, rope and the fp32 VAE
+     yardstick: serving self- and cross-attention, the q / k pre-pass
+     (kernel A of qk_prepass.cu from pre-norm q and k: norm + rope, rope
+     only and norm only, each timed in turns with the passes it replaced,
+     unn.rms_norm and univid_rope_rotate_bf16, `prepass_vs_old` lines;
+     F.rms_norm the norm-only row's yardstick) and the fp32 VAE
      kernel (d=1024, 640 at ti2v-5B's 3,520 tokens, d=384; 3xTF32 on the
      tensor cores, timed in turns with the CUDA-core kernel it replaced,
      `tc_vs_simt` lines, and the name of the kernel SDPA's fp32 call runs),
@@ -107,14 +111,18 @@ Phases:
      1280x704x121, full depth and width, with --bf16_softmax --qk_int8
      --int8 --taylorseer 2, 8 steps (6 DiT calls); check the mp4 and the
      launches (per DiT call 30 int8 bf16-softmax self-attention, 30
-     bf16-softmax cross-attention, 60 pre-pass, 300 W8A8 GEMMs; no
-     knob-free attention, none on the mma.sync int8 kernel); print seconds
-     per DiT and per Taylor step, for the video, peak memory; time the
-     ti2v-5B DiT forward with each knob alone and all four (two forwards
-     each, the launches of one checked), and profile one with qk_int8
-     alone (device time by kernel family).
-The knob kernels (softmax_bf16 on self- and cross-attention, the rope +
-int8 pre-pass, the int8 QK^T kernel alone and with softmax_bf16: the
+     bf16-softmax cross-attention, 60 norm-only q / k pre-passes, 30 int8
+     pre-passes of two launches, 300 W8A8 GEMMs; no knob-free attention,
+     none on the mma.sync int8 kernel); print seconds per DiT and per
+     Taylor step, for the video, peak memory; time the ti2v-5B DiT
+     forward bare, with each knob alone and all four (two forwards each,
+     the launches of one checked), and profile one bare and one with
+     qk_int8 alone (device time by kernel family, the q / k pre-passes
+     apart).
+The knob kernels (softmax_bf16 on self- and cross-attention, the int8
+pre-pass, kernel B of qk_prepass.cu, timed in turns with the pair of
+flash_attention_int8.cu it replaced, both against the plain version,
+`prepass_vs_old` lines; the int8 QK^T kernel alone and with softmax_bf16: the
 route's flash_attention_int8_sm90.cu, s8 wgmma / TMA multicast / warp
 specialisation, bounded and running, and the mma.sync kernel it replaced,
 timed in turns, `int8_sm90_vs_mma_sync` lines, a kv_len = 0 row exactly 0)
@@ -133,7 +141,8 @@ kernels are baselines only: 0; the fp32 d=128 serving forward and rope
 pre-pass count the fp32 t2v pipeline run of phase 4, the split pre-pass
 the fp32 fine-tune; the knob kernels count the knob path, the bf16-softmax self-
 attention and the fp32-chain int8 kernel the ti2v-5B DiT forward with
-their knob alone; the mma.sync int8 kernel is a baseline only: 0). The
+their knob alone; the mma.sync int8 kernel, the pre-passes kernels A and
+B replaced and kernel A's rope-only mode are no path's kernels: 0). The
 last line is
 {"ok": true, "device": {...}}; any failure exits non-zero.
 """
@@ -272,11 +281,191 @@ def compare(name, got, want, atol, rtol, why):
     return max_err
 
 
+QK_EPS = 1e-6   # the DiT's qk-norm eps
+# kernel A against its plain version: the sum of squares in another fp32
+# order moves rsqrt's input by a few fp32 ulps, so a normed value may round
+# to its neighbouring bf16 step (2^-7 relative); the gain's product and its
+# rounding carry that to <= 2^-6 * 1.0625 of the output, and the rotation
+# to that share of |n0 c| + |n1 s| plus its own bf16 rounding
+QK_STEP = 2.0 ** -6 * 1.0625
+QK_WHY = ("the fp32 sum of squares in another order: a normed value may "
+          "take its neighbouring bf16 step (2^-7), <= 2^-6 * 1.0625 after "
+          "the gain, carried through the rotation (|n0 c| + |n1 s|) plus "
+          "one bf16 rounding (tests/test_torch_qk_prepass.py emulates the "
+          "order)")
+
+
+def compare_within(name, got, want, lim, why):
+    """|got - want| <= lim elementwise, got finite; logs the share of
+    elements that differ at all."""
+    import torch
+    err = (got.float() - want.float()).abs()
+    max_err = float(err.max())
+    ok = bool((err <= lim).all()) and bool(torch.isfinite(got).all())
+    log(json.dumps({"check": name, "max_abs_err": max_err,
+                    "max_abs_ref": float(want.float().abs().max()),
+                    "differing_share": float((err > 0).float().mean()),
+                    "why": why, "ok": ok}))
+    if not ok:
+        fail(f"{name}: kernel disagrees with its plain version")
+    return max_err
+
+
+def _rope_abs(x, cf, sf):
+    """|x| |cosF| + |swap_pairs(x)| |sinF| over [B, L, N, D]: what a
+    rotation's output moves by per unit of relative change in x."""
+    a = x.float().abs()
+    sw = a.reshape(*a.shape[:-1], a.shape[-1] // 2, 2).flip(-1) \
+        .reshape(a.shape)
+    return a * cf.abs()[:, None, :] + sw * sf.abs()[:, None, :]
+
+
+def log_prepass(call, new_ms, old_ms):
+    log(json.dumps({"prepass_vs_old": call, "new_ms": new_ms,
+                    "old_ms": old_ms, "speedup": old_ms / new_ms}))
+
+
+def check_qk_norm_rope(gen, tag, n, grid, l):
+    """Kernel A (`qk_norm_rope`, csrc/qk_prepass.cu) at one model's path
+    shapes from pre-norm q, k [2, l, n, 128] bf16 (randn x 3, the scale of
+    the DiT's projections; gains in [0.5, 1.5]): norm + rope (the
+    self-attention's pre-pass) and rope only against the plain version,
+    norm only at the self-attention's shape (kernel B's input on the knob
+    path) and at the cross-attention's (q over 512 text tokens); each
+    timed beside its plain version and, in turns, the passes it
+    replaced (unn.rms_norm on q and k; univid_rope_rotate_bf16 on each),
+    `prepass_vs_old` lines; F.rms_norm on q and k is the norm-only row's
+    library yardstick. Returns the kernels-line records (the replaced rope
+    kernel's too)."""
+    import torch
+    import torch.nn.functional as F
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.ops.rope import build_rope_3d
+
+    b, d, lk = 2, 128, 512
+    recs = {}
+    q = (torch.randn((b, l, n, d), generator=gen, device="cuda") * 3).to(
+        torch.bfloat16)
+    k = (torch.randn((b, l, n, d), generator=gen, device="cuda") * 3).to(
+        torch.bfloat16)
+    gq, gk = ((torch.rand((n * d,), generator=gen, device="cuda") + 0.5)
+              .to(torch.bfloat16) for _ in range(2))
+    norm = (gq, gk, QK_EPS)
+    cos, sin = build_rope_3d(d, grid, device="cuda")
+    tabs = fa._pad_tables(fa.build_fused_rope_tables(cos, sin, d), l, l,
+                          fa.LOG2E / math.sqrt(d))
+    cq, sq, ck, sk = tabs
+    src = "univid_tpu_torch/kernels/csrc/qk_prepass.cu"
+    with torch.no_grad():
+        # ---- norm + rope: the self-attention's pre-pass ------------------
+        nq, nk = fa.qk_norm_rope_plain(q, k, norm)
+        want = fa.qk_norm_rope_plain(nq, nk, None, tabs)
+        got = fa.qk_norm_rope(q, k, qk_norm=norm, rope_tables=tabs)
+        err = 0.0
+        for name, g, w, x, c_, s_ in (("q", got[0], want[0], nq, cq, sq),
+                                      ("k", got[1], want[1], nk, ck, sk)):
+            lim = QK_STEP * _rope_abs(x, c_, s_) + 2.0 ** -7 * 1.0625 * \
+                w.float().abs()
+            err = max(err, compare_within(
+                f"qk_norm_rope_bf16 {tag} norm+rope {name}", g, w, lim,
+                QK_WHY))
+        del got, lim
+
+        def old_self():   # unn.rms_norm on q and k, the rope kernel on each
+            a, c = fa.rms_heads(q, gq, QK_EPS), fa.rms_heads(k, gk, QK_EPS)
+            return fa._rope_bf16(a, cq, sq), fa._rope_bf16(c, ck, sk)
+
+        ms, old_ms = ab_time(lambda: fa.qk_norm_rope(
+            q, k, qk_norm=norm, rope_tables=tabs), old_self, 5)
+        log_prepass(f"qk_norm_rope_bf16 {tag} norm+rope", ms, old_ms)
+        plain_ms = cuda_time(lambda: fa.qk_norm_rope_plain(q, k, norm, tabs),
+                             2)
+        bms, by = bound_ms(0, nbytes(q, k, *want, gq, gk, *tabs),
+                           H100_BF16_FLOPS)
+        recs["qk_norm_rope_bf16"] = dict(
+            name="qk_norm_rope_bf16", route="cuda", source=src,
+            replaces="univid_tpu/kernels/flash_attention.py:157",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=None, old_ms=old_ms)
+
+        # ---- rope only: the same fp32 operations, equal bits --------------
+        got = fa.qk_norm_rope(nq, nk, rope_tables=tabs)
+        old = (fa._rope_bf16(nq, cq, sq), fa._rope_bf16(nk, ck, sk))
+        errs = [float((g.float() - w.float()).abs().max())
+                for g, w in zip(got + old, want + want)]
+        equal = [bool(torch.equal(g, w)) for g, w in zip(got + old,
+                                                          want + want)]
+        log(json.dumps({"check": f"qk_rope_bf16 {tag} rope only "
+                                 "(q, k; then the replaced kernel's q, k)",
+                        "equal": equal, "max_abs_err": errs,
+                        "why": "the same fp32 products and sum, one "
+                               "rounding to bf16", "ok": all(equal)}))
+        if not all(equal):
+            fail("qk_rope_bf16: rope only is not bit-equal to the plain "
+                 "version")
+        del got, old
+        ms_r, old_r = ab_time(lambda: fa.qk_norm_rope(nq, nk,
+                                                      rope_tables=tabs),
+                              lambda: (fa._rope_bf16(nq, cq, sq),
+                                       fa._rope_bf16(nk, ck, sk)), 5)
+        log_prepass(f"qk_rope_bf16 {tag} rope only", ms_r, old_r)
+        plain_r = cuda_time(lambda: fa.qk_norm_rope_plain(nq, nk, None,
+                                                          tabs), 2)
+        bms, by = bound_ms(0, nbytes(nq, nk, *want, *tabs), H100_BF16_FLOPS)
+        common = dict(route="cuda", bound_ms=bms, bound_by=by,
+                      library_ms=None,
+                      replaces="univid_tpu/kernels/flash_attention.py:157")
+        recs["qk_rope_bf16"] = dict(common, name="qk_rope_bf16", source=src,
+                                    max_abs_err=0.0, ms=ms_r,
+                                    plain_ms=plain_r, old_ms=old_r)
+        # the kernel it replaced, on q and k (two launches)
+        recs["rope_rotate_bf16"] = dict(
+            common, name="rope_rotate_bf16", max_abs_err=max(errs[2:]),
+            source="univid_tpu_torch/kernels/csrc/flash_attention.cu",
+            ms=old_r, plain_ms=plain_r)
+        del want, nq, nk
+
+        # ---- norm only: the knob path's self-attention q and k, then the
+        # cross-attention's q over 512 text keys --------------------------
+        kc = k[:, :lk].contiguous()
+        err = 0.0
+        for case, kk in (("self", k), ("cross", kc)):
+            want = fa.qk_norm_rope_plain(q, kk, norm)
+            got = fa.qk_norm_rope(q, kk, qk_norm=norm)
+            err = max([err] + [compare_within(
+                f"qk_norm_bf16 {tag} norm only ({case}) {name}", g, w,
+                QK_STEP * w.float().abs(), QK_WHY)
+                for name, g, w in (("q", got[0], want[0]),
+                                   ("k", got[1], want[1]))])
+            del got
+        ms_n, old_n = ab_time(
+            lambda: fa.qk_norm_rope(q, kc, qk_norm=norm),
+            lambda: (fa.rms_heads(q, gq, QK_EPS),
+                     fa.rms_heads(kc, gk, QK_EPS)), 5)
+        log_prepass(f"qk_norm_bf16 {tag} norm only (cross)", ms_n, old_n)
+        plain_n = cuda_time(lambda: fa.qk_norm_rope_plain(q, kc, norm), 2)
+        w_ = n * d
+        lib_n = cuda_time(lambda: (
+            F.rms_norm(q.view(b, l, w_), (w_,), gq, QK_EPS),
+            F.rms_norm(kc.view(b, lk, w_), (w_,), gk, QK_EPS)), 5)
+        bms, by = bound_ms(0, nbytes(q, kc, *want, gq, gk), H100_BF16_FLOPS)
+        recs["qk_norm_bf16"] = dict(
+            name="qk_norm_bf16", route="cuda", source=src,
+            replaces="univid_tpu/kernels/flash_attention.py:157",
+            max_abs_err=err, ms=ms_n, plain_ms=plain_n, bound_ms=bms,
+            bound_by=by, library_ms=lib_n, old_ms=old_n)
+        del want, q, k, kc
+    torch.cuda.empty_cache()
+    return recs
+
+
 def check_serving_kernels(gen, tag, n, grid, l):
-    """The serving kernels (self-attention with its rope pre-pass, cross-
-    attention) against their plain versions at one model's shapes: n heads
-    of d=128, batch-2 CFG, the latent grid's tokens padded to l, 512 text
-    tokens. Returns their records (timed beside SDPA)."""
+    """The serving kernels (self-attention, cross-attention, and the q / k
+    pre-pass kernel A: `check_qk_norm_rope`) against their plain versions
+    at one model's shapes: n heads of d=128, batch-2 CFG, the latent grid's
+    tokens padded to l, 512 text tokens. Returns their records (timed
+    beside SDPA)."""
     import torch
     import torch.nn.functional as F
 
@@ -307,23 +496,7 @@ def check_serving_kernels(gen, tag, n, grid, l):
                    "plus 1e-3 for the fp32 summation order and the "
                    "approximate exp2 before p rounds to bf16")
     with torch.no_grad():
-        # rope pre-pass: same fp32 products and sum, one rounding to bf16
-        qr = fa._rope_bf16(q, cq, sq)
-        kr = fa._rope_bf16(k, ck, sk)
-        rope_err = max(
-            compare(f"rope_rotate_bf16 {tag} q", qr,
-                    fa.rotate(q, cq, sq, q.dtype),
-                    atol=0.0, rtol=2.0 ** -7,
-                    why="the same fp32 multiplies and add in the same "
-                        "order; at most one bf16 ulp apart"),
-            compare(f"rope_rotate_bf16 {tag} k", kr,
-                    fa.rotate(k, ck, sk, v.dtype),
-                    atol=0.0, rtol=2.0 ** -7,
-                    why="the same fp32 multiplies and add in the same "
-                        "order; at most one bf16 ulp apart"))
-        rope_ms = cuda_time(lambda: fa._rope_bf16(q, cq, sq), 5)
-        rope_plain_ms = cuda_time(lambda: fa.rotate(q, cq, sq, q.dtype), 3)
-
+        qr, kr = fa.qk_norm_rope(q, k, rope_tables=tabs)
         got = fa._flash_cuda(q, k, v, kv_len, bound, tabs)
         want = fa.attention_plain(q, k, v, kv_len=kv_len, bound=bound,
                                   rope_tables=tabs)
@@ -353,15 +526,8 @@ def check_serving_kernels(gen, tag, n, grid, l):
         replaces="univid_tpu/kernels/flash_attention.py:44",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
         bound_by=by, library_ms=lib_ms, mma_sync_ms=old_ms)
-    # 2 multiplies and an add per element, fp32
-    bms, by = bound_ms(3 * q.numel(), nbytes(q, cq, sq, qr), H100_FP32_FLOPS)
-    records["rope_rotate_bf16"] = dict(
-        name="rope_rotate_bf16", route="cuda",
-        source="univid_tpu_torch/kernels/csrc/flash_attention.cu",
-        replaces="univid_tpu/kernels/flash_attention.py:157",
-        max_abs_err=rope_err, ms=rope_ms, plain_ms=rope_plain_ms,
-        bound_ms=bms, bound_by=by, library_ms=None)
     del q, k, v, got, got_r, want, qr, kr, qs, ks, vs
+    records.update(check_qk_norm_rope(gen, tag, n, grid, l))
 
     # ---- DiT cross-attention: the video tokens x 512 text tokens --------
     lk = 512
@@ -856,7 +1022,7 @@ def small_parity():
     used = dict(fa.LAUNCHES)
     x_cpu, v_cpu = run("cpu")
     for name in ("flash_attention_bf16", "cross_attention_bf16",
-                 "flash_attention_f32", "rope_rotate_bf16"):
+                 "flash_attention_f32", "qk_norm_rope_bf16", "qk_norm_bf16"):
         if used[name] == 0:
             fail(f"small parity run did not launch {name}")
 
@@ -946,7 +1112,7 @@ def small_fusion_parity():
         used = {k: n for k, n in fa.LAUNCHES.items() if n}
         x_cpu, v_cpu = run("cpu", img)
         need = ("flash_attention_bf16", "cross_attention_bf16",
-                "flash_attention_f32", "rope_rotate_bf16")
+                "flash_attention_f32", "qk_norm_rope_bf16", "qk_norm_bf16")
         for name in need:
             if name not in used:
                 fail(f"small fusion parity ({mode}) did not launch {name}")
@@ -1355,6 +1521,7 @@ def profile_call(fn, families=None):
         if own:
             fam[own[0]] += ms
         elif ("flash_" in name or "rope_rotate" in name or "mask_tiles" in name
+                or "qk_norm_rope" in name or "quant_q" in name
                 or "bwd_pre" in name or "bwd_post" in name
                 or "bwd_tiles" in name or "split_bf16x3" in name):
             fam["attention_kernels_ms"] += ms
@@ -1398,7 +1565,10 @@ def main_path(steps, output_dir):
                 "flash_attention_bf16_causal": 0,
                 "cross_attention_bf16": 30 * steps,
                 "flash_attention_f32": 21,
-                "rope_rotate_bf16": 60 * steps,   # q and k per self-attn
+                # kernel A: norm + rope for the self-attention's q and k,
+                # norm only for the cross-attention's
+                "qk_norm_rope_bf16": 30 * steps,
+                "qk_norm_bf16": 30 * steps,
                 "flash_attention_bf16_lse": 0,    # serving differentiates
                 "flash_attention_bwd_dq_bf16": 0,  # nothing
                 "flash_attention_bwd_dkv_bf16": 0}
@@ -1485,7 +1655,8 @@ def ti2v_main_path(output_dir):
     per_video = dict(dict.fromkeys(fa.LAUNCHES, 0), **{
         "flash_attention_bf16": 30 * steps,
         "cross_attention_bf16": 30 * steps,
-        "rope_rotate_bf16": 60 * steps,
+        "qk_norm_rope_bf16": 30 * steps,   # self-attention: q and k
+        "qk_norm_bf16": 30 * steps,        # cross-attention: q and k
         "flash_attention_f32": n_dec,
         "flash_attention_f32 d=384": 0,
         "flash_attention_f32 d=640": 0,
@@ -3632,7 +3803,7 @@ def check_knob_kernels(tag, n, grid, l, seed, running):
     recs = {}
     flops = 4 * b * n * l * kv_real * d
     with torch.no_grad():
-        qr, kr = fa._rope_bf16(q, cq, sq), fa._rope_bf16(k, ck, sk)
+        qr, kr = fa.qk_norm_rope(q, k, rope_tables=tabs)
         # ---- K1: softmax_bf16 on self-attention -------------------------
         v_max = float(v[:, :kv_real].float().abs().max())
         got = fa._flash_cuda(q, k, v, kv_len, bound, tabs, softmax_bf16=True)
@@ -3670,31 +3841,47 @@ def check_knob_kernels(tag, n, grid, l, seed, running):
             mma_sync_ms=old_ms)
 
         # ---- K2: the rope + int8 quantize pre-pass ----------------------
+        # kernel B of csrc/qk_prepass.cu and the pair it replaced, both
+        # against the plain version on the same normed q, k; timed in turns
         codes = fa.quantize_qk_int8(q, k, tabs, bw)
         plain_codes = fa.quantize_qk_int8_plain(q, k, tabs, bw)
-        off = [int((g != w).sum()) for g, w in zip(codes, plain_codes)]
-        out = {"check": f"quantize_qk_int8 {tag}", "differing": off,
-               "why": "the same fp32 rotation, reciprocal, product and "
-                      "round-half-to-even: codes and scales equal",
-               "ok": off == [0, 0, 0, 0]}
-        log(json.dumps(out))
-        if not out["ok"]:
-            fail("quantize_qk_int8: kernel disagrees with its plain version")
-        del plain_codes
-        ms_q = cuda_time(lambda: fa.quantize_qk_int8(q, k, tabs, bw), 5)
+        for impl, out in (("route", codes),
+                          ("pair", fa._quantize_qk_int8_pair(q, k, tabs,
+                                                             bw))):
+            off = [int((g != w).sum()) for g, w in zip(out, plain_codes)]
+            res = {"check": f"quantize_qk_int8 {tag} ({impl})",
+                   "differing": off,
+                   "why": "the same fp32 rotation, reciprocal, product and "
+                          "round-half-to-even: codes and scales equal",
+                   "ok": off == [0, 0, 0, 0]}
+            log(json.dumps(res))
+            if not res["ok"]:
+                fail(f"quantize_qk_int8 ({impl}): kernel disagrees with "
+                     "its plain version")
+        del plain_codes, out
+
+        ms_q, pair_ms = ab_time(
+            lambda: fa.quantize_qk_int8(q, k, tabs, bw),
+            lambda: fa._quantize_qk_int8_pair(q, k, tabs, bw), 5)
+        log_prepass(f"quantize_qk_int8 {tag} vs pair", ms_q, pair_ms)
         plain_q = cuda_time(lambda: fa.quantize_qk_int8_plain(q, k, tabs, bw),
                             1)
         qi, sqs, ki, akq = codes
-        # 2 products and a sum to rotate, |x|, the product and the round
+        # 2 products and a sum to rotate, |x|, the product and the round;
+        # each input read once (the kernel reads k twice)
         bms, by = bound_ms(6 * (q.numel() + k.numel()),
                            nbytes(q, k, cq, sq, ck, sk, *codes),
                            H100_FP32_FLOPS)
+        common = dict(route="cuda", max_abs_err=0.0, plain_ms=plain_q,
+                      bound_ms=bms, bound_by=by, library_ms=None,
+                      replaces="univid_tpu/kernels/flash_attention.py:44")
+        src = "univid_tpu_torch/kernels/csrc/qk_prepass.cu"
         recs["quantize_qk_int8"] = dict(
-            name="quantize_qk_int8", route="cuda",
-            source="univid_tpu_torch/kernels/csrc/flash_attention_int8.cu",
-            replaces="univid_tpu/kernels/flash_attention.py:44",
-            max_abs_err=0.0, ms=ms_q, plain_ms=plain_q, bound_ms=bms,
-            bound_by=by, library_ms=None)
+            common, name="quantize_qk_int8", source=src, ms=ms_q,
+            pair_ms=pair_ms)
+        recs["quantize_qk_int8_pair"] = dict(
+            common, name="quantize_qk_int8_pair", ms=pair_ms,
+            source="univid_tpu_torch/kernels/csrc/flash_attention_int8.cu")
 
         # ---- K3 (+ K1): int8 QK^T attention -----------------------------
         # the route's sm90 kernel (flash_attention_int8_sm90.cu) and the
@@ -3841,14 +4028,16 @@ def _knob_launches(knobs, forwards, blocks):
     n = forwards * blocks
     sbf, qk8 = knobs.get("softmax_bf16"), knobs.get("qk_int8")
     out = dict.fromkeys(fa.LAUNCHES, 0)
-    if qk8:
+    if qk8:   # kernel A norms q and k, kernel B rotates and quantizes
         out["flash_attention_int8_sbf16" if sbf else
             "flash_attention_int8"] = n
-        out["quantize_qk_int8"] = 2 * n
+        out["quantize_qk_int8"] = 2 * n     # kernel B's two launches
+        out["qk_norm_bf16"] = 2 * n        # self and cross
     else:
         out["flash_attention_bf16_sbf16" if sbf else
             "flash_attention_bf16"] = n
-        out["rope_rotate_bf16"] = 2 * n
+        out["qk_norm_rope_bf16"] = n
+        out["qk_norm_bf16"] = n            # cross
     out["cross_attention_bf16_sbf16" if sbf else "cross_attention_bf16"] = n
     out["w8a8_linear"] = 10 * n if knobs.get("int8") else 0
     return out
@@ -4019,13 +4208,24 @@ def _knob_forward_times(spec, forwards):
             fwd()
             torch.cuda.synchronize()
             times[knob].append(time.perf_counter() - t0)
+        if knob == "baseline":
+            # where a bare DiT call's time goes: its 30 self- and 30
+            # cross-attention calls, the 60 q / k pre-passes (kernel A:
+            # 30 norm + rope, 30 norm only), the GEMMs, the rest
+            _, prof = profile_call(fwd, families={
+                "qk_prepass_ms": ("qk_norm_rope",),
+                "attention_ms": ("flash_fwd_sm90",)})
+            log(json.dumps({"profile": "ti2v-5B DiT forward, bare",
+                            **prof}))
         if knob == "qk_int8":
-            # where a DiT call's time goes with int8 QK^T: its 30 int8
-            # attention calls, their 60 pre-passes, the 30 cross-attention
-            # calls, the GEMMs, the rest
+            # with int8 QK^T: its 30 int8 attention calls, their 30 int8
+            # pre-passes (kernel B, two launches each), the 60 norm-only
+            # pre-passes (kernel A), the 30 cross-attention calls, the
+            # GEMMs, the rest
             _, prof = profile_call(fwd, families={
                 "int8_attention_ms": ("flash_fwd_int8_sm90",),
-                "int8_prepass_ms": ("quant_q_kernel", "quant_k_kernel"),
+                "int8_prepass_ms": ("quant_qk_",),
+                "qk_prepass_ms": ("qk_norm_rope",),
                 "cross_attention_ms": ("flash_fwd_sm90",)})
             log(json.dumps({"profile": "ti2v-5B DiT forward, qk_int8 alone",
                             **prof}))
@@ -4041,8 +4241,9 @@ def knob_main_path(output_dir):
     --mode t2v --bf16_softmax --qk_int8 --int8 --taylorseer 2, 8 steps,
     through the port's CLI. Checks the mp4, the fusion context, and the
     launches: per DiT call 30 int8 + bf16-softmax self-attention, 30
-    bf16-softmax cross-attention, 60 pre-pass and 300 W8A8 GEMMs, 6 DiT
-    calls (2 Taylor steps skip it), no knob-free attention; 31 d=1024 VAE
+    bf16-softmax cross-attention, 60 norm-only and 30 int8 pre-passes,
+    300 W8A8 GEMMs, 6 DiT calls (2 Taylor steps skip it), no knob-free
+    attention; 31 d=1024 VAE
     attention calls. Prints seconds per DiT step and per Taylor step, for
     the video, peak memory; then times the ti2v-5B DiT forward with each
     knob alone and all four, two forwards each. Returns {path: launches}."""
@@ -4147,7 +4348,13 @@ def kernels_line(records, by_path, mask_records):
            # the mma.sync int8 QK^T kernel is no path's kernel since the sm90
            # one took every int8 call: the same-call baseline
            "flash_attention_int8_mma_sync": None,
-           "flash_attention_int8_sbf16_mma_sync": None}
+           "flash_attention_int8_sbf16_mma_sync": None,
+           # kernel A's rope-only mode has no caller on the paths (q and k
+           # reach it before their norm); the pre-passes kernels A and B
+           # replaced are baselines: 0
+           "qk_rope_bf16": None,
+           "rope_rotate_bf16": None,
+           "quantize_qk_int8_pair": None}
     # the packed modes and the tile-list pre-passes serve BAGEL packed
     # training; no path of the JAX package reaches the segment modes at
     # d=128 (SigLIP's segments are d=72, the reference route) or the causal

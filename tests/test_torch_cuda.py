@@ -832,10 +832,98 @@ def test_cuda_int8_prepass_matches_plain(cuda_device, rope):
     got = tfa.quantize_qk_int8(q, k, tabs, 192)
     want = tfa.quantize_qk_int8_plain(q, k, tabs, 192)
     torch.cuda.synchronize()
+    # kernel B: the q + k-max launch, the k-codes launch
     assert tfa.LAUNCHES["quantize_qk_int8"] == 2
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and g.shape == w.shape
-        assert torch.equal(g, w)
+    # the pair it replaced: the same codes
+    pair = tfa._quantize_qk_int8_pair(q, k, tabs, 192)
+    assert tfa.LAUNCHES["quantize_qk_int8"] == 2
+    assert tfa.LAUNCHES["quantize_qk_int8_pair"] == 2
+    for out in (got, pair):
+        for g, w in zip(out, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g, w)
+
+
+QK_STEP = 2.0 ** -6 * 1.0625   # chip_smoke.py: one bf16 step of n, gained
+QK_MODES = {"norm_rope": "qk_norm_rope_bf16", "norm": "qk_norm_bf16",
+            "rope": "qk_rope_bf16", "norm_grouped": "qk_norm_bf16"}
+
+
+def _rope_abs(x, cf, sf):
+    a = x.float().abs()
+    sw = a.reshape(*a.shape[:-1], a.shape[-1] // 2, 2).flip(-1) \
+        .reshape(a.shape)
+    return a * cf.abs()[:, None, :] + sw * sf.abs()[:, None, :]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(QK_MODES))
+def test_cuda_qk_norm_rope_matches_plain(cuda_device, mode):
+    """Kernel A against its plain version, q and k of other lengths in one
+    launch (k a strided view): norm + rope and norm only within one bf16
+    step of the normed value carried through the gain (and the rotation),
+    the sum of squares being summed in another order; rope only bit for
+    bit; norm only with k of half the heads (grouped kv)."""
+    d, lq, lk, n = 128, 448, 320, 5
+    nk = 2 if mode == "norm_grouped" else n
+    q = torch.as_tensor(_rand((2, lq, n, d), 40) * 3).to(cuda_device,
+                                                         torch.bfloat16)
+    kb = torch.as_tensor(_rand((2, lk, nk, 2 * d), 41) * 3).to(
+        cuda_device, torch.bfloat16)
+    k = kb[..., :d]   # rows 512 bytes apart
+    gq = torch.as_tensor(np.random.default_rng(42).uniform(
+        0.5, 1.5, n * d)).to(cuda_device, torch.bfloat16)
+    gk = torch.as_tensor(np.random.default_rng(43).uniform(
+        0.5, 1.5, nk * d)).to(cuda_device, torch.bfloat16)
+    tabs = tfa._pad_tables(tfa.build_fused_rope_tables(
+        *trope3d(d, (7, 8, 8), device=cuda_device), d), lq, lk,
+        LOG2E / math.sqrt(d))
+    norm = None if mode == "rope" else (gq, gk, 1e-6)
+    rope = tabs if mode in ("norm_rope", "rope") else None
+    tfa.reset_launches()
+    with torch.no_grad():
+        got = tfa.qk_norm_rope(q, k, qk_norm=norm, rope_tables=rope)
+        want = tfa.qk_norm_rope_plain(q, k, norm, rope)
+        normed = tfa.qk_norm_rope_plain(q, k, norm) if norm else None
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES[QK_MODES[mode]] == 1
+    assert sum(tfa.LAUNCHES.values()) == 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.is_contiguous()
+        if norm is None:
+            assert torch.equal(g, w)
+            continue
+        lim = QK_STEP * w.float().abs()
+        if rope is not None:
+            lim = QK_STEP * _rope_abs(normed[i], tabs[2 * i],
+                                      tabs[2 * i + 1]) + \
+                2.0 ** -7 * 1.0625 * w.float().abs()
+        assert bool(((g.float() - w.float()).abs() <= lim).all())
+        assert float((g != w).float().mean()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_qk_prepass_refusals(cuda_device):
+    """Kernel A raises on fp32 gains (rms_norm multiplies in x's dtype),
+    on fp32 inputs and under grad (of q or of a gain); nothing is
+    counted."""
+    d, l = 128, 64
+    x = torch.as_tensor(_rand((1, l, 2, d), 44)).to(cuda_device,
+                                                    torch.bfloat16)
+    g = torch.ones(2 * d, device=cuda_device)
+    tfa.reset_launches()
+    with pytest.raises(TypeError, match="bf16"):
+        tfa.qk_norm_rope(x, x, qk_norm=(g, g, 1e-6))
+    with pytest.raises(TypeError, match="bf16"):
+        tfa.qk_norm_rope(x.float(), x.float(),
+                         qk_norm=(g.bfloat16(), g.bfloat16(), 1e-6))
+    gb = g.bfloat16()
+    with pytest.raises(RuntimeError, match="inference-"):
+        tfa.qk_norm_rope(x, x, qk_norm=(gb.clone().requires_grad_(), gb,
+                                        1e-6))
+    with pytest.raises(RuntimeError, match="inference-only"):
+        tfa.qk_norm_rope(x.requires_grad_(), x, qk_norm=(gb, gb, 1e-6))
+    assert not any(tfa.LAUNCHES.values())
 
 
 INT8_IMPLS = {"sm90": tfa.flash_attention_int8,

@@ -41,11 +41,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .flash_attention import (LOG2E, NEG_INF, TILE, _fold, causal_rows,
+from .flash_attention import (D128, LOG2E, NEG_INF, TILE, _fold, causal_rows,
                               flash_attention_bwd_folded,
                               flash_attention_fwd_folded,
                               flash_attention_padded, packed_mask_allowed,
-                              repeat_kv, rotate, tma_readable)
+                              repeat_kv, rms_heads, rotate, tma_readable)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -176,7 +176,7 @@ class FlashAttention(torch.autograd.Function):
 def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
               score_bound=None, causal=False, q_offset=0, q_offsets=None,
               q_segments=None, kv_segments=None, packed_mode=False,
-              softmax_bf16=False, qk_int8=False):
+              softmax_bf16=False, qk_int8=False, qk_norm=None):
     """Multi-head attention over [B, L, N, D] tensors (k, v [B, Lk, N /
     group, D]).
 
@@ -205,7 +205,15 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
     softmax_bf16 / qk_int8: inference knobs of the kernel route (see the
     module docstring); under grad and on the reference route they are
     ignored, as in the JAX package. qk_int8's k scales span `jax_block_k`
-    (Lk) keys."""
+    (Lk) keys.
+
+    qk_norm = (gain_q, gain_k, eps): q and k arrive before Wan's qk RMS
+    norm over each token's N * D width (gains [N * D], [Nk * D]). On the
+    card's no-grad bf16 kernel route the q / k pre-pass `qk_norm_rope`
+    takes the norm as its prologue (with the rotation when rope_tables are
+    given and qk_int8 is off); on every other route (the CPU, fp32, the
+    reference route, under grad, the gains' included) `rms_heads` runs
+    first and the call goes on as without it."""
     b, lq, n, d = q.shape
     segs = q_segments is not None or kv_segments is not None
     if segs and (q_segments is None or kv_segments is None):
@@ -216,10 +224,16 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
     # the packed mode's causal term reads the pack's own row indices
     assert not (packed_mode and (q_offset != 0 or q_offsets is not None)), \
         "packed_mode does not support q offsets"
+    gains = () if qk_norm is None else qk_norm[:2]
     train = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v))
+        t.requires_grad for t in (q, k, v, *gains))
     if n % k.shape[2] or k.shape[2] != v.shape[2]:
         raise ValueError(f"{n} query heads over {k.shape[2]} kv heads")
+    if qk_norm is not None and not (q.is_cuda and q.dtype == torch.bfloat16
+                                    and d == D128 and not train):
+        gq, gk, eps = qk_norm
+        q, k = rms_heads(q, gq, eps), rms_heads(k, gk, eps)
+        qk_norm = None
     lk = k.shape[1]
     if kv_len is not None:
         kv_len = torch.as_tensor(kv_len, dtype=torch.int32).to(q.device)
@@ -283,5 +297,6 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
                                rope_tables=rope_tables,
                                score_bound=folded_bound,
                                softmax_bf16=softmax_bf16, qk_int8=qk_int8,
-                               block_k=jax_block_k(lk), **masks)
+                               block_k=jax_block_k(lk), qk_norm=qk_norm,
+                               **masks)
     return o[:, :lq]

@@ -2,7 +2,8 @@
 // the bf16 chain of the softmax_bf16 mode), on Ampere's mma.sync.
 //
 // What it serves on the paths: the causal mode below (BAGEL's question
-// prefill) and the bf16 rope pre-pass univid_rope_rotate_bf16. The
+// prefill). The bf16 rope pre-pass univid_rope_rotate_bf16 gave way to
+// kernel A of qk_prepass.cu and stays built as its same-call baseline. The
 // unmasked modes (bounded, running and one-shot, with kv_len, the lse and
 // softmax_bf16) and the segment and packed modes moved to
 // flash_attention_sm90.cu (wgmma, TMA, warp specialisation; the masked

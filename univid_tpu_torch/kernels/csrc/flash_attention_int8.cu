@@ -1,11 +1,11 @@
 // int8 QK^T flash attention forward for Hopper (sm_90a): the qk_int8 mode of
 // univid_tpu/kernels/flash_attention.py::_flash_kernel (:44; :104-105,
-// :137-156, :213-233), the Wan serving knob --qk_int8. Two parts: the
-// pre-pass, which is the route's (every card call of quantize_qk_int8
-// runs it), and the attention kernel flash_fwd_int8_kernel, which no route
-// reaches any more: flash_attention_int8_sm90.cu (s8 wgmma, TMA multicast,
-// warp specialisation) replaced it, and it stays built as that kernel's
-// same-call baseline (_launch_int8_mma_sync, counted as
+// :137-156, :213-233), the Wan serving knob --qk_int8. Two parts, which no
+// route reaches any more: the pre-pass, replaced by kernel B of
+// qk_prepass.cu (its same-call baseline _quantize_qk_int8_pair, counted as
+// quantize_qk_int8_pair), and the attention kernel flash_fwd_int8_kernel,
+// replaced by flash_attention_int8_sm90.cu (s8 wgmma, TMA multicast, warp
+// specialisation; its same-call baseline _launch_int8_mma_sync, counted as
 // flash_attention_int8[_sbf16]_mma_sync).
 //
 //   * the pre-pass (quant_q_kernel, quant_k_kernel) rotates q and k in fp32

@@ -6,8 +6,8 @@
 // Replaces two Pallas TPU kernels of univid_tpu/kernels/flash_attention.py
 // in these modes (all at D = 128, k and v with N / group heads):
 //   * _flash_kernel (:44): the bounded softmax p = exp2(s - C) with no max
-//     and no rescale (DiT self-attention after the rope pre-pass
-//     univid_rope_rotate_bf16 of flash_attention.cu), or the running max
+//     and no rescale (DiT self-attention after the q / k pre-pass, kernel A
+//     of qk_prepass.cu), or the running max
 //     (BAGEL's ViT append over the KV cache, 28 query heads over 4 kv
 //     heads); kv_len masking; its save_residuals mode (:343-352), the
 //     training forward, with the exp2-domain lse C + log2 l or m + log2 l,

@@ -41,10 +41,18 @@ and training paths reach:
     JAX kv block of `block_k` keys) and `flash_attention_int8` (int8 x int8
     -> int32 scores rescaled in fp32, the fp32 or the bf16 softmax chain,
     p v in bf16), bf16 d=128 with kv_len and the bound: the pre-pass on
-    csrc/flash_attention_int8.cu, the attention on
-    csrc/flash_attention_int8_sm90.cu (s8 wgmma, TMA, warp
+    csrc/qk_prepass.cu (kernel B, blocks over tokens with all their heads),
+    the attention on csrc/flash_attention_int8_sm90.cu (s8 wgmma, TMA, warp
     specialisation); counted as `flash_attention_int8` and
     `flash_attention_int8_sbf16`.
+  * `qk_norm_rope` — the fused-rope prologue (`_rot`, :119-135) with Wan's
+    qk RMS norm over the token's N * D width as its own prologue (the JAX
+    package's XLA fusion before the kernel): norm + rope, norm only, or
+    rope only, q and k in one launch of csrc/qk_prepass.cu (kernel A);
+    counted as `qk_norm_rope_bf16`, `qk_norm_bf16` and `qk_rope_bf16`.
+    `flash_attention_padded(qk_norm=(gain_q, gain_k, eps))` takes q and k
+    before their norm: on the card's bf16 route kernel A norms (and
+    rotates) them, elsewhere `qk_norm_rope_plain` does.
   * `flash_attention_bwd_padded` — `_flash_bwd_fused_kernel` and the
     two-pass `_flash_bwd_dq_kernel` / `_flash_bwd_dkv_kernel`: dq, dk, dv
     rebuilt from the lse. bf16 d=128 (`bf16_backward_route`): every mode
@@ -81,12 +89,15 @@ and reachable (`_launch_bf16` for the segment and packed modes,
 `_bwd_dkv_cuda`, the mma.sync pair, for every bf16 backward,
 `_launch_f32_d128` and `_bwd_dq_f32` / `_bwd_dkv_f32`, the fp32 d=128
 CUDA-core kernels; `_launch_int8_mma_sync`, the mma.sync int8 QK^T
-kernel) as the same-call baselines of chip_smoke.py and the card tests;
+kernel; `_rope_bf16`, the bf16 rope pre-pass kernel A replaced;
+`_quantize_qk_int8_pair`, the int8 pre-pass pair kernel B replaced) as
+the same-call baselines of chip_smoke.py and the card tests;
 no route reaches them, and they keep their launch counters' names
 (`flash_attention_f32_d128`, `flash_attention_f32_lse`,
 `flash_attention_bwd_dq_f32`, `flash_attention_bwd_dkv_f32`) beside the
 new kernels' (`..._f32_sm90`); the int8 baseline counts as
-`flash_attention_int8_mma_sync` and `flash_attention_int8_sbf16_mma_sync`.
+`flash_attention_int8_mma_sync` and `flash_attention_int8_sbf16_mma_sync`,
+the pre-pass baselines as `rope_rotate_bf16` and `quantize_qk_int8_pair`.
 """
 
 from __future__ import annotations
@@ -98,6 +109,7 @@ from typing import Optional
 import torch
 
 from . import build
+from ..core.nn import rms_norm
 
 NEG_INF = -1e30
 LOG2E = math.log2(math.e)
@@ -113,6 +125,7 @@ BWD_BLOCK_K = 128   # kv rows per block of flash_attention_bwd_sm90.cu
 INT8_SM90_BLOCK_Q = 128  # q rows per block of flash_attention_int8_sm90.cu
 INT8_SM90_BLOCK_K = 128  # kv rows per tile of flash_attention_int8_sm90.cu
 H100_SMS = 132      # the card's SMs: q splits fill them at small grids
+QK_PREPASS_MAX_HEADS = 40   # csrc/qk_prepass.cu: 8 heads a pass, 5 passes
 F32_MASKS_LATER = (
     "fp32 attention at d=128 has no causal, segment, packed or grouped-kv "
     "kernel mode: no fp32 caller reaches them yet (ROADMAP.md queue 2, item "
@@ -142,7 +155,9 @@ LAUNCHES = {"flash_attention_bf16": 0, "flash_attention_bf16_causal": 0,
             "split_bf16x3": 0, "flash_attention_f32_sm90": 0,
             "flash_attention_f32_sm90_lse": 0,
             "flash_attention_bwd_dq_f32_sm90": 0,
-            "flash_attention_bwd_dkv_f32_sm90": 0}
+            "flash_attention_bwd_dkv_f32_sm90": 0,
+            "qk_norm_rope_bf16": 0, "qk_norm_bf16": 0, "qk_rope_bf16": 0,
+            "quantize_qk_int8_pair": 0}
 # the flash_attention_f32 launches split by head dim
 F32_LAUNCHES_BY_D = {d: 0 for d in F32_DIMS}
 # launches of the masked modes: each is also counted under its kernel's name
@@ -236,6 +251,27 @@ def rotate(x: torch.Tensor, cf: torch.Tensor, sf: torch.Tensor,
     sw = x32.reshape(*x.shape[:-1], x.shape[-1] // 2, 2).flip(-1)
     sw = sw.reshape(x.shape)
     return (x32 * cf[:, None, :] + sw * sf[:, None, :]).to(out_dtype)
+
+
+def rms_heads(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
+    """Wan's qk-norm on [B, L, N, D]: `core.nn.rms_norm` over each token's
+    whole N * D width (fp32 mean of squares, rsqrt, cast back, times the
+    gain in x's dtype)."""
+    b, l, n, d = x.shape
+    return rms_norm(x.reshape(b, l, n * d), gain, eps=eps).reshape(b, l, n, d)
+
+
+def qk_norm_rope_plain(q, k, qk_norm=None, rope_tables=None):
+    """`qk_norm_rope` in plain PyTorch: with qk_norm = (gain_q, gain_k,
+    eps) `rms_heads` of q and k, then with rope_tables (cq, sq, ck, sk)
+    `rotate` each into its own dtype. Returns contiguous (q, k)."""
+    if qk_norm is not None:
+        gq, gk, eps = qk_norm
+        q, k = rms_heads(q, gq, eps), rms_heads(k, gk, eps)
+    if rope_tables is not None:
+        cq, sq, ck, sk = rope_tables
+        q, k = rotate(q, cq, sq, q.dtype), rotate(k, ck, sk, k.dtype)
+    return q.contiguous(), k.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -980,7 +1016,97 @@ def _launch_sm90(q, k, v, kv_len, bound, mode, lse=None, softmax_bf16=False,
     return o
 
 
+def _prepass_input(t):
+    """A bf16 [B, L, N, 128] operand as csrc/qk_prepass.cu reads it in
+    16-byte chunks: unit stride along D, a 16-byte aligned base, (b, l, h)
+    strides multiples of 8 elements; another view is copied first."""
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
+            s % 8 for s in t.stride()[:3]):
+        return t.contiguous()
+    return t
+
+
+def _check_prepass(q, k):
+    for t in (q, k):
+        if (not t.is_cuda or t.dtype != torch.bfloat16 or t.dim() != 4
+                or t.shape[-1] != D128):
+            raise TypeError("the q / k pre-passes take bf16 CUDA tensors "
+                            f"[B, L, N, {D128}], got {t.dtype} "
+                            f"{tuple(t.shape)} on {t.device}")
+    if q.shape[0] != k.shape[0]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         "in batch")
+    if max(q.shape[2], k.shape[2]) > QK_PREPASS_MAX_HEADS:
+        raise ValueError(f"the q / k pre-passes take at most "
+                         f"{QK_PREPASS_MAX_HEADS} heads")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
+        raise RuntimeError("the q / k pre-passes are inference-only: "
+                           "training norms and rotates under autograd")
+
+
+def _tables(rope_tables, lq, lk):
+    """The four fp32 [L, 128] rope tables as the kernels read them."""
+    tabs = tuple(t.float().contiguous() for t in rope_tables)
+    for t, length in zip(tabs, (lq, lq, lk, lk)):
+        if t.dim() != 2 or t.shape[0] < length or t.shape[1] != D128:
+            raise ValueError(f"rope table {tuple(t.shape)} does not cover "
+                             f"[{length}, {D128}]")
+    return tabs
+
+
+def qk_norm_rope(q, k, *, qk_norm=None, rope_tables=None):
+    """Kernel A of csrc/qk_prepass.cu, one launch for q [B, Lq, N, 128] and
+    k [B, Lk, Nk, 128] bf16 (Nk may be N / group): with qk_norm = (gain_q,
+    gain_k, eps), the gains bf16 [N * 128] and [Nk * 128], each token's RMS
+    norm over its whole width; with
+    rope_tables (cq, sq, ck, sk, fp32 [L, 128], q's with the fold) the
+    rotation, in fp32, rounded to bf16. Norm + rope, norm only or rope
+    only; returns contiguous (q, k) as `qk_norm_rope_plain`, which runs for
+    CPU tensors. Counted as `qk_norm_rope_bf16`, `qk_norm_bf16` or
+    `qk_rope_bf16`."""
+    if qk_norm is None and rope_tables is None:
+        raise ValueError("qk_norm_rope needs qk_norm, rope_tables or both")
+    if not q.is_cuda:
+        return qk_norm_rope_plain(q, k, qk_norm, rope_tables)
+    _check_prepass(q, k)
+    q, k = _prepass_input(q), _prepass_input(k)
+    b, lq, n, d = q.shape
+    lk, nk = k.shape[1], k.shape[2]
+    gq = gk = None
+    eps = 0.0
+    if qk_norm is not None:
+        gq, gk, eps = qk_norm
+        for g, t in ((gq, q), (gk, k)):
+            if (g.dtype != torch.bfloat16 or g.device != q.device
+                    or tuple(g.shape) != (t.shape[2] * d,)):
+                raise TypeError(f"qk-norm gains must be bf16 [N * {d}] on "
+                                "the kernel's device (rms_norm multiplies "
+                                "in x's dtype)")
+            if torch.is_grad_enabled() and g.requires_grad:
+                raise RuntimeError("the q / k pre-passes are inference-"
+                                   "only: trainable gains norm under "
+                                   "autograd")
+        gq, gk = gq.contiguous(), gk.contiguous()
+    tabs = (None,) * 4 if rope_tables is None else _tables(rope_tables,
+                                                           lq, lk)
+    yq = torch.empty((b, lq, n, d), dtype=torch.bfloat16, device=q.device)
+    yk = torch.empty((b, lk, nk, d), dtype=torch.bfloat16, device=q.device)
+    ll = ctypes.c_longlong
+    fn = _fn("qk_prepass", "univid_qk_norm_rope",
+             [_P] * 10 + [_I] * 5 + [ll] * 6 + [ctypes.c_float, _P])
+    err = fn(q.data_ptr(), k.data_ptr(), yq.data_ptr(), yk.data_ptr(),
+             _ptr(gq), _ptr(gk), *(_ptr(t) for t in tabs), b, lq, lk, n, nk,
+             *q.stride()[:3], *k.stride()[:3], float(eps), _stream(q))
+    build.check(err, "univid_qk_norm_rope")
+    _count("qk_norm_bf16" if rope_tables is None else
+           "qk_rope_bf16" if qk_norm is None else "qk_norm_rope_bf16")
+    return yq, yk
+
+
 def _rope_bf16(x, cf, sf):
+    """univid_rope_rotate_bf16 of csrc/flash_attention.cu, the rope
+    pre-pass that `qk_norm_rope` replaced: a baseline reached only by
+    chip_smoke.py and the card tests (counter `rope_rotate_bf16`)."""
     b, l, n, d = x.shape
     y = torch.empty((b, l, n, d), dtype=torch.bfloat16, device=x.device)
     fn = _fn("flash_attention", "univid_rope_rotate_bf16",
@@ -1018,9 +1144,7 @@ def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
                 raise NotImplementedError(
                     "fused rope does not compose with segment masks (as in "
                     "the JAX kernel)")
-            cq, sq, ck, sk = (t.float().contiguous() for t in rope_tables)
-            q = _rope_bf16(q, cq, sq)
-            k = _rope_bf16(k, ck, sk)
+            q, k = qk_norm_rope(q, k, rope_tables=rope_tables)
         if causal:
             o = _launch_bf16(q, k, v, kv_len, None, _MODE_RUNNING,
                              causal=causal, q_offset=q_offset,
@@ -1100,12 +1224,48 @@ def quantize_qk_int8(q, k, rope_tables=None, block_k: int = 512):
     """The qk_int8 pre-pass: (qi, sq, ki, akq) of `quantize_qk_int8_plain`,
     from padded q, k [B, L, N, 128] (rope_tables padded, or None with q
     already folded); the k scale's block of block_k keys (a multiple of 64:
-    every 64-key tile of the kernel lies in one block). Two launches on the
-    card (q, then k); the plain version on the CPU."""
+    every 64-key tile of the kernel lies in one block). On the card kernel
+    B of csrc/qk_prepass.cu: a launch that writes q's codes and folds each
+    k block's max by atomicMax, then a launch that writes k's codes;
+    counted as `quantize_qk_int8`, two a call. The plain version on the
+    CPU."""
     if block_k <= 0 or block_k % TILE:
         raise ValueError(f"block_k {block_k} is not a multiple of {TILE}")
     if not q.is_cuda:
         return quantize_qk_int8_plain(q, k, rope_tables, block_k)
+    _check_prepass(q, k)
+    if k.shape[2] != q.shape[2]:
+        raise ValueError("the int8 kernel takes as many kv heads as q heads")
+    q, k = _prepass_input(q), _prepass_input(k)
+    b, lq, n, d = q.shape
+    lk = k.shape[1]
+    nblk = -(-lk // block_k)
+    tabs = (None,) * 4 if rope_tables is None else _tables(rope_tables,
+                                                           lq, lk)
+    qi = torch.empty((b, n, lq, d), dtype=torch.int8, device=q.device)
+    sq = torch.empty((b, n, lq), dtype=torch.float32, device=q.device)
+    ki = torch.empty((b, n, lk, d), dtype=torch.int8, device=q.device)
+    akq = torch.empty((b, n, nblk), dtype=torch.float32, device=q.device)
+    kmax = torch.zeros((b, n, nblk), dtype=torch.int32, device=q.device)
+    ll = ctypes.c_longlong
+    fn = _fn("qk_prepass", "univid_quant_qk_int8",
+             [_P] * 11 + [_I] * 5 + [ll] * 6 + [_P])
+    err = fn(q.data_ptr(), k.data_ptr(), *(_ptr(t) for t in tabs),
+             qi.data_ptr(), sq.data_ptr(), ki.data_ptr(), akq.data_ptr(),
+             kmax.data_ptr(), b, lq, lk, n, block_k, *q.stride()[:3],
+             *k.stride()[:3], _stream(q))
+    build.check(err, "univid_quant_qk_int8")
+    LAUNCHES["quantize_qk_int8"] += 2
+    return qi, sq, ki, akq
+
+
+def _quantize_qk_int8_pair(q, k, rope_tables=None, block_k: int = 512):
+    """quant_q_kernel / quant_k_kernel of csrc/flash_attention_int8.cu, the
+    pre-pass kernel B replaced (two launches a call, k swept twice, the
+    tables read once a head): a baseline reached only by chip_smoke.py and
+    the card tests, counted as `quantize_qk_int8_pair`."""
+    if block_k <= 0 or block_k % TILE:
+        raise ValueError(f"block_k {block_k} is not a multiple of {TILE}")
     _check_int8_inputs(q, k)
     if k.shape[2] != q.shape[2]:
         raise ValueError("the int8 kernel takes as many kv heads as q heads")
@@ -1124,14 +1284,13 @@ def quantize_qk_int8(q, k, rope_tables=None, block_k: int = 512):
     err = fq(q.data_ptr(), _ptr(tabs[0]), _ptr(tabs[1]), qi.data_ptr(),
              sq.data_ptr(), b, lq, n, d, *q.stride()[:3], _stream(q))
     build.check(err, "univid_quant_q_int8")
-    _count("quantize_qk_int8")
     fk = _fn("flash_attention_int8", "univid_quant_k_int8",
              [_P] * 5 + [_I] * 5 + [ll] * 3 + [_P])
     err = fk(k.data_ptr(), _ptr(tabs[2]), _ptr(tabs[3]), ki.data_ptr(),
              akq.data_ptr(), b, lk, n, d, block_k, *k.stride()[:3],
              _stream(k))
     build.check(err, "univid_quant_k_int8")
-    _count("quantize_qk_int8")
+    LAUNCHES["quantize_qk_int8_pair"] += 2
     return qi, sq, ki, akq
 
 
@@ -1236,7 +1395,7 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
                            q_offset: int = 0, q_offsets=None, q_segments=None,
                            kv_segments=None, packed_mode: bool = False,
                            softmax_bf16: bool = False, qk_int8: bool = False,
-                           block_k: int = 512):
+                           block_k: int = 512, qk_norm=None):
     """Attention over padded [B, L, N, D] (k, v may have N / group heads).
 
     rope_tables: build_fused_rope_tables output -> q and k rotated first
@@ -1256,7 +1415,11 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
     min(block_k, Lk) keys, the JAX kernel's kv block, then
     `flash_attention_int8`); it takes every Lk, as the JAX kernel's
     generic grid does. The knobs take kv_len and the bound, no other mask,
-    and no lse."""
+    and no lse. qk_norm = (gain_q, gain_k, eps): q and k (bf16, D = 128)
+    arrive before Wan's qk RMS norm over each token's N * D width;
+    `qk_norm_rope` norms them (and rotates them with rope_tables, unless
+    qk_int8 takes the rotation); `attention` passes it only on the card's
+    no-grad bf16 route and norms first on every other."""
     b, lq, n, d = q.shape
     lk = k.shape[1]
     if lq % TILE or lk % TILE:
@@ -1279,17 +1442,26 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
     if knobs and q.is_cuda and q.dtype != torch.bfloat16:
         raise NotImplementedError(KNOBS_F32_LATER)
     if save_residuals:
-        if rope_tables is not None:
+        if rope_tables is not None or qk_norm is not None:
             raise NotImplementedError(
-                "the training forward takes rotated q and k (the JAX "
-                "package's training path applies rope outside the kernel)")
+                "the training forward takes normed and rotated q and k (the "
+                "JAX package's training path applies both outside the "
+                "kernel)")
         return flash_attention_fwd_folded(_fold(q, softmax_scale), k, v,
                                           kv_len=kv_len,
                                           score_bound=score_bound, **masks)
-    if rope_tables is not None:
+    rotated = rope_tables is not None   # q's tables carry the fold
+    if rotated:
         rope_tables = _pad_tables(rope_tables, lq, lk,
                                   softmax_scale * LOG2E)
-    else:
+    if qk_norm is not None:
+        if qk_int8 or not rotated:   # norm only
+            q, k = qk_norm_rope(q, k, qk_norm=qk_norm)
+        else:   # norm + rope in one pass
+            q, k = qk_norm_rope(q, k, qk_norm=qk_norm,
+                                rope_tables=rope_tables)
+            rope_tables = None
+    if not rotated:
         q = _fold(q, softmax_scale)
     if qk_int8:
         bw = min(block_k, lk)
@@ -1299,7 +1471,7 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
                                     softmax_bf16=softmax_bf16, block_k=bw)
     # the cross kernel is bf16; fp32 calls (the fp32 DiT's cross-attention,
     # the VAE on small frames) stay on the flash route, the same function
-    if (rope_tables is None and lk <= CROSS_MAX_LK
+    if (not rotated and lk <= CROSS_MAX_LK
             and q.dtype == torch.bfloat16 and not causal
             and q_segments is None):
         return cross_attention_padded(q, k, v, kv_len=kv_len,

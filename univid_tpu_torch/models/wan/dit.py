@@ -6,7 +6,9 @@ dense layer over flattened patches; per-token timesteps in the two-value
 form ({t, 0} embedded once, selected per token by t_zero_mask); fp32
 islands for the time embedding, AdaLN modulation, norms and the residual
 stream; the bounded-softmax score bound 1.01 * d * max|g_q| * max|g_k| for
-self- and cross-attention; and the fused-rope route into the flash kernel.
+self- and cross-attention; and the fused-rope route into the flash kernel,
+on which q and k reach `attention` before their qk-norm (`qk_norm`) so that
+the card's q / k pre-pass takes the norm as its prologue.
 The blocks are an nn.ModuleList. `wan_dit_forward` is differentiable
 (serving runs it under the pipeline's no_grad): `remat_blocks` recomputes
 blocks in the backward with torch.utils.checkpoint, and `weights`
@@ -122,13 +124,15 @@ def unpatchify_tokens(tokens, grid, patch_size, out_dim):
 # ---------------------------------------------------------------------------
 
 
-def _attn_qkv(p, x, n_heads, policy):
+def _attn_qkv(p, x, n_heads, policy, defer_norm=False):
+    """q, k, v [B, L, N, dh]; q and k qk-normed unless defer_norm (the
+    fused-rope path hands the gains to `attention`, `_qk_norm`)."""
     b, l, d = x.shape
     dh = d // n_heads
     cd = policy.compute_dtype
     q = unn.linear(p["q"], x, compute_dtype=cd)
     k = unn.linear(p["k"], x, compute_dtype=cd)
-    if "norm_q" in p:
+    if "norm_q" in p and not defer_norm:
         q = unn.rms_norm(q, p["norm_q"].to(cd), eps=1e-6)
         k = unn.rms_norm(k, p["norm_k"].to(cd), eps=1e-6)
     v = unn.linear(p["v"], x, compute_dtype=cd)
@@ -189,6 +193,15 @@ def _pad_rope(rope_cos, rope_sin, l):
     return rope_cos, rope_sin
 
 
+def _qk_norm(p, policy, fused):
+    """attention()'s qk_norm on the fused-rope path: (gain_q, gain_k, eps)
+    in the compute dtype, as `_attn_qkv` would apply them; else None."""
+    if not fused or "norm_q" not in p:
+        return None
+    cd = policy.compute_dtype
+    return p["norm_q"].to(cd), p["norm_k"].to(cd), 1e-6
+
+
 def _qk_bound(p, dh):
     """1.01 * d * max|g_q| * max|g_k|: qk-norm bounds every row norm by
     max|gain| * sqrt(d) and rope preserves norms; 1% absorbs bf16 rounding
@@ -221,10 +234,12 @@ class _View:
 
 
 def _self_attn_qkv(bp, cfg, x32, sel, rope_cos, rope_sin, rope_tabs, policy):
-    """AdaLN + q/k/v projections + qk-norm (+ rope unless fused)."""
+    """AdaLN + q/k/v projections + qk-norm and rope, unless fused: then
+    `attention` takes both (`_self_attn`)."""
     cd = policy.compute_dtype
     y = _modulated(x32, sel(0), sel(1), cfg.eps).to(cd)
-    q, k, v = _attn_qkv(bp.self_attn, y, cfg.num_heads, policy)
+    q, k, v = _attn_qkv(bp.self_attn, y, cfg.num_heads, policy,
+                        defer_norm=rope_tabs is not None)
     if rope_tabs is None:
         q = apply_rope(q, rope_cos, rope_sin).to(cd)
         k = apply_rope(k, rope_cos, rope_sin).to(cd)
@@ -239,12 +254,15 @@ def _self_attn(bp, cfg, q, k, v, rope_tabs, self_kv_len, policy):
     # what the 'attn' remat mode keeps
     return attention(q, k, v, kv_len=self_kv_len, rope_tables=rope_tabs,
                      softmax_bf16=policy.softmax_bf16,
-                     qk_int8=policy.qk_int8,
-                     score_bound=bound).to(policy.compute_dtype)
+                     qk_int8=policy.qk_int8, score_bound=bound,
+                     qk_norm=_qk_norm(bp.self_attn, policy,
+                                      rope_tabs is not None)
+                     ).to(policy.compute_dtype)
 
 
-def _block_rest(bp, cfg, x32, attn, sel, ctx, policy):
-    """o-projection + residual, cross-attention, FFN."""
+def _block_rest(bp, cfg, x32, attn, sel, ctx, policy, fused=False):
+    """o-projection + residual, cross-attention (q and k normed by
+    `attention` when fused), FFN."""
     b, l, _ = x32.shape
     n = cfg.num_heads
     dh = cfg.head_dim
@@ -263,11 +281,12 @@ def _block_rest(bp, cfg, x32, attn, sel, ctx, policy):
     y = y.to(cd)
     ca = bp.cross_attn
     ctx_len = ctx.shape[1]
+    qk_norm = _qk_norm(ca, policy, fused)
     q = unn.linear(ca["q"], y, compute_dtype=cd)
-    if "norm_q" in ca:
+    if "norm_q" in ca and qk_norm is None:
         q = unn.rms_norm(q, ca["norm_q"].to(cd), eps=1e-6)
     k = unn.linear(ca["k"], ctx, compute_dtype=cd)
-    if "norm_k" in ca:
+    if "norm_k" in ca and qk_norm is None:
         k = unn.rms_norm(k, ca["norm_k"].to(cd), eps=1e-6)
     v = unn.linear(ca["v"], ctx, compute_dtype=cd)
     q = q.reshape(b, l, n, dh)
@@ -277,7 +296,8 @@ def _block_rest(bp, cfg, x32, attn, sel, ctx, policy):
     if policy.bounded_softmax and "norm_q" in ca and "norm_k" in ca:
         cbound = _qk_bound(ca, dh)
     attn = attention(q, k, v, softmax_bf16=policy.softmax_bf16,
-                     score_bound=cbound).reshape(b, l, cfg.dim)
+                     score_bound=cbound, qk_norm=qk_norm
+                     ).reshape(b, l, cfg.dim)
     attn = unn.linear(ca["o"], attn, compute_dtype=cd)
     x32 = x32 + attn.to(rdt)
 
@@ -308,7 +328,8 @@ def _block(bp, cfg, x32, e0, ctx, rope_cos, rope_sin, rope_tabs,
                               rope_tabs, policy)
 
     def rest(x, a):
-        return _block_rest(bp, cfg, x, a, sel, ctx, policy)
+        return _block_rest(bp, cfg, x, a, sel, ctx, policy,
+                           fused=rope_tabs is not None)
 
     def full(x):
         q, k, v = qkv(x)
