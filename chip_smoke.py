@@ -29,14 +29,17 @@ Phases:
      device times on `bwd_sm90_kernels_*` lines), a kv_len = 0 row exactly
      zero;
      the causal mode at the BAGEL QA shapes (question prefill over the
-     20,480-row cache, a 16-row batch, a square 2,048 prefill) and the
-     grouped ViT append; the packed mode (forward with and without lse,
+     20,480-row cache, a 16-row batch, a square 2,048 prefill) on
+     flash_attention_causal_sm90.cu (its split count and packing logged),
+     timed in turns with the mma.sync kernel it replaced, rows with no live
+     key exactly 0 with lse +1e30, and the grouped ViT append; the packed mode (forward with and without lse,
      backward) on the BAGEL training pack's own codes, [1, 4096, 28, 128],
      and padded 4,000 -> 4,032 (pad rows exactly 0, lse +1e30); the
      segment mode at [2, 2048, 12, 128]; their forwards run on the sm90
      kernel after the tile-list pre-pass (its list equal to the plain
      list, the live-tile share logged) and are timed in turns with the
-     mma.sync kernel they replaced; the causal backward at the
+     mma.sync kernel they replaced; the causal backward (and the causal
+     forward with lse, in turns with the mma.sync kernel) at the
      square prefill's shape, offset 0 and q_offsets [0, 37]; every masked
      backward on the one-pass sm90 kernel after its kv-major tile-list
      pre-pass (the list equal to the plain list, its live share at 64 x
@@ -87,7 +90,11 @@ Phases:
      d=1024, once more at d=640 for the i2v encode, never at d=384);
   8. drive the video-QA path: one full-width BAGEL-7B-MoT reflexion
      request (16 seed captions, K = 4, 8, 16, 512-token greedy decodes)
-     with the launches of each phase checked; profile 16 decode steps;
+     with the launches of each phase checked (the 84 causal question
+     prefills on the causal sm90 kernel, each QA call's text_prefill_s
+     logged); time the question's prefill over the 16-frame context with
+     the causal kernel and the mma.sync kernel in turns; profile 16 decode
+     steps;
   9. drive the BAGEL packed-training path: BAGEL-7B-MoT at full width on
      one 4,096-token pack of the four sample kinds, freeze_und; one
      untimed training pass to warm up (its seconds and allocator growth
@@ -131,8 +138,8 @@ in phase 3, and each knob alone and all four card against CPU on a small
 d=128 DiT in phase 4.
 Each path starts with every launch count at 0; the paths of phases 5-9
 and 12 also check their bf16 forward launches by kernel (every unmasked,
-segment and packed forward on the sm90 kernel, only causal calls on the
-mma.sync kernel; `check_impl`). The `kernels` line gives
+segment and packed forward on the sm90 kernel, every causal one on the
+causal sm90 kernel, none on the mma.sync kernel; `check_impl`). The `kernels` line gives
 each kernel the launches of its own path (the packed modes and the
 tile-list pre-passes: the six timed BAGEL packed-training passes; the
 segment modes and the causal backward serve no path of the JAX package at
@@ -233,12 +240,13 @@ def check_bwd_impl(tag, sm90, mma_sync=0):
         fail(f"{tag}: bf16 backward calls by kernel {got} != {want}")
 
 
-def check_impl(tag, sm90, mma_sync=0):
+def check_impl(tag, sm90, causal_sm90=0, mma_sync=0):
     """A path's bf16 forward launches by kernel (LAUNCHES_BY_IMPL since the
     path's counts were reset): every unmasked, segment and packed forward
-    on the sm90 kernel, the mma.sync kernel only for causal calls."""
+    on the sm90 kernel, every causal one on the causal sm90 kernel, none on
+    the mma.sync kernel."""
     from univid_tpu_torch.kernels import flash_attention as fa
-    want = {"sm90": sm90, "mma_sync": mma_sync}
+    want = {"sm90": sm90, "causal_sm90": causal_sm90, "mma_sync": mma_sync}
     got = dict(fa.LAUNCHES_BY_IMPL)
     log(json.dumps({"check": f"{tag}: bf16 forward launches by kernel",
                     "launches_by_impl": got, "expected": want,
@@ -1523,7 +1531,8 @@ def profile_call(fn, families=None):
         elif ("flash_" in name or "rope_rotate" in name or "mask_tiles" in name
                 or "qk_norm_rope" in name or "quant_q" in name
                 or "bwd_pre" in name or "bwd_post" in name
-                or "bwd_tiles" in name or "split_bf16x3" in name):
+                or "bwd_tiles" in name or "split_bf16x3" in name
+                or "causal_merge" in name):
             fam["attention_kernels_ms"] += ms
         elif "gemm" in name or "nvjet" in name or "xmma" in name:
             fam["gemm_ms"] += ms
@@ -1662,6 +1671,7 @@ def ti2v_main_path(output_dir):
         "flash_attention_f32 d=640": 0,
         "flash_attention_f32 d=1024": n_dec,    # per decoded chunk
         "bf16 forward on sm90": 60 * steps,     # self + cross a block
+        "bf16 forward on causal_sm90": 0,
         "bf16 forward on mma_sync": 0})
     # i2v adds the d=640 launch of its first-frame encode
     expected = {"t2v": per_video,
@@ -1748,16 +1758,19 @@ def _causal_work(lq, offsets, kv_len, n, d=128):
 
 
 def check_causal_kernels():
-    """The causal kernel mode against its plain version at the BAGEL path's
-    shapes: the 16-frame QA's question prefill (q [1, 64, 28, 128] over the
-    20,480-row cache, 4 kv heads, q_offsets 19,168), a batch of 16 rows at
-    different offsets over a 2,624-row cache (the batched captioning's
-    shape) and a square 2,048-token prefill at offset 0 (the largest text
-    bucket); then the running-max mode at the ViT append's shape ([1, 2112,
-    28, 128] over the cache, group 7). Each timed beside its bound, its
-    plain version and SDPA with the same boolean mask on the repeated kv
-    heads. Returns the flash_attention_bf16_causal record (question
-    shape)."""
+    """The causal kernel mode (flash_attention_causal_sm90.cu) against its
+    plain version at the BAGEL path's shapes: the 16-frame QA's question
+    prefill (q [1, 64, 28, 128] over the 20,480-row cache, 4 kv heads,
+    q_offsets 19,168: the split-kv pass), a batch of 16 rows at different
+    offsets over a 2,624-row cache (the batched captioning's shape) and a
+    square 2,048-token prefill at offset 0 (the largest text bucket); each
+    timed in turns with the mma.sync kernel it replaced (`sm90_vs_mma_sync`
+    lines), beside its bound, its plain version and SDPA with the same
+    boolean mask on the repeated kv heads, its split count and packing
+    logged; rows with no live key (kv_len = 0, rows before key 0) exactly 0
+    with lse +1e30 at the prefill's shape; then the running-max mode at the
+    ViT append's shape ([1, 2112, 28, 128] over the cache, group 7).
+    Returns the flash_attention_bf16_causal record (question shape)."""
     import torch
     import torch.nn.functional as F
 
@@ -1785,13 +1798,45 @@ def check_causal_kernels():
             return fa._flash_cuda(q, k, v, kv, None, None, causal=True,
                                   q_offsets=qo)
 
+        group = n // nk
+        splits = fa.causal_splits(b, n, group, lq, lk)
+        pairs = fa.causal_pairs(group, lq)
+        log(json.dumps({"check": f"causal kernel plan {tag}",
+                        "splits": splits, "slots_per_kv_head":
+                        group * lq // fa.CAUSAL_SLOT,
+                        "blocks": b * nk * pairs * splits,
+                        "cache_reads_per_kv_head": pairs,
+                        "packing": "two 64-row slots a block, slot = "
+                                   "(position // 64) * group + head"}))
         with torch.no_grad():
             got = run()
             want = fa.attention_plain(q, k, v, kv_len=kv, causal=True,
                                       q_offsets=qo)
             err = compare(f"flash_attention_bf16_causal {tag}", got, want,
                           **tol)
-            ms = cuda_time(run, 10)
+            old = fa._launch_bf16(q, k, v, kv, None, fa._MODE_RUNNING,
+                                  causal=True, q_offsets=qo)
+            compare(f"flash_attention_bf16_causal mma.sync {tag}", old,
+                    want, **tol)
+            ms, old_ms = ab_time(run, lambda: fa._launch_bf16(
+                q, k, v, kv, None, fa._MODE_RUNNING, causal=True,
+                q_offsets=qo), 10)
+            log_ab(f"causal {tag}", ms, old_ms)
+            # the kernels' device time a call (main kernel and, split, the
+            # merge): the wrapper's time above also holds the host's work.
+            # The profiler sometimes records no kernel: up to three tries,
+            # else None (not measured)
+            device_ms = None
+            for _ in range(3):
+                _, prof = profile_call(lambda: [run() for _ in range(5)])
+                rows = [t_ for t_ in prof["top_kernels"]
+                        if "causal" in t_["kernel"]]
+                log(json.dumps({f"causal_kernels {tag}": [
+                    (t_["kernel"][:60], t_["ms"] / t_["count"], t_["count"])
+                    for t_ in rows]}))
+                if rows:
+                    device_ms = sum(t_["ms"] / t_["count"] for t_ in rows)
+                    break
             plain_ms = cuda_time(lambda: fa.attention_plain(
                 q, k, v, kv_len=kv, causal=True, q_offsets=qo), 1)
             rows = fa.causal_rows(lq, 0, qo, q.device)
@@ -1806,19 +1851,53 @@ def check_causal_kernels():
         bms, by = bound_ms(_causal_work(lq, offs, kv_host, n),
                            nbytes(q, got) + live_kv, H100_BF16_FLOPS)
         rec = dict(name="flash_attention_bf16_causal", route="cuda",
-                   source="univid_tpu_torch/kernels/csrc/flash_attention.cu",
+                   source="univid_tpu_torch/kernels/csrc/"
+                          "flash_attention_causal_sm90.cu",
                    replaces="univid_tpu/kernels/flash_attention.py:44",
                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                   bound_by=by, library_ms=lib_ms,
+                   bound_by=by, library_ms=lib_ms, mma_sync_ms=old_ms,
+                   device_ms=device_ms, splits=splits,
                    shape={"q": list(q.shape), "kv": list(k.shape),
                           "q_offsets": offs[:2], "kv_len": kv_host[:2]})
         if record is None:
-            record = {k_: v_ for k_, v_ in rec.items() if k_ != "shape"}
+            record = {k_: v_ for k_, v_ in rec.items()
+                      if k_ not in ("shape", "splits")}
             log(json.dumps({"kernel": record}))
-        else:
-            log(json.dumps({f"kernel_at_{tag}": rec}))
-        del q, k, v, got, want, qs, ks, vs, mask
+        log(json.dumps({f"kernel_at_{tag}": rec}))
+        del q, k, v, got, want, old, qs, ks, vs, mask
         torch.cuda.empty_cache()
+
+    # rows with no live key at the prefill's shape, B = 3 (2 splits): a
+    # batch row at q_offsets -32 (its first 32 rows precede key 0) and one
+    # with kv_len = 0; with the lse
+    q, k, v, qo, kv = _causal_case(gen, 3, 64, BAGEL_CAPACITY, n, nk,
+                                   [16 * FRAME_ROWS, -32, 100], n_q, False)
+    kv = torch.tensor([16 * FRAME_ROWS + n_q, BAGEL_CAPACITY, 0],
+                      dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        lse = torch.empty((3, n, 64), device="cuda")
+        o = fa._launch_causal_sm90(q, k, v, kv, 0, qo, lse=lse)
+        o_p, lse_p = fa.attention_plain(q, k, v, kv_len=kv, causal=True,
+                                        q_offsets=qo, save_residuals=True)
+    compare("flash_attention_bf16_lse_causal empty rows, output", o, o_p,
+            **tol)
+    compare("flash_attention_bf16_lse_causal empty rows, lse", lse, lse_p,
+            atol=1e-3, rtol=0.0, why="fp32 log2 of an fp32 row sum; "
+                                      "summation order and the approximate "
+                                      "exp2")
+    empty = {"splits": fa.causal_splits(3, n, n // nk, 64, BAGEL_CAPACITY),
+             "rows_before_key_0_zero": float(o[1, :32].abs().max()) == 0.0
+             and bool((lse[1, :, :32] == 1e30).all()),
+             "kv_len_0_row_zero": float(o[2].abs().max()) == 0.0
+             and bool((lse[2] == 1e30).all())}
+    empty["ok"] = empty["rows_before_key_0_zero"] and empty[
+        "kv_len_0_row_zero"]
+    log(json.dumps({"check": "causal kernel rows with no live key",
+                    **empty}))
+    if not empty["ok"]:
+        fail("causal kernel: rows with no live key are not 0 with lse +1e30")
+    del q, k, v, o, lse, o_p, lse_p
+    torch.cuda.empty_cache()
 
     # the ViT append of the 16th frame: 2,050 rows padded to 2,112 over
     # the cache, non-causal, kv_len 19,168, 28 query heads over 4 kv heads
@@ -1979,7 +2058,10 @@ def bagel_main_path(output_dir):
     captions as one batch, static rounds K = 4, 8, 16, the fallback; 512
     greedy tokens per decode. The inferencer's cache holds 20,480 rows.
     Checks the trace, the launches of each phase, and logs the seconds of
-    each phase and the peak memory; then profiles 16 decode steps. Returns
+    each phase and the peak memory; then times the question's prefill
+    over the largest QA call's context with the causal kernel and with the
+    mma.sync kernel in turns (`_prefill_vs_mma_sync`) and profiles 16
+    decode steps after it. Returns
     the reflexion run's launch counts."""
     import gc
     import os
@@ -2131,9 +2213,12 @@ def bagel_main_path(output_dir):
             fail(f"QA call on {k} frames: launches {call['launches']} != "
                  f"{want}")
     # the ViT appends (captioning and QA) on the sm90 kernel, the causal
-    # question prefills on the mma.sync kernel
+    # question prefills on the causal sm90 kernel, none on the mma.sync one
     check_impl("BAGEL QA request", n_layers * (1 + sum(rounds)),
-               n_layers * len(qa))
+               causal_sm90=n_layers * len(qa))
+    log(json.dumps({"check": "BAGEL QA text prefill seconds",
+                    "text_prefill_s": [c["text_prefill_s"] for c in qa],
+                    "causal_launches_per_call": n_layers}))
     keys = {"video", "question", "qtype_init", "global_caption", "rounds",
             "fallback", "qtype_final", "final_answer"}
     if not keys <= set(trace) or not trace["final_answer"]:
@@ -2154,7 +2239,7 @@ def bagel_main_path(output_dir):
         ctx = base.init_gen_context()
         for _ in range(rcfg.static_seq[-1]):
             ctx = base.vit_append(ctx, feats[None], pos[None], n)
-        ctx = base.update_context_text(QA_QUESTION, ctx)
+        ctx = _prefill_vs_mma_sync(base, ctx)
         rows = ctx["cache"]["len_host"][0]
         _, prof = profile_call(lambda: generate_text(
             bagel, cfg, ctx, n_tok, compute_dtype=bf))
@@ -2172,6 +2257,50 @@ def bagel_main_path(output_dir):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def _prefill_vs_mma_sync(inf, ctx):
+    """The question's text prefill over a context (the largest QA call's:
+    16 appended frames, 19,168 rows), whole and timed to a synchronised
+    end, with its 28 causal attention calls on the causal sm90 kernel and,
+    in turns, on the mma.sync kernel it replaced (old, new, new, old,
+    twice). Each run starts from the same context: the prefill writes the
+    same cache rows past its length, and the length moves in a copy.
+    Returns the context after one prefill."""
+    import torch
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    def prefill():
+        c = {"cache": dict(ctx["cache"]), "rope": ctx["rope"]}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inf.update_context_text(QA_QUESTION, c)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, out
+
+    def mma_sync(q, k, v, kv_len, q_offset=0, q_offsets=None, lse=None):
+        return fa._launch_bf16(q, k, v, kv_len, None, fa._MODE_RUNNING,
+                               lse=lse, causal=True, q_offset=q_offset,
+                               q_offsets=q_offsets)
+
+    route = fa._launch_causal_sm90
+    seconds = {"causal_sm90": [], "mma_sync": []}
+    prefill()   # warm-up
+    try:
+        for impl in ("mma_sync", "causal_sm90", "causal_sm90",
+                     "mma_sync") * 2:
+            fa._launch_causal_sm90 = mma_sync if impl == "mma_sync" \
+                else route
+            seconds[impl].append(prefill()[0])
+    finally:
+        fa._launch_causal_sm90 = route
+    log(json.dumps({"check": "question prefill, causal kernel vs mma.sync",
+                    "cache_rows": ctx["cache"]["len_host"][0],
+                    "text_prefill_s": seconds,
+                    "median_s": {k_: statistics.median(v_)
+                                 for k_, v_ in seconds.items()}}))
+    return prefill()[1]
 
 
 def qa_cli_on_card(output_dir):
@@ -2390,15 +2519,17 @@ def _mask_case(tag, q, k, v, do, kv_len, masks, live_pairs, allowed,
                           device=q.device)
 
     def timed(new, lse):
-        """The call's ms; a segment / packed forward in turns with the
-        mma.sync kernel it replaced (`sm90_vs_mma_sync` line): (ms, its
+        """The call's ms; a segment, packed or causal forward in turns with
+        the mma.sync kernel it replaced (`sm90_vs_mma_sync` line): (ms, its
         ms or None)."""
-        if seg is None:
+        if seg is None and not masks.get("causal"):
             return cuda_time(new, 10), None
+        old = (dict(causal=True, q_offsets=masks.get("q_offsets"))
+               if seg is None else
+               dict(q_segments=masks["q_segments"],
+                    kv_segments=masks["kv_segments"], seg=seg))
         ms, old_ms = ab_time(new, lambda: fa._launch_bf16(
-            qs, k, v, kv_len, None, fa._MODE_RUNNING, lse=lse,
-            q_segments=masks["q_segments"],
-            kv_segments=masks["kv_segments"], seg=seg), 10)
+            qs, k, v, kv_len, None, fa._MODE_RUNNING, lse=lse, **old), 10)
         log_ab(f"{tag} {'forward with lse' if lse is not None else 'forward'}",
                ms, old_ms)
         return ms, old_ms
@@ -2584,7 +2715,7 @@ def _records(mode, case):
         src = "univid_tpu_torch/kernels/csrc/" + (
             "flash_attention_bwd_sm90.cu" if kind == "bwd_sm90" else
             "flash_attention_bwd.cu" if "bwd" in kind else
-            "flash_attention.cu" if mode == "causal" else
+            "flash_attention_causal_sm90.cu" if mode == "causal" else
             "flash_attention_sm90.cu")
         out[name.format(mode)] = dict(
             name=name.format(mode), route="cuda", source=src,
@@ -2999,7 +3130,8 @@ def bagel_train_main_path():
                 for k_, v_ in fa.LAUNCHES_BY_IMPL.items()}
         bwd = {k_: v_ - bwd_before[k_]
                for k_, v_ in fa.BWD_LAUNCHES_BY_IMPL.items()}
-        if (got != want or impl != {"sm90": n_layers, "mma_sync": 0}
+        if (got != want or impl != {"sm90": n_layers, "causal_sm90": 0,
+                                    "mma_sync": 0}
                 or bwd != {"sm90": bwd_calls, "mma_sync": 0}):
             fail(f"{tag}: launches {got} != {want} or by kernel {impl}, "
                  f"backward {bwd}")
@@ -4439,16 +4571,18 @@ def main():
     # the Hopper kernels: no spills, no serialised wgmma (ptxas warnings
     # C7513 / C7514), in any instantiation
     for name in ("flash_attention_sm90", "flash_attention_bwd_sm90",
-                 "flash_attention_f32_sm90", "flash_attention_int8_sm90"):
+                 "flash_attention_f32_sm90", "flash_attention_int8_sm90",
+                 "flash_attention_causal_sm90"):
         sm90_log = build.BUILD_LOG.get(name, "")
         spills = re.findall(
             r"(\d+) bytes spill stores, (\d+) bytes spill loads", sm90_log)
         if (any(a != "0" or b != "0" for a, b in spills)
                 or re.search(r"C751[34]", sm90_log)):
             fail(f"{name}.cu spills or serialises its wgmma")
-    log(json.dumps({"check": "flash_attention_int8_sm90.cu instantiations",
-                    "ptxas": ptxas_by_function(
-                        build.BUILD_LOG.get("flash_attention_int8_sm90", ""))}))
+    for name in ("flash_attention_int8_sm90", "flash_attention_causal_sm90"):
+        log(json.dumps({"check": f"{name}.cu instantiations",
+                        "ptxas": ptxas_by_function(
+                            build.BUILD_LOG.get(name, ""))}))
 
     t0 = time.perf_counter()
     records = check_kernels()

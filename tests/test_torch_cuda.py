@@ -218,23 +218,23 @@ def test_cuda_attention_function_grads(cuda_device):
 
 # causal cases (lq, lk, q_offset, q_offsets, kv_len, group): offsets that
 # are not multiples of 64, a q tile straddling kv_len, padded query rows
-# past kv_len, B = 3 rows with different offsets, group 1 and 7
+# past kv_len, B = 3 rows with different offsets, group 1 and 7. Every case
+# but the last takes the causal kernel's split-kv pass (`causal_splits`:
+# 2, 3, 4, 5 and 5 splits); long_cache_g7 is a question prefill over a
+# 4,096-row cache with a kv_len = 47 row at offset 0; square_g7_no_split
+# gives 336 blocks and no split
 CAUSAL = {
     "square_g1": (192, 192, 0, None, (192, 150, 64), 1),
     "offsets_g7": (128, 512, 0, (37, 250, 384), (101, 300, 450), 7),
     "static_plus_dynamic_g7": (64, 448, 13, (0, 129, 320), (64, 200, 390),
                                7),
     "decode_like_g7": (64, 1024, 0, (1000, 999, 3), (1003, 1024, 10), 7),
+    "long_cache_g7": (64, 4096, 0, (3000, 4032, 0), (3047, 4096, 47), 7),
+    "square_g7_no_split": (1024, 1024, 0, None, (1024, 1000, 700), 7),
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", list(CAUSAL))
-def test_cuda_causal_kernel_matches_plain(cuda_device, case):
-    """The causal mode (running max, static q_offset + device q_offsets,
-    kv_len, grouped kv heads) against its plain version on the card, bf16
-    (2e-2: one bf16 rounding of p and of the output). Keys past kv_len and
-    past the diagonal hold 50.0: a key let through would be far off."""
+def _causal_inputs(cuda_device, case):
     lq, lk, qoff, qoffs, kvl, group = CAUSAL[case]
     nk = 2
     n = nk * group
@@ -248,6 +248,18 @@ def test_cuda_causal_kernel_matches_plain(cuda_device, case):
     for r in range(3):
         k[r, kvl[r]:] = 50.0
         v[r, kvl[r]:] = 50.0
+    return q, k, v, qoff, qo, kv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CAUSAL))
+def test_cuda_causal_kernel_matches_plain(cuda_device, case):
+    """The causal mode (running max, static q_offset + device q_offsets,
+    kv_len, grouped kv heads) on flash_attention_causal_sm90.cu against its
+    plain version on the card, bf16 (2e-2: one bf16 rounding of p and of
+    the output). Keys past kv_len and past the diagonal hold 50.0: a key
+    let through would be far off."""
+    q, k, v, qoff, qo, kv = _causal_inputs(cuda_device, case)
     tfa.reset_launches()
     with torch.no_grad():
         got = tfa.flash_attention_padded(q, k, v, kv_len=kv, causal=True,
@@ -260,8 +272,78 @@ def test_cuda_causal_kernel_matches_plain(cuda_device, case):
     torch.cuda.synchronize()
     assert tfa.LAUNCHES["flash_attention_bf16_causal"] == 1
     assert tfa.LAUNCHES["flash_attention_bf16"] == 0
+    assert tfa.LAUNCHES_BY_IMPL == {"sm90": 0, "causal_sm90": 1,
+                                    "mma_sync": 0}
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().numpy(), **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["square_g1", "decode_like_g7",
+                                  "long_cache_g7", "square_g7_no_split"])
+def test_cuda_causal_lse_matches_plain(cuda_device, case):
+    """The causal forward with lse on flash_attention_causal_sm90.cu (the
+    split and the unsplit form) against its plain version and against the
+    mma.sync kernel it replaced, on the card: outputs as in `_check_fwd`
+    (running max), lse to 1e-3 (the approximate exp2 and the summation
+    order). The kernel on grouped kv heads directly; the training forward's
+    route (`flash_attention_fwd_folded`, which takes kv heads repeated, as
+    the backward does) on the repeated heads."""
+    q, k, v, qoff, qo, kv = _causal_inputs(cuda_device, case)
+    qs = tfa._fold(q, 128 ** -0.5)
+    masks = dict(causal=True, q_offset=qoff, q_offsets=qo)
+    n = q.shape[2]
+    with torch.no_grad():
+        lse = torch.empty((q.shape[0], n, q.shape[1]), device=cuda_device)
+        o = tfa._launch_causal_sm90(qs, k, v, kv, qoff, qo, lse=lse)
+        o_p, lse_p = tfa.attention_plain(qs, k, v, kv_len=kv,
+                                         save_residuals=True, **masks)
+        lse_old = torch.empty_like(lse)
+        o_old = tfa._launch_bf16(qs, k, v, kv, None, tfa._MODE_RUNNING,
+                                 lse=lse_old, causal=True, q_offset=qoff,
+                                 q_offsets=qo)
+        kr, vr = tfa.repeat_kv(k, n), tfa.repeat_kv(v, n)
+        tfa.reset_launches()
+        o_r, lse_r = tfa.flash_attention_fwd_folded(qs, kr, vr, kv_len=kv,
+                                                    **masks)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["flash_attention_bf16_lse"] == 1
+    assert tfa.LAUNCHES_BY_IMPL == {"sm90": 0, "causal_sm90": 1,
+                                    "mma_sync": 0}
+    for got, got_lse, ref, ref_lse in ((o, lse, o_p, lse_p),
+                                       (o, lse, o_old, lse_old),
+                                       (o_r, lse_r, o_p, lse_p)):
+        _check_fwd(got, ref, v, running=True)
+        np.testing.assert_allclose(got_lse.cpu().numpy(),
+                                   ref_lse.cpu().numpy(), rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_causal_empty_rows(cuda_device):
+    """Rows with no live key on the causal kernel, split (4 splits) and
+    unsplit: a batch row with kv_len = 0, and rows whose q_offsets put them
+    before key 0 (row < 0), come out exactly 0 with lse +1e30."""
+    q = _bf16((2, 128, 14, 128), 33, cuda_device)
+    k, v = (_bf16((2, 1024, 2, 128), s, cuda_device) for s in (34, 35))
+    qs = tfa._fold(q, 128 ** -0.5)
+    kv = torch.tensor([0, 1024], dtype=torch.int32, device=cuda_device)
+    qo = torch.tensor([0, -100], dtype=torch.int32, device=cuda_device)
+    assert tfa.causal_splits(2, 14, 7, 128, 1024) == 4
+    for qq, kk, vv in ((qs, k, v), (qs.repeat(4, 1, 1, 1), k.repeat(
+            4, 1, 1, 1), v.repeat(4, 1, 1, 1))):
+        b = qq.shape[0]
+        with torch.no_grad():
+            lse = torch.empty((b, 14, 128), device=cuda_device)
+            o = tfa._launch_causal_sm90(qq, kk, vv, kv.repeat(b // 2), 0,
+                                        qo.repeat(b // 2), lse=lse)
+        torch.cuda.synchronize()
+        for r in range(0, b, 2):
+            assert float(o[r].abs().max()) == 0.0
+            assert bool((lse[r] == 1e30).all())
+            assert float(o[r + 1, :100].abs().max()) == 0.0
+            assert bool((lse[r + 1, :, :100] == 1e30).all())
+            assert bool((lse[r + 1, :, 100:] < 1e29).all())
+    assert tfa.causal_splits(8, 14, 7, 128, 1024) == 1
 
 
 @pytest.mark.cuda
@@ -1154,7 +1236,8 @@ def test_cuda_sm90_forward_matches_plain(cuda_device, case):
             got = tfa.flash_attention_padded(q, k, v, kv_len=kv)
             want = tfa.attention_plain(qs, k, v, kv_len=kv)
     torch.cuda.synchronize()
-    assert tfa.LAUNCHES_BY_IMPL == {"sm90": 1, "mma_sync": 0}
+    assert tfa.LAUNCHES_BY_IMPL == {"sm90": 1, "causal_sm90": 0,
+                                    "mma_sync": 0}
     _check_fwd(got, want, v, running=bound is None, sbf16=sbf)
 
 
@@ -1180,7 +1263,8 @@ def test_cuda_sm90_lse_and_empty_rows(cuda_device, bounded):
                                          save_residuals=True)
     torch.cuda.synchronize()
     assert tfa.LAUNCHES["flash_attention_bf16_lse"] == 1
-    assert tfa.LAUNCHES_BY_IMPL == {"sm90": 1, "mma_sync": 0}
+    assert tfa.LAUNCHES_BY_IMPL == {"sm90": 1, "causal_sm90": 0,
+                                    "mma_sync": 0}
     _check_fwd(o, o_p, v, running=not bounded)
     np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(),
                                rtol=0, atol=1e-3)
@@ -1215,7 +1299,8 @@ def test_cuda_sm90_strided_views(cuda_device):
         bad = qkv.view(-1)[4:4 + l * n * d].view(1, l, n, d)
         with pytest.raises(ValueError, match="16-byte"):
             tfa.flash_attention_padded(q, bad, v, kv_len=kv)
-    assert tfa.LAUNCHES_BY_IMPL == {"sm90": 2, "mma_sync": 0}
+    assert tfa.LAUNCHES_BY_IMPL == {"sm90": 2, "causal_sm90": 0,
+                                    "mma_sync": 0}
 
 
 @pytest.mark.cuda
@@ -1242,7 +1327,8 @@ def test_cuda_sm90_matches_mma_sync_kernel(cuda_device, mode):
 def test_cuda_masked_forward_stays_on_mma_sync(cuda_device):
     """The split of the masked modes (LAUNCHES_BY_IMPL): the segment and
     packed forwards run on the sm90 kernel, one tile-list pre-pass each;
-    only the causal mode stays on the mma.sync kernel."""
+    the causal mode on the causal sm90 kernel; none stays on the mma.sync
+    kernel."""
     tfa.reset_launches()
     with torch.no_grad():
         for mode in ("segments", "packed"):
@@ -1251,7 +1337,8 @@ def test_cuda_masked_forward_stays_on_mma_sync(cuda_device):
                                        packed_mode=mode == "packed")
         tfa.flash_attention_padded(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert tfa.LAUNCHES_BY_IMPL == {"sm90": 2, "mma_sync": 1}
+    assert tfa.LAUNCHES_BY_IMPL == {"sm90": 2, "causal_sm90": 1,
+                                    "mma_sync": 0}
     assert tfa.LAUNCHES["mask_tile_list"] == 2
 
 

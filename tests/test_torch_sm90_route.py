@@ -46,8 +46,9 @@ ROUTES = {
     "sbf16_bounded": ("bounded", dict(softmax_bf16=True), KV, "sm90"),
     "sbf16_running": ("running", dict(softmax_bf16=True), KV, "sm90"),
     "sbf16_oneshot": ("oneshot", dict(softmax_bf16=True), KV_G7, "sm90"),
-    "causal": ("running", dict(causal=True), KV_G7, "mma_sync"),
-    "causal_lse": ("running", dict(causal=True, lse=True), KV, "mma_sync"),
+    "causal": ("running", dict(causal=True), KV_G7, "causal_sm90"),
+    "causal_lse": ("running", dict(causal=True, lse=True), KV,
+                   "causal_sm90"),
     "segments": ("running", dict(seg="segments"), KV_G7, "sm90"),
     "segments_lse": ("running", dict(seg="segments", lse=True), KV, "sm90"),
     "packed": ("running", dict(seg="packed"), KV, "sm90"),
@@ -73,7 +74,9 @@ def test_bf16_forward_route(case):
     """Every unmasked bf16 forward (bounded, running, one-shot; with the
     lse; grouped kv heads; the softmax_bf16 chain) and the segment and
     packed modes (with and without the lse) reach the sm90 kernel, the
-    causal mode the mma.sync kernel; a call that no kernel takes raises."""
+    causal mode (with and without the lse) the causal sm90 kernel
+    (flash_attention_causal_sm90.cu), none the mma.sync kernel; a call that
+    no kernel takes raises."""
     mode, kw, kv, want = ROUTES[case]
     if isinstance(want, str):
         assert tfa.bf16_forward_route(Q, kv, kv, mode=mode, **kw) == want

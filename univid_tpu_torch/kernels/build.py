@@ -31,6 +31,7 @@ SOURCES = {
     "flash_attention_bwd_f32": "flash_attention_bwd_f32.cu",
     "flash_attention_int8": "flash_attention_int8.cu",
     "flash_attention_sm90": "flash_attention_sm90.cu",
+    "flash_attention_causal_sm90": "flash_attention_causal_sm90.cu",
     "flash_attention_f32_tc": "flash_attention_f32_tc.cu",
     "flash_attention_bwd_sm90": "flash_attention_bwd_sm90.cu",
     "flash_attention_f32_sm90": "flash_attention_f32_sm90.cu",

@@ -1,5 +1,6 @@
 // Building blocks of the tensor-core attention forwards (flash_attention.cu,
-// flash_attention_int8.cu, flash_attention_sm90.cu): the segment and packed
+// flash_attention_int8.cu, flash_attention_sm90.cu,
+// flash_attention_causal_sm90.cu): the segment and packed
 // mask predicates, cp.async tile copies into XOR-swizzled shared
 // memory, ldmatrix fragment loads, the bf16 mma.sync product, and the
 // per-tile softmax update in the exp2 domain with its two chains, fp32 and

@@ -1,15 +1,17 @@
 // Flash attention forward for Hopper (sm_90a), bf16 inputs, fp32 softmax (or
 // the bf16 chain of the softmax_bf16 mode), on Ampere's mma.sync.
 //
-// What it serves on the paths: the causal mode below (BAGEL's question
-// prefill). The bf16 rope pre-pass univid_rope_rotate_bf16 gave way to
-// kernel A of qk_prepass.cu and stays built as its same-call baseline. The
-// unmasked modes (bounded, running and one-shot, with kv_len, the lse and
-// softmax_bf16) and the segment and packed modes moved to
+// What it serves on the paths: nothing. Every mode below moved to a Hopper
+// kernel: the unmasked modes (bounded, running and one-shot, with kv_len,
+// the lse and softmax_bf16) and the segment and packed modes to
 // flash_attention_sm90.cu (wgmma, TMA, warp specialisation; the masked
-// ones with a block-sparse tile skip); their instantiations here stay
-// compiled, reached only through the C entry point, as the same-call
-// baseline of chip_smoke.py and the card tests.
+// ones with a block-sparse tile skip), the causal mode (BAGEL's KV-cache
+// prefill, with and without the lse) to flash_attention_causal_sm90.cu
+// (query heads packed over one k / v stream, a split-kv pass with an lse
+// merge); the bf16 rope pre-pass univid_rope_rotate_bf16 gave way to
+// kernel A of qk_prepass.cu. Their instantiations here stay compiled,
+// reached only through the C entry point, as the same-call baselines of
+// chip_smoke.py and the card tests: the causal one is the causal kernel's.
 //
 // Replaces two Pallas TPU kernels of univid_tpu/kernels/flash_attention.py:
 //   * _flash_kernel (:44) in its DiT self-attention mode: fused 3D-RoPE
@@ -68,9 +70,10 @@
 // byte: the tensor cores bound it. The cross shape (32768 q x 512 kv) is
 // also flop-bound, but only by ~2x, so its q/out traffic matters. The
 // causal prefill of a short prompt over a long cache (64 q rows over
-// ~19k cached rows) reads the cache once per query head: the bytes bound
-// it, and one block per (head, 64 rows) leaves most SMs idle (a split-kv
-// pass is later work). The packed-training pack ([1, 4096, 28, 128]) has
+// ~19k cached rows) reads the cache once per query head, and one block per
+// (head, 64 rows) leaves most SMs idle (28 blocks on 132 SMs):
+// flash_attention_causal_sm90.cu packs the heads of a kv head and splits
+// the keys. The packed-training pack ([1, 4096, 28, 128]) has
 // 19% live (row, key) pairs in 22% of its tiles: the bound counts the live
 // pairs (operations), but the kernel computes every tile below kv_len and
 // masks, so it does ~5x the bound's work.
@@ -88,7 +91,7 @@
 // k once, in a pre-pass, into bf16 scratch (rounding points as on the TPU:
 // rotated q in q's dtype, rotated k in v's dtype).
 // Not used here: wgmma, TMA, warp specialisation (flash_attention_sm90.cu
-// has them; moving the causal mode onto it is later work).
+// and flash_attention_causal_sm90.cu have them).
 
 #include "bf16_tiles.cuh"
 

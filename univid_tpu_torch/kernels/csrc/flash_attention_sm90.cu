@@ -1,7 +1,9 @@
 // Flash attention forward for Hopper, bf16 in and out, rebuilt on wgmma,
 // TMA and warp specialisation (sm_90a). The unmasked modes of the bf16
 // forward and its segment and packed modes (with a block-sparse tile skip);
-// flash_attention.cu keeps the causal one.
+// flash_attention_causal_sm90.cu has the causal one (this file's block
+// and tile walk, with the query heads of one kv head packed over one k / v
+// stream and a split-kv pass).
 //
 // Replaces two Pallas TPU kernels of univid_tpu/kernels/flash_attention.py
 // in these modes (all at D = 128, k and v with N / group heads):

@@ -1,6 +1,6 @@
 // Building blocks of the Hopper (sm_90a) attention kernels,
-// flash_attention_sm90.cu (the bf16 forward) and flash_attention_bwd_sm90.cu
-// (the bf16 backward): mbarriers, TMA tile and bulk copies, the wgmma
+// flash_attention_sm90.cu and flash_attention_causal_sm90.cu (the bf16
+// forward) and flash_attention_bwd_sm90.cu (the bf16 backward): mbarriers, TMA tile and bulk copies, the wgmma
 // shared-memory descriptor of the 128-byte swizzle, the wgmma products the
 // kernels issue, and the host-side tensor map of a bf16 [B, L, N, 128]
 // operand.

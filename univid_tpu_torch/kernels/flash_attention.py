@@ -10,7 +10,7 @@ and training paths reach:
     its unmasked modes (DiT self-attention, the training forward, BAGEL's
     ViT append) and its segment and packed ones (BAGEL packed training,
     with the pre-pass `mask_tile_list`: the live kv tiles of each q tile),
-    and csrc/flash_attention.cu (mma.sync) in the causal one
+    and csrc/flash_attention_causal_sm90.cu in the causal one
     (`bf16_forward_route`); fp32 d=128 runs
     csrc/flash_attention_f32_sm90.cu (the DiT at the fp32 policy, serving
     and training: wgmma on three bf16 parts of each operand, split by the
@@ -23,8 +23,12 @@ and training paths reach:
     `save_residuals=True` (the training forward) it also returns the
     per-row exp2-domain lse, fp32 [B, N, Lq]. `causal` with a static
     `q_offset` and a device `q_offsets` int32 [B] is `_flash_kernel`'s
-    causal mode (BAGEL's KV-cache prefill), bf16 d=128 on the mma.sync
-    kernel, counted apart as `flash_attention_bf16_causal`. `q_segments`
+    causal mode (BAGEL's KV-cache prefill), bf16 d=128 with and without
+    the lse on csrc/flash_attention_causal_sm90.cu (wgmma / TMA, the query
+    heads of one kv head packed over one k / v stream, a split-kv pass and
+    an lse merge when its blocks cannot fill the card: `causal_splits`,
+    from the shapes alone; `causal_split_plain` emulates its arithmetic for
+    the tests), counted apart as `flash_attention_bf16_causal`. `q_segments`
     [B, Lq] / `kv_segments` [B, Lk] int32 are its segment mode, and with
     `packed_mode` the same ids are pack_mask_codes codes (BAGEL packed
     training's mask): running max, with and without the lse.
@@ -84,7 +88,8 @@ forward, the forward with lse and the two backward kernels by mask mode;
 `LAUNCHES_BY_IMPL` splits every bf16 forward launch (self, cross, lse,
 knob and masked modes) by the kernel that ran it, `BWD_LAUNCHES_BY_IMPL`
 every bf16 backward call. The kernels each new one replaced stay compiled
-and reachable (`_launch_bf16` for the segment and packed modes,
+and reachable (`_launch_bf16`, the mma.sync kernel, for the segment,
+packed and causal modes,
 `_launch_f32_simt` for the fp32 VAE mode, `_bwd_dq_cuda` /
 `_bwd_dkv_cuda`, the mma.sync pair, for every bf16 backward,
 `_launch_f32_d128` and `_bwd_dq_f32` / `_bwd_dkv_f32`, the fp32 d=128
@@ -120,6 +125,8 @@ F32_DIMS = (384, 640, 1024)  # fp32 head dims of the VAE kernels
 D128 = 128          # head dim of the DiT kernels (bf16, and fp32 d=128)
 SM90_BLOCK_Q = 128  # q rows per block of flash_attention_sm90.cu
 SM90_BLOCK_K = 128  # kv rows per tile of flash_attention_sm90.cu
+CAUSAL_SLOT = 64    # q rows of a slot of flash_attention_causal_sm90.cu
+CAUSAL_MAX_SPLITS = 16   # its split-kv ranges at most
 BWD_BLOCK_Q = 64    # q rows per tile of flash_attention_bwd_sm90.cu
 BWD_BLOCK_K = 128   # kv rows per block of flash_attention_bwd_sm90.cu
 INT8_SM90_BLOCK_Q = 128  # q rows per block of flash_attention_int8_sm90.cu
@@ -172,9 +179,10 @@ LAUNCHES_BY_MODE = {
     for mode in MASK_MODES
     if (name, mode) != ("flash_attention_bf16", "causal")}
 # every bf16 forward launch by its kernel: "sm90" flash_attention_sm90.cu
-# (the unmasked, segment and packed modes), "mma_sync" flash_attention.cu
-# (causal)
-LAUNCHES_BY_IMPL = {"sm90": 0, "mma_sync": 0}
+# (the unmasked, segment and packed modes), "causal_sm90"
+# flash_attention_causal_sm90.cu (causal), "mma_sync" flash_attention.cu (no
+# route reaches it: it stays at 0)
+LAUNCHES_BY_IMPL = {"sm90": 0, "causal_sm90": 0, "mma_sync": 0}
 # every bf16 backward call by its kernel: "sm90" flash_attention_bwd_sm90.cu
 # (every mode), "mma_sync" the dq and dk/dv pair of flash_attention_bwd.cu
 # (no route reaches it: it stays at 0)
@@ -405,6 +413,141 @@ def bwd_tile_list_plain(b, lq, lk, device="cpu", *, kv_len=None,
     live = tiles.any(dim=4).any(dim=2).transpose(1, 2)       # [B, kt, nq]
     full = tiles.all(dim=4).all(dim=2).transpose(1, 2)
     return _compact(live, full, live.sum(dim=-1).to(torch.int32))
+
+
+def causal_pairs(group, lq):
+    """Blocks along the packed rows of one kv head in
+    flash_attention_causal_sm90.cu: its group * Lq query rows as slots of 64
+    (`causal_slot`), two slots a block, the last one alone when the count
+    is odd."""
+    return -(-group * (lq // CAUSAL_SLOT) // 2)
+
+
+def causal_slot(slot, group):
+    """Slot -> (head within the kv head's group, first position): the
+    position-major packing of the kv head's group * Lq query rows, slot =
+    (position // 64) * group + head, packed row = slot * 64 + position %
+    64."""
+    return slot % group, slot // group * CAUSAL_SLOT
+
+
+def causal_splits(b, n, group, lq, lk, sms=H100_SMS):
+    """The causal kernel's split-kv count S, from the shapes alone (never
+    from q_offsets or kv_len, which stay on the device): 1 while its blocks
+    (B x kv heads x `causal_pairs`) fill at least half the SMs, else
+    min(sms // blocks, kv tiles of 128 keys, 16)."""
+    blocks = b * (n // group) * causal_pairs(group, lq)
+    if 2 * blocks > sms:
+        return 1
+    return max(1, min(sms // blocks, -(-lk // SM90_BLOCK_K),
+                      CAUSAL_MAX_SPLITS))
+
+
+def causal_split_plan(b, group, lq, lk, splits, *, kv_len=None,
+                      q_offset=0, q_offsets=None):
+    """The kv tiles each block of the causal kernel walks, as it computes
+    them on the device: int64 [B, pairs, splits, 2] of (t0, t1), 128-key
+    tiles [t0, t1) (the same for every kv head). A block's live keys end at
+    end = clamp(q_offset + q_offsets[b] + its last slot's last position + 1,
+    0, kv_len[b]); its ceil(end / 128) tiles are cut into `splits` ranges
+    of ceil(n / splits), the later ones empty when n < splits."""
+    n_slots = group * (lq // CAUSAL_SLOT)
+    kv_end = (torch.full((b,), lk, dtype=torch.int64) if kv_len is None
+              else kv_len.cpu().long().clamp(0, lk))
+    off = torch.full((b,), q_offset, dtype=torch.int64)
+    if q_offsets is not None:
+        off = off + q_offsets.cpu().long()
+    plan = torch.zeros((b, causal_pairs(group, lq), splits, 2),
+                       dtype=torch.int64)
+    for p in range(plan.shape[1]):
+        last = min(2 * p + 1, n_slots - 1)
+        end = torch.minimum((off + causal_slot(last, group)[1]
+                             + CAUSAL_SLOT).clamp_min(0), kv_end)
+        nt = -(-end // SM90_BLOCK_K)
+        per = -(-nt // splits)
+        for s in range(splits):
+            t0 = torch.minimum(s * per, nt)
+            plan[:, p, s, 0] = t0
+            plan[:, p, s, 1] = torch.minimum(t0 + per, nt)
+    return plan
+
+
+def causal_split_plain(q, k, v, *, kv_len=None, q_offset=0, q_offsets=None,
+                       splits=None, save_residuals=False):
+    """The causal kernel's arithmetic emulated in plain PyTorch (a test
+    reference; no path calls it): q folded [B, Lq, N, D], k, v [B, Lk, N /
+    group, D]. For each block (b, kv head, pair of slots) and split of
+    `causal_split_plan` (splits: `causal_splits` by default), the running
+    max over its 128-key tiles: s masked to -1e30 past each row's diagonal
+    or kv_len, m_new = max(m, rowmax s), p = exp2(s - m_new) (reference 0
+    while m_new is -1e30), l = l 2^(m - m_new) + sum p, acc = acc 2^(m -
+    m_new) + p (rounded to v's dtype) v, all fp32; then the merge: m* the
+    largest m of the splits with l > 0, l = sum l_s 2^(m_s - m*), o = sum
+    acc_s 2^(m_s - m*) / l in q's dtype, lse = m* + log2 l; rows that no
+    split saw are 0 with lse +1e30."""
+    b, lq, n, d = q.shape
+    lk, nk = k.shape[1], k.shape[2]
+    group = n // nk
+    if splits is None:
+        splits = causal_splits(b, n, group, lq, lk)
+    plan = causal_split_plan(b, group, lq, lk, splits, kv_len=kv_len,
+                             q_offset=q_offset, q_offsets=q_offsets)
+    rows_abs = causal_rows(lq, q_offset, q_offsets, "cpu").expand(b, lq)
+    kv_end = (torch.full((b,), lk) if kv_len is None
+              else kv_len.cpu().long().clamp(0, lk))
+    n_slots = group * (lq // CAUSAL_SLOT)
+    out = torch.zeros(q.shape, dtype=q.dtype)
+    lse = torch.full((b, n, lq), -NEG_INF, dtype=torch.float32)
+    qf, kf, vf = (x.detach().cpu().float() for x in (q, k, v))
+    for bi in range(b):
+        for hk in range(nk):
+            for p in range(plan.shape[1]):
+                slots = [causal_slot(s, group)
+                         for s in range(2 * p, min(2 * p + 2, n_slots))]
+                qb = torch.cat([qf[bi, pos:pos + CAUSAL_SLOT, hk * group + j]
+                                for j, pos in slots])
+                rows = torch.cat([rows_abs[bi, pos:pos + CAUSAL_SLOT]
+                                  for _, pos in slots])
+                parts = []
+                for t0, t1 in plan[bi, p].tolist():
+                    m = torch.full((len(rows),), NEG_INF)
+                    l = torch.zeros(len(rows))
+                    acc = torch.zeros((len(rows), d))
+                    for j in range(t0, t1):
+                        cols = torch.arange(j * SM90_BLOCK_K,
+                                            min((j + 1) * SM90_BLOCK_K, lk))
+                        s = qb @ kf[bi, cols, hk].T
+                        s = s.masked_fill((cols[None, :] >= kv_end[bi])
+                                          | (cols[None, :] > rows[:, None]),
+                                          NEG_INF)
+                        m_new = torch.maximum(m, s.amax(dim=-1))
+                        ref = torch.where(m_new == NEG_INF, 0.0, m_new)
+                        pt = torch.exp2(s - ref[:, None])
+                        corr = torch.exp2(m - m_new)
+                        l = l * corr + pt.sum(dim=-1)
+                        acc = acc * corr[:, None] + pt.to(v.dtype).float() \
+                            @ vf[bi, cols, hk]
+                        m = m_new
+                    parts.append((m, l, acc))
+                ms = torch.stack([m for m, _, _ in parts])
+                ls = torch.stack([l for _, l, _ in parts])
+                m_star = torch.where(ls > 0, ms, NEG_INF).amax(dim=0)
+                wgt = torch.where(ls > 0, torch.exp2(ms - m_star), 0.0)
+                l_tot = (ls * wgt).sum(dim=0)
+                acc = sum(a * w_[:, None] for (_, _, a), w_ in
+                          zip(parts, wgt))
+                inv = torch.where(l_tot > 0, 1.0 / torch.where(
+                    l_tot > 0, l_tot, 1.0), 0.0)
+                o_rows = (acc * inv[:, None]).to(q.dtype)
+                lse_rows = torch.where(l_tot > 0, m_star + torch.log2(
+                    torch.where(l_tot > 0, l_tot, 1.0)), -NEG_INF)
+                for i, (j, pos) in enumerate(slots):
+                    sl = slice(i * CAUSAL_SLOT, (i + 1) * CAUSAL_SLOT)
+                    out[bi, pos:pos + CAUSAL_SLOT, hk * group + j] = o_rows[sl]
+                    lse[bi, hk * group + j, pos:pos + CAUSAL_SLOT] = \
+                        lse_rows[sl]
+    out = out.to(q.device)
+    return (out, lse.to(q.device)) if save_residuals else out
 
 
 def _softmax_pv(s, mask, bound, softmax_bf16, vf, v_dtype):
@@ -854,6 +997,9 @@ def _rope_f32(x, cf, sf):
 def _launch_bf16(q, k, v, kv_len, bound, mode, lse=None, causal=False,
                  q_offset=0, q_offsets=None, q_segments=None,
                  kv_segments=None, seg=None, softmax_bf16=False):
+    """csrc/flash_attention.cu, the mma.sync bf16 forward: every mode the
+    sm90 kernels took, causal included. No route reaches it: the same-call
+    baseline of chip_smoke.py and the card tests."""
     b, lq, n, d = q.shape
     o = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
     fn = _fn("flash_attention", "univid_flash_fwd_bf16",
@@ -873,8 +1019,10 @@ def bf16_forward_route(q, k, v, *, mode, lse=False, softmax_bf16=False,
                        causal=False, seg=None):
     """The kernel that takes a bf16 attention forward on the card: "sm90"
     (csrc/flash_attention_sm90.cu) for every unmasked mode and for the
-    segment and packed ones, "mma_sync" (csrc/flash_attention.cu) for the
-    causal one.
+    segment and packed ones, "causal_sm90"
+    (csrc/flash_attention_causal_sm90.cu) for the causal one, with and
+    without the lse. The mma.sync kernel (csrc/flash_attention.cu) is no
+    route's: the same-call baseline only.
     mode: "bounded", "running" or "oneshot"; seg: None, "segments" or
     "packed". Both kernels read grouped kv heads (k and v with N / group
     heads). Raises for a call no kernel takes; never falls back."""
@@ -904,7 +1052,7 @@ def bf16_forward_route(q, k, v, *, mode, lse=False, softmax_bf16=False,
         raise NotImplementedError(
             "the causal, segment and packed kernel modes have the running "
             "max only (no caller bounds a masked softmax)")
-    return "mma_sync" if causal else "sm90"
+    return "causal_sm90" if causal else "sm90"
 
 
 def sm90_q_tiles(lq):
@@ -921,22 +1069,23 @@ def tma_strides(t):
     elements). A dimension of size 1 is never stepped along: it takes the
     stride a contiguous tensor would have. Raises ValueError when a rule
     fails (a view that TMA cannot read in place)."""
-    if t.dim() != 4 or t.stride(-1) != 1:
+    shape, stride = t.shape, t.stride()   # read once: a call's host time
+    if len(shape) != 4 or stride[3] != 1:
         raise ValueError("the sm90 kernel's tensor maps need unit stride "
                          "along D")
     if t.data_ptr() % 16:
         raise ValueError("the sm90 kernel's tensor maps need a 16-byte "
                          "aligned base")
-    st = list(t.stride()[:3])
-    inner = t.shape[3]   # one step of the next inner dimension, in elements
+    st = list(stride[:3])
+    inner = shape[3]   # one step of the next inner dimension, in elements
     for i in (2, 1, 0):
-        if t.shape[i] == 1:
+        if shape[i] == 1:
             st[i] = inner
         if st[i] <= 0 or st[i] % 8:
             raise ValueError(f"the sm90 kernel's tensor maps need strides "
                              f"that are multiples of 16 bytes, got "
-                             f"{tuple(t.stride())}")
-        inner = st[i] * t.shape[i]
+                             f"{tuple(stride)}")
+        inner = st[i] * shape[i]
     return st
 
 
@@ -1013,6 +1162,38 @@ def _launch_sm90(q, k, v, kv_len, bound, mode, lse=None, softmax_bf16=False,
              sm90_q_tiles(lq), lists.shape[2], ctypes.addressof(strides),
              _stream(q))
     build.check(err, "univid_flash_fwd_sm90_masked")
+    return o
+
+
+def _launch_causal_sm90(q, k, v, kv_len, q_offset=0, q_offsets=None,
+                        lse=None):
+    """csrc/flash_attention_causal_sm90.cu on padded bf16 [B, L, N, 128]
+    (k, v with N / group heads), q folded: the causal mode, query i of
+    batch b at row i + q_offset + q_offsets[b], kv_len, the running max; lse
+    fp32 [B, N, Lq] or None. With S = `causal_splits` > 1 the kernel writes
+    fp32 partials into scratch [S, B, N, Lq, 128] and [S, B, N, Lq, 2] and
+    a second launch merges them."""
+    b, lq, n, d = q.shape
+    lk = k.shape[1]
+    group = n // k.shape[2]
+    o = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
+    st = tma_strides(q) + tma_strides(k) + tma_strides(v) + list(
+        o.stride()[:3])
+    strides = (ctypes.c_longlong * 12)(*st)  # host array, read at launch
+    splits = causal_splits(b, n, group, lq, lk)
+    part_o = part_ml = None
+    if splits > 1:   # one allocation: [S, B, N, Lq, 128], then [.., 2]
+        rows = splits * b * n * lq
+        part = torch.empty(rows * (d + 2), dtype=torch.float32,
+                           device=q.device)
+        part_o, part_ml = part[:rows * d], part[rows * d:]
+    fn = _fn("flash_attention_causal_sm90", "univid_flash_fwd_causal_sm90",
+             [_P] * 9 + [_I] * 7 + [_P, _P])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             _ptr(kv_len), _ptr(q_offsets), _ptr(lse), _ptr(part_o),
+             _ptr(part_ml), int(q_offset), splits, group, b, n, lq, lk,
+             ctypes.addressof(strides), _stream(q))
+    build.check(err, "univid_flash_fwd_causal_sm90")
     return o
 
 
@@ -1146,9 +1327,7 @@ def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
                     "the JAX kernel)")
             q, k = qk_norm_rope(q, k, rope_tables=rope_tables)
         if causal:
-            o = _launch_bf16(q, k, v, kv_len, None, _MODE_RUNNING,
-                             causal=causal, q_offset=q_offset,
-                             q_offsets=q_offsets)
+            o = _launch_causal_sm90(q, k, v, kv_len, q_offset, q_offsets)
             _count("flash_attention_bf16_causal", impl=impl)
             return o
         o = _launch_sm90(q, k, v, kv_len, _bound_tensor(bound, q.device),
@@ -1518,9 +1697,8 @@ def flash_attention_fwd_folded(qs, k, v, *, kv_len=None, score_bound=None,
                          q_segments=q_segments, kv_segments=kv_segments,
                          seg=seg)
     else:
-        o = _launch_bf16(qs, k, v, kv_len, bound, _MODES[mode], lse=lse,
-                         causal=causal, q_offset=q_offset,
-                         q_offsets=q_offsets)
+        o = _launch_causal_sm90(qs, k, v, kv_len, q_offset, q_offsets,
+                                lse=lse)
     _count("flash_attention_bf16_lse", "causal" if causal else seg,
            impl=impl)
     return o, lse
