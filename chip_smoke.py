@@ -36,14 +36,19 @@ Phases:
      backward) on the BAGEL training pack's own codes, [1, 4096, 28, 128],
      and padded 4,000 -> 4,032 (pad rows exactly 0, lse +1e30); the
      segment mode at [2, 2048, 12, 128]; their forwards run on the sm90
-     kernel after the tile-list pre-pass (its list equal to the plain
-     list, the live-tile share logged) and are timed in turns with the
+     kernel over the forward list of tile_lists (mask_tiles_sm90.cu: both
+     lists in one launch, from runs of equal codes; both lists equal to
+     the plain lists bit for bit at the pack, the padded pack with kv_len,
+     the segments and the causal backward cases; at the pack timed in
+     turns with the two pre-passes it replaced beside an empty launch,
+     CUDA events and device time, `tile_lists_vs_old` line, with the runs
+     per tile; the old pre-passes' lists also equal to the plain lists)
+     and are timed in turns with the
      mma.sync kernel they replaced; the causal backward (and the causal
      forward with lse, in turns with the mma.sync kernel) at the
      square prefill's shape, offset 0 and q_offsets [0, 37]; every masked
-     backward on the one-pass sm90 kernel after its kv-major tile-list
-     pre-pass (the list equal to the plain list, its live share at 64 x
-     128 logged; pad rows and keys no row sees exactly 0), timed in turns
+     backward on the one-pass sm90 kernel over its kv-major tile list
+     (pad rows and keys no row sees exactly 0), timed in turns
      with the mma.sync dq and dk/dv pair it replaced
      (`bwd_sm90_vs_mma_sync` lines, with the kv tiles in descending and
      in ascending order of list length), each launch's device time logged
@@ -98,13 +103,14 @@ Phases:
   9. drive the BAGEL packed-training path: BAGEL-7B-MoT at full width on
      one 4,096-token pack of the four sample kinds, freeze_und; one
      untimed training pass to warm up (its seconds and allocator growth
-     logged), then 3 evaluation forwards (28 packed forwards and 28
-     pre-passes each) and 3 training passes (28 packed forwards with lse,
-     28 pre-passes, 28 one-pass sm90 backward calls with their 28
-     backward pre-passes, none on the mma.sync pair), medians and
+     logged), then 3 evaluation forwards (28 packed forwards and one
+     tile_lists launch each: the pass's tile plan) and 3 training passes
+     (28 packed forwards with lse, 28 one-pass sm90 backward calls, one
+     tile_lists launch, none on the mma.sync pair or the old tile-list
+     pre-passes), medians and
      spreads; finite loss,
      gradients in every trainable leaf, peak memory; profile one more
-     pass;
+     evaluation forward and one more training pass;
  10. drive the full DiT fine-tune at its default fp32 policy:
      make_dit_train_step on t2v-1.3B at 832x480x81, full width, 10 of its
      30 blocks (the time limit), remat 'attn', 2 steps (on the sm90
@@ -140,8 +146,8 @@ Each path starts with every launch count at 0; the paths of phases 5-9
 and 12 also check their bf16 forward launches by kernel (every unmasked,
 segment and packed forward on the sm90 kernel, every causal one on the
 causal sm90 kernel, none on the mma.sync kernel; `check_impl`). The `kernels` line gives
-each kernel the launches of its own path (the packed modes and the
-tile-list pre-passes: the six timed BAGEL packed-training passes; the
+each kernel the launches of its own path (the packed modes and
+tile_lists: the six timed BAGEL packed-training passes; the
 segment modes and the causal backward serve no path of the JAX package at
 d=128, and the mma.sync backward pair and the CUDA-core fp32 d=128
 kernels are baselines only: 0; the fp32 d=128 serving forward and rope
@@ -149,7 +155,8 @@ pre-pass count the fp32 t2v pipeline run of phase 4, the split pre-pass
 the fp32 fine-tune; the knob kernels count the knob path, the bf16-softmax self-
 attention and the fp32-chain int8 kernel the ti2v-5B DiT forward with
 their knob alone; the mma.sync int8 kernel, the pre-passes kernels A and
-B replaced and kernel A's rope-only mode are no path's kernels: 0). The
+B replaced, the tile-list pre-passes tile_lists replaced and kernel A's
+rope-only mode are no path's kernels: 0). The
 last line is
 {"ok": true, "device": {...}}; any failure exits non-zero.
 """
@@ -1531,7 +1538,8 @@ def profile_call(fn, families=None):
         elif ("flash_" in name or "rope_rotate" in name or "mask_tiles" in name
                 or "qk_norm_rope" in name or "quant_q" in name
                 or "bwd_pre" in name or "bwd_post" in name
-                or "bwd_tiles" in name or "split_bf16x3" in name
+                or "bwd_tiles" in name or "tile_lists" in name
+                or "split_bf16x3" in name
                 or "causal_merge" in name):
             fam["attention_kernels_ms"] += ms
         elif "gemm" in name or "nvjet" in name or "xmma" in name:
@@ -2645,8 +2653,6 @@ def _mask_case(tag, q, k, v, do, kv_len, masks, live_pairs, allowed,
         kern_ms = [(t_["kernel"], t_["ms"] / t_["count"], t_["count"])
                    for t_ in prof["top_kernels"]]
         log(json.dumps({f"bwd_sm90_kernels {tag}": kern_ms}))
-        tl_rec["device_ms"] = next((m for nm_, m, _ in kern_ms
-                                    if "bwd_tiles" in nm_), None)
         plain_bwd = cuda_time(lambda: fa._bwd_plain_folded(
             qs, k, v, o_p, lse_p, do, kv_len, sc, **masks), 1, warmup=0)
         lib_bwd = _sdpa_masked_ms(qs, k, v, allowed, do)
@@ -2765,6 +2771,116 @@ def _fwd_tile_list_check(tag, qc, kc, kv_len, packed):
         (qc, kc), "128 x 128")
 
 
+def _tile_lists_check(tag, b, lq, lk, kv_len, masks):
+    """csrc/mask_tiles_sm90.cu (`tile_lists`: the forward's and the
+    backward's list in one launch; the backward's alone in the causal
+    mode) against the plain lists on the same card tensors, bit for bit:
+    fails otherwise. Logs each list's live and full tiles. Returns (fwd,
+    bwd)."""
+    import torch
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    fwd, bwd = fa.tile_lists(b, lq, lk, "cuda", kv_len=kv_len, **masks)
+    pairs = {"backward, 64 x 128": (bwd, fa.bwd_tile_list_plain(
+        b, lq, lk, "cuda", kv_len=kv_len, **masks))}
+    if masks.get("causal"):
+        if fwd is not None:
+            fail(f"{tag}: the causal mode has no forward list")
+    else:
+        pairs["forward, 128 x 128"] = (fwd, fa.mask_tile_list_plain(
+            masks["q_segments"], masks["kv_segments"], kv_len,
+            masks.get("packed_mode", False)))
+    for name, ((lists, count), (want, want_n)) in pairs.items():
+        ok = torch.equal(lists, want) and torch.equal(count, want_n)
+        log(json.dumps({
+            "check": f"{tag}: tile_lists' {name} list equals the plain list",
+            "list_shape": list(lists.shape), "live_tiles": int(count.sum()),
+            "full_tiles": int(((lists >= 0) & (lists % 2 == 1)).sum()),
+            "ok": ok}))
+        if not ok:
+            fail(f"{tag}: tile_lists' {name} list differs from the plain "
+                 "list")
+    return fwd, bwd
+
+
+def _runs_per_tile(codes, rows):
+    """{runs: tiles} of the runs of equal codes in each `rows`-row tile of
+    codes [B, L] (the new tile-list kernel's work a tile)."""
+    import numpy as np
+
+    c = codes.cpu().numpy()
+    hist = {}
+    for r in range(c.shape[0]):
+        for i in range(0, c.shape[1], rows):
+            t = c[r, i:i + rows]
+            n = 1 + int((t[1:] != t[:-1]).sum())
+            hist[n] = hist.get(n, 0) + 1
+    return dict(sorted(hist.items()))
+
+
+def _tile_lists_record(codes):
+    """The new tile-list kernel at the BAGEL training pack's codes [1,
+    4096]: both lists against the plain ones (`_tile_lists_check`), then
+    timed in turns with the two pre-passes it replaced (old, new, new,
+    old; CUDA events over 50 back-to-back wrapper calls) beside an empty
+    kernel's launch, the floor a launch costs, and each launch's device
+    time from the profiler. Bound: the codes read once, both lists and
+    counts written once. Returns its record of the kernels line."""
+    import torch
+
+    from univid_tpu_torch.kernels import build
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    b, l = codes.shape
+    masks = dict(q_segments=codes, kv_segments=codes, packed_mode=True)
+    fwd, bwd = _tile_lists_check("packed [1, 4096]", b, l, l, None, masks)
+    shape_q = torch.empty((b, l, 1, 128), dtype=torch.bfloat16,
+                          device="cuda")   # the old backward's shape operand
+    empty_fn = fa._fn("mask_tiles_sm90", "univid_empty_launch", [fa._P])
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = {
+        "tile_lists": lambda: fa.tile_lists(b, l, l, "cuda", **masks),
+        "mask_tile_list": lambda: fa.mask_tile_list(codes, codes, None,
+                                                    True),
+        "bwd_tile_list": lambda: fa.bwd_tile_list(shape_q, l, None, **masks),
+        "empty_launch": lambda: build.check(empty_fn(stream),
+                                            "univid_empty_launch")}
+    order = ("mask_tile_list", "bwd_tile_list", "tile_lists", "empty_launch")
+    ms = dict.fromkeys(calls, 0.0)
+    for turn in (order, order[::-1]):   # old, new, new, old
+        for nm in turn:
+            ms[nm] += cuda_time(calls[nm], 50) / 2
+    _, prof = profile_call(
+        lambda: [calls[nm]() for nm in order for _ in range(10)],
+        {"mask_tile_list": ["mask_tiles_kernel"],
+         "bwd_tile_list": ["bwd_tiles_kernel"],
+         "tile_lists": ["tile_lists_kernel"], "empty_launch": ["empty_kernel"]})
+    dev = {nm: prof[nm] / 10 for nm in order}   # one launch's device ms
+    plain_ms = cuda_time(lambda: (
+        fa.mask_tile_list_plain(codes, codes, None, True),
+        fa.bwd_tile_list_plain(b, l, l, "cuda", **masks)), 3)
+    bms, by = bound_ms(0, nbytes(codes, codes, *fwd, *bwd), H100_BF16_FLOPS)
+    runs = {"q_runs_per_64_rows": _runs_per_tile(codes, 64),
+            "kv_runs_per_128_keys": _runs_per_tile(codes, 128)}
+    log(json.dumps({"tile_lists_vs_old": "packed [1, 4096]",
+                    "ms": ms, "device_ms": dev, "bound_ms": bms,
+                    "runs": runs}))
+    return dict(name="tile_lists", route="cuda",
+                source="univid_tpu_torch/kernels/csrc/mask_tiles_sm90.cu",
+                replaces="univid_tpu/kernels/flash_attention.py:309",
+                also_replaces="univid_tpu/kernels/flash_attention.py:1113",
+                max_abs_err=0.0, ms=ms["tile_lists"], plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=None,
+                device_ms=dev.get("tile_lists"),
+                old_ms={nm: ms[nm] for nm in ("mask_tile_list",
+                                              "bwd_tile_list")},
+                old_device_ms={nm: dev.get(nm) for nm in (
+                    "mask_tile_list", "bwd_tile_list")},
+                empty_launch_ms=ms["empty_launch"],
+                empty_launch_device_ms=dev.get("empty_launch"), runs=runs)
+
+
 def check_mask_kernels():
     """The packed, segment and causal-backward kernel modes against their
     plain versions on the card, with CUDA-event times, bounds over the live
@@ -2820,7 +2936,8 @@ def check_mask_kernels():
     masks = dict(q_segments=codes, kv_segments=codes, packed_mode=True)
     rec = _fwd_tile_list_check("packed [1, 4096]", codes, codes, None,
                                True)
-    with torch.no_grad():   # device time of the pre-pass and the forward
+    records["tile_lists"] = _tile_lists_record(codes)
+    with torch.no_grad():   # device time of the tile lists and the forward
         _, prof = profile_call(lambda: fa._flash_cuda(
             fa._fold(q, d ** -0.5), k, v, None, None, None, **masks))
     log(json.dumps({"packed_forward_kernels": [
@@ -2838,10 +2955,7 @@ def check_mask_kernels():
         name="bwd_tile_list", route="cuda",
         source="univid_tpu_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
         replaces="univid_tpu/kernels/flash_attention.py:1113",
-        **{k_: v_ for k_, v_ in case["bwd_tile_list"].items()
-           if k_ != "device_ms"})
-    log(json.dumps({"bwd_tile_list_device_ms_packed":
-                    case["bwd_tile_list"]["device_ms"]}))
+        **case["bwd_tile_list"])
     log(json.dumps({"check": "packed pack", "tokens": PACK_TOKENS,
                     "real_tokens": real, "live_pairs": live,
                     "live_share": live / PACK_TOKENS ** 2}))
@@ -2860,6 +2974,10 @@ def check_mask_kernels():
                  packed_mode=True)
     _fwd_tile_list_check("packed padded 4000->4032", masks["q_segments"],
                          masks["kv_segments"], None, True)
+    # the new kernel with the kv_len the dispatcher sets for padded keys
+    _tile_lists_check("packed padded 4000->4032, kv_len 4000", 1, lp, lp,
+                      torch.tensor([lr], dtype=torch.int32, device="cuda"),
+                      masks)
     case = _mask_case("packed padded 4000->4032",
                       *(x[:, :lp].contiguous() for x in (q, k, v, do)), None,
                       masks, int(allowed.sum()), allowed, pad_rows=pad_rows,
@@ -2879,6 +2997,7 @@ def check_mask_kernels():
     allowed = (segs[:, :, None] == segs[:, None, :])[:, None]
     masks = dict(q_segments=segs, kv_segments=segs)
     _fwd_tile_list_check("segments [2, 2048]", segs, segs, None, False)
+    _tile_lists_check("segments [2, 2048]", b, l, l, None, masks)
     case = _mask_case("segments [2, 2048, 12, 128]", q, k, v, do, None,
                       masks, int(allowed.sum()), allowed)
     records.update(_records("segments", case))
@@ -2901,6 +3020,7 @@ def check_mask_kernels():
         allowed = ((cols[None, None, :] <= rows[:, :, None])
                    & (cols[None, None, :] < kv[:, None, None]))[:, None]
         masks = dict(causal=True, q_offsets=qo)
+        _tile_lists_check(tag, b, 2048, 2048, kv, masks)
         case = _mask_case(tag, q, k, v, do, kv, masks, int(allowed.sum()),
                           allowed, no_lse=False,
                           live_keys=cols[None, :] < kv[:, None])
@@ -2955,9 +3075,9 @@ def small_bagel_train_parity():
     same 4-kind pack scaled down (250 tokens: the dispatcher pads to 256
     with the pad ids) and the same noise; every parameter trainable, with
     freeze_und False and True. Loss rel. error < 2e-2, each gradient
-    leaf's rel. L2 < 3e-2; on the card 2 packed forwards with lse (and
-    their 2 tile-list pre-passes), 2 one-pass sm90 backward calls (and
-    their 2 backward tile-list pre-passes) a pass and no other kernel."""
+    leaf's rel. L2 < 3e-2; on the card 2 packed forwards with lse, 2
+    one-pass sm90 backward calls and one tile_lists launch (the pass's
+    tile plan, both lists for both layers) a pass, and no other kernel."""
     import copy
 
     import torch
@@ -2973,7 +3093,7 @@ def small_bagel_train_parity():
                      "flash_attention_bwd_bf16_sm90": 2,
                      "flash_attention_bf16_lse_packed": 2,
                      "flash_attention_bwd_bf16_sm90_packed": 2,
-                     "mask_tile_list": 2, "bwd_tile_list": 2}
+                     "tile_lists": 1}
 
     def run(device, freeze):
         model = copy.deepcopy(bagel).to(device)
@@ -3031,7 +3151,8 @@ def bagel_train_main_path():
     activations, in new cudaMalloc calls), then 3 evaluation forwards (no
     grad) and 3 training passes: medians and spreads, launches asserted
     per pass (the counts reset after the warm-up); peak memory, the loss
-    and the gradients' reach logged; one more training pass profiled.
+    and the gradients' reach logged; one more evaluation forward and one
+    more training pass profiled (the tile lists' device time apart).
     Returns the counts of the six passes."""
     import gc
 
@@ -3097,14 +3218,15 @@ def bagel_train_main_path():
         return {"median": statistics.median(xs), "min": min(xs),
                 "max": max(xs), "runs": xs}
 
+    # one tile_lists launch a pass (the pass's tile plan: both lists, read
+    # by every layer in both directions), none of the old pre-passes
     want_eval = {"flash_attention_bf16": n_layers,
-                 "flash_attention_bf16_packed": n_layers,
-                 "mask_tile_list": n_layers}
+                 "flash_attention_bf16_packed": n_layers, "tile_lists": 1}
     want_train = {nm: n_layers for nm in (
         "flash_attention_bf16_lse", "flash_attention_bwd_bf16_sm90",
         "flash_attention_bf16_lse_packed",
-        "flash_attention_bwd_bf16_sm90_packed", "mask_tile_list",
-        "bwd_tile_list")}
+        "flash_attention_bwd_bf16_sm90_packed")}
+    want_train["tile_lists"] = 1
     torch.cuda.reset_peak_memory_stats()
     # warm-up: the first training pass, outside the medians
     alloc_before = allocator()
@@ -3167,7 +3289,11 @@ def bagel_train_main_path():
                      if not p.requires_grad and p.grad is not None]
     zero_gen = [nm for nm, g in gen_grads.items() if not g > 0.0]
     del out
-    _, profiled = profile_call(lambda: train_pass()[1])
+    tile_fam = {"tile_lists_ms": ["tile_lists"]}
+    with torch.no_grad():
+        _, profiled_eval = profile_call(lambda: _train_loss(forward()),
+                                        tile_fam)
+    _, profiled = profile_call(lambda: train_pass()[1], tile_fam)
     rec = {"phase": "bagel_train_main_path", "model": "BAGEL-7B-MoT",
            "params": sum(p.numel() for p in bagel.parameters()),
            "trainable": sum(p.numel() for p in trainable),
@@ -3185,6 +3311,7 @@ def bagel_train_main_path():
            len(gen_grads) - len(zero_gen), "gen_leaves_zero": zero_gen[:5],
            "frozen_leaves_with_grad": und_with_grad[:5],
            "eval_launches": want_eval, "train_launches": want_train,
+           "profiled_eval_forward": profiled_eval,
            "profiled_train_pass": profiled}
     log(json.dumps(rec))
     if not (math.isfinite(rec["loss"]) and math.isfinite(mse_terms)
@@ -4463,7 +4590,6 @@ def kernels_line(records, by_path, mask_records):
            # took its masked modes too: the same-call baseline, 0 launches
            "flash_attention_bwd_dq_bf16": None,
            "flash_attention_bwd_dkv_bf16": None,
-           "bwd_tile_list": "bagel_train",
            # fp32 serving: the fp32 t2v pipeline run of fp32_train_parity
            "flash_attention_f32_sm90": "fp32_serve",
            "rope_rotate_f32": "fp32_serve",
@@ -4487,15 +4613,17 @@ def kernels_line(records, by_path, mask_records):
            "qk_rope_bf16": None,
            "rope_rotate_bf16": None,
            "quantize_qk_int8_pair": None}
-    # the packed modes and the tile-list pre-passes serve BAGEL packed
-    # training; no path of the JAX package reaches the segment modes at
+    # the packed modes serve BAGEL packed training; no path of the JAX package reaches the segment modes at
     # d=128 (SigLIP's segments are d=72, the reference route) or the causal
     # backward (no causal training caller), and the mma.sync pair's masked
     # modes are baselines: their launches on the paths are 0
     for nm in mask_records:
-        own[nm] = ("bagel_train" if (nm.endswith("_packed")
-                                     and "_bwd_d" not in nm)
-                   or nm in ("mask_tile_list", "bwd_tile_list") else None)
+        own[nm] = ("bagel_train" if nm.endswith("_packed")
+                   and "_bwd_d" not in nm else None)
+    # the tile lists of BAGEL packed training: one tile_lists launch a pass
+    # since the tile plan; the pre-passes it replaced are baselines (0)
+    own.update(tile_lists="bagel_train", mask_tile_list=None,
+               bwd_tile_list=None)
     own.update(KNOB_OWNERS)
     kernels = []
     for nm, rec in records.items():
@@ -4572,7 +4700,7 @@ def main():
     # C7513 / C7514), in any instantiation
     for name in ("flash_attention_sm90", "flash_attention_bwd_sm90",
                  "flash_attention_f32_sm90", "flash_attention_int8_sm90",
-                 "flash_attention_causal_sm90"):
+                 "flash_attention_causal_sm90", "mask_tiles_sm90"):
         sm90_log = build.BUILD_LOG.get(name, "")
         spills = re.findall(
             r"(\d+) bytes spill stores, (\d+) bytes spill loads", sm90_log)

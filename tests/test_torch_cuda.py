@@ -497,7 +497,11 @@ def test_cuda_masked_backward_matches_plain(cuda_device, case):
                  "flash_attention_bwd_dkv_bf16"):
         assert tfa.LAUNCHES_BY_MODE[f"{name}_{mode}"] == 1, name
     assert tfa.BWD_LAUNCHES_BY_IMPL == {"sm90": 1, "mma_sync": 0}
-    assert tfa.LAUNCHES["bwd_tile_list"] == 1
+    # no plan: the forward and the backward each build their list with one
+    # tile_lists launch (the causal forward needs none); the old pre-pass
+    # is a baseline
+    assert tfa.LAUNCHES["tile_lists"] == (1 if mode == "causal" else 2)
+    assert tfa.LAUNCHES["bwd_tile_list"] == 0
     for got, p, name in zip(grads, pair, ("dq", "dk", "dv")):
         _check_bwd(got, p, f"{name} vs the mma.sync pair")
     np.testing.assert_allclose(o.float().cpu().numpy(),
@@ -1339,7 +1343,8 @@ def test_cuda_masked_forward_stays_on_mma_sync(cuda_device):
     torch.cuda.synchronize()
     assert tfa.LAUNCHES_BY_IMPL == {"sm90": 2, "causal_sm90": 1,
                                     "mma_sync": 0}
-    assert tfa.LAUNCHES["mask_tile_list"] == 2
+    assert tfa.LAUNCHES["tile_lists"] == 2
+    assert tfa.LAUNCHES["mask_tile_list"] == 0
 
 
 # tile-list cases: (mode, kv_len of the two rows or None)
@@ -1367,6 +1372,96 @@ def test_cuda_mask_tile_list_matches_plain(cuda_device, case):
                                     mode == "packed")
     assert torch.equal(lists.cpu(), want[0])
     assert torch.equal(count.cpu(), want[1])
+
+
+# the new kernel's cases: (mode, kv_len or None, q_offset, q_offsets or
+# None, Lq): pad ids, kv_len inside a tile and 0, a ragged last forward q
+# tile (Lq 704 over Lk 448), causal offsets that are not multiples of 64
+# and a negative one
+RUN_TILE_LISTS = {
+    "packed": ("packed", None, 0, None, 448),
+    "packed_kv_len": ("packed", (300, 0), 0, None, 448),
+    "segments": ("segments", None, 0, None, 448),
+    "segments_kv_len": ("segments", (448, 190), 0, None, 448),
+    "segments_lq_704_lk_448": ("segments", None, 0, None, 704),
+    "causal": ("causal", None, 0, None, 448),
+    "causal_offsets_kv_len": ("causal", (250, 448), 13, (37, -100), 448),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RUN_TILE_LISTS))
+def test_cuda_tile_lists_match_plain(cuda_device, case):
+    """csrc/mask_tiles_sm90.cu: one launch gives the forward's and the
+    backward's lists and counts of the plain versions exactly (the
+    backward's alone in the causal mode)."""
+    mode, kvl, qoff, qoffs, lq = RUN_TILE_LISTS[case]
+    _, _, _, qs, ks = _masked_inputs(cuda_device, "packed" if mode == "causal"
+                                     else mode)
+    if lq == 704:
+        qs = torch.cat([qs, qs[:, :256] + 1], dim=1).contiguous()
+    kw = dict(q_segments=qs, kv_segments=ks, packed_mode=mode == "packed")
+    if mode == "causal":
+        kw = dict(causal=True, q_offset=qoff, q_offsets=None if qoffs is None
+                  else torch.tensor(qoffs, dtype=torch.int32,
+                                    device=cuda_device))
+    kv = (torch.tensor(kvl, dtype=torch.int32, device=cuda_device)
+          if kvl is not None else None)
+    b, lk = 2, ks.shape[1]
+    tfa.reset_launches()
+    fwd, bwd = tfa.tile_lists(b, lq, lk, cuda_device, kv_len=kv, **kw)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["tile_lists"] == 1
+    cpu = {k_: (v_.cpu() if torch.is_tensor(v_) else v_)
+           for k_, v_ in kw.items()}
+    kv_cpu = kv.cpu() if kv is not None else None
+    want_bwd = tfa.bwd_tile_list_plain(b, lq, lk, kv_len=kv_cpu, **cpu)
+    assert torch.equal(bwd[0].cpu(), want_bwd[0])
+    assert torch.equal(bwd[1].cpu(), want_bwd[1])
+    if mode == "causal":
+        assert fwd is None
+    else:
+        want_fwd = tfa.mask_tile_list_plain(cpu["q_segments"],
+                                            cpu["kv_segments"], kv_cpu,
+                                            mode == "packed")
+        assert torch.equal(fwd[0].cpu(), want_fwd[0])
+        assert torch.equal(fwd[1].cpu(), want_fwd[1])
+
+
+@pytest.mark.cuda
+def test_cuda_tile_plan_launches_once(cuda_device):
+    """A tile plan (`build_tile_plan`: one tile_lists launch) serves two
+    packed attention calls under grad, forward and backward, with no other
+    tile-list launch; their outputs equal those of calls that take the
+    codes (and build their own plan: one launch each), and their
+    gradients agree within the backward's atomics (bf16 2e-2)."""
+    q, k, v, qs, ks = _masked_inputs(cuda_device, "packed", nk=4)
+    l = q.shape[1] - 10   # unpadded: the plan pads 438 -> 448
+    q, k, v = (x[:, :l].detach().clone().requires_grad_(True)
+               for x in (q, k, v))
+    qs, ks = qs[:, :l].contiguous(), ks[:, :l].contiguous()
+    tfa.reset_launches()
+    plan = tfa.build_tile_plan(qs, ks, packed_mode=True)
+    outs = [tatt.attention(q, k, v, packed_mode=True, tile_plan=plan)
+            for _ in range(2)]
+    sum(o.float().sum() for o in outs).backward()
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["tile_lists"] == 1
+    assert tfa.LAUNCHES["mask_tile_list"] == tfa.LAUNCHES["bwd_tile_list"] == 0
+    assert tfa.LAUNCHES_BY_MODE["flash_attention_bwd_bf16_sm90_packed"] == 2
+    got = [x.grad.clone() for x in (q, k, v)]
+    for x in (q, k, v):
+        x.grad = None
+    tfa.reset_launches()
+    want = [tatt.attention(q, k, v, q_segments=qs, kv_segments=ks,
+                           packed_mode=True) for _ in range(2)]
+    sum(o.float().sum() for o in want).backward()
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["tile_lists"] == 2
+    for o, w in zip(outs, want):
+        assert torch.equal(o, w)
+    for g, x, name in zip(got, (q, k, v), "qkv"):
+        assert _rel(g, x.grad) < 2e-2, name
 
 
 @pytest.mark.cuda
@@ -1587,6 +1682,10 @@ def test_cuda_small_bagel_packed_train_matches_cpu(cuda_device):
     loss_g, grads_g = run(cuda_device)
     assert tfa.BWD_LAUNCHES_BY_IMPL == {"sm90": 2, "mma_sync": 0}
     assert tfa.LAUNCHES_BY_MODE["flash_attention_bwd_bf16_sm90_packed"] == 2
+    # the pass's tile plan: one tile_lists launch for both layers, both
+    # directions; the old pre-passes are baselines
+    assert tfa.LAUNCHES["tile_lists"] == 1
+    assert tfa.LAUNCHES["mask_tile_list"] == tfa.LAUNCHES["bwd_tile_list"] == 0
     loss_c, grads_c = run("cpu")
     assert math.isfinite(loss_g)
     assert abs(loss_g - loss_c) / abs(loss_c) < 2e-2

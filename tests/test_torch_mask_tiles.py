@@ -178,11 +178,18 @@ def test_full_flag_is_exact(case):
     assert n_full > 0 and n_part > 0   # both kinds of tile occur
 
 
-def _walk(qs, k, v, qc, kc, kv_len, packed):
+def _walk(qs, k, v, qc, kc, kv_len, packed, builder="pair"):
     """The sm90 kernel's walk in plain fp32: per (b, q tile) only the listed
     kv tiles, a running max (a row with none yet takes the reference 0),
-    the predicate applied only in tiles not flagged full. (o, lse)."""
-    lists, count = tfa.mask_tile_list_plain(qc, kc, kv_len, packed)
+    the predicate applied only in tiles not flagged full. The list from
+    `builder`: "pair" the plain list (`mask_tile_list_plain`), "runs" the
+    new kernel's rule (`tile_lists_by_runs`). (o, lse)."""
+    if builder == "runs":
+        (lists, count), _ = tfa.tile_lists_by_runs(
+            qc.shape[0], qc.shape[1], kc.shape[1], kv_len=kv_len,
+            q_segments=qc, kv_segments=kc, packed_mode=packed)
+    else:
+        lists, count = tfa.mask_tile_list_plain(qc, kc, kv_len, packed)
     alive = _alive(qc, kc, kv_len, packed)
     b, lq, n, d = qs.shape
     o = torch.zeros_like(qs)
@@ -249,12 +256,18 @@ def test_tile_walk_matches_dense_forward(case):
     assert bool((got_o.transpose(1, 2)[~fin] == 0).all())
 
 
-@pytest.mark.parametrize("mode", ["packed", "segments"])
-def test_tile_walk_matches_pallas_kernel(mode):
+@pytest.mark.parametrize("mode,builder", [
+    pytest.param("packed", "pair", id="packed"),
+    pytest.param("segments", "pair", id="segments"),
+    pytest.param("packed", "runs", id="packed-runs"),
+    pytest.param("segments", "runs", id="segments-runs")])
+def test_tile_walk_matches_pallas_kernel(mode, builder):
     """The walk against univid_tpu's Pallas kernel in interpret mode
     (save_residuals, fp32, d=128) on the small packed and segment cases of
-    the backward tests (pad ids -1 / -2 in the last 20 rows and keys):
-    equal on the rows that see a key; the pad rows 0 with lse +1e30."""
+    the backward tests (pad ids -1 / -2 in the last 20 rows and keys),
+    over the plain list ("pair") and over the new kernel's run rule
+    ("runs"): equal on the rows that see a key; the pad rows 0 with lse
+    +1e30."""
     q, k, v, kw, live = _masked_case(mode)
     b, l, n, d = q.shape
     qs = tfa._fold(torch.as_tensor(q), d ** -0.5)
@@ -267,7 +280,7 @@ def test_tile_walk_matches_pallas_kernel(mode):
     to, tl = _walk(qs, torch.as_tensor(k), torch.as_tensor(v),
                    torch.as_tensor(kw["q_segments"]),
                    torch.as_tensor(kw["kv_segments"]), None,
-                   kw.get("packed_mode", False))
+                   kw.get("packed_mode", False), builder)
     np.testing.assert_allclose(to.numpy()[live], np.asarray(jo)[live], **FP32)
     lse_live = live[:, None, :].repeat(n, axis=1)
     np.testing.assert_allclose(tl.numpy()[lse_live],

@@ -41,7 +41,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .flash_attention import (D128, LOG2E, NEG_INF, TILE, _fold, causal_rows,
+from .flash_attention import (D128, LOG2E, NEG_INF, TILE, _fold,
+                              build_tile_plan, causal_rows,
                               flash_attention_bwd_folded,
                               flash_attention_fwd_folded,
                               flash_attention_padded, packed_mask_allowed,
@@ -135,23 +136,27 @@ class FlashAttention(torch.autograd.Function):
     Takes the raw q and folds it by softmax_scale * log2(e) inside, as JAX
     does; the forward saves (qs, k, v, o, lse) and the backward runs the
     backward kernels on them (their plain versions on the CPU), under the
-    forward's masks. kv_len, the masks and score_bound get no gradient:
-    the bound only moves the softmax's reference point, so d(out)/d(bound)
-    = 0."""
+    forward's masks; the tile plan of the segment or packed codes (its
+    tile lists) serves both directions. kv_len, the masks and score_bound
+    get no gradient: the bound only moves the softmax's reference point,
+    so d(out)/d(bound) = 0."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len, score_bound, softmax_scale, causal,
-                q_offset, q_offsets, q_segments, kv_segments, packed_mode):
+                q_offset, q_offsets, q_segments, kv_segments, packed_mode,
+                tile_plan):
         qs = _fold(q, softmax_scale)
         masks = dict(causal=causal, q_offset=q_offset, q_offsets=q_offsets,
                      q_segments=q_segments, kv_segments=kv_segments,
                      packed_mode=packed_mode)
         o, lse = flash_attention_fwd_folded(qs, k, v, kv_len=kv_len,
-                                            score_bound=score_bound, **masks)
+                                            score_bound=score_bound,
+                                            tile_plan=tile_plan, **masks)
         ctx.save_for_backward(qs, k, v, o, lse, kv_len, q_offsets,
                               q_segments, kv_segments)
         ctx.softmax_scale = softmax_scale
         ctx.flags = (causal, q_offset, packed_mode)
+        ctx.tile_plan = tile_plan
         return o
 
     @staticmethod
@@ -169,14 +174,16 @@ class FlashAttention(torch.autograd.Function):
             qs, k, v, o, lse, do, kv_len=kv_len,
             softmax_scale=ctx.softmax_scale, causal=causal,
             q_offset=q_offset, q_offsets=q_offsets, q_segments=q_segments,
-            kv_segments=kv_segments, packed_mode=packed_mode)
-        return (dq, dk, dv) + (None,) * 9
+            kv_segments=kv_segments, packed_mode=packed_mode,
+            tile_plan=ctx.tile_plan)
+        return (dq, dk, dv) + (None,) * 10
 
 
 def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
               score_bound=None, causal=False, q_offset=0, q_offsets=None,
               q_segments=None, kv_segments=None, packed_mode=False,
-              softmax_bf16=False, qk_int8=False, qk_norm=None):
+              softmax_bf16=False, qk_int8=False, qk_norm=None,
+              tile_plan=None):
     """Multi-head attention over [B, L, N, D] tensors (k, v [B, Lk, N /
     group, D]).
 
@@ -213,12 +220,27 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
     takes the norm as its prologue (with the rotation when rope_tables are
     given and qk_int8 is off); on every other route (the CPU, fp32, the
     reference route, under grad, the gains' included) `rms_heads` runs
-    first and the call goes on as without it."""
+    first and the call goes on as without it.
+
+    tile_plan: a `TilePlan` (`build_tile_plan`) that carries the codes, the
+    kv_len and the tile lists of a pass's segment or packed mask, so that
+    its calls neither pad the codes nor build the lists again: it takes
+    the place of q_segments, kv_segments and kv_len (and of causal), and
+    must match the call's B, padded Lq and Lk, packed_mode and device. A
+    call with codes and no plan builds one."""
     b, lq, n, d = q.shape
+    lk = k.shape[1]
+    lq_pad = _round_up(lq, TILE)
+    lk_pad = _round_up(lk, TILE)
     segs = q_segments is not None or kv_segments is not None
     if segs and (q_segments is None or kv_segments is None):
         raise ValueError("pass both q_segments and kv_segments")
-    if packed_mode and not segs:
+    if tile_plan is not None:
+        if segs or kv_len is not None or causal:
+            raise ValueError("a tile plan carries its codes and kv_len: pass "
+                             "no segment ids, kv_len or causal with it")
+        tile_plan.check(b, lq_pad, lk_pad, packed_mode, q.device)
+    elif packed_mode and not segs:
         raise ValueError("packed_mode takes the codes as q_segments and "
                          "kv_segments")
     # the packed mode's causal term reads the pack's own row indices
@@ -234,13 +256,16 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
         gq, gk, eps = qk_norm
         q, k = rms_heads(q, gq, eps), rms_heads(k, gk, eps)
         qk_norm = None
-    lk = k.shape[1]
     if kv_len is not None:
         kv_len = torch.as_tensor(kv_len, dtype=torch.int32).to(q.device)
     if q_offsets is not None:
         q_offsets = torch.as_tensor(q_offsets, dtype=torch.int32).to(
             q.device)
     if d % 128 != 0:
+        if tile_plan is not None:   # the plan's codes without their pads
+            q_segments = tile_plan.q_codes[:, :lq]
+            kv_segments = tile_plan.kv_codes[:, :lk]
+            kv_len = tile_plan.kv_len
         if rope_tables is not None:
             # rotate with the UNSCALED (k) tables: mha_reference scales
             _, _, ck, sk = rope_tables
@@ -260,24 +285,19 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
             "fused rope is inference-only: under grad, rotate q and k "
             "before the call (the DiT does so when fused_rope=False)")
 
-    lq_pad = _round_up(lq, TILE)
-    lk_pad = _round_up(lk, TILE)
-    if lk_pad != lk and kv_len is None:
+    if segs:   # the padded codes and the tile lists, for this call alone
+        tile_plan = build_tile_plan(q_segments, kv_segments, kv_len,
+                                    packed_mode, device=q.device)
+    if tile_plan is not None:
+        q_segments, kv_segments = tile_plan.q_codes, tile_plan.kv_codes
+        kv_len = tile_plan.kv_len
+    elif lk_pad != lk and kv_len is None:
         kv_len = torch.full((b,), lk, dtype=torch.int32, device=q.device)
-    if segs:   # the kernels read contiguous int32 [B, L] ids
-        q_segments = torch.as_tensor(q_segments, dtype=torch.int32).to(
-            q.device).contiguous()
-        kv_segments = torch.as_tensor(kv_segments, dtype=torch.int32).to(
-            q.device).contiguous()
     if lq_pad != lq:
         q = F.pad(q, (0, 0, 0, 0, 0, lq_pad - lq))
-        if segs:
-            q_segments = F.pad(q_segments, (0, lq_pad - lq), value=-1)
     if lk_pad != lk:
         k = F.pad(k, (0, 0, 0, 0, 0, lk_pad - lk))
         v = F.pad(v, (0, 0, 0, 0, 0, lk_pad - lk))
-        if segs:
-            kv_segments = F.pad(kv_segments, (0, lk_pad - lk), value=-2)
     masks = dict(causal=causal, q_offset=q_offset, q_offsets=q_offsets,
                  q_segments=q_segments, kv_segments=kv_segments,
                  packed_mode=packed_mode)
@@ -291,12 +311,13 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
     if train:
         return FlashAttention.apply(q, k, v, kv_len, folded_bound, sc,
                                     causal, q_offset, q_offsets, q_segments,
-                                    kv_segments, packed_mode)[:, :lq]
+                                    kv_segments, packed_mode,
+                                    tile_plan)[:, :lq]
     o = flash_attention_padded(q, k, v, kv_len=kv_len,
                                softmax_scale=softmax_scale,
                                rope_tables=rope_tables,
                                score_bound=folded_bound,
                                softmax_bf16=softmax_bf16, qk_int8=qk_int8,
                                block_k=jax_block_k(lk), qk_norm=qk_norm,
-                               **masks)
+                               tile_plan=tile_plan, **masks)
     return o[:, :lq]

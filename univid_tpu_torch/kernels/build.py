@@ -37,6 +37,7 @@ SOURCES = {
     "flash_attention_f32_sm90": "flash_attention_f32_sm90.cu",
     "flash_attention_int8_sm90": "flash_attention_int8_sm90.cu",
     "qk_prepass": "qk_prepass.cu",
+    "mask_tiles_sm90": "mask_tiles_sm90.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -9,7 +9,8 @@ and training paths reach:
     runs csrc/flash_attention_sm90.cu (wgmma, TMA, warp specialisation) in
     its unmasked modes (DiT self-attention, the training forward, BAGEL's
     ViT append) and its segment and packed ones (BAGEL packed training,
-    with the pre-pass `mask_tile_list`: the live kv tiles of each q tile),
+    over the forward tile list of `tile_lists`: the live kv tiles of each
+    q tile),
     and csrc/flash_attention_causal_sm90.cu in the causal one
     (`bf16_forward_route`); fp32 d=128 runs
     csrc/flash_attention_f32_sm90.cu (the DiT at the fp32 policy, serving
@@ -65,8 +66,8 @@ and training paths reach:
     kernel, the accumulators to bf16; not deterministic: dq sums by atomic
     reductions): the unmasked ones with or without kv_len at any Lk, and
     causal (static and device offsets), segment and packed masks, which
-    walk a kv-major tile list that the pre-pass `bwd_tile_list` builds
-    first (for each kv tile the q tiles with a live pair). fp32 d=128 with
+    walk a kv-major tile list (for each kv tile the q tiles with a live
+    pair). fp32 d=128 with
     kv_len on csrc/flash_attention_f32_sm90.cu (a dq kernel, which also
     writes delta, and a dk/dv kernel, on the split operands; deterministic:
     no atomics).
@@ -75,6 +76,14 @@ and training paths reach:
 
 Every mask goes through `_dead`, the counterpart of the JAX package's
 `_mask_scores`, which the plain forward and backward share.
+
+The masked modes' tile lists: `tile_lists` builds the forward's and the
+backward's in one launch of csrc/mask_tiles_sm90.cu, from the runs of
+equal codes in each tile (`tile_lists_by_runs` emulates its rule; the
+plain versions `mask_tile_list_plain` and `bwd_tile_list_plain` decide
+pair by pair). `build_tile_plan` pads a pass's codes and builds both lists
+once (`TilePlan`); every attention call of the pass reads them
+(`tile_plan=`), and a call without a plan builds its own.
 
 Inputs are [B, L, N, D] and already padded (Lq, Lk multiples of TILE); k
 and v may have N / group heads (grouped-query attention: query head h reads
@@ -95,23 +104,30 @@ packed and causal modes,
 `_launch_f32_d128` and `_bwd_dq_f32` / `_bwd_dkv_f32`, the fp32 d=128
 CUDA-core kernels; `_launch_int8_mma_sync`, the mma.sync int8 QK^T
 kernel; `_rope_bf16`, the bf16 rope pre-pass kernel A replaced;
-`_quantize_qk_int8_pair`, the int8 pre-pass pair kernel B replaced) as
+`_quantize_qk_int8_pair`, the int8 pre-pass pair kernel B replaced;
+`mask_tile_list` and `bwd_tile_list`, the tile-list pre-passes
+`tile_lists` replaced) as
 the same-call baselines of chip_smoke.py and the card tests;
 no route reaches them, and they keep their launch counters' names
 (`flash_attention_f32_d128`, `flash_attention_f32_lse`,
 `flash_attention_bwd_dq_f32`, `flash_attention_bwd_dkv_f32`) beside the
 new kernels' (`..._f32_sm90`); the int8 baseline counts as
 `flash_attention_int8_mma_sync` and `flash_attention_int8_sbf16_mma_sync`,
-the pre-pass baselines as `rope_rotate_bf16` and `quantize_qk_int8_pair`.
+the pre-pass baselines as `rope_rotate_bf16` and `quantize_qk_int8_pair`,
+the tile-list ones as `mask_tile_list` and `bwd_tile_list` (the new
+kernel as `tile_lists`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from . import build
 from ..core.nn import rms_norm
@@ -164,7 +180,7 @@ LAUNCHES = {"flash_attention_bf16": 0, "flash_attention_bf16_causal": 0,
             "flash_attention_bwd_dq_f32_sm90": 0,
             "flash_attention_bwd_dkv_f32_sm90": 0,
             "qk_norm_rope_bf16": 0, "qk_norm_bf16": 0, "qk_rope_bf16": 0,
-            "quantize_qk_int8_pair": 0}
+            "quantize_qk_int8_pair": 0, "tile_lists": 0}
 # the flash_attention_f32 launches split by head dim
 F32_LAUNCHES_BY_D = {d: 0 for d in F32_DIMS}
 # launches of the masked modes: each is also counted under its kernel's name
@@ -358,8 +374,9 @@ def _dead(i0, i1, lk, device, *, kv_len=None, causal=False, q_offset=0,
 
 def mask_tile_list_plain(q_segments, kv_segments, kv_len=None,
                          packed_mode=False):
-    """The masked modes' tile list in plain PyTorch (the pre-pass
-    `mask_tile_list`): for each (b, 128-row q tile) the kv tiles of 128
+    """The masked modes' forward tile list in plain PyTorch (the forward
+    list of `tile_lists`, and of the old pre-pass `mask_tile_list`), pair
+    by pair: for each (b, 128-row q tile) the kv tiles of 128
     keys that hold at least one pair `_dead` allows, ascending, as
     (tile << 1) | full, full when every pair of the tile's 128 keys (rows
     below Lq; keys past Lk count as dead) is allowed; -1 past the count.
@@ -395,8 +412,9 @@ def _compact(live, full, count):
 def bwd_tile_list_plain(b, lq, lk, device="cpu", *, kv_len=None,
                         causal=False, q_offset=0, q_offsets=None,
                         q_segments=None, kv_segments=None, packed_mode=False):
-    """The one-pass backward's tile list in plain PyTorch (the pre-pass
-    `bwd_tile_list`): for each (b, kv tile of 128 keys) the 64-row q tiles
+    """The one-pass backward's tile list in plain PyTorch (the backward
+    list of `tile_lists`, and of the old pre-pass `bwd_tile_list`), pair
+    by pair: for each (b, kv tile of 128 keys) the 64-row q tiles
     that hold at least one pair `_dead` allows (any of its masks), ascending,
     as (tile << 1) | full, full when every pair of the tile's 64 rows and
     128 keys is allowed (keys past Lk count as dead); -1 past the count. Lq
@@ -413,6 +431,157 @@ def bwd_tile_list_plain(b, lq, lk, device="cpu", *, kv_len=None,
     live = tiles.any(dim=4).any(dim=2).transpose(1, 2)       # [B, kt, nq]
     full = tiles.all(dim=4).all(dim=2).transpose(1, 2)
     return _compact(live, full, live.sum(dim=-1).to(torch.int32))
+
+
+def _runs(codes):
+    """(starts, codes) of the runs of equal values in a 1-D int array."""
+    starts = np.flatnonzero(np.r_[True, codes[1:] != codes[:-1]])
+    return starts, codes[starts]
+
+
+def _runs_flag(qc, q0, kc, kv0, whole, packed):
+    """csrc/mask_tiles_sm90.cu's rule for one tile: rows q0 + i with codes
+    qc against keys kv0 + j with codes kc (the keys below kv_end), from
+    their runs alone: 0 dead, 1 live, 3 full (every run pair full and
+    `whole`). On one run pair the packed predicate is decided from its
+    corners: any pair iff base & (fn | r1 >= c0), every pair iff base & (fn
+    | r0 >= c1)."""
+    if len(kc) == 0:
+        return 0
+    qs, qv = _runs(qc)
+    ks, kv = _runs(kc)
+    r0, r1 = q0 + qs, q0 + np.r_[qs[1:], len(qc)] - 1
+    c0, c1 = kv0 + ks, kv0 + np.r_[ks[1:], len(kc)] - 1
+    cq, ck = qv[:, None], kv[None, :]
+    if packed:
+        nz_q, nz_k = cq & 0xFF, ck & 0xFF
+        base = ((cq >> 16) == (ck >> 16)) & ~((nz_k > 0) & (nz_q != nz_k))
+        fn_q = (cq >> 8) & 0xFF
+        fn = (fn_q == ((ck >> 8) & 0xFF)) & (fn_q > 0)
+        any_ = base & (fn | (r1[:, None] >= c0[None, :]))
+        all_ = base & (fn | (r0[:, None] >= c1[None, :]))
+    else:
+        any_ = all_ = cq == ck
+    if not any_.any():
+        return 0
+    return 3 if whole and all_.all() else 1
+
+
+def tile_lists_by_runs(b, lq, lk, *, kv_len=None, causal=False, q_offset=0,
+                       q_offsets=None, q_segments=None, kv_segments=None,
+                       packed_mode=False):
+    """The rule of `tile_lists`' kernel (csrc/mask_tiles_sm90.cu) in numpy,
+    for the tests: each 64 x 128 flag from the runs of equal codes in its
+    q tile and its kv tile (`_runs_flag`; the causal mode by the corner
+    rule of the backward's list), each forward 128 x 128 flag the OR
+    (live) and AND (full) of its two halves (a half past Lq counts as
+    full), both compacted as the plain lists are. Returns (fwd, bwd), each
+    (list, count) equal to `mask_tile_list_plain` / `bwd_tile_list_plain`
+    on the same masks; fwd None in the causal mode. Lq is a multiple of
+    64."""
+    bq, bk = BWD_BLOCK_Q, BWD_BLOCK_K
+    nq, kt = lq // bq, -(-lk // bk)
+    ends = np.full(b, lk) if kv_len is None else np.clip(
+        np.asarray(kv_len.cpu() if torch.is_tensor(kv_len) else kv_len),
+        0, lk)
+    offs = np.zeros(b, np.int64) if q_offsets is None else np.asarray(
+        q_offsets.cpu() if torch.is_tensor(q_offsets) else q_offsets,
+        np.int64)
+    if not causal:
+        qcs = np.asarray(q_segments.cpu(), np.int32)
+        kcs = np.asarray(kv_segments.cpu(), np.int32)
+    flags = np.zeros((b, nq, kt), np.int8)
+    for bi in range(b):
+        for j in range(kt):
+            kv0 = j * bk
+            n_keys = max(0, min(bk, int(ends[bi]) - kv0))
+            whole = n_keys == bk
+            for i in range(nq):
+                q0 = i * bq
+                if causal:
+                    row0 = q0 + q_offset + int(offs[bi])
+                    any_ = n_keys > 0 and kv0 <= row0 + bq - 1
+                    flags[bi, i, j] = (3 if whole and kv0 + bk - 1 <= row0
+                                       else 1) if any_ else 0
+                else:
+                    flags[bi, i, j] = _runs_flag(
+                        qcs[bi, q0:q0 + bq], q0, kcs[bi, kv0:kv0 + n_keys],
+                        kv0, whole, packed_mode)
+    live, full = torch.as_tensor(flags != 0), torch.as_tensor(flags == 3)
+    bwd = _compact(live.transpose(1, 2), full.transpose(1, 2),
+                   live.sum(dim=1).to(torch.int32))
+    if causal:
+        return None, bwd
+    if nq % 2:   # the last forward tile's second half lies past Lq
+        live = torch.cat([live, torch.zeros_like(live[:, :1])], dim=1)
+        full = torch.cat([full, torch.ones_like(full[:, :1])], dim=1)
+    live = live[:, 0::2] | live[:, 1::2]
+    full = full[:, 0::2] & full[:, 1::2]
+    return _compact(live, full, live.sum(dim=-1).to(torch.int32)), bwd
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """The segment or packed mask of one pass, built once by
+    `build_tile_plan` and handed to each of its attention calls: the codes
+    padded to the kernels' multiple of 64 (queries with -1, keys with -2,
+    as the dispatcher pads them), the kv_len that masks the padded keys (or
+    the caller's), and on the card both tile lists, (list, count) of
+    `mask_tile_list_plain` (fwd) and of `bwd_tile_list_plain` (bwd), which
+    the forward and backward kernels read instead of building their own.
+    On the CPU the lists are None: the plain versions read the codes."""
+    q_codes: torch.Tensor
+    kv_codes: torch.Tensor
+    kv_len: Optional[torch.Tensor]
+    packed_mode: bool
+    fwd: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    bwd: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+
+    def check(self, b, lq, lk, packed_mode, device):
+        """Raise unless the plan was built for B rows of padded Lq, Lk
+        codes, in this mode, on this device."""
+        got = (self.q_codes.shape[0], self.q_codes.shape[1],
+               self.kv_codes.shape[1], self.packed_mode)
+        if got != (b, lq, lk, bool(packed_mode)):
+            raise ValueError(
+                f"the tile plan was built for (B, Lq, Lk, packed_mode) = "
+                f"{got}, the call is {(b, lq, lk, bool(packed_mode))} "
+                "(padded lengths)")
+        if self.q_codes.device != torch.device(device):
+            raise ValueError(f"the tile plan lies on {self.q_codes.device}, "
+                             f"the call on {device}")
+
+
+def build_tile_plan(q_segments, kv_segments, kv_len=None, packed_mode=False,
+                    device=None):
+    """The `TilePlan` of q_segments [B, Lq] / kv_segments [B, Lk] (int32
+    ids, or pack_mask_codes codes with packed_mode) and kv_len [B] or None
+    (the caller's, on the unpadded keys), on `device` (default: the codes'):
+    the codes padded as `kernels.attention.attention` pads them, kv_len = Lk
+    when it pads keys and none is given, and on the card both tile lists
+    from one launch of `tile_lists`."""
+    if device is None:
+        device = (q_segments.device if torch.is_tensor(q_segments)
+                  else "cpu")
+    qc = torch.as_tensor(q_segments, dtype=torch.int32).to(device)
+    kc = torch.as_tensor(kv_segments, dtype=torch.int32).to(device)
+    if qc.dim() != 2 or kc.dim() != 2 or qc.shape[0] != kc.shape[0]:
+        raise ValueError("segment ids are [B, Lq] and [B, Lk]")
+    b, lq = qc.shape
+    lk = kc.shape[1]
+    lq_pad, lk_pad = -(-lq // TILE) * TILE, -(-lk // TILE) * TILE
+    if kv_len is not None:
+        kv_len = torch.as_tensor(kv_len, dtype=torch.int32).to(device)
+    elif lk_pad != lk:
+        kv_len = torch.full((b,), lk, dtype=torch.int32, device=device)
+    qc = F.pad(qc, (0, lq_pad - lq), value=-1).contiguous()
+    kc = F.pad(kc, (0, lk_pad - lk), value=-2).contiguous()
+    fwd = bwd = None
+    if qc.is_cuda:
+        fwd, bwd = tile_lists(b, lq_pad, lk_pad, qc.device, kv_len=kv_len,
+                              q_segments=qc, kv_segments=kc,
+                              packed_mode=packed_mode)
+    return TilePlan(qc, kc, kv_len, bool(packed_mode), fwd, bwd)
 
 
 def causal_pairs(group, lq):
@@ -1100,10 +1269,12 @@ def tma_readable(t):
 
 
 def mask_tile_list(q_segments, kv_segments, kv_len=None, packed_mode=False):
-    """The masked modes' pre-pass: (list, count) of `mask_tile_list_plain`
-    at the sm90 kernel's 128 x 128 tiles. One launch on the card
-    (mask_tiles_kernel of csrc/flash_attention_sm90.cu); the plain version
-    on the CPU."""
+    """The forward's old tile-list pre-pass: (list, count) of
+    `mask_tile_list_plain` at the sm90 kernel's 128 x 128 tiles, one launch
+    of mask_tiles_kernel (csrc/flash_attention_sm90.cu), which decides its
+    flags pair by pair; the plain version on the CPU. `tile_lists`
+    replaced it on every route: the same-call baseline of chip_smoke.py
+    and the card tests."""
     if not q_segments.is_cuda:
         return mask_tile_list_plain(q_segments, kv_segments, kv_len,
                                     packed_mode)
@@ -1124,13 +1295,76 @@ def mask_tile_list(q_segments, kv_segments, kv_len=None, packed_mode=False):
     return lists, count
 
 
+def tile_lists(b, lq, lk, device, *, kv_len=None, causal=False, q_offset=0,
+               q_offsets=None, q_segments=None, kv_segments=None,
+               packed_mode=False, fwd=True, bwd=True):
+    """The masked modes' tile lists over padded Lq, Lk (multiples of 64):
+    (fwd, bwd), fwd the forward's (list, count) of `mask_tile_list_plain`
+    (None in the causal mode or when `fwd` is False), bwd the backward's
+    of `bwd_tile_list_plain` (None when `bwd` is False), under one mask
+    (segments, packed codes, or causal with q_offset / q_offsets) and
+    kv_len. On the card both come from one launch of
+    csrc/mask_tiles_sm90.cu (`tile_lists_by_runs` emulates its rule); on
+    the CPU (`device`) the plain versions."""
+    masks = dict(causal=causal, q_offset=q_offset, q_offsets=q_offsets,
+                 q_segments=q_segments, kv_segments=kv_segments,
+                 packed_mode=packed_mode)
+    fwd = fwd and not causal
+    if torch.device(device).type != "cuda":
+        return ((mask_tile_list_plain(q_segments, kv_segments, kv_len,
+                                      packed_mode) if fwd else None),
+                (bwd_tile_list_plain(b, lq, lk, device, kv_len=kv_len,
+                                     **masks) if bwd else None))
+    if lq % TILE or lk % TILE or not (fwd or bwd):
+        raise ValueError("the tile lists take Lq, Lk padded to multiples of "
+                         "64, and at least one list")
+    if causal == (q_segments is not None):
+        raise ValueError("the tile lists take one mask: causal, or segment "
+                         "ids for q and kv")
+    for t, shape in ((q_segments, (b, lq)), (kv_segments, (b, lk)),
+                     (kv_len, (b,)), (q_offsets, (b,))):
+        if t is not None and (t.dtype != torch.int32 or not t.is_cuda
+                              or tuple(t.shape) != shape
+                              or not t.is_contiguous()):
+            raise TypeError(f"the tile lists take contiguous int32 {shape} "
+                            "codes, kv_len and q_offsets on the card")
+    mode = "causal" if causal else "packed" if packed_mode else "segments"
+    qt, kt = sm90_q_tiles(lq), -(-lk // SM90_BLOCK_K)
+    out = []
+    for want, shape in ((fwd, ((b, qt, kt), (b, qt))),
+                        (bwd, ((b, kt, lq // BWD_BLOCK_Q), (b, kt)))):
+        out.append(tuple(torch.empty(sh, dtype=torch.int32, device=device)
+                         for sh in shape) if want else None)
+    fn = _fn("mask_tiles_sm90", "univid_tile_lists", [_P] * 8 + [_I] * 5
+             + [_P])
+    err = fn(_ptr(q_segments), _ptr(kv_segments), _ptr(kv_len),
+             _ptr(q_offsets), *(_ptr(t) for lc in out
+                                for t in (lc or (None, None))),
+             _BWD_MASK_MODE[mode], int(q_offset), b, lq, lk,
+             torch.cuda.current_stream(device).cuda_stream)
+    build.check(err, "univid_tile_lists")
+    _count("tile_lists")
+    return out[0], out[1]
+
+
+def _plan_lists(tile_plan, which, shape):
+    """The plan's forward or backward (list, count), which the call's
+    kernel reads: raises unless the plan has them at this call's shape."""
+    lists = getattr(tile_plan, which)
+    if lists is None or tuple(lists[0].shape) != shape:
+        raise ValueError(f"the tile plan has no {which} list of shape "
+                         f"{shape} on the card")
+    return lists
+
+
 def _launch_sm90(q, k, v, kv_len, bound, mode, lse=None, softmax_bf16=False,
-                 q_segments=None, kv_segments=None, seg=None):
+                 q_segments=None, kv_segments=None, seg=None, tile_plan=None):
     """flash_attention_sm90.cu on padded bf16 [B, L, N, 128] (k, v with N /
     group heads): mode "bounded" (`bound` the folded score bound, an fp32
     [1] on the device), "running" or "oneshot"; lse fp32 [B, N, Lq] or
     None. seg "segments" or "packed" (running max): the codes q_segments
-    [B, Lq] / kv_segments [B, Lk], the pre-pass `mask_tile_list` first."""
+    [B, Lq] / kv_segments [B, Lk] and the forward's tile list, the plan's
+    (`TilePlan`, built for these codes) or else from `tile_lists` first."""
     b, lq, n, d = q.shape
     o = torch.empty((b, lq, n, d), dtype=q.dtype, device=q.device)
     st = tma_strides(q) + tma_strides(k) + tma_strides(v) + list(
@@ -1151,8 +1385,14 @@ def _launch_sm90(q, k, v, kv_len, bound, mode, lse=None, softmax_bf16=False,
     if kv_segments.data_ptr() % 16:
         raise ValueError("the sm90 kernel copies kv codes in bulk: a "
                          "16-byte aligned kv_segments")
-    lists, count = mask_tile_list(q_segments, kv_segments, kv_len,
-                                  seg == "packed")
+    if tile_plan is not None:
+        lists, count = _plan_lists(tile_plan, "fwd", (
+            b, sm90_q_tiles(lq), -(-k.shape[1] // SM90_BLOCK_K)))
+    else:
+        (lists, count), _ = tile_lists(
+            b, lq, k.shape[1], q.device, kv_len=kv_len,
+            q_segments=q_segments, kv_segments=kv_segments,
+            packed_mode=seg == "packed", bwd=False)
     fn = _fn("flash_attention_sm90", "univid_flash_fwd_sm90_masked",
              [_P] * 10 + [_I] * 8 + [_P, _P])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -1310,7 +1550,7 @@ def _bound_tensor(bound, device):
 
 def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
                 q_offset=0, q_offsets=None, q_segments=None, kv_segments=None,
-                packed_mode=False, softmax_bf16=False):
+                packed_mode=False, softmax_bf16=False, tile_plan=None):
     if q.dtype == torch.bfloat16:
         _check_cuda_inputs(q, k, v, kv_len, torch.bfloat16, (128,),
                            group_ok=True)
@@ -1333,7 +1573,7 @@ def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
         o = _launch_sm90(q, k, v, kv_len, _bound_tensor(bound, q.device),
                          mode, softmax_bf16=softmax_bf16,
                          q_segments=q_segments, kv_segments=kv_segments,
-                         seg=seg)
+                         seg=seg, tile_plan=tile_plan)
         _count("flash_attention_bf16_sbf16" if softmax_bf16
                else "flash_attention_bf16", seg, impl=impl)
         return o
@@ -1574,7 +1814,7 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
                            q_offset: int = 0, q_offsets=None, q_segments=None,
                            kv_segments=None, packed_mode: bool = False,
                            softmax_bf16: bool = False, qk_int8: bool = False,
-                           block_k: int = 512, qk_norm=None):
+                           block_k: int = 512, qk_norm=None, tile_plan=None):
     """Attention over padded [B, L, N, D] (k, v may have N / group heads).
 
     rope_tables: build_fused_rope_tables output -> q and k rotated first
@@ -1598,7 +1838,9 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
     arrive before Wan's qk RMS norm over each token's N * D width;
     `qk_norm_rope` norms them (and rotates them with rope_tables, unless
     qk_int8 takes the rotation); `attention` passes it only on the card's
-    no-grad bf16 route and norms first on every other."""
+    no-grad bf16 route and norms first on every other. tile_plan: the
+    `TilePlan` of these codes, whose tile list the segment and packed
+    kernels read (without one they build it first)."""
     b, lq, n, d = q.shape
     lk = k.shape[1]
     if lq % TILE or lk % TILE:
@@ -1628,7 +1870,8 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
                 "kernel)")
         return flash_attention_fwd_folded(_fold(q, softmax_scale), k, v,
                                           kv_len=kv_len,
-                                          score_bound=score_bound, **masks)
+                                          score_bound=score_bound,
+                                          tile_plan=tile_plan, **masks)
     rotated = rope_tables is not None   # q's tables carry the fold
     if rotated:
         rope_tables = _pad_tables(rope_tables, lq, lk,
@@ -1658,7 +1901,8 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
                                       softmax_bf16=softmax_bf16)
     if q.is_cuda:
         return _flash_cuda(q, k, v, kv_len, score_bound, rope_tables,
-                           softmax_bf16=softmax_bf16, **masks)
+                           softmax_bf16=softmax_bf16, tile_plan=tile_plan,
+                           **masks)
     return attention_plain(q, k, v, kv_len=kv_len, bound=score_bound,
                            rope_tables=rope_tables, softmax_bf16=softmax_bf16,
                            **masks)
@@ -1667,11 +1911,11 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
 def flash_attention_fwd_folded(qs, k, v, *, kv_len=None, score_bound=None,
                                causal=False, q_offset=0, q_offsets=None,
                                q_segments=None, kv_segments=None,
-                               packed_mode=False):
+                               packed_mode=False, tile_plan=None):
     """The training forward on an already folded qs: (o, lse fp32
     [B, N, Lq]), bounded or running max, any Lk that is a multiple of 64
     (the generic kernel, also at the Lk = 512 cross shape); the masks of
-    `flash_attention_padded` (running max only)."""
+    `flash_attention_padded` (running max only) and its tile_plan."""
     masks = dict(causal=causal, q_offset=q_offset, q_offsets=q_offsets,
                  q_segments=q_segments, kv_segments=kv_segments,
                  packed_mode=packed_mode)
@@ -1695,7 +1939,7 @@ def flash_attention_fwd_folded(qs, k, v, *, kv_len=None, score_bound=None,
     if impl == "sm90":
         o = _launch_sm90(qs, k, v, kv_len, bound, mode, lse=lse,
                          q_segments=q_segments, kv_segments=kv_segments,
-                         seg=seg)
+                         seg=seg, tile_plan=tile_plan)
     else:
         o = _launch_causal_sm90(qs, k, v, kv_len, q_offset, q_offsets,
                                 lse=lse)
@@ -1723,13 +1967,14 @@ def flash_attention_bwd_padded(q, k, v, o, lse, do, *, kv_len=None,
 
 
 def flash_attention_bwd_folded(qs, k, v, o, lse, do, *, kv_len=None,
-                               softmax_scale, **masks):
+                               softmax_scale, tile_plan=None, **masks):
     """The backward on the folded qs of the forward: the plain version on
     the CPU; on the card, bf16: the kernel `bf16_backward_route` names (the
     one-pass sm90 kernel, under every mask); fp32: the fp32 pair of
     csrc/flash_attention_f32_sm90.cu (the split pre-passes, dq and delta,
     then dk/dv). masks: causal, q_offset, q_offsets, q_segments,
-    kv_segments, packed_mode (bf16 only)."""
+    kv_segments, packed_mode (bf16 only); tile_plan: the `TilePlan` of the
+    segment or packed codes, whose backward list the kernel walks."""
     if not qs.is_cuda:
         return _bwd_plain_folded(qs, k, v, o, lse, do, kv_len, softmax_scale,
                                  **masks)
@@ -1738,7 +1983,7 @@ def flash_attention_bwd_folded(qs, k, v, o, lse, do, *, kv_len=None,
         return _bwd_f32_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale)
     impl = bf16_backward_route(qs, k, v)  # the launch checks the masks
     out = _launch_bwd_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale,
-                           **masks)
+                           tile_plan=tile_plan, **masks)
     BWD_LAUNCHES_BY_IMPL[impl] += 1
     return out
 
@@ -1788,11 +2033,12 @@ def bwd_sm90_q_splits(bn, lq, lk, sms=H100_SMS):
 def bwd_tile_list(qs, lk, kv_len=None, *, causal=False, q_offset=0,
                   q_offsets=None, q_segments=None, kv_segments=None,
                   packed_mode=False):
-    """The masked backward's pre-pass: (list, count) of
+    """The masked backward's old tile-list pre-pass: (list, count) of
     `bwd_tile_list_plain` for the folded q `qs` [B, Lq, N, D] over lk keys
-    under one mask (causal, segments or packed). One launch on the card
-    (bwd_tiles_kernel of csrc/flash_attention_bwd_sm90.cu); the plain
-    version on the CPU."""
+    under one mask (causal, segments or packed), one launch of
+    bwd_tiles_kernel (csrc/flash_attention_bwd_sm90.cu), pair by pair; the
+    plain version on the CPU. `tile_lists` replaced it on every route: the
+    same-call baseline of chip_smoke.py and the card tests."""
     b, lq = qs.shape[:2]
     masks = dict(causal=causal, q_offset=q_offset, q_offsets=q_offsets,
                  q_segments=q_segments, kv_segments=kv_segments,
@@ -1809,13 +2055,6 @@ def bwd_tile_list(qs, lk, kv_len=None, *, causal=False, q_offset=0,
     if kv_len is not None and (kv_len.dtype != torch.int32
                                or kv_len.device != qs.device):
         raise TypeError("kv_len must be int32 on the kernel's device")
-    return _bwd_tile_list_launch(qs, lk, kv_len, mode, **masks)
-
-
-def _bwd_tile_list_launch(qs, lk, kv_len, mode, *, q_offset, q_offsets,
-                          q_segments, kv_segments, **_):
-    """The launch of `bwd_tile_list` on operands already checked."""
-    b, lq = qs.shape[:2]
     kt = -(-lk // BWD_BLOCK_K)
     lists = torch.empty((b, kt, lq // BWD_BLOCK_Q), dtype=torch.int32,
                         device=qs.device)
@@ -1833,13 +2072,14 @@ def _bwd_tile_list_launch(qs, lk, kv_len, mode, *, q_offset, q_offsets,
 def _launch_bwd_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale,
                      q_splits=None, *, causal=False, q_offset=0,
                      q_offsets=None, q_segments=None, kv_segments=None,
-                     packed_mode=False):
+                     packed_mode=False, tile_plan=None):
     """csrc/flash_attention_bwd_sm90.cu on padded bf16 [B, L, N, 128]:
     (dq, dk, dv) from qs (folded), k, v, o, lse and do, kv_len or None.
     q_splits: blocks a kv tile along q (`bwd_sm90_q_splits` of the card's
     SMs by default; > 1 sums dk and dv through fp32 accumulators). Under a
-    causal, segment or packed mask the pre-pass `bwd_tile_list` runs first
-    and each kv tile walks its list in one block (q_splits 1)."""
+    causal, segment or packed mask each kv tile walks its tile list in one
+    block (q_splits 1): the backward list of `tile_plan` (segments and
+    packed codes), else one `tile_lists` launch first."""
     _check_bwd_inputs(qs, k, v, do, lse, kv_len, o)
     b, lq, n, d = qs.shape
     lk = k.shape[1]
@@ -1854,7 +2094,7 @@ def _launch_bwd_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale,
             qs, k, v, o, lse, do, kv_len, softmax_scale, q_splits, mode,
             causal=causal, q_offset=q_offset, q_offsets=q_offsets,
             q_segments=q_segments, kv_segments=kv_segments,
-            packed_mode=packed_mode)
+            packed_mode=packed_mode, tile_plan=tile_plan)
     if q_splits is None:
         q_splits = bwd_sm90_q_splits(
             b * n, lq, lk,
@@ -1890,10 +2130,11 @@ def _bwd_sm90_strides(qs, k, v, o, do, dq, dk, dv):
 
 
 def _launch_bwd_sm90_masked(qs, k, v, o, lse, do, kv_len, softmax_scale,
-                            q_splits, mode, **masks):
+                            q_splits, mode, tile_plan=None, **masks):
     """The masked modes of `_launch_bwd_sm90` (mode "causal", "segments"
-    or "packed"): the tile list, then delta, the main kernel's walk of it
-    and the accumulators to bf16."""
+    or "packed"): the tile list (the plan's, or one `tile_lists` launch),
+    then delta, the main kernel's walk of it and the accumulators to
+    bf16."""
     b, lq, n, d = qs.shape
     lk = k.shape[1]
     if q_splits not in (None, 1):
@@ -1903,7 +2144,12 @@ def _launch_bwd_sm90_masked(qs, k, v, o, lse, do, kv_len, softmax_scale,
     if mode != "causal" and any(t.data_ptr() % 16 for t in codes):
         raise ValueError("the sm90 backward copies codes in bulk: 16-byte "
                          "aligned q_segments and kv_segments")
-    lists, count = _bwd_tile_list_launch(qs, lk, kv_len, mode, **masks)
+    if tile_plan is not None:
+        lists, count = _plan_lists(tile_plan, "bwd", (
+            b, -(-lk // BWD_BLOCK_K), lq // BWD_BLOCK_Q))
+    else:
+        _, (lists, count) = tile_lists(b, lq, lk, qs.device, kv_len=kv_len,
+                                       fwd=False, **masks)
     dq = torch.empty(qs.shape, dtype=qs.dtype, device=qs.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)

@@ -37,7 +37,7 @@ import torch.nn.functional as F
 
 from ...core import nn as unn
 from ...kernels.attention import attention
-from ...kernels.flash_attention import repeat_kv
+from ...kernels.flash_attention import build_tile_plan, repeat_kv
 from .bagel import Bagel, BagelConfig, timestep_embedding
 from .qwen2_mot import (Qwen2MoTConfig, _expert_linear, _expert_norm,
                         _qwen_mlp, apply_rope_half, rope_tables)
@@ -113,6 +113,10 @@ def qwen2_mot_packed_forward(params, cfg: Qwen2MoTConfig, seq: torch.Tensor,
     if freeze_und:
         x = _detach_rows(x, und_rows)   # qwen2_navit.py:980
     codes = mask_codes.to(torch.int32)[None]
+    # once a pass: the padded codes and, on the card, both tile lists of
+    # the packed mask, which every layer's attention call reads
+    plan = build_tile_plan(codes, codes, packed_mode=True,
+                           device=seq.device)
     gen = torch.ones(l, dtype=torch.bool, device=seq.device)
     gen[und_rows] = False
     gen_rows = gen.nonzero()[:, 0]
@@ -159,7 +163,7 @@ def qwen2_mot_packed_forward(params, cfg: Qwen2MoTConfig, seq: torch.Tensor,
         k = apply_rope_half(k, cos, sin)
         # the kv heads repeated, as JAX repeats them (autograd sums them)
         o = attention(q, repeat_kv(k, nh), repeat_kv(v, nh),
-                      q_segments=codes, kv_segments=codes, packed_mode=True)
+                      packed_mode=True, tile_plan=plan)
         o = proj(attn_u, attn_g, "o", o.reshape(1, l, nh * hd))
         if freeze_und:
             o = _detach_rows(o, und_rows)   # qwen2_navit.py:737
