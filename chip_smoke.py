@@ -81,7 +81,18 @@ Phases:
      on a small d=128 DiT;
   5. drive the serving path through the port's CLI: t2v-1.3B at
      832x480x81, full depth and width, random weights from a seed, a few
-     steps; check the kernels' launch counts and the mp4;
+     steps; check the kernels' launch counts and the mp4; then the same
+     path from a checkpoint: write a Wan2.1-layout t2v-1.3B dir at full
+     width and depth from the pinned manifests (the DiT as two fp32
+     safetensors shards with their index, by write_safetensors;
+     Wan2.1_VAE.pth fp32; the UMT5 .pth bf16), audit each file against
+     its manifest, load them onto the card (load_wan_checkpoint,
+     load_state_dict + convert_umt5; seconds per file, peak host RSS and
+     device memory), hold every parameter to the written tensor bit for
+     bit with JAX's leaf dtypes, check that WanTextEncoder.from_checkpoint
+     raises without a tokenizer, run 2 steps + the decode through
+     WanTI2VPipeline (main_path's launches for 2 steps, finite latents,
+     an 81-frame 480x832 mp4), and delete the dir;
   6. drive the training path: t2v-1.3B at 832x480x81, LoRA + projector,
      remat 'attn', a few make_diffusion_train_step steps; check the launch
      counts of every step (59 one-pass sm90 backward calls, none on the
@@ -94,8 +105,9 @@ Phases:
      mode's launches (the fp32 VAE kernel once per decoded chunk at
      d=1024, once more at d=640 for the i2v encode, never at d=384);
   8. drive the video-QA path: one full-width BAGEL-7B-MoT reflexion
-     request (16 seed captions, K = 4, 8, 16, 512-token greedy decodes)
-     with the launches of each phase checked (the 84 causal question
+     request (14 of its 28 layers, BAGEL_QA_LAYERS; 16 seed captions,
+     K = 4, 8, 16, 512-token greedy decodes)
+     with the launches of each phase checked (the 42 causal question
      prefills on the causal sm90 kernel, each QA call's text_prefill_s
      logged); time the question's prefill over the 16-frame context with
      the causal kernel and the mma.sync kernel in turns; profile 16 decode
@@ -119,7 +131,12 @@ Phases:
      finite losses, every block's weights moved, seconds, peak memory;
      profile one more step (kernel families, attention's share, idle
      share), and derive the 30-block step from it;
- 11. run the port's QA CLI with --mock_weights;
+ 11. run the port's QA CLI with --mock_weights; then with --siglip_ckpt
+     at a full-width siglip2-base-patch16-naflex dir written from its
+     pinned manifest (the NaFlex scorer, the LM-tokenizer fallback's
+     warning, rounds [4, 8, 16]), and that dir's scorer on the card
+     against the CPU (fp32, 8 frames of mixed aspect ratios and a
+     question: rel. L2 < 1e-4);
  12. drive the Wan serving knobs: ti2v-5B with fusion, --mode t2v at
      1280x704x121, full depth and width, with --bf16_softmax --qk_int8
      --int8 --taylorseer 2, 8 steps (6 DiT calls); check the mp4 and the
@@ -270,6 +287,45 @@ def bound_ms(flops, nbytes, peak_flops):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def write_safetensors(path, tensors, metadata=None):
+    """A minimal .safetensors writer, so that the script needs no
+    `safetensors` package: an 8-byte little-endian header length, the
+    JSON header (dtype, shape, data_offsets from the end of the header;
+    padded with spaces to 8 bytes), then each tensor's bytes in key
+    order. tensors: {key: (torch dtype, shape, make)}, make() giving the
+    tensor, so that one tensor at a time is in host memory. Returns the
+    file's size in bytes."""
+    import struct
+
+    import torch
+
+    names = {torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16", torch.int64: "I64",
+             torch.int32: "I32", torch.uint8: "U8"}
+    header, off = {}, 0
+    for k in sorted(tensors):
+        dtype, shape, _ = tensors[k]
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        header[k] = {"dtype": names[dtype], "shape": list(shape),
+                     "data_offsets": [off, off + n]}
+        off += n
+    if metadata:
+        header["__metadata__"] = metadata
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for k in sorted(tensors):
+            dtype, shape, make = tensors[k]
+            t = make().detach().to("cpu", dtype).contiguous()
+            if tuple(t.shape) != tuple(shape):
+                raise ValueError(f"{k}: {tuple(t.shape)} vs {shape}")
+            if t.numel():
+                f.write(t.reshape(-1).view(torch.uint8).numpy().data)
+    return 8 + len(raw) + off
 
 
 def qk_normed(shape, gen, dtype):
@@ -2058,9 +2114,16 @@ def _qa_video(path, n_frames=64):
     return save_video(frames, path, fps=8)
 
 
+# depth cut for chip_smoke.py's time limit: 14 of BAGEL-7B-MoT's 28 LLM
+# layers at full width in the QA request (its decode is host-bound, ~2,300
+# eager kernels a token at 28; since the checkpoint phases joined the run)
+BAGEL_QA_LAYERS = 14
+
+
 def bagel_main_path(output_dir):
     """The video-QA path at full width: BAGEL-7B-MoT (bf16, both experts,
-    random from seeds) with the SigLIP so400m tower, the default
+    BAGEL_QA_LAYERS of its 28 layers, random from seeds) with the SigLIP
+    so400m tower, the default
     Siglip2Scorer and the offline judge and reflector; reflexion_answer_one
     with ReflexionConfig() on a 64-frame pool of 640x360 frames: 16 seed
     captions as one batch, static rounds K = 4, 8, 16, the fallback; 512
@@ -2071,6 +2134,7 @@ def bagel_main_path(output_dir):
     mma.sync kernel in turns (`_prefill_vs_mma_sync`) and profiles 16
     decode steps after it. Returns
     the reflexion run's launch counts."""
+    import dataclasses
     import gc
     import os
 
@@ -2081,6 +2145,7 @@ def bagel_main_path(output_dir):
     from univid_tpu_torch.models.bagel.bagel import (BagelConfig,
                                                      generate_text,
                                                      init_bagel)
+    from univid_tpu_torch.models.bagel.qwen2_mot import Qwen2MoTConfig
     from univid_tpu_torch.models.bagel.siglip import (SiglipConfig,
                                                       init_siglip)
     from univid_tpu_torch.pipelines.interleave import InterleaveInferencer
@@ -2095,7 +2160,9 @@ def bagel_main_path(output_dir):
     os.makedirs(output_dir, exist_ok=True)
     video = _qa_video(os.path.join(output_dir, "qa", "video1.mp4"))
     bf = torch.bfloat16
-    cfg, scfg = BagelConfig(), SiglipConfig()
+    cfg = BagelConfig(llm=dataclasses.replace(Qwen2MoTConfig(),
+                                              num_layers=BAGEL_QA_LAYERS))
+    scfg = SiglipConfig()
 
     def gen(seed):
         return torch.Generator(device="cuda").manual_seed(seed)
@@ -2270,11 +2337,11 @@ def bagel_main_path(output_dir):
 def _prefill_vs_mma_sync(inf, ctx):
     """The question's text prefill over a context (the largest QA call's:
     16 appended frames, 19,168 rows), whole and timed to a synchronised
-    end, with its 28 causal attention calls on the causal sm90 kernel and,
-    in turns, on the mma.sync kernel it replaced (old, new, new, old,
-    twice). Each run starts from the same context: the prefill writes the
-    same cache rows past its length, and the length moves in a copy.
-    Returns the context after one prefill."""
+    end, with its causal attention calls (one a layer) on the causal sm90
+    kernel and, in turns, on the mma.sync kernel it replaced (old, new,
+    new, old, twice). Each run starts from the same context: the prefill
+    writes the same cache rows past its length, and the length moves in a
+    copy. Returns the context after one prefill."""
     import torch
 
     from univid_tpu_torch.kernels import flash_attention as fa
@@ -4579,6 +4646,571 @@ def knob_main_path(output_dir):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# checkpoint loading (the seventeenth slice)
+# ---------------------------------------------------------------------------
+
+CKPT_STEPS = 2   # denoise steps of the checkpoint run (+ the decode)
+CKPT_PROMPT = "A corgi runs through a sunlit meadow, golden hour."
+
+
+def _manifest_path(name):
+    import os
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "manifests", f"{name}.json")
+
+
+class HostPeak:
+    """The peak resident set size of this process while the block runs
+    (VmRSS of /proc/self/status, sampled every 10 ms), in GB. Resetting
+    the kernel's own high-water mark (VmHWM) needs a write to
+    /proc/self/clear_refs, which a sandboxed container may refuse
+    (EPERM)."""
+
+    @staticmethod
+    def rss_gb():
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024 / 1e9
+        return 0.0
+
+    def __enter__(self):
+        import threading
+        self.start = self.peak = self.rss_gb()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self.rss_gb())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.rss_gb())
+
+
+def ckpt_draw(key, shape, index, seed):
+    """The fp32 value written for a reference checkpoint key, drawn on the
+    card from its own generator (seed, index), so that the bit check can
+    draw it again: norm gains 1 + N(0, 0.02^2), modulations N(0, 1/d),
+    UMT5's token embedding N(0, 1) and its q N(0, 1/(d * d_attn)) as the
+    port's random init draws them, other weights N(0, 1/fan_in), biases
+    and scalars N(0, 0.02^2)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed * 1_000_003 + index)
+    x = torch.randn(tuple(shape), generator=g, device="cuda")
+    leaf = key.rsplit(".", 1)[-1]
+    if leaf == "gamma" or (leaf == "weight" and len(shape) == 1):
+        return 1.0 + 0.02 * x
+    if "modulation" in key:
+        return x * shape[-1] ** -0.5
+    if key == "token_embedding.weight":
+        return x
+    if key.endswith(".attn.q.weight"):
+        return x * (shape[0] * shape[1]) ** -0.5
+    if leaf.endswith("weight") and len(shape) >= 2:
+        return x * math.prod(shape[1:]) ** -0.5
+    return x * 0.02
+
+
+def _draws(man, seed, dtype):
+    """{key: (dtype, shape, make)} of a manifest for write_safetensors."""
+    return {k: (dtype, tuple(s), lambda k=k, s=s, i=i:
+                ckpt_draw(k, s, i, seed).to(dtype))
+            for i, (k, s) in enumerate(sorted(man.items()))}
+
+
+# the three files of a Wan2.1-T2V-1.3B checkpoint dir: (manifest, seed,
+# the published file's dtype)
+CKPT_FILES = {"dit": ("wan_t2v-1.3B_dit", 171, "float32"),
+              "vae": ("wan_t2v-1.3B_vae", 172, "float32"),
+              "umt5": ("umt5_xxl", 173, "bfloat16")}
+DIT_INDEX = "diffusion_pytorch_model.safetensors.index.json"
+
+
+def write_wan_ckpt(root):
+    """A Wan2.1-layout t2v-1.3B checkpoint dir at full width and depth,
+    from the pinned manifests: the DiT as two fp32 safetensors shards
+    with their index (written by write_safetensors), Wan2.1_VAE.pth (fp32)
+    and models_t5_umt5-xxl-enc-bf16.pth (bf16). -> {file: {path, bytes,
+    write_s}}."""
+    import os
+
+    import torch
+
+    from univid_tpu_torch.core.manifest import load_manifest
+
+    out = {}
+    man_name, seed, dt = CKPT_FILES["dit"]
+    man = load_manifest(_manifest_path(man_name))
+    draws = _draws(man, seed, getattr(torch, dt))
+    keys = sorted(man)
+    sizes = [math.prod(man[k]) * 4 for k in keys]
+    cut = next(i for i in range(len(keys))
+               if sum(sizes[:i + 1]) >= sum(sizes) / 2) + 1
+    t0 = time.perf_counter()
+    weight_map, n = {}, 0
+    for i, part in enumerate((keys[:cut], keys[cut:])):
+        name = f"diffusion_pytorch_model-{i + 1:05d}-of-00002.safetensors"
+        n += write_safetensors(os.path.join(root, name),
+                               {k: draws[k] for k in part})
+        weight_map.update(dict.fromkeys(part, name))
+    with open(os.path.join(root, DIT_INDEX), "w") as f:
+        json.dump({"metadata": {"total_size": sum(sizes)},
+                   "weight_map": weight_map}, f)
+    out["dit"] = {"path": root, "bytes": n,
+                  "write_s": time.perf_counter() - t0, "shards": 2}
+    for name, fname in (("vae", "Wan2.1_VAE.pth"),
+                        ("umt5", "models_t5_umt5-xxl-enc-bf16.pth")):
+        man_name, seed, dt = CKPT_FILES[name]
+        man = load_manifest(_manifest_path(man_name))
+        t0 = time.perf_counter()
+        sd = {k: make().cpu() for k, (_, _, make) in
+              _draws(man, seed, getattr(torch, dt)).items()}
+        path = os.path.join(root, fname)
+        torch.save(sd, path)
+        del sd
+        out[name] = {"path": path, "bytes": os.path.getsize(path),
+                     "write_s": time.perf_counter() - t0}
+    return out
+
+
+def dit_leaf(key, x, dim):
+    """The Wan DiT's layout rule for one reference key (a transcription of
+    JAX's convert_wan_dit): (the port's name, x laid out, the leaf's
+    dtype). The patch embedding [dim, in, pt, ph, pw] becomes [dim, (pt ph
+    pw in)], a modulation [1, n, dim] becomes [n, dim]; the time MLPs, the
+    head and every modulation are fp32, the rest bf16."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    if key == "patch_embedding.weight":
+        return "patch_embed.w", \
+            x.permute(0, 2, 3, 4, 1).reshape(dim, -1), bf16
+    if key.endswith("modulation"):
+        return key, x.reshape(-1, dim), f32
+    name, leaf = key.rsplit(".", 1)
+    for old, new in (("patch_embedding", "patch_embed"),
+                     ("text_embedding.0", "text_embedding.fc0"),
+                     ("text_embedding.2", "text_embedding.fc1"),
+                     ("time_embedding.0", "time_embedding.fc0"),
+                     ("time_embedding.2", "time_embedding.fc1"),
+                     ("time_projection.1", "time_projection.fc0"),
+                     ("ffn.0", "ffn.fc0"), ("ffn.2", "ffn.fc1")):
+        if name.endswith(old):
+            name = name[:-len(old)] + new
+    port = name if name.endswith(("norm_q", "norm_k")) \
+        else f"{name}.{'w' if leaf == 'weight' else 'b'}"
+    fp32_leaf = name.startswith(("time_embedding", "time_projection",
+                                 "head."))
+    return port, x, f32 if fp32_leaf else bf16
+
+
+def vae_leaf(key, x, num_res_blocks):
+    """The Wan VAE's rule (JAX's convert_wan_vae): every leaf fp32; the
+    RMS gammas flattened; a Conv2d [O, I, kh, kw] as a kt = 1 conv3d; the
+    attention's 1x1 convs as linears; the reference's module names as the
+    JAX tree's."""
+    import torch
+
+    name, leaf = key.rsplit(".", 1)
+    res = {"residual.0": "norm1", "residual.2": "conv1",
+           "residual.3": "norm2", "residual.6": "conv2",
+           "shortcut": "shortcut"}
+    m = re.fullmatch(r"(encoder|decoder)\.(down|up)samples\.(\d+)\."
+                     r"(?:down|up)samples\.(\d+)\.(.+)", name)
+    if m:
+        part, kind, i, j, rest = m.groups()
+        n_res = num_res_blocks + (part == "decoder")
+        base = f"{part}.{kind}{i}"
+        if int(j) < n_res:
+            name = f"{base}.res{j}.{res[rest]}"
+        else:
+            name = f"{base}.{'resample' if rest == 'resample.1' else rest}"
+    m = re.fullmatch(r"(encoder|decoder)\.middle\.(\d)\.(.+)", name)
+    if m:
+        part, j, rest = m.groups()
+        if j == "1":
+            rest = {"norm": "norm", "to_qkv": "qkv", "proj": "proj"}[rest]
+            x = x[:, :, 0, 0] if x.ndim == 4 else x
+        else:
+            rest = res[rest]
+        name = f"{part}.{('mid_res1', 'mid_attn', 'mid_res2')[int(j)]}." \
+               f"{rest}"
+    name = re.sub(r"^(encoder|decoder)\.head\.0$", r"\1.head_norm", name)
+    name = re.sub(r"^(encoder|decoder)\.head\.2$", r"\1.head_conv", name)
+    name = {"conv1": "conv_mu", "conv2": "conv_z"}.get(name, name)
+    if leaf == "gamma":
+        return name, x.reshape(-1), torch.float32
+    if x.ndim == 4:   # a 2-D conv
+        x = x[:, :, None]
+    return f"{name}.{'w' if leaf == 'weight' else 'b'}", x, torch.float32
+
+
+def umt5_leaf(key, x):
+    """UMT5's rule (JAX's convert_umt5): every leaf bf16, the reference's
+    names as the JAX tree's."""
+    import torch
+
+    name = key[:-len(".weight")]
+    name = name.replace(".pos_embedding.embedding", ".pos_embedding")
+    name = name.replace(".ffn.gate.0", ".ffn.gate")
+    if re.search(r"\.(attn\.[qkvo]|ffn\.(gate|fc1|fc2))$", name):
+        name += ".w"
+    return name, x, torch.bfloat16
+
+
+def check_ckpt_bits(file, module, rule):
+    """Every parameter of `module` against the value written for its
+    reference key, drawn again, under the layout rule: the same bits and
+    the rule's dtype, and no parameter left over. -> parameters checked."""
+    import torch
+
+    from univid_tpu_torch.core.manifest import load_manifest
+
+    man_name, seed, dt = CKPT_FILES[file]
+    params = dict(module.named_parameters())
+    seen = set()
+    for i, (k, s) in enumerate(sorted(load_manifest(
+            _manifest_path(man_name)).items())):
+        x = ckpt_draw(k, s, i, seed).to(getattr(torch, dt))
+        name, want, dtype = rule(k, x)
+        p = params.get(name)
+        if p is None or p.dtype != dtype or not p.is_cuda \
+                or not torch.equal(p, want.to(dtype)):
+            fail(f"{file}: {k} -> {name} is not the written tensor "
+                 f"({None if p is None else (p.dtype, p.device)} vs "
+                 f"{dtype})")
+        seen.add(name)
+    if seen != set(params):
+        fail(f"{file}: parameters not in the file: "
+             f"{sorted(set(params) - seen)[:5]}")
+    return len(seen)
+
+
+def _timed_calls(module, names, into):
+    """Wrap module.<name> for each name so that each call adds its
+    synchronised seconds to into[name]; returns a function that restores
+    them."""
+    import torch
+
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(n, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            into[n] = into.get(n, 0.0) + time.perf_counter() - t0
+            return out
+        return timed
+
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    return lambda: [setattr(module, n, fn) for n, fn in saved.items()]
+
+
+def checkpoint_main_path(output_dir, steps=CKPT_STEPS):
+    """t2v-1.3B serving from a Wan2.1-layout checkpoint dir at full width
+    and depth: write it from the pinned manifests, audit each file against
+    its manifest (header-only for the shards), load the DiT and the VAE
+    with load_wan_checkpoint and UMT5 with load_state_dict + convert_umt5
+    onto the card (each file's seconds, the peak host RSS and device
+    memory), hold every parameter to the written tensor bit for bit with
+    JAX's leaf dtypes, check that WanTextEncoder.from_checkpoint raises
+    load_tokenizer's RuntimeError (the dir has no tokenizer), then run
+    t2v at 832x480x81 for `steps` steps through WanTI2VPipeline (the
+    CLI's class and policy; UMT5 paired with the hash tokenizer, as the
+    mock path pairs it) and the decode: the launches of `main_path` for
+    `steps` steps, finite latents, an mp4 of 81 frames of 480x832. The
+    dir is deleted at the end. Returns the run's launch counts."""
+    import dataclasses
+    import gc
+    import importlib.util
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from univid_tpu_torch.core import checkpoint as ck
+    from univid_tpu_torch.core.config import TMAConfig, WAN_CONFIGS
+    from univid_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from univid_tpu_torch.core.manifest import load_manifest
+    from univid_tpu_torch.data.video_io import read_video_frames, save_video
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.wan.vae_api import vae_decode
+    from univid_tpu_torch.pipelines.encoders import WanTextEncoder
+    from univid_tpu_torch.pipelines.ti2v import WanTI2VPipeline
+    from univid_tpu_torch.utils.tokenizers import HashTokenizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = WAN_CONFIGS["t2v-1.3B"]
+    root = os.path.join(output_dir, "wan_t2v-1.3B_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    if free < 25e9:
+        fail(f"{free / 1e9:.1f} GB free under {root}; the checkpoint "
+             "needs ~18 GB")
+    rec = {"phase": "checkpoint_main_path", "disk_free_gb": free / 1e9,
+           "packages": {p: importlib.util.find_spec(p) is not None
+                        for p in ("safetensors", "transformers")}}
+    t_all = time.perf_counter()
+    with HostPeak() as rss:
+        files = write_wan_ckpt(root)
+    rec["write"] = {k: {"bytes": v["bytes"], "s": v["write_s"]}
+                    for k, v in files.items()}
+    rec["bytes_written"] = sum(v["bytes"] for v in files.values())
+    rec["write_s"] = sum(v["write_s"] for v in files.values())
+    rec["write_peak_host_rss_gb"] = rss.peak
+
+    rec["audit"] = {}
+    for name, info in files.items():
+        t0 = time.perf_counter()
+        diff = ck.audit_checkpoint(info["path"], load_manifest(
+            _manifest_path(CKPT_FILES[name][0])))
+        rec["audit"][name] = {"s": time.perf_counter() - t0,
+                              **{k: len(v) for k, v in diff.items()}}
+        if any(diff.values()):
+            fail(f"the {name} checkpoint does not match its manifest: "
+                 f"{ {k: v[:3] for k, v in diff.items()} }")
+
+    # the DiT's and the VAE's seconds: reading (memory-mapped), converting
+    # and placing each file on the card, through load_wan_checkpoint
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    with HostPeak() as rss:
+        restore = _timed_calls(ck, ("load_state_dict", "convert_wan_dit",
+                                    "convert_wan_vae"), times)
+        try:
+            t0 = time.perf_counter()
+            dit, vae = ck.load_wan_checkpoint(root, spec)
+            torch.cuda.synchronize()
+            dit_vae_s = time.perf_counter() - t0
+        finally:
+            restore()
+        t0 = time.perf_counter()
+        umt5 = ck.convert_umt5(ck.load_state_dict(files["umt5"]["path"]),
+                               spec.t5)
+        torch.cuda.synchronize()
+        umt5_s = time.perf_counter() - t0
+    lsd = times["load_state_dict"]
+    rec["load_s"] = {"dit_and_vae": dit_vae_s,
+                     "dit_convert": times["convert_wan_dit"],
+                     "vae_convert": times["convert_wan_vae"],
+                     "read_headers_and_maps": lsd, "umt5": umt5_s}
+    rec["init_weights_s"] = dit_vae_s + umt5_s
+    rec["load_peak_host_rss_gb"] = rss.peak
+    rec["load_host_rss_before_gb"] = rss.start
+    rec["load_peak_device_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["weights_device_gb"] = torch.cuda.memory_allocated() / 1e9
+
+    t0 = time.perf_counter()
+    dim = spec.dit.dim
+    rec["params_checked"] = {
+        "dit": check_ckpt_bits("dit", dit, lambda k, x: dit_leaf(k, x, dim)),
+        "vae": check_ckpt_bits("vae", vae, lambda k, x: vae_leaf(
+            k, x, spec.vae.num_res_blocks)),
+        "umt5": check_ckpt_bits("umt5", umt5, umt5_leaf)}
+    rec["bit_check_s"] = time.perf_counter() - t0
+    rec["leaf_dtypes"] = {
+        name: sorted({str(p.dtype) for p in m.parameters()})
+        for name, m in (("dit", dit), ("vae", vae), ("umt5", umt5))}
+    try:
+        WanTextEncoder.from_checkpoint(root, spec)
+    except RuntimeError as e:
+        rec["from_checkpoint_without_tokenizer"] = str(e)[:160]
+    else:
+        fail("WanTextEncoder.from_checkpoint found a tokenizer in a dir "
+             "without one")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    enc = WanTextEncoder(umt5, spec.t5,
+                         HashTokenizer(vocab_size=spec.t5.vocab_size),
+                         compute_dtype=torch.bfloat16)
+    ctx = enc([CKPT_PROMPT, spec.sample_neg_prompt])
+    torch.cuda.synchronize()
+    rec["text_encode_s"] = time.perf_counter() - t0
+    del enc, umt5
+    gc.collect()
+    torch.cuda.empty_cache()
+    policy = dataclasses.replace(DEFAULT_POLICY, bounded_softmax=True)
+    pipe = WanTI2VPipeline(spec, dit, vae, policy=policy)
+    t0 = time.perf_counter()
+    latent = pipe.generate(ctx[0], ctx[1], size=(832, 480), frame_num=81,
+                           shift=5.0, sample_solver="unipc",
+                           sampling_steps=steps, guide_scale=5.0, seed=0,
+                           tma=TMAConfig(text_prefix_len=spec.dit.text_len),
+                           decode=False)
+    torch.cuda.synchronize()
+    rec["denoise_s"] = time.perf_counter() - t0
+    if not bool(torch.isfinite(latent).all()):
+        fail("the checkpoint run's latents are not finite")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        video = vae_decode(vae, latent)[0]
+    torch.cuda.synchronize()
+    rec["decode_s"] = time.perf_counter() - t0
+    launches = launch_counts()
+    frames_u8 = ((video.clamp(-1.0, 1.0) + 1.0) * 127.5).round() \
+        .to(torch.uint8).cpu().numpy()
+    path = save_video(frames_u8, os.path.join(output_dir,
+                                              "t2v_from_checkpoint.mp4"),
+                      fps=spec.generation.fps)
+    frames = read_video_frames(path)
+    expected = {"flash_attention_bf16": 30 * steps,
+                "cross_attention_bf16": 30 * steps,
+                "flash_attention_f32": 21,
+                "qk_norm_rope_bf16": 30 * steps,
+                "qk_norm_bf16": 30 * steps}
+    expected = dict(dict.fromkeys(launches, 0), **expected)
+    f32_by_d = dict(fa.F32_LAUNCHES_BY_D)
+    f32_expected = {384: 21, 640: 0, 1024: 0}
+    rec.update({
+        "latent_shape": list(latent.shape),
+        "latent_abs_max": float(latent.abs().max()),
+        "video_std": float(np.asarray(frames_u8, np.float32).std()),
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "expected_launches": expected,
+        "f32_launches_by_d": f32_by_d, "frames": len(frames),
+        "frame_shape": list(frames[0].shape) if frames else None})
+    del dit, vae, pipe, latent, video
+    shutil.rmtree(root)
+    rec["seconds"] = time.perf_counter() - t_all
+    log(json.dumps(rec))
+    if launches != expected or f32_by_d != f32_expected:
+        fail(f"launch counts {launches} {f32_by_d} != {expected} "
+             f"{f32_expected}")
+    check_impl("t2v-1.3B from a checkpoint", 60 * steps)
+    if len(frames) != 81 or frames[0].shape != (480, 832, 3):
+        fail("the checkpoint run's mp4 is not 81 frames of 480x832")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+NAFLEX_HEADS = 12   # google/siglip2-base-patch16-naflex: both towers
+
+
+def write_naflex_dir(root):
+    """A siglip2-base-patch16-naflex-shaped dir from the pinned manifest:
+    fp32 model.safetensors and a config.json with model_type siglip2 and
+    the published head counts. -> bytes."""
+    import os
+
+    import torch
+
+    from univid_tpu_torch.core.manifest import load_manifest
+
+    os.makedirs(root, exist_ok=True)
+    man = load_manifest(_manifest_path("siglip2_naflex"))
+    n = write_safetensors(os.path.join(root, "model.safetensors"),
+                          _draws(man, 174, torch.float32),
+                          metadata={"format": "pt"})
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump({"model_type": "siglip2",
+                   "vision_config": {"num_attention_heads": NAFLEX_HEADS},
+                   "text_config": {"num_attention_heads": NAFLEX_HEADS}}, f)
+    return n
+
+
+def naflex_cli_on_card(output_dir):
+    """The QA CLI with --mock_weights and --siglip_ckpt at a full-width
+    NaFlex dir: the CLI takes the NaFlex scorer, warns that the dir has no
+    tokenizer and takes the LM's, and ends with rounds [4, 8, 16]; then the
+    dir's scorer on the card against the same dir loaded on the CPU, fp32
+    on both sides (TF32 off): emb_imgs of 8 frames of mixed aspect ratios
+    and emb_text within rel. L2 1e-4."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from univid_tpu_torch.cli import eval_understanding
+    from univid_tpu_torch.data.video_io import save_video
+    from univid_tpu_torch.reflection.naflex import Siglip2NaflexScorer
+    from univid_tpu_torch.utils.tokenizers import HashTokenizer
+
+    root = os.path.join(output_dir, "siglip2_naflex")
+    vdir = os.path.join(output_dir, "naflex_cli")
+    t0 = time.perf_counter()
+    n_bytes = write_naflex_dir(root)
+    write_s = time.perf_counter() - t0
+    frames = np.random.default_rng(13).integers(0, 256, (16, 96, 128, 3),
+                                                dtype=np.uint8)
+    save_video(frames, os.path.join(vdir, "video1.mp4"), fps=8)
+    with open(os.path.join(vdir, "gt.json"), "w") as f:
+        json.dump([{"video_id": 1, "question": "what moves?",
+                    "answer": "a ball"}], f)
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        summary = eval_understanding.main([
+            "--video_dir", vdir, "--gt_file", os.path.join(vdir, "gt.json"),
+            "--output_dir", os.path.join(vdir, "out"), "--output_name",
+            "batch1", "--id_from", "1", "--id_to", "1", "--mock_weights",
+            "--siglip_ckpt", root, "--pool_frames", "16",
+            "--max_think_token_n", "16", "--save_frames_root", "",
+            "--deepseek_api_key", ""])
+    cli_s = time.perf_counter() - t0
+    sys.stderr.write(err.getvalue())
+    with open(os.path.join(vdir, "out", "video1_reflexion.json")) as f:
+        trace = json.load(f)
+    warned = "using the LM tokenizer" in err.getvalue()
+
+    rng = np.random.default_rng(14)
+    shapes = [(480, 832), (832, 480), (360, 640), (512, 512), (97, 53),
+              (224, 224), (300, 500), (64, 1024)]
+    pool = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for hw in shapes]
+    question = "what moves across the frame?"
+    emb = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        s = Siglip2NaflexScorer.from_checkpoint(
+            root, tokenizer=HashTokenizer(vocab_size=4090), device=dev,
+            compute_dtype=torch.float32)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        emb[dev] = (s.emb_imgs(pool), s.emb_text(question), load_s,
+                    time.perf_counter() - t0)
+        del s
+    rel_img = rel_l2(torch.as_tensor(emb["cuda"][0]),
+                     torch.as_tensor(emb["cpu"][0]))
+    rel_txt = rel_l2(torch.as_tensor(emb["cuda"][1]),
+                     torch.as_tensor(emb["cpu"][1]))
+    shutil.rmtree(root)
+    out = {"check": "naflex_cli_on_card", "bytes_written": n_bytes,
+           "write_s": write_s, "cli_s": cli_s,
+           "num_samples": summary["num_samples"],
+           "rounds": [r["K"] for r in trace["rounds"]],
+           "tokenizer_fallback_warned": warned,
+           "emb_imgs_rel_l2_card_vs_cpu": rel_img,
+           "emb_text_rel_l2_card_vs_cpu": rel_txt,
+           "load_s": {d: emb[d][2] for d in emb},
+           "embed_s": {d: emb[d][3] for d in emb},
+           "frame_shapes": shapes, "bound": 1e-4}
+    out["ok"] = (out["num_samples"] == 1 and out["rounds"] == [4, 8, 16]
+                 and warned and rel_img < 1e-4 and rel_txt < 1e-4)
+    log(json.dumps(out))
+    if not out["ok"]:
+        fail("the QA CLI with a NaFlex --siglip_ckpt on the card")
+
+
 def kernels_line(records, by_path, mask_records):
     """The `kernels` line: each kernel's record with the launches of the
     path it serves (None with --kernels-only) and `launches_by_path`."""
@@ -4758,6 +5390,10 @@ def main():
         # every path's
         by_path["t2v-1.3B"] = main_path(args.steps, args.output_dir)
         t0 = time.perf_counter()
+        checkpoint_main_path(args.output_dir)
+        log(json.dumps({"phase": "checkpoint_main_path_total",
+                        "seconds": time.perf_counter() - t0}))
+        t0 = time.perf_counter()
         by_path["train"] = train_main_path(args.train_steps)
         log(json.dumps({"phase": "train_main_path_total",
                         "seconds": time.perf_counter() - t0}))
@@ -4784,6 +5420,10 @@ def main():
         t0 = time.perf_counter()
         qa_cli_on_card(args.output_dir)
         log(json.dumps({"phase": "qa_cli_on_card",
+                        "seconds": time.perf_counter() - t0}))
+        t0 = time.perf_counter()
+        naflex_cli_on_card(args.output_dir)
+        log(json.dumps({"phase": "naflex_cli_on_card",
                         "seconds": time.perf_counter() - t0}))
     log(json.dumps({"kernels": kernels_line(records, by_path,
                                             mask_records)}))

@@ -1692,3 +1692,49 @@ def test_cuda_small_bagel_packed_train_matches_cpu(cuda_device):
     assert set(grads_g) == set(grads_c)
     for nm, g in grads_c.items():
         assert _rel(grads_g[nm], g) < 3e-2, nm
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_loads_straight_onto_the_card(cuda_device,
+                                                      tmp_path):
+    """A small Wan checkpoint dir (the DiT as two safetensors shards with
+    an index, written by chip_smoke.py's own writer, and Wan2.1_VAE.pth)
+    loads onto the card: every leaf on the card, of the CPU load's dtype
+    (bf16, with fp32 time MLPs, head and modulations; the VAE fp32), and
+    bit for bit the CPU load."""
+    import json
+
+    import chip_smoke as cs
+    from univid_tpu_torch.core import manifest as tm
+    from univid_tpu_torch.core.checkpoint import load_wan_checkpoint
+    from univid_tpu_torch.core.config import WAN_CONFIGS
+
+    spec = WAN_CONFIGS["tiny"]
+    gen = torch.Generator().manual_seed(0)
+    man = tm.wan_dit_manifest(spec.dit)
+    keys = sorted(man)
+    weight_map = {}
+    for i, part in enumerate((keys[::2], keys[1::2])):
+        name = f"diffusion_pytorch_model-{i + 1:05d}-of-00002.safetensors"
+        cs.write_safetensors(str(tmp_path / name), {
+            k: (torch.float32, man[k],
+                lambda k=k: torch.randn(man[k], generator=gen))
+            for k in part})
+        weight_map.update(dict.fromkeys(part, name))
+    (tmp_path / "diffusion_pytorch_model.safetensors.index.json").write_text(
+        json.dumps({"weight_map": weight_map}))
+    torch.save({k: torch.randn(s, generator=gen) for k, s in
+                tm.wan_vae_manifest(spec.vae).items()},
+               str(tmp_path / "Wan2.1_VAE.pth"))
+    on_card = load_wan_checkpoint(str(tmp_path), spec, device=cuda_device)
+    on_cpu = load_wan_checkpoint(str(tmp_path), spec, device="cpu")
+    for card, cpu in zip(on_card, on_cpu):
+        want = cpu.state_dict()
+        got = card.state_dict()
+        assert set(got) == set(want)
+        for k, w in want.items():
+            assert got[k].is_cuda and got[k].dtype == w.dtype, k
+            assert torch.equal(got[k].cpu(), w), k
+    dit = on_card[0]
+    assert dit.time_embedding.fc0.w.dtype == torch.float32
+    assert dit.blocks[0].self_attn.q.w.dtype == torch.bfloat16

@@ -222,9 +222,7 @@ def test_cli_merges_lora_and_loads_projector(tmp_path, flag):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--checkpoint_dir", "/nonexistent", "--mock_weights"],
     ["--mode", "animate", "--mock_weights"],
-    ["--bagel_path", "/nonexistent"],   # real BAGEL weights
     ["--use_prompt_extend", "--mock_weights"],
 ])
 def test_cli_refuses_later_slices(flags):

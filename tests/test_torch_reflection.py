@@ -249,13 +249,17 @@ def test_eval_understanding_cli_on_cpu(tmp_path):
     assert json.loads((out / "batch1.json").read_text())["num_samples"] == 1
 
 
-def test_cli_exits_naming_the_checkpoint_slice(tmp_path):
+def test_cli_checkpoint_flags_fail_loudly(tmp_path):
+    """--model_path at a dir without ema.safetensors, and --siglip_ckpt at
+    an empty dir, raise (as the JAX CLI does) instead of falling back to
+    random weights."""
     from univid_tpu_torch.cli import eval_understanding as cli
     base = ["--video_dir", str(tmp_path), "--gt_file", "x", "--output_dir",
             str(tmp_path), "--output_name", "b", "--id_from", "1",
             "--id_to", "1", "--device", "cpu"]
-    for extra in (["--model_path", str(tmp_path)],
-                  ["--mock_weights", "--siglip_ckpt", str(tmp_path)]):
-        args = cli.build_parser().parse_args(base + extra)
-        with pytest.raises(SystemExit, match="checkpoint"):
-            cli.load_models(args)
+    with pytest.raises(FileNotFoundError):
+        cli.load_models(cli.build_parser().parse_args(
+            base + ["--model_path", str(tmp_path)]))
+    with pytest.raises(KeyError):
+        cli.load_models(cli.build_parser().parse_args(
+            base + ["--mock_weights", "--siglip_ckpt", str(tmp_path)]))

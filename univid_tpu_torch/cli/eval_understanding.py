@@ -8,14 +8,19 @@ traces and summary: per video id, reflexion_answer_one on its question,
         --gt_file DIR/gt.json --output_dir OUT --output_name batch1 \\
         --id_from 1 --id_to 1 --mock_weights --device cpu
 
-It runs on `cuda` unless given `--device cpu`. `--mock_weights` (and the
-run without `--model_path`) builds the JAX CLI's tiny random BAGEL and
-SigLIP tower and a HashTokenizer, drawn from fixed seeds, fp32 with
-`--mock_weights` and bf16 without. A BAGEL checkpoint (`--model_path`
-without `--mock_weights`) and a SigLIP2 checkpoint directory
-(`--siglip_ckpt`) wait for the checkpoint slice and exit naming it; any
-other `--siglip_ckpt` gives the random-init scorer. Without an API key the
-judge and the reflector are the offline no-ops.
+It runs on `cuda` unless given `--device cpu`. `--model_path` (without
+`--mock_weights`) loads BAGEL-7B-MoT's ema.safetensors and its tokenizer
+(core.checkpoint.load_bagel_checkpoint) and runs it in bf16; otherwise
+`--mock_weights` (and the run without `--model_path`) builds the JAX CLI's
+tiny random BAGEL and SigLIP tower and a HashTokenizer, drawn from fixed
+seeds, fp32 with `--mock_weights` and bf16 without. A `--siglip_ckpt`
+directory is loaded by its config.json's `model_type`: `siglip2`, the
+NaFlex scorer (reflection/naflex.py, the reference's default
+google/siglip2-base-patch16-naflex), anything else the fixed-resolution
+Siglip2Scorer; where the directory has no tokenizer (or `transformers` is
+missing), the scorer takes the LM's tokenizer with a warning, as the JAX
+CLI does. Any other `--siglip_ckpt` gives the random-init scorer. Without
+an API key the judge and the reflector are the offline no-ops.
 """
 
 from __future__ import annotations
@@ -25,10 +30,6 @@ import json
 import os
 import sys
 from pathlib import Path
-
-_CHECKPOINT_SLICE = ("loading BAGEL, SigLIP2 and tokenizer checkpoints is a "
-                     "later port slice (ROADMAP.md queue 1: Checkpoints)")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("UniVid video QA with Pyramid Reflection "
@@ -41,8 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--id_from", type=int, required=True)
     p.add_argument("--id_to", type=int, required=True)
     p.add_argument("--model_path", default=None,
-                   help="BAGEL checkpoint dir (a later slice; omit with "
-                        "--mock_weights)")
+                   help="BAGEL checkpoint dir (omit with --mock_weights)")
     p.add_argument("--siglip_ckpt",
                    default="google/siglip2-base-patch16-naflex")
     p.add_argument("--static_seq", default="4,8,16")
@@ -88,18 +88,16 @@ def find_video_by_id(video_dir: str, vid: int, exts):
     return None
 
 
-def mock_models(device, compute_dtype, capacity: int = 4096):
+def mock_models(device):
     """The JAX CLI's hermetic configuration: a 2-layer BAGEL (hidden 64, 4
     heads over 2 kv heads, head dim 16), a 2-layer SigLIP (hidden 32, patch
-    14, 224 px) and HashTokenizer(4090), random from seeds 0 and 1; the
-    default random-init scorer. Returns (inferencer, scorer)."""
+    14, 224 px) and HashTokenizer(4090), random from seeds 0 and 1.
+    Returns (bagel, cfg, siglip cfg, siglip, tokenizer)."""
     import torch
 
     from ..models.bagel.bagel import BagelConfig, init_bagel
     from ..models.bagel.qwen2_mot import Qwen2MoTConfig
     from ..models.bagel.siglip import SiglipConfig, init_siglip
-    from ..pipelines.interleave import InterleaveInferencer
-    from ..reflection.scorer import Siglip2Scorer
     from ..utils.tokenizers import HashTokenizer
 
     llm = Qwen2MoTConfig(vocab_size=4096, hidden_size=64,
@@ -115,26 +113,65 @@ def mock_models(device, compute_dtype, capacity: int = 4096):
                         device=dev)
     sig = init_siglip(torch.Generator(device=dev).manual_seed(1), scfg,
                       device=dev)
-    tokenizer = HashTokenizer(vocab_size=4090)
-    inferencer = InterleaveInferencer(params, cfg, tokenizer, siglip=sig,
-                                      siglip_cfg=scfg, capacity=capacity,
-                                      compute_dtype=compute_dtype)
-    return inferencer, Siglip2Scorer(tokenizer=tokenizer, device=dev)
+    return params, cfg, scfg, sig, HashTokenizer(vocab_size=4090)
+
+
+def load_scorer(args, tokenizer):
+    """A --siglip_ckpt directory by its config.json's model_type (siglip2:
+    the NaFlex tower), falling back to the LM's tokenizer with a warning
+    where the checkpoint's own cannot be loaded; else the random-init
+    Siglip2Scorer."""
+    from ..reflection.scorer import Siglip2Scorer
+
+    if not os.path.isdir(args.siglip_ckpt):
+        if not args.mock_weights:
+            print(f"WARNING: --siglip_ckpt '{args.siglip_ckpt}' is not a "
+                  "local checkpoint directory; using a RANDOM-init SigLIP "
+                  "scorer — frame-relevance ranking will be noise.",
+                  file=sys.stderr)
+        return Siglip2Scorer(tokenizer=tokenizer, device=args.device)
+    model_type = ""
+    cfg_json = os.path.join(args.siglip_ckpt, "config.json")
+    if os.path.exists(cfg_json):
+        with open(cfg_json) as f:
+            model_type = json.load(f).get("model_type", "")
+    cls = Siglip2Scorer
+    if model_type == "siglip2":
+        from ..reflection.naflex import Siglip2NaflexScorer
+        cls = Siglip2NaflexScorer
+    try:
+        return cls.from_checkpoint(args.siglip_ckpt, device=args.device)
+    except RuntimeError as e:
+        # a checkpoint dir without tokenizer files: the embeddings stay
+        # the checkpoint's, only the text tokenization differs from the
+        # shipped AutoProcessor (from_checkpoint raised before placing
+        # any weight, so the weights are loaded once)
+        print(f"WARNING: {e}; using the LM tokenizer for the SigLIP text "
+              "tower", file=sys.stderr)
+        return cls.from_checkpoint(args.siglip_ckpt, tokenizer=tokenizer,
+                                   device=args.device)
 
 
 def load_models(args):
+    """(inferencer, scorer) of the run."""
     import torch
 
+    from ..pipelines.interleave import InterleaveInferencer
+
     if args.model_path and not args.mock_weights:
-        sys.exit(f"--model_path: {_CHECKPOINT_SLICE}")
-    if os.path.isdir(args.siglip_ckpt):
-        sys.exit(f"--siglip_ckpt {args.siglip_ckpt}: {_CHECKPOINT_SLICE}")
-    if not args.mock_weights:
-        print(f"WARNING: --siglip_ckpt '{args.siglip_ckpt}' is not a local "
-              "checkpoint directory; using a RANDOM-init SigLIP scorer — "
-              "frame-relevance ranking will be noise.", file=sys.stderr)
-    return mock_models(args.device, torch.float32 if args.mock_weights
-                       else torch.bfloat16)
+        from ..core.checkpoint import load_bagel_checkpoint
+        params, cfg, scfg, sig, tokenizer = load_bagel_checkpoint(
+            args.model_path, device=args.device)
+        inferencer = InterleaveInferencer(params, cfg, tokenizer,
+                                          siglip=sig, siglip_cfg=scfg,
+                                          compute_dtype=torch.bfloat16)
+    else:
+        params, cfg, scfg, sig, tokenizer = mock_models(args.device)
+        inferencer = InterleaveInferencer(
+            params, cfg, tokenizer, siglip=sig, siglip_cfg=scfg,
+            compute_dtype=torch.float32 if args.mock_weights
+            else torch.bfloat16)
+    return inferencer, load_scorer(args, tokenizer)
 
 
 def main(argv=None):

@@ -13,9 +13,12 @@ clamps the first latent frame to the image's) -> causal VAE decode -> mp4
 serving knobs: --bf16_softmax (the attention kernels' softmax chain in
 bf16), --qk_int8 (int8 QK^T in self-attention), --int8 (W8A8 DiT GEMMs,
 quantized after --use_lora's merge) and --taylorseer N (TaylorSeer step
-caching of the CFG velocity, fresh threshold N). Flags of later port
-slices (animate, Wan / BAGEL checkpoints, prompt extension) exit with an
-error naming the slice; they never fall back to another path.
+caching of the CFG velocity, fresh threshold N). --checkpoint_dir loads a
+reference Wan checkpoint dir (the DiT's shards, the VAE .pth, UMT5 and its
+tokenizer; core/checkpoint.py) and --bagel_path BAGEL's ema.safetensors
+and tokenizer for the fusion; --mock_weights draws random weights instead.
+Flags of later port slices (animate, prompt extension) exit with an error
+naming the slice; they never fall back to another path.
 """
 
 from __future__ import annotations
@@ -103,12 +106,6 @@ def build_parser() -> argparse.ArgumentParser:
 _LATER = [
     (lambda a: a.mode == "animate",
      "--mode animate is a later slice (ROADMAP.md queue 1: WanAnimate)"),
-    (lambda a: a.checkpoint_dir is not None,
-     "--checkpoint_dir is a later slice (ROADMAP.md queue 1: "
-     "Checkpoints); use --mock_weights"),
-    (lambda a: a.bagel_path is not None and not a.mock_weights,
-     "real BAGEL weights (--bagel_path) are a later slice (ROADMAP.md "
-     "queue 1: Checkpoints); use --mock_weights"),
     (lambda a: a.use_prompt_extend,
      "--use_prompt_extend is a later slice (ROADMAP.md queue 1: prompt "
      "extension)"),
@@ -125,9 +122,11 @@ def _parse_size(s: str):
 
 
 def build_pipeline(args):
-    """(pipeline, spec, text_encoder) with random weights drawn on
-    args.device: DiT and VAE in bf16 (as the JAX CLI's mock weights), UMT5
-    in fp32; with --use_lora, the LoRA of --lora_path merged into the DiT;
+    """(pipeline, spec, text_encoder) on args.device: from --checkpoint_dir
+    (the DiT in bf16 with JAX's fp32 leaves, the VAE in fp32, UMT5 in bf16
+    with the checkpoint's tokenizer), else with --mock_weights random
+    weights (DiT and VAE in bf16, as the JAX CLI's mock weights, UMT5 in
+    fp32); with --use_lora, the LoRA of --lora_path merged into the DiT;
     with --int8, the DiT's block GEMMs then quantized to W8A8; the policy
     takes --bf16_residual, --bf16_softmax, --qk_int8, --bounded_softmax."""
     import torch
@@ -142,18 +141,24 @@ def build_pipeline(args):
     if args.model not in WAN_CONFIGS:
         raise SystemExit(f"--model {args.model}: the port has "
                          f"{sorted(WAN_CONFIGS)}")
-    if not args.mock_weights:
-        raise SystemExit("pass --mock_weights (checkpoint loading is a "
-                         "later slice)")
     spec = WAN_CONFIGS[args.model]
     dev = torch.device(args.device)
 
     def gen(seed):
         return torch.Generator(device=dev).manual_seed(seed)
 
-    dit = WanDiT(spec.dit, dtype=torch.bfloat16, device=dev, gen=gen(0))
-    vae = WanVAE(spec.vae, dtype=torch.bfloat16, device=dev, gen=gen(1))
-    text_enc = WanTextEncoder.random_init(spec, device=dev, gen=gen(2))
+    if args.checkpoint_dir:
+        from ..core.checkpoint import load_wan_checkpoint
+        dit, vae = load_wan_checkpoint(args.checkpoint_dir, spec,
+                                       device=dev)
+        text_enc = WanTextEncoder.from_checkpoint(args.checkpoint_dir, spec,
+                                                  device=dev)
+    elif args.mock_weights:
+        dit = WanDiT(spec.dit, dtype=torch.bfloat16, device=dev, gen=gen(0))
+        vae = WanVAE(spec.vae, dtype=torch.bfloat16, device=dev, gen=gen(1))
+        text_enc = WanTextEncoder.random_init(spec, device=dev, gen=gen(2))
+    else:
+        raise SystemExit("pass --checkpoint_dir or --mock_weights")
     if args.use_lora:
         from ..train.lora import load_lora, merge_lora
         lora, _ = load_lora(args.lora_path, device=dev)
@@ -175,47 +180,65 @@ def build_pipeline(args):
 
 def build_fusion(args, wan_pipe, spec):
     """FusionPipeline (BAGEL extractor + ContextProjector + Wan) or None for
-    the UMT5 path (--no_bagel). The mock BAGEL is the JAX CLI's: a tiny
+    the UMT5 path (--no_bagel, or a Wan checkpoint without --bagel_path or
+    --mock_weights). --bagel_path (without --mock_weights) loads
+    BAGEL-7B-MoT, run in bf16; the mock BAGEL is the JAX CLI's: a tiny
     random LLM embedding (hidden 64) and SigLIP tower (hidden 32, 2
     layers, 224 px), fp32, bagel_sequence_length min(64, text_len)."""
-    if args.no_bagel:
+    if args.no_bagel or not (args.bagel_path or args.mock_weights):
         return None
 
     import torch
 
     from ..core.config import FusionConfig
-    from ..models.bagel.bagel import BagelConfig, init_bagel
-    from ..models.bagel.qwen2_mot import Qwen2MoTConfig
-    from ..models.bagel.siglip import SiglipConfig, init_siglip
     from ..models.fusion.extractor import BagelSemanticExtractor
     from ..models.fusion.projector import init_context_projector
     from ..pipelines.fusion import FusionPipeline
-    from ..utils.tokenizers import HashTokenizer
 
     dev = torch.device(args.device)
 
     def gen(seed):
         return torch.Generator(device=dev).manual_seed(seed)
 
-    llm = Qwen2MoTConfig(vocab_size=4096, hidden_size=64,
-                         intermediate_size=128, num_layers=2, num_heads=4,
-                         num_kv_heads=2)
-    cfg = BagelConfig(llm=llm, vit_hidden_size=32, vit_patch_size=14,
-                      start_of_image=4090, end_of_image=4091,
-                      bos_token_id=4092, eos_token_id=4093)
-    scfg = SiglipConfig(hidden_size=32, intermediate_size=64, num_layers=2,
-                        num_heads=2, patch_size=14, image_size=224)
-    fusion_cfg = FusionConfig(
-        bagel_hidden_dim=llm.hidden_size, wan_text_dim=spec.dit.text_dim,
-        wan_text_length=spec.dit.text_len,
-        bagel_sequence_length=min(64, spec.dit.text_len),
-        fusion_alpha=args.bagel_strength)
+    if args.bagel_path and not args.mock_weights:
+        from ..core.checkpoint import load_bagel_checkpoint
+        bagel, cfg, scfg, sig, tokenizer = load_bagel_checkpoint(
+            args.bagel_path, device=dev, llm_layers=False)
+        fusion_cfg = FusionConfig(
+            bagel_hidden_dim=cfg.llm.hidden_size,
+            wan_text_dim=spec.dit.text_dim,
+            wan_text_length=spec.dit.text_len,
+            fusion_alpha=args.bagel_strength)
+        compute_dtype = torch.bfloat16
+    else:
+        from ..models.bagel.bagel import BagelConfig, init_bagel
+        from ..models.bagel.qwen2_mot import Qwen2MoTConfig
+        from ..models.bagel.siglip import SiglipConfig, init_siglip
+        from ..utils.tokenizers import HashTokenizer
+
+        llm = Qwen2MoTConfig(vocab_size=4096, hidden_size=64,
+                             intermediate_size=128, num_layers=2,
+                             num_heads=4, num_kv_heads=2)
+        cfg = BagelConfig(llm=llm, vit_hidden_size=32, vit_patch_size=14,
+                          start_of_image=4090, end_of_image=4091,
+                          bos_token_id=4092, eos_token_id=4093)
+        scfg = SiglipConfig(hidden_size=32, intermediate_size=64,
+                            num_layers=2, num_heads=2, patch_size=14,
+                            image_size=224)
+        bagel = init_bagel(gen(10), cfg, device=dev, llm_layers=False)
+        sig = init_siglip(gen(11), scfg, device=dev)
+        tokenizer = HashTokenizer(vocab_size=4090)
+        fusion_cfg = FusionConfig(
+            bagel_hidden_dim=llm.hidden_size,
+            wan_text_dim=spec.dit.text_dim,
+            wan_text_length=spec.dit.text_len,
+            bagel_sequence_length=min(64, spec.dit.text_len),
+            fusion_alpha=args.bagel_strength)
+        compute_dtype = torch.float32
     extractor = BagelSemanticExtractor(
-        init_bagel(gen(10), cfg, device=dev, llm_layers=False), cfg,
-        HashTokenizer(vocab_size=4090),
-        siglip=init_siglip(gen(11), scfg, device=dev), siglip_cfg=scfg,
+        bagel, cfg, tokenizer, siglip=sig, siglip_cfg=scfg,
         target_len=fusion_cfg.bagel_sequence_length,
-        compute_dtype=torch.float32)
+        compute_dtype=compute_dtype)
     if args.training_state:
         from ..core.checkpoint import load_projector_checkpoint
         projector = load_projector_checkpoint(args.training_state,

@@ -10,8 +10,8 @@ a state dict key by key. Layout rules, by leaf name and rank:
   * `w` of rank 5, a conv3d THWIO            -> [Cout, Cin, kt, kh, kw];
   * `w` of rank 4, a 2D conv HWIO (resample) -> [Cout, Cin, 1, kh, kw];
   * every other leaf as it is.
-The DiT's `blocks`, SigLIP's and the SigLIP text tower's `layers` and
-BAGEL's `llm.layers` leaves are stacked [num_layers, ...] in the JAX tree
+The DiT's `blocks`, the `layers` of SigLIP, the SigLIP text tower and
+both NaFlex towers, and BAGEL's `llm.layers` leaves are stacked [num_layers, ...] in the JAX tree
 (one lax.scan); they are unstacked into the ModuleList here. LoRA trees
 keep the JAX layout as they are (stacked a [L, in, r], b [L, r, out]).
 Leaves may be numpy arrays or anything `np.asarray` accepts (bf16 leaves
@@ -176,7 +176,8 @@ def siglip_from_jax(params, cfg: SiglipConfig, *, device="cuda",
 def siglip_text_from_jax(params, cfg: SiglipTextConfig, *, device="cuda",
                          dtype=None) -> SiglipText:
     """univid_tpu init_siglip_text tree -> SiglipText on `device`."""
-    model = SiglipText(cfg, dtype=dtype or torch.float32, device=device)
+    model = SiglipText(cfg, dtype=dtype or torch.float32, device=device,
+                       proj_bias="b" in params["proj"])
     return _load(model, jax_tree_to_state_dict(params, stacked="layers"),
                  dtype)
 
@@ -189,3 +190,21 @@ def siglip_map_head_from_jax(params, *, device="cuda",
     model = SiglipMapHead(d, mlp, dtype=dtype or torch.float32,
                           device=device)
     return _load(model, jax_tree_to_state_dict(params), dtype)
+
+
+def naflex_vision_from_jax(params, cfg, *, device="cuda", dtype=None):
+    """univid_tpu init_naflex_vision / convert_naflex_checkpoint tree ->
+    reflection.naflex.NaflexVision."""
+    from .reflection.naflex import NaflexVision
+    model = NaflexVision(cfg, dtype=dtype or torch.float32, device=device)
+    return _load(model, jax_tree_to_state_dict(params, stacked="layers"),
+                 dtype)
+
+
+def naflex_text_from_jax(params, cfg, *, device="cuda", dtype=None):
+    """univid_tpu init_naflex_text / convert_naflex_checkpoint tree ->
+    reflection.naflex.NaflexText."""
+    from .reflection.naflex import NaflexText
+    model = NaflexText(cfg, dtype=dtype or torch.float32, device=device)
+    return _load(model, jax_tree_to_state_dict(params, stacked="layers"),
+                 dtype)

@@ -4,9 +4,10 @@ Counterpart of univid_tpu/reflection/scorer.py: `SiglipTextConfig`, the
 text tower (`siglip_text_forward`), the attention-pooling head
 (`map_head_forward`) and `Siglip2Scorer` (`emb_imgs`, `emb_text`,
 `rank_frames`) with its random-init default, a SigLIP2-base vision tower
-(patch 16, 224 px, mean-pooled and projected) and text tower.
-`from_checkpoint` and the NaFlex tower wait for the checkpoint slice. The
-JAX scorer shards its batch over a mesh; here a batch of frames runs on
+(patch 16, 224 px, mean-pooled and projected) and text tower, or an HF
+SigLIP / SigLIP2 checkpoint (`from_checkpoint`: the attention-pooling head,
+the text head on the last token; the NaFlex tower is reflection/naflex.py).
+The JAX scorer shards its batch over a mesh; here a batch of frames runs on
 one device, image by image through the tower. Both towers have head dim
 64, so attention takes the dispatcher's reference route.
 """
@@ -48,10 +49,12 @@ def _ln(d, dtype, device):
 
 class SiglipText(nn.Module):
     """The text tower's parameters, named as init_siglip_text's tree; drawn
-    from `gen` (normal, std 0.02) or left empty to be loaded."""
+    from `gen` (normal, std 0.02) or left empty to be loaded. `proj_bias`:
+    the HF checkpoint's pooling head has a bias, the random init none."""
 
     def __init__(self, cfg: SiglipTextConfig, *, dtype=torch.float32,
-                 device="cuda", gen: Optional[torch.Generator] = None):
+                 device="cuda", gen: Optional[torch.Generator] = None,
+                 proj_bias: bool = False):
         super().__init__()
         d = cfg.hidden_size
         kw = dict(init="normal", dtype=dtype, device=device, gen=gen)
@@ -60,7 +63,7 @@ class SiglipText(nn.Module):
         self.pos_embed = unn.param((cfg.max_len, d), dtype, device, gen,
                                    "normal", std=0.02)
         self.final_ln = _ln(d, dtype, device)
-        self.proj = unn.Linear(d, cfg.proj_dim, bias=False, **kw)
+        self.proj = unn.Linear(d, cfg.proj_dim, bias=proj_bias, **kw)
         self.layers = nn.ModuleList([
             unn.Node(ln1=_ln(d, dtype, device),
                      attn=unn.Node(**{p: unn.Linear(d, d, **kw)
@@ -178,6 +181,30 @@ class Siglip2Scorer:
         self.img_proj = None if map_head is not None else img_proj
         self.tokenizer = tokenizer
         self.image_size = image_size
+
+    @classmethod
+    def from_checkpoint(cls, path: str, tokenizer=None,
+                        dtype=torch.float32, *, device="cuda",
+                        compute_dtype=None) -> "Siglip2Scorer":
+        """A pretrained HF SigLIP / SigLIP2 dual tower
+        (core.checkpoint.load_siglip2_checkpoint); without `tokenizer`, the
+        checkpoint's own (utils.tokenizers.load_tokenizer: RuntimeError
+        when unavailable, raised before the weights reach the device)."""
+        from ..core.checkpoint import (collect_checkpoint_shapes,
+                                       load_siglip2_checkpoint)
+
+        if tokenizer is None:
+            from ..utils.tokenizers import load_tokenizer
+            max_len = collect_checkpoint_shapes(path)[
+                "text_model.embeddings.position_embedding.weight"][0]
+            tokenizer = load_tokenizer(path, seq_len=max_len)
+        parts = load_siglip2_checkpoint(path, dtype=dtype, device=device)
+        return cls(vision_params=parts["vision"],
+                   vision_cfg=parts["vision_cfg"],
+                   text_params=parts["text"], text_cfg=parts["text_cfg"],
+                   tokenizer=tokenizer, map_head=parts["map_head"],
+                   image_size=parts["vision_cfg"].image_size,
+                   compute_dtype=compute_dtype, device=device)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
