@@ -32,7 +32,10 @@ Phases:
      20,480-row cache, a 16-row batch, a square 2,048 prefill) on
      flash_attention_causal_sm90.cu (its split count and packing logged),
      timed in turns with the mma.sync kernel it replaced, rows with no live
-     key exactly 0 with lse +1e30, and the grouped ViT append; the packed mode (forward with and without lse,
+     key exactly 0 with lse +1e30, and the grouped ViT append; the
+     grouped running-max mode at BAGEL image generation's flow passes
+     ([1, 4098, 28, 128] over 4,162 keys, text to image, and over 13,162,
+     editing) beside SDPA, its bound and its plain version; the packed mode (forward with and without lse,
      backward) on the BAGEL training pack's own codes, [1, 4096, 28, 128],
      and padded 4,000 -> 4,032 (pad rows exactly 0, lse +1e30); the
      segment mode at [2, 2048, 12, 128]; their forwards run on the sm90
@@ -75,7 +78,10 @@ Phases:
      projector diffusion train steps and the training loop; the
      full-width BAGEL extractor and projector (bf16, 1280x704 image)
      against the CPU at a 224x224 and a 300x500 crop; a small BAGEL's
-     video-QA context and teacher-forced logits; a small BAGEL's packed
+     video-QA context and teacher-forced logits; a small BAGEL's image
+     generation (text to image and editing through interleave_inference,
+     with a small FLUX AE: latent and image, and the launches of each
+     loop); a small BAGEL's packed
      training loss and every gradient leaf, freeze_und off and on; two
      fp32 make_dit_train_step steps and the fp32 t2v pipeline (fused rope)
      on a small d=128 DiT;
@@ -112,6 +118,18 @@ Phases:
      logged); time the question's prefill over the 16-frame context with
      the causal kernel and the mma.sync kernel in turns; profile 16 decode
      steps;
+  8b. drive BAGEL image generation at full width and depth: a synthetic
+     full-size FLUX ae.safetensors written, loaded and held bit for bit,
+     the AE card vs CPU at 256x256 (fp32, rel. L2 < 1e-4); BAGEL-7B-MoT
+     (all 28 layers) with the SigLIP so400m tower and that AE in a
+     16,384-row inferencer: text to image at 1024x1024 (50 timesteps,
+     three CFG branches every step, global renorm) and editing (a
+     1024x1024 image through the FLUX encode, the VAE and ViT appends, an
+     instruction, 8 timesteps), each from zero counts with every call's
+     launches checked (28 x 3 x (T - 1) flash_attention_bf16 a loop, 28 an
+     append, 28 causal a prefill), the images (1024x1024x3, finite, in
+     [0, 1]) and each context unchanged by gen_image; the seconds of each
+     call and flow step, peak memory; one flow step profiled;
   9. drive the BAGEL packed-training path: BAGEL-7B-MoT at full width on
      one 4,096-token pack of the four sample kinds, freeze_und; one
      untimed training pass to warm up (its seconds and allocator growth
@@ -2413,6 +2431,581 @@ def qa_cli_on_card(output_dir):
     log(json.dumps(out))
     if not out["ok"]:
         fail("the eval_understanding CLI on the card")
+
+
+# ---------------------------------------------------------------------------
+# BAGEL image generation (the eighteenth slice)
+# ---------------------------------------------------------------------------
+
+IMAGE_CAPACITY = 16384   # a 1024x1024 editing context (4,098 VAE rows,
+                         # 4,902 ViT rows, the instruction) + a 4,098-row
+                         # flow pass; the JAX inferencer's default of 4,096
+                         # holds no 1024x1024 latent
+T2I_TIMESTEPS = 50       # JAX's default
+EDIT_TIMESTEPS = 8       # cut for the time limit
+IMAGE_PROMPT = ("A red fox sitting in fresh snow at the edge of a pine "
+                "forest at dawn, soft golden light on its fur, mist drifting "
+                "between the dark trees, a frozen stream in the foreground, "
+                "photographed with a long lens and a shallow depth of field")
+IMAGE_EDIT = ("Change the season of this photograph from winter to late "
+              "summer: replace the snow with tall green grass and small "
+              "yellow flowers, keep the animal and its pose exactly as they "
+              "are, and make the light warmer, as in the early evening")
+AE_SEED = 181            # the synthetic ae.safetensors' draws
+
+
+def flux_ae_leaf(key, x):
+    """The FLUX AE's rule (JAX's convert_flux_ae): every leaf fp32, convs
+    [Cout, Cin, kh, kw] as they are, the reference's module names as the
+    JAX tree's."""
+    import torch
+
+    name, leaf = key.rsplit(".", 1)
+    m = re.fullmatch(r"(encoder)\.down\.(\d+)\.(block\.(\d+)|downsample\."
+                     r"conv)(.*)", name) or re.fullmatch(
+        r"(decoder)\.up\.(\d+)\.(block\.(\d+)|upsample\.conv)(.*)", name)
+    if m:
+        part, i, what, j, rest = m.groups()
+        level = f"{part}.{'down' if part == 'encoder' else 'up'}{i}"
+        name = (f"{level}.res{j}{rest}" if j is not None else
+                f"{level}.{'down' if part == 'encoder' else 'up'}")
+    for old, new in (("mid.block_1", "mid_res1"), ("mid.attn_1", "mid_attn"),
+                     ("mid.block_2", "mid_res2"), ("nin_shortcut",
+                                                   "shortcut"),
+                     ("proj_out", "proj")):
+        name = name.replace(old, new)
+    return f"{name}.{'w' if leaf == 'weight' else 'b'}", x, torch.float32
+
+
+def _gen_case(gen, kv_len):
+    """A flow pass's attention inputs over a 16,384-row cache: q [1, 4160,
+    28, 128] (the latent rows and start / end, 4,098, padded to the
+    kernels' multiple of 64 as attention() pads them), k, v [1, 16384, 4,
+    128], the live keys the context's rows and the pass's own; the slots
+    past kv_len hold 50.0."""
+    return _causal_case(gen, 1, 4160, IMAGE_CAPACITY, 28, 4,
+                        [kv_len - 4098], 4098, False)
+
+
+def check_image_gen_kernels():
+    """flash_attention_bf16 (the grouped running-max mode of
+    flash_attention_sm90.cu) at the flow passes' two shapes: q [1, 4098
+    rows padded to 4160, 28, 128] over the text-to-image context (the
+    prompt's 64-row bucket: 4,162 keys) and over the editing context (the
+    VAE and ViT towers and the instruction: 13,162 keys), 4 kv heads;
+    against its plain version within PERF.md s2's bf16 bound, timed beside
+    SDPA on the 4,098 live rows and the live keys (kv heads repeated), its
+    bound (the live rows' work) and its plain version. Returns the two
+    records, counted by the flash_attention_bf16 counter."""
+    import torch
+    import torch.nn.functional as F
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    n, nk, d, lq = 28, 4, 128, 4098
+    tol = dict(atol=1e-3, rtol=2.0 ** -7,
+               why="one bf16 ulp of the output (at most 2^-7 relative) "
+                   "plus 1e-3 for the fp32 summation order and the "
+                   "approximate exp2 before p rounds to bf16")
+    records = {}
+    for tag, kvl in (("t2i", 4098 + 64), ("edit", 4098 + 4902 + 64 + 4098)):
+        q, k, v, _, kv = _gen_case(gen, kvl)
+        with torch.no_grad():
+            got = fa._flash_cuda(q, k, v, kv, None, None)
+            want = fa.attention_plain(q, k, v, kv_len=kv)
+            err = compare(f"flash_attention_bf16 image gen pass {tag}", got,
+                          want, **tol)
+            ms = cuda_time(lambda: fa._flash_cuda(q, k, v, kv, None, None),
+                           10)
+            plain_ms = cuda_time(lambda: fa.attention_plain(q, k, v,
+                                                            kv_len=kv), 1)
+            qs, ks, vs = (x.transpose(1, 2) for x in (
+                q[:, :lq], fa.repeat_kv(k[:, :kvl], n),
+                fa.repeat_kv(v[:, :kvl], n)))
+            lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, scale=1.0 / fa.LOG2E), 5)
+        bms, by = bound_ms(4 * lq * kvl * n * d,
+                           2 * lq * n * d * 2 + kvl * nk * d * 2 * 2,
+                           H100_BF16_FLOPS)
+        rec = dict(name=f"flash_attention_bf16_image_gen_{tag}",
+                   counter="flash_attention_bf16", route="cuda",
+                   source="univid_tpu_torch/kernels/csrc/"
+                          "flash_attention_sm90.cu",
+                   replaces="univid_tpu/kernels/flash_attention.py:44",
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by, library_ms=lib_ms,
+                   shape={"q": list(q.shape), "live_rows": lq,
+                          "kv": list(k.shape), "kv_len": kvl})
+        log(json.dumps({"kernel": rec}))
+        records[rec["name"]] = rec
+        del q, k, v, got, want, qs, ks, vs
+        torch.cuda.empty_cache()
+    return records
+
+
+class _GenRecorder:
+    """Instrumentation of an image request: each call of the inferencer's
+    building blocks (the text prefill, the FLUX encode and decode, the
+    VAE and ViT appends, SigLIP, the flow loop) timed to a synchronised
+    end with the launches in it, and a CUDA event at the start of each
+    flow pass, so that a step's seconds (its three passes and its CFG
+    combine) come without a synchronisation inside the loop."""
+
+    NAMES = ("update_context_text", "image_vae_encode", "update_context_vae",
+             "siglip_forward", "update_context_vit", "generate_image_latent",
+             "image_vae_decode")
+
+    def __init__(self):
+        self.calls, self.events, self.latent = [], [], None
+
+    def __enter__(self):
+        import torch
+
+        from univid_tpu_torch.kernels import flash_attention as fa
+        from univid_tpu_torch.models.bagel import bagel as bm
+        from univid_tpu_torch.pipelines import interleave as im
+
+        self.saved = [(im, n, getattr(im, n)) for n in self.NAMES]
+        self.saved.append((bm, "_flow_hidden", bm._flow_hidden))
+
+        def timed(name, fn):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                before = dict(fa.LAUNCHES)
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                if name == "generate_image_latent":
+                    self.events.append(self._event())
+                    self.latent = out[0]
+                torch.cuda.synchronize()
+                self.calls.append({"fn": name,
+                                   "s": time.perf_counter() - t,
+                                   "launches": {k: fa.LAUNCHES[k] - before[k]
+                                                for k in before
+                                                if fa.LAUNCHES[k] != before[k]}})
+                return out
+            return call
+
+        def flow_hidden(*a, **kw):
+            self.events.append(self._event())
+            return self.saved[-1][2](*a, **kw)
+
+        for mod, n, fn in self.saved[:-1]:
+            setattr(mod, n, timed(n, fn))
+        bm._flow_hidden = flow_hidden
+        return self
+
+    @staticmethod
+    def _event():
+        import torch
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def __exit__(self, *exc):
+        for mod, n, fn in self.saved:
+            setattr(mod, n, fn)
+
+    def step_seconds(self, passes_per_step):
+        """Seconds of each flow step of the last loop: from its first
+        pass's event to the next step's (the loop's end for the last)."""
+        ev = self.events
+        starts = ev[:-1][::passes_per_step] + [ev[-1]]
+        return [a.elapsed_time(b) / 1e3 for a, b in zip(starts, starts[1:])]
+
+
+class _ContextCheck:
+    """Mixin: gen_image asserts that its three contexts are three caches
+    and leaves each as it was (len, len_host, rope, the rows up to len)."""
+
+    def gen_image(self, image_shape, ctx, **kw):
+        import torch
+
+        ctxs = [ctx, kw["cfg_text_ctx"], kw["cfg_img_ctx"]]
+
+        def snap(c):
+            n = max(c["cache"]["len_host"])
+            return (c["cache"]["len"].clone(), list(c["cache"]["len_host"]),
+                    c["rope"].clone(), c["cache"]["k"][:, :, :n].clone(),
+                    c["cache"]["v"][:, :, :n].clone())
+
+        before = [snap(c) for c in ctxs]
+        out = super().gen_image(image_shape, ctx, **kw)
+        same = all(a == b if isinstance(a, list) else torch.equal(a, b)
+                   for c, s in zip(ctxs, before) for a, b in zip(snap(c), s))
+        self.context_rows = [c["cache"]["len_host"][0] for c in ctxs]
+        distinct = len({id(c["cache"]["k"]) for c in ctxs}) == 3
+        log(json.dumps({"check": "contexts unchanged by gen_image",
+                        "rows": self.context_rows, "distinct": distinct,
+                        "ok": same and distinct}))
+        if not (same and distinct):
+            fail("gen_image changed a context, or two share a cache")
+        del before
+        return out
+
+
+def _small_image_models():
+    """A small d=128 BAGEL (hidden 512, 4 heads over 2 kv heads, 2 layers,
+    llm2vae redrawn N(0, 0.05^2): JAX's is zero-init), a tiny SigLIP and a
+    4-level FLUX AE (ch 32, 8x downsampling), bf16 LLM and tower, fp32
+    AE, on the CPU from seeds."""
+    import torch
+
+    from univid_tpu_torch.models.bagel.autoencoder import (ImageVAEConfig,
+                                                           init_image_vae)
+    from univid_tpu_torch.models.bagel.bagel import BagelConfig, init_bagel
+    from univid_tpu_torch.models.bagel.qwen2_mot import Qwen2MoTConfig
+    from univid_tpu_torch.models.bagel.siglip import (SiglipConfig,
+                                                      init_siglip)
+
+    bf = torch.bfloat16
+    llm = Qwen2MoTConfig(vocab_size=4096, hidden_size=512,
+                         intermediate_size=1024, num_layers=2, num_heads=4,
+                         num_kv_heads=2)
+    cfg = BagelConfig(llm=llm, vit_hidden_size=64, start_of_image=4090,
+                      end_of_image=4091, bos_token_id=4092,
+                      eos_token_id=4093)
+    scfg = SiglipConfig(hidden_size=64, intermediate_size=128, num_layers=2,
+                        num_heads=2, patch_size=14, image_size=224)
+    vcfg = ImageVAEConfig(ch=32, ch_mult=(1, 2, 2, 2), num_res_blocks=1)
+    gen = torch.Generator().manual_seed(31)
+    bagel = init_bagel(gen, cfg, dtype=bf, device="cpu")
+    sig = init_siglip(gen, scfg, dtype=bf, device="cpu")
+    vae = init_image_vae(gen, vcfg, device="cpu")
+    with torch.no_grad():
+        bagel.llm2vae.w.normal_(0.0, 0.05, generator=gen)
+        for layer in bagel.llm.layers:
+            layer.attn_gen.q_norm.uniform_(0.5, 1.5, generator=gen)
+            layer.attn_gen.k_norm.uniform_(0.5, 1.5, generator=gen)
+    return cfg, bagel, scfg, sig, vcfg, vae
+
+
+def small_bagel_image_parity():
+    """The small d=128 BAGEL with its tower and AE in bf16, text to image
+    (256x256, 6 timesteps, the three CFG branches) and editing (a 128x192
+    image through both towers, then the instruction, 4 timesteps) through
+    InterleaveInferencer.interleave_inference on the card (kernels) and on
+    the CPU (plain versions), same weights and starting noise: the latent
+    and the image rel. L2 < 3e-2, and the card's launches: per loop 2 x 3
+    x (T - 1) flash_attention_bf16, 2 per append, 2 causal per prefill."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.pipelines.interleave import InterleaveInferencer
+    from univid_tpu_torch.utils.tokenizers import HashTokenizer
+
+    cfg, bagel, scfg, sig, vcfg, vae = _small_image_models()
+    image = np.random.default_rng(5).uniform(-1, 1, (128, 192, 3)).astype(
+        np.float32)
+    requests = {"t2i": ([IMAGE_PROMPT], (256, 256), 6),
+                "edit": ([image, IMAGE_EDIT], (128, 192), 4)}
+    layers = cfg.llm.num_layers
+    out = {"check": "small_bagel_image_parity", "limit": 3e-2,
+           "why": "bf16 on both sides: cuBLAS and the CPU round each GEMM "
+                  "at other points (2^-8 relative), over 2 layers and the "
+                  "loop's steps"}
+    ok = True
+    for tag, (inputs, shape, steps) in requests.items():
+        n_tok = (shape[0] // 16) * (shape[1] // 16)
+        noise = torch.randn((1, n_tok, 64),
+                            generator=torch.Generator().manual_seed(6))
+        res = {}
+        for device in ("cuda", "cpu"):
+            inf = InterleaveInferencer(
+                copy.deepcopy(bagel).to(device), cfg, HashTokenizer(4090),
+                siglip=copy.deepcopy(sig).to(device), siglip_cfg=scfg,
+                vae=copy.deepcopy(vae).to(device), vae_cfg=vcfg,
+                capacity=1024, compute_dtype=torch.bfloat16)
+            fa.reset_launches()
+            with _GenRecorder() as rec:
+                img = inf.interleave_inference(
+                    inputs, num_timesteps=steps, cfg_text_scale=4.0,
+                    cfg_img_scale=1.5, image_shapes=shape,
+                    noise=noise.to(device))[-1]
+            loop = [c for c in rec.calls
+                    if c["fn"] == "generate_image_latent"]
+            res[device] = {"image": img.float().cpu(),
+                           "latent": rec.latent.float().cpu(),
+                           "launches": {k: v for k, v in fa.LAUNCHES.items()
+                                        if v},
+                           "loop_launches": loop[0]["launches"]}
+        got, want = res["cuda"], res["cpu"]
+        image_err = rel_l2(got["image"], want["image"])
+        latent_err = rel_l2(got["latent"], want["latent"])
+        n_prefill = 2 * layers          # the prompt in ctx and in cfg_img
+        n_append = layers * (2 if tag == "edit" else 0)
+        want_loop = {"flash_attention_bf16": layers * 3 * (steps - 1)}
+        want_all = {"flash_attention_bf16": want_loop["flash_attention_bf16"]
+                    + n_append, "flash_attention_bf16_causal": n_prefill}
+        out[tag] = {"latent_rel_l2": latent_err, "image_rel_l2": image_err,
+                    "launches": got["launches"], "expected": want_all,
+                    "shape": list(got["image"].shape)}
+        ok = ok and max(latent_err, image_err) < 3e-2 \
+            and got["launches"] == want_all \
+            and got["loop_launches"] == want_loop \
+            and tuple(got["image"].shape) == (*shape, 3)
+    out["ok"] = ok
+    log(json.dumps(out))
+    if not ok:
+        fail("BAGEL image generation on the card disagrees with the CPU, or "
+             "went through other kernels")
+
+
+IMAGE_SIDE = 1024        # both requests: 64 x 64 latent tokens, 4,098 rows
+
+
+def _edit_input(side):
+    """A seeded side x side input image in [-1, 1] with smooth content
+    (blocks of 64 x 64 pixels of one colour)."""
+    import numpy as np
+
+    rng = np.random.default_rng(19)
+    base = rng.uniform(-1, 1, (side // 64, side // 64, 3)).astype(np.float32)
+    return np.kron(base, np.ones((64, 64, 1), np.float32))
+
+
+def _ae_from_checkpoint(output_dir, vcfg):
+    """A full-size synthetic ae.safetensors (flux_ae_manifest's keys and
+    shapes, fp32, drawn by ckpt_draw from AE_SEED) written by
+    write_safetensors, loaded onto the card by load_flux_ae_checkpoint,
+    every parameter held to the written tensor bit for bit (flux_ae_leaf),
+    the file deleted. -> (the AE, a log record)."""
+    import os
+
+    import torch
+
+    from univid_tpu_torch.core.checkpoint import load_flux_ae_checkpoint
+    from univid_tpu_torch.core.manifest import flux_ae_manifest
+
+    man = flux_ae_manifest(vcfg)
+    root = os.path.join(output_dir, "bagel_ae")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "ae.safetensors")
+    t0 = time.perf_counter()
+    size = write_safetensors(path, _draws(man, AE_SEED, torch.float32))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vae, cfg = load_flux_ae_checkpoint(root, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    params = dict(vae.named_parameters())
+    seen = set()
+    for i, (k, s) in enumerate(sorted(man.items())):
+        name, want, dtype = flux_ae_leaf(k, ckpt_draw(k, s, i, AE_SEED))
+        p = params.get(name)
+        if p is None or p.dtype != dtype or not p.is_cuda \
+                or not torch.equal(p, want.to(dtype)):
+            fail(f"ae.safetensors: {k} -> {name} is not the written tensor")
+        seen.add(name)
+    if seen != set(params) or cfg != vcfg:
+        fail(f"ae.safetensors: parameters not in the file: "
+             f"{sorted(set(params) - seen)[:5]}")
+    os.remove(path)
+    return vae, {"bytes": size, "write_s": write_s, "load_s": load_s,
+                 "parameters_bit_equal": len(seen)}
+
+
+def _ae_card_vs_cpu(vae, vcfg, side=256):
+    """The full AE's encode and decode on a side x side image, card against
+    CPU, fp32 on both sides with TF32 off (the decode of the card's
+    latent on both): rel. L2 < 1e-4."""
+    import copy
+
+    import torch
+
+    from univid_tpu_torch.models.bagel.autoencoder import (image_vae_decode,
+                                                           image_vae_encode)
+
+    x = torch.rand((1, side, side, 3),
+                   generator=torch.Generator().manual_seed(8)) * 2 - 1
+    cpu = copy.deepcopy(vae).cpu()
+    with torch.no_grad():
+        z = image_vae_encode(vae, vcfg, x.cuda())
+        y = image_vae_decode(vae, vcfg, z)
+        z_cpu = image_vae_encode(cpu, vcfg, x)
+        y_cpu = image_vae_decode(cpu, vcfg, z.cpu())
+    out = {"check": "FLUX AE card vs CPU", "side": side,
+           "encode_rel_l2": rel_l2(z.cpu(), z_cpu),
+           "decode_rel_l2": rel_l2(y.cpu(), y_cpu), "limit": 1e-4,
+           "why": "fp32 on both sides, TF32 off: summation order only"}
+    out["ok"] = max(out["encode_rel_l2"], out["decode_rel_l2"]) < 1e-4
+    log(json.dumps(out))
+    if not out["ok"]:
+        fail("the FLUX AE on the card disagrees with the CPU")
+
+
+def _image_request(inf, inputs, steps, **kw):
+    """One interleave_inference image request from zero counts: its
+    image, its launch counts, the seconds and launches of each call and
+    of each flow step."""
+    import torch
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    fa.reset_launches()
+    with _GenRecorder() as rec:
+        t0 = time.perf_counter()
+        img = inf.interleave_inference(
+            inputs, num_timesteps=steps,
+            image_shapes=(IMAGE_SIDE, IMAGE_SIDE), **kw)[-1]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return img, launch_counts(), wall, rec
+
+
+def _request_record(tag, img, launches, wall, rec, layers, steps):
+    """Check one request's image (shape, finite, in [0, 1]), each call's
+    launches (a prefill: `layers` causal; an append: `layers`; the loop:
+    layers x 3 x (steps - 1); encode, decode and SigLIP none) and its
+    flow steps; log its phases. -> the record."""
+    import torch
+
+    want = {"update_context_text": {"flash_attention_bf16_causal": layers},
+            "update_context_vae": {"flash_attention_bf16": layers},
+            "update_context_vit": {"flash_attention_bf16": layers},
+            "generate_image_latent":
+                {"flash_attention_bf16": layers * 3 * (steps - 1)}}
+    bad = [c for c in rec.calls if c["launches"] != want.get(c["fn"], {})]
+    seconds = {}
+    for c in rec.calls:
+        seconds.setdefault(c["fn"], []).append(c["s"])
+    step_s = rec.step_seconds(3)
+    out = {"phase": f"bagel_image_{tag}", "seconds": wall,
+           "calls_s": seconds, "flow_step_s": step_s,
+           "flow_step_median_s": statistics.median(step_s),
+           "launches": {k: v for k, v in launches.items() if v},
+           "image": list(img.shape),
+           "image_min_max": [float(img.min()), float(img.max())]}
+    log(json.dumps(out))
+    if bad or len(step_s) != steps - 1:
+        fail(f"{tag}: calls off their launches {bad[:3]}, or "
+             f"{len(step_s)} flow steps")
+    if tuple(img.shape) != (IMAGE_SIDE, IMAGE_SIDE, 3) \
+            or not bool(torch.isfinite(img).all()) \
+            or float(img.min()) < 0.0 or float(img.max()) > 1.0:
+        fail(f"{tag}: the image is not a finite [0, 1] "
+             f"{IMAGE_SIDE}x{IMAGE_SIDE}x3 array")
+    return out
+
+
+def bagel_image_main_path(output_dir):
+    """BAGEL image generation at full width and depth: BAGEL-7B-MoT (bf16,
+    both experts, all 28 layers, random from seeds, llm2vae redrawn
+    N(0, 0.02^2): JAX's is zero-init), the SigLIP so400m tower and the full
+    FLUX AE, loaded from a synthetic ae.safetensors (`_ae_from_checkpoint`;
+    then `_ae_card_vs_cpu`), in an InterleaveInferencer of 16,384 rows.
+    Two requests, each from zero counts: text to image at 1024x1024 (a
+    prompt of more than 32 tokens, 50 timesteps, text scale 4.0, image
+    scale 1.5, interval (0.4, 1.0], shift 3.0, global renorm: three
+    branches every step) and editing (a 1024x1024 image through the FLUX
+    encode, the VAE append of 4,098 rows and the ViT append of 4,902, an
+    instruction of more than 32 tokens, 8 timesteps, text_channel renorm).
+    Checks each call's launches, the images and that gen_image leaves its
+    three contexts as they were; logs the seconds of each call and flow
+    step and the peak memory; profiles one flow step (three passes) over
+    the prompt's context. -> {"bagel_t2i": counts, "bagel_edit": counts}."""
+    import gc
+
+    import torch
+
+    from univid_tpu_torch.models.bagel import bagel as bm
+    from univid_tpu_torch.models.bagel.autoencoder import ImageVAEConfig
+    from univid_tpu_torch.models.bagel.bagel import BagelConfig, init_bagel
+    from univid_tpu_torch.models.bagel.siglip import (SiglipConfig,
+                                                      init_siglip)
+    from univid_tpu_torch.pipelines.interleave import InterleaveInferencer
+    from univid_tpu_torch.utils.tokenizers import HashTokenizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf = torch.bfloat16
+    vcfg = ImageVAEConfig()
+    vae, ae_rec = _ae_from_checkpoint(output_dir, vcfg)
+    log(json.dumps({"check": "ae.safetensors written, loaded, bit-equal",
+                    **ae_rec}))
+    _ae_card_vs_cpu(vae, vcfg)
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    cfg, scfg = BagelConfig(), SiglipConfig()
+    t0 = time.perf_counter()
+    bagel = init_bagel(gen(50), cfg, dtype=bf, device="cuda")
+    sig = init_siglip(gen(51), scfg, dtype=bf, device="cuda")
+    with torch.no_grad():
+        bagel.llm2vae.w.normal_(0.0, 0.02, generator=gen(52))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    class Inferencer(_ContextCheck, InterleaveInferencer):
+        pass
+
+    inf = Inferencer(bagel, cfg, HashTokenizer(), siglip=sig,
+                     siglip_cfg=scfg, vae=vae, vae_cfg=vcfg,
+                     capacity=IMAGE_CAPACITY, compute_dtype=bf)
+    n_prompt = len(inf._wrap_ids(IMAGE_PROMPT))
+    n_edit = len(inf._wrap_ids(IMAGE_EDIT))
+    if min(n_prompt, n_edit) <= 32:
+        fail(f"the prompts take {n_prompt} and {n_edit} tokens: a prefill "
+             "of 32 or fewer takes the decode-shaped einsums")
+    layers = cfg.llm.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    counts = {}
+    img, counts["bagel_t2i"], wall, rec = _image_request(
+        inf, [IMAGE_PROMPT], T2I_TIMESTEPS, cfg_text_scale=4.0,
+        cfg_img_scale=1.5, cfg_interval=(0.4, 1.0), timestep_shift=3.0,
+        cfg_renorm_type="global", rng=gen(53))
+    t2i = _request_record("t2i", img, counts["bagel_t2i"], wall, rec, layers,
+                          T2I_TIMESTEPS)
+    t2i_rows = inf.context_rows
+    img, counts["bagel_edit"], wall, rec = _image_request(
+        inf, [_edit_input(IMAGE_SIDE), IMAGE_EDIT], EDIT_TIMESTEPS,
+        cfg_text_scale=4.0, cfg_img_scale=2.0, cfg_interval=(0.0, 1.0),
+        timestep_shift=3.0, cfg_renorm_type="text_channel", rng=gen(54))
+    edit = _request_record("edit", img, counts["bagel_edit"], wall, rec,
+                           layers, EDIT_TIMESTEPS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(json.dumps({"phase": "bagel_image_main_path", "model":
+                    "BAGEL-7B-MoT", "init_s": init_s,
+                    "capacity": IMAGE_CAPACITY, "prompt_tokens": n_prompt,
+                    "instruction_tokens": n_edit,
+                    "t2i_context_rows": t2i_rows,
+                    "edit_context_rows": inf.context_rows,
+                    "t2i_s": t2i["seconds"], "edit_s": edit["seconds"],
+                    "peak_memory_gb": peak}))
+    want_t2i = {"flash_attention_bf16": layers * 3 * (T2I_TIMESTEPS - 1),
+                "flash_attention_bf16_causal": 2 * layers}
+    want_edit = {"flash_attention_bf16": layers * 3 * (EDIT_TIMESTEPS - 1)
+                 + 2 * layers, "flash_attention_bf16_causal": 2 * layers}
+    for tag, want in (("bagel_t2i", want_t2i), ("bagel_edit", want_edit)):
+        got = {k: counts[tag][k] for k in want}
+        if got != want or sum(counts[tag].values()) != sum(want.values()):
+            fail(f"{tag}: launches {counts[tag]} != {want}")
+    check_impl("BAGEL image requests (the editing one)",
+               want_edit["flash_attention_bf16"],
+               causal_sm90=want_edit["flash_attention_bf16_causal"])
+    if peak >= 80.0:
+        fail(f"BAGEL image peak memory {peak:.1f} GB")
+
+    # one flow step (three passes) under the profiler over the prompt's
+    # context: where a step's time goes
+    with torch.no_grad():
+        ctx = inf.update_context_text(IMAGE_PROMPT, inf.init_gen_context())
+        side = IMAGE_SIDE // cfg.latent_downsample
+        pos_rows, und = bm._latent_grid(cfg, side, side, "cuda")
+        x = torch.randn((1, side * side, cfg.patch_latent_dim),
+                        generator=gen(55), device="cuda")
+        _, prof = profile_call(lambda: [bm._flow_velocity(
+            bagel, cfg, x, 0.5, und, pos_rows, ctx, bf) for _ in range(3)])
+    log(json.dumps({"check": "bagel_image_flow_step_profile", **prof}))
+    del inf, bagel, sig, vae, ctx, x, img
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -5257,14 +5850,19 @@ def kernels_line(records, by_path, mask_records):
     own.update(tile_lists="bagel_train", mask_tile_list=None,
                bwd_tile_list=None)
     own.update(KNOB_OWNERS)
+    # the flow passes' shapes of BAGEL image generation: counted by the
+    # flash_attention_bf16 counter, in the request of their shape
+    own.update(flash_attention_bf16_image_gen_t2i="bagel_t2i",
+               flash_attention_bf16_image_gen_edit="bagel_edit")
     kernels = []
     for nm, rec in records.items():
         owner = own.get(nm, "t2v-1.3B")
+        counter = rec.get("counter", nm)
         launches = None
         if by_path:
-            launches = by_path[owner][nm] if owner else 0
+            launches = by_path[owner][counter] if owner else 0
         kernels.append(dict(rec, launches=launches, launches_by_path={
-            p: c[nm] for p, c in by_path.items()}))
+            p: c[counter] for p, c in by_path.items()}))
     return kernels
 
 
@@ -5349,6 +5947,7 @@ def main():
     retime_ti2v_kernels()
     records.update(check_train_kernels())
     records.update(check_causal_kernels())
+    records.update(check_image_gen_kernels())
     mask_records = check_mask_kernels()
     records.update(mask_records)
     records.update(check_f32_d128_kernels())
@@ -5371,6 +5970,8 @@ def main():
                           ("full_width_extractor",
                            lambda: full_width_extractor(args.output_dir)),
                           ("small_bagel_parity", small_bagel_parity),
+                          ("small_bagel_image_parity",
+                           small_bagel_image_parity),
                           ("small_bagel_train_parity",
                            small_bagel_train_parity),
                           ("fp32_train_parity", fp32_train_parity),
@@ -5408,6 +6009,10 @@ def main():
         t0 = time.perf_counter()
         by_path["bagel"] = bagel_main_path(args.output_dir)
         log(json.dumps({"phase": "bagel_main_path_total",
+                        "seconds": time.perf_counter() - t0}))
+        t0 = time.perf_counter()
+        by_path.update(bagel_image_main_path(args.output_dir))
+        log(json.dumps({"phase": "bagel_image_main_path_total",
                         "seconds": time.perf_counter() - t0}))
         t0 = time.perf_counter()
         by_path["bagel_train"] = bagel_train_main_path()

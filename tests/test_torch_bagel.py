@@ -335,12 +335,3 @@ def test_video_understanding_and_chat_match_jax(inferencers):
     assert got == want
     assert t.chat(frames[:1], q, max_length=4) == \
         j.chat([jnp.asarray(frames[0])], q, max_length=4)
-
-
-def test_image_generation_raises_naming_its_slice(inferencers):
-    _, t = inferencers
-    with pytest.raises(NotImplementedError, match="image generation"):
-        t.interleave_inference(["a cat"], understanding_output=False)
-    with pytest.raises(NotImplementedError, match="image generation"):
-        t.update_context_image(_frames(1, 0)[0], t.init_gen_context(),
-                               vae=True)

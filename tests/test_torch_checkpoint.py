@@ -656,6 +656,39 @@ def test_load_bagel_checkpoint_consumes_every_key(monkeypatch, tmp_path):
         TC.load_bagel_checkpoint(str(tmp_path), device="cpu")
 
 
+def test_qa_cli_model_path_loads_ae_safetensors(monkeypatch, tmp_path):
+    """--model_path at a dir with ema.safetensors and ae.safetensors: the
+    QA CLI hands the FLUX image VAE (load_flux_ae_checkpoint) to the
+    inferencer, as the JAX CLI does; without ae.safetensors, none."""
+    import functools
+
+    from safetensors.numpy import save_file
+
+    from univid_tpu_torch.cli import eval_understanding as cli
+    from univid_tpu_torch.models.bagel import autoencoder as tae
+
+    llm, vit = _tiny_bagel_configs(monkeypatch)
+    save_file(sd_from_manifest(JM.bagel_manifest(llm, vit)),
+              str(tmp_path / "ema.safetensors"))
+    write_tokenizer(str(tmp_path), 128)
+    base = ["--video_dir", str(tmp_path), "--gt_file", "x", "--output_dir",
+            str(tmp_path), "--output_name", "b", "--id_from", "1",
+            "--id_to", "1", "--device", "cpu", "--model_path",
+            str(tmp_path)]
+    inf, _ = cli.load_models(cli.build_parser().parse_args(base))
+    assert inf.vae is None and inf.vae_cfg is None
+    small = dict(ch=8, ch_mult=(1, 2), num_res_blocks=1)
+    monkeypatch.setattr(tae, "ImageVAEConfig", functools.partial(
+        tae.ImageVAEConfig, **small))
+    ae = sd_from_manifest(TM.flux_ae_manifest(tae.ImageVAEConfig()), seed=1)
+    save_file(ae, str(tmp_path / "ae.safetensors"))
+    inf, _ = cli.load_models(cli.build_parser().parse_args(base))
+    assert inf.vae_cfg == tae.ImageVAEConfig()
+    np.testing.assert_array_equal(
+        inf.vae.decoder.conv_out.w.numpy(), ae["decoder.conv_out.weight"])
+    assert inf.vae.encoder.conv_in.w.dtype == torch.float32
+
+
 def test_load_bagel_checkpoint_for_fusion_places_embed_tokens_only(
         monkeypatch, tmp_path):
     """llm_layers=False (what --bagel_path's fusion extractor loads): the
@@ -805,7 +838,7 @@ def test_umt5_and_siglip_forwards_match_jax():
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("file", ["dit", "vae", "umt5"])
+@pytest.mark.parametrize("file", ["dit", "vae", "umt5", "flux_ae"])
 def test_chip_smoke_layout_rules_match_the_converters(file):
     """chip_smoke.py transcribes each converter's layout and dtype rule to
     hold the card's full-width load bit for bit; at the tiny config the
@@ -814,7 +847,10 @@ def test_chip_smoke_layout_rules_match_the_converters(file):
     import chip_smoke as cs
     from univid_tpu_torch.core.config import WAN_CONFIGS
 
+    from univid_tpu_torch.models.bagel.autoencoder import ImageVAEConfig
+
     spec = WAN_CONFIGS["tiny"]
+    ae = ImageVAEConfig(ch=16, ch_mult=(1, 2, 2), num_res_blocks=1)
     man, convert_fn, rule = {
         "dit": (TM.wan_dit_manifest(spec.dit),
                 lambda s: TC.convert_wan_dit(s, spec.dit, device="cpu"),
@@ -824,7 +860,10 @@ def test_chip_smoke_layout_rules_match_the_converters(file):
                 lambda k, x: cs.vae_leaf(k, x, spec.vae.num_res_blocks)),
         "umt5": (TM.umt5_manifest(spec.t5),
                  lambda s: TC.convert_umt5(s, spec.t5, device="cpu"),
-                 cs.umt5_leaf)}[file]
+                 cs.umt5_leaf),
+        "flux_ae": (TM.flux_ae_manifest(ae),
+                    lambda s: TC.convert_flux_ae(s, ae, device="cpu"),
+                    cs.flux_ae_leaf)}[file]
     sd = to_torch(sd_from_manifest(man))
     params = dict(convert_fn(sd).named_parameters())
     seen = set()

@@ -1,16 +1,18 @@
 """The port's refusals of later slices cite their ROADMAP.md queue 1 item
-by name (not by number, which a re-ordered queue changes): BAGEL image
-generation in the interleaved inferencer, and the sharded (multi-GPU) DiT
-train step."""
+by name (not by number, which a re-ordered queue changes): the serving
+CLI's `_LATER` flags (--mode animate, --use_prompt_extend) and the sharded
+(multi-GPU) DiT train step."""
 
 import pytest
 
 
-def _image_generation(tmp_path):
-    from univid_tpu_torch.pipelines.interleave import InterleaveInferencer
-    with pytest.raises(NotImplementedError) as e:
-        InterleaveInferencer.gen_image(None)
-    return str(e.value)
+def _cli_later(flags):
+    def case(tmp_path):
+        from univid_tpu_torch.cli.inference import main
+        with pytest.raises(SystemExit) as e:
+            main(flags + ["--output_dir", str(tmp_path)])
+        return str(e.value.code)
+    return case
 
 
 def _multi_gpu(tmp_path):
@@ -20,7 +22,8 @@ def _multi_gpu(tmp_path):
     return str(e.value)
 
 
-CASES = {"BAGEL image generation": _image_generation,
+CASES = {"WanAnimate": _cli_later(["--mode", "animate"]),
+         "prompt extension": _cli_later(["--use_prompt_extend"]),
          "Multi-GPU": _multi_gpu}
 
 

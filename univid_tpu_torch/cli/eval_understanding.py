@@ -10,7 +10,9 @@ traces and summary: per video id, reflexion_answer_one on its question,
 
 It runs on `cuda` unless given `--device cpu`. `--model_path` (without
 `--mock_weights`) loads BAGEL-7B-MoT's ema.safetensors and its tokenizer
-(core.checkpoint.load_bagel_checkpoint) and runs it in bf16; otherwise
+(core.checkpoint.load_bagel_checkpoint) and runs it in bf16, with the FLUX
+image VAE when the directory has ae.safetensors (load_flux_ae_checkpoint:
+the inferencer's generation side; QA does not read it); otherwise
 `--mock_weights` (and the run without `--model_path`) builds the JAX CLI's
 tiny random BAGEL and SigLIP tower and a HashTokenizer, drawn from fixed
 seeds, fp32 with `--mock_weights` and bf16 without. A `--siglip_ckpt`
@@ -159,11 +161,19 @@ def load_models(args):
     from ..pipelines.interleave import InterleaveInferencer
 
     if args.model_path and not args.mock_weights:
-        from ..core.checkpoint import load_bagel_checkpoint
+        from ..core.checkpoint import (load_bagel_checkpoint,
+                                       load_flux_ae_checkpoint)
         params, cfg, scfg, sig, tokenizer = load_bagel_checkpoint(
             args.model_path, device=args.device)
+        # the FLUX image VAE beside ema.safetensors serves the generation
+        # and editing contexts; QA runs without it
+        vae = vae_cfg = None
+        if os.path.isfile(os.path.join(args.model_path, "ae.safetensors")):
+            vae, vae_cfg = load_flux_ae_checkpoint(args.model_path,
+                                                   device=args.device)
         inferencer = InterleaveInferencer(params, cfg, tokenizer,
                                           siglip=sig, siglip_cfg=scfg,
+                                          vae=vae, vae_cfg=vae_cfg,
                                           compute_dtype=torch.bfloat16)
     else:
         params, cfg, scfg, sig, tokenizer = mock_models(args.device)

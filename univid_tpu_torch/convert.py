@@ -8,7 +8,8 @@ a state dict key by key. Layout rules, by leaf name and rank:
     Linear becomes a `core.quant.QuantLinear`, so both packages can run
     the same int8 codes;
   * `w` of rank 5, a conv3d THWIO            -> [Cout, Cin, kt, kh, kw];
-  * `w` of rank 4, a 2D conv HWIO (resample) -> [Cout, Cin, 1, kh, kw];
+  * `w` of rank 4, a 2D conv HWIO (resample) -> [Cout, Cin, 1, kh, kw]
+    (the FLUX image VAE's, `image_vae_from_jax`: [Cout, Cin, kh, kw]);
   * every other leaf as it is.
 The DiT's `blocks`, the `layers` of SigLIP, the SigLIP text tower and
 both NaFlex towers, and BAGEL's `llm.layers` leaves are stacked [num_layers, ...] in the JAX tree
@@ -27,6 +28,7 @@ import torch
 
 from .core.config import FusionConfig, T5Config, WanDiTConfig, WanVAEConfig
 from .core.quant import QuantLinear
+from .models.bagel.autoencoder import ImageVAE, ImageVAEConfig
 from .models.bagel.bagel import Bagel, BagelConfig
 from .models.bagel.siglip import Siglip, SiglipConfig
 from .reflection.scorer import (SiglipMapHead, SiglipText,
@@ -163,6 +165,16 @@ def bagel_from_jax(params, cfg: BagelConfig, *, device="cuda", dtype=None,
                   llm_layers=llm_layers)
     return _load(model, jax_tree_to_state_dict(tree, stacked="llm.layers"),
                  dtype)
+
+
+def image_vae_from_jax(params, cfg: ImageVAEConfig, *, device="cuda",
+                       dtype=None) -> ImageVAE:
+    """univid_tpu init_image_vae / convert_flux_ae tree -> ImageVAE on
+    `device`, its 2D convs [Cout, Cin, kh, kw]."""
+    model = ImageVAE(cfg, dtype=dtype or torch.float32, device=device)
+    sd = {k: t[:, :, 0] if t.ndim == 5 else t
+          for k, t in jax_tree_to_state_dict(params).items()}
+    return _load(model, sd, dtype)
 
 
 def siglip_from_jax(params, cfg: SiglipConfig, *, device="cuda",

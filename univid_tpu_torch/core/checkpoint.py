@@ -4,8 +4,8 @@
 Load surfaces: the Wan DiT (diffusers-style sharded safetensors with a
 *.safetensors.index.json, or .pth), the Wan video VAE and UMT5 (raw torch
 .pth state dicts), BAGEL's ema.safetensors (the Qwen2-MoT LLM, its heads
-and the NaViT SigLIP tower), the HF SigLIP / SigLIP2 dual tower, and the
-ContextProjector of a training state.
+and the NaViT SigLIP tower), the HF SigLIP / SigLIP2 dual tower, BAGEL's FLUX
+image VAE (ae.safetensors), and the ContextProjector of a training state.
 
 Raw loading gives CPU tensors in the file's dtype (the JAX package widens
 bf16 to fp32 numpy; the values are equal). Safetensors are read here, not
@@ -553,6 +553,77 @@ def convert_siglip_map_head(sd, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 # top-level loaders
 # ---------------------------------------------------------------------------
+# the FLUX image VAE (BAGEL's ae.safetensors)
+# ---------------------------------------------------------------------------
+
+
+def convert_flux_ae(sd, cfg, dtype=torch.float32, *, device="cuda"):
+    """FLUX AutoEncoder state dict (BAGEL's ae.safetensors, the reference
+    modeling/autoencoder.py naming: encoder.down.{i}.block.{j},
+    encoder.down.{i}.downsample.conv, {encoder,decoder}.mid.{block_1,
+    attn_1,block_2}, decoder.up.{i}.block.{j}, decoder.up.{i}.upsample.conv)
+    -> models.bagel.autoencoder.ImageVAE, every leaf in `dtype` (fp32, as
+    the JAX converter keeps it); convs stay [Cout, Cin, kh, kw]."""
+    from ..models.bagel.autoencoder import ImageVAE
+
+    e = _Entries(sd, device)
+
+    def conv(dst, src):
+        e.put(f"{dst}.w", f"{src}.weight", dtype)
+        e.put(f"{dst}.b", f"{src}.bias", dtype)
+
+    def res(dst, src):
+        e.norm(f"{dst}.norm1", f"{src}.norm1", dtype)
+        conv(f"{dst}.conv1", f"{src}.conv1")
+        e.norm(f"{dst}.norm2", f"{src}.norm2", dtype)
+        conv(f"{dst}.conv2", f"{src}.conv2")
+        if f"{src}.nin_shortcut.weight" in e.sd:
+            conv(f"{dst}.shortcut", f"{src}.nin_shortcut")
+
+    def mid(part):
+        res(f"{part}.mid_res1", f"{part}.mid.block_1")
+        a = f"{part}.mid.attn_1"
+        e.norm(f"{part}.mid_attn.norm", f"{a}.norm", dtype)
+        for dst, src in (("q", "q"), ("k", "k"), ("v", "v"),
+                         ("proj", "proj_out")):
+            conv(f"{part}.mid_attn.{dst}", f"{a}.{src}")
+        res(f"{part}.mid_res2", f"{part}.mid.block_2")
+        e.norm(f"{part}.norm_out", f"{part}.norm_out", dtype)
+        conv(f"{part}.conv_in", f"{part}.conv_in")
+        conv(f"{part}.conv_out", f"{part}.conv_out")
+
+    n_levels = len(cfg.ch_mult)
+    for i in range(n_levels):
+        for j in range(cfg.num_res_blocks):
+            res(f"encoder.down{i}.res{j}", f"encoder.down.{i}.block.{j}")
+        if i != n_levels - 1:
+            conv(f"encoder.down{i}.down", f"encoder.down.{i}.downsample.conv")
+        for j in range(cfg.num_res_blocks + 1):
+            res(f"decoder.up{i}.res{j}", f"decoder.up.{i}.block.{j}")
+        if i != 0:
+            conv(f"decoder.up{i}.up", f"decoder.up.{i}.upsample.conv")
+    mid("encoder")
+    mid("decoder")
+    return _assemble(ImageVAE(cfg, dtype=dtype, device="meta"), e)
+
+
+def load_flux_ae_checkpoint(path: str, cfg=None, *, device="cuda"):
+    """BAGEL's FLUX image VAE (ae.safetensors beside ema.safetensors; a
+    directory or the file) -> (ImageVAE on `device`, fp32, cfg), at
+    ImageVAEConfig() unless cfg is given. A key the converter never reads
+    raises."""
+    from ..models.bagel.autoencoder import ImageVAEConfig
+    from .manifest import audited
+
+    cfg = cfg or ImageVAEConfig()
+    if os.path.isdir(path):
+        path = os.path.join(path, "ae.safetensors")
+    vae, _ = audited(load_state_dict(path),
+                     lambda sd: convert_flux_ae(sd, cfg, device=device))
+    return vae, cfg
+
+
+# ---------------------------------------------------------------------------
 
 
 def _find_vae(checkpoint_dir: str) -> str:
@@ -590,8 +661,8 @@ def load_bagel_checkpoint(model_path: str, *, device="cuda",
     llm_layers=False places only the LLM's embed_tokens (what the fusion
     extractor reads, as init_bagel's llm_layers=False keeps it): the other
     LLM keys are still read, as meta tensors, and checked against the
-    LLM's shapes, but never copied. The FLUX image VAE (ae.safetensors)
-    comes with BAGEL image generation and is not read."""
+    LLM's shapes, but never copied. The FLUX image VAE beside it
+    (ae.safetensors) has its own loader, load_flux_ae_checkpoint."""
     from ..models.bagel.bagel import Bagel, BagelConfig
     from ..models.bagel.qwen2_mot import Qwen2MoTConfig, init_qwen2_mot
     from ..models.bagel.siglip import SiglipConfig

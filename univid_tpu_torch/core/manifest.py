@@ -5,15 +5,16 @@
     converter of core/checkpoint.py reads, in the reference's torch
     naming (Linear.weight [out, in], ConvNd.weight [out, in, k...]): the
     Wan DiT, the Wan video VAE, the UMT5 encoder, the Qwen2-MoT LLM with
-    BAGEL's heads and NaViT tower, and the SigLIP / SigLIP2 (NaFlex)
-    dual towers;
+    BAGEL's heads and NaViT tower, the SigLIP / SigLIP2 (NaFlex) dual
+    towers, and BAGEL's FLUX image VAE;
   * `audit_keys(sd, manifest)`: a checkpoint's keys and shapes against a
     manifest, before any conversion;
   * `RecordingDict` + `audited`: run a converter while recording which
     source keys it read, and fail on leftovers (the strict mode);
   * JSON save / load of the pinned manifests under manifests/.
 
-The SAM2, FLUX, T5-HF and CLIP generators come with their models.
+The SAM2, FLUX transformer, T5-HF and CLIP generators come with their
+models.
 """
 
 from __future__ import annotations
@@ -420,4 +421,64 @@ def bagel_manifest(llm_cfg, vit_cfg=None) -> Manifest:
         m["vit_pos_embed.pos_embed"] = (4900, d)
         m.update(siglip_vision_manifest(
             vit_cfg, "vit_model.vision_model", conv_patch=False))
+    return m
+
+
+def _conv2d(m: Manifest, key: str, cin: int, cout: int, k: int) -> None:
+    m[f"{key}.weight"] = (cout, cin, k, k)
+    m[f"{key}.bias"] = (cout,)
+
+
+def flux_ae_manifest(cfg) -> Manifest:
+    """BAGEL's ae.safetensors: the FLUX AutoEncoder at an ImageVAEConfig
+    (reference modeling/autoencoder.py naming; what convert_flux_ae
+    reads)."""
+    m: Manifest = {}
+
+    def gn(key, c):
+        m[f"{key}.weight"] = (c,)
+        m[f"{key}.bias"] = (c,)
+
+    def res(key, cin, cout):
+        gn(f"{key}.norm1", cin)
+        _conv2d(m, f"{key}.conv1", cin, cout, 3)
+        gn(f"{key}.norm2", cout)
+        _conv2d(m, f"{key}.conv2", cout, cout, 3)
+        if cin != cout:
+            _conv2d(m, f"{key}.nin_shortcut", cin, cout, 1)
+
+    def mid(part, c):
+        res(f"{part}.mid.block_1", c, c)
+        gn(f"{part}.mid.attn_1.norm", c)
+        for name in ("q", "k", "v", "proj_out"):
+            _conv2d(m, f"{part}.mid.attn_1.{name}", c, c, 1)
+        res(f"{part}.mid.block_2", c, c)
+
+    ch, mults = cfg.ch, tuple(cfg.ch_mult)
+    _conv2d(m, "encoder.conv_in", cfg.in_channels, ch, 3)
+    block_in = ch
+    for i, mult in enumerate(mults):
+        block_in = ch * ((1,) + mults)[i]
+        for j in range(cfg.num_res_blocks):
+            res(f"encoder.down.{i}.block.{j}", block_in, ch * mult)
+            block_in = ch * mult
+        if i != len(mults) - 1:
+            _conv2d(m, f"encoder.down.{i}.downsample.conv", block_in,
+                    block_in, 3)
+    mid("encoder", block_in)
+    gn("encoder.norm_out", block_in)
+    _conv2d(m, "encoder.conv_out", block_in, 2 * cfg.z_channels, 3)
+
+    block_in = ch * mults[-1]
+    _conv2d(m, "decoder.conv_in", cfg.z_channels, block_in, 3)
+    mid("decoder", block_in)
+    for i in reversed(range(len(mults))):
+        for j in range(cfg.num_res_blocks + 1):
+            res(f"decoder.up.{i}.block.{j}", block_in, ch * mults[i])
+            block_in = ch * mults[i]
+        if i != 0:
+            _conv2d(m, f"decoder.up.{i}.upsample.conv", block_in, block_in,
+                    3)
+    gn("decoder.norm_out", block_in)
+    _conv2d(m, "decoder.conv_out", block_in, cfg.out_ch, 3)
     return m

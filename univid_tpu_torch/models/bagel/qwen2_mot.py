@@ -13,7 +13,10 @@ Differences from the JAX function, each deliberate:
   * The cache is updated in place (the JAX function returns a new cache):
     a context whose cache was appended to must not be appended to again.
     The cache also carries `len_host`, the host's copy of the lengths, so
-    no call reads the device to know where the cursor is.
+    no call reads the device to know where the cursor is. Where a JAX
+    caller throws the returned cache away (the flow loop's CFG branches),
+    the port runs the pass with `commit=False`: its rows are written past
+    the cursor and attended to, and the cursor stays where it was.
   * An append that would pass the capacity raises ValueError; JAX's
     dynamic_update_slice clamps the start and overwrites valid rows.
   * The decode-shaped einsums read the cache up to the longest row's new
@@ -199,12 +202,16 @@ def qwen2_mot_forward(params, cfg: Qwen2MoTConfig, x: torch.Tensor,
                       mode: str = "und",
                       und_rows: Optional[torch.Tensor] = None,
                       is_causal: bool = True,
-                      compute_dtype=torch.bfloat16, final_norm: bool = True):
+                      compute_dtype=torch.bfloat16, final_norm: bool = True,
+                      commit: bool = True):
     """x [B, L, hidden] input embeddings at rope positions pos_ids [B, L];
     appends their keys and values to `cache` at each row's cursor (in
     place) and returns (hidden [B, L, hidden], cache). q_valid: the rows
     that advance the cursor (the rest are padding, written past it and
-    masked). mode 'gen' runs the gen experts except at und_rows [n]."""
+    masked). mode 'gen' runs the gen experts except at und_rows [n].
+    commit=False writes and attends to the fresh rows as a committed pass
+    does, and leaves `len` and `len_host` as they were: the rows up to
+    the cursor are unchanged, so the pass leaves the context as it was."""
     b, l, _ = x.shape
     hd = cfg.head_dim
     cap = cache["k"].shape[2]
@@ -291,8 +298,9 @@ def qwen2_mot_forward(params, cfg: Qwen2MoTConfig, x: torch.Tensor,
                 m[:, und] = _qwen_mlp(layer.mlp, y[:, und], compute_dtype)
         h = h + m
 
-    cache["len"] = new_len
-    cache["len_host"] = new_host
+    if commit:
+        cache["len"] = new_len
+        cache["len_host"] = new_host
     if final_norm:
         if gen_mode:
             h = _expert_norm(params.norm, params.norm_gen, h, und,

@@ -1,17 +1,23 @@
-"""Interleaved multimodal inference with BAGEL: the understanding path.
+"""Interleaved multimodal inference with BAGEL: understanding, image
+generation and editing.
 
 Counterpart of univid_tpu/pipelines/interleave.py (InterleaveInferencer):
 text and image segments go into the KV cache in order (images through the
-SigLIP tower and the ViT append, text through the causal prefill), then
-BAGEL decodes text. Prompts are padded to `TEXT_BUCKETS` and patch counts
+SigLIP tower and the ViT append, and for generation first through the FLUX
+image VAE and the VAE-latent append; text through the causal prefill),
+then BAGEL decodes text or generates an image by flow matching inside the
+LLM with dual CFG. Prompts are padded to `TEXT_BUCKETS` and patch counts
 to `VIT_BUCKETS` with `n_valid`, as in the JAX package, so both run the
 same shapes. `caption_frames` runs its frames as one batch (the JAX package
 vmaps them), each row with its own cache length.
 
-The image-generation side (the VAE tower, `gen_image`, the CFG contexts
-that only feed it) waits for the image-generation slice and raises here.
 The port's cache is updated in place: a context passed to an update must
-not be updated again (every caller here threads the returned one).
+not be updated again (every caller here threads the returned one). Where
+the JAX inferencer keeps a context's old value while extending it (the
+CFG contexts, the think-mode decode before an image), the port takes a
+`fork_context` first. A 1024x1024 request needs more rows than the default
+capacity of 4,096 (4,098 for the latent alone): pass a larger `capacity`;
+an append past it raises, where JAX's overwrites.
 """
 
 from __future__ import annotations
@@ -21,9 +27,13 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from ..models.bagel.autoencoder import (ImageVAE, ImageVAEConfig,
+                                        image_vae_decode, image_vae_encode)
 from ..models.bagel.bagel import (Bagel, BagelConfig, flattened_position_ids,
+                                  fork_context, generate_image_latent,
                                   generate_text, init_gen_context,
-                                  update_context_text, update_context_vit)
+                                  unpatchify_latent, update_context_text,
+                                  update_context_vae, update_context_vit)
 from ..models.bagel.siglip import (Siglip, SiglipConfig, image_to_patches,
                                    siglip_forward, vit_aligned_resize)
 
@@ -41,11 +51,6 @@ GEN_THINK_SYSTEM_PROMPT = (
     "<think> planning process here </think> image here"
 )
 
-_IMAGE_GEN = ("image generation (the FLUX image VAE, update_context_vae, "
-              "generate_image_latent) is a later port slice (ROADMAP.md "
-              "queue 1: BAGEL image generation)")
-
-
 class InterleaveInferencer:
     """Single-sample interleaved inference on the device of `bagel`."""
 
@@ -55,15 +60,16 @@ class InterleaveInferencer:
     def __init__(self, bagel: Bagel, bagel_cfg: BagelConfig, tokenizer,
                  siglip: Optional[Siglip] = None,
                  siglip_cfg: Optional[SiglipConfig] = None,
-                 vae=None, vae_cfg=None, capacity: int = 4096,
-                 compute_dtype=torch.bfloat16):
-        if vae is not None:
-            raise NotImplementedError(_IMAGE_GEN)
+                 vae: Optional[ImageVAE] = None,
+                 vae_cfg: Optional[ImageVAEConfig] = None,
+                 capacity: int = 4096, compute_dtype=torch.bfloat16):
         self.params = bagel
         self.cfg = bagel_cfg
         self.tokenizer = tokenizer
         self.siglip = siglip
         self.siglip_cfg = siglip_cfg
+        self.vae = vae
+        self.vae_cfg = vae_cfg
         self.capacity = capacity
         self.dtype = compute_dtype
 
@@ -131,15 +137,36 @@ class InterleaveInferencer:
         return update_context_vit(self.params, self.cfg, ctx, feats, pos,
                                   compute_dtype=self.dtype, n_valid=n_valid)
 
+    def vae_resize(self, image: torch.Tensor) -> torch.Tensor:
+        """Stride-aligned resize for the VAE path: sides to multiples of
+        latent_downsample (16), the long side clamped to max_latent_size *
+        latent_downsample (1024)."""
+        stride = self.cfg.latent_downsample
+        return vit_aligned_resize(image, stride,
+                                  self.cfg.max_latent_size * stride)
+
+    @torch.no_grad()
+    def update_context_vae_image(self, image, ctx):
+        """The VAE tower of an image context: the resized image's FLUX
+        encoding appended as timestep-0 latent rows."""
+        if self.vae is None:
+            raise ValueError("the image VAE is not loaded")
+        img = self.vae_resize(self._image(image))
+        latent = image_vae_encode(self.vae, self.vae_cfg, img[None])
+        return update_context_vae(self.params, self.cfg, ctx, latent,
+                                  compute_dtype=self.dtype)
+
     @torch.no_grad()
     def update_context_image(self, image, ctx, bucketed: bool = True,
                              vae: bool = False):
-        """image [H, W, 3] in [-1, 1]; resized to ViT patch multiples. The
-        understanding path appends the ViT tower only."""
+        """image [H, W, 3] in [-1, 1]; resized to ViT patch multiples.
+        vae=True puts the VAE-latent rows before the ViT rows (generation
+        and editing contexts condition on both towers, understanding ones
+        on the ViT tower only)."""
         if self.siglip is None:
             raise ValueError("the vision tower is not loaded")
         if vae:
-            raise NotImplementedError(_IMAGE_GEN)
+            ctx = self.update_context_vae_image(image, ctx)
         if bucketed:
             patches, pos, segs, n = self._prep_image_bucketed(image)
             feats = self.vit_features(patches, pos, segs)
@@ -218,33 +245,101 @@ class InterleaveInferencer:
             compute_dtype=self.dtype)
         return self._decode(tokens[0].cpu().numpy(), length[0])
 
-    def gen_image(self, *args, **kwargs):
-        raise NotImplementedError(_IMAGE_GEN)
+    @torch.no_grad()
+    def gen_image(self, image_shape, ctx, *, cfg_text_ctx=None,
+                  cfg_img_ctx=None, cfg_text_scale=4.0, cfg_img_scale=1.5,
+                  cfg_interval=(0.4, 1.0), cfg_renorm_min=0.0,
+                  cfg_renorm_type="global", num_timesteps=50,
+                  timestep_shift=3.0, rng: Optional[torch.Generator] = None,
+                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The generated image [H, W, 3] in [0, 1]: the flow loop over the
+        three contexts (each left as it was), unpatchify, the FLUX decode,
+        then clip(x * 0.5 + 0.5, 0, 1)."""
+        if self.vae is None:
+            raise ValueError("the image VAE is not loaded")
+        tokens, grid = generate_image_latent(
+            self.params, self.cfg, ctx, image_shape,
+            cfg_text_ctx=cfg_text_ctx, cfg_img_ctx=cfg_img_ctx,
+            num_timesteps=num_timesteps, timestep_shift=timestep_shift,
+            cfg_text_scale=cfg_text_scale, cfg_img_scale=cfg_img_scale,
+            cfg_interval=cfg_interval, cfg_renorm_min=cfg_renorm_min,
+            cfg_renorm_type=cfg_renorm_type, rng=rng, noise=noise,
+            compute_dtype=self.dtype)
+        latent = unpatchify_latent(tokens[0], grid,
+                                   self.cfg.latent_patch_size,
+                                   self.cfg.latent_channel)
+        img = image_vae_decode(self.vae, self.vae_cfg, latent[None])[0]
+        return torch.clamp(img * 0.5 + 0.5, 0.0, 1.0)
 
     # ------------------------------------------------------------------
     def interleave_inference(
         self, input_list: List[Union[str, Any]], *, think: bool = False,
         understanding_output: bool = False, max_think_token_n: int = 1000,
         do_sample: bool = False, text_temperature: float = 0.3,
-        rng: Optional[torch.Generator] = None, **image_kwargs,
-    ) -> List[str]:
-        """Text and images into one context in order, then the answer.
-        Only the understanding output is ported: image generation raises,
-        and its keyword arguments (CFG scales, timesteps, image shapes)
-        are ignored here, as the JAX package ignores them for text."""
-        if not understanding_output:
-            raise NotImplementedError(_IMAGE_GEN)
+        cfg_text_scale: float = 3.0, cfg_img_scale: float = 1.5,
+        cfg_interval=(0.4, 1.0), timestep_shift: float = 3.0,
+        num_timesteps: int = 50, cfg_renorm_min: float = 0.0,
+        cfg_renorm_type: str = "global", image_shapes=(1024, 1024),
+        rng: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> List[Union[str, torch.Tensor]]:
+        """Text and images into one context in order, then the answer text,
+        or (understanding_output=False) the think text if `think`, then the
+        image. Generation keeps JAX's three contexts: ctx (everything),
+        cfg_text_ctx (ctx before its last text segment; ctx itself after an
+        image) and cfg_img_ctx (the text segments alone); an input image
+        appends both towers when a VAE is loaded and sets image_shapes to
+        its own."""
+        gen = not understanding_output
         ctx = self.init_gen_context()
+        # None stands for the empty context; after an image, cfg_text_ctx
+        # is ctx itself, forked before ctx is extended
+        cfg_text_ctx = cfg_img_ctx = None
         if think:
-            ctx = self.update_context_text(VLM_THINK_SYSTEM_PROMPT, ctx)
+            sp = GEN_THINK_SYSTEM_PROMPT if gen else VLM_THINK_SYSTEM_PROMPT
+            ctx = self.update_context_text(sp, ctx)
+            if gen:
+                cfg_img_ctx = self.update_context_text(
+                    sp, self.init_gen_context())
         for term in input_list:
             if isinstance(term, str):
+                if gen:
+                    cfg_text_ctx = fork_context(ctx)
+                    cfg_img_ctx = self.update_context_text(
+                        term, cfg_img_ctx if cfg_img_ctx is not None
+                        else self.init_gen_context())
                 ctx = self.update_context_text(term, ctx)
             else:
-                ctx = self.update_context_image(term, ctx, vae=False)
-        return [self.gen_text(ctx, max_length=max_think_token_n,
-                              do_sample=do_sample,
-                              temperature=text_temperature, rng=rng)]
+                ctx = self.update_context_image(
+                    term, ctx, vae=gen and self.vae is not None)
+                image_shapes = tuple(term.shape[:2])
+                cfg_text_ctx = ctx
+        if not gen:
+            return [self.gen_text(ctx, max_length=max_think_token_n,
+                                  do_sample=do_sample,
+                                  temperature=text_temperature, rng=rng)]
+        out = []
+        if think:
+            # the decode appends to the cache it reads: decode on a fork
+            txt = self.gen_text(fork_context(ctx),
+                                max_length=max_think_token_n,
+                                do_sample=do_sample,
+                                temperature=text_temperature, rng=rng)
+            if cfg_text_ctx is ctx:
+                cfg_text_ctx = fork_context(ctx)
+            ctx = self.update_context_text(txt, ctx)
+            out.append(txt)
+        out.append(self.gen_image(
+            image_shapes, ctx,
+            cfg_text_ctx=cfg_text_ctx if cfg_text_ctx is not None
+            else self.init_gen_context(),
+            cfg_img_ctx=cfg_img_ctx if cfg_img_ctx is not None
+            else self.init_gen_context(),
+            cfg_text_scale=cfg_text_scale, cfg_img_scale=cfg_img_scale,
+            cfg_interval=cfg_interval, cfg_renorm_min=cfg_renorm_min,
+            cfg_renorm_type=cfg_renorm_type, num_timesteps=num_timesteps,
+            timestep_shift=timestep_shift, rng=rng, noise=noise))
+        return out
 
     def video_understanding(self, video: List[Any], text: str,
                             fps: float = 1.0,
@@ -286,5 +381,5 @@ class InterleaveInferencer:
         if not inputs:
             return result
         for item in self.interleave_inference(inputs, **kwargs):
-            result["text"] = item
+            result["text" if isinstance(item, str) else "image"] = item
         return result
