@@ -20,7 +20,10 @@ Phases:
      kernel (d=1024, 640 at ti2v-5B's 3,520 tokens, d=384; 3xTF32 on the
      tensor cores, timed in turns with the CUDA-core kernel it replaced,
      `tc_vs_simt` lines, and the name of the kernel SDPA's fp32 call runs),
-     the serving kernels again at the ti2v-5B shapes; the training forward with lse
+     the serving kernels again at the ti2v-5B shapes and at the A14B
+     shapes (40 heads: self [2, 32768, 40, 128] over 32,760 keys, cross
+     over [2, 512, 40, 128], kernel A; `kernel_at_a14b_shape` lines, the
+     kernels line's `*_a14b` entries); the training forward with lse
      and the dq and dk/dv kernels at the self and cross shapes, and
      attention() under grad against autograd through an fp32 reference;
      the one-pass sm90 backward (flash_attention_bwd_sm90.cu) at the same
@@ -74,7 +77,9 @@ Phases:
      `mma_sync_ms`);
   4. hold the port on the card (kernels) against the port on the CPU
      (plain versions) on small d=128 models: the t2v pipeline, the
-     FusionPipeline in t2v and i2v (with the ti2v-5B VAE), three LoRA +
+     FusionPipeline in t2v and i2v (with the ti2v-5B VAE), the A14B
+     dual-expert WanMoEPipeline in t2v and i2v (two 2-block d=128 experts,
+     the A14B VAE, 2 steps: one on each expert), three LoRA +
      projector diffusion train steps and the training loop; the
      full-width BAGEL extractor and projector (bf16, 1280x704 image)
      against the CPU at a 224x224 and a 300x500 crop; a small BAGEL's
@@ -110,6 +115,17 @@ Phases:
      steps; check both mp4s, the fusion context, the peak memory and each
      mode's launches (the fp32 VAE kernel once per decoded chunk at
      d=1024, once more at d=640 for the i2v encode, never at d=384);
+  7b. drive Wan2.2 A14B serving through the CLI at full width and depth
+     (two 40-block experts, 57.15 GB in bf16), 832x480x81, 2 steps (one
+     on each expert): t2v-A14B --no_bagel, then i2v-A14B with a seeded
+     first frame and the fusion context, each model freed before the next
+     is drawn; check both mp4s, each request's launches (40 a DiT call of
+     self- and cross-attention and of kernel A's two modes, 21 d=384 VAE
+     calls a decode and 21 for the i2v encode), both experts resident
+     through the denoise, and log each phase's peak memory; then, with
+     both t2v-A14B experts resident, one 480p DiT call profiled and one
+     bare call at the published 1280x720x81 (75,600 tokens padded to
+     75,776): seconds, peak memory, launches;
   8. drive the video-QA path: one full-width BAGEL-7B-MoT reflexion
      request (14 of its 28 layers, BAGEL_QA_LAYERS; 16 seed captions,
      K = 4, 8, 16, 512-token greedy decodes)
@@ -763,6 +779,10 @@ def check_kernels():
             records["flash_attention_f32"] = rec
         else:
             log(json.dumps({f"kernel_at_d{dv}": rec}))
+        if dv == 384:   # A14B's decode and i2v encode run this shape
+            records["flash_attention_f32_d384"] = dict(
+                rec, name="flash_attention_f32_d384",
+                counter="flash_attention_f32")
         del q, k, v, got, qs, ks, vs
     for r in records.values():
         log(json.dumps({"kernel": r}))
@@ -779,6 +799,180 @@ def retime_ti2v_kernels():
                                  "ti2v-5B", 24, (31, 22, 40), 28672)
     for rec in recs.values():
         log(json.dumps({"kernel_at_ti2v5b_shape": rec}))
+    torch.cuda.empty_cache()
+
+
+# the kernels-line entries of the A14B shape: the four kernels its DiT
+# calls, and the d=384 VAE kernel (its decode and i2v encode)
+A14B_KERNELS = ("flash_attention_bf16", "cross_attention_bf16",
+                "qk_norm_rope_bf16", "qk_norm_bf16")
+
+
+def retime_a14b_kernels():
+    """The serving kernels at the t2v-A14B / i2v-A14B shapes (832x480x81:
+    21 x 30 x 52 = 32,760 tokens padded to 32,768, 40 heads of d=128:
+    self-attention [2, 32768, 40, 128], cross-attention over [2, 512, 40,
+    128], kernel A's two modes), logged on `kernel_at_a14b_shape` lines.
+    Returns them as kernels-line records named `<kernel>_a14b`, counted by
+    each kernel's own counter in the A14B requests (the d=384 VAE kernel's
+    record, `flash_attention_f32_d384`, comes from check_kernels: the
+    t2v-1.3B shape is A14B's, the same VAE at the same size)."""
+    import torch
+
+    recs = check_serving_kernels(torch.Generator(device="cuda").manual_seed(3),
+                                 "t2v-A14B", 40, (21, 30, 52), 32768)
+    out = {}
+    for nm, rec in recs.items():
+        log(json.dumps({"kernel_at_a14b_shape": rec}))
+        if nm in A14B_KERNELS:
+            out[f"{nm}_a14b"] = dict(rec, name=f"{nm}_a14b", counter=nm)
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_a14b_720p_kernels():
+    """The serving kernels at the 1280x720x81 A14B call's shapes (21 x 45 x
+    80 = 75,600 tokens padded to 75,776, 40 heads of d=128, batch-2 CFG):
+    kernel A's two modes, self-attention (grid 592 x 80) and
+    cross-attention, each launched on the whole tensors as the 720p DiT
+    call launches it, then held to its plain version on the rows and heads
+    that reach the largest offsets and block indices: both batches, the
+    first q tile and the last three (past kv_len too), heads 0, 38 and 39
+    against every key. Each timed; logged on `kernel_at_a14b_720p_shape`
+    lines (self-attention beside SDPA; the plain versions are not timed at
+    this size: self-attention's holds 4.6e11 fp32 scores)."""
+    import torch
+    import torch.nn.functional as F
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.ops.rope import build_rope_3d
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, l, n, d, lk = 2, 75776, 40, 128, 512
+    grid = (21, 45, 80)
+    kv_real = grid[0] * grid[1] * grid[2]
+    rows = torch.cat([torch.arange(0, 128), torch.arange(l - 384, l)]).cuda()
+    heads = [0, n - 2, n - 1]
+    tag = "t2v-A14B 720p"
+    sc = fa.LOG2E / math.sqrt(d)
+    cos, sin = build_rope_3d(d, grid, device="cuda")
+    tabs = fa._pad_tables(fa.build_fused_rope_tables(cos, sin, d), l, l, sc)
+    tabs_r = tuple(t[rows] for t in tabs)
+    src_a = "univid_tpu_torch/kernels/csrc/qk_prepass.cu"
+    src_f = "univid_tpu_torch/kernels/csrc/flash_attention_sm90.cu"
+
+    def sub(x):   # the checked rows and heads of [B, L, N, D]
+        return x[:, rows][:, :, heads]
+
+    def record(name, src, replaces, err, ms, flops, nb, lib_ms=None):
+        bms, by = bound_ms(flops, nb, H100_BF16_FLOPS)
+        log(json.dumps({"kernel_at_a14b_720p_shape": dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            max_abs_err=err, ms=ms, bound_ms=bms, bound_by=by,
+            library_ms=lib_ms, checked_rows=[0, 128, l - 384, l],
+            checked_heads=heads)}))
+
+    with torch.no_grad():
+        # ---- kernel A: norm + rope (self), norm only (cross) -------------
+        q = (torch.randn((b, l, n, d), generator=gen, device="cuda") * 3).to(
+            torch.bfloat16)
+        k = (torch.randn((b, l, n, d), generator=gen, device="cuda") * 3).to(
+            torch.bfloat16)
+        gq, gk = ((torch.rand((n * d,), generator=gen, device="cuda") + 0.5)
+                  .to(torch.bfloat16) for _ in range(2))
+        norm = (gq, gk, QK_EPS)
+        got = fa.qk_norm_rope(q, k, qk_norm=norm, rope_tables=tabs)
+        nq, nk = fa.qk_norm_rope_plain(q[:, rows], k[:, rows], norm)
+        want = fa.qk_norm_rope_plain(nq, nk, None, tabs_r)
+        err = 0.0
+        for name, g, w, x, c_, s_ in (
+                ("q", got[0][:, rows], want[0], nq, tabs_r[0], tabs_r[1]),
+                ("k", got[1][:, rows], want[1], nk, tabs_r[2], tabs_r[3])):
+            lim = QK_STEP * _rope_abs(x, c_, s_) + 2.0 ** -7 * 1.0625 * \
+                w.float().abs()
+            err = max(err, compare_within(
+                f"qk_norm_rope_bf16 {tag} norm+rope {name}", g, w, lim,
+                QK_WHY))
+        nb = nbytes(q, k, *got, gq, gk, *tabs)
+        del got, nq, nk, want
+        ms = cuda_time(lambda: fa.qk_norm_rope(q, k, qk_norm=norm,
+                                               rope_tables=tabs), 2)
+        record("qk_norm_rope_bf16", src_a,
+               "univid_tpu/kernels/flash_attention.py:157", err, ms, 0, nb)
+        kc = k[:, :lk].contiguous()
+        del k
+        got = fa.qk_norm_rope(q, kc, qk_norm=norm)
+        want = fa.qk_norm_rope_plain(q[:, rows], kc, norm)
+        err = max(compare_within(f"qk_norm_bf16 {tag} norm only (cross) q",
+                                 got[0][:, rows], want[0],
+                                 QK_STEP * want[0].float().abs(), QK_WHY),
+                  compare_within(f"qk_norm_bf16 {tag} norm only (cross) k",
+                                 got[1], want[1],
+                                 QK_STEP * want[1].float().abs(), QK_WHY))
+        nb = nbytes(q, kc, *got, gq, gk)
+        del got, want
+        ms = cuda_time(lambda: fa.qk_norm_rope(q, kc, qk_norm=norm), 2)
+        record("qk_norm_bf16", src_a,
+               "univid_tpu/kernels/flash_attention.py:157", err, ms, 0, nb)
+        del q, kc
+
+        # ---- self-attention on kernel A's rotated q and k -----------------
+        q = qk_normed((b, l, n, d), gen, torch.bfloat16)
+        k = qk_normed((b, l, n, d), gen, torch.bfloat16)
+        qr, kr = fa.qk_norm_rope(q, k, rope_tables=tabs)
+        del q, k
+        v = torch.randn((b, l, n, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        # padded keys hold large values: a kernel that let them into the
+        # softmax or the p @ v product would be far off
+        kr[:, kv_real:] = 50.0
+        v[:, kv_real:] = 50.0
+        kv_len = torch.full((b,), kv_real, dtype=torch.int32, device="cuda")
+        bound = torch.tensor([1.01 * d * sc], device="cuda")
+        tol = dict(atol=1e-3, rtol=2.0 ** -7,
+                   why="one bf16 ulp of the output (at most 2^-7 relative) "
+                       "plus 1e-3 for the fp32 summation order and the "
+                       "approximate exp2 before p rounds to bf16")
+        got = fa._flash_cuda(qr, kr, v, kv_len, bound, None)
+        want = fa.attention_plain(sub(qr), kr[:, :, heads], v[:, :, heads],
+                                  kv_len=kv_len, bound=bound)
+        err = compare(f"flash_attention_bf16 {tag} bounded+kv_len",
+                      sub(got), want, **tol)
+        nb = nbytes(qr, kr, v, got)
+        del got, want
+        ms = cuda_time(lambda: fa._flash_cuda(qr, kr, v, kv_len, bound,
+                                              None), 2)
+        qs, ks, vs = (x.transpose(1, 2) for x in (qr, kr, v))
+        lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+            qs, ks[:, :, :kv_real], vs[:, :, :kv_real],
+            scale=1.0 / fa.LOG2E), 1)
+        record("flash_attention_bf16", src_f,
+               "univid_tpu/kernels/flash_attention.py:44", err, ms,
+               4 * b * n * l * kv_real * d, nb, lib_ms)
+        del qr, kr, v, qs, ks, vs
+
+        # ---- cross-attention: the video tokens x 512 text tokens ---------
+        q = (qk_normed((b, l, n, d), gen, torch.bfloat16)
+             * torch.tensor(sc, dtype=torch.bfloat16, device="cuda"))
+        k = qk_normed((b, lk, n, d), gen, torch.bfloat16)
+        v = torch.randn((b, lk, n, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        got = fa.cross_attention_padded(q, k, v, score_bound=bound)
+        want = fa.attention_plain(sub(q), k[:, :, heads], v[:, :, heads],
+                                  bound=bound)
+        err = compare(f"cross_attention_bf16 {tag} bounded", sub(got), want,
+                      **tol)
+        nb = nbytes(q, k, v, got)
+        del got, want
+        ms = cuda_time(lambda: fa.cross_attention_padded(
+            q, k, v, score_bound=bound), 3)
+        qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, scale=1.0 / fa.LOG2E), 3)
+        record("cross_attention_bf16", src_f,
+               "univid_tpu/kernels/flash_attention.py:355", err, ms,
+               4 * b * n * l * lk * d, nb, lib_ms)
+        del q, k, v, qs, ks, vs
     torch.cuda.empty_cache()
 
 
@@ -1788,6 +1982,359 @@ def ti2v_main_path(output_dir):
     if peak >= 80.0:
         fail(f"ti2v-5B peak memory {peak:.1f} GB")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Wan2.2 A14B dual-expert serving (pipelines/moe.py)
+# ---------------------------------------------------------------------------
+
+
+def small_moe_parity():
+    """Phase 4: WanMoEPipeline on the card (kernels) against the CPU (plain
+    versions), t2v and i2v, same weights, noise, context and image: two
+    2-block experts with 2 heads of d=128 (their output heads random: the
+    mock DiT's zero head gives velocity 0 on both), bf16, the A14B VAE
+    config (the d=384 mid-block attention) at 64x64x9, 2 UniPC steps at
+    shift 5 (timesteps 999 and 833: one step on each expert)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from univid_tpu_torch.core.config import WAN_CONFIGS, WanDiTConfig
+    from univid_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.wan.dit import WanDiT
+    from univid_tpu_torch.models.wan.vae_api import WanVAE, vae_decode
+    from univid_tpu_torch.ops.samplers import flow_sigmas
+    from univid_tpu_torch.pipelines.moe import (WanMoEPipeline,
+                                                expert_schedule)
+
+    policy = dataclasses.replace(DEFAULT_POLICY, bounded_softmax=True)
+    for model, in_dim in (("t2v-A14B", 16), ("i2v-A14B", 36)):
+        base = WAN_CONFIGS[model]
+        dit_cfg = WanDiTConfig(model_type=base.dit.model_type, in_dim=in_dim,
+                               out_dim=16, dim=256, ffn_dim=512, freq_dim=32,
+                               text_dim=64, num_heads=2, num_layers=2,
+                               text_len=32)
+        spec = dataclasses.replace(base, dit=dit_cfg)
+        gen = torch.Generator().manual_seed(19)
+        experts = []
+        for _ in range(2):
+            dit = WanDiT(dit_cfg, dtype=torch.bfloat16, device="cpu", gen=gen)
+            with torch.no_grad():
+                dit.head.head.w.normal_(0.0, 0.05, generator=gen)
+                for blk in dit.blocks:
+                    for a in (blk.self_attn, blk.cross_attn):
+                        a.norm_q.uniform_(0.5, 1.5, generator=gen)
+                        a.norm_k.uniform_(0.5, 1.5, generator=gen)
+            experts.append(dit)
+        vae = WanVAE(base.vae, dtype=torch.bfloat16, device="cpu", gen=gen)
+        rng = np.random.default_rng(19)
+        # 64x64x9: latent 3 x 8 x 8 -> 48 tokens (padded to 64, kv_len)
+        noise = torch.as_tensor(rng.standard_normal((1, 3, 8, 8, 16)),
+                                dtype=torch.float32)
+        ctx = torch.as_tensor(rng.standard_normal((2, 32, 64)) * 0.5,
+                              dtype=torch.float32)
+        img = (torch.as_tensor(rng.uniform(-1, 1, (64, 64, 3)),
+                               dtype=torch.float32)
+               if model.startswith("i2v") else None)
+
+        def run(device):
+            low, high = (copy.deepcopy(d).to(device) for d in experts)
+            v = copy.deepcopy(vae).to(device)
+            pipe = WanMoEPipeline(spec, low, high, v, policy=policy)
+            x0 = pipe.generate(
+                ctx[0].to(device), ctx[1].to(device), size=(64, 64),
+                frame_num=9, shift=5.0, sampling_steps=2,
+                guide_scale=(3.0, 4.0), noise=noise,
+                img=None if img is None else img.to(device), decode=False)
+            return x0.float().cpu(), vae_decode(v, x0).float().cpu()
+
+        fa.reset_launches()
+        x_gpu, v_gpu = run("cuda")
+        used = {k: n for k, n in fa.LAUNCHES.items() if n}
+        x_cpu, v_cpu = run("cpu")
+        is_high, _ = expert_schedule(spec, flow_sigmas(2, shift=5.0)[1],
+                                     (3.0, 4.0))
+        # 2 blocks x 2 steps; the d=384 VAE attention: 3 decoded latent
+        # frames, and 3 encoded chunks of the i2v frames (1 + 2 x 4)
+        n_f32 = 3 + (3 if img is not None else 0)
+        want = {"flash_attention_bf16": 4, "cross_attention_bf16": 4,
+                "qk_norm_rope_bf16": 4, "qk_norm_bf16": 4,
+                "flash_attention_f32": n_f32}
+        out = {"check": f"small_moe_parity {model}",
+               "latent_rel_l2": rel_l2(x_gpu, x_cpu),
+               "video_rel_l2": rel_l2(v_gpu, v_cpu), "limit": 3e-2,
+               "why": "bf16 compute policy: cuBLAS and the CPU round each "
+                      "GEMM at other points (2^-8 relative), over 2 blocks "
+                      "x 2 steps, one on each expert",
+               "experts_by_step": ["high" if h else "low" for h in is_high],
+               "launches": used, "expected_launches": want,
+               "finite": bool(torch.isfinite(v_gpu).all())}
+        out["ok"] = (out["finite"] and used == want
+                     and list(is_high) == [True, False]
+                     and out["latent_rel_l2"] < 3e-2
+                     and out["video_rel_l2"] < 3e-2)
+        log(json.dumps(out))
+        if not out["ok"]:
+            fail(f"WanMoEPipeline {model} on the card disagrees with the CPU"
+                 " or missed a kernel")
+
+
+A14B_STEPS = 2       # timesteps 999 and 833 at the CLI's --shift 5: one
+                     # step on each expert at both boundaries (0.875, 0.900)
+A14B_FRAMES = 81
+A14B_EXPERT_PARAMS = {"t2v-A14B": 14_288_491_584,   # JAX's wan_dit_manifest
+                      "i2v-A14B": 14_288_901_184}
+
+
+class _PhasePeaks:
+    """The peak device memory of each CLI phase: PhaseTimer.phase patched to
+    reset the peak at each phase's start and keep the largest peak by name
+    (init_weights runs three times: UMT5, the DiTs and VAE, the fusion
+    stack); dit_step runs inside denoise and is left to it. The memory
+    allocated when denoise starts shows what is resident."""
+
+    def __init__(self):
+        import contextlib
+
+        import torch
+
+        from univid_tpu_torch.utils import profiling
+
+        self.peaks, self.at_start = {}, {}
+        self._cls = profiling.PhaseTimer
+        self._orig = profiling.PhaseTimer.phase
+        orig, peaks, at_start = self._orig, self.peaks, self.at_start
+
+        @contextlib.contextmanager
+        def phase(timer, name):
+            if name == "dit_step":
+                with orig(timer, name):
+                    yield
+                return
+            torch.cuda.synchronize()
+            at_start.setdefault(name, torch.cuda.memory_allocated() / 1e9)
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                with orig(timer, name):
+                    yield
+            finally:
+                peaks[name] = max(peaks.get(name, 0.0),
+                                  torch.cuda.max_memory_allocated() / 1e9)
+
+        self._cls.phase = phase
+
+    def close(self):
+        self._cls.phase = self._orig
+
+
+def a14b_main_path(output_dir):
+    """Wan2.2 A14B serving through the port's CLI at full width and depth
+    (two 40-block experts of dim 5120, random bf16 weights from seeds 0 and
+    5), 832x480x81 (32,760 tokens padded to 32,768), 2 steps at the CLI's
+    --shift 5 (one on each expert), each model freed before the next one
+    is drawn: t2v-A14B --mode t2v --no_bagel, then i2v-A14B --mode i2v
+    with a seeded 832x480 first frame and the CLI's default fusion
+    context. Checks each mp4 (81 frames of 480x832), its context_path, the
+    launches of each request (40 a DiT call of self- and cross-attention
+    and of kernel A's two modes, all on sm90; 21 d=384 VAE calls a decode
+    and 21 more for the i2v encode's 21 chunks; nothing else), both
+    experts resident through the denoise, and logs the peak memory of
+    each phase. Returns {model: launch counts}."""
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from univid_tpu_torch.cli import inference
+    from univid_tpu_torch.data.video_io import read_video_frames
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    os.makedirs(output_dir, exist_ok=True)
+    png = os.path.join(output_dir, "a14b_first_frame.png")
+    rng = np.random.default_rng(19)
+    Image.fromarray(rng.integers(0, 256, (480, 832, 3), dtype=np.uint8)) \
+        .save(png)
+    steps, frames = A14B_STEPS, A14B_FRAMES
+    by_path = {}
+    for model, mode, extra, ctx_path in (
+            ("t2v-A14B", "t2v", ["--no_bagel"], "umt5"),
+            ("i2v-A14B", "i2v", ["--image", png], "bagel_fusion")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated() / 1e9
+        fa.reset_launches()
+        peaks = _PhasePeaks()
+        t0 = time.perf_counter()
+        try:
+            meta = inference.main([
+                "--model", model, "--mode", mode, "--mock_weights",
+                "--video_size", "832x480", "--video_length", str(frames),
+                "--steps", str(steps), "--seed", "0", "--output_dir",
+                output_dir] + extra)[0]
+        finally:
+            peaks.close()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        f32_by_d = dict(fa.F32_LAUNCHES_BY_D)
+        impl = dict(fa.LAUNCHES_BY_IMPL)
+        n_f32 = 21 * (2 if mode == "i2v" else 1)
+        expected = dict(dict.fromkeys(launches, 0), **{
+            "flash_attention_bf16": 40 * steps,
+            "cross_attention_bf16": 40 * steps,
+            "qk_norm_rope_bf16": 40 * steps,
+            "qk_norm_bf16": 40 * steps,
+            "flash_attention_f32": n_f32})
+        f32_expected = {384: n_f32, 640: 0, 1024: 0}
+        impl_expected = {"sm90": 80 * steps, "causal_sm90": 0, "mma_sync": 0}
+        fr = read_video_frames(meta["video_path"])
+        expert_gb = 2 * 2 * A14B_EXPERT_PARAMS[model] / 1e9   # two, bf16
+        resident = peaks.at_start.get("denoise", 0.0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        after = torch.cuda.memory_allocated() / 1e9
+        rec = {"phase": "a14b_main_path", "model": model, "mode": mode,
+               "resolution": f"832x480x{frames}", "steps": steps,
+               "seconds": wall, "generation_time_s": meta["generation_time_s"],
+               "phase_times_s": meta["phase_times_s"],
+               "peak_memory_gb_by_phase": peaks.peaks,
+               "allocated_gb_at_phase_start": peaks.at_start,
+               "experts_gb": expert_gb,
+               "allocated_gb_before": before, "allocated_gb_after": after,
+               "launches": launches, "expected_launches": expected,
+               "f32_launches_by_d": f32_by_d, "launches_by_impl": impl,
+               "frames": len(fr),
+               "frame_shape": list(fr[0].shape) if fr else None,
+               "context_path": meta["context_path"]}
+        log(json.dumps(rec))
+        if (launches != expected or f32_by_d != f32_expected
+                or impl != impl_expected):
+            fail(f"{model} launch counts {launches} {f32_by_d} {impl} != "
+                 f"{expected} {f32_expected} {impl_expected}")
+        if len(fr) != frames or fr[0].shape != (480, 832, 3) \
+                or meta["context_path"] != ctx_path:
+            fail(f"{model}: not {frames} frames of 480x832 from the "
+                 f"{ctx_path} context")
+        if resident < expert_gb:
+            fail(f"{model}: {resident:.2f} GB allocated at the denoise's "
+                 f"start, less than both experts' {expert_gb:.2f} GB")
+        if max(peaks.peaks.values()) >= 80.0 or after > before + 1.0:
+            fail(f"{model}: peak {peaks.peaks} GB, or {after - before:.2f} "
+                 "GB left allocated after the request")
+        by_path[model] = launches
+    return by_path
+
+
+def a14b_dit_calls():
+    """Both t2v-A14B experts resident (random bf16 weights from seeds 0 and
+    5, 57.15 GB), nothing else: one high-noise DiT call at 832x480x81
+    profiled (batch-2 CFG, 32,760 tokens padded to 32,768, a [2, 512,
+    4096] context: device time by kernel family), then one bare call at the
+    published default size, 1280x720x81 (21 x 45 x 80 = 75,600 tokens
+    padded to 75,776), timed to a synchronised end with its peak memory
+    and launches (40 of each of the four kernels); both outputs finite and
+    of the latent's shape."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from univid_tpu_torch.core.config import WAN_CONFIGS
+    from univid_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.wan.dit import WanDiT, wan_dit_forward
+    from univid_tpu_torch.ops.rope import build_rope_3d
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = WAN_CONFIGS["t2v-A14B"].dit
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    low, high = (WanDiT(cfg, dtype=torch.bfloat16, device=dev,
+                        gen=torch.Generator(device=dev).manual_seed(s))
+                 for s in (0, 5))
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() / 1e9
+    policy = dataclasses.replace(DEFAULT_POLICY, bounded_softmax=True)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    ctx = torch.randn((2, cfg.text_len, cfg.text_dim), generator=gen,
+                      device=dev) * 0.5
+    t = torch.full((2,), 999.0, device=dev)
+    want = {nm: cfg.num_layers for nm in A14B_KERNELS}
+    # the 720p call's FFN runs over token chunks (dit.FFN_CHUNK_ELEMS):
+    # one block's FFN over the chunks against the whole FFN, bit for bit
+    from univid_tpu_torch.models.wan import dit as dit_mod
+    y = torch.randn((2, 75776, cfg.dim), generator=gen, device=dev).to(
+        torch.bfloat16)
+    step = dit_mod.FFN_CHUNK_ELEMS // (2 * cfg.ffn_dim)
+    with torch.no_grad():
+        whole = dit_mod._ffn(high.blocks[0], y, torch.bfloat16)
+        parts = torch.cat([dit_mod._ffn(high.blocks[0], y[:, i:i + step],
+                                        torch.bfloat16)
+                           for i in range(0, y.shape[1], step)], dim=1)
+    equal = bool(torch.equal(whole, parts))
+    log(json.dumps({"check": "t2v-A14B FFN over token chunks vs whole, "
+                             "[2, 75776, 5120]", "chunk_tokens": step,
+                    "equal_bits": equal,
+                    "max_abs_diff": float((whole.float() - parts.float())
+                                          .abs().max()), "ok": equal}))
+    if not equal:
+        fail("t2v-A14B: the FFN over token chunks is not bit-equal to the "
+             "whole FFN at [2, 75776, 5120] (models/wan/dit.py "
+             "FFN_CHUNK_ELEMS)")
+    del y, whole, parts
+    torch.cuda.empty_cache()
+    for tag, latent, pad in (("480p", (21, 60, 104), 32768),
+                             ("720p", (21, 90, 160), 75776)):
+        grid = (latent[0], latent[1] // 2, latent[2] // 2)
+        x = torch.randn((1,) + latent + (cfg.in_dim,), generator=gen,
+                        device=dev).expand(2, *latent, cfg.in_dim)
+        cos, sin = build_rope_3d(cfg.head_dim, grid, device=dev)
+
+        def fwd():
+            with torch.no_grad():
+                return wan_dit_forward(high, x, t, ctx, cos, sin,
+                                       seq_pad_to=pad, policy=policy,
+                                       fused_rope=True)
+
+        fa.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if tag == "480p":
+            out, prof = profile_call(fwd, families={
+                "qk_prepass_ms": ("qk_norm_rope",),
+                "attention_ms": ("flash_fwd_sm90",)})
+        else:
+            out, prof = fwd(), None
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {nm: fa.LAUNCHES[nm] for nm in want}
+        rec = {"phase": f"a14b_{tag}_dit_call", "model": "t2v-A14B",
+               "tokens": grid[0] * grid[1] * grid[2], "padded_to": pad,
+               "seconds": secs, "profiled": prof is not None,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "experts_resident_gb": resident, "experts_draw_s": draw_s,
+               "launches": got,
+               "finite": bool(torch.isfinite(out).all()),
+               "shape": list(out.shape)}
+        if prof is not None:
+            rec["profile"] = prof
+        log(json.dumps(rec))
+        if (got != want or not rec["finite"]
+                or rec["shape"] != [2, *latent, cfg.out_dim]):
+            fail(f"t2v-A14B {tag} DiT call: launches {got} != {want}, or "
+                 "its output is not finite or not the latent's shape")
+        del out, x, cos, sin
+    del low, high
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -5854,6 +6401,10 @@ def kernels_line(records, by_path, mask_records):
     # flash_attention_bf16 counter, in the request of their shape
     own.update(flash_attention_bf16_image_gen_t2i="bagel_t2i",
                flash_attention_bf16_image_gen_edit="bagel_edit")
+    # the A14B shapes: the t2v-A14B request (the i2v-A14B one beside it in
+    # launches_by_path)
+    own.update({f"{nm}_a14b": "t2v-A14B" for nm in A14B_KERNELS},
+               flash_attention_f32_d384="t2v-A14B")
     kernels = []
     for nm, rec in records.items():
         owner = own.get(nm, "t2v-1.3B")
@@ -5945,6 +6496,8 @@ def main():
     t0 = time.perf_counter()
     records = check_kernels()
     retime_ti2v_kernels()
+    records.update(retime_a14b_kernels())
+    check_a14b_720p_kernels()
     records.update(check_train_kernels())
     records.update(check_causal_kernels())
     records.update(check_image_gen_kernels())
@@ -5969,6 +6522,7 @@ def main():
                            lambda: train_parity(args.output_dir)),
                           ("full_width_extractor",
                            lambda: full_width_extractor(args.output_dir)),
+                          ("small_moe_parity", small_moe_parity),
                           ("small_bagel_parity", small_bagel_parity),
                           ("small_bagel_image_parity",
                            small_bagel_image_parity),
@@ -6001,6 +6555,14 @@ def main():
         t0 = time.perf_counter()
         by_path["ti2v-5B"] = ti2v_main_path(args.output_dir)
         log(json.dumps({"phase": "ti2v_main_path_total",
+                        "seconds": time.perf_counter() - t0}))
+        t0 = time.perf_counter()
+        by_path.update(a14b_main_path(args.output_dir))
+        log(json.dumps({"phase": "a14b_main_path_total",
+                        "seconds": time.perf_counter() - t0}))
+        t0 = time.perf_counter()
+        a14b_dit_calls()
+        log(json.dumps({"phase": "a14b_dit_calls_total",
                         "seconds": time.perf_counter() - t0}))
         t0 = time.perf_counter()
         by_path.update(knob_main_path(args.output_dir))

@@ -492,6 +492,82 @@ def test_load_wan_checkpoint_equals_jax(wan_dir, tmp_path):
                                device="cpu")
 
 
+MOE_DIRS = ("low_noise_model", "high_noise_model")
+
+
+def write_moe_dir(path, spec, seed=0, extra_key_in=None):
+    """An A14B-layout dir of `spec` (JAX's config): each expert as 2 shards
+    with an index in low_noise_model/ and high_noise_model/ (another seed
+    each), Wan2.1_VAE.pth, the UMT5 .pth and its tokenizer. extra_key_in:
+    an expert dir that also holds a key no converter reads."""
+    for i, sub in enumerate(MOE_DIRS):
+        sd = sd_from_manifest(JM.wan_dit_manifest(spec.dit), seed + i)
+        if sub == extra_key_in:
+            sd["blocks.0.self_attn.extra.weight"] = np.zeros(4, np.float32)
+        write_sharded(os.path.join(path, sub), sd, n_shards=2)
+    torch.save(to_torch(sd_from_manifest(JM.wan_vae_manifest(spec.vae),
+                                         seed + 2)),
+               os.path.join(path, "Wan2.1_VAE.pth"))
+    torch.save(to_torch(sd_from_manifest(JM.umt5_manifest(spec.t5),
+                                         seed + 3), torch.bfloat16),
+               os.path.join(path, "models_t5_umt5-xxl-enc-bf16.pth"))
+    write_tokenizer(os.path.join(path, "google", "umt5-xxl"),
+                    spec.t5.vocab_size)
+
+
+@pytest.mark.parametrize("model", ["tiny-moe-t2v", "tiny-moe-i2v"])
+def test_load_wan_moe_checkpoint_equals_jax(model, tmp_path):
+    """load_wan_moe_checkpoint's two experts and VAE == JAX's
+    load_wan_moe_checkpoint trees leaf for leaf (bits and dtypes; the i2v
+    patch_embed at its widened in_dim), the experts distinct."""
+    from univid_tpu.core.config import WAN_CONFIGS as JCONFIGS
+    from univid_tpu_torch.core.config import WAN_CONFIGS
+
+    write_moe_dir(str(tmp_path), JCONFIGS[model])
+    (low, high), vae = TC.load_wan_moe_checkpoint(
+        str(tmp_path), WAN_CONFIGS[model], device="cpu")
+    (jlow, jhigh), jvae = JC.load_wan_moe_checkpoint(str(tmp_path),
+                                                     JCONFIGS[model])
+    assert_same_module(low, jlow, "blocks")
+    assert_same_module(high, jhigh, "blocks")
+    assert_same_module(vae, jvae)
+    assert low.patch_embed.w.shape[1] == 4 * WAN_CONFIGS[model].dit.in_dim
+    assert not torch.equal(low.patch_embed.w, high.patch_embed.w)
+
+
+@pytest.mark.parametrize("expert", MOE_DIRS)
+def test_load_wan_moe_checkpoint_audits_each_expert(expert, tmp_path):
+    """A key no converter reads, in either expert dir, raises (the port
+    audits each expert; JAX's MoE loader does not)."""
+    from univid_tpu.core.config import WAN_CONFIGS as JCONFIGS
+    from univid_tpu_torch.core.config import WAN_CONFIGS
+
+    write_moe_dir(str(tmp_path), JCONFIGS["tiny-moe-t2v"],
+                  extra_key_in=expert)
+    with pytest.raises(ValueError, match="not consumed"):
+        TC.load_wan_moe_checkpoint(str(tmp_path),
+                                   WAN_CONFIGS["tiny-moe-t2v"], device="cpu")
+
+
+def test_cli_moe_checkpoint_dir_writes_mp4(tmp_path):
+    """`--model tiny-moe-t2v --checkpoint_dir DIR --no_bagel` on the CPU
+    loads both experts, the VAE, UMT5 and its tokenizer: an mp4 of 9
+    frames."""
+    from univid_tpu.core.config import WAN_CONFIGS as JCONFIGS
+    from univid_tpu_torch.cli import inference
+    from univid_tpu_torch.data.video_io import read_video_frames
+
+    write_moe_dir(str(tmp_path / "ckpt"), JCONFIGS["tiny-moe-t2v"])
+    meta = inference.main([
+        "--model", "tiny-moe-t2v", "--checkpoint_dir", str(tmp_path / "ckpt"),
+        "--no_bagel", "--device", "cpu", "--video_size", "64x64",
+        "--video_length", "9", "--steps", "2", "--output_dir",
+        str(tmp_path / "out")])[0]
+    frames = read_video_frames(meta["video_path"])
+    assert len(frames) == 9 and frames[0].shape == (64, 64, 3)
+    assert meta["context_path"] == "umt5"
+
+
 def test_wan_dir_pipeline_matches_jax(wan_dir):
     """The tiny directory through both packages' loaders: UMT5 contexts
     (the checkpoint's tokenizer, fp32 encoders) within 1e-5, then 4 UniPC

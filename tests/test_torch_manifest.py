@@ -116,6 +116,21 @@ def test_full_width_modules_hold_the_manifest(name):
     assert _meta_numel(*modules) == _numel(man, skip)
 
 
+@pytest.mark.parametrize("model,count", [("t2v-A14B", 14_288_491_584),
+                                         ("i2v-A14B", 14_288_901_184)])
+def test_a14b_expert_holds_the_jax_manifest(model, count):
+    """One A14B expert, built on the meta device at full width, holds
+    exactly the parameters of JAX's wan_dit_manifest of its config (the
+    i2v patch_embed widened to in_dim 36)."""
+    from univid_tpu.core.config import WAN_CONFIGS as JCONFIGS
+    from univid_tpu_torch.models.wan.dit import WanDiT
+
+    man = JM.wan_dit_manifest(JCONFIGS[model].dit)
+    assert _numel(man) == count
+    assert _meta_numel(WanDiT(WAN_CONFIGS[model].dit, device="meta")) == count
+    assert TM.wan_dit_manifest(WAN_CONFIGS[model].dit) == man
+
+
 GENERATORS = {
     "wan_dit": (lambda m: m.wan_dit_manifest(
         (JDiTConfig if m is JM else WAN_CONFIGS["tiny"].dit.__class__)(

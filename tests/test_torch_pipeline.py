@@ -183,9 +183,10 @@ def test_cli_merges_lora_and_loads_projector(tmp_path, flag):
         save_lora(str(tmp_path / "lora"), lora, LoRAConfig(rank=4))
         extra = ["--use_lora", "--lora_path", str(tmp_path / "lora")]
         args = inference.build_parser().parse_args(base)
-        plain = inference.build_pipeline(args)[0].dit.state_dict()
+        spec = inference.model_spec(args)
+        plain = inference.build_pipeline(args, spec).dit.state_dict()
         merged = inference.build_pipeline(
-            inference.build_parser().parse_args(base + extra))[0].dit
+            inference.build_parser().parse_args(base + extra), spec).dit
         scale = 32.0 / 4
         for site, p in lora["sites"].items():
             mod, proj = site.split("/")

@@ -4,17 +4,21 @@ stack, with BAGEL fusion and TMA).
     python -m univid_tpu_torch.cli.inference --model ti2v-5B --mode both \
         --image first_frame.png --mock_weights
 
-Flag-compatible with univid_tpu/cli/inference.py: prompt -> UMT5, and
-unless --no_bagel, BAGEL semantic tokens of the prompt (and the image) ->
-ContextProjector, whose context replaces UMT5's -> UniPC / DPM++ flow-
-matching denoise over the Wan DiT (batch-2 CFG, TMA text weights; i2v
-clamps the first latent frame to the image's) -> causal VAE decode -> mp4
-+ a JSON sidecar per mode. Runs on `cuda` unless `--device cpu`. The
+Flag-compatible with univid_tpu/cli/inference.py: prompt -> UMT5 (freed
+before the DiT is placed), and unless --no_bagel, BAGEL semantic tokens of
+the prompt (and the image) -> ContextProjector, whose context replaces
+UMT5's -> UniPC / DPM++ flow-matching denoise over the Wan DiT (batch-2
+CFG, TMA text weights; i2v clamps the first latent frame to the image's)
+or, for the dual-expert models t2v-A14B / i2v-A14B, over two DiTs switched
+at the model's timestep boundary (pipelines/moe.py; i2v conditions through
+the image's latent and a first-frame mask) -> causal VAE decode -> mp4 + a
+JSON sidecar per mode. Runs on `cuda` unless `--device cpu`. The
 serving knobs: --bf16_softmax (the attention kernels' softmax chain in
 bf16), --qk_int8 (int8 QK^T in self-attention), --int8 (W8A8 DiT GEMMs,
 quantized after --use_lora's merge) and --taylorseer N (TaylorSeer step
 caching of the CFG velocity, fresh threshold N). --checkpoint_dir loads a
-reference Wan checkpoint dir (the DiT's shards, the VAE .pth, UMT5 and its
+reference Wan checkpoint dir (the DiT's shards, or for A14B the experts'
+low_noise_model/ and high_noise_model/, the VAE .pth, UMT5 and its
 tokenizer; core/checkpoint.py) and --bagel_path BAGEL's ema.safetensors
 and tokenizer for the fusion; --mock_weights draws random weights instead.
 Flags of later port slices (animate, prompt extension) exit with an error
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import time
@@ -121,61 +126,94 @@ def _parse_size(s: str):
     return (int(w), int(h))
 
 
-def build_pipeline(args):
-    """(pipeline, spec, text_encoder) on args.device: from --checkpoint_dir
-    (the DiT in bf16 with JAX's fp32 leaves, the VAE in fp32, UMT5 in bf16
-    with the checkpoint's tokenizer), else with --mock_weights random
-    weights (DiT and VAE in bf16, as the JAX CLI's mock weights, UMT5 in
-    fp32); with --use_lora, the LoRA of --lora_path merged into the DiT;
-    with --int8, the DiT's block GEMMs then quantized to W8A8; the policy
-    takes --bf16_residual, --bf16_softmax, --qk_int8, --bounded_softmax."""
-    import torch
-
+def model_spec(args):
+    """The WanModelSpec of --model; an unknown name exits."""
     from ..core.config import WAN_CONFIGS
-    from ..core.dtypes import BF16_RESIDUAL_POLICY, DEFAULT_POLICY
-    from ..models.wan.dit import WanDiT
-    from ..models.wan.vae_api import WanVAE
-    from ..pipelines.encoders import WanTextEncoder
-    from ..pipelines.ti2v import WanTI2VPipeline
 
     if args.model not in WAN_CONFIGS:
         raise SystemExit(f"--model {args.model}: the port has "
                          f"{sorted(WAN_CONFIGS)}")
-    spec = WAN_CONFIGS[args.model]
+    return WAN_CONFIGS[args.model]
+
+
+def build_text_encoder(args, spec):
+    """UMT5 on args.device: from --checkpoint_dir (bf16, with the
+    checkpoint's tokenizer), else with --mock_weights random (fp32)."""
+    import torch
+
+    from ..pipelines.encoders import WanTextEncoder
+
+    dev = torch.device(args.device)
+    if args.checkpoint_dir:
+        return WanTextEncoder.from_checkpoint(args.checkpoint_dir, spec,
+                                              device=dev)
+    if args.mock_weights:
+        return WanTextEncoder.random_init(
+            spec, device=dev, gen=torch.Generator(device=dev).manual_seed(2))
+    raise SystemExit("pass --checkpoint_dir or --mock_weights")
+
+
+def build_pipeline(args, spec):
+    """The pipeline of `spec` on args.device: the DiT (two experts for a model
+    with a moe_boundary, served by WanMoEPipeline) and the VAE, from
+    --checkpoint_dir (the DiT in bf16 with JAX's fp32 leaves, the VAE in
+    fp32), else with --mock_weights random (DiT and VAE in bf16, as the JAX
+    CLI's mock weights; the experts from seeds 0 and 5); with --use_lora,
+    the LoRA of --lora_path merged into each DiT; with --int8, each DiT's
+    block GEMMs then quantized to W8A8; the policy takes --bf16_residual,
+    --bf16_softmax, --qk_int8, --bounded_softmax."""
+    import torch
+
+    from ..core.dtypes import BF16_RESIDUAL_POLICY, DEFAULT_POLICY
+    from ..models.wan.dit import WanDiT
+    from ..models.wan.vae_api import WanVAE
+    from ..pipelines.moe import WanMoEPipeline
+    from ..pipelines.ti2v import WanTI2VPipeline
+
+    moe = spec.moe_boundary is not None
     dev = torch.device(args.device)
 
     def gen(seed):
         return torch.Generator(device=dev).manual_seed(seed)
 
     if args.checkpoint_dir:
-        from ..core.checkpoint import load_wan_checkpoint
-        dit, vae = load_wan_checkpoint(args.checkpoint_dir, spec,
-                                       device=dev)
-        text_enc = WanTextEncoder.from_checkpoint(args.checkpoint_dir, spec,
-                                                  device=dev)
+        from ..core.checkpoint import load_wan_checkpoint, \
+            load_wan_moe_checkpoint
+        if moe:
+            dits, vae = load_wan_moe_checkpoint(args.checkpoint_dir, spec,
+                                                device=dev)
+        else:
+            dit, vae = load_wan_checkpoint(args.checkpoint_dir, spec,
+                                           device=dev)
+            dits = (dit,)
     elif args.mock_weights:
-        dit = WanDiT(spec.dit, dtype=torch.bfloat16, device=dev, gen=gen(0))
+        dits = tuple(WanDiT(spec.dit, dtype=torch.bfloat16, device=dev,
+                            gen=gen(s)) for s in ((0, 5) if moe else (0,)))
         vae = WanVAE(spec.vae, dtype=torch.bfloat16, device=dev, gen=gen(1))
-        text_enc = WanTextEncoder.random_init(spec, device=dev, gen=gen(2))
     else:
         raise SystemExit("pass --checkpoint_dir or --mock_weights")
     if args.use_lora:
         from ..train.lora import load_lora, merge_lora
         lora, _ = load_lora(args.lora_path, device=dev)
-        merged = merge_lora(dit, lora)
-        with torch.no_grad():   # merged in place, as the JAX CLI merges
-            for name, p in dit.named_parameters():
-                if name in merged:
-                    p.copy_(merged[name])
+        for dit in dits:
+            merged = merge_lora(dit, lora)
+            with torch.no_grad():   # merged in place, as the JAX CLI merges
+                for name, p in dit.named_parameters():
+                    if name in merged:
+                        p.copy_(merged[name])
+            del merged
     if args.int8:
         # W8A8 after any LoRA merge: quantize the weights the model runs
         from ..core.quant import quantize_dit_w8a8
-        quantize_dit_w8a8(dit)
+        for dit in dits:
+            quantize_dit_w8a8(dit)
     policy = BF16_RESIDUAL_POLICY if args.bf16_residual else DEFAULT_POLICY
     policy = dataclasses.replace(policy, softmax_bf16=args.bf16_softmax,
                                  qk_int8=args.qk_int8,
                                  bounded_softmax=args.bounded_softmax)
-    return WanTI2VPipeline(spec, dit, vae, policy=policy), spec, text_enc
+    if moe:
+        return WanMoEPipeline(spec, *dits, vae, policy=policy)
+    return WanTI2VPipeline(spec, dits[0], vae, policy=policy)
 
 
 def build_fusion(args, wan_pipe, spec):
@@ -283,11 +321,23 @@ def main(argv=None):
     os.makedirs(args.output_dir, exist_ok=True)
 
     timer = PhaseTimer()
-    pipe, spec, text_enc = timer.time_phase("init_weights", build_pipeline,
-                                            args)
+    spec = model_spec(args)
+    prompt = args.prompt or DEFAULT_PROMPT
+    # the prompt first: UMT5-XXL (fp32 ~23 GB with mock weights) is freed
+    # before any DiT is placed, so a request's peak is the DiT(s) and one
+    # working set (two A14B experts hold 57 GB)
+    text_enc = timer.time_phase("init_weights", build_text_encoder, args,
+                                spec)
+    ctx_pair = timer.time_phase("text_encode", text_enc,
+                                [prompt, spec.sample_neg_prompt])
+    ctx, nctx = ctx_pair[0], ctx_pair[1]
+    del text_enc, ctx_pair
+    gc.collect()
+    if ctx.is_cuda:
+        torch.cuda.empty_cache()
+    pipe = timer.time_phase("init_weights", build_pipeline, args, spec)
     fusion = timer.time_phase("init_weights", build_fusion, args, pipe,
                               spec)
-    prompt = args.prompt or DEFAULT_PROMPT
     size = _parse_size(args.video_size)
     frames = args.video_length or spec.generation.frame_num
     tma = TMAConfig(
@@ -297,14 +347,6 @@ def main(argv=None):
         transition_ratio=args.transition_ratio,
         text_prefix_len=spec.dit.text_len)
 
-    ctx_pair = timer.time_phase("text_encode", text_enc,
-                                [prompt, spec.sample_neg_prompt])
-    ctx, nctx = ctx_pair[0], ctx_pair[1]
-    # UMT5-XXL (fp32, ~23 GB) is done: free it for the DiT's activations
-    # and the VAE decode, whose working set at 1280x704 is tens of GB
-    del text_enc
-    if ctx.is_cuda:
-        torch.cuda.empty_cache()
     modes = ["t2v", "i2v"] if args.mode == "both" else [args.mode]
     results = []
     for mode in modes:

@@ -651,6 +651,24 @@ def load_wan_checkpoint(checkpoint_dir: str, spec: WanModelSpec, *,
     return dit, vae
 
 
+def load_wan_moe_checkpoint(checkpoint_dir: str, spec: WanModelSpec, *,
+                            device="cuda"):
+    """((low WanDiT, high WanDiT), WanVAE) on `device` from an A14B
+    dual-expert checkpoint dir: the experts' shards in low_noise_model/ and
+    high_noise_model/ (the reference's subfolders), the VAE beside them.
+    Each expert dir and the VAE go through manifest.audited: an unread key
+    in either raises (JAX's MoE loader does not audit)."""
+    from .manifest import audited
+    experts = tuple(
+        audited(load_state_dict(os.path.join(checkpoint_dir, sub)),
+                lambda sd: convert_wan_dit(sd, spec.dit, device=device))[0]
+        for sub in ("low_noise_model", "high_noise_model"))
+    vae, _ = audited(
+        load_state_dict(_find_vae(checkpoint_dir)),
+        lambda sd: convert_wan_vae(sd, spec.vae, device=device))
+    return experts, vae
+
+
 def load_bagel_checkpoint(model_path: str, *, device="cuda",
                           llm_layers: bool = True):
     """BAGEL's ema.safetensors + its tokenizer -> (Bagel, cfg, SigLIP cfg,

@@ -1,12 +1,14 @@
 """Typed configuration for the port (counterpart of univid_tpu/core/config.py).
 
-The dataclasses (FusionConfig included), their defaults and the
-`t2v-1.3B`, `ti2v-5B` and `tiny` entries of WAN_CONFIGS are copied from the
-JAX package, which the port does not import.
+The dataclasses (FusionConfig included), their defaults, the WAN_CONFIGS
+entries (`ti2v-5B`, the dual-expert `t2v-A14B` / `i2v-A14B`, `t2v-1.3B`,
+`tiny` and the dual-expert `tiny-moe-t2v` / `tiny-moe-i2v`) and the size
+tables are copied from the JAX package, which the port does not import.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
@@ -199,6 +201,33 @@ def _ti2v_5b() -> WanModelSpec:
     )
 
 
+def _t2v_a14b() -> WanModelSpec:
+    # Wan2.2 A14B (public release shape): 40 layers, dim 5120, 40 heads,
+    # ffn 13824, 16ch VAE (2.1-style, stride (4,8,8)); two experts of this
+    # shape, switched at moe_boundary * num_train_timesteps.
+    dit = WanDiTConfig(
+        model_type="t2v", in_dim=16, out_dim=16, dim=5120, ffn_dim=13824,
+        num_heads=40, num_layers=40,
+    )
+    vae = WanVAEConfig(
+        dim=96, dec_dim=96, z_dim=16, temporal_downsample=(True, True, False),
+        spatial_patch=1, vae_stride=(4, 8, 8),
+    )
+    gen = GenerationConfig(size=(1280, 720), frame_num=81, fps=16, shift=12.0)
+    return WanModelSpec(
+        name="t2v-A14B", dit=dit, vae=vae, generation=gen, moe_boundary=0.875
+    )
+
+
+def _i2v_a14b() -> WanModelSpec:
+    spec = _t2v_a14b()
+    # i2v conditions on concat(mask, vae(frame0)) -> in_dim 16+20=36
+    dit = dataclasses.replace(spec.dit, model_type="i2v", in_dim=36)
+    gen = dataclasses.replace(spec.generation, shift=5.0)
+    return dataclasses.replace(spec, name="i2v-A14B", dit=dit, generation=gen,
+                               moe_boundary=0.900)
+
+
 def _t2v_1_3b() -> WanModelSpec:
     # Wan2.1-T2V-1.3B (public release shape): dim 1536, 30 layers, 12 heads,
     # ffn 8960, 16ch VAE stride (4,8,8). Used by BASELINE.json config 3.
@@ -233,10 +262,26 @@ def _tiny_smoke() -> WanModelSpec:
                         t5=t5, text_len=16)
 
 
+def _tiny_moe(i2v: bool = False) -> WanModelSpec:
+    # hermetic dual-expert smoke config mirroring the A14B structure:
+    # i2v in_dim = z + (4 mask + z) conditioning channels
+    base = _tiny_smoke()
+    dit = dataclasses.replace(
+        base.dit, model_type="i2v" if i2v else "t2v",
+        in_dim=(4 + 4 + 4) if i2v else 4)
+    return dataclasses.replace(
+        base, name="tiny-moe-i2v" if i2v else "tiny-moe-t2v", dit=dit,
+        moe_boundary=0.875)
+
+
 WAN_CONFIGS = {
     "ti2v-5B": _ti2v_5b(),
+    "t2v-A14B": _t2v_a14b(),
+    "i2v-A14B": _i2v_a14b(),
     "t2v-1.3B": _t2v_1_3b(),
     "tiny": _tiny_smoke(),
+    "tiny-moe-t2v": _tiny_moe(False),
+    "tiny-moe-i2v": _tiny_moe(True),
 }
 
 

@@ -13,8 +13,10 @@ The blocks are an nn.ModuleList. `wan_dit_forward` is differentiable
 (serving runs it under the pipeline's no_grad): `remat_blocks` recomputes
 blocks in the backward with torch.utils.checkpoint, and `weights`
 substitutes named parameters (the LoRA-merged weights of
-train/lora.merge_lora) without touching the module. Sequence parallelism
-is a later slice.
+train/lora.merge_lora) without touching the module. A block frees its q, k
+and v after their attention call and runs a long sequence's FFN over
+token chunks (`FFN_CHUNK_ELEMS`), so a 1280x720x81 A14B call fits beside
+both experts. Sequence parallelism is a later slice.
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ from ...kernels.attention import attention
 from ...kernels.flash_attention import build_fused_rope_tables
 from ...ops.embeddings import sinusoidal_embedding_1d
 from ...ops.rope import apply_rope
+
+# the largest FFN hidden activation a block computes at once (elements):
+# 2 GB in bf16; longer sequences run the FFN over token chunks
+FFN_CHUNK_ELEMS = 1 << 30
 
 # ---------------------------------------------------------------------------
 # modules (parameter names follow the JAX tree of init_wan_dit)
@@ -298,15 +304,33 @@ def _block_rest(bp, cfg, x32, attn, sel, ctx, policy, fused=False):
     attn = attention(q, k, v, softmax_bf16=policy.softmax_bf16,
                      score_bound=cbound, qk_norm=qk_norm
                      ).reshape(b, l, cfg.dim)
+    del y, q, k, v   # the FFN's working set is the block's largest
     attn = unn.linear(ca["o"], attn, compute_dtype=cd)
     x32 = x32 + attn.to(rdt)
 
-    # ffn
+    # ffn: over token chunks when its hidden activation [B * L, ffn_dim]
+    # passes FFN_CHUNK_ELEMS (the 720p A14B call: 2.1e9 elements, 4.2 GB
+    # twice around the GELU); the FFN and the gated residual are row-wise,
+    # so a row's products and roundings are the whole call's wherever the
+    # GEMM keeps its kernel (chip_smoke.py checks the 720p shape bit for bit)
     y = _modulated(x32, sel(3), sel(4), cfg.eps).to(cd)
+    gate = sel(5)
+    step = max(1, FFN_CHUNK_ELEMS // (b * cfg.ffn_dim))
+    if step >= l:
+        return x32 + (_ffn(bp, y, cd).float() * gate).to(rdt)
+    out = torch.empty_like(x32)
+    for i in range(0, l, step):
+        rows = slice(i, i + step)
+        g = gate if gate.shape[1] == 1 else gate[:, rows]
+        out[:, rows] = x32[:, rows] + (_ffn(bp, y[:, rows], cd).float()
+                                       * g).to(rdt)
+    return out
+
+
+def _ffn(bp, y, cd):
     y = unn.linear(bp.ffn["fc0"], y, compute_dtype=cd)
     y = unn.gelu_tanh(y)
-    y = unn.linear(bp.ffn["fc1"], y, compute_dtype=cd)
-    return x32 + (y.float() * sel(5)).to(rdt)
+    return unn.linear(bp.ffn["fc1"], y, compute_dtype=cd)
 
 
 def _block(bp, cfg, x32, e0, ctx, rope_cos, rope_sin, rope_tabs,
@@ -332,8 +356,9 @@ def _block(bp, cfg, x32, e0, ctx, rope_cos, rope_sin, rope_tabs,
                            fused=rope_tabs is not None)
 
     def full(x):
-        q, k, v = qkv(x)
-        return rest(x, _self_attn(bp, cfg, q, k, v, rope_tabs, self_kv_len,
+        # q, k and v live only through the self-attention call (at 720p
+        # A14B they are 4.65 GB that the rest of the block does not read)
+        return rest(x, _self_attn(bp, cfg, *qkv(x), rope_tabs, self_kv_len,
                                   policy))
 
     ck = dict(use_reentrant=False, preserve_rng_state=False)

@@ -56,6 +56,81 @@ def solver_for(gen: GenerationConfig):
     raise NotImplementedError(gen.sample_solver)
 
 
+def tma_context(tma: Optional[TMAConfig], steps: int, text_len: int):
+    """context_at(ctx, i): step i's context, its text prefix (at most half
+    the context) weighted by TMA's schedule; ctx itself when TMA is off."""
+    prefix = (min(tma.text_prefix_len, text_len // 2)
+              if tma is not None and tma.enabled else 0)
+    if prefix == 0:
+        return lambda ctx, i: ctx
+    w = tma_schedule_weights(tma, steps)
+    return lambda ctx, i: apply_text_weight(ctx, float(w[i]), prefix)
+
+
+def dit_rope(cfg, latent_grid, device):
+    """The DiT's 3D-RoPE (cos, sin) over the patch grid of a latent grid
+    (F, H, W)."""
+    f, h, w = latent_grid
+    pt, ph, pw = cfg.patch_size
+    return build_rope_3d(cfg.head_dim, (f // pt, h // ph, w // pw),
+                         device=device)
+
+
+def cfg_velocity(dit, sample, timestep, ctx, rope, seq_len, policy, *,
+                 cond=None, t_zero=None):
+    """One classifier-free-guidance DiT call: sample [1, F, H, W, C] (with
+    cond [1, F, H, W, C'] concatenated along channels, when given) as a
+    batch of 2 over ctx [2, text_len, text_dim] (conditional, then null),
+    on the fused-rope route, the tokens padded to seq_len -> the velocities
+    [2, F, H, W, C]."""
+    x2 = sample.float().expand((2,) + tuple(sample.shape[1:]))
+    if cond is not None:
+        x2 = torch.cat([x2, cond.float().expand((2,) + tuple(
+            cond.shape[1:]))], dim=-1)
+    t2 = torch.full((2,), timestep, dtype=torch.float32,
+                    device=sample.device)
+    return wan_dit_forward(dit, x2, t2, ctx, *rope, t_zero_mask=t_zero,
+                           seq_pad_to=seq_len, policy=policy,
+                           fused_rope=True)
+
+
+def guided(v, guide_scale: float):
+    """The CFG velocity of cfg_velocity's pair: v_null + g (v_cond -
+    v_null)."""
+    return v[1:2] + guide_scale * (v[0:1] - v[1:2])
+
+
+def phase(timer, name: str):
+    """timer.phase(name), or a no-op context without a timer."""
+    return timer.phase(name) if timer is not None \
+        else contextlib.nullcontext()
+
+
+def timed(timer, name: str, fn, *args):
+    """fn(*args), timed as phase `name` when there is a timer."""
+    if timer is None:
+        return fn(*args)
+    return timer.time_phase(name, fn, *args)
+
+
+def initial_noise(noise, shape, seed: int, device):
+    """The initial latent [1, F, H, W, C] fp32 on device: the given noise,
+    or a draw from a torch.Generator seeded with seed."""
+    if noise is None:
+        g = torch.Generator(device=device).manual_seed(seed)
+        noise = torch.randn(shape, generator=g, device=device,
+                            dtype=torch.float32)
+    return noise.to(device, torch.float32)
+
+
+def decoded(vae, x0, decode: bool, timer):
+    """The video [T, H, W, 3] of latent x0 (timed as vae_decode), or x0
+    itself when not decode."""
+    if not decode:
+        return x0
+    return timed(timer, "vae_decode", vae_decode, vae, x0)[0]
+
+
 def padded_seq_len(spec: WanModelSpec, size, frame_num: int) -> int:
     """DiT token count, padded once to a multiple of 2048 above 2048
     tokens (the 30 blocks then need no per-call padding)."""
@@ -96,12 +171,7 @@ class WanTI2VPipeline:
         gen = GenerationConfig(sampling_steps=steps, shift=shift,
                                guide_scale=guide_scale, sample_solver=solver)
         _, coeffs, step_fn = solver_for(gen)
-        if tma is not None and tma.enabled:
-            tma_w = tma_schedule_weights(tma, steps)
-            tma_prefix = min(tma.text_prefix_len, cfg.text_len // 2)
-        else:
-            tma_w = np.ones(steps, np.float32)
-            tma_prefix = 0
+        context_at = tma_context(tma, steps, cfg.text_len)
         f, h, w = latent_grid
         pt, ph, pw = cfg.patch_size
         grid = (f // pt, h // ph, w // pw)
@@ -110,15 +180,11 @@ class WanTI2VPipeline:
             fresh_threshold=taylorseer_threshold))
             if taylorseer_threshold > 0 else None)
 
-        def step_phase(name):
-            return timer.phase(name) if timer is not None \
-                else contextlib.nullcontext()
-
         @torch.no_grad()
         def run(dit, noise, context, context_null, z0):
             # noise / z0: [1, F, H, W, C]; context*: [1, text_len, text_dim]
             dev = noise.device
-            rope_cos, rope_sin = build_rope_3d(cfg.head_dim, grid, device=dev)
+            rope = dit_rope(cfg, latent_grid, dev)
             ctx_pair = torch.cat([context, context_null], dim=0)
             t_zero = None
             latents = noise
@@ -136,21 +202,13 @@ class WanTI2VPipeline:
                        if sched is not None else None)
             for i in range(steps):
                 full = sched is None or sched["is_full"][i] > 0
-                with step_phase("dit_step" if full else "taylor_step"):
+                with phase(timer, "dit_step" if full else "taylor_step"):
                     c = coeffs.step(i)
                     if full:
-                        ctx = ctx_pair
-                        if tma_prefix > 0:
-                            ctx = apply_text_weight(ctx, float(tma_w[i]),
-                                                    tma_prefix)
-                        x2 = state["sample"].float().expand(
-                            (2,) + tuple(state["sample"].shape[1:]))
-                        t2 = torch.full((2,), c["timestep"],
-                                        dtype=torch.float32, device=dev)
-                        v = wan_dit_forward(
-                            dit, x2, t2, ctx, rope_cos, rope_sin,
-                            t_zero_mask=t_zero, seq_pad_to=seq_len,
-                            policy=policy, fused_rope=True)
+                        v = cfg_velocity(dit, state["sample"],
+                                         c["timestep"], context_at(
+                                             ctx_pair, i), rope, seq_len,
+                                         policy, t_zero=t_zero)
                         if sched is not None:
                             factors = taylor_update(factors, v,
                                                     sched["dd"][i],
@@ -158,8 +216,7 @@ class WanTI2VPipeline:
                     else:
                         v = taylor_predict(factors, sched["x"][i],
                                            sched["n_stored"][i]).float()
-                    v_guided = v[1:2] + guide_scale * (v[0:1] - v[1:2])
-                    state = step_fn(state, c, v_guided)
+                    state = step_fn(state, c, guided(v, guide_scale))
                     if i2v:
                         state = dict(state, sample=frame_mask * z0
                                      + (1.0 - frame_mask) * state["sample"])
@@ -185,19 +242,11 @@ class WanTI2VPipeline:
         c, f, h, w = latent_shape(spec, size[0], size[1], frame_num)
         seq_len = padded_seq_len(spec, size, frame_num)
         dev = self.device
-        if noise is None:
-            g = torch.Generator(device=dev).manual_seed(seed)
-            noise = torch.randn((1, f, h, w, c), generator=g, device=dev,
-                                dtype=torch.float32)
-        noise = noise.to(dev, torch.float32)
+        noise = initial_noise(noise, (1, f, h, w, c), seed, dev)
         i2v = img is not None
         if i2v:
-            video = img[None, None].to(dev, torch.float32)
-            if timer is not None:
-                z0 = timer.time_phase("vae_encode", vae_encode, self.vae,
-                                      video)
-            else:
-                z0 = vae_encode(self.vae, video)
+            z0 = timed(timer, "vae_encode", vae_encode, self.vae,
+                       img[None, None].to(dev, torch.float32))
             # z0: [1, 1, h, w, c] -> zero-padded over the latent frames
             z0 = torch.nn.functional.pad(z0, (0, 0, 0, 0, 0, 0, 0, f - 1))
         else:
@@ -206,16 +255,6 @@ class WanTI2VPipeline:
                               guide_scale, sample_solver, tma, i2v=i2v,
                               taylorseer_threshold=taylorseer_threshold,
                               timer=timer)
-        ctx, nctx = context[None].to(dev), context_null[None].to(dev)
-        if timer is not None:
-            x0 = timer.time_phase("denoise", run, self.dit, noise, ctx, nctx,
-                                  z0)
-        else:
-            x0 = run(self.dit, noise, ctx, nctx, z0)
-        if not decode:
-            return x0
-        if timer is not None:
-            video = timer.time_phase("vae_decode", vae_decode, self.vae, x0)
-        else:
-            video = vae_decode(self.vae, x0)
-        return video[0]
+        x0 = timed(timer, "denoise", run, self.dit, noise,
+                   context[None].to(dev), context_null[None].to(dev), z0)
+        return decoded(self.vae, x0, decode, timer)
