@@ -173,7 +173,7 @@ Phases:
      question: rel. L2 < 1e-4);
  12. drive the Wan serving knobs: ti2v-5B with fusion, --mode t2v at
      1280x704x121, full depth and width, with --bf16_softmax --qk_int8
-     --int8 --taylorseer 2, 8 steps (6 DiT calls); check the mp4 and the
+     --int8 --taylorseer 2, 6 steps (5 DiT calls); check the mp4 and the
      launches (per DiT call 30 int8 bf16-softmax self-attention, 30
      bf16-softmax cross-attention, 60 norm-only q / k pre-passes, 30 int8
      pre-passes of two launches, 300 W8A8 GEMMs; no knob-free attention,
@@ -182,7 +182,29 @@ Phases:
      forward bare, with each knob alone and all four (two forwards each,
      the launches of one checked), and profile one bare and one with
      qk_int8 alone (device time by kernel family, the q / k pre-passes
-     apart).
+     apart);
+ 13. drive multi-GPU serving with two ranks on the one card over gloo
+     (`sp_main_path`; NCCL refuses two ranks on one device): t2v-1.3B at
+     full width, SP_LAYERS blocks, the same seeded weights on each rank;
+     WanTI2VPipeline(sp_size=2, mesh) for 2 UniPC steps at 832x480x81
+     (Ulysses, fused rope; the launches of each rank checked: per block
+     and step one self-attention at 6 heads after kernel A's rope-only
+     mode, one cross-attention, kernel A's norm-only mode before the
+     exchange and for the cross q / k) held to the single-rank pipeline's
+     latent; one ring DiT call held to wan_dit_forward (two lse launches
+     a block a rank); one ring_attention call with a kv shard all padding
+     held to one kernel call over every key; on an fsdp = 2 mesh one DiT
+     call and one UMT5-XXL (fp32, SP_T5_LAYERS blocks) encode held to the
+     unsharded module; seconds per step at sp = 2 against one rank, the
+     collectives' share, peak memory per rank.
+The kernels at the multi-GPU path's shard shapes (Ulysses self-attention
+[2, 32768, 6, 128] with kernel A's rope-only mode, the ring's lse kernel
+at q [2, 16384, 12, 128] over a 16,384-key shard with kv_len 16,384,
+16,376 and 0, cross-attention [2, 16384, 12, 128], kernel A's norm-only
+mode on a rank's q and k) are held against their plain versions in phase
+3 (`check_sp_kernels`); the kernels line carries them as `*_sp` records
+with the sp run's launches (both ranks), and every record's
+`launches_by_path` has `sp` and `sp_ring`.
 The knob kernels (softmax_bf16 on self- and cross-attention, the int8
 pre-pass, kernel B of qk_prepass.cu, timed in turns with the pair of
 flash_attention_int8.cu it replaced, both against the plain version,
@@ -215,6 +237,7 @@ last line is
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import re
@@ -5159,9 +5182,11 @@ def fp32_train_main_path(n_steps):
 # ---------------------------------------------------------------------------
 
 H100_INT8_OPS = 1979e12    # dense tensor-core int8 (SXM data sheet)
-KNOB_STEPS = 8             # --taylorseer 2 over 8 steps: 6 DiT steps
+# --taylorseer 2 over 6 steps: 5 DiT steps and one Taylor step (cut from 8
+# for the time limit; at 4 or 5 steps every step is full)
+KNOB_STEPS = 6
 KNOB_TAYLORSEER = 2
-KNOB_FORWARDS = 6
+KNOB_FORWARDS = 5
 # the knob kernels' counters and the paths whose launches the kernels line
 # gives them: the all-knob CLI run, or the DiT forward with that knob alone
 KNOB_OWNERS = {"flash_attention_int8_sbf16": "knobs",
@@ -5704,11 +5729,11 @@ def _knob_forward_times(spec, forwards):
 def knob_main_path(output_dir):
     """The knob path: ti2v-5B with BAGEL fusion (the CLI default) at
     1280x704x121, full depth and width, random weights from a seed,
-    --mode t2v --bf16_softmax --qk_int8 --int8 --taylorseer 2, 8 steps,
+    --mode t2v --bf16_softmax --qk_int8 --int8 --taylorseer 2, 6 steps,
     through the port's CLI. Checks the mp4, the fusion context, and the
     launches: per DiT call 30 int8 + bf16-softmax self-attention, 30
     bf16-softmax cross-attention, 60 norm-only and 30 int8 pre-passes,
-    300 W8A8 GEMMs, 6 DiT calls (2 Taylor steps skip it), no knob-free
+    300 W8A8 GEMMs, 5 DiT calls (1 Taylor step skips it), no knob-free
     attention; 31 d=1024 VAE
     attention calls. Prints seconds per DiT step and per Taylor step, for
     the video, peak memory; then times the ti2v-5B DiT forward with each
@@ -6351,6 +6376,535 @@ def naflex_cli_on_card(output_dir):
         fail("the QA CLI with a NaFlex --siglip_ckpt on the card")
 
 
+# ---------------------------------------------------------------------------
+# multi-GPU serving: two ranks on the one card
+# ---------------------------------------------------------------------------
+
+SP_WORLD = 2         # the sp = 2 mesh's ranks, both on the one card
+SP_LAYERS = 6        # of t2v-1.3B's 30 blocks (the time limit); full width
+SP_STEPS = 2         # UniPC steps of the Ulysses pipeline run
+SP_T5_LAYERS = 2     # of UMT5-XXL's 24 blocks (full width, fp32)
+SP_DEADLINE = 480    # s the ranks may take together, start-up included
+SP_SHAPE = dict(size=(832, 480), frame_num=81)   # 32,760 tokens
+SP_WHY = ("the bf16 policy's bound: the sequence-parallel forward runs the "
+          "same kernels at other shapes (N/sp heads, L/sp queries), and the "
+          "ring merges bf16 partials in fp32")
+
+
+def _sp_tol():
+    return dict(atol=1e-3, rtol=2.0 ** -7,
+                why="one bf16 ulp of the output (at most 2^-7 relative) "
+                    "plus 1e-3 for the fp32 summation order and the "
+                    "approximate exp2 before p rounds to bf16")
+
+
+def check_sp_kernels():
+    """The kernels of the sequence-parallel path at its shard shapes
+    (t2v-1.3B at 832x480x81, sp = 2, batch-2 CFG): Ulysses self-attention
+    over the whole sequence at N/sp heads, [2, 32768, 6, 128] over 32,760
+    keys (bounded, after kernel A's rope-only mode, whose output must
+    equal the plain rotation bit for bit); kernel A's norm-only mode
+    before the exchange, on a rank's q and k [2, 16384, 12, 128]; the
+    ring's partials, q [2, 16384, 12, 128] over a kv shard of 16,384 keys
+    with kv_len 16,384, 16,376 and 0 (running max with the lse; lse within
+    1e-3, kv_len 0 rows exactly 0 with lse +1e30); cross-attention
+    [2, 16384, 12, 128] over 512 keys. Each against its plain version,
+    timed beside SDPA on the same inputs. Returns the kernels-line
+    records."""
+    import torch
+    import torch.nn.functional as F
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.ops.rope import build_rope_3d
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    b, d, l, l_loc, lk = 2, 128, 32768, 16384, 512
+    grid = (21, 30, 52)
+    kv_real = grid[0] * grid[1] * grid[2]
+    sc = fa.LOG2E / math.sqrt(d)
+    bound = torch.tensor([1.01 * d * sc], device="cuda")
+    src = "univid_tpu_torch/kernels/csrc/flash_attention_sm90.cu"
+    recs = {}
+    with torch.no_grad():
+        # ---- Ulysses: the whole sequence at 6 of the 12 heads ------------
+        n = 6
+        q = qk_normed((b, l, n, d), gen, torch.bfloat16)
+        k = qk_normed((b, l, n, d), gen, torch.bfloat16)
+        v = torch.randn((b, l, n, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        k[:, kv_real:] = 50.0   # padded keys: large values
+        v[:, kv_real:] = 50.0
+        cos, sin = build_rope_3d(d, grid, device="cuda")
+        tabs = fa._pad_tables(fa.build_fused_rope_tables(cos, sin, d), l, l,
+                              sc)
+        kv_len = torch.full((b,), kv_real, dtype=torch.int32, device="cuda")
+        got = fa._flash_cuda(q, k, v, kv_len, bound, tabs)
+        want = fa.attention_plain(q, k, v, kv_len=kv_len, bound=bound,
+                                  rope_tables=tabs)
+        err = compare("flash_attention_bf16 sp=2 ulysses [2, 32768, 6, 128] "
+                      "bounded+rope+kv_len", got, want, **_sp_tol())
+        qr, kr = fa.qk_norm_rope(q, k, rope_tables=tabs)
+        pq, pk = fa.qk_norm_rope_plain(q, k, None, tabs)
+        equal = [bool(torch.equal(qr, pq)), bool(torch.equal(kr, pk))]
+        log(json.dumps({"check": "qk_rope_bf16 sp=2 ulysses rope only "
+                                 "[2, 32768, 6, 128] (q, k)",
+                        "equal": equal, "why": "the same fp32 products and "
+                        "sum, one rounding to bf16", "ok": all(equal)}))
+        if not all(equal):
+            fail("qk_rope_bf16: rope only is not bit-equal at the Ulysses "
+                 "shape")
+        ms = cuda_time(lambda: fa._flash_cuda(qr, kr, v, kv_len, bound,
+                                              None), 3)
+        plain_ms = cuda_time(lambda: fa.attention_plain(
+            qr, kr, v, kv_len=kv_len, bound=bound), 1)
+        qs, ks, vs = (x.transpose(1, 2) for x in (qr, kr, v))
+        lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+            qs, ks[:, :, :kv_real], vs[:, :, :kv_real], scale=1.0 / fa.LOG2E),
+            3)
+        bms, by = bound_ms(4 * b * n * l * kv_real * d, nbytes(qr, kr, v, got),
+                           H100_BF16_FLOPS)
+        recs["flash_attention_bf16_sp"] = dict(
+            name="flash_attention_bf16_sp", counter="flash_attention_bf16",
+            route="cuda", source=src,
+            replaces="univid_tpu/kernels/flash_attention.py:44",
+            shape="Ulysses [2, 32768, 6, 128] over 32,760 keys",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=lib_ms)
+        ms_r = cuda_time(lambda: fa.qk_norm_rope(q, k, rope_tables=tabs), 5)
+        plain_r = cuda_time(lambda: fa.qk_norm_rope_plain(q, k, None, tabs),
+                            2)
+        bms, by = bound_ms(0, nbytes(q, k, qr, kr, *tabs), H100_BF16_FLOPS)
+        recs["qk_rope_bf16_sp"] = dict(
+            name="qk_rope_bf16_sp", counter="qk_rope_bf16", route="cuda",
+            source="univid_tpu_torch/kernels/csrc/qk_prepass.cu",
+            replaces="univid_tpu/kernels/flash_attention.py:157",
+            shape="rope only, q and k [2, 32768, 6, 128]", max_abs_err=0.0,
+            ms=ms_r, plain_ms=plain_r, bound_ms=bms, bound_by=by,
+            library_ms=None)
+        del q, k, v, got, want, qr, kr, pq, pk, qs, ks, vs
+
+        # ---- kernel A's norm before the exchange: a rank's tokens -------
+        n = 12
+        q = (torch.randn((b, l_loc, n, d), generator=gen, device="cuda")
+             * 3).to(torch.bfloat16)
+        k = (torch.randn((b, l_loc, n, d), generator=gen, device="cuda")
+             * 3).to(torch.bfloat16)
+        gq, gk = ((torch.rand((n * d,), generator=gen, device="cuda") + 0.5)
+                  .to(torch.bfloat16) for _ in range(2))
+        norm = (gq, gk, QK_EPS)
+        want = fa.qk_norm_rope_plain(q, k, norm)
+        got = fa.qk_norm_rope(q, k, qk_norm=norm)
+        err = max(compare_within(
+            f"qk_norm_bf16 sp=2 norm before the exchange {nm}", g, w,
+            QK_STEP * w.float().abs(), QK_WHY)
+            for nm, g, w in (("q", got[0], want[0]), ("k", got[1], want[1])))
+        ms_n = cuda_time(lambda: fa.qk_norm_rope(q, k, qk_norm=norm), 5)
+        plain_n = cuda_time(lambda: fa.qk_norm_rope_plain(q, k, norm), 2)
+        w_ = n * d
+        lib_n = cuda_time(lambda: (
+            F.rms_norm(q.view(b, l_loc, w_), (w_,), gq, QK_EPS),
+            F.rms_norm(k.view(b, l_loc, w_), (w_,), gk, QK_EPS)), 5)
+        bms, by = bound_ms(0, nbytes(q, k, *want, gq, gk), H100_BF16_FLOPS)
+        recs["qk_norm_bf16_sp"] = dict(
+            name="qk_norm_bf16_sp", counter="qk_norm_bf16", route="cuda",
+            source="univid_tpu_torch/kernels/csrc/qk_prepass.cu",
+            replaces="univid_tpu/kernels/flash_attention.py:157",
+            shape="norm only, q and k [2, 16384, 12, 128]", max_abs_err=err,
+            ms=ms_n, plain_ms=plain_n, bound_ms=bms, bound_by=by,
+            library_ms=lib_n)
+        del q, k, got, want
+
+        # ---- ring: a rank's queries over one visiting kv shard ----------
+        q = qk_normed((b, l_loc, n, d), gen, torch.bfloat16)
+        k = qk_normed((b, l_loc, n, d), gen, torch.bfloat16)
+        v = torch.randn((b, l_loc, n, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        k[:, l_loc - 8:] = 50.0   # the pad of shard 1 (16,376 real keys)
+        v[:, l_loc - 8:] = 50.0
+        qs = fa._fold(q, 1.0 / math.sqrt(d))
+        err, lse_err = 0.0, 0.0
+        for kvl in ([l_loc, l_loc - 8], [l_loc - 8, 0]):
+            kv = torch.tensor(kvl, dtype=torch.int32, device="cuda")
+            if kvl[0] == l_loc:   # shard 0: every key real
+                kk, vv = k.clone(), v.clone()
+                kk[0, l_loc - 8:] = qk_normed((8, n, d), gen, torch.bfloat16)
+                vv[0, l_loc - 8:] = 1.0
+            else:
+                kk, vv = k, v
+            o, lse = fa.flash_attention_padded(q, kk, vv, kv_len=kv,
+                                               save_residuals=True)
+            wo, wl = fa.attention_plain(qs, kk, vv, kv_len=kv,
+                                        save_residuals=True)
+            err = max(err, compare(f"flash_attention_bf16_lse sp=2 ring "
+                                   f"kv_len {kvl}", o, wo, **_sp_tol()))
+            live = kv > 0
+            lse_err = max(lse_err, compare(
+                f"flash_attention_bf16_lse sp=2 ring lse kv_len {kvl}",
+                lse[live], wl[live], atol=1e-3, rtol=0.0,
+                why="the lse of §2: fp32 sums in another order"))
+            if not live.all():
+                empty = ~live
+                if float(o[empty].abs().max()) != 0.0 or not bool(
+                        (lse[empty] == -fa.NEG_INF).all()):
+                    fail("ring: kv_len 0 rows are not exactly 0 with lse "
+                         "+1e30")
+            del kk, vv, o, lse, wo, wl
+        kv = torch.full((b,), l_loc, dtype=torch.int32, device="cuda")
+        ms = cuda_time(lambda: fa.flash_attention_padded(
+            q, k, v, kv_len=kv, save_residuals=True), 3)
+        plain_ms = cuda_time(lambda: fa.attention_plain(
+            qs, k, v, kv_len=kv, save_residuals=True), 1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt), 3)
+        bms, by = bound_ms(4 * b * n * l_loc * l_loc * d,
+                           nbytes(q, k, v, q) + b * n * l_loc * 4,
+                           H100_BF16_FLOPS)
+        recs["flash_attention_bf16_lse_sp_ring"] = dict(
+            name="flash_attention_bf16_lse_sp_ring",
+            counter="flash_attention_bf16_lse", route="cuda", source=src,
+            replaces="univid_tpu/kernels/flash_attention.py:343",
+            shape="ring q [2, 16384, 12, 128] over a kv shard of 16,384 "
+                  "(kv_len 16,384 / 16,376 / 0)",
+            max_abs_err=err, lse_max_abs_err=lse_err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
+        del k, v, kt, vt
+
+        # ---- cross-attention: a rank's tokens over 512 text keys --------
+        qx = q * torch.tensor(sc, dtype=torch.bfloat16, device="cuda")
+        k = qk_normed((b, lk, n, d), gen, torch.bfloat16)
+        v = torch.randn((b, lk, n, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        got = fa.cross_attention_padded(qx, k, v, score_bound=bound)
+        err = compare("cross_attention_bf16 sp=2 [2, 16384, 12, 128] x 512 "
+                      "bounded", got,
+                      fa.attention_plain(qx, k, v, bound=bound), **_sp_tol())
+        ms = cuda_time(lambda: fa.cross_attention_padded(
+            qx, k, v, score_bound=bound), 5)
+        plain_ms = cuda_time(lambda: fa.attention_plain(qx, k, v,
+                                                        bound=bound), 1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (qx, k, v))
+        lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=1.0 / fa.LOG2E), 5)
+        bms, by = bound_ms(4 * b * n * l_loc * lk * d, nbytes(qx, k, v, got),
+                           H100_BF16_FLOPS)
+        recs["cross_attention_bf16_sp"] = dict(
+            name="cross_attention_bf16_sp", counter="cross_attention_bf16",
+            route="cuda", source=src,
+            replaces="univid_tpu/kernels/flash_attention.py:355",
+            shape="[2, 16384, 12, 128] over [2, 512, 12, 128]",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=lib_ms)
+        del q, qs, qx, k, v, got, qt, kt, vt
+    torch.cuda.empty_cache()
+    for r in recs.values():
+        log(json.dumps({"kernel": r}))
+    return recs
+
+
+def _sp_spec():
+    """t2v-1.3B at full width, SP_LAYERS blocks; UMT5-XXL at SP_T5_LAYERS."""
+    import dataclasses
+
+    from univid_tpu_torch.core.config import WAN_CONFIGS
+
+    spec = WAN_CONFIGS["t2v-1.3B"]
+    return dataclasses.replace(
+        spec, dit=dataclasses.replace(spec.dit, num_layers=SP_LAYERS),
+        t5=dataclasses.replace(spec.t5, num_layers=SP_T5_LAYERS))
+
+
+def _sp_rank_work(rank, init):
+    """One rank of sp_main_path. Returns its records (numbers only)."""
+    import torch
+    import torch.distributed as dist
+
+    from univid_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.wan.dit import (WanDiT, wan_dit_forward,
+                                                 wan_dit_forward_sp)
+    from univid_tpu_torch.models.wan.t5 import UMT5Encoder, encode_padded
+    from univid_tpu_torch.parallel import sharding
+    from univid_tpu_torch.parallel.ring import ring_attention
+    from univid_tpu_torch.pipelines.ti2v import (WanTI2VPipeline, dit_rope,
+                                                 padded_seq_len)
+    from univid_tpu_torch.utils.profiling import PhaseTimer
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=SP_WORLD)
+    out = {"rank": rank}
+    comm = {"s": 0.0, "calls": 0}
+
+    def timed(fn):   # a collective, synchronised on both sides
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            comm["s"] += time.perf_counter() - t0
+            comm["calls"] += 1
+            return res
+        return call
+
+    dist.all_to_all_single = timed(dist.all_to_all_single)
+    dist.all_gather = timed(dist.all_gather)
+
+    spec = _sp_spec()
+    cfg = spec.dit
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dit = WanDiT(cfg, dtype=torch.bfloat16, device="cuda", gen=g)
+    with torch.no_grad():   # a seeded head: init's zero head gives v = 0
+        dit.head.head.w.copy_(torch.randn(
+            dit.head.head.w.shape, generator=g, device="cuda") * 0.02)
+    ctx, nctx = (torch.randn((cfg.text_len, cfg.text_dim), generator=g,
+                             device="cuda") * 0.5 for _ in range(2))
+    mesh = make_mesh(MeshSpec(sp=SP_WORLD))
+    kw = dict(SP_SHAPE, sampling_steps=SP_STEPS, seed=0, decode=False)
+
+    # ---- (a) Ulysses through the pipeline, then one rank alone ----------
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    comm.update(s=0.0, calls=0)
+    timer = PhaseTimer()
+    t0 = time.perf_counter()
+    lat = WanTI2VPipeline(spec, dit, None, sp_size=SP_WORLD,
+                          mesh=mesh).generate(ctx, nctx, timer=timer, **kw)
+    torch.cuda.synchronize()
+    out["ulysses"] = dict(
+        seconds=time.perf_counter() - t0,
+        dit_step_s=timer.totals["dit_step"] / SP_STEPS,
+        collectives_s=comm["s"] / SP_STEPS, collective_calls=comm["calls"],
+        collective_share=comm["s"] / timer.totals["dit_step"],
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launch_counts(), by_impl=dict(fa.LAUNCHES_BY_IMPL),
+        latent_shape=list(lat.shape), finite=bool(torch.isfinite(lat).all()))
+    dist.barrier()
+    if rank == 0:
+        timer1 = PhaseTimer()
+        torch.cuda.reset_peak_memory_stats()
+        one = WanTI2VPipeline(spec, dit, None).generate(ctx, nctx,
+                                                         timer=timer1, **kw)
+        out["single"] = dict(
+            dit_step_s=timer1.totals["dit_step"] / SP_STEPS,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            latent_rel_l2=rel_l2(lat, one))
+        del one
+    dist.barrier()
+    del lat
+
+    # ---- (b) ring: one DiT call, and a call with a shard all padding ----
+    grid = (21, 60, 104)
+    x = torch.randn((2,) + grid + (cfg.in_dim,), generator=g, device="cuda")
+    t = torch.tensor([700.0, 700.0], device="cuda")
+    ctx2 = torch.stack([ctx, nctx])
+    rope = dit_rope(cfg, grid, "cuda")
+    seq = padded_seq_len(spec, SP_SHAPE["size"], SP_SHAPE["frame_num"],
+                         SP_WORLD)
+    fa.reset_launches()
+    comm.update(s=0.0, calls=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o_ring = wan_dit_forward_sp(dit, x, t, ctx2, *rope, mesh=mesh,
+                                sp_impl="ring", seq_pad_to=seq)
+    torch.cuda.synchronize()
+    out["ring"] = dict(seconds=time.perf_counter() - t0,
+                       collectives_s=comm["s"], collective_calls=comm["calls"],
+                       launches=launch_counts(),
+                       by_impl=dict(fa.LAUNCHES_BY_IMPL),
+                       finite=bool(torch.isfinite(o_ring).all()))
+    o_one = wan_dit_forward(dit, x, t, ctx2, *rope, seq_pad_to=seq)
+    out["ring"]["rel_l2"] = rel_l2(o_ring, o_one)
+    del o_ring
+    group = mesh["sp"].get_group()
+    gk = torch.Generator(device="cuda").manual_seed(21)
+    shape = (2, seq, cfg.num_heads, cfg.head_dim)
+    q = qk_normed(shape, gk, torch.bfloat16)
+    k = qk_normed(shape, gk, torch.bfloat16)
+    v = torch.randn(shape, generator=gk, device="cuda").to(torch.bfloat16)
+    # row 0: rank 1's shard all padding; row 1: its real keys end inside
+    real = torch.tensor([seq // 2, seq - 2000], dtype=torch.int32,
+                        device="cuda")
+    for row in range(2):
+        k[row, int(real[row]):] = 50.0
+        v[row, int(real[row]):] = 50.0
+    rows = slice(rank * seq // 2, (rank + 1) * seq // 2)
+    ql, kl, vl = (x[:, rows].contiguous() for x in (q, k, v))
+    o = ring_attention(ql, kl, vl, group, seq_len_global=real)
+    want = fa.flash_attention_padded(ql, k, v, kv_len=real)
+    out["ring_padded_shard"] = dict(rel_l2=rel_l2(o, want),
+                                    max_abs_err=float(
+                                        (o.float() - want.float()).abs()
+                                        .max()),
+                                    finite=bool(torch.isfinite(o).all()))
+    del q, k, v, ql, kl, vl, o, want
+
+    # ---- (c) FSDP over fsdp = 2: the DiT and UMT5-XXL ------------------
+    mesh_f = make_mesh(MeshSpec(fsdp=SP_WORLD))
+    torch.cuda.reset_peak_memory_stats()
+    sharding.shard_params(dit, mesh_f, sharding.dit_param_sharding_rules())
+    w = dit.blocks[0].self_attn.q.w
+    o_fsdp = wan_dit_forward(dit, x, t, ctx2, *rope, seq_pad_to=seq)
+    out["fsdp_dit"] = dict(
+        rel_l2=rel_l2(o_fsdp, o_one), local_q_shape=list(w.to_local().shape),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del dit, o_fsdp, o_one, w
+    torch.cuda.empty_cache()
+    t5 = UMT5Encoder(spec.t5, dtype=torch.float32, device="cuda",
+                     gen=torch.Generator(device="cuda").manual_seed(2))
+    ids = torch.randint(0, spec.t5.vocab_size, (2, spec.t5.text_len),
+                        generator=g, device="cuda")
+    lens = torch.tensor([120, spec.t5.text_len], device="cuda")
+    ref = encode_padded(t5, ids, lens, compute_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    sharding.shard_params(t5, mesh_f, sharding.t5_param_sharding_rules())
+    got = encode_padded(t5, ids, lens, compute_dtype=torch.float32)
+    out["fsdp_t5"] = dict(
+        rel_l2=rel_l2(got, ref),
+        local_embedding_shape=list(t5.token_embedding.to_local().shape),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _sp_rank(rank, init, results):
+    import traceback
+
+    import torch
+    try:
+        with torch.no_grad():   # serving: no autograd graph
+            results.put((rank, True, _sp_rank_work(rank, init)))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+
+
+def sp_main_path(output_dir):
+    """Phase 13: multi-GPU serving, two ranks on the one card over gloo
+    (NCCL refuses two ranks on one device; gloo takes the CUDA tensors of
+    all_to_all_single and all_gather, and FSDP2's all-gather), t2v-1.3B at
+    full width and SP_LAYERS blocks, the same seeded weights on each rank:
+    (a) WanTI2VPipeline(sp_size=2, mesh) for SP_STEPS UniPC steps at
+    832x480x81 from a seeded context (decode=False, Ulysses with the fused
+    rope), held to the single-rank pipeline's latent from the same seed
+    (rank 0, after); (b) one wan_dit_forward_sp(sp_impl='ring') call held
+    to wan_dit_forward, and one ring_attention call whose real length
+    leaves rank 1's shard of batch row 0 all padding, held to one kernel
+    call over every key; (c) on an fsdp = 2 mesh, one DiT call and one
+    UMT5-XXL encode_padded (fp32, SP_T5_LAYERS blocks) after shard_params,
+    held to the unsharded module. Records seconds per step against the
+    single rank, the collectives' share of the step (each collective
+    synchronised on both sides: a cost of gloo on one card, not a figure
+    for NVLink), peak memory per rank. The kernels are built in this
+    process before the ranks start. Each rank's launches are counted from
+    zero just before its run; a rank that fails, or the pair past
+    SP_DEADLINE, kills both and fails the run. Returns {path: launches}
+    summed over the ranks."""
+    import multiprocessing as mp
+    import os
+    import queue
+
+    ctx = mp.get_context("spawn")
+    os.makedirs(output_dir, exist_ok=True)
+    init = os.path.join(os.path.abspath(output_dir), "sp_rendezvous")
+    if os.path.exists(init):
+        os.remove(init)
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_sp_rank, args=(r, f"file://{init}", results))
+             for r in range(SP_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    end = time.monotonic() + SP_DEADLINE
+    try:
+        while len(got) < SP_WORLD:
+            try:
+                rank, ok, rec = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > end:
+                    fail(f"sp_main_path: a rank died ({dead}) or the ranks "
+                         f"passed {SP_DEADLINE} s")
+                continue
+            if not ok:
+                fail(f"sp_main_path: rank {rank} failed:\n{rec}")
+            got[rank] = rec
+        for p in procs:
+            p.join(max(1.0, end - time.monotonic()))
+            if p.exitcode != 0:
+                fail(f"sp_main_path: a rank exited with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    wall = time.perf_counter() - t0
+    if os.path.exists(init):
+        os.remove(init)
+
+    n, steps = SP_LAYERS, SP_STEPS
+    zero = dict.fromkeys(got[0]["ulysses"]["launches"], 0)
+    want_u = dict(zero, flash_attention_bf16=n * steps,
+                  cross_attention_bf16=n * steps,
+                  qk_rope_bf16=n * steps,       # kernel A after the exchange
+                  qk_norm_bf16=2 * n * steps)   # before it, and the cross q/k
+    # the ring rotates and norms q and k in the block (JAX's XLA path), its
+    # cross-attention too: no pre-pass
+    want_r = dict(zero, flash_attention_bf16_lse=SP_WORLD * n,
+                  cross_attention_bf16=n)
+    impl_u = {"sm90": 2 * n * steps, "causal_sm90": 0, "mma_sync": 0}
+    impl_r = {"sm90": (SP_WORLD + 1) * n, "causal_sm90": 0, "mma_sync": 0}
+    single = got[0]["single"]
+    u0 = got[0]["ulysses"]
+    log(json.dumps({
+        "phase": "sp_main_path", "model": f"t2v-1.3B ({n} of 30 blocks, "
+        "full width)", "resolution": "832x480x81", "sp": SP_WORLD,
+        "seconds": wall, "ranks": got,
+        "dit_step_s_sp2": u0["dit_step_s"],
+        "dit_step_s_single": single["dit_step_s"],
+        "collective_share": u0["collective_share"],
+        "expected_launches_per_rank": {"ulysses": want_u, "ring": want_r},
+        "expected_by_impl_per_rank": {"ulysses": impl_u, "ring": impl_r}}))
+    for rank, rec in got.items():
+        u, r = rec["ulysses"], rec["ring"]
+        if u["launches"] != want_u or u["by_impl"] != impl_u:
+            fail(f"sp rank {rank}: Ulysses launches {u['launches']} "
+                 f"{u['by_impl']} != {want_u} {impl_u}")
+        if r["launches"] != want_r or r["by_impl"] != impl_r:
+            fail(f"sp rank {rank}: ring launches {r['launches']} "
+                 f"{r['by_impl']} != {want_r} {impl_r}")
+        if not (u["finite"] and r["finite"]
+                and rec["ring_padded_shard"]["finite"]):
+            fail(f"sp rank {rank}: non-finite output")
+        checks = [("ring DiT call vs wan_dit_forward", r["rel_l2"], 3e-2),
+                  ("ring with a shard all padding vs one kernel call",
+                   rec["ring_padded_shard"]["rel_l2"], 3e-2),
+                  ("FSDP DiT vs unsharded", rec["fsdp_dit"]["rel_l2"], 3e-2),
+                  ("FSDP UMT5-XXL fp32 vs unsharded",
+                   rec["fsdp_t5"]["rel_l2"], 1e-4)]
+        if rank == 0:
+            checks.append(("Ulysses pipeline latent vs one rank",
+                           single["latent_rel_l2"], 3e-2))
+        for what, val, lim in checks:
+            log(json.dumps({"check": f"sp rank {rank}: {what}",
+                            "rel_l2": val, "limit": lim, "why": SP_WHY,
+                            "ok": val < lim}))
+            if not val < lim:
+                fail(f"sp rank {rank}: {what} rel. L2 {val} >= {lim}")
+        if rec["fsdp_dit"]["local_q_shape"] != [1536, 768]:
+            fail(f"sp rank {rank}: the DiT's q weight is not sharded on its "
+                 f"in dim: {rec['fsdp_dit']['local_q_shape']}")
+    lat = u0["latent_shape"]
+    if lat != [1, 21, 60, 104, 16]:
+        fail(f"sp_main_path: latent shape {lat}")
+    return {"sp": {c: sum(got[r]["ulysses"]["launches"][c] for r in got)
+                   for c in zero},
+            "sp_ring": {c: sum(got[r]["ring"]["launches"][c] for r in got)
+                        for c in zero}}
+
+
 def kernels_line(records, by_path, mask_records):
     """The `kernels` line: each kernel's record with the launches of the
     path it serves (None with --kernels-only) and `launches_by_path`."""
@@ -6405,6 +6959,11 @@ def kernels_line(records, by_path, mask_records):
     # launches_by_path)
     own.update({f"{nm}_a14b": "t2v-A14B" for nm in A14B_KERNELS},
                flash_attention_f32_d384="t2v-A14B")
+    # the shard shapes of multi-GPU serving: the sp = 2 Ulysses pipeline
+    # run (both ranks' launches), the ring's lse kernel the ring DiT call
+    own.update(flash_attention_bf16_sp="sp", qk_rope_bf16_sp="sp",
+               qk_norm_bf16_sp="sp", cross_attention_bf16_sp="sp",
+               flash_attention_bf16_lse_sp_ring="sp_ring")
     kernels = []
     for nm, rec in records.items():
         owner = own.get(nm, "t2v-1.3B")
@@ -6511,6 +7070,7 @@ def main():
     for rec in check_knob_kernels("t2v-1.3B", 12, (21, 30, 52), 32768, 30,
                                   running=False).values():
         log(json.dumps({"kernel_at_t2v13b_shape": rec}))
+    records.update(check_sp_kernels())
     log(json.dumps({"phase": "kernel_checks",
                     "seconds": time.perf_counter() - t0}))
 
@@ -6583,6 +7143,12 @@ def main():
         t0 = time.perf_counter()
         by_path["fp32_train"] = fp32_train_main_path(FP32_TRAIN_STEPS)
         log(json.dumps({"phase": "fp32_train_main_path_total",
+                        "seconds": time.perf_counter() - t0}))
+        gc.collect()
+        torch.cuda.empty_cache()   # the ranks share the card with us
+        t0 = time.perf_counter()
+        by_path.update(sp_main_path(args.output_dir))
+        log(json.dumps({"phase": "sp_main_path_total",
                         "seconds": time.perf_counter() - t0}))
         t0 = time.perf_counter()
         qa_cli_on_card(args.output_dir)

@@ -179,7 +179,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "new = {'core.checkpoint', 'models.bagel.bagel', "
         "'models.bagel.qwen2_mot', 'models.bagel.siglip', "
         "'models.bagel.packed', 'data.packed_dataset', "
-        "'models.fusion.extractor', 'pipelines.fusion'}\n"
+        "'models.fusion.extractor', 'pipelines.fusion', 'core.mesh', "
+        "'parallel', 'parallel.ulysses', 'parallel.ring', "
+        "'parallel.sharding'}\n"
         "assert {p.__name__ + '.' + m for m in new} <= set(mods), mods\n"
         "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"

@@ -19,6 +19,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
 
 import univid_tpu.kernels.flash_attention as jfa
 from test_torch_models import D128, np_params
@@ -36,6 +38,7 @@ from univid_tpu_torch import convert
 from univid_tpu_torch.core.config import (TMAConfig, WAN_CONFIGS,
                                           WanDiTConfig, latent_shape)
 from univid_tpu_torch.core.dtypes import FP32_POLICY
+from univid_tpu_torch.core.mesh import MeshSpec, make_mesh
 from univid_tpu_torch.ops.samplers import flow_sigmas
 from univid_tpu_torch.pipelines.moe import (WanMoEPipeline,
                                             expert_schedule,
@@ -227,8 +230,9 @@ def test_i2v_conditioning():
 
 
 def test_refusals():
-    """TaylorSeer raises JAX's NotImplementedError message; sp_size > 1 or
-    a mesh cite the ROADMAP's multi-GPU item."""
+    """TaylorSeer raises JAX's NotImplementedError message; sp_size > 1
+    without a mesh raises JAX's ValueError; a mesh with tp > 1 cites the
+    ROADMAP's tensor-parallel item."""
     spec, low, high, vae, ctx = _small()
     with pytest.raises(NotImplementedError) as want:
         JMoE(JCONFIGS["tiny-moe-t2v"], low, high, vae).generate(
@@ -238,10 +242,21 @@ def test_refusals():
         _port(spec, low, high, vae).generate(ctx, ctx, taylorseer_threshold=2)
     assert str(got.value) == str(want.value)
     dits = _port(spec, low, high, vae)
-    for kw in (dict(sp_size=2), dict(mesh=object())):
+    with pytest.raises(ValueError) as want:
+        JMoE(JCONFIGS["tiny-moe-t2v"], low, high, vae, sp_size=2)
+    with pytest.raises(ValueError) as got:
+        WanMoEPipeline(spec, dits.low, dits.high, dits.vae, sp_size=2)
+    assert str(got.value) == str(want.value)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    try:
+        mesh = make_mesh(MeshSpec(sp=2, tp=2), device="cpu")
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1: Multi-GPU"):
-            WanMoEPipeline(spec, dits.low, dits.high, dits.vae, **kw)
+                           match="ROADMAP.md queue 1: Multi-GPU tensor "
+                                 "parallelism"):
+            WanMoEPipeline(spec, dits.low, dits.high, dits.vae, sp_size=2,
+                           mesh=mesh)
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="no moe_boundary"):
         WanMoEPipeline(WAN_CONFIGS["tiny"], dits.low, dits.high, dits.vae)
 

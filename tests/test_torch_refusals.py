@@ -24,7 +24,7 @@ def _multi_gpu(tmp_path):
 
 CASES = {"WanAnimate": _cli_later(["--mode", "animate"]),
          "prompt extension": _cli_later(["--use_prompt_extend"]),
-         "Multi-GPU": _multi_gpu}
+         "Multi-GPU training": _multi_gpu}
 
 
 @pytest.mark.parametrize("item", list(CASES))

@@ -22,6 +22,9 @@ Differences from the JAX function, each deliberate:
   * The decode-shaped einsums read the cache up to the longest row's new
     length (the keys past it are masked either way); the prefill kernel
     takes the whole buffer and skips the dead tiles itself.
+  * A tree sharded by `parallel.sharding.shard_params` (FSDP2) runs as it
+    is: the forward gathers each layer's unit around the layer, and
+    `lm_head_logits` the root's around the head.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch.nn as nn
 
 from ...core import nn as unn
 from ...kernels.attention import attention
+from ...parallel.sharding import gathered
 
 
 @dataclass(frozen=True)
@@ -252,8 +256,7 @@ def qwen2_mot_forward(params, cfg: Qwen2MoTConfig, x: torch.Tensor,
         return _expert_linear(attn_u[name], attn_g[name], h, und,
                               compute_dtype)
 
-    h = x
-    for i, layer in enumerate(params.layers):
+    def one_layer(layer, i, h):
         attn_u = layer.attn
         attn_g = layer.attn_gen if gen_mode else attn_u
         y = ln(layer, "input_ln", h)
@@ -296,7 +299,12 @@ def qwen2_mot_forward(params, cfg: Qwen2MoTConfig, x: torch.Tensor,
             m = _qwen_mlp(layer.mlp_gen, y, compute_dtype)
             if und.numel() > 0:
                 m[:, und] = _qwen_mlp(layer.mlp, y[:, und], compute_dtype)
-        h = h + m
+        return h + m
+
+    h = x
+    for i, layer in enumerate(params.layers):
+        with gathered(layer):
+            h = one_layer(layer, i, h)
 
     if commit:
         cache["len"] = new_len
@@ -351,5 +359,6 @@ def _cached_attention(q, k_cache, v_cache, kv_len, new_len, is_causal,
 
 def lm_head_logits(params, cfg: Qwen2MoTConfig, hidden: torch.Tensor,
                    compute_dtype=torch.bfloat16) -> torch.Tensor:
-    return unn.linear(params.lm_head, hidden.to(compute_dtype),
-                      compute_dtype=compute_dtype).float()
+    with gathered(params):
+        return unn.linear(params.lm_head, hidden.to(compute_dtype),
+                          compute_dtype=compute_dtype).float()

@@ -16,25 +16,41 @@ substitutes named parameters (the LoRA-merged weights of
 train/lora.merge_lora) without touching the module. A block frees its q, k
 and v after their attention call and runs a long sequence's FFN over
 token chunks (`FFN_CHUNK_ELEMS`), so a 1280x720x81 A14B call fits beside
-both experts. Sequence parallelism is a later slice.
+both experts.
+
+`wan_dit_forward_sp` is the sequence-parallel forward over the `sp` axis of
+a DeviceMesh (JAX's shard_map version): each rank of the sp group holds its
+slice of the tokens through the blocks, self-attention is Ulysses
+(`parallel.ulysses`) or ring (`parallel.ring`), and the head's output is
+all-gathered. A model sharded by `parallel.sharding.shard_params` (FSDP2)
+runs in both forwards: each FSDP unit (the root, each block) is gathered
+around its use (`gathered`), since the forwards read the tensors directly
+and FSDP2's module hooks never fire.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ...core import nn as unn
 from ...core.config import WanDiTConfig
+from ...core.mesh import AXIS_SP
 from ...core.dtypes import DEFAULT_POLICY, DTypePolicy
 from ...kernels.attention import attention
-from ...kernels.flash_attention import build_fused_rope_tables
+from ...kernels.flash_attention import (D128, build_fused_rope_tables,
+                                        qk_norm_rope, rms_heads)
 from ...ops.embeddings import sinusoidal_embedding_1d
 from ...ops.rope import apply_rope
+from ...parallel.ring import ring_attention
+from ...parallel.sharding import gathered, is_sharded
+from ...parallel.ulysses import ulysses_attention
 
 # the largest FFN hidden activation a block computes at once (elements):
 # 2 GB in bf16; longer sequences run the FFN over token chunks
@@ -239,9 +255,29 @@ class _View:
         return name in self._mod
 
 
-def _self_attn_qkv(bp, cfg, x32, sel, rope_cos, rope_sin, rope_tabs, policy):
+@dataclass(frozen=True)
+class _SeqParallel:
+    """The sp group a block's self-attention runs over, and how."""
+    group: object
+    impl: str   # 'ulysses' | 'ring'
+
+
+def _norm_heads(q, k, qk_norm):
+    """Wan's qk RMS norm over each token's N * D width: kernel A's
+    norm-only mode on the card's bf16 d=128 tensors, else `rms_heads`."""
+    gq, gk, eps = qk_norm
+    if q.is_cuda and q.dtype == torch.bfloat16 and q.shape[-1] == D128:
+        return qk_norm_rope(q, k, qk_norm=qk_norm)
+    return rms_heads(q, gq, eps), rms_heads(k, gk, eps)
+
+
+def _self_attn_qkv(bp, cfg, x32, sel, rope_cos, rope_sin, rope_tabs, policy,
+                   sp=None):
     """AdaLN + q/k/v projections + qk-norm and rope, unless fused: then
-    `attention` takes both (`_self_attn`)."""
+    `attention` takes both (`_self_attn`). Under sequence parallelism the
+    norm runs here, on the rank's tokens with all their heads: Ulysses
+    scatters the heads, and a norm over a rank's N / sp heads of a token
+    is another function."""
     cd = policy.compute_dtype
     y = _modulated(x32, sel(0), sel(1), cfg.eps).to(cd)
     q, k, v = _attn_qkv(bp.self_attn, y, cfg.num_heads, policy,
@@ -249,21 +285,32 @@ def _self_attn_qkv(bp, cfg, x32, sel, rope_cos, rope_sin, rope_tabs, policy):
     if rope_tabs is None:
         q = apply_rope(q, rope_cos, rope_sin).to(cd)
         k = apply_rope(k, rope_cos, rope_sin).to(cd)
+    elif sp is not None and "norm_q" in bp.self_attn:
+        q, k = _norm_heads(q, k, _qk_norm(bp.self_attn, policy, True))
     return q, k, v
 
 
-def _self_attn(bp, cfg, q, k, v, rope_tabs, self_kv_len, policy):
+def _self_attn(bp, cfg, q, k, v, rope_tabs, self_kv_len, policy, sp=None):
     bound = None
     if policy.bounded_softmax and "norm_q" in bp.self_attn:
         bound = _qk_bound(bp.self_attn, cfg.head_dim)
+    if sp is not None and sp.impl == "ring":
+        # JAX's ring path: the running max, neither bound nor knobs
+        o = ring_attention(q, k, v, sp.group, seq_len_global=self_kv_len)
+    elif sp is not None:
+        o = ulysses_attention(q, k, v, sp.group, kv_len=self_kv_len,
+                              rope_tables=rope_tabs,
+                              softmax_bf16=policy.softmax_bf16,
+                              qk_int8=policy.qk_int8, score_bound=bound)
+    else:
+        o = attention(q, k, v, kv_len=self_kv_len, rope_tables=rope_tabs,
+                      softmax_bf16=policy.softmax_bf16,
+                      qk_int8=policy.qk_int8, score_bound=bound,
+                      qk_norm=_qk_norm(bp.self_attn, policy,
+                                       rope_tabs is not None))
     # the output in the compute dtype: what the o-projection reads, and
     # what the 'attn' remat mode keeps
-    return attention(q, k, v, kv_len=self_kv_len, rope_tables=rope_tabs,
-                     softmax_bf16=policy.softmax_bf16,
-                     qk_int8=policy.qk_int8, score_bound=bound,
-                     qk_norm=_qk_norm(bp.self_attn, policy,
-                                      rope_tabs is not None)
-                     ).to(policy.compute_dtype)
+    return o.to(policy.compute_dtype)
 
 
 def _block_rest(bp, cfg, x32, attn, sel, ctx, policy, fused=False):
@@ -334,7 +381,7 @@ def _ffn(bp, y, cd):
 
 
 def _block(bp, cfg, x32, e0, ctx, rope_cos, rope_sin, rope_tabs,
-           t_zero_mask, self_kv_len, policy, remat):
+           t_zero_mask, self_kv_len, policy, remat, sp=None):
     """One DiT block. remat: False keeps every activation for the backward;
     True recomputes the whole block there (its attention calls included);
     'attn' checkpoints the block in two segments around the self-attention
@@ -349,7 +396,7 @@ def _block(bp, cfg, x32, e0, ctx, rope_cos, rope_sin, rope_tabs,
 
     def qkv(x):
         return _self_attn_qkv(bp, cfg, x, sel, rope_cos, rope_sin,
-                              rope_tabs, policy)
+                              rope_tabs, policy, sp)
 
     def rest(x, a):
         return _block_rest(bp, cfg, x, a, sel, ctx, policy,
@@ -359,16 +406,73 @@ def _block(bp, cfg, x32, e0, ctx, rope_cos, rope_sin, rope_tabs,
         # q, k and v live only through the self-attention call (at 720p
         # A14B they are 4.65 GB that the rest of the block does not read)
         return rest(x, _self_attn(bp, cfg, *qkv(x), rope_tabs, self_kv_len,
-                                  policy))
+                                  policy, sp))
 
     ck = dict(use_reentrant=False, preserve_rng_state=False)
     if remat == "attn":
         q, k, v = checkpoint(qkv, x32, **ck)
-        a = _self_attn(bp, cfg, q, k, v, rope_tabs, self_kv_len, policy)
+        a = _self_attn(bp, cfg, q, k, v, rope_tabs, self_kv_len, policy, sp)
         return checkpoint(rest, x32, a, **ck)
     if remat:
         return checkpoint(full, x32, **ck)
     return full(x32)
+
+
+def _check_forward(model, remat_blocks):
+    if remat_blocks not in (False, True, "attn"):
+        raise ValueError(f"remat_blocks must be False, True or 'attn', "
+                         f"got {remat_blocks!r}")
+    if is_sharded(model) and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "an FSDP-sharded DiT serves under no_grad: its backward (the "
+            "reduce-scatter of the gradients) is a later slice (ROADMAP.md "
+            "queue 1: Multi-GPU training)")
+
+
+def _blocks_and_head(model: WanDiT, x32, e, e0, ctx, rope_cos, rope_sin,
+                     rope_tabs, t_zero_mask, self_kv_len, policy,
+                     remat_blocks, weights=None, sp=None):
+    """The blocks and the modulated head over the (possibly rank-local)
+    tokens x32 [B, L, d]: head output tokens [B, L, patch_out] (fp32).
+    Each block's FSDP unit, and the root's for the head, is gathered
+    around its use."""
+    cfg = model.cfg
+    for i, blk in enumerate(model.blocks):
+        bp = _View(blk, f"blocks.{i}.", weights) if weights else blk
+        with gathered(blk):
+            x32 = _block(bp, cfg, x32, e0, ctx, rope_cos, rope_sin,
+                         rope_tabs, t_zero_mask, self_kv_len, policy,
+                         remat_blocks, sp)
+    with gathered(model):
+        hp = model.head
+        head_mod = hp["modulation"].float()[None, None] + e[:, :, None, :]
+        shift = _select_rows(head_mod[:, :, 0], t_zero_mask)
+        scale = _select_rows(head_mod[:, :, 1], t_zero_mask)
+        y = unn.layer_norm(x32.float(), eps=cfg.eps) * (1.0 + scale) + shift
+        return unn.linear(hp["head"], y, compute_dtype=torch.float32)
+
+
+def _tokens(model: WanDiT, x, t, context, rope_cos, rope_sin, t_zero_mask,
+            seq_pad_to, policy, multiple=1):
+    """The token set-up both forwards share: the embeddings (the root's
+    FSDP unit gathered), the tokens padded to seq_pad_to and up to a
+    multiple of `multiple`, the rope tables and t_zero_mask padded to
+    match. Returns (h, grid, e, e0, ctx, rope_cos, rope_sin, t_zero_mask,
+    self_kv_len), self_kv_len [B] the real token count (None when no token
+    is padding)."""
+    with gathered(model):
+        h, grid, e, e0, ctx = _embed_inputs(model, x, t, context, policy)
+    b, l_real = h.shape[:2]
+    l = -(-max(seq_pad_to or 0, l_real) // multiple) * multiple
+    if l > l_real:
+        h = F.pad(h, (0, 0, 0, l - l_real))
+    rope_cos, rope_sin = _pad_rope(rope_cos, rope_sin, l)
+    self_kv_len = (torch.full((b,), l_real, dtype=torch.int32,
+                              device=h.device) if l_real < l else None)
+    if t_zero_mask is not None and t_zero_mask.shape[1] < l:
+        t_zero_mask = F.pad(t_zero_mask, (0, l - t_zero_mask.shape[1]))
+    return (h, grid, e, e0, ctx, rope_cos, rope_sin, t_zero_mask,
+            self_kv_len)
 
 
 def wan_dit_forward(model: WanDiT, x, t, context, rope_cos, rope_sin, *,
@@ -388,35 +492,64 @@ def wan_dit_forward(model: WanDiT, x, t, context, rope_cos, rope_sin, *,
     remat_blocks: False | True | 'attn' (see _block). weights: tensors that
     replace the parameters of the same state-dict names inside the blocks
     (merge_lora's output)."""
-    if remat_blocks not in (False, True, "attn"):
-        raise ValueError(f"remat_blocks must be False, True or 'attn', "
-                         f"got {remat_blocks!r}")
+    _check_forward(model, remat_blocks)
     cfg = model.cfg
-    b = x.shape[0]
-    h, grid, e, e0, ctx = _embed_inputs(model, x, t, context, policy)
-    l_real = h.shape[1]
-    if seq_pad_to is not None and seq_pad_to > l_real:
-        h = F.pad(h, (0, 0, 0, seq_pad_to - l_real))
-    l = h.shape[1]
-    rope_cos, rope_sin = _pad_rope(rope_cos, rope_sin, l)
-    self_kv_len = (torch.full((b,), l_real, dtype=torch.int32,
-                              device=h.device) if l_real < l else None)
-    if t_zero_mask is not None and t_zero_mask.shape[1] < l:
-        t_zero_mask = F.pad(t_zero_mask, (0, l - t_zero_mask.shape[1]))
-
-    x32 = h.to(policy.residual_dtype)
+    (h, grid, e, e0, ctx, rope_cos, rope_sin, t_zero_mask,
+     self_kv_len) = _tokens(model, x, t, context, rope_cos, rope_sin,
+                            t_zero_mask, seq_pad_to, policy)
     rope_tabs = (build_fused_rope_tables(rope_cos, rope_sin, cfg.head_dim)
                  if fused_rope else None)
-    for i, bp in enumerate(model.blocks):
-        if weights:
-            bp = _View(bp, f"blocks.{i}.", weights)
-        x32 = _block(bp, cfg, x32, e0, ctx, rope_cos, rope_sin, rope_tabs,
-                     t_zero_mask, self_kv_len, policy, remat_blocks)
-
-    hp = model.head
-    head_mod = hp["modulation"].float()[None, None] + e[:, :, None, :]
-    shift = _select_rows(head_mod[:, :, 0], t_zero_mask)
-    scale = _select_rows(head_mod[:, :, 1], t_zero_mask)
-    y = unn.layer_norm(x32.float(), eps=cfg.eps) * (1.0 + scale) + shift
-    out = unn.linear(hp["head"], y, compute_dtype=torch.float32)
+    out = _blocks_and_head(model, h.to(policy.residual_dtype), e, e0, ctx,
+                           rope_cos, rope_sin, rope_tabs, t_zero_mask,
+                           self_kv_len, policy, remat_blocks, weights)
     return unpatchify_tokens(out.float(), grid, cfg.patch_size, cfg.out_dim)
+
+
+def wan_dit_forward_sp(model: WanDiT, x, t, context, rope_cos, rope_sin, *,
+                       mesh, sp_impl: str = "ulysses",
+                       t_zero_mask: Optional[torch.Tensor] = None,
+                       seq_pad_to: Optional[int] = None,
+                       policy: DTypePolicy = DEFAULT_POLICY,
+                       fused_rope: bool = False, remat_blocks=False
+                       ) -> torch.Tensor:
+    """Sequence-parallel velocity prediction [B, F, H, W, C_out] (fp32),
+    the same on every rank of the mesh's sp group, each of which passes
+    the same inputs (as wan_dit_forward takes them).
+
+    The embeddings run on every rank; the tokens are padded to a multiple
+    of sp (and to seq_pad_to) and each rank keeps its slice, with its
+    slice of t_zero_mask; e, e0 and the text context stay whole. Self-
+    attention: sp_impl 'ulysses' (`parallel.ulysses`: heads scattered,
+    the sequence gathered; fused_rope rotates in the kernel with the
+    global tables after the exchange) or 'ring' (`parallel.ring`: the kv
+    shards pass around the group; q and k rotated here by the rank's
+    global slice of the tables; fused_rope is ignored, as in JAX), padded
+    keys masked through the global kv_len either way. Cross-attention and
+    the FFN stay local (FFN_CHUNK_ELEMS per rank); the head's output is
+    all-gathered before unpatchify."""
+    if sp_impl not in ("ulysses", "ring"):
+        raise ValueError(f"sp_impl must be 'ulysses' or 'ring', got "
+                         f"{sp_impl!r}")
+    _check_forward(model, remat_blocks)
+    cfg = model.cfg
+    group = mesh[AXIS_SP].get_group()
+    sp = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    if cfg.num_heads % sp:
+        raise ValueError(f"num_heads {cfg.num_heads} % sp {sp} != 0")
+    (h, grid, e, e0, ctx, rope_cos, rope_sin, t_zero_mask,
+     self_kv_len) = _tokens(model, x, t, context, rope_cos, rope_sin,
+                            t_zero_mask, seq_pad_to, policy, multiple=sp)
+    l_loc = h.shape[1] // sp
+    rows = slice(me * l_loc, (me + 1) * l_loc)
+    rope_tabs = (build_fused_rope_tables(rope_cos, rope_sin, cfg.head_dim)
+                 if fused_rope and sp_impl == "ulysses" else None)
+    out = _blocks_and_head(
+        model, h[:, rows].to(policy.residual_dtype), e, e0, ctx,
+        rope_cos[rows], rope_sin[rows], rope_tabs,
+        None if t_zero_mask is None else t_zero_mask[:, rows],
+        self_kv_len, policy, remat_blocks, sp=_SeqParallel(group, sp_impl))
+    parts = [torch.empty_like(out) for _ in range(sp)]
+    dist.all_gather(parts, out.contiguous(), group=group)
+    full = torch.cat(parts, dim=1)
+    return unpatchify_tokens(full, grid, cfg.patch_size, cfg.out_dim)

@@ -3,7 +3,10 @@
 Counterpart of univid_tpu/models/wan/t5.py: pre-norm blocks, a relative-
 position attention bias per layer (umt5), gated GELU-tanh feed-forward,
 unscaled attention with an fp32 softmax, final RMS norm. The bucket table
-for a fixed length is computed on the host in numpy.
+for a fixed length is computed on the host in numpy. An encoder sharded by
+`parallel.sharding.shard_params` (FSDP2) runs as it is: the forward gathers
+the root's unit around the token embedding and each block's around the
+block.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch.nn as nn
 
 from ...core import nn as unn
 from ...core.config import T5Config
+from ...parallel.sharding import gathered
 
 
 def relative_position_buckets(lq: int, lk: int, num_buckets: int = 32,
@@ -114,7 +118,8 @@ def t5_encode(model: UMT5Encoder, ids: torch.Tensor,
     buckets = torch.as_tensor(relative_position_buckets(
         l, l, cfg.num_buckets, cfg.rel_pos_max_dist),
         dtype=torch.long, device=ids.device)
-    x = model.token_embedding[ids].to(compute_dtype)
+    with gathered(model):
+        x = model.token_embedding[ids].to(compute_dtype)
     shared_bias = None
     if cfg.shared_pos:
         shared_bias = model.blocks[0].pos_embedding.float()[buckets] \
@@ -122,14 +127,16 @@ def t5_encode(model: UMT5Encoder, ids: torch.Tensor,
     for bp in model.blocks:
         bias = shared_bias if shared_bias is not None else \
             bp.pos_embedding.float()[buckets].permute(2, 0, 1)
-        y = unn.rms_norm(x, bp.norm1.to(compute_dtype), eps=1e-6)
-        x = x + _t5_attention(bp.attn, y, bias, mask, cfg.num_heads,
-                              compute_dtype)
-        y = unn.rms_norm(x, bp.norm2.to(compute_dtype), eps=1e-6)
-        ff = bp.ffn
-        gate = unn.gelu_tanh(unn.linear(ff["gate"], y, compute_dtype=compute_dtype))
-        h = unn.linear(ff["fc1"], y, compute_dtype=compute_dtype) * gate
-        x = x + unn.linear(ff["fc2"], h, compute_dtype=compute_dtype)
+        with gathered(bp):
+            y = unn.rms_norm(x, bp.norm1.to(compute_dtype), eps=1e-6)
+            x = x + _t5_attention(bp.attn, y, bias, mask, cfg.num_heads,
+                                  compute_dtype)
+            y = unn.rms_norm(x, bp.norm2.to(compute_dtype), eps=1e-6)
+            ff = bp.ffn
+            gate = unn.gelu_tanh(unn.linear(ff["gate"], y,
+                                            compute_dtype=compute_dtype))
+            h = unn.linear(ff["fc1"], y, compute_dtype=compute_dtype) * gate
+            x = x + unn.linear(ff["fc2"], h, compute_dtype=compute_dtype)
     return unn.rms_norm(x, model.norm.to(compute_dtype), eps=1e-6)
 
 

@@ -11,7 +11,9 @@ the fused-rope route, and the token axis is padded once to a multiple of
 first-frame mask, vae_encode([image, zeros x (frame_num - 1)])) is
 concatenated to the sample before every DiT call, and no token takes t =
 0. The loop is a host loop: JAX's chunked dispatch (`dispatch_steps`) is a
-TPU device, not semantics.
+TPU device, not semantics. sp_size > 1 with a DeviceMesh runs both
+experts' calls sequence-parallel over the mesh's sp axis, as in
+WanTI2VPipeline.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from ..core.dtypes import DEFAULT_POLICY, DTypePolicy
 from ..models.wan.dit import WanDiT
 from ..models.wan.vae_api import WanVAE, vae_encode
 from ..ops.samplers import unipc_init_state
+from ..parallel.sharding import check_serving_mesh
 from .ti2v import (cfg_velocity, decoded, dit_rope, guided, initial_noise,
                    padded_seq_len, phase, solver_for, timed, tma_context)
 
@@ -64,15 +67,14 @@ class WanMoEPipeline:
                  sp_size: int = 1, mesh=None):
         if spec.moe_boundary is None:
             raise ValueError(f"{spec.name} has no moe_boundary")
-        if sp_size > 1 or mesh is not None:
-            raise NotImplementedError(
-                "sequence parallelism over a mesh is part of the multi-GPU "
-                "slice (ROADMAP.md queue 1: Multi-GPU)")
+        check_serving_mesh(mesh, sp_size)
         self.spec = spec
         self.low = low
         self.high = high
         self.vae = vae
         self.policy = policy
+        self.sp_size = sp_size
+        self.mesh = mesh
 
     @property
     def device(self):
@@ -95,6 +97,7 @@ class WanMoEPipeline:
                                           guide_scale)
         context_at = tma_context(tma, steps, cfg.text_len)
         policy = self.policy
+        mesh = self.mesh if self.sp_size > 1 else None
 
         @torch.no_grad()
         def run(low, high, noise, context, context_null, y):
@@ -108,7 +111,7 @@ class WanMoEPipeline:
                     v = cfg_velocity(high if is_high[i] else low,
                                      state["sample"], c["timestep"],
                                      context_at(ctx_pair, i), rope, seq_len,
-                                     policy, cond=y)
+                                     policy, cond=y, mesh=mesh)
                     state = step_fn(state, c, guided(v, float(gscale[i])))
             return state["sample"]
 
@@ -144,7 +147,7 @@ class WanMoEPipeline:
         if isinstance(guide_scale, (int, float)):
             guide_scale = (float(guide_scale), float(guide_scale))
         c, f, h, w = latent_shape(spec, size[0], size[1], frame_num)
-        seq_len = padded_seq_len(spec, size, frame_num)
+        seq_len = padded_seq_len(spec, size, frame_num, self.sp_size)
         dev = self.device
         noise = initial_noise(noise, (1, f, h, w, c), seed, dev)
         y = None

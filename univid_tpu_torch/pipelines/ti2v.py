@@ -12,7 +12,12 @@ feed its own noise. `taylorseer_threshold` > 0 turns on TaylorSeer step
 caching of the batch-2 CFG velocity (ops/taylorseer.py): full steps run
 the DiT and refresh the factor stack [7, 2, F, H, W, C] (fp32); Taylor
 steps extrapolate the velocity and skip the DiT. Threshold 1 makes every
-step full (the result equals the loop without it).
+step full (the result equals the loop without it). With sp_size > 1 and a
+DeviceMesh (`core.mesh.make_mesh`), every rank of the mesh's sp group runs
+the same loop on the same inputs, and each DiT call is the sequence-
+parallel forward (`wan_dit_forward_sp`, Ulysses with the fused rope): the
+token axis is padded to a multiple of sp first, and the starting noise,
+drawn from one seeded torch.Generator per rank, is the same on every rank.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import torch
 from ..core.config import (GenerationConfig, TMAConfig, WanModelSpec,
                            dit_seq_len, latent_shape)
 from ..core.dtypes import DEFAULT_POLICY, DTypePolicy
-from ..models.wan.dit import WanDiT, wan_dit_forward
+from ..models.wan.dit import WanDiT, wan_dit_forward, wan_dit_forward_sp
 from ..models.wan.vae_api import WanVAE, vae_decode, vae_encode
 from ..ops.rope import build_rope_3d
 from ..ops.samplers import (dpm_step, flow_sigmas, get_sampling_sigmas,
@@ -36,6 +41,7 @@ from ..ops.taylorseer import (TaylorSeerConfig, init_taylor_cache,
                               taylor_predict, taylor_update,
                               taylorseer_schedule)
 from ..ops.tma import apply_text_weight, tma_schedule_weights
+from ..parallel.sharding import check_serving_mesh
 
 
 def solver_for(gen: GenerationConfig):
@@ -77,18 +83,23 @@ def dit_rope(cfg, latent_grid, device):
 
 
 def cfg_velocity(dit, sample, timestep, ctx, rope, seq_len, policy, *,
-                 cond=None, t_zero=None):
+                 cond=None, t_zero=None, mesh=None):
     """One classifier-free-guidance DiT call: sample [1, F, H, W, C] (with
     cond [1, F, H, W, C'] concatenated along channels, when given) as a
     batch of 2 over ctx [2, text_len, text_dim] (conditional, then null),
     on the fused-rope route, the tokens padded to seq_len -> the velocities
-    [2, F, H, W, C]."""
+    [2, F, H, W, C]. With a mesh: the sequence-parallel forward over its sp
+    axis (Ulysses)."""
     x2 = sample.float().expand((2,) + tuple(sample.shape[1:]))
     if cond is not None:
         x2 = torch.cat([x2, cond.float().expand((2,) + tuple(
             cond.shape[1:]))], dim=-1)
     t2 = torch.full((2,), timestep, dtype=torch.float32,
                     device=sample.device)
+    if mesh is not None:
+        return wan_dit_forward_sp(dit, x2, t2, ctx, *rope, mesh=mesh,
+                                  t_zero_mask=t_zero, seq_pad_to=seq_len,
+                                  policy=policy, fused_rope=True)
     return wan_dit_forward(dit, x2, t2, ctx, *rope, t_zero_mask=t_zero,
                            seq_pad_to=seq_len, policy=policy,
                            fused_rope=True)
@@ -131,10 +142,12 @@ def decoded(vae, x0, decode: bool, timer):
     return timed(timer, "vae_decode", vae_decode, vae, x0)[0]
 
 
-def padded_seq_len(spec: WanModelSpec, size, frame_num: int) -> int:
-    """DiT token count, padded once to a multiple of 2048 above 2048
-    tokens (the 30 blocks then need no per-call padding)."""
-    seq_len = dit_seq_len(spec, size[0], size[1], frame_num)
+def padded_seq_len(spec: WanModelSpec, size, frame_num: int,
+                   sp_size: int = 1) -> int:
+    """DiT token count, padded to a multiple of sp_size and then once to a
+    multiple of 2048 above 2048 tokens (the 30 blocks then need no
+    per-call padding)."""
+    seq_len = dit_seq_len(spec, size[0], size[1], frame_num, sp_size)
     if seq_len > 2048:
         seq_len = -(-seq_len // 2048) * 2048
     return seq_len
@@ -143,14 +156,19 @@ def padded_seq_len(spec: WanModelSpec, size, frame_num: int) -> int:
 class WanTI2VPipeline:
     """Tensor-in / tensor-out t2v and i2v pipeline. Text encoding (UMT5 or
     the fusion projector) happens upstream; the pipeline takes context
-    tensors [text_len, text_dim]."""
+    tensors [text_len, text_dim]. sp_size > 1 with a DeviceMesh runs the
+    denoise sequence-parallel over the mesh's sp axis."""
 
     def __init__(self, spec: WanModelSpec, dit: WanDiT, vae: WanVAE,
-                 policy: DTypePolicy = DEFAULT_POLICY):
+                 policy: DTypePolicy = DEFAULT_POLICY, sp_size: int = 1,
+                 mesh=None):
+        check_serving_mesh(mesh, sp_size)
         self.spec = spec
         self.dit = dit
         self.vae = vae
         self.policy = policy
+        self.sp_size = sp_size
+        self.mesh = mesh
 
     @property
     def device(self):
@@ -176,6 +194,7 @@ class WanTI2VPipeline:
         pt, ph, pw = cfg.patch_size
         grid = (f // pt, h // ph, w // pw)
         policy = self.policy
+        mesh = self.mesh if self.sp_size > 1 else None
         sched = (taylorseer_schedule(steps, TaylorSeerConfig(
             fresh_threshold=taylorseer_threshold))
             if taylorseer_threshold > 0 else None)
@@ -208,7 +227,8 @@ class WanTI2VPipeline:
                         v = cfg_velocity(dit, state["sample"],
                                          c["timestep"], context_at(
                                              ctx_pair, i), rope, seq_len,
-                                         policy, t_zero=t_zero)
+                                         policy, t_zero=t_zero,
+                                         mesh=mesh)
                         if sched is not None:
                             factors = taylor_update(factors, v,
                                                     sched["dd"][i],
@@ -240,7 +260,7 @@ class WanTI2VPipeline:
         taylorseer_threshold: TaylorSeer's fresh_threshold (0: off)."""
         spec = self.spec
         c, f, h, w = latent_shape(spec, size[0], size[1], frame_num)
-        seq_len = padded_seq_len(spec, size, frame_num)
+        seq_len = padded_seq_len(spec, size, frame_num, self.sp_size)
         dev = self.device
         noise = initial_noise(noise, (1, f, h, w, c), seed, dev)
         i2v = img is not None

@@ -51,8 +51,8 @@ def make_dit_train_step(cfg: WanDiTConfig, tx, mesh=None,
     (False | True | 'attn') recomputes DiT blocks in the backward."""
     if mesh is not None:
         raise NotImplementedError(
-            "the mesh (sharded training) is part of the multi-GPU slice "
-            "(ROADMAP.md queue 1: Multi-GPU)")
+            "the mesh (sharded training) is a later slice (ROADMAP.md "
+            "queue 1: Multi-GPU training)")
     rope_cos, rope_sin = rope
 
     def train_step(state, batch):
