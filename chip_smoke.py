@@ -6905,6 +6905,687 @@ def sp_main_path(output_dir):
                         for c in zero}}
 
 
+TP = 2               # the tp mesh's ranks, both on the one card
+TP_WHY = ("fp32 accuracy on both sides: three bf16 parts a side (~2^-24 a "
+          "product), summation order and the approximate exp2")
+
+
+def check_tp_kernels():
+    """The kernels of the tensor-parallel path at its shard shapes, N / tp
+    heads a rank (t2v-1.3B's 12 over tp = 2, BAGEL-7B-MoT's 28 query heads
+    over 4 kv heads): the fp32 train step's forward with lse and its dq
+    and dk/dv pair at q, k, v [2, 32768, 6, 128] (the B = 2 step, kv_len
+    32,760, keys past it 50.0) and at the cross shape (512 keys); the bf16
+    serving call's self-attention [2, 32768, 6, 128] over 32,760 keys
+    (bounded) after kernel A's rope-only mode, whose output must equal the
+    plain rotation bit for bit, and its cross-attention [2, 32768, 6, 128]
+    over 512 keys; the causal kernel at the LLM's tp prefill, q [1, 2048,
+    14, 128] over a [1, 2048, 2, 128] cache (group 7). Each against its
+    plain version, timed with CUDA events beside the plain version and
+    SDPA on the same inputs (fp32 SDPA with TF32 off; its backward alone
+    for the pair). Returns the kernels-line records."""
+    import torch
+    import torch.nn.functional as F
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.ops.rope import build_rope_3d
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    b, l, n, d, lk = 2, 32768, 12 // TP, 128, 512
+    kv_real = 21 * 30 * 52
+    sc = 1.0 / math.sqrt(d)
+    fwd_tol = dict(atol=1e-5, rtol=1e-4, why=TP_WHY)
+    lse_tol = dict(atol=1e-4, rtol=0.0,
+                   why="fp32 log2 of an fp32 row sum; summation order and "
+                       "the approximate exp2")
+    recs = {}
+
+    # ---- the fp32 train step: forward with lse, dq and dk/dv ------------
+    for shape, keys, real in (("self", l, kv_real), ("cross", lk, None)):
+        q = qk_normed((b, l, n, d), gen, torch.float32)
+        k = qk_normed((b, keys, n, d), gen, torch.float32)
+        v = torch.randn((b, keys, n, d), generator=gen, device="cuda")
+        do = torch.randn((b, l, n, d), generator=gen, device="cuda")
+        kv_len = None
+        if real is not None:
+            kv_len = torch.full((b,), real, dtype=torch.int32, device="cuda")
+            k[:, real:] = 50.0
+            v[:, real:] = 50.0
+        live = real or keys
+        qs = fa._fold(q, sc)
+        with torch.no_grad():
+            o, lse = fa.flash_attention_fwd_folded(qs, k, v, kv_len=kv_len)
+            o_p, lse_p = fa.attention_plain(qs, k, v, kv_len=kv_len,
+                                            save_residuals=True)
+            err_f = max(compare(f"flash_attention_f32_sm90_lse tp=2 {shape} "
+                                "output", o, o_p, **fwd_tol),
+                        compare(f"flash_attention_f32_sm90_lse tp=2 {shape} "
+                                "lse", lse, lse_p, **lse_tol))
+            del o, lse
+            want = fa._bwd_plain_folded(qs, k, v, o_p, lse_p, do, kv_len, sc)
+            got = fa.flash_attention_bwd_folded(qs, k, v, o_p, lse_p, do,
+                                                kv_len=kv_len,
+                                                softmax_scale=sc)
+            err_dq = _bwd_check(f"flash_attention_bwd_f32_sm90 tp=2 {shape} "
+                                "dq", got[0], want[0])
+            err_dkv = max(_bwd_check(f"flash_attention_bwd_f32_sm90 tp=2 "
+                                     f"{shape} {nm}", g, w)
+                          for nm, g, w in zip(("dk", "dv"), got[1:],
+                                              want[1:]))
+            del got, want
+            fwd_ms = cuda_time(lambda: fa.flash_attention_fwd_folded(
+                qs, k, v, kv_len=kv_len), 2)
+            bwd_ms = cuda_time(lambda: fa.flash_attention_bwd_folded(
+                qs, k, v, o_p, lse_p, do, kv_len=kv_len, softmax_scale=sc),
+                1)
+            parts = [fa.split_bf16x3(x) for x in (qs, k, v, do)]
+            _, delta = fa._bwd_dq_f32_sm90_parts(*parts, o_p, do, lse_p,
+                                                 kv_len, sc)
+            dq_ms = cuda_time(lambda: fa._bwd_dq_f32_sm90_parts(
+                *parts, o_p, do, lse_p, kv_len, sc), 1)
+            dkv_ms = cuda_time(lambda: fa._bwd_dkv_f32_sm90_parts(
+                *parts, lse_p, delta, kv_len), 1)
+            del parts, delta
+            plain_fwd = cuda_time(lambda: fa.attention_plain(
+                qs, k, v, kv_len=kv_len, save_residuals=True), 1, warmup=0)
+            plain_bwd = cuda_time(lambda: fa._bwd_plain_folded(
+                qs, k, v, o_p, lse_p, do, kv_len, sc), 1, warmup=0)
+            qg, kg, vg = (x.transpose(1, 2)[:, :, :m] for x, m in
+                          ((qs, l), (k, live), (v, live)))
+            lib_fwd = cuda_time(lambda: F.scaled_dot_product_attention(
+                qg, kg, vg, scale=1.0 / fa.LOG2E), 2)
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (qg, kg, vg))
+        ref_out = F.scaled_dot_product_attention(qg, kg, vg,
+                                                 scale=1.0 / fa.LOG2E)
+        lib_bwd = cuda_time(lambda: torch.autograd.grad(
+            ref_out, (qg, kg, vg), do.transpose(1, 2), retain_graph=True), 1)
+        del ref_out, qg, kg, vg
+        mm = 2.0 * b * n * l * live * d
+        row, kvb, lseb = nbytes(qs), nbytes(k, v), b * n * l * 4
+        sfx = "_tp" if shape == "self" else "_tp_cross"
+        where = f"tp=2 {shape} [2, 32768, 6, 128]" + (
+            " over 512 keys" if shape == "cross" else " over 32,760 keys")
+        for name, rep, ms, plain_ms, lib_ms, products, nb, extra in (
+                ("flash_attention_f32_sm90_lse",
+                 "univid_tpu/kernels/flash_attention.py:343", fwd_ms,
+                 plain_fwd, lib_fwd, 2, 2 * row + kvb + lseb, {}),
+                ("flash_attention_bwd_dq_f32_sm90",
+                 "univid_tpu/kernels/flash_attention.py:831", dq_ms,
+                 plain_bwd, lib_bwd, 3, 4 * row + kvb + 2 * lseb,
+                 {"pair_call_ms": bwd_ms}),
+                ("flash_attention_bwd_dkv_f32_sm90",
+                 "univid_tpu/kernels/flash_attention.py:940", dkv_ms,
+                 plain_bwd, lib_bwd, 4, 2 * row + 2 * kvb + 2 * lseb,
+                 {"pair_call_ms": bwd_ms})):
+            bms, by = bound_ms(F32_SPLIT * products * mm, nb,
+                               H100_BF16_FLOPS)
+            err = {"flash_attention_f32_sm90_lse": err_f,
+                   "flash_attention_bwd_dq_f32_sm90": err_dq}.get(name,
+                                                                  err_dkv)
+            recs[name + sfx] = dict(
+                name=name + sfx, counter=name, route="cuda",
+                source=F32_SM90_SRC, replaces=rep, shape=where,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms, **extra)
+        del q, k, v, do, qs, o_p, lse_p
+        torch.cuda.empty_cache()
+
+    # ---- the bf16 serving call: self after kernel A's rope, cross --------
+    src = "univid_tpu_torch/kernels/csrc/flash_attention_sm90.cu"
+    bsc = fa.LOG2E * sc
+    bound = torch.tensor([1.01 * d * bsc], device="cuda")
+    with torch.no_grad():
+        q = qk_normed((b, l, n, d), gen, torch.bfloat16)
+        k = qk_normed((b, l, n, d), gen, torch.bfloat16)
+        v = torch.randn((b, l, n, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        k[:, kv_real:] = 50.0
+        v[:, kv_real:] = 50.0
+        cos, sin = build_rope_3d(d, (21, 30, 52), device="cuda")
+        tabs = fa._pad_tables(fa.build_fused_rope_tables(cos, sin, d), l, l,
+                              bsc)
+        kv_len = torch.full((b,), kv_real, dtype=torch.int32, device="cuda")
+        qr, kr = fa.qk_norm_rope(q, k, rope_tables=tabs)
+        pq, pk = fa.qk_norm_rope_plain(q, k, None, tabs)
+        equal = [bool(torch.equal(qr, pq)), bool(torch.equal(kr, pk))]
+        log(json.dumps({"check": "qk_rope_bf16 tp=2 rope only "
+                                 "[2, 32768, 6, 128] (q, k)", "equal": equal,
+                        "why": "the same fp32 products and sum, one "
+                               "rounding to bf16", "ok": all(equal)}))
+        if not all(equal):
+            fail("qk_rope_bf16: rope only is not bit-equal at the tp shape")
+        ms_r = cuda_time(lambda: fa.qk_norm_rope(q, k, rope_tables=tabs), 5)
+        plain_r = cuda_time(lambda: fa.qk_norm_rope_plain(q, k, None, tabs),
+                            2)
+        bms, by = bound_ms(0, nbytes(q, k, qr, kr, *tabs), H100_BF16_FLOPS)
+        recs["qk_rope_bf16_tp"] = dict(
+            name="qk_rope_bf16_tp", counter="qk_rope_bf16", route="cuda",
+            source="univid_tpu_torch/kernels/csrc/qk_prepass.cu",
+            replaces="univid_tpu/kernels/flash_attention.py:157",
+            shape="rope only, q and k [2, 32768, 6, 128] (after the tp norm)",
+            max_abs_err=0.0, ms=ms_r, plain_ms=plain_r, bound_ms=bms,
+            bound_by=by, library_ms=None)
+        del pq, pk
+        got = fa._flash_cuda(qr, kr, v, kv_len, bound, None)
+        want = fa.attention_plain(qr, kr, v, kv_len=kv_len, bound=bound)
+        err = compare("flash_attention_bf16 tp=2 [2, 32768, 6, 128] "
+                      "bounded+kv_len", got, want, **_sp_tol())
+        ms = cuda_time(lambda: fa._flash_cuda(qr, kr, v, kv_len, bound,
+                                              None), 3)
+        plain_ms = cuda_time(lambda: fa.attention_plain(
+            qr, kr, v, kv_len=kv_len, bound=bound), 1)
+        qs_, ks_, vs_ = (x.transpose(1, 2) for x in (qr, kr, v))
+        lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+            qs_, ks_[:, :, :kv_real], vs_[:, :, :kv_real],
+            scale=1.0 / fa.LOG2E), 3)
+        bms, by = bound_ms(4 * b * n * l * kv_real * d,
+                           nbytes(qr, kr, v, got), H100_BF16_FLOPS)
+        recs["flash_attention_bf16_tp"] = dict(
+            name="flash_attention_bf16_tp", counter="flash_attention_bf16",
+            route="cuda", source=src,
+            replaces="univid_tpu/kernels/flash_attention.py:44",
+            shape="tp=2 [2, 32768, 6, 128] over 32,760 keys",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=lib_ms)
+        del k, v, got, want, qs_, ks_, vs_, kr, q
+        qx = qr * torch.tensor(bsc, dtype=torch.bfloat16, device="cuda")
+        k = qk_normed((b, lk, n, d), gen, torch.bfloat16)
+        v = torch.randn((b, lk, n, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        got = fa.cross_attention_padded(qx, k, v, score_bound=bound)
+        err = compare("cross_attention_bf16 tp=2 [2, 32768, 6, 128] x 512 "
+                      "bounded", got, fa.attention_plain(qx, k, v,
+                                                         bound=bound),
+                      **_sp_tol())
+        ms = cuda_time(lambda: fa.cross_attention_padded(
+            qx, k, v, score_bound=bound), 5)
+        plain_ms = cuda_time(lambda: fa.attention_plain(qx, k, v,
+                                                        bound=bound), 1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (qx, k, v))
+        lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, scale=1.0 / fa.LOG2E), 5)
+        bms, by = bound_ms(4 * b * n * l * lk * d, nbytes(qx, k, v, got),
+                           H100_BF16_FLOPS)
+        recs["cross_attention_bf16_tp"] = dict(
+            name="cross_attention_bf16_tp", counter="cross_attention_bf16",
+            route="cuda", source=src,
+            replaces="univid_tpu/kernels/flash_attention.py:355",
+            shape="tp=2 [2, 32768, 6, 128] over [2, 512, 6, 128]",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=lib_ms)
+        del qr, qx, k, v, got, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    # ---- the causal kernel at the LLM's tp prefill: group 7 kept --------
+    nq, nk, lq = 28 // TP, 4 // TP, TP_QWEN_TOKENS
+    q, k, v, qo, kv = _causal_case(gen, 1, lq, lq, nq, nk, [0], lq, False)
+    with torch.no_grad():
+        got = fa._flash_cuda(q, k, v, kv, None, None, causal=True,
+                             q_offsets=qo)
+        want = fa.attention_plain(q, k, v, kv_len=kv, causal=True,
+                                  q_offsets=qo)
+        err = compare("flash_attention_bf16_causal tp=2 [1, 2048, 14, 128] "
+                      "over 2 kv heads", got, want, **_sp_tol())
+        ms = cuda_time(lambda: fa._flash_cuda(q, k, v, kv, None, None,
+                                              causal=True, q_offsets=qo), 10)
+        plain_ms = cuda_time(lambda: fa.attention_plain(
+            q, k, v, kv_len=kv, causal=True, q_offsets=qo), 1)
+        qs_, ks_, vs_ = (x.transpose(1, 2) for x in (
+            q, fa.repeat_kv(k, nq), fa.repeat_kv(v, nq)))
+        lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+            qs_, ks_, vs_, is_causal=True, scale=1.0 / fa.LOG2E), 5)
+    bms, by = bound_ms(_causal_work(lq, [0], [lq], nq),
+                       nbytes(q, got) + lq * nk * d * 2 * 2, H100_BF16_FLOPS)
+    recs["flash_attention_bf16_causal_tp"] = dict(
+        name="flash_attention_bf16_causal_tp",
+        counter="flash_attention_bf16_causal", route="cuda",
+        source="univid_tpu_torch/kernels/csrc/flash_attention_causal_sm90.cu",
+        replaces="univid_tpu/kernels/flash_attention.py:44",
+        shape="tp=2 prefill q [1, 2048, 14, 128] over [1, 2048, 2, 128]",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+        library_ms=lib_ms, splits=fa.causal_splits(1, nq, nq // nk, lq, lq))
+    del q, k, v, got, want, qs_, ks_, vs_
+    torch.cuda.empty_cache()
+    for r in recs.values():
+        log(json.dumps({"kernel": r}))
+    return recs
+
+
+# depth cuts for the time limit: at 4 training and 6 serving blocks the
+# phase took 105.5 s (its tp = 2 step 29.6 s, 83% in gloo's host copies of
+# the 400 MB activations) and the script 1,054.6 s of its 1,200
+TP_TRAIN_LAYERS = 2  # of t2v-1.3B's 30 blocks in the three sharded steps
+#                      and their one-rank reference
+TP_LAYERS = 4        # of t2v-1.3B's 30 blocks in the bf16 serving call
+TP_T5_LAYERS = 2     # of UMT5-XXL's 24 blocks (full width, fp32)
+TP_QWEN_LAYERS = 2   # of BAGEL-7B-MoT's 28 LLM layers (full width, bf16)
+TP_QWEN_TOKENS = 2048   # the prefill's rows (the largest text bucket)
+TP_FRAMES = 64       # frames the dp = 2 scorer embeds
+TP_DEADLINE = 480    # s the ranks may take together, start-up included
+TP_TRAIN_LR = 1e-4
+TP_TRAIN_WHY = ("fp32 throughout; the sharded step sums its gradients in "
+                "another order (the batch split over ranks, the tp partial "
+                "products summed by all-reduce) and Adam's step is about "
+                "lr * sign(g), so an element whose gradient is at that "
+                "order's rounding noise can move the other way")
+
+
+def _tp_train_model(cfg, seed):
+    """The fp32 t2v-1.3B DiT (cfg's depth) drawn on the card from `seed`,
+    the zero head redrawn so that gradients reach every block."""
+    import torch
+
+    from univid_tpu_torch.models.wan.dit import WanDiT
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dit = WanDiT(cfg, dtype=torch.float32, device="cuda", gen=g)
+    with torch.no_grad():
+        dit.head.head.w.normal_(0.0, 0.02, generator=g)
+    return dit
+
+
+def _tp_rank_work(rank, init, note):
+    """One rank of tp_main_path. Returns its records (numbers only);
+    note(msg) logs its progress."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from univid_tpu_torch.core.config import WAN_CONFIGS, latent_shape
+    from univid_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.bagel import qwen2_mot as tq
+    from univid_tpu_torch.models.wan.dit import WanDiT, wan_dit_forward
+    from univid_tpu_torch.models.wan.t5 import UMT5Encoder, encode_padded
+    from univid_tpu_torch.ops.rope import build_rope_3d
+    from univid_tpu_torch.parallel import sharding
+    from univid_tpu_torch.pipelines.ti2v import padded_seq_len
+    from univid_tpu_torch.reflection.scorer import Siglip2Scorer
+    from univid_tpu_torch.train import trainer
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=TP)
+    note("group up")
+    out = {"rank": rank}
+    comm = {"s": 0.0, "calls": 0}
+
+    def timed(fn):   # a collective, synchronised on both sides
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            comm["s"] += time.perf_counter() - t0
+            comm["calls"] += 1
+            return res
+        return call
+
+    for nm in ("all_reduce", "all_gather", "all_gather_into_tensor",
+               "reduce_scatter_tensor"):
+        setattr(dist, nm, timed(getattr(dist, nm)))
+
+    def start(together=True):
+        # together: both ranks run the call (rank 0's one-rank references
+        # run alone, while rank 1 waits in its next collective)
+        torch.cuda.synchronize()
+        if together:
+            dist.barrier()
+        fa.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        comm.update(s=0.0, calls=0)
+        return time.perf_counter()
+
+    def stop(t0):
+        torch.cuda.synchronize()
+        return dict(seconds=time.perf_counter() - t0,
+                    collectives_s=comm["s"], collective_calls=comm["calls"],
+                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    launches={k: v for k, v in launch_counts().items() if v},
+                    by_impl=dict(fa.LAUNCHES_BY_IMPL))
+
+    # ---- (a) the fp32 train step on fsdp / dp / tp, against one rank ----
+    spec = WAN_CONFIGS["t2v-1.3B"]
+    cfg = dataclasses.replace(spec.dit, num_layers=TP_TRAIN_LAYERS)
+    _, f, lh, lw = latent_shape(spec, 832, 480, 81)
+    grid = (f, lh // 2, lw // 2)
+    pad_to = -(-grid[0] * grid[1] * grid[2] // 64) * 64
+    rope = build_rope_3d(cfg.head_dim, grid, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(62)
+    c = spec.vae.z_dim
+    batch = {"latents": torch.randn((2, f, lh, lw, c), generator=g,
+                                    device="cuda"),
+             "noise": torch.randn((2, f, lh, lw, c), generator=g,
+                                  device="cuda"),
+             "context": torch.randn((2, cfg.text_len, cfg.text_dim),
+                                    generator=g, device="cuda"),
+             "t": torch.tensor([500.0, 700.0], device="cuda")}
+
+    def one_step(mesh):
+        dit = _tp_train_model(cfg, 60)
+        if mesh is not None:
+            sharding.shard_params(dit, mesh,
+                                  sharding.dit_param_sharding_rules())
+        state, tx = trainer.init_train_state(
+            dit, trainer.make_optimizer(TP_TRAIN_LR))
+        step = trainer.make_dit_train_step(cfg, tx, mesh=mesh, rope=rope,
+                                           remat_blocks="attn",
+                                           seq_pad_to=pad_to)
+        note(f"train step on {mesh}: start")
+        t0 = start(together=mesh is not None)
+        with torch.enable_grad():
+            state, loss = step(state, batch)
+        rec = dict(stop(t0), loss=float(loss))
+        note(f"train step on {mesh}: {rec['seconds']:.2f} s")
+        after = {nm: sharding.full_tensor(p).detach().cpu()
+                 for nm, p in dit.named_parameters()}
+        del state, step, dit
+        torch.cuda.empty_cache()
+        return rec, after
+
+    train = {}
+    if rank == 0:
+        start0 = _tp_train_model(cfg, 60)
+        p0 = {nm: p.detach().cpu() for nm, p in start0.named_parameters()}
+        del start0
+        train["one_rank"], ref = one_step(None)
+    for axes in (dict(fsdp=TP), dict(dp=TP), dict(tp=TP)):
+        tag = "_".join(f"{k}{v}" for k, v in axes.items())
+        rec, after = one_step(make_mesh(MeshSpec(**axes)))
+        if rank == 0:
+            num = sum(float((after[nm].double() - ref[nm].double())
+                            .square().sum()) for nm in ref)
+            den = sum(float(ref[nm].double().square().sum()) for nm in ref)
+            dnum = sum(float((after[nm].double() - ref[nm].double())
+                             .square().sum()) for nm in ref)
+            dden = sum(float((ref[nm].double() - p0[nm].double())
+                             .square().sum()) for nm in ref)
+            rec.update(loss_rel=abs(rec["loss"] - train["one_rank"]["loss"])
+                       / abs(train["one_rank"]["loss"]),
+                       params_rel_l2=(num / den) ** 0.5,
+                       update_rel_l2=(dnum / dden) ** 0.5,
+                       moved=sum(not torch.equal(after[nm], p0[nm])
+                                 for nm in p0), tensors=len(p0))
+        train[tag] = rec
+        del after
+    out["train"] = train
+    del batch
+    if rank == 0:
+        del ref, p0
+    torch.cuda.empty_cache()
+    mesh = make_mesh(MeshSpec(tp=TP))
+
+    # ---- (b) a bf16 serving DiT call at tp = 2 --------------------------
+    cfg = dataclasses.replace(spec.dit, num_layers=TP_LAYERS)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dit = WanDiT(cfg, dtype=torch.bfloat16, device="cuda", gen=g)
+    with torch.no_grad():
+        dit.head.head.w.copy_(torch.randn(dit.head.head.w.shape, generator=g,
+                                          device="cuda") * 0.02)
+    x = torch.randn((2, f, lh, lw, cfg.in_dim), generator=g, device="cuda")
+    t = torch.tensor([700.0, 700.0], device="cuda")
+    ctx = torch.randn((2, cfg.text_len, cfg.text_dim), generator=g,
+                      device="cuda") * 0.5
+    seq = padded_seq_len(spec, (832, 480), 81)
+    kw = dict(seq_pad_to=seq, fused_rope=True)
+    one = wan_dit_forward(dit, x, t, ctx, *rope, **kw) if rank == 0 else None
+    sharding.shard_params(dit, mesh, sharding.dit_param_sharding_rules())
+    local_q = list(dit.blocks[0].self_attn.q.w.to_local().shape)
+    t0 = start()
+    o_tp = wan_dit_forward(dit, x, t, ctx, *rope, **kw)
+    out["dit"] = dict(stop(t0), local_q_shape=local_q,
+                      finite=bool(torch.isfinite(o_tp).all()))
+    note("tp DiT call")
+    if rank == 0:
+        out["dit"]["rel_l2"] = rel_l2(o_tp, one)
+    del dit, o_tp, one, x
+    torch.cuda.empty_cache()
+
+    # ---- (c) UMT5-XXL encode_padded at tp = 2 ---------------------------
+    t5cfg = dataclasses.replace(spec.t5, num_layers=TP_T5_LAYERS)
+    t5 = UMT5Encoder(t5cfg, dtype=torch.float32, device="cuda",
+                     gen=torch.Generator(device="cuda").manual_seed(2))
+    ids = torch.randint(0, t5cfg.vocab_size, (2, t5cfg.text_len),
+                        generator=g, device="cuda")
+    lens = torch.tensor([120, t5cfg.text_len], device="cuda")
+    ref = (encode_padded(t5, ids, lens, compute_dtype=torch.float32)
+           if rank == 0 else None)
+    sharding.shard_params(t5, mesh, sharding.t5_param_sharding_rules())
+    t0 = start()
+    got = encode_padded(t5, ids, lens, compute_dtype=torch.float32)
+    out["t5"] = stop(t0)
+    note("tp UMT5")
+    if rank == 0:
+        out["t5"]["rel_l2"] = rel_l2(got, ref)
+    del t5, got, ref
+    torch.cuda.empty_cache()
+
+    # ---- (d) BAGEL-7B-MoT's LLM: a prefill at tp = 2 --------------------
+    qcfg = dataclasses.replace(tq.Qwen2MoTConfig(), num_layers=TP_QWEN_LAYERS)
+    llm = tq.init_qwen2_mot(torch.Generator(device="cuda").manual_seed(3),
+                            qcfg, dtype=torch.bfloat16, device="cuda")
+    xq = (torch.randn((1, TP_QWEN_TOKENS, qcfg.hidden_size), generator=g,
+                      device="cuda") * 0.5).to(torch.bfloat16)
+    pos = torch.arange(TP_QWEN_TOKENS, device="cuda")[None]
+
+    def prefill(tp):
+        cache = tq.init_kv_cache(qcfg, TP_QWEN_TOKENS, device="cuda", tp=tp)
+        return tq.qwen2_mot_forward(llm, qcfg, xq, pos, cache)[0]
+
+    ref = prefill(1) if rank == 0 else None
+    sharding.shard_params(llm, mesh, sharding.bagel_llm_param_sharding_rules())
+    t0 = start()
+    got = prefill(TP)
+    out["qwen"] = stop(t0)
+    note("tp LLM prefill")
+    if rank == 0:
+        out["qwen"]["rel_l2"] = rel_l2(got, ref)
+    del llm, got, ref, xq
+    torch.cuda.empty_cache()
+
+    # ---- (e) Siglip2Scorer.emb_imgs at dp = 2 ---------------------------
+    rng = np.random.default_rng(5)
+    frames = [rng.integers(0, 256, (360, 640, 3), dtype=np.uint8)
+              for _ in range(TP_FRAMES)]
+    ref = Siglip2Scorer(seed=0).emb_imgs(frames) if rank == 0 else None
+    scorer = Siglip2Scorer(seed=0, mesh=make_mesh(MeshSpec(dp=TP)))
+    t0 = start()
+    got = scorer.emb_imgs(frames)
+    out["scorer"] = dict(stop(t0), shape=list(got.shape))
+    if rank == 0:
+        out["scorer"]["rel_l2"] = float(np.linalg.norm(got - ref)
+                                        / np.linalg.norm(ref))
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _tp_rank(rank, init, results, log_path):
+    import faulthandler
+    import traceback
+
+    import torch
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        def note(msg):
+            f.write(f"{time.perf_counter() - t0:8.1f} s  {msg}\n")
+            f.flush()
+
+        # a rank still running near the deadline dumps its stacks here
+        faulthandler.dump_traceback_later(TP_DEADLINE - 30, file=f)
+        try:
+            with torch.no_grad():   # the train steps enable grad themselves
+                results.put((rank, True, _tp_rank_work(rank, init, note)))
+        except BaseException:
+            results.put((rank, False, traceback.format_exc()))
+        faulthandler.cancel_dump_traceback_later()
+
+
+def tp_main_path(output_dir):
+    """Phase 14: sharded training and tensor parallelism, two ranks on the
+    one card over gloo (as sp_main_path), full width, the same seeded
+    weights on each rank: (a) make_dit_train_step on MeshSpec(fsdp=2),
+    MeshSpec(dp=2) and MeshSpec(tp=2), each one step of the fp32 t2v-1.3B
+    fine-tune at TP_TRAIN_LAYERS blocks, B = 2 at 832x480x81 (32,760 tokens
+    padded to 32,768), remat 'attn', held to the one-rank step of the same
+    model and batch (rank 0, first): the loss, the parameters after the
+    update and the update itself by relative L2; (b) one bf16 serving
+    wan_dit_forward at tp = 2 (TP_LAYERS blocks, batch-2 CFG, the fused
+    rope); (c) UMT5-XXL encode_padded at tp = 2 (fp32, TP_T5_LAYERS
+    blocks); (d) a BAGEL-7B-MoT qwen2_mot_forward prefill of
+    TP_QWEN_TOKENS rows at tp = 2 (bf16, TP_QWEN_LAYERS layers, a cache of
+    the rank's 2 kv heads); (e) Siglip2Scorer.emb_imgs on TP_FRAMES frames
+    at dp = 2. (b)-(e) held to the unsharded call (rank 0, before). Records
+    seconds against the one rank, the collectives' share (each collective
+    synchronised on both sides: a cost of gloo on one card, not a figure
+    for NVLink), peak memory per rank, and each rank's launches, counted
+    from zero just before each call. Returns {path: launches} summed over
+    the ranks."""
+    import multiprocessing as mp
+    import os
+    import queue
+
+    ctx = mp.get_context("spawn")
+    os.makedirs(output_dir, exist_ok=True)
+    init = os.path.join(os.path.abspath(output_dir), "tp_rendezvous")
+    if os.path.exists(init):
+        os.remove(init)
+    results = ctx.Queue()
+    logs = [os.path.join(output_dir, f"tp_rank{r}.log") for r in range(TP)]
+    procs = [ctx.Process(target=_tp_rank,
+                         args=(r, f"file://{init}", results, logs[r]))
+             for r in range(TP)]
+
+    def tails():
+        out = []
+        for path in logs:
+            if os.path.exists(path):
+                with open(path) as f:
+                    out.append(f"{path}:\n{f.read()[-3000:]}")
+        return "\n".join(out)
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    end = time.monotonic() + TP_DEADLINE
+    try:
+        while len(got) < TP:
+            try:
+                rank, ok, rec = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > end:
+                    fail(f"tp_main_path: a rank died ({dead}) or the ranks "
+                         f"passed {TP_DEADLINE} s\n{tails()}")
+                continue
+            if not ok:
+                fail(f"tp_main_path: rank {rank} failed:\n{rec}\n{tails()}")
+            got[rank] = rec
+        for p in procs:
+            p.join(max(1.0, end - time.monotonic()))
+            if p.exitcode != 0:
+                fail(f"tp_main_path: a rank exited with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    wall = time.perf_counter() - t0
+    if os.path.exists(init):
+        os.remove(init)
+    log(json.dumps({"tp_rank_logs": tails()}))
+
+    nt, n = TP_TRAIN_LAYERS, TP_LAYERS
+    # one fp32 step, remat 'attn': as fp32_train_main_path's, a rank's
+    # every block at its shard shape
+    want_train = {"flash_attention_f32_sm90_lse": 3 * nt,
+                  "flash_attention_bwd_dq_f32_sm90": 2 * nt,
+                  "flash_attention_bwd_dkv_f32_sm90": 2 * nt,
+                  "split_bf16x3": 17 * nt}
+    # the tp DiT call: the norm in the block (over the tp group), kernel
+    # A's rope-only mode, self- and cross-attention at 6 heads
+    want_dit = {"flash_attention_bf16": n, "cross_attention_bf16": n,
+                "qk_rope_bf16": n}
+    want_qwen = {"flash_attention_bf16_causal": TP_QWEN_LAYERS}
+    r0 = got[0]
+    log(json.dumps({
+        "phase": "tp_main_path", "model": "t2v-1.3B (train "
+        f"{nt}, serve {n} of 30 blocks), UMT5-XXL ({TP_T5_LAYERS} of 24), "
+        f"BAGEL-7B-MoT LLM ({TP_QWEN_LAYERS} of 28), SigLIP2-base scorer, "
+        "full width", "resolution": "832x480x81", "ranks_on_one_card": TP,
+        "seconds": wall, "ranks": got,
+        "train_step_s": {k: v["seconds"] for k, v in r0["train"].items()},
+        "collective_share": {
+            k: v["collectives_s"] / v["seconds"]
+            for k, v in r0["train"].items() if k != "one_rank"},
+        "expected_launches_per_rank": {"train": want_train, "dit": want_dit,
+                                       "qwen": want_qwen}}))
+    checks = []
+    for rank, rec in got.items():
+        for tag, v in rec["train"].items():
+            if v["launches"] != want_train:
+                fail(f"tp rank {rank}: {tag} train step launches "
+                     f"{v['launches']} != {want_train}")
+            if not math.isfinite(v["loss"]):
+                fail(f"tp rank {rank}: {tag} non-finite loss")
+        if rec["dit"]["launches"] != want_dit or \
+                rec["dit"]["by_impl"]["sm90"] != 2 * n:
+            fail(f"tp rank {rank}: DiT call launches {rec['dit']['launches']}"
+                 f" {rec['dit']['by_impl']} != {want_dit}")
+        if rec["qwen"]["launches"] != want_qwen:
+            fail(f"tp rank {rank}: prefill launches {rec['qwen']['launches']}"
+                 f" != {want_qwen}")
+        for tag in ("t5", "scorer"):   # head dim 64: the reference route
+            if rec[tag]["launches"]:
+                fail(f"tp rank {rank}: {tag} launched {rec[tag]['launches']}")
+        if rec["dit"]["local_q_shape"] != [768, 1536] or not rec["dit"][
+                "finite"]:
+            fail(f"tp rank {rank}: the DiT's q weight is not the rank's 6 "
+                 f"heads, or a non-finite output: {rec['dit']}")
+        if rec["scorer"]["shape"] != [TP_FRAMES, 1024]:
+            fail(f"tp rank {rank}: scorer output {rec['scorer']['shape']}")
+    for tag in ("fsdp2", "dp2", "tp2"):
+        v = r0["train"][tag]
+        if v["moved"] != v["tensors"]:
+            fail(f"tp {tag}: {v['tensors'] - v['moved']} tensors did not "
+                 "move")
+        checks += [(f"{tag} train step loss vs one rank (relative)",
+                    v["loss_rel"], 1e-5, TP_TRAIN_WHY),
+                   (f"{tag} train step parameters vs one rank",
+                    v["params_rel_l2"], 1e-6, TP_TRAIN_WHY),
+                   (f"{tag} train step update vs one rank",
+                    v["update_rel_l2"], 1e-2, TP_TRAIN_WHY)]
+    checks += [("tp DiT call vs one rank", r0["dit"]["rel_l2"], 3e-2,
+                "the bf16 policy's bound; the row-parallel sums add bf16 "
+                "partial products in fp32"),
+               ("tp UMT5-XXL fp32 vs one rank", r0["t5"]["rel_l2"], 1e-4,
+                "fp32; the row-parallel sums in another order"),
+               ("tp BAGEL LLM prefill vs one rank", r0["qwen"]["rel_l2"],
+                3e-2, "bf16; the row-parallel sums add bf16 partial "
+                      "products in fp32"),
+               ("dp scorer vs one rank", r0["scorer"]["rel_l2"], 1e-2,
+                "bf16; the same per-image tower, the projection on a "
+                "smaller batch")]
+    for what, val, lim, why in checks:
+        log(json.dumps({"check": f"tp: {what}", "value": val, "limit": lim,
+                        "why": why, "ok": val < lim}))
+        if not val < lim:
+            fail(f"tp: {what} {val} >= {lim}")
+
+    def total(tag):
+        keys = launch_counts()
+        return {c: sum(got[r][tag]["launches"].get(c, 0) for r in got)
+                for c in keys}
+
+    return {"tp_train": {c: sum(got[r]["train"]["tp2"]["launches"].get(c, 0)
+                                for r in got) for c in launch_counts()},
+            "tp_dit": total("dit"), "tp_qwen": total("qwen")}
+
+
 def kernels_line(records, by_path, mask_records):
     """The `kernels` line: each kernel's record with the launches of the
     path it serves (None with --kernels-only) and `launches_by_path`."""
@@ -6964,6 +7645,15 @@ def kernels_line(records, by_path, mask_records):
     own.update(flash_attention_bf16_sp="sp", qk_rope_bf16_sp="sp",
                qk_norm_bf16_sp="sp", cross_attention_bf16_sp="sp",
                flash_attention_bf16_lse_sp_ring="sp_ring")
+    # the shard shapes of tensor parallelism: the tp = 2 train step (both
+    # ranks' launches), the tp DiT call, the LLM's tp prefill
+    own.update({f"{nm}{sfx}": "tp_train" for sfx in ("_tp", "_tp_cross")
+                for nm in ("flash_attention_f32_sm90_lse",
+                           "flash_attention_bwd_dq_f32_sm90",
+                           "flash_attention_bwd_dkv_f32_sm90")},
+               flash_attention_bf16_tp="tp_dit", qk_rope_bf16_tp="tp_dit",
+               cross_attention_bf16_tp="tp_dit",
+               flash_attention_bf16_causal_tp="tp_qwen")
     kernels = []
     for nm, rec in records.items():
         owner = own.get(nm, "t2v-1.3B")
@@ -7071,6 +7761,7 @@ def main():
                                   running=False).values():
         log(json.dumps({"kernel_at_t2v13b_shape": rec}))
     records.update(check_sp_kernels())
+    records.update(check_tp_kernels())
     log(json.dumps({"phase": "kernel_checks",
                     "seconds": time.perf_counter() - t0}))
 
@@ -7149,6 +7840,10 @@ def main():
         t0 = time.perf_counter()
         by_path.update(sp_main_path(args.output_dir))
         log(json.dumps({"phase": "sp_main_path_total",
+                        "seconds": time.perf_counter() - t0}))
+        t0 = time.perf_counter()
+        by_path.update(tp_main_path(args.output_dir))
+        log(json.dumps({"phase": "tp_main_path_total",
                         "seconds": time.perf_counter() - t0}))
         t0 = time.perf_counter()
         qa_cli_on_card(args.output_dir)

@@ -231,8 +231,8 @@ def test_i2v_conditioning():
 
 def test_refusals():
     """TaylorSeer raises JAX's NotImplementedError message; sp_size > 1
-    without a mesh raises JAX's ValueError; a mesh with tp > 1 cites the
-    ROADMAP's tensor-parallel item."""
+    without a mesh raises JAX's ValueError; a mesh with sp and tp both > 1
+    cites the ROADMAP's item that takes them together."""
     spec, low, high, vae, ctx = _small()
     with pytest.raises(NotImplementedError) as want:
         JMoE(JCONFIGS["tiny-moe-t2v"], low, high, vae).generate(
@@ -251,8 +251,8 @@ def test_refusals():
     try:
         mesh = make_mesh(MeshSpec(sp=2, tp=2), device="cpu")
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1: Multi-GPU tensor "
-                                 "parallelism"):
+                           match="ROADMAP.md queue 1: Sequence and tensor "
+                                 "parallelism together"):
             WanMoEPipeline(spec, dits.low, dits.high, dits.vae, sp_size=2,
                            mesh=mesh)
     finally:

@@ -3,11 +3,12 @@ sequence-parallel forward, the SP pipelines and FSDP) against univid_tpu's
 own multi-device functions on its 8 virtual CPU devices
 (tests/conftest.py), at tests/test_parallel.py's tolerances.
 
-The port's ranks are spawned processes in gloo groups of 2 and 4 (`Ranks`:
-a pool per group size, rendezvous through a file, kept for the module).
-Each test sends one task to every rank and waits at most DEADLINE s for
-all of them; past it, or when a rank fails, the ranks are killed and the
-test fails, so a hung collective costs one test its deadline and no more.
+The port's ranks are spawned processes in gloo groups of 2 and 4
+(`torch_ranks.Ranks`: a pool per group size, rendezvous through a file,
+kept for the module). Each test sends one task to every rank and waits at
+most DEADLINE s for all of them; past it, or when a rank fails, the ranks
+are killed and the test fails, so a hung collective costs one test its
+deadline and no more.
 Inputs are numpy arrays made from seeds here and sent to the ranks; the
 DiT, T5 and Qwen2-MoT weights are numpy trees converted on each rank.
 fp32 policies on both sides hold the SP forwards and pipelines to JAX's
@@ -16,21 +17,17 @@ own SP-vs-single tolerances.
 
 import contextlib
 import functools
-import multiprocessing as mp
-import queue
-import time
-import traceback
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.distributed as dist
 from jax.sharding import Mesh, PartitionSpec as P
 
 import univid_tpu.kernels.flash_attention as jfa
 from test_torch_models import D128, np_params
+from torch_ranks import _mesh, ranks  # noqa: F401
 from univid_tpu.core.config import T5Config as JT5Config
 from univid_tpu.core.config import WAN_CONFIGS as JCONFIGS
 from univid_tpu.core.config import WanDiTConfig as JDiTConfig
@@ -66,120 +63,6 @@ from univid_tpu_torch.parallel.ulysses import (heads_to_seq, seq_to_heads,
                                                ulysses_attention)
 from univid_tpu_torch.pipelines.moe import WanMoEPipeline
 from univid_tpu_torch.pipelines.ti2v import WanTI2VPipeline
-
-DEADLINE = 120   # seconds a test's ranks may take, start-up included
-
-
-# ---------------------------------------------------------------------------
-# the ranks
-# ---------------------------------------------------------------------------
-
-_MESHES = {}
-
-
-def _mesh(**axes):
-    """This rank's cpu DeviceMesh of MeshSpec(**axes), made once."""
-    spec = MeshSpec(**axes)
-    if spec not in _MESHES:
-        _MESHES[spec] = make_mesh(spec, device="cpu")
-    return _MESHES[spec]
-
-
-def _serve(rank, world, init, inbox, outbox):
-    torch.set_num_threads(1)
-    try:
-        dist.init_process_group("gloo", init_method=init, rank=rank,
-                                world_size=world)
-        outbox.put((rank, True, "ready"))
-    except Exception:
-        outbox.put((rank, False, traceback.format_exc()))
-        return
-    while True:
-        task = inbox.get()
-        if task is None:
-            break
-        name, args = task
-        try:
-            with torch.no_grad():
-                out = globals()[name](rank, world, *args)
-            outbox.put((rank, True, out))
-        except Exception:
-            outbox.put((rank, False, traceback.format_exc()))
-    dist.destroy_process_group()
-
-
-class Ranks:
-    """`world` spawned processes in one gloo group, each running this
-    module's task functions on request."""
-
-    def __init__(self, world, tmpdir):
-        ctx = mp.get_context("spawn")
-        self.world = world
-        self.inboxes = [ctx.Queue() for _ in range(world)]
-        self.outbox = ctx.Queue()
-        init = f"file://{tmpdir}/rendezvous"
-        self.procs = [ctx.Process(target=_serve, daemon=True,
-                                  args=(r, world, init, self.inboxes[r],
-                                        self.outbox))
-                      for r in range(world)]
-        self.alive = True
-        for p in self.procs:
-            p.start()
-        self._collect("start-up", time.monotonic() + DEADLINE)
-
-    def _collect(self, what, end):
-        got = {}
-        while len(got) < self.world:
-            try:
-                rank, ok, out = self.outbox.get(
-                    timeout=max(0.1, end - time.monotonic()))
-            except queue.Empty:
-                self.kill()
-                late = sorted(set(range(self.world)) - set(got))
-                pytest.fail(f"{what}: ranks {late} passed the {DEADLINE} s "
-                            "deadline")
-            if not ok:
-                self.kill()
-                pytest.fail(f"{what} failed on rank {rank}:\n{out}")
-            got[rank] = out
-        return [got[r] for r in range(self.world)]
-
-    def run(self, task, *args):
-        """task(rank, world, *args) on every rank: the list of results."""
-        end = time.monotonic() + DEADLINE
-        for box in self.inboxes:
-            box.put((task.__name__, args))
-        return self._collect(task.__name__, end)
-
-    def kill(self):
-        self.alive = False
-        for p in self.procs:
-            if p.is_alive():
-                p.kill()
-        for p in self.procs:
-            p.join(5)
-
-    def close(self):
-        if self.alive:
-            for box in self.inboxes:
-                box.put(None)
-            for p in self.procs:
-                p.join(10)
-        self.kill()
-
-
-@pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    pools = {}
-
-    def get(world):
-        if world not in pools or not pools[world].alive:
-            pools[world] = Ranks(world, tmp_path_factory.mktemp(f"g{world}"))
-        return pools[world]
-
-    yield get
-    for pool in pools.values():
-        pool.close()
 
 
 def _rand(shape, seed, scale=1.0):
@@ -611,8 +494,8 @@ def test_sharded_parameter_is_never_read_without_its_gather(ranks):
 def _task_mesh_refusals(rank, world):
     out = []
     for fn in (lambda: make_mesh(MeshSpec(sp=world // 2), device="cpu"),
-               lambda: tsh.shard_params(torch.nn.Linear(4, 4), _mesh(
-                   sp=2, tp=world // 2), tsh.dit_param_sharding_rules())):
+               lambda: tsh.check_serving_mesh(_mesh(sp=2, tp=world // 2),
+                                              2)):
         try:
             fn()
             out.append(None)
@@ -623,12 +506,15 @@ def _task_mesh_refusals(rank, world):
 
 def test_mesh_size_and_tensor_parallel_refusals(ranks):
     """make_mesh raises JAX's ValueError for a spec of the wrong size; a
-    mesh with tp > 1 raises the tensor-parallel item's message."""
+    serving mesh with sp and tp both > 1 raises the message of the queue 1
+    item that takes them together (tp alone runs: test_torch_parallel_train
+    .py)."""
     for size_err, tp_err in ranks(4).run(_task_mesh_refusals):
         assert size_err == ("mesh spec MeshSpec(dp=1, fsdp=1, sp=2, tp=1) "
                             "needs 2 devices, have 4")
-        assert tp_err == tsh.TP_LATER
-        assert "ROADMAP.md queue 1: Multi-GPU tensor parallelism" in tp_err
+        assert tp_err == tsh.SP_TP_LATER
+        assert ("ROADMAP.md queue 1: Sequence and tensor parallelism "
+                "together") in tp_err
 
 
 def _task_sp_size_mismatch(rank, world, name):

@@ -1,7 +1,8 @@
 """The port's refusals of later slices cite their ROADMAP.md queue 1 item
 by name (not by number, which a re-ordered queue changes): the serving
-CLI's `_LATER` flags (--mode animate, --use_prompt_extend) and the sharded
-(multi-GPU) DiT train step."""
+CLI's `_LATER` flags (--mode animate, --use_prompt_extend), a DiT train
+step over a sequence-parallel mesh, and a serving mesh with sp and tp both
+above 1."""
 
 import pytest
 
@@ -15,16 +16,27 @@ def _cli_later(flags):
     return case
 
 
-def _multi_gpu(tmp_path):
+def _sp_training(tmp_path):
+    from univid_tpu_torch.core.mesh import MeshSpec
     from univid_tpu_torch.train.trainer import make_dit_train_step
     with pytest.raises(NotImplementedError) as e:
-        make_dit_train_step(None, None, mesh=object())
+        make_dit_train_step(None, None, mesh=MeshSpec(sp=2),
+                            rope=(None, None))
+    return str(e.value)
+
+
+def _sp_with_tp(tmp_path):
+    from univid_tpu_torch.core.mesh import MeshSpec
+    from univid_tpu_torch.parallel.sharding import check_serving_mesh
+    with pytest.raises(NotImplementedError) as e:
+        check_serving_mesh(MeshSpec(sp=2, tp=2), 2)
     return str(e.value)
 
 
 CASES = {"WanAnimate": _cli_later(["--mode", "animate"]),
          "prompt extension": _cli_later(["--use_prompt_extend"]),
-         "Multi-GPU training": _multi_gpu}
+         "Sequence-parallel training": _sp_training,
+         "Sequence and tensor parallelism together": _sp_with_tp}
 
 
 @pytest.mark.parametrize("item", list(CASES))

@@ -6,15 +6,17 @@ order:
   dp    data parallel
   fsdp  parameter sharding (FSDP2, `parallel.sharding.shard_params`)
   sp    sequence parallel (Ulysses all-to-all or ring, `parallel`)
-  tp    tensor parallel (no port yet: ROADMAP.md queue 1, Multi-GPU tensor
-        parallelism)
+  tp    tensor parallel (head- and ffn-structured dims of the rules'
+        parameters, `parallel.tensor_parallel`)
 
 The mesh is a `torch.distributed.device_mesh.DeviceMesh` over the world the
 caller initialised (`torch.distributed.init_process_group` with its own
 address, world size and rank); its collectives run on each axis's process
 group. JAX's `shard` / `replicated` NamedSharding helpers have no
 counterpart here: a parameter's placement is the spec its sharding rule
-gives (`parallel.sharding.apply_sharding_rules`).
+gives (`parallel.sharding.apply_sharding_rules`). A train step splits its
+batch over the dp x fsdp ranks; sp > 1 beside tp > 1 is refused
+(`parallel.sharding.check_serving_mesh`).
 """
 
 from __future__ import annotations

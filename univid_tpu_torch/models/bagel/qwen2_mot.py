@@ -22,9 +22,16 @@ Differences from the JAX function, each deliberate:
   * The decode-shaped einsums read the cache up to the longest row's new
     length (the keys past it are masked either way); the prefill kernel
     takes the whole buffer and skips the dead tiles itself.
-  * A tree sharded by `parallel.sharding.shard_params` (FSDP2) runs as it
-    is: the forward gathers each layer's unit around the layer, and
-    `lm_head_logits` the root's around the head.
+  * A tree sharded by `parallel.sharding.shard_params` runs as it is: the
+    forward gathers each layer's unit around the layer, and
+    `lm_head_logits` the root's around the head. On a mesh with tp > 1 a
+    rank runs num_heads / tp query heads over num_kv_heads / tp kv heads
+    (the group kept), the und and gen twins alike: q / k / v, gate and up
+    are column-parallel, o and down row-parallel
+    (`parallel.tensor_parallel`); the per-head qk norm needs no
+    collective, and the KV cache holds the rank's kv heads
+    (`init_kv_cache(..., tp=)`). embed_tokens and lm_head have no tp axis
+    in their rules and stay as they are.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch.nn as nn
 from ...core import nn as unn
 from ...kernels.attention import attention
 from ...parallel.sharding import gathered
+from ...parallel.tensor_parallel import copy_to_tp, reduce_from_tp, tp_of
 
 
 @dataclass(frozen=True)
@@ -125,8 +133,15 @@ def init_qwen2_mot(gen: Optional[torch.Generator], cfg: Qwen2MoTConfig, *,
 
 
 def init_kv_cache(cfg: Qwen2MoTConfig, capacity: int, *, batch: int = 1,
-                  dtype=torch.bfloat16, device="cuda"):
-    shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads, cfg.head_dim)
+                  dtype=torch.bfloat16, device="cuda", tp: int = 1):
+    """k / v [layers, batch, capacity, num_kv_heads / tp, head_dim]: tp is
+    the size of the mesh's tp axis of a tensor-parallel LLM (the rank's kv
+    heads)."""
+    if cfg.num_kv_heads % tp:
+        raise ValueError(f"{cfg.num_kv_heads} kv heads do not split over "
+                         f"tp = {tp}")
+    shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads // tp,
+             cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "len": torch.zeros((batch,), dtype=torch.int32, device=device),
@@ -182,10 +197,21 @@ def _expert_norm(w_und, w_gen, x, und_rows, eps):
     return y
 
 
-def _qwen_mlp(p, x, compute_dtype):
+def _qwen_mlp(p, x, compute_dtype, tp=None):
+    """The gated MLP; under tp the rank's part of down's product (summed
+    by the caller)."""
+    x = copy_to_tp(x, tp)
     g = unn.linear(p.gate, x, compute_dtype=compute_dtype)
     u = unn.linear(p.up, x, compute_dtype=compute_dtype)
     return unn.linear(p.down, unn.silu(g) * u, compute_dtype=compute_dtype)
+
+
+def _tp_sum(x, tp, compute_dtype):
+    """Row-parallel partial products (no bias: o and down have none)
+    summed over tp in fp32, rounded once to the compute dtype."""
+    if tp is None:
+        return x
+    return reduce_from_tp(x.float(), tp).to(compute_dtype)
 
 
 def _rows_valid(q_valid, b: int, l: int):
@@ -230,6 +256,13 @@ def qwen2_mot_forward(params, cfg: Qwen2MoTConfig, x: torch.Tensor,
                kv_len + torch.tensor(valid, dtype=torch.int32,
                                      device=kv_len.device))
 
+    tp = tp_of(params)
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    if tp is not None:
+        nh, nkv = tp.heads(nh), tp.heads(nkv)
+    if cache["k"].shape[3] != nkv:
+        raise ValueError(f"the KV cache holds {cache['k'].shape[3]} kv "
+                         f"heads, the rank runs {nkv} (init_kv_cache's tp)")
     cos, sin = rope_tables(pos_ids.expand(b, l), hd, cfg.rope_theta)
     x = x.to(compute_dtype)
     gen_mode = mode != "und" and cfg.moe
@@ -237,7 +270,6 @@ def qwen2_mot_forward(params, cfg: Qwen2MoTConfig, x: torch.Tensor,
     if gen_mode:
         und = und_rows if und_rows is not None else torch.zeros(
             (0,), dtype=torch.long, device=x.device)
-    nh, nkv = cfg.num_heads, cfg.num_kv_heads
     groups = nh // nkv
     write_at = (kv_len.long()[:, None]
                 + torch.arange(l, device=x.device)[None, :])   # [B, L]
@@ -259,7 +291,7 @@ def qwen2_mot_forward(params, cfg: Qwen2MoTConfig, x: torch.Tensor,
     def one_layer(layer, i, h):
         attn_u = layer.attn
         attn_g = layer.attn_gen if gen_mode else attn_u
-        y = ln(layer, "input_ln", h)
+        y = copy_to_tp(ln(layer, "input_ln", h), tp)
         q = proj(attn_u, attn_g, "q", y).reshape(b, l, nh, hd)
         k = proj(attn_u, attn_g, "k", y).reshape(b, l, nkv, hd)
         v = proj(attn_u, attn_g, "v", y).reshape(b, l, nkv, hd)
@@ -290,16 +322,17 @@ def qwen2_mot_forward(params, cfg: Qwen2MoTConfig, x: torch.Tensor,
         else:
             a = _cached_attention(q, k_cache, v_cache, kv_len, new_len,
                                   is_causal, compute_dtype)
-        h = h + proj(attn_u, attn_g, "o", a.reshape(b, l, nh * hd))
+        h = h + _tp_sum(proj(attn_u, attn_g, "o", a.reshape(b, l, nh * hd)),
+                        tp, compute_dtype)
 
         y = ln(layer, "post_ln", h)
         if not gen_mode:
-            m = _qwen_mlp(layer.mlp, y, compute_dtype)
+            m = _qwen_mlp(layer.mlp, y, compute_dtype, tp)
         else:
-            m = _qwen_mlp(layer.mlp_gen, y, compute_dtype)
+            m = _qwen_mlp(layer.mlp_gen, y, compute_dtype, tp)
             if und.numel() > 0:
-                m[:, und] = _qwen_mlp(layer.mlp, y[:, und], compute_dtype)
-        return h + m
+                m[:, und] = _qwen_mlp(layer.mlp, y[:, und], compute_dtype, tp)
+        return h + _tp_sum(m, tp, compute_dtype)
 
     h = x
     for i, layer in enumerate(params.layers):

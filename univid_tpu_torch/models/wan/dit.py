@@ -22,10 +22,18 @@ both experts.
 a DeviceMesh (JAX's shard_map version): each rank of the sp group holds its
 slice of the tokens through the blocks, self-attention is Ulysses
 (`parallel.ulysses`) or ring (`parallel.ring`), and the head's output is
-all-gathered. A model sharded by `parallel.sharding.shard_params` (FSDP2)
-runs in both forwards: each FSDP unit (the root, each block) is gathered
-around its use (`gathered`), since the forwards read the tensors directly
-and FSDP2's module hooks never fire.
+all-gathered. A model sharded by `parallel.sharding.shard_params` runs in
+both forwards: each unit (the root, each block) is gathered around its use
+(`gathered`, inside each segment that `remat_blocks` recomputes), since
+the forwards read the tensors directly and FSDP2's module hooks never
+fire; under grad the gradients reach the shards. On a mesh with tp > 1
+(`wan_dit_forward` only; sequence and tensor parallelism together wait)
+each rank runs N / tp heads and ffn_dim / tp of the FFN: q / k / v and fc0
+are column-parallel, o and fc1 row-parallel with their bias added once
+after the sum over tp (`parallel.tensor_parallel`); Wan's qk norm takes
+its sum of squares over the whole N * D of a token across the tp group,
+and the score bound the whole gains; the modulation, norms and embeddings
+stay whole.
 """
 
 from __future__ import annotations
@@ -49,7 +57,9 @@ from ...kernels.flash_attention import (D128, build_fused_rope_tables,
 from ...ops.embeddings import sinusoidal_embedding_1d
 from ...ops.rope import apply_rope
 from ...parallel.ring import ring_attention
-from ...parallel.sharding import gathered, is_sharded
+from ...parallel.sharding import SP_TP_LATER, gathered
+from ...parallel.tensor_parallel import (copy_to_tp, rms_norm_tp,
+                                         row_parallel_linear, tp_of)
 from ...parallel.ulysses import ulysses_attention
 
 # the largest FFN hidden activation a block computes at once (elements):
@@ -146,20 +156,23 @@ def unpatchify_tokens(tokens, grid, patch_size, out_dim):
 # ---------------------------------------------------------------------------
 
 
-def _attn_qkv(p, x, n_heads, policy, defer_norm=False):
-    """q, k, v [B, L, N, dh]; q and k qk-normed unless defer_norm (the
-    fused-rope path hands the gains to `attention`, `_qk_norm`)."""
+def _attn_qkv(p, x, n_heads, policy, defer_norm=False, tp=None):
+    """q, k, v [B, L, N, dh] (N / tp heads under tp); q and k qk-normed
+    unless defer_norm (the fused-rope path hands the gains to `attention`,
+    `_qk_norm`)."""
     b, l, d = x.shape
     dh = d // n_heads
+    n = tp.heads(n_heads) if tp is not None else n_heads
     cd = policy.compute_dtype
+    x = copy_to_tp(x, tp)
     q = unn.linear(p["q"], x, compute_dtype=cd)
     k = unn.linear(p["k"], x, compute_dtype=cd)
     if "norm_q" in p and not defer_norm:
-        q = unn.rms_norm(q, p["norm_q"].to(cd), eps=1e-6)
-        k = unn.rms_norm(k, p["norm_k"].to(cd), eps=1e-6)
+        q = rms_norm_tp(q, p["norm_q"], 1e-6, tp)
+        k = rms_norm_tp(k, p["norm_k"], 1e-6, tp)
     v = unn.linear(p["v"], x, compute_dtype=cd)
-    return (q.reshape(b, l, n_heads, dh), k.reshape(b, l, n_heads, dh),
-            v.reshape(b, l, n_heads, dh))
+    return (q.reshape(b, l, n, dh), k.reshape(b, l, n, dh),
+            v.reshape(b, l, n, dh))
 
 
 def _modulated(x32, shift, scale, eps):
@@ -272,16 +285,19 @@ def _norm_heads(q, k, qk_norm):
 
 
 def _self_attn_qkv(bp, cfg, x32, sel, rope_cos, rope_sin, rope_tabs, policy,
-                   sp=None):
+                   sp=None, tp=None):
     """AdaLN + q/k/v projections + qk-norm and rope, unless fused: then
     `attention` takes both (`_self_attn`). Under sequence parallelism the
     norm runs here, on the rank's tokens with all their heads: Ulysses
     scatters the heads, and a norm over a rank's N / sp heads of a token
-    is another function."""
+    is another function. Under tensor parallelism it runs here too, its
+    sum of squares summed over tp (`rms_norm_tp`); fused, `attention` then
+    takes the rotation alone."""
     cd = policy.compute_dtype
     y = _modulated(x32, sel(0), sel(1), cfg.eps).to(cd)
     q, k, v = _attn_qkv(bp.self_attn, y, cfg.num_heads, policy,
-                        defer_norm=rope_tabs is not None)
+                        defer_norm=rope_tabs is not None and tp is None,
+                        tp=tp)
     if rope_tabs is None:
         q = apply_rope(q, rope_cos, rope_sin).to(cd)
         k = apply_rope(k, rope_cos, rope_sin).to(cd)
@@ -290,7 +306,8 @@ def _self_attn_qkv(bp, cfg, x32, sel, rope_cos, rope_sin, rope_tabs, policy,
     return q, k, v
 
 
-def _self_attn(bp, cfg, q, k, v, rope_tabs, self_kv_len, policy, sp=None):
+def _self_attn(bp, cfg, q, k, v, rope_tabs, self_kv_len, policy, sp=None,
+               tp=None):
     bound = None
     if policy.bounded_softmax and "norm_q" in bp.self_attn:
         bound = _qk_bound(bp.self_attn, cfg.head_dim)
@@ -307,22 +324,22 @@ def _self_attn(bp, cfg, q, k, v, rope_tabs, self_kv_len, policy, sp=None):
                       softmax_bf16=policy.softmax_bf16,
                       qk_int8=policy.qk_int8, score_bound=bound,
                       qk_norm=_qk_norm(bp.self_attn, policy,
-                                       rope_tabs is not None))
+                                       rope_tabs is not None and tp is None))
     # the output in the compute dtype: what the o-projection reads, and
     # what the 'attn' remat mode keeps
     return o.to(policy.compute_dtype)
 
 
-def _block_rest(bp, cfg, x32, attn, sel, ctx, policy, fused=False):
+def _block_rest(bp, cfg, x32, attn, sel, ctx, policy, fused=False, tp=None):
     """o-projection + residual, cross-attention (q and k normed by
-    `attention` when fused), FFN."""
+    `attention` when fused at tp = 1), FFN."""
     b, l, _ = x32.shape
-    n = cfg.num_heads
+    n = tp.heads(cfg.num_heads) if tp is not None else cfg.num_heads
     dh = cfg.head_dim
     cd = policy.compute_dtype
     rdt = policy.residual_dtype
-    attn = attn.reshape(b, l, cfg.dim)
-    attn = unn.linear(bp.self_attn["o"], attn, compute_dtype=cd)
+    attn = attn.reshape(b, l, n * dh)
+    attn = row_parallel_linear(bp.self_attn["o"], attn, tp, cd)
     x32 = x32 + (attn.float() * sel(2)).to(rdt)
 
     # cross-attention (norm3 affine if cross_attn_norm)
@@ -331,16 +348,17 @@ def _block_rest(bp, cfg, x32, attn, sel, ctx, policy, fused=False):
                            bias=bp.norm3["b"].float(), eps=cfg.eps)
     else:
         y = x32
-    y = y.to(cd)
+    y = copy_to_tp(y.to(cd), tp)
+    ctx = copy_to_tp(ctx, tp)
     ca = bp.cross_attn
     ctx_len = ctx.shape[1]
-    qk_norm = _qk_norm(ca, policy, fused)
+    qk_norm = _qk_norm(ca, policy, fused and tp is None)
     q = unn.linear(ca["q"], y, compute_dtype=cd)
     if "norm_q" in ca and qk_norm is None:
-        q = unn.rms_norm(q, ca["norm_q"].to(cd), eps=1e-6)
+        q = rms_norm_tp(q, ca["norm_q"], 1e-6, tp)
     k = unn.linear(ca["k"], ctx, compute_dtype=cd)
     if "norm_k" in ca and qk_norm is None:
-        k = unn.rms_norm(k, ca["norm_k"].to(cd), eps=1e-6)
+        k = rms_norm_tp(k, ca["norm_k"], 1e-6, tp)
     v = unn.linear(ca["v"], ctx, compute_dtype=cd)
     q = q.reshape(b, l, n, dh)
     k = k.reshape(b, ctx_len, n, dh)
@@ -350,9 +368,9 @@ def _block_rest(bp, cfg, x32, attn, sel, ctx, policy, fused=False):
         cbound = _qk_bound(ca, dh)
     attn = attention(q, k, v, softmax_bf16=policy.softmax_bf16,
                      score_bound=cbound, qk_norm=qk_norm
-                     ).reshape(b, l, cfg.dim)
+                     ).reshape(b, l, n * dh)
     del y, q, k, v   # the FFN's working set is the block's largest
-    attn = unn.linear(ca["o"], attn, compute_dtype=cd)
+    attn = row_parallel_linear(ca["o"], attn, tp, cd)
     x32 = x32 + attn.to(rdt)
 
     # ffn: over token chunks when its hidden activation [B * L, ffn_dim]
@@ -364,69 +382,78 @@ def _block_rest(bp, cfg, x32, attn, sel, ctx, policy, fused=False):
     gate = sel(5)
     step = max(1, FFN_CHUNK_ELEMS // (b * cfg.ffn_dim))
     if step >= l:
-        return x32 + (_ffn(bp, y, cd).float() * gate).to(rdt)
+        return x32 + (_ffn(bp, y, cd, tp).float() * gate).to(rdt)
     out = torch.empty_like(x32)
     for i in range(0, l, step):
         rows = slice(i, i + step)
         g = gate if gate.shape[1] == 1 else gate[:, rows]
-        out[:, rows] = x32[:, rows] + (_ffn(bp, y[:, rows], cd).float()
+        out[:, rows] = x32[:, rows] + (_ffn(bp, y[:, rows], cd, tp).float()
                                        * g).to(rdt)
     return out
 
 
-def _ffn(bp, y, cd):
-    y = unn.linear(bp.ffn["fc0"], y, compute_dtype=cd)
+def _ffn(bp, y, cd, tp=None):
+    y = unn.linear(bp.ffn["fc0"], copy_to_tp(y, tp), compute_dtype=cd)
     y = unn.gelu_tanh(y)
-    return unn.linear(bp.ffn["fc1"], y, compute_dtype=cd)
+    return row_parallel_linear(bp.ffn["fc1"], y, tp, cd)
 
 
-def _block(bp, cfg, x32, e0, ctx, rope_cos, rope_sin, rope_tabs,
-           t_zero_mask, self_kv_len, policy, remat, sp=None):
+def _block(bp, unit, cfg, x32, e0, ctx, rope_cos, rope_sin, rope_tabs,
+           t_zero_mask, self_kv_len, policy, remat, sp=None, tp=None):
     """One DiT block. remat: False keeps every activation for the backward;
     True recomputes the whole block there (its attention calls included);
     'attn' checkpoints the block in two segments around the self-attention
     call, so the backward recomputes everything but that call, whose
     autograd Function keeps the folded q, k, v, its output and lse (the JAX
     package's save_only_these_names('attn_out') policy). The segments draw
-    no random numbers, so the RNG state is not stashed."""
+    no random numbers, so the RNG state is not stashed. Each segment runs
+    with `unit` (the block's module) gathered, so a recomputed segment of a
+    sharded block gathers its parameters again; between the segments only
+    the whole qk-norm gains are read."""
     mod = bp.modulation.float()[None, None] + e0        # [B, 2, 6, d]
 
     def sel(i):
         return _select_rows(mod[:, :, i], t_zero_mask)
 
+    def seg(fn):
+        def run(*a):
+            with gathered(unit):
+                return fn(*a)
+        return run
+
     def qkv(x):
         return _self_attn_qkv(bp, cfg, x, sel, rope_cos, rope_sin,
-                              rope_tabs, policy, sp)
+                              rope_tabs, policy, sp, tp)
 
     def rest(x, a):
         return _block_rest(bp, cfg, x, a, sel, ctx, policy,
-                           fused=rope_tabs is not None)
+                           fused=rope_tabs is not None, tp=tp)
+
+    def attn(q, k, v):
+        return _self_attn(bp, cfg, q, k, v, rope_tabs, self_kv_len, policy,
+                          sp, tp)
 
     def full(x):
         # q, k and v live only through the self-attention call (at 720p
         # A14B they are 4.65 GB that the rest of the block does not read)
-        return rest(x, _self_attn(bp, cfg, *qkv(x), rope_tabs, self_kv_len,
-                                  policy, sp))
+        return rest(x, attn(*qkv(x)))
 
     ck = dict(use_reentrant=False, preserve_rng_state=False)
     if remat == "attn":
-        q, k, v = checkpoint(qkv, x32, **ck)
-        a = _self_attn(bp, cfg, q, k, v, rope_tabs, self_kv_len, policy, sp)
-        return checkpoint(rest, x32, a, **ck)
+        a = attn(*checkpoint(seg(qkv), x32, **ck))
+        return checkpoint(seg(rest), x32, a, **ck)
     if remat:
-        return checkpoint(full, x32, **ck)
-    return full(x32)
+        return checkpoint(seg(full), x32, **ck)
+    return seg(full)(x32)
 
 
-def _check_forward(model, remat_blocks):
+def _check_forward(model, remat_blocks, weights=None):
     if remat_blocks not in (False, True, "attn"):
         raise ValueError(f"remat_blocks must be False, True or 'attn', "
                          f"got {remat_blocks!r}")
-    if is_sharded(model) and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "an FSDP-sharded DiT serves under no_grad: its backward (the "
-            "reduce-scatter of the gradients) is a later slice (ROADMAP.md "
-            "queue 1: Multi-GPU training)")
+    if weights and tp_of(model) is not None:
+        raise ValueError("weights (merged LoRA tensors) are whole: merge "
+                         "them before the DiT is sharded over tp")
 
 
 def _blocks_and_head(model: WanDiT, x32, e, e0, ctx, rope_cos, rope_sin,
@@ -437,12 +464,12 @@ def _blocks_and_head(model: WanDiT, x32, e, e0, ctx, rope_cos, rope_sin,
     Each block's FSDP unit, and the root's for the head, is gathered
     around its use."""
     cfg = model.cfg
+    tp = tp_of(model)
     for i, blk in enumerate(model.blocks):
         bp = _View(blk, f"blocks.{i}.", weights) if weights else blk
-        with gathered(blk):
-            x32 = _block(bp, cfg, x32, e0, ctx, rope_cos, rope_sin,
-                         rope_tabs, t_zero_mask, self_kv_len, policy,
-                         remat_blocks, sp)
+        x32 = _block(bp, blk, cfg, x32, e0, ctx, rope_cos, rope_sin,
+                     rope_tabs, t_zero_mask, self_kv_len, policy,
+                     remat_blocks, sp, tp)
     with gathered(model):
         hp = model.head
         head_mod = hp["modulation"].float()[None, None] + e[:, :, None, :]
@@ -492,7 +519,7 @@ def wan_dit_forward(model: WanDiT, x, t, context, rope_cos, rope_sin, *,
     remat_blocks: False | True | 'attn' (see _block). weights: tensors that
     replace the parameters of the same state-dict names inside the blocks
     (merge_lora's output)."""
-    _check_forward(model, remat_blocks)
+    _check_forward(model, remat_blocks, weights)
     cfg = model.cfg
     (h, grid, e, e0, ctx, rope_cos, rope_sin, t_zero_mask,
      self_kv_len) = _tokens(model, x, t, context, rope_cos, rope_sin,
@@ -530,6 +557,8 @@ def wan_dit_forward_sp(model: WanDiT, x, t, context, rope_cos, rope_sin, *,
     if sp_impl not in ("ulysses", "ring"):
         raise ValueError(f"sp_impl must be 'ulysses' or 'ring', got "
                          f"{sp_impl!r}")
+    if tp_of(model) is not None:
+        raise NotImplementedError(SP_TP_LATER)
     _check_forward(model, remat_blocks)
     cfg = model.cfg
     group = mesh[AXIS_SP].get_group()

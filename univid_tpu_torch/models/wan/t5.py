@@ -4,9 +4,13 @@ Counterpart of univid_tpu/models/wan/t5.py: pre-norm blocks, a relative-
 position attention bias per layer (umt5), gated GELU-tanh feed-forward,
 unscaled attention with an fp32 softmax, final RMS norm. The bucket table
 for a fixed length is computed on the host in numpy. An encoder sharded by
-`parallel.sharding.shard_params` (FSDP2) runs as it is: the forward gathers
-the root's unit around the token embedding and each block's around the
-block.
+`parallel.sharding.shard_params` runs as it is: the forward gathers the
+root's unit around the token embedding and each block's around the block.
+On a mesh with tp > 1 a rank runs its num_heads / tp heads with their
+columns of the relative position bias, and dim_ffn / tp of the gated FFN:
+q / k / v, gate and fc1 are column-parallel, o and fc2 row-parallel
+(`parallel.tensor_parallel`). Its head dim of 64 takes the reference
+attention route either way.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import torch.nn as nn
 from ...core import nn as unn
 from ...core.config import T5Config
 from ...parallel.sharding import gathered
+from ...parallel.tensor_parallel import (copy_to_tp, row_parallel_linear,
+                                         tp_of)
 
 
 def relative_position_buckets(lq: int, lk: int, num_buckets: int = 32,
@@ -87,9 +93,14 @@ class UMT5Encoder(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
 
-def _t5_attention(p, x, pos_bias, mask, num_heads, compute_dtype):
-    """Unscaled attention with an additive position bias, fp32 softmax."""
+def _t5_attention(p, x, pos_bias, mask, num_heads, compute_dtype, tp=None):
+    """Unscaled attention with an additive position bias, fp32 softmax.
+    Under tp: the rank's heads (pos_bias [N, Lq, Lk] sliced to them)."""
     b, l, _ = x.shape
+    if tp is not None:
+        num_heads = tp.heads(num_heads)
+        pos_bias = pos_bias[tp.slice(pos_bias.shape[0])]
+        x = copy_to_tp(x, tp)
     q = unn.linear(p["q"], x, compute_dtype=compute_dtype)
     k = unn.linear(p["k"], x, compute_dtype=compute_dtype)
     v = unn.linear(p["v"], x, compute_dtype=compute_dtype)
@@ -105,7 +116,7 @@ def _t5_attention(p, x, pos_bias, mask, num_heads, compute_dtype):
     o = torch.einsum("bnij,bjnd->bind", p_attn.to(compute_dtype).float(),
                      v.float())
     o = o.reshape(b, l, num_heads * dh).to(compute_dtype)
-    return unn.linear(p["o"], o, compute_dtype=compute_dtype)
+    return row_parallel_linear(p["o"], o, tp, compute_dtype)
 
 
 @torch.no_grad()
@@ -114,6 +125,7 @@ def t5_encode(model: UMT5Encoder, ids: torch.Tensor,
               compute_dtype=torch.bfloat16) -> torch.Tensor:
     """ids [B, L] int -> embeddings [B, L, dim] (padded rows not zeroed)."""
     cfg = model.cfg
+    tp = tp_of(model)
     _, l = ids.shape
     buckets = torch.as_tensor(relative_position_buckets(
         l, l, cfg.num_buckets, cfg.rel_pos_max_dist),
@@ -130,13 +142,14 @@ def t5_encode(model: UMT5Encoder, ids: torch.Tensor,
         with gathered(bp):
             y = unn.rms_norm(x, bp.norm1.to(compute_dtype), eps=1e-6)
             x = x + _t5_attention(bp.attn, y, bias, mask, cfg.num_heads,
-                                  compute_dtype)
-            y = unn.rms_norm(x, bp.norm2.to(compute_dtype), eps=1e-6)
+                                  compute_dtype, tp)
+            y = copy_to_tp(unn.rms_norm(x, bp.norm2.to(compute_dtype),
+                                        eps=1e-6), tp)
             ff = bp.ffn
             gate = unn.gelu_tanh(unn.linear(ff["gate"], y,
                                             compute_dtype=compute_dtype))
             h = unn.linear(ff["fc1"], y, compute_dtype=compute_dtype) * gate
-            x = x + unn.linear(ff["fc2"], h, compute_dtype=compute_dtype)
+            x = x + row_parallel_linear(ff["fc2"], h, tp, compute_dtype)
     return unn.rms_norm(x, model.norm.to(compute_dtype), eps=1e-6)
 
 

@@ -1,4 +1,4 @@
-"""Parameter sharding rules, applied as FSDP2.
+"""Parameter sharding rules, applied as tensor parallelism and FSDP2.
 
 Counterpart of univid_tpu/parallel/sharding.py. The rule lists are the JAX
 package's, rewritten for the port's names and layouts: a parameter is
@@ -9,13 +9,27 @@ tuple of axis names or None per dim; `()` replicates.
 
 `apply_sharding_rules` gives every parameter its spec, with JAX's rule that
 an axis which does not divide its dim is dropped. `shard_params` applies
-the specs' `fsdp` axis as FSDP2 (`fully_shard`, one unit a block and one
-for the rest): each parameter is split on the dim its spec names, and a
-parameter whose spec has no `fsdp` axis stays whole on every rank. The
-port's forwards read each block's tensors directly rather than calling the
-block, so FSDP2's forward hooks never fire: every forward gathers a unit
-around its use with `gathered`. Tensor parallelism (the specs' `tp` axis)
-has no port yet: a mesh with tp > 1 raises.
+the specs: first the `tp` axis, each such parameter becoming a DTensor of
+the rank's slice (`Shard` on its tp dim over the mesh's tp axis; the model
+carries its `parallel.tensor_parallel.TensorParallel`), then the `fsdp`
+axis as FSDP2 (`fully_shard`, one unit a block and one for the rest): each
+parameter is split on the dim its spec names, a tp DTensor under
+`fully_shard` becoming a 2-D one over (fsdp, tp). A parameter whose spec
+has neither axis stays whole on every rank.
+
+The port's forwards read each block's tensors directly rather than calling
+the block, so neither FSDP2's forward hooks nor `parallelize_module`'s
+would fire: every forward takes a unit's parameters around their use with
+`gathered`, which hands it the rank's local tp shard of each parameter,
+unsharded over fsdp, and the forwards run the tp collectives themselves
+(`parallel.tensor_parallel`). Under no_grad `gathered` unshards the FSDP
+unit (one all-gather a unit) and reshards it after. Under grad it gathers
+each fsdp-sharded parameter by an autograd Function whose backward
+reduce-scatters (sums) its gradient into the shard: the gathered tensor
+lives as long as autograd keeps it, so a unit stays unsharded until its
+gradient is reduce-scattered, and a unit recomputed in the backward
+(`remat_blocks`) is gathered again there, since the forwards enter
+`gathered` inside each recomputed segment.
 """
 
 from __future__ import annotations
@@ -24,17 +38,21 @@ import contextlib
 import re
 from typing import Dict, List, Optional, Tuple
 
+import torch
+import torch.distributed as dist
 import torch.nn as nn
 from torch.distributed.fsdp import FSDPModule, fully_shard
-from torch.distributed.tensor import Shard
+from torch.distributed.tensor import DTensor, Shard
 
 from ..core.mesh import ALL_AXES, AXIS_FSDP, AXIS_SP, AXIS_TP, MeshSpec
+from .tensor_parallel import TensorParallel
 
 Spec = Tuple[Optional[str], ...]
 Rules = List[Tuple[str, Spec]]
 
-TP_LATER = ("tensor parallelism (a mesh with tp > 1) is a later slice "
-            "(ROADMAP.md queue 1: Multi-GPU tensor parallelism)")
+SP_TP_LATER = ("sequence parallelism (sp > 1) on a mesh with tp > 1 is a "
+               "later slice (ROADMAP.md queue 1: Sequence and tensor "
+               "parallelism together)")
 
 F, T = AXIS_FSDP, AXIS_TP
 
@@ -134,23 +152,21 @@ def apply_sharding_rules(params, mesh, rules: Rules) -> Dict[str, Spec]:
     return specs
 
 
-def _refuse_tp(mesh) -> None:
-    if axis_sizes(mesh)[AXIS_TP] > 1:
-        raise NotImplementedError(TP_LATER)
-
-
 def check_serving_mesh(mesh, sp_size: int) -> None:
     """A pipeline's sp_size and mesh: sp_size > 1 needs a mesh (JAX's
-    ValueError), a mesh with tp > 1 raises NotImplementedError, and
-    sp_size must be the size of the mesh's sp axis."""
+    ValueError), sp > 1 beside tp > 1 raises NotImplementedError, and
+    sp_size must be the size of the mesh's sp axis. A DiT sharded over tp
+    serves at sp_size 1 through the same forward (its TensorParallel)."""
     if mesh is None:
         if sp_size > 1:
             raise ValueError("sp_size > 1 requires a mesh")
         return
-    _refuse_tp(mesh)
-    if axis_sizes(mesh)[AXIS_SP] != sp_size:
+    sizes = axis_sizes(mesh)
+    if sizes[AXIS_SP] > 1 and sizes[AXIS_TP] > 1:
+        raise NotImplementedError(SP_TP_LATER)
+    if sizes[AXIS_SP] != sp_size:
         raise ValueError(f"sp_size {sp_size} is not the mesh's sp axis "
-                         f"({axis_sizes(mesh)[AXIS_SP]})")
+                         f"({sizes[AXIS_SP]})")
 
 
 def block_units(module: nn.Module) -> List[nn.Module]:
@@ -160,13 +176,37 @@ def block_units(module: nn.Module) -> List[nn.Module]:
             for m in lst]
 
 
+def _owner(module: nn.Module, name: str):
+    *path, leaf = name.split(".")
+    for part in path:
+        module = getattr(module, part)
+    return module, leaf
+
+
 def shard_params(module: nn.Module, mesh, rules: Rules) -> None:
-    """Shard `module` in place over the mesh's fsdp axis by `rules`:
-    fully_shard on each of its `block_units`, then on the module. A mesh
-    with fsdp = 1 shards nothing; tp > 1 raises NotImplementedError."""
-    _refuse_tp(mesh)
+    """Shard `module` in place by `rules` over the mesh's tp and fsdp axes.
+    tp > 1: each parameter with a `tp` axis becomes a DTensor of the rank's
+    slice on that dim (`Shard` over mesh["tp"]; the slices are cut from the
+    rank's own whole tensor, no collective), and the module carries its
+    `TensorParallel`. fsdp > 1: fully_shard on each of its `block_units`,
+    then on the module, over mesh["fsdp"]."""
     specs = apply_sharding_rules(module, mesh, rules)
-    if axis_sizes(mesh)[AXIS_FSDP] == 1:
+    sizes = axis_sizes(mesh)
+    if sizes[AXIS_TP] > 1:
+        tp_mesh = mesh[AXIS_TP]
+        me, n = tp_mesh.get_local_rank(), sizes[AXIS_TP]
+        for name, p in list(module.named_parameters()):
+            if AXIS_TP not in specs[name]:
+                continue
+            d = specs[name].index(AXIS_TP)
+            local = p.detach().chunk(n, d)[me].clone()
+            owner, leaf = _owner(module, name)
+            owner._parameters[leaf] = nn.Parameter(
+                DTensor.from_local(local, tp_mesh, [Shard(d)],
+                                   run_check=False),
+                requires_grad=p.requires_grad)
+        module.tensor_parallel = TensorParallel(tp_mesh.get_group(), n, me)
+    if sizes[AXIS_FSDP] == 1:
         return
     dims = {}
     for name, p in module.named_parameters():
@@ -184,21 +224,98 @@ def shard_params(module: nn.Module, mesh, rules: Rules) -> None:
     fully_shard(module, **kw)
 
 
-def is_sharded(module: nn.Module) -> bool:
-    return isinstance(module, FSDPModule)
+def _all_gather_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's shards of a tensor concatenated along `dim`, in rank
+    order (one all_gather_into_tensor)."""
+    n = dist.get_world_size(group)
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+class _GatherShards(torch.autograd.Function):
+    """All-gather of the fsdp shards of a tensor along `dim`; the backward
+    reduce-scatters (sums) the gradient back to the shard."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather_dim(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        x = g.movedim(ctx.dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, group=ctx.group)
+        return out.movedim(0, ctx.dim), None, None
+
+
+def _local_tensor(p: torch.Tensor) -> torch.Tensor:
+    """What a forward computes with for parameter p: a plain tensor as it
+    is; a DTensor's local tensor (the rank's tp slice), all-gathered over
+    fsdp when fsdp shards it (differentiably: `_GatherShards`)."""
+    if not isinstance(p, DTensor):
+        return p
+    t = p.to_local()
+    names = p.device_mesh.mesh_dim_names
+    if AXIS_FSDP in names:
+        i = names.index(AXIS_FSDP)
+        t = _GatherShards.apply(t, p.device_mesh.get_group(AXIS_FSDP),
+                                p.placements[i].dim)
+    return t
+
+
+def _own_params(module: nn.Module):
+    """(owner, name, tensor) of every parameter the unit holds itself: its
+    submodules' but those inside a ModuleList (the nested units)."""
+    stack = [module]
+    while stack:
+        m = stack.pop()
+        for name, p in m._parameters.items():
+            if p is not None:
+                yield m, name, p
+        stack.extend(c for c in m._modules.values()
+                     if c is not None and not isinstance(c, nn.ModuleList))
 
 
 @contextlib.contextmanager
 def gathered(module: nn.Module):
-    """The body runs with `module`'s FSDP unit all-gathered (its own
-    parameters, not those of nested units), and the unit is sharded again
-    after it; a module that is not an FSDP unit passes through."""
-    if not isinstance(module, FSDPModule):
-        yield module
-        return
-    module.unshard()
+    """The body runs with `module`'s own parameters (not those of nested
+    units) replaced by what the forward computes with (`_local_tensor`):
+    under no_grad an FSDP unit is unsharded first (one all-gather) and
+    sharded again after; under grad each fsdp-sharded parameter is
+    gathered on its own, with its gradient path to the shard. A module
+    with no DTensor parameter passes through."""
+    fsdp = isinstance(module, FSDPModule) and not torch.is_grad_enabled()
+    if fsdp:
+        module.unshard()
+    swapped = []
     try:
+        for owner, name, p in list(_own_params(module)):
+            if isinstance(p, DTensor):
+                owner._parameters[name] = _local_tensor(p)
+                swapped.append((owner, name, p))
         yield module
     finally:
-        module.reshard()
+        for owner, name, p in reversed(swapped):
+            owner._parameters[name] = p
+        if fsdp:
+            module.reshard()
 
+
+@torch.no_grad()
+def full_tensor(p: torch.Tensor) -> torch.Tensor:
+    """The whole parameter on every rank: a DTensor's local tensor
+    all-gathered over every mesh axis that shards it (a collective: every
+    rank, in the same order), a plain tensor as it is. It calls the
+    process groups' all_gather_into_tensor, which gloo takes for CUDA
+    tensors (DTensor.full_tensor's functional collectives crash there)."""
+    if not isinstance(p, DTensor):
+        return p
+    t = p.to_local()
+    for i, pl in enumerate(p.placements):
+        if pl.is_shard():
+            t = _all_gather_dim(t, p.device_mesh.get_group(i), pl.dim)
+    return t

@@ -35,6 +35,7 @@ import torch.nn as nn
 
 from ..core import nn as unn
 from ..kernels.attention import attention
+from ..parallel.data_parallel import dp_map
 
 # ---------------------------------------------------------------------------
 # configs
@@ -412,15 +413,18 @@ class Siglip2NaflexScorer:
     """The scorer surface (emb_text / emb_imgs / rank_frames) over the
     NaFlex dual tower. Without towers it draws the random-init default
     from `seed` on `device`. compute_dtype: bf16 on a card, fp32 on the
-    CPU unless given; embeddings are L2-normalised in fp32 either way."""
+    CPU unless given; embeddings are L2-normalised in fp32 either way.
+    mesh: a DeviceMesh whose dp ranks share each batch of frames
+    (`parallel.data_parallel.dp_map`, as Siglip2Scorer)."""
 
     def __init__(self, vision_params: Optional[NaflexVision] = None,
                  vision_cfg: Optional[NaflexVisionConfig] = None,
                  text_params: Optional[NaflexText] = None,
                  text_cfg: Optional[NaflexTextConfig] = None,
                  tokenizer=None, seed: int = 0, compute_dtype=None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.device = torch.device(device)
+        self.mesh = mesh
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.device.type == "cuda" \
                 else torch.float32
@@ -439,7 +443,8 @@ class Siglip2NaflexScorer:
     @classmethod
     def from_checkpoint(cls, path: str, tokenizer=None,
                         dtype=torch.float32, *, device="cuda",
-                        compute_dtype=None) -> "Siglip2NaflexScorer":
+                        compute_dtype=None, mesh=None
+                        ) -> "Siglip2NaflexScorer":
         """A save_pretrained Siglip2Model dir (config.json + safetensors)
         or a state-dict file; without `tokenizer`, the checkpoint's own
         (utils.tokenizers.load_tokenizer: RuntimeError when unavailable,
@@ -463,7 +468,7 @@ class Siglip2NaflexScorer:
             sd, dtype, vision_heads=vh, text_heads=th, device=device)
         return cls(vision_params=vision, vision_cfg=vcfg, text_params=text,
                    text_cfg=tcfg, tokenizer=tokenizer,
-                   compute_dtype=compute_dtype, device=device)
+                   compute_dtype=compute_dtype, device=device, mesh=mesh)
 
     # ------------------------------------------------------------------
     def _pos_for_shape(self, nh: int, nw: int) -> np.ndarray:
@@ -488,14 +493,18 @@ class Siglip2NaflexScorer:
         patches, shapes, lens = naflex_preprocess(
             frames, cfg.patch_size, cfg.max_num_patches)
         pos = np.stack([self._pos_for_shape(nh, nw) for nh, nw in shapes])
+
+        def embed(px, pe, kl):
+            return naflex_vision_forward(
+                self.vision_params, cfg, *(torch.as_tensor(a).to(self.device)
+                                           for a in (px, pe, kl)),
+                compute_dtype=self.compute_dtype)
+
         outs = []
         for i in range(0, len(frames), bs):
-            v = naflex_vision_forward(
-                self.vision_params, cfg,
-                torch.as_tensor(patches[i:i + bs]).to(self.device),
-                torch.as_tensor(pos[i:i + bs]).to(self.device),
-                torch.as_tensor(lens[i:i + bs]).to(self.device),
-                compute_dtype=self.compute_dtype)
+            share = (patches[i:i + bs], pos[i:i + bs], lens[i:i + bs])
+            v = (embed(*share) if self.mesh is None
+                 else dp_map(self.mesh, embed, *share))
             outs.append(v.cpu().numpy())
         v = np.concatenate(outs, axis=0)
         return v / np.linalg.norm(v, axis=-1, keepdims=True).clip(1e-12)

@@ -7,9 +7,12 @@ text tower (`siglip_text_forward`), the attention-pooling head
 (patch 16, 224 px, mean-pooled and projected) and text tower, or an HF
 SigLIP / SigLIP2 checkpoint (`from_checkpoint`: the attention-pooling head,
 the text head on the last token; the NaFlex tower is reflection/naflex.py).
-The JAX scorer shards its batch over a mesh; here a batch of frames runs on
-one device, image by image through the tower. Both towers have head dim
-64, so attention takes the dispatcher's reference route.
+Without a mesh a batch of frames runs on one device, image by image
+through the tower; with one (`mesh`), as in JAX, each batch is split over
+its `dp` ranks, padded to a multiple of dp by repeating the last frame,
+and the embeddings all-gathered (`parallel.data_parallel.dp_map`), so every
+rank returns all of them. Both towers have head dim 64, so attention takes
+the dispatcher's reference route.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from ..kernels.attention import attention
 from ..models.bagel.bagel import flattened_position_ids
 from ..models.bagel.siglip import (SiglipConfig, image_to_patches,
                                    init_siglip, siglip_forward)
+from ..parallel.data_parallel import dp_map
 
 
 @dataclass(frozen=True)
@@ -148,7 +152,8 @@ class Siglip2Scorer:
     12 layers, patch 16, `image_size` px) whose mean-pooled features are
     projected by `img_proj` into the text tower's space. compute_dtype:
     bf16 on a card, fp32 on the CPU unless given; embeddings are
-    L2-normalised in fp32 either way."""
+    L2-normalised in fp32 either way. mesh: a DeviceMesh whose dp ranks
+    share each batch of frames (every rank passes the same frames)."""
 
     def __init__(self, vision_params=None,
                  vision_cfg: Optional[SiglipConfig] = None,
@@ -156,8 +161,9 @@ class Siglip2Scorer:
                  text_cfg: Optional[SiglipTextConfig] = None,
                  tokenizer=None, image_size: int = 224, seed: int = 0,
                  map_head: Optional[SiglipMapHead] = None, img_proj=None,
-                 compute_dtype=None, device="cuda"):
+                 compute_dtype=None, device="cuda", mesh=None):
         self.device = torch.device(device)
+        self.mesh = mesh
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.device.type == "cuda" \
                 else torch.float32
@@ -185,7 +191,7 @@ class Siglip2Scorer:
     @classmethod
     def from_checkpoint(cls, path: str, tokenizer=None,
                         dtype=torch.float32, *, device="cuda",
-                        compute_dtype=None) -> "Siglip2Scorer":
+                        compute_dtype=None, mesh=None) -> "Siglip2Scorer":
         """A pretrained HF SigLIP / SigLIP2 dual tower
         (core.checkpoint.load_siglip2_checkpoint); without `tokenizer`, the
         checkpoint's own (utils.tokenizers.load_tokenizer: RuntimeError
@@ -204,7 +210,7 @@ class Siglip2Scorer:
                    text_params=parts["text"], text_cfg=parts["text_cfg"],
                    tokenizer=tokenizer, map_head=parts["map_head"],
                    image_size=parts["vision_cfg"].image_size,
-                   compute_dtype=compute_dtype, device=device)
+                   compute_dtype=compute_dtype, device=device, mesh=mesh)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -241,10 +247,17 @@ class Siglip2Scorer:
         if not frames:
             return np.zeros((0, self.text_cfg.proj_dim), np.float32)
         imgs = np.stack([self._prep(f) for f in frames])
+
+        def embed(share):
+            return self._encode_image_batch(
+                torch.as_tensor(share).to(self.device))
+
         outs = []
         for i in range(0, len(imgs), bs):
-            batch = torch.as_tensor(imgs[i:i + bs]).to(self.device)
-            outs.append(self._encode_image_batch(batch).cpu().numpy())
+            batch = imgs[i:i + bs]
+            v = (embed(batch) if self.mesh is None
+                 else dp_map(self.mesh, embed, batch))
+            outs.append(v.cpu().numpy())
         return np.concatenate(outs, axis=0)
 
     def _prep(self, frame: np.ndarray) -> np.ndarray:

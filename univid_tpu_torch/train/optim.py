@@ -18,6 +18,14 @@ What follows optax and not torch.optim:
     the schedule evaluated at the count before the increment;
   * cosine_onecycle_schedule and cosine_decay_schedule reproduce optax's
     formulas (piecewise cosine interpolation between accumulated values).
+
+Sharded parameters (`parallel.sharding.shard_params`: DTensors over fsdp
+and tp) come with DTensor gradients. Every transform works on the rank's
+local tensors, and clip_by_global_norm's norm is the whole model's: a
+DTensor's squared norm is summed over every mesh axis that shards it, and
+a tensor that is whole on every rank (the norm gains, the modulation, the
+embeddings' biases) counts once (`global_sq_norm`). dp replicas hold
+equal gradients and count once.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ import math
 from typing import Callable, NamedTuple, Sequence, Union
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 Schedule = Callable[[int], float]
 
@@ -35,16 +45,48 @@ class Transform(NamedTuple):
     update: Callable
 
 
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local tensor (the rank's shard, sharing its storage); a
+    plain tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def global_sq_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The fp32 squared L2 norm of all of `grads` as whole tensors: the
+    local sums of the DTensors that share a mesh and placement summed over
+    each mesh axis that shards them (one all-reduce an axis), plus the
+    plain tensors' sums, counted once."""
+    plain = []
+    sharded = {}
+    for g in grads:
+        s = local(g).float().square().sum()
+        if not isinstance(g, DTensor):
+            plain.append(s)
+            continue
+        axes = tuple(i for i, pl in enumerate(g.placements) if pl.is_shard())
+        key = (g.device_mesh.mesh_dim_names, axes)
+        if key not in sharded:
+            sharded[key] = (g.device_mesh, [])
+        sharded[key][1].append(s)
+    total = sum(plain) if plain else None
+    for (_, axes), (mesh, sums) in sharded.items():
+        s = torch.stack(sums).sum()
+        for i in axes:
+            dist.all_reduce(s, group=mesh.get_group(i))
+        total = s if total is None else total + s
+    return total
+
+
 def clip_by_global_norm(max_norm: float) -> Transform:
     def init(params):
         return {}
 
     def update(grads, state, params=None):
-        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        norm = torch.sqrt(global_sq_norm(grads))
         # the choice stays on the device (no host sync)
         clipped = [torch.where(norm < max_norm, g,
                                (g / norm.to(g.dtype)) * max_norm)
-                   for g in grads]
+                   for g in map(local, grads)]
         return clipped, state
 
     return Transform(init, update)
@@ -58,9 +100,11 @@ def adamw(learning_rate: Union[float, Schedule], b1: float = 0.9,
 
     def init(params):
         return {"count": 0,
-                "mu": [torch.zeros_like(p, memory_format=torch.preserve_format)
+                "mu": [torch.zeros_like(local(p),
+                                        memory_format=torch.preserve_format)
                        for p in params],
-                "nu": [torch.zeros_like(p, memory_format=torch.preserve_format)
+                "nu": [torch.zeros_like(local(p),
+                                        memory_format=torch.preserve_format)
                        for p in params]}
 
     def update(grads, state, params):
@@ -70,6 +114,7 @@ def adamw(learning_rate: Union[float, Schedule], b1: float = 0.9,
         step_lr = float(lr(state["count"]))
         mu, nu, updates = [], [], []
         for g, m, v, p in zip(grads, state["mu"], state["nu"], params):
+            g, p = local(g), local(p)
             m = (1.0 - b1) * g + b1 * m
             v = (1.0 - b2) * g.square() + b2 * v
             u = (m / c1) / (torch.sqrt(v / c2) + eps)
@@ -100,7 +145,7 @@ def chain(*transforms: Transform) -> Transform:
 def apply_updates(params: Sequence[torch.Tensor],
                   updates: Sequence[torch.Tensor]) -> None:
     for p, u in zip(params, updates):
-        p.add_(u.to(p.dtype))
+        local(p).add_(u.to(p.dtype))
 
 
 def cosine_onecycle_schedule(transition_steps: int, peak_value: float,
