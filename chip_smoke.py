@@ -74,7 +74,10 @@ Phases:
      append, softmax_bf16 self- and cross-attention, at the t2v-1.3B and
      ti2v-5B shapes) it is timed in turns with the mma.sync kernel it
      replaces (old, new, new, old; `sm90_vs_mma_sync` lines, the records'
-     `mma_sync_ms`);
+     `mma_sync_ms`); the training CLI's shapes (`check_train_cli_kernels`:
+     the forward with lse and the one-pass backward at ti2v-5B's [1, 960,
+     24, 128], running max, self and over 512 keys; the VAE kernel at
+     d=640 on 640 tokens), the kernels line's `*_train_cli` records;
   4. hold the port on the card (kernels) against the port on the CPU
      (plain versions) on small d=128 models: the t2v pipeline, the
      FusionPipeline in t2v and i2v (with the ti2v-5B VAE), the A14B
@@ -110,11 +113,25 @@ Phases:
      mma.sync pair), a finite loss, LoRA b off zero, the frozen base
      unchanged; print seconds per step and peak memory; profile one more
      step (device time by kernel family, idle share);
-  7. drive the CLI's default path: ti2v-5B with BAGEL fusion, --mode both
+  6b. drive the training CLI (`train_cli_on_card`): an OpenVid dir
+     written here (three smooth 640x360 clips of 25 frames, a CSV whose
+     filters keep two), each kept clip decoded by OpenVidDataset to the
+     frames written within an h264 tolerance, never zeros; then
+     univid_tpu_torch.cli.train.main at the JAX CLI's defaults, ti2v-5B
+     at 512x320x21 (full width: the 30-block DiT in fp32, the Wan2.2 VAE,
+     960 tokens), --mock_weights --train_lora, 3 steps, each step's
+     latents, tokens and padding as run and its launches checked (1 serving self-attention, 59 forwards with lse, 59
+     one-pass sm90 backward calls, 6 d=640 VAE calls), LoRA b off zero,
+     finite losses, the frozen base unchanged, latest/, best/ and
+     lora_best/ written; then 3 semantic steps with UMT5-XXL, no kernel;
+  7. drive the CLI's default path: ti2v-5B with BAGEL fusion, --mode i2v
      at 1280x704x121 (a seeded first-frame png), full depth and width, 2
-     steps; check both mp4s, the fusion context, the peak memory and each
-     mode's launches (the fp32 VAE kernel once per decoded chunk at
-     d=1024, once more at d=640 for the i2v encode, never at d=384);
+     steps; check the mp4, the fusion context, the peak memory and the
+     launches (the fp32 VAE kernel once per decoded chunk at d=1024, once
+     more at d=640 for the i2v encode, never at d=384); then the t2v mode
+     knob-free on the same pipeline, one step and no decode (one of --mode
+     both's two decodes is cut for the time limit), its launches and a
+     finite latent checked;
   7b. drive Wan2.2 A14B serving through the CLI at full width and depth
      (two 40-block experts, 57.15 GB in bf16), 832x480x81, 2 steps (one
      on each expert): t2v-A14B --no_bagel, then i2v-A14B with a seeded
@@ -157,6 +174,14 @@ Phases:
      spreads; finite loss,
      gradients in every trainable leaf, peak memory; profile one more
      evaluation forward and one more training pass;
+  9b. on the same BAGEL-7B-MoT, one training pass on a 4,096-token pack
+     fed the way a training run feeds itself (`registry_pack_pass`): JSONL
+     files and images written to disk, three groups (t2i_pretrain,
+     vlm_sft, unified_edit) from the port's load_data_groups with a dict
+     config, the vae entries through the full-size FLUX AE on the card;
+     launches asserted from zero counts, a finite loss; the packed pair
+     (forward with lse, one-pass backward) at this pack's codes against
+     its plain version and SDPA;
  10. drive the full DiT fine-tune at its default fp32 policy:
      make_dit_train_step on t2v-1.3B at 832x480x81, full width, 10 of its
      30 blocks (the time limit), remat 'attn', 2 steps (on the sm90
@@ -229,7 +254,9 @@ the fp32 fine-tune; the knob kernels count the knob path, the bf16-softmax self-
 attention and the fp32-chain int8 kernel the ti2v-5B DiT forward with
 their knob alone; the mma.sync int8 kernel, the pre-passes kernels A and
 B replaced, the tile-list pre-passes tile_lists replaced and kernel A's
-rope-only mode are no path's kernels: 0). The
+rope-only mode are no path's kernels: 0; the `*_train_cli` records count
+the training CLI's LoRA run, the `*_registry` ones the registry pack's
+pass). The
 last line is
 {"ok": true, "device": {...}}; any failure exits non-zero.
 """
@@ -717,13 +744,87 @@ def check_serving_kernels(gen, tag, n, grid, l):
     return records
 
 
-def check_kernels():
-    """Phase 3: each kernel vs its plain version at the main path's shapes.
-    Returns the per-kernel records of the `kernels` line."""
+def vae_kernel_record(gen, dv, lv, lv_pad):
+    """The fp32 VAE mid-attention kernel (one head of d=dv over lv tokens,
+    padded to lv_pad; padded keys hold 50.0) against its plain version, a
+    kv_len = 0 row exactly 0, timed in turns with the CUDA-core kernel it
+    replaced (`tc_vs_simt` line), its launches' device times, SDPA on the
+    live keys (at d=1024 also the kernel SDPA runs). Returns the record."""
     import torch
     import torch.nn.functional as F
 
     from univid_tpu_torch.kernels import flash_attention as fa
+
+    tol = dict(atol=1e-5, rtol=1e-4,
+               why="fp32 accuracy: 3xTF32 products (each operand split into "
+                   "two TF32 parts, ~2^-22 relative), summation order and "
+                   "the approximate exp2 (2^-22 relative)")
+    q, k, v = (torch.randn((1, lv_pad, 1, dv), generator=gen,
+                           device="cuda") for _ in range(3))
+    q = q * (fa.LOG2E / math.sqrt(dv))  # the wrapper's fold, in fp32
+    k[:, lv:] = 50.0                    # padded keys: large values
+    v[:, lv:] = 50.0
+    kvl = (torch.tensor([lv], dtype=torch.int32, device="cuda")
+           if lv < lv_pad else None)
+    with torch.no_grad():
+        got = fa._flash_cuda(q, k, v, kvl, None, None)
+        err = compare(f"flash_attention_f32 d={dv} path shape", got,
+                      fa.attention_plain(q, k, v, kv_len=kvl), **tol)
+        # 40 padded keys (50.0) past kv_len in row 0; kv_len = 0 in row 1
+        km, vm, q2 = (x.repeat(2, 1, 1, 1) for x in (k, v, q))
+        km[0, lv - 40:] = 50.0
+        vm[0, lv - 40:] = 50.0
+        kv2 = torch.tensor([lv - 40, 0], dtype=torch.int32, device="cuda")
+        got_m = fa._flash_cuda(q2, km, vm, kv2, None, None)
+        err = max(err, compare(
+            f"flash_attention_f32 d={dv} kv_len", got_m,
+            fa.attention_plain(q2, km, vm, kv_len=kv2), **tol))
+        if float(got_m[1].abs().max()) != 0.0:
+            fail("flash_attention_f32: kv_len == 0 rows are not 0")
+        del km, vm, q2, got_m
+        # beside the CUDA-core kernel it replaced, in turns
+        ms, simt_ms = ab_time(
+            lambda: fa._flash_cuda(q, k, v, kvl, None, None),
+            lambda: fa._launch_f32_simt(q, k, v, kvl), 5)
+        log(json.dumps({"tc_vs_simt": f"VAE attention d={dv}",
+                        "tc_ms": ms, "simt_ms": simt_ms,
+                        "speedup": simt_ms / ms}))
+        # device time of its three launches (scores, softmax, p v)
+        _, prof = profile_call(lambda: fa._flash_cuda(q, k, v, kvl, None,
+                                                      None))
+        log(json.dumps({f"vae_attention_d{dv}_kernels": [
+            (t["kernel"], t["ms"]) for t in prof["top_kernels"]]}))
+        plain_ms = cuda_time(lambda: fa.attention_plain(
+            q, k, v, kv_len=kvl), 1)
+        qs, ks, vs = (x.transpose(1, 2)[:, :, :lv] for x in (q, k, v))
+        try:
+            lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, scale=1.0 / math.log2(math.e)), 5)
+        except RuntimeError as e:  # no SDPA backend for this shape
+            log(f"library_ms for flash_attention_f32 d={dv}: {e}")
+            lib_ms = None
+        if dv == 1024 and lib_ms is not None:   # which kernel SDPA runs
+            _, prof = profile_call(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, scale=1.0 / math.log2(math.e)))
+            log(json.dumps({"sdpa_fp32_kernels": [
+                t["kernel"] for t in prof["top_kernels"]]}))
+    # 3xTF32: three TF32 products for each of the 4 Lq kv d flops
+    bms, by = bound_ms(3 * 4 * lv_pad * lv * dv, nbytes(q, k, v, got),
+                       H100_TF32_FLOPS)
+    rec = dict(name="flash_attention_f32", route="cuda",
+               source="univid_tpu_torch/kernels/csrc/"
+                      "flash_attention_f32_tc.cu",
+               replaces="univid_tpu/kernels/flash_attention.py:44",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=by, library_ms=lib_ms, simt_ms=simt_ms)
+    del q, k, v, got, qs, ks, vs
+    return rec
+
+
+def check_kernels():
+    """Phase 3: each kernel vs its plain version at the main path's shapes.
+    Returns the per-kernel records of the `kernels` line."""
+    import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     # t2v-1.3B at 832x480x81: latent 21 x 60 x 104, patch (1, 2, 2)
@@ -734,70 +835,9 @@ def check_kernels():
     # launches per 121-frame decode), d=640 in the encoder (the i2v
     # first-frame encode); t2v-1.3B at 832x480 (60x104 tokens, padded to
     # 6272): d=384 in the decoder (21 launches per video)
-    tol = dict(atol=1e-5, rtol=1e-4,
-               why="fp32 accuracy: 3xTF32 products (each operand split into "
-                   "two TF32 parts, ~2^-22 relative), summation order and "
-                   "the approximate exp2 (2^-22 relative)")
     for dv, lv, lv_pad in ((1024, 3520, 3520), (640, 3520, 3520),
                            (384, 6240, 6272)):
-        q, k, v = (torch.randn((1, lv_pad, 1, dv), generator=gen,
-                               device="cuda") for _ in range(3))
-        q = q * (fa.LOG2E / math.sqrt(dv))  # the wrapper's fold, in fp32
-        k[:, lv:] = 50.0                    # padded keys: large values
-        v[:, lv:] = 50.0
-        kvl = (torch.tensor([lv], dtype=torch.int32, device="cuda")
-               if lv < lv_pad else None)
-        with torch.no_grad():
-            got = fa._flash_cuda(q, k, v, kvl, None, None)
-            err = compare(f"flash_attention_f32 d={dv} path shape", got,
-                          fa.attention_plain(q, k, v, kv_len=kvl), **tol)
-            # 40 padded keys (50.0) past kv_len in row 0; kv_len = 0 in row 1
-            km, vm, q2 = (x.repeat(2, 1, 1, 1) for x in (k, v, q))
-            km[0, lv - 40:] = 50.0
-            vm[0, lv - 40:] = 50.0
-            kv2 = torch.tensor([lv - 40, 0], dtype=torch.int32, device="cuda")
-            got_m = fa._flash_cuda(q2, km, vm, kv2, None, None)
-            err = max(err, compare(
-                f"flash_attention_f32 d={dv} kv_len", got_m,
-                fa.attention_plain(q2, km, vm, kv_len=kv2), **tol))
-            if float(got_m[1].abs().max()) != 0.0:
-                fail("flash_attention_f32: kv_len == 0 rows are not 0")
-            del km, vm, q2, got_m
-            # beside the CUDA-core kernel it replaced, in turns
-            ms, simt_ms = ab_time(
-                lambda: fa._flash_cuda(q, k, v, kvl, None, None),
-                lambda: fa._launch_f32_simt(q, k, v, kvl), 5)
-            log(json.dumps({"tc_vs_simt": f"VAE attention d={dv}",
-                            "tc_ms": ms, "simt_ms": simt_ms,
-                            "speedup": simt_ms / ms}))
-            # device time of its three launches (scores, softmax, p v)
-            _, prof = profile_call(lambda: fa._flash_cuda(q, k, v, kvl, None,
-                                                          None))
-            log(json.dumps({f"vae_attention_d{dv}_kernels": [
-                (t["kernel"], t["ms"]) for t in prof["top_kernels"]]}))
-            plain_ms = cuda_time(lambda: fa.attention_plain(
-                q, k, v, kv_len=kvl), 1)
-            qs, ks, vs = (x.transpose(1, 2)[:, :, :lv] for x in (q, k, v))
-            try:
-                lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, scale=1.0 / math.log2(math.e)), 5)
-            except RuntimeError as e:  # no SDPA backend for this shape
-                log(f"library_ms for flash_attention_f32 d={dv}: {e}")
-                lib_ms = None
-            if dv == 1024 and lib_ms is not None:   # which kernel SDPA runs
-                _, prof = profile_call(lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, scale=1.0 / math.log2(math.e)))
-                log(json.dumps({"sdpa_fp32_kernels": [
-                    t["kernel"] for t in prof["top_kernels"]]}))
-        # 3xTF32: three TF32 products for each of the 4 Lq kv d flops
-        bms, by = bound_ms(3 * 4 * lv_pad * lv * dv, nbytes(q, k, v, got),
-                           H100_TF32_FLOPS)
-        rec = dict(name="flash_attention_f32", route="cuda",
-                   source="univid_tpu_torch/kernels/csrc/"
-                          "flash_attention_f32_tc.cu",
-                   replaces="univid_tpu/kernels/flash_attention.py:44",
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                   bound_by=by, library_ms=lib_ms, simt_ms=simt_ms)
+        rec = vae_kernel_record(gen, dv, lv, lv_pad)
         if dv == 1024:   # the shape of this kernel's most launches
             records["flash_attention_f32"] = rec
         else:
@@ -806,7 +846,6 @@ def check_kernels():
             records["flash_attention_f32_d384"] = dict(
                 rec, name="flash_attention_f32_d384",
                 counter="flash_attention_f32")
-        del q, k, v, got, qs, ks, vs
     for r in records.values():
         log(json.dumps({"kernel": r}))
     return records
@@ -862,8 +901,9 @@ def check_a14b_720p_kernels():
     that reach the largest offsets and block indices: both batches, the
     first q tile and the last three (past kv_len too), heads 0, 38 and 39
     against every key. Each timed; logged on `kernel_at_a14b_720p_shape`
-    lines (self-attention beside SDPA; the plain versions are not timed at
-    this size: self-attention's holds 4.6e11 fp32 scores)."""
+    lines (self-attention beside SDPA, kernel A's norm-only mode beside
+    F.rms_norm on q and k; the plain versions are not timed at this size:
+    self-attention's holds 4.6e11 fp32 scores)."""
     import torch
     import torch.nn.functional as F
 
@@ -935,8 +975,13 @@ def check_a14b_720p_kernels():
         nb = nbytes(q, kc, *got, gq, gk)
         del got, want
         ms = cuda_time(lambda: fa.qk_norm_rope(q, kc, qk_norm=norm), 2)
+        w_ = n * d   # the library's yardstick: F.rms_norm on q and k
+        lib_ms = cuda_time(lambda: (
+            F.rms_norm(q.view(b, l, w_), (w_,), gq, QK_EPS),
+            F.rms_norm(kc.view(b, lk, w_), (w_,), gk, QK_EPS)), 2)
         record("qk_norm_bf16", src_a,
-               "univid_tpu/kernels/flash_attention.py:157", err, ms, 0, nb)
+               "univid_tpu/kernels/flash_attention.py:157", err, ms, 0, nb,
+               lib_ms)
         del q, kc
 
         # ---- self-attention on kernel A's rotated q and k -----------------
@@ -1027,6 +1072,199 @@ BWD_WHY = ("p and dS round to bf16 at the same points on both sides, but "
            "output rounds once")
 
 
+def train_kernel_records(gen, shape, b, l, n, lk, kv_real, bound):
+    """The training kernels at one shape: q [b, l, n, 128] over k, v [b,
+    lk, n, 128] (keys past kv_real hold 50.0 and kv_len masks them; the
+    softmax bounded by `bound`, a [1] tensor in the exp2 domain, or
+    running with None): the forward with lse, the one-pass sm90 backward
+    and the mma.sync dq / dk-dv pair against their plain versions from the
+    plain residuals; the sm90 backward timed in turns with the pair
+    (`bwd_sm90_vs_mma_sync` line, its launches' device times on a
+    `bwd_sm90_kernels_<shape>` line), the lse forward in turns with the
+    mma.sync kernel; SDPA (and its backward) on the live keys as the
+    library's yardstick. Returns {counter name: record}."""
+    import torch
+    import torch.nn.functional as F
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    d = 128
+    sc = 1.0 / math.sqrt(d)
+    mode = fa._MODE_RUNNING if bound is None else fa._MODE_BOUNDED
+    fwd_tol = dict(atol=1e-3, rtol=2.0 ** -7,
+                   why="one bf16 ulp of the output plus 1e-3 for the fp32 "
+                       "summation order and the approximate exp2")
+    out = {}
+    q = qk_normed((b, l, n, d), gen, torch.bfloat16)
+    k = qk_normed((b, lk, n, d), gen, torch.bfloat16)
+    v = torch.randn((b, lk, n, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    do = torch.randn((b, l, n, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kv_len = None
+    if kv_real is not None:
+        kv_len = torch.full((b,), kv_real, dtype=torch.int32,
+                            device="cuda")
+        k[:, kv_real:] = 50.0
+        v[:, kv_real:] = 50.0
+    kv_eff = kv_real or lk
+    qs = fa._fold(q, sc)
+    with torch.no_grad():
+        o, lse = fa.flash_attention_fwd_folded(qs, k, v, kv_len=kv_len,
+                                               score_bound=bound)
+        o_p, lse_p = fa.attention_plain(qs, k, v, kv_len=kv_len,
+                                        bound=bound, save_residuals=True)
+        errs = {"lse_fwd": max(
+            compare(f"flash_attention_bf16_lse {shape} output", o, o_p,
+                    **fwd_tol),
+            compare(f"flash_attention_bf16_lse {shape} lse", lse, lse_p,
+                    atol=1e-3, rtol=0.0,
+                    why="fp32 log2 of an fp32 row sum; summation "
+                        "order and the approximate exp2"))}
+        # the backward alone: both sides take the plain residuals; the
+        # one-pass sm90 kernel (the path's) and the mma.sync pair it
+        # replaced in these modes
+        got_sm90 = fa._launch_bwd_sm90(qs, k, v, o_p, lse_p, do, kv_len,
+                                       sc)
+        dq, delta = fa._bwd_dq_cuda(qs, k, v, o_p, lse_p, do, kv_len, sc)
+        dk, dv = fa._bwd_dkv_cuda(qs, k, v, do, lse_p, delta, kv_len)
+        want = fa._bwd_plain_folded(qs, k, v, o_p, lse_p, do, kv_len, sc)
+        for nm, got, pair_got, ref in zip(("dq", "dk", "dv"), got_sm90,
+                                          (dq, dk, dv), want):
+            for key, tag, g in (
+                    ("bwd_sm90", "flash_attention_bwd_sm90", got),
+                    ("bwd_dq" if nm == "dq" else "bwd_dkv",
+                     "flash_attention_bwd", pair_got)):
+                e = compare(f"{tag} {shape} {nm}", g, ref,
+                            atol=2.0 ** -8 * float(ref.float().abs()
+                                                   .max()),
+                            rtol=2.0 ** -7, why=BWD_WHY)
+                check_grad(f"{tag} {shape} {nm} rel_l2", g, ref, 1e-2,
+                           BWD_WHY)
+                errs[key] = max(errs.get(key, 0.0), e)
+        if kv_real is not None and any(
+                bool(x[:, kv_real:].any())
+                for x in (dk, dv, got_sm90[1], got_sm90[2])):
+            fail("flash_attention_bwd: dk / dv past kv_len are not 0")
+        del want, got_sm90
+
+        def pair():
+            dq_, delta_ = fa._bwd_dq_cuda(qs, k, v, o_p, lse_p, do,
+                                          kv_len, sc)
+            return dq_, fa._bwd_dkv_cuda(qs, k, v, do, lse_p, delta_,
+                                         kv_len)
+
+        def sm90():
+            return fa._launch_bwd_sm90(qs, k, v, o_p, lse_p, do, kv_len,
+                                       sc)
+
+        bwd_ms, pair_ms = ab_time(sm90, pair, 3)
+        log(json.dumps({"bwd_sm90_vs_mma_sync": f"backward, {shape}",
+                        "sm90_ms": bwd_ms, "mma_sync_pair_ms": pair_ms,
+                        "speedup": pair_ms / bwd_ms}))
+        # two calls: the device time of each of the three launches a
+        # call (the mean of two)
+        _, prof = profile_call(lambda: (sm90(), sm90()))
+        log(json.dumps({f"bwd_sm90_kernels_{shape}": [
+            (t_["kernel"], t_["ms"] / t_["count"], t_["count"])
+            for t_ in prof["top_kernels"]]}))
+        lse_old = torch.empty_like(lse)
+        lse_ms, lse_old_ms = ab_time(
+            lambda: fa.flash_attention_fwd_folded(
+                qs, k, v, kv_len=kv_len, score_bound=bound),
+            lambda: fa._launch_bf16(qs, k, v, kv_len, bound, mode,
+                                    lse=lse_old), 3)
+        log_ab(f"training forward with lse, {shape}", lse_ms,
+               lse_old_ms)
+        ms = {
+            "lse_fwd": lse_ms,
+            "bwd_sm90": bwd_ms,
+            "bwd_dq": cuda_time(lambda: fa._bwd_dq_cuda(
+                qs, k, v, o_p, lse_p, do, kv_len, sc), 3),
+            "bwd_dkv": cuda_time(lambda: fa._bwd_dkv_cuda(
+                qs, k, v, do, lse_p, delta, kv_len), 3),
+        }
+        plain_fwd = cuda_time(lambda: fa.attention_plain(
+            qs, k, v, kv_len=kv_len, bound=bound, save_residuals=True), 1,
+            warmup=0)
+        plain_bwd = cuda_time(lambda: fa._bwd_plain_folded(
+            qs, k, v, o_p, lse_p, do, kv_len, sc), 1, warmup=0)
+    # the library's counterpart: SDPA on the live keys, whose forward
+    # with inputs that need a gradient saves its logsumexp
+    qg, kg, vg = (x.transpose(1, 2)[:, :, :m].detach().requires_grad_(
+        True) for x, m in ((qs, l), (k, kv_eff), (v, kv_eff)))
+    dog = do.transpose(1, 2)
+    lib_fwd = cuda_time(lambda: F.scaled_dot_product_attention(
+        qg, kg, vg, scale=1.0 / fa.LOG2E), 3)
+    ref_out = F.scaled_dot_product_attention(qg, kg, vg,
+                                             scale=1.0 / fa.LOG2E)
+    lib_bwd = cuda_time(lambda: torch.autograd.grad(
+        ref_out, (qg, kg, vg), dog, retain_graph=True), 3)
+    del ref_out, qg, kg, vg, dog
+
+    mm = 2.0 * b * n * l * kv_eff * d   # flops of one of the products
+    row = nbytes(qs)                    # one [B, Lq, N, D] bf16 tensor
+    kvb = nbytes(k, v)
+    bounds = {
+        # s = qs k^T, o = p v
+        "lse_fwd": bound_ms(2 * mm, 2 * row + kvb + nbytes(lse),
+                            H100_BF16_FLOPS),
+        # s, dp = dO v^T, dq = dS k; reads qs, o, dO, k, v, lse; writes
+        # dq, delta
+        "bwd_dq": bound_ms(3 * mm, 4 * row + kvb + 2 * nbytes(lse),
+                           H100_BF16_FLOPS),
+        # s^T, dp^T, dv = p^T dO, dk = dS^T qs; reads qs, dO, k, v, lse,
+        # delta; writes dk, dv
+        "bwd_dkv": bound_ms(4 * mm, 2 * row + 2 * kvb + 2 * nbytes(lse),
+                            H100_BF16_FLOPS),
+    }
+    # the one-pass work: 5 products (s, dp, dq, dk, dv); reads qs, o,
+    # dO, k, v, lse; writes dq, dk, dv
+    bounds["bwd_sm90"] = bound_ms(5 * mm, 4 * row + 2 * kvb
+                                  + nbytes(lse), H100_BF16_FLOPS)
+    log(json.dumps({"check": f"backward pair {shape}",
+                    "pair_ms": ms["bwd_dq"] + ms["bwd_dkv"],
+                    "pair_ms_in_turns": pair_ms,
+                    "sm90_ms": ms["bwd_sm90"],
+                    "one_pass_bound_ms": bounds["bwd_sm90"][0],
+                    "one_pass_bound_by": bounds["bwd_sm90"][1],
+                    "why": "the one-pass work: 5 products (s, dp, dq, "
+                           "dk, dv) of 2 Lq Lk d flops per head"}))
+    meta = {
+        "lse_fwd": ("flash_attention_bf16_lse",
+                    "univid_tpu_torch/kernels/csrc/"
+                    "flash_attention_sm90.cu",
+                    "univid_tpu/kernels/flash_attention.py:343",
+                    plain_fwd, lib_fwd),
+        "bwd_dq": ("flash_attention_bwd_dq_bf16",
+                   "univid_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+                   "univid_tpu/kernels/flash_attention.py:831",
+                   plain_bwd, lib_bwd),
+        "bwd_dkv": ("flash_attention_bwd_dkv_bf16",
+                    "univid_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+                    "univid_tpu/kernels/flash_attention.py:940",
+                    plain_bwd, lib_bwd),
+        "bwd_sm90": ("flash_attention_bwd_bf16_sm90",
+                     "univid_tpu_torch/kernels/csrc/"
+                     "flash_attention_bwd_sm90.cu",
+                     "univid_tpu/kernels/flash_attention.py:1057",
+                     plain_bwd, lib_bwd),
+    }
+    for key, (name, src, rep, plain_ms, lib_ms) in meta.items():
+        rec = dict(name=name, route="cuda", source=src, replaces=rep,
+                   max_abs_err=errs[key], ms=ms[key], plain_ms=plain_ms,
+                   bound_ms=bounds[key][0], bound_by=bounds[key][1],
+                   library_ms=lib_ms)
+        if key == "lse_fwd":
+            rec["mma_sync_ms"] = lse_old_ms
+        if key == "bwd_sm90":
+            rec["mma_sync_ms"] = pair_ms   # the pair, in turns
+        out[name] = rec
+    del q, k, v, do, qs, o, lse, o_p, lse_p, dq, dk, dv, delta, lse_old
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_train_kernels():
     """Phase 3b: the training kernels (forward with lse; the one-pass sm90
     backward, the path's, and the dq and dk/dv mma.sync pair it replaced
@@ -1040,7 +1278,6 @@ def check_train_kernels():
     mha_reference at L = 2048. Returns the per-kernel records (self shape;
     the cross shape's numbers are logged on `kernel_at_cross_shape` lines)."""
     import torch
-    import torch.nn.functional as F
 
     from univid_tpu_torch.kernels import attention as att
     from univid_tpu_torch.kernels import flash_attention as fa
@@ -1049,182 +1286,15 @@ def check_train_kernels():
     b, l, n, d = 1, 32768, 12, 128
     sc = 1.0 / math.sqrt(d)
     bound = torch.tensor([1.01 * d * sc * fa.LOG2E], device="cuda")
-    fwd_tol = dict(atol=1e-3, rtol=2.0 ** -7,
-                   why="one bf16 ulp of the output plus 1e-3 for the fp32 "
-                       "summation order and the approximate exp2")
     out = {}
     for shape, lk, kv_real in (("self", l, 32760), ("cross", 512, None)):
-        q = qk_normed((b, l, n, d), gen, torch.bfloat16)
-        k = qk_normed((b, lk, n, d), gen, torch.bfloat16)
-        v = torch.randn((b, lk, n, d), generator=gen, device="cuda").to(
-            torch.bfloat16)
-        do = torch.randn((b, l, n, d), generator=gen, device="cuda").to(
-            torch.bfloat16)
-        kv_len = None
-        if kv_real is not None:
-            kv_len = torch.full((b,), kv_real, dtype=torch.int32,
-                                device="cuda")
-            k[:, kv_real:] = 50.0
-            v[:, kv_real:] = 50.0
-        kv_eff = kv_real or lk
-        qs = fa._fold(q, sc)
-        with torch.no_grad():
-            o, lse = fa.flash_attention_fwd_folded(qs, k, v, kv_len=kv_len,
-                                                   score_bound=bound)
-            o_p, lse_p = fa.attention_plain(qs, k, v, kv_len=kv_len,
-                                            bound=bound, save_residuals=True)
-            errs = {"lse_fwd": max(
-                compare(f"flash_attention_bf16_lse {shape} output", o, o_p,
-                        **fwd_tol),
-                compare(f"flash_attention_bf16_lse {shape} lse", lse, lse_p,
-                        atol=1e-3, rtol=0.0,
-                        why="fp32 log2 of an fp32 row sum; summation "
-                            "order and the approximate exp2"))}
-            # the backward alone: both sides take the plain residuals; the
-            # one-pass sm90 kernel (the path's) and the mma.sync pair it
-            # replaced in these modes
-            got_sm90 = fa._launch_bwd_sm90(qs, k, v, o_p, lse_p, do, kv_len,
-                                           sc)
-            dq, delta = fa._bwd_dq_cuda(qs, k, v, o_p, lse_p, do, kv_len, sc)
-            dk, dv = fa._bwd_dkv_cuda(qs, k, v, do, lse_p, delta, kv_len)
-            want = fa._bwd_plain_folded(qs, k, v, o_p, lse_p, do, kv_len, sc)
-            for nm, got, pair_got, ref in zip(("dq", "dk", "dv"), got_sm90,
-                                              (dq, dk, dv), want):
-                for key, tag, g in (
-                        ("bwd_sm90", "flash_attention_bwd_sm90", got),
-                        ("bwd_dq" if nm == "dq" else "bwd_dkv",
-                         "flash_attention_bwd", pair_got)):
-                    e = compare(f"{tag} {shape} {nm}", g, ref,
-                                atol=2.0 ** -8 * float(ref.float().abs()
-                                                       .max()),
-                                rtol=2.0 ** -7, why=BWD_WHY)
-                    check_grad(f"{tag} {shape} {nm} rel_l2", g, ref, 1e-2,
-                               BWD_WHY)
-                    errs[key] = max(errs.get(key, 0.0), e)
-            if kv_real is not None and any(
-                    bool(x[:, kv_real:].any())
-                    for x in (dk, dv, got_sm90[1], got_sm90[2])):
-                fail("flash_attention_bwd: dk / dv past kv_len are not 0")
-            del want, got_sm90
-
-            def pair():
-                dq_, delta_ = fa._bwd_dq_cuda(qs, k, v, o_p, lse_p, do,
-                                              kv_len, sc)
-                return dq_, fa._bwd_dkv_cuda(qs, k, v, do, lse_p, delta_,
-                                             kv_len)
-
-            def sm90():
-                return fa._launch_bwd_sm90(qs, k, v, o_p, lse_p, do, kv_len,
-                                           sc)
-
-            bwd_ms, pair_ms = ab_time(sm90, pair, 3)
-            log(json.dumps({"bwd_sm90_vs_mma_sync": f"backward, {shape}",
-                            "sm90_ms": bwd_ms, "mma_sync_pair_ms": pair_ms,
-                            "speedup": pair_ms / bwd_ms}))
-            # two calls: the device time of each of the three launches a
-            # call (the mean of two)
-            _, prof = profile_call(lambda: (sm90(), sm90()))
-            log(json.dumps({f"bwd_sm90_kernels_{shape}": [
-                (t_["kernel"], t_["ms"] / t_["count"], t_["count"])
-                for t_ in prof["top_kernels"]]}))
-            lse_old = torch.empty_like(lse)
-            lse_ms, lse_old_ms = ab_time(
-                lambda: fa.flash_attention_fwd_folded(
-                    qs, k, v, kv_len=kv_len, score_bound=bound),
-                lambda: fa._launch_bf16(qs, k, v, kv_len, bound,
-                                        fa._MODE_BOUNDED, lse=lse_old), 3)
-            log_ab(f"training forward with lse, {shape}", lse_ms,
-                   lse_old_ms)
-            ms = {
-                "lse_fwd": lse_ms,
-                "bwd_sm90": bwd_ms,
-                "bwd_dq": cuda_time(lambda: fa._bwd_dq_cuda(
-                    qs, k, v, o_p, lse_p, do, kv_len, sc), 3),
-                "bwd_dkv": cuda_time(lambda: fa._bwd_dkv_cuda(
-                    qs, k, v, do, lse_p, delta, kv_len), 3),
-            }
-            plain_fwd = cuda_time(lambda: fa.attention_plain(
-                qs, k, v, kv_len=kv_len, bound=bound, save_residuals=True), 1,
-                warmup=0)
-            plain_bwd = cuda_time(lambda: fa._bwd_plain_folded(
-                qs, k, v, o_p, lse_p, do, kv_len, sc), 1, warmup=0)
-        # the library's counterpart: SDPA on the live keys, whose forward
-        # with inputs that need a gradient saves its logsumexp
-        qg, kg, vg = (x.transpose(1, 2)[:, :, :m].detach().requires_grad_(
-            True) for x, m in ((qs, l), (k, kv_eff), (v, kv_eff)))
-        dog = do.transpose(1, 2)
-        lib_fwd = cuda_time(lambda: F.scaled_dot_product_attention(
-            qg, kg, vg, scale=1.0 / fa.LOG2E), 3)
-        ref_out = F.scaled_dot_product_attention(qg, kg, vg,
-                                                 scale=1.0 / fa.LOG2E)
-        lib_bwd = cuda_time(lambda: torch.autograd.grad(
-            ref_out, (qg, kg, vg), dog, retain_graph=True), 3)
-        del ref_out, qg, kg, vg, dog
-
-        mm = 2.0 * b * n * l * kv_eff * d   # flops of one of the products
-        row = nbytes(qs)                    # one [B, Lq, N, D] bf16 tensor
-        kvb = nbytes(k, v)
-        bounds = {
-            # s = qs k^T, o = p v
-            "lse_fwd": bound_ms(2 * mm, 2 * row + kvb + nbytes(lse),
-                                H100_BF16_FLOPS),
-            # s, dp = dO v^T, dq = dS k; reads qs, o, dO, k, v, lse; writes
-            # dq, delta
-            "bwd_dq": bound_ms(3 * mm, 4 * row + kvb + 2 * nbytes(lse),
-                               H100_BF16_FLOPS),
-            # s^T, dp^T, dv = p^T dO, dk = dS^T qs; reads qs, dO, k, v, lse,
-            # delta; writes dk, dv
-            "bwd_dkv": bound_ms(4 * mm, 2 * row + 2 * kvb + 2 * nbytes(lse),
-                                H100_BF16_FLOPS),
-        }
-        # the one-pass work: 5 products (s, dp, dq, dk, dv); reads qs, o,
-        # dO, k, v, lse; writes dq, dk, dv
-        bounds["bwd_sm90"] = bound_ms(5 * mm, 4 * row + 2 * kvb
-                                      + nbytes(lse), H100_BF16_FLOPS)
-        log(json.dumps({"check": f"backward pair {shape}",
-                        "pair_ms": ms["bwd_dq"] + ms["bwd_dkv"],
-                        "pair_ms_in_turns": pair_ms,
-                        "sm90_ms": ms["bwd_sm90"],
-                        "one_pass_bound_ms": bounds["bwd_sm90"][0],
-                        "one_pass_bound_by": bounds["bwd_sm90"][1],
-                        "why": "the one-pass work: 5 products (s, dp, dq, "
-                               "dk, dv) of 2 Lq Lk d flops per head"}))
-        meta = {
-            "lse_fwd": ("flash_attention_bf16_lse",
-                        "univid_tpu_torch/kernels/csrc/"
-                        "flash_attention_sm90.cu",
-                        "univid_tpu/kernels/flash_attention.py:343",
-                        plain_fwd, lib_fwd),
-            "bwd_dq": ("flash_attention_bwd_dq_bf16",
-                       "univid_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
-                       "univid_tpu/kernels/flash_attention.py:831",
-                       plain_bwd, lib_bwd),
-            "bwd_dkv": ("flash_attention_bwd_dkv_bf16",
-                        "univid_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
-                        "univid_tpu/kernels/flash_attention.py:940",
-                        plain_bwd, lib_bwd),
-            "bwd_sm90": ("flash_attention_bwd_bf16_sm90",
-                         "univid_tpu_torch/kernels/csrc/"
-                         "flash_attention_bwd_sm90.cu",
-                         "univid_tpu/kernels/flash_attention.py:1057",
-                         plain_bwd, lib_bwd),
-        }
-        for key, (name, src, rep, plain_ms, lib_ms) in meta.items():
-            rec = dict(name=name, route="cuda", source=src, replaces=rep,
-                       max_abs_err=errs[key], ms=ms[key], plain_ms=plain_ms,
-                       bound_ms=bounds[key][0], bound_by=bounds[key][1],
-                       library_ms=lib_ms)
-            if key == "lse_fwd":
-                rec["mma_sync_ms"] = lse_old_ms
-            if key == "bwd_sm90":
-                rec["mma_sync_ms"] = pair_ms   # the pair, in turns
+        for name, rec in train_kernel_records(gen, shape, b, l, n, lk,
+                                              kv_real, bound).items():
             if shape == "self":
                 out[name] = rec
                 log(json.dumps({"kernel": rec}))
             else:
                 log(json.dumps({"kernel_at_cross_shape": rec}))
-        del q, k, v, do, qs, o, lse, o_p, lse_p, dq, dk, dv, delta, lse_old
-        torch.cuda.empty_cache()
 
     # a kv_len = 0 row: exactly zero dq, dk and dv from the sm90 kernel
     q = qk_normed((2, 2048, n, d), gen, torch.bfloat16)
@@ -1790,6 +1860,335 @@ def train_main_path(n_steps):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the training CLI over an OpenVid directory (cli/train.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_CLI_STEPS = 3
+# ti2v-5B at the JAX CLI's defaults, 512x320x21: latents [1, 6, 20, 32, 48],
+# (6 / 1) x (20 / 2) x (32 / 2) = 960 tokens, unpadded (the trainer pads
+# above 2,048); 24 heads of d=128; the VAE encoder's d=640 attention on one
+# latent frame's 20 x 32 tokens, once a chunk: 1 + 20 / 4 = 6 an encode
+TRAIN_CLI_LATENTS = (1, 6, 20, 32, 48)
+TRAIN_CLI_TOKENS = 960
+TRAIN_CLI_VAE_CALLS = 6
+TRAIN_CLI_CLIP = (640, 360, 25)   # the written clips: W, H, frames
+# h264 at imageio's quality 8 on smooth frames: measured on the CPU 0.0175
+# mean |err| and 39.6 dB on the [-1, 1] scale; a zero clip is ~0.45 off
+DECODE_TOL = dict(mean_abs=0.04, psnr_db=32.0)
+
+
+def check_train_cli_kernels():
+    """The kernels of `train_cli_on_card` at its shapes (running max, no
+    kv_len): the forward with lse and the one-pass sm90 backward at self
+    [1, 960, 24, 128] (7.5 q tiles of 128: the last one ragged) and cross
+    (k, v [1, 512, 24, 128]), each against its plain version
+    (`train_kernel_records`), and the fp32 VAE kernel at d=640 on 640
+    tokens (`vae_kernel_record`). Logged on `kernel_at_train_cli_shape`
+    lines; returns the kernels-line records `<kernel>_train_cli` (and
+    `_train_cli_cross`), each counted by its kernel's counter in the
+    phase's LoRA run."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    out = {}
+    for shape, lk in (("self", TRAIN_CLI_TOKENS), ("cross", 512)):
+        sfx = "_train_cli" + ("_cross" if shape == "cross" else "")
+        recs = train_kernel_records(gen, f"ti2v-5B train {shape}", 1,
+                                    TRAIN_CLI_TOKENS, 24, lk, None, None)
+        for name, rec in recs.items():
+            log(json.dumps({"kernel_at_train_cli_shape": dict(
+                rec, shape=shape)}))
+            if name in ("flash_attention_bf16_lse",
+                        "flash_attention_bwd_bf16_sm90"):
+                out[name + sfx] = dict(rec, name=name + sfx, counter=name)
+    rec = vae_kernel_record(gen, 640, 640, 640)
+    log(json.dumps({"kernel_at_train_cli_shape": dict(rec, shape="vae")}))
+    out["flash_attention_f32_train_cli"] = dict(
+        rec, name="flash_attention_f32_train_cli",
+        counter="flash_attention_f32")
+    torch.cuda.empty_cache()
+    return out
+
+
+def smooth_clip(n, h, w, seed):
+    """[n, h, w, 3] uint8 frames of drifting sinusoids (a phase per channel
+    from `seed`): smooth enough for h264 to keep them close."""
+    import numpy as np
+
+    t = np.arange(n)[:, None, None, None]
+    v = np.linspace(0.0, 1.0, h)[None, :, None, None]
+    u = np.linspace(0.0, 1.0, w)[None, None, :, None]
+    ph = np.random.default_rng(seed).uniform(0, 2 * np.pi, 3)
+    x = (0.5 + 0.22 * np.sin(2 * np.pi * (1.5 * u + 0.04 * t) + ph)
+         + 0.22 * np.cos(2 * np.pi * (2.0 * v - 0.03 * t) + ph[::-1]))
+    return (x * 255).round().clip(0, 255).astype(np.uint8)
+
+
+def write_openvid_dir(root):
+    """An OpenVid directory: three smooth clips of TRAIN_CLI_CLIP, written
+    with the port's save_video, and a CSV in OpenVid-1M's columns whose
+    quality filters keep clip0 and clip2 (clip1's aesthetic score is 3.9).
+    Returns (video dir, CSV path, {file: the frames written})."""
+    import csv
+    import os
+
+    from univid_tpu_torch.data.video_io import save_video
+
+    vids = os.path.join(root, "videos")
+    os.makedirs(vids, exist_ok=True)
+    w, h, n = TRAIN_CLI_CLIP
+    written = {}
+    for i in range(3):
+        name = f"clip{i}.mp4"
+        frames = smooth_clip(n, h, w, i)
+        path = save_video(frames, os.path.join(vids, name), fps=16)
+        if path != os.path.join(vids, name):
+            fail(f"save_video wrote {path}, not an mp4")
+        written[name] = frames
+    csv_path = os.path.join(root, "OpenVid-1M.csv")
+    with open(csv_path, "w", newline="") as f:
+        wr = csv.writer(f)
+        wr.writerow(["video", "caption", "aesthetic score", "motion score",
+                     "temporal consistency score", "camera motion", "frame",
+                     "fps", "seconds"])
+        wr.writerow(["clip0.mp4", "A slow pan across rolling green hills "
+                     "at dawn, soft mist in the valleys.", 5.12, 4.3, 0.93,
+                     "pan_right", n, 16.0, 6.2])
+        wr.writerow(["clip1.mp4", "A shaky handheld shot of an empty "
+                     "parking lot at noon.", 3.9, 4.0, 0.9, "static", n,
+                     16.0, 5.0])
+        wr.writerow(["clip2.mp4", "Waves wash over a pebble beach under a "
+                     "grey sky, the camera still.", 4.8, 3.6, 0.86, "static",
+                     n, 16.0, 4.1])
+    return vids, csv_path, written
+
+
+def check_openvid_decode(vids, csv_path, written):
+    """OpenVidDataset on the card machine: the CSV's filters keep clip0 and
+    clip2, and each kept clip decodes to the frames written (sampled as
+    read_video_frames samples 21 of 25, resized to 512x320, in [-1, 1])
+    within DECODE_TOL, never to zeros (a missing file or a failed decode
+    gives zeros, as in JAX)."""
+    import numpy as np
+
+    from univid_tpu_torch.data.openvid import OpenVidConfig, OpenVidDataset
+    from univid_tpu_torch.data.video_io import _sample_indices
+    from univid_tpu_torch.native import resize_bilinear
+
+    ds = OpenVidDataset(OpenVidConfig(video_base_path=vids,
+                                      csv_file=csv_path,
+                                      video_size=(512, 320), video_length=21))
+    kept = [r["video"] for r in ds.records]
+    clips = []
+    for i, name in enumerate(kept):
+        item = ds[i]
+        got = item["video"]
+        n = len(written[name])
+        want = np.stack([(resize_bilinear(written[name][j].astype(np.float32)
+                                          / 255.0, 320, 512) - 0.5) * 2.0
+                         for j in _sample_indices(n, 21)])
+        err = np.abs(got - want) if got.shape == want.shape else None
+        rec = {"file": name, "caption": item["caption"],
+               "shape": list(got.shape), "std": float(got.std()),
+               "max_abs": float(np.abs(got).max())}
+        if err is not None:
+            rec.update(mean_abs_err=float(err.mean()),
+                       max_abs_err=float(err.max()),
+                       psnr_db=float(10 * np.log10(4.0 / float(
+                           (err ** 2).mean()))))
+        rec["ok"] = (err is not None
+                     and rec["mean_abs_err"] < DECODE_TOL["mean_abs"]
+                     and rec["psnr_db"] > DECODE_TOL["psnr_db"]
+                     and rec["std"] > 0.1 and rec["max_abs"] > 0.5)
+        clips.append(rec)
+    out = {"check": "OpenVidDataset decodes the written clips",
+           "kept": kept, "clips": clips, "tolerance": DECODE_TOL,
+           "why": "h264 at quality 8 on smooth frames (0.0175 mean |err|, "
+                  "39.6 dB on the CPU); a zero clip is ~0.45 off",
+           "ok": kept == ["clip0.mp4", "clip2.mp4"]
+           and all(c["ok"] for c in clips)}
+    log(json.dumps(out))
+    if not out["ok"]:
+        fail("OpenVidDataset on the card machine: wrong records or a clip "
+             "that does not decode to its frames")
+
+
+def train_cli_on_card(output_dir):
+    """Phase 6b: the training CLI (univid_tpu_torch.cli.train.main) on the
+    card over an OpenVid directory written here (`write_openvid_dir`,
+    decode checked by `check_openvid_decode`), at the JAX CLI's defaults:
+    ti2v-5B at 512x320x21, full width (the 30-block DiT in fp32 with its
+    head redrawn, the Wan2.2 VAE, JAX's tiny BAGEL), --mock_weights
+    --train_lora, TRAIN_CLI_STEPS steps. Per step (the launches since the
+    previous step ended, which take in the clip's VAE encode): 1 serving
+    self-attention (layer 0: no trainable upstream), 59 forwards with lse
+    (29 self + 30 cross) and 59 one-pass sm90 backward calls, 6 d=640 VAE
+    calls; the step's latents, DiT tokens and token padding as run, held
+    to TRAIN_CLI_LATENTS, TRAIN_CLI_TOKENS and none (the shapes
+    check_train_cli_kernels holds the kernels at); LoRA b off zero after
+    step 1, a finite loss; the frozen base unchanged (held on the host);
+    latest/, best/ and lora_best/ written.
+    Then TRAIN_CLI_STEPS semantic steps (no --train_lora): UMT5-XXL (fp32
+    mock, drawn only for this objective) against the projector, no kernel
+    launched. Returns the launch counts of the LoRA run."""
+    import gc
+    import os
+
+    import numpy as np
+    import torch
+
+    from univid_tpu_torch.cli import train as train_cli
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.train import fusion_trainer as ft
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    root = os.path.join(output_dir, "openvid")
+    vids, csv_path, written = write_openvid_dir(root)
+    check_openvid_decode(vids, csv_path, written)
+
+    per_step = dict(dict.fromkeys(fa.LAUNCHES, 0),
+                    flash_attention_bf16=1,
+                    flash_attention_bf16_lse=29 + 30,
+                    flash_attention_bwd_bf16_sm90=29 + 30,
+                    flash_attention_f32=TRAIN_CLI_VAE_CALLS)
+    steps = []
+    base = {}
+    pads = []   # the DiT forward's seq_pad_to, as the trainer passes it
+    make_step = ft.make_diffusion_train_step
+    dit_forward = ft.wan_dit_forward
+
+    def recording_forward(*a, seq_pad_to=None, **kw):
+        pads.append(seq_pad_to)
+        return dit_forward(*a, seq_pad_to=seq_pad_to, **kw)
+
+    def counting_make(spec, fusion_cfg, train_cfg, tx, base_dit, *a, **kw):
+        """The trainer's step, each call's launches, seconds, loss and
+        LoRA b checked; the base DiT held on the host first."""
+        base.update({k: v.detach().to("cpu", copy=True)
+                     for k, v in base_dit.state_dict().items()})
+        base["_dit"] = base_dit
+        step, encode = make_step(spec, fusion_cfg, train_cfg, tx, base_dit,
+                                 *a, **kw)
+        patch = spec.dit.patch_size
+
+        def step_checked(state, batch):
+            lat = tuple(batch["latents"].shape)   # [B, F, H, W, C], as run
+            tokens = math.prod(n // p for n, p in zip(lat[1:4], patch))
+            t0 = time.perf_counter()
+            state, loss = step(state, batch)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            now = dict(fa.LAUNCHES)
+            prev = steps[-1]["_counts"] if steps else dict.fromkeys(now, 0)
+            counts = {k: now[k] - prev[k] for k in now}
+            b_max = max(float(p["b"].detach().abs().max())
+                        for p in state["trainable"]["lora"].values())
+            steps.append({"step": len(steps) + 1, "latents": lat,
+                          "tokens": tokens, "seq_pad_to": pads[-1],
+                          "loss": float(loss),
+                          "step_seconds": seconds, "lora_b_max": b_max,
+                          "launches_ok": counts == per_step,
+                          "_counts": now})
+            if counts != per_step:
+                fail(f"train CLI step {len(steps)} launches {counts} != "
+                     f"{per_step}")
+            if not b_max > 0:
+                fail(f"train CLI step {len(steps)}: LoRA b is still zero")
+            if not math.isfinite(float(loss)):
+                fail(f"train CLI step {len(steps)}: non-finite loss")
+            return state, loss
+
+        return step_checked, encode
+
+    out_lora = os.path.join(output_dir, "train_cli_lora")
+    argv = ["--video_dir", vids, "--csv_file", csv_path, "--model",
+            "ti2v-5B", "--video_size", "512x320", "--video_length", "21",
+            "--mock_weights", "--max_steps", str(TRAIN_CLI_STEPS),
+            "--log_interval", "1", "--seed", "0"]
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    ft.make_diffusion_train_step = counting_make
+    ft.wan_dit_forward = recording_forward
+    t0 = time.perf_counter()
+    try:
+        summary = train_cli.main(argv + ["--train_lora", "--output_dir",
+                                         out_lora])
+    finally:
+        ft.make_diffusion_train_step = make_step
+        ft.wan_dit_forward = dit_forward
+    lora_s = time.perf_counter() - t0
+    lora_peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = launch_counts()
+    f32_by_d = dict(fa.F32_LAUNCHES_BY_D)
+    check_impl("train CLI (LoRA)", 60 * TRAIN_CLI_STEPS)
+    check_bwd_impl("train CLI (LoRA)", 59 * TRAIN_CLI_STEPS)
+    dit = base.pop("_dit", None)
+    base_same = dit is not None and all(
+        torch.equal(v.cpu(), base[k]) for k, v in dit.state_dict().items())
+    files = {sub: os.path.exists(os.path.join(out_lora, sub, fname))
+             for sub, fname in (("latest", "train_state.npz"),
+                                ("best", "train_state.npz"),
+                                ("lora_best", "lora_weights.npz"))}
+    del dit
+    base.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the semantic objective: UMT5-XXL features of each caption
+    out_sem = os.path.join(output_dir, "train_cli_semantic")
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    sem = train_cli.main(argv + ["--output_dir", out_sem])
+    sem_s = time.perf_counter() - t0
+    sem_peak = torch.cuda.max_memory_allocated() / 1e9
+    sem_launches = {k: v for k, v in launch_counts().items() if v}
+    sem_ok = (sem["steps"] == TRAIN_CLI_STEPS
+              and math.isfinite(sem["best_loss"]) and not sem_launches
+              and os.path.exists(os.path.join(out_sem, "latest",
+                                              "train_state.npz")))
+    rec = {"phase": "train_cli_on_card", "model": "ti2v-5B",
+           "resolution": "512x320x21",
+           "lora": {"summary": summary, "seconds": lora_s,
+                    "steps": [{k: v for k, v in st.items() if k != "_counts"}
+                              for st in steps],
+                    "seconds_per_step": statistics.median(
+                        [st["step_seconds"] for st in steps[1:]]
+                        or [st["step_seconds"] for st in steps]),
+                    "peak_memory_gb": lora_peak, "launches": launches,
+                    "launches_per_step": per_step,
+                    "f32_launches_by_d": f32_by_d,
+                    "base_unchanged": base_same, "files": files},
+           "semantic": {"summary": sem, "seconds": sem_s,
+                        "peak_memory_gb": sem_peak,
+                        "launches": sem_launches, "ok": sem_ok},
+           "peak_memory_gb": max(lora_peak, sem_peak),
+           "seconds": time.perf_counter() - t_phase}
+    log(json.dumps(rec))
+    if len(steps) != TRAIN_CLI_STEPS or summary["steps"] != TRAIN_CLI_STEPS:
+        fail(f"train CLI ran {len(steps)} steps, not {TRAIN_CLI_STEPS}")
+    # each step ran at the shapes check_train_cli_kernels held the kernels at
+    ran = {(st["latents"], st["tokens"], st["seq_pad_to"]) for st in steps}
+    if ran != {(TRAIN_CLI_LATENTS, TRAIN_CLI_TOKENS, None)}:
+        fail(f"train CLI steps ran at (latents, tokens, seq_pad_to) {ran}, "
+             f"not {TRAIN_CLI_LATENTS}, {TRAIN_CLI_TOKENS}, unpadded")
+    if f32_by_d != {384: 0, 640: TRAIN_CLI_VAE_CALLS * TRAIN_CLI_STEPS,
+                    1024: 0}:
+        fail(f"train CLI VAE kernel launches by d {f32_by_d}")
+    if not base_same:
+        fail("train CLI: the frozen base DiT changed")
+    if not all(files.values()):
+        fail(f"train CLI: checkpoints missing {files}")
+    if not sem_ok:
+        fail(f"train CLI semantic run: {sem}, launches {sem_launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile_call(fn, families=None):
     """fn() under torch.profiler, to a synchronised end: the device time of
     its kernels by family, their count, the five kernels that took the
@@ -1905,12 +2304,15 @@ TI2V_STEPS = 2
 
 
 def ti2v_main_path(output_dir):
-    """Phase 7: the CLI's default path, ti2v-5B with BAGEL fusion, --mode
-    both at 1280x704x121 (full width and depth, random weights from a
-    seed, a seeded first-frame png), 2 steps; checks both mp4s, the fusion
-    context, the peak memory and the kernels' launches of each mode, the
-    fp32 VAE kernel's by head dim (read whenever the CLI saves a video).
-    Returns the launch counts of the whole run."""
+    """Phase 7: the CLI's default path, ti2v-5B with BAGEL fusion at
+    1280x704x121 (full width and depth, random weights from a seed), 2
+    steps, --mode i2v from a seeded first-frame png: the first-frame
+    encode (the d=640 VAE kernel) and one decode (31 d=1024 launches);
+    then the t2v mode knob-free on the same pipeline, one step without its
+    decode (`ti2v_t2v_step`: one decode of the two --mode both runs is cut
+    for the time limit). Checks the mp4,
+    the fusion context, the peak memory and the kernels' launches, the
+    fp32 VAE kernel's by head dim. Returns the launch counts of the run."""
     import gc
     import os
 
@@ -1919,7 +2321,6 @@ def ti2v_main_path(output_dir):
     from PIL import Image
 
     from univid_tpu_torch.cli import inference
-    from univid_tpu_torch.data import video_io
     from univid_tpu_torch.data.video_io import read_video_frames
     from univid_tpu_torch.kernels import flash_attention as fa
 
@@ -1931,79 +2332,122 @@ def ti2v_main_path(output_dir):
     Image.fromarray(rng.integers(0, 256, (704, 1280, 3), dtype=np.uint8)) \
         .save(png)
     frames, steps = TI2V_FRAMES, TI2V_STEPS
-    per_mode = []
-    save_video = video_io.save_video
+    held = {}   # the CLI's FusionPipeline and its generate kwargs
+    build_fusion = inference.build_fusion
 
-    def counts():
-        return dict(fa.LAUNCHES, **{f"flash_attention_f32 d={d}": n for d, n
-                                    in fa.F32_LAUNCHES_BY_D.items()},
-                    **{f"bf16 forward on {k}": n for k, n
-                       in fa.LAUNCHES_BY_IMPL.items()})
+    def holding_build_fusion(*a, **kw):
+        fusion = build_fusion(*a, **kw)
+        generate = fusion.generate_video_with_bagel_context
 
-    def counting_save(*a, **kw):   # the CLI saves once per mode
-        per_mode.append(counts())
-        return save_video(*a, **kw)
+        def held_generate(**gkw):
+            held.update(fusion=fusion, kwargs=gkw)
+            return generate(**gkw)
 
-    video_io.save_video = counting_save
+        fusion.generate_video_with_bagel_context = held_generate
+        return fusion
+
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
+    inference.build_fusion = holding_build_fusion
     t0 = time.perf_counter()
     try:
         metas = inference.main([
-            "--model", "ti2v-5B", "--mode", "both", "--image", png,
+            "--model", "ti2v-5B", "--mode", "i2v", "--image", png,
             "--mock_weights", "--video_size", "1280x704", "--video_length",
             str(frames), "--steps", str(steps), "--seed", "0",
             "--output_dir", output_dir])
     finally:
-        video_io.save_video = save_video
+        inference.build_fusion = build_fusion
     wall = time.perf_counter() - t0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
+    got = dict(fa.LAUNCHES, **{f"flash_attention_f32 d={d}": n for d, n
+                               in fa.F32_LAUNCHES_BY_D.items()},
+               **{f"bf16 forward on {k}": n for k, n
+                  in fa.LAUNCHES_BY_IMPL.items()})
     n_dec = (frames - 1) // 4 + 1   # 1 + 30 chunks of one latent frame
-    per_video = dict(dict.fromkeys(fa.LAUNCHES, 0), **{
+    expected = dict(dict.fromkeys(fa.LAUNCHES, 0), **{
         "flash_attention_bf16": 30 * steps,
         "cross_attention_bf16": 30 * steps,
         "qk_norm_rope_bf16": 30 * steps,   # self-attention: q and k
         "qk_norm_bf16": 30 * steps,        # cross-attention: q and k
-        "flash_attention_f32": n_dec,
+        # per decoded chunk at d=1024, and the first-frame encode at d=640
+        "flash_attention_f32": n_dec + 1,
         "flash_attention_f32 d=384": 0,
-        "flash_attention_f32 d=640": 0,
-        "flash_attention_f32 d=1024": n_dec,    # per decoded chunk
+        "flash_attention_f32 d=640": 1,
+        "flash_attention_f32 d=1024": n_dec,
         "bf16 forward on sm90": 60 * steps,     # self + cross a block
         "bf16 forward on causal_sm90": 0,
         "bf16 forward on mma_sync": 0})
-    # i2v adds the d=640 launch of its first-frame encode
-    expected = {"t2v": per_video,
-                "i2v": dict(per_video, **{"flash_attention_f32": n_dec + 1,
-                                          "flash_attention_f32 d=640": 1})}
-    got = {"t2v": per_mode[0] if per_mode else None,
-           "i2v": ({k: per_mode[1][k] - per_mode[0][k] for k in per_mode[1]}
-                   if len(per_mode) == 2 else None)}
-    videos = {}
-    for m in metas:
-        fr = read_video_frames(m["video_path"])
-        videos[m["mode"]] = {"frames": len(fr),
-                             "frame_shape": list(fr[0].shape) if fr else None,
-                             "context_path": m["context_path"]}
+    fr = read_video_frames(metas[0]["video_path"]) if metas else []
+    video = {"mode": metas[0]["mode"] if metas else None,
+             "frames": len(fr),
+             "frame_shape": list(fr[0].shape) if fr else None,
+             "context_path": metas[0]["context_path"] if metas else None}
     log(json.dumps({
-        "phase": "ti2v_main_path", "model": "ti2v-5B", "mode": "both",
+        "phase": "ti2v_main_path", "model": "ti2v-5B", "mode": "i2v",
         "resolution": f"1280x704x{frames}", "steps": steps,
         "seconds": wall, "phase_times_s": metas[-1]["phase_times_s"],
-        "generation_time_s": {m["mode"]: m["generation_time_s"]
-                              for m in metas},
-        "peak_memory_gb": peak, "launches_per_mode": got,
-        "expected_launches_per_mode": expected, "videos": videos}))
+        "generation_time_s": metas[-1]["generation_time_s"],
+        "peak_memory_gb": peak, "launches": got,
+        "expected_launches": expected, "video": video}))
     if got != expected:
         fail(f"ti2v-5B launch counts {got} != {expected}")
-    for mode in ("t2v", "i2v"):
-        v = videos.get(mode)
-        if v is None or v["frames"] != frames \
-                or v["frame_shape"] != [704, 1280, 3] \
-                or v["context_path"] != "bagel_fusion":
-            fail(f"ti2v-5B {mode}: {v} is not {frames} frames of 704x1280 "
-                 "from the BAGEL fusion context")
+    if video != {"mode": "i2v", "frames": frames,
+                 "frame_shape": [704, 1280, 3],
+                 "context_path": "bagel_fusion"}:
+        fail(f"ti2v-5B i2v: {video} is not {frames} frames of 704x1280 "
+             "from the BAGEL fusion context")
     if peak >= 80.0:
         fail(f"ti2v-5B peak memory {peak:.1f} GB")
+    t2v = ti2v_t2v_step(held, frames)
+    held.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: launches[k] + t2v[k] for k in launches}
+
+
+def ti2v_t2v_step(held, frames):
+    """The knob-free t2v mode of the ti2v-5B CLI run: the same
+    FusionPipeline (`held`, taken from the i2v run) and kwargs without the
+    image, one denoise step and no decode (both of the two --mode both
+    decodes went for the time limit): the BAGEL context of the text alone,
+    one CFG DiT call at 1280x704x121 with 30 self, 30 cross, 30 kernel A
+    norm + rope and 30 norm-only launches and no VAE launch, the latent
+    [1, 31, 44, 80, 48] finite. Returns its launch counts."""
+    import torch
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    kwargs = dict(held["kwargs"], image=None, sampling_steps=1,
+                  decode=False, timer=None)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    latent = held["fusion"].generate_video_with_bagel_context(**kwargs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    got = dict(fa.LAUNCHES, **{f"flash_attention_f32 d={d}": n for d, n
+                               in fa.F32_LAUNCHES_BY_D.items()},
+               **{f"bf16 forward on {k}": n for k, n
+                  in fa.LAUNCHES_BY_IMPL.items()})
+    expected = dict(dict.fromkeys(got, 0), **{
+        "flash_attention_bf16": 30, "cross_attention_bf16": 30,
+        "qk_norm_rope_bf16": 30, "qk_norm_bf16": 30,
+        "bf16 forward on sm90": 60})
+    shape = [1, (frames - 1) // 4 + 1, 704 // 16, 1280 // 16, 48]
+    rec = {"phase": "ti2v_t2v_step", "model": "ti2v-5B", "mode": "t2v",
+           "resolution": f"1280x704x{frames}", "steps": 1, "decode": False,
+           "seconds": seconds, "launches": got,
+           "expected_launches": expected, "latent": list(latent.shape),
+           "finite": bool(torch.isfinite(latent).all())}
+    log(json.dumps(rec))
+    if got != expected:
+        fail(f"ti2v-5B t2v step launch counts {got} != {expected}")
+    if rec["latent"] != shape or not rec["finite"]:
+        fail(f"ti2v-5B t2v step latent {rec['latent']} (finite "
+             f"{rec['finite']}), not a finite {shape}")
     return launches
 
 
@@ -4149,19 +4593,13 @@ def check_mask_kernels():
             torch.bfloat16)
         return q, k, v, do
 
-    def allowed_packed(qc, kc):
-        rows = torch.arange(qc.shape[1], device="cuda")[None, :, None]
-        cols = torch.arange(kc.shape[1], device="cuda")[None, None, :]
-        return fa.packed_mask_allowed(qc[:, :, None], kc[:, None, :], rows,
-                                      cols)[:, None]
-
     # packed, the path's pack
     real = int((codes_np >> 16 > 0).sum())
     codes = torch.tensor(codes_np, dtype=torch.int32, device="cuda")[None]
     q, k, v, do = inputs(1, PACK_TOKENS, n)
     k[:, real:] = 50.0   # the pack's document-0 pad tokens
     v[:, real:] = 50.0
-    allowed = allowed_packed(codes, codes)
+    allowed = _allowed_packed(codes, codes)
     live = int(allowed.sum())
     masks = dict(q_segments=codes, kv_segments=codes, packed_mode=True)
     rec = _fwd_tile_list_check("packed [1, 4096]", codes, codes, None,
@@ -4199,7 +4637,7 @@ def check_mask_kernels():
     v[:, lr:lp] = 50.0
     pad_rows = torch.zeros((1, lp), dtype=torch.bool, device="cuda")
     pad_rows[:, lr:] = True
-    allowed = allowed_packed(qc, kc)
+    allowed = _allowed_packed(qc, kc)
     masks = dict(q_segments=qc.contiguous(), kv_segments=kc.contiguous(),
                  packed_mode=True)
     _fwd_tile_list_check("packed padded 4000->4032", masks["q_segments"],
@@ -4367,7 +4805,242 @@ def small_bagel_train_parity():
                  "CPU, or went through other kernels")
 
 
-def bagel_train_main_path():
+REGISTRY_EXPECTED = PACK_TOKENS - 512   # the packer yields at this fill
+
+
+def _allowed_packed(qc, kc):
+    """The packed mode's attend mask of codes qc [B, Lq], kc [B, Lk] as
+    SDPA takes it: bool [B, 1, Lq, Lk]."""
+    import torch
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    rows = torch.arange(qc.shape[1], device=qc.device)[None, :, None]
+    cols = torch.arange(kc.shape[1], device=kc.device)[None, None, :]
+    return fa.packed_mask_allowed(qc[:, :, None], kc[:, None, :], rows,
+                                  cols)[:, None]
+
+
+def registry_pack(cfg, output_dir):
+    """One PACK_TOKENS-token pack built the way a BAGEL training run feeds
+    itself: files written under output_dir/bagel_data, three groups from
+    the port's load_data_groups (a dict config, no YAML), all mandatory so
+    each kind is in the pack: t2i_pretrain (records read from a JSONL
+    file, 256x320 images on disk), vlm_sft (a JSONL of conversations and
+    224x280 images on disk) and unified_edit (editing chains of three
+    256x256 images, as records); the vae entries through latent_fn, the
+    port's full-size FLUX AE (random from a seed: models/bagel/
+    autoencoder.py) on the card, its latent patchified by 2 to [h, w, 64].
+    The flow timesteps from np.random.seed(70). Returns (batch, the
+    dataset names in the pack)."""
+    import os
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from univid_tpu_torch.data.packed_dataset import (PackedDataConfig,
+                                                      PackedDataset)
+    from univid_tpu_torch.data.registry import load_data_groups
+    from univid_tpu_torch.models.bagel.autoencoder import (ImageVAEConfig,
+                                                           image_vae_encode,
+                                                           init_image_vae)
+    from univid_tpu_torch.models.bagel.bagel import patchify_latent
+    from univid_tpu_torch.utils.tokenizers import HashTokenizer
+
+    root = os.path.join(output_dir, "bagel_data")
+    os.makedirs(root, exist_ok=True)
+
+    def picture(h, w, seed):
+        return smooth_clip(1, h, w, seed)[0]
+
+    t2i_path = os.path.join(root, "t2i.jsonl")
+    with open(t2i_path, "w") as f:
+        for i in range(8):
+            img = os.path.join(root, f"t2i_{i}.png")
+            Image.fromarray(picture(256, 320, 100 + i)).save(img)
+            f.write(json.dumps({"image": img, "captions": {
+                "short": f"bands of colour number {i}",
+                "long": f"soft diagonal bands of colour, picture {i}, "
+                        "drifting across a plain background"}}) + "\n")
+    with open(t2i_path) as f:
+        t2i_records = [json.loads(line) for line in f]
+    vlm_path = os.path.join(root, "vlm.jsonl")
+    with open(vlm_path, "w") as f:
+        for i in range(8):
+            Image.fromarray(picture(224, 280, 200 + i)).save(
+                os.path.join(root, f"vlm_{i}.png"))
+            f.write(json.dumps({"image": f"vlm_{i}.png", "conversations": [
+                {"from": "human", "value": "<image>\nWhat pattern fills "
+                                           "this picture, and which way "
+                                           "does it run?"},
+                {"from": "gpt", "value": f"Picture {i} is filled with soft "
+                                         "bands of colour that run "
+                                         "diagonally from the top left to "
+                                         "the bottom right."}]}) + "\n")
+    edit_records = [{"image_list": [picture(256, 256, 300 + 3 * i + j)
+                                    for j in range(3)],
+                     "instruction_list": [["shift the colours to the left",
+                                           "move every band left"],
+                                          ["make the bands wider",
+                                           "widen the bands"]]}
+                    for i in range(4)]
+    config = {
+        "t2i_pretrain": {"dataset_names": ["synthetic_t2i"],
+                         "image_transform_args": {
+                             "image_stride": 16, "max_image_size": 512,
+                             "min_image_size": 256},
+                         "is_mandatory": True, "weight": 1.0},
+        "vlm_sft": {"dataset_names": ["synthetic_vlm"],
+                    "image_transform_args": {
+                        "image_stride": 14, "max_image_size": 490,
+                        "min_image_size": 224},
+                    "is_mandatory": True, "weight": 1.0},
+        "unified_edit": {"dataset_names": ["synthetic_edit"],
+                         "image_transform_args": {
+                             "image_stride": 16, "max_image_size": 512,
+                             "min_image_size": 256},
+                         "vit_image_transform_args": {
+                             "image_stride": 14, "max_image_size": 490,
+                             "min_image_size": 224},
+                         "is_mandatory": True, "weight": 1.0},
+    }
+    info = {"t2i_pretrain": {"synthetic_t2i": {"records": t2i_records}},
+            "vlm_sft": {"synthetic_vlm": {"jsonl_path": vlm_path,
+                                          "image_dir": root}},
+            "unified_edit": {"synthetic_edit": {"records": edit_records}}}
+    vcfg = ImageVAEConfig()
+    ae = init_image_vae(torch.Generator(device="cuda").manual_seed(71), vcfg,
+                        device="cuda")
+    p = cfg.latent_patch_size
+
+    def latent_fn(pix):
+        with torch.no_grad():
+            z = image_vae_encode(ae, vcfg, torch.as_tensor(
+                pix, device="cuda")[None])[0]
+        tokens = patchify_latent(z.float(), p)
+        return tokens.reshape(z.shape[0] // p, z.shape[1] // p, -1) \
+            .cpu().numpy()
+
+    # token ids below the config's special ids
+    vocab = min(cfg.bos_token_id, cfg.eos_token_id, cfg.start_of_image,
+                cfg.end_of_image)
+    groups = load_data_groups(config, HashTokenizer(vocab_size=vocab), info,
+                              latent_fn=latent_fn, seed=72)
+    np.random.seed(70)
+    packer = PackedDataset(groups, data_config=PackedDataConfig(
+        vit_patch_size=cfg.vit_patch_size,
+        max_num_patch_per_side=cfg.vit_max_num_patch_per_side,
+        max_latent_size=cfg.max_latent_size,
+        latent_channel=cfg.latent_channel, bos_token_id=cfg.bos_token_id,
+        eos_token_id=cfg.eos_token_id, start_of_image=cfg.start_of_image,
+        end_of_image=cfg.end_of_image), expected_num_tokens=REGISTRY_EXPECTED,
+        max_num_tokens=PACK_TOKENS, max_num_tokens_per_sample=PACK_TOKENS,
+        seed=73)
+    batch = next(iter(packer))
+    del ae
+    names = sorted({d["dataset_name"] for d in batch["batch_data_indexes"]})
+    return batch, names
+
+
+def registry_pack_pass(bagel, sig, cfg, scfg, output_dir):
+    """Phase 9b, on the BAGEL-7B-MoT of the packed-training path: one
+    training pass (forward + backward, freeze_und) on the pack of
+    `registry_pack`; its launches asserted from zero counts (28 packed
+    forwards with lse, 28 one-pass sm90 backward calls, one tile_lists
+    launch), a finite loss. Then the packed pair at this pack's codes, [1,
+    4096, 28, 128] (the forward with lse and the one-pass backward, with
+    the mma.sync kernels in turns, against their plain versions, SDPA with
+    the mask beside them: `_mask_case`). Returns (the pass's launch
+    counts, kernels-line records `<kernel>_registry`)."""
+    import numpy as np
+    import torch
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.bagel.packed import bagel_packed_forward
+
+    t0 = time.perf_counter()
+    batch, names = registry_pack(cfg, output_dir)
+    build_s = time.perf_counter() - t0
+    n_layers = cfg.llm.num_layers
+    codes_np = np.asarray(batch["mask_codes"])
+    real = int((codes_np >> 16 > 0).sum())
+    bagel.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    out = bagel_packed_forward(
+        bagel, cfg, batch, rng=torch.Generator(device="cuda").manual_seed(74),
+        siglip_params=sig, siglip_cfg=scfg, compute_dtype=torch.bfloat16,
+        freeze_und=True)
+    loss = _train_loss(out)
+    loss.backward()
+    torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    launches = launch_counts()
+    got = {k: v for k, v in launches.items() if v}
+    want = {nm: n_layers for nm in (
+        "flash_attention_bf16_lse", "flash_attention_bwd_bf16_sm90",
+        "flash_attention_bf16_lse_packed",
+        "flash_attention_bwd_bf16_sm90_packed")}
+    want["tile_lists"] = 1
+    grads = sum(1 for p in bagel.parameters()
+                if p.grad is not None and bool(p.grad.abs().max() > 0))
+    rec = {"phase": "registry_pack_pass", "datasets": names,
+           "real_tokens": real, "pack_tokens": PACK_TOKENS,
+           "vit_patches": int(batch["packed_vit_patches"].shape[0]),
+           "vae_tokens": int(batch["packed_latent_clean"].shape[0]),
+           "ce_tokens": int(batch["ce_loss_indexes"].shape[0]),
+           "samples": len(batch["sample_lens"]), "build_s": build_s,
+           "pass_s": pass_s, "loss": float(loss.detach()),
+           "leaves_with_grad": grads, "launches": got, "expected": want}
+    log(json.dumps(rec))
+    if got != want:
+        fail(f"registry pack pass launches {got} != {want}")
+    check_impl("registry pack pass", n_layers)
+    check_bwd_impl("registry pack pass", n_layers)
+    if not math.isfinite(rec["loss"]) or not grads:
+        fail("registry pack pass: non-finite loss or no gradient")
+    if names != ["sft_jsonl", "t2i", "unified_edit"]:
+        fail(f"registry pack holds {names}, not the three groups")
+    bagel.zero_grad(set_to_none=True)
+    del out, loss
+    torch.cuda.empty_cache()
+
+    # the packed pair at this pack's codes
+    gen = torch.Generator(device="cuda").manual_seed(75)
+    n, d = cfg.llm.num_heads, cfg.llm.hidden_size // cfg.llm.num_heads
+    codes = torch.tensor(codes_np, dtype=torch.int32, device="cuda")[None]
+    q, k = (qk_normed((1, PACK_TOKENS, n, d), gen, torch.bfloat16)
+            for _ in range(2))
+    v, do = (torch.randn((1, PACK_TOKENS, n, d), generator=gen,
+                         device="cuda").to(torch.bfloat16) for _ in range(2))
+    k[:, real:] = 50.0   # the pack's document-0 pad tokens
+    v[:, real:] = 50.0
+    allowed = _allowed_packed(codes, codes)
+    live = int(allowed.sum())
+    real_keys = torch.zeros((1, PACK_TOKENS), dtype=torch.bool,
+                            device="cuda")
+    real_keys[:, :real] = True
+    masks = dict(q_segments=codes, kv_segments=codes, packed_mode=True)
+    case = _mask_case(f"registry pack [1, {PACK_TOKENS}, {n}, {d}]", q, k, v,
+                      do, None, masks, live, allowed, no_lse=False,
+                      live_keys=real_keys)
+    log(json.dumps({"check": "registry pack", "live_pairs": live,
+                    "live_share": live / PACK_TOKENS ** 2}))
+    records = {}
+    for name, r in _records("packed", case).items():
+        log(json.dumps({"kernel_at_registry_pack": r}))
+        if name in ("flash_attention_bf16_lse_packed",
+                    "flash_attention_bwd_bf16_sm90_packed"):
+            records[name + "_registry"] = dict(r, name=name + "_registry",
+                                               counter=name)
+    del q, k, v, do, allowed, case
+    torch.cuda.empty_cache()
+    return launches, records
+
+
+def bagel_train_main_path(output_dir):
     """The BAGEL packed-training path at full width: BAGEL-7B-MoT (bf16,
     both experts, random from seeds; llm2vae redrawn off its zero init,
     which would block every gradient) with SigLIP so400m, on one 4,096-token
@@ -4382,8 +5055,10 @@ def bagel_train_main_path():
     grad) and 3 training passes: medians and spreads, launches asserted
     per pass (the counts reset after the warm-up); peak memory, the loss
     and the gradients' reach logged; one more evaluation forward and one
-    more training pass profiled (the tile lists' device time apart).
-    Returns the counts of the six passes."""
+    more training pass profiled (the tile lists' device time apart). Then,
+    on the same model, the registry-fed pack's pass (`registry_pack_pass`).
+    Returns (the counts of the six passes, the registry pass's counts, its
+    kernels-line records)."""
     import gc
 
     import torch
@@ -4550,10 +5225,18 @@ def bagel_train_main_path():
     if zero_gen or und_with_grad:
         fail(f"gen leaves without a gradient {zero_gen[:5]} or frozen leaves "
              f"with one {und_with_grad[:5]}")
-    del bagel, sig, loss, trainable
+    del loss, batch
+    t0 = time.perf_counter()
+    reg_launches, reg_records = registry_pack_pass(bagel, sig, cfg, scfg,
+                                                   output_dir)
+    log(json.dumps({"phase": "registry_pack_pass_total",
+                    "seconds": time.perf_counter() - t0,
+                    "peak_memory_gb": torch.cuda.max_memory_allocated()
+                    / 1e9}))
+    del bagel, sig, trainable
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, reg_launches, reg_records
 
 
 # ---------------------------------------------------------------------------
@@ -7654,6 +8337,16 @@ def kernels_line(records, by_path, mask_records):
                flash_attention_bf16_tp="tp_dit", qk_rope_bf16_tp="tp_dit",
                cross_attention_bf16_tp="tp_dit",
                flash_attention_bf16_causal_tp="tp_qwen")
+    # the training CLI's shapes (ti2v-5B, 512x320x21): its LoRA run; the
+    # registry-fed pack's packed pair: its training pass
+    own.update({nm: "train_cli" for nm in (
+        "flash_attention_bf16_lse_train_cli",
+        "flash_attention_bwd_bf16_sm90_train_cli",
+        "flash_attention_bf16_lse_train_cli_cross",
+        "flash_attention_bwd_bf16_sm90_train_cli_cross",
+        "flash_attention_f32_train_cli")},
+               flash_attention_bf16_lse_packed_registry="bagel_registry",
+               flash_attention_bwd_bf16_sm90_packed_registry="bagel_registry")
     kernels = []
     for nm, rec in records.items():
         owner = own.get(nm, "t2v-1.3B")
@@ -7748,6 +8441,7 @@ def main():
     records.update(retime_a14b_kernels())
     check_a14b_720p_kernels()
     records.update(check_train_kernels())
+    records.update(check_train_cli_kernels())
     records.update(check_causal_kernels())
     records.update(check_image_gen_kernels())
     mask_records = check_mask_kernels()
@@ -7804,6 +8498,10 @@ def main():
         log(json.dumps({"phase": "train_main_path_total",
                         "seconds": time.perf_counter() - t0}))
         t0 = time.perf_counter()
+        by_path["train_cli"] = train_cli_on_card(args.output_dir)
+        log(json.dumps({"phase": "train_cli_on_card_total",
+                        "seconds": time.perf_counter() - t0}))
+        t0 = time.perf_counter()
         by_path["ti2v-5B"] = ti2v_main_path(args.output_dir)
         log(json.dumps({"phase": "ti2v_main_path_total",
                         "seconds": time.perf_counter() - t0}))
@@ -7828,7 +8526,9 @@ def main():
         log(json.dumps({"phase": "bagel_image_main_path_total",
                         "seconds": time.perf_counter() - t0}))
         t0 = time.perf_counter()
-        by_path["bagel_train"] = bagel_train_main_path()
+        by_path["bagel_train"], by_path["bagel_registry"], reg_records = \
+            bagel_train_main_path(args.output_dir)
+        records.update(reg_records)
         log(json.dumps({"phase": "bagel_train_main_path_total",
                         "seconds": time.perf_counter() - t0}))
         t0 = time.perf_counter()

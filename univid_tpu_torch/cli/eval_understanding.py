@@ -186,6 +186,8 @@ def load_models(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from ..core.debug import apply_debug_flags
+    apply_debug_flags()
     os.makedirs(args.output_dir, exist_ok=True)
 
     from ..reflection.clients import make_reflection_clients

@@ -35,6 +35,8 @@ import os
 import time
 from datetime import datetime
 
+from .common import build_bagel, model_spec
+
 DEFAULT_PROMPT = (
     "A cinematic shot of a corgi running through a sunlit meadow, shallow "
     "depth of field, golden hour lighting, 24fps smooth motion."
@@ -126,16 +128,6 @@ def _parse_size(s: str):
     return (int(w), int(h))
 
 
-def model_spec(args):
-    """The WanModelSpec of --model; an unknown name exits."""
-    from ..core.config import WAN_CONFIGS
-
-    if args.model not in WAN_CONFIGS:
-        raise SystemExit(f"--model {args.model}: the port has "
-                         f"{sorted(WAN_CONFIGS)}")
-    return WAN_CONFIGS[args.model]
-
-
 def build_text_encoder(args, spec):
     """UMT5 on args.device: from --checkpoint_dir (bf16, with the
     checkpoint's tokenizer), else with --mock_weights random (fp32)."""
@@ -219,10 +211,8 @@ def build_pipeline(args, spec):
 def build_fusion(args, wan_pipe, spec):
     """FusionPipeline (BAGEL extractor + ContextProjector + Wan) or None for
     the UMT5 path (--no_bagel, or a Wan checkpoint without --bagel_path or
-    --mock_weights). --bagel_path (without --mock_weights) loads
-    BAGEL-7B-MoT, run in bf16; the mock BAGEL is the JAX CLI's: a tiny
-    random LLM embedding (hidden 64) and SigLIP tower (hidden 32, 2
-    layers, 224 px), fp32, bagel_sequence_length min(64, text_len)."""
+    --mock_weights). BAGEL from `build_bagel`; bagel_sequence_length is the
+    config's default for BAGEL-7B-MoT and min(64, text_len) for the mock."""
     if args.no_bagel or not (args.bagel_path or args.mock_weights):
         return None
 
@@ -234,45 +224,15 @@ def build_fusion(args, wan_pipe, spec):
     from ..pipelines.fusion import FusionPipeline
 
     dev = torch.device(args.device)
-
-    def gen(seed):
-        return torch.Generator(device=dev).manual_seed(seed)
-
-    if args.bagel_path and not args.mock_weights:
-        from ..core.checkpoint import load_bagel_checkpoint
-        bagel, cfg, scfg, sig, tokenizer = load_bagel_checkpoint(
-            args.bagel_path, device=dev, llm_layers=False)
-        fusion_cfg = FusionConfig(
-            bagel_hidden_dim=cfg.llm.hidden_size,
-            wan_text_dim=spec.dit.text_dim,
-            wan_text_length=spec.dit.text_len,
-            fusion_alpha=args.bagel_strength)
-        compute_dtype = torch.bfloat16
-    else:
-        from ..models.bagel.bagel import BagelConfig, init_bagel
-        from ..models.bagel.qwen2_mot import Qwen2MoTConfig
-        from ..models.bagel.siglip import SiglipConfig, init_siglip
-        from ..utils.tokenizers import HashTokenizer
-
-        llm = Qwen2MoTConfig(vocab_size=4096, hidden_size=64,
-                             intermediate_size=128, num_layers=2,
-                             num_heads=4, num_kv_heads=2)
-        cfg = BagelConfig(llm=llm, vit_hidden_size=32, vit_patch_size=14,
-                          start_of_image=4090, end_of_image=4091,
-                          bos_token_id=4092, eos_token_id=4093)
-        scfg = SiglipConfig(hidden_size=32, intermediate_size=64,
-                            num_layers=2, num_heads=2, patch_size=14,
-                            image_size=224)
-        bagel = init_bagel(gen(10), cfg, device=dev, llm_layers=False)
-        sig = init_siglip(gen(11), scfg, device=dev)
-        tokenizer = HashTokenizer(vocab_size=4090)
-        fusion_cfg = FusionConfig(
-            bagel_hidden_dim=llm.hidden_size,
-            wan_text_dim=spec.dit.text_dim,
-            wan_text_length=spec.dit.text_len,
-            bagel_sequence_length=min(64, spec.dit.text_len),
-            fusion_alpha=args.bagel_strength)
-        compute_dtype = torch.float32
+    bagel, cfg, scfg, sig, tokenizer, compute_dtype = build_bagel(args, dev)
+    mock = args.mock_weights or not args.bagel_path
+    seq_len = dict(bagel_sequence_length=min(64, spec.dit.text_len)) \
+        if mock else {}
+    fusion_cfg = FusionConfig(
+        bagel_hidden_dim=cfg.llm.hidden_size,
+        wan_text_dim=spec.dit.text_dim,
+        wan_text_length=spec.dit.text_len,
+        fusion_alpha=args.bagel_strength, **seq_len)
     extractor = BagelSemanticExtractor(
         bagel, cfg, tokenizer, siglip=sig, siglip_cfg=scfg,
         target_len=fusion_cfg.bagel_sequence_length,
@@ -282,7 +242,9 @@ def build_fusion(args, wan_pipe, spec):
         projector = load_projector_checkpoint(args.training_state,
                                               fusion_cfg, device=dev)
     else:
-        projector = init_context_projector(gen(12), fusion_cfg, device=dev)
+        projector = init_context_projector(
+            torch.Generator(device=dev).manual_seed(12), fusion_cfg,
+            device=dev)
     return FusionPipeline(wan_pipe, projector, fusion_cfg,
                           bagel_extractor=extractor)
 
@@ -301,6 +263,8 @@ def load_image(path: str):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from ..core.debug import apply_debug_flags
+    apply_debug_flags()
     for is_set, why in _LATER:
         if is_set(args):
             raise SystemExit(f"not in this port yet: {why}")

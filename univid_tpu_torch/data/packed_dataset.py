@@ -32,6 +32,7 @@ import numpy as np
 
 from ..kernels.attention import pack_mask_codes
 from ..models.bagel.packed import build_mask_ids
+from ..native import patchify
 
 
 def len2weight(x: int, loss_reduction: str = "square") -> float:
@@ -52,15 +53,6 @@ def flattened_position_ids_extrapolate(h: int, w: int, patch: int,
     hp, wp = h // patch, w // patch
     rows = np.arange(hp)[:, None] * max_side + np.arange(wp)[None, :]
     return rows.reshape(-1).astype(np.int32)
-
-
-def patchify_np(image: np.ndarray, patch: int) -> np.ndarray:
-    """[H, W, C] -> [h*w, p*p*C], inner (ph, pw, c) order
-    (data_utils.patchify:43-50)."""
-    h, w, c = image.shape
-    x = image.reshape(h // patch, patch, w // patch, patch, c)
-    x = x.transpose(0, 2, 1, 3, 4)
-    return x.reshape(-1, patch * patch * c)
 
 
 @dataclass
@@ -287,7 +279,7 @@ class PackedDataset:
                 curr += 1
                 curr_split_len += 1
 
-                vit_tokens = patchify_np(image, cfg.vit_patch_size)
+                vit_tokens = patchify(image, cfg.vit_patch_size)
                 n_img = vit_tokens.shape[0]
                 st["packed_vit_token_indexes"].extend(
                     range(curr, curr + n_img))

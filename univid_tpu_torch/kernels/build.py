@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -45,6 +46,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 BUILD_LOG: Dict[str, str] = {}  # name -> nvcc/ptxas output of this process's build
+# each build at INFO (UNIVID_LOG_COMPILES=1 turns it on: core/debug.py)
+_log = logging.getLogger(__name__)
 
 
 def _nvcc() -> str:
@@ -84,6 +87,8 @@ def build_all() -> Dict[str, float]:
         log, _ = proc.communicate()
         times[name] = time.perf_counter() - t0
         BUILD_LOG[name] = log
+        _log.info("nvcc %s: %.1f s, exit %d", SOURCES[name], times[name],
+                  proc.returncode)
         if proc.returncode != 0:
             errors.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
