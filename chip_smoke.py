@@ -204,8 +204,9 @@ Phases:
      pre-passes of two launches, 300 W8A8 GEMMs; no knob-free attention,
      none on the mma.sync int8 kernel); print seconds per DiT and per
      Taylor step, for the video, peak memory; time the ti2v-5B DiT
-     forward bare, with each knob alone and all four (two forwards each,
-     the launches of one checked), and profile one bare and one with
+     forward bare, with each knob alone and all four (one timed forward
+     each, after one whose launches are checked), and profile one bare and
+     one with
      qk_int8 alone (device time by kernel family, the q / k pre-passes
      apart);
  13. drive multi-GPU serving with two ranks on the one card over gloo
@@ -240,6 +241,20 @@ timed in turns, `int8_sm90_vs_mma_sync` lines, a kv_len = 0 row exactly 0)
 are held against their plain versions at the ti2v-5B and t2v-1.3B shapes
 in phase 3, and each knob alone and all four card against CPU on a small
 d=128 DiT in phase 4.
+FLUX.1 Kontext editing: in phase 3 the sm90
+forward at the edit's joint attention, [1, 8704, 24, 128] bf16, running
+max, and at a padded bucket (8,652 tokens, kv_len), against its plain
+version beside SDPA and the 0.941 ms bound (`check_kontext_kernels`); in
+phase 4 a small d=128 editor (hidden 256, 2 + 2 blocks, tiny T5, CLIP and
+AE) card against CPU, 4 steps on a 256x256 image (latent and image rel.
+L2 < 3e-2), and load_kontext_checkpoint of a tiny synthetic dir on the
+card bit for bit against the CPU load (`small_kontext_parity`); after
+phase 8b the full 11.9 B transformer with T5-XXL v1.1 and CLIP-L on
+random bf16 weights, one 1024x1024 edit through make_edit_fn at 28 steps
+and guidance 2.5 (a u8 image, a finite latent, 1,596 sm90 launches and
+no reference-route call at d=128; s/edit, s/step, peak memory, one
+profiled transformer pass), then the transformer quantized weight-only
+in place and a KONTEXT_INT8_STEPS edit (`kontext_main_path`).
 Each path starts with every launch count at 0; the paths of phases 5-9
 and 12 also check their bf16 forward launches by kernel (every unmasked,
 segment and packed forward on the sm90 kernel, every causal one on the
@@ -4023,6 +4038,419 @@ def bagel_image_main_path(output_dir):
 
 
 # ---------------------------------------------------------------------------
+# FLUX.1 Kontext image editing
+# ---------------------------------------------------------------------------
+
+KONTEXT_SIDE = 1024      # the reference operating point: 64 x 64 tokens
+KONTEXT_STEPS = 28
+KONTEXT_GUIDANCE = 2.5
+KONTEXT_INT8_STEPS = 2   # the int8 edit's steps: cut for the time limit
+KONTEXT_TOKENS = 512 + 2 * 4096   # text, target and reference tokens
+KONTEXT_PADDED = 512 + 2 * 4070   # a 1184x880 target and reference (55 x 74
+#                                   tokens), padded to 8,704 with kv_len
+KONTEXT_PROMPT = ("Make the person stand upright in a T-pose, arms straight "
+                  "out to the sides, facing the camera.")
+KONTEXT_WHY = ("one bf16 ulp of the output (at most 2^-7 relative) plus 1e-3 "
+               "for the fp32 summation order and the approximate exp2 "
+               "before p rounds to bf16")
+
+
+def check_kontext_kernels():
+    """flash_attention_bf16 (the unmasked running-max mode of
+    flash_attention_sm90.cu) at the Kontext edit's joint attention, [1,
+    8704, 24, 128] bf16 (512 text + 4,096 target + 4,096 reference tokens,
+    qk-normed rows), and at a padded bucket's 8,652 tokens padded to 8,704
+    (kv_len 8,652, the pad keys 50.0): against its plain version within
+    PERF.md s2's bf16 bound, timed with CUDA events beside SDPA on the live
+    rows and keys and the bound of that work. Returns the unpadded
+    shape's record (counted by flash_attention_bf16); the padded one is
+    logged beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    n, d, l = 24, 128, KONTEXT_TOKENS
+    records = {}
+    for tag, live in (("", l), ("_kv_len", KONTEXT_PADDED)):
+        q = fa._fold(qk_normed((1, l, n, d), gen, torch.bfloat16), d ** -0.5)
+        k = qk_normed((1, l, n, d), gen, torch.bfloat16)
+        v = torch.randn((1, l, n, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        kv = None
+        if live < l:
+            k[:, live:], v[:, live:] = 50.0, 50.0
+            kv = torch.full((1,), live, dtype=torch.int32, device="cuda")
+        with torch.no_grad():
+            got = fa._flash_cuda(q, k, v, kv, None, None)
+            want = fa.attention_plain(q, k, v, kv_len=kv)
+            err = compare(f"flash_attention_bf16 Kontext joint attention"
+                          f"{tag}", got[:, :live], want[:, :live],
+                          atol=1e-3, rtol=2.0 ** -7, why=KONTEXT_WHY)
+            ms = cuda_time(lambda: fa._flash_cuda(q, k, v, kv, None, None),
+                           20)
+            plain_ms = cuda_time(lambda: fa.attention_plain(q, k, v,
+                                                            kv_len=kv), 1)
+            qs, ks, vs = (x[:, :live].transpose(1, 2) for x in (q, k, v))
+            lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, scale=1.0 / fa.LOG2E), 20)
+        bms, by = bound_ms(4 * live * live * n * d, 4 * live * n * d * 2,
+                           H100_BF16_FLOPS)
+        rec = dict(name=f"flash_attention_bf16_kontext{tag}",
+                   counter="flash_attention_bf16", route="cuda",
+                   source="univid_tpu_torch/kernels/csrc/"
+                          "flash_attention_sm90.cu",
+                   replaces="univid_tpu/kernels/flash_attention.py:44",
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by, library_ms=lib_ms,
+                   shape={"q": list(q.shape), "kv_len": live})
+        if tag:
+            log(json.dumps({"kernel_at_kontext_padded_shape": rec}))
+        else:
+            log(json.dumps({"kernel": rec}))
+            records[rec["name"]] = rec
+        del q, k, v, got, want, qs, ks, vs
+        torch.cuda.empty_cache()
+    return records
+
+
+class _RefRouteCount:
+    """Counts the reference attention route's calls by head dim while the
+    block runs (kernels.attention.mha_reference, which attention() calls
+    for head dims that are not multiples of 128)."""
+
+    def __enter__(self):
+        from univid_tpu_torch.kernels import attention as am
+
+        self.by_d, self._am, self._fn = {}, am, am.mha_reference
+
+        def counted(q, *a, **kw):
+            d = int(q.shape[-1])
+            self.by_d[d] = self.by_d.get(d, 0) + 1
+            return self._fn(q, *a, **kw)
+
+        am.mha_reference = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._am.mha_reference = self._fn
+
+
+class _EditRecorder:
+    """Instrumentation of a Kontext edit: a CUDA event before each
+    transformer pass of the sigma loop (pipelines.kontext.flux_forward;
+    meaningless for a CPU pipeline, whose latent alone is read), and the
+    loop's final latent (the pipeline's denoise)."""
+
+    def __init__(self, pipe):
+        self.pipe, self.events, self.latent = pipe, [], None
+
+    def __enter__(self):
+        import torch
+
+        from univid_tpu_torch.pipelines import kontext as km
+
+        self._km, self._fwd = km, km.flux_forward
+        self._denoise = self.pipe.denoise
+
+        def fwd(*a, **kw):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+            return self._fwd(*a, **kw)
+
+        def denoise(*a, **kw):
+            self.latent = self._denoise(*a, **kw)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+            return self.latent
+
+        km.flux_forward = fwd
+        self.pipe.denoise = denoise
+        return self
+
+    def __exit__(self, *exc):
+        self._km.flux_forward = self._fwd
+        del self.pipe.denoise
+
+    def step_seconds(self):
+        import torch
+        torch.cuda.synchronize()
+        ev = self.events
+        return [a.elapsed_time(b) / 1e3 for a, b in zip(ev, ev[1:])]
+
+
+def _kontext_image(side, seed=23):
+    """A seeded side x side u8 image of smooth blocks (64 x 64 pixels of
+    one colour)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (side // 64, side // 64, 3), dtype=np.uint8)
+    return np.kron(base, np.ones((64, 64, 1), np.uint8))
+
+
+def _small_kontext_pipeline():
+    """A small d=128 Kontext editor on the CPU from seeds: the transformer
+    at hidden 256, 2 heads, 2 + 2 blocks, in_channels 64 (the published
+    packing of a z = 16 latent), bf16; the tiny T5 and CLIP towers (bf16);
+    a 4-level FLUX AE (ch 32, 8x downsampling, fp32); the bf16 policy."""
+    import torch
+
+    from univid_tpu_torch.models.bagel.autoencoder import (ImageVAEConfig,
+                                                           init_image_vae)
+    from univid_tpu_torch.models.flux import (FluxConfig, TINY_CLIP_TEXT,
+                                              init_clip_text, init_flux)
+    from univid_tpu_torch.models.wan.t5 import UMT5Encoder
+    from univid_tpu_torch.pipelines import kontext as km
+    from univid_tpu_torch.utils.tokenizers import HashTokenizer
+
+    bf = torch.bfloat16
+    fcfg = FluxConfig(hidden_size=256, num_heads=2, depth_double=2,
+                      depth_single=2, context_dim=km.TINY_FLUX_T5.dim,
+                      vec_dim=TINY_CLIP_TEXT.hidden_size, time_freq_dim=32)
+    vcfg = ImageVAEConfig(ch=32, ch_mult=(1, 2, 2, 2), num_res_blocks=1)
+    t5c, cc = km.TINY_FLUX_T5, TINY_CLIP_TEXT
+
+    def gen(i):
+        return torch.Generator().manual_seed(2300 + i)
+
+    kw = dict(dtype=bf, device="cpu")
+    return km.KontextPipeline(
+        init_flux(gen(0), fcfg, **kw), fcfg,
+        init_image_vae(gen(1), vcfg, device="cpu"), vcfg,
+        UMT5Encoder(t5c, gen=gen(2), **kw), t5c,
+        km._PaddedTok(HashTokenizer(vocab_size=t5c.vocab_size),
+                      t5c.text_len),
+        init_clip_text(gen(3), cc, **kw), cc,
+        km._PaddedTok(HashTokenizer(vocab_size=cc.vocab_size), cc.max_len))
+
+
+def _kontext_ckpt_card_vs_cpu(output_dir):
+    """A Kontext editor dir at the tiny geometry written from the port's
+    manifests (fp32 draws, the HF tied embed_tokens and CLIP's
+    position_ids beside them), loaded by load_kontext_checkpoint(tiny=True)
+    on the card and on the CPU: every parameter of the four modules equal
+    bit for bit, dtype for dtype, on the card. The dir is deleted."""
+    import os
+    import shutil
+
+    import torch
+
+    from univid_tpu_torch.core import manifest as tm
+    from univid_tpu_torch.core.checkpoint import load_kontext_checkpoint
+    from univid_tpu_torch.models.flux import TINY_CLIP_TEXT, TINY_FLUX
+    from univid_tpu_torch.pipelines import kontext as km
+
+    root = os.path.join(output_dir, "kontext_tiny")
+    f32 = torch.float32
+    files = {
+        "flux1-kontext-dev.safetensors": _draws(
+            tm.flux_transformer_manifest(TINY_FLUX), 231, f32),
+        "ae.safetensors": _draws(tm.flux_ae_manifest(km.TINY_FLUX_VAE), 232,
+                                 f32),
+        "text_encoder_2/model.safetensors": _draws(
+            tm.t5_hf_manifest(km.TINY_FLUX_T5), 233, f32),
+        "text_encoder/model.safetensors": _draws(
+            tm.clip_text_manifest(TINY_CLIP_TEXT), 234, f32),
+    }
+    t5 = files["text_encoder_2/model.safetensors"]
+    t5["encoder.embed_tokens.weight"] = t5["shared.weight"]
+    files["text_encoder/model.safetensors"][
+        "text_model.embeddings.position_ids"] = (
+        torch.int64, (1, TINY_CLIP_TEXT.max_len),
+        lambda: torch.arange(TINY_CLIP_TEXT.max_len)[None])
+    for rel, tensors in files.items():
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_safetensors(path, tensors)
+    card = load_kontext_checkpoint(root, device="cuda", tiny=True)
+    cpu = load_kontext_checkpoint(root, device="cpu", tiny=True)
+    n = 0
+    for mc, mh in zip(card[0::2], cpu[0::2]):
+        sc, sh = mc.state_dict(), mh.state_dict()
+        if set(sc) != set(sh):
+            fail("load_kontext_checkpoint: the card's and the CPU's "
+                 "modules differ in names")
+        for k, t in sc.items():
+            if not t.is_cuda or t.dtype != sh[k].dtype \
+                    or not torch.equal(t.cpu(), sh[k]):
+                fail(f"load_kontext_checkpoint: {k} on the card is not the "
+                     "CPU load's")
+            n += 1
+    shutil.rmtree(root)
+    log(json.dumps({"check": "load_kontext_checkpoint card vs CPU (tiny "
+                    "dir)", "tensors_bit_equal": n, "ok": True}))
+
+
+def small_kontext_parity(output_dir):
+    """The small d=128 Kontext editor (`_small_kontext_pipeline`) on the
+    card against the same pipeline on the CPU: a 256x256 edit (its
+    reference resized to the 1024x1024 bucket: 16 + 256 + 4,096 tokens,
+    padded to 4,480 with kv_len), 4 steps, guidance 2.5, the same noise:
+    latent and image rel. L2 < 3e-2 (PERF.md s2's bf16 bound); the card's
+    joint attention 16 sm90 launches (4 blocks x 4 steps); then
+    `_kontext_ckpt_card_vs_cpu`."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    cpu = _small_kontext_pipeline()
+    card = copy.copy(cpu)
+    for name in ("flux", "vae", "t5", "clip"):
+        setattr(card, name, copy.deepcopy(getattr(cpu, name)).cuda())
+    card._rope_cache = {}
+    img = _kontext_image(256)
+    steps = 4
+    noise = torch.randn((1, 256, 64), generator=torch.Generator()
+                        .manual_seed(2310))
+    kw = dict(num_inference_steps=steps, guidance_scale=KONTEXT_GUIDANCE,
+              noise=noise)
+    _reset_counts()
+    with _RefRouteCount() as ref, _EditRecorder(card) as rec:
+        out_card = card.edit(img, KONTEXT_PROMPT, **kw)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _all_counts().items() if v}
+    with _EditRecorder(cpu) as rec_cpu:
+        out_cpu = cpu.edit(img, KONTEXT_PROMPT, **kw)
+    lat_card, lat_cpu = rec.latent, rec_cpu.latent
+    rec = {"check": "small Kontext edit card vs CPU",
+           "latent_rel_l2": rel_l2(lat_card.cpu(), lat_cpu),
+           "image_rel_l2": rel_l2(torch.as_tensor(out_card.astype(
+               np.float32)), torch.as_tensor(out_cpu.astype(np.float32))),
+           "limit": 3e-2, "launches": launches,
+           "reference_route_calls_by_head_dim": ref.by_d,
+           "why": "the bf16 policy's bound: cuBLAS and the CPU round each "
+                  "GEMM at other points, over 4 blocks x 4 steps"}
+    want = {"flash_attention_bf16": 4 * steps}
+    rec["ok"] = (max(rec["latent_rel_l2"], rec["image_rel_l2"]) < 3e-2
+                 and launches == want and 128 not in ref.by_d
+                 and out_card.shape == (256, 256, 3)
+                 and bool(torch.isfinite(lat_card).all()))
+    log(json.dumps(rec))
+    if not rec["ok"]:
+        fail("the small Kontext edit on the card disagrees with the CPU, or "
+             "its attention did not run on the sm90 kernel")
+    check_impl("small Kontext edit", 4 * steps)
+    del card, cpu
+    _kontext_ckpt_card_vs_cpu(output_dir)
+
+
+def kontext_main_path():
+    """FLUX.1 Kontext editing at full width and depth on random weights
+    from a seed: the 11.9 B-parameter transformer (FluxConfig(): 19 double
+    and 38 single blocks), T5-XXL v1.1 and CLIP-L, in bf16 (the dtype
+    from_checkpoint places), the FLUX AE in fp32; one 1024x1024 edit
+    through make_edit_fn(pipeline=...) at 28 steps, guidance 2.5, from
+    zero counts. Checks a u8 [1024, 1024, 3] image, a finite latent, 57 x
+    28 = 1,596 flash_attention_bf16 launches, all on the sm90 kernel, and
+    no reference-route call at d=128; logs s/edit, s/step, the peak memory
+    and one profiled transformer pass (attention / GEMM / other). Then
+    quantizes the transformer weight-only in place (what make_edit_fn's
+    int8=True does to a loaded checkpoint) and runs a KONTEXT_INT8_STEPS
+    edit the same way. -> {"kontext": counts, "kontext_int8": counts}."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from univid_tpu_torch.core.quant import quantize_tree, quantized_bytes
+    from univid_tpu_torch.models.flux import flux_forward
+    from univid_tpu_torch.pipelines import kontext as km
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = km.KontextPipeline.random_init(seed=0, tiny=False,
+                                          dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = {name: quantized_bytes(getattr(pipe, name)) / 1e9
+                  for name in ("flux", "t5", "clip", "vae")}
+    n_params = sum(p.numel() for p in pipe.flux.parameters())
+    img = _kontext_image(KONTEXT_SIDE)
+    blocks = pipe.flux_cfg.depth_double + pipe.flux_cfg.depth_single
+    counts = {}
+
+    def request(tag, steps):
+        edit_fn = km.make_edit_fn(pipeline=pipe, num_inference_steps=steps,
+                                  guidance_scale=KONTEXT_GUIDANCE, seed=0)
+        torch.cuda.synchronize()
+        _reset_counts()
+        with _RefRouteCount() as ref, _EditRecorder(pipe) as rec:
+            t = time.perf_counter()
+            out = edit_fn(img, KONTEXT_PROMPT)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        counts[tag] = _all_counts()
+        step_s = rec.step_seconds()
+        want = dict(dict.fromkeys(counts[tag], 0),
+                    flash_attention_bf16=blocks * steps)
+        r = {"phase": tag, "side": KONTEXT_SIDE, "steps": steps,
+             "guidance": KONTEXT_GUIDANCE, "s_per_edit": wall,
+             "s_per_step": step_s, "s_per_step_median":
+                 statistics.median(step_s),
+             "steps_s": sum(step_s), "rest_s": wall - sum(step_s),
+             "launches": {k: v for k, v in counts[tag].items() if v},
+             "reference_route_calls_by_head_dim": ref.by_d,
+             "image": [list(out.shape), str(out.dtype)],
+             "latent_finite": bool(torch.isfinite(rec.latent).all()),
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(json.dumps(r))
+        if out.shape != (KONTEXT_SIDE, KONTEXT_SIDE, 3) \
+                or out.dtype != np.uint8 or not r["latent_finite"]:
+            fail(f"{tag}: the edit is not a finite u8 1024x1024 image")
+        if counts[tag] != want or 128 in ref.by_d or len(step_s) != steps:
+            fail(f"{tag}: launches {r['launches']} (reference route "
+                 f"{ref.by_d}) != {blocks * steps} flash_attention_bf16")
+        check_impl(tag, blocks * steps)
+        if r["peak_memory_gb"] >= 80.0:
+            fail(f"{tag}: peak memory {r['peak_memory_gb']:.1f} GB")
+        return r
+
+    edit = request("kontext", KONTEXT_STEPS)
+    log(json.dumps({"phase": "kontext_main_path", "model":
+                    "FLUX.1-Kontext-dev (random weights)",
+                    "transformer_parameters": n_params, "init_s": init_s,
+                    "weights_gb": weights_gb, "tokens": KONTEXT_TOKENS,
+                    "s_per_edit": edit["s_per_edit"],
+                    "peak_memory_gb": edit["peak_memory_gb"]}))
+
+    # one transformer pass under the profiler: where a step's time goes
+    with torch.no_grad():
+        txt, pooled = pipe.encode_prompt(KONTEXT_PROMPT)
+        gen = torch.Generator(device="cuda").manual_seed(24)
+        x = torch.randn((1, 2 * 4096, 64), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        rope = pipe.rope_tables((64, 64), (64, 64), txt.shape[1])
+        g = torch.full((1,), KONTEXT_GUIDANCE, device="cuda")
+        t = torch.full((1,), 0.5, device="cuda")
+        _, prof = profile_call(lambda: flux_forward(
+            pipe.flux, pipe.flux_cfg, x, txt, t, guidance=g,
+            clip_pooled=pooled, rope_tables=rope, policy=pipe.policy))
+    log(json.dumps({"profile": "Kontext transformer pass, 8,704 tokens",
+                    **prof}))
+    del txt, pooled, x
+
+    t0 = time.perf_counter()
+    quantize_tree(pipe.flux)
+    torch.cuda.synchronize()
+    log(json.dumps({"check": "Kontext transformer quantized weight-only "
+                    "(quantize_tree)", "seconds": time.perf_counter() - t0,
+                    "transformer_gb": quantized_bytes(pipe.flux) / 1e9}))
+    torch.cuda.reset_peak_memory_stats()
+    request("kontext_int8", KONTEXT_INT8_STEPS)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # BAGEL packed training (the fifth slice)
 # ---------------------------------------------------------------------------
 
@@ -6420,7 +6848,7 @@ def knob_main_path(output_dir):
     attention; 31 d=1024 VAE
     attention calls. Prints seconds per DiT step and per Taylor step, for
     the video, peak memory; then times the ti2v-5B DiT forward with each
-    knob alone and all four, two forwards each. Returns {path: launches}."""
+    knob alone and all four, one forward each. Returns {path: launches}."""
     import gc
     import os
 
@@ -6481,7 +6909,7 @@ def knob_main_path(output_dir):
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
-    times, per_call = _knob_forward_times(WAN_CONFIGS["ti2v-5B"], 2)
+    times, per_call = _knob_forward_times(WAN_CONFIGS["ti2v-5B"], 1)
     log(json.dumps({"phase": "knob_dit_forward_times", "model": "ti2v-5B",
                     "shape": "[2, 31, 44, 80, 48] latents, 28,672 tokens",
                     "seconds": times, "launches_per_call": per_call,
@@ -8319,6 +8747,8 @@ def kernels_line(records, by_path, mask_records):
     # flash_attention_bf16 counter, in the request of their shape
     own.update(flash_attention_bf16_image_gen_t2i="bagel_t2i",
                flash_attention_bf16_image_gen_edit="bagel_edit")
+    # the Kontext edit's joint attention: the 28-step 1024x1024 edit
+    own.update(flash_attention_bf16_kontext="kontext")
     # the A14B shapes: the t2v-A14B request (the i2v-A14B one beside it in
     # launches_by_path)
     own.update({f"{nm}_a14b": "t2v-A14B" for nm in A14B_KERNELS},
@@ -8410,7 +8840,7 @@ def main():
 
     card = card_line()
     log(f"card: {card}")
-    t0 = time.perf_counter()
+    t_run = t0 = time.perf_counter()
     times = build.build_all()
     log(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
                     "per_source_s": times}))
@@ -8444,6 +8874,10 @@ def main():
     records.update(check_train_cli_kernels())
     records.update(check_causal_kernels())
     records.update(check_image_gen_kernels())
+    t1 = time.perf_counter()
+    records.update(check_kontext_kernels())
+    log(json.dumps({"phase": "check_kontext_kernels",
+                    "seconds": time.perf_counter() - t1}))
     mask_records = check_mask_kernels()
     records.update(mask_records)
     records.update(check_f32_d128_kernels())
@@ -8474,7 +8908,9 @@ def main():
                           ("small_bagel_train_parity",
                            small_bagel_train_parity),
                           ("fp32_train_parity", fp32_train_parity),
-                          ("knob_parity", knob_parity)):
+                          ("knob_parity", knob_parity),
+                          ("small_kontext_parity",
+                           lambda: small_kontext_parity(args.output_dir))):
             t0 = time.perf_counter()
             res = fn()
             log(json.dumps({"phase": phase,
@@ -8526,6 +8962,10 @@ def main():
         log(json.dumps({"phase": "bagel_image_main_path_total",
                         "seconds": time.perf_counter() - t0}))
         t0 = time.perf_counter()
+        by_path.update(kontext_main_path())
+        log(json.dumps({"phase": "kontext_main_path_total",
+                        "seconds": time.perf_counter() - t0}))
+        t0 = time.perf_counter()
         by_path["bagel_train"], by_path["bagel_registry"], reg_records = \
             bagel_train_main_path(args.output_dir)
         records.update(reg_records)
@@ -8553,6 +8993,8 @@ def main():
         naflex_cli_on_card(args.output_dir)
         log(json.dumps({"phase": "naflex_cli_on_card",
                         "seconds": time.perf_counter() - t0}))
+    log(json.dumps({"phase": "chip_smoke_total",
+                    "seconds": time.perf_counter() - t_run}))
     log(json.dumps({"kernels": kernels_line(records, by_path,
                                             mask_records)}))
     log(card)

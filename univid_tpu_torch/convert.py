@@ -12,8 +12,11 @@ a state dict key by key. Layout rules, by leaf name and rank:
     (the FLUX image VAE's, `image_vae_from_jax`: [Cout, Cin, kh, kw]);
   * every other leaf as it is.
 The DiT's `blocks`, the `layers` of SigLIP, the SigLIP text tower and
-both NaFlex towers, and BAGEL's `llm.layers` leaves are stacked [num_layers, ...] in the JAX tree
-(one lax.scan); they are unstacked into the ModuleList here. LoRA trees
+both NaFlex towers, BAGEL's `llm.layers`, FLUX's `double_blocks` and
+`single_blocks` and the CLIP text tower's `blocks` leaves are stacked
+[num_layers, ...] in the JAX tree (one lax.scan); they are unstacked into
+the ModuleList here. UMT5's blocks are a dict of layers in both packages
+(with `shared_pos`, layer 0 alone holds the position table). LoRA trees
 keep the JAX layout as they are (stacked a [L, in, r], b [L, r, out]).
 Leaves may be numpy arrays or anything `np.asarray` accepts (bf16 leaves
 included); nothing here imports JAX.
@@ -21,7 +24,7 @@ included); nothing here imports JAX.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -31,6 +34,8 @@ from .core.quant import QuantLinear
 from .models.bagel.autoencoder import ImageVAE, ImageVAEConfig
 from .models.bagel.bagel import Bagel, BagelConfig
 from .models.bagel.siglip import Siglip, SiglipConfig
+from .models.flux.clip_text import ClipText, ClipTextConfig
+from .models.flux.kontext import Flux, FluxConfig
 from .reflection.scorer import (SiglipMapHead, SiglipText,
                                 SiglipTextConfig)
 from .models.fusion.projector import ContextProjector
@@ -67,18 +72,22 @@ def _flatten(tree, prefix="") -> Dict[str, object]:
     return out
 
 
-def jax_tree_to_state_dict(tree, stacked: Optional[str] = None
+def jax_tree_to_state_dict(tree, stacked: Union[str, Tuple[str, ...],
+                                                 None] = None
                            ) -> Dict[str, torch.Tensor]:
     """Flatten a JAX parameter tree into a state dict of the port's module;
-    `stacked` names a subtree whose leaves carry a leading layer axis."""
+    `stacked` names the subtree (or subtrees) whose leaves carry a leading
+    layer axis."""
+    prefixes = (stacked,) if isinstance(stacked, str) else tuple(stacked or ())
     sd = {}
     for key, leaf in _flatten(tree).items():
         t = _to_torch(leaf)
         name = key.rsplit(".", 1)[-1]
-        if stacked is not None and key.startswith(stacked + "."):
-            rest = key[len(stacked) + 1:]
+        top = next((p for p in prefixes if key.startswith(p + ".")), None)
+        if top is not None:
+            rest = key[len(top) + 1:]
             for i in range(t.shape[0]):
-                sd[f"{stacked}.{i}.{rest}"] = _layout(name, t[i]).contiguous()
+                sd[f"{top}.{i}.{rest}"] = _layout(name, t[i]).contiguous()
         else:
             sd[key] = _layout(name, t).contiguous()
     return sd
@@ -219,4 +228,23 @@ def naflex_text_from_jax(params, cfg, *, device="cuda", dtype=None):
     from .reflection.naflex import NaflexText
     model = NaflexText(cfg, dtype=dtype or torch.float32, device=device)
     return _load(model, jax_tree_to_state_dict(params, stacked="layers"),
+                 dtype)
+
+
+def flux_from_jax(params, cfg: FluxConfig, *, device="cuda",
+                  dtype=None) -> Flux:
+    """univid_tpu init_flux / convert_flux_transformer tree (quantized by
+    quantize_tree or not) -> Flux on `device`, its stacked double and
+    single blocks unstacked."""
+    model = Flux(cfg, dtype=dtype or torch.float32, device=device)
+    return _load(model, jax_tree_to_state_dict(
+        params, stacked=("double_blocks", "single_blocks")), dtype)
+
+
+def clip_text_from_jax(params, cfg: ClipTextConfig, *, device="cuda",
+                       dtype=None) -> ClipText:
+    """univid_tpu init_clip_text / convert_clip_text tree -> ClipText on
+    `device`."""
+    model = ClipText(cfg, dtype=dtype or torch.float32, device=device)
+    return _load(model, jax_tree_to_state_dict(params, stacked="blocks"),
                  dtype)

@@ -5,7 +5,9 @@ Load surfaces: the Wan DiT (diffusers-style sharded safetensors with a
 *.safetensors.index.json, or .pth), the Wan video VAE and UMT5 (raw torch
 .pth state dicts), BAGEL's ema.safetensors (the Qwen2-MoT LLM, its heads
 and the NaViT SigLIP tower), the HF SigLIP / SigLIP2 dual tower, BAGEL's FLUX
-image VAE (ae.safetensors), and the ContextProjector of a training state.
+image VAE (ae.safetensors), the FLUX.1-Kontext editor's directory (the BFL
+transformer, the AE, HF's T5-XXL v1.1 and CLIP-L text towers), and the
+ContextProjector of a training state.
 
 Raw loading gives CPU tensors in the file's dtype (the JAX package widens
 bf16 to fp32 numpy; the values are equal). Safetensors are read here, not
@@ -621,6 +623,143 @@ def load_flux_ae_checkpoint(path: str, cfg=None, *, device="cuda"):
     vae, _ = audited(load_state_dict(path),
                      lambda sd: convert_flux_ae(sd, cfg, device=device))
     return vae, cfg
+
+
+# ---------------------------------------------------------------------------
+# FLUX.1-Kontext (the BFL transformer and the HF text towers)
+# ---------------------------------------------------------------------------
+
+
+def convert_flux_transformer(sd, cfg, dtype=torch.bfloat16, *,
+                             device="cuda"):
+    """BFL flux1-kontext-dev.safetensors (img_in / txt_in / time_in /
+    vector_in / guidance_in, double_blocks.{i}.{img,txt}_{mod,attn,mlp},
+    single_blocks.{i}.{modulation,linear1,norm,linear2}, final_layer) ->
+    models.flux.kontext.Flux, every leaf in `dtype`, linears [out, in]."""
+    from ..models.flux.kontext import Flux
+
+    e = _Entries(sd, device)
+    e.lin("img_in", "img_in", dtype)
+    e.lin("txt_in", "txt_in", dtype)
+    embedders = ("time_in", "vector_in") + (
+        ("guidance_in",) if cfg.guidance_embed else ())
+    for emb in embedders:
+        e.lin(f"{emb}.in_layer", f"{emb}.in_layer", dtype)
+        e.lin(f"{emb}.out_layer", f"{emb}.out_layer", dtype)
+    e.lin("final_layer.linear", "final_layer.linear", dtype)
+    e.lin("final_layer.adaLN", "final_layer.adaLN_modulation.1", dtype)
+    for i in range(cfg.depth_double):
+        for s in ("img", "txt"):
+            b = f"double_blocks.{i}.{s}"
+            e.lin(f"{b}.mod", f"{b}_mod.lin", dtype)
+            e.lin(f"{b}.qkv", f"{b}_attn.qkv", dtype)
+            e.put(f"{b}.norm_q", f"{b}_attn.norm.query_norm.scale", dtype)
+            e.put(f"{b}.norm_k", f"{b}_attn.norm.key_norm.scale", dtype)
+            e.lin(f"{b}.proj", f"{b}_attn.proj", dtype)
+            e.lin(f"{b}.mlp.fc0", f"{b}_mlp.0", dtype)
+            e.lin(f"{b}.mlp.fc1", f"{b}_mlp.2", dtype)
+    for i in range(cfg.depth_single):
+        b = f"single_blocks.{i}"
+        e.lin(f"{b}.mod", f"{b}.modulation.lin", dtype)
+        e.lin(f"{b}.linear1", f"{b}.linear1", dtype)
+        e.put(f"{b}.norm_q", f"{b}.norm.query_norm.scale", dtype)
+        e.put(f"{b}.norm_k", f"{b}.norm.key_norm.scale", dtype)
+        e.lin(f"{b}.linear2", f"{b}.linear2", dtype)
+    return _assemble(Flux(cfg, dtype=dtype, device="meta"), e)
+
+
+def convert_t5_hf(sd, cfg: T5Config, dtype=torch.bfloat16, *,
+                  device="cuda"):
+    """HF T5EncoderModel (google/t5-v1_1-xxl, FLUX's text_encoder_2:
+    shared.weight, encoder.block.{i}.layer.{0,1}) -> UMT5Encoder in
+    `dtype`; with cfg.shared_pos only layer 0's relative-position table is
+    read, the one every layer uses."""
+    from ..models.wan.t5 import UMT5Encoder
+
+    e = _Entries(sd, device)
+    e.put("token_embedding", "shared.weight" if "shared.weight" in sd
+          else "encoder.embed_tokens.weight", dtype)
+    e.put("norm", "encoder.final_layer_norm.weight", dtype)
+    for i in range(cfg.num_layers):
+        src, dst = f"encoder.block.{i}.layer", f"blocks.{i}"
+        e.put(f"{dst}.norm1", f"{src}.0.layer_norm.weight", dtype)
+        for k in "qkvo":
+            e.put(f"{dst}.attn.{k}.w", f"{src}.0.SelfAttention.{k}.weight",
+                  dtype)
+        if not cfg.shared_pos or i == 0:
+            e.put(f"{dst}.pos_embedding",
+                  f"{src}.0.SelfAttention.relative_attention_bias.weight",
+                  dtype)
+        e.put(f"{dst}.norm2", f"{src}.1.layer_norm.weight", dtype)
+        # HF's gated act: act(wi_0) * wi_1
+        e.put(f"{dst}.ffn.gate.w", f"{src}.1.DenseReluDense.wi_0.weight",
+              dtype)
+        e.put(f"{dst}.ffn.fc1.w", f"{src}.1.DenseReluDense.wi_1.weight",
+              dtype)
+        e.put(f"{dst}.ffn.fc2.w", f"{src}.1.DenseReluDense.wo.weight", dtype)
+    return _assemble(UMT5Encoder(cfg, dtype=dtype, device="meta"), e)
+
+
+def convert_clip_text(sd, cfg, dtype=torch.float32, *, device="cuda"):
+    """HF CLIPTextModel (openai/clip-vit-large-patch14, FLUX's
+    text_encoder) -> models.flux.clip_text.ClipText in `dtype`."""
+    from ..models.flux.clip_text import ClipText
+
+    p = "text_model"
+    e = _Entries(sd, device)
+    e.put("token_embedding", f"{p}.embeddings.token_embedding.weight", dtype)
+    e.put("position_embedding", f"{p}.embeddings.position_embedding.weight",
+          dtype)
+    e.norm("final_norm", f"{p}.final_layer_norm", dtype)
+    for i in range(cfg.num_layers):
+        src, dst = f"{p}.encoder.layers.{i}", f"blocks.{i}"
+        e.norm(f"{dst}.ln1", f"{src}.layer_norm1", dtype)
+        e.norm(f"{dst}.ln2", f"{src}.layer_norm2", dtype)
+        for k in "qkv":
+            e.lin(f"{dst}.attn.{k}", f"{src}.self_attn.{k}_proj", dtype)
+        e.lin(f"{dst}.attn.o", f"{src}.self_attn.out_proj", dtype)
+        e.lin(f"{dst}.mlp.fc0", f"{src}.mlp.fc1", dtype)
+        e.lin(f"{dst}.mlp.fc1", f"{src}.mlp.fc2", dtype)
+    return _assemble(ClipText(cfg, dtype=dtype, device="meta"), e)
+
+
+def load_kontext_checkpoint(flux_dir: str, dtype=torch.bfloat16, *,
+                            device="cuda", tiny: bool = False):
+    """The Kontext editor's directory -> (Flux, FluxConfig(), ImageVAE,
+    ImageVAEConfig(), UMT5Encoder, FLUX_T5_CONFIG, ClipText,
+    ClipTextConfig()) on `device`: flux1-kontext-dev.safetensors, ae.
+    safetensors (fp32), text_encoder_2/ (T5-XXL v1.1) and text_encoder/
+    (CLIP-L), the transformer and both towers in `dtype`. A key that no
+    converter reads raises (HF's tied encoder.embed_tokens.weight and
+    CLIP's position_ids buffer aside). tiny: a directory at the mock
+    pipeline's geometry (TINY_FLUX, TINY_FLUX_VAE, TINY_FLUX_T5,
+    TINY_CLIP_TEXT), as the tests and the card's check write one."""
+    from ..models.flux import (ClipTextConfig, FluxConfig, TINY_CLIP_TEXT,
+                               TINY_FLUX)
+    from ..pipelines.kontext import (FLUX_T5_CONFIG, TINY_FLUX_T5,
+                                     TINY_FLUX_VAE)
+    from .manifest import audited
+
+    flux_cfg, t5_cfg, clip_cfg = ((TINY_FLUX, TINY_FLUX_T5, TINY_CLIP_TEXT)
+                                  if tiny else (FluxConfig(), FLUX_T5_CONFIG,
+                                                ClipTextConfig()))
+    flux, _ = audited(
+        load_state_dict(os.path.join(flux_dir,
+                                     "flux1-kontext-dev.safetensors")),
+        lambda sd: convert_flux_transformer(sd, flux_cfg, dtype,
+                                            device=device))
+    vae, vae_cfg = load_flux_ae_checkpoint(
+        os.path.join(flux_dir, "ae.safetensors"),
+        TINY_FLUX_VAE if tiny else None, device=device)
+    t5, _ = audited(
+        load_state_dict(os.path.join(flux_dir, "text_encoder_2")),
+        lambda sd: convert_t5_hf(sd, t5_cfg, dtype, device=device),
+        ignore=("encoder.embed_tokens.weight",))
+    clip, _ = audited(
+        load_state_dict(os.path.join(flux_dir, "text_encoder")),
+        lambda sd: convert_clip_text(sd, clip_cfg, dtype, device=device),
+        ignore=("text_model.embeddings.position_ids",))
+    return flux, flux_cfg, vae, vae_cfg, t5, t5_cfg, clip, clip_cfg
 
 
 # ---------------------------------------------------------------------------

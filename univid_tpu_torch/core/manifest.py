@@ -6,15 +6,15 @@
     naming (Linear.weight [out, in], ConvNd.weight [out, in, k...]): the
     Wan DiT, the Wan video VAE, the UMT5 encoder, the Qwen2-MoT LLM with
     BAGEL's heads and NaViT tower, the SigLIP / SigLIP2 (NaFlex) dual
-    towers, and BAGEL's FLUX image VAE;
+    towers, BAGEL's FLUX image VAE, and the FLUX.1-Kontext editor's
+    transformer, T5-XXL v1.1 (HF) and CLIP-L text tower;
   * `audit_keys(sd, manifest)`: a checkpoint's keys and shapes against a
     manifest, before any conversion;
   * `RecordingDict` + `audited`: run a converter while recording which
     source keys it read, and fail on leftovers (the strict mode);
   * JSON save / load of the pinned manifests under manifests/.
 
-The SAM2, FLUX transformer, T5-HF and CLIP generators come with their
-models.
+The SAM2 generator comes with its model.
 """
 
 from __future__ import annotations
@@ -481,4 +481,95 @@ def flux_ae_manifest(cfg) -> Manifest:
                     3)
     gn("decoder.norm_out", block_in)
     _conv2d(m, "decoder.conv_out", block_in, cfg.out_ch, 3)
+    return m
+
+
+def flux_transformer_manifest(cfg) -> Manifest:
+    """The FLUX.1-Kontext transformer (BFL single-file naming:
+    flux1-kontext-dev.safetensors; what convert_flux_transformer reads)."""
+    m: Manifest = {}
+    d = cfg.hidden_size
+    dh = cfg.head_dim
+    mlp = int(d * cfg.mlp_ratio)
+
+    def mlp_embed(base: str, din: int) -> None:
+        _linear(m, f"{base}.in_layer", din, d)
+        _linear(m, f"{base}.out_layer", d, d)
+
+    _linear(m, "img_in", cfg.in_channels, d)
+    _linear(m, "txt_in", cfg.context_dim, d)
+    mlp_embed("time_in", cfg.time_freq_dim)
+    mlp_embed("vector_in", cfg.vec_dim)
+    if cfg.guidance_embed:
+        mlp_embed("guidance_in", cfg.time_freq_dim)
+    _linear(m, "final_layer.linear", d, cfg.out_channels)
+    _linear(m, "final_layer.adaLN_modulation.1", d, 2 * d)
+
+    for i in range(cfg.depth_double):
+        for s in ("img", "txt"):
+            b = f"double_blocks.{i}.{s}"
+            _linear(m, f"{b}_mod.lin", d, 6 * d)
+            _linear(m, f"{b}_attn.qkv", d, 3 * d)
+            m[f"{b}_attn.norm.query_norm.scale"] = (dh,)
+            m[f"{b}_attn.norm.key_norm.scale"] = (dh,)
+            _linear(m, f"{b}_attn.proj", d, d)
+            _linear(m, f"{b}_mlp.0", d, mlp)
+            _linear(m, f"{b}_mlp.2", mlp, d)
+    for i in range(cfg.depth_single):
+        b = f"single_blocks.{i}"
+        _linear(m, f"{b}.modulation.lin", d, 3 * d)
+        _linear(m, f"{b}.linear1", d, 3 * d + mlp)
+        m[f"{b}.norm.query_norm.scale"] = (dh,)
+        m[f"{b}.norm.key_norm.scale"] = (dh,)
+        _linear(m, f"{b}.linear2", d + mlp, d)
+    return m
+
+
+def t5_hf_manifest(cfg) -> Manifest:
+    """HF T5EncoderModel (google/t5-v1_1-xxl, FLUX's text_encoder_2):
+    bias-free, layer 0's relative-position table only when
+    cfg.shared_pos."""
+    m: Manifest = {
+        "shared.weight": (cfg.vocab_size, cfg.dim),
+        "encoder.final_layer_norm.weight": (cfg.dim,),
+    }
+    for i in range(cfg.num_layers):
+        b = f"encoder.block.{i}"
+        for proj in "qkv":
+            m[f"{b}.layer.0.SelfAttention.{proj}.weight"] = (cfg.dim_attn,
+                                                             cfg.dim)
+        m[f"{b}.layer.0.SelfAttention.o.weight"] = (cfg.dim, cfg.dim_attn)
+        if not cfg.shared_pos or i == 0:
+            m[f"{b}.layer.0.SelfAttention.relative_attention_bias"
+              ".weight"] = (cfg.num_buckets, cfg.num_heads)
+        m[f"{b}.layer.0.layer_norm.weight"] = (cfg.dim,)
+        m[f"{b}.layer.1.DenseReluDense.wi_0.weight"] = (cfg.dim_ffn,
+                                                        cfg.dim)
+        m[f"{b}.layer.1.DenseReluDense.wi_1.weight"] = (cfg.dim_ffn,
+                                                        cfg.dim)
+        m[f"{b}.layer.1.DenseReluDense.wo.weight"] = (cfg.dim,
+                                                      cfg.dim_ffn)
+        m[f"{b}.layer.1.layer_norm.weight"] = (cfg.dim,)
+    return m
+
+
+def clip_text_manifest(cfg) -> Manifest:
+    """HF CLIPTextModel (openai/clip-vit-large-patch14, FLUX's
+    text_encoder)."""
+    d = cfg.hidden_size
+    m: Manifest = {
+        "text_model.embeddings.token_embedding.weight": (cfg.vocab_size, d),
+        "text_model.embeddings.position_embedding.weight": (cfg.max_len, d),
+        "text_model.final_layer_norm.weight": (d,),
+        "text_model.final_layer_norm.bias": (d,),
+    }
+    for i in range(cfg.num_layers):
+        b = f"text_model.encoder.layers.{i}"
+        for ln in ("layer_norm1", "layer_norm2"):
+            m[f"{b}.{ln}.weight"] = (d,)
+            m[f"{b}.{ln}.bias"] = (d,)
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(m, f"{b}.self_attn.{proj}", d, d)
+        _linear(m, f"{b}.mlp.fc1", d, cfg.intermediate_size)
+        _linear(m, f"{b}.mlp.fc2", cfg.intermediate_size, d)
     return m

@@ -141,11 +141,21 @@ def quantize_tree(model: nn.Module, *, skip: Iterable[str] = ("embed_tokens",),
                   min_size: int = 1 << 16) -> nn.Module:
     """Weight-only int8 on every Linear of `model` whose weight has at least
     `min_size` elements and whose path contains none of `skip`, in place.
-    Returns `model`."""
+    A Linear inside a ModuleList member counts its elements times the
+    list's length: the JAX tree stacks those layers into one [depth, in,
+    out] leaf, whose size JAX's min_size reads, so both packages pick the
+    same layers (UMT5, whose JAX blocks are not stacked, is quantized by no
+    caller). Returns `model`."""
     skip = tuple(skip)
+    lists = {path: len(mod) for path, mod in model.named_modules()
+             if isinstance(mod, nn.ModuleList)}
     for path, mod in list(model.named_modules()):
-        if (isinstance(mod, Linear) and mod.w.numel() >= min_size
-                and not any(s in path for s in skip)):
+        if not isinstance(mod, Linear) or any(s in path for s in skip):
+            continue
+        owner = max((p for p in lists if path.startswith(p + ".")),
+                    key=len, default=None)
+        depth = lists[owner] if owner is not None else 1
+        if mod.w.numel() * depth >= min_size:
             _replace(model, path, quantize_linear(mod))
     return model
 

@@ -93,10 +93,11 @@ def bagel_llm_param_sharding_rules() -> Rules:
 
 
 def flux_param_sharding_rules() -> Rules:
-    """Rules for the FLUX.1-Kontext transformer, by the names its JAX tree
-    takes in the port's layout (double and single blocks one module each).
-    No port of the model reads them yet (ROADMAP.md queue 1: FLUX.1
-    Kontext)."""
+    """Rules for the FLUX.1-Kontext transformer (models/flux/kontext.py
+    names: double and single blocks one module each). Their tp axis splits
+    the fused qkv, linear1 and modulation rows into contiguous shards that
+    hold no whole heads: `flux_forward` gathers those outputs over tp and
+    takes each rank's heads from the whole."""
     return [
         (r"double_blocks\.\d+\.(img|txt)\.(qkv|mod)\.w$", (T, F)),
         (r"double_blocks\.\d+\.(img|txt)\.(qkv|mod)\.b$", (T,)),

@@ -13,7 +13,11 @@ attention and ffn / tp of each hidden layer:
                    and bias, its input through `copy_to_tp`;
   row-parallel     o, fc1 (fc2, down): the rank's columns, the partial
                    products summed by `reduce_from_tp`, then the bias
-                   (whole on every rank) added once (`row_parallel_linear`).
+                   (whole on every rank) added once (`row_parallel_linear`);
+  gathered         FLUX's fused qkv, linear1 and modulations: the rank's
+                   rows of the weight, the outputs all-gathered over tp
+                   (`gather_from_tp`), since a row shard of a fused
+                   projection holds no whole heads.
 
 Each collective is an autograd Function with Megatron-LM's pairing:
 `copy_to_tp` is the identity forward and an all-reduce backward (the
@@ -119,6 +123,21 @@ def reduce_from_tp(x: torch.Tensor, tp: Optional[TensorParallel]):
 def sum_over_tp(x: torch.Tensor, tp: Optional[TensorParallel]):
     """A partial sum completed over the tp group, forward and backward."""
     return x if tp is None else _SumOverTP.apply(x, tp.group)
+
+
+@torch.no_grad()
+def gather_from_tp(x: torch.Tensor, tp: Optional[TensorParallel]):
+    """The tp group's shards of x concatenated along its last dimension, in
+    rank order (one all_gather_into_tensor): the whole output of a
+    projection whose row shards hold no whole heads (FLUX's fused qkv,
+    linear1 and modulations). No backward: the FLUX forward that calls it
+    refuses grad. x itself under tp None."""
+    if tp is None:
+        return x
+    t = x.movedim(-1, 0).contiguous()
+    out = t.new_empty((tp.size * t.shape[0],) + tuple(t.shape[1:]))
+    dist.all_gather_into_tensor(out, t, group=tp.group)
+    return out.movedim(0, -1)
 
 
 def row_parallel_linear(p, x: torch.Tensor, tp: Optional[TensorParallel],
