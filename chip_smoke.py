@@ -97,7 +97,8 @@ Phases:
      832x480x81, full depth and width, random weights from a seed, a few
      steps; check the kernels' launch counts and the mp4; then the same
      path from a checkpoint: write a Wan2.1-layout t2v-1.3B dir at full
-     width and depth from the pinned manifests (the DiT as two fp32
+     width from the pinned manifests, cut to 10 of the DiT's 30 blocks and
+     6 of UMT5's 24 (CKPT_LAYERS; the DiT as two fp32
      safetensors shards with their index, by write_safetensors;
      Wan2.1_VAE.pth fp32; the UMT5 .pth bf16), audit each file against
      its manifest, load them onto the card (load_wan_checkpoint,
@@ -144,9 +145,9 @@ Phases:
      bare call at the published 1280x720x81 (75,600 tokens padded to
      75,776): seconds, peak memory, launches;
   8. drive the video-QA path: one full-width BAGEL-7B-MoT reflexion
-     request (14 of its 28 layers, BAGEL_QA_LAYERS; 16 seed captions,
+     request (7 of its 28 layers, BAGEL_QA_LAYERS; 16 seed captions,
      K = 4, 8, 16, 512-token greedy decodes)
-     with the launches of each phase checked (the 42 causal question
+     with the launches of each phase checked (the 21 causal question
      prefills on the causal sm90 kernel, each QA call's text_prefill_s
      logged); time the question's prefill over the 16-frame context with
      the causal kernel and the mma.sync kernel in turns; profile 16 decode
@@ -255,6 +256,25 @@ and guidance 2.5 (a u8 image, a finite latent, 1,596 sm90 launches and
 no reference-route call at d=128; s/edit, s/step, peak memory, one
 profiled transformer pass), then the transformer quantized weight-only
 in place and a KONTEXT_INT8_STEPS edit (`kontext_main_path`).
+WanAnimate: in phase 3 the animate DiT's attention at its 832x480x77
+shapes (`check_animate_kernels`: self-attention [1, 32768, 40, 128] over
+32,760 keys, running max; the one-shot cross kernel over the 512 text keys
+and over the 257 CLIP-image keys padded to 320; the fp32 face call, q [21,
+1600, 40, 128] over 5 motion tokens padded to 64, a kv_len = 0 row exactly
+0), each against its plain version beside SDPA and its bound; in phase 4 a
+small d=128 animate pipeline (hidden 256, 10 layers: two face adapters;
+the tiny VAE, CLIP and UMT5) card against CPU, 2 steps at guidance 1.5,
+two clips, then replace mode, then a relighting LoRA merged (latent and
+video rel. L2 < 3e-2; `small_animate_parity`); after the Kontext edit,
+animate-14B (17.3 B parameters) through the CLI on a src_root_path written
+on the card (77 frames of 832x480, 512x512 faces), one clip, 2 steps at
+guidance 5.0: a 77-frame mp4, a finite video, 160 self-attention, 320
+cross (160 text, 160 image), 32 fp32 face and 61 d=384 VAE launches, none
+on the mma.sync kernel or at d=128 on the reference route; s/forward, the
+motion encoder's seconds, peak memory by phase, the last forward profiled
+(`animate_main_path`); then one bare 1280x720x77 forward on the same DiT
+and its self-attention and face call alone at that shape
+(`animate_dit_720p`).
 Each path starts with every launch count at 0; the paths of phases 5-9
 and 12 also check their bf16 forward launches by kernel (every unmasked,
 segment and packed forward on the sm90 kernel, every causal one on the
@@ -3161,10 +3181,10 @@ def _qa_video(path, n_frames=64):
     return save_video(frames, path, fps=8)
 
 
-# depth cut for chip_smoke.py's time limit: 14 of BAGEL-7B-MoT's 28 LLM
+# depth cut for chip_smoke.py's time limit: 7 of BAGEL-7B-MoT's 28 LLM
 # layers at full width in the QA request (its decode is host-bound, ~2,300
-# eager kernels a token at 28; since the checkpoint phases joined the run)
-BAGEL_QA_LAYERS = 14
+# eager kernels a token at 28; at 14 the request took 87.5-118.5 s)
+BAGEL_QA_LAYERS = 7
 
 
 def bagel_main_path(output_dir):
@@ -4448,6 +4468,634 @@ def kontext_main_path():
     gc.collect()
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# WanAnimate character animation
+# ---------------------------------------------------------------------------
+
+ANIMATE_STEPS = 2        # solver steps of the CLI run: cut from 50
+ANIMATE_FRAMES = 77      # one clip of clip_len 77
+ANIMATE_W, ANIMATE_H = 832, 480
+ANIMATE_GRID = (21, 30, 52)        # 20 latent frames + the reference slot
+ANIMATE_GRID_720P = (21, 45, 80)   # the preprocess's default 1280x720 area
+ANIMATE_PROMPT = ("A dancer in a red jacket performs the moves of the pose "
+                  "video in a sunlit studio.")
+ONE_SHOT_WHY = ("one bf16 ulp of the output plus one p in [0.5, 1] rounded "
+                "to the other bf16 neighbour (2^-8 max|v|, l >= 1; the "
+                "one-shot max is the row's own); a leaked masked key (v = "
+                "50) is far outside")
+F32_D128_WHY = ("fp32 accuracy on both sides: three bf16 parts a side "
+                "(~2^-24 a product), summation order and the approximate "
+                "exp2 (2^-22 relative)")
+
+
+def check_animate_kernels():
+    """The animate DiT's attention kernels at its 832x480x77 shapes (21 x
+    30 x 52 = 32,760 tokens, 40 heads of d=128, batch 1), each against its
+    plain version within PERF.md s2's bound (keys past kv_len hold 50.0),
+    timed with CUDA events beside SDPA on the live keys and the bound of
+    the work: flash_attention_bf16, running max (the animate CLI's policy
+    has no bound), [1, 32768, 40, 128] over 32,760 keys; the one-shot cross
+    kernel over the 512 text keys and over the 257 CLIP-image keys padded
+    to 320 (kv_len 257); the fp32 d=128 face-adapter call, q [21, 1600, 40,
+    128] (1,560 tokens a latent frame, 21 frames) over 5 motion tokens
+    padded to 64 (kv_len 5), its three split pre-passes included, with a
+    kv_len = 0 row exactly 0. Returns the kernels-line records, counted by
+    each kernel's own counter in the animate main path."""
+    import torch
+    import torch.nn.functional as F
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    n, d = 40, 128
+    kv_real = ANIMATE_GRID[0] * ANIMATE_GRID[1] * ANIMATE_GRID[2]
+    l = -(-kv_real // fa.TILE) * fa.TILE
+    bf = torch.bfloat16
+    src = "univid_tpu_torch/kernels/csrc/flash_attention_sm90.cu"
+    records = {}
+
+    def record(name, counter, source, replaces, err, ms, plain_ms, flops,
+               nb, lib_ms, peak, shape):
+        bms, by = bound_ms(flops, nb, peak)
+        rec = dict(name=name, counter=counter, route="cuda", source=source,
+                   replaces=replaces, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   library_ms=lib_ms, shape=shape)
+        log(json.dumps({"kernel": rec}))
+        records[name] = rec
+
+    with torch.no_grad():
+        # ---- self-attention, running max, kv_len ---------------------------
+        q = fa._fold(qk_normed((1, l, n, d), gen, bf), d ** -0.5)
+        k = qk_normed((1, l, n, d), gen, bf)
+        v = torch.randn((1, l, n, d), generator=gen, device="cuda").to(bf)
+        k[:, kv_real:], v[:, kv_real:] = 50.0, 50.0
+        kv = torch.full((1,), kv_real, dtype=torch.int32, device="cuda")
+        got = fa._flash_cuda(q, k, v, kv, None, None)
+        want = fa.attention_plain(q, k, v, kv_len=kv)
+        err = compare("flash_attention_bf16 animate self-attention, running "
+                      "max, kv_len", got, want, atol=1e-3, rtol=2.0 ** -7,
+                      why=KONTEXT_WHY)
+        del want
+        ms = cuda_time(lambda: fa._flash_cuda(q, k, v, kv, None, None), 5)
+        plain_ms = cuda_time(lambda: fa.attention_plain(q, k, v, kv_len=kv),
+                             1)
+        qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+            qs, ks[:, :, :kv_real], vs[:, :, :kv_real],
+            scale=1.0 / fa.LOG2E), 5)
+        record("flash_attention_bf16_animate", "flash_attention_bf16", src,
+               "univid_tpu/kernels/flash_attention.py:44", err, ms,
+               plain_ms, 4 * n * l * kv_real * d, nbytes(q, k, v, got),
+               lib_ms, H100_BF16_FLOPS,
+               {"q": [1, l, n, d], "kv_len": kv_real})
+        del k, v, got, qs, ks, vs
+
+        # ---- cross-attention, one-shot max: text and CLIP-image keys -------
+        for tag, lk, live in (("", 512, 512), ("_image", 320, 257)):
+            k = qk_normed((1, lk, n, d), gen, bf)
+            v = torch.randn((1, lk, n, d), generator=gen, device="cuda").to(
+                bf)
+            k[:, live:], v[:, live:] = 50.0, 50.0
+            kvl = (torch.full((1,), live, dtype=torch.int32, device="cuda")
+                   if live < lk else None)
+            got = fa.cross_attention_padded(q, k, v, kv_len=kvl)
+            want = fa.attention_plain(q, k, v, kv_len=kvl)
+            err = compare(f"cross_attention_bf16 animate{tag} one-shot "
+                          f"max over {live} keys", got, want,
+                          atol=2.0 ** -8 * float(v[:, :live].float().abs()
+                                                 .max()),
+                          rtol=2.0 ** -7, why=ONE_SHOT_WHY)
+            del want
+            ms = cuda_time(lambda: fa.cross_attention_padded(
+                q, k, v, kv_len=kvl), 10)
+            plain_ms = cuda_time(lambda: fa.attention_plain(
+                q, k, v, kv_len=kvl), 1)
+            qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+            lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+                qs, ks[:, :, :live], vs[:, :, :live],
+                scale=1.0 / fa.LOG2E), 10)
+            record(f"cross_attention_bf16_animate{tag}",
+                   "cross_attention_bf16", src,
+                   "univid_tpu/kernels/flash_attention.py:355", err, ms,
+                   plain_ms, 4 * n * l * live * d,
+                   nbytes(q, got, k[:, :live], v[:, :live]), lib_ms,
+                   H100_BF16_FLOPS,
+                   {"q": [1, l, n, d], "kv": [1, lk, n, d], "kv_len": live})
+            del k, v, got, qs, ks, vs
+        del q
+        torch.cuda.empty_cache()
+
+        # ---- the face adapter's fp32 call over 5 motion tokens -------------
+        frames, s = ANIMATE_GRID[0], ANIMATE_GRID[1] * ANIMATE_GRID[2]
+        lq, lk, live = -(-s // fa.TILE) * fa.TILE, fa.TILE, 5
+        q = fa._fold(qk_normed((frames, lq, n, d), gen, torch.float32),
+                     d ** -0.5)
+        k = qk_normed((frames, lk, n, d), gen, torch.float32)
+        v = torch.randn((frames, lk, n, d), generator=gen, device="cuda")
+        k[:, live:], v[:, live:] = 50.0, 50.0
+        kv = torch.full((frames,), live, dtype=torch.int32, device="cuda")
+        got = fa._flash_cuda(q, k, v, kv, None, None)
+        want = fa.attention_plain(q, k, v, kv_len=kv)
+        err = compare("flash_attention_f32_sm90 animate face adapter, 5 "
+                      "keys, kv_len", got, want, atol=1e-5, rtol=1e-4,
+                      why=F32_D128_WHY)
+        del want
+        kv0 = kv.clone()
+        kv0[3] = 0
+        got0 = fa._flash_cuda(q, k, v, kv0, None, None)
+        zero_ok = (float(got0[3].abs().max()) == 0.0
+                   and bool(torch.equal(got0[:3], got[:3])))
+        log(json.dumps({"check": "flash_attention_f32_sm90 animate face: "
+                        "a kv_len = 0 row exactly 0, the others unchanged",
+                        "ok": zero_ok}))
+        if not zero_ok:
+            fail("flash_attention_f32_sm90: the animate face call's kv_len "
+                 "= 0 row is not exactly 0")
+        del got0
+        ms = cuda_time(lambda: fa._flash_cuda(q, k, v, kv, None, None), 5)
+        plain_ms = cuda_time(lambda: fa.attention_plain(q, k, v, kv_len=kv),
+                             1)
+        qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+            qs, ks[:, :, :live], vs[:, :, :live], scale=1.0 / fa.LOG2E), 5)
+        # the work: 1,560 live rows a frame over 5 keys (the 6x form of the
+        # fp32 products at the bf16 rate), q read and o written in fp32
+        record("flash_attention_f32_sm90_animate_face",
+               "flash_attention_f32_sm90",
+               "univid_tpu_torch/kernels/csrc/flash_attention_f32_sm90.cu",
+               "univid_tpu/kernels/flash_attention.py:44", err, ms, plain_ms,
+               6 * 4 * frames * n * s * live * d,
+               2 * frames * s * n * d * 4 + 2 * frames * live * n * d * 4,
+               lib_ms, H100_BF16_FLOPS,
+               {"q": [frames, lq, n, d], "kv": [frames, lk, n, d],
+                "kv_len": live, "live_rows": s})
+        del q, k, v, got, qs, ks, vs
+    torch.cuda.empty_cache()
+    return records
+
+
+def _small_animate():
+    """A small d=128 animate model on the CPU from seeds: hidden 256, 2
+    heads, 10 layers (face adapters after blocks 0 and 5), bf16 with its
+    fp32 islands, its zero head redrawn and its qk gains in [0.5, 1.5]; the
+    tiny-animate VAE (fp32), CLIP tower (d=8, bf16) and a tiny UMT5 (dim
+    64, fp32): (cfg, model, vae_cfg, vae, clip_cfg, clip, text encoder)."""
+    import dataclasses
+    import types
+
+    import torch
+
+    from univid_tpu_torch.core.config import ANIMATE_CONFIGS, T5Config
+    from univid_tpu_torch.models.wan.animate import ClipVision, WanAnimate
+    from univid_tpu_torch.models.wan.vae_api import WanVAE
+    from univid_tpu_torch.pipelines.encoders import WanTextEncoder
+
+    tiny, vae_cfg, clip_cfg = ANIMATE_CONFIGS["tiny-animate"]()
+    cfg = dataclasses.replace(tiny, dim=256, ffn_dim=512, num_heads=2,
+                              num_layers=10, text_dim=64, text_len=32,
+                              freq_dim=32)
+
+    def gen(i):
+        return torch.Generator().manual_seed(2400 + i)
+
+    g = gen(0)
+    model = WanAnimate(cfg, dtype=torch.bfloat16, device="cpu", gen=g)
+    with torch.no_grad():
+        model.head.head.w.normal_(0.0, 0.05, generator=g)
+        for blk in model.blocks:
+            for p in (blk.self_attn.norm_q, blk.self_attn.norm_k,
+                      blk.cross_attn.norm_q, blk.cross_attn.norm_k,
+                      blk.cross_attn.norm_k_img):
+                p.uniform_(0.5, 1.5, generator=g)
+    t5 = types.SimpleNamespace(t5=T5Config(
+        vocab_size=512, dim=64, dim_attn=64, dim_ffn=128, num_heads=4,
+        num_layers=2, text_len=32))
+    return (cfg, model, vae_cfg,
+            WanVAE(vae_cfg, dtype=torch.float32, device="cpu", gen=gen(1)),
+            clip_cfg, ClipVision(clip_cfg, dtype=torch.bfloat16,
+                                 device="cpu", gen=gen(2)),
+            WanTextEncoder.random_init(t5, device="cpu", gen=gen(3)))
+
+
+class _LatentRecorder:
+    """The final latent of each clip (what pipelines.animate hands to
+    vae_decode), while the block runs."""
+
+    def __enter__(self):
+        from univid_tpu_torch.pipelines import animate as tpa
+
+        self.latents, self._tpa, self._fn = [], tpa, tpa.vae_decode
+
+        def decode(vae, z, *a, **kw):
+            self.latents.append(z.float().cpu())
+            return self._fn(vae, z, *a, **kw)
+
+        tpa.vae_decode = decode
+        return self
+
+    def __exit__(self, *exc):
+        self._tpa.vae_decode = self._fn
+
+
+def small_animate_parity():
+    """The small d=128 animate pipeline (`_small_animate`) on the card
+    against the same on the CPU, bf16 policy, 128x128 frames (8 x 8
+    latents, 48 tokens a clip), 9 frames in clips of 5 (two clips with
+    refert_num 1), 2 UniPC steps at guidance 1.5 (two forwards a step, the
+    second with the face blanked), the same noise: plain animation, replace
+    mode, then replace mode with a relighting LoRA merged (rank 4 over two
+    sites). Each: every clip's latent and the video within 3e-2 rel. L2,
+    the card's launches (per forward 10 self-attention, 20 cross-attention,
+    2 fp32 face calls with their 3 split pre-passes each, kernel A's two
+    modes 10 each; the d=16 VAE and d=8 CLIP on the reference route),
+    none at d=128 on the reference route."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from univid_tpu_torch.core.config import DEFAULT_NEG_PROMPT
+    from univid_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from univid_tpu_torch.pipelines.animate import WanAnimatePipeline
+
+    cfg, model, vae_cfg, vae, clip_cfg, clip, text_enc = _small_animate()
+    rng = np.random.default_rng(2410)
+    t_real, hw, steps = 9, 128, 2
+    cond = rng.uniform(-1, 1, (t_real, hw, hw, 3)).astype(np.float32)
+    face = rng.uniform(-1, 1, (t_real, 16, 16, 3)).astype(np.float32)
+    ref = rng.uniform(-1, 1, (hw, hw, 3)).astype(np.float32)
+    bg = rng.uniform(-1, 1, (t_real, hw, hw, 3)).astype(np.float32)
+    mask = (rng.random((t_real, hw, hw)) > 0.5).astype(np.float32)
+    ctx, nctx = text_enc([ANIMATE_PROMPT, DEFAULT_NEG_PROMPT])
+    noise = [torch.randn((1, 3, 8, 8, vae_cfg.z_dim),
+                         generator=torch.Generator().manual_seed(2411 + i))
+             for i in range(2)]
+    lora = {"sites": {site: {
+        "a": torch.randn((cfg.num_layers, cfg.dim, 4),
+                         generator=torch.Generator().manual_seed(2413))
+        / cfg.dim ** 0.5,
+        "b": torch.randn((cfg.num_layers, 4, cfg.dim),
+                         generator=torch.Generator().manual_seed(2414)) * 0.1,
+        "mask": (torch.arange(cfg.num_layers) % 2 == 0).float()}
+        for site in ("self_attn/q", "cross_attn/v")}, "rank": 4,
+        "alpha": 8.0}
+    per_fwd = {"flash_attention_bf16": 10, "cross_attention_bf16": 20,
+               "flash_attention_f32_sm90": 2, "split_bf16x3": 6,
+               "qk_norm_rope_bf16": 10, "qk_norm_bf16": 10}
+    n_fwd = 2 * steps * 2   # CFG x steps x clips
+    for case, replace, relight in (("animate", False, False),
+                                   ("replace", True, False),
+                                   ("relight", True, True)):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            lo = None
+            if relight:
+                lo = {"sites": {s: {k: t.to(dev) for k, t in p.items()}
+                                for s, p in lora["sites"].items()},
+                      "rank": 4, "alpha": 8.0}
+            pipe = WanAnimatePipeline(
+                cfg, copy.deepcopy(model).to(dev), vae_cfg,
+                copy.deepcopy(vae).to(dev), clip_cfg=clip_cfg,
+                clip=copy.deepcopy(clip).to(dev), policy=DEFAULT_POLICY,
+                relight_lora=lo)
+            _reset_counts()
+            with _RefRouteCount() as refc, _LatentRecorder() as rec:
+                video = pipe.generate(
+                    ctx.to(dev), nctx.to(dev), cond_video=cond,
+                    face_video=face, ref_image=ref,
+                    bg_video=bg if replace else None,
+                    mask_video=mask if replace else None, clip_len=5,
+                    refert_num=1, sampling_steps=steps, guide_scale=1.5,
+                    sample_solver="unipc", seed=0, noise=noise)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = {k: v for k, v in _all_counts().items() if v}
+                ref_by_d = dict(refc.by_d)
+                check_impl(f"small animate {case}", 30 * n_fwd)
+            outs[dev] = (torch.cat(rec.latents), video.float().cpu())
+            del pipe
+        want = {k: v * n_fwd for k, v in per_fwd.items()}
+        r = {"check": f"small animate pipeline card vs CPU, {case}",
+             "latent_rel_l2": rel_l2(outs["cuda"][0], outs["cpu"][0]),
+             "video_rel_l2": rel_l2(outs["cuda"][1], outs["cpu"][1]),
+             "limit": 3e-2, "launches": launches, "expected": want,
+             "reference_route_calls_by_head_dim": ref_by_d,
+             "why": "the bf16 policy's bound: cuBLAS and the CPU round each "
+                    "GEMM at other points, over 10 blocks x 2 steps x 2 "
+                    "forwards x 2 clips"}
+        r["ok"] = (r["latent_rel_l2"] < 3e-2 and r["video_rel_l2"] < 3e-2
+                   and launches == want and 128 not in ref_by_d
+                   and tuple(outs["cuda"][1].shape) == (t_real, hw, hw, 3)
+                   and bool(torch.isfinite(outs["cuda"][1]).all()))
+        log(json.dumps(r))
+        if not r["ok"]:
+            fail(f"the small animate pipeline ({case}) on the card disagrees "
+                 "with the CPU or missed a kernel")
+
+
+def write_animate_src(root):
+    """The preprocess output dir of the CLI run: src_pose.mp4 (77 frames of
+    832x480), src_face.mp4 (77 face crops of 512x512), src_ref.png
+    (832x480), smooth seeded blocks; seconds to write."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from univid_tpu_torch.data.video_io import save_video
+
+    t0 = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(2420)
+
+    def blocks(t, h, w, side=32):
+        base = rng.integers(0, 256, (t, -(-h // side), -(-w // side), 3),
+                            dtype=np.uint8)
+        return np.kron(base, np.ones((1, side, side, 1), np.uint8)
+                       )[:, :h, :w]
+
+    save_video(blocks(ANIMATE_FRAMES, ANIMATE_H, ANIMATE_W),
+               os.path.join(root, "src_pose.mp4"), fps=30)
+    save_video(blocks(ANIMATE_FRAMES, 512, 512),
+               os.path.join(root, "src_face.mp4"), fps=30)
+    Image.fromarray(blocks(1, ANIMATE_H, ANIMATE_W)[0]).save(
+        os.path.join(root, "src_ref.png"))
+    return time.perf_counter() - t0
+
+
+class _AnimateRecorder:
+    """Instrumentation of the animate CLI run: the pipeline it builds (kept
+    for the 720p call) and the video generate returns; a CUDA event pair
+    around each DiT forward and each motion-encoder call; the last forward
+    run under torch.profiler (`profile_call`); the cross kernel's calls by
+    kv length (text 512, image 320)."""
+
+    def __init__(self, profile_at):
+        self.profile_at, self.pipe, self.video = profile_at, None, None
+        self.fwd, self.motion, self.cross_by_lk, self.profile = \
+            [], [], {}, None
+
+    def __enter__(self):
+        import torch
+
+        from univid_tpu_torch.kernels import flash_attention as fa
+        from univid_tpu_torch.models.wan.animate import model as am
+        from univid_tpu_torch.pipelines import animate as tpa
+
+        self._saved = [(tpa, "wan_animate_forward"), (am, "get_motion"),
+                       (fa, "cross_attention_padded"),
+                       (tpa.WanAnimatePipeline, "__init__"),
+                       (tpa.WanAnimatePipeline, "generate")]
+        self._orig = [getattr(o, n) for o, n in self._saved]
+        fwd, motion, cross, init, gen = self._orig
+
+        def timed(events, fn):
+            def run(*a, **kw):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = fn(*a, **kw)
+                ev[1].record()
+                events.append(ev)
+                return out
+            return run
+
+        timed_fwd = timed(self.fwd, fwd)
+
+        def forward(*a, **kw):
+            if len(self.fwd) + 1 == self.profile_at:
+                out, self.profile = profile_call(
+                    lambda: fwd(*a, **kw), families={
+                        "qk_prepass_ms": ("qk_norm_rope",),
+                        "convolutions_ms": ("conv", "fprop", "winograd",
+                                            "cudnn")})
+                self.fwd.append(None)
+                return out
+            return timed_fwd(*a, **kw)
+
+        def cross_count(q, k, *a, **kw):
+            lk = int(k.shape[1])
+            self.cross_by_lk[lk] = self.cross_by_lk.get(lk, 0) + 1
+            return cross(q, k, *a, **kw)
+
+        def keep(pipe, *a, **kw):
+            init(pipe, *a, **kw)
+            self.pipe = pipe
+
+        def generate(pipe, *a, **kw):
+            self.video = gen(pipe, *a, **kw)
+            return self.video
+
+        tpa.wan_animate_forward = forward
+        am.get_motion = timed(self.motion, motion)
+        fa.cross_attention_padded = cross_count
+        tpa.WanAnimatePipeline.__init__ = keep
+        tpa.WanAnimatePipeline.generate = generate
+        return self
+
+    def __exit__(self, *exc):
+        for (o, n), f in zip(self._saved, self._orig):
+            setattr(o, n, f)
+
+    def seconds(self, events):
+        import torch
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) / 1e3 for a, b in
+                (e for e in events if e is not None)]
+
+
+def animate_main_path(output_dir):
+    """WanAnimate through the port's CLI at full width and depth on random
+    weights from seeds: `--mode animate --model animate-14B --mock_weights`
+    (the 40-block dim-5120 DiT with 8 face adapters and the LIA motion
+    encoder, bf16 with fp32 islands; the Wan2.1 VAE in fp32; CLIP ViT-H in
+    bf16; the JAX CLI's mock UMT5, encoded and freed first) over a
+    src_root_path written here (77 frames of 832x480, 512x512 faces): one
+    clip, ANIMATE_STEPS steps at the default guidance 5.0 (two forwards a
+    step), from zero counts. Checks a 77-frame 480x832 mp4, a finite video,
+    the launches (40 a forward of self-attention and of kernel A's two
+    modes, 80 cross-attention calls, 160 over the 512 text keys and 160
+    over the 320 padded image keys in the run, 8 fp32 face calls with 24
+    split pre-passes, 61 d=384 VAE calls: 20 + 20 encoded chunks of the
+    pose and overlap videos, the reference frame, 20 decoded latent
+    frames), all bf16 forwards on the sm90 kernel and none at d=128 on the
+    reference route; logs the phase seconds and peaks, s/forward, the
+    motion encoder's seconds, and the last forward profiled (attention /
+    GEMM / convolutions / other, idle share). Returns (launch counts, the
+    pipeline, kept for `animate_dit_720p`)."""
+    import gc
+    import os
+
+    import torch
+
+    from univid_tpu_torch.cli import inference
+    from univid_tpu_torch.data.video_io import read_video_frames
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.join(output_dir, "animate_src")
+    write_s = write_animate_src(root)
+    n_fwd = 2 * ANIMATE_STEPS
+    _reset_counts()
+    peaks = _PhasePeaks()
+    t0 = time.perf_counter()
+    try:
+        with _RefRouteCount() as refc, _AnimateRecorder(n_fwd) as rec:
+            meta = inference.main([
+                "--mode", "animate", "--model", "animate-14B",
+                "--mock_weights", "--src_root_path", root, "--steps",
+                str(ANIMATE_STEPS), "--prompt", ANIMATE_PROMPT, "--seed",
+                "0", "--output_dir", output_dir])[0]
+    finally:
+        peaks.close()
+    wall = time.perf_counter() - t0
+    launches = _all_counts()
+    f32_by_d = dict(fa.F32_LAUNCHES_BY_D)
+    fwd_s, motion_s = rec.seconds(rec.fwd), rec.seconds(rec.motion)
+    n_vae = 20 + 1 + 20 + 20
+    want = dict(dict.fromkeys(launches, 0), **{
+        "flash_attention_bf16": 40 * n_fwd, "qk_norm_rope_bf16": 40 * n_fwd,
+        "qk_norm_bf16": 40 * n_fwd, "cross_attention_bf16": 80 * n_fwd,
+        "flash_attention_f32_sm90": 8 * n_fwd,
+        "split_bf16x3": 24 * n_fwd, "flash_attention_f32": n_vae})
+    video = rec.video
+    fr = read_video_frames(meta["video_path"])
+    r = {"phase": "animate_main_path", "model": "animate-14B (random "
+         "weights)", "parameters": sum(p.numel() for p in
+                                      rec.pipe.model.parameters()),
+         "resolution": f"{ANIMATE_W}x{ANIMATE_H}x{ANIMATE_FRAMES}",
+         "steps": ANIMATE_STEPS, "guidance": meta["guidance"],
+         "seconds": wall, "src_write_s": write_s,
+         "generation_time_s": meta["generation_time_s"],
+         "phase_times_s": meta["phase_times_s"],
+         "s_per_forward": fwd_s,
+         "s_per_step": [a + b for a, b in zip(fwd_s[0::2], fwd_s[1::2])],
+         "motion_encoder_s": motion_s,
+         "peak_memory_gb_by_phase": peaks.peaks,
+         "allocated_gb_at_phase_start": peaks.at_start,
+         "launches": {k: v for k, v in launches.items() if v},
+         "cross_calls_by_kv_length": rec.cross_by_lk,
+         "f32_launches_by_d": f32_by_d,
+         "reference_route_calls_by_head_dim": refc.by_d,
+         "frames": len(fr), "frame_shape": list(fr[0].shape) if fr else None,
+         "video_finite": bool(torch.isfinite(video).all())}
+    log(json.dumps(r))
+    log(json.dumps({"profile": "animate-14B DiT forward, 832x480x77 (32,760 "
+                    "tokens), the last of the CLI run", **rec.profile}))
+    if launches != want or f32_by_d != {384: n_vae, 640: 0, 1024: 0} \
+            or rec.cross_by_lk != {512: 40 * n_fwd, 320: 40 * n_fwd} \
+            or 128 in refc.by_d:
+        fail(f"animate main path: launches {r['launches']} {f32_by_d} "
+             f"{rec.cross_by_lk} (reference route {refc.by_d}) != "
+             f"{ {k: v for k, v in want.items() if v} }")
+    check_impl("animate main path", 120 * n_fwd)
+    if len(fr) != ANIMATE_FRAMES or tuple(fr[0].shape) != (
+            ANIMATE_H, ANIMATE_W, 3) or not r["video_finite"] \
+            or tuple(video.shape) != (ANIMATE_FRAMES, ANIMATE_H, ANIMATE_W,
+                                      3):
+        fail(f"animate main path: {len(fr)} frames of "
+             f"{fr[0].shape if fr else None}, finite {r['video_finite']}")
+    if max(peaks.peaks.values()) >= 80.0:
+        fail(f"animate main path: peak memory {peaks.peaks} GB")
+    pipe = rec.pipe
+    del rec, video
+    return launches, pipe
+
+
+def animate_dit_720p(pipe):
+    """One bare forward of the CLI run's animate-14B DiT at 1280x720x77 (21
+    x 45 x 80 = 75,600 tokens; 77 faces of 512x512), timed to a
+    synchronised end with its peak memory and launches (40 self-attention,
+    80 cross, 8 fp32 face calls), finite and of the latent's shape; then
+    the self-attention and the face call alone at this shape ([1, 75648,
+    40, 128] over 75,600 keys, running max; q [21, 3648, 40, 128] fp32
+    over 5 keys padded to 64), CUDA events, beside their bounds."""
+    import gc
+
+    import torch
+
+    from univid_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.wan.animate import wan_animate_forward
+
+    model, cfg = pipe.model, pipe.cfg
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2430)
+    f, h, w = ANIMATE_GRID_720P
+    lat = (f, h * 2, w * 2)
+    x = torch.randn((1,) + lat + (cfg.in_dim,), generator=gen, device=dev)
+    pose = torch.randn((1, f - 1) + lat[1:] + (cfg.vae_z_dim,),
+                       generator=gen, device=dev)
+    ctx = torch.randn((1, cfg.text_len, cfg.text_dim), generator=gen,
+                      device=dev) * 0.5
+    clip_fea = torch.randn((1, cfg.clip_tokens, cfg.clip_dim), generator=gen,
+                           device=dev)
+    face = torch.rand((1, ANIMATE_FRAMES, 512, 512, 3), generator=gen,
+                      device=dev) * 2 - 1
+    t = torch.full((1,), 999.0, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = wan_animate_forward(model, x, t, ctx, clip_fea, pose, face,
+                                  policy=DEFAULT_POLICY)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want = {"flash_attention_bf16": 40, "cross_attention_bf16": 80,
+            "flash_attention_f32_sm90": 8}
+    got = {k: fa.LAUNCHES[k] for k in want}
+    r = {"phase": "animate_dit_720p", "model": "animate-14B",
+         "tokens": f * h * w, "seconds": secs,
+         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "launches": got, "finite": bool(torch.isfinite(out).all()),
+         "shape": list(out.shape)}
+    del out, x, pose, face
+    torch.cuda.empty_cache()
+
+    # the two calls alone at this shape
+    n, d, bf = cfg.num_heads, cfg.head_dim, torch.bfloat16
+    kv_real = f * h * w
+    l = -(-kv_real // fa.TILE) * fa.TILE
+    with torch.no_grad():
+        q = fa._fold(qk_normed((1, l, n, d), gen, bf), d ** -0.5)
+        k = qk_normed((1, l, n, d), gen, bf)
+        v = torch.randn((1, l, n, d), generator=gen, device=dev).to(bf)
+        kv = torch.full((1,), kv_real, dtype=torch.int32, device=dev)
+        ms = cuda_time(lambda: fa._flash_cuda(q, k, v, kv, None, None), 2)
+        bms, by = bound_ms(4 * n * l * kv_real * d, nbytes(q, k, v, q),
+                           H100_BF16_FLOPS)
+        r["self_attention"] = {"q": [1, l, n, d], "kv_len": kv_real,
+                               "ms": ms, "bound_ms": bms, "bound_by": by}
+        del q, k, v
+        s = h * w
+        lq = -(-s // fa.TILE) * fa.TILE
+        q = fa._fold(qk_normed((f, lq, n, d), gen, torch.float32),
+                     d ** -0.5)
+        k = qk_normed((f, fa.TILE, n, d), gen, torch.float32)
+        v = torch.randn((f, fa.TILE, n, d), generator=gen, device=dev)
+        kv = torch.full((f,), 5, dtype=torch.int32, device=dev)
+        ms = cuda_time(lambda: fa._flash_cuda(q, k, v, kv, None, None), 3)
+        bms, by = bound_ms(6 * 4 * f * n * s * 5 * d,
+                           2 * f * s * n * d * 4 + 2 * f * 5 * n * d * 4,
+                           H100_BF16_FLOPS)
+        r["face_call"] = {"q": [f, lq, n, d], "kv_len": 5, "ms": ms,
+                          "bound_ms": bms, "bound_by": by}
+        del q, k, v
+    log(json.dumps(r))
+    if got != want or not r["finite"] \
+            or r["shape"] != [1, *lat, cfg.out_dim]:
+        fail(f"animate-14B 720p forward: launches {got} != {want}, or its "
+             "output is not finite or not the latent's shape")
+    if r["peak_memory_gb"] >= 80.0:
+        fail(f"animate-14B 720p forward: peak {r['peak_memory_gb']:.1f} GB")
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -7007,23 +7655,38 @@ CKPT_FILES = {"dit": ("wan_t2v-1.3B_dit", 171, "float32"),
               "vae": ("wan_t2v-1.3B_vae", 172, "float32"),
               "umt5": ("umt5_xxl", 173, "bfloat16")}
 DIT_INDEX = "diffusion_pytorch_model.safetensors.index.json"
+# depth cuts for the time limit (at 30 and 24 blocks the phase took 64.3
+# s, 22 s of it writing UMT5's 11.4 GB): the dir holds the first blocks
+# of each, at full width, with the embeddings, norms and head
+CKPT_LAYERS = {"dit": 10, "umt5": 6}   # of 30 DiT blocks, 24 UMT5 blocks
+
+
+def ckpt_manifest(file):
+    """The pinned manifest of a checkpoint file, without the blocks past
+    its CKPT_LAYERS cut."""
+    from univid_tpu_torch.core.manifest import load_manifest
+
+    man = load_manifest(_manifest_path(CKPT_FILES[file][0]))
+    n = CKPT_LAYERS.get(file)
+    if n is None:
+        return man
+    return {k: v for k, v in man.items()
+            if not k.startswith("blocks.") or int(k.split(".")[1]) < n}
 
 
 def write_wan_ckpt(root):
-    """A Wan2.1-layout t2v-1.3B checkpoint dir at full width and depth,
-    from the pinned manifests: the DiT as two fp32 safetensors shards
-    with their index (written by write_safetensors), Wan2.1_VAE.pth (fp32)
-    and models_t5_umt5-xxl-enc-bf16.pth (bf16). -> {file: {path, bytes,
-    write_s}}."""
+    """A Wan2.1-layout t2v-1.3B checkpoint dir at full width, CKPT_LAYERS
+    deep, from the pinned manifests (`ckpt_manifest`): the DiT as two fp32
+    safetensors shards with their index (written by write_safetensors),
+    Wan2.1_VAE.pth (fp32) and models_t5_umt5-xxl-enc-bf16.pth (bf16). ->
+    {file: {path, bytes, write_s}}."""
     import os
 
     import torch
 
-    from univid_tpu_torch.core.manifest import load_manifest
-
     out = {}
-    man_name, seed, dt = CKPT_FILES["dit"]
-    man = load_manifest(_manifest_path(man_name))
+    _, seed, dt = CKPT_FILES["dit"]
+    man = ckpt_manifest("dit")
     draws = _draws(man, seed, getattr(torch, dt))
     keys = sorted(man)
     sizes = [math.prod(man[k]) * 4 for k in keys]
@@ -7043,8 +7706,8 @@ def write_wan_ckpt(root):
                   "write_s": time.perf_counter() - t0, "shards": 2}
     for name, fname in (("vae", "Wan2.1_VAE.pth"),
                         ("umt5", "models_t5_umt5-xxl-enc-bf16.pth")):
-        man_name, seed, dt = CKPT_FILES[name]
-        man = load_manifest(_manifest_path(man_name))
+        _, seed, dt = CKPT_FILES[name]
+        man = ckpt_manifest(name)
         t0 = time.perf_counter()
         sd = {k: make().cpu() for k, (_, _, make) in
               _draws(man, seed, getattr(torch, dt)).items()}
@@ -7147,13 +7810,10 @@ def check_ckpt_bits(file, module, rule):
     the rule's dtype, and no parameter left over. -> parameters checked."""
     import torch
 
-    from univid_tpu_torch.core.manifest import load_manifest
-
-    man_name, seed, dt = CKPT_FILES[file]
+    _, seed, dt = CKPT_FILES[file]
     params = dict(module.named_parameters())
     seen = set()
-    for i, (k, s) in enumerate(sorted(load_manifest(
-            _manifest_path(man_name)).items())):
+    for i, (k, s) in enumerate(sorted(ckpt_manifest(file).items())):
         x = ckpt_draw(k, s, i, seed).to(getattr(torch, dt))
         name, want, dtype = rule(k, x)
         p = params.get(name)
@@ -7192,8 +7852,9 @@ def _timed_calls(module, names, into):
 
 
 def checkpoint_main_path(output_dir, steps=CKPT_STEPS):
-    """t2v-1.3B serving from a Wan2.1-layout checkpoint dir at full width
-    and depth: write it from the pinned manifests, audit each file against
+    """t2v-1.3B serving from a Wan2.1-layout checkpoint dir at full width,
+    cut to CKPT_LAYERS blocks of the DiT and of UMT5: write it from the
+    pinned manifests, audit each file against
     its manifest (header-only for the shards), load the DiT and the VAE
     with load_wan_checkpoint and UMT5 with load_state_dict + convert_umt5
     onto the card (each file's seconds, the peak host RSS and device
@@ -7217,7 +7878,6 @@ def checkpoint_main_path(output_dir, steps=CKPT_STEPS):
     from univid_tpu_torch.core import checkpoint as ck
     from univid_tpu_torch.core.config import TMAConfig, WAN_CONFIGS
     from univid_tpu_torch.core.dtypes import DEFAULT_POLICY
-    from univid_tpu_torch.core.manifest import load_manifest
     from univid_tpu_torch.data.video_io import read_video_frames, save_video
     from univid_tpu_torch.kernels import flash_attention as fa
     from univid_tpu_torch.models.wan.vae_api import vae_decode
@@ -7227,7 +7887,11 @@ def checkpoint_main_path(output_dir, steps=CKPT_STEPS):
 
     gc.collect()
     torch.cuda.empty_cache()
-    spec = WAN_CONFIGS["t2v-1.3B"]
+    full = WAN_CONFIGS["t2v-1.3B"]
+    spec = dataclasses.replace(
+        full, dit=dataclasses.replace(full.dit,
+                                      num_layers=CKPT_LAYERS["dit"]),
+        t5=dataclasses.replace(full.t5, num_layers=CKPT_LAYERS["umt5"]))
     root = os.path.join(output_dir, "wan_t2v-1.3B_ckpt")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -7250,8 +7914,7 @@ def checkpoint_main_path(output_dir, steps=CKPT_STEPS):
     rec["audit"] = {}
     for name, info in files.items():
         t0 = time.perf_counter()
-        diff = ck.audit_checkpoint(info["path"], load_manifest(
-            _manifest_path(CKPT_FILES[name][0])))
+        diff = ck.audit_checkpoint(info["path"], ckpt_manifest(name))
         rec["audit"][name] = {"s": time.perf_counter() - t0,
                               **{k: len(v) for k, v in diff.items()}}
         if any(diff.values()):
@@ -7346,11 +8009,12 @@ def checkpoint_main_path(output_dir, steps=CKPT_STEPS):
                                               "t2v_from_checkpoint.mp4"),
                       fps=spec.generation.fps)
     frames = read_video_frames(path)
-    expected = {"flash_attention_bf16": 30 * steps,
-                "cross_attention_bf16": 30 * steps,
+    blocks = spec.dit.num_layers
+    expected = {"flash_attention_bf16": blocks * steps,
+                "cross_attention_bf16": blocks * steps,
                 "flash_attention_f32": 21,
-                "qk_norm_rope_bf16": 30 * steps,
-                "qk_norm_bf16": 30 * steps}
+                "qk_norm_rope_bf16": blocks * steps,
+                "qk_norm_bf16": blocks * steps}
     expected = dict(dict.fromkeys(launches, 0), **expected)
     f32_by_d = dict(fa.F32_LAUNCHES_BY_D)
     f32_expected = {384: 21, 640: 0, 1024: 0}
@@ -7369,7 +8033,7 @@ def checkpoint_main_path(output_dir, steps=CKPT_STEPS):
     if launches != expected or f32_by_d != f32_expected:
         fail(f"launch counts {launches} {f32_by_d} != {expected} "
              f"{f32_expected}")
-    check_impl("t2v-1.3B from a checkpoint", 60 * steps)
+    check_impl("t2v-1.3B from a checkpoint", 2 * blocks * steps)
     if len(frames) != 81 or frames[0].shape != (480, 832, 3):
         fail("the checkpoint run's mp4 is not 81 frames of 480x832")
     gc.collect()
@@ -7492,7 +8156,8 @@ def naflex_cli_on_card(output_dir):
 # ---------------------------------------------------------------------------
 
 SP_WORLD = 2         # the sp = 2 mesh's ranks, both on the one card
-SP_LAYERS = 6        # of t2v-1.3B's 30 blocks (the time limit); full width
+SP_LAYERS = 4        # of t2v-1.3B's 30 blocks (the time limit; at 6 the
+#                      phase took 42.5-65.8 s); full width
 SP_STEPS = 2         # UniPC steps of the Ulysses pipeline run
 SP_T5_LAYERS = 2     # of UMT5-XXL's 24 blocks (full width, fp32)
 SP_DEADLINE = 480    # s the ranks may take together, start-up included
@@ -8264,10 +8929,11 @@ def check_tp_kernels():
 
 # depth cuts for the time limit: at 4 training and 6 serving blocks the
 # phase took 105.5 s (its tp = 2 step 29.6 s, 83% in gloo's host copies of
-# the 400 MB activations) and the script 1,054.6 s of its 1,200
-TP_TRAIN_LAYERS = 2  # of t2v-1.3B's 30 blocks in the three sharded steps
+# the 400 MB activations) and the script 1,054.6 s of its 1,200; at 2 and
+# 4, 67.4 s
+TP_TRAIN_LAYERS = 1  # of t2v-1.3B's 30 blocks in the three sharded steps
 #                      and their one-rank reference
-TP_LAYERS = 4        # of t2v-1.3B's 30 blocks in the bf16 serving call
+TP_LAYERS = 2        # of t2v-1.3B's 30 blocks in the bf16 serving call
 TP_T5_LAYERS = 2     # of UMT5-XXL's 24 blocks (full width, fp32)
 TP_QWEN_LAYERS = 2   # of BAGEL-7B-MoT's 28 LLM layers (full width, bf16)
 TP_QWEN_TOKENS = 2048   # the prefill's rows (the largest text bucket)
@@ -8749,6 +9415,12 @@ def kernels_line(records, by_path, mask_records):
                flash_attention_bf16_image_gen_edit="bagel_edit")
     # the Kontext edit's joint attention: the 28-step 1024x1024 edit
     own.update(flash_attention_bf16_kontext="kontext")
+    # the animate shapes: the animate-14B CLI run (the cross counter counts
+    # the text and the image calls together, 160 each)
+    own.update({nm: "animate" for nm in (
+        "flash_attention_bf16_animate", "cross_attention_bf16_animate",
+        "cross_attention_bf16_animate_image",
+        "flash_attention_f32_sm90_animate_face")})
     # the A14B shapes: the t2v-A14B request (the i2v-A14B one beside it in
     # launches_by_path)
     own.update({f"{nm}_a14b": "t2v-A14B" for nm in A14B_KERNELS},
@@ -8878,6 +9550,10 @@ def main():
     records.update(check_kontext_kernels())
     log(json.dumps({"phase": "check_kontext_kernels",
                     "seconds": time.perf_counter() - t1}))
+    t1 = time.perf_counter()
+    records.update(check_animate_kernels())
+    log(json.dumps({"phase": "check_animate_kernels",
+                    "seconds": time.perf_counter() - t1}))
     mask_records = check_mask_kernels()
     records.update(mask_records)
     records.update(check_f32_d128_kernels())
@@ -8910,7 +9586,8 @@ def main():
                           ("fp32_train_parity", fp32_train_parity),
                           ("knob_parity", knob_parity),
                           ("small_kontext_parity",
-                           lambda: small_kontext_parity(args.output_dir))):
+                           lambda: small_kontext_parity(args.output_dir)),
+                          ("small_animate_parity", small_animate_parity)):
             t0 = time.perf_counter()
             res = fn()
             log(json.dumps({"phase": phase,
@@ -8964,6 +9641,15 @@ def main():
         t0 = time.perf_counter()
         by_path.update(kontext_main_path())
         log(json.dumps({"phase": "kontext_main_path_total",
+                        "seconds": time.perf_counter() - t0}))
+        t0 = time.perf_counter()
+        by_path["animate"], pipe = animate_main_path(args.output_dir)
+        log(json.dumps({"phase": "animate_main_path_total",
+                        "seconds": time.perf_counter() - t0}))
+        t0 = time.perf_counter()
+        animate_dit_720p(pipe)
+        del pipe
+        log(json.dumps({"phase": "animate_dit_720p_total",
                         "seconds": time.perf_counter() - t0}))
         t0 = time.perf_counter()
         by_path["bagel_train"], by_path["bagel_registry"], reg_records = \

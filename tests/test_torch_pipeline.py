@@ -222,18 +222,6 @@ def test_cli_merges_lora_and_loads_projector(tmp_path, flag):
     assert os.path.exists(metas[0]["video_path"])
 
 
-@pytest.mark.parametrize("flags", [
-    ["--mode", "animate", "--mock_weights"],
-    ["--use_prompt_extend", "--mock_weights"],
-])
-def test_cli_refuses_later_slices(flags):
-    """Flags of later slices exit up front naming the slice, before any
-    weights are drawn; none silently takes another path."""
-    from univid_tpu_torch.cli import inference
-    with pytest.raises(SystemExit, match="later slice"):
-        inference.main(["--device", "cpu"] + flags)
-
-
 @pytest.mark.parametrize("flag", ["--int8", "--qk_int8", "--taylorseer",
                                   "--bf16_softmax"])
 def test_cli_serving_knobs(flag, tmp_path):

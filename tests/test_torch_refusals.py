@@ -1,19 +1,9 @@
 """The port's refusals of later slices cite their ROADMAP.md queue 1 item
-by name (not by number, which a re-ordered queue changes): the serving
-CLI's `_LATER` flags (--mode animate, --use_prompt_extend), a DiT train
+by name (not by number, which a re-ordered queue changes): a DiT train
 step over a sequence-parallel mesh, and a serving mesh with sp and tp both
 above 1."""
 
 import pytest
-
-
-def _cli_later(flags):
-    def case(tmp_path):
-        from univid_tpu_torch.cli.inference import main
-        with pytest.raises(SystemExit) as e:
-            main(flags + ["--output_dir", str(tmp_path)])
-        return str(e.value.code)
-    return case
 
 
 def _sp_training(tmp_path):
@@ -33,9 +23,7 @@ def _sp_with_tp(tmp_path):
     return str(e.value)
 
 
-CASES = {"WanAnimate": _cli_later(["--mode", "animate"]),
-         "prompt extension": _cli_later(["--use_prompt_extend"]),
-         "Sequence-parallel training": _sp_training,
+CASES = {"Sequence-parallel training": _sp_training,
          "Sequence and tensor parallelism together": _sp_with_tp}
 
 

@@ -110,8 +110,8 @@ def test_debug_flags_env_mapping():
 def test_each_cli_applies_debug_nans(cli, tmp_path, monkeypatch):
     """Every port CLI calls apply_debug_flags first thing in `main`, as the
     JAX CLIs do: with UNIVID_DEBUG_NANS=1 anomaly mode is on by the time
-    each stops (inference on a later slice's flag, the QA CLI on a missing
-    ground-truth file, training on a missing card). Anomaly mode is turned
+    each stops (inference and training on a missing card, the QA CLI on a
+    missing ground-truth file). Anomaly mode is turned
     off again before the test ends."""
     monkeypatch.setenv("UNIVID_DEBUG_NANS", "1")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

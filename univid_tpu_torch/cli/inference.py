@@ -21,8 +21,19 @@ reference Wan checkpoint dir (the DiT's shards, or for A14B the experts'
 low_noise_model/ and high_noise_model/, the VAE .pth, UMT5 and its
 tokenizer; core/checkpoint.py) and --bagel_path BAGEL's ema.safetensors
 and tokenizer for the fusion; --mock_weights draws random weights instead.
-Flags of later port slices (animate, prompt extension) exit with an error
-naming the slice; they never fall back to another path.
+--use_prompt_extend rewrites the prompt first (utils/prompt_extend.py:
+'offline' returns it unchanged, 'dashscope' without DASH_API_KEY falls back
+to it, 'local_qwen' reads --prompt_extend_model).
+
+    python -m univid_tpu_torch.cli.inference --mode animate \
+        --model animate-14B --src_root_path <dir> --mock_weights
+
+--mode animate (`run_animate`) animates, or with --replace_flag replaces,
+the character of src_ref.png along src_pose.mp4 and src_face.mp4 (+
+src_bg.mp4 and src_mask.mp4), the preprocess's output dir: UMT5 encodes
+the prompt and is freed, then WanAnimate-14B (or --model tiny-animate),
+the Wan2.1 VAE and the CLIP ViT-H tower generate clip by clip
+(pipelines/animate.py) -> one mp4 + its sidecar.
 """
 
 from __future__ import annotations
@@ -70,6 +81,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prompt", type=str, default=None)
     p.add_argument("--shift", type=float, default=5.0)
     p.add_argument("--taylorseer", type=int, default=0)
+    p.add_argument("--src_root_path", type=str, default=None,
+                   help="animate: the dir of src_pose.mp4, src_face.mp4 and "
+                        "src_ref.png (+ src_bg.mp4 and src_mask.mp4 with "
+                        "--replace_flag)")
+    p.add_argument("--replace_flag", action="store_true",
+                   help="animate: character replacement (background and "
+                        "mask conditioning)")
+    p.add_argument("--refert_num", type=int, default=1, choices=[1, 5],
+                   help="animate: temporal-guidance overlap frames between "
+                        "clips")
+    p.add_argument("--clip_len", type=int, default=77)
+    p.add_argument("--use_relighting_lora", action="store_true")
+    p.add_argument("--relight_lora_path", type=str, default=None)
     p.add_argument("--bf16_residual", action="store_true",
                    help="run the DiT residual stream in bf16 (fp32 AdaLN/"
                         "time-embed/softmax islands kept)")
@@ -107,16 +131,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (cuda by default; cpu runs the "
                         "kernels' plain versions)")
     return p
-
-
-# (is the flag set?, the later port slice that brings it: a ROADMAP.md item)
-_LATER = [
-    (lambda a: a.mode == "animate",
-     "--mode animate is a later slice (ROADMAP.md queue 1: WanAnimate)"),
-    (lambda a: a.use_prompt_extend,
-     "--use_prompt_extend is a later slice (ROADMAP.md queue 1: prompt "
-     "extension)"),
-]
 
 
 def _parse_size(s: str):
@@ -261,13 +275,189 @@ def load_image(path: str):
         - 1.0
 
 
+def encode_prompts(args, spec, prompts, timer):
+    """UMT5 contexts of `prompts` ([text_len, dim] each) on args.device. The
+    encoder (fp32 ~23 GB with mock weights) is freed before anything else is
+    placed, so a request's peak is its DiT(s) and one working set."""
+    import torch
+
+    text_enc = timer.time_phase("init_weights", build_text_encoder, args,
+                                spec)
+    ctx = list(timer.time_phase("text_encode", text_enc, prompts))
+    del text_enc
+    gc.collect()
+    if ctx[0].is_cuda:
+        torch.cuda.empty_cache()
+    return ctx
+
+
+def extend_prompt(args, prompt: str) -> str:
+    """With --use_prompt_extend, the expander of --prompt_extend_method
+    rewrites the prompt (as the JAX CLI: the model's task prompt, the
+    image for i2v with a VL expander, --seed); the prompt itself if the
+    expander fails or the flag is off."""
+    if not args.use_prompt_extend:
+        return prompt
+    from ..utils.prompt_extend import make_prompt_expander
+    expander = make_prompt_expander(
+        args.prompt_extend_method, task=args.model,
+        is_vl=args.mode != "t2v" and args.image is not None,
+        model_name=args.prompt_extend_model)
+    ext = expander(prompt, tar_lang=args.prompt_extend_target_lang,
+                   image=args.image if expander.is_vl else None,
+                   seed=args.seed)
+    return ext.prompt if ext.status else prompt
+
+
+def load_animate_inputs(root: str, replace: bool, motion_size: int):
+    """The preprocess dir's inputs as fp32 numpy in [-1, 1]: (pose [T, H,
+    W, 3], face [T, S, S, 3], ref [H, W, 3], bg [T, H, W, 3] or None, mask
+    [T, H, W] in {0, 1} or None). The reference image is resized to the
+    pose size and the faces to motion_size, both by jax.image.resize's
+    antialiased 'bilinear' (ops.resize), as the JAX CLI does."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from ..data.video_io import read_video_frames
+    from ..ops.resize import resize
+
+    def vid(name):
+        frames = np.stack(read_video_frames(os.path.join(root, name)))
+        return frames.astype(np.float32) / 127.5 - 1.0
+
+    cond = vid("src_pose.mp4")
+    face = vid("src_face.mp4")
+    ref = np.asarray(Image.open(os.path.join(root, "src_ref.png"))
+                     .convert("RGB"), np.float32) / 127.5 - 1.0
+    bg = mask = None
+    if replace:
+        bg = vid("src_bg.mp4")
+        mask = (vid("src_mask.mp4").mean(axis=-1) > 0.0).astype(np.float32)
+    if ref.shape[:2] != cond.shape[1:3]:
+        ref = resize(torch.as_tensor(ref), cond.shape[1:3] + (3,),
+                     "bilinear").numpy()
+    if face.shape[1:3] != (motion_size, motion_size):
+        face = resize(torch.as_tensor(face),
+                      (face.shape[0], motion_size, motion_size, 3),
+                      "bilinear").numpy()
+    return cond, face, ref, bg, mask
+
+
+def animate_t5_spec(args, acfg):
+    """The UMT5 spec of --mode animate: UMT5-XXL from --checkpoint_dir,
+    else the JAX CLI's small mock (vocab 512, 2 layers at the DiT's text
+    width)."""
+    import types
+
+    from ..core.config import T5Config
+
+    t5 = T5Config(text_len=acfg.text_len) if not args.mock_weights \
+        else T5Config(vocab_size=512, dim=acfg.text_dim,
+                      dim_attn=acfg.text_dim, dim_ffn=2 * acfg.text_dim,
+                      num_heads=4, num_layers=2, text_len=acfg.text_len)
+    return types.SimpleNamespace(t5=t5)
+
+
+def build_animate(args, acfg, vae_cfg, clip_cfg):
+    """(WanAnimate, WanVAE, ClipVision) on args.device: from
+    --checkpoint_dir (load_wan_animate_checkpoint; a dir without the CLIP
+    file exits), else with --mock_weights drawn from seeds in the loader's
+    dtypes (the DiT and CLIP in bf16 with fp32 islands, the VAE in fp32)."""
+    import torch
+
+    from ..models.wan.animate import ClipVision, WanAnimate
+    from ..models.wan.vae_api import WanVAE
+
+    dev = torch.device(args.device)
+    if args.checkpoint_dir:
+        from ..core.checkpoint import load_wan_animate_checkpoint
+        model, vae, clip = load_wan_animate_checkpoint(
+            args.checkpoint_dir, acfg, vae_cfg, clip_cfg, device=dev)
+        if clip is None:
+            raise SystemExit("no CLIP checkpoint in --checkpoint_dir "
+                             "(models_clip_open-clip-xlm-roberta-large-"
+                             "vit-huge-14.pth)")
+        return model, vae, clip
+    if not args.mock_weights:
+        raise SystemExit("pass --checkpoint_dir or --mock_weights")
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    return (WanAnimate(acfg, dtype=torch.bfloat16, device=dev, gen=gen(0)),
+            WanVAE(vae_cfg, dtype=torch.float32, device=dev, gen=gen(1)),
+            ClipVision(clip_cfg, dtype=torch.bfloat16, device=dev,
+                       gen=gen(3)))
+
+
+def run_animate(args):
+    """--mode animate: character animation (or, with --replace_flag,
+    replacement) from the preprocess output dir, clip by clip; one mp4 and
+    a sidecar with the JAX CLI's keys. --model tiny-animate or animate-14B
+    (any other name: animate-14B, as the JAX CLI). Of the serving knobs
+    only --bf16_residual and --bf16_softmax reach the policy, as in the
+    JAX CLI (the animate DiT keeps its residual in fp32 either way)."""
+    from ..core.config import ANIMATE_CONFIGS, DEFAULT_NEG_PROMPT
+    from ..core.dtypes import BF16_RESIDUAL_POLICY, DEFAULT_POLICY
+    from ..data.video_io import save_video
+    from ..pipelines.animate import WanAnimatePipeline
+    from ..utils.profiling import PhaseTimer
+
+    if not args.src_root_path:
+        raise SystemExit("--mode animate needs --src_root_path (the "
+                         "preprocess_animate output dir)")
+    model_name = args.model if args.model in ANIMATE_CONFIGS \
+        else "animate-14B"
+    acfg, vae_cfg, clip_cfg = ANIMATE_CONFIGS[model_name]()
+    cond, face, ref, bg, mask = load_animate_inputs(
+        args.src_root_path, args.replace_flag, acfg.motion_size)
+    timer = PhaseTimer()
+    prompt = args.prompt or DEFAULT_PROMPT
+    ctx, nctx = encode_prompts(args, animate_t5_spec(args, acfg),
+                               [prompt, DEFAULT_NEG_PROMPT], timer)
+    model, vae, clip = timer.time_phase("init_weights", build_animate, args,
+                                        acfg, vae_cfg, clip_cfg)
+    policy = BF16_RESIDUAL_POLICY if args.bf16_residual else DEFAULT_POLICY
+    policy = dataclasses.replace(policy, softmax_bf16=args.bf16_softmax)
+    relight = args.relight_lora_path if args.use_relighting_lora else None
+    pipe = WanAnimatePipeline(acfg, model, vae_cfg, vae, clip_cfg=clip_cfg,
+                              clip=clip, policy=policy, relight_lora=relight)
+
+    t0 = time.time()
+    video = timer.time_phase(
+        "generate", pipe.generate, ctx, nctx, cond_video=cond,
+        face_video=face, ref_image=ref, bg_video=bg, mask_video=mask,
+        clip_len=args.clip_len, refert_num=args.refert_num,
+        shift=args.shift, sample_solver=args.solver,
+        sampling_steps=args.steps, guide_scale=args.guidance,
+        seed=args.seed, timer=timer)
+    dt = time.time() - t0
+
+    stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+    out = os.path.join(args.output_dir, f"animate_{stamp}.mp4")
+    path = timer.time_phase("save", save_video, video.cpu().numpy(), out,
+                            fps=30)
+    meta = {
+        "prompt": prompt, "mode": "animate", "model": model_name,
+        "frames": int(video.shape[0]),
+        "size": [int(video.shape[2]), int(video.shape[1])],
+        "steps": args.steps, "guidance": args.guidance,
+        "seed": args.seed, "replace": bool(args.replace_flag),
+        "refert_num": args.refert_num, "clip_len": args.clip_len,
+        "generation_time_s": round(dt, 2),
+        "phase_times_s": timer.summary(), "video_path": path,
+    }
+    with open(path + ".json", "w") as f:
+        json.dump(meta, f, indent=2)
+    print(json.dumps(meta), flush=True)
+    return [meta]
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     from ..core.debug import apply_debug_flags
     apply_debug_flags()
-    for is_set, why in _LATER:
-        if is_set(args):
-            raise SystemExit(f"not in this port yet: {why}")
 
     import torch
 
@@ -284,21 +474,13 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(args.output_dir, exist_ok=True)
 
+    if args.mode == "animate":
+        return run_animate(args)
     timer = PhaseTimer()
     spec = model_spec(args)
-    prompt = args.prompt or DEFAULT_PROMPT
-    # the prompt first: UMT5-XXL (fp32 ~23 GB with mock weights) is freed
-    # before any DiT is placed, so a request's peak is the DiT(s) and one
-    # working set (two A14B experts hold 57 GB)
-    text_enc = timer.time_phase("init_weights", build_text_encoder, args,
-                                spec)
-    ctx_pair = timer.time_phase("text_encode", text_enc,
-                                [prompt, spec.sample_neg_prompt])
-    ctx, nctx = ctx_pair[0], ctx_pair[1]
-    del text_enc, ctx_pair
-    gc.collect()
-    if ctx.is_cuda:
-        torch.cuda.empty_cache()
+    prompt = extend_prompt(args, args.prompt or DEFAULT_PROMPT)
+    ctx, nctx = encode_prompts(args, spec, [prompt, spec.sample_neg_prompt],
+                               timer)
     pipe = timer.time_phase("init_weights", build_pipeline, args, spec)
     fusion = timer.time_phase("init_weights", build_fusion, args, pipe,
                               spec)

@@ -13,9 +13,12 @@ a state dict key by key. Layout rules, by leaf name and rank:
   * every other leaf as it is.
 The DiT's `blocks`, the `layers` of SigLIP, the SigLIP text tower and
 both NaFlex towers, BAGEL's `llm.layers`, FLUX's `double_blocks` and
-`single_blocks` and the CLIP text tower's `blocks` leaves are stacked
+`single_blocks`, the CLIP text tower's `blocks`, WanAnimate's `blocks` and
+`face_adapter` and the `layers` of its CLIP towers are stacked
 [num_layers, ...] in the JAX tree (one lax.scan); they are unstacked into
-the ModuleList here. UMT5's blocks are a dict of layers in both packages
+the ModuleList here. WanAnimate's motion encoder keeps Python lists
+(`blocks`, `fc`), which become ModuleLists too; its 2D convs are [Cout,
+Cin, kh, kw] and the face encoder's conv1d [Cout, Cin, k]. UMT5's blocks are a dict of layers in both packages
 (with `shared_pos`, layer 0 alone holds the position table). LoRA trees
 keep the JAX layout as they are (stacked a [L, in, r], b [L, r, out]).
 Leaves may be numpy arrays or anything `np.asarray` accepts (bf16 leaves
@@ -39,6 +42,10 @@ from .models.flux.kontext import Flux, FluxConfig
 from .reflection.scorer import (SiglipMapHead, SiglipText,
                                 SiglipTextConfig)
 from .models.fusion.projector import ContextProjector
+from .models.wan.animate import (ClipTextXlmRoberta,
+                                 ClipTextXlmRobertaConfig, ClipVision,
+                                 ClipVisionConfig, WanAnimate,
+                                 WanAnimateConfig)
 from .models.wan.dit import WanDiT
 from .models.wan.t5 import UMT5Encoder
 from .models.wan.vae_api import WanVAE
@@ -63,9 +70,10 @@ def _layout(name: str, t: torch.Tensor) -> torch.Tensor:
 
 def _flatten(tree, prefix="") -> Dict[str, object]:
     out = {}
-    for k, v in tree.items():
+    items = enumerate(tree) if isinstance(tree, list) else tree.items()
+    for k, v in items:
         key = f"{prefix}{k}"
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list)):
             out.update(_flatten(v, key + "."))
         else:
             out[key] = v
@@ -247,4 +255,47 @@ def clip_text_from_jax(params, cfg: ClipTextConfig, *, device="cuda",
     `device`."""
     model = ClipText(cfg, dtype=dtype or torch.float32, device=device)
     return _load(model, jax_tree_to_state_dict(params, stacked="blocks"),
+                 dtype)
+
+
+def wan_animate_from_jax(params, cfg: WanAnimateConfig, *, device="cuda",
+                         dtype=None) -> WanAnimate:
+    """univid_tpu init_wan_animate / convert_wan_animate tree -> WanAnimate
+    on `device`, its DiT leaves in `dtype` (default fp32) and its fp32
+    leaves in fp32, as the checkpoint converter places them: the stacked
+    blocks and face adapters unstacked, the motion encoder's convs [Cout,
+    Cin, kh, kw], the face encoder's conv1d [Cout, Cin, k]. A converted
+    checkpoint's tree lacks the motion encoder's conv biases (the
+    reference's EqualConv2d has none before a fused leaky ReLU); they load
+    as zeros, which the JAX forward's absent bias equals."""
+    model = WanAnimate(cfg, dtype=dtype or torch.float32, device=device)
+    sd = {}
+    for k, t in jax_tree_to_state_dict(
+            params, stacked=("blocks", "face_adapter")).items():
+        if k.startswith("motion_encoder.") and t.ndim == 5:
+            t = t[:, :, 0]
+        elif k.startswith("face_encoder.conv") and k.endswith(".w"):
+            t = t.permute(2, 1, 0)
+        sd[k] = t.contiguous()
+    for k, p in model.motion_encoder.named_parameters():
+        if k.endswith(".b") and f"motion_encoder.{k}" not in sd:
+            sd[f"motion_encoder.{k}"] = torch.zeros_like(p, device="cpu")
+    return _load(model, sd, None)
+
+
+def clip_vit_from_jax(params, cfg: ClipVisionConfig, *, device="cuda",
+                      dtype=None) -> ClipVision:
+    """univid_tpu init_clip_vision / convert_clip_vit tree -> ClipVision."""
+    model = ClipVision(cfg, dtype=dtype or torch.float32, device=device)
+    return _load(model, jax_tree_to_state_dict(params, stacked="layers"),
+                 dtype)
+
+
+def clip_text_xlmr_from_jax(params, cfg: ClipTextXlmRobertaConfig, *,
+                            device="cuda", dtype=None) -> ClipTextXlmRoberta:
+    """univid_tpu init_clip_text / convert_clip_text_xlm_roberta tree (the
+    XLM-Roberta CLIP text tower) -> ClipTextXlmRoberta."""
+    model = ClipTextXlmRoberta(cfg, dtype=dtype or torch.float32,
+                               device=device)
+    return _load(model, jax_tree_to_state_dict(params, stacked="layers"),
                  dtype)

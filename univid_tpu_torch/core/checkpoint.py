@@ -3,9 +3,10 @@
 
 Load surfaces: the Wan DiT (diffusers-style sharded safetensors with a
 *.safetensors.index.json, or .pth), the Wan video VAE and UMT5 (raw torch
-.pth state dicts), BAGEL's ema.safetensors (the Qwen2-MoT LLM, its heads
-and the NaViT SigLIP tower), the HF SigLIP / SigLIP2 dual tower, BAGEL's FLUX
-image VAE (ae.safetensors), the FLUX.1-Kontext editor's directory (the BFL
+.pth state dicts), the WanAnimate DiT and its CLIP ViT-H visual tower,
+BAGEL's ema.safetensors (the Qwen2-MoT LLM, its heads and the NaViT SigLIP
+tower), the HF SigLIP / SigLIP2 dual tower, BAGEL's FLUX image VAE
+(ae.safetensors), the FLUX.1-Kontext editor's directory (the BFL
 transformer, the AE, HF's T5-XXL v1.1 and CLIP-L text towers), and the
 ContextProjector of a training state.
 
@@ -760,6 +761,183 @@ def load_kontext_checkpoint(flux_dir: str, dtype=torch.bfloat16, *,
         lambda sd: convert_clip_text(sd, clip_cfg, dtype, device=device),
         ignore=("text_model.embeddings.position_ids",))
     return flux, flux_cfg, vae, vae_cfg, t5, t5_cfg, clip, clip_cfg
+
+
+# ---------------------------------------------------------------------------
+# WanAnimate (the DiT with its motion encoder, face encoder and adapters;
+# the CLIP ViT-H visual tower)
+# ---------------------------------------------------------------------------
+
+
+def convert_wan_animate(sd, cfg, dtype=torch.bfloat16, *, device="cuda"):
+    """WanAnimateModel state dict (model_animate.py naming with its
+    motion_encoder / face_encoder / face_adapter submodules) -> WanAnimate:
+    the DiT, img_emb, face encoder's out_proj and padding token and the
+    face adapters in `dtype`; the time MLPs, head, modulations, the motion
+    encoder and the face encoder's convs in fp32, as JAX converts them.
+    The Conv3d patch embeddings become dense [dim, (pt ph pw in)]. The
+    motion encoder's ConvLayers are Sequentials: the conv at .0 (.1 after
+    the Blur when downsampling), its FusedLeakyReLU bias after it; a conv
+    without a bias in the file takes zeros (the JAX tree omits it)."""
+    from ..models.wan.animate import WanAnimate
+
+    f32 = torch.float32
+    e = _Entries(sd, device)
+    for name in ("patch_embed", "pose_patch_embed"):
+        src = name.replace("embed", "embedding")
+        e.put(f"{name}.w", f"{src}.weight", dtype,
+              lambda w: w.permute(0, 2, 3, 4, 1).reshape(cfg.dim, -1))
+        e.put(f"{name}.b", f"{src}.bias", dtype)
+    e.lin("text_embedding.fc0", "text_embedding.0", dtype)
+    e.lin("text_embedding.fc1", "text_embedding.2", dtype)
+    e.lin("time_embedding.fc0", "time_embedding.0", f32)
+    e.lin("time_embedding.fc1", "time_embedding.2", f32)
+    e.lin("time_projection.fc0", "time_projection.1", f32)
+    e.lin("head.head", "head.head", f32)
+    e.put("head.modulation", "head.modulation", f32,
+          lambda m: m.reshape(2, cfg.dim))
+    if cfg.use_img_emb:
+        e.norm("img_emb.ln0", "img_emb.proj.0", dtype)
+        e.lin("img_emb.fc0", "img_emb.proj.1", dtype)
+        e.lin("img_emb.fc1", "img_emb.proj.3", dtype)
+        e.norm("img_emb.ln1", "img_emb.proj.4", dtype)
+    for i in range(cfg.num_layers):
+        b = f"blocks.{i}"
+        for attn in ("self_attn", "cross_attn"):
+            for k in "qkvo":
+                e.lin(f"{b}.{attn}.{k}", f"{b}.{attn}.{k}", dtype)
+            norms = ["norm_q", "norm_k"] if cfg.qk_norm else []
+            if attn == "cross_attn" and cfg.use_img_emb:
+                e.lin(f"{b}.{attn}.k_img", f"{b}.{attn}.k_img", dtype)
+                e.lin(f"{b}.{attn}.v_img", f"{b}.{attn}.v_img", dtype)
+                norms += ["norm_k_img"] if cfg.qk_norm else []
+            for nm in norms:
+                e.put(f"{b}.{attn}.{nm}", f"{b}.{attn}.{nm}.weight", dtype)
+        e.lin(f"{b}.ffn.fc0", f"{b}.ffn.0", dtype)
+        e.lin(f"{b}.ffn.fc1", f"{b}.ffn.2", dtype)
+        e.put(f"{b}.modulation", f"{b}.modulation", f32,
+              lambda m: m.reshape(6, cfg.dim))
+        if cfg.cross_attn_norm:
+            e.norm(f"{b}.norm3", f"{b}.norm3", dtype)
+
+    me = "motion_encoder.enc.net_app.convs"
+
+    def conv(dst, src, act_src=None, bias=True):
+        e.put(f"{dst}.w", f"{src}.weight", f32)
+        if f"{src}.bias" in e.sd:
+            e.put(f"{dst}.b", f"{src}.bias", f32)
+        elif bias:
+            cout = e[f"{dst}.w"].shape[0]
+            e[f"{dst}.b"] = torch.zeros(cout, dtype=f32, device=device)
+        if act_src is not None:
+            e.put(f"{dst}.act_b", f"{act_src}.bias", f32)
+
+    dst = "motion_encoder"
+    conv(f"{dst}.first", f"{me}.0.0", f"{me}.0.1")
+    n_res = int(math.log2(cfg.motion_size)) - 2
+    for i in range(1, 1 + n_res):
+        blk, src = f"{dst}.blocks.{i - 1}", f"{me}.{i}"
+        conv(f"{blk}.conv1", f"{src}.conv1.0", f"{src}.conv1.1")
+        conv(f"{blk}.conv2", f"{src}.conv2.1", f"{src}.conv2.2")
+        conv(f"{blk}.skip", f"{src}.skip.1", bias=False)
+    conv(f"{dst}.final", f"{me}.{1 + n_res}", bias=False)
+    for i in range(5):
+        e.lin(f"{dst}.fc.{i}", f"motion_encoder.enc.fc.{i}", f32)
+    e.put(f"{dst}.direction", "motion_encoder.dec.direction.weight", f32)
+
+    for name in ("conv1_local", "conv2", "conv3"):
+        e.put(f"face_encoder.{name}.w", f"face_encoder.{name}.conv.weight",
+              f32)
+        e.put(f"face_encoder.{name}.b", f"face_encoder.{name}.conv.bias",
+              f32)
+    e.lin("face_encoder.out_proj", "face_encoder.out_proj", dtype)
+    e.put("face_encoder.padding_tokens", "face_encoder.padding_tokens",
+          dtype)
+    for j in range(cfg.adapter_layers):
+        src, dst = f"face_adapter.fuser_blocks.{j}", f"face_adapter.{j}"
+        for k in ("linear1_kv", "linear1_q", "linear2"):
+            e.lin(f"{dst}.{k}", f"{src}.{k}", dtype)
+        e.put(f"{dst}.q_norm", f"{src}.q_norm.weight", dtype)
+        e.put(f"{dst}.k_norm", f"{src}.k_norm.weight", dtype)
+    return _assemble(WanAnimate(cfg, dtype=dtype, device="meta"), e)
+
+
+def convert_clip_vit(sd, cfg, dtype=torch.float32, prefix: str = "visual.",
+                     *, device="cuda"):
+    """XLM-Roberta-CLIP visual tower state dict (open-clip
+    VisionTransformer naming, under `prefix` inside the full CLIPModel
+    file) -> ClipVision in `dtype`: the Conv2d patch embedding [D, 3, p, p]
+    as the dense [D, (p p 3)] of clip_visual_forward's patch order,
+    to_qkv split into q, k and v."""
+    from ..models.wan.animate import ClipVision
+
+    e = _Entries(sd, device)
+    d = cfg.dim
+    e.put("patch_embed.w", f"{prefix}patch_embedding.weight", dtype,
+          lambda w: w.permute(0, 2, 3, 1).reshape(d, -1))
+    e.put("cls", f"{prefix}cls_embedding", dtype, lambda t: t.reshape(1, d))
+    e.put("pos_embed", f"{prefix}pos_embedding", dtype,
+          lambda t: t.reshape(-1, d))
+    e.norm("pre_norm", f"{prefix}pre_norm", dtype)
+    for i in range(cfg.num_layers):
+        src, dst = f"{prefix}transformer.{i}", f"layers.{i}"
+        e.norm(f"{dst}.ln1", f"{src}.norm1", dtype)
+        e.norm(f"{dst}.ln2", f"{src}.norm2", dtype)
+        for j, k in enumerate("qkv"):
+            rows = slice(j * d, (j + 1) * d)
+            e.put(f"{dst}.attn.{k}.w", f"{src}.attn.to_qkv.weight", dtype,
+                  lambda w, r=rows: w[r])
+            e.put(f"{dst}.attn.{k}.b", f"{src}.attn.to_qkv.bias", dtype,
+                  lambda b, r=rows: b[r])
+        e.lin(f"{dst}.attn.o", f"{src}.attn.proj", dtype)
+        e.lin(f"{dst}.mlp.fc0", f"{src}.mlp.0", dtype)
+        e.lin(f"{dst}.mlp.fc1", f"{src}.mlp.2", dtype)
+    return _assemble(ClipVision(cfg, dtype=dtype, device="meta"), e)
+
+
+# the CLIP file's keys the visual tower's 31-block extraction never reads:
+# the XLM-R text side, the temperature, and the visual post-norm and head
+CLIP_UNREAD = ("textual.", "log_scale", "visual.post_norm.", "visual.head")
+
+
+def load_wan_animate_checkpoint(checkpoint_dir: str, animate_cfg, vae_cfg,
+                                clip_cfg=None, dtype=torch.bfloat16, *,
+                                device="cuda"):
+    """(WanAnimate, WanVAE, ClipVision or None) on `device` from a
+    reference WanAnimate checkpoint dir: the transformer's shards,
+    Wan2.1_VAE.pth (or Wan2.2_VAE.pth, vae.pth) in fp32 and, with
+    clip_cfg, models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth (or
+    clip.pth) in `dtype`. A key no converter reads raises (through
+    manifest.audited); in the CLIP file the keys of CLIP_UNREAD are
+    skipped."""
+    from .manifest import audited
+
+    model, _ = audited(
+        load_state_dict(checkpoint_dir),
+        lambda sd: convert_wan_animate(sd, animate_cfg, dtype,
+                                       device=device))
+    vae_path = next((p for p in (
+        os.path.join(checkpoint_dir, c)
+        for c in ("Wan2.1_VAE.pth", "Wan2.2_VAE.pth", "vae.pth"))
+        if os.path.exists(p)), None)
+    if vae_path is None:
+        raise FileNotFoundError(f"no VAE checkpoint in {checkpoint_dir}")
+    vae, _ = audited(load_state_dict(vae_path),
+                     lambda sd: convert_wan_vae(sd, vae_cfg, device=device))
+    clip = None
+    if clip_cfg is not None:
+        for cand in (
+                "models_clip_open-clip-xlm-roberta-large-vit-huge-14.pth",
+                "clip.pth"):
+            p = os.path.join(checkpoint_dir, cand)
+            if os.path.exists(p):
+                clip, _ = audited(
+                    load_state_dict(p),
+                    lambda sd: convert_clip_vit(sd, clip_cfg, dtype,
+                                                device=device),
+                    ignore=CLIP_UNREAD)
+                break
+    return model, vae, clip
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 
 The dataclasses (FusionConfig included), their defaults, the WAN_CONFIGS
 entries (`ti2v-5B`, the dual-expert `t2v-A14B` / `i2v-A14B`, `t2v-1.3B`,
-`tiny` and the dual-expert `tiny-moe-t2v` / `tiny-moe-i2v`) and the size
-tables are copied from the JAX package, which the port does not import.
+`tiny` and the dual-expert `tiny-moe-t2v` / `tiny-moe-i2v`), the
+ANIMATE_CONFIGS (`animate-14B`, `tiny-animate`) and the size tables are
+copied from the JAX package, which the port does not import.
 """
 
 from __future__ import annotations
@@ -272,6 +273,43 @@ def _tiny_moe(i2v: bool = False) -> WanModelSpec:
     return dataclasses.replace(
         base, name="tiny-moe-i2v" if i2v else "tiny-moe-t2v", dit=dit,
         moe_boundary=0.875)
+
+
+def animate_14b():
+    """WanAnimate-14B -> (animate_cfg, vae_cfg, clip_cfg): the model's
+    defaults, the Wan2.1 VAE (z 16, stride 4x8x8; t2v-1.3B's) and the
+    ViT-H/14 visual tower (ClipVisionConfig's defaults)."""
+    from ..models.wan.animate import ClipVisionConfig, WanAnimateConfig
+    vae = WanVAEConfig(
+        dim=96, dec_dim=96, z_dim=16,
+        temporal_downsample=(True, True, False), spatial_patch=1,
+        vae_stride=(4, 8, 8))
+    return WanAnimateConfig(), vae, ClipVisionConfig()
+
+
+def animate_tiny():
+    """Hermetic smoke shape of the animate CLI path (head dim 8: the
+    reference attention route)."""
+    from ..models.wan.animate import ClipVisionConfig, WanAnimateConfig
+    acfg = WanAnimateConfig(
+        patch_size=(1, 2, 2), text_len=12, in_dim=12, dim=32, ffn_dim=64,
+        freq_dim=16, text_dim=24, out_dim=4, num_heads=4, num_layers=5,
+        motion_encoder_dim=16, clip_tokens=5, clip_dim=16, motion_size=16,
+        motion_dim=4, vae_z_dim=4, face_width=8,
+        motion_channels=((4, 16), (8, 16), (16, 8)))
+    vae = WanVAEConfig(
+        dim=8, dec_dim=8, z_dim=4, dim_mult=(1, 2, 2, 2),
+        num_res_blocks=1, temporal_downsample=(False, True, True),
+        spatial_patch=2)
+    clip = ClipVisionConfig(image_size=28, patch_size=14, dim=16,
+                            num_heads=2, num_layers=2)
+    return acfg, vae, clip
+
+
+ANIMATE_CONFIGS = {
+    "animate-14B": animate_14b,
+    "tiny-animate": animate_tiny,
+}
 
 
 WAN_CONFIGS = {

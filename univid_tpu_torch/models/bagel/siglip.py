@@ -20,6 +20,7 @@ import torch.nn as nn
 
 from ...core import nn as unn
 from ...kernels.attention import attention
+from ...ops.resize import resize_weights
 
 
 @dataclass(frozen=True)
@@ -82,21 +83,8 @@ def init_siglip(gen: torch.Generator, cfg: SiglipConfig, *,
 
 def _resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
     """[in, out] weights of jax.image.resize's 'bilinear' method along one
-    axis (jax._src.image.scale.compute_weight_mat with antialias): a
-    triangle kernel widened by 1/scale when downsampling, each output
-    column normalised to sum 1, columns outside the input zeroed; fp32."""
-    inv_scale = 1.0 / (out_size / in_size)
-    kernel_scale = max(inv_scale, 1.0)
-    f32 = dict(dtype=torch.float32, device=device)
-    sample_f = (torch.arange(out_size, **f32) + 0.5) * inv_scale - 0.5
-    x = (sample_f[None, :] - torch.arange(in_size, **f32)[:, None]).abs() \
-        / kernel_scale
-    w = (1.0 - x.abs()).clamp_min(0.0)
-    total = w.sum(dim=0, keepdim=True)
-    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
-                    w / torch.where(total != 0, total, 1.0), 0.0)
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return torch.where(inside[None, :], w, 0.0)
+    axis (`ops.resize.resize_weights`)."""
+    return resize_weights(in_size, out_size, device, "bilinear")
 
 
 def vit_aligned_resize(image: torch.Tensor, patch: int, max_side: int
