@@ -198,14 +198,16 @@ Phases:
      against the CPU (fp32, 8 frames of mixed aspect ratios and a
      question: rel. L2 < 1e-4);
  12. drive the Wan serving knobs: ti2v-5B with fusion, --mode t2v at
-     1280x704x121, full depth and width, with --bf16_softmax --qk_int8
+     1280x704x41 (KNOB_FRAMES, cut from 121 for the time limit), full depth and
+     width, with --bf16_softmax --qk_int8
      --int8 --taylorseer 2, 6 steps (5 DiT calls); check the mp4 and the
      launches (per DiT call 30 int8 bf16-softmax self-attention, 30
      bf16-softmax cross-attention, 60 norm-only q / k pre-passes, 30 int8
      pre-passes of two launches, 300 W8A8 GEMMs; no knob-free attention,
      none on the mma.sync int8 kernel); print seconds per DiT and per
      Taylor step, for the video, peak memory; time the ti2v-5B DiT
-     forward bare, with each knob alone and all four (one timed forward
+     forward at 1280x704x121 bare, with each knob alone and all four (one
+     timed forward
      each, after one whose launches are checked), and profile one bare and
      one with
      qk_int8 alone (device time by kernel family, the q / k pre-passes
@@ -275,6 +277,23 @@ motion encoder's seconds, peak memory by phase, the last forward profiled
 (`animate_main_path`); then one bare 1280x720x77 forward on the same DiT
 and its self-attention and face call alone at that shape
 (`animate_dit_720p`).
+The animate preprocess (no kernel: JAX's SAM2 attention is plain einsums,
+its ONNX executor numpy): in phase 4 the host libraries it imports (cv2,
+PIL, imageio, scipy), the ONNX op catalogue of the CPU tests
+(`onnx_op_cases`) and a one-block ViTPose-H-shaped graph through
+OnnxSession on cuda against the CPU session, and two SAM2 predictor runs
+(tiny_sam2_config(64); Hiera-L's widths at a 256 image, depth cut), one
+click frame and three propagated, card against CPU (low-res logits rel.
+L2 < 1e-4, mask slots equal; `small_preprocess_parity`); after the animate
+paths, the port's preprocess CLI in a subprocess with --replace_flag at
+the default 1280x720 area on a PREP_FRAMES-frame drive video written on
+the card, --ckpt_path holding the full SAM2.1 Hiera-L .pt written from
+manifests/sam2_hiera_large.json and a ViTPose-H-shaped graph of
+PREP_POSE_BLOCKS blocks: the src_* files at the JAX chain's frame counts
+and sizes, 0/1 masks, finite logits, 4 conditioning and 12 propagated
+SAM2 steps over the 57,436-key bank; SAM2's seconds a step by stage
+(CUDA events), the pose graph's seconds a frame, the host's share, the
+peak memory (`preprocess_main_path`).
 Each path starts with every launch count at 0; the paths of phases 5-9
 and 12 also check their bf16 forward launches by kernel (every unmasked,
 segment and packed forward on the sm90 kernel, every causal one on the
@@ -6946,6 +6965,12 @@ H100_INT8_OPS = 1979e12    # dense tensor-core int8 (SXM data sheet)
 KNOB_STEPS = 6
 KNOB_TAYLORSEER = 2
 KNOB_FORWARDS = 5
+# the knob CLI run's frames: cut from 121 for the time limit (on an H100
+# 80GB HBM3 at 700 W the path took 129.8 s at 121 frames, 58.7 s of it the
+# 121-frame decode, which the ti2v-5B path runs again at the same shape);
+# 11 latent frames, 9,680 tokens. The per-knob DiT forwards keep the full
+# 121-frame shape.
+KNOB_FRAMES = 41
 # the knob kernels' counters and the paths whose launches the kernels line
 # gives them: the all-knob CLI run, or the DiT forward with that knob alone
 KNOB_OWNERS = {"flash_attention_int8_sbf16": "knobs",
@@ -7487,13 +7512,14 @@ def _knob_forward_times(spec, forwards):
 
 def knob_main_path(output_dir):
     """The knob path: ti2v-5B with BAGEL fusion (the CLI default) at
-    1280x704x121, full depth and width, random weights from a seed,
+    1280x704xKNOB_FRAMES (41; the full request is 121), full depth and
+    width, random weights from a seed,
     --mode t2v --bf16_softmax --qk_int8 --int8 --taylorseer 2, 6 steps,
     through the port's CLI. Checks the mp4, the fusion context, and the
     launches: per DiT call 30 int8 + bf16-softmax self-attention, 30
     bf16-softmax cross-attention, 60 norm-only and 30 int8 pre-passes,
     300 W8A8 GEMMs, 5 DiT calls (1 Taylor step skips it), no knob-free
-    attention; 31 d=1024 VAE
+    attention; (KNOB_FRAMES - 1) / 4 + 1 d=1024 VAE
     attention calls. Prints seconds per DiT step and per Taylor step, for
     the video, peak memory; then times the ti2v-5B DiT forward with each
     knob alone and all four, one forward each. Returns {path: launches}."""
@@ -7515,7 +7541,7 @@ def knob_main_path(output_dir):
     t0 = time.perf_counter()
     meta = inference.main([
         "--model", "ti2v-5B", "--mode", "t2v", "--mock_weights",
-        "--video_size", "1280x704", "--video_length", str(TI2V_FRAMES),
+        "--video_size", "1280x704", "--video_length", str(KNOB_FRAMES),
         "--steps", str(KNOB_STEPS), "--seed", "0", "--output_dir",
         output_dir, "--bf16_softmax", "--qk_int8", "--int8",
         "--taylorseer", str(KNOB_TAYLORSEER)])[0]
@@ -7523,7 +7549,7 @@ def knob_main_path(output_dir):
     launches = _all_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     f32_by_d = dict(fa.F32_LAUNCHES_BY_D)
-    n_dec = (TI2V_FRAMES - 1) // 4 + 1
+    n_dec = (KNOB_FRAMES - 1) // 4 + 1
     knobs = dict(softmax_bf16=True, qk_int8=True, int8=True)
     expected = dict(_knob_launches(knobs, KNOB_FORWARDS, 30),
                     flash_attention_f32=n_dec)
@@ -7532,7 +7558,7 @@ def knob_main_path(output_dir):
     frames = read_video_frames(meta["video_path"])
     log(json.dumps({
         "phase": "knob_main_path", "model": "ti2v-5B", "mode": "t2v",
-        "resolution": f"1280x704x{TI2V_FRAMES}", "steps": KNOB_STEPS,
+        "resolution": f"1280x704x{KNOB_FRAMES}", "steps": KNOB_STEPS,
         "knobs": meta["knobs"], "seconds": wall,
         "generation_time_s": meta["generation_time_s"],
         "phase_times_s": phases,
@@ -7546,10 +7572,10 @@ def knob_main_path(output_dir):
         fail(f"knob path launch counts {launches} != {expected}")
     # the bf16-softmax cross-attention (self-attention takes int8 QK^T)
     check_impl("knob path", KNOB_FORWARDS * 30)
-    if len(frames) != TI2V_FRAMES or frames[0].shape != (704, 1280, 3) \
+    if len(frames) != KNOB_FRAMES or frames[0].shape != (704, 1280, 3) \
             or meta["context_path"] != "bagel_fusion":
-        fail("the knob path's mp4 is not 121 frames of 704x1280 from the "
-             "BAGEL fusion context")
+        fail(f"the knob path's mp4 is not {KNOB_FRAMES} frames of 704x1280 "
+             "from the BAGEL fusion context")
     if peak >= 80.0:
         fail(f"knob path peak memory {peak:.1f} GB")
     del meta
@@ -9363,6 +9389,997 @@ def tp_main_path(output_dir):
             "tp_dit": total("dit"), "tp_qwen": total("qwen")}
 
 
+# ---------------------------------------------------------------------------
+# the animate preprocess (the twenty-fifth slice): the ONNX detectors on
+# torch, the SAM2.1 Hiera-L video segmenter, cli/preprocess_animate.py
+# ---------------------------------------------------------------------------
+
+PREP_FRAMES = 16        # the drive video's frames: a cut of a clip (the
+                        # reference chunks 400); 16 keeps the 400-frame
+                        # chunk's 4 key frames (0, 4, 8, 12) and 12
+                        # propagated frames, so the 6-slot ring wraps
+PREP_POSE_BLOCKS = 4    # of ViTPose-H's 32 blocks in the written graph
+PREP_SIZE = (720, 1280)  # the drive video, at the CLI's default area
+PREP_SEED = 191         # the .pt's and the graph's draws
+PREP_DEADLINE = 600     # s the CLI's subprocess may take
+SAM2_KEYS_FULL = 8 * 4096 + 6 * 4096 + (8 + 15) * 4   # 57,436 memory keys
+
+
+# a minimal ONNX protobuf writer (no `onnx` package): ModelProto.graph with
+# nodes, initializers and typed inputs / outputs, the fields the port's
+# parser reads
+
+def _pb_uvarint(v):
+    out = b""
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if v:
+            out += bytes([b | 0x80])
+        else:
+            return out + bytes([b])
+
+
+def _pb_varint(v):   # int64: negatives as two's complement
+    return _pb_uvarint(v & ((1 << 64) - 1))
+
+
+def _pb_tag(fn, wt):
+    return _pb_uvarint((fn << 3) | wt)
+
+
+def _pb_ld(fn, payload):
+    return _pb_tag(fn, 2) + _pb_uvarint(len(payload)) + payload
+
+
+_ONNX_DTYPE = {"float32": 1, "uint8": 2, "int32": 6, "int64": 7, "bool": 9,
+               "float64": 11}
+
+
+def onnx_tensor(name, arr):
+    """TensorProto: dims, data_type, name, raw_data (a 0-d array is
+    written as [1])."""
+    import numpy as np
+
+    arr = np.ascontiguousarray(arr)
+    out = b"".join(_pb_tag(1, 0) + _pb_varint(d) for d in arr.shape)
+    out += _pb_tag(2, 0) + _pb_uvarint(_ONNX_DTYPE[arr.dtype.name])
+    return out + _pb_ld(8, name.encode()) + _pb_ld(9, arr.tobytes())
+
+
+def onnx_attr(name, value):
+    import struct
+
+    import numpy as np
+
+    out = _pb_ld(1, name.encode())
+    if isinstance(value, float):
+        return out + _pb_tag(2, 5) + struct.pack("<f", value)
+    if isinstance(value, (bool, int)):
+        return out + _pb_tag(3, 0) + _pb_varint(int(value))
+    if isinstance(value, bytes):
+        return out + _pb_ld(4, value)
+    if isinstance(value, np.ndarray):
+        return out + _pb_ld(5, onnx_tensor("", value))
+    if all(isinstance(v, int) for v in value):
+        return out + _pb_ld(8, b"".join(_pb_varint(v) for v in value))
+    return out + _pb_ld(7, struct.pack(f"<{len(value)}f", *value))
+
+
+def onnx_node(op, inputs, outputs, **attrs):
+    out = b"".join(_pb_ld(1, n.encode()) for n in inputs)
+    out += b"".join(_pb_ld(2, n.encode()) for n in outputs)
+    out += _pb_ld(4, op.encode())
+    return out + b"".join(_pb_ld(5, onnx_attr(k, v))
+                          for k, v in attrs.items())
+
+
+def _onnx_value_info(name, shape):
+    dims = b"".join(_pb_ld(1, _pb_tag(1, 0) + _pb_varint(d)) for d in shape)
+    ttype = _pb_ld(1, _pb_tag(1, 0) + _pb_uvarint(1) + _pb_ld(2, dims))
+    return _pb_ld(1, name.encode()) + _pb_ld(2, ttype)
+
+
+def onnx_model(nodes, inputs, outputs, initializers=()):
+    """ModelProto bytes: nodes, [(name, shape)] inputs and outputs,
+    [(name, array)] initializers."""
+    g = b"".join(_pb_ld(1, n) for n in nodes)
+    g += b"".join(_pb_ld(5, onnx_tensor(k, v)) for k, v in initializers)
+    g += b"".join(_pb_ld(11, _onnx_value_info(k, s)) for k, s in inputs)
+    g += b"".join(_pb_ld(12, _onnx_value_info(k, s)) for k, s in outputs)
+    return _pb_ld(7, g)
+
+
+def _onnx_case(nodes, feeds, inits=(), outputs=("y",)):
+    """(model bytes, numpy feeds, output names)."""
+    return (onnx_model(nodes, [(k, v.shape) for k, v in feeds.items()],
+                       [(o, [0]) for o in outputs], list(inits)),
+            feeds, list(outputs))
+
+
+def onnx_op_cases():
+    """{name: (model, feeds, outputs)}: the op set of the port's ONNX
+    executor (data/onnx_rt.py), each case from its own seed. The CPU tests
+    hold these against the JAX package's numpy executor; the card run
+    holds the CUDA session against the CPU one."""
+    import zlib
+
+    import numpy as np
+
+    def case(name):
+        rng = np.random.default_rng(zlib.crc32(name.encode()))
+
+        def f(*shape):
+            return rng.standard_normal(shape).astype(np.float32)
+
+        return f
+
+    def i64(*vals):
+        return np.asarray(vals, np.int64)
+
+    node = onnx_node
+    cases = {}
+
+    def add(name, build):
+        cases[name] = build(case(name))
+
+    for name, (g, s, p, d) in {"conv": (1, 1, 1, 1),
+                               "conv_group_stride": (2, 2, 0, 1),
+                               "conv_depthwise_dilated": (4, 1, 2, 2)}.items():
+        add(name, lambda f, g=g, s=s, p=p, d=d: _onnx_case(
+            [node("Conv", ["x", "w", "b"], ["y"], group=g, strides=[s, s],
+                  dilations=[d, d], pads=[p, p + 1, p, p])],
+            {"x": f(2, 4, 13, 11)}, [("w", f(8, 4 // g, 3, 3)),
+                                     ("b", f(8))]))
+    add("conv_same_upper", lambda f: _onnx_case(
+        [node("Conv", ["x", "w"], ["y"], auto_pad=b"SAME_UPPER",
+              strides=[2, 2])], {"x": f(1, 3, 10, 9)},
+        [("w", f(5, 3, 4, 4))]))
+    add("conv_transpose", lambda f: _onnx_case(
+        [node("ConvTranspose", ["x", "w", "b"], ["y"], strides=[2, 2],
+              pads=[1, 0, 1, 2], output_padding=[1, 0], group=2)],
+        {"x": f(1, 6, 8, 7)}, [("w", f(6, 3, 4, 4)), ("b", f(6))]))
+    add("maxpool_upsample", lambda f: _onnx_case(
+        [node("MaxPool", ["x"], ["p"], kernel_shape=[2, 2], strides=[2, 2]),
+         node("Resize", ["p", "", "scales"], ["y"], mode=b"nearest",
+              coordinate_transformation_mode=b"asymmetric",
+              nearest_mode=b"floor")], {"x": f(1, 3, 10, 10)},
+        [("scales", np.array([1, 1, 2, 2], np.float32))]))
+    for name, op, attrs in (
+            ("maxpool_pad_ceil_dilation", "MaxPool",
+             dict(kernel_shape=[3, 2], strides=[2, 2], pads=[1, 0, 1, 1],
+                  ceil_mode=1, dilations=[1, 2])),
+            ("avgpool_exclude_pad", "AveragePool",
+             dict(kernel_shape=[3, 3], strides=[2, 2], pads=[1, 1, 1, 1])),
+            ("avgpool_include_pad", "AveragePool",
+             dict(kernel_shape=[3, 3], strides=[2, 1], pads=[1, 1, 1, 1],
+                  count_include_pad=1)),
+            ("global_avgpool", "GlobalAveragePool", {})):
+        add(name, lambda f, op=op, attrs=attrs: _onnx_case(
+            [node(op, ["x"], ["y"], **attrs)], {"x": f(2, 3, 11, 9)}))
+    for name, mode, ct, nearest, sizes in (
+            ("resize_linear_half_pixel", "linear", "half_pixel", None, None),
+            ("resize_linear_align_corners", "linear", "align_corners", None,
+             (1, 2, 9, 4)),
+            ("resize_linear_asymmetric", "linear", "asymmetric", None, None),
+            ("resize_nearest_round_floor", "nearest", "half_pixel",
+             "round_prefer_floor", None),
+            ("resize_nearest_round_ceil", "nearest", "half_pixel",
+             "round_prefer_ceil", (1, 2, 3, 11)),
+            ("resize_nearest_ceil", "nearest", "asymmetric", "ceil", None)):
+        attrs = dict(mode=mode.encode(),
+                     coordinate_transformation_mode=ct.encode())
+        if nearest:
+            attrs["nearest_mode"] = nearest.encode()
+        inputs, inits = (["x", "", "", "sizes"], [("sizes", i64(*sizes))]) \
+            if sizes else (["x", "", "scales"], [
+                ("scales", np.array([1, 1, 2.5, 1.5], np.float32))])
+        add(name, lambda f, inputs=inputs, inits=inits, attrs=attrs:
+            _onnx_case([node("Resize", inputs, ["y"], **attrs)],
+                       {"x": f(1, 2, 5, 7)}, inits))
+    add("transformer_block", lambda f: _onnx_case(
+        [node("LayerNormalization", ["x", "g", "b"], ["ln"], epsilon=1e-5),
+         node("MatMul", ["ln", "w"], ["mm"]),
+         node("Softmax", ["mm"], ["sm"], axis=-1),
+         node("Gemm", ["sm", "w", "c"], ["y"], alpha=0.5, beta=2.0,
+              transB=1)], {"x": f(5, 16)},
+        [("w", f(16, 16)), ("g", f(16)), ("b", f(16)), ("c", f(16))]))
+    add("gemm_trans_a", lambda f: _onnx_case(
+        [node("Gemm", ["a", "b"], ["y"], transA=1)],
+        {"a": f(6, 4), "b": f(6, 3)}))
+    add("batch_instance_norm", lambda f: _onnx_case(
+        [node("BatchNormalization", ["x", "s", "b", "m", "v"], ["bn"],
+              epsilon=1e-3),
+         node("InstanceNormalization", ["bn", "s", "b"], ["y"])],
+        {"x": f(2, 4, 5, 6)}, [("s", f(4)), ("b", f(4)), ("m", f(4)),
+                               ("v", np.abs(f(4)) + 0.5)]))
+    # a ViT export's shape arithmetic: Shape -> Gather -> Concat ->
+    # Reshape, with Range, ConstantOfShape and Expand
+    add("shape_plumbing", lambda f: _onnx_case(
+        [node("Shape", ["x"], ["s"]),
+         node("Gather", ["s", "i0"], ["b"], axis=0),
+         node("Gather", ["s", "i1"], ["n"], axis=0),
+         node("Concat", ["b", "n", "two", "m1"], ["shp"], axis=0),
+         node("Reshape", ["x", "shp"], ["r"]),
+         node("Transpose", ["r"], ["t"], perm=[0, 2, 1, 3]),
+         node("Squeeze", ["n", "ax0"], ["n0"]),
+         node("Squeeze", ["zero"], ["zero0"]),
+         node("Squeeze", ["one"], ["one0"]),
+         node("Range", ["zero0", "n0", "one0"], ["ar"]),
+         node("Cast", ["ar"], ["arf"], to=1),
+         node("ConstantOfShape", ["s"], ["c"],
+              value=np.array([0.5], np.float32)),
+         node("Unsqueeze", ["arf", "ax1"], ["aru"]),
+         node("Expand", ["aru", "s"], ["e"]),
+         node("Add", ["c", "e"], ["ce"]),
+         node("Reshape", ["ce", "shp"], ["cer"]),
+         node("Transpose", ["cer"], ["cet"], perm=[0, 2, 1, 3]),
+         node("Add", ["t", "cet"], ["y"])], {"x": f(2, 6, 8)},
+        [("i0", i64(0)), ("i1", i64(1)), ("ax0", i64(0)), ("ax1", i64(1)),
+         ("two", i64(2)), ("m1", i64(-1)), ("zero", i64(0)),
+         ("one", i64(1))]))
+    add("slice_negative_step", lambda f: _onnx_case(
+        [node("Slice", ["x", "st", "en", "ax", "sp"], ["y"])],
+        {"x": f(4, 9, 5)}, [("st", i64(-1, 1)), ("en", i64(-2 ** 62, 8)),
+                            ("ax", i64(1, 2)), ("sp", i64(-2, 2))]))
+    add("slice_transpose_concat_reshape", lambda f: _onnx_case(
+        [node("Transpose", ["x"], ["t"], perm=[0, 2, 1]),
+         node("Slice", ["t", "st", "en", "ax"], ["s"]),
+         node("Concat", ["s", "s"], ["c"], axis=1),
+         node("Reshape", ["c", "shape"], ["y"])], {"x": f(2, 3, 4)},
+        [("st", i64(1)), ("en", i64(3)), ("ax", i64(1)),
+         ("shape", i64(2, -1))]))
+    add("split_sigmoid_mul", lambda f: _onnx_case(
+        [node("Split", ["x"], ["a", "b"], axis=1, num_outputs=2),
+         node("Sigmoid", ["a"], ["sa"]), node("Mul", ["a", "sa"], ["silu"]),
+         node("Add", ["silu", "b"], ["y"])], {"x": f(1, 8, 4, 4)}))
+    add("split_sizes", lambda f: _onnx_case(
+        [node("Split", ["x", "sz"], ["y", "z"], axis=2)], {"x": f(2, 3, 7)},
+        [("sz", i64(3, 4))], outputs=("y", "z")))
+    add("pad_constant", lambda f: _onnx_case(
+        [node("Pad", ["x", "p", "v"], ["y"])], {"x": f(2, 3, 4)},
+        [("p", i64(0, 1, 2, 1, 0, 3)), ("v", np.array(1.5, np.float32))]))
+    add("pad_reflect", lambda f: _onnx_case(
+        [node("Pad", ["x", "p"], ["y"], mode=b"reflect")], {"x": f(2, 5, 6)},
+        [("p", i64(0, 2, 1, 0, 3, 2))]))
+    add("pad_edge", lambda f: _onnx_case(
+        [node("Pad", ["x", "p"], ["y"], mode=b"edge")], {"x": f(3, 4)},
+        [("p", i64(2, 0, 1, 3))]))
+    add("einsum", lambda f: _onnx_case(
+        [node("Einsum", ["a", "b"], ["y"], equation=b"bij,bjk->bik")],
+        {"a": f(2, 3, 4), "b": f(2, 4, 5)}))
+    add("gather_negative", lambda f: _onnx_case(
+        [node("Gather", ["x", "i"], ["y"], axis=1)], {"x": f(3, 5, 2)},
+        [("i", np.array([[0, -1], [2, 4]], np.int64))]))
+    add("gather_elements", lambda f: _onnx_case(
+        [node("GatherElements", ["x", "i"], ["y"], axis=1)], {"x": f(3, 4)},
+        [("i", np.array([[0, 3], [1, -1], [2, 2]], np.int64))]))
+    add("squeeze_flatten_tile_where", lambda f: _onnx_case(
+        [node("Squeeze", ["x", "ax"], ["s"]),
+         node("Flatten", ["s"], ["fl"], axis=1),
+         node("Tile", ["fl", "rep"], ["t"]),
+         node("Greater", ["t", "zero"], ["m"]),
+         node("Where", ["m", "t", "zero"], ["y"])], {"x": f(2, 1, 3, 4)},
+        [("ax", i64(1)), ("rep", i64(2, 1)),
+         ("zero", np.array(0.0, np.float32))]))
+    add("argmax_ties", lambda f: _onnx_case(
+        [node("ArgMax", ["x"], ["y"], axis=1, keepdims=0)],
+        {"x": np.array([[1, 3, 3, 0], [2, 2, 2, 2], [0, 1, 5, 5]],
+                       np.float32)}))
+    add("topk_ties", lambda f: _onnx_case(
+        [node("TopK", ["x", "k"], ["y", "i"], axis=-1)],
+        {"x": np.array([[1, 3, 3, 0, 3], [2, 2, 1, 2, 2]], np.float32)},
+        [("k", i64(3))], outputs=("y", "i")))
+    add("topk_smallest", lambda f: _onnx_case(
+        [node("TopK", ["x", "k"], ["y", "i"], axis=0, largest=0)],
+        {"x": np.array([[4, 1], [1, 1], [1, 0]], np.float32)},
+        [("k", i64(2))], outputs=("y", "i")))
+    # numpy's promotion: an integer Div is a float64 true division
+    add("cast_int_div_mod", lambda f: _onnx_case(
+        [node("Cast", ["x"], ["xi"], to=7), node("Div", ["xi", "d"], ["q"]),
+         node("Mod", ["xi", "d"], ["r"]), node("Cast", ["r"], ["rf"], to=1),
+         node("Add", ["q", "rf"], ["y"])],
+        {"x": np.array([[7.9, -7.9, 12.0], [5.0, -3.5, 0.0]], np.float32)},
+        [("d", np.array([3, 3, 5], np.int64))]))
+    add("pow_int_exponent", lambda f: _onnx_case(
+        [node("Pow", ["a", "b"], ["y"])],
+        {"a": np.abs(f(3, 4)) + 0.5, "b": np.array([2, 3, 1, 0], np.int64)}))
+    add("float_mod", lambda f: _onnx_case(
+        [node("Mod", ["a", "b"], ["y"])], {"a": f(3, 4) * 5, "b": f(4) + 3}))
+    add("min_max", lambda f: _onnx_case(
+        [node("Min", ["a", "b"], ["m"]), node("Max", ["m", "a"], ["y"])],
+        {"a": f(3, 4), "b": f(4)}))
+    add("compare_logic", lambda f: _onnx_case(
+        [node("Equal", ["a", "b"], ["e"]), node("Less", ["a", "b"], ["l"]),
+         node("Or", ["e", "l"], ["o"]), node("Not", ["o"], ["n"]),
+         node("And", ["n", "l"], ["y"])],
+        {"a": np.array([1, 2, 3, 4], np.int64),
+         "b": np.array([1, 3, 2, 4], np.int64)}))
+    add("constant_variants", lambda f: _onnx_case(
+        [node("Constant", [], ["c1"], value_float=0.25),
+         node("Constant", [], ["c2"], value_floats=[1.0, 2.0, 3.0]),
+         node("Constant", [], ["c3"], value=np.full((3,), 2.0, np.float32)),
+         node("Mul", ["x", "c1"], ["m"]), node("Add", ["m", "c2"], ["a"]),
+         node("Sub", ["a", "c3"], ["y"])], {"x": f(2, 3)}))
+    add("clip_inputs_and_attrs", lambda f: _onnx_case(
+        [node("Clip", ["x", "lo", "hi"], ["c"]),
+         node("Clip", ["c"], ["y"], min=-0.25)], {"x": f(4, 5)},
+        [("lo", np.array(-0.5, np.float32)),
+         ("hi", np.array(0.75, np.float32))]))
+    add("dropout_identity_size", lambda f: _onnx_case(
+        [node("Dropout", ["x"], ["d"]), node("Identity", ["d"], ["y"]),
+         node("Size", ["x"], ["z"])], {"x": f(2, 3)}, outputs=("y", "z")))
+    add("nms", lambda f: _onnx_case(
+        [node("NonMaxSuppression", ["b", "s", "k", "iou", "th"], ["y"])],
+        {"b": np.array([[[0, 0, 10, 10], [1, 1, 10, 10], [20, 20, 25, 25]]],
+                       np.float32),
+         "s": np.array([[[0.9, 0.8, 0.7], [0.1, 0.6, 0.9]]], np.float32)},
+        [("k", i64(5)), ("iou", np.array([0.5], np.float32)),
+         ("th", np.array([0.05], np.float32))]))
+    for op, attrs in (("Relu", {}), ("Sigmoid", {}), ("Tanh", {}),
+                      ("Exp", {}), ("Neg", {}), ("Abs", {}), ("Floor", {}),
+                      ("Ceil", {}), ("Erf", {}), ("Softplus", {}),
+                      ("HardSwish", {}), ("Mish", {}), ("Gelu", {}),
+                      ("LeakyRelu", dict(alpha=0.1)),
+                      ("HardSigmoid", dict(alpha=0.3, beta=0.4))):
+        add(f"unary_{op}", lambda f, op=op, attrs=attrs: _onnx_case(
+            [node(op, ["x"], ["y"], **attrs)], {"x": f(3, 5, 7)}))
+    add("unary_Log_Sqrt", lambda f: _onnx_case(
+        [node("Abs", ["x"], ["a"]), node("Log", ["a"], ["l"]),
+         node("Sqrt", ["a"], ["s"]), node("Add", ["l", "s"], ["y"])],
+        {"x": f(3, 4) + 0.01}))
+    for op in ("ReduceMean", "ReduceSum", "ReduceMax", "ReduceMin",
+               "ReduceProd", "ReduceL2"):
+        add(f"{op}_axes", lambda f, op=op: _onnx_case(
+            [node(op, ["x"], ["y"], axes=[0, -1], keepdims=1)],
+            {"x": f(2, 3, 4)}))
+    add("ReduceMean_all", lambda f: _onnx_case(
+        [node("ReduceMean", ["x"], ["y"], keepdims=0)], {"x": f(2, 3, 4)}))
+    add("ReduceSum_axes_input", lambda f: _onnx_case(
+        [node("ReduceSum", ["x", "ax"], ["y"], keepdims=0)],
+        {"x": f(2, 3, 4)}, [("ax", i64(1))]))
+    add("ReduceSum_int", lambda f: _onnx_case(
+        [node("Cast", ["x"], ["xi"], to=6),
+         node("ReduceSum", ["xi"], ["y"], axes=[1])], {"x": f(3, 4) * 10}))
+    return cases
+
+
+VITPOSE_H = dict(dim=1280, heads=16, mlp=5120, patch=16, input=(256, 192),
+                 deconv=256, keypoints=133)
+
+
+def vitpose_onnx(blocks, seed=PREP_SEED, width=VITPOSE_H):
+    """An ONNX graph in ViTPose-H's shape (the published
+    vitpose_h_wholebody end2end export's op set): a [1, 3, 256, 192]
+    input, a 16x16 patch embedding to 1280 plus a position embedding,
+    `blocks` pre-norm blocks (16 heads of d = 80 by MatMul / Softmax, MLP
+    5120 with GELU through Erf), a last LayerNorm, two 4x4 stride-2
+    deconvolutions to 256 channels with BatchNorm and ReLU, a 1x1 conv to
+    133 heatmaps of 64x48. Weights U(+-1/sqrt(fan_in)) from `seed`, norm
+    gains 1 and biases 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d, nh, hid = width["dim"], width["heads"], width["mlp"]
+    ph, pw = (s // width["patch"] for s in width["input"])
+    n, hd = ph * pw, d // nh
+
+    def w(*shape, fan_in=None):
+        lim = 1.0 / math.sqrt(fan_in or shape[0])
+        return rng.uniform(-lim, lim, shape).astype(np.float32)
+
+    def c(name, arr):
+        inits.append((name, np.asarray(arr)))
+        return name
+
+    def i64(*v):
+        return np.asarray(v, np.int64)
+
+    node = onnx_node
+    inits = []
+    ones, zeros = np.ones(d, np.float32), np.zeros(d, np.float32)
+    p = width["patch"]
+    nodes = [
+        node("Conv", ["input", c("pe_w", w(d, 3, p, p, fan_in=3 * p * p)),
+                      c("pe_b", np.zeros(d, np.float32))], ["pe"],
+             strides=[p, p]),
+        node("Reshape", ["pe", c("flat", i64(1, d, -1))], ["pe_f"]),
+        node("Transpose", ["pe_f"], ["tok"], perm=[0, 2, 1]),
+        node("Add", ["tok", c("pos", 0.02 * rng.standard_normal(
+            (1, n, d)).astype(np.float32))], ["x0"])]
+    c("ln_g", ones)
+    c("ln_b", zeros)
+    c("scale", np.array([1.0 / math.sqrt(hd)], np.float32))
+    c("sqrt2", np.array([math.sqrt(2.0)], np.float32))
+    c("one", np.array([1.0], np.float32))
+    c("half", np.array([0.5], np.float32))
+    c("heads", i64(1, n, 3, nh, hd))
+    c("merge", i64(1, n, d))
+    c("ax0", i64(0))
+    x = "x0"
+    for i in range(blocks):
+        b = f"b{i}_"
+        nodes += [
+            node("LayerNormalization", [x, "ln_g", "ln_b"], [b + "ln1"],
+                 epsilon=1e-6),
+            node("MatMul", [b + "ln1", c(b + "qkv_w", w(d, 3 * d))],
+                 [b + "qkv0"]),
+            node("Add", [b + "qkv0", c(b + "qkv_b",
+                                       np.zeros(3 * d, np.float32))],
+                 [b + "qkv"]),
+            node("Reshape", [b + "qkv", "heads"], [b + "qkv5"]),
+            node("Transpose", [b + "qkv5"], [b + "qkvt"],
+                 perm=[2, 0, 3, 1, 4]),
+            node("Split", [b + "qkvt"], [b + "q5", b + "k5", b + "v5"],
+                 axis=0, num_outputs=3),
+            node("Squeeze", [b + "q5", "ax0"], [b + "q"]),
+            node("Squeeze", [b + "k5", "ax0"], [b + "k"]),
+            node("Squeeze", [b + "v5", "ax0"], [b + "v"]),
+            node("Transpose", [b + "k"], [b + "kt"], perm=[0, 1, 3, 2]),
+            node("MatMul", [b + "q", b + "kt"], [b + "s0"]),
+            node("Mul", [b + "s0", "scale"], [b + "s"]),
+            node("Softmax", [b + "s"], [b + "p"], axis=-1),
+            node("MatMul", [b + "p", b + "v"], [b + "o"]),
+            node("Transpose", [b + "o"], [b + "ot"], perm=[0, 2, 1, 3]),
+            node("Reshape", [b + "ot", "merge"], [b + "om"]),
+            node("MatMul", [b + "om", c(b + "proj_w", w(d, d))],
+                 [b + "pr0"]),
+            node("Add", [b + "pr0", c(b + "proj_b",
+                                      np.zeros(d, np.float32))],
+                 [b + "pr"]),
+            node("Add", [x, b + "pr"], [b + "x1"]),
+            node("LayerNormalization", [b + "x1", "ln_g", "ln_b"],
+                 [b + "ln2"], epsilon=1e-6),
+            node("MatMul", [b + "ln2", c(b + "fc1_w", w(d, hid))],
+                 [b + "h0"]),
+            node("Add", [b + "h0", c(b + "fc1_b",
+                                     np.zeros(hid, np.float32))],
+                 [b + "h"]),
+            node("Div", [b + "h", "sqrt2"], [b + "hs"]),
+            node("Erf", [b + "hs"], [b + "he"]),
+            node("Add", [b + "he", "one"], [b + "he1"]),
+            node("Mul", [b + "h", b + "he1"], [b + "hm"]),
+            node("Mul", [b + "hm", "half"], [b + "g"]),
+            node("MatMul", [b + "g", c(b + "fc2_w", w(hid, d))],
+                 [b + "m0"]),
+            node("Add", [b + "m0", c(b + "fc2_b",
+                                     np.zeros(d, np.float32))],
+                 [b + "m"]),
+            node("Add", [b + "x1", b + "m"], [b + "x2"])]
+        x = b + "x2"
+    dc = width["deconv"]
+    nodes += [
+        node("LayerNormalization", [x, "ln_g", "ln_b"], ["last"],
+             epsilon=1e-6),
+        node("Transpose", ["last"], ["last_t"], perm=[0, 2, 1]),
+        node("Reshape", ["last_t", c("grid", i64(1, d, ph, pw))], ["feat"])]
+    cin = d
+    for j in range(2):
+        nodes += [
+            node("ConvTranspose", [f"feat{j}" if j else "feat",
+                                   c(f"dc{j}_w", w(cin, dc, 4, 4,
+                                                   fan_in=dc * 16))],
+                 [f"dc{j}"], strides=[2, 2], pads=[1, 1, 1, 1]),
+            node("BatchNormalization",
+                 [f"dc{j}", c(f"bn{j}_g", np.ones(dc, np.float32)),
+                  c(f"bn{j}_b", np.zeros(dc, np.float32)),
+                  c(f"bn{j}_m", np.zeros(dc, np.float32)),
+                  c(f"bn{j}_v", np.ones(dc, np.float32))], [f"bn{j}"],
+                 epsilon=1e-5),
+            node("Relu", [f"bn{j}"], [f"feat{j + 1}"])]
+        cin = dc
+    k = width["keypoints"]
+    nodes.append(node("Conv", ["feat2", c("head_w", w(k, dc, 1, 1,
+                                                      fan_in=dc)),
+                               c("head_b", np.zeros(k, np.float32))],
+                      ["heatmaps"]))
+    hh, ww = ph * 4, pw * 4
+    return onnx_model(nodes, [("input", [1, 3] + list(width["input"]))],
+                      [("heatmaps", [1, k, hh, ww])], inits)
+
+
+def sam2_state_dict(manifest, seed, device):
+    """A published-layout SAM2 state dict from a manifest, drawn on
+    `device` at the init's scale from `seed`: weights U(+-1/sqrt(fan_in)),
+    norm gains 1, biases 0, the position, memory-time and no-object
+    embeddings N(0, 0.02^2), the random-Fourier matrix N(0, 1), the layer
+    scales 1e-6. fp32."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for k, shape in sorted(manifest.items()):
+        f32 = dict(dtype=torch.float32, device=device)
+        if k.endswith("gaussian_matrix"):
+            v = torch.randn(shape, generator=g, **f32)
+        elif k.endswith(".gamma"):
+            v = torch.full(shape, 1e-6, **f32)
+        elif k.endswith(".weight") and len(shape) >= 2:
+            lim = 1.0 / math.sqrt(math.prod(shape[1:]))
+            v = torch.empty(shape, **f32).uniform_(-lim, lim, generator=g)
+        elif k.endswith(".weight"):
+            v = torch.ones(shape, **f32)
+        elif k.endswith(".bias"):
+            v = torch.zeros(shape, **f32)
+        else:
+            v = 0.02 * torch.randn(shape, generator=g, **f32)
+        out[k] = v
+    return out
+
+
+def hiera_flops(cfg, image_size):
+    """Multiply-adds x 2 of one Hiera trunk pass at image_size: the patch
+    embed, each block's qkv, (windowed or global) attention, projections,
+    MLP and dim-change shortcut, the way block_layout runs them."""
+    h = image_size // cfg.patch_stride
+    total = 2 * h * h * 3 * cfg.patch_kernel ** 2 * cfg.embed_dim
+    for spec in cfg.block_layout():
+        d, do, ws = spec["dim"], spec["dim_out"], spec["window"]
+        n = h * h
+        if spec["pooled"]:
+            h //= 2
+        nq = h * h
+        keys = ws * ws if ws else n          # keys a query attends
+        total += 2 * n * d * 3 * do          # qkv
+        total += 2 * 2 * nq * keys * do      # q.k and p.v
+        total += 2 * nq * do * do            # attn proj
+        total += 2 * 2 * nq * do * int(do * cfg.mlp_ratio)
+        if d != do:
+            total += 2 * n * d * do          # shortcut proj
+    return total
+
+
+def memory_attention_flops(cfg, keys):
+    """One memory-attention layer at a grid of cfg.feat_size^2 queries:
+    its self-attention, the cross-attention into `keys` memory keys (d
+    256 over kv 64) and the MLP, multiply-adds x 2."""
+    n, d = cfg.feat_size ** 2, cfg.d_model
+    self_attn = 2 * n * d * d * 4 + 2 * 2 * n * n * d
+    cross = 2 * n * d * d * 2 + 2 * keys * cfg.mem_dim * d * 2 \
+        + 2 * 2 * n * keys * d
+    return self_attn + cross + 2 * 2 * n * d * cfg.dim_feedforward
+
+
+def _host_libs():
+    """Which of the preprocess's host libraries import here."""
+    import importlib
+
+    out = {}
+    for name in ("cv2", "PIL", "imageio", "scipy"):
+        try:
+            mod = importlib.import_module(name)
+            out[name] = getattr(mod, "__version__", "yes")
+        except ImportError as e:
+            out[name] = f"missing: {e}"
+    return out
+
+
+def _hiera_l_widths(image_size):
+    """Hiera-L's widths and heads (embed 144, 2 heads doubling a stage,
+    memory d 256, decoder heads d 32 / 16), depth cut to 5 trunk blocks
+    and 2 memory layers."""
+    from univid_tpu_torch.models import sam2
+
+    return sam2.Sam2Config(
+        image_size=image_size,
+        hiera=sam2.HieraConfig(stages=(1, 1, 2, 1), global_att_blocks=(3,)),
+        head=sam2.SamHeadConfig(image_size=image_size,
+                                embedding_grid=image_size // 16),
+        memory=sam2.MemoryConfig(num_layers=2, feat_size=image_size // 16))
+
+
+def _sam2_track(model, cfg, frames, clicks):
+    """One click frame, the rest propagated: ([low-res logits], [slots])
+    in step order."""
+    import numpy as np
+
+    from univid_tpu_torch.models import sam2
+
+    pred = sam2.Sam2VideoPredictor(model, cfg)
+    state = pred.init_state_v2(list(frames))
+    pred.add_new_points(state, 0, 1, clicks, np.ones(len(clicks), np.int32))
+    list(pred.propagate_in_video(state))
+    low = [state["cond"][0]["mask"]] + [
+        state["tracked"][t]["mask"] for t in range(1, len(frames))]
+    slots = [state["cond"][0]["slot"]] + [
+        state["tracked"][t]["slot"] for t in range(1, len(frames))]
+    return low, slots
+
+
+def small_preprocess_parity():
+    """The new host libraries; the ONNX op cases (the CPU tests' graphs)
+    and a one-block ViTPose-H-shaped graph through OnnxSession on cuda
+    against the same session on the CPU; two SAM2 predictor runs on cuda
+    against the port on the CPU (tiny_sam2_config(64) and Hiera-L's
+    widths at a 256 image, grid 16, depth cut): one click frame and three
+    propagated frames, each frame's low-res logits (rel. L2 < 1e-4), the
+    chosen mask slot (equal) and the mask pixels that differ."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from univid_tpu_torch.data.onnx_rt import OnnxSession
+    from univid_tpu_torch.models import sam2
+
+    log(json.dumps({"check": "preprocess host libraries",
+                    "import": _host_libs()}))
+    worst = 0.0
+    for name, (model, feeds, outs) in sorted(onnx_op_cases().items()):
+        got = OnnxSession(model, device="cuda").run(outs, feeds)
+        want = OnnxSession(model, device="cpu").run(outs, feeds)
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                fail(f"ONNX case {name}: {g.shape} {g.dtype} on the card, "
+                     f"{w.shape} {w.dtype} on the CPU")
+            if np.issubdtype(w.dtype, np.floating):
+                err = float(np.max(np.abs(g - w) / (1e-6 + np.abs(w)))) \
+                    if w.size else 0.0
+                worst = max(worst, err)
+                if not np.allclose(g, w, rtol=1e-5, atol=1e-6):
+                    fail(f"ONNX case {name}: card vs CPU {err:.3g}")
+            elif not np.array_equal(g, w):
+                fail(f"ONNX case {name}: integer outputs differ")
+    graph = vitpose_onnx(1)
+    x = np.random.default_rng(5).standard_normal(
+        (1, 3) + VITPOSE_H["input"]).astype(np.float32)
+    (got,) = OnnxSession(graph, device="cuda").run(None, {"input": x})
+    (want,) = OnnxSession(graph, device="cpu").run(None, {"input": x})
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    log(json.dumps({"check": "onnx card vs CPU", "cases": len(
+        onnx_op_cases()), "worst_rel_err": worst,
+        "vitpose_h_1_block_rel_l2": rel, "heatmaps": list(got.shape),
+        "why": "fp32 with TF32 off on both: summation order and the "
+               "card's exp / erf"}))
+    if rel >= 1e-5 or got.shape != (1, 133, 64, 48):
+        fail(f"ViTPose-shaped graph card vs CPU rel. L2 {rel:.3g}")
+
+    for tag, cfg, hw in (("tiny_sam2_config(64)", sam2.tiny_sam2_config(64),
+                          (48, 40)),
+                         ("hiera_l_widths_256", _hiera_l_widths(256),
+                          (192, 160))):
+        gen = torch.Generator().manual_seed(7)
+        cpu = sam2.init_sam2(cfg, gen=gen, device="cpu")
+        card = copy.deepcopy(cpu).to("cuda")
+        rng = np.random.default_rng(3)
+        frames = rng.integers(0, 60, (4,) + hw + (3,)).astype(np.uint8)
+        h, w = hw
+        for t in range(4):
+            frames[t, h // 6 + 2 * t: h // 2 + 2 * t, w // 6: w // 2] = 230
+        clicks = np.array([[w / 3, h / 3], [w / 2.5, h / 2.5]], np.float32)
+        lo_c, sl_c = _sam2_track(card, cfg, frames, clicks)
+        lo_h, sl_h = _sam2_track(cpu, cfg, frames, clicks)
+        rels = [float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                for a, b in zip(lo_c, lo_h)]
+        diff = [int(((a > 0) != (b > 0)).sum()) for a, b in zip(lo_c, lo_h)]
+        log(json.dumps({"check": f"sam2 card vs CPU, {tag}",
+                        "image_size": cfg.image_size, "frames": 4,
+                        "low_res_rel_l2": rels, "slots_card": sl_c,
+                        "slots_cpu": sl_h, "mask_pixels_differ": diff,
+                        "low_res": list(lo_c[0].shape),
+                        "why": "fp32 with TF32 off on both: summation order"}))
+        if sl_c != sl_h or max(rels) >= 1e-4 \
+                or not all(np.isfinite(a).all() for a in lo_c):
+            fail(f"SAM2 {tag} card vs CPU: slots {sl_c} / {sl_h}, rel. L2 "
+                 f"{max(rels):.3g}")
+        del card, cpu
+    torch.cuda.empty_cache()
+
+
+def _prep_drive(root):
+    """A 16-frame 1280x720 drive video and a 720x1280 reference written
+    from seeded draws on the card: a bright figure walking over a noisy
+    background."""
+    import os
+
+    import torch
+    from PIL import Image
+
+    from univid_tpu_torch.data.video_io import save_video
+
+    g = torch.Generator(device="cuda").manual_seed(PREP_SEED)
+    h, w = PREP_SIZE
+    bg = torch.randint(0, 90, (1, h, w, 3), generator=g, device="cuda")
+    frames = bg.repeat(PREP_FRAMES, 1, 1, 1)
+    for t in range(PREP_FRAMES):
+        x0 = w // 3 + 12 * t
+        frames[t, h // 6: 5 * h // 6, x0: x0 + w // 8] = 230   # body
+        frames[t, h // 12: h // 6, x0 + w // 48: x0 + w // 12] = 250  # head
+    video = os.path.join(root, "drive.mp4")
+    save_video(frames.to(torch.uint8).cpu().numpy(), video, fps=30)
+    ref = torch.randint(0, 255, (w, h, 3), generator=g, device="cuda")
+    ref_path = os.path.join(root, "ref.png")
+    Image.fromarray(ref.to(torch.uint8).cpu().numpy()).save(ref_path)
+    return video, ref_path
+
+
+def _prep_ckpt(root):
+    """ckpt_path/sam2/sam2_hiera_large.pt (every key of
+    manifests/sam2_hiera_large.json drawn at the init's scale, under
+    "model") and ckpt_path/pose2d/vitpose_h_wholebody.onnx
+    (PREP_POSE_BLOCKS blocks); no det/, so Pose2dDriver takes the
+    full-frame box. Returns (seconds, bytes) of each."""
+    import os
+
+    import torch
+
+    from univid_tpu_torch.core.manifest import load_manifest
+
+    out = {}
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(root, "sam2"), exist_ok=True)
+    sd = sam2_state_dict(load_manifest(_manifest_path("sam2_hiera_large")),
+                         PREP_SEED, "cuda")
+    pt = os.path.join(root, "sam2", "sam2_hiera_large.pt")
+    torch.save({"model": {k: v.cpu() for k, v in sd.items()}}, pt)
+    out["sam2_pt"] = (time.perf_counter() - t0, os.path.getsize(pt),
+                      sum(v.numel() for v in sd.values()))
+    del sd
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(root, "pose2d"), exist_ok=True)
+    onnx = os.path.join(root, "pose2d", "vitpose_h_wholebody.onnx")
+    with open(onnx, "wb") as fh:
+        fh.write(vitpose_onnx(PREP_POSE_BLOCKS))
+    out["vitpose_onnx"] = (time.perf_counter() - t0, os.path.getsize(onnx))
+    return out
+
+
+class _StageClock:
+    """CUDA events around named calls, charged to the SAM2 step they run
+    in ("cond" or "prop", numbered); read after the run."""
+
+    def __init__(self):
+        self.step = None
+        self.steps = 0
+        self.events = []     # (step kind, step number, stage, start, end)
+
+    def wrap(self, fn, stage):
+        import torch
+
+        def timed(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            self.events.append(self.step + (stage, s, e))
+            return out
+        return timed
+
+    def step_wrap(self, fn, kind):
+        def stepped(*a, **kw):
+            self.step = (kind, self.steps)
+            self.steps += 1
+            try:
+                return self.wrap(fn, "step")(*a, **kw)
+            finally:
+                self.step = None
+        return stepped
+
+    def summary(self):
+        """{kind: [{stage: ms summed over the step's calls, "step": ms},
+        ...] in step order}."""
+        import torch
+
+        torch.cuda.synchronize()
+        steps = {}
+        for kind, n, stage, s, e in self.events:
+            rec = steps.setdefault((kind, n), {})
+            rec[stage] = rec.get(stage, 0.0) + s.elapsed_time(e)
+        out = {}
+        for (kind, _), rec in sorted(steps.items(), key=lambda kv:
+                                     kv[0][1]):
+            out.setdefault(kind, []).append(rec)
+        return out
+
+
+def prep_cli_child(argv):
+    """The CLI's main(argv) in this (child) process, with CUDA events
+    around each SAM2 step and its stages (the Hiera encode with the neck,
+    the memory attention with its bank, the SAM heads, the memory encode)
+    and around each ONNX run, host clocks around the checkpoint load and
+    main; the bundle's masks and every step's logits checked. Prints one
+    `prep_child` JSON line."""
+    import numpy as np
+    import torch
+
+    import univid_tpu_torch.core.checkpoint as ckpt
+    from univid_tpu_torch.cli import preprocess_animate
+    from univid_tpu_torch.data import animate_preprocess, onnx_rt
+    from univid_tpu_torch.models.sam2 import predictor
+
+    clock = _StageClock()
+    for name, stage in (("encode_frame", "encode"),
+                        ("memory_attention_forward", "memory_attention"),
+                        ("bank_memory", "memory_attention"),
+                        ("sam_heads", "heads"),
+                        ("memory_encoder_forward", "memory_encode")):
+        setattr(predictor, name, clock.wrap(getattr(predictor, name),
+                                            stage))
+    finite, keys = [], []
+    bank_memory = predictor.bank_memory
+
+    def counted_bank(*a, **kw):
+        out = bank_memory(*a, **kw)
+        keys.append(int(out[0].shape[1]))
+        return out
+
+    predictor.bank_memory = counted_bank
+    for name, step in (("cond_frame_step", "cond"),
+                       ("propagate_step", "prop")):
+        fn = clock.step_wrap(getattr(predictor, name), step)
+
+        def checked(*a, fn=fn, **kw):
+            out = fn(*a, **kw)
+            finite.append(torch.isfinite(out[0]).all())
+            return out
+        setattr(predictor, name, checked)
+    pose_ms = []
+    run = onnx_rt.OnnxSession.run
+
+    def timed_run(self, *a, **kw):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s.record()
+        out = run(self, *a, **kw)
+        e.record()
+        torch.cuda.synchronize()
+        pose_ms.append((s.elapsed_time(e), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    onnx_rt.OnnxSession.run = timed_run
+    load_s = []
+    load = ckpt.load_sam2_checkpoint
+
+    def timed_load(*a, **kw):
+        t0 = time.perf_counter()
+        out = load(*a, **kw)
+        torch.cuda.synchronize()
+        load_s.append(time.perf_counter() - t0)
+        return out
+
+    ckpt.load_sam2_checkpoint = timed_load
+    bundle = {}
+    save = animate_preprocess.AnimatePreprocessPipeline.save
+
+    def inspecting_save(self, b, *a, **kw):
+        bundle.update({k: (list(v.shape), str(v.dtype)) for k, v in
+                       b.items()})
+        bundle["mask_values"] = sorted(int(v) for v in
+                                       np.unique(b["aug_masks"]))
+        return save(self, b, *a, **kw)
+
+    animate_preprocess.AnimatePreprocessPipeline.save = inspecting_save
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    meta = preprocess_animate.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stages = clock.summary()
+    print("prep_child " + json.dumps({
+        "meta": meta, "wall_s": wall, "sam2_load_s": load_s,
+        "stages_ms": stages, "pose_ms": pose_ms, "memory_keys": keys,
+        "logits_finite": bool(torch.stack(finite).all()),
+        "bundle": bundle,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}),
+        flush=True)
+
+
+def preprocess_main_path(output_dir):
+    """The port's preprocess CLI in a subprocess (`python -m`-equivalent:
+    prep_cli_child runs its main with CUDA events around the stages) on the
+    card: --replace_flag at the default --resolution_area 1280 720, a
+    PREP_FRAMES-frame synthetic drive video, --ckpt_path holding the full
+    SAM2.1 Hiera-L .pt (224 M fp32 parameters, image 1024, a memory bank
+    of up to 57,436 keys) written from its manifest and a ViTPose-H-shaped
+    graph of PREP_POSE_BLOCKS blocks at full width. Checks the src_* files
+    (frame counts and sizes of the JAX chain: 720x1280 pose, background
+    and mask videos, 512x512 faces), 0/1 masks, finite logits, 4
+    conditioning and 12 propagated SAM2 steps, a full bank; logs seconds a
+    step by stage, the pose graph's seconds a frame, the host's share and
+    the peak memory."""
+    import os
+    import shutil
+
+    from univid_tpu_torch.data.animate_preprocess import fit_area_size
+    from univid_tpu_torch.data.video_io import read_video_frames
+
+    root = os.path.join(output_dir, "prep")
+    ckpt_dir = os.path.join(root, "ckpt")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    written = _prep_ckpt(ckpt_dir)
+    video, ref = _prep_drive(root)
+    write_s = time.perf_counter() - t0
+    save = os.path.join(root, "src")
+    argv = ["--video_path", video, "--refer_path", ref, "--save_path", save,
+            "--ckpt_path", ckpt_dir, "--replace_flag"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import json, sys, chip_smoke; "
+         "chip_smoke.prep_cli_child(json.loads(sys.argv[1]))",
+         json.dumps(argv)], capture_output=True, text=True,
+        timeout=PREP_DEADLINE)
+    sub_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-4000:])
+        fail(f"the preprocess CLI exited {proc.returncode}")
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("prep_child ")]
+    if not line:
+        fail("the preprocess CLI printed no prep_child line")
+    child = json.loads(line[-1][len("prep_child "):])
+    shutil.rmtree(ckpt_dir)
+
+    # the size the chain resizes to: the largest 16-aligned one of the
+    # default 1280x720 area at the drive video's aspect ratio
+    w, h = fit_area_size(PREP_SIZE[1], PREP_SIZE[0], 1280 * 720, 16)
+    want = {"src_pose.mp4": (h, w), "src_bg.mp4": (h, w),
+            "src_mask.mp4": (h, w), "src_face.mp4": (512, 512)}
+    decoded = {}
+    for name, hw in want.items():
+        path = os.path.join(save, name)
+        if not os.path.exists(path):
+            fail(f"preprocess: {name} missing")
+        frames = read_video_frames(path)
+        decoded[name] = [len(frames), list(frames[0].shape)]
+        if len(frames) != PREP_FRAMES or frames[0].shape != hw + (3,):
+            fail(f"preprocess: {name} is {decoded[name]}")
+    if not os.path.exists(os.path.join(save, "src_ref.png")):
+        fail("preprocess: src_ref.png missing")
+    st = child["stages_ms"]
+    n_cond, n_prop = len(st.get("cond", [])), len(st.get("prop", []))
+    bundle = child["bundle"]
+    ok = (child["logits_finite"] and set(bundle["mask_values"]) <= {0, 1}
+          and bundle["aug_masks"] == [[PREP_FRAMES, h, w], "uint8"]
+          and n_cond == 4 and n_prop == PREP_FRAMES - 4
+          and max(child["memory_keys"]) == SAM2_KEYS_FULL
+          and child["meta"]["frames"] == PREP_FRAMES
+          and child["meta"]["size"] == [h, w])
+
+    def per_step(kind):
+        """Seconds of a step of this kind: the first (the process's first
+        convolutions and products) and the median of the rest, in all and
+        by stage (the bank's assembly and the attention make
+        memory_attention)."""
+        recs = st.get(kind, [])
+        stages = ("step", "encode", "memory_attention", "heads",
+                  "memory_encode")
+        return {"first": {k: recs[0].get(k, 0.0) / 1e3 for k in stages},
+                "median": {k: statistics.median(
+                    r.get(k, 0.0) for r in recs[1:] or recs) / 1e3
+                    for k in stages}}
+
+    device_s = (sum(r["step"] for r in st.get("cond", []) + st.get(
+        "prop", [])) + sum(ms for ms, _ in child["pose_ms"])) / 1e3
+    from univid_tpu_torch.models.sam2 import Sam2Config
+    cfg = Sam2Config()
+    log(json.dumps({
+        "phase": "preprocess_main_path", "frames": PREP_FRAMES,
+        "video": f"{PREP_SIZE[1]}x{PREP_SIZE[0]}", "output": f"{w}x{h}",
+        "sam2": "SAM2.1 Hiera-L, fp32, TF32 off, "
+        "image 1024", "pose_graph_blocks": PREP_POSE_BLOCKS,
+        "written": written, "write_inputs_s": write_s,
+        "subprocess_s": sub_s, "cli_main_s": child["wall_s"],
+        "sam2_load_s": child["sam2_load_s"],
+        "sam2_s_per_step": {"cond": per_step("cond"),
+                            "prop": per_step("prop")},
+        "sam2_steps": [n_cond, n_prop],
+        "memory_keys": child["memory_keys"],
+        "hiera_tflop_per_frame": hiera_flops(cfg.hiera, 1024) / 1e12,
+        "memory_attention_tflop_per_layer_full_bank":
+            memory_attention_flops(cfg.memory, SAM2_KEYS_FULL) / 1e12,
+        "pose_graph_s_per_frame": [ms / 1e3 for ms, _ in child["pose_ms"]],
+        "pose_run_wall_s": [wl / 1e3 for _, wl in child["pose_ms"]],
+        "host_share": 1.0 - device_s / child["wall_s"],
+        "peak_memory_gb": child["peak_memory_gb"], "decoded": decoded,
+        "bundle": bundle, "logits_finite": child["logits_finite"]}))
+    if not ok:
+        fail(f"preprocess main path: {json.dumps(child)[:2000]}")
+
+
 def kernels_line(records, by_path, mask_records):
     """The `kernels` line: each kernel's record with the launches of the
     path it serves (None with --kernels-only) and `launches_by_path`."""
@@ -9587,7 +10604,9 @@ def main():
                           ("knob_parity", knob_parity),
                           ("small_kontext_parity",
                            lambda: small_kontext_parity(args.output_dir)),
-                          ("small_animate_parity", small_animate_parity)):
+                          ("small_animate_parity", small_animate_parity),
+                          ("small_preprocess_parity",
+                           small_preprocess_parity)):
             t0 = time.perf_counter()
             res = fn()
             log(json.dumps({"phase": phase,
@@ -9650,6 +10669,12 @@ def main():
         animate_dit_720p(pipe)
         del pipe
         log(json.dumps({"phase": "animate_dit_720p_total",
+                        "seconds": time.perf_counter() - t0}))
+        gc.collect()
+        torch.cuda.empty_cache()   # the CLI's process shares the card
+        t0 = time.perf_counter()
+        preprocess_main_path(args.output_dir)
+        log(json.dumps({"phase": "preprocess_main_path_total",
                         "seconds": time.perf_counter() - t0}))
         t0 = time.perf_counter()
         by_path["bagel_train"], by_path["bagel_registry"], reg_records = \

@@ -402,7 +402,7 @@ def run_animate(args):
     from ..core.dtypes import BF16_RESIDUAL_POLICY, DEFAULT_POLICY
     from ..data.video_io import save_video
     from ..pipelines.animate import WanAnimatePipeline
-    from ..utils.profiling import PhaseTimer
+    from ..utils.profiling import PhaseTimer, trace
 
     if not args.src_root_path:
         raise SystemExit("--mode animate needs --src_root_path (the "
@@ -425,13 +425,14 @@ def run_animate(args):
                               clip=clip, policy=policy, relight_lora=relight)
 
     t0 = time.time()
-    video = timer.time_phase(
-        "generate", pipe.generate, ctx, nctx, cond_video=cond,
-        face_video=face, ref_image=ref, bg_video=bg, mask_video=mask,
-        clip_len=args.clip_len, refert_num=args.refert_num,
-        shift=args.shift, sample_solver=args.solver,
-        sampling_steps=args.steps, guide_scale=args.guidance,
-        seed=args.seed, timer=timer)
+    with trace("generate"):
+        video = timer.time_phase(
+            "generate", pipe.generate, ctx, nctx, cond_video=cond,
+            face_video=face, ref_image=ref, bg_video=bg, mask_video=mask,
+            clip_len=args.clip_len, refert_num=args.refert_num,
+            shift=args.shift, sample_solver=args.solver,
+            sampling_steps=args.steps, guide_scale=args.guidance,
+            seed=args.seed, timer=timer)
     dt = time.time() - t0
 
     stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
@@ -463,7 +464,7 @@ def main(argv=None):
 
     from ..core.config import TMAConfig
     from ..data.video_io import save_video
-    from ..utils.profiling import PhaseTimer
+    from ..utils.profiling import PhaseTimer, trace
 
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to run the "
@@ -513,12 +514,14 @@ def main(argv=None):
                           tma=tma, timer=timer,
                           taylorseer_threshold=args.taylorseer)
         t0 = time.time()
-        if fusion is not None:
-            video = fusion.generate_video_with_bagel_context(
-                text=prompt, image=img, t5_context=ctx, t5_context_null=nctx,
-                null_context=args.null_context, **gen_kwargs)
-        else:
-            video = pipe.generate(ctx, nctx, img=img, **gen_kwargs)
+        with trace("generate"):
+            if fusion is not None:
+                video = fusion.generate_video_with_bagel_context(
+                    text=prompt, image=img, t5_context=ctx,
+                    t5_context_null=nctx, null_context=args.null_context,
+                    **gen_kwargs)
+            else:
+                video = pipe.generate(ctx, nctx, img=img, **gen_kwargs)
         frames_u8 = ((video.clamp(-1.0, 1.0) + 1.0) * 127.5).round() \
             .to(torch.uint8).cpu().numpy()
         dt = time.time() - t0

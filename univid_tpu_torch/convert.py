@@ -299,3 +299,25 @@ def clip_text_xlmr_from_jax(params, cfg: ClipTextXlmRobertaConfig, *,
                                device=device)
     return _load(model, jax_tree_to_state_dict(params, stacked="layers"),
                  dtype)
+
+
+def sam2_from_jax(params, cfg, *, device="cuda", dtype=None):
+    """univid_tpu init_sam2 / convert_sam2 tree -> the port's SAM2 module
+    (models.sam2.init_sam2's names): linears [in, out] -> [out, in]; convs
+    HWIO -> [Cout, Cin, kh, kw]; the mask decoder's transposed convs
+    (`upscale0`, `upscale1`) HWIO [k, k, in, out] -> [in, out, k, k], the
+    published layout, which the port's forward applies as the JAX one
+    does; every other leaf as it is."""
+    from .models.sam2 import init_sam2
+
+    model = init_sam2(cfg, dtype=dtype or torch.float32, device=device)
+    sd = {}
+    for key, leaf in _flatten(params).items():
+        t = _to_torch(leaf)
+        if key.endswith(".w") and t.ndim == 2:
+            t = t.t()
+        elif key.endswith(".w") and t.ndim == 4:
+            t = t.permute(2, 3, 0, 1) if ".upscale" in key \
+                else t.permute(3, 2, 0, 1)
+        sd[key] = t.contiguous()
+    return _load(model, sd, dtype)

@@ -7,8 +7,8 @@ Load surfaces: the Wan DiT (diffusers-style sharded safetensors with a
 BAGEL's ema.safetensors (the Qwen2-MoT LLM, its heads and the NaViT SigLIP
 tower), the HF SigLIP / SigLIP2 dual tower, BAGEL's FLUX image VAE
 (ae.safetensors), the FLUX.1-Kontext editor's directory (the BFL
-transformer, the AE, HF's T5-XXL v1.1 and CLIP-L text towers), and the
-ContextProjector of a training state.
+transformer, the AE, HF's T5-XXL v1.1 and CLIP-L text towers), the SAM2
+video segmenter's .pt, and the ContextProjector of a training state.
 
 Raw loading gives CPU tensors in the file's dtype (the JAX package widens
 bf16 to fp32 numpy; the values are equal). Safetensors are read here, not
@@ -1153,3 +1153,151 @@ def load_projector_checkpoint(path: str, cfg: FusionConfig, *,
         f"{mod}.{leaf}": sd[f"{root}{idx}.{_LEAF[leaf]}"].to(dtype)
         for mod, idx in _SEQ_INDEX.items() for leaf in ("w", "b")})
     return model
+
+
+# ---------------------------------------------------------------------------
+# SAM2 video segmenter
+# ---------------------------------------------------------------------------
+
+
+def convert_sam2(sd, cfg, dtype=torch.float32, *, device="cuda"):
+    """Published SAM2 checkpoint (facebookresearch/sam2
+    sam2_hiera_large.pt, its "model" dict) -> models.sam2's module, every
+    leaf in `dtype` (fp32, as the JAX converter keeps it). Linears, convs
+    and the decoder's transposed convs keep torch's layouts ([in, out, k,
+    k] for the latter: the forward applies them as the JAX package does);
+    the trunk's position embeddings [1, C, h, w] become [h, w, C]. The
+    prompt encoder's mask-input path (sam_prompt_encoder.
+    mask_downscaling.*) is not read: the workflow prompts with points
+    only; pass it to `audited` as ignored."""
+    from ..models.sam2 import init_sam2
+
+    e = _Entries(sd, device)
+
+    def conv(dst, src):
+        e.put(f"{dst}.w", f"{src}.weight", dtype)
+        e.put(f"{dst}.b", f"{src}.bias", dtype)
+
+    def attn4(dst, src):
+        for a, b in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                     ("o", "out_proj")):
+            e.lin(f"{dst}.{a}", f"{src}.{b}", dtype)
+
+    def mlp(dst, src, n):
+        for j in range(n):
+            e.lin(f"{dst}.layers.{j}", f"{src}.layers.{j}", dtype)
+
+    def row(dst, src):
+        """A [1, d] embedding table's one row."""
+        e.put(dst, src, dtype, lambda w: w[0])
+
+    t = "image_encoder.trunk"
+    conv("trunk.patch_embed", f"{t}.patch_embed.proj")
+    for name in ("pos_embed", "pos_embed_window"):
+        e.put(f"trunk.{name}", f"{t}.{name}", dtype,
+              lambda w: w[0].permute(1, 2, 0))
+    for i, spec in enumerate(cfg.hiera.block_layout()):
+        b, dst = f"{t}.blocks.{i}", f"trunk.blocks.{i}"
+        e.norm(f"{dst}.norm1", f"{b}.norm1", dtype)
+        e.lin(f"{dst}.qkv", f"{b}.attn.qkv", dtype)
+        e.lin(f"{dst}.attn_proj", f"{b}.attn.proj", dtype)
+        e.norm(f"{dst}.norm2", f"{b}.norm2", dtype)
+        e.lin(f"{dst}.mlp0", f"{b}.mlp.layers.0", dtype)
+        e.lin(f"{dst}.mlp1", f"{b}.mlp.layers.1", dtype)
+        if spec["dim"] != spec["dim_out"]:
+            e.lin(f"{dst}.proj", f"{b}.proj", dtype)
+    for i in range(len(cfg.hiera.channel_list)):
+        conv(f"neck.convs.{i}", f"image_encoder.neck.convs.{i}.conv")
+
+    pe = "sam_prompt_encoder"
+    e.put("prompt.pe_gaussian",
+          f"{pe}.pe_layer.positional_encoding_gaussian_matrix", dtype)
+    e["prompt.point_embeddings"] = _place(torch.cat(
+        [e.sd[f"{pe}.point_embeddings.{i}.weight"] for i in range(4)]),
+        dtype, device)
+    row("prompt.not_a_point", f"{pe}.not_a_point_embed.weight")
+    row("prompt.no_mask", f"{pe}.no_mask_embed.weight")
+
+    md = "sam_mask_decoder"
+    for i in range(cfg.head.transformer_depth):
+        b, dst = f"{md}.transformer.layers.{i}", \
+            f"decoder.transformer.layers.{i}"
+        attn4(f"{dst}.self_attn", f"{b}.self_attn")
+        attn4(f"{dst}.cross_t2i", f"{b}.cross_attn_token_to_image")
+        attn4(f"{dst}.cross_i2t", f"{b}.cross_attn_image_to_token")
+        e.lin(f"{dst}.mlp0", f"{b}.mlp.layers.0", dtype)
+        e.lin(f"{dst}.mlp1", f"{b}.mlp.layers.1", dtype)
+        for j in range(1, 5):
+            e.norm(f"{dst}.norm{j}", f"{b}.norm{j}", dtype)
+    attn4("decoder.transformer.final_attn",
+          f"{md}.transformer.final_attn_token_to_image")
+    e.norm("decoder.transformer.norm_final",
+           f"{md}.transformer.norm_final_attn", dtype)
+    row("decoder.iou_token", f"{md}.iou_token.weight")
+    e.put("decoder.mask_tokens", f"{md}.mask_tokens.weight", dtype)
+    row("decoder.obj_score_token", f"{md}.obj_score_token.weight")
+    conv("decoder.upscale0", f"{md}.output_upscaling.0")
+    e.norm("decoder.upscale_ln", f"{md}.output_upscaling.1", dtype)
+    conv("decoder.upscale1", f"{md}.output_upscaling.3")
+    for i in range(cfg.head.num_mask_tokens):
+        mlp(f"decoder.hyper_mlps.{i}",
+            f"{md}.output_hypernetworks_mlps.{i}", 3)
+    mlp("decoder.iou_head", f"{md}.iou_prediction_head",
+        cfg.head.iou_head_depth)
+    mlp("decoder.pred_obj_score_head", f"{md}.pred_obj_score_head", 3)
+    conv("decoder.conv_s0", f"{md}.conv_s0")
+    conv("decoder.conv_s1", f"{md}.conv_s1")
+
+    me = "memory_encoder"
+    nl = cfg.memory.mask_downsample_layers
+    for i in range(nl):
+        conv(f"mem_enc.mask_down.{i}.conv",
+             f"{me}.mask_downsampler.encoder.{3 * i}")
+        e.norm(f"mem_enc.mask_down.{i}.ln",
+               f"{me}.mask_downsampler.encoder.{3 * i + 1}", dtype)
+    conv("mem_enc.mask_down_final", f"{me}.mask_downsampler.encoder.{3 * nl}")
+    conv("mem_enc.pix_feat_proj", f"{me}.pix_feat_proj")
+    for i in range(cfg.memory.fuser_layers):
+        b, dst = f"{me}.fuser.layers.{i}", f"mem_enc.fuser.{i}"
+        conv(f"{dst}.dwconv", f"{b}.dwconv")
+        e.norm(f"{dst}.norm", f"{b}.norm", dtype)
+        e.lin(f"{dst}.pwconv1", f"{b}.pwconv1", dtype)
+        e.lin(f"{dst}.pwconv2", f"{b}.pwconv2", dtype)
+        e.put(f"{dst}.gamma", f"{b}.gamma", dtype)
+    conv("mem_enc.out_proj", f"{me}.out_proj")
+
+    for i in range(cfg.memory.num_layers):
+        b, dst = f"memory_attention.layers.{i}", f"mem_attn.layers.{i}"
+        attn4(f"{dst}.self_attn", f"{b}.self_attn")
+        attn4(f"{dst}.cross_attn", f"{b}.cross_attn_image")
+        e.lin(f"{dst}.linear1", f"{b}.linear1", dtype)
+        e.lin(f"{dst}.linear2", f"{b}.linear2", dtype)
+        for j in range(1, 4):
+            e.norm(f"{dst}.norm{j}", f"{b}.norm{j}", dtype)
+    e.norm("mem_attn.norm", "memory_attention.norm", dtype)
+
+    e.put("no_mem_embed", "no_mem_embed", dtype)
+    e.put("no_mem_pos_enc", "no_mem_pos_enc", dtype)
+    e.put("maskmem_tpos_enc", "maskmem_tpos_enc", dtype,
+          lambda w: w.reshape(cfg.num_maskmem, 1, -1))
+    mlp("obj_ptr_proj", "obj_ptr_proj", 3)
+    row("no_obj_ptr", "no_obj_ptr")
+    return _assemble(init_sam2(cfg, dtype=dtype, device="meta"), e)
+
+
+def load_sam2_checkpoint(path: str, cfg=None, dtype=torch.float32, *,
+                         device="cuda"):
+    """(module on `device`, cfg) from a published SAM2 .pt (the
+    reference's `--ckpt_path <dir>/sam2/sam2_hiera_large.pt`), at
+    Sam2Config() unless cfg is given. The .pt wraps the weights under a
+    "model" key; the unused mask-input branch is audited as ignored, and
+    any other key the converter never reads raises."""
+    from ..models.sam2 import Sam2Config
+    from .manifest import audited
+
+    cfg = cfg or Sam2Config()
+    model, _ = audited(
+        load_state_dict(path),
+        lambda sd: convert_sam2(sd, cfg, dtype, device=device),
+        ignore=("sam_prompt_encoder.mask_downscaling.",))
+    return model, cfg

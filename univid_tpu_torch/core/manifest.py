@@ -7,14 +7,13 @@
     Wan DiT, the Wan video VAE, the UMT5 encoder, the Qwen2-MoT LLM with
     BAGEL's heads and NaViT tower, the SigLIP / SigLIP2 (NaFlex) dual
     towers, BAGEL's FLUX image VAE, and the FLUX.1-Kontext editor's
-    transformer, T5-XXL v1.1 (HF) and CLIP-L text tower;
+    transformer, T5-XXL v1.1 (HF) and CLIP-L text tower, and the SAM2
+    video segmenter (sam2_hiera_large.pt);
   * `audit_keys(sd, manifest)`: a checkpoint's keys and shapes against a
     manifest, before any conversion;
   * `RecordingDict` + `audited`: run a converter while recording which
     source keys it read, and fail on leftovers (the strict mode);
   * JSON save / load of the pinned manifests under manifests/.
-
-The SAM2 generator comes with its model.
 """
 
 from __future__ import annotations
@@ -572,4 +571,144 @@ def clip_text_manifest(cfg) -> Manifest:
             _linear(m, f"{b}.self_attn.{proj}", d, d)
         _linear(m, f"{b}.mlp.fc1", d, cfg.intermediate_size)
         _linear(m, f"{b}.mlp.fc2", cfg.intermediate_size, d)
+    return m
+
+
+def _ln2d(m: Manifest, key: str, c: int) -> None:
+    m[f"{key}.weight"] = (c,)
+    m[f"{key}.bias"] = (c,)
+
+
+def _attn4_m(m: Manifest, key: str, d: int, internal: int,
+             kv_in: int = 0) -> None:
+    kv_in = kv_in or d
+    _linear(m, f"{key}.q_proj", d, internal)
+    _linear(m, f"{key}.k_proj", kv_in, internal)
+    _linear(m, f"{key}.v_proj", kv_in, internal)
+    _linear(m, f"{key}.out_proj", internal, d)
+
+
+def sam2_manifest(cfg) -> Manifest:
+    """Published SAM2 video model .pt surface (facebookresearch/sam2,
+    the sam2_hiera_large.pt the reference preprocess loads via
+    sam_utils.py:122-155) — what core/checkpoint.py::convert_sam2
+    consumes, plus the prompt encoder's mask-input branch the
+    points-only workflow ignores."""
+    m: Manifest = {}
+    h = cfg.hiera
+    t = "image_encoder.trunk"
+    _conv2d(m, f"{t}.patch_embed.proj", 3, h.embed_dim, h.patch_kernel)
+    m[f"{t}.pos_embed"] = (1, h.embed_dim, h.window_pos_embed_bkg_size,
+                           h.window_pos_embed_bkg_size)
+    m[f"{t}.pos_embed_window"] = (1, h.embed_dim, h.window_spec[0],
+                                  h.window_spec[0])
+    for i, spec in enumerate(h.block_layout()):
+        b = f"{t}.blocks.{i}"
+        d_in, d_out = spec["dim"], spec["dim_out"]
+        _ln2d(m, f"{b}.norm1", d_in)
+        _linear(m, f"{b}.attn.qkv", d_in, 3 * d_out)
+        _linear(m, f"{b}.attn.proj", d_out, d_out)
+        _ln2d(m, f"{b}.norm2", d_out)
+        hidden = int(d_out * h.mlp_ratio)
+        _linear(m, f"{b}.mlp.layers.0", d_out, hidden)
+        _linear(m, f"{b}.mlp.layers.1", hidden, d_out)
+        if d_in != d_out:
+            _linear(m, f"{b}.proj", d_in, d_out)
+    dm = cfg.neck.d_model
+    for i, c in enumerate(reversed(h.channel_list)):
+        _conv2d(m, f"image_encoder.neck.convs.{i}.conv", c, dm, 1)
+
+    pe = "sam_prompt_encoder"
+    d = cfg.head.embed_dim
+    m[f"{pe}.pe_layer.positional_encoding_gaussian_matrix"] = (2, d // 2)
+    for i in range(4):
+        m[f"{pe}.point_embeddings.{i}.weight"] = (1, d)
+    m[f"{pe}.not_a_point_embed.weight"] = (1, d)
+    m[f"{pe}.no_mask_embed.weight"] = (1, d)
+    # mask-input downscaler (unused by the points-only workflow but
+    # present in the checkpoint; mask_in_chans = 16)
+    _conv2d(m, f"{pe}.mask_downscaling.0", 1, 4, 2)
+    _ln2d(m, f"{pe}.mask_downscaling.1", 4)
+    _conv2d(m, f"{pe}.mask_downscaling.3", 4, 16, 2)
+    _ln2d(m, f"{pe}.mask_downscaling.4", 16)
+    _conv2d(m, f"{pe}.mask_downscaling.6", 16, d, 1)
+
+    md = "sam_mask_decoder"
+    internal = d // cfg.head.attn_downsample
+    mlp_dim = cfg.head.transformer_mlp_dim
+    for i in range(cfg.head.transformer_depth):
+        b = f"{md}.transformer.layers.{i}"
+        _attn4_m(m, f"{b}.self_attn", d, d)
+        _attn4_m(m, f"{b}.cross_attn_token_to_image", d, internal)
+        _attn4_m(m, f"{b}.cross_attn_image_to_token", d, internal)
+        _linear(m, f"{b}.mlp.layers.0", d, mlp_dim)
+        _linear(m, f"{b}.mlp.layers.1", mlp_dim, d)
+        for j in range(1, 5):
+            _ln2d(m, f"{b}.norm{j}", d)
+    _attn4_m(m, f"{md}.transformer.final_attn_token_to_image", d,
+             internal)
+    _ln2d(m, f"{md}.transformer.norm_final_attn", d)
+    nm = cfg.head.num_mask_tokens
+    c1, c2 = cfg.head.upscale_ch
+    m[f"{md}.iou_token.weight"] = (1, d)
+    m[f"{md}.mask_tokens.weight"] = (nm, d)
+    m[f"{md}.obj_score_token.weight"] = (1, d)
+    m[f"{md}.output_upscaling.0.weight"] = (d, c1, 2, 2)
+    m[f"{md}.output_upscaling.0.bias"] = (c1,)
+    _ln2d(m, f"{md}.output_upscaling.1", c1)
+    m[f"{md}.output_upscaling.3.weight"] = (c1, c2, 2, 2)
+    m[f"{md}.output_upscaling.3.bias"] = (c2,)
+    for i in range(nm):
+        hm = f"{md}.output_hypernetworks_mlps.{i}"
+        _linear(m, f"{hm}.layers.0", d, d)
+        _linear(m, f"{hm}.layers.1", d, d)
+        _linear(m, f"{hm}.layers.2", d, c2)
+    ih = cfg.head.iou_head_hidden
+    dims = (d,) + (ih,) * (cfg.head.iou_head_depth - 1) + (nm,)
+    for i, (a, b_) in enumerate(zip(dims[:-1], dims[1:])):
+        _linear(m, f"{md}.iou_prediction_head.layers.{i}", a, b_)
+    for i, (a, b_) in enumerate(zip((d, d, d), (d, d, 1))):
+        _linear(m, f"{md}.pred_obj_score_head.layers.{i}", a, b_)
+    _conv2d(m, f"{md}.conv_s0", d, c2, 1)
+    _conv2d(m, f"{md}.conv_s1", d, c1, 1)
+
+    me = "memory_encoder"
+    mem = cfg.memory
+    cin = 1
+    for i in range(mem.mask_downsample_layers):
+        _conv2d(m, f"{me}.mask_downsampler.encoder.{3 * i}", cin,
+                  cin * 4, 3)
+        _ln2d(m, f"{me}.mask_downsampler.encoder.{3 * i + 1}", cin * 4)
+        cin *= 4
+    _conv2d(m, f"{me}.mask_downsampler.encoder."
+              f"{3 * mem.mask_downsample_layers}", cin, mem.d_model, 1)
+    _conv2d(m, f"{me}.pix_feat_proj", mem.d_model, mem.d_model, 1)
+    for i in range(mem.fuser_layers):
+        f = f"{me}.fuser.layers.{i}"
+        m[f"{f}.dwconv.weight"] = (mem.d_model, 1, 7, 7)
+        m[f"{f}.dwconv.bias"] = (mem.d_model,)
+        _ln2d(m, f"{f}.norm", mem.d_model)
+        _linear(m, f"{f}.pwconv1", mem.d_model, 4 * mem.d_model)
+        _linear(m, f"{f}.pwconv2", 4 * mem.d_model, mem.d_model)
+        m[f"{f}.gamma"] = (mem.d_model,)
+    _conv2d(m, f"{me}.out_proj", mem.d_model, mem.mem_dim, 1)
+
+    ma = "memory_attention"
+    for i in range(mem.num_layers):
+        b = f"{ma}.layers.{i}"
+        _attn4_m(m, f"{b}.self_attn", mem.d_model, mem.d_model)
+        _attn4_m(m, f"{b}.cross_attn_image", mem.d_model, mem.d_model,
+                 kv_in=mem.mem_dim)
+        _linear(m, f"{b}.linear1", mem.d_model, mem.dim_feedforward)
+        _linear(m, f"{b}.linear2", mem.dim_feedforward, mem.d_model)
+        for j in range(1, 4):
+            _ln2d(m, f"{b}.norm{j}", mem.d_model)
+    _ln2d(m, f"{ma}.norm", mem.d_model)
+
+    m["no_mem_embed"] = (1, 1, mem.d_model)
+    m["no_mem_pos_enc"] = (1, 1, mem.d_model)
+    m["maskmem_tpos_enc"] = (cfg.num_maskmem, 1, 1, mem.mem_dim)
+    for i in range(3):
+        _linear(m, f"obj_ptr_proj.layers.{i}", mem.d_model, mem.d_model)
+    m["no_obj_ptr"] = (1, mem.d_model)
     return m

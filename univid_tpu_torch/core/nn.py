@@ -12,11 +12,27 @@ the JAX init functions.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+@contextlib.contextmanager
+def exact_fp32():
+    """cuBLAS and cuDNN at fp32 (TF32 off) inside, the flags restored: the
+    JAX package's fp32 products and convolutions are full fp32."""
+    mm = torch.backends.cuda.matmul.allow_tf32
+    conv = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+        torch.backends.cudnn.allow_tf32 = conv
 
 
 def param(shape, dtype, device, gen=None, init="empty", std=1.0,

@@ -1,8 +1,8 @@
-"""Host-side video IO (copy of read_video_frames,
-sample_video_frames_uniform, save_video and save_image from
-univid_tpu/data/video_io.py): decode with a decord -> imageio/pyav ->
-OpenCV fallback chain; save mp4 through imageio (h264) or OpenCV, images
-through PIL."""
+"""Host-side video IO (a copy of univid_tpu/data/video_io.py): decode
+with a decord -> imageio/pyav -> OpenCV fallback chain, the container's
+fps through the same chain; save mp4 through imageio (h264) or OpenCV,
+images through PIL; mux audio with ffmpeg; and the reference's size and
+frame-count rules (best_output_size, smart_resize, smart_nframes)."""
 
 from __future__ import annotations
 
@@ -62,6 +62,33 @@ def read_video_frames(path: str, num_frames: Optional[int] = None
         errors.append(f"cv2: {e}")
     raise RuntimeError(f"all video decoders failed for {path}: {errors}")
 
+def read_video_fps(path: str, default: float = 30.0) -> float:
+    """Container average fps (decord get_avg_fps / imageio metadata /
+    cv2 CAP_PROP_FPS chain; reference process_pipepline.py:45)."""
+    try:
+        import decord  # type: ignore
+        return float(decord.VideoReader(path).get_avg_fps())
+    except Exception:  # noqa: BLE001
+        pass
+    try:
+        import imageio.v3 as iio  # type: ignore
+        meta = iio.immeta(path, plugin="pyav")
+        fps = float(meta.get("fps", 0.0))
+        if fps > 0:
+            return fps
+    except Exception:  # noqa: BLE001
+        pass
+    try:
+        import cv2  # type: ignore
+        cap = cv2.VideoCapture(path)
+        fps = float(cap.get(cv2.CAP_PROP_FPS))
+        cap.release()
+        if fps > 0:
+            return fps
+    except Exception:  # noqa: BLE001
+        pass
+    return default
+
 
 def sample_video_frames_uniform(path: str, num_frames: int = 64
                                 ) -> List[np.ndarray]:
@@ -115,3 +142,86 @@ def save_image(image: np.ndarray, path: str) -> str:
     except Exception:  # noqa: BLE001
         np.savez_compressed(path + ".npz", image=arr)
         return path + ".npz"
+
+def merge_video_audio(video_path: str, audio_path: str, out_path: str):
+    """ffmpeg mux (utils/utils.py merge_video_audio role)."""
+    import subprocess
+    subprocess.run(
+        ["ffmpeg", "-y", "-i", video_path, "-i", audio_path, "-c:v",
+         "copy", "-c:a", "aac", "-shortest", out_path], check=True,
+        capture_output=True)
+    return out_path
+def best_output_size(w: int, h: int, dw: int, dh: int,
+                     expected_area: int):
+    """Pick the (width, height) divisible by (dw, dh) closest to the
+    input aspect ratio with area <= expected_area (reference
+    models/wan/utils/utils.py:202-225, used by inference size
+    selection)."""
+    ratio = w / h
+    ow = (expected_area * ratio) ** 0.5
+
+    ow1 = int(ow // dw * dw)
+    oh1 = int(expected_area / ow1 // dh * dh)
+    ratio1 = ow1 / oh1
+
+    oh = expected_area / ow
+    oh2 = int(oh // dh * dh)
+    ow2 = int(expected_area / oh2 // dw * dw)
+    ratio2 = ow2 / oh2
+
+    if max(ratio / ratio1, ratio1 / ratio) < max(ratio / ratio2,
+                                                 ratio2 / ratio):
+        return ow1, oh1
+    return ow2, oh2
+def smart_resize(height: int, width: int, factor: int = 28,
+                 min_pixels: int = 4 * 28 * 28,
+                 max_pixels: int = 16384 * 28 * 28,
+                 max_ratio: int = 200):
+    """Qwen-VL resize rule (reference utils/qwen_vl_utils.py:54-82):
+    dims divisible by `factor`, pixel count in [min, max], aspect kept."""
+    import math
+
+    if max(height, width) / min(height, width) > max_ratio:
+        raise ValueError(f"aspect ratio above {max_ratio}")
+
+    def rnd(v):
+        return round(v / factor) * factor
+
+    h_bar = max(factor, rnd(height))
+    w_bar = max(factor, rnd(width))
+    if h_bar * w_bar > max_pixels:
+        beta = math.sqrt((height * width) / max_pixels)
+        h_bar = int(height / beta // factor) * factor
+        w_bar = int(width / beta // factor) * factor
+    elif h_bar * w_bar < min_pixels:
+        beta = math.sqrt(min_pixels / (height * width))
+        h_bar = math.ceil(height * beta / factor) * factor
+        w_bar = math.ceil(width * beta / factor) * factor
+    return h_bar, w_bar
+def smart_nframes(ele: dict, total_frames: int, video_fps: float,
+                  frame_factor: int = 2, default_fps: float = 2.0,
+                  fps_min_frames: int = 4, fps_max_frames: int = 768
+                  ) -> int:
+    """Frame-count rule for the VL prompt expander (reference
+    utils/qwen_vl_utils.py:133-170)."""
+    import math
+
+    assert not ("fps" in ele and "nframes" in ele)
+    if "nframes" in ele:
+        nframes = round(ele["nframes"] / frame_factor) * frame_factor
+    else:
+        fps = ele.get("fps", default_fps)
+        min_frames = math.ceil(
+            ele.get("min_frames", fps_min_frames) / frame_factor) \
+            * frame_factor
+        max_frames = int(ele.get("max_frames",
+                                 min(fps_max_frames, total_frames))
+                         // frame_factor) * frame_factor
+        nframes = total_frames / video_fps * fps
+        nframes = min(max(nframes, min_frames), max_frames)
+        nframes = round(nframes / frame_factor) * frame_factor
+    if not (frame_factor <= nframes <= total_frames):
+        raise ValueError(
+            f"nframes should be in [{frame_factor}, {total_frames}], "
+            f"got {nframes}")
+    return int(nframes)

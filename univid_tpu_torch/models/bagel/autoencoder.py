@@ -16,7 +16,6 @@ softmax in fp32 (its score matrix is 1.07 GB at a 1024x1024 image).
 
 from __future__ import annotations
 
-import contextlib
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -45,18 +44,8 @@ class ImageVAEConfig:
         return 2 ** (len(self.ch_mult) - 1)
 
 
-@contextlib.contextmanager
-def _exact_fp32():
-    """cuBLAS and cuDNN at fp32 (TF32 off) inside, the flags restored."""
-    mm = torch.backends.cuda.matmul.allow_tf32
-    conv = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = mm
-        torch.backends.cudnn.allow_tf32 = conv
+# cuBLAS and cuDNN at fp32 (TF32 off) inside, the flags restored
+_exact_fp32 = unn.exact_fp32
 
 
 # ---------------------------------------------------------------------------

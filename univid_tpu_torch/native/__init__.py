@@ -5,11 +5,10 @@ numpy fallback beside each op; the port keeps the numpy formulas only (no
 ctypes path, no C++ build): these ops run on the host, they are not a
 kernel of the device path.
 
-    resize_bilinear(img, h, w)   half-pixel bilinear
+    resize_bilinear(img, h, w, scale=1, shift=0)   half-pixel bilinear,
+                                 optionally y = x * scale + shift
     patchify(image, patch)       [H, W, C] -> patches
-
-JAX's fused u8 scale / shift and u8_to_f32_affine are read only by its
-animate preprocessing, which the port does not have yet.
+    u8_to_f32_affine(x, scale, shift)   float32(x) * scale + shift
 """
 
 from __future__ import annotations
@@ -17,9 +16,11 @@ from __future__ import annotations
 import numpy as np
 
 
-def resize_bilinear(img: np.ndarray, h: int, w: int) -> np.ndarray:
+def resize_bilinear(img: np.ndarray, h: int, w: int, scale: float = 1.0,
+                    shift: float = 0.0) -> np.ndarray:
     """[H, W, C] float or uint8 -> [h, w, C] float32 with half-pixel
-    (align_corners=False) sampling."""
+    (align_corners=False) sampling; then y = x * scale + shift unless
+    those are 1 and 0."""
     img = np.asarray(img, np.float32)
     sh, sw = img.shape[:2]
     ys = np.clip((np.arange(h) + 0.5) * sh / h - 0.5, 0, sh - 1)
@@ -32,7 +33,10 @@ def resize_bilinear(img: np.ndarray, h: int, w: int) -> np.ndarray:
     fx = (xs - x0)[None, :, None]
     top = img[y0][:, x0] * (1 - fx) + img[y0][:, x1] * fx
     bot = img[y1][:, x0] * (1 - fx) + img[y1][:, x1] * fx
-    return (top * (1 - fy) + bot * fy).astype(np.float32)
+    out = (top * (1 - fy) + bot * fy).astype(np.float32)
+    if scale != 1.0 or shift != 0.0:
+        out = (out * scale + shift).astype(np.float32)
+    return out
 
 
 def patchify(image: np.ndarray, patch: int) -> np.ndarray:
@@ -43,3 +47,8 @@ def patchify(image: np.ndarray, patch: int) -> np.ndarray:
     x = image.reshape(h // patch, patch, w // patch, patch, c)
     return x.transpose(0, 2, 1, 3, 4).reshape(-1, patch * patch * c)
 
+
+def u8_to_f32_affine(x: np.ndarray, scale: float,
+                     shift: float) -> np.ndarray:
+    """float32(x) * scale + shift (e.g. /127.5 - 1)."""
+    return np.asarray(x).astype(np.float32) * scale + shift

@@ -359,6 +359,11 @@ def precompute_dpm_solver(sigmas: np.ndarray, solver_order: int = 2,
         pred_m=pred_m, timesteps=np.asarray(timesteps, dtype=np.float64))
 
 
+def dpm_init_state(latents: torch.Tensor, order: int = 2):
+    """DPM++ state: UniPC's layout (sample, last_sample, history)."""
+    return unipc_init_state(latents, order)
+
+
 def dpm_step(state, c, velocity: torch.Tensor):
     """DPM++ multistep update (no corrector); same state layout as UniPC."""
     x = state["sample"]
@@ -367,6 +372,13 @@ def dpm_step(state, c, velocity: torch.Tensor):
     new_hist = torch.cat([m[None], state["hist"][:-1]], dim=0)
     new_sample = c["pred_a"] * x + _combine(c["pred_m"], new_hist)
     return {"sample": new_sample, "last_sample": x, "hist": new_hist}
+
+
+def euler_flow_step(x: torch.Tensor, velocity: torch.Tensor,
+                    sigma_cur: float, sigma_next: float) -> torch.Tensor:
+    """x' = x + (sigma_next - sigma_cur) * v  == x - v*dt for t: 1 -> 0
+    (BAGEL's image flow step)."""
+    return x + (sigma_next - sigma_cur) * velocity.to(x.dtype)
 
 
 def add_flow_noise(x0: torch.Tensor, noise: torch.Tensor, sigma
