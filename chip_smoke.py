@@ -2353,7 +2353,10 @@ def main_path(steps, output_dir):
     return launches
 
 
-TI2V_FRAMES = 121   # the full request; the smoke run cuts only steps
+# cut from the full request's 121 frames for the time limit (the fp32 BAGEL
+# phase's room): its 121-frame decode took ~59 s on an H100; the kernel
+# checks keep the 121-frame shapes
+TI2V_FRAMES = 41
 TI2V_STEPS = 2
 
 
@@ -3193,17 +3196,17 @@ def _qa_video(path, n_frames=64):
 
     from univid_tpu_torch.data.video_io import save_video
 
-    rng = np.random.default_rng(11)
-    base = rng.integers(0, 256, (9, 24, 3), dtype=np.uint8)
-    field = np.kron(base, np.ones((40, 40, 1), np.uint8))   # 360 x 960
-    frames = np.stack([field[:, 5 * t:5 * t + 640] for t in range(n_frames)])
-    return save_video(frames, path, fps=8)
+    return save_video(np.stack(_qa_frames(n_frames)), path, fps=8)
 
 
 # depth cut for chip_smoke.py's time limit: 7 of BAGEL-7B-MoT's 28 LLM
 # layers at full width in the QA request (its decode is host-bound, ~2,300
 # eager kernels a token at 28; at 14 the request took 87.5-118.5 s)
 BAGEL_QA_LAYERS = 7
+# greedy tokens a decode of the QA request, cut from ReflexionConfig's 512
+# for the time limit (the fp32 BAGEL phase's room): the four decodes took
+# ~34 s of the request's 38.6 on an H100 at 512
+BAGEL_QA_TOKENS = 256
 
 
 def bagel_main_path(output_dir):
@@ -3212,8 +3215,8 @@ def bagel_main_path(output_dir):
     so400m tower, the default
     Siglip2Scorer and the offline judge and reflector; reflexion_answer_one
     with ReflexionConfig() on a 64-frame pool of 640x360 frames: 16 seed
-    captions as one batch, static rounds K = 4, 8, 16, the fallback; 512
-    greedy tokens per decode. The inferencer's cache holds 20,480 rows.
+    captions as one batch, static rounds K = 4, 8, 16, the fallback;
+    BAGEL_QA_TOKENS greedy tokens per decode. The inferencer's cache holds 20,480 rows.
     Checks the trace, the launches of each phase, and logs the seconds of
     each phase and the peak memory; then times the question's prefill
     over the largest QA call's context with the causal kernel and with the
@@ -3303,7 +3306,8 @@ def bagel_main_path(output_dir):
     inf = Timed(bagel, cfg, tok, siglip=sig, siglip_cfg=scfg,
                 capacity=BAGEL_CAPACITY, compute_dtype=bf)
     refl, judge = make_reflection_clients("")
-    rcfg = ReflexionConfig()
+    rcfg = dataclasses.replace(ReflexionConfig(),
+                               max_think_token_n=BAGEL_QA_TOKENS)
     fa.reset_launches()
     t0 = time.perf_counter()
     answer, trace = reflexion_answer_one(video, QA_QUESTION, inf, refl, judge,
@@ -5030,8 +5034,9 @@ def animate_dit_720p(pipe):
     synchronised end with its peak memory and launches (40 self-attention,
     80 cross, 8 fp32 face calls), finite and of the latent's shape; then
     the self-attention and the face call alone at this shape ([1, 75648,
-    40, 128] over 75,600 keys, running max; q [21, 3648, 40, 128] fp32
-    over 5 keys padded to 64), CUDA events, beside their bounds."""
+    40, 128] over 75,600 keys, running max, beside SDPA over the live
+    keys; q [21, 3648, 40, 128] fp32 over 5 keys padded to 64), CUDA
+    events, beside their bounds."""
     import gc
 
     import torch
@@ -5089,9 +5094,16 @@ def animate_dit_720p(pipe):
         ms = cuda_time(lambda: fa._flash_cuda(q, k, v, kv, None, None), 2)
         bms, by = bound_ms(4 * n * l * kv_real * d, nbytes(q, k, v, q),
                            H100_BF16_FLOPS)
+        # the library's call on the same folded q over the live keys
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k[:, :kv_real],
+                                                  v[:, :kv_real]))
+        lib_ms = cuda_time(lambda: torch.nn.functional
+                           .scaled_dot_product_attention(
+                               qt, kt, vt, scale=1.0 / fa.LOG2E), 2)
         r["self_attention"] = {"q": [1, l, n, d], "kv_len": kv_real,
-                               "ms": ms, "bound_ms": bms, "bound_by": by}
-        del q, k, v
+                               "ms": ms, "bound_ms": bms, "bound_by": by,
+                               "library_ms": lib_ms}
+        del q, k, v, qt, kt, vt
         s = h * w
         lq = -(-s // fa.TILE) * fa.TILE
         q = fa._fold(qk_normed((f, lq, n, d), gen, torch.float32),
@@ -6334,6 +6346,217 @@ def bagel_train_main_path(output_dir):
     return launches, reg_launches, reg_records
 
 
+def _qa_frames(n_frames):
+    """The seeded 640x360 uint8 frames of `_qa_video`, as arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    base = rng.integers(0, 256, (9, 24, 3), dtype=np.uint8)
+    field = np.kron(base, np.ones((40, 40, 1), np.uint8))   # 360 x 960
+    return [field[:, 5 * t:5 * t + 640] for t in range(n_frames)]
+
+
+BAGEL_FP32_FRAMES = 16    # the largest QA call's frames
+BAGEL_FP32_TOKENS = 32    # greedy tokens of the fp32 request's decode
+
+
+def bagel_fp32_main_path():
+    """BAGEL-7B-MoT at fp32 compute through the port's entry points, at full
+    width (both experts, hidden 3,584, 28 query heads over 4 kv heads, d =
+    128, BAGEL_QA_LAYERS of its 28 layers; SigLIP so400m, whose d = 72
+    takes the reference route), random weights from seeds held in fp32:
+      * one QA request through InterleaveInferencer(..., compute_dtype=
+        torch.float32) with a 20,480-row fp32 cache: 16 frames of 640x360
+        appended (the grouped kv mode with kv_len: one flash_attention_
+        f32_sm90 launch a layer a frame), the question's causal prefill
+        (q_offsets: one a layer) and a greedy decode of 32 tokens (the
+        decode-shaped einsums, as in JAX);
+      * on the same model, BAGEL packed training at fp32 compute on the
+        4,096-token pack of `bagel_train_batch` (freeze_und, llm2vae drawn
+        off its zero init): one evaluation forward (the packed forward, one
+        a layer) and one training pass (the packed forward with the lse,
+        the packed dq and dk/dv: one each a layer; one tile_lists launch a
+        pass).
+    Each from zero counts: seconds, peak memory and the launches by mode,
+    asserted exactly (every attention call on the fp32 sm90 kernels, none
+    on a bf16 kernel). Returns the counts of the whole phase."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.bagel.bagel import BagelConfig, init_bagel
+    from univid_tpu_torch.models.bagel.packed import bagel_packed_forward
+    from univid_tpu_torch.models.bagel.qwen2_mot import Qwen2MoTConfig
+    from univid_tpu_torch.models.bagel.siglip import (SiglipConfig,
+                                                      init_siglip)
+    from univid_tpu_torch.pipelines.interleave import InterleaveInferencer
+    from univid_tpu_torch.utils.tokenizers import HashTokenizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = torch.float32
+    cfg = BagelConfig(llm=dataclasses.replace(Qwen2MoTConfig(),
+                                              num_layers=BAGEL_QA_LAYERS))
+    scfg = SiglipConfig()
+    n_layers = cfg.llm.num_layers
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def check(tag, got, want):
+        got = {k: v for k, v in got.items() if v}
+        log(json.dumps({"check": f"{tag} launches", "launches": got,
+                        "expected": want, "ok": got == want}))
+        if got != want:
+            fail(f"{tag}: launches {got} != {want}")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bagel = init_bagel(gen(60), cfg, dtype=f32, device="cuda")
+    sig = init_siglip(gen(61), scfg, dtype=f32, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    inf = InterleaveInferencer(bagel, cfg, HashTokenizer(), siglip=sig,
+                               siglip_cfg=scfg, capacity=BAGEL_CAPACITY,
+                               compute_dtype=f32)
+    frames = _qa_frames(BAGEL_FP32_FRAMES)
+    total = dict.fromkeys(launch_counts(), 0)
+
+    # ---- the QA request ---------------------------------------------------
+    fa.reset_launches()
+    t_req = time.perf_counter()
+    with torch.no_grad():
+        ctx = inf.init_gen_context()
+        vit_s = append_s = 0.0
+        for frame in frames:
+            (patches, pos, segs, n), _ = synced(
+                lambda: inf._prep_image_bucketed(frame))
+            feats, t = synced(lambda: inf.vit_features(patches, pos, segs))
+            vit_s += t
+            ctx, t = synced(lambda: inf.vit_append(ctx, feats[None],
+                                                   pos[None], n))
+            append_s += t
+        after_append = launch_counts()
+        rows_before = ctx["cache"]["len_host"][0]
+        ctx, prefill_s = synced(lambda: inf.update_context_text(QA_QUESTION,
+                                                                ctx))
+        after_prefill = launch_counts()
+        answer, decode_s = synced(lambda: inf.gen_text(
+            ctx, max_length=BAGEL_FP32_TOKENS))
+    req_s = time.perf_counter() - t_req
+    qa = launch_counts()
+    n_app = BAGEL_FP32_FRAMES * n_layers
+    want_append = {"flash_attention_f32_sm90": n_app,
+                   "flash_attention_f32_sm90_grouped": n_app,
+                   "split_bf16x3": 3 * n_app}
+    want_prefill = {"flash_attention_f32_sm90": n_layers,
+                    "flash_attention_f32_sm90_causal": n_layers,
+                    "flash_attention_f32_sm90_grouped": n_layers,
+                    "split_bf16x3": 3 * n_layers}
+    check("BAGEL fp32 QA: ViT appends", after_append, want_append)
+    check("BAGEL fp32 QA: question prefill",
+          {k: after_prefill[k] - after_append[k] for k in after_prefill},
+          want_prefill)
+    check("BAGEL fp32 QA: decode", {k: qa[k] - after_prefill[k] for k in qa},
+          {})
+    qa_rec = {"frames": BAGEL_FP32_FRAMES, "cache_rows_before_prefill":
+              rows_before, "cache_rows": ctx["cache"]["len_host"][0],
+              "cache_dtype": str(ctx["cache"]["k"].dtype),
+              "siglip_s": vit_s, "vit_append_s": append_s,
+              "prefill_s": prefill_s, "decode_s": decode_s,
+              "decode_ms_per_token": decode_s / BAGEL_FP32_TOKENS * 1e3,
+              "request_s": req_s, "answer_chars": len(answer or ""),
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches": {k: v for k, v in qa.items() if v}}
+    if ctx["cache"]["k"].dtype != f32 or rows_before != \
+            BAGEL_FP32_FRAMES * FRAME_ROWS:
+        fail(f"BAGEL fp32 QA: cache {ctx['cache']['k'].dtype} with "
+             f"{rows_before} rows before the prefill")
+    for k, v in qa.items():
+        total[k] += v
+    del ctx, feats, patches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- packed training at fp32 -----------------------------------------
+    with torch.no_grad():
+        bagel.llm2vae.w.normal_(0.0, 0.02, generator=gen(62))
+    trainable = [p for nm, p in bagel.named_parameters()
+                 if "_gen" in nm or nm.split(".")[0] in (
+                     "vae2llm", "llm2vae", "time_embedder")]
+    for p in trainable:
+        p.requires_grad_(True)
+    batch, kinds = bagel_train_batch(cfg, TRAIN_SIZES, 5, PACK_TOKENS)
+    rng = gen(63)
+
+    def forward():
+        return bagel_packed_forward(bagel, cfg, batch, rng=rng,
+                                    siglip_params=sig, siglip_cfg=scfg,
+                                    compute_dtype=f32, freeze_und=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    with torch.no_grad():
+        ev, eval_s = synced(forward)
+    eval_loss = float(_train_loss(ev))
+    del ev
+    after_eval = launch_counts()
+    check("BAGEL fp32 packed evaluation forward", after_eval, {
+        "flash_attention_f32_sm90": n_layers,
+        "flash_attention_f32_sm90_packed": n_layers, "tile_lists": 1,
+        "split_bf16x3": 3 * n_layers})
+    bagel.zero_grad(set_to_none=True)
+    out, fwd_s = synced(forward)
+    loss = _train_loss(out)
+    _, bwd_s = synced(loss.backward)
+    train = launch_counts()
+    check("BAGEL fp32 packed training pass",
+          {k: train[k] - after_eval[k] for k in train}, dict(
+              {nm: n_layers for nm in (
+                  "flash_attention_f32_sm90_lse",
+                  "flash_attention_f32_sm90_lse_packed",
+                  "flash_attention_bwd_dq_f32_sm90",
+                  "flash_attention_bwd_dq_f32_sm90_packed",
+                  "flash_attention_bwd_dkv_f32_sm90",
+                  "flash_attention_bwd_dkv_f32_sm90_packed")},
+              tile_lists=1, split_bf16x3=7 * n_layers))
+    zero_gen = [nm for nm, p in bagel.named_parameters() if p.requires_grad
+                and (p.grad is None or not float(p.grad.abs().max()) > 0.0)]
+    pack_rec = {"pack_tokens": PACK_TOKENS, "kind_tokens": dict(zip(
+                    ("vlm", "t2i", "edit", "text"), kinds)),
+                "eval_forward_s": eval_s, "train_forward_s": fwd_s,
+                "backward_s": bwd_s, "loss": float(loss),
+                "eval_loss": eval_loss, "gen_leaves_zero": zero_gen[:5],
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": {k: v for k, v in train.items() if v}}
+    for k, v in train.items():
+        total[k] += v
+    rec = {"phase": "bagel_fp32_main_path", "model": "BAGEL-7B-MoT",
+           "compute_dtype": "float32", "layers": n_layers,
+           "params": sum(p.numel() for p in bagel.parameters()),
+           "weights_gb": weights_gb, "init_s": init_s, "qa_request": qa_rec,
+           "packed_training": pack_rec}
+    log(json.dumps(rec))
+    if not (math.isfinite(pack_rec["loss"]) and math.isfinite(eval_loss)):
+        fail("non-finite BAGEL fp32 training loss")
+    if zero_gen:
+        fail(f"BAGEL fp32: gen leaves without a gradient {zero_gen[:5]}")
+    del out, loss, batch, bagel, sig, inf, trainable
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 # ---------------------------------------------------------------------------
 # the full DiT fine-tune at its default fp32 policy
 # ---------------------------------------------------------------------------
@@ -6688,6 +6911,325 @@ def check_f32_d128_kernels():
     for rec in out.values():
         log(json.dumps({"kernel": rec}))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the fp32 d=128 kernels' masked modes (BAGEL-7B-MoT at fp32 compute)
+# ---------------------------------------------------------------------------
+
+F32_MASKED_REPLACES = {
+    "causal": "univid_tpu/kernels/flash_attention.py:161",
+    "grouped": "univid_tpu/kernels/flash_attention.py:44 (grouped kv heads: "
+               "univid_tpu/models/bagel/qwen2_mot.py:289 repeats them)",
+    "segments": "univid_tpu/kernels/flash_attention.py:191",
+    "packed": "univid_tpu/kernels/flash_attention.py:198",
+}
+F32_MASKED_BWD_REPLACES = {
+    "dq": "univid_tpu/kernels/flash_attention.py:831 (_mask_scores :794)",
+    "dkv": "univid_tpu/kernels/flash_attention.py:940 (_mask_scores :794)",
+}
+# the kernels-line records of check_f32_masked_kernels
+F32_MASKED_NAMES = (
+    "flash_attention_f32_sm90_causal", "flash_attention_f32_sm90_grouped",
+    *(f"{nm}_{mode}" for mode in ("packed", "segments") for nm in (
+        "flash_attention_f32_sm90", "flash_attention_f32_sm90_lse",
+        "flash_attention_bwd_dq_f32_sm90", "flash_attention_bwd_dkv_f32_sm90")),
+    "flash_attention_f32_sm90_lse_causal",
+    "flash_attention_bwd_dq_f32_sm90_causal",
+    "flash_attention_bwd_dkv_f32_sm90_causal")
+
+
+def _f32_masked_case(tag, q, k, v, kv_len, masks, do=None, fwd=True,
+                     lse=True):
+    """Hold the fp32 d=128 kernels' masked (or grouped) modes against their
+    plain versions on one case, q raw [B, Lq, N, 128], k, v [B, Lk, N /
+    group, 128]: the forward (`fwd`), the forward with the lse (`lse`),
+    and with `do` the backward from the plain residuals (dq and dk/dv, two
+    calls bitwise equal). Rows with no live key exactly 0 with lse +1e30,
+    keys no row sees exactly 0 in dk and dv. Each kernel timed alone on
+    the split parts (CUDA events) and as the whole call (its split
+    pre-passes, and the tile lists in the segment and packed modes),
+    beside the plain version and SDPA with the materialized boolean mask
+    (kv heads repeated for it); bounds over the live (row, key) pairs: six
+    bf16 products a product at 989 TFLOP/s (`bound_ms`), the 1x fp32 work
+    at 67 TFLOP/s beside it (`bound_fp32_cuda_cores_ms`). Returns {kind:
+    record fields}."""
+    import torch
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+
+    b, lq, n, d = q.shape
+    lk = k.shape[1]
+    sc = d ** -0.5
+    qs = fa._fold(q, sc)
+    fwd_tol = dict(atol=1e-5, rtol=1e-4,
+                   why="fp32 accuracy on both sides: three bf16 parts a "
+                       "side (~2^-24 a product), summation order and the "
+                       "approximate exp2 (2^-22 relative)")
+    lse_tol = dict(atol=1e-4, rtol=0.0,
+                   why="fp32 log2 of an fp32 row sum; summation order and "
+                       "the approximate exp2")
+    allowed = ~fa._dead(0, lq, lk, q.device, kv_len=kv_len,
+                        **masks).expand(b, 1, lq, lk)
+    live = int(allowed.sum())
+    no_key = ~allowed[:, 0].any(-1)                 # [B, Lq]
+    mm = 2.0 * live * n * d                         # one product, live pairs
+    row, kvb = nbytes(qs), nbytes(k, v)
+    lseb = b * n * lq * 4
+    codes = sum(nbytes(masks[key]) for key in ("q_segments", "kv_segments")
+                if masks.get(key) is not None)
+    kr, vr = fa.repeat_kv(k, n), fa.repeat_kv(v, n)
+    mode, fwd_l, bwd_l = fa._f32_masks(qs, k, kv_len, None, bwd=do is not None,
+                                       **masks)
+    out = {}
+
+    def record(kind, err, ms, call_ms, plain_ms, lib_ms, products, nb):
+        split_b = bound_ms(F32_SPLIT * products * mm, nb + codes,
+                           H100_BF16_FLOPS)
+        fp32_b = bound_ms(products * mm, nb + codes, H100_FP32_FLOPS)
+        out[kind] = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=split_b[0], bound_by=split_b[1],
+                         bound_fp32_cuda_cores_ms=fp32_b[0],
+                         live_pairs=live, share_of_bound=split_b[0] / ms)
+        log(json.dumps({"f32_masked_kernel": f"{tag} {kind}", **out[kind]}))
+
+    with torch.no_grad():
+        parts = [fa.split_bf16x3(x) for x in (qs, k, v)]
+        lib_fwd = _sdpa_masked_ms(qs, kr, vr, allowed)
+        o_p, lse_p = fa.attention_plain(qs, k, v, kv_len=kv_len,
+                                        save_residuals=True, **masks)
+        if fwd:
+            got = fa._flash_cuda(qs, k, v, kv_len, None, None, **masks)
+            err = compare(f"{tag} forward", got, o_p, **fwd_tol)
+            if not bool((got[no_key] == 0).all()):
+                fail(f"{tag}: rows with no live key are not 0")
+            del got
+            record("fwd", err, cuda_time(lambda: fa._fwd_f32_sm90_parts(
+                       *parts, kv_len, None, False, mode, fwd_l, **masks), 3),
+                   cuda_time(lambda: fa._flash_cuda(
+                       qs, k, v, kv_len, None, None, **masks), 3),
+                   cuda_time(lambda: fa.attention_plain(
+                       qs, k, v, kv_len=kv_len, **masks), 1, warmup=0),
+                   lib_fwd, 2, 2 * row + kvb)
+        if lse:
+            o, lse_t = fa.flash_attention_fwd_folded(qs, k, v, kv_len=kv_len,
+                                                     **masks)
+            err = max(compare(f"{tag} forward with lse, output", o, o_p,
+                              **fwd_tol),
+                      compare(f"{tag} forward with lse, lse", lse_t, lse_p,
+                              **lse_tol))
+            pad_lse = lse_t.transpose(1, 2)[no_key]
+            if (not bool((o[no_key] == 0).all())
+                    or not bool((pad_lse == 1e30).all())):
+                fail(f"{tag}: rows with no live key are not 0 with lse "
+                     "+1e30")
+            del o, lse_t
+            record("lse_fwd", err, cuda_time(lambda: fa._fwd_f32_sm90_parts(
+                       *parts, kv_len, None, True, mode, fwd_l, **masks), 3),
+                   cuda_time(lambda: fa.flash_attention_fwd_folded(
+                       qs, k, v, kv_len=kv_len, **masks), 3),
+                   cuda_time(lambda: fa.attention_plain(
+                       qs, k, v, kv_len=kv_len, save_residuals=True,
+                       **masks), 1, warmup=0),
+                   lib_fwd, 2, 2 * row + kvb + lseb)
+        if do is not None:
+            want = fa._bwd_plain_folded(qs, k, v, o_p, lse_p, do, kv_len, sc,
+                                        **masks)
+            grads = fa.flash_attention_bwd_folded(
+                qs, k, v, o_p, lse_p, do, kv_len=kv_len, softmax_scale=sc,
+                **masks)
+            again = fa.flash_attention_bwd_folded(
+                qs, k, v, o_p, lse_p, do, kv_len=kv_len, softmax_scale=sc,
+                **masks)
+            same = all(torch.equal(x, y) for x, y in zip(grads, again))
+            log(json.dumps({"check": f"{tag} backward: two calls give equal "
+                            "dq, dk, dv bits", "ok": same}))
+            if not same:
+                fail(f"{tag}: the fp32 masked backward is not deterministic")
+            errs = [_bwd_check(f"{tag} backward {nm}", g, w)
+                    for nm, g, w in zip(("dq", "dk", "dv"), grads, want)]
+            no_row = ~allowed[:, 0].any(1)          # [B, Lk]
+            if (not bool((grads[0][no_key] == 0).all())
+                    or not all(bool((g[no_row] == 0).all())
+                               for g in grads[1:])):
+                fail(f"{tag}: dq of rows with no key, or dk / dv of keys no "
+                     "row sees, are not 0")
+            del want, grads, again
+            parts.append(fa.split_bf16x3(do))
+            _, delta = fa._bwd_dq_f32_sm90_parts(*parts, o_p, do, lse_p,
+                                                 kv_len, sc, mode, fwd_l,
+                                                 **masks)
+            call_ms = cuda_time(lambda: fa.flash_attention_bwd_folded(
+                qs, k, v, o_p, lse_p, do, kv_len=kv_len, softmax_scale=sc,
+                **masks), 2)
+            plain_ms = cuda_time(lambda: fa._bwd_plain_folded(
+                qs, k, v, o_p, lse_p, do, kv_len, sc, **masks), 1, warmup=0)
+            lib_bwd = _sdpa_masked_ms(qs, kr, vr, allowed, do)
+            record("bwd_dq", errs[0], cuda_time(
+                lambda: fa._bwd_dq_f32_sm90_parts(
+                    *parts, o_p, do, lse_p, kv_len, sc, mode, fwd_l,
+                    **masks), 2), call_ms, plain_ms, lib_bwd, 3,
+                   4 * row + kvb + 2 * lseb)
+            record("bwd_dkv", max(errs[1:]), cuda_time(
+                lambda: fa._bwd_dkv_f32_sm90_parts(
+                    *parts, lse_p, delta, kv_len, mode, bwd_l, **masks), 2),
+                   call_ms, plain_ms, lib_bwd, 4,
+                   2 * row + 2 * kvb + 2 * lseb)
+            del delta
+        del parts, o_p, lse_p
+    del qs, kr, vr, allowed
+    torch.cuda.empty_cache()
+    return out
+
+
+def _f32_record(name, mode, kind, vals):
+    """A kernels-line record of an fp32 masked case's kind."""
+    rep = (F32_MASKED_BWD_REPLACES["dq" if kind == "bwd_dq" else "dkv"]
+           if kind.startswith("bwd") else F32_MASKED_REPLACES[mode])
+    return dict(name=name, route="cuda", source=F32_SM90_SRC, replaces=rep,
+                counter=name, **vals)
+
+
+def check_f32_masked_kernels():
+    """The fp32 d=128 kernels' masked and grouped modes (BAGEL-7B-MoT at fp32
+    compute) against their plain versions on the card, at the path's
+    shapes, qk-normed q and k, fp32 throughout (`_f32_masked_case`):
+      * the question prefill: q [1, 64, 28, 128] over 4 kv heads of a
+        20,480-row cache, q_offsets 19,168, kv_len 19,215 (causal,
+        grouped; the forward alone, as the prefill runs it);
+      * a batch of 16 prefills, [16, 64, 28, 128] over 2,624 rows, offsets
+        1,198 + 37 r, kv_len offsets + 47 (causal, grouped);
+      * the square prefill [1, 2048, 28, 128] over 4 kv heads, offset 0
+        (causal, grouped);
+      * the ViT append [1, 2112, 28, 128] over 4 kv heads of the cache,
+        kv_len 19,168 (grouped, kv_len; non-causal);
+      * image generation's flow pass [1, 4160, 28, 128] over 4,162 keys
+        padded to 4,224 (grouped, kv_len);
+      * packed [1, 4096, 28, 128] on the training pack's codes: forward,
+        with the lse, dq and dk/dv (the packed pass repeats the kv heads);
+      * segments [2, 2048, 12, 128], 3 segments a row: the same four;
+      * causal [1, 2048, 28, 128] with the lse and the causal backward.
+    Keys no query sees (cache slots at or past kv_len) hold 50.0; a key
+    some row sees is drawn as the rest. Bounds PERF.md s2's fp32 d=128
+    row.
+    Returns the kernels-line records (the path's shapes: the prefill, the
+    ViT append, the pack; segments and the causal backward at theirs)."""
+    import torch
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.bagel.bagel import BagelConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    n, nk, d = 28, 4, 128
+    f32 = torch.float32
+    dev = "cuda"
+
+    def rand(shape, normed=True):
+        if normed:
+            return qk_normed(shape, gen, f32)
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    def cache_case(b, lq, lk, heads, kv_len):
+        """q [b, lq, n], a cache k, v [b, lk, heads]: slots at or past kv_len
+        hold 50.0."""
+        q, k, v = rand((b, lq, n, d)), rand((b, lk, heads, d)), \
+            rand((b, lk, heads, d), False)
+        for r, kl in enumerate(kv_len):
+            k[r, kl:] = 50.0
+            v[r, kl:] = 50.0
+        return q, k, v
+
+    records = {}
+    t0 = time.perf_counter()
+    # the question prefill over the 16-frame cache
+    q, k, v = cache_case(1, 64, BAGEL_CAPACITY, nk, [19215])
+    case = _f32_masked_case("f32 causal prefill [1, 64, 28, 128] / 4 kv, "
+                            "20480-row cache", q, k, v, i32([19215]),
+                            dict(causal=True, q_offsets=i32([19168])),
+                            lse=False)
+    records["flash_attention_f32_sm90_causal"] = _f32_record(
+        "flash_attention_f32_sm90_causal", "causal", "fwd", case["fwd"])
+    # 16 prefills at once
+    offs = [1198 + 37 * r for r in range(16)]
+    kvl = [o + 47 for o in offs]
+    q, k, v = cache_case(16, 64, 2624, nk, kvl)
+    _f32_masked_case("f32 causal B=16 [16, 64, 28, 128] / 4 kv, 2624 rows",
+                     q, k, v, i32(kvl), dict(causal=True, q_offsets=i32(offs)),
+                     lse=False)
+    # the square prefill
+    q, k, v = cache_case(1, 2048, 2048, nk, [2048])
+    _f32_masked_case("f32 causal square [1, 2048, 28, 128] / 4 kv", q, k, v,
+                     None, dict(causal=True), lse=False)
+    # the ViT append over the cache (non-causal, grouped, kv_len)
+    q, k, v = cache_case(1, 2112, BAGEL_CAPACITY, nk, [19168])
+    case = _f32_masked_case("f32 grouped ViT append [1, 2112, 28, 128] / 4 "
+                            "kv, kv_len 19168", q, k, v, i32([19168]), {},
+                            lse=False)
+    rec = _f32_record("flash_attention_f32_sm90_grouped", "grouped", "fwd",
+                      case["fwd"])
+    rec["counter"] = "flash_attention_f32_sm90_grouped"
+    records[rec["name"]] = rec
+    # image generation's flow pass
+    q, k, v = cache_case(1, 4160, 4224, nk, [4162])
+    _f32_masked_case("f32 grouped flow pass [1, 4160, 28, 128] / 4 kv, "
+                     "4162 keys", q, k, v, i32([4162]), {}, lse=False)
+    del q, k, v
+    # packed, the training pack's codes (kv heads repeated)
+    batch, _ = bagel_train_batch(BagelConfig(), TRAIN_SIZES, 5, PACK_TOKENS)
+    codes_np = batch["mask_codes"]
+    real = int((codes_np >> 16 > 0).sum())
+    codes = torch.tensor(codes_np, dtype=torch.int32, device=dev)[None]
+    # the pack's document-0 pad tokens see one another: random keys there
+    # too (keys at 50.0 that a row sees make its dq a cancellation of
+    # ~1e-3 relative noise on both sides, no kernel's error)
+    q, k, v, do = (rand((1, PACK_TOKENS, n, d), i < 2) for i in range(4))
+    log(json.dumps({"check": "f32 packed pack", "real_tokens": real}))
+    case = _f32_masked_case("f32 packed [1, 4096, 28, 128]", q, k, v, None,
+                            dict(q_segments=codes, kv_segments=codes,
+                                 packed_mode=True), do=do)
+    for kind, name in (("fwd", "flash_attention_f32_sm90_packed"),
+                       ("lse_fwd", "flash_attention_f32_sm90_lse_packed"),
+                       ("bwd_dq", "flash_attention_bwd_dq_f32_sm90_packed"),
+                       ("bwd_dkv", "flash_attention_bwd_dkv_f32_sm90_packed")):
+        records[name] = _f32_record(name, "packed", kind, case[kind])
+    del q, k, v, do
+    # segments, 3 a row
+    b, l, ns = 2, 2048, 12
+    segs = torch.zeros((b, l), dtype=torch.int32, device=dev)
+    for r, (c1, c2) in enumerate(((700, 1400), (300, 1650))):
+        segs[r, c1:c2] = 1
+        segs[r, c2:] = 2
+    q, k, v, do = (rand((b, l, ns, d), i < 2) for i in range(4))
+    case = _f32_masked_case("f32 segments [2, 2048, 12, 128]", q, k, v,
+                            None, dict(q_segments=segs,
+                                       kv_segments=segs.clone()), do=do)
+    for kind, name in (("fwd", "flash_attention_f32_sm90_segments"),
+                       ("lse_fwd", "flash_attention_f32_sm90_lse_segments"),
+                       ("bwd_dq", "flash_attention_bwd_dq_f32_sm90_segments"),
+                       ("bwd_dkv",
+                        "flash_attention_bwd_dkv_f32_sm90_segments")):
+        records[name] = _f32_record(name, "segments", kind, case[kind])
+    del q, k, v, do
+    # the causal forward with the lse and the causal backward
+    q, k, v, do = (rand((1, 2048, n, d), i < 2) for i in range(4))
+    case = _f32_masked_case("f32 causal [1, 2048, 28, 128] with lse and "
+                            "backward", q, k, v, None, dict(causal=True),
+                            do=do, fwd=False)
+    for kind, name in (("lse_fwd", "flash_attention_f32_sm90_lse_causal"),
+                       ("bwd_dq", "flash_attention_bwd_dq_f32_sm90_causal"),
+                       ("bwd_dkv", "flash_attention_bwd_dkv_f32_sm90_causal")):
+        records[name] = _f32_record(name, "causal", kind, case[kind])
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    log(json.dumps({"phase": "check_f32_masked_kernels",
+                    "seconds": time.perf_counter() - t0}))
+    for rec in records.values():
+        log(json.dumps({"kernel": rec}))
+    return records
 
 
 def _small_fp32_dit(cfg):
@@ -10430,6 +10972,13 @@ def kernels_line(records, by_path, mask_records):
     # flash_attention_bf16 counter, in the request of their shape
     own.update(flash_attention_bf16_image_gen_t2i="bagel_t2i",
                flash_attention_bf16_image_gen_edit="bagel_edit")
+    # the fp32 d=128 masked and grouped modes: BAGEL-7B-MoT at fp32 compute
+    # (the QA request's ViT appends and prefill, the packed evaluation
+    # forward and training pass); no path reaches the segment modes or the
+    # causal forward with lse and backward (no causal training caller)
+    own.update({nm: ("bagel_fp32" if nm.endswith(("_packed", "_grouped"))
+                     or nm == "flash_attention_f32_sm90_causal" else None)
+                for nm in F32_MASKED_NAMES})
     # the Kontext edit's joint attention: the 28-step 1024x1024 edit
     own.update(flash_attention_bf16_kontext="kontext")
     # the animate shapes: the animate-14B CLI run (the cross counter counts
@@ -10498,10 +11047,11 @@ def ptxas_by_function(text):
 
 
 def launch_counts():
-    """Every launch counter: LAUNCHES and the masked modes'
-    LAUNCHES_BY_MODE."""
+    """Every launch counter: LAUNCHES, the masked modes' LAUNCHES_BY_MODE
+    and the fp32 forwards over grouped kv heads (`<name>_grouped`)."""
     from univid_tpu_torch.kernels import flash_attention as fa
-    return {**fa.LAUNCHES, **fa.LAUNCHES_BY_MODE}
+    return {**fa.LAUNCHES, **fa.LAUNCHES_BY_MODE,
+            **{f"{k}_grouped": v for k, v in fa.GROUPED_LAUNCHES.items()}}
 
 
 def main():
@@ -10574,6 +11124,7 @@ def main():
     mask_records = check_mask_kernels()
     records.update(mask_records)
     records.update(check_f32_d128_kernels())
+    records.update(check_f32_masked_kernels())
     # the knob kernels: the kernels line carries the ti2v-5B shape (the
     # knob path's model), the t2v-1.3B shape is logged beside it
     records.update(check_knob_kernels("ti2v-5B", 24, (31, 22, 40), 28672,
@@ -10681,6 +11232,10 @@ def main():
             bagel_train_main_path(args.output_dir)
         records.update(reg_records)
         log(json.dumps({"phase": "bagel_train_main_path_total",
+                        "seconds": time.perf_counter() - t0}))
+        t0 = time.perf_counter()
+        by_path["bagel_fp32"] = bagel_fp32_main_path()
+        log(json.dumps({"phase": "bagel_fp32_main_path_total",
                         "seconds": time.perf_counter() - t0}))
         t0 = time.perf_counter()
         by_path["fp32_train"] = fp32_train_main_path(FP32_TRAIN_STEPS)

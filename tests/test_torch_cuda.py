@@ -776,18 +776,101 @@ def test_cuda_f32_d128_failures_raise(cuda_device, monkeypatch):
                 "flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32"))
 
 
+def _f32_masks(mode, b, l, device):
+    """(mask keywords, kv_len, kv heads) of one fp32 d=128 masked mode."""
+    i32 = dict(dtype=torch.int32, device=device)
+    if mode == "causal":
+        return dict(causal=True, q_offset=13), None, 2
+    if mode == "causal_offsets_grouped":
+        return (dict(causal=True, q_offsets=torch.tensor([37, 180], **i32)),
+                torch.tensor([300, 448], **i32), 1)
+    if mode == "grouped":
+        return {}, torch.tensor([250, 0], **i32), 1
+    segs = torch.zeros((b, l), **i32)
+    segs[:, 150:] = 1
+    segs[1, 300:] = 2
+    kw = dict(q_segments=segs, kv_segments=segs.clone())
+    if mode == "packed":   # doc 1 with a full-attention run, then doc 2
+        doc = (torch.arange(l, device=device) >= 260).int() + 1
+        fn = torch.full((l,), -1, **i32)
+        fn[100:180] = 0
+        codes = tatt.pack_mask_codes(doc, fn, torch.full((l,), -1, **i32))
+        codes = codes[None].repeat(b, 1).contiguous()
+        kw = dict(q_segments=codes, kv_segments=codes.clone(),
+                  packed_mode=True)
+    return kw, None, 2
+
+
 @pytest.mark.cuda
-def test_cuda_f32_masked_modes_raise(cuda_device):
-    """fp32 d=128 has no causal, segment or packed kernel mode: on the card
-    they raise (the plain version serves CPU tensors only)."""
-    x = torch.zeros((1, 64, 1, 128), device=cuda_device)
-    codes = torch.zeros((1, 64), dtype=torch.int32, device=cuda_device)
-    for kw in (dict(causal=True),
-               dict(q_segments=codes, kv_segments=codes)):
-        with pytest.raises(NotImplementedError, match="fp32"):
-            tfa.flash_attention_padded(x, x, x, **kw)
-        with pytest.raises(NotImplementedError, match="fp32"):
-            tfa.flash_attention_fwd_folded(x, x, x, **kw)
+@pytest.mark.parametrize("mode", ["causal", "causal_offsets_grouped",
+                                  "grouped", "segments", "packed"])
+def test_cuda_f32_masked_modes_match_plain(cuda_device, mode):
+    """The fp32 d=128 kernels' causal (static and device offsets), segment,
+    packed and grouped-kv modes against their plain versions on the card:
+    the forward and the forward with lse at 1e-5 + 1e-4 |ref| (lse 1e-4),
+    rows with no live key exactly 0 with lse +1e30; the backward (not
+    grouped) at 1e-4 max|ref| + 1e-4 |ref|, rel. L2 < 1e-4, two calls
+    bitwise equal. The launches are counted by mode."""
+    b, l, n = 2, 448, 2
+    masks, kv_len, nk = _f32_masks(mode, b, l, cuda_device)
+    q = torch.as_tensor(_rand((b, l, n, 128), 80, True)).to(cuda_device)
+    k, v = (torch.as_tensor(_rand((b, l, nk, 128), s, s == 81)).to(
+        cuda_device) for s in (81, 82))
+    do = torch.as_tensor(_rand((b, l, n, 128), 83)).to(cuda_device)
+    qs = tfa._fold(q, 128 ** -0.5)
+    tfa.reset_launches()
+    with torch.no_grad():
+        o1 = tfa.flash_attention_padded(q, k, v, kv_len=kv_len, **masks)
+        o, lse = tfa.flash_attention_fwd_folded(qs, k, v, kv_len=kv_len,
+                                                **masks)
+        po, plse = tfa.attention_plain(qs, k, v, kv_len=kv_len,
+                                       save_residuals=True, **masks)
+    torch.cuda.synchronize()
+    for got in (o1, o):
+        assert bool(((got - po).abs() <= 1e-5 + 1e-4 * po.abs()).all())
+    live = plse < 1e29
+    assert float((lse - plse)[live].abs().max()) <= 1e-4
+    assert bool((lse[~live] == 1e30).all())
+    assert bool((o.permute(0, 2, 1, 3)[~live] == 0).all())
+    by_mode = "causal" if "causal" in mode else (
+        None if mode == "grouped" else mode)
+    if by_mode is not None:
+        assert tfa.LAUNCHES_BY_MODE[f"flash_attention_f32_sm90_{by_mode}"] \
+            == 1
+        assert tfa.LAUNCHES_BY_MODE[
+            f"flash_attention_f32_sm90_lse_{by_mode}"] == 1
+    if nk != n:
+        assert tfa.GROUPED_LAUNCHES == {"flash_attention_f32_sm90": 1,
+                                        "flash_attention_f32_sm90_lse": 1}
+        return
+    with torch.no_grad():
+        grads = tfa.flash_attention_bwd_folded(
+            qs, k, v, po, plse, do, kv_len=kv_len, softmax_scale=128 ** -0.5,
+            **masks)
+        again = tfa.flash_attention_bwd_folded(
+            qs, k, v, po, plse, do, kv_len=kv_len, softmax_scale=128 ** -0.5,
+            **masks)
+        want = tfa._bwd_plain_folded(qs, k, v, po, plse, do, kv_len,
+                                     128 ** -0.5, **masks)
+    for got, ag, ref in zip(grads, again, want):
+        assert torch.equal(got, ag)
+        lim = 1e-4 * ref.abs().max() + 1e-4 * ref.abs()
+        assert bool(((got - ref).abs() <= lim).all())
+        assert float((got - ref).norm() / ref.norm()) < 1e-4
+    for name in ("flash_attention_bwd_dq_f32_sm90",
+                 "flash_attention_bwd_dkv_f32_sm90"):
+        assert tfa.LAUNCHES_BY_MODE[f"{name}_{by_mode}"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_f32_grouped_backward_raises(cuda_device):
+    """No fp32 backward kernel groups kv heads (the packed pass repeats
+    them, as JAX does): the call raises on the card, no plain fallback."""
+    x = torch.zeros((1, 64, 2, 128), device=cuda_device)
+    lse = torch.zeros((1, 2, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="kv heads"):
+        tfa.flash_attention_bwd_folded(x, x[:, :, :1], x[:, :, :1], x, lse,
+                                       x, softmax_scale=1.0)
 
 
 @pytest.mark.cuda

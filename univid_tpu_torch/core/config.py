@@ -323,6 +323,25 @@ WAN_CONFIGS = {
 }
 
 
+SIZE_CONFIGS = {
+    "720*1280": (720, 1280),
+    "1280*720": (1280, 720),
+    "480*832": (480, 832),
+    "832*480": (832, 480),
+    "704*1280": (704, 1280),
+    "1280*704": (1280, 704),
+    "1024*704": (1024, 704),
+    "704*1024": (704, 1024),
+}
+
+MAX_AREA_CONFIGS = {k: v[0] * v[1] for k, v in SIZE_CONFIGS.items()}
+
+SUPPORTED_SIZES = {
+    "t2v-A14B": ("720*1280", "1280*720", "480*832", "832*480"),
+    "i2v-A14B": ("720*1280", "1280*720", "480*832", "832*480"),
+    "ti2v-5B": ("704*1280", "1280*704"),
+}
+
 def latent_shape(spec: WanModelSpec, width: int, height: int,
                  frame_num: int) -> Tuple[int, int, int, int]:
     """(C, F, H, W) latent grid for a pixel-space request.

@@ -104,6 +104,14 @@ def mlp(dims, *, bias=True, init="xavier", std=0.02, dtype=torch.float32,
                    for i in range(len(dims) - 1)})
 
 
+
+def count_params(x) -> int:
+    """The elements of a module's state dict, or of a state dict: the
+    leaves the JAX package's count_params sums (convert.py maps them one to
+    one)."""
+    sd = x.state_dict() if isinstance(x, nn.Module) else x
+    return sum(t.numel() for t in sd.values())
+
 def linear(p, x, *, compute_dtype=None):
     """y = x @ w^T + b with fp32 accumulation, one rounding to the output
     dtype (compute_dtype, else x's dtype). Without compute_dtype the

@@ -17,9 +17,11 @@ for its group of query heads, the reference route repeats them. Routes:
                counterpart of the JAX package's `_flash` custom VJP: the
                forward that saves the lse, then the backward kernels, with
                every mask (kv_len, causal, segments, packed codes) in bf16
-               (the unmasked modes on the one-pass sm90 backward),
-               and with kv_len in fp32 (the DiT at its default fp32
-               policy; fp32 masked modes raise on the card).
+               (the unmasked modes on the one-pass sm90 backward) and in
+               fp32 at d=128 (the DiT at its default fp32 policy, BAGEL's
+               packed pass at fp32 compute). Without grad, fp32 d=128 also
+               takes grouped kv heads under every mask (BAGEL-7B-MoT's
+               fp32 KV-cache prefill and ViT appends).
   reference  — `mha_reference`, a masked softmax attention, for other head
                dims (as on the TPU), segment masks included (SigLIP's
                d=72); differentiable by plain autograd.
@@ -29,8 +31,9 @@ chain) and `qk_int8` (int8 QK^T with per-row q and per-kv-block k scales,
 the block width JAX's dispatcher picks, `jax_block_k`) take the kernel
 route's bf16 kernels with kv_len and the bound; the reference route and a
 call under grad ignore them, as the JAX package's XLA fallback and its
-training forward (`_flash_fwd`) do. With causal, segment or packed masks,
-and on the card with fp32 inputs, they raise (no caller, no kernel mode).
+training forward (`_flash_fwd`) do. With causal, segment or packed masks
+they raise (no caller, no kernel mode); on the card with fp32 inputs too
+(`KNOBS_F32_LATER`: the fp32 Wan DiT's knobs, ROADMAP.md's next slice).
 """
 
 from __future__ import annotations
@@ -205,7 +208,7 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
     runs `FlashAttention`: rope_tables are refused (training rotates q and
     k outside the kernel, as the JAX package does), the cross call takes
     the generic kernel rather than the one-shot route, the bound is
-    detached; bf16 takes every mask, fp32 (d=128 kernels) kv_len only.
+    detached; bf16 and fp32 (d=128 kernels) take every mask.
     Grouped kv heads under grad are refused: repeat them first, as the
     JAX callers do (autograd sums the repeat).
 

@@ -18,7 +18,26 @@
 //     _flash_bwd_fused_kernel (:1057) at fp32, with kv_len: p = exp2(qs k^T
 //     - lse), delta = rowsum(dO * O), dS = p * (dO v^T - delta), dq = scale
 //     * dS k, dk = ln 2 * dS^T qs, dv = p^T dO, as a dq kernel (which also
-//     writes delta) and a dk/dv kernel, 7 products a tile pair.
+//     writes delta) and a dk/dv kernel, 7 products a tile pair;
+//   * the masks of _flash_kernel (:161-210, the `need` split at :309-337)
+//     and _mask_scores (:794), at fp32 (BAGEL-7B-MoT at fp32 compute): the
+//     causal mode with a static q_offset and device q_offsets [B] (query i
+//     of batch b at row i + q_offset + q_offsets[b] sees the keys at or
+//     before it; the KV-cache prefill), segment ids, and packed_mode's
+//     pack_mask_codes codes (packed training, forward with lse and both
+//     backward kernels); and in the forward grouped kv heads (k, v with N /
+//     group heads, query head h reading kv head h / group: the ViT appends
+//     and the prefill over the un-repeated cache, which JAX repeats first).
+//     The causal walks come from the offsets on the device: tiles wholly
+//     past a block's last row are never loaded, the predicate runs only on
+//     the tiles that cross the diagonal or kv_len. The segment and packed
+//     walks read the tile lists of mask_tiles_sm90.cu, built once a pass:
+//     the forward and dq kernels the forward list of their (parent) 128-row
+//     q tile, each 128-key entry four 32-key tiles (the last cut at
+//     kv_len); the dk/dv kernel the backward's kv-major list of its parent
+//     128-key tile, each 64-row q entry two 32-row q tiles. Tiles flagged
+//     full skip the predicate. A row with no live key is exactly 0 with lse
+//     +1e30; keys at or past kv_len score -1e30.
 // q arrives folded by softmax_scale * log2 e (the wrapper's _fold, or the
 // fp32 rope pre-pass univid_rope_rotate_f32 of flash_attention_f32_d128.cu,
 // which stays as it is). flash_attention_f32_d128.cu and
@@ -99,6 +118,14 @@
 // Ragged lengths: Lq and Lk are multiples of 64. TMA zero-fills rows past
 // L; the tail kv tile masks keys at or past kv_len; a forward consumer whose
 // 64 rows lie past Lq leaves at once.
+// Masked steps: the consumers of a block walk the same steps in the same
+// order as its producer, so a step whose pairs are partly (or all) dead
+// still passes through both consumers of the dk/dv kernel: consumer 0's P^T
+// is 0 on the dead pairs (their scores -1e30, and exp2(-1e30 - lse) is 0
+// for any lse, +1e30 included), and consumer 1's dS^T = P^T (..) is too.
+// In the forward a row may meet its first live key after dead tiles: its
+// reference point is still -1e30 there, so a dead score's p is set to 0
+// rather than taken as exp2(0).
 
 #include <cuda.h>
 
@@ -292,6 +319,117 @@ __device__ __forceinline__ void load_parts(bf16* dst, int sub_elems, const CUten
 }
 
 // ---------------------------------------------------------------------------
+// masks: the walks and the predicate
+// ---------------------------------------------------------------------------
+constexpr int CAUSAL = 3;   // beside NO_SEG, SEGMENTS, PACKED: the wrappers' mask modes
+constexpr int LIST_Q = 128, LIST_K = 128;   // the tile lists' q and kv tiles (mask_tiles_sm90.cu)
+
+// the mask operands of a call (null / 0 where its mode reads none)
+struct Masks {
+  const int* q_offsets;   // causal: int32 [B] or null
+  const int* q_seg;       // segments / packed: codes int32 [B, lq]
+  const int* kv_seg;      // [B, lk]
+  const int* list;        // the forward list [B, ceil(lq / 128), width] (forward, dq) or
+  const int* count;       //   the backward's [B, ceil(lk / 128), width] (dk/dv), and its counts
+  int q_offset;           // causal: the static offset
+  int width;              // entries a list row
+};
+
+__device__ __forceinline__ int causal_offset(const Masks& mk, int b) {
+  return mk.q_offset + (mk.q_offsets != nullptr ? __ldg(mk.q_offsets + b) : 0);
+}
+
+// A forward or dq block's walk over 32-key tiles: `n` steps, step s reads
+// kv tile tile(s) and runs the predicate iff need(s). The block's q rows
+// are r0 .. r0 + rows - 1 (pack indices; `first` is r0's causal row).
+template <int MASK>
+struct KvWalk {
+  const int* list;   // SEGMENTS / PACKED: this q tile's list row
+  int n, kv_end, first;
+  __device__ __forceinline__ int tile(int s) const {
+    if (MASK == SEGMENTS || MASK == PACKED) return (__ldg(list + (s >> 2)) >> 1) * 4 + (s & 3);
+    return s;
+  }
+  __device__ __forceinline__ bool need(int s) const {
+    if (MASK == SEGMENTS || MASK == PACKED) return (__ldg(list + (s >> 2)) & 1) == 0;
+    const int end = (s + 1) * KT;   // one past the tile's last key
+    // causal: some key of the tile lies past the block's first row
+    return end > kv_end || (MASK == CAUSAL && end - 1 > first);
+  }
+};
+
+template <int MASK>
+__device__ __forceinline__ KvWalk<MASK> kv_walk(const Masks& mk, int b, int r0, int rows, int lq,
+                                                int kv_end) {
+  KvWalk<MASK> w;
+  w.list = nullptr;
+  w.kv_end = kv_end;
+  w.first = r0;
+  w.n = (kv_end + KT - 1) / KT;
+  if (MASK == CAUSAL) {
+    w.first = r0 + causal_offset(mk, b);
+    const int last = w.first + rows - 1;   // tiles past the last row hold no live pair
+    w.n = last < 0 ? 0 : min(w.n, last / KT + 1);
+  } else if (MASK == SEGMENTS || MASK == PACKED) {
+    const long long at = (long long)b * ((lq + LIST_Q - 1) / LIST_Q) + r0 / LIST_Q;
+    w.list = mk.list + at * mk.width;
+    const int c = __ldg(mk.count + at);
+    // each listed 128-key tile is four 32-key ones; only the last listed
+    // tile can reach kv_end (every listed tile holds a live key below it)
+    w.n = c == 0 ? 0 : 4 * (c - 1) + min(4, (kv_end - (__ldg(w.list + c - 1) >> 1) * LIST_K + KT - 1) / KT);
+  }
+  return w;
+}
+
+// A dk/dv block's walk over 32-row q tiles, for its kv rows kv0 .. kv0 + 63.
+template <int MASK>
+struct QWalk {
+  const int* list;   // SEGMENTS / PACKED: the parent 128-key tile's list row
+  int n, i0, kv0, off;
+  __device__ __forceinline__ int tile(int s) const {
+    if (MASK == SEGMENTS || MASK == PACKED) return (__ldg(list + (s >> 1)) >> 1) * 2 + (s & 1);
+    return i0 + s;
+  }
+  __device__ __forceinline__ bool need(int s) const {
+    if (MASK == SEGMENTS || MASK == PACKED) return (__ldg(list + (s >> 1)) & 1) == 0;
+    // causal: the tile's first row lies before the block's last key (keys
+    // at or past kv_len are dead in every step: dkv_consume's dead rows)
+    return MASK == CAUSAL && (i0 + s) * KT + off < kv0 + R_BM - 1;
+  }
+};
+
+template <int MASK>
+__device__ __forceinline__ QWalk<MASK> q_walk(const Masks& mk, int b, int kv0, int lq, int lk) {
+  QWalk<MASK> w;
+  w.list = nullptr;
+  w.kv0 = kv0;
+  w.i0 = 0;
+  w.off = 0;
+  w.n = lq / KT;
+  if (MASK == CAUSAL) {
+    w.off = causal_offset(mk, b);
+    // the first q tile whose last row (i * 32 + 31 + off) reaches kv0
+    const int x = kv0 - w.off - (KT - 1);
+    w.i0 = x <= 0 ? 0 : min((x + KT - 1) / KT, lq / KT);
+    w.n = lq / KT - w.i0;
+  } else if (MASK == SEGMENTS || MASK == PACKED) {
+    const long long at = (long long)b * ((lk + LIST_K - 1) / LIST_K) + kv0 / LIST_K;
+    w.list = mk.list + at * mk.width;
+    w.n = 2 * __ldg(mk.count + at);
+  }
+  return w;
+}
+
+// whether query row `row` (pack index) may see key `col`, beyond kv_len:
+// causal at the row's offset, or the codes' predicate
+template <int MASK>
+__device__ __forceinline__ bool allowed(int qc, int kc, int row, int col, int off) {
+  if (MASK == CAUSAL) return col <= row + off;
+  if (MASK == SEGMENTS || MASK == PACKED) return seg_allowed<MASK == PACKED ? PACKED : SEGMENTS>(qc, kc, row, col);
+  return true;
+}
+
+// ---------------------------------------------------------------------------
 // the split pre-pass: fp32 x [B, L, N, 128] (strides sb, sl, sh) -> bf16
 // parts [3, B, L, N, 128] contiguous; four elements a thread, grid-stride
 // ---------------------------------------------------------------------------
@@ -330,14 +468,14 @@ struct FwdSmem {
 };
 constexpr int FWD_SMEM = (int)sizeof(FwdSmem) + 1024;   // + alignment slack
 
-template <bool BOUNDED>
+template <bool BOUNDED, int MASK>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map, float* __restrict__ o,
                           const int* __restrict__ kv_len, const float* __restrict__ bound,
-                          float* __restrict__ lse, int B, int n_heads, int lq, int lk,
-                          long long o_sb, long long o_sl, long long o_sh) {
+                          float* __restrict__ lse, const Masks mk, int B, int n_heads, int group,
+                          int lq, int lk, long long o_sb, long long o_sl, long long o_sh) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
   FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_raw + pad);
@@ -347,8 +485,9 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   const int q0 = blockIdx.x * F_BM;
   int kv_end = lk;
   if (kv_len != nullptr) kv_end = min(max(kv_len[b], 0), lk);
-  const int n_tiles = (kv_end + KT - 1) / KT;
   const int n_cons = (q0 + 64 < lq) ? 2 : 1;   // consumers with rows below lq
+  const KvWalk<MASK> walk = kv_walk<MASK>(mk, b, q0, 64 * n_cons, lq, kv_end);
+  const int n_tiles = walk.n;
 
   if (tid == 0) {
     mbar_init(&sm.q_full, 1);
@@ -366,16 +505,17 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (tid == 0 && n_tiles > 0) {
+      const int hk = h / group;   // the kv head of this query head
       mbar_expect_tx(&sm.q_full, PARTS * 2 * SUB_F * 2);
       load_parts(&sm.q[0][0][0], SUB_F, &q_map, &sm.q_full, h, q0, b, B);
       for (int j = 0; j < n_tiles; ++j) {
-        const int st = j % STAGES, ph = ((j / STAGES) & 1) ^ 1;
+        const int st = j % STAGES, ph = ((j / STAGES) & 1) ^ 1, kv0 = walk.tile(j) * KT;
         mbar_wait(&sm.k_empty[st], ph);
         mbar_expect_tx(&sm.k_full[st], T_BYTES);
-        load_parts(&sm.k[st][0][0][0], SUB_T, &k_map, &sm.k_full[st], h, j * KT, b, B);
+        load_parts(&sm.k[st][0][0][0], SUB_T, &k_map, &sm.k_full[st], hk, kv0, b, B);
         mbar_wait(&sm.v_empty[st], ph);
         mbar_expect_tx(&sm.v_full[st], T_BYTES);
-        load_parts(&sm.v[st][0][0][0], SUB_T, &v_map, &sm.v_full[st], h, j * KT, b, B);
+        load_parts(&sm.v[st][0][0][0], SUB_T, &v_map, &sm.v_full[st], hk, kv0, b, B);
       }
     }
     return;
@@ -387,6 +527,13 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   const int w = (tid / 32) % 4, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int row0 = q0 + 64 * c + 16 * w;   // this warp's first q row
   const float c_bound = BOUNDED ? *bound : 0.f;
+  // the codes of this thread's rows g and g + 8 (segment and packed modes)
+  int qc[2] = {0, 0};
+  if (MASK == SEGMENTS || MASK == PACKED) {
+    qc[0] = __ldg(mk.q_seg + (long long)b * lq + row0 + g);
+    qc[1] = __ldg(mk.q_seg + (long long)b * lq + row0 + g + 8);
+  }
+  const int off = MASK == CAUSAL ? walk.first - q0 : 0;   // the causal offset
 
   float o_run[2][8][4];
 #pragma unroll
@@ -409,19 +556,28 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_wait<0>();
     fence_scores(x);
     if (lane == 0) mbar_arrive(&sm.k_empty[st]);
-    const int kv0 = j * KT;
-    const bool tail = kv0 + KT > kv_end;
+    const int kv0 = walk.tile(j) * KT;
+    // the predicate only where the tile needs it: keys at or past kv_len,
+    // and the causal or code mask (unmasked: only the tail tile needs it)
+    const bool need = walk.need(j);
     float s[4][4];
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         s[n][e] = score(x, n, e);
-        if (tail && kv0 + 8 * n + 2 * t + (e & 1) >= kv_end) s[n][e] = NEG_INF;
+        if (need) {
+          const int col = kv0 + 8 * n + 2 * t + (e & 1);
+          int kc = 0;
+          if (MASK == SEGMENTS || MASK == PACKED) kc = __ldg(mk.kv_seg + (long long)b * lk + col);
+          if (col >= kv_end || !allowed<MASK>(qc[e >> 1], kc, row0 + g + 8 * (e >> 1), col, off))
+            s[n][e] = NEG_INF;
+        }
       }
     float corr[2] = {1.f, 1.f};
     if (!BOUNDED) {
-      // the first tile holds key 0 < kv_end, so m is finite from then on
+      // unmasked, the first tile holds key 0 < kv_end, so m is finite from
+      // then on; masked, a row's m stays -1e30 until its first live key
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         float mc = NEG_INF;
@@ -439,7 +595,9 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int n = 0; n < 4; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[n][e] = fast_exp2(s[n][e] - m_r[e >> 1]);
+        const float p = fast_exp2(s[n][e] - m_r[e >> 1]);
+        // a dead score's p is 0, also while the row's m is still -1e30
+        s[n][e] = (MASK != NO_SEG && need && s[n][e] == NEG_INF) ? 0.f : p;
         l_r[e >> 1] += s[n][e];
       }
     uint32_t pa[PARTS][2][4];
@@ -498,10 +656,12 @@ struct DqSmem {
   bf16 k[2][2][PARTS][SUB_T];   // one stage a consumer
   bf16 v[2][2][PARTS][SUB_T];
   float delta[R_BM];
+  float lse[R_BM];
   uint64_t qd_full, full[2], empty[2];
 };
 constexpr int DQ_SMEM = (int)sizeof(DqSmem) + 1024;
 
+template <int MASK>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap do_map,
@@ -509,7 +669,7 @@ flash_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap v_map,
                              const float* __restrict__ o, const float* __restrict__ dout,
                              const float* __restrict__ lse, const int* __restrict__ kv_len,
-                             float* __restrict__ dq, float* __restrict__ delta, int B,
+                             const Masks mk, float* __restrict__ dq, float* __restrict__ delta, int B,
                              int n_heads, int lq, int lk, float scale, long long o_sb,
                              long long o_sl, long long o_sh, long long d_sb, long long d_sl,
                              long long d_sh, long long q_sb, long long q_sl, long long q_sh) {
@@ -520,9 +680,13 @@ flash_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   const int tid = threadIdx.x, wg = tid / 128;
   const int bh = blockIdx.y, b = bh / n_heads, h = bh % n_heads;
   const int q0 = blockIdx.x * R_BM;
-  int kv_end = lk;
-  if (kv_len != nullptr) kv_end = min(max(kv_len[b], 0), lk);
-  const int n_tiles = (kv_end + KT - 1) / KT;
+  // the 32-key tiles of this 64-row q tile: every one below kv_end, the
+  // causal range, or the forward list's entry of the parent 128-row tile
+  // (each role derives it after its setmaxnreg, as the dk/dv kernel does)
+  auto walk_of = [&]() {
+    const int kv_end = kv_len != nullptr ? min(max(__ldg(kv_len + b), 0), lk) : lk;
+    return kv_walk<MASK>(mk, b, q0, R_BM, lq, kv_end);
+  };
 
   if (tid == 0) {
     mbar_init(&sm.qd_full, 1);
@@ -537,17 +701,19 @@ flash_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
 
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    const KvWalk<MASK> walk = walk_of();
+    const int n_tiles = walk.n;
     if (tid == 0 && n_tiles > 0) {
       mbar_expect_tx(&sm.qd_full, 2 * R_BYTES);
       load_parts(&sm.q[0][0][0], SUB_R, &q_map, &sm.qd_full, h, q0, b, B);
       load_parts(&sm.dout[0][0][0], SUB_R, &do_map, &sm.qd_full, h, q0, b, B);
-      // tile j goes to consumer j % 2's stage
+      // step j goes to consumer j % 2's stage
       for (int j = 0; j < n_tiles; ++j) {
-        const int st = j % 2;
+        const int st = j % 2, kv0 = walk.tile(j) * KT;
         mbar_wait(&sm.empty[st], ((j / 2) & 1) ^ 1);
         mbar_expect_tx(&sm.full[st], 2 * T_BYTES);
-        load_parts(&sm.k[st][0][0][0], SUB_T, &k_map, &sm.full[st], h, j * KT, b, B);
-        load_parts(&sm.v[st][0][0][0], SUB_T, &v_map, &sm.full[st], h, j * KT, b, B);
+        load_parts(&sm.k[st][0][0][0], SUB_T, &k_map, &sm.full[st], h, kv0, b, B);
+        load_parts(&sm.v[st][0][0][0], SUB_T, &v_map, &sm.full[st], h, kv0, b, B);
       }
     }
     return;
@@ -556,7 +722,11 @@ flash_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
   const int c = wg - 1, ct = tid - 128, tw = tid % 128;
   const int w = tw / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  // delta = rowsum(dO * O) in fp32, four threads a row, from device memory
+  const KvWalk<MASK> walk = walk_of();
+  const int n_tiles = walk.n, kv_end = walk.kv_end;
+  // delta = rowsum(dO * O) in fp32, four threads a row, from device memory;
+  // delta and the rows' lse then stay in shared memory (not in registers
+  // across the walk, where the masked modes' state needs them)
   {
     const int r = ct / 4, part = (ct % 4) * 32;
     const float* orow = o + b * o_sb + h * o_sh + (long long)(q0 + r) * o_sl + part;
@@ -575,17 +745,17 @@ flash_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     acc += __shfl_xor_sync(0xffffffff, acc, 2);
     if ((ct & 3) == 0) {
       sm.delta[r] = acc;
+      sm.lse[r] = __ldg(lse + (long long)bh * lq + q0 + r);
       delta[(long long)bh * lq + q0 + r] = acc;
     }
   }
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
-  float lse_r[2], dl_r[2];
+  int qc[2] = {0, 0};   // the rows' codes (segment and packed modes)
+  if (MASK == SEGMENTS || MASK == PACKED)
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = 16 * w + g + 8 * i;
-    lse_r[i] = __ldg(lse + (long long)bh * lq + q0 + r);
-    dl_r[i] = sm.delta[r];
-  }
+    for (int i = 0; i < 2; ++i)
+      qc[i] = __ldg(mk.q_seg + (long long)b * lq + q0 + 16 * w + g + 8 * i);
+  const int off = MASK == CAUSAL ? walk.first - q0 : 0;   // the causal offset
 
   float dq_run[2][8][4];
 #pragma unroll
@@ -607,15 +777,21 @@ flash_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_commit();
     wgmma_wait<0>();
     fence_scores(x);
-    const int kv0 = j * KT;
-    const bool tail = kv0 + KT > kv_end;
+    const int kv0 = walk.tile(j) * KT;
+    const bool need = walk.need(j);
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float v = score(x, n, e);
-        if (tail && kv0 + 8 * n + 2 * t + (e & 1) >= kv_end) v = NEG_INF;
-        s[n][e] = fast_exp2(v - lse_r[e >> 1]);
+        if (need) {
+          const int col = kv0 + 8 * n + 2 * t + (e & 1);
+          int kc = 0;
+          if (MASK == SEGMENTS || MASK == PACKED) kc = __ldg(mk.kv_seg + (long long)b * lk + col);
+          if (col >= kv_end || !allowed<MASK>(qc[e >> 1], kc, q0 + 16 * w + g + 8 * (e >> 1), col, off))
+            v = NEG_INF;
+        }
+        s[n][e] = fast_exp2(v - sm.lse[16 * w + g + 8 * (e >> 1)]);
       }
     wgmma_fence();
     scores_mma(x, &sm.dout[0][0][0], R_BM, 0, &sm.v[c][0][0][0]);
@@ -625,7 +801,7 @@ flash_bwd_dq_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] *= score(x, n, e) - dl_r[e >> 1];
+      for (int e = 0; e < 4; ++e) s[n][e] *= score(x, n, e) - sm.delta[16 * w + g + 8 * (e >> 1)];
     uint32_t da[PARTS][2][4];
     split_frag(s, da);
     // dq_tile = dS k: A = dS (registers), B = k (MN-major), K = 32 (kv)
@@ -689,14 +865,19 @@ struct DkvSmem {
 constexpr int DKV_SMEM = (int)sizeof(DkvSmem) + 1024;
 
 // One consumer's walk over the q tiles of a dk/dv block. ROLE 0: S^T = k
-// qs^T, P^T = exp2(S^T - lse[q]) (dead kv rows score -1e30), P^T to the
-// other consumer, run += P^T dO (dV). ROLE 1: dP^T = v dO^T, dS^T = P^T
-// (dP^T - delta[q]), run += dS^T qs (dK). Each product: A from registers or
-// shared memory, K-major; the row products' B MN-major, K = 32 (q).
-template <int ROLE>
-__device__ __forceinline__ void dkv_consume(DkvSmem& sm, float (&run)[2][8][4], int n_q,
-                                            bool dead0, bool dead1, int tw, int t, int lane) {
-  for (int i = 0; i < n_q; ++i) {
+// qs^T, P^T = exp2(S^T - lse[q]) (dead kv rows score -1e30, and in the
+// steps that need it the pairs the mask refuses), P^T to the other
+// consumer, run += P^T dO (dV). ROLE 1: dP^T = v dO^T, dS^T = P^T (dP^T -
+// delta[q]), run += dS^T qs (dK); P^T carries the mask. Each product: A
+// from registers or shared memory, K-major; the row products' B MN-major, K
+// = 32 (q). kc: the codes of this thread's kv rows r, r + 8 (pack indices
+// kv_r, kv_r + 8); q_seg: the batch row's query codes.
+template <int ROLE, int MASK>
+__device__ __forceinline__ void dkv_consume(DkvSmem& sm, float (&run)[2][8][4],
+                                            const QWalk<MASK>& walk, bool dead0, bool dead1,
+                                            int kv_r, const int (&kc)[2], const int* q_seg, int tw,
+                                            int t, int lane) {
+  for (int i = 0; i < walk.n; ++i) {
     const int st = i % STAGES, ph = (i / STAGES) & 1, pb = i & 1, pph = (i >> 1) & 1;
     Scores x;
     float s[4][4];
@@ -710,13 +891,21 @@ __device__ __forceinline__ void dkv_consume(DkvSmem& sm, float (&run)[2][8][4], 
     wgmma_wait<0>();
     fence_scores(x);
     if (ROLE == 0) {
+      const bool need = walk.need(i);
+      const int q0 = walk.tile(i) * KT;
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         const float2 l2 = *reinterpret_cast<const float2*>(&sm.lse[st][8 * n + 2 * t]);
-        s[n][0] = fast_exp2((dead0 ? NEG_INF : score(x, n, 0)) - l2.x);
-        s[n][1] = fast_exp2((dead0 ? NEG_INF : score(x, n, 1)) - l2.y);
-        s[n][2] = fast_exp2((dead1 ? NEG_INF : score(x, n, 2)) - l2.x);
-        s[n][3] = fast_exp2((dead1 ? NEG_INF : score(x, n, 3)) - l2.y);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool dead = (e >> 1) ? dead1 : dead0;
+          if (MASK != NO_SEG && need) {
+            const int row = q0 + 8 * n + 2 * t + (e & 1), col = kv_r + 8 * (e >> 1);
+            const int qc = (MASK == SEGMENTS || MASK == PACKED) ? __ldg(q_seg + row) : 0;
+            dead = dead || !allowed<MASK>(qc, kc[e >> 1], row, col, walk.off);
+          }
+          s[n][e] = fast_exp2((dead ? NEG_INF : score(x, n, e)) - ((e & 1) ? l2.y : l2.x));
+        }
       }
       mbar_wait(&sm.p_empty[pb], pph ^ 1);
 #pragma unroll
@@ -764,16 +953,17 @@ __device__ __forceinline__ void dkv_consume(DkvSmem& sm, float (&run)[2][8][4], 
   }
 }
 
+template <int MASK>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                               const __grid_constant__ CUtensorMap do_map,
                               const __grid_constant__ CUtensorMap k_map,
                               const __grid_constant__ CUtensorMap v_map,
                               const float* __restrict__ lse, const float* __restrict__ delta,
-                              const int* __restrict__ kv_len, float* __restrict__ dk,
-                              float* __restrict__ dv, int B, int n_heads, int lq, int lk,
-                              long long k_sb, long long k_sl, long long k_sh, long long v_sb,
-                              long long v_sl, long long v_sh) {
+                              const int* __restrict__ kv_len, const Masks mk,
+                              float* __restrict__ dk, float* __restrict__ dv, int B, int n_heads,
+                              int lq, int lk, long long k_sb, long long k_sl, long long k_sh,
+                              long long v_sb, long long v_sl, long long v_sh) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
   DkvSmem& sm = *reinterpret_cast<DkvSmem*>(smem_raw + pad);
@@ -802,18 +992,19 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     const int bh = blockIdx.y, b = bh / n_heads, h = bh % n_heads;
-    const int kv0 = blockIdx.x * R_BM, n_q = lq / KT;
+    const int kv0 = blockIdx.x * R_BM;
     if (tid == 0 && kv0 < kv_end_of(b)) {
+      const QWalk<MASK> walk = q_walk<MASK>(mk, b, kv0, lq, lk);
       mbar_expect_tx(&sm.kv_full, 2 * R_BYTES);
       load_parts(&sm.k[0][0][0], SUB_R, &k_map, &sm.kv_full, h, kv0, b, B);
       load_parts(&sm.v[0][0][0], SUB_R, &v_map, &sm.kv_full, h, kv0, b, B);
-      for (int i = 0; i < n_q; ++i) {
-        const int st = i % STAGES;
+      for (int i = 0; i < walk.n; ++i) {
+        const int st = i % STAGES, q0 = walk.tile(i) * KT;
         mbar_wait(&sm.empty[st], ((i / STAGES) & 1) ^ 1);
         mbar_expect_tx(&sm.full[st], 2 * T_BYTES + 2 * KT * 4);
-        load_parts(&sm.q[st][0][0][0], SUB_T, &q_map, &sm.full[st], h, i * KT, b, B);
-        load_parts(&sm.dout[st][0][0][0], SUB_T, &do_map, &sm.full[st], h, i * KT, b, B);
-        const long long row = (long long)bh * lq + i * KT;
+        load_parts(&sm.q[st][0][0][0], SUB_T, &q_map, &sm.full[st], h, q0, b, B);
+        load_parts(&sm.dout[st][0][0][0], SUB_T, &do_map, &sm.full[st], h, q0, b, B);
+        const long long row = (long long)bh * lq + q0;
         bulk_load(sm.lse[st], lse + row, KT * 4, &sm.full[st]);
         bulk_load(sm.delta[st], delta + row, KT * 4, &sm.full[st]);
       }
@@ -823,7 +1014,7 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
   const int bh = blockIdx.y, b = bh / n_heads, h = bh % n_heads;
-  const int kv0 = blockIdx.x * R_BM, n_q = lq / KT, kv_end = kv_end_of(b);
+  const int kv0 = blockIdx.x * R_BM, kv_end = kv_end_of(b);
   const bool live = kv0 < kv_end;
   const int c = wg - 1, tw = tid % 128, w = tw / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int row0 = 16 * w + g;   // this thread's kv rows row0, row0 + 8 of the tile
@@ -839,11 +1030,19 @@ flash_bwd_dkv_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int e = 0; e < 4; ++e) run[hf][n][e] = 0.f;
   if (live) {
+    const QWalk<MASK> walk = q_walk<MASK>(mk, b, kv0, lq, lk);
+    int kc[2] = {0, 0};
+    const int* q_seg = nullptr;
+    if (MASK == SEGMENTS || MASK == PACKED) {
+      kc[0] = __ldg(mk.kv_seg + (long long)b * lk + kv0 + row0);
+      kc[1] = __ldg(mk.kv_seg + (long long)b * lk + kv0 + row0 + 8);
+      q_seg = mk.q_seg + (long long)b * lq;
+    }
     mbar_wait(&sm.kv_full, 0);
     if (c == 0)
-      dkv_consume<0>(sm, run, n_q, dead0, dead1, tw, t, lane);
+      dkv_consume<0, MASK>(sm, run, walk, dead0, dead1, kv0 + row0, kc, q_seg, tw, t, lane);
     else
-      dkv_consume<1>(sm, run, n_q, dead0, dead1, tw, t, lane);
+      dkv_consume<1, MASK>(sm, run, walk, dead0, dead1, kv0 + row0, kc, q_seg, tw, t, lane);
   }
   // dk was accumulated against the folded qs: dk = ln 2 * dS^T qs
   const float mul = c == 0 ? 1.f : LN2;
@@ -886,6 +1085,53 @@ cudaError_t prepare(K kern, int smem) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// The mask operands of a call: mode 0 none, 1 segments, 2 packed, 3
+// causal; q_offsets int32 [B] or null and the static q_offset (causal);
+// q_seg [B, lq] / kv_seg [B, lk] int32 codes, list / count a tile list of
+// mask_tiles_sm90.cu and its row width (segments, packed). False if the
+// mode lacks an operand it reads.
+bool masks_of(Masks* mk, int mode, const void* q_offsets, int q_offset, const void* q_seg,
+              const void* kv_seg, const void* list, const void* count, int width) {
+  mk->q_offsets = static_cast<const int*>(q_offsets);
+  mk->q_seg = static_cast<const int*>(q_seg);
+  mk->kv_seg = static_cast<const int*>(kv_seg);
+  mk->list = static_cast<const int*>(list);
+  mk->count = static_cast<const int*>(count);
+  mk->q_offset = q_offset;
+  mk->width = width;
+  if (mode == SEGMENTS || mode == PACKED)
+    return q_seg != nullptr && kv_seg != nullptr && list != nullptr && count != nullptr &&
+           width > 0;
+  return mode == NO_SEG || mode == CAUSAL;
+}
+
+// each kernel's instantiation for a mask mode (0, 1, 2, 3); the bounded
+// forward is unmasked only
+auto fwd_kernel(int mode) -> decltype(&flash_fwd_f32_sm90_kernel<false, NO_SEG>) {
+  switch (mode) {
+    case SEGMENTS: return flash_fwd_f32_sm90_kernel<false, SEGMENTS>;
+    case PACKED: return flash_fwd_f32_sm90_kernel<false, PACKED>;
+    case CAUSAL: return flash_fwd_f32_sm90_kernel<false, CAUSAL>;
+    default: return flash_fwd_f32_sm90_kernel<false, NO_SEG>;
+  }
+}
+auto dq_kernel(int mode) -> decltype(&flash_bwd_dq_f32_sm90_kernel<NO_SEG>) {
+  switch (mode) {
+    case SEGMENTS: return flash_bwd_dq_f32_sm90_kernel<SEGMENTS>;
+    case PACKED: return flash_bwd_dq_f32_sm90_kernel<PACKED>;
+    case CAUSAL: return flash_bwd_dq_f32_sm90_kernel<CAUSAL>;
+    default: return flash_bwd_dq_f32_sm90_kernel<NO_SEG>;
+  }
+}
+auto dkv_kernel(int mode) -> decltype(&flash_bwd_dkv_f32_sm90_kernel<NO_SEG>) {
+  switch (mode) {
+    case SEGMENTS: return flash_bwd_dkv_f32_sm90_kernel<SEGMENTS>;
+    case PACKED: return flash_bwd_dkv_f32_sm90_kernel<PACKED>;
+    case CAUSAL: return flash_bwd_dkv_f32_sm90_kernel<CAUSAL>;
+    default: return flash_bwd_dkv_f32_sm90_kernel<NO_SEG>;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -906,31 +1152,39 @@ int univid_split_bf16x3(const void* x, void* out, int B, int L, int N, long long
   return (int)cudaGetLastError();
 }
 
-// The forward. qp, kp, vp: the split parts (univid_split_bf16x3) of the
-// folded q [B, lq, N, 128] and of k, v [B, lk, N, 128], 16-byte aligned.
-// o fp32 [B, lq, N, 128] with element strides o_st = (b, l, h), unit
-// stride along D, 8-byte aligned rows. kv_len int32 [B] on the device or
-// null; bound null (running max) or the folded score bound, an fp32 scalar
-// on the device; lse null or fp32 [B, N, lq] contiguous. lq, lk multiples
-// of 64.
+// The forward. qp: the split parts (univid_split_bf16x3) of the folded q
+// [B, lq, N, 128]; kp, vp: of k, v [B, lk, N / group, 128] (query head h
+// reads kv head h / group); 16-byte aligned. o fp32 [B, lq, N, 128] with
+// element strides o_st = (b, l, h), unit stride along D, 8-byte aligned
+// rows. kv_len int32 [B] on the device or null; bound null (running max) or
+// the folded score bound, an fp32 scalar on the device (unmasked only);
+// lse null or fp32 [B, N, lq] contiguous. The mask operands as masks_of
+// reads them (the forward list [B, ceil(lq / 128), width]). lq, lk
+// multiples of 64.
 int univid_flash_fwd_f32_sm90(const void* qp, const void* kp, const void* vp, void* o,
-                              const void* kv_len, const void* bound, void* lse, int B, int N,
-                              int lq, int lk, const long long* o_st, void* stream) {
-  if (lq % 64 != 0 || lk % 64 != 0 || lq <= 0 || lk <= 0 || B <= 0 || N <= 0 ||
-      !aligned16(qp) || !aligned16(kp) || !aligned16(vp))
+                              const void* kv_len, const void* bound, void* lse, int mask,
+                              const void* q_offsets, int q_offset, const void* q_seg,
+                              const void* kv_seg, const void* list, const void* count, int width,
+                              int B, int N, int group, int lq, int lk, const long long* o_st,
+                              void* stream) {
+  Masks mk;
+  if (lq % 64 != 0 || lk % 64 != 0 || lq <= 0 || lk <= 0 || B <= 0 || N <= 0 || group <= 0 ||
+      N % group != 0 || !aligned16(qp) || !aligned16(kp) || !aligned16(vp) ||
+      (bound != nullptr && mask != NO_SEG) ||
+      !masks_of(&mk, mask, q_offsets, q_offset, q_seg, kv_seg, list, count, width))
     return (int)cudaErrorInvalidValue;
   CUtensorMap qm, km, vm;
-  if (!parts_map(&qm, qp, B, lq, N, F_BM) || !parts_map(&km, kp, B, lk, N, KT) ||
-      !parts_map(&vm, vp, B, lk, N, KT))
+  if (!parts_map(&qm, qp, B, lq, N, F_BM) || !parts_map(&km, kp, B, lk, N / group, KT) ||
+      !parts_map(&vm, vp, B, lk, N / group, KT))
     return (int)cudaErrorInvalidValue;
-  auto kern = bound != nullptr ? flash_fwd_f32_sm90_kernel<true> : flash_fwd_f32_sm90_kernel<false>;
+  auto kern = bound != nullptr ? flash_fwd_f32_sm90_kernel<true, NO_SEG> : fwd_kernel(mask);
   cudaError_t err = prepare(kern, FWD_SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((lq + F_BM - 1) / F_BM, B * N);
   kern<<<grid, THREADS, FWD_SMEM, static_cast<cudaStream_t>(stream)>>>(
       qm, km, vm, static_cast<float*>(o), static_cast<const int*>(kv_len),
-      static_cast<const float*>(bound), static_cast<float*>(lse), B, N, lq, lk, o_st[0], o_st[1],
-      o_st[2]);
+      static_cast<const float*>(bound), static_cast<float*>(lse), mk, B, N, group, lq, lk,
+      o_st[0], o_st[1], o_st[2]);
   return (int)cudaGetLastError();
 }
 
@@ -938,54 +1192,67 @@ int univid_flash_fwd_f32_sm90(const void* qp, const void* kp, const void* vp, vo
 // dO (16-byte aligned). o, dout: fp32 [B, lq, N, 128] (16-byte aligned
 // rows); dq fp32 [B, lq, N, 128] (8-byte aligned rows); element strides st
 // = (o, dout, dq) x (b, l, h). lse fp32 [B, N, lq] from the forward; delta
-// fp32 [B, N, lq] contiguous, written here; kv_len int32 [B] or null.
+// fp32 [B, N, lq] contiguous, written here; kv_len int32 [B] or null. The
+// mask operands as the forward's (its forward list).
 int univid_flash_bwd_dq_f32_sm90(const void* qp, const void* kp, const void* vp, const void* dop,
                                  const void* o, const void* dout, const void* lse,
-                                 const void* kv_len, void* dq, void* delta, int B, int N, int lq,
-                                 int lk, float scale, const long long* st, void* stream) {
+                                 const void* kv_len, int mask, const void* q_offsets,
+                                 int q_offset, const void* q_seg, const void* kv_seg,
+                                 const void* list, const void* count, int width, void* dq,
+                                 void* delta, int B, int N, int lq, int lk, float scale,
+                                 const long long* st, void* stream) {
+  Masks mk;
   if (lq % 64 != 0 || lk % 64 != 0 || lq <= 0 || lk <= 0 || B <= 0 || N <= 0 ||
-      !aligned16(qp) || !aligned16(kp) || !aligned16(vp) || !aligned16(dop))
+      !aligned16(qp) || !aligned16(kp) || !aligned16(vp) || !aligned16(dop) ||
+      !masks_of(&mk, mask, q_offsets, q_offset, q_seg, kv_seg, list, count, width))
     return (int)cudaErrorInvalidValue;
   CUtensorMap qm, dm, km, vm;
   if (!parts_map(&qm, qp, B, lq, N, R_BM) || !parts_map(&dm, dop, B, lq, N, R_BM) ||
       !parts_map(&km, kp, B, lk, N, KT) || !parts_map(&vm, vp, B, lk, N, KT))
     return (int)cudaErrorInvalidValue;
-  auto kern = flash_bwd_dq_f32_sm90_kernel;
+  auto kern = dq_kernel(mask);
   cudaError_t err = prepare(kern, DQ_SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(lq / R_BM, B * N);
   kern<<<grid, THREADS, DQ_SMEM, static_cast<cudaStream_t>(stream)>>>(
       qm, dm, km, vm, static_cast<const float*>(o), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const int*>(kv_len), static_cast<float*>(dq),
-      static_cast<float*>(delta), B, N, lq, lk, scale, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8]);
+      static_cast<const float*>(lse), static_cast<const int*>(kv_len), mk,
+      static_cast<float*>(dq), static_cast<float*>(delta), B, N, lq, lk, scale, st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
   return (int)cudaGetLastError();
 }
 
 // dk and dv. qp, kp, vp, dop as for the dq kernel; lse and the dq kernel's
 // delta, fp32 [B, N, lq] contiguous, 16-byte aligned; dk, dv fp32 [B, lk,
 // N, 128] (8-byte aligned rows) with element strides st = (dk, dv) x (b, l,
-// h). kv tiles at or past kv_len are written as zeros.
+// h). kv tiles at or past kv_len are written as zeros. The mask operands as
+// the forward's, with the backward's kv-major list [B, ceil(lk / 128),
+// width].
 int univid_flash_bwd_dkv_f32_sm90(const void* qp, const void* kp, const void* vp,
                                   const void* dop, const void* lse, const void* delta,
-                                  const void* kv_len, void* dk, void* dv, int B, int N, int lq,
-                                  int lk, const long long* st, void* stream) {
+                                  const void* kv_len, int mask, const void* q_offsets,
+                                  int q_offset, const void* q_seg, const void* kv_seg,
+                                  const void* list, const void* count, int width, void* dk,
+                                  void* dv, int B, int N, int lq, int lk, const long long* st,
+                                  void* stream) {
+  Masks mk;
   if (lq % 64 != 0 || lk % 64 != 0 || lq <= 0 || lk <= 0 || B <= 0 || N <= 0 ||
       !aligned16(qp) || !aligned16(kp) || !aligned16(vp) || !aligned16(dop) ||
-      !aligned16(lse) || !aligned16(delta))
+      !aligned16(lse) || !aligned16(delta) ||
+      !masks_of(&mk, mask, q_offsets, q_offset, q_seg, kv_seg, list, count, width))
     return (int)cudaErrorInvalidValue;
   CUtensorMap qm, dm, km, vm;
   if (!parts_map(&qm, qp, B, lq, N, KT) || !parts_map(&dm, dop, B, lq, N, KT) ||
       !parts_map(&km, kp, B, lk, N, R_BM) || !parts_map(&vm, vp, B, lk, N, R_BM))
     return (int)cudaErrorInvalidValue;
-  auto kern = flash_bwd_dkv_f32_sm90_kernel;
+  auto kern = dkv_kernel(mask);
   cudaError_t err = prepare(kern, DKV_SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(lk / R_BM, B * N);
   kern<<<grid, THREADS, DKV_SMEM, static_cast<cudaStream_t>(stream)>>>(
       qm, dm, km, vm, static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(kv_len), static_cast<float*>(dk), static_cast<float*>(dv), B, N, lq,
-      lk, st[0], st[1], st[2], st[3], st[4], st[5]);
+      static_cast<const int*>(kv_len), mk, static_cast<float*>(dk), static_cast<float*>(dv), B,
+      N, lq, lk, st[0], st[1], st[2], st[3], st[4], st[5]);
   return (int)cudaGetLastError();
 }
 

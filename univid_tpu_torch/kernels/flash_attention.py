@@ -70,9 +70,19 @@ and training paths reach:
     pair). fp32 d=128 with
     kv_len on csrc/flash_attention_f32_sm90.cu (a dq kernel, which also
     writes delta, and a dk/dv kernel, on the split operands; deterministic:
-    no atomics).
-    The masked modes at fp32 (causal, segments, packed, grouped kv heads)
-    have no fp32 caller and raise on the card (`F32_MASKS_LATER`).
+    no atomics), under the causal, segment and packed masks too.
+    The fp32 d=128 forward (with and without the lse) takes every mask and
+    grouped kv heads as well: BAGEL-7B-MoT at fp32 compute reaches them
+    (`InterleaveInferencer(..., compute_dtype=torch.float32)`: the ViT
+    appends over the un-repeated cache, grouped with kv_len, and the
+    question's causal prefill with q_offsets; the packed training pass at
+    fp32: the packed forward with lse and both backward kernels). The
+    causal walks come from the offsets on the device; the segment and
+    packed ones read the tile lists of `tile_lists` (the forward list in
+    the forward and dq kernels, the backward's in the dk/dv kernel).
+    Launches by mode in `LAUNCHES_BY_MODE`, the grouped ones also in
+    `GROUPED_LAUNCHES`. Grouped kv heads in the backward raise (the packed
+    pass repeats them first, as JAX does).
 
 Every mask goes through `_dead`, the counterpart of the JAX package's
 `_mask_scores`, which the plain forward and backward share.
@@ -149,10 +159,6 @@ INT8_SM90_BLOCK_Q = 128  # q rows per block of flash_attention_int8_sm90.cu
 INT8_SM90_BLOCK_K = 128  # kv rows per tile of flash_attention_int8_sm90.cu
 H100_SMS = 132      # the card's SMs: q splits fill them at small grids
 QK_PREPASS_MAX_HEADS = 40   # csrc/qk_prepass.cu: 8 heads a pass, 5 passes
-F32_MASKS_LATER = (
-    "fp32 attention at d=128 has no causal, segment, packed or grouped-kv "
-    "kernel mode: no fp32 caller reaches them yet (ROADMAP.md queue 2, item "
-    "2)")
 KNOBS_MASKED = (
     "softmax_bf16 / qk_int8 with causal, segment or packed masks: no caller "
     "and no kernel mode (the JAX package's knobs serve the Wan DiT)")
@@ -191,9 +197,16 @@ LAUNCHES_BY_MODE = {
     f"{name}_{mode}": 0
     for name in ("flash_attention_bf16", "flash_attention_bf16_lse",
                  "flash_attention_bwd_dq_bf16", "flash_attention_bwd_dkv_bf16",
-                 "flash_attention_bwd_bf16_sm90")
+                 "flash_attention_bwd_bf16_sm90", "flash_attention_f32_sm90",
+                 "flash_attention_f32_sm90_lse",
+                 "flash_attention_bwd_dq_f32_sm90",
+                 "flash_attention_bwd_dkv_f32_sm90")
     for mode in MASK_MODES
     if (name, mode) != ("flash_attention_bf16", "causal")}
+# the fp32 d=128 forward launches over grouped kv heads (k, v with N / group
+# heads), of any mask mode: BAGEL's ViT appends and KV-cache prefill at fp32
+GROUPED_LAUNCHES = {"flash_attention_f32_sm90": 0,
+                    "flash_attention_f32_sm90_lse": 0}
 # every bf16 forward launch by its kernel: "sm90" flash_attention_sm90.cu
 # (the unmasked, segment and packed modes), "causal_sm90"
 # flash_attention_causal_sm90.cu (causal), "mma_sync" flash_attention.cu (no
@@ -222,6 +235,8 @@ def reset_launches() -> None:
         LAUNCHES_BY_IMPL[name] = 0
     for name in BWD_LAUNCHES_BY_IMPL:
         BWD_LAUNCHES_BY_IMPL[name] = 0
+    for name in GROUPED_LAUNCHES:
+        GROUPED_LAUNCHES[name] = 0
 
 
 def _count(name, mode=None, impl=None):
@@ -962,7 +977,7 @@ def _check_cuda_inputs(q, k, v, kv_len, dtype, d_ok, *more,
             group_ok and k.shape[2] == v.shape[2]
             and q.shape[2] % k.shape[2] == 0):
         raise ValueError(f"{q.shape[2]} query heads over {k.shape[2]} kv "
-                         "heads: only the bf16 forward kernel groups them")
+                         "heads: only the forward kernels group them")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("the kernel wrappers are not differentiable: "
                            "kernels.attention.attention routes a call that "
@@ -1015,11 +1030,49 @@ def _check_aligned(*ts):
                              "(strides multiples of 4)")
 
 
-def _no_masks(causal=False, q_segments=None, kv_segments=None,
-              packed_mode=False, **_):
-    if causal or q_segments is not None or kv_segments is not None \
-            or packed_mode:
-        raise NotImplementedError(F32_MASKS_LATER)
+def _f32_masks(q, k, kv_len, bound, tile_plan=None, fwd=True, bwd=False, *,
+               causal=False, q_offset=0, q_offsets=None, q_segments=None,
+               kv_segments=None, packed_mode=False):
+    """The mask of an fp32 d=128 call on csrc/flash_attention_f32_sm90.cu:
+    (mode, fwd lists, bwd lists), mode None, "causal", "segments" or
+    "packed"; in the segment and packed modes the forward's and (with
+    `bwd`) the backward's tile lists, the plan's (`TilePlan`) or else from
+    one `tile_lists` launch; None otherwise. Raises for what no kernel
+    takes: a bound with a mask (the masked modes take the running max, as
+    in bf16), causal with segments."""
+    seg = _check_masks(q, k.shape[1], q_offsets, q_segments, kv_segments,
+                       packed_mode, causal)
+    mode = "causal" if causal else seg
+    if mode is not None and bound is not None:
+        raise NotImplementedError("the causal, segment and packed modes take "
+                                  "the running max only")
+    if seg is None:
+        return mode, None, None
+    b, lq = q.shape[:2]
+    lk = k.shape[1]
+    if tile_plan is not None:
+        shapes = dict(fwd=(b, sm90_q_tiles(lq), -(-lk // SM90_BLOCK_K)),
+                      bwd=(b, -(-lk // BWD_BLOCK_K), lq // BWD_BLOCK_Q))
+        return (mode, *(_plan_lists(tile_plan, w, shapes[w]) if want
+                        else None for w, want in (("fwd", fwd),
+                                                  ("bwd", bwd))))
+    f, bl = tile_lists(b, lq, lk, q.device, kv_len=kv_len,
+                       q_segments=q_segments, kv_segments=kv_segments,
+                       packed_mode=packed_mode, fwd=fwd, bwd=bwd)
+    return mode, f, bl
+
+
+def _f32_mask_args(mode, lists, q_offset=0, q_offsets=None, q_segments=None,
+                   kv_segments=None, **_):
+    """The mask operands of the fp32 d=128 entry points: (mode, q_offsets,
+    q_offset, q_seg, kv_seg, list, count, list width)."""
+    lst, cnt = lists if lists is not None else (None, None)
+    return (_BWD_MASK_MODE[mode], _ptr(q_offsets), int(q_offset),
+            _ptr(q_segments), _ptr(kv_segments), _ptr(lst), _ptr(cnt),
+            0 if lst is None else lst.shape[2])
+
+
+_F32_MASK_ARGTYPES = [_I, _P, _I, _P, _P, _P, _P, _I]
 
 
 def _launch_f32_d128(q, k, v, kv_len, bound, save_lse):
@@ -1078,31 +1131,41 @@ def split_bf16x3(x):
     return out
 
 
-def _launch_f32_sm90(q, k, v, kv_len, bound, save_lse):
+def _launch_f32_sm90(q, k, v, kv_len, bound, save_lse, mode=None,
+                     lists=None, **masks):
     """The fp32 d=128 forward on csrc/flash_attention_f32_sm90.cu (running
-    max, or bounded with `bound`) on folded q: the split pre-pass of q, k
-    and v, then the kernel (four launches). (o, lse fp32 [B, N, Lq] or
-    None)."""
+    max, or bounded with `bound`) on folded q (k, v with N / group heads):
+    the split pre-pass of q, k and v, then the kernel (four launches), under
+    `mode` (`_f32_masks`: None, "causal", "segments" or "packed", with the
+    forward list `lists` and the masks' operands). (o, lse fp32 [B, N, Lq]
+    or None)."""
     return _fwd_f32_sm90_parts(*(split_bf16x3(t) for t in (q, k, v)),
-                               kv_len, bound, save_lse)
+                               kv_len, bound, save_lse, mode, lists, **masks)
 
 
-def _fwd_f32_sm90_parts(qp, kp, vp, kv_len, bound, save_lse):
+def _fwd_f32_sm90_parts(qp, kp, vp, kv_len, bound, save_lse, mode=None,
+                        lists=None, **masks):
     """The forward kernel alone on split parts (`split_bf16x3`) of folded
-    q [B, Lq, N, 128] and of k, v: (o, lse or None)."""
+    q [B, Lq, N, 128] and of k, v [B, Lk, N / group, 128]: (o, lse or
+    None)."""
     _, b, lq, n, d = qp.shape
+    group = n // kp.shape[3]
     o = torch.empty((b, lq, n, d), dtype=torch.float32, device=qp.device)
     lse = (torch.empty((b, n, lq), dtype=torch.float32, device=qp.device)
            if save_lse else None)
     fn = _fn("flash_attention_f32_sm90", "univid_flash_fwd_f32_sm90",
-             [_P] * 7 + [_I] * 4 + [_P, _P])
+             [_P] * 7 + _F32_MASK_ARGTYPES + [_I] * 5 + [_P, _P])
     strides = (ctypes.c_longlong * 3)(*o.stride()[:3])
     err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
-             _ptr(kv_len), _ptr(bound), _ptr(lse), b, n, lq, kp.shape[2],
-             ctypes.addressof(strides), _stream(qp))
+             _ptr(kv_len), _ptr(bound), _ptr(lse),
+             *_f32_mask_args(mode, lists, **masks), b, n, group, lq,
+             kp.shape[2], ctypes.addressof(strides), _stream(qp))
     build.check(err, "univid_flash_fwd_f32_sm90")
-    _count("flash_attention_f32_sm90_lse" if save_lse
-           else "flash_attention_f32_sm90")
+    name = ("flash_attention_f32_sm90_lse" if save_lse
+            else "flash_attention_f32_sm90")
+    _count(name, mode)
+    if group > 1:
+        GROUPED_LAUNCHES[name] += 1
     return o, lse
 
 
@@ -1578,14 +1641,23 @@ def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
                else "flash_attention_bf16", seg, impl=impl)
         return o
     if q.dtype == torch.float32 and q.shape[-1] == D128:
-        _check_cuda_inputs(q, k, v, kv_len, torch.float32, (D128,))
-        _no_masks(causal, q_segments, kv_segments, packed_mode)
+        _check_cuda_inputs(q, k, v, kv_len, torch.float32, (D128,),
+                           group_ok=True)
+        masks = dict(causal=causal, q_offset=q_offset, q_offsets=q_offsets,
+                     q_segments=q_segments, kv_segments=kv_segments,
+                     packed_mode=packed_mode)
+        mode, lists, _ = _f32_masks(q, k, kv_len, bound, tile_plan, **masks)
         if rope_tables is not None:
+            if mode in ("segments", "packed"):
+                raise NotImplementedError(
+                    "fused rope does not compose with segment masks (as in "
+                    "the JAX kernel)")
             cq, sq, ck, sk = (t.float().contiguous() for t in rope_tables)
             q = _rope_f32(q, cq, sq)
             k = _rope_f32(k, ck, sk)
         o, _ = _launch_f32_sm90(q, k, v, kv_len,
-                                _bound_tensor(bound, q.device), False)
+                                _bound_tensor(bound, q.device), False, mode,
+                                lists, **masks)
         return o
     if q.dtype == torch.float32:
         _check_cuda_inputs(q, k, v, kv_len, torch.float32,
@@ -1923,10 +1995,13 @@ def flash_attention_fwd_folded(qs, k, v, *, kv_len=None, score_bound=None,
         return attention_plain(qs, k, v, kv_len=kv_len, bound=score_bound,
                                save_residuals=True, **masks)
     if qs.dtype == torch.float32:
-        _check_cuda_inputs(qs, k, v, kv_len, torch.float32, (D128,))
-        _no_masks(**masks)
+        _check_cuda_inputs(qs, k, v, kv_len, torch.float32, (D128,),
+                           group_ok=True)
+        mode, lists, _ = _f32_masks(qs, k, kv_len, score_bound, tile_plan,
+                                    **masks)
         return _launch_f32_sm90(qs, k, v, kv_len,
-                                _bound_tensor(score_bound, qs.device), True)
+                                _bound_tensor(score_bound, qs.device), True,
+                                mode, lists, **masks)
     _check_cuda_inputs(qs, k, v, kv_len, torch.bfloat16, (D128,))
     seg = _check_masks(qs, k.shape[1], q_offsets, q_segments, kv_segments,
                        packed_mode, causal)
@@ -1979,8 +2054,8 @@ def flash_attention_bwd_folded(qs, k, v, o, lse, do, *, kv_len=None,
         return _bwd_plain_folded(qs, k, v, o, lse, do, kv_len, softmax_scale,
                                  **masks)
     if qs.dtype == torch.float32:
-        _no_masks(**masks)
-        return _bwd_f32_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale)
+        return _bwd_f32_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale,
+                             tile_plan, **masks)
     impl = bf16_backward_route(qs, k, v)  # the launch checks the masks
     out = _launch_bwd_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale,
                            tile_plan=tile_plan, **masks)
@@ -2238,58 +2313,71 @@ def _bwd_dkv_cuda(qs, k, v, do, lse, delta, kv_len, *, causal=False,
     return dk, dv
 
 
-def _bwd_f32_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale):
+def _bwd_f32_sm90(qs, k, v, o, lse, do, kv_len, softmax_scale,
+                  tile_plan=None, **masks):
     """dq, dk, dv of the fp32 d=128 forward on csrc/flash_attention_f32_sm90.cu:
     the split pre-passes of qs, k, v and do, the dq kernel (dq and delta =
-    rowsum(do * o), fp32 [B, N, Lq]), then the dk/dv kernel (six launches).
-    Deterministic: no output element is summed by atomics."""
+    rowsum(do * o), fp32 [B, N, Lq]), then the dk/dv kernel (six launches),
+    under the forward's mask (causal from the offsets; segments and packed
+    over both tile lists, the plan's or one `tile_lists` launch's).
+    Deterministic: no output element is summed by atomics. k and v have as
+    many heads as qs."""
     _check_bwd_inputs(qs, k, v, do, lse, kv_len, o, dtype=torch.float32)
     _check_aligned(qs, k, v, o, do)
     if lse.data_ptr() % 16:
         raise ValueError("the fp32 backward copies lse rows in bulk: a "
                          "16-byte aligned lse")
+    mode, fwd, bwd = _f32_masks(qs, k, kv_len, None, tile_plan, bwd=True,
+                                **masks)
     parts = [split_bf16x3(t) for t in (qs, k, v, do)]
     dq, delta = _bwd_dq_f32_sm90_parts(*parts, o, do, lse, kv_len,
-                                       softmax_scale)
-    return (dq,) + _bwd_dkv_f32_sm90_parts(*parts, lse, delta, kv_len)
+                                       softmax_scale, mode, fwd, **masks)
+    return (dq,) + _bwd_dkv_f32_sm90_parts(*parts, lse, delta, kv_len, mode,
+                                           bwd, **masks)
 
 
 def _bwd_dq_f32_sm90_parts(qp, kp, vp, dop, o, do, lse, kv_len,
-                           softmax_scale):
+                           softmax_scale, mode=None, lists=None, **masks):
     """The dq kernel alone on split parts of qs, k, v, do (fp32 o and do
-    for delta): (dq, delta fp32 [B, N, Lq])."""
+    for delta), under `mode` with the forward list `lists`: (dq, delta
+    fp32 [B, N, Lq])."""
     _, b, lq, n, d = qp.shape
     lk = kp.shape[2]
     dq = torch.empty((b, lq, n, d), dtype=torch.float32, device=o.device)
     delta = torch.empty((b, n, lq), dtype=torch.float32, device=o.device)
     fn = _fn("flash_attention_f32_sm90", "univid_flash_bwd_dq_f32_sm90",
-             [_P] * 10 + [_I] * 4 + [ctypes.c_float, _P, _P])
+             [_P] * 8 + _F32_MASK_ARGTYPES + [_P, _P] + [_I] * 4
+             + [ctypes.c_float, _P, _P])
     st = (ctypes.c_longlong * 9)(*o.stride()[:3], *do.stride()[:3],
                                  *dq.stride()[:3])
     err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(),
              o.data_ptr(), do.data_ptr(), lse.data_ptr(), _ptr(kv_len),
-             dq.data_ptr(), delta.data_ptr(), b, n, lq, lk, softmax_scale,
+             *_f32_mask_args(mode, lists, **masks), dq.data_ptr(),
+             delta.data_ptr(), b, n, lq, lk, softmax_scale,
              ctypes.addressof(st), _stream(o))
     build.check(err, "univid_flash_bwd_dq_f32_sm90")
-    _count("flash_attention_bwd_dq_f32_sm90")
+    _count("flash_attention_bwd_dq_f32_sm90", mode)
     return dq, delta
 
 
-def _bwd_dkv_f32_sm90_parts(qp, kp, vp, dop, lse, delta, kv_len):
+def _bwd_dkv_f32_sm90_parts(qp, kp, vp, dop, lse, delta, kv_len, mode=None,
+                            lists=None, **masks):
     """The dk/dv kernel alone on split parts of qs, k, v, do and the dq
-    kernel's delta: (dk, dv)."""
+    kernel's delta, under `mode` with the backward list `lists`: (dk,
+    dv)."""
     _, b, lq, n, d = qp.shape
     lk = kp.shape[2]
     dk = torch.empty((b, lk, n, d), dtype=torch.float32, device=lse.device)
     dv = torch.empty((b, lk, n, d), dtype=torch.float32, device=lse.device)
     fn = _fn("flash_attention_f32_sm90", "univid_flash_bwd_dkv_f32_sm90",
-             [_P] * 9 + [_I] * 4 + [_P, _P])
+             [_P] * 7 + _F32_MASK_ARGTYPES + [_P, _P] + [_I] * 4 + [_P, _P])
     st = (ctypes.c_longlong * 6)(*dk.stride()[:3], *dv.stride()[:3])
     err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), _ptr(kv_len), dk.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), _ptr(kv_len),
+             *_f32_mask_args(mode, lists, **masks), dk.data_ptr(),
              dv.data_ptr(), b, n, lq, lk, ctypes.addressof(st), _stream(lse))
     build.check(err, "univid_flash_bwd_dkv_f32_sm90")
-    _count("flash_attention_bwd_dkv_f32_sm90")
+    _count("flash_attention_bwd_dkv_f32_sm90", mode)
     return dk, dv
 
 

@@ -1,0 +1,1 @@
+from .ti2v import WanTI2VPipeline
