@@ -318,6 +318,7 @@ last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -7530,27 +7531,51 @@ BF16_CHAIN_WHY = (
     "dominates its row; such rows are rare")
 
 
-def compare_bf16_chain(name, got, want, v_max):
+# the fp32 knob modes' own rel. L2 limits against the plain bf16 chain, from
+# the readings at t2v-1.3B's shape (PERF.md s2): the int8 scores are the
+# plain version's bit for bit, so under a bound only exp2's last bit and p
+# v's summation order remain; fp32 scores flip a bf16(s - ref) now and then
+# (one step moves its p by up to 9%); the running max rounds against other
+# references than the plain version's one-shot max
+F32_CHAIN_LIMITS = {"int8_bounded": 1e-5, "fp32_bounded": 5e-4,
+                    "running": 5e-3}
+# the least rel. L2 between a bf16-chain output and the fp32 chain's on the
+# same inputs: the two chains differ by ~5e-3 (running max) to ~1.5e-2
+# (bound) of the output, a kernel that ignored the knob by ~1e-6
+CHAIN_APART = 1e-3
+
+
+def compare_bf16_chain(name, got, want, v_max, rel_limit=1e-2, fp32_chain=None):
     """The bf16 softmax chain's kernel against its plain version
-    (BF16_CHAIN_WHY): rel. L2 < 1e-2 (the running max also rounds p against
-    other references, and the outputs, ~0.05 at 27k keys, round to the
-    other bf16 neighbour, 2^-8 relative), at most 1e-3 of the outputs
-    beyond one bf16 ulp + 1e-3, none beyond 0.2 max|v|."""
+    (BF16_CHAIN_WHY): rel. L2 < rel_limit (1e-2: the running max also
+    rounds p against other references, and the outputs, ~0.05 at 27k keys,
+    round to the other bf16 neighbour, 2^-8 relative), at most 1e-3 of the
+    outputs beyond one bf16 ulp + 1e-3, none beyond 0.2 max|v|. With
+    `fp32_chain`, the fp32 chain's output of the same call: the control's
+    rel. L2 against the plain bf16 chain is logged, and `got` must lie at
+    least CHAIN_APART from it (the bf16 chain was computed)."""
     import torch
     err = (got.float() - want.float()).abs()
     lim = 1e-3 + 2.0 ** -7 * want.float().abs()
     outside = float((err > lim).float().mean())
     rel = rel_l2(got, want)
     max_err = float(err.max())
-    ok = (bool(torch.isfinite(got).all()) and rel < 1e-2
+    ok = (bool(torch.isfinite(got).all()) and rel < rel_limit
           and outside <= 1e-3 and max_err <= 0.2 * v_max)
-    log(json.dumps({"check": name, "max_abs_err": max_err,
-                    "max_abs_ref": float(want.float().abs().max()),
-                    "rel_l2": rel, "outside_ulp_share": outside,
-                    "limits": {"rel_l2": 1e-2, "outside_ulp_share": 1e-3,
-                               "max_abs_err": 0.2 * v_max},
-                    "why": BF16_CHAIN_WHY,
-                    "ok": ok}))
+    out = {"check": name, "max_abs_err": max_err,
+           "max_abs_ref": float(want.float().abs().max()),
+           "rel_l2": rel, "outside_ulp_share": outside,
+           "limits": {"rel_l2": rel_limit, "outside_ulp_share": 1e-3,
+                      "max_abs_err": 0.2 * v_max},
+           "why": BF16_CHAIN_WHY}
+    if fp32_chain is not None:
+        apart = rel_l2(got, fp32_chain)
+        out.update(fp32_chain_control_rel_l2=rel_l2(fp32_chain, want),
+                   apart_from_fp32_chain_rel_l2=apart,
+                   apart_limit=CHAIN_APART)
+        ok = ok and apart > CHAIN_APART
+    out["ok"] = ok
+    log(json.dumps(out))
     if not ok:
         fail(f"{name}: kernel disagrees with its plain version")
     return max_err
@@ -7872,20 +7897,39 @@ def _reset_counts():
     quant.W8A8_LAUNCHES["w8a8_linear"] = 0
 
 
+# knob_parity's latent rel. L2 limits at FP32_POLICY, each from its case's
+# reading and control (PERF.md s2): without W8A8 only the summation orders
+# of the fp32 GEMMs and the rare bf16-chain score flips or int8 code flips
+# they cause remain (readings 3.0e-6 and 1.6e-5; the controls, the knobs
+# off, 1.4e-4 and 4.4e-4); W8A8 codes flip where cuBLAS and the CPU round a
+# GEMM differently (2.6e-3 and 5.4e-3)
+F32_PARITY_LIMITS = {"softmax_bf16": 3e-5, "qk_int8": 1e-4, "int8": 1e-2,
+                     "all_four": 2e-2}
+
+
 def knob_parity():
     """Each knob alone and all four on the card (kernels) against the CPU
-    (plain versions), same weights and noise, bf16 policy with the bound:
-    the denoise loop of a 2-layer d=128 DiT (dim 256), 256 tokens padded to
-    320 (kv_len), 4 UniPC steps (all four: TaylorSeer 2 over 6 steps, 5 DiT
-    calls); --int8 quantizes the DiT as the CLI does. Latent rel. L2 and
-    the card's launches of each kernel."""
+    (plain versions), same weights and noise, the denoise loop of a 2-layer
+    d=128 DiT (dim 256), 256 tokens padded to 320 (kv_len), 4 UniPC steps
+    (all four: TaylorSeer 2 over 6 steps, 5 DiT calls); --int8 quantizes
+    the DiT as the CLI does. Each case twice: the bf16 policy with the
+    bound (limit 3e-2 + 3x the card's own change under a one-bf16-step move
+    of the noise), and FP32_POLICY (an fp32 DiT, no bound: the fp32 knob
+    modes' running max and, at the 320 self- and 32 cross-attention keys,
+    the bf16 chain's one-shot max; each case's own limit,
+    F32_PARITY_LIMITS). At FP32_POLICY the card also runs the case with
+    softmax_bf16 and qk_int8 off, the control: its rel. L2 against the CPU
+    is what a kernel that ignored those knobs would read, and where they
+    are the case's only knobs it must exceed 3x the limit. Latent rel. L2
+    and the card's launches of each kernel. Returns the fp32 cases'
+    launches on the card, summed."""
     import copy
 
     import numpy as np
     import torch
 
     from univid_tpu_torch.core.config import WAN_CONFIGS, WanModelSpec
-    from univid_tpu_torch.core.dtypes import DEFAULT_POLICY
+    from univid_tpu_torch.core.dtypes import DEFAULT_POLICY, FP32_POLICY
     from univid_tpu_torch.core.quant import quantize_dit_w8a8
     from univid_tpu_torch.models.wan.dit import WanDiT
     from univid_tpu_torch.pipelines.ti2v import WanTI2VPipeline
@@ -7903,6 +7947,7 @@ def knob_parity():
             for a in (blk.self_attn, blk.cross_attn):
                 a.norm_q.uniform_(0.5, 1.5, generator=gen)
                 a.norm_k.uniform_(0.5, 1.5, generator=gen)
+    dit32 = copy.deepcopy(dit).float()
     rng = np.random.default_rng(1)
     grid, seq_len = (4, 16, 16), 320
     noise = torch.as_tensor(rng.standard_normal((1, *grid, 16)),
@@ -7911,54 +7956,87 @@ def knob_parity():
                           dtype=torch.float32)
     nctx = torch.as_tensor(rng.standard_normal((1, 32, 64)) * 0.5,
                            dtype=torch.float32)
-    results = {}
+    fp32_launches = {}
     for case, knobs in KNOB_CASES.items():
-        ts = knobs.get("taylorseer", 0)
-        steps = 6 if ts else 4
-        policy = dataclasses.replace(
-            DEFAULT_POLICY, bounded_softmax=True,
-            softmax_bf16=knobs.get("softmax_bf16", False),
-            qk_int8=knobs.get("qk_int8", False))
+        for pol_name in ("bf16", "fp32"):
+            ts = knobs.get("taylorseer", 0)
+            steps = 6 if ts else 4
+            fp32 = pol_name == "fp32"
+            policy = dataclasses.replace(
+                FP32_POLICY if fp32 else DEFAULT_POLICY,
+                bounded_softmax=not fp32,
+                softmax_bf16=knobs.get("softmax_bf16", False),
+                qk_int8=knobs.get("qk_int8", False))
+            model = dit32 if fp32 else dit
 
-        def run(device, x0=noise):
-            d = copy.deepcopy(dit).to(device)
-            if knobs.get("int8"):
-                quantize_dit_w8a8(d)
-            pipe = WanTI2VPipeline(spec, d, None, policy=policy)
-            fn = pipe.denoise_fn(grid, seq_len, steps, 5.0, 5.0, "unipc",
-                                 None, taylorseer_threshold=ts)
-            return fn(d, x0.to(device), ctx.to(device), nctx.to(device),
-                      torch.zeros_like(noise).to(device)).float().cpu()
+            def run(device, x0=noise, policy=policy):
+                d = copy.deepcopy(model).to(device)
+                if knobs.get("int8"):
+                    quantize_dit_w8a8(d)
+                pipe = WanTI2VPipeline(spec, d, None, policy=policy)
+                fn = pipe.denoise_fn(grid, seq_len, steps, 5.0, 5.0, "unipc",
+                                     None, taylorseer_threshold=ts)
+                return fn(d, x0.to(device), ctx.to(device), nctx.to(device),
+                          torch.zeros_like(noise).to(device)).float().cpu()
 
-        def rel(a, b):
-            return float((a - b).norm() / b.norm())
+            def rel(a, b):
+                return float((a - b).norm() / b.norm())
 
-        _reset_counts()
-        x_gpu = run("cuda")
-        used = _all_counts()
-        x_cpu = run("cpu")
-        # the card's own sensitivity: the noise moved by ~one bf16 step
-        x_moved = run("cuda", noise * (1 + 2.0 ** -9 * torch.randn(
-            noise.shape, generator=torch.Generator().manual_seed(2))))
-        got = {k: used[k] for k in _knob_launches({}, 0, 0)}
-        want = _knob_launches(knobs, 5 if ts else steps, cfg.num_layers)
-        err, sens = rel(x_gpu, x_cpu), rel(x_moved, x_gpu)
-        limit = 3e-2 + 3 * sens
-        out = {"check": f"knob_parity {case}", "latent_rel_l2": err,
-               "sensitivity_rel_l2": sens, "limit": limit,
-               "why": "bf16 compute policy: cuBLAS and the CPU round each "
-                      "GEMM at other points (2^-8), over 2 blocks x "
-                      f"{steps} steps; W8A8 codes and bf16 scores flip "
-                      "where those roundings differ, so 3x the card's own "
-                      "change under a one-bf16-step move of the noise",
-               "launches": got, "expected_launches": want,
-               "finite": bool(torch.isfinite(x_gpu).all())}
-        out["ok"] = out["finite"] and err < limit and got == want
-        log(json.dumps(out))
-        results[case] = err
-        if not out["ok"]:
-            fail(f"knob parity {case}: the card disagrees with the CPU")
-    return results
+            _reset_counts()
+            x_gpu = run("cuda")
+            used = _all_counts()
+            x_cpu = run("cpu")
+            # the card's own sensitivity: the noise moved by ~one bf16 step
+            x_moved = run("cuda", noise * (1 + 2.0 ** -9 * torch.randn(
+                noise.shape, generator=torch.Generator().manual_seed(2))))
+            forwards = 5 if ts else steps
+            if fp32:
+                want = _f32_knob_launches(knobs, forwards, cfg.num_layers,
+                                          bounded=False, lk_self=seq_len,
+                                          int8=knobs.get("int8", False))
+            else:
+                want = _knob_launches(knobs, forwards, cfg.num_layers)
+            got = {k: used[k] for k in want}
+            err, sens = rel(x_gpu, x_cpu), rel(x_moved, x_gpu)
+            control = None
+            if fp32:
+                limit = F32_PARITY_LIMITS[case]
+                why = ("fp32 compute policy, over 2 blocks x "
+                       f"{steps} steps: summation orders of the fp32 GEMMs "
+                       "and the rare score or code flips they cause"
+                       + ("; W8A8 codes flip where cuBLAS and the CPU "
+                          "round a GEMM differently" if knobs.get("int8")
+                          else ""))
+                if policy.softmax_bf16 or policy.qk_int8:
+                    control = rel(run("cuda", policy=dataclasses.replace(
+                        policy, softmax_bf16=False, qk_int8=False)), x_cpu)
+            else:
+                limit = 3e-2 + 3 * sens
+                why = ("bf16 compute policy: cuBLAS and the CPU round each "
+                       f"GEMM at other points, over 2 blocks x {steps} "
+                       "steps; W8A8 codes and bf16 scores flip where those "
+                       "roundings differ, so 3x the card's own change "
+                       "under a one-bf16-step move of the noise")
+            out = {"check": f"knob_parity {case} ({pol_name} policy)",
+                   "latent_rel_l2": err, "sensitivity_rel_l2": sens,
+                   "limit": limit, "control_rel_l2": control, "why": why,
+                   "launches": {k: v for k, v in got.items() if v},
+                   "expected_launches": {k: v for k, v in want.items() if v},
+                   "finite": bool(torch.isfinite(x_gpu).all())}
+            # the control must show the attention knobs where they are the
+            # case's only knobs
+            shows = (control is None or knobs.get("int8")
+                     or control > 3 * limit)
+            out["ok"] = (out["finite"] and err < limit and got == want
+                         and bool(shows))
+            log(json.dumps(out))
+            if not out["ok"]:
+                fail(f"knob parity {case} ({pol_name}): the card disagrees "
+                     "with the CPU")
+            if fp32:
+                for k, v in used.items():
+                    fp32_launches[k] = fp32_launches.get(k, 0) + v
+    return fp32_launches
 
 
 def _knob_forward_times(spec, forwards):
@@ -8135,6 +8213,447 @@ def knob_main_path(output_dir):
     for knob in ("softmax_bf16", "qk_int8"):
         by_path[f"knob_{knob}"] = dict(dict.fromkeys(launches, 0),
                                        **per_call[knob])
+    return by_path
+
+
+# ---------------------------------------------------------------------------
+# the serving knobs on fp32 inputs (the fp32 Wan DiT's softmax_bf16 and
+# qk_int8: the knob modes of flash_attention_f32_sm90.cu, kernel B's fp32
+# mode)
+# ---------------------------------------------------------------------------
+
+F32_KNOB_BLOCKS = 10   # of t2v-1.3B's 30: the time limit (full width)
+F32_KNOB_STEPS = 2     # UniPC steps a case, batch-2 CFG, no decode
+F32_KNOB_CASES = {"softmax_bf16": dict(softmax_bf16=True),
+                  "qk_int8": dict(qk_int8=True),
+                  "both": dict(softmax_bf16=True, qk_int8=True)}
+# the fp32 knob kernels' counters and the runs whose launches the kernels
+# line gives them: the t2v-1.3B pipeline case of that knob (bounded), the
+# one-shot cross mode the fp32 cases of knob_parity (FP32_POLICY: no bound)
+F32_KNOB_OWNERS = {
+    "flash_attention_f32_sm90_sbf16": "fp32_knob_softmax_bf16",
+    "flash_attention_f32_sm90_int8": "fp32_knob_qk_int8",
+    "quantize_qk_int8_f32": "fp32_knob_qk_int8",
+    "flash_attention_f32_sm90_int8_sbf16": "fp32_knob_both",
+    "flash_attention_f32_sm90_sbf16_oneshot": "fp32_knob_parity"}
+F32_KNOB_WHY = ("fp32 accuracy on both sides: the int8 scores are the plain "
+                "version's bit for bit, p v on v's three bf16 parts (~2^-24 "
+                "a product); summation order and the approximate exp2 "
+                "(2^-22 relative)")
+
+
+def _f32_knob_launches(knobs, forwards, blocks, bounded=True, lk_self=32768,
+                       int8=False):
+    """The fp32 DiT's launches of `forwards` calls of `blocks` blocks with
+    `knobs` (softmax_bf16, qk_int8; `int8`: W8A8): a self-attention with
+    fused rope (kv_len) and a cross-attention a block and call. Without a
+    bound the bf16 chain takes the one-shot max at <= 512 keys."""
+    from univid_tpu_torch.kernels import flash_attention as fa
+    n = forwards * blocks
+    sbf, qk8 = knobs.get("softmax_bf16"), knobs.get("qk_int8")
+    out = dict.fromkeys(fa.LAUNCHES, 0)
+    sbf_self = "flash_attention_f32_sm90_sbf16" + (
+        "_oneshot" if not bounded and lk_self <= fa.CROSS_MAX_LK else "")
+    sbf_cross = "flash_attention_f32_sm90_sbf16" + ("" if bounded
+                                                    else "_oneshot")
+    if qk8:   # kernel B rotates and quantizes; v alone is split
+        out["flash_attention_f32_sm90_int8" + ("_sbf16" if sbf else "")] = n
+        out["quantize_qk_int8_f32"] = 2 * n
+        out["split_bf16x3"] += n
+    else:
+        out[sbf_self if sbf else "flash_attention_f32_sm90"] += n
+        out["rope_rotate_f32"] = 2 * n
+        out["split_bf16x3"] += 3 * n
+    out[sbf_cross if sbf else "flash_attention_f32_sm90"] += n
+    out["split_bf16x3"] += 3 * n
+    out["w8a8_linear"] = 10 * n if int8 else 0
+    return out
+
+
+def check_f32_knob_kernels():
+    """The fp32 knob modes against their plain versions at t2v-1.3B's
+    serving shape [2, 32768, 12, 128] (batch-2 CFG; 32,760 tokens, keys past
+    them 50.0; fused rope, qk-normed rows): softmax_bf16 bounded and running
+    (flash_attention_f32_sm90.cu's SBF16 modes); the fp32 int8 pre-pass
+    (kernel B, codes and scales equal; k scales over JAX's 2,048-key
+    blocks); int8 QK^T with the fp32 chain and with softmax_bf16, bounded
+    and running, a kv_len = 0 row exactly 0; the cross call [2, 32768, 12,
+    128] over 512 keys with softmax_bf16, one-shot (kv_len [512, 100]) and
+    bounded; both knobs at the Ulysses shard [2, 32768, 6, 128]. Each timed
+    with CUDA events, kernel alone and whole call, beside its plain
+    version, the knob-free fp32 kernel and fp32 SDPA of the knob-free
+    function. Returns the records of the kernels line (self shape; the
+    cross and shard shapes on their own lines)."""
+    import torch
+    import torch.nn.functional as F
+
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.ops.rope import build_rope_3d
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    b, l, n, d = 2, 32768, 12, 128
+    grid = (21, 30, 52)
+    kv_real = grid[0] * grid[1] * grid[2]
+    bw = 2048   # jax_block_k(32768)
+    rep = "univid_tpu/kernels/flash_attention.py:"
+
+    def case(heads):
+        q = qk_normed((b, l, heads, d), gen, torch.float32)
+        k = qk_normed((b, l, heads, d), gen, torch.float32)
+        v = torch.randn((b, l, heads, d), generator=gen, device="cuda")
+        k[:, kv_real:] = 50.0
+        v[:, kv_real:] = 50.0
+        return q, k, v
+
+    cos, sin = build_rope_3d(d, grid, device="cuda")
+    tabs = fa._pad_tables(fa.build_fused_rope_tables(cos, sin, d), l, l,
+                          fa.LOG2E / math.sqrt(d))
+    cq, sq_t, ck, sk_t = tabs
+    kv_len = torch.full((b,), kv_real, dtype=torch.int32, device="cuda")
+    bound = torch.tensor([1.01 * d * fa.LOG2E / math.sqrt(d)], device="cuda")
+    recs = {}
+    q, k, v = case(n)
+    v_max = float(v[:, :kv_real].abs().max())
+    prod = 2.0 * b * n * l * kv_real * d   # one product over the live keys
+    io = nbytes(q, k, v, q)                # fp32 q, k, v read, o written
+    with torch.no_grad():
+        qr, kr = fa._rope_f32(q, cq, sq_t), fa._rope_f32(k, ck, sk_t)
+        parts = [fa.split_bf16x3(x) for x in (qr, kr, v)]
+        # the knob-free fp32 kernel in the same call, and fp32 SDPA of the
+        # knob-free function over the live keys
+        free_ms = cuda_time(lambda: fa._fwd_f32_sm90_parts(
+            *parts, kv_len, bound, False), 2)
+        qg, kg, vg = (x.transpose(1, 2)[:, :, :m] for x, m in
+                      ((qr, l), (kr, kv_real), (v, kv_real)))
+        sdpa_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+            qg, kg, vg, scale=1.0 / fa.LOG2E), 2)
+        del qg, kg, vg
+
+        # ---- softmax_bf16: bounded and running, fused rope, kv_len -------
+        errs = []
+        for tag, bd, lim in (("bounded", bound, "fp32_bounded"),
+                             ("running max", None, "running")):
+            got = fa._flash_cuda(q, k, v, kv_len, bd, tabs, softmax_bf16=True)
+            want = fa.attention_plain(q, k, v, kv_len=kv_len, bound=bd,
+                                      rope_tables=tabs, softmax_bf16=True)
+            chain32, _ = fa._fwd_f32_sm90_parts(*parts, kv_len, bd, False)
+            errs.append(compare_bf16_chain(
+                f"flash_attention_f32_sm90_sbf16 t2v-1.3B {tag}+rope+kv_len",
+                got, want, v_max, F32_CHAIN_LIMITS[lim], chain32))
+            del got, want, chain32
+        ms = cuda_time(lambda: fa._fwd_f32_sm90_parts(
+            *parts, kv_len, bound, False, softmax_bf16=True), 3)
+        run_ms = cuda_time(lambda: fa._fwd_f32_sm90_parts(
+            *parts, kv_len, None, False, softmax_bf16=True), 2)
+        call_ms = cuda_time(lambda: fa._flash_cuda(
+            q, k, v, kv_len, bound, tabs, softmax_bf16=True), 2)
+        plain_ms = cuda_time(lambda: fa.attention_plain(
+            qr, kr, v, kv_len=kv_len, bound=bound, softmax_bf16=True), 1,
+            warmup=0)
+        bms, by = bound_ms(9 * prod, io, H100_BF16_FLOPS)
+        recs["flash_attention_f32_sm90_sbf16"] = dict(
+            name="flash_attention_f32_sm90_sbf16", route="cuda",
+            source=F32_SM90_SRC, replaces=rep + "44 (softmax_bf16 :259-265)",
+            max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by=by, library_ms=sdpa_ms, running_ms=run_ms,
+            call_ms=call_ms, knob_free_ms=free_ms)
+
+        # ---- the fp32 int8 pre-pass: codes and scales equal ---------------
+        codes = fa.quantize_qk_int8(q, k, tabs, bw)
+        plain_codes = fa.quantize_qk_int8_plain(q, k, tabs, bw)
+        off = [int((g != w).sum()) for g, w in zip(codes, plain_codes)]
+        res = {"check": "quantize_qk_int8_f32 t2v-1.3B (rope, blocks of "
+                        f"{bw} keys)", "differing": off,
+               "why": "the same fp32 rotation, reciprocal, product and "
+                      "round-half-to-even: codes and scales equal",
+               "ok": off == [0, 0, 0, 0]}
+        log(json.dumps(res))
+        if not res["ok"]:
+            fail("quantize_qk_int8_f32: kernel disagrees with its plain "
+                 "version")
+        del plain_codes
+        q_ms = cuda_time(lambda: fa.quantize_qk_int8(q, k, tabs, bw), 5)
+        q_plain = cuda_time(lambda: fa.quantize_qk_int8_plain(q, k, tabs,
+                                                              bw), 1)
+        # 2 products and a sum to rotate, |x|, the product and the round
+        bms, by = bound_ms(6 * (q.numel() + k.numel()),
+                           nbytes(q, k, *tabs, *codes), H100_FP32_FLOPS)
+        recs["quantize_qk_int8_f32"] = dict(
+            name="quantize_qk_int8_f32", route="cuda",
+            source="univid_tpu_torch/kernels/csrc/qk_prepass.cu",
+            replaces=rep + "44 (qk_int8 prologue :137-156, :213-226)",
+            max_abs_err=0.0, ms=q_ms, plain_ms=q_plain, bound_ms=bms,
+            bound_by=by, library_ms=None)
+
+        # ---- int8 QK^T, the fp32 chain and softmax_bf16 -------------------
+        vp = parts[2]
+        for sbf, name in ((False, "flash_attention_f32_sm90_int8"),
+                          (True, "flash_attention_f32_sm90_int8_sbf16")):
+            errs = []
+            for tag, bd in (("bounded", bound), ("running max", None)):
+                got = fa.flash_attention_int8(*codes, v, kv_len=kv_len,
+                                              score_bound=bd,
+                                              softmax_bf16=sbf, block_k=bw)
+                want = fa.attention_int8_plain(*codes, v, kv_len=kv_len,
+                                               bound=bd, softmax_bf16=sbf,
+                                               block_k=bw)
+                check = f"{name} t2v-1.3B {tag}+kv_len"
+                if sbf:
+                    chain32 = fa.flash_attention_int8(
+                        *codes, v, kv_len=kv_len, score_bound=bd,
+                        block_k=bw)
+                    errs.append(compare_bf16_chain(
+                        check, got, want, v_max, F32_CHAIN_LIMITS[
+                            "int8_bounded" if bd is not None else "running"],
+                        chain32))
+                    del chain32
+                else:
+                    errs.append(compare(check, got, want, atol=1e-5,
+                                        rtol=1e-4, why=F32_KNOB_WHY))
+                del got, want
+            got = fa.flash_attention_int8(
+                *codes, v, kv_len=torch.tensor([0, kv_real], dtype=torch.int32,
+                                               device="cuda"),
+                score_bound=bound, softmax_bf16=sbf, block_k=bw)
+            zero = bool((got[0] == 0).all())
+            log(json.dumps({"check": f"{name} t2v-1.3B kv_len = 0 row",
+                            "exactly_zero": zero, "ok": zero}))
+            if not zero:
+                fail(f"{name}: a kv_len = 0 row is not exactly 0")
+            del got
+            ms = cuda_time(lambda: fa._f32_int8_parts(
+                *codes, vp, kv_len, bound, sbf, bw), 3)
+            run_ms = cuda_time(lambda: fa._f32_int8_parts(
+                *codes, vp, kv_len, None, sbf, bw), 2)
+            call_ms = cuda_time(lambda: fa.flash_attention_padded(
+                q, k, v, kv_len=kv_len, rope_tables=tabs, score_bound=bound,
+                softmax_bf16=sbf, qk_int8=True, block_k=bw,
+                softmax_scale=1.0 / math.sqrt(d)), 2)
+            plain_ms = cuda_time(lambda: fa.attention_int8_plain(
+                *codes, v, kv_len=kv_len, bound=bound, softmax_bf16=sbf,
+                block_k=bw), 1, warmup=0)
+            # QK^T at the int8 rate; p v: 6 (fp32 chain) or 3 bf16 products
+            t_ops = (prod / H100_INT8_OPS + (3 if sbf else 6) * prod
+                     / H100_BF16_FLOPS) * 1e3
+            t_bytes = nbytes(*codes, v, q) / H100_BYTES * 1e3
+            bms, by = ((t_ops, "operations") if t_ops >= t_bytes
+                       else (t_bytes, "bytes"))
+            recs[name] = dict(
+                name=name, route="cuda", source=F32_SM90_SRC,
+                replaces=rep + "44 (qk_int8 :104-105, :213-233"
+                + (", softmax_bf16 :259-265)" if sbf else ")"),
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=sdpa_ms,
+                running_ms=run_ms, call_ms=call_ms, knob_free_ms=free_ms)
+        del codes, parts, vp, qr, kr, q, k, v
+        torch.cuda.empty_cache()
+
+        # ---- the cross call over 512 keys: one-shot and bounded -----------
+        lk = 512
+        qc = fa._fold(qk_normed((b, l, n, d), gen, torch.float32),
+                      1.0 / math.sqrt(d))
+        kc = qk_normed((b, lk, n, d), gen, torch.float32)
+        vc = torch.randn((b, lk, n, d), generator=gen, device="cuda")
+        kvl = torch.tensor([lk, 100], dtype=torch.int32, device="cuda")
+        km, vm = kc.clone(), vc.clone()
+        km[1, 100:] = 50.0
+        vm[1, 100:] = 50.0
+        vc_max = float(vc.abs().max())
+        # the one-shot max is the plain version's reference: only score
+        # flips remain, as under the bound
+        lim = F32_CHAIN_LIMITS["fp32_bounded"]
+        err1 = compare_bf16_chain(
+            "flash_attention_f32_sm90_sbf16_oneshot cross 512 keys, "
+            "kv_len [512, 100]",
+            fa._flash_cuda(qc, km, vm, kvl, None, None, softmax_bf16=True),
+            fa.attention_plain(qc, km, vm, kv_len=kvl, softmax_bf16=True),
+            vc_max, lim, fa._flash_cuda(qc, km, vm, kvl, None, None))
+        err_o = compare_bf16_chain(
+            "flash_attention_f32_sm90_sbf16_oneshot cross 512 keys",
+            fa._flash_cuda(qc, kc, vc, None, None, None, softmax_bf16=True),
+            fa.attention_plain(qc, kc, vc, softmax_bf16=True), vc_max, lim,
+            fa._flash_cuda(qc, kc, vc, None, None, None))
+        err_b = compare_bf16_chain(
+            "flash_attention_f32_sm90_sbf16 cross 512 keys bounded",
+            fa._flash_cuda(qc, kc, vc, None, bound, None, softmax_bf16=True),
+            fa.attention_plain(qc, kc, vc, bound=bound, softmax_bf16=True),
+            vc_max, lim, fa._flash_cuda(qc, kc, vc, None, bound, None))
+        del km, vm
+        cparts = [fa.split_bf16x3(x) for x in (qc, kc, vc)]
+        one_ms = cuda_time(lambda: fa._fwd_f32_sm90_parts(
+            *cparts, None, None, False, softmax_bf16=True, oneshot=True), 5)
+        cb_ms = cuda_time(lambda: fa._fwd_f32_sm90_parts(
+            *cparts, None, bound, False, softmax_bf16=True), 5)
+        cfree_ms = cuda_time(lambda: fa._fwd_f32_sm90_parts(
+            *cparts, None, None, False), 5)
+        ccall_ms = cuda_time(lambda: fa._flash_cuda(
+            qc, kc, vc, None, None, None, softmax_bf16=True), 5)
+        cplain_ms = cuda_time(lambda: fa.attention_plain(
+            qc, kc, vc, softmax_bf16=True), 1, warmup=0)
+        qg, kg, vg = (x.transpose(1, 2) for x in (qc, kc, vc))
+        csdpa_ms = cuda_time(lambda: F.scaled_dot_product_attention(
+            qg, kg, vg, scale=1.0 / fa.LOG2E), 3)
+        del qg, kg, vg, cparts
+        cprod = 2.0 * b * n * l * lk * d
+        cio = nbytes(qc, kc, vc, qc)
+        # the function's 9 products (6 QK^T + 3 p v): the one-shot sweep's
+        # second QK^T is the kernel's own cost, not the function's
+        bms, by = bound_ms(9 * cprod, cio, H100_BF16_FLOPS)
+        recs["flash_attention_f32_sm90_sbf16_oneshot"] = dict(
+            name="flash_attention_f32_sm90_sbf16_oneshot", route="cuda",
+            source=F32_SM90_SRC,
+            replaces=rep + "355 (_cross_kernel, softmax_bf16 :402-403)",
+            max_abs_err=max(err1, err_o), ms=one_ms, plain_ms=cplain_ms,
+            bound_ms=bms, bound_by=by, library_ms=csdpa_ms,
+            call_ms=ccall_ms, knob_free_ms=cfree_ms)
+        log(json.dumps({"kernel_at_cross_shape": dict(
+            name="flash_attention_f32_sm90_sbf16", route="cuda",
+            source=F32_SM90_SRC,
+            replaces=rep + "355 (_cross_kernel, softmax_bf16 :402-403)",
+            max_abs_err=err_b, ms=cb_ms, plain_ms=cplain_ms, bound_ms=bms,
+            bound_by=by, library_ms=csdpa_ms, knob_free_ms=cfree_ms)}))
+        del qc, kc, vc
+        torch.cuda.empty_cache()
+
+        # ---- both knobs at the Ulysses shard [2, 32768, 6, 128] -----------
+        q, k, v = case(n // 2)
+        sv_max = float(v[:, :kv_real].abs().max())
+        kw = dict(kv_len=kv_len, rope_tables=tabs, score_bound=bound,
+                  softmax_bf16=True, qk_int8=True, block_k=bw,
+                  softmax_scale=1.0 / math.sqrt(d))
+        got = fa.flash_attention_padded(q, k, v, **kw)
+        want = fa.attention_int8_plain(
+            *fa.quantize_qk_int8_plain(q, k, tabs, bw), v, kv_len=kv_len,
+            bound=bound, softmax_bf16=True, block_k=bw)
+        err = compare_bf16_chain(
+            "flash_attention_f32_sm90_int8_sbf16 sp = 2 shard [2, 32768, 6, "
+            "128] bounded+rope", got, want, sv_max,
+            F32_CHAIN_LIMITS["int8_bounded"],
+            fa.flash_attention_padded(q, k, v, **{**kw,
+                                                  "softmax_bf16": False}))
+        del got, want
+        sp_ms = cuda_time(lambda: fa.flash_attention_padded(q, k, v, **kw), 3)
+        t_ops = (prod / 2 / H100_INT8_OPS + 3 * prod / 2 / H100_BF16_FLOPS) \
+            * 1e3
+        log(json.dumps({"kernel_at_sp_shape": dict(
+            name="flash_attention_f32_sm90_int8_sbf16", route="cuda",
+            source=F32_SM90_SRC, replaces=rep + "44",
+            max_abs_err=err, call_ms=sp_ms, bound_ms=t_ops,
+            bound_by="operations")}))
+        del q, k, v
+    torch.cuda.empty_cache()
+    for rec in recs.values():
+        log(json.dumps({"kernel": rec}))
+    return recs
+
+
+class _StepTimer:
+    """A PhaseTimer-shaped recorder of each denoise step's seconds (the
+    pipeline synchronises around each phase)."""
+
+    def __init__(self):
+        self.steps = []
+
+    @contextlib.contextmanager
+    def phase(self, name):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            self.steps.append((name, time.perf_counter() - t0))
+
+
+def fp32_knob_main_path():
+    """The fp32 knob path: t2v-1.3B at full width (dim 1536, 12 heads of
+    d=128), depth cut to F32_KNOB_BLOCKS of its 30 blocks, fp32 weights
+    drawn on the card from a seed (the zero head redrawn), through
+    WanTI2VPipeline's denoise loop at 832x480x81 (32,760 tokens padded to
+    32,768) under replace(FP32_POLICY, bounded_softmax=True, ...) with
+    softmax_bf16, qk_int8 and both: F32_KNOB_STEPS UniPC steps a case with
+    batch-2 CFG from a random [1, 512, 4096] text context, no decode (the
+    knobs do not reach the VAE). Launches asserted per case (each block:
+    the self-attention on its knob mode after the rope pre-pass or kernel
+    B, the cross-attention on the bf16 chain's bounded mode or, under
+    qk_int8 alone, the knob-free fp32 kernel); seconds per step, peak
+    memory, finite latents. Returns {path: launches}."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from univid_tpu_torch.core.config import WAN_CONFIGS, latent_shape
+    from univid_tpu_torch.core.dtypes import FP32_POLICY
+    from univid_tpu_torch.models.wan.dit import WanDiT
+    from univid_tpu_torch.pipelines.ti2v import WanTI2VPipeline
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = WAN_CONFIGS["t2v-1.3B"]
+    spec = dataclasses.replace(base, dit=dataclasses.replace(
+        base.dit, num_layers=F32_KNOB_BLOCKS))
+    cfg = spec.dit
+    _, f, lh, lw = latent_shape(spec, 832, 480, 81)
+    grid = (f, lh // 2, lw // 2)
+    tokens = grid[0] * grid[1] * grid[2]
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    t0 = time.perf_counter()
+    dit = WanDiT(cfg, dtype=torch.float32, device="cuda", gen=gen(70))
+    with torch.no_grad():   # a zero head would make every velocity 0
+        dit.head.head.w.normal_(0.0, 0.02, generator=gen(71))
+    c = spec.vae.z_dim
+    noise = torch.randn((1, f, lh, lw, c), generator=gen(72), device="cuda")
+    ctx, nctx = (torch.randn((1, cfg.text_len, cfg.text_dim),
+                             generator=gen(s), device="cuda") * 0.5
+                 for s in (73, 74))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    by_path = {}
+    for case, knobs in F32_KNOB_CASES.items():
+        policy = dataclasses.replace(FP32_POLICY, bounded_softmax=True,
+                                     **knobs)
+        pipe = WanTI2VPipeline(spec, dit, None, policy=policy)
+        timer = _StepTimer()
+        fn = pipe.denoise_fn((f, lh, lw), tokens, F32_KNOB_STEPS, 5.0, 5.0,
+                             "unipc", None, timer=timer)
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t1 = time.perf_counter()
+        x0 = fn(dit, noise, ctx, nctx, torch.zeros_like(noise))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = _all_counts()
+        want = dict(dict.fromkeys(launches, 0), **_f32_knob_launches(
+            knobs, F32_KNOB_STEPS, cfg.num_layers))
+        step_s = [s for nm, s in timer.steps if nm == "dit_step"]
+        out = {"phase": "fp32_knob_main_path", "model": "t2v-1.3B",
+               "case": case, "policy": "FP32_POLICY, bounded_softmax",
+               "knobs": knobs,
+               "blocks": f"{cfg.num_layers} of {base.dit.num_layers}",
+               "resolution": "832x480x81", "tokens": tokens,
+               "steps": F32_KNOB_STEPS, "init_s": init_s, "seconds": wall,
+               "step_seconds": step_s,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": {k: v for k, v in launches.items() if v},
+               "expected_launches": {k: v for k, v in want.items() if v},
+               "finite": bool(torch.isfinite(x0).all())}
+        out["ok"] = (launches == want and out["finite"]
+                     and len(step_s) == F32_KNOB_STEPS
+                     and out["peak_memory_gb"] < 80.0)
+        log(json.dumps(out))
+        if not out["ok"]:
+            fail(f"fp32 knob path {case}: launches, latents, steps or "
+                 "memory off")
+        by_path[f"fp32_knob_{case}"] = launches
+        del x0, fn, pipe
+    del dit, noise, ctx, nctx
+    gc.collect()
+    torch.cuda.empty_cache()
     return by_path
 
 
@@ -9498,10 +10017,10 @@ def check_tp_kernels():
 # depth cuts for the time limit: at 4 training and 6 serving blocks the
 # phase took 105.5 s (its tp = 2 step 29.6 s, 83% in gloo's host copies of
 # the 400 MB activations) and the script 1,054.6 s of its 1,200; at 2 and
-# 4, 67.4 s
+# 4, 67.4 s; one serving block a rank pays for the fp32 knob phases
 TP_TRAIN_LAYERS = 1  # of t2v-1.3B's 30 blocks in the three sharded steps
 #                      and their one-rank reference
-TP_LAYERS = 2        # of t2v-1.3B's 30 blocks in the bf16 serving call
+TP_LAYERS = 1        # of t2v-1.3B's 30 blocks in the bf16 serving call
 TP_T5_LAYERS = 2     # of UMT5-XXL's 24 blocks (full width, fp32)
 TP_QWEN_LAYERS = 2   # of BAGEL-7B-MoT's 28 LLM layers (full width, bf16)
 TP_QWEN_TOKENS = 2048   # the prefill's rows (the largest text bucket)
@@ -10968,6 +11487,7 @@ def kernels_line(records, by_path, mask_records):
     own.update(tile_lists="bagel_train", mask_tile_list=None,
                bwd_tile_list=None)
     own.update(KNOB_OWNERS)
+    own.update(F32_KNOB_OWNERS)
     # the flow passes' shapes of BAGEL image generation: counted by the
     # flash_attention_bf16 counter, in the request of their shape
     own.update(flash_attention_bf16_image_gen_t2i="bagel_t2i",
@@ -11099,7 +11619,8 @@ def main():
         if (any(a != "0" or b != "0" for a, b in spills)
                 or re.search(r"C751[34]", sm90_log)):
             fail(f"{name}.cu spills or serialises its wgmma")
-    for name in ("flash_attention_int8_sm90", "flash_attention_causal_sm90"):
+    for name in ("flash_attention_int8_sm90", "flash_attention_causal_sm90",
+                 "flash_attention_f32_sm90", "qk_prepass"):
         log(json.dumps({"check": f"{name}.cu instantiations",
                         "ptxas": ptxas_by_function(
                             build.BUILD_LOG.get(name, ""))}))
@@ -11132,6 +11653,10 @@ def main():
     for rec in check_knob_kernels("t2v-1.3B", 12, (21, 30, 52), 32768, 30,
                                   running=False).values():
         log(json.dumps({"kernel_at_t2v13b_shape": rec}))
+    t1 = time.perf_counter()
+    records.update(check_f32_knob_kernels())
+    log(json.dumps({"phase": "check_f32_knob_kernels",
+                    "seconds": time.perf_counter() - t1}))
     records.update(check_sp_kernels())
     records.update(check_tp_kernels())
     log(json.dumps({"phase": "kernel_checks",
@@ -11164,6 +11689,8 @@ def main():
                             "seconds": time.perf_counter() - t0}))
             if phase == "fp32_train_parity":
                 by_path["fp32_serve"] = res
+            if phase == "knob_parity":
+                by_path["fp32_knob_parity"] = res
         # each path is driven with every count at 0 just before it; a
         # kernel's launches are those of the path it serves (the t2v-1.3B
         # CLI run for the serving kernels, the ti2v-5B run for the fp32 VAE
@@ -11199,6 +11726,10 @@ def main():
         t0 = time.perf_counter()
         by_path.update(knob_main_path(args.output_dir))
         log(json.dumps({"phase": "knob_main_path_total",
+                        "seconds": time.perf_counter() - t0}))
+        t0 = time.perf_counter()
+        by_path.update(fp32_knob_main_path())
+        log(json.dumps({"phase": "fp32_knob_main_path_total",
                         "seconds": time.perf_counter() - t0}))
         t0 = time.perf_counter()
         by_path["bagel"] = bagel_main_path(args.output_dir)

@@ -840,8 +840,10 @@ def test_cuda_f32_masked_modes_match_plain(cuda_device, mode):
         assert tfa.LAUNCHES_BY_MODE[
             f"flash_attention_f32_sm90_lse_{by_mode}"] == 1
     if nk != n:
-        assert tfa.GROUPED_LAUNCHES == {"flash_attention_f32_sm90": 1,
-                                        "flash_attention_f32_sm90_lse": 1}
+        assert tfa.GROUPED_LAUNCHES == {
+            "flash_attention_f32_sm90": 1, "flash_attention_f32_sm90_lse": 1,
+            "flash_attention_f32_sm90_sbf16": 0,
+            "flash_attention_f32_sm90_sbf16_oneshot": 0}
         return
     with torch.no_grad():
         grads = tfa.flash_attention_bwd_folded(
@@ -1219,19 +1221,173 @@ def test_cuda_int8_sm90_failures_raise(cuda_device, monkeypatch, tmp_path):
 
 @pytest.mark.cuda
 def test_cuda_knobs_without_a_kernel_raise(cuda_device):
-    """No fallback on the card: fp32 inputs with a knob, a knob with a
-    causal mask, and grouped kv heads under qk_int8 raise."""
+    """No fallback on the card: a knob with a causal mask and grouped kv
+    heads under qk_int8 raise, in bf16 and in fp32. fp32 d=128 inputs with
+    a knob run their own kernel mode (each counted, nothing else)."""
     x = torch.zeros((1, 64, 2, 128), device=cuda_device)
-    for kw in (dict(softmax_bf16=True), dict(qk_int8=True)):
-        with pytest.raises(NotImplementedError, match="queue 2"):
-            tfa.flash_attention_padded(x, x, x, **kw)
-    xb = x.to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="no caller"):
-        tfa.flash_attention_padded(xb, xb, xb, causal=True,
-                                   softmax_bf16=True)
-    with pytest.raises(ValueError, match="kv heads"):
-        tfa.flash_attention_padded(xb, xb[:, :, :1], xb[:, :, :1],
-                                   qk_int8=True)
+    for kw, name in ((dict(softmax_bf16=True),
+                      "flash_attention_f32_sm90_sbf16_oneshot"),
+                     (dict(qk_int8=True), "flash_attention_f32_sm90_int8")):
+        tfa.reset_launches()
+        with torch.no_grad():
+            out = tfa.flash_attention_padded(x, x, x, **kw)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.float32 and bool((out == 0).all())
+        assert tfa.LAUNCHES[name] == 1
+        assert tfa.LAUNCHES["flash_attention_f32_sm90"] == 0
+    for xt in (x, x.to(torch.bfloat16)):
+        with pytest.raises(NotImplementedError, match="no caller"):
+            tfa.flash_attention_padded(xt, xt, xt, causal=True,
+                                       softmax_bf16=True)
+        with pytest.raises(ValueError, match="kv heads"):
+            tfa.flash_attention_padded(xt, xt[:, :, :1], xt[:, :, :1],
+                                       qk_int8=True)
+
+
+# --- the serving knobs on fp32 inputs (flash_attention_f32_sm90.cu) --------
+
+# cases: (lq, lk, softmax_bf16, qk_int8, bounded, rope, group); 2 kv heads
+# under 2 * group query heads; kv_len [lk, lk - 77] (int8: [lk, 0], a
+# kv_len = 0 row exactly 0); lq 320 ends in a half q tile; the bf16 chain
+# without a bound takes the one-shot max at lk <= 512 and the running max
+# above
+F32_KNOBS = {
+    "sbf16_bounded_rope": (320, 448, True, False, True, True, 1),
+    "sbf16_running": (320, 704, True, False, False, False, 1),
+    "sbf16_cross_bounded": (320, 512, True, False, True, False, 1),
+    "sbf16_cross_one_shot": (320, 512, True, False, False, False, 1),
+    "sbf16_grouped_bounded_rope": (320, 448, True, False, True, True, 2),
+    "sbf16_grouped_running": (320, 704, True, False, False, False, 3),
+    "sbf16_grouped_cross_one_shot": (320, 512, True, False, False, False, 2),
+    "int8_bounded_rope": (320, 448, False, True, True, True, 1),
+    "int8_running": (320, 448, False, True, False, False, 1),
+    "int8_sbf16_bounded_rope": (320, 448, True, True, True, True, 1),
+    "int8_sbf16_running": (320, 704, True, True, False, False, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(F32_KNOBS))
+def test_cuda_f32_knob_modes_match_plain(cuda_device, case):
+    """Each fp32 d=128 knob mode through flash_attention_padded against its
+    plain version on the card, keys past kv_len at 50.0, k scales over
+    192-key blocks: the fp32 chain over int8 QK^T at the fp32 d=128 bound
+    (1e-5 + 1e-4 |ref|: the scores are the plain version's bit for bit),
+    a kv_len = 0 row exactly 0; the bf16 chain at PERF.md s2's
+    softmax_bf16 bound (`_check_fwd`), and at least 1e-3 (rel. L2) from the
+    fp32 chain's output of the same call: the bf16 chain was computed (the
+    two chains differ by ~5e-3 to ~1.5e-2). Grouped kv heads under the bf16
+    chain: query head h reads kv head h / group. Launches: the mode's own
+    counter and its pre-passes, nothing else."""
+    lq, lk, sbf, qk8, bounded, rope, group = F32_KNOBS[case]
+    d, n = 128, 2 * group
+    q = torch.as_tensor(_rand((2, lq, n, d), 70, True)).to(cuda_device)
+    k, v = (torch.as_tensor(_rand((2, lk, 2, d), s, True)).to(cuda_device)
+            for s in (71, 72))
+    ends = (lk, 0 if qk8 else lk - 77)
+    kv = torch.tensor(ends, dtype=torch.int32, device=cuda_device)
+    k[1, ends[1]:] = 50.0
+    v[1, ends[1]:] = 50.0
+    bound = (torch.tensor(1.01 * d * LOG2E / math.sqrt(d))
+             if bounded else None)
+    tabs = (tfa.build_fused_rope_tables(
+        *trope3d(d, (5, 8, 8), device=cuda_device), d) if rope else None)
+    kw = dict(kv_len=kv, rope_tables=tabs, score_bound=bound,
+              softmax_bf16=sbf, qk_int8=qk8, block_k=192)
+    tfa.reset_launches()
+    with torch.no_grad():
+        got = tfa.flash_attention_padded(q, k, v, **kw)
+    torch.cuda.synchronize()
+    launched = {nm: c for nm, c in tfa.LAUNCHES.items() if c}
+    with torch.no_grad():
+        want = tfa.flash_attention_padded(q.cpu(), k.cpu(), v.cpu(), **{
+            key: (x.cpu() if isinstance(x, torch.Tensor) else
+                  tuple(t.cpu() for t in x) if isinstance(x, tuple) else x)
+            for key, x in kw.items()})
+    if qk8:
+        name = "flash_attention_f32_sm90_int8" + ("_sbf16" if sbf else "")
+        assert launched == {name: 1, "quantize_qk_int8_f32": 2,
+                            "split_bf16x3": 1}
+    else:
+        name = "flash_attention_f32_sm90_sbf16" + (
+            "_oneshot" if lk <= tfa.CROSS_MAX_LK and not bounded else "")
+        want_l = {name: 1, "split_bf16x3": 3}
+        if rope:
+            want_l["rope_rotate_f32"] = 2
+        assert launched == want_l
+        assert tfa.GROUPED_LAUNCHES[name] == (group > 1)
+    assert got.dtype == torch.float32
+    if sbf:
+        live = [bi for bi, e in enumerate(ends) if e > 0]
+        live_v = torch.cat([v[bi, :ends[bi]] for bi in live])
+        _check_fwd(got[live], want[live], live_v, sbf16=True)
+        with torch.no_grad():
+            chain32 = tfa.flash_attention_padded(
+                q, k, v, **{**kw, "softmax_bf16": False})
+        assert _rel(got[live].cpu(), chain32[live].cpu()) > 1e-3
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-4, atol=1e-5)
+    if ends[1] == 0:
+        assert bool((got[1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rope", [True, False])
+def test_cuda_f32_int8_prepass_matches_plain(cuda_device, rope):
+    """Kernel B's fp32 mode against its plain version: the fp32 rows
+    rotated in fp32 (no fused multiply-add, never rounded to bf16), the
+    reciprocal, product and round-half-to-even give equal codes and scales,
+    bit for bit; k scales over blocks of 192 keys, rows past a kv_len of
+    400 at 20.0 setting the last one; strided q (a view of a wider
+    tensor) read in place."""
+    d, l = 128, 448
+    wide = torch.as_tensor(_rand((2, l, 5, d), 73, True)).to(cuda_device)
+    q = wide[:, :, 1:4]
+    k = torch.as_tensor(_rand((2, l, 3, d), 74, True)).to(cuda_device)
+    k[:, 400:] = 20.0
+    tabs = (tfa._pad_tables(tfa.build_fused_rope_tables(
+        *trope3d(d, (7, 8, 8), device=cuda_device), d), l, l,
+        LOG2E / math.sqrt(d)) if rope else None)
+    tfa.reset_launches()
+    got = tfa.quantize_qk_int8(q, k, tabs, 192)
+    torch.cuda.synchronize()
+    assert {nm: c for nm, c in tfa.LAUNCHES.items() if c} == {
+        "quantize_qk_int8_f32": 2}
+    want = tfa.quantize_qk_int8_plain(q, k, tabs, 192)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_knob_failures_raise(cuda_device, monkeypatch):
+    """No fallback: when the fp32 knob kernels' libraries fail to build,
+    or a launch returns an error, each fp32 knob call raises and no plain
+    version or knob-free kernel runs in its place."""
+    from univid_tpu_torch.kernels import build
+
+    x = torch.as_tensor(_rand((1, 128, 2, 128), 75, True)).to(cuda_device)
+    calls = [dict(softmax_bf16=True), dict(qk_int8=True),
+             dict(softmax_bf16=True, qk_int8=True)]
+
+    def no_build(name):
+        raise RuntimeError(f"CUDA kernel build failed: {name}")
+
+    def refused(*args):
+        return 1   # cudaErrorInvalidValue
+
+    for patch in ({"load": no_build}, {"_fn": lambda *a: refused}):
+        with monkeypatch.context() as m:
+            m.setattr(tfa, "_FNS", {})
+            for attr, fn in patch.items():
+                m.setattr(build if attr == "load" else tfa, attr, fn)
+            tfa.reset_launches()
+            with torch.no_grad():
+                for kw in calls:
+                    with pytest.raises(RuntimeError):
+                        tfa.flash_attention_padded(x, x, x, **kw)
+            assert not any(tfa.LAUNCHES.values())
 
 
 # --- the Hopper bf16 forward (flash_attention_sm90.cu) ----------------------

@@ -29,11 +29,14 @@ for its group of query heads, the reference route repeats them. Routes:
 The Wan serving knobs, JAX's semantics: `softmax_bf16` (the bf16 softmax
 chain) and `qk_int8` (int8 QK^T with per-row q and per-kv-block k scales,
 the block width JAX's dispatcher picks, `jax_block_k`) take the kernel
-route's bf16 kernels with kv_len and the bound; the reference route and a
-call under grad ignore them, as the JAX package's XLA fallback and its
-training forward (`_flash_fwd`) do. With causal, segment or packed masks
-they raise (no caller, no kernel mode); on the card with fp32 inputs too
-(`KNOBS_F32_LATER`: the fp32 Wan DiT's knobs, ROADMAP.md's next slice).
+route with kv_len and the bound: bf16 on the bf16 kernels, fp32 d=128
+(the Wan DiT under an fp32 `DTypePolicy`) on the fp32 kernels' knob modes
+(`f32_forward_route`: the bf16 chain, bounded, running or, at Lk <= 512
+without a bound, one-shot; int8 QK^T over the fp32 int8 pre-pass, either
+chain). The reference route and a call under grad ignore them, as the JAX
+package's XLA fallback and its training forward (`_flash_fwd`) do. With
+causal, segment or packed masks they raise (`KNOBS_MASKED`: no caller, no
+kernel mode), and qk_int8 over grouped kv heads raises.
 """
 
 from __future__ import annotations
@@ -212,10 +215,10 @@ def attention(q, k, v, *, kv_len=None, softmax_scale=None, rope_tables=None,
     Grouped kv heads under grad are refused: repeat them first, as the
     JAX callers do (autograd sums the repeat).
 
-    softmax_bf16 / qk_int8: inference knobs of the kernel route (see the
-    module docstring); under grad and on the reference route they are
-    ignored, as in the JAX package. qk_int8's k scales span `jax_block_k`
-    (Lk) keys.
+    softmax_bf16 / qk_int8: inference knobs of the kernel route, bf16 and
+    fp32 (see the module docstring); under grad and on the reference route
+    they are ignored, as in the JAX package. qk_int8's k scales span
+    `jax_block_k` (Lk) keys.
 
     qk_norm = (gain_q, gain_k, eps): q and k arrive before Wan's qk RMS
     norm over each token's N * D width (gains [N * D], [Nk * D]). On the

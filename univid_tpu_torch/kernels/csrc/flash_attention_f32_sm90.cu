@@ -38,9 +38,42 @@
 //     128-key tile, each 64-row q entry two 32-row q tiles. Tiles flagged
 //     full skip the predicate. A row with no live key is exactly 0 with lse
 //     +1e30; keys at or past kv_len score -1e30.
+//   * the serving knobs on fp32 inputs (the Wan DiT under an fp32
+//     DTypePolicy with softmax_bf16 and / or qk_int8), template flags of
+//     the forward, unmasked but for kv_len, no lse:
+//     - SBF16, _flash_kernel's and _cross_kernel's bf16 softmax chain
+//       (:259-265, :402-403): s, the reference, s - ref and p each round to
+//       bf16, a true exp2 (not XLA's CPU lowering), l adds the rounded p in
+//       fp32; the running max and its correction stay fp32. p is a bf16
+//       value, so p v at fp32 accuracy is p as one part against v's three:
+//       three bf16 products a step (rows_mma1), not six. Bounded, running,
+//       and ONESHOT: the cross call at <= 512 keys without a bound takes
+//       _cross_kernel's one-shot max (:395-408), whose roundings a running
+//       max over 32-key tiles does not reproduce (bf16(s - m) and p round
+//       against another reference): a first sweep of QK^T over every tile
+//       for the row max, then the bounded walk against it (the k ring takes
+//       each k tile twice, the v ring once);
+//     - INT8, _flash_kernel's int8 QK^T (:104-105, :137-156, :213-233): a
+//       template flag of the same kernel, not a sibling, because only the
+//       scores' source and the shared memory differ (q's codes [128, 128]
+//       s8 once and k's in 32-key stages beside v's three parts: 72 KB
+//       where the split q and k take 192); s32 = qi ki^T on s8 wgmma
+//       (m64n32k32, both operands K-major), s = float(s32) * (sq_row *
+//       akq_block), the two products rounded in that order: the plain
+//       version's scores bit for bit (akq one a JAX kv block of bw keys, a
+//       multiple of 64, so a 32-key tile lies in one block). The fp32
+//       chain's p is split into three parts on the fragments (six products
+//       a p v, as the forward above), the bf16 chain's is one (three). JAX
+//       computes p v in fp32 here (p.astype(v.dtype) with fp32 v), so the
+//       fp32 chain's p stays three-part and is not rounded to bf16 as the
+//       bf16 int8 kernel (flash_attention_int8_sm90.cu) rounds it.
+//     Rows with kv_len = 0 are exactly 0 (no tile is loaded); unmasked,
+//     every other row's first tile holds key 0, so its reference is finite
+//     before any exp2.
 // q arrives folded by softmax_scale * log2 e (the wrapper's _fold, or the
 // fp32 rope pre-pass univid_rope_rotate_f32 of flash_attention_f32_d128.cu,
-// which stays as it is). flash_attention_f32_d128.cu and
+// which stays as it is; under INT8 the codes and scales of the fp32 int8
+// pre-pass, kernel B of qk_prepass.cu, carry the rotation and the fold). flash_attention_f32_d128.cu and
 // flash_attention_bwd_f32.cu, the CUDA-core kernels this file replaced,
 // stay built as the same-call baselines; no route reaches them.
 //
@@ -51,6 +84,10 @@
 // fp32 accuracy each product costs six bf16 products (989 TFLOP/s), the
 // same as three TF32 ones (495): bounds of 40 ms (forward) and 140 ms
 // (pair). Bytes are ~1 GB a call: the tensor cores bound every kernel here.
+// The knob modes, at t2v-1.3B's serving shape [2, 32768, 12, 128] (a
+// product 6.67 ms at 989 TFLOP/s): softmax_bf16 9 products (60.0 ms); int8
+// QK^T at 1,979 TOPS (3.34 ms) + 6 (40.0) or, with softmax_bf16, 3 (20.0)
+// products of p v; the knob-free forward 12 (80.0).
 //
 // Operand encoding: three bf16 parts, x = b0 + b1 + b2 (b0 = bf16(x), b1 =
 // bf16(x - b0), b2 = bf16(x - b0 - b1); each difference is exact in fp32,
@@ -129,6 +166,8 @@
 
 #include <cuda.h>
 
+#include <type_traits>
+
 #include "bf16_tiles.cuh"
 #include "sm90_tiles.cuh"
 
@@ -142,6 +181,7 @@ constexpr int R_BM = 64;         // resident rows of a dq / dk-dv block
 constexpr int STAGES = 2;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr int SPLIT_THREADS = 256;
+constexpr int CODE_ROW = 128;    // bytes of an int8 code row (d = 128)
 
 typedef __nv_bfloat16 bf16;
 constexpr int SUB_T = KT * SUB;    // elements of a [32, 64] sub-tile
@@ -467,18 +507,96 @@ struct FwdSmem {
   uint64_t k_full[STAGES], k_empty[STAGES], v_full[STAGES], v_empty[STAGES];
 };
 constexpr int FWD_SMEM = (int)sizeof(FwdSmem) + 1024;   // + alignment slack
+// the int8 QK^T forward's: q's codes [128 rows, 128 bytes] once, k's codes
+// in 32-key stages (one 128-byte swizzle row a code row), v in three parts
+// as above: 72 KB where the split q and k take 192
+struct FwdI8Smem {
+  int8_t q[F_BM * CODE_ROW];
+  int8_t k[STAGES][KT * CODE_ROW];
+  bf16 v[STAGES][2][PARTS][SUB_T];
+  uint64_t q_full;
+  uint64_t k_full[STAGES], k_empty[STAGES], v_full[STAGES], v_empty[STAGES];
+};
+constexpr int FWD_I8_SMEM = (int)sizeof(FwdI8Smem) + 1024;
 
-template <bool BOUNDED, int MASK>
+// the int8 operands' scales (the pre-pass's): sq fp32 [B, N, lq] one a q
+// row, akq fp32 [B, N, nblk] one a block of bw keys (bw a multiple of 64,
+// so a 32-key tile lies in one block)
+struct I8Scales {
+  const float* sq;
+  const float* akq;
+  int bw, nblk;
+};
+
+// d[16] (+)= A (smem, K-major) * B (smem, K-major): wgmma m64n32k32, s8 in,
+// s32 out (8-bit wgmma takes no transpose flag and no operand scales)
+__device__ __forceinline__ void wgmma_s8_m64n32(uint32_t* d, uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// the bf16 chain's p (bf16 values held in fp32, fragment x[n][e]) as the
+// A fragments of one part over K = 32: a[kk][4], exact
+__device__ __forceinline__ void pack_frag(const float (&x)[4][4], uint32_t (&a)[2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    a[kk][0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+    a[kk][1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+    a[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+  }
+}
+
+// rows_mma for an A of one bf16 part (the bf16 chain's p): acc = a (v0 +
+// v1 + v2) over K = 32, fresh, three products a k16 step where the split
+// form takes six; the small parts first, the main part last. Exact in a:
+// the products of bf16 values are exact, only the truncating adds round
+__device__ __forceinline__ void rows_mma1(float (&acc)[2][8][4], const uint32_t (&a)[2][4],
+                                          const bf16* b) {
+  uint64_t db = sw128_desc(b, 64, 64);   // opaque, as in scores_mma
+  asm volatile("" : "+l"(db));
+  constexpr int PART = SUB_T / 8, ROWS16 = 16 * SUB / 8;   // 16-byte units
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int p = PARTS - 1; p >= 0; --p)
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        wgmma_rs_m64n64_t(&acc[hf][0][0], a[kk], db + (hf * PARTS + p) * PART + kk * ROWS16,
+                          p != PARTS - 1 || kk);
+}
+
+// MODE: BOUNDED (the folded bound), RUNNING (the running max over 32-key
+// tiles) or ONESHOT (the row max over every key, from a first sweep of
+// QK^T, then the bounded walk with it as the reference: _cross_kernel's
+// one-shot softmax, which the bf16 chain's roundings tell apart from a
+// running max). SBF16: the bf16 softmax chain. INT8: q and k arrive as the
+// pre-pass's codes and scales (q's carry the fold). The masks take the
+// running max and the fp32 chain on the split operands only.
+template <int MODE, int MASK, bool SBF16, bool INT8>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map, float* __restrict__ o,
                           const int* __restrict__ kv_len, const float* __restrict__ bound,
-                          float* __restrict__ lse, const Masks mk, int B, int n_heads, int group,
-                          int lq, int lk, long long o_sb, long long o_sl, long long o_sh) {
+                          float* __restrict__ lse, const Masks mk, const I8Scales isc, int B,
+                          int n_heads, int group, int lq, int lk, long long o_sb, long long o_sl,
+                          long long o_sh) {
+  static_assert(MASK == NO_SEG || (MODE == RUNNING && !SBF16 && !INT8),
+                "the masked modes take the running max and the fp32 chain on split operands");
+  using Smem = typename std::conditional<INT8, FwdI8Smem, FwdSmem>::type;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
-  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_raw + pad);
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + pad);
 
   const int tid = threadIdx.x, wg = tid / 128;
   const int bh = blockIdx.y, b = bh / n_heads, h = bh % n_heads;
@@ -488,6 +606,8 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   const int n_cons = (q0 + 64 < lq) ? 2 : 1;   // consumers with rows below lq
   const KvWalk<MASK> walk = kv_walk<MASK>(mk, b, q0, 64 * n_cons, lq, kv_end);
   const int n_tiles = walk.n;
+  // ONESHOT's sweep: the k ring takes 2 n_tiles loads, the v ring n_tiles
+  const int sweep = MODE == ONESHOT ? n_tiles : 0;
 
   if (tid == 0) {
     mbar_init(&sm.q_full, 1);
@@ -506,16 +626,29 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (tid == 0 && n_tiles > 0) {
       const int hk = h / group;   // the kv head of this query head
-      mbar_expect_tx(&sm.q_full, PARTS * 2 * SUB_F * 2);
-      load_parts(&sm.q[0][0][0], SUB_F, &q_map, &sm.q_full, h, q0, b, B);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int st = j % STAGES, ph = ((j / STAGES) & 1) ^ 1, kv0 = walk.tile(j) * KT;
-        mbar_wait(&sm.k_empty[st], ph);
-        mbar_expect_tx(&sm.k_full[st], T_BYTES);
-        load_parts(&sm.k[st][0][0][0], SUB_T, &k_map, &sm.k_full[st], hk, kv0, b, B);
-        mbar_wait(&sm.v_empty[st], ph);
-        mbar_expect_tx(&sm.v_full[st], T_BYTES);
-        load_parts(&sm.v[st][0][0][0], SUB_T, &v_map, &sm.v_full[st], hk, kv0, b, B);
+      if constexpr (INT8) {
+        mbar_expect_tx(&sm.q_full, F_BM * CODE_ROW);
+        tma_load_codes(sm.q, &q_map, &sm.q_full, q0, bh);
+      } else {
+        mbar_expect_tx(&sm.q_full, PARTS * 2 * SUB_F * 2);
+        load_parts(&sm.q[0][0][0], SUB_F, &q_map, &sm.q_full, h, q0, b, B);
+      }
+      for (int i = 0; i < sweep + n_tiles; ++i) {
+        const int j = i < sweep ? i : i - sweep;   // the walk's step
+        const int st = i % STAGES, kv0 = walk.tile(j) * KT;
+        mbar_wait(&sm.k_empty[st], ((i / STAGES) & 1) ^ 1);
+        if constexpr (INT8) {
+          mbar_expect_tx(&sm.k_full[st], KT * CODE_ROW);
+          tma_load_codes(sm.k[st], &k_map, &sm.k_full[st], kv0, b * (n_heads / group) + hk);
+        } else {
+          mbar_expect_tx(&sm.k_full[st], T_BYTES);
+          load_parts(&sm.k[st][0][0][0], SUB_T, &k_map, &sm.k_full[st], hk, kv0, b, B);
+        }
+        if (i < sweep) continue;
+        const int vs = j % STAGES;
+        mbar_wait(&sm.v_empty[vs], ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&sm.v_full[vs], T_BYTES);
+        load_parts(&sm.v[vs][0][0][0], SUB_T, &v_map, &sm.v_full[vs], hk, kv0, b, B);
       }
     }
     return;
@@ -526,7 +659,7 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   if (c >= n_cons) return;
   const int w = (tid / 32) % 4, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int row0 = q0 + 64 * c + 16 * w;   // this warp's first q row
-  const float c_bound = BOUNDED ? *bound : 0.f;
+  const float c_bound = MODE == BOUNDED ? *bound : 0.f;
   // the codes of this thread's rows g and g + 8 (segment and packed modes)
   int qc[2] = {0, 0};
   if (MASK == SEGMENTS || MASK == PACKED) {
@@ -534,6 +667,71 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     qc[1] = __ldg(mk.q_seg + (long long)b * lq + row0 + g + 8);
   }
   const int off = MASK == CAUSAL ? walk.first - q0 : 0;   // the causal offset
+  // INT8: the q scales of this thread's rows and this head's k scales
+  float sq_r[2] = {0.f, 0.f};
+  const float* akp = nullptr;
+  if constexpr (INT8) {
+    sq_r[0] = __ldg(isc.sq + (long long)bh * lq + row0 + g);
+    sq_r[1] = __ldg(isc.sq + (long long)bh * lq + row0 + g + 8);
+    akp = isc.akq + (long long)bh * isc.nblk;
+  }
+
+  // the scores of step j (kv tile walk.tile(j)) from the k ring's load kit,
+  // whose stage it releases: q k^T at fp32 accuracy, or float(qi ki^T) *
+  // (sq_row * akq_block), the two products rounded in that order (the
+  // plain version's); keys the step's predicate refuses score -1e30.
+  // Returns whether the step ran the predicate
+  auto scores_of = [&](int j, int kit, float (&s)[4][4]) {
+    const int st = kit % STAGES, kv0 = walk.tile(j) * KT;
+    mbar_wait(&sm.k_full[st], (kit / STAGES) & 1);
+    if constexpr (INT8) {
+      uint32_t si[16];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < CODE_ROW / 32; ++kk)
+        wgmma_s8_m64n32(si, sw128_desc(&sm.q[64 * c * CODE_ROW + 32 * kk], 1, 64),
+                        sw128_desc(&sm.k[st][32 * kk], 1, 64), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<16>(si);
+      if (lane == 0) mbar_arrive(&sm.k_empty[st]);
+      const float ak = __ldg(akp + kv0 / isc.bw);
+      const float fac[2] = {__fmul_rn(sq_r[0], ak), __fmul_rn(sq_r[1], ak)};
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = __fmul_rn(__int2float_rn((int)si[4 * n + e]), fac[e >> 1]);
+    } else {
+      Scores x;
+      wgmma_fence();
+      scores_mma(x, &sm.q[0][0][0], F_BM, 64 * c, &sm.k[st][0][0][0]);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_scores(x);
+      if (lane == 0) mbar_arrive(&sm.k_empty[st]);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = score(x, n, e);
+    }
+    // the predicate only where the tile needs it: keys at or past kv_len,
+    // and the causal or code mask (unmasked: only the tail tile needs it)
+    const bool need = walk.need(j);
+    if (need) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = kv0 + 8 * n + 2 * t + (e & 1);
+          int kc = 0;
+          if (MASK == SEGMENTS || MASK == PACKED) kc = __ldg(mk.kv_seg + (long long)b * lk + col);
+          if (col >= kv_end || !allowed<MASK>(qc[e >> 1], kc, row0 + g + 8 * (e >> 1), col, off))
+            s[n][e] = NEG_INF;
+        }
+    }
+    return need;
+  };
 
   float o_run[2][8][4];
 #pragma unroll
@@ -542,40 +740,43 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o_run[hf][n][e] = 0.f;
-  float m_r[2] = {BOUNDED ? c_bound : NEG_INF, BOUNDED ? c_bound : NEG_INF};
+  // the reference point: the bound, the running max, or ONESHOT's row max
+  float m_r[2] = {MODE == BOUNDED ? c_bound : NEG_INF, MODE == BOUNDED ? c_bound : NEG_INF};
   float l_r[2] = {0.f, 0.f};   // this thread's share of rows g, g + 8
 
   if (n_tiles > 0) mbar_wait(&sm.q_full, 0);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j % STAGES, ph = (j / STAGES) & 1;
-    Scores x;
-    mbar_wait(&sm.k_full[st], ph);
-    wgmma_fence();
-    scores_mma(x, &sm.q[0][0][0], F_BM, 64 * c, &sm.k[st][0][0][0]);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_scores(x);
-    if (lane == 0) mbar_arrive(&sm.k_empty[st]);
-    const int kv0 = walk.tile(j) * KT;
-    // the predicate only where the tile needs it: keys at or past kv_len,
-    // and the causal or code mask (unmasked: only the tail tile needs it)
-    const bool need = walk.need(j);
-    float s[4][4];
+  if constexpr (MODE == ONESHOT) {
+    // the row max over every live key before any exp2 (a row's kv_len > 0
+    // puts key 0 in its first tile: the max is finite)
+    for (int j = 0; j < n_tiles; ++j) {
+      float s[4][4];
+      scores_of(j, j, s);
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = score(x, n, e);
-        if (need) {
-          const int col = kv0 + 8 * n + 2 * t + (e & 1);
-          int kc = 0;
-          if (MASK == SEGMENTS || MASK == PACKED) kc = __ldg(mk.kv_seg + (long long)b * lk + col);
-          if (col >= kv_end || !allowed<MASK>(qc[e >> 1], kc, row0 + g + 8 * (e >> 1), col, off))
-            s[n][e] = NEG_INF;
-        }
+      for (int n = 0; n < 4; ++n) {
+        m_r[0] = fmaxf(m_r[0], fmaxf(s[n][0], s[n][1]));
+        m_r[1] = fmaxf(m_r[1], fmaxf(s[n][2], s[n][3]));
       }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      m_r[i] = fmaxf(m_r[i], __shfl_xor_sync(0xffffffff, m_r[i], 1));
+      m_r[i] = fmaxf(m_r[i], __shfl_xor_sync(0xffffffff, m_r[i], 2));
+    }
+  }
+  for (int j = 0; j < n_tiles; ++j) {
+    float s[4][4];
+    const bool need = scores_of(j, sweep + j, s);
+    // the bf16 chain (bf16_tiles.cuh's softmax_tile): s, the reference,
+    // s - ref and p each round to bf16; the running max and its
+    // correction, and l (the sum of the rounded p), stay fp32
+    if constexpr (SBF16) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = round_bf16(s[n][e]);
+    }
     float corr[2] = {1.f, 1.f};
-    if (!BOUNDED) {
+    if constexpr (MODE == RUNNING) {
       // unmasked, the first tile holds key 0 < kv_end, so m is finite from
       // then on; masked, a row's m stays -1e30 until its first live key
 #pragma unroll
@@ -591,34 +792,52 @@ flash_fwd_f32_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
         l_r[i] *= corr[i];
       }
     }
+    const float ref[2] = {SBF16 ? round_bf16(m_r[0]) : m_r[0], SBF16 ? round_bf16(m_r[1]) : m_r[1]};
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = fast_exp2(s[n][e] - m_r[e >> 1]);
+        const float r = ref[e >> 1];
+        const float p = SBF16 ? round_bf16(fast_exp2(round_bf16(s[n][e] - r)))
+                              : fast_exp2(s[n][e] - r);
         // a dead score's p is 0, also while the row's m is still -1e30
         s[n][e] = (MASK != NO_SEG && need && s[n][e] == NEG_INF) ? 0.f : p;
         l_r[e >> 1] += s[n][e];
       }
-    uint32_t pa[PARTS][2][4];
-    split_frag(s, pa);
+    // o_tile = p v: the bf16 chain's p is one bf16 part (3 products), the
+    // fp32 chain's three (6)
+    const int vs = j % STAGES;
     float o_t[2][8][4];
-    mbar_wait(&sm.v_full[st], ph);
-    wgmma_fence();
-    rows_mma(o_t, pa, &sm.v[st][0][0][0]);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs<64>(&o_t[0][0][0]);
-    fence_regs<24>(&pa[0][0][0]);
-    if (lane == 0) mbar_arrive(&sm.v_empty[st]);
+    if constexpr (SBF16) {
+      uint32_t pa[2][4];
+      pack_frag(s, pa);
+      mbar_wait(&sm.v_full[vs], (j / STAGES) & 1);
+      wgmma_fence();
+      rows_mma1(o_t, pa, &sm.v[vs][0][0][0]);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<64>(&o_t[0][0][0]);
+      fence_regs<8>(&pa[0][0]);
+    } else {
+      uint32_t pa[PARTS][2][4];
+      split_frag(s, pa);
+      mbar_wait(&sm.v_full[vs], (j / STAGES) & 1);
+      wgmma_fence();
+      rows_mma(o_t, pa, &sm.v[vs][0][0][0]);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<64>(&o_t[0][0][0]);
+      fence_regs<24>(&pa[0][0][0]);
+    }
+    if (lane == 0) mbar_arrive(&sm.v_empty[vs]);
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          o_run[hf][n][e] = BOUNDED ? o_run[hf][n][e] + o_t[hf][n][e]
-                                    : fmaf(o_run[hf][n][e], corr[e >> 1], o_t[hf][n][e]);
+          o_run[hf][n][e] = MODE == RUNNING ? fmaf(o_run[hf][n][e], corr[e >> 1], o_t[hf][n][e])
+                                            : o_run[hf][n][e] + o_t[hf][n][e];
   }
 
   // rows past lq never reach here (lq is a multiple of 64)
@@ -1105,16 +1324,25 @@ bool masks_of(Masks* mk, int mode, const void* q_offsets, int q_offset, const vo
   return mode == NO_SEG || mode == CAUSAL;
 }
 
-// each kernel's instantiation for a mask mode (0, 1, 2, 3); the bounded
-// forward is unmasked only
-auto fwd_kernel(int mode) -> decltype(&flash_fwd_f32_sm90_kernel<false, NO_SEG>) {
-  switch (mode) {
-    case SEGMENTS: return flash_fwd_f32_sm90_kernel<false, SEGMENTS>;
-    case PACKED: return flash_fwd_f32_sm90_kernel<false, PACKED>;
-    case CAUSAL: return flash_fwd_f32_sm90_kernel<false, CAUSAL>;
-    default: return flash_fwd_f32_sm90_kernel<false, NO_SEG>;
-  }
+// a forward instantiation's launch: grid (q tiles, B * N), its shared
+// memory set first
+template <int MODE, int MASK, bool SBF16, bool INT8>
+cudaError_t launch_fwd(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                       void* o, const void* kv_len, const void* bound, void* lse,
+                       const Masks& mk, const I8Scales& isc, int B, int N, int group, int lq,
+                       int lk, const long long* o_st, cudaStream_t stream) {
+  auto kern = flash_fwd_f32_sm90_kernel<MODE, MASK, SBF16, INT8>;
+  const int smem = INT8 ? FWD_I8_SMEM : FWD_SMEM;
+  cudaError_t err = prepare(kern, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((lq + F_BM - 1) / F_BM, B * N);
+  kern<<<grid, THREADS, smem, stream>>>(
+      qm, km, vm, static_cast<float*>(o), static_cast<const int*>(kv_len),
+      static_cast<const float*>(bound), static_cast<float*>(lse), mk, isc, B, N, group, lq, lk,
+      o_st[0], o_st[1], o_st[2]);
+  return cudaGetLastError();
 }
+
 auto dq_kernel(int mode) -> decltype(&flash_bwd_dq_f32_sm90_kernel<NO_SEG>) {
   switch (mode) {
     case SEGMENTS: return flash_bwd_dq_f32_sm90_kernel<SEGMENTS>;
@@ -1156,36 +1384,85 @@ int univid_split_bf16x3(const void* x, void* out, int B, int L, int N, long long
 // [B, lq, N, 128]; kp, vp: of k, v [B, lk, N / group, 128] (query head h
 // reads kv head h / group); 16-byte aligned. o fp32 [B, lq, N, 128] with
 // element strides o_st = (b, l, h), unit stride along D, 8-byte aligned
-// rows. kv_len int32 [B] on the device or null; bound null (running max) or
-// the folded score bound, an fp32 scalar on the device (unmasked only);
-// lse null or fp32 [B, N, lq] contiguous. The mask operands as masks_of
-// reads them (the forward list [B, ceil(lq / 128), width]). lq, lk
-// multiples of 64.
+// rows. kv_len int32 [B] on the device or null. softmax: 0 bounded (bound,
+// the folded score bound, an fp32 scalar on the device; unmasked only), 1
+// the running max (bound null), 2 one-shot (the bf16 chain's cross call at
+// lk <= 512: a first sweep of QK^T for the row max over every key, then
+// the bounded walk against it). softmax_bf16: the bf16 chain, unmasked and
+// without the lse. lse null or fp32 [B, N, lq] contiguous. The mask
+// operands as masks_of reads them (the forward list [B, ceil(lq / 128),
+// width]). lq, lk multiples of 64.
 int univid_flash_fwd_f32_sm90(const void* qp, const void* kp, const void* vp, void* o,
                               const void* kv_len, const void* bound, void* lse, int mask,
                               const void* q_offsets, int q_offset, const void* q_seg,
                               const void* kv_seg, const void* list, const void* count, int width,
-                              int B, int N, int group, int lq, int lk, const long long* o_st,
-                              void* stream) {
+                              int softmax, int softmax_bf16, int B, int N, int group, int lq,
+                              int lk, const long long* o_st, void* stream) {
   Masks mk;
   if (lq % 64 != 0 || lk % 64 != 0 || lq <= 0 || lk <= 0 || B <= 0 || N <= 0 || group <= 0 ||
       N % group != 0 || !aligned16(qp) || !aligned16(kp) || !aligned16(vp) ||
-      (bound != nullptr && mask != NO_SEG) ||
+      (softmax != BOUNDED && softmax != RUNNING && softmax != ONESHOT) ||
+      (softmax == BOUNDED) != (bound != nullptr) || (softmax == ONESHOT && !softmax_bf16) ||
+      (softmax != RUNNING && mask != NO_SEG) ||
+      (softmax_bf16 && (mask != NO_SEG || lse != nullptr)) ||
       !masks_of(&mk, mask, q_offsets, q_offset, q_seg, kv_seg, list, count, width))
     return (int)cudaErrorInvalidValue;
   CUtensorMap qm, km, vm;
   if (!parts_map(&qm, qp, B, lq, N, F_BM) || !parts_map(&km, kp, B, lk, N / group, KT) ||
       !parts_map(&vm, vp, B, lk, N / group, KT))
     return (int)cudaErrorInvalidValue;
-  auto kern = bound != nullptr ? flash_fwd_f32_sm90_kernel<true, NO_SEG> : fwd_kernel(mask);
-  cudaError_t err = prepare(kern, FWD_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((lq + F_BM - 1) / F_BM, B * N);
-  kern<<<grid, THREADS, FWD_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      qm, km, vm, static_cast<float*>(o), static_cast<const int*>(kv_len),
-      static_cast<const float*>(bound), static_cast<float*>(lse), mk, B, N, group, lq, lk,
-      o_st[0], o_st[1], o_st[2]);
-  return (int)cudaGetLastError();
+  const I8Scales none = {nullptr, nullptr, 0, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define UNIVID_F32_FWD(MODE, MASK, SB)                                                        \
+  launch_fwd<MODE, MASK, SB, false>(qm, km, vm, o, kv_len, bound, lse, mk, none, B, N, group, \
+                                    lq, lk, o_st, st)
+  if (softmax_bf16) switch (softmax) {
+      case BOUNDED: return (int)UNIVID_F32_FWD(BOUNDED, NO_SEG, true);
+      case RUNNING: return (int)UNIVID_F32_FWD(RUNNING, NO_SEG, true);
+      default: return (int)UNIVID_F32_FWD(ONESHOT, NO_SEG, true);
+    }
+  if (softmax == BOUNDED) return (int)UNIVID_F32_FWD(BOUNDED, NO_SEG, false);
+  switch (mask) {
+    case SEGMENTS: return (int)UNIVID_F32_FWD(RUNNING, SEGMENTS, false);
+    case PACKED: return (int)UNIVID_F32_FWD(RUNNING, PACKED, false);
+    case CAUSAL: return (int)UNIVID_F32_FWD(RUNNING, CAUSAL, false);
+    default: return (int)UNIVID_F32_FWD(RUNNING, NO_SEG, false);
+  }
+#undef UNIVID_F32_FWD
+}
+
+// The forward's int8 QK^T on the pre-pass's operands (univid_quant_qk_int8
+// / univid_quant_qk_int8_f32 of qk_prepass.cu): qi int8 [B, N, lq, 128] and
+// ki int8 [B, N, lk, 128], contiguous and 16-byte aligned; sq fp32 [B, N,
+// lq]; akq fp32 [B, N, ceil(lk / bw)], bw a multiple of 64; vp the split
+// parts of v [B, lk, N, 128]. mode 0 bounded (*bound), 1 the running max;
+// softmax_bf16: the bf16 chain. kv_len and o as for
+// univid_flash_fwd_f32_sm90.
+int univid_flash_fwd_f32_int8_sm90(const void* qi, const void* sq, const void* ki,
+                                   const void* akq, const void* vp, void* o, const void* kv_len,
+                                   const void* bound, int mode, int softmax_bf16, int B, int N,
+                                   int lq, int lk, int bw, const long long* o_st, void* stream) {
+  Masks mk;
+  if (lq % 64 != 0 || lk % 64 != 0 || lq <= 0 || lk <= 0 || B <= 0 || N <= 0 || bw <= 0 ||
+      bw % 64 != 0 || !aligned16(qi) || !aligned16(ki) || !aligned16(vp) || sq == nullptr ||
+      akq == nullptr || (mode != BOUNDED && mode != RUNNING) ||
+      (mode == BOUNDED) != (bound != nullptr) ||
+      !masks_of(&mk, NO_SEG, nullptr, 0, nullptr, nullptr, nullptr, nullptr, 0))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  if (!make_code_map(&qm, qi, lq, B * N, F_BM) || !make_code_map(&km, ki, lk, B * N, KT) ||
+      !parts_map(&vm, vp, B, lk, N, KT))
+    return (int)cudaErrorInvalidValue;
+  const I8Scales isc = {static_cast<const float*>(sq), static_cast<const float*>(akq), bw,
+                        (lk + bw - 1) / bw};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define UNIVID_F32_INT8(MODE, SB)                                                              \
+  launch_fwd<MODE, NO_SEG, SB, true>(qm, km, vm, o, kv_len, bound, nullptr, mk, isc, B, N, 1, lq, \
+                                     lk, o_st, st)
+  if (mode == BOUNDED)
+    return softmax_bf16 ? (int)UNIVID_F32_INT8(BOUNDED, true) : (int)UNIVID_F32_INT8(BOUNDED, false);
+  return softmax_bf16 ? (int)UNIVID_F32_INT8(RUNNING, true) : (int)UNIVID_F32_INT8(RUNNING, false);
+#undef UNIVID_F32_INT8
 }
 
 // dq and delta. qp, kp, vp, dop: the split parts of the folded qs, k, v and

@@ -119,16 +119,6 @@ struct Smem {
 };
 constexpr int SMEM_BYTES = (int)sizeof(Smem) + 1024;   // + alignment slack
 
-// a [128 rows, 128 bytes] box of a 3-D (bytes, rows, b*h) int8 tensor map
-__device__ __forceinline__ void tma_load_codes(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                               int row, int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row), "r"(bh)
-      : "memory");
-}
-
 // the same box into the shared memory of every block of the cluster in
 // `mask`, at the same offset, completing on each block's `bar`
 __device__ __forceinline__ void tma_load_codes_mc(void* dst, const CUtensorMap* map,
@@ -538,20 +528,6 @@ flash_fwd_int8_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   // no block leaves while the other may still write into its shared
   // memory or arrive on its barriers
   cluster_sync();
-}
-
-// int8 codes [bh, rows, 128] contiguous as a 3-D map (128 bytes, rows, bh)
-// of [box_rows, 128 bytes] boxes, 128-byte swizzle, rows past `rows` zeros
-bool make_code_map(CUtensorMap* map, const void* base, int rows, int bh, int box_rows) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  cuuint64_t dims[3] = {(cuuint64_t)ROW, (cuuint64_t)rows, (cuuint64_t)bh};
-  cuuint64_t strides[2] = {(cuuint64_t)ROW, (cuuint64_t)rows * ROW};
-  cuuint32_t box[3] = {(cuuint32_t)ROW, (cuuint32_t)box_rows, 1};
-  cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int MODE, bool SBF16>

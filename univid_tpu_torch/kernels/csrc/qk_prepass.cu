@@ -25,7 +25,9 @@
 //     cross-attention's q and k, and kernel B's input), rope only (q and k
 //     that arrive normed). One launch for q and k.
 //   * the qk_int8 prologue (:137-156, :213-226), kernel B: from the normed
-//     bf16 rows, the rotation in fp32 (never rounded to bf16 first), then
+//     bf16 rows, or the fp32 rows of the fp32 DiT (a template on the
+//     element type: Raw8 loads 16 or 32 bytes a chunk), the rotation in
+//     fp32 (never rounded to bf16 first), then
 //       q: per row, aq = max(max|q32|, 1e-30), codes round(q32 * (127 / aq))
 //          (ties to even), sq = aq * (1 / 127);
 //       k: one scale per (batch, head, block of bw keys), ak = max(max|k32|,
@@ -35,7 +37,8 @@
 // What bounds them: bytes. Kernel A at the ti2v-5B shape (q and k [2,
 // 28672, 24 * 128] bf16) reads 704 MB and writes 704 MB, plus the tables:
 // 0.44 ms at 3.35 TB/s. Kernel B reads 704 MB of bf16 and writes 352 MB of
-// codes: 0.33 ms.
+// codes: 0.33 ms; in fp32 at t2v-1.3B's [2, 32768, 12 * 128] it reads 805
+// MB and the tables' 67 and writes 201 MB of codes: 0.32 ms.
 //
 // Design. A token's whole row (N heads of 128) is one unit: 128 threads,
 // thread t owns the 16-byte chunk t % 16 of heads t / 16 + 8 i, so the
@@ -253,9 +256,35 @@ cudaError_t launch_norm(const NormArgs& a, cudaStream_t s) {
 // kernel B: the int8 pre-pass
 // ---------------------------------------------------------------------------
 
+// 8 consecutive elements of a head row as one thread loads them: 16 bytes
+// of bf16 or 32 of fp32 (the fp32 mode: the fp32 DiT's q and k)
+template <typename T>
+struct Raw8;
+template <>
+struct Raw8<__nv_bfloat16> {
+  uint4 r;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) { r = *reinterpret_cast<const uint4*>(p); }
+  __device__ __forceinline__ void zero() { r = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ void values(float* v) const { unpack8(r, v); }
+};
+template <>
+struct Raw8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = *reinterpret_cast<const float4*>(p);
+    b = *reinterpret_cast<const float4*>(p + 4);
+  }
+  __device__ __forceinline__ void zero() { a = b = make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ __forceinline__ void values(float* v) const {
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+};
+
+template <typename T>
 struct QuantArgs {
-  const __nv_bfloat16* q;    // [B, L, N, 128] at b sb + l sl + h sh, unit along D
-  const __nv_bfloat16* k;
+  const T* q;                // [B, L, N, 128] at b sb + l sl + h sh, unit along D
+  const T* k;
   long long q_sb, q_sl, q_sh, k_sb, k_sl, k_sh;
   const float* cq;           // rope tables [L, 128], or all null (q arrives folded)
   const float* sq_t;
@@ -272,21 +301,24 @@ struct QuantArgs {
 
 // One thread's share of a token's row: its chunk of each of its heads and
 // the rope table chunk of the token's position, as loaded.
-template <int NCH>
+template <typename T, int NCH>
 struct Chunks {
-  uint4 x[NCH];
+  Raw8<T> x[NCH];
   float4 c0, c1, s0, s1;
 };
 
-template <int NCH>
-__device__ __forceinline__ void load_chunks(Chunks<NCH>& t, const __nv_bfloat16* x, long long sb,
+template <typename T, int NCH>
+__device__ __forceinline__ void load_chunks(Chunks<T, NCH>& t, const T* x, long long sb,
                                             long long sl, long long sh, const float* cf,
                                             const float* sf, int N, int b, int l, int hg, int c) {
-  const __nv_bfloat16* xr = x + b * sb + l * sl + c * 8;
+  const T* xr = x + b * sb + l * sl + c * 8;
 #pragma unroll
   for (int i = 0; i < NCH; ++i) {
     const int h = hg + HG * i;
-    t.x[i] = h < N ? *reinterpret_cast<const uint4*>(xr + h * sh) : make_uint4(0u, 0u, 0u, 0u);
+    if (h < N)
+      t.x[i].load(xr + h * sh);
+    else
+      t.x[i].zero();
   }
   if (cf != nullptr) {
     const float* cr = cf + (long long)l * D + c * 8;
@@ -299,24 +331,24 @@ __device__ __forceinline__ void load_chunks(Chunks<NCH>& t, const __nv_bfloat16*
 }
 
 // the fp32 values of the chunks, rotated when rope
-template <int NCH>
-__device__ __forceinline__ void chunk_values(float (&v)[NCH][8], const Chunks<NCH>& t, bool rope) {
+template <typename T, int NCH>
+__device__ __forceinline__ void chunk_values(float (&v)[NCH][8], const Chunks<T, NCH>& t, bool rope) {
   const float cs[8] = {t.c0.x, t.c0.y, t.c0.z, t.c0.w, t.c1.x, t.c1.y, t.c1.z, t.c1.w};
   const float sn[8] = {t.s0.x, t.s0.y, t.s0.z, t.s0.w, t.s1.x, t.s1.y, t.s1.z, t.s1.w};
 #pragma unroll
   for (int i = 0; i < NCH; ++i) {
-    unpack8(t.x[i], v[i]);
+    t.x[i].values(v[i]);
     if (rope) rotate8(v[i], cs, sn);
   }
 }
 
 // q codes and row scales of tokens [l0, l1) of batch row b, 128 threads a
 // token, each token's row loaded while the one before is quantized
-template <int NCH>
-__device__ __forceinline__ void quant_q_tokens(const QuantArgs& a, int b, int l0, int l1, int tid) {
+template <typename T, int NCH>
+__device__ __forceinline__ void quant_q_tokens(const QuantArgs<T>& a, int b, int l0, int l1, int tid) {
   const int c = tid % CH, hg = tid / CH;
   const bool rope = a.cq != nullptr;
-  Chunks<NCH> cur, nxt;
+  Chunks<T, NCH> cur, nxt;
   if (l0 < l1) load_chunks(cur, a.q, a.q_sb, a.q_sl, a.q_sh, a.cq, a.sq_t, a.N, b, l0, hg, c);
   for (int l = l0; l < l1; ++l) {
     if (l + 1 < l1) load_chunks(nxt, a.q, a.q_sb, a.q_sl, a.q_sh, a.cq, a.sq_t, a.N, b, l + 1, hg, c);
@@ -339,12 +371,12 @@ __device__ __forceinline__ void quant_q_tokens(const QuantArgs& a, int b, int l0
 // tokens each; the rest take QGROUP k tokens (inside one bw block) and fold
 // each head's max |k32| into kmax by atomicMax on the bits (non-negative
 // floats order as unsigned integers).
-template <int NCH>
-__global__ void __launch_bounds__(NT) quant_qk_atomic_max_kernel(const __grid_constant__ QuantArgs a) {
+template <typename T, int NCH>
+__global__ void __launch_bounds__(NT) quant_qk_atomic_max_kernel(const __grid_constant__ QuantArgs<T> a) {
   const int tid = threadIdx.x;
   if ((int)blockIdx.x < a.q_blocks) {
     const int b = blockIdx.x % a.B, l0 = (blockIdx.x / a.B) * QGROUP;
-    quant_q_tokens<NCH>(a, b, l0, min(l0 + QGROUP, a.Lq), tid);
+    quant_q_tokens<T, NCH>(a, b, l0, min(l0 + QGROUP, a.Lq), tid);
     return;
   }
   const int g = blockIdx.x - a.q_blocks;
@@ -354,7 +386,7 @@ __global__ void __launch_bounds__(NT) quant_qk_atomic_max_kernel(const __grid_co
   float m[NCH];
 #pragma unroll
   for (int i = 0; i < NCH; ++i) m[i] = 0.f;
-  Chunks<NCH> cur, nxt;
+  Chunks<T, NCH> cur, nxt;
   load_chunks(cur, a.k, a.k_sb, a.k_sl, a.k_sh, a.ck, a.sk_t, a.N, b, l0, hg, c);
   for (int l = l0; l < l1; ++l) {
     if (l + 1 < l1) load_chunks(nxt, a.k, a.k_sb, a.k_sl, a.k_sh, a.ck, a.sk_t, a.N, b, l + 1, hg, c);
@@ -376,13 +408,13 @@ __global__ void __launch_bounds__(NT) quant_qk_atomic_max_kernel(const __grid_co
 
 // Launch 2: k's codes from the block maxima; the first group
 // of each block writes its akq.
-template <int NCH>
-__global__ void __launch_bounds__(NT) quant_qk_atomic_codes_kernel(const __grid_constant__ QuantArgs a) {
+template <typename T, int NCH>
+__global__ void __launch_bounds__(NT) quant_qk_atomic_codes_kernel(const __grid_constant__ QuantArgs<T> a) {
   const int tid = threadIdx.x, c = tid % CH, hg = tid / CH;
   const int b = blockIdx.x % a.B, l0 = (blockIdx.x / a.B) * QGROUP;
   const int l1 = min(l0 + QGROUP, a.Lk), blk = l0 / a.bw;
   const bool rope = a.ck != nullptr;
-  Chunks<NCH> cur, nxt;
+  Chunks<T, NCH> cur, nxt;
   load_chunks(cur, a.k, a.k_sb, a.k_sl, a.k_sh, a.ck, a.sk_t, a.N, b, l0, hg, c);
   float r[NCH];
 #pragma unroll
@@ -410,19 +442,66 @@ __global__ void __launch_bounds__(NT) quant_qk_atomic_codes_kernel(const __grid_
   }
 }
 
-template <int NCH>
-cudaError_t launch_quant(QuantArgs a, cudaStream_t s) {
+template <typename T, int NCH>
+cudaError_t launch_quant(QuantArgs<T> a, cudaStream_t s) {
   const int q_groups = (a.Lq + QGROUP - 1) / QGROUP, k_groups = (a.Lk + QGROUP - 1) / QGROUP;
   a.q_blocks = a.B * q_groups;
-  quant_qk_atomic_max_kernel<NCH><<<a.q_blocks + a.B * k_groups, NT, 0, s>>>(a);
+  quant_qk_atomic_max_kernel<T, NCH><<<a.q_blocks + a.B * k_groups, NT, 0, s>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  quant_qk_atomic_codes_kernel<NCH><<<a.B * k_groups, NT, 0, s>>>(a);
+  quant_qk_atomic_codes_kernel<T, NCH><<<a.B * k_groups, NT, 0, s>>>(a);
   return cudaGetLastError();
 }
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 inline bool strides8(long long a, long long b, long long c) { return a % 8 == 0 && b % 8 == 0 && c % 8 == 0; }
+// element strides of 16-byte steps: multiples of 8 (bf16) or 4 (fp32) elements
+template <typename T>
+inline bool strides16(long long a, long long b, long long c) {
+  constexpr long long e = 16 / sizeof(T);
+  return a % e == 0 && b % e == 0 && c % e == 0;
+}
+
+// kernel B in the element type T of q and k (bf16, or fp32: the fp32 DiT)
+template <typename T>
+int quant_qk_int8(const void* q, const void* k, const void* cq, const void* sq_t, const void* ck,
+                  const void* sk_t, void* qi, void* sq, void* ki, void* akq, void* kmax, int B,
+                  int Lq, int Lk, int N, int bw, long long q_sb, long long q_sl, long long q_sh,
+                  long long k_sb, long long k_sl, long long k_sh, void* stream) {
+  const bool rope = cq != nullptr;
+  if (B <= 0 || Lq <= 0 || Lk <= 0 || N <= 0 || N > HG * MAX_NCH || bw <= 0 || bw % 64 != 0 ||
+      (rope != (sq_t != nullptr)) || (rope != (ck != nullptr)) || (rope != (sk_t != nullptr)) ||
+      !aligned16(q) || !aligned16(k) || !strides16<T>(q_sb, q_sl, q_sh) ||
+      !strides16<T>(k_sb, k_sl, k_sh) || kmax == nullptr ||
+      (rope && (!aligned16(cq) || !aligned16(sq_t) || !aligned16(ck) || !aligned16(sk_t))))
+    return (int)cudaErrorInvalidValue;
+  QuantArgs<T> a;
+  a.q = static_cast<const T*>(q);
+  a.k = static_cast<const T*>(k);
+  a.q_sb = q_sb; a.q_sl = q_sl; a.q_sh = q_sh;
+  a.k_sb = k_sb; a.k_sl = k_sl; a.k_sh = k_sh;
+  a.cq = static_cast<const float*>(cq);
+  a.sq_t = static_cast<const float*>(sq_t);
+  a.ck = static_cast<const float*>(ck);
+  a.sk_t = static_cast<const float*>(sk_t);
+  a.qi = static_cast<int8_t*>(qi);
+  a.sq = static_cast<float*>(sq);
+  a.ki = static_cast<int8_t*>(ki);
+  a.akq = static_cast<float*>(akq);
+  a.kmax = static_cast<unsigned*>(kmax);
+  a.B = B; a.N = N; a.Lq = Lq; a.Lk = Lk; a.bw = bw;
+  a.nblk = (Lk + bw - 1) / bw;
+  a.q_blocks = 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((N + HG - 1) / HG) {
+    case 1: return (int)launch_quant<T, 1>(a, s);
+    case 2: return (int)launch_quant<T, 2>(a, s);
+    case 3: return (int)launch_quant<T, 3>(a, s);
+    case 4: return (int)launch_quant<T, 4>(a, s);
+    case 5: return (int)launch_quant<T, 5>(a, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace
 
@@ -482,39 +561,19 @@ int univid_quant_qk_int8(const void* q, const void* k, const void* cq, const voi
                          void* akq, void* kmax, int B, int Lq, int Lk, int N, int bw,
                          long long q_sb, long long q_sl, long long q_sh, long long k_sb,
                          long long k_sl, long long k_sh, void* stream) {
-  const bool rope = cq != nullptr;
-  if (B <= 0 || Lq <= 0 || Lk <= 0 || N <= 0 || N > HG * MAX_NCH || bw <= 0 || bw % 64 != 0 ||
-      (rope != (sq_t != nullptr)) || (rope != (ck != nullptr)) || (rope != (sk_t != nullptr)) ||
-      !aligned16(q) || !aligned16(k) || !strides8(q_sb, q_sl, q_sh) ||
-      !strides8(k_sb, k_sl, k_sh) || kmax == nullptr ||
-      (rope && (!aligned16(cq) || !aligned16(sq_t) || !aligned16(ck) || !aligned16(sk_t))))
-    return (int)cudaErrorInvalidValue;
-  QuantArgs a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.q_sb = q_sb; a.q_sl = q_sl; a.q_sh = q_sh;
-  a.k_sb = k_sb; a.k_sl = k_sl; a.k_sh = k_sh;
-  a.cq = static_cast<const float*>(cq);
-  a.sq_t = static_cast<const float*>(sq_t);
-  a.ck = static_cast<const float*>(ck);
-  a.sk_t = static_cast<const float*>(sk_t);
-  a.qi = static_cast<int8_t*>(qi);
-  a.sq = static_cast<float*>(sq);
-  a.ki = static_cast<int8_t*>(ki);
-  a.akq = static_cast<float*>(akq);
-  a.kmax = static_cast<unsigned*>(kmax);
-  a.B = B; a.N = N; a.Lq = Lq; a.Lk = Lk; a.bw = bw;
-  a.nblk = (Lk + bw - 1) / bw;
-  a.q_blocks = 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((N + HG - 1) / HG) {
-    case 1: return (int)launch_quant<1>(a, s);
-    case 2: return (int)launch_quant<2>(a, s);
-    case 3: return (int)launch_quant<3>(a, s);
-    case 4: return (int)launch_quant<4>(a, s);
-    case 5: return (int)launch_quant<5>(a, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return quant_qk_int8<__nv_bfloat16>(q, k, cq, sq_t, ck, sk_t, qi, sq, ki, akq, kmax, B, Lq, Lk,
+                                      N, bw, q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, stream);
+}
+
+// Kernel B on fp32 q and k (the fp32 DiT's): as univid_quant_qk_int8, the
+// strides multiples of 4 elements; the rotation in fp32 from the fp32 rows.
+int univid_quant_qk_int8_f32(const void* q, const void* k, const void* cq, const void* sq_t,
+                             const void* ck, const void* sk_t, void* qi, void* sq, void* ki,
+                             void* akq, void* kmax, int B, int Lq, int Lk, int N, int bw,
+                             long long q_sb, long long q_sl, long long q_sh, long long k_sb,
+                             long long k_sl, long long k_sh, void* stream) {
+  return quant_qk_int8<float>(q, k, cq, sq_t, ck, sk_t, qi, sq, ki, akq, kmax, B, Lq, Lk, N, bw,
+                              q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,11 @@
 // Building blocks of the Hopper (sm_90a) attention kernels,
 // flash_attention_sm90.cu and flash_attention_causal_sm90.cu (the bf16
-// forward) and flash_attention_bwd_sm90.cu (the bf16 backward): mbarriers, TMA tile and bulk copies, the wgmma
-// shared-memory descriptor of the 128-byte swizzle, the wgmma products the
-// kernels issue, and the host-side tensor map of a bf16 [B, L, N, 128]
-// operand.
+// forward), flash_attention_bwd_sm90.cu (the bf16 backward),
+// flash_attention_int8_sm90.cu and flash_attention_f32_sm90.cu: mbarriers,
+// TMA tile and bulk copies, the wgmma shared-memory descriptor of the
+// 128-byte swizzle, the wgmma products the kernels issue, and the host-side
+// tensor maps of a bf16 [B, L, N, 128] operand and of int8 codes [B * N,
+// rows, 128].
 //
 // Tiles in shared memory are [rows, 64] bf16 sub-tiles of 128-byte rows in
 // the 128-byte swizzle that TMA writes and wgmma reads (16-byte chunk c of
@@ -56,6 +58,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(head), "r"(row),
       "r"(batch)
+      : "memory");
+}
+
+// a [box rows, 128 bytes] box of a 3-D (bytes, rows, b*h) int8 code map
+__device__ __forceinline__ void tma_load_codes(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                               int row, int bh) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row), "r"(bh)
       : "memory");
 }
 
@@ -199,6 +211,21 @@ bool make_map(CUtensorMap* map, const void* base, int B, int L, int N, const lon
   cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// int8 codes [bh, rows, 128] contiguous as a 3-D map (128 bytes, rows, bh)
+// of [box_rows, 128 bytes] boxes, 128-byte swizzle (a 128-code row is one
+// swizzle row), rows past `rows` zeros
+bool make_code_map(CUtensorMap* map, const void* base, int rows, int bh, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[3] = {128, (cuuint64_t)rows, (cuuint64_t)bh};
+  cuuint64_t strides[2] = {128, (cuuint64_t)rows * 128};
+  cuuint32_t box[3] = {128, (cuuint32_t)box_rows, 1};
+  cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

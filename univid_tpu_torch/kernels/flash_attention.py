@@ -38,18 +38,28 @@ and training paths reach:
     csrc/flash_attention_sm90.cu.
   * `softmax_bf16` (the Wan serving knob --bf16_softmax) on both: the
     softmax chain in bf16 (bf16 scores and reference point, a bf16 s - ref
-    and exp2, the row sum of the rounded p in fp32), bf16 d=128, non-causal
-    and unsegmented, on csrc/flash_attention_sm90.cu; counted apart as
-    `flash_attention_bf16_sbf16` and `cross_attention_bf16_sbf16`.
+    and exp2, the row sum of the rounded p in fp32), non-causal and
+    unsegmented: bf16 d=128 on csrc/flash_attention_sm90.cu (counted apart
+    as `flash_attention_bf16_sbf16` and `cross_attention_bf16_sbf16`);
+    fp32 d=128 (the Wan DiT under an fp32 policy) on the SBF16 modes of
+    csrc/flash_attention_f32_sm90.cu, p one bf16 part against v's three
+    (`f32_forward_route`; `flash_attention_f32_sm90_sbf16`, and
+    `..._sbf16_oneshot` for the cross call at Lk <= 512 without a bound,
+    which sweeps QK^T for the row max first, as JAX's one-block
+    `_cross_kernel` takes it).
   * `qk_int8` (--qk_int8) — `_flash_kernel`'s int8 QK^T mode: the pre-pass
     `quantize_qk_int8` (fused rope in fp32, per-row q scales, one k scale per
     JAX kv block of `block_k` keys) and `flash_attention_int8` (int8 x int8
     -> int32 scores rescaled in fp32, the fp32 or the bf16 softmax chain,
-    p v in bf16), bf16 d=128 with kv_len and the bound: the pre-pass on
-    csrc/qk_prepass.cu (kernel B, blocks over tokens with all their heads),
-    the attention on csrc/flash_attention_int8_sm90.cu (s8 wgmma, TMA, warp
-    specialisation); counted as `flash_attention_int8` and
-    `flash_attention_int8_sbf16`.
+    p v in bf16), d=128 with kv_len and the bound: the pre-pass on
+    csrc/qk_prepass.cu (kernel B, blocks over tokens with all their heads;
+    bf16 or fp32 rows, `quantize_qk_int8` / `quantize_qk_int8_f32`), the
+    attention on csrc/flash_attention_int8_sm90.cu for bf16 v (s8 wgmma,
+    TMA, warp specialisation; `flash_attention_int8` and
+    `flash_attention_int8_sbf16`) and on the INT8 modes of
+    csrc/flash_attention_f32_sm90.cu for fp32 v (s8 wgmma scores, p v at
+    fp32 accuracy on v's three bf16 parts: `flash_attention_f32_sm90_int8`
+    and `..._int8_sbf16`).
   * `qk_norm_rope` — the fused-rope prologue (`_rot`, :119-135) with Wan's
     qk RMS norm over the token's N * D width as its own prologue (the JAX
     package's XLA fusion before the kernel): norm + rope, norm only, or
@@ -162,9 +172,6 @@ QK_PREPASS_MAX_HEADS = 40   # csrc/qk_prepass.cu: 8 heads a pass, 5 passes
 KNOBS_MASKED = (
     "softmax_bf16 / qk_int8 with causal, segment or packed masks: no caller "
     "and no kernel mode (the JAX package's knobs serve the Wan DiT)")
-KNOBS_F32_LATER = (
-    "softmax_bf16 / qk_int8 have bf16 kernels only: no fp32 caller reaches "
-    "them (ROADMAP.md queue 2, item 2)")
 
 # kernel launches per wrapper (reset by callers that count a run)
 LAUNCHES = {"flash_attention_bf16": 0, "flash_attention_bf16_causal": 0,
@@ -186,7 +193,12 @@ LAUNCHES = {"flash_attention_bf16": 0, "flash_attention_bf16_causal": 0,
             "flash_attention_bwd_dq_f32_sm90": 0,
             "flash_attention_bwd_dkv_f32_sm90": 0,
             "qk_norm_rope_bf16": 0, "qk_norm_bf16": 0, "qk_rope_bf16": 0,
-            "quantize_qk_int8_pair": 0, "tile_lists": 0}
+            "quantize_qk_int8_pair": 0, "tile_lists": 0,
+            "flash_attention_f32_sm90_sbf16": 0,
+            "flash_attention_f32_sm90_sbf16_oneshot": 0,
+            "flash_attention_f32_sm90_int8": 0,
+            "flash_attention_f32_sm90_int8_sbf16": 0,
+            "quantize_qk_int8_f32": 0}
 # the flash_attention_f32 launches split by head dim
 F32_LAUNCHES_BY_D = {d: 0 for d in F32_DIMS}
 # launches of the masked modes: each is also counted under its kernel's name
@@ -206,7 +218,9 @@ LAUNCHES_BY_MODE = {
 # the fp32 d=128 forward launches over grouped kv heads (k, v with N / group
 # heads), of any mask mode: BAGEL's ViT appends and KV-cache prefill at fp32
 GROUPED_LAUNCHES = {"flash_attention_f32_sm90": 0,
-                    "flash_attention_f32_sm90_lse": 0}
+                    "flash_attention_f32_sm90_lse": 0,
+                    "flash_attention_f32_sm90_sbf16": 0,
+                    "flash_attention_f32_sm90_sbf16_oneshot": 0}
 # every bf16 forward launch by its kernel: "sm90" flash_attention_sm90.cu
 # (the unmasked, segment and packed modes), "causal_sm90"
 # flash_attention_causal_sm90.cu (causal), "mma_sync" flash_attention.cu (no
@@ -1137,32 +1151,44 @@ def _launch_f32_sm90(q, k, v, kv_len, bound, save_lse, mode=None,
     max, or bounded with `bound`) on folded q (k, v with N / group heads):
     the split pre-pass of q, k and v, then the kernel (four launches), under
     `mode` (`_f32_masks`: None, "causal", "segments" or "packed", with the
-    forward list `lists` and the masks' operands). (o, lse fp32 [B, N, Lq]
-    or None)."""
+    forward list `lists` and the masks' operands) or the softmax_bf16 /
+    oneshot modes of `_fwd_f32_sm90_parts`. (o, lse fp32 [B, N, Lq] or
+    None)."""
     return _fwd_f32_sm90_parts(*(split_bf16x3(t) for t in (q, k, v)),
                                kv_len, bound, save_lse, mode, lists, **masks)
 
 
 def _fwd_f32_sm90_parts(qp, kp, vp, kv_len, bound, save_lse, mode=None,
-                        lists=None, **masks):
+                        lists=None, *, softmax_bf16=False, oneshot=False,
+                        **masks):
     """The forward kernel alone on split parts (`split_bf16x3`) of folded
     q [B, Lq, N, 128] and of k, v [B, Lk, N / group, 128]: (o, lse or
-    None)."""
+    None). The softmax is bounded with `bound` (an fp32 [1] on the
+    device), else the running max, or with `oneshot` the one-shot max.
+    softmax_bf16: the bf16 chain (unmasked but for kv_len, no lse), p one
+    bf16 part, so p v is three bf16 products, exact in p."""
     _, b, lq, n, d = qp.shape
     group = n // kp.shape[3]
+    softmax = ("oneshot" if oneshot else "running" if bound is None
+               else "bounded")
     o = torch.empty((b, lq, n, d), dtype=torch.float32, device=qp.device)
     lse = (torch.empty((b, n, lq), dtype=torch.float32, device=qp.device)
            if save_lse else None)
     fn = _fn("flash_attention_f32_sm90", "univid_flash_fwd_f32_sm90",
-             [_P] * 7 + _F32_MASK_ARGTYPES + [_I] * 5 + [_P, _P])
+             [_P] * 7 + _F32_MASK_ARGTYPES + [_I] * 7 + [_P, _P])
     strides = (ctypes.c_longlong * 3)(*o.stride()[:3])
     err = fn(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
              _ptr(kv_len), _ptr(bound), _ptr(lse),
-             *_f32_mask_args(mode, lists, **masks), b, n, group, lq,
-             kp.shape[2], ctypes.addressof(strides), _stream(qp))
+             *_f32_mask_args(mode, lists, **masks), _MODES[softmax],
+             int(softmax_bf16), b, n, group, lq, kp.shape[2],
+             ctypes.addressof(strides), _stream(qp))
     build.check(err, "univid_flash_fwd_f32_sm90")
-    name = ("flash_attention_f32_sm90_lse" if save_lse
-            else "flash_attention_f32_sm90")
+    if softmax_bf16:
+        name = "flash_attention_f32_sm90_sbf16" + ("_oneshot" if oneshot
+                                                   else "")
+    else:
+        name = ("flash_attention_f32_sm90_lse" if save_lse
+                else "flash_attention_f32_sm90")
     _count(name, mode)
     if group > 1:
         GROUPED_LAUNCHES[name] += 1
@@ -1247,6 +1273,39 @@ def _launch_bf16(q, k, v, kv_len, bound, mode, lse=None, causal=False,
     return o
 
 
+def _forward_route_checks(q, k, v, dtype, what, *, mode, lse, knobs, causal,
+                          seg):
+    """The checks `bf16_forward_route` and `f32_forward_route` share: q, k,
+    v of `dtype` ("the {what} forward") at d=128, grouped kv heads that
+    divide the query heads, a known softmax mode, no knob with a mask or
+    the lse (KNOBS_MASKED), no causal with segments, the running max under
+    a mask."""
+    for t in (q, k, v):
+        if t.dtype != dtype:
+            raise TypeError(f"the {what} forward takes {dtype} tensors, got "
+                            f"{t.dtype}")
+        if t.dim() != 4 or t.shape[-1] != D128:
+            raise ValueError(f"no {what} forward kernel for shape "
+                             f"{tuple(t.shape)} (head dim {D128})")
+    if k.shape[2] != v.shape[2] or q.shape[2] % k.shape[2]:
+        raise ValueError(f"{q.shape[2]} query heads over {k.shape[2]} / "
+                         f"{v.shape[2]} kv heads")
+    if mode not in _MODES:
+        raise ValueError(f"unknown softmax mode {mode!r}")
+    masked = causal or seg is not None
+    if knobs and (masked or lse):
+        raise NotImplementedError(KNOBS_MASKED + "; the training forward "
+                                  "takes no knob")
+    if causal and seg is not None:
+        raise NotImplementedError(
+            "causal attention with segment ids has no caller and no kernel "
+            "mode (packed_mode carries its own causal term)")
+    if masked and mode != "running":
+        raise NotImplementedError(
+            "the causal, segment and packed kernel modes have the running "
+            "max only (no caller bounds a masked softmax)")
+
+
 def bf16_forward_route(q, k, v, *, mode, lse=False, softmax_bf16=False,
                        causal=False, seg=None):
     """The kernel that takes a bf16 attention forward on the card: "sm90"
@@ -1258,33 +1317,43 @@ def bf16_forward_route(q, k, v, *, mode, lse=False, softmax_bf16=False,
     mode: "bounded", "running" or "oneshot"; seg: None, "segments" or
     "packed". Both kernels read grouped kv heads (k and v with N / group
     heads). Raises for a call no kernel takes; never falls back."""
-    for t in (q, k, v):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the bf16 forward takes bf16 tensors, got "
-                            f"{t.dtype}")
-        if t.dim() != 4 or t.shape[-1] != D128:
-            raise ValueError(f"no bf16 forward kernel for shape "
-                             f"{tuple(t.shape)} (head dim {D128})")
-    if k.shape[2] != v.shape[2] or q.shape[2] % k.shape[2]:
-        raise ValueError(f"{q.shape[2]} query heads over {k.shape[2]} / "
-                         f"{v.shape[2]} kv heads")
-    if mode not in _MODES:
-        raise ValueError(f"unknown softmax mode {mode!r}")
-    masked = causal or seg is not None
-    if softmax_bf16 and (masked or lse):
-        raise NotImplementedError(KNOBS_MASKED + "; the training forward "
-                                  "takes no knob")
-    if not masked:
-        return "sm90"
-    if causal and seg is not None:
-        raise NotImplementedError(
-            "causal attention with segment ids has no caller and no kernel "
-            "mode (packed_mode carries its own causal term)")
-    if mode != "running":
-        raise NotImplementedError(
-            "the causal, segment and packed kernel modes have the running "
-            "max only (no caller bounds a masked softmax)")
+    _forward_route_checks(q, k, v, torch.bfloat16, "bf16", mode=mode,
+                          lse=lse, knobs=softmax_bf16, causal=causal, seg=seg)
     return "causal_sm90" if causal else "sm90"
+
+
+def f32_forward_route(q, k, v, *, mode, lse=False, softmax_bf16=False,
+                      qk_int8=False, causal=False, seg=None):
+    """The kernel that takes an fp32 d=128 attention forward on the card,
+    by its launch counter; every one is a mode of
+    csrc/flash_attention_f32_sm90.cu: "flash_attention_f32_sm90" (with the
+    lse "..._lse"; every mask, grouped kv heads) on the split operands;
+    with softmax_bf16 "flash_attention_f32_sm90_sbf16" (bounded or running)
+    or "..._sbf16_oneshot" (mode "oneshot": the row max over every key
+    first, the cross call at Lk <= 512 without a bound), grouped kv heads
+    too; with qk_int8 "flash_attention_f32_sm90_int8" or "..._int8_sbf16"
+    on the int8 pre-pass's codes (bounded or running). mode: "bounded",
+    "running" or "oneshot"; seg: None, "segments" or "packed". Raises for a
+    call no kernel takes (a knob with a mask or the lse, qk_int8 over
+    grouped kv heads, a bound with a mask); never falls back."""
+    _forward_route_checks(q, k, v, torch.float32, "fp32 d=128", mode=mode,
+                          lse=lse, knobs=softmax_bf16 or qk_int8,
+                          causal=causal, seg=seg)
+    if mode == "oneshot" and (qk_int8 or not softmax_bf16):
+        raise NotImplementedError(
+            "the one-shot max is the bf16 chain's cross mode; the fp32 chain "
+            "and int8 QK^T take the bound or the running max")
+    if qk_int8:
+        if k.shape[2] != q.shape[2]:
+            raise ValueError("the int8 kernel takes as many kv heads as q "
+                             "heads")
+        return "flash_attention_f32_sm90_int8" + ("_sbf16" if softmax_bf16
+                                                  else "")
+    if softmax_bf16:
+        return "flash_attention_f32_sm90_sbf16" + ("_oneshot"
+                                                   if mode == "oneshot"
+                                                   else "")
+    return "flash_attention_f32_sm90" + ("_lse" if lse else "")
 
 
 def sm90_q_tiles(lq):
@@ -1501,22 +1570,27 @@ def _launch_causal_sm90(q, k, v, kv_len, q_offset=0, q_offsets=None,
 
 
 def _prepass_input(t):
-    """A bf16 [B, L, N, 128] operand as csrc/qk_prepass.cu reads it in
-    16-byte chunks: unit stride along D, a 16-byte aligned base, (b, l, h)
-    strides multiples of 8 elements; another view is copied first."""
+    """A bf16 or fp32 [B, L, N, 128] operand as csrc/qk_prepass.cu reads it
+    in 16-byte chunks: unit stride along D, a 16-byte aligned base, (b, l,
+    h) strides multiples of 16 bytes; another view is copied first."""
+    step = 16 // t.element_size()
     if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
-            s % 8 for s in t.stride()[:3]):
+            s % step for s in t.stride()[:3]):
         return t.contiguous()
     return t
 
 
-def _check_prepass(q, k):
+def _check_prepass(q, k, dtypes=(torch.bfloat16,)):
     for t in (q, k):
-        if (not t.is_cuda or t.dtype != torch.bfloat16 or t.dim() != 4
+        if (not t.is_cuda or t.dtype not in dtypes or t.dim() != 4
                 or t.shape[-1] != D128):
-            raise TypeError("the q / k pre-passes take bf16 CUDA tensors "
+            names = " or ".join({torch.bfloat16: "bf16",
+                                 torch.float32: "fp32"}[d] for d in dtypes)
+            raise TypeError(f"the q / k pre-passes take {names} CUDA tensors "
                             f"[B, L, N, {D128}], got {t.dtype} "
                             f"{tuple(t.shape)} on {t.device}")
+    if q.dtype != k.dtype:
+        raise TypeError(f"q ({q.dtype}) and k ({k.dtype}) differ in dtype")
     if q.shape[0] != k.shape[0]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
                          "in batch")
@@ -1646,6 +1720,16 @@ def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
         masks = dict(causal=causal, q_offset=q_offset, q_offsets=q_offsets,
                      q_segments=q_segments, kv_segments=kv_segments,
                      packed_mode=packed_mode)
+        seg = _check_masks(q, k.shape[1], q_offsets, q_segments, kv_segments,
+                           packed_mode, causal)
+        # the bf16 chain's cross call (Lk <= 512, no bound) takes the
+        # one-shot max, as JAX's one-block _cross_kernel does
+        softmax = ("bounded" if bound is not None else "oneshot"
+                   if softmax_bf16 and k.shape[1] <= CROSS_MAX_LK
+                   else "running")
+        name = f32_forward_route(q, k, v, mode=softmax,
+                                 softmax_bf16=softmax_bf16, causal=causal,
+                                 seg=seg)
         mode, lists, _ = _f32_masks(q, k, kv_len, bound, tile_plan, **masks)
         if rope_tables is not None:
             if mode in ("segments", "packed"):
@@ -1657,16 +1741,17 @@ def _flash_cuda(q, k, v, kv_len, bound, rope_tables, causal=False,
             k = _rope_f32(k, ck, sk)
         o, _ = _launch_f32_sm90(q, k, v, kv_len,
                                 _bound_tensor(bound, q.device), False, mode,
-                                lists, **masks)
+                                lists, softmax_bf16=softmax_bf16,
+                                oneshot=softmax == "oneshot", **masks)
         return o
     if q.dtype == torch.float32:
         _check_cuda_inputs(q, k, v, kv_len, torch.float32,
                            F32_DIMS + (D128,))
         if (rope_tables is not None or bound is not None or causal
-                or q_segments is not None):
+                or q_segments is not None or softmax_bf16):
             raise NotImplementedError(
                 "the fp32 kernel has the VAE's plain mode only (no fused "
-                "rope, no bound, not causal, no segments)")
+                "rope, no bound, not causal, no segments, no knob)")
         o = _launch_f32_tc(q, k, v, kv_len)
         _count("flash_attention_f32")
         F32_LAUNCHES_BY_D[q.shape[-1]] += 1
@@ -1713,18 +1798,19 @@ def _check_int8_inputs(*ts):
 
 def quantize_qk_int8(q, k, rope_tables=None, block_k: int = 512):
     """The qk_int8 pre-pass: (qi, sq, ki, akq) of `quantize_qk_int8_plain`,
-    from padded q, k [B, L, N, 128] (rope_tables padded, or None with q
-    already folded); the k scale's block of block_k keys (a multiple of 64:
-    every 64-key tile of the kernel lies in one block). On the card kernel
-    B of csrc/qk_prepass.cu: a launch that writes q's codes and folds each
-    k block's max by atomicMax, then a launch that writes k's codes;
-    counted as `quantize_qk_int8`, two a call. The plain version on the
-    CPU."""
+    from padded q, k [B, L, N, 128] bf16 or fp32 (rope_tables padded, or
+    None with q already folded); the k scale's block of block_k keys (a
+    multiple of 64: every 64-key tile of the kernel lies in one block). On
+    the card kernel B of csrc/qk_prepass.cu: a launch that writes q's codes
+    and folds each k block's max by atomicMax, then a launch that writes
+    k's codes; counted as `quantize_qk_int8` (bf16) or
+    `quantize_qk_int8_f32` (fp32 rows, rotated from fp32 and never rounded
+    to bf16), two a call. The plain version on the CPU."""
     if block_k <= 0 or block_k % TILE:
         raise ValueError(f"block_k {block_k} is not a multiple of {TILE}")
     if not q.is_cuda:
         return quantize_qk_int8_plain(q, k, rope_tables, block_k)
-    _check_prepass(q, k)
+    _check_prepass(q, k, (torch.bfloat16, torch.float32))
     if k.shape[2] != q.shape[2]:
         raise ValueError("the int8 kernel takes as many kv heads as q heads")
     q, k = _prepass_input(q), _prepass_input(k)
@@ -1739,14 +1825,15 @@ def quantize_qk_int8(q, k, rope_tables=None, block_k: int = 512):
     akq = torch.empty((b, n, nblk), dtype=torch.float32, device=q.device)
     kmax = torch.zeros((b, n, nblk), dtype=torch.int32, device=q.device)
     ll = ctypes.c_longlong
-    fn = _fn("qk_prepass", "univid_quant_qk_int8",
-             [_P] * 11 + [_I] * 5 + [ll] * 6 + [_P])
+    f32 = q.dtype == torch.float32
+    sym = "univid_quant_qk_int8_f32" if f32 else "univid_quant_qk_int8"
+    fn = _fn("qk_prepass", sym, [_P] * 11 + [_I] * 5 + [ll] * 6 + [_P])
     err = fn(q.data_ptr(), k.data_ptr(), *(_ptr(t) for t in tabs),
              qi.data_ptr(), sq.data_ptr(), ki.data_ptr(), akq.data_ptr(),
              kmax.data_ptr(), b, lq, lk, n, block_k, *q.stride()[:3],
              *k.stride()[:3], _stream(q))
-    build.check(err, "univid_quant_qk_int8")
-    LAUNCHES["quantize_qk_int8"] += 2
+    build.check(err, sym)
+    LAUNCHES["quantize_qk_int8_f32" if f32 else "quantize_qk_int8"] += 2
     return qi, sq, ki, akq
 
 
@@ -1796,8 +1883,9 @@ def _check_int8_attention(qi, sq, ki, akq, v, kv_len, block_k):
                 or t.device != v.device):
             raise TypeError("qi, sq, ki, akq must be the pre-pass's outputs "
                             f"for block_k {block_k}")
-    if v.dtype != torch.bfloat16 or tuple(v.shape) != (b, lk, n, d):
-        raise TypeError("v must be bf16 [B, Lk, N, D]")
+    if (v.dtype not in (torch.bfloat16, torch.float32)
+            or tuple(v.shape) != (b, lk, n, d)):
+        raise TypeError("v must be bf16 or fp32 [B, Lk, N, D]")
     if d != D128:
         raise ValueError(f"the int8 attention kernels take head dim {D128}, "
                          f"not {d}")
@@ -1833,18 +1921,49 @@ def _launch_int8_sm90(qi, sq, ki, akq, v, kv_len, bound, softmax_bf16,
     return o
 
 
+def _f32_int8_parts(qi, sq, ki, akq, vp, kv_len, bound, softmax_bf16,
+                    block_k):
+    """The fp32 d=128 forward's int8 QK^T mode on
+    csrc/flash_attention_f32_sm90.cu, on checked codes and scales of the
+    pre-pass and the split parts of v: s8 wgmma scores rescaled in the plain
+    version's order, the fp32 chain's p as three bf16 parts (six products a
+    p v) or the bf16 chain's as one (three). fp32 [B, Lq, N, 128]."""
+    b, n, lq, d = qi.shape
+    o = torch.empty((b, lq, n, d), dtype=torch.float32, device=vp.device)
+    fn = _fn("flash_attention_f32_sm90", "univid_flash_fwd_f32_int8_sm90",
+             [_P] * 8 + [_I] * 7 + [_P, _P])
+    strides = (ctypes.c_longlong * 3)(*o.stride()[:3])
+    err = fn(qi.data_ptr(), sq.data_ptr(), ki.data_ptr(), akq.data_ptr(),
+             vp.data_ptr(), o.data_ptr(), _ptr(kv_len), _ptr(bound),
+             _MODE_BOUNDED if bound is not None else _MODE_RUNNING,
+             int(softmax_bf16), b, n, lq, ki.shape[2], block_k,
+             ctypes.addressof(strides), _stream(vp))
+    build.check(err, "univid_flash_fwd_f32_int8_sm90")
+    return o
+
+
 def flash_attention_int8(qi, sq, ki, akq, v, *, kv_len=None, score_bound=None,
                          softmax_bf16: bool = False, block_k: int = 512):
-    """The int8 QK^T attention on the pre-pass's codes and scales, bf16 v
-    [B, Lk, N, 128] -> bf16 [B, Lq, N, 128]: bounded (score_bound, folded)
+    """The int8 QK^T attention on the pre-pass's codes and scales, v [B, Lk,
+    N, 128] -> [B, Lq, N, 128] in v's dtype: bounded (score_bound, folded)
     or running max, kv_len, the fp32 or the bf16 softmax chain. On the
-    card: csrc/flash_attention_int8_sm90.cu, one launch."""
+    card: bf16 v on csrc/flash_attention_int8_sm90.cu (one launch), fp32 v
+    on the int8 mode of csrc/flash_attention_f32_sm90.cu (`_f32_int8_parts`
+    after the split pre-pass of v; counted as
+    `flash_attention_f32_sm90_int8` or `..._int8_sbf16`)."""
     if not v.is_cuda:
         return attention_int8_plain(qi, sq, ki, akq, v, kv_len=kv_len,
                                     bound=score_bound,
                                     softmax_bf16=softmax_bf16,
                                     block_k=block_k)
     _check_int8_attention(qi, sq, ki, akq, v, kv_len, block_k)
+    if v.dtype == torch.float32:   # v alone is split: q and k are codes
+        o = _f32_int8_parts(qi, sq, ki, akq, split_bf16x3(v), kv_len,
+                            _bound_tensor(score_bound, v.device),
+                            softmax_bf16, block_k)
+        _count("flash_attention_f32_sm90_int8_sbf16" if softmax_bf16
+               else "flash_attention_f32_sm90_int8")
+        return o
     o = _launch_int8_sm90(qi, sq, ki, akq, v, kv_len,
                           _bound_tensor(score_bound, v.device), softmax_bf16,
                           block_k)
@@ -1862,6 +1981,8 @@ def _launch_int8_mma_sync(qi, sq, ki, akq, v, *, kv_len=None,
     chip_smoke.py and the card tests, counted as
     `flash_attention_int8[_sbf16]_mma_sync`."""
     _check_int8_attention(qi, sq, ki, akq, v, kv_len, block_k)
+    if v.dtype != torch.bfloat16:
+        raise TypeError("the mma.sync int8 kernel takes bf16 v")
     b, n, lq, d = qi.shape
     o = torch.empty((b, lq, n, d), dtype=v.dtype, device=v.device)
     bound = _bound_tensor(score_bound, v.device)
@@ -1932,8 +2053,6 @@ def flash_attention_padded(q, k, v, *, kv_len=None, softmax_scale=None,
                   or save_residuals):
         raise NotImplementedError(KNOBS_MASKED + "; the training forward "
                                   "takes no knob")
-    if knobs and q.is_cuda and q.dtype != torch.bfloat16:
-        raise NotImplementedError(KNOBS_F32_LATER)
     if save_residuals:
         if rope_tables is not None or qk_norm is not None:
             raise NotImplementedError(
