@@ -233,7 +233,14 @@ at q [2, 16384, 12, 128] over a 16,384-key shard with kv_len 16,384,
 mode on a rank's q and k) are held against their plain versions in phase
 3 (`check_sp_kernels`); the kernels line carries them as `*_sp` records
 with the sp run's launches (both ranks), and every record's
-`launches_by_path` has `sp` and `sp_ring`.
+`launches_by_path` has `sp` and `sp_ring`. Sequence and tensor
+parallelism together (`sp_tp_main_path`, four ranks on the one card): the
+sp 2 x tp 2 Ulysses pipeline (SP_TP_LAYERS blocks, 2 steps, 3 heads a
+rank after the exchange) and a ring DiT call on that mesh, each held to
+one rank; one fp32 train step on an fsdp 2 x sp 2 mesh held to the
+one-rank step, the sp replicas' shards bitwise equal after it. Its shard
+shapes are checked by `check_sp_kernels(tp=2)` (`*_sp_tp` records,
+launches from the `sp_tp` and `sp_tp_ring` paths).
 The knob kernels (softmax_bf16 on self- and cross-attention, the int8
 pre-pass, kernel B of qk_prepass.cu, timed in turns with the pair of
 flash_attention_int8.cu it replaced, both against the plain version,
@@ -9243,8 +9250,9 @@ def naflex_cli_on_card(output_dir):
 # ---------------------------------------------------------------------------
 
 SP_WORLD = 2         # the sp = 2 mesh's ranks, both on the one card
-SP_LAYERS = 4        # of t2v-1.3B's 30 blocks (the time limit; at 6 the
-#                      phase took 42.5-65.8 s); full width
+SP_LAYERS = 2        # of t2v-1.3B's 30 blocks (the time limit: at 6 the
+#                      phase took 42.5-65.8 s; cut from 4 to pay for
+#                      sp_tp_main_path); full width
 SP_STEPS = 2         # UniPC steps of the Ulysses pipeline run
 SP_T5_LAYERS = 2     # of UMT5-XXL's 24 blocks (full width, fp32)
 SP_DEADLINE = 480    # s the ranks may take together, start-up included
@@ -9261,26 +9269,30 @@ def _sp_tol():
                     "approximate exp2 before p rounds to bf16")
 
 
-def check_sp_kernels():
+def check_sp_kernels(tp=1):
     """The kernels of the sequence-parallel path at its shard shapes
-    (t2v-1.3B at 832x480x81, sp = 2, batch-2 CFG): Ulysses self-attention
-    over the whole sequence at N/sp heads, [2, 32768, 6, 128] over 32,760
+    (t2v-1.3B at 832x480x81, sp = 2, batch-2 CFG; with tp = 2 beside it,
+    N / tp = 6 of the 12 heads a rank): Ulysses self-attention over the
+    whole sequence at N/(sp tp) heads, [2, 32768, 6 or 3, 128] over 32,760
     keys (bounded, after kernel A's rope-only mode, whose output must
-    equal the plain rotation bit for bit); kernel A's norm-only mode
-    before the exchange, on a rank's q and k [2, 16384, 12, 128]; the
-    ring's partials, q [2, 16384, 12, 128] over a kv shard of 16,384 keys
-    with kv_len 16,384, 16,376 and 0 (running max with the lse; lse within
-    1e-3, kv_len 0 rows exactly 0 with lse +1e30); cross-attention
-    [2, 16384, 12, 128] over 512 keys. Each against its plain version,
-    timed beside SDPA on the same inputs. Returns the kernels-line
-    records."""
+    equal the plain rotation bit for bit); at tp = 1 kernel A's norm-only
+    mode before the exchange, on a rank's q and k [2, 16384, 12, 128] (at
+    tp = 2 the norm is `rms_norm_tp`, plain torch over the tp group); the
+    ring's partials, q [2, 16384, 12 or 6, 128] over a kv shard of 16,384
+    keys with kv_len 16,384, 16,376 and 0 (running max with the lse; lse
+    within 1e-3, kv_len 0 rows exactly 0 with lse +1e30); cross-attention
+    [2, 16384, 12 or 6, 128] over 512 keys. Each against its plain
+    version, timed beside SDPA on the same inputs. Returns the
+    kernels-line records (names `*_sp` at tp = 1, `*_sp_tp` at tp = 2)."""
     import torch
     import torch.nn.functional as F
 
     from univid_tpu_torch.kernels import flash_attention as fa
     from univid_tpu_torch.ops.rope import build_rope_3d
 
-    gen = torch.Generator(device="cuda").manual_seed(20)
+    gen = torch.Generator(device="cuda").manual_seed(19 + tp)
+    sfx, tag = ("", "sp=2") if tp == 1 else ("_tp", f"sp=2 x tp={tp}")
+    n_all = 12 // tp   # the rank's heads before the exchange
     b, d, l, l_loc, lk = 2, 128, 32768, 16384, 512
     grid = (21, 30, 52)
     kv_real = grid[0] * grid[1] * grid[2]
@@ -9289,8 +9301,8 @@ def check_sp_kernels():
     src = "univid_tpu_torch/kernels/csrc/flash_attention_sm90.cu"
     recs = {}
     with torch.no_grad():
-        # ---- Ulysses: the whole sequence at 6 of the 12 heads ------------
-        n = 6
+        # ---- Ulysses: the whole sequence at 12 / (sp tp) of the heads ----
+        n = n_all // SP_WORLD
         q = qk_normed((b, l, n, d), gen, torch.bfloat16)
         k = qk_normed((b, l, n, d), gen, torch.bfloat16)
         v = torch.randn((b, l, n, d), generator=gen, device="cuda").to(
@@ -9304,13 +9316,13 @@ def check_sp_kernels():
         got = fa._flash_cuda(q, k, v, kv_len, bound, tabs)
         want = fa.attention_plain(q, k, v, kv_len=kv_len, bound=bound,
                                   rope_tables=tabs)
-        err = compare("flash_attention_bf16 sp=2 ulysses [2, 32768, 6, 128] "
-                      "bounded+rope+kv_len", got, want, **_sp_tol())
+        err = compare(f"flash_attention_bf16 {tag} ulysses [2, 32768, {n}, "
+                      "128] bounded+rope+kv_len", got, want, **_sp_tol())
         qr, kr = fa.qk_norm_rope(q, k, rope_tables=tabs)
         pq, pk = fa.qk_norm_rope_plain(q, k, None, tabs)
         equal = [bool(torch.equal(qr, pq)), bool(torch.equal(kr, pk))]
-        log(json.dumps({"check": "qk_rope_bf16 sp=2 ulysses rope only "
-                                 "[2, 32768, 6, 128] (q, k)",
+        log(json.dumps({"check": f"qk_rope_bf16 {tag} ulysses rope only "
+                                 f"[2, 32768, {n}, 128] (q, k)",
                         "equal": equal, "why": "the same fp32 products and "
                         "sum, one rounding to bf16", "ok": all(equal)}))
         if not all(equal):
@@ -9326,56 +9338,58 @@ def check_sp_kernels():
             3)
         bms, by = bound_ms(4 * b * n * l * kv_real * d, nbytes(qr, kr, v, got),
                            H100_BF16_FLOPS)
-        recs["flash_attention_bf16_sp"] = dict(
-            name="flash_attention_bf16_sp", counter="flash_attention_bf16",
-            route="cuda", source=src,
+        recs[f"flash_attention_bf16_sp{sfx}"] = dict(
+            name=f"flash_attention_bf16_sp{sfx}",
+            counter="flash_attention_bf16", route="cuda", source=src,
             replaces="univid_tpu/kernels/flash_attention.py:44",
-            shape="Ulysses [2, 32768, 6, 128] over 32,760 keys",
+            shape=f"Ulysses ({tag}) [2, 32768, {n}, 128] over 32,760 keys",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
             bound_by=by, library_ms=lib_ms)
         ms_r = cuda_time(lambda: fa.qk_norm_rope(q, k, rope_tables=tabs), 5)
         plain_r = cuda_time(lambda: fa.qk_norm_rope_plain(q, k, None, tabs),
                             2)
         bms, by = bound_ms(0, nbytes(q, k, qr, kr, *tabs), H100_BF16_FLOPS)
-        recs["qk_rope_bf16_sp"] = dict(
-            name="qk_rope_bf16_sp", counter="qk_rope_bf16", route="cuda",
+        recs[f"qk_rope_bf16_sp{sfx}"] = dict(
+            name=f"qk_rope_bf16_sp{sfx}", counter="qk_rope_bf16",
+            route="cuda",
             source="univid_tpu_torch/kernels/csrc/qk_prepass.cu",
             replaces="univid_tpu/kernels/flash_attention.py:157",
-            shape="rope only, q and k [2, 32768, 6, 128]", max_abs_err=0.0,
+            shape=f"rope only, q and k [2, 32768, {n}, 128]", max_abs_err=0.0,
             ms=ms_r, plain_ms=plain_r, bound_ms=bms, bound_by=by,
             library_ms=None)
         del q, k, v, got, want, qr, kr, pq, pk, qs, ks, vs
 
         # ---- kernel A's norm before the exchange: a rank's tokens -------
-        n = 12
-        q = (torch.randn((b, l_loc, n, d), generator=gen, device="cuda")
-             * 3).to(torch.bfloat16)
-        k = (torch.randn((b, l_loc, n, d), generator=gen, device="cuda")
-             * 3).to(torch.bfloat16)
-        gq, gk = ((torch.rand((n * d,), generator=gen, device="cuda") + 0.5)
-                  .to(torch.bfloat16) for _ in range(2))
-        norm = (gq, gk, QK_EPS)
-        want = fa.qk_norm_rope_plain(q, k, norm)
-        got = fa.qk_norm_rope(q, k, qk_norm=norm)
-        err = max(compare_within(
-            f"qk_norm_bf16 sp=2 norm before the exchange {nm}", g, w,
-            QK_STEP * w.float().abs(), QK_WHY)
-            for nm, g, w in (("q", got[0], want[0]), ("k", got[1], want[1])))
-        ms_n = cuda_time(lambda: fa.qk_norm_rope(q, k, qk_norm=norm), 5)
-        plain_n = cuda_time(lambda: fa.qk_norm_rope_plain(q, k, norm), 2)
-        w_ = n * d
-        lib_n = cuda_time(lambda: (
-            F.rms_norm(q.view(b, l_loc, w_), (w_,), gq, QK_EPS),
-            F.rms_norm(k.view(b, l_loc, w_), (w_,), gk, QK_EPS)), 5)
-        bms, by = bound_ms(0, nbytes(q, k, *want, gq, gk), H100_BF16_FLOPS)
-        recs["qk_norm_bf16_sp"] = dict(
-            name="qk_norm_bf16_sp", counter="qk_norm_bf16", route="cuda",
-            source="univid_tpu_torch/kernels/csrc/qk_prepass.cu",
-            replaces="univid_tpu/kernels/flash_attention.py:157",
-            shape="norm only, q and k [2, 16384, 12, 128]", max_abs_err=err,
-            ms=ms_n, plain_ms=plain_n, bound_ms=bms, bound_by=by,
-            library_ms=lib_n)
-        del q, k, got, want
+        n = n_all
+        if tp == 1:
+            q = (torch.randn((b, l_loc, n, d), generator=gen, device="cuda")
+                 * 3).to(torch.bfloat16)
+            k = (torch.randn((b, l_loc, n, d), generator=gen, device="cuda")
+                 * 3).to(torch.bfloat16)
+            gq, gk = ((torch.rand((n * d,), generator=gen, device="cuda") + 0.5)
+                      .to(torch.bfloat16) for _ in range(2))
+            norm = (gq, gk, QK_EPS)
+            want = fa.qk_norm_rope_plain(q, k, norm)
+            got = fa.qk_norm_rope(q, k, qk_norm=norm)
+            err = max(compare_within(
+                f"qk_norm_bf16 sp=2 norm before the exchange {nm}", g, w,
+                QK_STEP * w.float().abs(), QK_WHY)
+                for nm, g, w in (("q", got[0], want[0]), ("k", got[1], want[1])))
+            ms_n = cuda_time(lambda: fa.qk_norm_rope(q, k, qk_norm=norm), 5)
+            plain_n = cuda_time(lambda: fa.qk_norm_rope_plain(q, k, norm), 2)
+            w_ = n * d
+            lib_n = cuda_time(lambda: (
+                F.rms_norm(q.view(b, l_loc, w_), (w_,), gq, QK_EPS),
+                F.rms_norm(k.view(b, l_loc, w_), (w_,), gk, QK_EPS)), 5)
+            bms, by = bound_ms(0, nbytes(q, k, *want, gq, gk), H100_BF16_FLOPS)
+            recs["qk_norm_bf16_sp"] = dict(
+                name="qk_norm_bf16_sp", counter="qk_norm_bf16", route="cuda",
+                source="univid_tpu_torch/kernels/csrc/qk_prepass.cu",
+                replaces="univid_tpu/kernels/flash_attention.py:157",
+                shape="norm only, q and k [2, 16384, 12, 128]", max_abs_err=err,
+                ms=ms_n, plain_ms=plain_n, bound_ms=bms, bound_by=by,
+                library_ms=lib_n)
+            del q, k, got, want
 
         # ---- ring: a rank's queries over one visiting kv shard ----------
         q = qk_normed((b, l_loc, n, d), gen, torch.bfloat16)
@@ -9398,11 +9412,12 @@ def check_sp_kernels():
                                                save_residuals=True)
             wo, wl = fa.attention_plain(qs, kk, vv, kv_len=kv,
                                         save_residuals=True)
-            err = max(err, compare(f"flash_attention_bf16_lse sp=2 ring "
-                                   f"kv_len {kvl}", o, wo, **_sp_tol()))
+            err = max(err, compare(f"flash_attention_bf16_lse {tag} ring "
+                                   f"[2, 16384, {n}, 128] kv_len {kvl}", o,
+                                   wo, **_sp_tol()))
             live = kv > 0
             lse_err = max(lse_err, compare(
-                f"flash_attention_bf16_lse sp=2 ring lse kv_len {kvl}",
+                f"flash_attention_bf16_lse {tag} ring lse kv_len {kvl}",
                 lse[live], wl[live], atol=1e-3, rtol=0.0,
                 why="the lse of §2: fp32 sums in another order"))
             if not live.all():
@@ -9423,12 +9438,12 @@ def check_sp_kernels():
         bms, by = bound_ms(4 * b * n * l_loc * l_loc * d,
                            nbytes(q, k, v, q) + b * n * l_loc * 4,
                            H100_BF16_FLOPS)
-        recs["flash_attention_bf16_lse_sp_ring"] = dict(
-            name="flash_attention_bf16_lse_sp_ring",
+        recs[f"flash_attention_bf16_lse_sp{sfx}_ring"] = dict(
+            name=f"flash_attention_bf16_lse_sp{sfx}_ring",
             counter="flash_attention_bf16_lse", route="cuda", source=src,
             replaces="univid_tpu/kernels/flash_attention.py:343",
-            shape="ring q [2, 16384, 12, 128] over a kv shard of 16,384 "
-                  "(kv_len 16,384 / 16,376 / 0)",
+            shape=f"ring ({tag}) q [2, 16384, {n}, 128] over a kv shard of "
+                  "16,384 (kv_len 16,384 / 16,376 / 0)",
             max_abs_err=err, lse_max_abs_err=lse_err, ms=ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms)
         del k, v, kt, vt
@@ -9439,8 +9454,8 @@ def check_sp_kernels():
         v = torch.randn((b, lk, n, d), generator=gen, device="cuda").to(
             torch.bfloat16)
         got = fa.cross_attention_padded(qx, k, v, score_bound=bound)
-        err = compare("cross_attention_bf16 sp=2 [2, 16384, 12, 128] x 512 "
-                      "bounded", got,
+        err = compare(f"cross_attention_bf16 {tag} [2, 16384, {n}, 128] x "
+                      "512 bounded", got,
                       fa.attention_plain(qx, k, v, bound=bound), **_sp_tol())
         ms = cuda_time(lambda: fa.cross_attention_padded(
             qx, k, v, score_bound=bound), 5)
@@ -9451,11 +9466,11 @@ def check_sp_kernels():
             qt, kt, vt, scale=1.0 / fa.LOG2E), 5)
         bms, by = bound_ms(4 * b * n * l_loc * lk * d, nbytes(qx, k, v, got),
                            H100_BF16_FLOPS)
-        recs["cross_attention_bf16_sp"] = dict(
-            name="cross_attention_bf16_sp", counter="cross_attention_bf16",
-            route="cuda", source=src,
+        recs[f"cross_attention_bf16_sp{sfx}"] = dict(
+            name=f"cross_attention_bf16_sp{sfx}",
+            counter="cross_attention_bf16", route="cuda", source=src,
             replaces="univid_tpu/kernels/flash_attention.py:355",
-            shape="[2, 16384, 12, 128] over [2, 512, 12, 128]",
+            shape=f"({tag}) [2, 16384, {n}, 128] over [2, 512, {n}, 128]",
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
             bound_by=by, library_ms=lib_ms)
         del q, qs, qx, k, v, got, qt, kt, vt
@@ -9477,8 +9492,95 @@ def _sp_spec():
         t5=dataclasses.replace(spec.t5, num_layers=SP_T5_LAYERS))
 
 
-def _sp_rank_work(rank, init):
-    """One rank of sp_main_path. Returns its records (numbers only)."""
+def _rank_entry(work, deadline, rank, init, results, log_path):
+    """A spawned rank of a multi-rank phase: work(rank, init, note) under
+    no_grad (a train step enables grad itself), its record or its
+    traceback put on `results`; note(msg) appends to log_path, where a
+    rank still running near the deadline also dumps its stacks."""
+    import faulthandler
+    import traceback
+
+    import torch
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        def note(msg):
+            f.write(f"{time.perf_counter() - t0:8.1f} s  {msg}\n")
+            f.flush()
+
+        faulthandler.dump_traceback_later(deadline - 30, file=f)
+        try:
+            with torch.no_grad():
+                results.put((rank, True, work(rank, init, note)))
+        except BaseException:
+            results.put((rank, False, traceback.format_exc()))
+        faulthandler.cancel_dump_traceback_later()
+
+
+def _run_ranks(tag, work, world, deadline, output_dir):
+    """Spawn `world` ranks of work(rank, init, note) on the one card
+    (`_rank_entry`, a file rendezvous in output_dir) and collect their
+    records: a rank that fails, or the ranks past `deadline` s, kill them
+    all and fail the run. Returns ({rank: record}, wall seconds, the
+    ranks' log tails)."""
+    import multiprocessing as mp
+    import os
+    import queue
+
+    ctx = mp.get_context("spawn")
+    os.makedirs(output_dir, exist_ok=True)
+    init = os.path.join(os.path.abspath(output_dir), f"{tag}_rendezvous")
+    if os.path.exists(init):
+        os.remove(init)
+    results = ctx.Queue()
+    logs = [os.path.join(output_dir, f"{tag}_rank{r}.log")
+            for r in range(world)]
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(work, deadline, r, f"file://{init}", results,
+                               logs[r]))
+             for r in range(world)]
+
+    def tails():
+        out = []
+        for path in logs:
+            if os.path.exists(path):
+                with open(path) as f:
+                    out.append(f"{path}:\n{f.read()[-3000:]}")
+        return "\n".join(out)
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    end = time.monotonic() + deadline
+    try:
+        while len(got) < world:
+            try:
+                rank, ok, rec = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > end:
+                    fail(f"{tag}: a rank died ({dead}) or the ranks passed "
+                         f"{deadline} s\n{tails()}")
+                continue
+            if not ok:
+                fail(f"{tag}: rank {rank} failed:\n{rec}\n{tails()}")
+            got[rank] = rec
+        for p in procs:
+            p.join(max(1.0, end - time.monotonic()))
+            if p.exitcode != 0:
+                fail(f"{tag}: a rank exited with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    if os.path.exists(init):
+        os.remove(init)
+    return got, time.perf_counter() - t0, tails()
+
+
+def _sp_rank_work(rank, init, note):
+    """One rank of sp_main_path. Returns its records (numbers only);
+    note(msg) logs its progress."""
     import torch
     import torch.distributed as dist
 
@@ -9497,6 +9599,7 @@ def _sp_rank_work(rank, init):
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", init_method=init, rank=rank,
                             world_size=SP_WORLD)
+    note("group up")
     out = {"rank": rank}
     comm = {"s": 0.0, "calls": 0}
 
@@ -9556,6 +9659,7 @@ def _sp_rank_work(rank, init):
         del one
     dist.barrier()
     del lat
+    note("Ulysses pipeline")
 
     # ---- (b) ring: one DiT call, and a call with a shard all padding ----
     grid = (21, 60, 104)
@@ -9603,6 +9707,8 @@ def _sp_rank_work(rank, init):
                                     finite=bool(torch.isfinite(o).all()))
     del q, k, v, ql, kl, vl, o, want
 
+    note("ring calls")
+
     # ---- (c) FSDP over fsdp = 2: the DiT and UMT5-XXL ------------------
     mesh_f = make_mesh(MeshSpec(fsdp=SP_WORLD))
     torch.cuda.reset_peak_memory_stats()
@@ -9632,17 +9738,6 @@ def _sp_rank_work(rank, init):
     return out
 
 
-def _sp_rank(rank, init, results):
-    import traceback
-
-    import torch
-    try:
-        with torch.no_grad():   # serving: no autograd graph
-            results.put((rank, True, _sp_rank_work(rank, init)))
-    except BaseException:
-        results.put((rank, False, traceback.format_exc()))
-
-
 def sp_main_path(output_dir):
     """Phase 13: multi-GPU serving, two ranks on the one card over gloo
     (NCCL refuses two ranks on one device; gloo takes the CUDA tensors of
@@ -9664,48 +9759,9 @@ def sp_main_path(output_dir):
     zero just before its run; a rank that fails, or the pair past
     SP_DEADLINE, kills both and fails the run. Returns {path: launches}
     summed over the ranks."""
-    import multiprocessing as mp
-    import os
-    import queue
-
-    ctx = mp.get_context("spawn")
-    os.makedirs(output_dir, exist_ok=True)
-    init = os.path.join(os.path.abspath(output_dir), "sp_rendezvous")
-    if os.path.exists(init):
-        os.remove(init)
-    results = ctx.Queue()
-    procs = [ctx.Process(target=_sp_rank, args=(r, f"file://{init}", results))
-             for r in range(SP_WORLD)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    got = {}
-    end = time.monotonic() + SP_DEADLINE
-    try:
-        while len(got) < SP_WORLD:
-            try:
-                rank, ok, rec = results.get(timeout=1.0)
-            except queue.Empty:
-                dead = [p.exitcode for p in procs
-                        if p.exitcode not in (None, 0)]
-                if dead or time.monotonic() > end:
-                    fail(f"sp_main_path: a rank died ({dead}) or the ranks "
-                         f"passed {SP_DEADLINE} s")
-                continue
-            if not ok:
-                fail(f"sp_main_path: rank {rank} failed:\n{rec}")
-            got[rank] = rec
-        for p in procs:
-            p.join(max(1.0, end - time.monotonic()))
-            if p.exitcode != 0:
-                fail(f"sp_main_path: a rank exited with {p.exitcode}")
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-    wall = time.perf_counter() - t0
-    if os.path.exists(init):
-        os.remove(init)
+    got, wall, tails = _run_ranks("sp", _sp_rank_work, SP_WORLD,
+                                  SP_DEADLINE, output_dir)
+    log(json.dumps({"sp_rank_logs": tails}))
 
     n, steps = SP_LAYERS, SP_STEPS
     zero = dict.fromkeys(got[0]["ulysses"]["launches"], 0)
@@ -10268,27 +10324,6 @@ def _tp_rank_work(rank, init, note):
     return out
 
 
-def _tp_rank(rank, init, results, log_path):
-    import faulthandler
-    import traceback
-
-    import torch
-    t0 = time.perf_counter()
-    with open(log_path, "w") as f:
-        def note(msg):
-            f.write(f"{time.perf_counter() - t0:8.1f} s  {msg}\n")
-            f.flush()
-
-        # a rank still running near the deadline dumps its stacks here
-        faulthandler.dump_traceback_later(TP_DEADLINE - 30, file=f)
-        try:
-            with torch.no_grad():   # the train steps enable grad themselves
-                results.put((rank, True, _tp_rank_work(rank, init, note)))
-        except BaseException:
-            results.put((rank, False, traceback.format_exc()))
-        faulthandler.cancel_dump_traceback_later()
-
-
 def tp_main_path(output_dir):
     """Phase 14: sharded training and tensor parallelism, two ranks on the
     one card over gloo (as sp_main_path), full width, the same seeded
@@ -10309,59 +10344,9 @@ def tp_main_path(output_dir):
     for NVLink), peak memory per rank, and each rank's launches, counted
     from zero just before each call. Returns {path: launches} summed over
     the ranks."""
-    import multiprocessing as mp
-    import os
-    import queue
-
-    ctx = mp.get_context("spawn")
-    os.makedirs(output_dir, exist_ok=True)
-    init = os.path.join(os.path.abspath(output_dir), "tp_rendezvous")
-    if os.path.exists(init):
-        os.remove(init)
-    results = ctx.Queue()
-    logs = [os.path.join(output_dir, f"tp_rank{r}.log") for r in range(TP)]
-    procs = [ctx.Process(target=_tp_rank,
-                         args=(r, f"file://{init}", results, logs[r]))
-             for r in range(TP)]
-
-    def tails():
-        out = []
-        for path in logs:
-            if os.path.exists(path):
-                with open(path) as f:
-                    out.append(f"{path}:\n{f.read()[-3000:]}")
-        return "\n".join(out)
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    got = {}
-    end = time.monotonic() + TP_DEADLINE
-    try:
-        while len(got) < TP:
-            try:
-                rank, ok, rec = results.get(timeout=1.0)
-            except queue.Empty:
-                dead = [p.exitcode for p in procs
-                        if p.exitcode not in (None, 0)]
-                if dead or time.monotonic() > end:
-                    fail(f"tp_main_path: a rank died ({dead}) or the ranks "
-                         f"passed {TP_DEADLINE} s\n{tails()}")
-                continue
-            if not ok:
-                fail(f"tp_main_path: rank {rank} failed:\n{rec}\n{tails()}")
-            got[rank] = rec
-        for p in procs:
-            p.join(max(1.0, end - time.monotonic()))
-            if p.exitcode != 0:
-                fail(f"tp_main_path: a rank exited with {p.exitcode}")
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-    wall = time.perf_counter() - t0
-    if os.path.exists(init):
-        os.remove(init)
-    log(json.dumps({"tp_rank_logs": tails()}))
+    got, wall, tails = _run_ranks("tp", _tp_rank_work, TP, TP_DEADLINE,
+                                  output_dir)
+    log(json.dumps({"tp_rank_logs": tails}))
 
     nt, n = TP_TRAIN_LAYERS, TP_LAYERS
     # one fp32 step, remat 'attn': as fp32_train_main_path's, a rank's
@@ -10448,6 +10433,319 @@ def tp_main_path(output_dir):
     return {"tp_train": {c: sum(got[r]["train"]["tp2"]["launches"].get(c, 0)
                                 for r in got) for c in launch_counts()},
             "tp_dit": total("dit"), "tp_qwen": total("qwen")}
+
+
+# ---------------------------------------------------------------------------
+# sequence and tensor parallelism together, and sequence-parallel training:
+# four ranks on the one card
+# ---------------------------------------------------------------------------
+
+SP_TP_WORLD = 4      # sp 2 x tp 2 (serving), fsdp 2 x sp 2 (training)
+SP_TP_LAYERS = 2     # of t2v-1.3B's 30 blocks in the serving runs
+SP_TP_TRAIN_LAYERS = 1   # of 30 in the fp32 train step and its reference
+SP_TP_STEPS = 2      # UniPC steps of the sp x tp pipeline run
+SP_TP_DEADLINE = 480   # s the ranks may take together, start-up included
+
+
+def _sp_tp_rank_work(rank, init, note):
+    """One rank of sp_tp_main_path. Returns its records (numbers only);
+    note(msg) logs its progress."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from univid_tpu_torch.core.config import WAN_CONFIGS, latent_shape
+    from univid_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from univid_tpu_torch.kernels import flash_attention as fa
+    from univid_tpu_torch.models.wan.dit import (WanDiT, wan_dit_forward,
+                                                 wan_dit_forward_sp)
+    from univid_tpu_torch.ops.rope import build_rope_3d
+    from univid_tpu_torch.parallel import sharding, ulysses
+    from univid_tpu_torch.pipelines.ti2v import (WanTI2VPipeline, dit_rope,
+                                                 padded_seq_len)
+    from univid_tpu_torch.train import optim, trainer
+    from univid_tpu_torch.utils.profiling import PhaseTimer
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=SP_TP_WORLD)
+    note("group up")
+    # every mesh before any rank runs alone: a mesh is a collective
+    mesh = make_mesh(MeshSpec(sp=2, tp=2))
+    mesh_t = make_mesh(MeshSpec(fsdp=2, sp=2))
+    out = {"rank": rank}
+    comm = {}
+
+    def timed(nm, fn):   # a collective, synchronised on both sides
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            comm[nm] = comm.get(nm, 0.0) + time.perf_counter() - t0
+            return res
+        return call
+
+    for nm in ("all_to_all_single", "all_reduce", "all_gather",
+               "all_gather_into_tensor", "reduce_scatter_tensor"):
+        setattr(dist, nm, timed(nm, getattr(dist, nm)))
+
+    def start(together=True):
+        # together: every rank runs the call (rank 0's one-rank references
+        # run alone, while the others wait in their next collective)
+        torch.cuda.synchronize()
+        if together:
+            dist.barrier()
+        fa.reset_launches()
+        for k in ulysses.ROUTES:
+            ulysses.ROUTES[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        comm.clear()
+        return time.perf_counter()
+
+    def stop(t0):
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return dict(seconds=secs, collectives_s=dict(comm),
+                    collective_share=sum(comm.values()) / secs,
+                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    launches={k: v for k, v in launch_counts().items() if v},
+                    by_impl=dict(fa.LAUNCHES_BY_IMPL),
+                    routes=dict(ulysses.ROUTES))
+
+    spec = WAN_CONFIGS["t2v-1.3B"]
+    cfg = dataclasses.replace(spec.dit, num_layers=SP_TP_LAYERS)
+    spec = dataclasses.replace(spec, dit=cfg)
+
+    def serving_dit():
+        g = torch.Generator(device="cuda").manual_seed(0)
+        dit = WanDiT(cfg, dtype=torch.bfloat16, device="cuda", gen=g)
+        with torch.no_grad():   # a seeded head: init's zero head gives 0
+            dit.head.head.w.copy_(torch.randn(
+                dit.head.head.w.shape, generator=g, device="cuda") * 0.02)
+        return dit, g
+
+    dit, g = serving_dit()
+    ctx, nctx = (torch.randn((cfg.text_len, cfg.text_dim), generator=g,
+                             device="cuda") * 0.5 for _ in range(2))
+    sharding.shard_params(dit, mesh, sharding.dit_param_sharding_rules())
+    local_q = list(dit.blocks[0].self_attn.q.w.to_local().shape)
+    kw = dict(SP_SHAPE, sampling_steps=SP_TP_STEPS, seed=0, decode=False)
+
+    # ---- (a) the Ulysses pipeline at sp 2 x tp 2, then one rank alone --
+    timer = PhaseTimer()
+    t0 = start()
+    lat = WanTI2VPipeline(spec, dit, None, sp_size=2, mesh=mesh).generate(
+        ctx, nctx, timer=timer, **kw)
+    rec = stop(t0)
+    rec.update(dit_step_s=timer.totals["dit_step"] / SP_TP_STEPS,
+               local_q_shape=local_q, latent_shape=list(lat.shape),
+               finite=bool(torch.isfinite(lat).all()))
+    out["pipeline"] = rec
+    note(f"sp x tp pipeline: {rec['seconds']:.2f} s")
+    grid = (21, 60, 104)
+    x = torch.randn((2,) + grid + (cfg.in_dim,), generator=g, device="cuda")
+    t = torch.tensor([700.0, 700.0], device="cuda")
+    ctx2 = torch.stack([ctx, nctx])
+    rope = dit_rope(cfg, grid, "cuda")
+    seq = padded_seq_len(spec, SP_SHAPE["size"], SP_SHAPE["frame_num"], 2)
+    one_dit = one_ring = None
+    if rank == 0:
+        one_dit = serving_dit()[0]
+        timer1 = PhaseTimer()
+        t0 = start(together=False)
+        one = WanTI2VPipeline(spec, one_dit, None).generate(
+            ctx, nctx, timer=timer1, **kw)
+        out["single"] = dict(stop(t0),
+                             dit_step_s=timer1.totals["dit_step"]
+                             / SP_TP_STEPS, latent_rel_l2=rel_l2(lat, one))
+        one_ring = wan_dit_forward(one_dit, x, t, ctx2, *rope,
+                                   seq_pad_to=seq)
+        del one, one_dit
+    del lat
+
+    # ---- (b) one ring DiT call at sp 2 x tp 2 ---------------------------
+    t0 = start()
+    o_ring = wan_dit_forward_sp(dit, x, t, ctx2, *rope, mesh=mesh,
+                                sp_impl="ring", seq_pad_to=seq)
+    out["ring"] = dict(stop(t0), finite=bool(torch.isfinite(o_ring).all()))
+    note(f"sp x tp ring call: {out['ring']['seconds']:.2f} s")
+    if rank == 0:
+        out["ring"]["rel_l2"] = rel_l2(o_ring, one_ring)
+    del dit, o_ring, one_ring, x
+    torch.cuda.empty_cache()
+
+    # ---- (c) the fp32 train step on fsdp 2 x sp 2, against one rank -----
+    tcfg = dataclasses.replace(cfg, num_layers=SP_TP_TRAIN_LAYERS)
+    _, f, lh, lw = latent_shape(spec, 832, 480, 81)
+    tgrid = (f, lh // 2, lw // 2)
+    pad_to = -(-tgrid[0] * tgrid[1] * tgrid[2] // 64) * 64
+    trope = build_rope_3d(tcfg.head_dim, tgrid, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(62)
+    c = spec.vae.z_dim
+    batch = {"latents": torch.randn((2, f, lh, lw, c), generator=g,
+                                    device="cuda"),
+             "noise": torch.randn((2, f, lh, lw, c), generator=g,
+                                  device="cuda"),
+             "context": torch.randn((2, tcfg.text_len, tcfg.text_dim),
+                                    generator=g, device="cuda"),
+             "t": torch.tensor([500.0, 700.0], device="cuda")}
+
+    def one_step(m):
+        model = _tp_train_model(tcfg, 60)
+        if m is not None:
+            sharding.shard_params(model, m,
+                                  sharding.dit_param_sharding_rules())
+        state, tx = trainer.init_train_state(
+            model, trainer.make_optimizer(TP_TRAIN_LR))
+        step = trainer.make_dit_train_step(tcfg, tx, mesh=m, rope=trope,
+                                           remat_blocks="attn",
+                                           seq_pad_to=pad_to)
+        t0 = start(together=m is not None)
+        with torch.enable_grad():
+            state, loss = step(state, batch)
+        rec = dict(stop(t0), loss=float(loss))
+        note(f"train step on {m}: {rec['seconds']:.2f} s")
+        return model, rec
+
+    if rank == 0:
+        p0 = {nm: p.detach().cpu() for nm, p in
+              _tp_train_model(tcfg, 60).named_parameters()}
+        model, out["train_one_rank"] = one_step(None)
+        ref = {nm: p.detach().cpu() for nm, p in model.named_parameters()}
+        del model
+        torch.cuda.empty_cache()
+    model, rec = one_step(mesh_t)
+    # the sp replicas: each rank's own shards against its sp peer's
+    group = mesh_t["sp"].get_group()
+    equal = True
+    for p in model.parameters():
+        own = optim.local(p).detach().contiguous()
+        both = own.new_empty((2,) + tuple(own.shape))
+        dist.all_gather_into_tensor(both, own[None], group=group)
+        equal = equal and bool(torch.equal(both[0], both[1]))
+    rec.update(sp_replicas_bitwise_equal=equal,
+               local_q_shape=list(optim.local(
+                   model.blocks[0].self_attn.q.w).shape))
+    after = {nm: sharding.full_tensor(p).detach().cpu()
+             for nm, p in model.named_parameters()}
+    if rank == 0:
+        one = out["train_one_rank"]
+
+        def sq(a, b=None):   # the squared L2 of a - b over every tensor
+            return sum(float((a[nm].double() - (0.0 if b is None else
+                                                b[nm].double()))
+                             .square().sum()) for nm in ref)
+        rec.update(loss_rel=abs(rec["loss"] - one["loss"]) / abs(one["loss"]),
+                   params_rel_l2=(sq(after, ref) / sq(ref)) ** 0.5,
+                   update_rel_l2=(sq(after, ref) / sq(ref, p0)) ** 0.5,
+                   moved=sum(not torch.equal(after[nm], p0[nm]) for nm in p0),
+                   tensors=len(p0))
+    out["train"] = rec
+    del model, after, batch
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def sp_tp_main_path(output_dir):
+    """Phase 15: sequence and tensor parallelism together, and the
+    sequence-parallel train step, four ranks on the one card over gloo (as
+    sp_main_path and tp_main_path), t2v-1.3B at full width, the same seeded
+    weights on each rank: (a) WanTI2VPipeline(sp_size=2) on an sp 2 x tp 2
+    mesh, the bf16 DiT (SP_TP_LAYERS blocks) sharded over tp first, for
+    SP_TP_STEPS UniPC steps at 832x480x81 (batch-2 CFG, Ulysses with the
+    fused rope, 12 / (2 x 2) = 3 heads a rank after the exchange, decode
+    False), held to the single-rank pipeline's latent from the same seed
+    (rank 0, after); (b) one wan_dit_forward_sp(sp_impl='ring') call on the
+    same mesh (6 heads a rank), held to wan_dit_forward; (c) one fp32
+    make_dit_train_step step on an fsdp 2 x sp 2 mesh (SP_TP_TRAIN_LAYERS
+    blocks, B = 2 at 832x480x81, remat 'attn'), held to the one-rank step
+    (rank 0, first) at TP_TRAIN_WHY's bounds, and both sp replicas' shards
+    bitwise equal after it. Records seconds against the one rank, the
+    collectives' seconds by kind (all-to-alls, the tp all-reduces, the
+    gathers; each synchronised on both sides: a cost of gloo on one card,
+    not a figure for NVLink) and their share, peak memory and launches a
+    rank, each counted from zero just before its call. Returns {path:
+    launches} summed over the ranks."""
+    got, wall, tails = _run_ranks("sp_tp", _sp_tp_rank_work, SP_TP_WORLD,
+                                  SP_TP_DEADLINE, output_dir)
+    log(json.dumps({"sp_tp_rank_logs": tails}))
+    n, steps, nt = SP_TP_LAYERS, SP_TP_STEPS, SP_TP_TRAIN_LAYERS
+    # kernel A's rope-only mode after the exchange (the norm ran over tp
+    # in the block), self- and cross-attention at the rank's heads
+    want_p = {"flash_attention_bf16": n * steps,
+              "cross_attention_bf16": n * steps,
+              "qk_rope_bf16": n * steps}
+    want_r = {"flash_attention_bf16_lse": 2 * n, "cross_attention_bf16": n}
+    want_t = {"flash_attention_f32_sm90_lse": 3 * nt,
+              "flash_attention_bwd_dq_f32_sm90": 2 * nt,
+              "flash_attention_bwd_dkv_f32_sm90": 2 * nt,
+              "split_bf16x3": 17 * nt}
+    r0 = got[0]
+    log(json.dumps({
+        "phase": "sp_tp_main_path", "model": f"t2v-1.3B (serve {n}, train "
+        f"{nt} of 30 blocks, full width)", "resolution": "832x480x81",
+        "ranks_on_one_card": SP_TP_WORLD, "seconds": wall, "ranks": got,
+        "dit_step_s_sp2_tp2": r0["pipeline"]["dit_step_s"],
+        "dit_step_s_single": r0["single"]["dit_step_s"],
+        "train_step_s_fsdp2_sp2": r0["train"]["seconds"],
+        "train_step_s_single": r0["train_one_rank"]["seconds"],
+        "expected_launches_per_rank": {"pipeline": want_p, "ring": want_r,
+                                       "train": want_t}}))
+    for rank, rec in got.items():
+        p, r, t = rec["pipeline"], rec["ring"], rec["train"]
+        for what, v, want, impl in (
+                ("pipeline", p, want_p, 2 * n * steps),
+                ("ring", r, want_r, 3 * n), ("train", t, want_t, None)):
+            if v["launches"] != want or (
+                    impl is not None and v["by_impl"] != {
+                        "sm90": impl, "causal_sm90": 0, "mma_sync": 0}):
+                fail(f"sp_tp rank {rank}: {what} launches {v['launches']} "
+                     f"{v['by_impl']} != {want} (sm90 {impl})")
+        if p["routes"] != {"heads": n * steps, "gather": 0}:
+            fail(f"sp_tp rank {rank}: Ulysses routes {p['routes']}")
+        if not (p["finite"] and r["finite"] and math.isfinite(t["loss"])):
+            fail(f"sp_tp rank {rank}: a non-finite output")
+        if p["local_q_shape"] != [768, 1536] or p["latent_shape"] != [
+                1, 21, 60, 104, 16]:
+            fail(f"sp_tp rank {rank}: q weight {p['local_q_shape']} (the "
+                 f"rank's 6 heads) or latent {p['latent_shape']}")
+        if t["local_q_shape"] != [1536, 768]:
+            fail(f"sp_tp rank {rank}: the train step's q weight is not "
+                 f"sharded on its in dim: {t['local_q_shape']}")
+        if not t["sp_replicas_bitwise_equal"]:
+            fail(f"sp_tp rank {rank}: the sp replicas' parameters differ "
+                 "after the step")
+    t0 = r0["train"]
+    if t0["moved"] != t0["tensors"]:
+        fail(f"sp_tp train: {t0['tensors'] - t0['moved']} tensors did not "
+             "move")
+    checks = [("sp 2 x tp 2 Ulysses pipeline latent vs one rank",
+               r0["single"]["latent_rel_l2"], 3e-2, SP_WHY),
+              ("sp 2 x tp 2 ring DiT call vs wan_dit_forward",
+               r0["ring"]["rel_l2"], 3e-2, SP_WHY),
+              ("fsdp 2 x sp 2 train step loss vs one rank (relative)",
+               t0["loss_rel"], 1e-5, TP_TRAIN_WHY),
+              ("fsdp 2 x sp 2 train step parameters vs one rank",
+               t0["params_rel_l2"], 1e-6, TP_TRAIN_WHY),
+              ("fsdp 2 x sp 2 train step update vs one rank",
+               t0["update_rel_l2"], 1e-2, TP_TRAIN_WHY)]
+    for what, val, lim, why in checks:
+        log(json.dumps({"check": f"sp_tp: {what}", "value": val,
+                        "limit": lim, "why": why, "ok": val < lim}))
+        if not val < lim:
+            fail(f"sp_tp: {what} {val} >= {lim}")
+
+    def total(tag):
+        return {c: sum(got[r][tag]["launches"].get(c, 0) for r in got)
+                for c in launch_counts()}
+
+    return {"sp_tp": total("pipeline"), "sp_tp_ring": total("ring"),
+            "sp_tp_train": total("train")}
 
 
 # ---------------------------------------------------------------------------
@@ -11516,6 +11814,12 @@ def kernels_line(records, by_path, mask_records):
     own.update(flash_attention_bf16_sp="sp", qk_rope_bf16_sp="sp",
                qk_norm_bf16_sp="sp", cross_attention_bf16_sp="sp",
                flash_attention_bf16_lse_sp_ring="sp_ring")
+    # sp 2 x tp 2: the pipeline run (all four ranks' launches), the ring
+    # call; the train step on fsdp 2 x sp 2 runs the fp32 kernels at the
+    # fp32 fine-tune's shapes, whose rows keep the fine-tune's launches
+    own.update(flash_attention_bf16_sp_tp="sp_tp", qk_rope_bf16_sp_tp="sp_tp",
+               cross_attention_bf16_sp_tp="sp_tp",
+               flash_attention_bf16_lse_sp_tp_ring="sp_tp_ring")
     # the shard shapes of tensor parallelism: the tp = 2 train step (both
     # ranks' launches), the tp DiT call, the LLM's tp prefill
     own.update({f"{nm}{sfx}": "tp_train" for sfx in ("_tp", "_tp_cross")
@@ -11658,6 +11962,7 @@ def main():
     log(json.dumps({"phase": "check_f32_knob_kernels",
                     "seconds": time.perf_counter() - t1}))
     records.update(check_sp_kernels())
+    records.update(check_sp_kernels(tp=2))
     records.update(check_tp_kernels())
     log(json.dumps({"phase": "kernel_checks",
                     "seconds": time.perf_counter() - t0}))
@@ -11781,6 +12086,10 @@ def main():
         t0 = time.perf_counter()
         by_path.update(tp_main_path(args.output_dir))
         log(json.dumps({"phase": "tp_main_path_total",
+                        "seconds": time.perf_counter() - t0}))
+        t0 = time.perf_counter()
+        by_path.update(sp_tp_main_path(args.output_dir))
+        log(json.dumps({"phase": "sp_tp_main_path_total",
                         "seconds": time.perf_counter() - t0}))
         t0 = time.perf_counter()
         qa_cli_on_card(args.output_dir)

@@ -19,8 +19,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.distributed as dist
-from torch.testing._internal.distributed.fake_pg import FakeStore
 
 import univid_tpu.kernels.flash_attention as jfa
 from test_torch_models import D128, np_params
@@ -38,7 +36,6 @@ from univid_tpu_torch import convert
 from univid_tpu_torch.core.config import (TMAConfig, WAN_CONFIGS,
                                           WanDiTConfig, latent_shape)
 from univid_tpu_torch.core.dtypes import FP32_POLICY
-from univid_tpu_torch.core.mesh import MeshSpec, make_mesh
 from univid_tpu_torch.ops.samplers import flow_sigmas
 from univid_tpu_torch.pipelines.moe import (WanMoEPipeline,
                                             expert_schedule,
@@ -231,8 +228,7 @@ def test_i2v_conditioning():
 
 def test_refusals():
     """TaylorSeer raises JAX's NotImplementedError message; sp_size > 1
-    without a mesh raises JAX's ValueError; a mesh with sp and tp both > 1
-    cites the ROADMAP's item that takes them together."""
+    without a mesh raises JAX's ValueError."""
     spec, low, high, vae, ctx = _small()
     with pytest.raises(NotImplementedError) as want:
         JMoE(JCONFIGS["tiny-moe-t2v"], low, high, vae).generate(
@@ -247,16 +243,6 @@ def test_refusals():
     with pytest.raises(ValueError) as got:
         WanMoEPipeline(spec, dits.low, dits.high, dits.vae, sp_size=2)
     assert str(got.value) == str(want.value)
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
-    try:
-        mesh = make_mesh(MeshSpec(sp=2, tp=2), device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1: Sequence and tensor "
-                                 "parallelism together"):
-            WanMoEPipeline(spec, dits.low, dits.high, dits.vae, sp_size=2,
-                           mesh=mesh)
-    finally:
-        dist.destroy_process_group()
     with pytest.raises(ValueError, match="no moe_boundary"):
         WanMoEPipeline(WAN_CONFIGS["tiny"], dits.low, dits.high, dits.vae)
 

@@ -16,6 +16,7 @@ own SP-vs-single tolerances.
 """
 
 import contextlib
+import dataclasses
 import functools
 
 import jax
@@ -27,6 +28,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 import univid_tpu.kernels.flash_attention as jfa
 from test_torch_models import D128, np_params
+from torch_parallel_train_tasks import _task_dit_sp_tp
 from torch_ranks import _mesh, ranks  # noqa: F401
 from univid_tpu.core.config import T5Config as JT5Config
 from univid_tpu.core.config import WAN_CONFIGS as JCONFIGS
@@ -244,20 +246,32 @@ def _task_dit_sp(rank, world, cfg_kw, params, x, t, ctx, grid, t_zero,
                                    **kw).numpy()
 
 
+def _placed(params, mesh):
+    """A JAX DiT tree placed on `mesh` by dit_param_sharding_rules."""
+    return jax.device_put(params, jsh.apply_sharding_rules(
+        params, mesh, jsh.dit_param_sharding_rules()))
+
+
 def _jax_dit_sp(cfg_kw, params, x, t, ctx, grid, t_zero, seq_pad_to, sp,
-                sp_impl, fused):
+                sp_impl, fused, tp=1, fsdp=1, policy=J_FP32):
+    """JAX's SP forward, jitted; with tp or fsdp > 1 on the tree placed by
+    the rules over _jmesh(sp, fsdp, tp), under that mesh."""
     jc = JDiTConfig(**cfg_kw)
     cos, sin = jrope3d(jc.head_dim, grid)
     jt0 = None if t_zero is None else jnp.asarray(t_zero)
+    mesh = _jmesh(sp=sp, fsdp=fsdp, tp=tp)
 
     @jax.jit
     def run(params, x, t, ctx):
-        return j_dit_sp(params, jc, x, t, ctx, cos, sin, mesh=_jmesh(sp=sp),
+        return j_dit_sp(params, jc, x, t, ctx, cos, sin, mesh=mesh,
                         sp_impl=sp_impl, t_zero_mask=jt0,
-                        seq_pad_to=seq_pad_to, policy=J_FP32,
+                        seq_pad_to=seq_pad_to, policy=policy,
                         fused_rope=fused)
 
-    return np.asarray(run(params, x, t, ctx))
+    if tp * fsdp == 1:
+        return np.asarray(run(params, x, t, ctx))
+    with mesh:
+        return np.asarray(run(_placed(params, mesh), x, t, ctx))
 
 
 @pytest.mark.parametrize("world", [2, 4])
@@ -299,6 +313,47 @@ def test_sp_dit_forward_ring_matches_jax(world, ranks):
     np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-3)
 
 
+# a d=128 DiT of 4 heads (dim 512): 1 head a rank at sp 2 x tp 2
+D128_4 = dict(D128, dim=512, num_heads=4)
+SP_KNOBS = {"softmax_bf16": dict(softmax_bf16=True),
+            "qk_int8": dict(qk_int8=True)}
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+@pytest.mark.parametrize("knob", list(SP_KNOBS))
+def test_sp_dit_forward_with_knobs_matches_jax(knob, tp, ranks):
+    """wan_dit_forward_sp at d=128 (4 heads, the kernel route: fused rope,
+    the bound, kv_len from the pad) under a bounded FP32_POLICY with
+    softmax_bf16 or qk_int8, at sp 2 and at sp 2 x tp 2 (the tree placed by
+    the rules on JAX's side), against JAX's SP forward on its Pallas
+    kernels in interpret mode (a true bf16 exp2). PERF.md s2's knob bounds:
+    softmax_bf16 1e-5 mean-relative (bounded); qk_int8 1e-4 (fp32); each
+    knob moves the output by more than 5x its bound (measured: 4.9e-7 and
+    5.7e-6 from JAX, the knobs 6.8e-3 and 7.5e-4 from the knob-free run)."""
+    from test_torch_knobs import _mean_rel, true_bf16_exp2
+    from univid_tpu.kernels.attention import set_attention_backend as jbe
+
+    knobs = SP_KNOBS[knob]
+    case = _dit_case(D128_4, True, True)
+    jbe("pallas")
+    jfa.set_interpret_mode(True)
+    try:
+        with true_bf16_exp2():
+            want, bare = (_jax_dit_sp(
+                D128_4, *case, 2, "ulysses", True, tp=tp,
+                policy=dataclasses.replace(J_FP32, bounded_softmax=True,
+                                           **k)) for k in (knobs, {}))
+    finally:
+        jfa.set_interpret_mode(False)
+        jbe(None)
+    axes = dict(sp=2, tp=tp)
+    got = _same_on_every_rank([o[2] for o in ranks(2 * tp).run(
+        _task_dit_sp_tp, D128_4, axes, *case, "ulysses", True, None, knobs)])
+    tol = 1e-5 if knob == "softmax_bf16" else 1e-4
+    assert _mean_rel(got, want) < tol
+    assert _mean_rel(bare, want) > 5 * tol
+
+
 # ---------------------------------------------------------------------------
 # the SP pipelines
 # ---------------------------------------------------------------------------
@@ -314,31 +369,34 @@ def _jax_noise(jspec, seed):
                                       (1, f, h, w, c), jnp.float32))
 
 
-def _task_pipeline(rank, world, name, trees, ctx, nctx, noise, img):
+def _task_pipeline(rank, world, name, trees, ctx, nctx, noise, img, tp=1,
+                   extra=None):
+    """The SP pipeline over sp x tp = world ranks, each DiT sharded over tp
+    by the rules before it is passed in; extra: more generate arguments."""
     spec = WAN_CONFIGS[name]
-    mesh = _mesh(sp=world)
+    mesh = _mesh(sp=world // tp, tp=tp)
     dits = [convert.dit_from_jax(p, spec.dit, device="cpu")
             for p in trees[:-1]]
+    if tp > 1:
+        for dit in dits:
+            tsh.shard_params(dit, mesh, tsh.dit_param_sharding_rules())
     vae = convert.vae_from_jax(trees[-1], spec.vae, device="cpu")
     if len(dits) == 1:
         pipe = WanTI2VPipeline(spec, dits[0], vae, policy=FP32_POLICY,
-                               sp_size=world, mesh=mesh)
+                               sp_size=world // tp, mesh=mesh)
     else:
         pipe = WanMoEPipeline(spec, *dits, vae, policy=FP32_POLICY,
-                              sp_size=world, mesh=mesh)
-    kw = dict(PIPE_KW, noise=torch.as_tensor(noise))
+                              sp_size=world // tp, mesh=mesh)
+    kw = dict(PIPE_KW, noise=torch.as_tensor(noise), **(extra or {}))
     if img is not None:
         kw["img"] = torch.as_tensor(img)
     return pipe.generate(torch.as_tensor(ctx), torch.as_tensor(nctx),
                          **kw).numpy()
 
 
-@pytest.mark.parametrize("name,world",
-                         [("tiny", 2), ("tiny", 4), ("tiny-moe-t2v", 2),
-                          ("tiny-moe-i2v", 2)])
-def test_sp_pipeline_matches_jax(name, world, ranks):
-    """WanTI2VPipeline / WanMoEPipeline(sp_size=world, mesh) against
-    JAX's SP pipelines: 3 UniPC steps, batch-2 CFG, JAX's noise draw."""
+@functools.lru_cache(maxsize=None)
+def _pipeline_inputs(name):
+    """(DiT trees, VAE tree, ctx, nctx, img) of the SP pipeline tests."""
     jspec = JCONFIGS[name]
     moe = name.startswith("tiny-moe")
     dits = [np_params(init_wan_dit, jspec.dit, s, stacked=True)
@@ -348,21 +406,69 @@ def test_sp_pipeline_matches_jax(name, world, ranks):
     ctx, nctx = _rand(text, 3, 0.5), _rand(text, 4, 0.5)
     img = (np.random.default_rng(5).uniform(-1, 1, (64, 64, 3))
            .astype(np.float32) if name.endswith("i2v") else None)
-    jkw = dict(PIPE_KW)
+    return dits, vae, ctx, nctx, img
+
+
+def _jax_pipeline(name, sp, tp=1, extra=None):
+    """JAX's SP pipeline latent on _jmesh(sp, tp), the DiT trees placed by
+    the rules when tp > 1, from its own noise draw."""
+    jspec = JCONFIGS[name]
+    dits, vae, ctx, nctx, img = _pipeline_inputs(name)
+    jkw = dict(PIPE_KW, **(extra or {}))
     if img is not None:
         jkw["img"] = jnp.asarray(img)
-    if moe:
-        jpipe = JMoE(jspec, *dits, vae, policy=J_FP32, sp_size=world,
-                     mesh=_jmesh(sp=world), dispatch_steps=0)
-    else:
-        jpipe = JPipeline(jspec, *dits, vae, policy=J_FP32, sp_size=world,
-                          mesh=_jmesh(sp=world), dispatch_steps=0)
-    want = np.asarray(jpipe.generate(jnp.asarray(ctx), jnp.asarray(nctx),
-                                     **jkw))
-    got = _same_on_every_rank(ranks(world).run(
+    mesh = _jmesh(sp=sp, tp=tp)
+    jdits = [_placed(d, mesh) for d in dits] if tp > 1 else dits
+    pipe = JMoE if name.startswith("tiny-moe") else JPipeline
+    jpipe = pipe(jspec, *jdits, vae, policy=J_FP32, sp_size=sp, mesh=mesh,
+                 dispatch_steps=0)
+    with mesh if tp > 1 else contextlib.nullcontext():
+        return np.asarray(jpipe.generate(jnp.asarray(ctx), jnp.asarray(nctx),
+                                         **jkw))
+
+
+def _pipeline_case(name, sp, ranks, tp=1, extra=None):
+    """(port, JAX) latents of the SP pipeline `name` from JAX's noise, on
+    sp x tp ranks and on JAX's mesh of the same axes."""
+    dits, vae, ctx, nctx, img = _pipeline_inputs(name)
+    want = _jax_pipeline(name, sp, tp, extra)
+    got = _same_on_every_rank(ranks(sp * tp).run(
         _task_pipeline, name, dits + [vae], ctx, nctx,
-        _jax_noise(jspec, PIPE_KW["seed"]), img))
+        _jax_noise(JCONFIGS[name], PIPE_KW["seed"]), img, tp, extra))
+    return got, want
+
+
+@pytest.mark.parametrize("name,world",
+                         [("tiny", 2), ("tiny", 4), ("tiny-moe-t2v", 2),
+                          ("tiny-moe-i2v", 2)])
+def test_sp_pipeline_matches_jax(name, world, ranks):
+    """WanTI2VPipeline / WanMoEPipeline(sp_size=world, mesh) against
+    JAX's SP pipelines: 3 UniPC steps, batch-2 CFG, JAX's noise draw."""
+    got, want = _pipeline_case(name, world, ranks)
     np.testing.assert_allclose(got, want, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("name", ["tiny", "tiny-moe-t2v"])
+def test_sp_tp_pipeline_matches_jax(name, ranks):
+    """Both pipelines with sp_size 2 on an sp 2 x tp 2 mesh (4 ranks; each
+    DiT sharded over tp before it is passed in: 2 of its 4 heads a rank,
+    1 after the exchange) against JAX's pipelines on the same mesh with
+    the trees placed by the rules: 3 UniPC steps from JAX's noise."""
+    got, want = _pipeline_case(name, 2, ranks, tp=2)
+    np.testing.assert_allclose(got, want, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_sp_pipeline_with_taylorseer_matches_jax(tp, ranks):
+    """The tiny SP pipeline at sp 2 (and sp 2 x tp 2) with TaylorSeer
+    (threshold 2 over 8 UniPC steps: the first 5 full, then Taylor steps
+    between full ones) against JAX's SP pipeline with the same threshold;
+    the knob moves the latent by far more than the tolerance."""
+    extra = dict(sampling_steps=8, taylorseer_threshold=2)
+    got, want = _pipeline_case("tiny", 2, ranks, tp=tp, extra=extra)
+    np.testing.assert_allclose(got, want, rtol=5e-4, atol=5e-4)
+    off = _jax_pipeline("tiny", 2, tp, dict(sampling_steps=8))
+    assert np.abs(want - off).max() > 1e-2
 
 
 # ---------------------------------------------------------------------------
@@ -499,22 +605,20 @@ def _task_mesh_refusals(rank, world):
         try:
             fn()
             out.append(None)
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             out.append(str(e))
     return out
 
 
 def test_mesh_size_and_tensor_parallel_refusals(ranks):
     """make_mesh raises JAX's ValueError for a spec of the wrong size; a
-    serving mesh with sp and tp both > 1 raises the message of the queue 1
-    item that takes them together (tp alone runs: test_torch_parallel_train
-    .py)."""
-    for size_err, tp_err in ranks(4).run(_task_mesh_refusals):
+    serving mesh with sp and tp both > 1 is accepted (the sp x tp forwards
+    and pipelines: test_torch_parallel_train.py and
+    test_sp_tp_pipeline_matches_jax)."""
+    for size_err, sp_tp in ranks(4).run(_task_mesh_refusals):
         assert size_err == ("mesh spec MeshSpec(dp=1, fsdp=1, sp=2, tp=1) "
                             "needs 2 devices, have 4")
-        assert tp_err == tsh.SP_TP_LATER
-        assert ("ROADMAP.md queue 1: Sequence and tensor parallelism "
-                "together") in tp_err
+        assert sp_tp is None
 
 
 def _task_sp_size_mismatch(rank, world, name):

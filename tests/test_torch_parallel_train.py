@@ -28,13 +28,15 @@ import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from test_torch_models import D128, np_params
-from test_torch_parallel import (QWEN_CFG, SP_CFG, T5_CFG, _dit_case, _rand,
+import univid_tpu.kernels.flash_attention as jfa
+from test_torch_parallel import (D128_4, QWEN_CFG, RING_CFG, SP_CFG, T5_CFG,
+                                 _dit_case, _jax_dit_sp, _rand,
                                  _same_on_every_rank)
 from torch_parallel_train_tasks import (NAFLEX_TEXT, NAFLEX_VISION,
                                         SIGLIP_TEXT, SIGLIP_VISION, TRAIN_CFG,
-                                        TRAIN_GRID, _task_dit_tp,
-                                        _task_qwen_tp, _task_scorer,
-                                        _task_sp_tp_refusals, _task_t5_tp,
+                                        TRAIN_GRID, _task_dit_sp_tp,
+                                        _task_dit_tp, _task_qwen_tp,
+                                        _task_scorer, _task_t5_tp,
                                         _task_train, _task_train_refusals)
 from torch_ranks import ranks  # noqa: F401
 from univid_tpu.core.config import T5Config as JT5Config
@@ -55,8 +57,6 @@ from univid_tpu.reflection import scorer as jscorer
 from univid_tpu.train import trainer as jtrainer
 from univid_tpu_torch import convert
 from univid_tpu_torch.core.mesh import MeshSpec
-from univid_tpu_torch.parallel import sharding as tsh
-from univid_tpu_torch.train import trainer as ttrainer
 
 LOSS = dict(rtol=1e-5, atol=1e-6)
 PARAM = dict(rtol=1e-4, atol=1e-5)
@@ -64,7 +64,10 @@ FWD = dict(rtol=2e-4, atol=2e-4)
 SCORER = dict(rtol=1e-4, atol=1e-5)
 
 MESHES = {"dp2_fsdp2_tp2": dict(dp=2, fsdp=2, tp=2),
-          "fsdp2": dict(fsdp=2), "tp2": dict(tp=2)}
+          "fsdp2": dict(fsdp=2), "tp2": dict(tp=2),
+          # the sp ranks are replicas of their dp x fsdp share
+          "sp2": dict(sp=2), "dp2_sp2": dict(dp=2, sp=2),
+          "fsdp2_sp2_tp2": dict(fsdp=2, sp=2, tp=2)}
 
 
 def _world(axes):
@@ -133,15 +136,24 @@ def _jax_train(sharded, clip_only=False):
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_sharded_train_step_matches_jax(mesh, remat, ranks):
     """One make_dit_train_step(mesh=...) step on the port's sharded model
-    (its batch over dp x fsdp) against JAX's unsharded and sharded steps:
-    the loss at rtol 1e-5 / atol 1e-6, every updated parameter at rtol
-    1e-4 / atol 1e-5; the loss and parameters the same on every rank."""
+    (its batch over dp x fsdp; the sp ranks replicas of their share)
+    against JAX's unsharded and sharded steps: the loss at rtol 1e-5 /
+    atol 1e-6, every updated parameter at rtol 1e-4 / atol 1e-5; the loss
+    and parameters the same on every rank, so equal across the sp
+    replicas (each rank's own shards are compared too)."""
     params, batch = _train_case()
     axes = MESHES[mesh]
     outs = ranks(_world(axes)).run(_task_train, axes, params, batch, remat)
     loss = _same_on_every_rank([np.float64(o[0]) for o in outs])
     for name in outs[0][2]:
         _same_on_every_rank([o[2][name] for o in outs])
+    sp, tp = axes.get("sp", 1), axes.get("tp", 1)
+    replicas = {}   # the mesh's rank order: (dp, fsdp, sp, tp)
+    for r, o in enumerate(outs):
+        replicas.setdefault((r // (sp * tp), r % tp), []).append(o[3])
+    for group in replicas.values():
+        for name in group[0]:
+            _same_on_every_rank([own[name] for own in group])
     start = _sd(params)
     for sharded in (False, True):
         jloss, jparams = _jax_train(sharded)
@@ -179,13 +191,10 @@ def test_clip_norm_needs_the_cross_rank_sum(mesh, ranks):
 
 
 def test_train_step_refuses_a_batch_that_does_not_split(ranks):
-    """B = 3 over dp 2 x fsdp 2 raises a ValueError naming the sizes; an
-    sp > 1 mesh raises the sequence-parallel training item's message."""
+    """B = 3 over dp 2 x fsdp 2 raises a ValueError naming the sizes."""
     params, batch = _train_case()
-    for odd, sp in ranks(8).run(_task_train_refusals, params, batch):
+    for odd in ranks(8).run(_task_train_refusals, params, batch):
         assert odd == "a batch of 3 does not split over dp 2 x fsdp 2 = 4 ranks"
-        assert sp == ttrainer.SP_TRAIN_LATER
-        assert "ROADMAP.md queue 1: Sequence-parallel training" in sp
 
 
 # ---------------------------------------------------------------------------
@@ -242,15 +251,84 @@ def test_qk_norm_needs_the_cross_rank_sum(ranks):
     assert np.abs(outs[0][1] - want).max() > 1e-2
 
 
-def test_sequence_and_tensor_parallelism_together_raise(ranks):
-    """A tp-sharded DiT refuses the sequence-parallel forward, and a
-    pipeline's mesh with sp and tp both > 1 is refused, citing the queue 1
-    item by name."""
-    params = _dit_case(SP_CFG, False, False)[0]
-    for sp_fwd, mesh in ranks(4).run(_task_sp_tp_refusals, SP_CFG, params):
-        assert sp_fwd == mesh == tsh.SP_TP_LATER
-        assert ("ROADMAP.md queue 1: Sequence and tensor parallelism "
-                "together") in mesh
+# ---------------------------------------------------------------------------
+# sequence and tensor parallelism together: the SP forward on a tp DiT
+# ---------------------------------------------------------------------------
+
+# (config, mesh axes, i2v, padded tokens, fused rope); SP6: 6 heads, 3 a
+# tp rank, which do not split over sp 2 (the gather route)
+SP6_CFG = dict(SP_CFG, dim=48, num_heads=6)
+SP_TP_DIT = {"t2v": (SP_CFG, dict(sp=2, tp=2), False, False, False),
+             "i2v_padded_fused": (SP_CFG, dict(sp=2, tp=2), True, True, True),
+             "d128_fused": (D128_4, dict(sp=2, tp=2), True, True, True),
+             "fsdp2_sp2_tp2": (SP_CFG, dict(fsdp=2, sp=2, tp=2), True, True,
+                               True),
+             "gather_6_heads": (SP6_CFG, dict(sp=2, tp=2), True, True, False),
+             "gather_6_heads_fused": (SP6_CFG, dict(sp=2, tp=2), True, True,
+                                      True)}
+
+
+def _sp_tp_want(cfg_kw, case, axes, sp_impl, fused):
+    return _jax_dit_sp(cfg_kw, *case, axes["sp"], sp_impl, fused,
+                       tp=axes["tp"], fsdp=axes.get("fsdp", 1))
+
+
+@pytest.mark.parametrize("case", list(SP_TP_DIT))
+def test_sp_tp_dit_forward_matches_jax(case, ranks):
+    """wan_dit_forward_sp (Ulysses) on a DiT sharded over tp (and fsdp)
+    against JAX's SP forward on the tree placed by the rules over the same
+    axes: each rank's q weight its N / tp heads (over fsdp its dim / fsdp
+    columns); the qk norm over tp before the exchange; the d=128 case on
+    the card's route (kernel A's plain rope-only mode after the exchange,
+    1 head a rank); 6 heads at sp 2 x tp 2 take the gather route (q, k, v
+    gathered over tp, the exchange on all 6 heads), every other case the
+    rank's own heads."""
+    cfg_kw, axes, i2v, pad, fused = SP_TP_DIT[case]
+    data = _dit_case(cfg_kw, i2v, pad)
+    want = _sp_tp_want(cfg_kw, data, axes, "ulysses", fused)
+    outs = ranks(_world(axes)).run(_task_dit_sp_tp, cfg_kw, axes, *data,
+                                   "ulysses", fused)
+    dim, blocks = cfg_kw["dim"], cfg_kw["num_layers"]
+    gather = case.startswith("gather")
+    for local, routes, _ in outs:
+        assert local == (dim // 2, dim // axes.get("fsdp", 1))
+        assert routes == {"heads": 0 if gather else blocks,
+                          "gather": blocks if gather else 0}
+    got = _same_on_every_rank([o[2] for o in outs])
+    np.testing.assert_allclose(got, want, **FWD)
+
+
+def test_sp_tp_ring_forward_matches_jax(ranks):
+    """The ring at sp 2 x tp 2 (RING_CFG: 2 of its 4 heads a rank, the kv
+    shards passed over the sp group) against JAX's SP ring forward on the
+    placed tree, its Pallas kernel in interpret mode; at the ring's 5e-3."""
+    axes = dict(sp=2, tp=2)
+    data = _dit_case(RING_CFG, False, False)
+    jfa.set_interpret_mode(True)
+    try:
+        want = _sp_tp_want(RING_CFG, data, axes, "ring", False)
+    finally:
+        jfa.set_interpret_mode(False)
+    outs = ranks(4).run(_task_dit_sp_tp, RING_CFG, axes, *data, "ring",
+                        False)
+    assert all(o[1] == {"heads": 0, "gather": 0} for o in outs)
+    got = _same_on_every_rank([o[2] for o in outs])
+    np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize("norm", ["twice", "heads"])
+def test_qk_norm_runs_once_under_sp_and_tp(norm, ranks):
+    """At sp 2 x tp 2 the self-attention's qk norm runs once, over tp,
+    before the exchange (test_sp_tp_dit_forward_matches_jax). Run a second
+    time, or over each token's N / (sp * tp) heads of a group alone (what a
+    rank would see after the exchange), it gives another function than
+    JAX's."""
+    axes = dict(sp=2, tp=2)
+    data = _dit_case(SP_CFG, True, True)
+    want = _sp_tp_want(SP_CFG, data, axes, "ulysses", True)
+    outs = ranks(4).run(_task_dit_sp_tp, SP_CFG, axes, *data, "ulysses",
+                        True, norm)
+    assert np.abs(outs[0][2] - want).max() > 1e-2
 
 
 # ---------------------------------------------------------------------------

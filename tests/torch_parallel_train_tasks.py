@@ -4,6 +4,9 @@ it imports no JAX (the ranks start without it). Inputs arrive as numpy
 trees and arrays; each task converts and shards them on its rank.
 """
 
+import dataclasses
+import functools
+
 import torch
 
 from torch_ranks import _mesh
@@ -18,6 +21,7 @@ from univid_tpu_torch.models.wan.t5 import encode_padded
 from univid_tpu_torch.ops.rope import build_rope_3d
 from univid_tpu_torch.parallel import sharding as tsh
 from univid_tpu_torch.parallel import tensor_parallel as ttp
+from univid_tpu_torch.parallel import ulysses as tuly
 from univid_tpu_torch.reflection import naflex as tn
 from univid_tpu_torch.reflection import scorer as tscorer
 from univid_tpu_torch.train import optim as toptim
@@ -43,8 +47,8 @@ def _full_state(model):
 def _task_train(rank, world, axes, params, batch, remat, clip_only=False,
                 local_norm=False):
     """One sharded train step: (loss, the clip's norm, every parameter
-    gathered whole). local_norm: the clip takes each rank's own sum of
-    squares (no all-reduce)."""
+    gathered whole, the rank's own shard of each). local_norm: the clip
+    takes each rank's own sum of squares (no all-reduce)."""
     cfg = WanDiTConfig(**TRAIN_CFG)
     norms = []
     real = toptim.global_sq_norm
@@ -72,7 +76,9 @@ def _task_train(rank, world, axes, params, batch, remat, clip_only=False,
                                    for k, v in batch.items()})
     finally:
         toptim.global_sq_norm = real
-    return float(loss), norms[0], _full_state(model)
+    own = {n: toptim.local(p).detach().numpy()
+           for n, p in model.named_parameters()}
+    return float(loss), norms[0], _full_state(model), own
 
 
 def _task_train_refusals(rank, world, params, batch):
@@ -83,19 +89,12 @@ def _task_train_refusals(rank, world, params, batch):
     step = ttrainer.make_dit_train_step(
         cfg, tx, mesh=mesh,
         rope=build_rope_3d(cfg.head_dim, TRAIN_GRID, device="cpu"))
-    out = []
-    for fn in (lambda: step(state, {k: torch.as_tensor(v[:3])
-                                    for k, v in batch.items()}),
-               lambda: ttrainer.make_dit_train_step(
-                   cfg, tx, mesh=_mesh(sp=2, fsdp=world // 2),
-                   rope=(None, None))):
-        try:
-            with torch.enable_grad():
-                fn()
-            out.append(None)
-        except (ValueError, NotImplementedError) as e:
-            out.append(str(e))
-    return out
+    try:
+        with torch.enable_grad():
+            step(state, {k: torch.as_tensor(v[:3]) for k, v in batch.items()})
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 def _task_dit_tp(rank, world, cfg_kw, axes, params, x, t, ctx, grid, t_zero,
@@ -120,20 +119,59 @@ def _task_dit_tp(rank, world, cfg_kw, axes, params, x, t, ctx, grid, t_zero,
     return local, out.numpy()
 
 
-def _task_sp_tp_refusals(rank, world, cfg_kw, params):
+def _wrong_qk_norm(real, norm, sp, p, x, n_heads, policy, defer_norm=False,
+                   tp=None):
+    """`dit._attn_qkv` with the self-attention's qk norm done wrong:
+    'twice' (the right norm over tp, then again), 'heads' (each token's N /
+    (sp * tp) heads of a group normed alone: what a norm after the Ulysses
+    exchange would see)."""
+    q, k, v = real(p, x, n_heads, policy, defer_norm=True, tp=tp)
+    b, l, n, d = q.shape
+
+    def wrong(t, g):
+        t = t.reshape(b, l, n * d)
+        if norm == "twice":
+            once = ttp.rms_norm_tp(t, g, 1e-6, tp)
+            return ttp.rms_norm_tp(once, g, 1e-6, tp).reshape(b, l, n, d)
+        g, w = g[tp.slice(g.shape[0])], n * d // sp
+        return torch.cat([unn.rms_norm(t[..., i * w:(i + 1) * w],
+                                       g[i * w:(i + 1) * w], eps=1e-6)
+                          for i in range(sp)], dim=-1).reshape(b, l, n, d)
+
+    return wrong(q, p["norm_q"]), wrong(k, p["norm_k"]), v
+
+
+def _task_dit_sp_tp(rank, world, cfg_kw, axes, params, x, t, ctx, grid,
+                    t_zero, seq_pad_to, sp_impl, fused, norm=None,
+                    knobs=None):
+    """One wan_dit_forward_sp call on a DiT sharded over `axes` (sp, with
+    tp and fsdp): (the rank's q weight shape, the Ulysses calls by route,
+    the output). norm: a wrong qk norm in place of the block's
+    (`_wrong_qk_norm`); knobs: the serving knobs on a bounded
+    FP32_POLICY."""
     cfg = WanDiTConfig(**cfg_kw)
     model = convert.dit_from_jax(params, cfg, device="cpu")
-    tsh.shard_params(model, _mesh(tp=world), tsh.dit_param_sharding_rules())
-    out = []
-    for fn in (lambda: tdit.wan_dit_forward_sp(
-                   model, None, None, None, None, None, mesh=_mesh(tp=world)),
-               lambda: tsh.check_serving_mesh(_mesh(sp=2, tp=world // 2), 2)):
-        try:
-            fn()
-            out.append(None)
-        except NotImplementedError as e:
-            out.append(str(e))
-    return out
+    mesh = _mesh(**axes)
+    tsh.shard_params(model, mesh, tsh.dit_param_sharding_rules())
+    local = tuple(toptim.local(model.blocks[0].self_attn.q.w).shape)
+    policy = FP32_POLICY if knobs is None else dataclasses.replace(
+        FP32_POLICY, bounded_softmax=True, **knobs)
+    cos, sin = build_rope_3d(cfg.head_dim, grid, device="cpu")
+    real = tdit._attn_qkv
+    if norm is not None:
+        tdit._attn_qkv = functools.partial(_wrong_qk_norm, real, norm,
+                                           axes["sp"])
+    before = dict(tuly.ROUTES)
+    try:
+        out = tdit.wan_dit_forward_sp(
+            model, torch.as_tensor(x), torch.as_tensor(t),
+            torch.as_tensor(ctx), cos, sin, mesh=mesh, sp_impl=sp_impl,
+            t_zero_mask=None if t_zero is None else torch.as_tensor(t_zero),
+            seq_pad_to=seq_pad_to, policy=policy, fused_rope=fused)
+    finally:
+        tdit._attn_qkv = real
+    routes = {k: v - before[k] for k, v in tuly.ROUTES.items()}
+    return local, routes, out.numpy()
 
 
 def _task_t5_tp(rank, world, cfg_kw, params, ids, lens):

@@ -15,8 +15,8 @@ address, world size and rank); its collectives run on each axis's process
 group. JAX's `shard` / `replicated` NamedSharding helpers have no
 counterpart here: a parameter's placement is the spec its sharding rule
 gives (`parallel.sharding.apply_sharding_rules`). A train step splits its
-batch over the dp x fsdp ranks; sp > 1 beside tp > 1 is refused
-(`parallel.sharding.check_serving_mesh`).
+batch over the dp x fsdp ranks, the sp and tp ranks holding replicas of
+their share; a serving mesh may hold sp > 1 beside tp > 1.
 """
 
 from __future__ import annotations

@@ -27,13 +27,16 @@ both forwards: each unit (the root, each block) is gathered around its use
 (`gathered`, inside each segment that `remat_blocks` recomputes), since
 the forwards read the tensors directly and FSDP2's module hooks never
 fire; under grad the gradients reach the shards. On a mesh with tp > 1
-(`wan_dit_forward` only; sequence and tensor parallelism together wait)
-each rank runs N / tp heads and ffn_dim / tp of the FFN: q / k / v and fc0
-are column-parallel, o and fc1 row-parallel with their bias added once
-after the sum over tp (`parallel.tensor_parallel`); Wan's qk norm takes
-its sum of squares over the whole N * D of a token across the tp group,
-and the score bound the whole gains; the modulation, norms and embeddings
-stay whole.
+(in both forwards) each rank runs N / tp heads and ffn_dim / tp of the
+FFN: q / k / v and fc0 are column-parallel, o and fc1 row-parallel with
+their bias added once after the sum over tp (`parallel.tensor_parallel`);
+Wan's qk norm takes its sum of squares over the whole N * D of a token
+across the tp group, and the score bound the whole gains; the modulation,
+norms and embeddings stay whole. With sp and tp together a rank holds
+L / sp tokens and N / tp heads: the qk norm runs once, over tp, before the
+exchange, and Ulysses runs over the sp group on the rank's heads (or on
+all N after a gather over tp, where N / tp does not split over sp), the
+ring on the rank's heads.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ from ...kernels.flash_attention import (D128, build_fused_rope_tables,
 from ...ops.embeddings import sinusoidal_embedding_1d
 from ...ops.rope import apply_rope
 from ...parallel.ring import ring_attention
-from ...parallel.sharding import SP_TP_LATER, gathered
+from ...parallel.sharding import gathered
 from ...parallel.tensor_parallel import (copy_to_tp, rms_norm_tp,
                                          row_parallel_linear, tp_of)
 from ...parallel.ulysses import ulysses_attention
@@ -290,9 +293,9 @@ def _self_attn_qkv(bp, cfg, x32, sel, rope_cos, rope_sin, rope_tabs, policy,
     `attention` takes both (`_self_attn`). Under sequence parallelism the
     norm runs here, on the rank's tokens with all their heads: Ulysses
     scatters the heads, and a norm over a rank's N / sp heads of a token
-    is another function. Under tensor parallelism it runs here too, its
-    sum of squares summed over tp (`rms_norm_tp`); fused, `attention` then
-    takes the rotation alone."""
+    is another function. Under tensor parallelism it runs here too, once,
+    in `_attn_qkv`, its sum of squares summed over tp (`rms_norm_tp`), sp
+    or not; fused, `attention` then takes the rotation alone."""
     cd = policy.compute_dtype
     y = _modulated(x32, sel(0), sel(1), cfg.eps).to(cd)
     q, k, v = _attn_qkv(bp.self_attn, y, cfg.num_heads, policy,
@@ -301,7 +304,7 @@ def _self_attn_qkv(bp, cfg, x32, sel, rope_cos, rope_sin, rope_tabs, policy,
     if rope_tabs is None:
         q = apply_rope(q, rope_cos, rope_sin).to(cd)
         k = apply_rope(k, rope_cos, rope_sin).to(cd)
-    elif sp is not None and "norm_q" in bp.self_attn:
+    elif sp is not None and tp is None and "norm_q" in bp.self_attn:
         q, k = _norm_heads(q, k, _qk_norm(bp.self_attn, policy, True))
     return q, k, v
 
@@ -315,8 +318,8 @@ def _self_attn(bp, cfg, q, k, v, rope_tabs, self_kv_len, policy, sp=None,
         # JAX's ring path: the running max, neither bound nor knobs
         o = ring_attention(q, k, v, sp.group, seq_len_global=self_kv_len)
     elif sp is not None:
-        o = ulysses_attention(q, k, v, sp.group, kv_len=self_kv_len,
-                              rope_tables=rope_tabs,
+        o = ulysses_attention(q, k, v, sp.group, tp=tp,
+                              kv_len=self_kv_len, rope_tables=rope_tabs,
                               softmax_bf16=policy.softmax_bf16,
                               qk_int8=policy.qk_int8, score_bound=bound)
     else:
@@ -553,12 +556,18 @@ def wan_dit_forward_sp(model: WanDiT, x, t, context, rope_cos, rope_sin, *,
     global slice of the tables; fused_rope is ignored, as in JAX), padded
     keys masked through the global kv_len either way. Cross-attention and
     the FFN stay local (FFN_CHUNK_ELEMS per rank); the head's output is
-    all-gathered before unpatchify."""
+    all-gathered before unpatchify.
+
+    A model sharded over the mesh's tp axis (`shard_params`) runs N / tp
+    heads a rank through both: the qk norm over tp before the exchange
+    (`rms_norm_tp`); Ulysses over the sp group on the rank's heads or,
+    where N / tp heads do not split over sp, on all N after a gather over
+    tp (`parallel.ulysses.ulysses_attention`'s gather route); the ring on
+    the rank's heads. num_heads must still divide by sp (JAX's
+    ValueError)."""
     if sp_impl not in ("ulysses", "ring"):
         raise ValueError(f"sp_impl must be 'ulysses' or 'ring', got "
                          f"{sp_impl!r}")
-    if tp_of(model) is not None:
-        raise NotImplementedError(SP_TP_LATER)
     _check_forward(model, remat_blocks)
     cfg = model.cfg
     group = mesh[AXIS_SP].get_group()

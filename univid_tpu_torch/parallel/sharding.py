@@ -50,10 +50,6 @@ from .tensor_parallel import TensorParallel
 Spec = Tuple[Optional[str], ...]
 Rules = List[Tuple[str, Spec]]
 
-SP_TP_LATER = ("sequence parallelism (sp > 1) on a mesh with tp > 1 is a "
-               "later slice (ROADMAP.md queue 1: Sequence and tensor "
-               "parallelism together)")
-
 F, T = AXIS_FSDP, AXIS_TP
 
 
@@ -155,16 +151,14 @@ def apply_sharding_rules(params, mesh, rules: Rules) -> Dict[str, Spec]:
 
 def check_serving_mesh(mesh, sp_size: int) -> None:
     """A pipeline's sp_size and mesh: sp_size > 1 needs a mesh (JAX's
-    ValueError), sp > 1 beside tp > 1 raises NotImplementedError, and
-    sp_size must be the size of the mesh's sp axis. A DiT sharded over tp
-    serves at sp_size 1 through the same forward (its TensorParallel)."""
+    ValueError), and sp_size must be the size of the mesh's sp axis. A DiT
+    sharded over the mesh's tp (and fsdp) axes serves through the same
+    forwards (its TensorParallel), at sp_size 1 or beside sp > 1."""
     if mesh is None:
         if sp_size > 1:
             raise ValueError("sp_size > 1 requires a mesh")
         return
     sizes = axis_sizes(mesh)
-    if sizes[AXIS_SP] > 1 and sizes[AXIS_TP] > 1:
-        raise NotImplementedError(SP_TP_LATER)
     if sizes[AXIS_SP] != sp_size:
         raise ValueError(f"sp_size {sp_size} is not the mesh's sp axis "
                          f"({sizes[AXIS_SP]})")

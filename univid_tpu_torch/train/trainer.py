@@ -6,20 +6,30 @@ and `make_dit_train_step`. The loss is the flow-matching velocity MSE
 (target noise - x0 at sigma = t / num_train_timesteps), as in the JAX
 package. The step updates the model's parameters in place.
 
-With a mesh (dp x fsdp x tp; the JAX step's SPMD over the mesh in scope)
-the model is sharded first (`parallel.sharding.shard_params`, then
+With a mesh (dp x fsdp x sp x tp; the JAX step's SPMD over the mesh in
+scope) the model is sharded first (`parallel.sharding.shard_params`, then
 `init_train_state`). The batch is split over the dp x fsdp ranks, HSDP
 style, FSDP being data-parallel too (JAX puts it over dp alone); the ranks
-of a tp group share theirs. Each rank's forward gathers a unit's fsdp
+of a tp group share theirs, and so do the ranks of an sp group, each a
+replica of the whole step: JAX's step never reads its mesh, so on an sp >
+1 mesh it runs the single-device function, and the port's forward does
+not split the sequence either (a split would be speed work, not JAX's
+function). Each rank's forward gathers a unit's fsdp
 shards by an autograd Function whose backward reduce-scatters the
 gradient into the shard; a unit stays gathered while autograd keeps its
 tensors, and a segment that remat_blocks recomputes is gathered again in
 the backward (`parallel.sharding.gathered`), so 'attn' and True keep the
 weights sharded between the passes. After the backward the gradients of
 parameters whole over fsdp are all-reduced over fsdp, every gradient over
-dp, each divided by dp * fsdp (the mean of the ranks' mean losses, the
-global mean); the update runs on each rank's shards, the clip on the
-whole model's norm (train/optim.py). The loss returned is the global mean.
+dp and then over sp, each divided by dp * fsdp * sp (the mean of the
+ranks' mean losses, the global mean); the update runs on each rank's
+shards, the clip on the whole model's norm (train/optim.py). The loss
+returned is the global mean. The sp replicas compute the same gradients,
+bit for bit where the backward is deterministic (the fp32 d=128 kernels,
+the CPU); the bf16 one-pass backward sums dq by fp32 atomics, so two
+replicas may differ by an ulp a step. Averaging over sp (one all-reduce,
+like the dp one) hands every replica the same sum, so their parameters
+stay equal bit for bit from step to step.
 """
 
 from __future__ import annotations
@@ -37,9 +47,6 @@ from ..models.wan.dit import wan_dit_forward
 from ..ops.samplers import add_flow_noise
 from ..parallel.sharding import axis_sizes
 from . import optim
-
-SP_TRAIN_LATER = ("a train step over an sp > 1 mesh is a later slice "
-                  "(ROADMAP.md queue 1: Sequence-parallel training)")
 
 
 def make_optimizer(learning_rate=1e-4, weight_decay=0.01, grad_clip=1.0,
@@ -70,8 +77,9 @@ def make_dit_train_step(cfg: WanDiTConfig, tx, mesh=None,
     [B, F, H, W, C], context [B, L, D], t [B] in [0, 1000), noise like the
     latents, the whole batch on every rank. rope = (cos, sin) tables of
     the token grid. remat_blocks (False | True | 'attn') recomputes DiT
-    blocks in the backward. mesh: a DeviceMesh (sp = 1) the model was
-    sharded over; B must divide by dp * fsdp (ValueError)."""
+    blocks in the backward. mesh: a DeviceMesh the model was sharded over
+    (any of dp, fsdp, sp, tp; the sp and tp ranks are replicas of their dp
+    x fsdp share); B must divide by dp * fsdp (ValueError)."""
     rope_cos, rope_sin = rope
     ranks = _DataRanks(mesh) if mesh is not None else None
 
@@ -122,14 +130,14 @@ def _all_reduce_flat(tensors, group) -> None:
 
 class _DataRanks:
     """The data-parallel ranks of a train step's mesh: dp x fsdp, each
-    with its share of the batch."""
+    with its share of the batch; the sp ranks of each are its replicas."""
 
     def __init__(self, mesh):
         sizes = axis_sizes(mesh)
-        if sizes[AXIS_SP] > 1:
-            raise NotImplementedError(SP_TRAIN_LATER)
-        self.dp, self.fsdp = sizes[AXIS_DP], sizes[AXIS_FSDP]
-        self.groups = {ax: mesh[ax].get_group() for ax in (AXIS_DP, AXIS_FSDP)
+        self.dp, self.fsdp, self.sp = (sizes[AXIS_DP], sizes[AXIS_FSDP],
+                                       sizes[AXIS_SP])
+        self.groups = {ax: mesh[ax].get_group()
+                       for ax in (AXIS_DP, AXIS_FSDP, AXIS_SP)
                        if sizes[ax] > 1}
         self.index = (mesh[AXIS_DP].get_local_rank() * self.fsdp
                       + mesh[AXIS_FSDP].get_local_rank())
@@ -147,14 +155,16 @@ class _DataRanks:
 
     def mean_grads(self, params, grads, loss):
         """Average the gradients (in place, the local tensors) and the loss
-        over the dp x fsdp ranks; returns the global mean loss."""
+        over the dp x fsdp ranks and their sp replicas; returns the global
+        mean loss."""
         locs = [optim.local(g) for g in grads]
         whole = [g for p, g in zip(params, locs) if not _fsdp_sharded(p)]
         if AXIS_FSDP in self.groups:
             _all_reduce_flat(whole + [loss.view(1)], self.groups[AXIS_FSDP])
-        if AXIS_DP in self.groups:
-            _all_reduce_flat(locs + [loss.view(1)], self.groups[AXIS_DP])
-        n = self.dp * self.fsdp
+        for ax in (AXIS_DP, AXIS_SP):
+            if ax in self.groups:
+                _all_reduce_flat(locs + [loss.view(1)], self.groups[ax])
+        n = self.dp * self.fsdp * self.sp
         for g in locs:
             g.div_(n)
         return loss / n
